@@ -1,0 +1,96 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles on its own with ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface
+(``build/kernels/lib<name>-<hash>.so`` at the root of the checkout,
+which ``.gitignore`` lists), loaded with ``ctypes``.  The hash covers
+the source and the flags, so an edited source rebuilds and an unchanged
+one is reused.  Nothing builds at import: the first wrapper call on a
+CUDA tensor builds its kernel (or :func:`build` builds several at once,
+one ``nvcc`` process each, all started together).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels build with the "
+                       "CUDA toolkit's nvcc (on PATH or under CUDA_HOME)")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, float]:
+    """Compile every kernel of ``names`` that has no library yet, one
+    ``nvcc`` each, started together.  Returns seconds per name (0.0
+    for a library that already existed).  Raises with nvcc's output
+    when a build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs, secs = {}, {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            secs[name] = 0.0
+            continue
+        # write to a private name, rename into place once complete: a
+        # concurrent builder never loads a half-written library
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT),
+                       tmp, out, time.perf_counter())
+    failures = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        secs[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failures.append(f"{name}: nvcc exit {proc.returncode}\n"
+                            f"{log.decode(errors='replace')}")
+            continue
+        os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("CUDA kernel build failed:\n"
+                           + "\n".join(failures))
+    return secs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built at first use."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _loaded[name] = lib
+        return lib

@@ -35,3 +35,6 @@ def pytest_configure(config):
     # pin carry this mark and run in the full (unfiltered) suite only
     config.addinivalue_line(
         "markers", "slow: heavyweight sweep excluded from tier-1")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the torch package's "
+        "kernels); skips where torch.cuda.is_available() is false")
