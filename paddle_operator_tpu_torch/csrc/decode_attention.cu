@@ -1,12 +1,26 @@
-// Single-query (decode) GQA attention over the filled prefix of a
-// head-major KV cache, for Hopper (sm_90a).
+// Single-query (decode) GQA attention over the filled prefix of a KV
+// cache, for Hopper (sm_90a): one templated body, two row addressings.
 //
-// Replaces: paddle_operator_tpu/ops/decode_attention.py `_kernel` (and
-// its `_cell_softmax`), reached through `decode_attention`.  Same
-// function: for each lane b and query head h, softmax over key
-// positions [0, lengths[b]) of kv-head h / n_rep, applied to V; scale
+// Replaces two TPU kernels of paddle_operator_tpu/ops/decode_attention.py:
+//
+// - `_kernel` (and its `_cell_softmax`), reached through
+//   `decode_attention`: the contiguous head-major cache [B, Hkv, S, D];
+//   entry `decode_attention_launch`.
+// - `_paged_kernel`, reached through `paged_decode_attention`: the paged
+//   block pool [N, Hkv, bs, D] (one layer's view) walked through a block
+//   table [B, M] — lane b's row r lives at pool block table[b, r / bs],
+//   offset r % bs; entry `paged_decode_attention_launch`.  The TPU kernel
+//   reached the table only through its index map, so the pool block was
+//   its key block; here the block reads its own table entry as its loop
+//   crosses into each pool block.
+//
+// Same function for both: for each lane b and query head h, softmax over
+// key rows [0, lengths[b]) of kv-head h / n_rep, applied to V; scale
 // 1/sqrt(D) unless given; f32 running max, sum and accumulator; a lane
-// of length 0 outputs zeros.
+// of length 0 outputs zeros.  Table entries at or past
+// ceil(lengths[b] / bs) are never read (retired lanes' rows point at the
+// trash block 0; an id outside [0, N) reads block 0 too, so a bad table
+// can never address memory outside the pool).
 //
 // What bounds it: reading the filled K and V rows.  Per lane and
 // kv-head that is 2 * lengths[b] * D * sizeof(T) bytes against about
@@ -26,17 +40,21 @@
 // - each key row is read by a group of g lanes with 16-byte loads along
 //   D (g = D / (16 / sizeof(T)) rounded up to a power of two, at most
 //   32); the q.k dot product reduces over the group by shuffles.
+// - the row address is the only difference between the two entries: a
+//   `Rows` functor maps a key row to its element offset (contiguous
+//   stride, or table lookup + block offset).
 //
-// Not carried over from the TPU kernel: its (B, key-blocks) grid with
-// scratch carried between steps, the masked all-heads contraction
-// (a trick for the MXU's 128-lane tiles) and the transposed [hq, rows]
+// Not carried over from the TPU kernels: their (B, key-blocks) grid with
+// scratch carried between steps, the masked all-heads contraction (a
+// trick for the MXU's 128-lane tiles) and the transposed [hq, rows]
 // bookkeeping.  Left for later: split-K over SMs for long fills
 // (flash-decoding) and cp.async/TMA double buffering.
 //
 // Accepts float and bfloat16, D a multiple of 8 up to 256, any
-// Hq % Hkv == 0, any S.  Pointers must be 16-byte aligned and the
-// tensors contiguous (the Python wrapper checks).  Launches on the given
-// stream, allocates nothing, and returns cudaGetLastError().
+// Hq % Hkv == 0, any S (contiguous) or any block size bs >= 1 (paged).
+// Pointers must be 16-byte aligned and the tensors contiguous (the
+// Python wrapper checks).  Launches on the given stream, allocates
+// nothing, and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,26 +105,39 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
-template <typename T, int R>
-__global__ void __launch_bounds__(kThreads)
-    decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v,
-                            const int* __restrict__ lengths,
-                            T* __restrict__ out, int hq, int hkv, int s,
-                            int d, float scale) {
+// key row j of (lane, kv head) -> element offset into k and v
+struct ContigRows {
+  size_t base;  // ((b * hkv + kvh) * s) * d
+  int d;
+  __device__ __forceinline__ size_t operator()(int j) const {
+    return base + (size_t)j * d;
+  }
+};
+
+struct PagedRows {
+  const int* tbl;  // this lane's table row, [M]
+  int bs, hkv, kvh, d, nblocks;
+  __device__ __forceinline__ size_t operator()(int j) const {
+    int blk = __ldg(tbl + j / bs);
+    if (blk < 0 || blk >= nblocks) blk = 0;  // the trash block
+    return (((size_t)blk * hkv + kvh) * bs + (j % bs)) * d;
+  }
+};
+
+// The shared body: query heads [h0, h0 + R) of lane b against key rows
+// [0, len) of one kv head, rows addressed by `rows`.
+template <typename T, int R, typename Rows>
+__device__ __forceinline__ void attend(const T* __restrict__ q,
+                                       const T* __restrict__ k,
+                                       const T* __restrict__ v,
+                                       T* __restrict__ out, int b, int h0,
+                                       int hq, int d, float scale, int len,
+                                       const Rows& rows) {
   using V = Vec<T>;
   constexpr int VEC = V::N;
   constexpr int MAXC = (kMaxD / VEC + 31) / 32;  // 16-byte chunks per lane
   constexpr int E = MAXC * VEC;                  // floats per lane per row
   constexpr unsigned kFull = 0xffffffffu;
-
-  const int n_rep = hq / hkv;
-  const int passes = n_rep / R;
-  const int kvh = blockIdx.x / passes;
-  const int h0 = kvh * n_rep + (blockIdx.x % passes) * R;
-  const int b = blockIdx.y;
-  int len = lengths[b];
-  len = len < 0 ? 0 : (len > s ? s : len);
 
   const int nchunks = d / VEC;
   int g = 1;  // lanes per key row
@@ -145,9 +176,6 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < E; ++e) acc[r][e] = 0.f;
   }
 
-  const size_t base = ((size_t)b * hkv + kvh) * (size_t)s * d;
-  const T* kb = k + base;
-  const T* vb = v + base;
   const int warp_rows = groups * kUnroll;
 
   // the loop bound depends on the warp only, so every lane of a warp
@@ -159,12 +187,13 @@ __global__ void __launch_bounds__(kThreads)
     for (int u = 0; u < kUnroll; ++u) {
       const int j = j0 + u * groups + grp;
       valid[u] = j < len;
+      const size_t off = valid[u] ? rows(j) : 0;
 #pragma unroll
       for (int c = 0; c < MAXC; ++c) {
         const int chunk = gl + c * g;
         if (valid[u] && chunk < nchunks) {
-          V::load(kb + (size_t)j * d + chunk * VEC, &kf[u][c * VEC]);
-          V::load(vb + (size_t)j * d + chunk * VEC, &vf[u][c * VEC]);
+          V::load(k + off + chunk * VEC, &kf[u][c * VEC]);
+          V::load(v + off + chunk * VEC, &vf[u][c * VEC]);
         } else {
 #pragma unroll
           for (int e = 0; e < VEC; ++e) {
@@ -261,13 +290,62 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-void launch_typed(const void* q, const void* k, const void* v,
-                  const void* lengths, void* out, int b, int hq, int hkv,
-                  int s, int d, float scale, cudaStream_t stream) {
+// grid (hkv * n_rep / R, B): block -> (lane, kv head, first query head)
+__device__ __forceinline__ void block_heads(int hq, int hkv, int R,
+                                            int* kvh, int* h0) {
   const int n_rep = hq / hkv;
-  const int r = n_rep % 4 == 0 ? 4 : (n_rep % 2 == 0 ? 2 : 1);
-  const dim3 grid(hkv * (n_rep / r), b);
+  const int passes = n_rep / R;
+  *kvh = blockIdx.x / passes;
+  *h0 = *kvh * n_rep + (blockIdx.x % passes) * R;
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(kThreads)
+    decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const int* __restrict__ lengths,
+                            T* __restrict__ out, int hq, int hkv, int s,
+                            int d, float scale) {
+  int kvh, h0;
+  block_heads(hq, hkv, R, &kvh, &h0);
+  const int b = blockIdx.y;
+  int len = lengths[b];
+  len = len < 0 ? 0 : (len > s ? s : len);
+  const ContigRows rows{((size_t)b * hkv + kvh) * (size_t)s * d, d};
+  attend<T, R>(q, k, v, out, b, h0, hq, d, scale, len, rows);
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(kThreads)
+    paged_decode_attention_kernel(const T* __restrict__ q,
+                                  const T* __restrict__ k_pool,
+                                  const T* __restrict__ v_pool,
+                                  const int* __restrict__ table,
+                                  const int* __restrict__ lengths,
+                                  T* __restrict__ out, int hq, int hkv,
+                                  int nblocks, int bs, int max_blocks,
+                                  int d, float scale) {
+  int kvh, h0;
+  block_heads(hq, hkv, R, &kvh, &h0);
+  const int b = blockIdx.y;
+  const int view = max_blocks * bs;  // the lane's table covers this many
+  int len = lengths[b];
+  len = len < 0 ? 0 : (len > view ? view : len);
+  const PagedRows rows{table + (size_t)b * max_blocks, bs, hkv, kvh, d,
+                       nblocks};
+  attend<T, R>(q, k_pool, v_pool, out, b, h0, hq, d, scale, len, rows);
+}
+
+inline int heads_per_block(int n_rep) {
+  return n_rep % 4 == 0 ? 4 : (n_rep % 2 == 0 ? 2 : 1);
+}
+
+template <typename T>
+void launch_contig(const void* q, const void* k, const void* v,
+                   const void* lengths, void* out, int b, int hq, int hkv,
+                   int s, int d, float scale, cudaStream_t stream) {
+  const int r = heads_per_block(hq / hkv);
+  const dim3 grid(hkv * (hq / hkv / r), b);
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
@@ -288,6 +366,42 @@ void launch_typed(const void* q, const void* k, const void* v,
   }
 }
 
+template <typename T>
+void launch_paged(const void* q, const void* k, const void* v,
+                  const void* table, const void* lengths, void* out, int b,
+                  int hq, int hkv, int nblocks, int bs, int max_blocks,
+                  int d, float scale, cudaStream_t stream) {
+  const int r = heads_per_block(hq / hkv);
+  const dim3 grid(hkv * (hq / hkv / r), b);
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  const int* tp = static_cast<const int*>(table);
+  const int* lp = static_cast<const int*>(lengths);
+  T* op = static_cast<T*>(out);
+  switch (r) {
+    case 4:
+      paged_decode_attention_kernel<T, 4><<<grid, kThreads, 0, stream>>>(
+          qp, kp, vp, tp, lp, op, hq, hkv, nblocks, bs, max_blocks, d,
+          scale);
+      break;
+    case 2:
+      paged_decode_attention_kernel<T, 2><<<grid, kThreads, 0, stream>>>(
+          qp, kp, vp, tp, lp, op, hq, hkv, nblocks, bs, max_blocks, d,
+          scale);
+      break;
+    default:
+      paged_decode_attention_kernel<T, 1><<<grid, kThreads, 0, stream>>>(
+          qp, kp, vp, tp, lp, op, hq, hkv, nblocks, bs, max_blocks, d,
+          scale);
+  }
+}
+
+bool bad_heads(int b, int hq, int hkv, int d) {
+  return b <= 0 || b > 65535 || hkv <= 0 || hq <= 0 || hq % hkv != 0 ||
+         d <= 0 || d % 8 != 0 || d > kMaxD;
+}
+
 }  // namespace
 
 // q [B, Hq, D]; k, v [B, Hkv, S, D]; lengths [B] int32; out [B, Hq, D].
@@ -297,15 +411,38 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
                                        void* out, int b, int hq, int hkv,
                                        int s, int d, float scale, int dtype,
                                        void* stream) {
-  if (b <= 0 || b > 65535 || hkv <= 0 || hq <= 0 || hq % hkv != 0 ||
-      d <= 0 || d % 8 != 0 || d > kMaxD || s < 0)
+  if (bad_heads(b, hq, hkv, d) || s < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    launch_typed<float>(q, k, v, lengths, out, b, hq, hkv, s, d, scale, st);
+    launch_contig<float>(q, k, v, lengths, out, b, hq, hkv, s, d, scale, st);
   } else if (dtype == 1) {
-    launch_typed<__nv_bfloat16>(q, k, v, lengths, out, b, hq, hkv, s, d,
-                                scale, st);
+    launch_contig<__nv_bfloat16>(q, k, v, lengths, out, b, hq, hkv, s, d,
+                                 scale, st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q [B, Hq, D]; k_pool, v_pool [N, Hkv, bs, D] (one layer of the pool);
+// table [B, M] int32 pool block ids; lengths [B] int32; out [B, Hq, D].
+// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t as int.
+extern "C" int paged_decode_attention_launch(
+    const void* q, const void* k_pool, const void* v_pool, const void* table,
+    const void* lengths, void* out, int b, int hq, int hkv, int nblocks,
+    int bs, int max_blocks, int d, float scale, int dtype, void* stream) {
+  if (bad_heads(b, hq, hkv, d) || nblocks <= 0 || bs <= 0 ||
+      max_blocks <= 0 || (long long)max_blocks * bs > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    launch_paged<float>(q, k_pool, v_pool, table, lengths, out, b, hq, hkv,
+                        nblocks, bs, max_blocks, d, scale, st);
+  } else if (dtype == 1) {
+    launch_paged<__nv_bfloat16>(q, k_pool, v_pool, table, lengths, out, b,
+                                hq, hkv, nblocks, bs, max_blocks, d, scale,
+                                st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

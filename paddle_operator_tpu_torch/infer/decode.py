@@ -16,9 +16,10 @@ Same structure and layouts as the JAX module, in PyTorch's idiom:
 
 ``params`` everywhere is the port's :class:`~paddle_operator_tpu_torch.
 models.llama.Llama` module (its ``layers[i]`` is one layer's param
-subtree).  Not ported in this slice, and refused when asked for:
-tensor-parallel meshes, LoRA adapters, MoE layers, ``paged_prefill``
-and weight-only int8 leaves.
+subtree).  :func:`paged_prefill` writes a prompt's KV into the paged
+ring's block pool (infer/paged.py).  Not ported yet, and refused when
+asked for: tensor-parallel meshes, LoRA adapters, MoE layers, the int8
+KV pool and weight-only int8 leaves.
 """
 
 from __future__ import annotations
@@ -238,10 +239,46 @@ def prefill(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
     return logits[:, 0], cache
 
 
-def paged_prefill(*args, **kwargs):
-    raise NotImplementedError(
-        "paged_prefill belongs to the paged ring, which is not ported to "
-        "the torch package yet (ROADMAP.md Queue A, infer/paged.py)")
+def paged_prefill(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
+                  pool_cache: Dict[str, torch.Tensor],
+                  table_row: torch.Tensor, *,
+                  block_size: Optional[int] = None,
+                  last_only: bool = False
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Prefill a whole [1, T] prompt and write its KV into the PAGED
+    block pool (infer/paged.py) as whole-block writes at the lane's
+    ``table_row`` entries — the cold-admission half of paged serving.
+    The forward is exactly :func:`prefill`'s; only the destination
+    changes: block ``j`` of the lane cache lands in pool block
+    ``table_row[j]``.  The lane cache is rounded up to a whole number
+    of blocks (zero rows past T), so every write is a whole block; pad
+    rows land in the lane's last block, where decode overwrites them
+    before they become attendable.
+
+    Returns ([1, T, vocab] logits — ``[1, 1, vocab]`` for the last
+    position with ``last_only`` — and the pool cache, written in place,
+    with this lane's position untouched (the caller's insert sets it)).
+    The int8 pool is not ported yet."""
+    from paddle_operator_tpu_torch.ops.decode_attention import (
+        scatter_prefill_blocks,
+    )
+
+    bs = block_size or pool_cache["k"].shape[3]
+    t = tokens.shape[1]
+    rows = -(-t // bs) * bs
+    lane = {
+        "k": torch.zeros((cfg.n_layers, 1, cfg.n_kv_heads, rows,
+                          cfg.head_dim), dtype=cfg.dtype,
+                         device=tokens.device),
+        "v": torch.zeros((cfg.n_layers, 1, cfg.n_kv_heads, rows,
+                          cfg.head_dim), dtype=cfg.dtype,
+                         device=tokens.device),
+        "pos": 0,
+    }
+    logits, lane = _forward(cfg, params, tokens, lane, last_only=last_only)
+    scatter_prefill_blocks(pool_cache["k"], lane["k"], table_row, bs)
+    scatter_prefill_blocks(pool_cache["v"], lane["v"], table_row, bs)
+    return logits, pool_cache
 
 
 def decode_step(params: Llama, cfg: LlamaConfig, token: torch.Tensor,

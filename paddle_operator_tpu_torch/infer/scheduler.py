@@ -1,0 +1,973 @@
+"""Host half of the serving ring: the continuous-batching scheduler —
+the port of ``paddle_operator_tpu/infer/scheduler.py``
+``ContinuousBatcher``, inline prefill.
+
+:class:`ContinuousBatcher` keeps the JAX class's name, constructor
+surface and behavior for the configuration the port carries:
+submit-time validation and a bounded per-class queue, admission in
+class-then-FIFO order into free lanes (paged: radix prefix hits admit
+through the suffix-only insert, with copy-on-write), a depth-2
+dispatch/consume pipeline over :class:`~paddle_operator_tpu_torch.
+infer.executor.RingExecutor`, eviction on eos/budget/cancel/deadline,
+drain/abort/close, and the dispatch watchdog with self-healing rebuilds
+(``RingExecutor.reset_state``).  ``serving_status()`` returns the JAX
+ring's key set.
+
+The ring runs on its own thread, under ``torch.inference_mode`` (which
+is thread-local, so the thread enters it itself).  Device work is
+queued on the current stream and never read back inside a chunk: the
+one sync per dispatch is the consume's wait for that chunk's tokens
+(``DispatchResult.host_toks``).
+
+Not ported yet, and refused when asked for (ROADMAP.md Queue A):
+speculative decoding, chunked and disaggregated prefill, the megastep,
+the int8 pool, the host tier, LoRA adapters, span tracing, the NaN-lane
+check, live weight swap, lane spill (preemption) and fleet-level KV.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from paddle_operator_tpu_torch.infer import executor as X
+from paddle_operator_tpu_torch.infer import qos as QOS
+from paddle_operator_tpu_torch.infer.resilience import (
+    DispatchWatchdog,
+    RestartBudget,
+    RetriableError,
+    RingResilience,
+    ShuttingDown,
+)
+from paddle_operator_tpu_torch.models.llama import LlamaConfig
+from paddle_operator_tpu_torch.utils import tracing as TR
+
+PREFILL_MODES = ("inline", "chunked", "disagg")
+
+
+def _fold_seed(seed: int) -> int:
+    """Fold an out-of-int32-range seed to [0, 2**31) via the splitmix64
+    finalizer — distinct wide seeds stay distinct with overwhelming
+    probability."""
+    x = seed & 0xFFFFFFFFFFFFFFFF
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    x ^= x >> 31
+    return x & 0x7FFFFFFF
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to the torch package yet (ROADMAP.md "
+        "Queue A)")
+
+
+class QueueFull(RuntimeError):
+    """submit() backpressure signal: the bounded request queue stayed
+    full past the put timeout (serve.py maps it to 503)."""
+
+
+class _Request:
+    __slots__ = ("prompt", "max_new", "temperature", "seed", "eos",
+                 "done", "out", "error", "_stream", "_cancel",
+                 "dev_prompt", "bucket", "deadline", "deadline_exceeded",
+                 "priority", "request_id", "t_submit", "t_first",
+                 "t_last_tok")
+
+    def __init__(self, prompt, max_new, temperature, seed, eos,
+                 wants_stream=False, deadline=None):
+        self.prompt = prompt
+        self.max_new = max_new
+        self.temperature = temperature
+        self.seed = seed
+        self.eos = eos
+        self.done = threading.Event()
+        self.out: Optional[List[int]] = None
+        self.error: Optional[Exception] = None
+        self._cancel = False
+        # absolute time.monotonic() deadline (or None): the ring retires
+        # the lane when it passes — the request RESOLVES with the tokens
+        # produced so far and this flag set (the 504-style partial)
+        self.deadline: Optional[float] = deadline
+        self.deadline_exceeded = False
+        self.priority = 0
+        self.request_id: Optional[str] = None
+        self.t_submit = time.monotonic()
+        self.t_first: Optional[float] = None
+        self.t_last_tok: Optional[float] = None
+        # the prompt, shipped to the device on the SUBMIT thread, so the
+        # ring thread never pays the host->device copy
+        self.dev_prompt: Optional[torch.Tensor] = None
+        self.bucket: int = 0
+        self._stream: Optional["queue.Queue"] = (
+            queue.Queue() if wants_stream else None)
+
+    def result(self, timeout: Optional[float] = None) -> List[int]:
+        if not self.done.wait(timeout):
+            raise TimeoutError("generation did not finish in time")
+        if self.error is not None:
+            raise self.error
+        return self.out
+
+    def cancel(self) -> None:
+        """Stop decoding this request: the ring evicts its lane at the
+        next chunk boundary (or drops it from the queue if not yet
+        admitted) and ``result()`` returns the tokens produced so far."""
+        self._cancel = True
+
+    def stream(self, timeout: Optional[float] = None):
+        """Yield generated tokens as the ring emits them (chunk-sized
+        bursts).  Raises the request's error at the point of failure;
+        ``timeout`` bounds the wait for EACH burst."""
+        if self._stream is None:
+            raise RuntimeError("request was not submitted with "
+                               "stream=True")
+        while True:
+            try:
+                item = self._stream.get(timeout=timeout)
+            except queue.Empty:
+                raise TimeoutError("no tokens within timeout") from None
+            if item is None:
+                if self.error is not None:
+                    raise self.error
+                return
+            yield item
+
+
+class ContinuousBatcher:
+    """Slot scheduler over the resident chunk step.
+
+    ``submit()`` is thread-safe and returns a handle whose ``result()``
+    blocks until the sequence finishes; the decode loop runs on a
+    background thread, admitting queued requests into free lanes at
+    chunk boundaries and evicting lanes on eos / budget.  ``stats``
+    counts admissions, evictions, decoded chunks, prefill calls and
+    tokens, CoW copies and the high-water mark of active lanes.
+
+    ``paged=True`` swaps the per-lane contiguous KV region for the
+    block pool + radix prefix cache (infer/paged.py); greedy token
+    streams equal the contiguous ring's (``paged=False``, the parity
+    oracle).  Arguments for features not ported yet raise
+    NotImplementedError when set to anything but their default."""
+
+    SUFFIX_PREFILL_MAX_ROWS = X.RingExecutor.SUFFIX_PREFILL_MAX_ROWS
+
+    def __init__(self, params: Any, cfg: LlamaConfig, *, slots: int = 8,
+                 max_len: Optional[int] = None, chunk_tokens: int = 8,
+                 prefill_buckets=(), top_k: Optional[int] = None,
+                 top_p: Optional[float] = None,
+                 pipeline_depth: int = 2, mesh=None,
+                 draft_params: Any = None,
+                 draft_cfg: Optional[LlamaConfig] = None,
+                 spec_k: int = 0,
+                 max_queue: int = 0,
+                 queue_timeout: float = 5.0,
+                 paged: bool = False,
+                 block_size: int = 256,
+                 num_blocks: Optional[int] = None,
+                 prefix_cache: bool = True,
+                 prefill_mode: str = "inline",
+                 prefill_chunk: int = 64,
+                 prewarm: bool = False,
+                 kv_quant: str = "none",
+                 host_cache_blocks: int = 0,
+                 resilience: Optional[RingResilience] = None,
+                 qos: Optional[QOS.QoSConfig] = None,
+                 adapters=None,
+                 megastep: int = 1,
+                 trace: Optional[bool] = None,
+                 generation: int = 0) -> None:
+        if prefill_mode not in PREFILL_MODES:
+            raise ValueError(f"prefill_mode {prefill_mode!r} not in "
+                             f"{PREFILL_MODES}")
+        for bad, what in (
+                (mesh is not None, "tensor-parallel serving (mesh)"),
+                (spec_k or draft_params is not None,
+                 "speculative decoding (spec_k)"),
+                (prefill_mode != "inline",
+                 f"prefill_mode={prefill_mode!r}"),
+                (kv_quant != "none", f"kv_quant={kv_quant!r}"),
+                (host_cache_blocks, "the host spill tier"),
+                (adapters is not None, "LoRA adapters"),
+                (int(megastep) != 1, f"megastep={megastep}"),
+                (bool(trace), "span tracing (trace=True)"),
+                (resilience is not None and resilience.nan_check,
+                 "the NaN-lane check (nan_check)")):
+            if bad:
+                raise _unported(what)
+        self.cfg = cfg
+        self.slots = slots
+        self.max_len = max_len or cfg.max_seq_len
+        self.chunk = chunk_tokens
+        self.prefill_mode = prefill_mode
+        self.resilience = resilience
+        self._budget = (RestartBudget(resilience)
+                        if resilience is not None else None)
+        self.healthy = True
+        self._draining = False
+        self._rebuilding = False
+        # ring-level fault observed (by the loop thread or the watchdog
+        # monitor) and not yet healed; the loop rebuilds at the next top
+        self._fault: Optional[Exception] = None
+        self._watchdog: Optional[DispatchWatchdog] = None
+        if resilience is not None and resilience.watchdog:
+            self._watchdog = DispatchWatchdog(
+                resilience, self._on_stall, self._on_hard_stall)
+        # max dispatched-but-unconsumed chunks (2: one chunk decoding
+        # while the host consumes the previous one)
+        self.pipeline_depth = max(1, pipeline_depth)
+        self.qos = qos if qos is not None else QOS.QoSConfig()
+
+        pod = os.environ.get("TPUJOB_REPLICA_ID", "")
+        self.tracer = None
+        self.hist = TR.ServeHistograms()
+        self.flightrec = TR.FlightRecorder(pod=pod)
+
+        self.executor = X.RingExecutor(
+            params, cfg, slots=slots, max_len=self.max_len,
+            chunk_tokens=chunk_tokens, prefill_buckets=prefill_buckets,
+            top_k=top_k, top_p=top_p, paged=paged, block_size=block_size,
+            num_blocks=num_blocks, prefix_cache=prefix_cache)
+        self.device = self.executor.device
+        self.generation = int(generation)
+        self.paged = self.executor.paged
+        self._top_k, self._top_p = top_k, top_p
+
+        self.lane: List[Optional[_Request]] = [None] * slots
+        self._lane_out: List[List[int]] = [[] for _ in range(slots)]
+        self._lane_left = [0] * slots
+        # host mirror of each lane's device fill position — set by
+        # admission, advanced at consume, ZEROED on eviction (paged: the
+        # on-demand block mapping tracks the true frontier with it)
+        self._lane_pos = [0] * slots
+        # per-lane (pinned host tensor, event) of the admission-sampled
+        # first token, materialized at the next chunk consume
+        self._lane_first: List[Optional[tuple]] = [None] * slots
+
+        # bounded admission queue, bounded PER CLASS (infer/qos.py)
+        self.max_queue = int(max_queue)
+        self._queue_timeout = queue_timeout
+        self._pending = QOS.MultiClassQueue(
+            self.qos.priorities, maxsize=self.max_queue)
+        self._wake = threading.Event()
+        self._stop = threading.Event()
+        self.stats = {"admitted": 0, "evicted": 0, "chunks": 0,
+                      "max_active": 0, "rejected_queue_full": 0,
+                      "prefill_calls": 0, "prefill_tokens": 0,
+                      "cow_copies": 0, "deadline_exceeded": 0,
+                      "watchdog_restarts": 0}
+        self._tokens_emitted = 0
+        self._t_start = time.monotonic()
+        # prewarm (serve.py default, SERVE_PREWARM=0 opts out): build
+        # the kernel library off-thread before the first dispatch
+        self.prewarmed = threading.Event()
+        if prewarm:
+            threading.Thread(target=self._prewarm, daemon=True,
+                             name="kernel-prewarm").start()
+        else:
+            self.prewarmed.set()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="decode-ring")
+        self._thread.start()
+
+    # -- executor state forwarding (the JAX class's attribute surface) -----
+
+    @property
+    def params(self):
+        return self.executor.params
+
+    @property
+    def buckets(self):
+        return self.executor.buckets
+
+    @property
+    def block_size(self):
+        return self.executor.block_size
+
+    @property
+    def cache(self):
+        return self.executor.cache
+
+    @property
+    def pool(self):
+        return self.executor.pool
+
+    @property
+    def _step(self):
+        return self.executor.step
+
+    @_step.setter
+    def _step(self, fn):
+        self.executor.step = fn
+
+    def _prewarm(self) -> None:
+        try:
+            self.executor.prewarm()
+        except Exception:
+            # a prewarm failure must never take the server down: the
+            # first dispatch builds the library (and raises) itself
+            pass
+        finally:
+            self.prewarmed.set()
+
+    # -- public ------------------------------------------------------------
+
+    def submit(self, prompt, *, max_new_tokens: int,
+               temperature: float = 0.0, seed: int = 0,
+               eos_token: Optional[int] = None,
+               stream: bool = False,
+               request_id: Optional[str] = None,
+               deadline_s: Optional[float] = None,
+               priority: Optional[int] = None,
+               adapter: Optional[str] = None) -> _Request:
+        """Queue one generation request; returns a handle whose
+        ``result()``/``stream()`` deliver the tokens.
+
+        ``deadline_s``: relative budget in seconds for the WHOLE
+        generation; past it the lane retires at the next chunk boundary
+        and the request resolves with the tokens so far and
+        ``deadline_exceeded`` set (queued expiry: prompt only).
+        ``request_id`` is woven into every validation error; validation
+        runs BEFORE the tokenize copy and device transfer.  ``seed``:
+        [0, 2**31) is used as-is, anything else is hash-folded."""
+        rid = f" [request {request_id}]" if request_id is not None else ""
+        n = len(prompt)
+        if not n:
+            raise ValueError(f"empty prompt{rid}")
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens must be >= 1{rid}")
+        if deadline_s is not None and deadline_s <= 0:
+            raise ValueError(f"deadline_s must be > 0{rid}")
+        prio = (self.qos.default_priority if priority is None
+                else int(priority))
+        if not 0 <= prio < self.qos.priorities:
+            raise ValueError(
+                f"priority {prio} outside [0, {self.qos.priorities}) — "
+                f"this ring serves {self.qos.priorities} class(es){rid}")
+        if adapter is not None:
+            raise ValueError(
+                f"no adapter registry on this ring (SERVE_ADAPTERS "
+                f"unset) for adapter {adapter!r}{rid}")
+        if self._draining:
+            raise ShuttingDown("server draining; retry another replica")
+        if self._stop.is_set() or not self._thread.is_alive():
+            raise ShuttingDown("batcher closed")
+        if n > self.buckets[-1]:
+            raise ValueError(
+                f"prompt length {n} exceeds the largest prefill "
+                f"bucket ({self.buckets[-1]}){rid}")
+        # the FIRST token is sampled from the prefill logits, so only
+        # max_new-1 tokens ride chunk steps; the worst-case cache
+        # position is prompt + ceil((max_new-1)/chunk)*chunk
+        budget = -(-(max_new_tokens - 1) // self.chunk) * self.chunk
+        if n + budget > self.max_len:
+            raise ValueError(
+                f"prompt ({n}) + chunk-rounded budget "
+                f"({budget}) exceeds max_len ({self.max_len}){rid}")
+        # validation passed: NOW pay the tokenize copy
+        prompt = list(map(int, prompt))
+        if min(prompt) < 0 or max(prompt) >= self.cfg.vocab_size:
+            # an out-of-range id would be a device-side assert on the
+            # card (the JAX gather clamps instead)
+            raise ValueError(f"token ids must lie in [0, "
+                             f"{self.cfg.vocab_size}){rid}")
+        seed = int(seed)
+        if not 0 <= seed < 0x80000000:
+            seed = _fold_seed(seed)
+        if self.max_queue and self._pending.full(prio):
+            # shed BEFORE the host->device prompt transfer below
+            deadline = time.monotonic() + self._queue_timeout
+            while self._pending.full(prio):
+                if self._stop.is_set() or self._draining:
+                    raise ShuttingDown("batcher shutting down")
+                if time.monotonic() >= deadline:
+                    self.stats["rejected_queue_full"] += 1
+                    raise QueueFull(
+                        f"request queue full (max_queue={self.max_queue},"
+                        f" priority {prio},"
+                        f" waited {self._queue_timeout}s)")
+                time.sleep(0.005)
+        req = _Request(prompt, max_new_tokens, temperature, seed,
+                       eos_token, wants_stream=stream,
+                       deadline=(time.monotonic() + deadline_s
+                                 if deadline_s is not None else None))
+        req.priority = prio
+        req.request_id = request_id
+        req.bucket = self._bucket_for(len(prompt))
+        req.dev_prompt = X.to_device(np.asarray([prompt], np.int32),
+                                     self.device)
+        deadline = time.monotonic() + self._queue_timeout
+        while True:
+            if self._stop.is_set() or self._draining:
+                raise ShuttingDown("batcher shutting down")
+            try:
+                self._pending.put(req, prio, timeout=0.05)
+                break
+            except queue.Full:
+                if time.monotonic() >= deadline:
+                    self.stats["rejected_queue_full"] += 1
+                    raise QueueFull(
+                        f"request queue full (max_queue={self.max_queue},"
+                        f" priority {prio},"
+                        f" waited {self._queue_timeout}s)") from None
+        if self._stop.is_set() and not req.done.is_set():
+            # loop died between the liveness check above and the put
+            self._finish(req, ShuttingDown("batcher closed"))
+            return req
+        self._wake.set()
+        return req
+
+    def serving_status(self) -> Dict[str, Any]:
+        """The ``TPUJob.status.serving`` block, with the JAX ring's key
+        set: features this ring does not carry report their zero
+        (what ``utils/observability.py serving_gauges`` renders)."""
+        elapsed = max(1e-9, time.monotonic() - self._t_start)
+        pool = self.pool
+        return {
+            "tokensPerSec": round(self._tokens_emitted / elapsed, 2),
+            "acceptRate": 0.0,
+            "queueDepth": self._pending.qsize(),
+            "tokensTotal": self._tokens_emitted,
+            "activeLanes": sum(r is not None for r in self.lane),
+            "lanePos": [int(p) for p in self._lane_pos],
+            "prefixHitRate": pool.hit_rate() if pool is not None else 0.0,
+            "kvBlocksFree": pool.blocks_free() if pool is not None else 0,
+            "kvBlocksHwm": (pool.stats["blocks_hwm"]
+                            if pool is not None else 0),
+            "hostCacheBlocks": 0,
+            "hostHitRate": 0.0,
+            "promotedBlocks": 0,
+            "prefillMode": self.prefill_mode,
+            "prefillQueueDepth": 0,
+            "prefillLanes": 0,
+            "prefillBatchOccupancy": 0.0,
+            "prefillHolWaitMs": 0.0,
+            "handoffFrames": 0,
+            "overlappedFrames": 0,
+            "kvQuantMode": "none",
+            "kvPoolBytes": self.executor.pool_bytes(),
+            "weightQuantMode": "none",
+            "draftQuantMode": "none",
+            "paramBytes": self.executor.param_bytes(),
+            "chunkedPrefillTokenShare": 0.0,
+            "priorityQueueDepth": self._pending.qsize_by_class(),
+            "preemptedLanes": 0,
+            "parkedLanes": 0,
+            "laneMigrations": 0,
+            "adoptedLanes": 0,
+            "peerPrefixFetches": 0,
+            "remotePrefills": 0,
+            "hostCacheEvictions": 0,
+            "kvStoreBlocks": 0,
+            "kvStoreBytes": 0,
+            "kvStoreHitRate": 0.0,
+            "kvStoreEvictions": 0,
+            "activeAdapters": 0,
+            "adapterNames": [],
+            "megastepN": 1,
+            "dispatchesPerToken": (
+                round(self.stats["chunks"] / self._tokens_emitted, 4)
+                if self._tokens_emitted else 0.0),
+            "latencyHist": self.hist.snapshot(),
+            "ttftP95Ms": round(self.hist.ttft.p95() or 0.0, 3),
+            "draining": self._draining,
+            "healthy": self.healthy,
+            "deadlineExceeded": self.stats["deadline_exceeded"],
+            "watchdogRestarts": self.stats["watchdog_restarts"],
+            "quarantinedLanes": 0,
+            "weightGeneration": int(self.generation),
+            "servingTp": 1,
+            "weightSwaps": 0,
+        }
+
+    @property
+    def accepting(self) -> bool:
+        """Readiness (/readyz): the ring takes new admissions — not
+        draining, not mid-rebuild, loop alive, budget unspent."""
+        return (self.healthy and not self._draining
+                and not self._rebuilding and not self._stop.is_set()
+                and self._thread.is_alive())
+
+    def drain(self, budget_s: float = 30.0) -> None:
+        """SIGTERM drain: stop admissions (queued and new requests fail
+        with :class:`ShuttingDown`), let the RESIDENT lanes finish
+        within ``budget_s``, cancel stragglers at the budget (their
+        callers receive the tokens produced so far; paged blocks return
+        to the pool), then close."""
+        self.flightrec.record(
+            "drain_start", residents=sum(r is not None for r in self.lane),
+            queued=self._pending.qsize())
+        self._draining = True
+        self._wake.set()
+        deadline = time.monotonic() + budget_s
+        while time.monotonic() < deadline and self._thread.is_alive():
+            if all(r is None for r in self.lane) and self._pending.empty():
+                break
+            time.sleep(0.02)
+        for req in list(self.lane):
+            if req is not None:
+                req.cancel()            # partial flush at chunk boundary
+        grace = time.monotonic() + max(5.0, budget_s)
+        while (any(r is not None for r in self.lane)
+               and self._thread.is_alive()
+               and time.monotonic() < grace):
+            time.sleep(0.02)
+        self.flightrec.record(
+            "drain_done", stragglers=sum(r is not None for r in self.lane))
+        self.close()
+
+    def abort(self, error: Optional[Exception] = None) -> None:
+        """Second-SIGTERM semantics: immediate teardown.  Resident
+        requests RESOLVE with their partial tokens; queued ones fail
+        with ShuttingDown."""
+        self.flightrec.record("abort", error=(str(error)[:200] if error
+                                              else None))
+        self._draining = True
+        self._stop.set()
+        self._wake.set()
+        for i, req in enumerate(self.lane):
+            if req is not None and not req.done.is_set():
+                req.out = req.prompt + self._lane_out[i]
+                self._finish(req)
+        self._shed_queue(error or ShuttingDown("server killed"))
+
+    def close(self) -> None:
+        self._stop.set()
+        self._wake.set()
+        self._thread.join(timeout=30)
+        if self._watchdog is not None:
+            self._watchdog.close()
+        # late blocked submitters can land requests after the loop's own
+        # drain pass — sweep again so none hangs at result()
+        self._shed_queue(ShuttingDown("batcher closed"))
+
+    # -- fault handling ----------------------------------------------------
+
+    def _shed_queue(self, error: Exception) -> None:
+        while True:
+            try:
+                req = self._pending.get_nowait()
+            except queue.Empty:
+                return
+            self._finish(req, error)
+
+    def _on_stall(self, elapsed: float) -> None:
+        """Watchdog monitor callback: a dispatch/consume wait crossed
+        the stall threshold.  Fail the resident requests NOW — their
+        clients get retriable 503s while the ring thread is still
+        stuck — and flag the rebuild the loop runs once it unwedges."""
+        err = RetriableError(
+            f"ring dispatch stalled {elapsed:.1f}s (watchdog threshold "
+            f"{self._watchdog.threshold():.1f}s); ring rebuilding — retry")
+        for req in list(self.lane):
+            if req is not None and not req.done.is_set():
+                self._finish(req, err)
+        self._fault = err
+
+    def _on_hard_stall(self, elapsed: float) -> None:
+        """The stall outlived hard_stall_factor x threshold: flip
+        /healthz so the orchestrator replaces the pod."""
+        self.healthy = False
+
+    def _heal(self, err: Exception) -> bool:
+        """Self-heal after a ring-level fault (a raising dispatch — a
+        CUDA error included — or a watchdog stall): fail whatever is
+        still resident with a retriable error, rebuild every piece of
+        device state from scratch (RingExecutor.reset_state), back off
+        exponentially.  Returns False — and flips ``healthy`` — when
+        the restart budget is exhausted (the loop then dies and
+        /healthz goes unhealthy)."""
+        wrapped = (err if isinstance(err, RetriableError)
+                   else RetriableError(
+                       f"ring dispatch failed ({err}); rebuilt — retry"))
+        healing = self._budget is not None and not self._budget.exhausted
+        if healing:
+            self._rebuilding = True
+            self.stats["watchdog_restarts"] += 1
+        else:
+            self.healthy = False
+        self.flightrec.record("watchdog_rebuild", error=str(err)[:200],
+                              healing=healing,
+                              residents=sum(r is not None
+                                            for r in self.lane))
+        self.flightrec.dump_file("watchdog_rebuild")
+        for req in list(self.lane):
+            if req is not None and not req.done.is_set():
+                self._finish(req, wrapped)
+        self.lane = [None] * self.slots
+        self._lane_out = [[] for _ in range(self.slots)]
+        self._lane_left = [0] * self.slots
+        self._lane_pos = [0] * self.slots
+        self._lane_first = [None] * self.slots
+        if not healing:
+            return False
+        backoff = self._budget.spend()
+        self.executor.reset_state()
+        self._stop.wait(backoff)
+        self._rebuilding = False
+        return True
+
+    def _expire_deadlines(self) -> None:
+        now = time.monotonic()
+        for i, req in enumerate(self.lane):
+            if (req is not None and req.deadline is not None
+                    and now >= req.deadline and not req.done.is_set()):
+                req.deadline_exceeded = True
+                self.stats["deadline_exceeded"] += 1
+                self.flightrec.record("deadline_expired", lane=i,
+                                      rid=req.request_id)
+                self._evict(i)        # resolves with the partial tokens
+
+    # -- admission ---------------------------------------------------------
+
+    def _bucket_for(self, n: int) -> int:
+        for b in self.buckets:
+            if n <= b:
+                return b
+        raise ValueError(f"no bucket fits prompt length {n}")
+
+    def _dispatch_cow(self, cow) -> None:
+        """The admission's copy-on-write block copies, queued before
+        the insert that reads the private copies."""
+        ex = self.executor
+        for src, dst in cow:
+            ex._copy_block(ex.cache["k"], ex.cache["v"], src, dst)
+        self.stats["cow_copies"] = self.pool.stats["cow_copies"]
+
+    def _activate(self, slot: int, req: _Request, first) -> None:
+        """A lane's prefill is queued: wire up the decode-side
+        bookkeeping so the next chunk dispatch includes it.  The first
+        token's host copy is queued now, behind the insert, and read at
+        the next consume."""
+        n = len(req.prompt)
+        self._lane_out[slot] = []
+        self._lane_first[slot] = X._to_host_async(first.reshape(1))
+        self._lane_left[slot] = req.max_new
+        self._lane_pos[slot] = n
+        if req.max_new == 1:
+            # degenerate budget: read it now and free the lane
+            self._materialize_first(slot, req)
+            self._evict(slot)
+
+    def _admit(self, slot: int, req: _Request) -> None:
+        """Admission: reserve the lane, then ONE insert (cold, or the
+        suffix insert on a prefix hit) that prefills, writes the lane's
+        KV, samples the first token and sets every piece of lane state
+        on the device."""
+        ex = self.executor
+        n = len(req.prompt)
+        now = time.monotonic()
+        self.hist.queue_wait.observe((now - req.t_submit) * 1e3)
+        self.flightrec.record("admit", rid=req.request_id, slot=slot,
+                              prio=req.priority, mode=self.prefill_mode)
+        self.lane[slot] = req
+        self._lane_out[slot] = []
+        self._lane_first[slot] = None
+        if self.paged:
+            first = self._admit_paged(slot, req)
+        else:
+            first = ex.inserts[req.bucket](
+                ex.params, ex.cache, ex.tok, ex.temp, ex.seeds,
+                req.dev_prompt, n, slot, float(req.temperature), req.seed)
+            self.stats["prefill_calls"] += 1
+            self.stats["prefill_tokens"] += n
+        self.stats["admitted"] += 1
+        self._activate(slot, req, first)
+
+    def _admit_paged(self, slot: int, req: _Request):
+        """Inline paged admission: map blocks (radix hits read-only,
+        CoW'd where the suffix will write, fresh for the rest), then
+        ONE insert — the cold prefill cold, the suffix-only insert on a
+        prefix hit.  A full prefix hit runs a ONE-token forward and no
+        forward over cached blocks (the prefill counters pin it)."""
+        ex = self.executor
+        n = len(req.prompt)
+        hit_len, cow = self.pool.admit(          # NoFreeBlocks -> req fails
+            slot, req.prompt, max_suffix=self.SUFFIX_PREFILL_MAX_ROWS)
+        self._dispatch_cow(cow)
+        tbl_row = X.to_device(self.pool.table[slot], self.device,
+                              torch.int32)
+        if hit_len:
+            first = self._suffix_admit(slot, req, tbl_row, hit_len)
+        else:
+            first = ex.inserts[req.bucket](
+                ex.params, ex.cache, tbl_row, ex.tok, ex.temp, ex.seeds,
+                req.dev_prompt, n, slot, float(req.temperature), req.seed)
+            self.stats["prefill_calls"] += 1
+            self.stats["prefill_tokens"] += n
+        # register this lane's full prompt blocks for later admissions
+        # (their content is written before any later work on the stream)
+        self.pool.publish(slot, req.prompt)
+        return first
+
+    def _suffix_admit(self, slot: int, req: _Request, tbl_row, hit_len):
+        """Prefix-hit admission: one suffix-only insert over the
+        uncached tail."""
+        ex = self.executor
+        suffix = req.prompt[hit_len:]
+        sb = ex.suffix_bucket(len(suffix))
+        ins = ex.suffix_insert(sb)
+        padded = np.zeros((1, sb), np.int32)
+        padded[0, :len(suffix)] = suffix
+        first = ins(ex.params, ex.cache, tbl_row, ex.tok, ex.temp,
+                    ex.seeds, X.to_device(padded, self.device),
+                    len(suffix), hit_len, slot, float(req.temperature),
+                    req.seed)
+        self.stats["prefill_calls"] += 1
+        self.stats["prefill_tokens"] += len(suffix)
+        return first
+
+    def _materialize_first(self, i: int, req: _Request) -> None:
+        """Bring the admission-sampled first token to the host (its copy
+        was queued right behind the insert) and run it through the same
+        budget/eos/stream bookkeeping as chunk tokens."""
+        fd = self._lane_first[i]
+        if fd is None:
+            return
+        self._lane_first[i] = None
+        host, ev = fd
+        if ev is not None:
+            ev.synchronize()
+        t = int(host[0])
+        now = time.monotonic()
+        if req.t_first is None:
+            req.t_first = now
+            self.hist.ttft.observe((now - req.t_submit) * 1e3)
+        req.t_last_tok = now
+        self._lane_out[i].append(t)
+        self._tokens_emitted += 1
+        if req._stream is not None:
+            req._stream.put(t)
+        self._lane_left[i] -= 1
+        if req.eos is not None and t == req.eos:
+            self._lane_left[i] = 0
+
+    def _finish(self, req: _Request,
+                error: Optional[Exception] = None) -> None:
+        # a request that already RESOLVED keeps its outcome
+        if error is not None and req.error is None \
+                and not req.done.is_set():
+            req.error = error
+        if not req.done.is_set() and req.error is None:
+            # e2e latency: successful resolutions only (deadline
+            # partials included)
+            self.hist.e2e.observe((time.monotonic() - req.t_submit) * 1e3)
+        # done BEFORE the stream sentinel: a stream() consumer that sees
+        # the close must find result() already resolvable
+        req.done.set()
+        if req._stream is not None:
+            req._stream.put(None)
+
+    def _evict(self, slot: int) -> None:
+        """Host bookkeeping only — no device work: the lane's stale
+        device state is harmless (inactive lanes' tokens are ignored,
+        their position zeroes, and the next admission overwrites all
+        lane state)."""
+        req = self.lane[slot]
+        self.lane[slot] = None
+        self._lane_pos[slot] = 0        # retired lanes report no pos
+        if self.pool is not None:
+            # published prompt blocks become reclaimable cache, private
+            # ones rejoin the free list; the zeroed table row routes
+            # this lane's writes in later dispatches to the trash block
+            self.pool.retire(slot)
+        self.stats["evicted"] += 1
+        if req is not None and not req.done.is_set():
+            # error-path evictions can race ahead of the first consume
+            self._materialize_first(slot, req)
+            req.out = req.prompt + self._lane_out[slot]
+            self._finish(req)
+        else:
+            self._lane_first[slot] = None
+
+    # -- the loop ----------------------------------------------------------
+
+    def _loop(self) -> None:
+        try:
+            with torch.inference_mode():
+                self._loop_body()
+        except Exception as e:       # unrecoverable failure: fail loudly
+            # flip dead-state BEFORE unblocking any client
+            self.healthy = False
+            self._stop.set()
+            for req in self.lane:
+                if req is not None:
+                    self._finish(req, e)
+            self.lane = [None] * self.slots
+        for i, req in enumerate(self.lane):
+            if req is not None:
+                self._finish(req, ShuttingDown("batcher closed"))
+                self.lane[i] = None
+        self._shed_queue(ShuttingDown("batcher closed"))
+
+    def _consume(self, chunk_reqs, toks: np.ndarray) -> None:
+        """Apply one finished chunk's tokens ([chunk, slots] on host).
+        ``chunk_reqs`` pins each lane to the REQUEST the chunk was
+        dispatched for: under pipelining a lane may have been evicted
+        (and re-admitted) since dispatch — such tokens are dropped."""
+        now = time.monotonic()
+        for i, req in chunk_reqs:
+            if req is None or self.lane[i] is not req \
+                    or req.done.is_set():
+                continue
+            self._materialize_first(i, req)
+            n = toks.shape[0]
+            self._lane_pos[i] += n
+            emitted = 0
+            for t in toks[:n, i]:
+                if self._lane_left[i] <= 0:
+                    break
+                self._lane_out[i].append(int(t))
+                self._tokens_emitted += 1
+                emitted += 1
+                if req._stream is not None:
+                    req._stream.put(int(t))
+                self._lane_left[i] -= 1
+                if req.eos is not None and int(t) == req.eos:
+                    self._lane_left[i] = 0
+            if emitted:
+                # chunk-granular inter-token latency
+                if req.t_last_tok is not None and now > req.t_last_tok:
+                    self.hist.itl.observe(
+                        (now - req.t_last_tok) * 1e3 / emitted)
+                req.t_last_tok = now
+            if self._lane_left[i] <= 0:
+                self._evict(i)
+
+    def _consume_oldest(self, pending: List[tuple]) -> None:
+        """Pop + apply the oldest in-flight chunk.  The blocking wait
+        for its tokens sits under the watchdog: a wedged dispatch
+        surfaces HERE, and the monitor fails the waiting clients while
+        this thread is still stuck."""
+        chunk_reqs, res = pending.pop(0)
+        wd = self._watchdog
+        if wd is not None:
+            wd.begin()
+        try:
+            toks = res.host_toks()
+        finally:
+            if wd is not None:
+                wd.end()
+        if self._fault is not None:
+            return              # stall-failed chunks must not apply
+        self._consume(chunk_reqs, toks)
+
+    def _loop_body(self) -> None:
+        # Up to ``pipeline_depth`` chunks in flight: the host consumes
+        # chunk N's tokens (queue pushes, evict bookkeeping, the
+        # device->host wait) WHILE the card decodes chunk N+1.
+        pending: List[tuple] = []   # [(chunk_reqs, DispatchResult)]
+        while not self._stop.is_set():
+            ex = self.executor
+            if self._fault is not None:
+                err, self._fault = self._fault, None
+                pending.clear()
+                if not self._heal(err):
+                    raise err
+                continue
+            if self._draining:
+                self._shed_queue(ShuttingDown(
+                    "server draining; retry another replica"))
+            self._expire_deadlines()
+            # cancelled lanes leave at the chunk boundary
+            for i, r in enumerate(self.lane):
+                if r is not None and r._cancel:
+                    self._evict(i)
+            # admit into free lanes, most urgent class first (FIFO within
+            # a class); the ring never spills a resident lane
+            while any(r is None for r in self.lane) and not self._draining:
+                try:
+                    req = self._pending.get_nowait()
+                except queue.Empty:
+                    break
+                if req._cancel:                 # cancelled while queued
+                    req.out = list(req.prompt)
+                    self._finish(req)
+                    continue
+                if (req.deadline is not None
+                        and time.monotonic() >= req.deadline):
+                    # expired while queued: prompt-only 504 partial
+                    req.deadline_exceeded = True
+                    self.stats["deadline_exceeded"] += 1
+                    req.out = list(req.prompt)
+                    self._finish(req)
+                    continue
+                slot = self.lane.index(None)
+                try:
+                    self._admit(slot, req)
+                except Exception as e:          # bad request: fail it only
+                    self._finish(req, e)
+                    self.lane[slot] = None
+                    self._lane_pos[slot] = 0
+                    self._lane_first[slot] = None
+                    if self.pool is not None:
+                        # admission may have mapped blocks before the
+                        # insert failed — unmap them
+                        self.pool.retire(slot)
+
+            active_idx = [i for i, r in enumerate(self.lane)
+                          if r is not None]
+            if not active_idx:
+                if pending:
+                    try:
+                        self._consume_oldest(pending)
+                    except Exception as e:
+                        self._fault = e
+                    continue            # eviction may have freed lanes
+                self._wake.wait(timeout=0.1)
+                self._wake.clear()
+                continue
+            self.stats["max_active"] = max(self.stats["max_active"],
+                                           len(active_idx))
+            tbl_np = None
+            if self.paged:
+                # on-demand block mapping: grow each active lane's table
+                # to cover this dispatch PLUS every chunk already in
+                # flight for it (the host pos mirror lags dispatched-
+                # but-unconsumed work).  An undersized pool can run dry
+                # mid-generation: only the lane that cannot grow fails
+                # (its request resolves with the error), and the rest of
+                # the ring keeps serving.
+                for i in list(active_idx):
+                    inflight = sum(1 for chunk_reqs, _ in pending
+                                   for j, r in chunk_reqs
+                                   if j == i and r is self.lane[i])
+                    try:
+                        self.pool.ensure(
+                            i, self._lane_pos[i]
+                            + (inflight + 1) * self.chunk)
+                    except ex._pg.NoFreeBlocks as e:
+                        r = self.lane[i]
+                        if r is not None and r.error is None:
+                            r.error = e
+                        self._evict(i)
+                        active_idx.remove(i)
+                if not active_idx:
+                    continue        # every lane starved: retry the loop
+                tbl_np = self.pool.table
+            plan = X.ExecPlan(1, [r is not None for r in self.lane],
+                              table=tbl_np)
+            wd = self._watchdog
+            if wd is not None:
+                wd.begin()
+            try:
+                res = ex.replay(plan)
+            except Exception as e:
+                self._fault = e
+                continue
+            finally:
+                if wd is not None:
+                    wd.end()
+            self.stats["chunks"] += 1
+            pending.append(([(i, self.lane[i]) for i in active_idx], res))
+            if len(pending) >= self.pipeline_depth:
+                try:
+                    self._consume_oldest(pending)
+                except Exception as e:
+                    self._fault = e

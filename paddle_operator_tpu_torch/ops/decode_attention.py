@@ -1,24 +1,31 @@
 """Single-query (decode) attention over the KV cache — the port of
-``paddle_operator_tpu/ops/decode_attention.py`` ``decode_attention``.
+``paddle_operator_tpu/ops/decode_attention.py`` ``decode_attention``
+and ``paged_decode_attention``.
 
-Three parts:
+Per kernel, three parts:
 
-- :func:`decode_attention`, the kernel wrapper.  On CUDA tensors it
-  launches the hand-written kernel of ``csrc/decode_attention.cu``
-  (built for sm_90a at first use, bound through ``ctypes``) on the
-  current stream; on CPU tensors it uses the plain version.  There is
-  no fallback: a CUDA tensor the kernel does not take, a failed build
-  or a failed launch raises.
-- :func:`decode_attention_reference`, the plain PyTorch version (the
-  JAX package's einsum ground truth, lifted out of ``decode._layer``).
-- ``decode_attention.launches``: how many times the wrapper launched
-  the kernel, so a run can show that its main path went through it.
+- the wrapper (:func:`decode_attention` over the contiguous cache,
+  :func:`paged_decode_attention` over the paged block pool).  On CUDA
+  tensors it launches the hand-written kernel of
+  ``csrc/decode_attention.cu`` (built for sm_90a at first use, bound
+  through ``ctypes``) on the current stream; on CPU tensors it uses the
+  plain version.  There is no fallback: a CUDA tensor the kernel does
+  not take, a failed build or a failed launch raises.
+- the plain PyTorch version (:func:`decode_attention_reference`, the
+  JAX package's einsum ground truth; :func:`paged_decode_attention_
+  reference`, the gathered lane view followed by it).
+- a ``launches`` counter on each wrapper: how many times it launched
+  its kernel, so a run can show that its main path went through it.
 
-The kernel reads only the filled prefix ``[0, lengths[b])`` of each
-lane's cache; see the note at the head of the CUDA source for what
-bounds it and what its design does about that.  The TPU kernel's
-block-size knob is gone with its grid: the CUDA kernel takes any cache
-length ``S``.
+Both kernels read only the filled prefix ``[0, lengths[b])`` of each
+lane; see the note at the head of the CUDA source for what bounds them
+and what their design does about that.  The TPU kernels' block-size
+knob is gone with their grid: the contiguous kernel takes any cache
+length ``S``, the paged one any pool block size.
+
+Also here: :func:`scatter_prefill_blocks`, the block-granular prefill
+write into the pool (plain tensor writes — it was an XLA loop, not a
+Pallas kernel, in the JAX package).
 """
 
 from __future__ import annotations
@@ -50,41 +57,46 @@ def _library():
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        fn = lib.paged_decode_attention_launch
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _check_kernel_inputs(q, k_cache, v_cache, lengths) -> None:
-    """Everything the CUDA kernel does not take raises here."""
+def _check_kernel_inputs(q, k_cache, v_cache, lengths, *, table=None,
+                         fn: str = "decode_attention") -> None:
+    """Everything the CUDA kernels do not take raises here."""
     b, hq, d = q.shape
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
-                    ("lengths", lengths)):
+    named = [("q", q), ("k", k_cache), ("v", v_cache), ("lengths", lengths)]
+    if table is not None:
+        named.append(("block_table", table))
+    for name, t in named:
         if t.device != q.device:
-            raise ValueError(f"decode_attention: {name} on {t.device}, "
-                             f"q on {q.device}")
+            raise ValueError(f"{fn}: {name} on {t.device}, q on {q.device}")
         if not t.is_contiguous():
-            raise ValueError(f"decode_attention: {name} must be "
-                             "contiguous")
+            raise ValueError(f"{fn}: {name} must be contiguous")
     if q.device.type != "cuda":
-        raise ValueError("decode_attention: the kernel runs on CUDA "
-                         f"tensors only (got {q.device})")
+        raise ValueError(f"{fn}: the kernel runs on CUDA tensors only "
+                         f"(got {q.device})")
     if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"decode_attention: dtype {q.dtype} not "
-                         "supported (float32 or bfloat16)")
+        raise ValueError(f"{fn}: dtype {q.dtype} not supported (float32 "
+                         "or bfloat16)")
     if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
-        raise ValueError("decode_attention: q, k_cache and v_cache must "
-                         "share one dtype")
+        raise ValueError(f"{fn}: q, k and v must share one dtype")
     if lengths.dtype != torch.int32:
-        raise ValueError("decode_attention: lengths must be int32")
+        raise ValueError(f"{fn}: lengths must be int32")
+    if table is not None and table.dtype != torch.int32:
+        raise ValueError(f"{fn}: block_table must be int32")
     if d % 8 or d > MAX_HEAD_DIM:
-        raise ValueError(f"decode_attention: head_dim {d} must be a "
-                         f"multiple of 8 up to {MAX_HEAD_DIM}")
+        raise ValueError(f"{fn}: head_dim {d} must be a multiple of 8 up "
+                         f"to {MAX_HEAD_DIM}")
     if b > 65535:
-        raise ValueError(f"decode_attention: batch {b} > 65535")
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        raise ValueError(f"{fn}: batch {b} > 65535")
+    for name, t in (("q", q), ("k", k_cache), ("v", v_cache)):
         if t.data_ptr() % 16:
-            raise ValueError(f"decode_attention: {name} is not 16-byte "
-                             "aligned")
+            raise ValueError(f"{fn}: {name} is not 16-byte aligned")
 
 
 def _launch(lib, q, k_cache, v_cache, lengths, out, scale: float,
@@ -173,3 +185,136 @@ def decode_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.einsum("bhrs,bhsd->bhrd", probs.to(q.dtype).float(),
                        v_cache.float())
     return out.reshape(b, hq, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Paged block pool
+# ---------------------------------------------------------------------------
+
+
+def _paged_launch(lib, q, k_pool, v_pool, table, lengths, out, scale: float,
+                  stream: int) -> None:
+    """One paged-kernel launch; raises when the C side reports an
+    error."""
+    b, hq, d = q.shape
+    n, hkv, bs, _ = k_pool.shape
+    rc = lib.paged_decode_attention_launch(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, hq, hkv,
+        n, bs, table.shape[1], d, float(scale), _DTYPE_CODE[q.dtype],
+        stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_decode_attention kernel launch failed: "
+                           f"CUDA error {rc}")
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, block_table: torch.Tensor,
+                           lengths: torch.Tensor, *,
+                           scale: Optional[float] = None,
+                           layer: Optional[int] = None,
+                           k_scale=None, v_scale=None, k_tail=None,
+                           v_tail=None) -> torch.Tensor:
+    """:func:`decode_attention` over a PAGED cache: lane b's context
+    lives in pool blocks ``block_table[b, 0..ceil(len_b/bs)-1]``.
+
+    q: [B, Hq, D]; k_pool/v_pool: [N, Hkv, bs, D] (or stacked
+    [L, N, Hkv, bs, D] with ``layer``, the pool layout of the paged
+    ring — ``k_pool[layer]`` is a free contiguous view); block_table:
+    [B, M] int32 pool ids (lane-local block j of lane b is pool block
+    ``block_table[b, j]``; entries past the lane's fill are never
+    read); lengths: [B] int32 — lane b attends logical positions
+    [0, lengths[b]), capped at M * bs.  Returns [B, Hq, D] in q's
+    dtype.
+
+    The quantized-pool operands (``k_scale``/``v_scale``/``k_tail``/
+    ``v_tail``, SERVE_KV_QUANT=int8) belong to the int8 pool's kernel,
+    which is not ported yet: passing any of them raises."""
+    if any(t is not None for t in (k_scale, v_scale, k_tail, v_tail)):
+        raise NotImplementedError(
+            "the int8 paged pool (k_scale/v_scale/k_tail/v_tail) is not "
+            "ported to the torch package yet (ROADMAP.md Queue B item 3)")
+    if layer is not None:
+        k_pool, v_pool = k_pool[layer], v_pool[layer]
+    b, hq, d = q.shape
+    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape \
+            or k_pool.shape[3] != d:
+        raise ValueError(f"paged_decode_attention: pools "
+                         f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)} do "
+                         f"not match q {tuple(q.shape)} as [N, Hkv, bs, D]")
+    hkv = k_pool.shape[1]
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
+    if block_table.dim() != 2 or block_table.shape[0] != b \
+            or block_table.shape[1] < 1:
+        raise ValueError(f"paged_decode_attention: block_table "
+                         f"{tuple(block_table.shape)} must be [{b}, M>=1]")
+    if lengths.shape != (b,):
+        raise ValueError(f"paged_decode_attention: lengths "
+                         f"{tuple(lengths.shape)} must be [{b}]")
+    if scale is None:
+        scale = 1.0 / float(d) ** 0.5
+    if q.device.type == "cpu":
+        return paged_decode_attention_reference(
+            q, k_pool, v_pool, block_table, lengths, scale=scale)
+    _check_kernel_inputs(q, k_pool, v_pool, lengths, table=block_table,
+                         fn="paged_decode_attention")
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    _paged_launch(_library(), q, k_pool, v_pool, block_table, lengths, out,
+                  scale, torch.cuda.current_stream(q.device).cuda_stream)
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
+
+
+def gather_lane_view(pool: torch.Tensor,
+                     block_table: torch.Tensor) -> torch.Tensor:
+    """One layer's pool [N, H, bs, D] gathered through the block tables
+    [B, M] into the contiguous [B, H, M*bs, D] layout the plain
+    attention reads — a materialized copy, exactly what the paged
+    kernel's table walk avoids."""
+    b, m = block_table.shape
+    _, h, bs, d = pool.shape
+    v = pool[block_table.long()]                    # [B, M, H, bs, D]
+    return v.permute(0, 2, 1, 3, 4).reshape(b, h, m * bs, d)
+
+
+def paged_decode_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
+                                     v_pool: torch.Tensor,
+                                     block_table: torch.Tensor,
+                                     lengths: torch.Tensor, *,
+                                     scale: Optional[float] = None
+                                     ) -> torch.Tensor:
+    """The plain version: the gathered lane view (infer/paged.py
+    ``_gather_lane_view`` of the JAX package) followed by
+    :func:`decode_attention_reference`."""
+    return decode_attention_reference(
+        q, gather_lane_view(k_pool, block_table),
+        gather_lane_view(v_pool, block_table), lengths, scale=scale)
+
+
+def scatter_prefill_blocks(pool: torch.Tensor, rows: torch.Tensor,
+                           table_row: torch.Tensor, block_size: int,
+                           start_block: int = 0) -> torch.Tensor:
+    """The prefill-WRITE path against the block pool: place a
+    contiguous slab of prefilled KV rows ``[L, 1, H, T, D]`` (T a
+    multiple of ``block_size``) into ``pool`` [L, N, H, bs, D] as
+    WHOLE-block writes at the lane's table entries, starting at
+    lane-local block ``start_block``.  In place (one indexed write for
+    all layers and blocks, where the JAX function chained
+    dynamic_update_slice copies); returns ``pool``.  Pad rows past the
+    real prompt land in the lane's own last block, where decode
+    overwrites them before they become attendable."""
+    lcount, _, h, t, d = rows.shape
+    if t % block_size:
+        raise ValueError(f"scatter_prefill_blocks: {t} rows are not a "
+                         f"multiple of the block size {block_size}")
+    nb = t // block_size
+    blocks = rows[:, 0].reshape(lcount, h, nb, block_size, d)
+    ids = table_row[start_block:start_block + nb].to(pool.device).long()
+    pool[:, ids] = blocks.permute(0, 2, 1, 3, 4).to(pool.dtype)
+    return pool

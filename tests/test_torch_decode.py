@@ -165,8 +165,6 @@ class TestCache:
         with pytest.raises(NotImplementedError):
             D._forward(cfg, model, torch.zeros((1, 1), dtype=torch.int32),
                        cache, lora=(None, None))
-        with pytest.raises(NotImplementedError):
-            D.paged_prefill()
 
 
 class TestSampling:

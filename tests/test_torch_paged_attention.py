@@ -1,0 +1,225 @@
+"""The torch package's paged decode attention (paddle_operator_tpu_torch/
+ops/decode_attention.py ``paged_decode_attention``) held against the
+JAX package's: the same numpy inputs through the JAX pallas kernel
+(interpret mode), the JAX einsum reference, and the port's wrapper on
+CPU tensors (its plain version) — the cases of tests/test_paged.py
+TestPagedKernel, over block sizes, GQA groupings and stacked layers.
+Also ``scatter_prefill_blocks`` against the JAX scatter, the
+no-fallback rule with a mocked launch, and the CUDA kernel against its
+plain version on the card (``-m cuda``).
+"""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from paddle_operator_tpu.ops import decode_attention as JDA
+from paddle_operator_tpu_torch.ops import decode_attention as TDA
+
+TOL = 1e-5
+
+
+def _paged_case(b, hq, hkv, s, d, bs, lens, seed=0, layers=None):
+    """Contiguous K/V [B, Hkv, S, D] scattered into a pool under a
+    SCRAMBLED block map (block 0 stays the trash block)."""
+    rng = np.random.default_rng(seed)
+    m = s // bs
+    k = rng.standard_normal((b, hkv, s, d)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, s, d)).astype(np.float32)
+    q = rng.standard_normal((b, hq, d)).astype(np.float32)
+    n = b * m + 1
+    pool_k = np.zeros((n, hkv, bs, d), np.float32)
+    pool_v = np.zeros((n, hkv, bs, d), np.float32)
+    ids = rng.permutation(np.arange(1, n))
+    table = np.zeros((b, m), np.int32)
+    for lane in range(b):
+        for j in range(m):
+            blk = int(ids[lane * m + j])
+            table[lane, j] = blk
+            pool_k[blk] = k[lane, :, j * bs:(j + 1) * bs]
+            pool_v[blk] = v[lane, :, j * bs:(j + 1) * bs]
+    return q, k, v, pool_k, pool_v, table, np.asarray(lens, np.int32)
+
+
+def _port(q, pk, pv, table, lens, **kw):
+    return TDA.paged_decode_attention(
+        torch.as_tensor(q), torch.as_tensor(pk), torch.as_tensor(pv),
+        torch.as_tensor(table), torch.as_tensor(lens), **kw).numpy()
+
+
+def _jax_kernel(q, pk, pv, table, lens, **kw):
+    return np.asarray(JDA.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(pk), jnp.asarray(pv),
+        jnp.asarray(table), jnp.asarray(lens), interpret=True, **kw))
+
+
+def _jax_ref(q, k, v, lens):
+    return np.asarray(JDA.decode_attention_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lens)))
+
+
+class TestPlainMatchesJax:
+    @pytest.mark.parametrize("bs", [4, 8, 16])
+    @pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (8, 2)])
+    def test_scrambled_block_map(self, bs, hq, hkv):
+        # lengths: sparse (5), full (64), idle (0)
+        q, k, v, pk, pv, table, L = _paged_case(3, hq, hkv, 64, 16, bs,
+                                                [5, 64, 0], seed=bs + hq)
+        got = _port(q, pk, pv, table, L)
+        np.testing.assert_allclose(got, _jax_kernel(q, pk, pv, table, L),
+                                   rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(got, _jax_ref(q, k, v, L),
+                                   rtol=TOL, atol=TOL)
+        assert not got[2].any()          # a length-0 lane gives zeros
+
+    def test_stacked_layers(self):
+        q, k, v, pk, pv, table, L = _paged_case(3, 4, 2, 64, 16, 16,
+                                                [5, 64, 0], seed=1)
+        spk, spv = np.stack([pk, pk * 2]), np.stack([pv, pv * 2])
+        for li in range(2):
+            got = _port(q, spk, spv, table, L, layer=li)
+            want = _jax_kernel(q, spk, spv, table, L,
+                               layer=jnp.asarray(li, jnp.int32))
+            np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+            np.testing.assert_allclose(
+                got, _jax_ref(q, k * (li + 1), v * (li + 1), L),
+                rtol=TOL, atol=TOL)
+
+    def test_length_not_a_block_multiple_and_explicit_scale(self):
+        q, k, v, pk, pv, table, L = _paged_case(2, 4, 2, 48, 8, 8,
+                                                [13, 47], seed=2)
+        got = _port(q, pk, pv, table, L, scale=0.2)
+        np.testing.assert_allclose(
+            got, _jax_kernel(q, pk, pv, table, L, scale=0.2),
+            rtol=TOL, atol=TOL)
+
+    def test_entries_past_the_fill_are_never_read(self):
+        # a retired lane's tail entries point at the trash block: poison
+        # every block past each lane's fill and the output must not move
+        q, k, v, pk, pv, table, L = _paged_case(2, 4, 2, 64, 16, 16,
+                                                [17, 3], seed=3)
+        want = _port(q, pk, pv, table, L)
+        for lane, n in enumerate(L):
+            for j in range(-(-int(n) // 16), table.shape[1]):
+                pk[table[lane, j]] = np.nan
+                pv[table[lane, j]] = np.nan
+                table[lane, j] = 0
+        pk[0] = pv[0] = 1e6                 # the trash block
+        np.testing.assert_allclose(_port(q, pk, pv, table, L), want,
+                                   rtol=TOL, atol=TOL)
+
+    def test_inactive_lane_reads_one_trash_row(self):
+        # the ring zeroes an inactive lane's position and table row, so
+        # it attends lengths pos+1 = 1 row of block 0 — finite, and
+        # equal to that row's V for every query head
+        rng = np.random.default_rng(4)
+        pk = rng.standard_normal((3, 2, 8, 16)).astype(np.float32)
+        pv = rng.standard_normal((3, 2, 8, 16)).astype(np.float32)
+        q = rng.standard_normal((1, 4, 16)).astype(np.float32)
+        got = _port(q, pk, pv, np.zeros((1, 4), np.int32),
+                    np.asarray([1], np.int32))
+        np.testing.assert_allclose(got[0], np.repeat(pv[0, :, 0], 2, 0),
+                                   rtol=TOL, atol=TOL)
+
+
+class TestScatterPrefillBlocks:
+    @pytest.mark.parametrize("start_block", [0, 1])
+    def test_matches_jax(self, start_block):
+        rng = np.random.default_rng(5)
+        pool = rng.standard_normal((2, 9, 2, 4, 8)).astype(np.float32)
+        rows = rng.standard_normal((2, 1, 2, 12, 8)).astype(np.float32)
+        table = np.asarray([3, 7, 1, 5, 0], np.int32)
+        want = np.asarray(JDA.scatter_prefill_blocks(
+            jnp.asarray(pool), jnp.asarray(rows), jnp.asarray(table), 4,
+            start_block))
+        got = TDA.scatter_prefill_blocks(
+            torch.as_tensor(pool.copy()), torch.as_tensor(rows),
+            torch.as_tensor(table), 4, start_block).numpy()
+        np.testing.assert_array_equal(got, want)
+
+    def test_partial_block_refused(self):
+        with pytest.raises(ValueError, match="multiple"):
+            TDA.scatter_prefill_blocks(torch.zeros((1, 4, 1, 4, 8)),
+                                       torch.zeros((1, 1, 1, 6, 8)),
+                                       torch.arange(4), 4)
+
+
+class TestNoFallback:
+    def test_non_cpu_non_cuda_tensor_raises(self):
+        q = torch.empty((1, 2, 16), device="meta")
+        pool = torch.empty((3, 2, 8, 16), device="meta")
+        table = torch.empty((1, 2), dtype=torch.int32, device="meta")
+        L = torch.empty((1,), dtype=torch.int32, device="meta")
+        before = TDA.paged_decode_attention.launches
+        with pytest.raises(ValueError, match="CUDA"):
+            TDA.paged_decode_attention(q, pool, pool, table, L)
+        assert TDA.paged_decode_attention.launches == before
+
+    def test_failed_launch_raises(self):
+        class FailingLib:
+            def paged_decode_attention_launch(self, *args):
+                return 700      # cudaErrorIllegalAddress
+
+        q, _, _, pk, pv, table, L = (
+            torch.as_tensor(a)
+            for a in _paged_case(1, 2, 2, 16, 16, 8, [4]))
+        before = TDA.paged_decode_attention.launches
+        with pytest.raises(RuntimeError, match="CUDA error 700"):
+            TDA._paged_launch(FailingLib(), q, pk, pv, table, L,
+                              torch.empty_like(q), 0.25, 0)
+        assert TDA.paged_decode_attention.launches == before
+
+    def test_shape_errors_raise(self):
+        q, _, _, pk, pv, table, L = (
+            torch.as_tensor(a)
+            for a in _paged_case(2, 4, 2, 16, 16, 8, [4, 9]))
+        with pytest.raises(ValueError, match="multiple"):
+            TDA.paged_decode_attention(q[:, :3].contiguous(), pk, pv,
+                                       table, L)
+        with pytest.raises(ValueError, match="block_table"):
+            TDA.paged_decode_attention(q, pk, pv, table[:1], L)
+        with pytest.raises(ValueError, match="lengths"):
+            TDA.paged_decode_attention(q, pk, pv, table, L[:1])
+
+    def test_quant_operands_not_ported(self):
+        q, _, _, pk, pv, table, L = (
+            torch.as_tensor(a)
+            for a in _paged_case(1, 2, 2, 16, 16, 8, [4]))
+        with pytest.raises(NotImplementedError, match="int8"):
+            TDA.paged_decode_attention(q, pk, pv, table, L,
+                                       k_scale=torch.ones(3, 2))
+
+
+@pytest.mark.cuda
+class TestKernelOnCard:
+    """The paged CUDA kernel against its plain version on the card
+    (built from csrc/ at first use)."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card")
+
+    @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                            (torch.bfloat16, 2e-2)])
+    @pytest.mark.parametrize("hq,hkv,d,bs", [(4, 4, 64, 16),
+                                             (8, 4, 128, 16),
+                                             (8, 2, 64, 256),
+                                             (32, 32, 128, 256)])
+    def test_matches_plain(self, dtype, atol, hq, hkv, d, bs):
+        q, _, _, pk, pv, table, L = _paged_case(
+            4, hq, hkv, 512, d, bs, [0, 1, 512, 300], seed=9)
+        dev = torch.device("cuda")
+        qt, pkt, pvt = (torch.as_tensor(a, device=dev).to(dtype)
+                        for a in (q, pk, pv))
+        tt = torch.as_tensor(table, device=dev)
+        Lt = torch.as_tensor(L, device=dev)
+        before = TDA.paged_decode_attention.launches
+        got = TDA.paged_decode_attention(qt, pkt, pvt, tt, Lt).float()
+        assert TDA.paged_decode_attention.launches == before + 1
+        want = TDA.paged_decode_attention_reference(
+            qt.float(), pkt.float(), pvt.float(), tt, Lt)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=atol, rtol=atol)

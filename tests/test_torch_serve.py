@@ -173,15 +173,25 @@ class TestDrain:
         assert codes == [EXIT_PREEMPTED] == [J83] == [83]
 
 
+ENTRY_KNOBS = ("SERVE_CONTINUOUS", "SERVE_PAGED", "SERVE_TP", "QUANTIZE",
+               "SERVE_WEIGHT_QUANT", "TPUJOB_CHECKPOINT_PATH",
+               "SERVE_SPEC_K", "SERVE_KV_QUANT", "SERVE_HOST_CACHE_BLOCKS",
+               "SERVE_HOST_CACHE_MB", "SERVE_PREFILL", "SERVE_MEGASTEP",
+               "SERVE_ADAPTERS", "SERVE_TRACE", "SERVE_NAN_CHECK",
+               "SERVE_PREEMPT", "SERVE_PREEMPT_MAX_PER_REQ",
+               "SERVE_PREEMPT_BUDGET", "SERVE_PREEMPT_WINDOW_S",
+               "TPUJOB_CHAOS", "SERVE_KV_MIGRATE",
+               "SERVE_KV_PEER_FETCH", "SERVE_KV_STORE", "SERVE_KV_BROKER")
+
+
 class TestEntryPoint:
     @pytest.mark.parametrize("env", [
-        {"SERVE_CONTINUOUS": "1"}, {"SERVE_TP": "2"},
+        {"SERVE_CONTINUOUS": "1", "SERVE_SPEC_K": "2"}, {"SERVE_TP": "2"},
         {"QUANTIZE": "int8"}, {"SERVE_WEIGHT_QUANT": "int8"},
         {"TPUJOB_CHECKPOINT_PATH": "/ckpt"},
     ])
     def test_unported_knobs_refused(self, monkeypatch, env):
-        for k in ("SERVE_CONTINUOUS", "SERVE_TP", "QUANTIZE",
-                  "SERVE_WEIGHT_QUANT", "TPUJOB_CHECKPOINT_PATH"):
+        for k in ENTRY_KNOBS:
             monkeypatch.delenv(k, raising=False)
         for k, v in env.items():
             monkeypatch.setenv(k, v)
@@ -191,16 +201,23 @@ class TestEntryPoint:
     def test_no_card_no_cpu_serving(self, monkeypatch):
         if torch.cuda.is_available():
             pytest.skip("a card is present: main() would serve")
-        for k in ("SERVE_CONTINUOUS", "SERVE_TP", "QUANTIZE",
-                  "SERVE_WEIGHT_QUANT", "TPUJOB_CHECKPOINT_PATH"):
+        for k in ENTRY_KNOBS:
             monkeypatch.delenv(k, raising=False)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            S.main()
+        # the continuous paged server needs the card just the same
+        monkeypatch.setenv("SERVE_CONTINUOUS", "1")
+        monkeypatch.setenv("SERVE_PAGED", "1")
         with pytest.raises(RuntimeError, match="CUDA"):
             S.main()
 
     def test_continuous_server_refused(self):
+        # the continuous server serves (TestContinuousServer); what it
+        # does not carry yet is refused at construction
         model, cfg = make_model("tiny", device="cpu")
-        with pytest.raises(NotImplementedError):
-            S.make_server("127.0.0.1", 0, model, cfg, continuous=True)
+        with pytest.raises(NotImplementedError, match="speculative"):
+            S.make_server("127.0.0.1", 0, model, cfg, continuous=True,
+                          spec_k=2)
 
     def test_job_env_matches_jax(self):
         from paddle_operator_tpu.launch.launcher import JobEnv as JEnv
@@ -260,3 +277,200 @@ def test_generator_returns_numpy_prompt_plus_new():
     out = gen(np.asarray([[1, 2, 3]], np.int32), max_new_tokens=4)
     assert isinstance(out, np.ndarray) and out.shape == (1, 7)
     np.testing.assert_array_equal(out[:, :3], [[1, 2, 3]])
+
+
+# ---------------------------------------------------------------------------
+# The continuous paged server (SERVE_CONTINUOUS=1 SERVE_PAGED=1)
+# ---------------------------------------------------------------------------
+
+RING_KW = dict(slots=2, chunk_tokens=4, max_len=64,
+               prefill_buckets=(8, 16, 32, 64), paged=True, block_size=8)
+
+
+@pytest.fixture(scope="module")
+def ring_servers():
+    jmodel, jcfg = jax_make_model("tiny", dtype=jnp.float32)
+    jparams = jmodel.init(jax.random.PRNGKey(0),
+                          jnp.zeros((1, 8), jnp.int32))["params"]
+    model, cfg = make_model("tiny", device="cpu", dtype=torch.float32)
+    model.load_state_dict(params_from_jax(jax.device_get(jparams)))
+    srvs = {"port": S.make_server("127.0.0.1", 0, model, cfg,
+                                  continuous=True, job="j", replica="r0",
+                                  **RING_KW),
+            "jax": jax_make_server("127.0.0.1", 0, jparams, jcfg,
+                                   continuous=True, job="j", replica="r0",
+                                   **RING_KW)}
+    for srv in srvs.values():
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+    yield srvs, {k: f"http://127.0.0.1:{s.server_address[1]}"
+                 for k, s in srvs.items()}
+    for srv in srvs.values():
+        srv.shutdown()
+        srv.server_close()
+        srv.generator.close()
+
+
+def _stream(url, body):
+    """POST a streaming generate; returns the parsed ndjson events."""
+    req = urllib.request.Request(url + "/v1/generate",
+                                 data=json.dumps(body).encode(),
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        assert r.headers.get("Transfer-Encoding") == "chunked"
+        return [json.loads(line) for line in r.read().splitlines()
+                if line.strip()]
+
+
+def _metric_keys(text: bytes):
+    return {line.split(" ")[0] for line in text.decode().splitlines()
+            if line and not line.startswith("#")}
+
+
+class TestContinuousServer:
+    @pytest.mark.parametrize("body", [
+        {"tokens": [[1, 2, 3, 4, 5, 6]], "max_new_tokens": 7},
+        {"tokens": [[7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20,
+                     21, 22, 23], [200, 3, 3, 9, 1] * 3 + [4, 4]],
+         "max_new_tokens": 9,
+         "request_id": "rows"},
+        {"tokens": [[3, 1, 4, 1, 5]], "max_new_tokens": 6, "eos_token": 2},
+    ])
+    def test_greedy_rows_equal_jax(self, ring_servers, body):
+        _, urls = ring_servers
+        (pc, pb, ph) = _call(urls["port"] + "/v1/generate", "POST", body)
+        (jc, jb, jh) = _call(urls["jax"] + "/v1/generate", "POST", body)
+        assert pc == jc == 200
+        assert json.loads(pb) == json.loads(jb)
+        assert ph.get("X-Request-Id") == jh.get("X-Request-Id")
+
+    def test_prefix_hit_resubmission_equal(self, ring_servers):
+        srvs, urls = ring_servers
+        body = {"tokens": [list(range(30, 54))], "max_new_tokens": 5}
+        first = _call(urls["port"] + "/v1/generate", "POST", body)
+        hits0 = srvs["port"].generator.batcher.pool.stats[
+            "prefix_hit_tokens"]
+        again = _call(urls["port"] + "/v1/generate", "POST", body)
+        assert first[0] == again[0] == 200 and first[1] == again[1]
+        assert srvs["port"].generator.batcher.pool.stats[
+            "prefix_hit_tokens"] > hits0
+
+    def test_stream_events(self, ring_servers):
+        _, urls = ring_servers
+        body = {"tokens": [[9, 8, 7, 6, 5]], "max_new_tokens": 6,
+                "stream": True}
+        got, want = _stream(urls["port"], body), _stream(urls["jax"], body)
+        assert got == want
+        assert [e["token"] for e in got[:-1]] == got[-1]["tokens"][5:]
+        assert got[-1]["done"] is True
+
+    def test_deadline_partial_is_504(self, ring_servers):
+        _, urls = ring_servers
+        body = {"tokens": [[4, 4, 4]], "max_new_tokens": 8}
+        hdr = {"X-Request-Deadline": "0.000001"}
+        (pc, pb, _) = _call(urls["port"] + "/v1/generate", "POST", body, hdr)
+        (jc, jb, _) = _call(urls["jax"] + "/v1/generate", "POST", body, hdr)
+        assert pc == jc == 504
+        assert json.loads(pb) == json.loads(jb)
+        assert json.loads(pb)["deadline_exceeded"] == [True]
+
+    def test_metrics_and_statusz_keys_equal_jax(self, ring_servers):
+        _, urls = ring_servers
+        body = {"tokens": [[5, 6, 7]], "max_new_tokens": 3}
+        for url in urls.values():
+            assert _call(url + "/v1/generate", "POST", body)[0] == 200
+        (pc, pm, _), (jc, jm, _) = (_call(urls["port"] + "/metrics"),
+                                    _call(urls["jax"] + "/metrics"))
+        assert pc == jc == 200
+        assert _metric_keys(pm) == _metric_keys(jm)
+        ps = json.loads(_call(urls["port"] + "/statusz")[1])
+        js = json.loads(_call(urls["jax"] + "/statusz")[1])
+        assert set(ps) - set(js) == {"preemption"}
+        assert set(js) <= set(ps)
+        assert "not ported" in ps["preemption"]
+        fr = json.loads(_call(urls["port"] + "/debug/flightrec")[1])
+        assert any(e["kind"] == "admit" for e in fr["events"])
+
+    def test_priority_and_bad_priority(self, ring_servers):
+        _, urls = ring_servers
+        body = {"tokens": [[1, 2, 3]], "max_new_tokens": 2}
+        for hdr, code in (({"X-Request-Priority": "0"}, 200),
+                          ({"X-Request-Priority": "7"}, 400)):
+            (pc, _, _) = _call(urls["port"] + "/v1/generate", "POST", body,
+                               hdr)
+            (jc, _, _) = _call(urls["jax"] + "/v1/generate", "POST", body,
+                               hdr)
+            assert pc == jc == code
+
+    def test_readyz_while_healing_or_draining(self, ring_servers):
+        srvs, urls = ring_servers
+        b = srvs["port"].generator.batcher
+        assert _call(urls["port"] + "/readyz")[0] == 200
+        b._rebuilding = True
+        try:
+            code, body, _ = _call(urls["port"] + "/readyz")
+            assert code == 503 and json.loads(body)["reason"] == "ring"
+            assert _call(urls["port"] + "/healthz")[0] == 200
+        finally:
+            b._rebuilding = False
+        srvs["port"].state.draining = True
+        try:
+            code, body, _ = _call(urls["port"] + "/readyz")
+            assert code == 503 and json.loads(body)["reason"] == "draining"
+        finally:
+            srvs["port"].state.draining = False
+
+    @pytest.mark.parametrize("path", ["/v1/swap", "/v1/kv/restore",
+                                      "/v1/adapters"])
+    def test_unported_routes_answer_400(self, ring_servers, path):
+        _, urls = ring_servers
+        code, body, _ = _call(urls["port"] + path, "POST", {})
+        assert code == 400 and "error" in json.loads(body)
+
+
+REFUSED_KNOBS = [
+    {"SERVE_SPEC_K": "2"}, {"SERVE_KV_QUANT": "int8"},
+    {"SERVE_HOST_CACHE_BLOCKS": "4"}, {"SERVE_HOST_CACHE_MB": "8"},
+    {"SERVE_PREFILL": "chunked"}, {"SERVE_PREFILL": "disagg"},
+    {"SERVE_MEGASTEP": "4"}, {"SERVE_ADAPTERS": "acme"},
+    {"SERVE_TRACE": "1"}, {"SERVE_NAN_CHECK": "1"}, {"SERVE_PREEMPT": "1"},
+    {"SERVE_PREEMPT_MAX_PER_REQ": "5"}, {"SERVE_PREEMPT_BUDGET": "9"},
+    {"SERVE_PREEMPT_WINDOW_S": "2.5"},
+    {"TPUJOB_CHAOS": "dispatch_hang@3:0.25"}, {"SERVE_KV_MIGRATE": "1"},
+    {"SERVE_KV_PEER_FETCH": "1"}, {"SERVE_KV_STORE": "dir:/tmp/kvs"},
+    {"SERVE_KV_BROKER": "127.0.0.1:9100"}, {"SERVE_TP": "2"},
+    {"QUANTIZE": "int8"}, {"SERVE_WEIGHT_QUANT": "int8"},
+]
+
+
+@pytest.mark.parametrize("env", REFUSED_KNOBS,
+                         ids=lambda e: "-".join(f"{k}={v}"
+                                                for k, v in e.items()))
+def test_refuse_unported_names_the_knob(env):
+    environ = {"SERVE_CONTINUOUS": "1", "SERVE_PAGED": "1", **env}
+    (knob, value), = env.items()
+    with pytest.raises(ValueError, match=knob):
+        S.refuse_unported(environ, "")
+    assert value in str(pytest.raises(ValueError, S.refuse_unported,
+                                      environ, "").value)
+
+
+def test_deployed_env_is_accepted_and_parsed():
+    env = {"SERVE_CONTINUOUS": "1", "SERVE_PAGED": "1", "SERVE_SLOTS": "8",
+           "SERVE_CHUNK": "8", "SERVE_MAX_QUEUE": "16",
+           "SERVE_MAX_LEN": "2048", "SERVE_BLOCK_SIZE": "256",
+           "SERVE_NUM_BLOCKS": "65", "SERVE_PREFIX_CACHE": "1",
+           "SERVE_PRIORITIES": "3", "SERVE_PREWARM": "0",
+           "SERVE_GENERATION": "4", "SERVE_PREEMPT": "0",
+           "SERVE_PREFILL": "inline", "SERVE_KV_QUANT": "none",
+           "SERVE_WATCHDOG_FLOOR_S": "30", "SERVE_MAX_RESTARTS": "5",
+           "SERVE_RESTART_WINDOW_S": "60"}
+    S.refuse_unported(env, "")
+    kw = S.ring_kw_from_env(env)
+    assert (kw["slots"], kw["chunk_tokens"], kw["max_queue"],
+            kw["max_len"], kw["block_size"], kw["num_blocks"]) == \
+        (8, 8, 16, 2048, 256, 65)
+    assert kw["paged"] and kw["prefix_cache"] and not kw["prewarm"]
+    assert kw["generation"] == 4 and kw["qos"].priorities == 3
+    assert kw["resilience"].stall_floor_s == 30.0
+    assert kw["resilience"].max_restarts == 5
+    assert kw["resilience"].restart_window_s == 60.0
