@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
-    python3 chip_smoke.py [--phases 2,2b,3,3b,4,4b]
+    python3 chip_smoke.py [--phases 2,2b,2c,3,3b,3c,4,4b,4c]
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line; with no arguments every phase runs):
 
-1. build — compile every kernel source of the serving paths from
-   ``paddle_operator_tpu_torch/csrc/`` (one nvcc each, in parallel).
+1. build — compile every kernel source of the serving and training
+   paths from ``paddle_operator_tpu_torch/csrc/`` (one nvcc each, in
+   parallel).
 2. kernel vs plain — ``decode_attention`` against
    ``decode_attention_reference`` on the card: ragged lengths with 0, 1,
    a full cache and a non-multiple of any tile; MHA and GQA (n_rep 2, 4);
@@ -27,6 +28,25 @@ result line; with no arguments every phase runs):
    its plain version, kernel #1 on the same rows laid out contiguously,
    and ``scaled_dot_product_attention`` on those contiguous rows (the
    same work without the table walk; never used by the port).
+2c. flash kernels vs plain — ``flash_forward`` (O and lse),
+   ``flash_backward_dkv`` and ``flash_backward_dq`` each against its
+   plain version on the same inputs (the backward kernels get the plain
+   forward's lse and delta): causal and not, n_rep 1/2/4, D 64 and 128,
+   S 1, 300 and 2048, with and without three-document segment ids, plus
+   rows whose query id no key carries (o = 0, lse = 0); float32 at
+   atol = rtol = 1e-4, bfloat16 against the plain version in float32
+   element by element (``FLASH_BF16_ATOL``, one limit a kernel, and
+   ``FLASH_BF16_RTOL``) and as a whole (``FLASH_BF16_REL``: the
+   relative Frobenius error of each output, and of the forward's O
+   over the main path's second half of rows, where |O| is small).  Two
+   runs of each backward kernel are bit-identical.  Then timed at the
+   7b training shape (B 4, H 32, D 128, causal, bf16) at S 512 and
+   2048: each kernel, its plain version, ``scaled_dot_product_attention``
+   forward, the library's flash backward (``aten.
+   _scaled_dot_product_flash_attention_backward``: dQ, dK and dV in one
+   call, the yardstick of the dK/dV + dQ pair) and SDPA
+   forward+backward through autograd (library yardsticks, never used by
+   the port) and the port's forward+backward, beside their bounds.
 3. batch main path — 7b at full width and depth, bf16, fresh init from
    seed 0: the port's batch server answers three ``/v1/generate``
    requests over real HTTP; the kernel's launch count over exactly that
@@ -41,6 +61,16 @@ result line; with no arguments every phase runs):
    must equal n_layers x chunk_tokens x chunks dispatched, kernel #1
    must not launch, followers prefill only their suffixes, the pool's
    invariant holds and every block ends free or cached.
+3c. training main path — 7b at full width cut to 8 layers (f32
+   params, bf16 compute, full remat), fresh init from seed 0:
+   ``make_model`` -> ``create_state`` -> ``make_train_step`` -> ``fit``
+   over a ``DevicePrefetcher`` for 12 steps of one repeated batch of
+   4 x 2049 tokens.  The loss must fall below 0.7x its first value;
+   the flash kernels' launches over exactly that run must equal
+   2 x layers x steps (forward and the remat recompute) for the forward
+   and layers x steps for each backward kernel, and the decode kernels
+   must not launch.  Step ms (median after the first two steps),
+   tokens/s, MFU and peak memory are reported.
 4. kernel path == plain path — 7b width, 2 layers, float32: greedy
    ``generate`` through the kernel and through the plain version give
    the same tokens, and per-step logits agree within 1e-3.
@@ -48,6 +78,10 @@ result line; with no arguments every phase runs):
    layers, float32: four prompts, one a prefix hit, give identical
    greedy tokens through the paged ring (paged kernel), the contiguous
    ring (kernel #1) and ``generate``.
+4c. training kernel path == plain path — 7b width, 2 layers, float32:
+   three train steps with attention through the flash kernels and
+   through ``reference_attention`` from the same init agree in loss
+   (rtol 1e-5) and grad_norm (rtol 1e-4).
 5. report — a ``kernels`` JSON line, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -58,6 +92,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -69,14 +104,32 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 PEAK_OPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
-# one source file holds both kernels (decode_attention_launch and
-# paged_decode_attention_launch)
-KERNELS = ["decode_attention"]
+# kernel sources: decode_attention.cu holds decode_attention_launch and
+# paged_decode_attention_launch; flash_attention.cu the forward and both
+# backward kernels
+KERNELS = ["decode_attention", "flash_attention"]
 # bf16 kernels against their plain version in f32 on the same bf16
 # inputs: about 3x the worst error read on the card over every case of
 # phases 2 and 2b (1.9e-3 and 3.1e-3 on an H100 80GB HBM3 at 700 W)
 BF16_ATOL = 1e-2
-PHASES = ("2", "2b", "3", "3b", "4", "4b")
+# bf16 flash kernels against their plain version in f32 on the same bf16
+# inputs, element by element: |err| <= atol + rtol |want|.  rtol 2^-6
+# covers a few bf16 roundings (the output's, p's, ds's); each kernel's
+# atol is about 2.5x or more its own worst |err| - rtol |want| read on
+# the card over every case of phase 2c in three runs (3.0e-3 forward,
+# 1.2e-2 dK/dV, 5.5e-3 dQ on an H100 80GB HBM3 at 700 W)
+FLASH_BF16_ATOL = {"flash_forward": 1e-2, "flash_backward_dkv": 3e-2,
+                   "flash_backward_dq": 1.5e-2}
+FLASH_BF16_RTOL = 2.0 ** -6
+# and as a whole: ||got - want|| / ||want|| (Frobenius) of each output,
+# about 4x the worst reading (2.4e-3, every output: a few bf16 roundings
+# of relative size 2^-9); a fault confined to some rows or tiles moves
+# it by their share of the norm
+FLASH_BF16_REL = 1e-2
+# phase 3c: 7b width cut to 8 layers, B x (S + 1) tokens, bf16 compute
+TRAIN = dict(layers=8, batch=4, seq=2048, steps=12, lr=1e-3)
+PEAK_BF16 = 989e12                 # H100 SXM dense bf16, for MFU
+PHASES = ("2", "2b", "2c", "3", "3b", "3c", "4", "4b", "4c")
 
 
 def log(*a) -> None:
@@ -91,14 +144,15 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def time_ms(fn, iters: int, warmup: int = 3) -> tuple:
+def time_ms(fn, iters: int, warmup: int = 3, graph: bool = True) -> tuple:
     """Per-call time of ``fn(i)``: (device ms, eager ms).
 
     Device ms: ``iters`` calls captured into one CUDA graph, replayed
     between CUDA events — the card's time alone, without the host's
-    per-call Python and launch cost.  Eager ms: the same calls issued
-    one by one between CUDA events, which includes that host cost
-    wherever the host issues slower than the card runs."""
+    per-call Python and launch cost (None with ``graph=False``).  Eager
+    ms: the same calls issued one by one between CUDA events, which
+    includes that host cost wherever the host issues slower than the
+    card runs."""
     import torch
 
     side = torch.cuda.Stream()
@@ -116,21 +170,23 @@ def time_ms(fn, iters: int, warmup: int = 3) -> tuple:
     end.record()
     end.synchronize()
     eager = start.elapsed_time(end) / iters
+    if not graph:
+        return None, eager
 
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
         for i in range(iters):
             fn(i)
-    graph.replay()
+    g.replay()
     torch.cuda.synchronize()
     reps = 3
     start.record()
     for _ in range(reps):
-        graph.replay()
+        g.replay()
     end.record()
     end.synchronize()
     device = start.elapsed_time(end) / (iters * reps)
-    del graph
+    del g
     return device, eager
 
 
@@ -385,6 +441,255 @@ def phase_paged_kernel_vs_plain(report: dict) -> None:
     torch.cuda.empty_cache()
 
 
+FLASH_KERNELS = ("flash_forward", "flash_backward_dkv", "flash_backward_dq")
+
+
+def flash_bound_ms(b, hq, hkv, s, d, dtype, kind: str) -> tuple:
+    """Least time for one causal flash call at [B, S, H, D]: each input
+    read once and each output written once, against the products the
+    function needs at the dtype's peak — each an S x S x D product per
+    (batch, query head), half of it under the causal mask: 2 for the
+    forward (QK^T, PV), 4 for dK/dV (QK^T, dO V^T, P^T dO, dS^T Q), 3
+    for dQ (QK^T, dO V^T, dS K) and 7 for the forward and backward as
+    one function (whose backward computes QK^T and dO V^T once)."""
+    import torch
+
+    e = torch.empty((), dtype=dtype).element_size()
+    # (q-like tensors, kv-like tensors, f32 rows per query row, products)
+    moved = {"fwd": (2, 2, 1, 2), "dkv": (2, 4, 2, 4), "dq": (3, 2, 2, 3),
+             "fwd_bwd": (4, 4, 0, 7)}[kind]
+    nq, nkv, rows, products = moved
+    nbytes = e * b * s * d * (nq * hq + nkv * hkv) + 4 * rows * b * hq * s
+    ops = products * 2 * b * hq * s * s * d / 2
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[str(dtype)] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def phase_flash_vs_plain(reports: dict) -> None:
+    """Phase 2c: the three flash kernels against their plain versions,
+    bit-identical reruns, then timings at the 7b training shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_operator_tpu_torch.ops import flash_attention as FA
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def documents(b, s):
+        """[b, s] int32 ids of three packed documents (ragged cuts)."""
+        cuts = torch.tensor([0, s // 3, (2 * s) // 3 + 1], device=dev)
+        ids = (torch.arange(s, device=dev)[None, :] >= cuts[:, None]).sum(0)
+        return ids.to(torch.int32)[None].repeat(b, 1).contiguous()
+
+    # (name, B, Hq, D, n_rep, S, causal, ids: none / docs / orphan q
+    # rows); the last is the training main path's shape
+    cases = [(f"D{d}-rep{n_rep}-S{s}", 2, 8, d, n_rep, s, causal, ids)
+             for d in (64, 128) for n_rep in (1, 2, 4)
+             for s in (1, 300, 2048) for causal in (True, False)
+             for ids in ("none", "docs")]
+    cases += [("orphan-rows", 2, 8, 128, 2, 300, causal, "orphan")
+              for causal in (True, False)]
+    cases.append(("main-path-7b", 4, 32, 128, 1, 2048, True, "none"))
+    worst = {(k, dt): 0.0 for k in FLASH_KERNELS
+             for dt in (torch.float32, torch.bfloat16)}
+    excess = {k: 0.0 for k in FLASH_KERNELS}   # bf16 |err| - rtol |want|
+    worst_rel = {k: 0.0 for k in FLASH_KERNELS}  # bf16 relative Frobenius
+    failures = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, b, hq, d, n_rep, s, causal, ids in cases:
+            hkv = hq // n_rep
+            q, do = rand((b, s, hq, d), dtype), rand((b, s, hq, d), dtype)
+            k, v = rand((b, s, hkv, d), dtype), rand((b, s, hkv, d), dtype)
+            seg_q = seg_k = None
+            if ids != "none":
+                seg_q = seg_k = documents(b, s)
+            if ids == "orphan":
+                # the last third of the query rows carry an id no key
+                # has: fully masked rows, reachable only through the
+                # internal entry points
+                seg_q = seg_k.clone()
+                seg_q[:, 2 * s // 3:] = 99
+            o, lse = FA.flash_forward(q, k, v, seg_q, seg_k, causal=causal)
+            qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+            po, plse = FA.flash_forward_reference(qf, kf, vf, seg_q,
+                                                  causal=causal, seg_k=seg_k)
+            delta = FA.attention_delta(po, dof)
+            dk, dv = FA.flash_backward_dkv(q, k, v, do, plse, delta, seg_q,
+                                           seg_k, causal=causal)
+            dq = FA.flash_backward_dq(q, k, v, do, plse, delta, seg_q, seg_k,
+                                      causal=causal)
+            pdk, pdv = FA.flash_backward_dkv_reference(
+                qf, kf, vf, dof, plse, delta, seg_q, seg_k, causal=causal)
+            pdq = FA.flash_backward_dq_reference(qf, kf, vf, dof, plse, delta,
+                                                 seg_q, seg_k, causal=causal)
+            torch.cuda.synchronize()
+            if ids == "orphan" and (o[:, 2 * s // 3:].abs().max() != 0
+                                    or lse[:, :, 2 * s // 3:].abs().max()
+                                    != 0):
+                raise AssertionError("flash_forward: rows with no key do "
+                                     "not give o = 0 and lse = 0")
+            errs, rels = {}, {}
+            what = f"{name} causal={causal} ids={ids} {dtype}"
+            pairs = {"flash_forward": [("o", o, po), ("lse", lse, plse)],
+                     "flash_backward_dkv": [("dk", dk, pdk), ("dv", dv, pdv)],
+                     "flash_backward_dq": [("dq", dq, pdq)]}
+            if name == "main-path-7b":
+                # the long causal rows, where a typical |O| is ~0.04
+                pairs["flash_forward"].append(
+                    ("o[S/2:]", o[:, s // 2:], po[:, s // 2:]))
+            for kern, outs in pairs.items():
+                atol, rtol = ((1e-4, 1e-4) if dtype == torch.float32
+                              else (FLASH_BF16_ATOL[kern], FLASH_BF16_RTOL))
+                for out, got, want in outs:
+                    diff = (got.float() - want).abs()
+                    err = float(diff.max())
+                    errs[kern] = max(errs.get(kern, 0.0), err)
+                    if not bool((diff <= atol + rtol * want.abs()).all()):
+                        failures.append(
+                            f"{kern} {out} disagrees with its plain version "
+                            f"element by element: {what} max_abs_err {err} "
+                            f"(atol {atol}, rtol {rtol})")
+                    if dtype != torch.bfloat16:
+                        continue
+                    excess[kern] = max(excess[kern], float(
+                        (diff - rtol * want.abs()).max()))
+                    if s == 1 and out in ("dk", "dq"):
+                        # one key a row: the softmax gradient is 0, and
+                        # both sides hold only rounding residue
+                        continue
+                    rel = float(diff.norm()) / float(want.norm())
+                    rels[out] = rel
+                    worst_rel[kern] = max(worst_rel[kern], rel)
+                    if rel > FLASH_BF16_REL:
+                        failures.append(
+                            f"{kern} {out} disagrees with its plain version "
+                            f"as a whole: {what} relative error {rel:.3e} "
+                            f"(limit {FLASH_BF16_REL})")
+                worst[kern, dtype] = max(worst[kern, dtype], errs[kern])
+            log(f"flash-vs-plain {name} B={b} Hq={hq} {str(dtype)[6:]} "
+                f"causal={causal} ids={ids}: " + " ".join(
+                    f"{k[6:]}={e:.2e}" for k, e in errs.items())
+                + ("; relative " + " ".join(f"{k}={e:.2e}"
+                                           for k, e in rels.items())
+                   if rels else ""))
+    log(f"flash bf16 worst |err| - rtol |want| (rtol {FLASH_BF16_RTOL}): "
+        + json.dumps(excess))
+    log("flash bf16 worst relative Frobenius error: " + json.dumps(worst_rel))
+    if failures:
+        raise AssertionError(f"{len(failures)} flash checks failed:\n"
+                             + "\n".join(failures[:20]))
+
+    # two runs of each kernel on the same inputs give the same bits
+    b, hq, d, s, hkv = 2, 8, 128, 2048, 4
+    q, do = rand((b, s, hq, d), torch.bfloat16), rand((b, s, hq, d),
+                                                      torch.bfloat16)
+    k, v = rand((b, s, hkv, d), torch.bfloat16), rand((b, s, hkv, d),
+                                                      torch.bfloat16)
+    seg = documents(b, s)
+    runs = []
+    for _ in range(2):
+        o, lse = FA.flash_forward(q, k, v, seg, seg)
+        delta = FA.attention_delta(o, do)
+        runs.append((o, lse) + FA.flash_backward_dkv(q, k, v, do, lse, delta,
+                                                     seg, seg)
+                    + (FA.flash_backward_dq(q, k, v, do, lse, delta, seg,
+                                            seg),))
+    if not all(torch.equal(x, y) for x, y in zip(*runs)):
+        raise AssertionError("two runs of the flash kernels differ")
+    log("flash kernels: two runs bit-identical (bf16, B=2 S=2048 H=8 "
+        "Hkv=4 D=128, causal, 3 documents)")
+
+    # timing at the 7b training shape, in turns: plain, kernel, kernel,
+    # plain for each kernel; the library and the port's forward+backward
+    b, h, d = 4, 32, 128
+    dtype = torch.bfloat16
+    for s in (512, 2048):
+        q, k, v, do = (rand((b, s, h, d), dtype) for _ in range(4))
+        o, lse = FA.flash_forward(q, k, v)
+        delta = FA.attention_delta(o, do)
+        qt, kt, vt, dot = (x.transpose(1, 2).contiguous()
+                           for x in (q, k, v, do))
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        tleaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+        plain_iters = 2 if s == 2048 else 4
+        fns = {
+            "flash_forward": (lambda i: FA.flash_forward(q, k, v),
+                              lambda i: FA.flash_forward_reference(q, k, v),
+                              "fwd"),
+            "flash_backward_dkv": (
+                lambda i: FA.flash_backward_dkv(q, k, v, do, lse, delta),
+                lambda i: FA.flash_backward_dkv_reference(q, k, v, do, lse,
+                                                          delta), "dkv"),
+            "flash_backward_dq": (
+                lambda i: FA.flash_backward_dq(q, k, v, do, lse, delta),
+                lambda i: FA.flash_backward_dq_reference(q, k, v, do, lse,
+                                                         delta), "dq"),
+        }
+        for kern, (kfn, pfn, kind) in fns.items():
+            row = {"seq": s}
+            for key, fn, iters in (("plain_ms", pfn, plain_iters),
+                                   ("ms", kfn, 10), ("ms_again", kfn, 10),
+                                   ("plain_ms_again", pfn, plain_iters)):
+                row[key], row[key.replace("ms", "eager_ms", 1)] = \
+                    time_ms(fn, iters)
+            row["bound_ms"], row["bound_by"] = flash_bound_ms(
+                b, h, h, s, d, dtype, kind)
+            if kern == "flash_forward":
+                row["library_ms"], row["library_eager_ms"] = time_ms(
+                    lambda i: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True), 10)
+            else:
+                row["library_ms"] = None
+            log(f"timing 7b {kern} bf16 B={b} H={h} D={d} S={s} causal: "
+                + json.dumps(row))
+            reports[kern].setdefault("timings", []).append(row)
+        # forward + backward as one function (host clock of the eager
+        # calls between CUDA events; autograd is not captured)
+        pair = {"seq": s}
+        _, pair["fwd_bwd_ms"] = time_ms(
+            lambda i: torch.autograd.grad(
+                FA.flash_attention(*leaves), leaves, do), 5, graph=False)
+        _, pair["library_fwd_bwd_ms"] = time_ms(
+            lambda i: torch.autograd.grad(
+                F.scaled_dot_product_attention(*tleaves, is_causal=True),
+                tleaves, dot), 5, graph=False)
+        pair["fwd_bwd_bound_ms"], pair["fwd_bwd_bound_by"] = flash_bound_ms(
+            b, h, h, s, d, dtype, "fwd_bwd")
+        # the backward pair against the library's flash backward, which
+        # computes dQ, dK and dV in one call from its own forward's lse
+        lib = torch.ops.aten._scaled_dot_product_flash_attention(
+            qt, kt, vt, 0.0, True, False)
+        lib_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+        pair["library_bwd_ms"], pair["library_bwd_eager_ms"] = time_ms(
+            lambda i: lib_bwd(dot, qt, kt, vt, *lib[:6], 0.0, True,
+                              *lib[6:8]), 10)
+        pair["bwd_pair_ms"] = (
+            reports["flash_backward_dkv"]["timings"][-1]["ms"]
+            + reports["flash_backward_dq"]["timings"][-1]["ms"])
+        log(f"timing 7b flash forward+backward vs SDPA (eager) and the "
+            f"backward pair vs the library's flash backward (device), bf16 "
+            f"B={b} H={h} D={d} S={s} causal: " + json.dumps(pair))
+        reports["flash_forward"].setdefault("fwd_bwd", []).append(pair)
+        del q, k, v, do, o, lse, delta, qt, kt, vt, dot, leaves, tleaves
+        del lib
+        torch.cuda.empty_cache()
+    for kern in FLASH_KERNELS:
+        r = reports[kern]
+        r["max_abs_err_f32"] = worst[kern, torch.float32]
+        r["max_abs_err_bf16"] = worst[kern, torch.bfloat16]
+        r["max_abs_err"] = max(r["max_abs_err_f32"], r["max_abs_err_bf16"])
+        main = next(t for t in r["timings"] if t["seq"] == 2048)
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
+            r[key] = main[key]
+
+
 def _post(base: str, body: dict) -> tuple:
     req = urllib.request.Request(
         base + "/v1/generate", data=json.dumps(body).encode(),
@@ -461,8 +766,7 @@ def phase_main_path(report: dict, params, cfg) -> None:
           "max_new_tokens": 32}
     reqs = [r1, r2, r1]
     try:
-        DA.decode_attention.launches = 0
-        DA.paged_decode_attention.launches = 0
+        _zero_launches()
         results = [_post(base, r) for r in reqs]
         launches = DA.decode_attention.launches
         paged = DA.paged_decode_attention.launches
@@ -564,8 +868,7 @@ def phase_ring_main_path(report: dict, params, cfg) -> None:
 
     try:
         stats0 = dict(batcher.stats)
-        DA.decode_attention.launches = 0
-        DA.paged_decode_attention.launches = 0
+        _zero_launches()
         t0 = time.perf_counter()
         threads = [threading.Thread(target=send, args=j) for j in jobs]
         for t in threads:
@@ -683,6 +986,119 @@ def phase_ring_main_path(report: dict, params, cfg) -> None:
     report["ring"] = ring
 
 
+def _zero_launches() -> None:
+    from paddle_operator_tpu_torch.ops import decode_attention as DA
+    from paddle_operator_tpu_torch.ops import flash_attention as FA
+
+    for fn in (DA.decode_attention, DA.paged_decode_attention,
+               FA.flash_forward, FA.flash_backward_dkv, FA.flash_backward_dq):
+        fn.launches = 0
+
+
+def _synced_clock() -> float:
+    """Host clock read after the card has finished its queued work, so
+    StepTimer's intervals are whole steps."""
+    import torch
+
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def phase_train_main_path(reports: dict) -> None:
+    """Phase 3c: 7b width, 8 layers, trained through ``fit``; see the
+    module docstring."""
+    import itertools
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.models.llama import make_model
+    from paddle_operator_tpu_torch.ops import decode_attention as DA
+    from paddle_operator_tpu_torch.ops import flash_attention as FA
+    from paddle_operator_tpu_torch.train import trainer as T
+    from paddle_operator_tpu_torch.train.data import (
+        DevicePrefetcher, deterministic_lm_batches)
+    from paddle_operator_tpu_torch.utils.observability import StepTimer
+
+    layers, b, s, steps = (TRAIN[k] for k in ("layers", "batch", "seq",
+                                              "steps"))
+    # what earlier phases left allocated is not the training's
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    model, cfg = make_model("7b", device="cuda", seed=0, n_layers=layers)
+    opt = T.make_optimizer(TRAIN["lr"], warmup_steps=1, decay_steps=1000)
+    state = T.create_state(model, opt)
+    step = T.make_train_step(opt)
+    torch.cuda.synchronize()
+    log(f"train: 7b width, {layers} layers ({cfg.num_params() / 1e9:.3f}B "
+        f"params, f32 params, {cfg.dtype} compute, remat {cfg.remat}), "
+        f"model + AdamW state built in "
+        f"{time.perf_counter() - t0:.1f}s")
+    batch = next(deterministic_lm_batches(b, s + 1, cfg.vocab_size, seed=0))
+    batches = DevicePrefetcher(itertools.repeat(batch, steps), device="cuda")
+    timer = StepTimer(b * s, cfg.flops_per_token(), PEAK_BF16,
+                      window=steps, clock=_synced_clock)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = _synced_clock()
+    state, history = T.fit(state, step, batches, steps=steps, timer=timer)
+    wall = _synced_clock() - t0
+    fwd = FA.flash_forward.launches
+    dkv = FA.flash_backward_dkv.launches
+    dq = FA.flash_backward_dq.launches
+    decode = (DA.decode_attention.launches
+              + DA.paged_decode_attention.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - base_gb
+    losses = [h["loss"] for h in history]
+    norms = [h["grad_norm"] for h in history]
+    log(f"train: losses {losses}")
+    log(f"train: grad norms {norms}")
+    if len(history) != steps or not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"fit ran {len(history)} of {steps} steps, or "
+                             "a loss or grad norm is not finite")
+    if not losses[-1] < 0.7 * losses[0]:
+        raise AssertionError(f"the loss did not fall below 0.7x its first "
+                             f"value: {losses[0]} -> {losses[-1]}")
+    want = {"fwd": 2 * layers * steps, "dkv": layers * steps,
+            "dq": layers * steps}
+    log(f"train: launches flash_forward {fwd} (2 x {layers} layers x "
+        f"{steps} steps = {want['fwd']}), flash_backward_dkv {dkv}, "
+        f"flash_backward_dq {dq} ({layers} x {steps} = {want['dq']}); "
+        f"decode kernels {decode}")
+    if (fwd, dkv, dq) != (want["fwd"], want["dkv"], want["dq"]) or decode:
+        raise AssertionError("the training path's kernel launches do not "
+                             "match the formulas")
+    times = list(timer.times)           # steps 2..N
+    step_ms = statistics.median(times[1:]) * 1e3
+    tok_s = b * s / (step_ms / 1e3)
+    train = {
+        "layers": layers, "batch": b, "seq": s, "steps": steps,
+        "lr": TRAIN["lr"], "params": cfg.num_params(),
+        "first_loss": losses[0], "last_loss": losses[-1],
+        "fit_wall_s": wall, "step_ms_median": step_ms,
+        "step_ms": [t * 1e3 for t in times],
+        "tokens_per_s": tok_s,
+        "flops_per_token": cfg.flops_per_token(),
+        "mfu": tok_s * cfg.flops_per_token() / PEAK_BF16,
+        "max_memory_allocated_gb": peak_gb,
+        "allocated_before_gb": base_gb,
+    }
+    log("train: " + json.dumps(train))
+    log(f"train (one run of {steps} steps, not a benchmark): step "
+        f"{step_ms:.1f} ms (median of steps 3..{steps}), {tok_s:.0f} "
+        f"tokens/s, MFU {train['mfu']:.3f} against {PEAK_BF16 / 1e12:.0f} "
+        f"TFLOP/s bf16, peak memory {peak_gb:.1f} GB (above the "
+        f"{base_gb:.1f} GB allocated before it); loss {losses[0]:.3f}"
+        f" -> {losses[-1]:.3f}")
+    for kern, n in (("flash_forward", fwd), ("flash_backward_dkv", dkv),
+                    ("flash_backward_dq", dq)):
+        reports[kern]["launches"] = n
+    reports["flash_forward"]["train"] = train
+    del state, step, model, opt, batches
+    torch.cuda.empty_cache()
+
+
 def phase_kernel_path_equals_plain() -> None:
     import numpy as np
     import torch
@@ -776,6 +1192,58 @@ def phase_rings_equal_generate() -> None:
     torch.cuda.empty_cache()
 
 
+def phase_train_kernel_equals_plain() -> None:
+    """Phase 4c: three f32 train steps through the flash kernels and
+    through the plain attention, from the same init."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.models import llama as LM
+    from paddle_operator_tpu_torch.ops import flash_attention as FA
+    from paddle_operator_tpu_torch.ops.attention import reference_attention
+    from paddle_operator_tpu_torch.train import trainer as T
+    from paddle_operator_tpu_torch.train.data import deterministic_lm_batches
+
+    model, cfg = LM.make_model("7b", device="cuda", seed=2, n_layers=2,
+                               dtype=torch.float32)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    data = deterministic_lm_batches(2, 513, cfg.vocab_size, seed=4)
+    batches = [{k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+               for _, b in zip(range(3), data)]
+
+    def run():
+        model.load_state_dict(init)
+        opt = T.make_optimizer(1e-3, warmup_steps=1, decay_steps=100)
+        state = T.create_state(model, opt)
+        step = T.make_train_step(opt)
+        out = []
+        for b in batches:
+            state, m = step(state, b)
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+        return out
+
+    FA.flash_forward.launches = 0
+    kern = run()
+    launched = FA.flash_forward.launches
+    with mock.patch.object(LM, "attention", reference_attention):
+        plain = run()
+    if not launched or FA.flash_forward.launches != launched:
+        raise AssertionError("the kernel run did not launch the flash "
+                             "forward, or the plain run did")
+    log(f"train kernel path == plain path (7b width, 2 layers, f32, B=2 "
+        f"S=512, 3 steps): kernel {kern}, plain {plain}")
+    for (lk, gk), (lp, gp) in zip(kern, plain):
+        if not (np.isclose(lk, lp, rtol=1e-5, atol=0)
+                and np.isclose(gk, gp, rtol=1e-4, atol=0)):
+            raise AssertionError(f"train step through the kernels differs "
+                                 f"from the plain path: loss {lk} vs {lp}, "
+                                 f"grad_norm {gk} vs {gp}")
+    del model, init, batches
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -815,6 +1283,12 @@ def main() -> int:
     paged = {"name": "paged_decode_attention", "route": "cuda",
              "source": source,
              "replaces": "paddle_operator_tpu/ops/decode_attention.py:281"}
+    flash = {kern: {"name": kern, "route": "cuda",
+                    "source": "paddle_operator_tpu_torch/csrc/"
+                              "flash_attention.cu",
+                    "replaces": "paddle_operator_tpu/ops/pallas_attention.py"
+                                f":{line}"}
+             for kern, line in zip(FLASH_KERNELS, (86, 224, 276))}
 
     def run(phase, fn, *args):
         if phase in phases:
@@ -824,23 +1298,28 @@ def main() -> int:
 
     run("2", phase_kernel_vs_plain, contiguous)
     run("2b", phase_paged_kernel_vs_plain, paged)
+    run("2c", phase_flash_vs_plain, flash)
     if phases & {"3", "3b"}:
         params, cfg = make_7b()
         run("3", phase_main_path, contiguous, params, cfg)
         run("3b", phase_ring_main_path, paged, params, cfg)
         del params
+        gc.collect()        # the servers' reference cycles hold the caches
         torch.cuda.empty_cache()
+    run("3c", phase_train_main_path, flash)
     run("4", phase_kernel_path_equals_plain)
     run("4b", phase_rings_equal_generate)
+    run("4c", phase_train_kernel_equals_plain)
     log(f"all phases: {time.perf_counter() - t_all:.1f}s")
 
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "max_abs_err_f32", "max_abs_err_bf16",
-             "decode_ms_per_step_b4", "kernel1_ms", "ring", "timings"]
+             "decode_ms_per_step_b4", "kernel1_ms", "ring", "train",
+             "fwd_bwd", "timings"]
     print(json.dumps({"kernels": [
         {k: r.get(k) for k in order if k in r or k in order[:11]}
-        for r in (contiguous, paged)]}))
+        for r in (contiguous, paged, *flash.values())]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

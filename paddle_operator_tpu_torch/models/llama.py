@@ -19,6 +19,17 @@ embedding, ones for the norm scales, drawn from an explicit
 ``torch.Generator`` (the values differ from ``jax.random``'s — tests
 convert the JAX init instead of comparing inits).
 
+Training: :meth:`Llama.forward` takes packed-sequence ``segment_ids``
+and runs attention through ``ops/attention.py`` ``attention`` (the flash
+kernels on the card).  With ``remat`` (the JAX default) every decoder
+layer runs under ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``
+while gradients are recorded, so the backward recomputes the layer (and
+launches the flash forward again), as under the JAX package's default
+policy ``"full"`` (``nothing_saveable``).  The JAX config's other remat
+policies, ``scan_layers`` and ``cp_impl`` are not fields here, so a
+caller that sets them gets a ``TypeError`` (ROADMAP.md Queue A items 13
+and 14).
+
 MoE configs (``n_experts > 0``) are not ported yet and raise
 ``NotImplementedError`` (ROADMAP.md Queue A, "MoE").
 """
@@ -26,12 +37,13 @@ MoE configs (``n_experts > 0``) are not ported yet and raise
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from paddle_operator_tpu_torch.ops.attention import reference_attention
+from paddle_operator_tpu_torch.ops.attention import attention
 
 _MOE_TODO = ("MoE configs (n_experts > 0) are not ported to the torch "
              "package yet (ROADMAP.md Queue A, 'MoE')")
@@ -39,9 +51,7 @@ _MOE_TODO = ("MoE configs (n_experts > 0) are not ported to the torch "
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
-    """The JAX package's LlamaConfig, own copy, with torch dtypes.
-    Training-only knobs of the original (scan_layers, remat,
-    remat_policy, cp_impl) wait for the training slice."""
+    """The JAX package's LlamaConfig, own copy, with torch dtypes."""
 
     vocab_size: int = 32000
     dim: int = 4096
@@ -54,6 +64,9 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16        # compute dtype
     param_dtype: Any = torch.float32   # storage dtype
+    # recompute each decoder layer in the backward (the JAX default
+    # policy "full")
+    remat: bool = True
     n_experts: int = 0
     moe_capacity_factor: float = 1.25
     moe_top_k: int = 1
@@ -81,6 +94,23 @@ class LlamaConfig:
     @property
     def head_dim(self) -> int:
         return self.dim // self.n_heads
+
+    def flops_per_token(self) -> float:
+        """Approximate training FLOPs/token (fwd+bwd ~ 6 N_active +
+        attention), for MFU."""
+        attn = 12 * self.n_layers * self.dim * self.max_seq_len
+        return 6 * self.active_params() + attn
+
+    def active_params(self) -> int:
+        """Params touched per token: num_params() for dense configs; for
+        MoE the router plus the moe_top_k experts a token is routed
+        to."""
+        if self.n_experts <= 0:
+            return self.num_params()
+        d, f = self.dim, self.ffn_dim
+        all_experts = self.n_experts * 2 * d * f
+        active = self.moe_top_k * 2 * d * f
+        return self.num_params() - self.n_layers * (all_experts - active)
 
     def num_params(self) -> int:
         d, f, v = self.dim, self.ffn_dim, self.vocab_size
@@ -200,8 +230,8 @@ class Attention(nn.Module):
         self.wv = Dense(cfg, cfg.dim, cfg.n_kv_heads * hd, device)
         self.wo = Dense(cfg, cfg.n_heads * hd, cfg.dim, device)
 
-    def forward(self, x: torch.Tensor, cos: torch.Tensor,
-                sin: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         b, s, _ = x.shape
         q = self.wq(x).reshape(b, s, cfg.n_heads, cfg.head_dim)
@@ -209,7 +239,7 @@ class Attention(nn.Module):
         v = self.wv(x).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        out = reference_attention(q, k, v, causal=True)
+        out = attention(q, k, v, causal=True, segment_ids=segment_ids)
         return self.wo(out.reshape(b, s, cfg.n_heads * cfg.head_dim))
 
 
@@ -236,9 +266,9 @@ class DecoderLayer(nn.Module):
         self.mlp_norm = RMSNorm(cfg, cfg.dim, device)
         self.mlp = MLP(cfg, device)
 
-    def forward(self, x: torch.Tensor, cos: torch.Tensor,
-                sin: torch.Tensor) -> torch.Tensor:
-        h = x + self.attn(self.attn_norm(x), cos, sin)
+    def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = x + self.attn(self.attn_norm(x), cos, sin, segment_ids)
         return h + self.mlp(self.mlp_norm(h))
 
 
@@ -275,10 +305,18 @@ class Llama(nn.Module):
                 p.normal_(0.0, 0.02, generator=generator)
         return self
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``segment_ids`` [B, S]: packed documents; attention is masked
+        across them, RoPE positions stay absolute."""
         x = self.tok_embed(tokens)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, self.rope_cos, self.rope_sin)
+            if remat:
+                x = checkpoint(layer, x, self.rope_cos, self.rope_sin,
+                               segment_ids, use_reentrant=False)
+            else:
+                x = layer(x, self.rope_cos, self.rope_sin, segment_ids)
         x = self.final_norm(x)
         return self.lm_head(x).float()
 
@@ -289,7 +327,8 @@ def make_model(preset: str = "tiny", *, device="cuda", seed: int = 0,
     caller asks otherwise) from ``torch.Generator`` seed ``seed``.
     ``overrides`` replace config fields (``dtype=torch.float32`` for
     f32 tests, ``param_dtype=torch.bfloat16`` to init straight into the
-    serving dtype)."""
+    serving dtype).  The JAX signature's context-parallel ``mesh`` is
+    not a parameter: meshes are not ported."""
     cfg = dataclasses.replace(CONFIGS[preset], **overrides)
     device = torch.device(device)
     model = Llama(cfg, device)

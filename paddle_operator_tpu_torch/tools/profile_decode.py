@@ -51,7 +51,7 @@ def _device_us(evt) -> float:
 def _measure(unit, steps: int) -> dict:
     """Host-clock ms per ``unit()`` over ``steps`` synchronized calls,
     then ``steps`` more, each in a profiler session of its own: device
-    busy ms per unit, idle share, top kernels."""
+    busy ms per unit, idle share, top kernels (and all kernels)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -84,6 +84,8 @@ def _measure(unit, steps: int) -> dict:
                                   if "paged_decode_attention" in k[0]),
         "top_kernels": [{"name": n[:90], "ms": ms, "calls": c}
                         for n, ms, c in kernels[:10]],
+        "all_kernels": [{"name": n, "ms": ms, "calls": c}
+                        for n, ms, c in kernels],
     }
 
 

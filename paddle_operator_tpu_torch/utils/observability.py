@@ -1,15 +1,94 @@
-"""Prometheus exposition for the serving pod's ``/metrics`` — own copy
-of the replica half of ``serving_gauges`` and of
-``histogram_exposition`` from ``paddle_operator_tpu/utils/
-observability.py``, so a port replica renders the same gauge names
-(docs/serving.md, docs/observability.md) the fleet router and manager
-scrape.  A batch-mode server publishes an empty status block: every
-gauge then reads its zero default.
+"""Observability helpers — own copies of parts of
+``paddle_operator_tpu/utils/observability.py``:
+
+- :func:`get_logger` and :class:`StepTimer` for the training loop
+  (structured logging with a rank prefix; rolling step time, tokens/s
+  and MFU);
+- the replica half of ``serving_gauges`` and ``histogram_exposition``
+  for the serving pod's ``/metrics``, so a port replica renders the same
+  gauge names (docs/serving.md, docs/observability.md) the fleet router
+  and manager scrape.  A batch-mode server publishes an empty status
+  block: every gauge then reads its zero default.
 """
 
 from __future__ import annotations
 
+import logging
+import os
+import time
+from collections import deque
 from typing import Optional
+
+_FMT = "%(asctime)s %(levelname).1s %(name)s %(message)s"
+
+
+def get_logger(name: str = "tpujob") -> logging.Logger:
+    """Structured logger with a rank prefix derived from the environment
+    at call time (``TPUJOB_RANK``, ``TPUJOB_LOG_LEVEL``).  Exactly one
+    handler of ours per logger however often this is called; a logger
+    the application configured itself is left alone."""
+    logger = logging.getLogger(name)
+    rank = os.environ.get("TPUJOB_RANK", "0")
+    level = os.environ.get("TPUJOB_LOG_LEVEL", "INFO")
+    h = next((h for h in logger.handlers
+              if getattr(h, "_tpujob_rank", None) is not None), None)
+    if h is None:
+        if logger.handlers:
+            return logger
+        h = logging.StreamHandler()
+        h._tpujob_rank = ""          # marks OUR handler; set below
+        logger.addHandler(h)
+    if h._tpujob_rank != rank:
+        h.setFormatter(logging.Formatter(f"[rank {rank}] {_FMT}"))
+        h._tpujob_rank = rank
+    if logging.getLevelName(logger.level) != level:
+        logger.setLevel(level)
+    return logger
+
+
+class StepTimer:
+    """Rolling window of step times -> tokens/s and MFU.  ``clock`` is
+    read at each :meth:`tick`; a clock that synchronizes the card first
+    makes the intervals device-complete step times."""
+
+    def __init__(self, tokens_per_step: int,
+                 flops_per_token: Optional[float] = None,
+                 peak_flops: Optional[float] = None,
+                 window: int = 20,
+                 clock=time.perf_counter) -> None:
+        self.tokens_per_step = tokens_per_step
+        self.flops_per_token = flops_per_token
+        self.peak_flops = peak_flops
+        self.times: deque = deque(maxlen=window)
+        self._last: Optional[float] = None
+        self._clock = clock
+
+    def tick(self) -> None:
+        now = self._clock()
+        if self._last is not None:
+            self.times.append(now - self._last)
+        self._last = now
+
+    @property
+    def step_time(self) -> float:
+        return sum(self.times) / len(self.times) if self.times else 0.0
+
+    @property
+    def tokens_per_sec(self) -> float:
+        st = self.step_time
+        return self.tokens_per_step / st if st else 0.0
+
+    @property
+    def mfu(self) -> Optional[float]:
+        if not (self.flops_per_token and self.peak_flops):
+            return None
+        return self.tokens_per_sec * self.flops_per_token / self.peak_flops
+
+    def report(self) -> str:
+        s = f"step_time={self.step_time:.3f}s tok/s={self.tokens_per_sec:.0f}"
+        if self.mfu is not None:
+            s += f" mfu={self.mfu:.3f}"
+        return s
 
 # the latency histogram families (utils/tracing.py HIST_FAMILIES of the
 # JAX package)

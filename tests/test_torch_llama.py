@@ -74,6 +74,23 @@ class TestConvert:
         np.testing.assert_array_equal(
             state["lm_head.kernel"].float().numpy(), leaf)
 
+    def test_unscanned_tree_converts(self, tiny):
+        """A ``scan_layers=False`` flax tree (``layer_<i>`` subtrees)
+        loads into the same port model and gives the flax logits."""
+        jmodel, jcfg = JL.make_model("tiny", dtype=jnp.float32,
+                                     scan_layers=False)
+        jparams = jmodel.init(jax.random.PRNGKey(1),
+                              jnp.zeros((1, 8), jnp.int32))["params"]
+        assert "layer_1" in jparams
+        model, _ = TL.make_model("tiny", device="cpu", dtype=torch.float32)
+        model.load_state_dict(params_from_jax(jax.device_get(jparams)))
+        toks = np.random.default_rng(5).integers(0, 256, (2, 9))
+        want = np.asarray(jmodel.apply({"params": jparams},
+                                       jnp.asarray(toks, jnp.int32)))
+        with torch.no_grad():
+            got = model(torch.as_tensor(toks)).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
     def test_int8_leaves_refused(self, tiny):
         _, jparams, _, _, _ = tiny
         from paddle_operator_tpu.infer.quant import quantize_params
@@ -94,6 +111,23 @@ class TestForward:
         with torch.no_grad():
             got = model(torch.as_tensor(toks)).numpy()
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+    def test_segment_ids_match_flax(self, tiny):
+        """Packed documents: attention masked across them, RoPE positions
+        absolute — the flax forward's logits."""
+        jmodel, jparams, _, model, _ = tiny
+        rng = np.random.default_rng(6)
+        toks = rng.integers(0, 256, (2, 20)).astype(np.int32)
+        seg = (np.arange(20)[None, :] >= np.asarray([[7], [12]])).astype(
+            np.int32)
+        want = np.asarray(jmodel.apply({"params": jparams},
+                                       jnp.asarray(toks), jnp.asarray(seg)))
+        with torch.no_grad():
+            got = model(torch.as_tensor(toks), torch.as_tensor(seg)).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+        with torch.no_grad():
+            plain = model(torch.as_tensor(toks)).numpy()
+        assert np.abs(plain - got).max() > 1e-3
 
     def test_init_mirrors_flax_initializers(self):
         model, _ = TL.make_model("tiny", device="cpu", seed=3)
@@ -121,6 +155,8 @@ class TestConfig:
             assert getattr(tc, f.name) == getattr(jc, f.name), f.name
         assert tc.head_dim == jc.head_dim
         assert tc.num_params() == jc.num_params()
+        assert tc.active_params() == jc.active_params()
+        assert tc.flops_per_token() == jc.flops_per_token()
 
     def test_same_preset_names(self):
         assert set(TL.CONFIGS) == set(JL.CONFIGS)
