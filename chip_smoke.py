@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
-    python3 chip_smoke.py [--phases 2,2b,2c,3,3b,3c,4,4b,4c]
+    python3 chip_smoke.py [--phases 2,2b,2c,2d,3,3b,3c,3d,4,4b,4c,4d]
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line; with no arguments every phase runs):
@@ -28,6 +28,24 @@ result line; with no arguments every phase runs):
    its plain version, kernel #1 on the same rows laid out contiguously,
    and ``scaled_dot_product_attention`` on those contiguous rows (the
    same work without the table walk; never used by the port).
+2d. int8 paged kernel vs plain — ``paged_decode_attention`` with the
+   int8 pool's operands (codes, scales, staging tails) against
+   ``paged_decode_attention_quant_reference`` under scrambled block
+   maps: lengths {0, 1, bs-1, bs, bs+1, full, not a multiple of bs}, bs
+   16 and 256, n_rep 1/2/4, D 64 and 128, unstacked and a stacked-layer
+   index, the ring's 7b shapes; float32 at atol = rtol = 1e-4, bfloat16
+   against the plain version in float32 on the same codes and tails
+   (code x scale rounded to bfloat16, as the function does) element by
+   element (``BF16_ATOL``) and as a whole (``QUANT_BF16_REL``, the
+   relative Frobenius error: at the 7b fills |out| is only a few times
+   ``BF16_ATOL``).  Then timed at 7b, B=8, bs=256, fills 128, 528 and
+   2048, in turns: the int8 kernel, its plain version, the bf16 paged
+   kernel on the same logical rows, and ``scaled_dot_product_attention``
+   on those rows laid out contiguously in bf16 (a yardstick of the same
+   attention without the dequant: no PyTorch call computes this
+   function; never used by the port).  At each timed fill the int8
+   kernel's output must equal, bit for bit, the bf16 paged kernel's on
+   the rows dequantized and rounded to bfloat16.
 2c. flash kernels vs plain — ``flash_forward`` (O and lse),
    ``flash_backward_dkv`` and ``flash_backward_dq`` each against its
    plain version on the same inputs (the backward kernels get the plain
@@ -71,6 +89,17 @@ result line; with no arguments every phase runs):
    and layers x steps for each backward kernel, and the decode kernels
    must not launch.  Step ms (median after the first two steps),
    tokens/s, MFU and peak memory are reported.
+3d. int8 ring main path — the continuous paged server over the int8
+   pool (3b's ``make_server`` arguments with ``kv_quant="int8"``, the
+   same 64-block pool) on the same 7b model: 3b's burst plus one
+   follower whose shared prefix ends mid-block (the first 600 tokens of
+   the 1000-token prompt), then the full-prefix resubmission.  The int8
+   kernel's launches over exactly that run must equal n_layers x
+   chunk_tokens x chunks dispatched, the bf16 paged kernel and kernel
+   #1 must not launch, followers prefill only their suffixes, CoW runs,
+   ``/statusz`` reports ``kvQuantMode`` int8, the pool's invariant
+   holds and every block ends free or cached.  ``kvPoolBytes``, new
+   tok/s and TTFT are printed beside 3b's.
 4. kernel path == plain path — 7b width, 2 layers, float32: greedy
    ``generate`` through the kernel and through the plain version give
    the same tokens, and per-step logits agree within 1e-3.
@@ -78,6 +107,13 @@ result line; with no arguments every phase runs):
    layers, float32: four prompts, one a prefix hit, give identical
    greedy tokens through the paged ring (paged kernel), the contiguous
    ring (kernel #1) and ``generate``.
+4d. int8 ring kernel path == plain path — 7b width, 2 layers, float32,
+   bs 16: four prompts (one a block-aligned full hit, one a mid-block
+   hit) give identical greedy tokens through the int8 ring with the
+   kernel and with the plain dequantizing view; per-tick logits of one
+   lane over 44 ticks, each tick from the same state, agree within
+   1e-3; the worst logit delta of the int8 pool against the unquantized
+   pool is reported, not gated.
 4c. training kernel path == plain path — 7b width, 2 layers, float32:
    three train steps with attention through the flash kernels and
    through ``reference_attention`` from the same init agree in loss
@@ -104,9 +140,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 PEAK_OPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
-# kernel sources: decode_attention.cu holds decode_attention_launch and
-# paged_decode_attention_launch; flash_attention.cu the forward and both
-# backward kernels
+# kernel sources: decode_attention.cu holds decode_attention_launch,
+# paged_decode_attention_launch and paged_decode_attention_quant_launch;
+# flash_attention.cu the forward and both backward kernels
 KERNELS = ["decode_attention", "flash_attention"]
 # bf16 kernels against their plain version in f32 on the same bf16
 # inputs: about 3x the worst error read on the card over every case of
@@ -126,10 +162,14 @@ FLASH_BF16_RTOL = 2.0 ** -6
 # of relative size 2^-9); a fault confined to some rows or tiles moves
 # it by their share of the norm
 FLASH_BF16_REL = 1e-2
+# phase 2d's bf16 cases as a whole, ||got - want|| / ||want||: the same
+# few bf16 roundings (of code x scale, p and the output)
+QUANT_BF16_REL = 1e-2
 # phase 3c: 7b width cut to 8 layers, B x (S + 1) tokens, bf16 compute
 TRAIN = dict(layers=8, batch=4, seq=2048, steps=12, lr=1e-3)
 PEAK_BF16 = 989e12                 # H100 SXM dense bf16, for MFU
-PHASES = ("2", "2b", "2c", "3", "3b", "3c", "4", "4b", "4c")
+PHASES = ("2", "2b", "2c", "2d", "3", "3b", "3c", "3d", "4", "4b", "4c",
+          "4d")
 
 
 def log(*a) -> None:
@@ -438,6 +478,221 @@ def phase_paged_kernel_vs_plain(report: dict) -> None:
                 "kernel1_ms"):
         report[key] = main[key]
     del qs, kp, vp, kc, vc
+    torch.cuda.empty_cache()
+
+
+def quant_attention_bound_ms(b, hq, hkv, d, fill, bs, dtype) -> tuple:
+    """Least time for one int8-pool decode-attention call at a fill
+    shared by the ``b`` lanes: the attended K and V rows — one byte an
+    element in the full blocks, sizeof(T) in the write-frontier block
+    the tail serves — the two f32 scales of each full block and kv
+    head, the table entries the fill needs, lengths, q and the output,
+    each moved once; against 4 * fill * D operations per (lane, query
+    head) at the dtype's peak."""
+    import torch
+
+    e = torch.empty((), dtype=dtype).element_size()
+    wb = max(fill - 1, 0) // bs
+    full_rows, tail_rows = wb * bs, fill - wb * bs
+    nbytes = (2 * b * hkv * d * (full_rows + e * tail_rows)
+              + 2 * 4 * b * hkv * wb + 4 * b * (-(-fill // bs)) + 4 * b
+              + e * 2 * b * hq * d)
+    ops = 4 * b * hq * fill * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[str(dtype)] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _quant_pool(gen, n_blocks, hkv, bs, d, lanes, layers=0):
+    """Random int8 codes, f32 scales and f32 staging tails (a lane row
+    each plus the trash row), stacked over ``layers`` when given."""
+    import torch
+
+    lead = (layers,) if layers else ()
+    dev = torch.device("cuda")
+
+    def codes():
+        return torch.randint(-127, 128, lead + (n_blocks, hkv, bs, d),
+                             generator=gen, device=dev, dtype=torch.int8)
+
+    def scales():
+        # |code * scale| <= 1.5: the spread of K and V rows (phase 2b
+        # draws them from a unit normal)
+        return (torch.rand(lead + (n_blocks, hkv), generator=gen,
+                           device=dev) * 0.008 + 0.004)
+
+    def tails():
+        return torch.randn(lead + (lanes + 1, hkv, bs, d), generator=gen,
+                           device=dev)
+
+    return codes(), codes(), scales(), scales(), tails(), tails()
+
+
+def phase_quant_kernel_vs_plain(report: dict) -> None:
+    """Phase 2d: the int8 pool's kernel against its plain version, then
+    timings at the ring's 7b shape; see the module docstring."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_operator_tpu_torch.ops import decode_attention as DA
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    rng = np.random.default_rng(7)
+
+    # (name, B, Hq, Hkv, D, bs, M, lengths, stacked layers or 0); the
+    # lengths hold {0, 1, bs-1, bs, bs+1, full, a non-multiple}
+    cases = []
+    for hq, hkv, d in [(8, 8, 64), (8, 4, 128), (16, 4, 64), (8, 2, 128),
+                       (16, 4, 128)]:
+        for bs, m in ((16, 8), (256, 3)):
+            lens = [0, 1, bs - 1, bs, bs + 1, m * bs, 2 * bs + 7]
+            for layers in (0, 2):
+                cases.append((f"bs{bs}-L{layers}", len(lens), hq, hkv, d,
+                              bs, m, lens, layers))
+    cases += [
+        ("ring-7b-b8", 8, 32, 32, 128, 256, 8,
+         [0, 33, 101, 258, 301, 512, 601, 1001], 0),
+        ("7b-fill2048", 8, 32, 32, 128, 256, 8, [2048] * 8, 0),
+    ]
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst_rel = 0.0
+    for dtype, atol, rtol in [(torch.float32, 1e-4, 1e-4),
+                              (torch.bfloat16, BF16_ATOL, 0.0)]:
+        for name, b, hq, hkv, d, bs, m, lens, layers in cases:
+            n_blocks = b * m + 4
+            kp, vp, ks, vs, kt, vt = _quant_pool(gen, n_blocks, hkv, bs, d,
+                                                 b, layers)
+            kt, vt = kt.to(dtype), vt.to(dtype)
+            q = torch.randn((b, hq, d), generator=gen, device=dev).to(dtype)
+            table = torch.as_tensor(_scrambled_table(rng, b, m, n_blocks),
+                                    device=dev)
+            L = torch.tensor(lens, dtype=torch.int32, device=dev)
+            layer = layers - 1 if layers else None
+            got = DA.paged_decode_attention(q, kp, vp, table, L, layer=layer,
+                                            k_scale=ks, v_scale=vs,
+                                            k_tail=kt, v_tail=vt).float()
+            sel = ((lambda t: t[layer]) if layers else (lambda t: t))
+            # f32 q; the tails in the kernel's dtype, so the plain view
+            # rounds code x scale to it
+            want = DA.paged_decode_attention_quant_reference(
+                q.float(), sel(kp), sel(vp), table, L, sel(ks), sel(vs),
+                sel(kt), sel(vt))
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            rel = float((got - want).norm() / want.norm())
+            ok = bool(((got - want).abs()
+                       <= atol + rtol * want.abs()).all())
+            if dtype == torch.bfloat16:
+                ok = ok and rel <= QUANT_BF16_REL
+                worst_rel = max(worst_rel, rel)
+            log(f"quant-kernel-vs-plain {name} {str(dtype)[6:]} B={b} "
+                f"Hq={hq} Hkv={hkv} D={d} bs={bs} M={m} lens={lens} "
+                f"layer={layer}: max_abs_err={err:.3e} (atol {atol}, "
+                f"rtol {rtol}) rel={rel:.3e}"
+                + (f" (limit {QUANT_BF16_REL})"
+                   if dtype == torch.bfloat16 else ""))
+            if not ok:
+                raise AssertionError(
+                    f"the int8 paged kernel disagrees with its plain "
+                    f"version: {name} {dtype} max_abs_err {err}, "
+                    f"rel {rel}")
+            worst[dtype] = max(worst[dtype], err)
+    report["max_abs_err_f32"] = worst[torch.float32]
+    report["max_abs_err_bf16"] = worst[torch.bfloat16]
+    report["max_rel_err_bf16"] = worst_rel
+    report["max_abs_err"] = max(worst.values())
+
+    # timing at the ring's 7b shape (bf16, 8 lanes, bs 256, 8 table
+    # blocks a lane), the pool stacked over 8 layers the calls rotate
+    # through so the filled bytes exceed the 50 MB L2.  The bf16 paged
+    # kernel reads the same logical rows from a bf16 pool (the int8
+    # pool dequantized, the frontier block from the tail), kernel-free
+    # SDPA from those rows laid out contiguously.
+    b, h, d, bs, m, layers = 8, 32, 128, 256, 8, 8
+    dtype = torch.bfloat16
+    n_blocks = b * m + 1
+    kp, vp, ks, vs, kt, vt = _quant_pool(gen, n_blocks, h, bs, d, b, layers)
+    kt, vt = kt.to(dtype), vt.to(dtype)
+    qs = [torch.randn((b, h, d), generator=gen, device=dev).to(dtype)
+          for _ in range(layers)]
+    table = torch.as_tensor(_scrambled_table(rng, b, m, n_blocks),
+                            device=dev)
+    timings = []
+    for fill in (128, 528, 2048):
+        L = torch.full((b,), fill, dtype=torch.int32, device=dev)
+        wb = torch.full((b,), (fill - 1) // bs, device=dev)
+        kc = [DA.gather_lane_view_quant(kp[i], ks[i], kt[i], table, wb)
+              for i in range(layers)]
+        vc = [DA.gather_lane_view_quant(vp[i], vs[i], vt[i], table, wb)
+              for i in range(layers)]
+        # the same rows as a bf16 pool: lane b's frontier block written
+        # into its table entry, every other block dequantized
+        kb = torch.stack([(kp[i].float() * ks[i][..., None, None]).to(dtype)
+                          for i in range(layers)])
+        vb = torch.stack([(vp[i].float() * vs[i][..., None, None]).to(dtype)
+                          for i in range(layers)])
+        front = table[torch.arange(b, device=dev), wb].long()
+        kb[:, front], vb[:, front] = kt[:, :b], vt[:, :b]
+        c = layers
+
+        def kern(i):
+            DA.paged_decode_attention(qs[i % c], kp, vp, table, L,
+                                      layer=i % c, k_scale=ks, v_scale=vs,
+                                      k_tail=kt, v_tail=vt)
+
+        def plain(i):
+            DA.paged_decode_attention_quant_reference(
+                qs[i % c], kp[i % c], vp[i % c], table, L, ks[i % c],
+                vs[i % c], kt[i % c], vt[i % c])
+
+        def paged_bf16(i):
+            DA.paged_decode_attention(qs[i % c], kb, vb, table, L,
+                                      layer=i % c)
+
+        def sdpa(i):
+            F.scaled_dot_product_attention(
+                qs[i % c][:, :, None], kc[i % c][:, :, :fill],
+                vc[i % c][:, :, :fill])
+
+        # the kernel's output on these inputs equals the bf16 paged
+        # kernel's on the dequantized rows rounded to bf16 (same values,
+        # same order): this pins the rounding of code x scale to T
+        same = DA.paged_decode_attention(qs[0], kp, vp, table, L, layer=0,
+                                         k_scale=ks, v_scale=vs, k_tail=kt,
+                                         v_tail=vt)
+        ref = DA.paged_decode_attention(qs[0], kb, vb, table, L, layer=0)
+        row = {"fill": fill,
+               "vs_bf16_pool_max_abs_diff":
+                   float((same.float() - ref.float()).abs().max())}
+        if row["vs_bf16_pool_max_abs_diff"] != 0.0:
+            raise AssertionError(
+                f"the int8 paged kernel at fill {fill} differs from the "
+                f"bf16 paged kernel on the same rows rounded to bf16 by "
+                f"{row['vs_bf16_pool_max_abs_diff']}")
+        for key, fn, iters in (("plain_ms", plain, 8), ("ms", kern, 128),
+                               ("paged_bf16_ms", paged_bf16, 128),
+                               ("library_ms", sdpa, 128),
+                               ("ms_again", kern, 128),
+                               ("plain_ms_again", plain, 8)):
+            row[key], row[key.replace("ms", "eager_ms", 1)] = \
+                time_ms(fn, iters)
+        row["bound_ms"], row["bound_by"] = quant_attention_bound_ms(
+            b, h, h, d, fill, bs, dtype)
+        log(f"timing 7b paged_decode_attention_quant bf16 B={b} H={h} "
+            f"D={d} bs={bs} M={m} fill={fill}: " + json.dumps(row))
+        timings.append(row)
+        del kc, vc, kb, vb
+        torch.cuda.empty_cache()
+    report["timings"] = timings
+    main = next(r for r in timings if r["fill"] == 528)
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "paged_bf16_ms"):
+        report[key] = main[key]
+    del qs, kp, vp, ks, vs, kt, vt
     torch.cuda.empty_cache()
 
 
@@ -828,9 +1083,11 @@ RING = dict(continuous=True, paged=True, slots=8, chunk_tokens=8,
             block_size=256, max_len=2048)
 
 
-def phase_ring_main_path(report: dict, params, cfg) -> None:
+def phase_ring_main_path(report: dict, params, cfg,
+                         kv_quant: str = "none", bf16_ring=None) -> None:
     """The continuous paged server under a concurrent burst; see the
-    module docstring (phase 3b)."""
+    module docstring (phases 3b and, with ``kv_quant="int8"``, 3d —
+    whose ring is held beside 3b's ``bf16_ring`` readings)."""
     import numpy as np
 
     from paddle_operator_tpu_torch.infer.serve import make_server
@@ -838,7 +1095,9 @@ def phase_ring_main_path(report: dict, params, cfg) -> None:
     from paddle_operator_tpu_torch.utils.radixkey import prefix_chain_key
     from paddle_operator_tpu_torch.utils.tracing import hist_quantile
 
-    srv = make_server("127.0.0.1", 0, params, cfg, **RING)
+    quant = kv_quant != "none"
+    srv = make_server("127.0.0.1", 0, params, cfg,
+                      **(dict(RING, kv_quant=kv_quant) if quant else RING))
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
     base = f"http://127.0.0.1:{srv.server_address[1]}"
@@ -856,6 +1115,16 @@ def phase_ring_main_path(report: dict, params, cfg) -> None:
     jobs = ([("cold", i, p, 48) for i, p in enumerate(cold)]
             + [("stream", 0, streamed, 32)])
     late = [("follower", i, p, 32) for i, p in enumerate(followers)]
+    # the followers go once their shared blocks are in the radix cache
+    # (published at the cold prompt's admission), so each one admits
+    # through the suffix-only insert
+    keys = [prefix_chain_key(prefix, bs, max_blocks=2)[0]]
+    if quant:
+        # int8: one more follower, the first 600 tokens of the cold
+        # 1000-token prompt — its hit (599 tokens) ends mid-block, so it
+        # copies that block and seeds its tail from the dequantized copy
+        late.append(("midblock", 0, cold[7][:600], 32))
+        keys.append(prefix_chain_key(cold[7], bs, max_blocks=3)[0])
     results, errors = {}, []
 
     def send(kind, i, p, n):
@@ -873,11 +1142,7 @@ def phase_ring_main_path(report: dict, params, cfg) -> None:
         threads = [threading.Thread(target=send, args=j) for j in jobs]
         for t in threads:
             t.start()
-        # the followers go once the shared prefix is in the radix cache
-        # (published at the 512-token prompt's admission), so each one
-        # admits through the suffix-only insert
-        key, _ = prefix_chain_key(prefix, bs, max_blocks=2)
-        while key not in batcher.pool.entries:
+        while not all(k in batcher.pool.entries for k in keys):
             if errors or time.perf_counter() - t0 > 600:
                 raise AssertionError(f"the shared prefix was never "
                                      f"cached: {errors}")
@@ -891,13 +1156,20 @@ def phase_ring_main_path(report: dict, params, cfg) -> None:
         burst_chunks = batcher.stats["chunks"] - stats0["chunks"]
         # a full prefix hit: the cold 512-token prompt again
         send("resubmit", 0, prefix, 48)
+        with urllib.request.urlopen(base + "/statusz", timeout=60) as r:
+            statusz = json.loads(r.read())
     finally:
         srv.shutdown()
         srv.server_close()
         th.join(timeout=30)
         srv.generator.close()                # the ring thread has ended
-    launches = DA.paged_decode_attention.launches
-    contiguous = DA.decode_attention.launches
+    kernels = {"decode_attention": DA.decode_attention.launches,
+               "paged_decode_attention": DA.paged_decode_attention.launches,
+               "paged_decode_attention_quant":
+                   DA.paged_decode_attention.quant_launches}
+    name = ("paged_decode_attention_quant" if quant
+            else "paged_decode_attention")
+    launches = kernels.pop(name)
     if errors:
         raise AssertionError(f"ring requests failed: {errors}")
     stats = {k: batcher.stats[k] - stats0.get(k, 0)
@@ -933,16 +1205,18 @@ def phase_ring_main_path(report: dict, params, cfg) -> None:
     same = sum(a == b for a, b in zip(cold_new, resub_new)) / len(cold_new)
 
     want = cfg.n_layers * chunk * stats["chunks"]
-    log(f"ring: paged_decode_attention launches {launches} (n_layers "
-        f"{cfg.n_layers} x chunk {chunk} x chunks {stats['chunks']} = "
-        f"{want}); decode_attention launches {contiguous}")
-    if launches != want or contiguous:
-        raise AssertionError(f"paged kernel launched {launches} times, "
-                             f"expected {want}; kernel #1 {contiguous} "
+    log(f"ring: {name} launches {launches} (n_layers {cfg.n_layers} x "
+        f"chunk {chunk} x chunks {stats['chunks']} = {want}); other decode "
+        f"kernels {kernels}")
+    if launches != want or any(kernels.values()):
+        raise AssertionError(f"{name} launched {launches} times, expected "
+                             f"{want}; the other decode kernels {kernels} "
                              "times, expected 0")
     # prefill work: every cold prompt whole, each follower its 16-token
-    # suffix, the resubmission its last token
-    want_tokens = sum(map(len, cold)) + len(streamed) + 4 * 16 + 1
+    # suffix (the mid-block follower its last token), the resubmission
+    # its last token
+    want_tokens = (sum(map(len, cold)) + len(streamed) + 4 * 16 + 1
+                   + (1 if quant else 0))
     log(f"ring: prefill calls {stats['prefill_calls']}, prefill tokens "
         f"{stats['prefill_tokens']} (expected {len(jobs) + len(late) + 1}"
         f", {want_tokens}); radix hit rate {pool.hit_rate()}, CoW copies "
@@ -959,11 +1233,16 @@ def phase_ring_main_path(report: dict, params, cfg) -> None:
                              f"{pool.blocks_free()} free + "
                              f"{pool.blocks_cached()} cached of "
                              f"{pool.num_blocks}")
+    if statusz.get("kvQuantMode") != kv_quant:
+        raise AssertionError(f"/statusz kvQuantMode "
+                             f"{statusz.get('kvQuantMode')!r}, expected "
+                             f"{kv_quant!r}")
 
     ttft = batcher.hist.ttft
     p50 = hist_quantile(ttft.bounds, ttft.counts, 0.50)
     p95 = hist_quantile(ttft.bounds, ttft.counts, 0.95)
     ring = {
+        "kv_quant": kv_quant,
         "burst_s": burst_s, "burst_new_tokens": new_tokens,
         "burst_new_tok_s": new_tokens / burst_s,
         "burst_chunks": burst_chunks,
@@ -972,9 +1251,10 @@ def phase_ring_main_path(report: dict, params, cfg) -> None:
         "resubmit_s": resub_s, "resubmit_token_match_share": same,
         "pool_blocks": pool.num_blocks,
         "pool_gb": batcher.executor.pool_bytes() / 1e9,
+        "kv_pool_bytes": statusz["kvPoolBytes"],
     }
     log("ring: " + json.dumps(ring))
-    log(f"ring (a smoke reading of one burst, not a benchmark): "
+    log(f"ring {kv_quant} (a smoke reading of one burst, not a benchmark): "
         f"{new_tokens} new tokens in {burst_s:.3f}s "
         f"({ring['burst_new_tok_s']:.1f} new tok/s over the burst), TTFT "
         f"p50 {p50:.1f} ms, p95 {p95:.1f} ms (ring histogram), "
@@ -982,6 +1262,19 @@ def phase_ring_main_path(report: dict, params, cfg) -> None:
         f"resubmission matches its cold run on {same:.3f} of its new "
         "tokens (not asserted: a prefill and a one-token suffix forward "
         "round differently in bf16)")
+    if bf16_ring is not None:
+        log(f"ring int8 beside bf16 (3b, this run): kvPoolBytes "
+            f"{ring['kv_pool_bytes']} vs {bf16_ring['kv_pool_bytes']} "
+            f"({ring['kv_pool_bytes'] / bf16_ring['kv_pool_bytes']:.4f}x); "
+            f"new tok/s {ring['burst_new_tok_s']:.1f} vs "
+            f"{bf16_ring['burst_new_tok_s']:.1f}; TTFT p50 {p50:.1f} vs "
+            f"{bf16_ring['ttft_p50_ms']:.1f} ms, p95 {p95:.1f} vs "
+            f"{bf16_ring['ttft_p95_ms']:.1f} ms; wall ms per chunk "
+            f"{ring['wall_ms_per_chunk']:.1f} vs "
+            f"{bf16_ring['wall_ms_per_chunk']:.1f}")
+        ring["bf16_ring"] = {k: bf16_ring[k] for k in (
+            "kv_pool_bytes", "burst_new_tok_s", "ttft_p50_ms",
+            "ttft_p95_ms", "wall_ms_per_chunk")}
     report["launches"] = launches
     report["ring"] = ring
 
@@ -993,6 +1286,7 @@ def _zero_launches() -> None:
     for fn in (DA.decode_attention, DA.paged_decode_attention,
                FA.flash_forward, FA.flash_backward_dkv, FA.flash_backward_dq):
         fn.launches = 0
+    DA.paged_decode_attention.quant_launches = 0
 
 
 def _synced_clock() -> float:
@@ -1192,6 +1486,116 @@ def phase_rings_equal_generate() -> None:
     torch.cuda.empty_cache()
 
 
+def phase_quant_ring_kernel_equals_plain() -> None:
+    """Phase 4d: the int8 ring through its kernel and through the plain
+    dequantizing view; see the module docstring."""
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.infer import decode as D
+    from paddle_operator_tpu_torch.infer import paged as PG
+    from paddle_operator_tpu_torch.infer.batcher import ContinuousBatcher
+    from paddle_operator_tpu_torch.models.llama import make_model
+    from paddle_operator_tpu_torch.ops import decode_attention as DA
+
+    params, cfg = make_model("7b", device="cuda", seed=4, n_layers=2,
+                             dtype=torch.float32)
+    kcfg = dataclasses.replace(cfg, decode_attn="kernel")
+    pcfg = dataclasses.replace(cfg, decode_attn="plain")
+    bs, max_len, n_new = 16, 256, 24
+    rng = np.random.default_rng(4)
+    a = rng.integers(0, cfg.vocab_size, 48).tolist()     # three blocks
+    first = [a, rng.integers(0, cfg.vocab_size, 37).tolist()]
+    # once a's blocks are cached: a again (a block-aligned full hit,
+    # capped at 47 tokens) and a[:40] (its hit ends mid-block)
+    then = [a, a[:40]]
+    got = {}
+    for name, c in (("kernel", kcfg), ("plain", pcfg)):
+        DA.paged_decode_attention.launches = 0
+        DA.paged_decode_attention.quant_launches = 0
+        ring = ContinuousBatcher(params, c, slots=4, max_len=max_len,
+                                 chunk_tokens=8, paged=True, block_size=bs,
+                                 kv_quant="int8")
+        try:
+            rows = [h.result(timeout=600) for h in
+                    [ring.submit(p, max_new_tokens=n_new) for p in first]]
+            rows += [h.result(timeout=600) for h in
+                     [ring.submit(p, max_new_tokens=n_new) for p in then]]
+            hits = ring.pool.stats["prefix_hit_tokens"]
+            cow = ring.pool.stats["cow_copies"]
+            ring.pool.check_invariant()
+        finally:
+            ring.close()
+        launched = DA.paged_decode_attention.quant_launches
+        log(f"int8 ring, {name} path (7b width, 2 layers, f32, bs {bs}): "
+            f"int8 kernel launches {launched}, bf16 paged kernel "
+            f"{DA.paged_decode_attention.launches}; prefix hit tokens "
+            f"{hits}, CoW copies {cow}")
+        if DA.paged_decode_attention.launches or \
+                (launched == 0) != (name == "plain"):
+            raise AssertionError(f"the int8 ring's {name} path ran the "
+                                 "wrong kernels")
+        if hits != 47 + 39 or cow < 2:
+            raise AssertionError(f"expected a full hit (47) and a mid-block "
+                                 f"hit (39) with copy-on-write, got {hits} "
+                                 f"hit tokens and {cow} copies")
+        got[name] = rows
+    if got["kernel"] != got["plain"]:
+        raise AssertionError("greedy tokens differ between the int8 ring's "
+                             "kernel and plain paths")
+
+    # per-tick logits: one lane prefilled through the cold paged prefill
+    # (37 tokens), then 44 ticks (blocks complete at 47, 63 and 79).  Each
+    # tick runs the plain path from a copy of the kernel path's state, so
+    # the two are held against each other one tick at a time: from free
+    # running states a last-bit difference upstream can move a code
+    # across a midpoint when a block quantizes, and that difference then
+    # stays.  The unquantized pool (here f32) runs beside them (reported,
+    # not gated).
+    n = 37
+    prompt = torch.tensor([first[1]], dtype=torch.int32, device="cuda")
+    table = torch.arange(1, max_len // bs + 1, dtype=torch.int32,
+                         device="cuda")[None]
+    caches = {}
+    with torch.inference_mode():
+        for name, quant in (("int8", "int8"), ("plain-pool", "none")):
+            cache = PG.init_paged_cache(kcfg, 1, max_len // bs + 1, bs,
+                                        quant=quant)
+            out = D.paged_prefill(params, kcfg, prompt, cache, table[0],
+                                  block_size=bs, last_only=True,
+                                  quant=quant == "int8", prompt_len=n)
+            if quant == "int8":
+                cache["kt"][:, 0], cache["vt"][:, 0] = out[2][:, 0], \
+                    out[3][:, 0]
+            cache["pos"][0] = n
+            caches[name] = cache
+        tok = out[0][0, -1].argmax(-1).reshape(1).to(torch.int32)
+        err = vs_pool = 0.0
+        for _ in range(44):
+            twin = {k: t.clone() for k, t in caches["int8"].items()}
+            lk, _ = PG.paged_ring_forward(kcfg, params, tok, caches["int8"],
+                                          table, quant=True)
+            lp, _ = PG.paged_ring_forward(pcfg, params, tok, twin, table,
+                                          quant=True)
+            lb, _ = PG.paged_ring_forward(kcfg, params, tok,
+                                          caches["plain-pool"], table)
+            for cache in caches.values():
+                cache["pos"] += 1
+            err = max(err, float((lk - lp).abs().max()))
+            vs_pool = max(vs_pool, float((lk - lb).abs().max()))
+            tok = lk[0].argmax(-1).reshape(1).to(torch.int32)
+    log(f"int8 ring kernel path == plain path (7b width, 2 layers, f32, bs "
+        f"{bs}): tokens identical over {len(first) + len(then)} requests, "
+        f"max logit diff {err:.3e} over 44 ticks from the same state "
+        f"(limit 1e-3); int8 against the unquantized pool (not gated): "
+        f"worst logit delta {vs_pool:.3e}")
+    if err > 1e-3:
+        raise AssertionError(f"int8 kernel vs plain ring logits differ by "
+                             f"{err}")
+    del params, caches
+    torch.cuda.empty_cache()
+
+
 def phase_train_kernel_equals_plain() -> None:
     """Phase 4c: three f32 train steps through the flash kernels and
     through the plain attention, from the same init."""
@@ -1283,6 +1687,9 @@ def main() -> int:
     paged = {"name": "paged_decode_attention", "route": "cuda",
              "source": source,
              "replaces": "paddle_operator_tpu/ops/decode_attention.py:281"}
+    quant = {"name": "paged_decode_attention_quant", "route": "cuda",
+             "source": source,
+             "replaces": "paddle_operator_tpu/ops/decode_attention.py:294"}
     flash = {kern: {"name": kern, "route": "cuda",
                     "source": "paddle_operator_tpu_torch/csrc/"
                               "flash_attention.cu",
@@ -1298,28 +1705,34 @@ def main() -> int:
 
     run("2", phase_kernel_vs_plain, contiguous)
     run("2b", phase_paged_kernel_vs_plain, paged)
+    run("2d", phase_quant_kernel_vs_plain, quant)
     run("2c", phase_flash_vs_plain, flash)
-    if phases & {"3", "3b"}:
+    if phases & {"3", "3b", "3d"}:
         params, cfg = make_7b()
         run("3", phase_main_path, contiguous, params, cfg)
         run("3b", phase_ring_main_path, paged, params, cfg)
-        del params
         gc.collect()        # the servers' reference cycles hold the caches
+        torch.cuda.empty_cache()
+        run("3d", phase_ring_main_path, quant, params, cfg, "int8",
+            paged.get("ring"))
+        del params
+        gc.collect()
         torch.cuda.empty_cache()
     run("3c", phase_train_main_path, flash)
     run("4", phase_kernel_path_equals_plain)
     run("4b", phase_rings_equal_generate)
     run("4c", phase_train_kernel_equals_plain)
+    run("4d", phase_quant_ring_kernel_equals_plain)
     log(f"all phases: {time.perf_counter() - t_all:.1f}s")
 
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "max_abs_err_f32", "max_abs_err_bf16",
-             "decode_ms_per_step_b4", "kernel1_ms", "ring", "train",
-             "fwd_bwd", "timings"]
+             "decode_ms_per_step_b4", "kernel1_ms", "paged_bf16_ms", "ring",
+             "train", "fwd_bwd", "timings"]
     print(json.dumps({"kernels": [
         {k: r.get(k) for k in order if k in r or k in order[:11]}
-        for r in (contiguous, paged, *flash.values())]}))
+        for r in (contiguous, paged, quant, *flash.values())]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,9 +17,9 @@ Same structure and layouts as the JAX module, in PyTorch's idiom:
 ``params`` everywhere is the port's :class:`~paddle_operator_tpu_torch.
 models.llama.Llama` module (its ``layers[i]`` is one layer's param
 subtree).  :func:`paged_prefill` writes a prompt's KV into the paged
-ring's block pool (infer/paged.py).  Not ported yet, and refused when
-asked for: tensor-parallel meshes, LoRA adapters, MoE layers, the int8
-KV pool and weight-only int8 leaves.
+ring's block pool (infer/paged.py), bf16 or int8.  Not ported yet, and
+refused when asked for: tensor-parallel meshes, LoRA adapters, MoE
+layers and weight-only int8 leaves.
 """
 
 from __future__ import annotations
@@ -243,8 +243,8 @@ def paged_prefill(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
                   pool_cache: Dict[str, torch.Tensor],
                   table_row: torch.Tensor, *,
                   block_size: Optional[int] = None,
-                  last_only: bool = False
-                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                  last_only: bool = False, quant: bool = False,
+                  prompt_len: Optional[int] = None):
     """Prefill a whole [1, T] prompt and write its KV into the PAGED
     block pool (infer/paged.py) as whole-block writes at the lane's
     ``table_row`` entries — the cold-admission half of paged serving.
@@ -258,9 +258,19 @@ def paged_prefill(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
     Returns ([1, T, vocab] logits — ``[1, 1, vocab]`` for the last
     position with ``last_only`` — and the pool cache, written in place,
     with this lane's position untouched (the caller's insert sets it)).
-    The int8 pool is not ported yet."""
+
+    ``quant=True`` (the int8 pool; needs ``prompt_len``): whole blocks
+    quantize once on the way in (ops/decode_attention.py
+    ``scatter_prefill_blocks_quant``), and the rows of the prompt's
+    write-frontier block, ``[(prompt_len // bs) * bs, + bs)`` of the
+    lane cache, come back as exact tail tiles:
+    ``(logits, cache, tail_k, tail_v)`` with tails [L, 1, H, bs, D].
+    A start past the lane cache (a prompt of whole blocks) clamps back
+    to its last block, as the JAX ``dynamic_slice`` does: decode then
+    opens a fresh block and those rows sit behind the fill mask."""
     from paddle_operator_tpu_torch.ops.decode_attention import (
         scatter_prefill_blocks,
+        scatter_prefill_blocks_quant,
     )
 
     bs = block_size or pool_cache["k"].shape[3]
@@ -276,9 +286,20 @@ def paged_prefill(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
         "pos": 0,
     }
     logits, lane = _forward(cfg, params, tokens, lane, last_only=last_only)
-    scatter_prefill_blocks(pool_cache["k"], lane["k"], table_row, bs)
-    scatter_prefill_blocks(pool_cache["v"], lane["v"], table_row, bs)
-    return logits, pool_cache
+    if not quant:
+        scatter_prefill_blocks(pool_cache["k"], lane["k"], table_row, bs)
+        scatter_prefill_blocks(pool_cache["v"], lane["v"], table_row, bs)
+        return logits, pool_cache
+    if prompt_len is None:
+        raise ValueError("quant paged_prefill needs prompt_len for the "
+                         "staging-tail slice")
+    scatter_prefill_blocks_quant(pool_cache["k"], pool_cache["ks"],
+                                 lane["k"], table_row, bs)
+    scatter_prefill_blocks_quant(pool_cache["v"], pool_cache["vs"],
+                                 lane["v"], table_row, bs)
+    start = min((int(prompt_len) // bs) * bs, rows - bs)
+    return (logits, pool_cache, lane["k"][:, :, :, start:start + bs],
+            lane["v"][:, :, :, start:start + bs])
 
 
 def decode_step(params: Llama, cfg: LlamaConfig, token: torch.Tensor,

@@ -19,9 +19,11 @@ counter-based hash of (seed, position, vocab id).  A lane's sampled
 stream still depends only on (seed, position) — never on its
 co-residents — and greedy (temperature 0) stays exact.
 
-Not ported yet (ROADMAP.md Queue A): speculative rounds, the megastep
-(``n_steps > 1``), chunked and disaggregated prefill, the int8 pool,
-the host tier, lane spill/restore and LoRA adapters.
+The paged ring carries the bf16 pool and the int8 pool
+(``kv_quant="int8"``, SERVE_KV_QUANT).  Not ported yet (ROADMAP.md
+Queue A): speculative rounds, the megastep (``n_steps > 1``), chunked
+and disaggregated prefill, the host tier, lane spill/restore and LoRA
+adapters.
 """
 
 from __future__ import annotations
@@ -387,7 +389,8 @@ class RingExecutor:
                  top_p: Optional[float] = None,
                  paged: bool = False, block_size: int = 256,
                  num_blocks: Optional[int] = None,
-                 prefix_cache: bool = True) -> None:
+                 prefix_cache: bool = True,
+                 kv_quant: str = "none") -> None:
         self.params = params
         self.cfg = cfg
         self.device = params.tok_embed.embedding.device
@@ -400,9 +403,22 @@ class RingExecutor:
         self.paged = bool(paged)
         self.pool: Optional[Any] = None
         self._suffix_inserts: Dict[int, Any] = {}
-        if self.paged:
-            from paddle_operator_tpu_torch.infer import paged as PG
+        # SERVE_KV_QUANT: int8 codes + per-block scales for the paged
+        # pool, the dequant fused into the paged kernel — about twice
+        # the resident lanes per byte; "none" keeps the bf16 pool
+        from paddle_operator_tpu_torch.infer import paged as PG
 
+        if kv_quant not in PG.KV_QUANT_MODES:
+            raise ValueError(f"kv_quant {kv_quant!r} not in "
+                             f"{PG.KV_QUANT_MODES}")
+        self.kv_quant = kv_quant
+        self.quant = kv_quant == "int8"
+        if self.quant and not self.paged:
+            raise ValueError("kv_quant='int8' requires the paged ring "
+                             "(the pool block is the quantization "
+                             "unit); set paged=True / SERVE_PAGED=1")
+        self._tail_init = None
+        if self.paged:
             self._pg = PG
             self.block_size = int(block_size)
             self._num_blocks = num_blocks
@@ -416,10 +432,12 @@ class RingExecutor:
                 {min(-(-b // self.block_size) * self.block_size,
                      self.pool.view_len) for b in self.buckets}))
             self._copy_block = PG.make_block_copier()
+            if self.quant:
+                self._tail_init = PG.make_tail_init()
             self.step = PG.make_paged_chunk_step(cfg, chunk_tokens, top_k,
-                                                 top_p)
+                                                 top_p, quant=self.quant)
             self.inserts = {b: PG.make_paged_prefill_insert(
-                cfg, b, self.block_size, top_k, top_p)
+                cfg, b, self.block_size, top_k, top_p, quant=self.quant)
                 for b in self.buckets}
         else:
             self.block_size = int(block_size)
@@ -446,7 +464,7 @@ class RingExecutor:
             self.cache = None          # free the old pool before the new
             self.cache = self._pg.init_paged_cache(
                 self.cfg, self.slots, self.pool.total, self.block_size,
-                device=dev)
+                device=dev, quant=self.kv_quant)
         else:
             self.cache = None
             self.cache = init_ring_cache(self.cfg, self.slots,
@@ -510,15 +528,17 @@ class RingExecutor:
         ins = self._suffix_inserts.get(sb)
         if ins is None:
             ins = self._pg.make_paged_suffix_insert(
-                self.cfg, sb, self.block_size, self.top_k, self.top_p)
+                self.cfg, sb, self.block_size, self.top_k, self.top_p,
+                quant=self.quant)
             self._suffix_inserts[sb] = ins
         return ins
 
     def pool_bytes(self) -> int:
-        """Device bytes held by the KV cache (block pool, or the
-        contiguous ring) — the ``tpujob_serve_kv_pool_bytes`` gauge."""
-        return sum(self.cache[k].numel() * self.cache[k].element_size()
-                   for k in ("k", "v"))
+        """Device bytes held by the KV cache (block pool with the int8
+        pool's scale planes and staging tails, or the contiguous ring) —
+        the ``tpujob_serve_kv_pool_bytes`` gauge.  Shape arithmetic."""
+        return sum(t.numel() * t.element_size()
+                   for key, t in self.cache.items() if key != "pos")
 
     def param_bytes(self) -> int:
         """Device bytes of the served params — the

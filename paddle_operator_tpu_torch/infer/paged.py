@@ -1,5 +1,6 @@
 """Paged KV cache + radix prefix reuse for the serving ring — the port
-of ``paddle_operator_tpu/infer/paged.py``, bf16 pool.
+of ``paddle_operator_tpu/infer/paged.py``: the bf16 pool and the int8
+pool (SERVE_KV_QUANT=int8).
 
 - **Block pool** ``[L, num_blocks + 1, H_kv, block_size, D]`` plus
   per-lane block tables ``[slots, max_blocks_per_lane]`` int32 (host
@@ -17,14 +18,22 @@ of ``paddle_operator_tpu/infer/paged.py``, bf16 pool.
   the block table inside the CUDA kernel (ops/decode_attention.py
   ``paged_decode_attention``); the plain path gathers the lane view per
   layer (:func:`_gather_lane_view`) — the copy the kernel avoids.
+- **int8 pool** (``quant="int8"``): blocks hold int8 codes with one f32
+  scale per (layer, block, kv head), and each lane's write-frontier
+  block accumulates exact rows in a staging tail (cfg.dtype) until it
+  completes, when it quantizes into the pool once.  Tail row ``slots``
+  is the trash tail.  The ring's tick quantizes every lane's tail each
+  tick and sends the codes of lanes that did not complete a block to
+  trash block 0 (:func:`_commit_tails`): fixed shapes and no host read
+  inside a chunk, where the JAX module committed behind a ``lax.cond``.
 
 In PyTorch's idiom: the pool is written IN PLACE (indexed tensor
 writes where the JAX module returned donated copies), layers are a
 Python loop where JAX scanned, and the ``make_*`` functions return plain
 callables that update the pool in place — there is nothing to compile.
 
-Not ported yet (ROADMAP.md Queue A): the int8 pool, the host spill
-tier and the durable store, lane spill/restore, the megastep and the
+Not ported yet (ROADMAP.md Queue A): the host spill tier and the
+durable store (bf16 and int8), lane spill/restore, the megastep and the
 prefill-pool transfers.  ``ContinuousBatcher`` refuses them.
 """
 
@@ -40,6 +49,7 @@ from paddle_operator_tpu_torch.infer import decode as D
 from paddle_operator_tpu_torch.models.llama import LlamaConfig
 from paddle_operator_tpu_torch.ops.decode_attention import (
     gather_lane_view,
+    gather_lane_view_quant,
     paged_decode_attention,
 )
 from paddle_operator_tpu_torch.utils.radixkey import (
@@ -47,6 +57,37 @@ from paddle_operator_tpu_torch.utils.radixkey import (
 )
 
 TRASH_BLOCK = 0
+
+# SERVE_KV_QUANT: "none" keeps the bf16 pool (the default and the parity
+# oracle); "int8" stores pool blocks as int8 codes + one f32 scale per
+# (layer, block, kv head), with the dequant fused into the paged kernel
+# (ops/decode_attention.py) or the gather view.  The win is capacity:
+# about twice the resident lanes per byte of device memory.
+KV_QUANT_MODES = ("none", "int8")
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One pool block (..., bs, D) -> (int8 codes, f32 absmax/127 scale
+    over the trailing two axes — per (..., kv head) on [L, N, H, bs, D]
+    tiles).  An all-zero block gets scale 1.0 so the dequant never
+    divides by zero; the f32 division, round-half-even and the clip to
+    ±127 are the JAX function's, so codes and scales are bit-equal to it
+    and quantize -> dequantize -> quantize is a fixed point.  The
+    absmax is one reduction that never materializes |x|; the f32
+    quotient is rounded and clipped in place."""
+    amax = torch.linalg.vector_norm(x, ord=float("inf"),
+                                    dim=(-2, -1)).float()
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    codes = torch.div(x, scale[..., None, None])      # f32, x upcast exactly
+    codes.round_().clamp_(-127, 127)
+    return codes.to(torch.int8), scale
+
+
+def dequantize_kv(codes: torch.Tensor, scale: torch.Tensor,
+                  dtype) -> torch.Tensor:
+    """codes (..., bs, D) x scale (...) -> values in ``dtype`` (the
+    product in f32)."""
+    return (codes.float() * scale[..., None, None].float()).to(dtype)
 
 
 class NoFreeBlocks(RuntimeError):
@@ -433,18 +474,40 @@ class PagedCacheManager:
 
 
 def init_paged_cache(cfg: LlamaConfig, slots: int, total_blocks: int,
-                     block_size: int, *, device="cuda"
-                     ) -> Dict[str, torch.Tensor]:
+                     block_size: int, *, device="cuda",
+                     quant: str = "none") -> Dict[str, torch.Tensor]:
     """The paged ring state: k/v pools [L, total_blocks, H_kv, bs, D]
     in the compute dtype on ``device`` plus the per-lane fill position
     vector (int32, on the device).  ``total_blocks`` INCLUDES the trash
-    block (PagedCacheManager.total)."""
+    block (PagedCacheManager.total).
+
+    ``quant="int8"``: the pools hold int8 codes (same shape), with f32
+    scales ``ks``/``vs`` [L, total_blocks, H_kv] and the staging tails
+    ``kt``/``vt`` [L, slots + 1, H_kv, bs, D] in the compute dtype —
+    lane b's write block accumulates exact rows in tail row b and
+    quantizes into the pool once, when it completes; row ``slots`` is
+    the trash tail."""
     shape = (cfg.n_layers, total_blocks, cfg.n_kv_heads, block_size,
              cfg.head_dim)
+    pos = torch.zeros((slots,), dtype=torch.int32, device=device)
+    if quant == "none":
+        return {
+            "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "pos": pos,
+        }
+    if quant != "int8":
+        raise ValueError(f"kv_quant {quant!r} not in {KV_QUANT_MODES}")
+    scale_shape = shape[:3]
+    tail_shape = (cfg.n_layers, slots + 1) + shape[2:]
     return {
-        "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-        "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
-        "pos": torch.zeros((slots,), dtype=torch.int32, device=device),
+        "k": torch.zeros(shape, dtype=torch.int8, device=device),
+        "v": torch.zeros(shape, dtype=torch.int8, device=device),
+        "ks": torch.ones(scale_shape, dtype=torch.float32, device=device),
+        "vs": torch.ones(scale_shape, dtype=torch.float32, device=device),
+        "kt": torch.zeros(tail_shape, dtype=cfg.dtype, device=device),
+        "vt": torch.zeros(tail_shape, dtype=cfg.dtype, device=device),
+        "pos": pos,
     }
 
 
@@ -502,6 +565,47 @@ def _gather_lane_view(pool: torch.Tensor, table: torch.Tensor,
     return gather_lane_view(pool[li], table)
 
 
+def _write_token_tail(tail_l: torch.Tensor, kv: torch.Tensor,
+                      rows_idx: torch.Tensor, pos: torch.Tensor,
+                      block_size: int) -> None:
+    """One layer's staging tails [slots + 1, H, bs, D] <- [B, H, D] new
+    rows: lane b's row at tail row ``rows_idx[b]`` (its own, or the
+    trash tail for an inactive lane), offset ``pos_b % bs``."""
+    tail_l[rows_idx, :, (pos % block_size).long()] = kv.to(tail_l.dtype)
+
+
+def _commit_tails(cache: Dict[str, torch.Tensor], table: torch.Tensor,
+                  pos: torch.Tensor, commit: torch.Tensor,
+                  block_size: int) -> None:
+    """The int8 ring tick's quantize-on-completion, every layer at once:
+    each lane's staging tile (tail row b) quantizes into codes + scales;
+    a lane whose row at ``pos`` completed its block (``commit``) writes
+    them to its table entry for ``pos``, every other lane to trash
+    block 0.  Fixed shapes, no host read: the price is quantizing B
+    tiles a tick where the JAX module quantized only the completing
+    ones behind a ``lax.cond``.  A completed block is first read from
+    the pool at the next tick (this tick reads it from the tail), so
+    committing after the layer loop equals the JAX per-layer commit."""
+    b = pos.shape[0]
+    dst = torch.where(commit, _block_index(table, pos, block_size),
+                      torch.zeros_like(pos, dtype=torch.long))
+    for pool, scales, tail in (("k", "ks", "kt"), ("v", "vs", "vt")):
+        codes, scale = quantize_kv(cache[tail][:, :b])
+        cache[pool][:, dst] = codes
+        cache[scales][:, dst] = scale
+
+
+def _gather_view_quant(cache: Dict[str, torch.Tensor], kind: str,
+                       table: torch.Tensor, li: int,
+                       wb: torch.Tensor) -> torch.Tensor:
+    """Plain-path view of layer ``li`` of the int8 pool (``kind`` "k" or
+    "v"): :func:`~paddle_operator_tpu_torch.ops.decode_attention.
+    gather_lane_view_quant` with write-frontier blocks ``wb`` [B] read
+    from the staging tails."""
+    return gather_lane_view_quant(cache[kind][li], cache[kind + "s"][li],
+                                  cache[kind + "t"][li], table, wb)
+
+
 def _attend_plain(cfg: LlamaConfig, q: torch.Tensor, k_view: torch.Tensor,
                   v_view: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """The ring's single-token attention over a [B, H, S, D] view
@@ -526,7 +630,9 @@ def _attend_plain(cfg: LlamaConfig, q: torch.Tensor, k_view: torch.Tensor,
 
 
 def paged_ring_forward(cfg: LlamaConfig, params, tok: torch.Tensor,
-                       cache: Dict[str, torch.Tensor], table: torch.Tensor
+                       cache: Dict[str, torch.Tensor], table: torch.Tensor,
+                       quant: bool = False,
+                       active: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The ring's one-token step over the paged pool: tok [B] at
     per-lane ``cache['pos']`` -> (logits [B, V] f32, cache with the
@@ -535,7 +641,15 @@ def paged_ring_forward(cfg: LlamaConfig, params, tok: torch.Tensor,
     attention is ``paged_decode_attention`` over the pool layer and the
     table, lengths ``pos + 1`` after the write — an inactive lane
     (``pos`` zeroed) reads one trash row; otherwise the plain path
-    gathers the lane view."""
+    gathers the lane view.
+
+    ``quant=True``: the cache is the int8 pool's dict (init_paged_cache
+    quant): new rows go to the lanes' staging tails, the attention
+    reads codes with the dequant fused (the int8 kernel, or the
+    dequantizing view), and after the layers each lane whose row
+    completed its block commits it (:func:`_commit_tails`).  ``active``
+    [B] (default: all) sends inactive lanes' tail rows to the trash
+    tail — a lane whose admission is queued may hold a live tail."""
     from paddle_operator_tpu_torch.infer.executor import _qkv_ring
 
     pos = cache["pos"]
@@ -546,30 +660,59 @@ def paged_ring_forward(cfg: LlamaConfig, params, tok: torch.Tensor,
     hq, d = cfg.n_heads, cfg.head_dim
     kernel = cfg.resolved_decode_attn(x.device) == "kernel"
     lengths = pos + 1
+    if quant:
+        lanes = torch.arange(b, device=x.device)
+        trash_row = cache["kt"].shape[1] - 1
+        rows_idx = (lanes if active is None
+                    else torch.where(active, lanes,
+                                     torch.full_like(lanes, trash_row)))
+        wb = (pos // block_size).long()
     for li, lp in enumerate(params.layers):
         q, k, v = _qkv_ring(cfg, lp, x, cos, sin, pos)
-        _write_token_paged(cache["k"][li], k[:, 0], table, pos, block_size)
-        _write_token_paged(cache["v"][li], v[:, 0], table, pos, block_size)
+        if quant:
+            _write_token_tail(cache["kt"][li], k[:, 0], rows_idx, pos,
+                              block_size)
+            _write_token_tail(cache["vt"][li], v[:, 0], rows_idx, pos,
+                              block_size)
+        else:
+            _write_token_paged(cache["k"][li], k[:, 0], table, pos,
+                               block_size)
+            _write_token_paged(cache["v"][li], v[:, 0], table, pos,
+                               block_size)
         if kernel:
+            qkw = ({"k_scale": cache["ks"], "v_scale": cache["vs"],
+                    "k_tail": cache["kt"], "v_tail": cache["vt"]}
+                   if quant else {})
             out = paged_decode_attention(q[:, 0].contiguous(), cache["k"],
                                          cache["v"], table, lengths,
-                                         layer=li)
+                                         layer=li, **qkw)
             out = out.reshape(b, 1, hq * d).to(cfg.dtype)
+        elif quant:
+            out = _attend_plain(cfg, q,
+                                _gather_view_quant(cache, "k", table, li, wb),
+                                _gather_view_quant(cache, "v", table, li, wb),
+                                pos)
         else:
             out = _attend_plain(cfg, q, _gather_lane_view(cache["k"], table,
                                                           li),
                                 _gather_lane_view(cache["v"], table, li),
                                 pos)
         x = D._finish_layer(cfg, lp, x, out)
+    if quant:
+        commit = (pos + 1) % block_size == 0
+        if active is not None:
+            commit = commit & active
+        with torch.profiler.record_function("kv_quant_commit"):
+            _commit_tails(cache, table, pos, commit, block_size)
     x = D._rms(x, params.final_norm.scale, cfg.norm_eps, cfg.dtype)
     logits = D._mm(x, params.lm_head.kernel, cfg.dtype).float()
-    return logits[:, 0], {"k": cache["k"], "v": cache["v"],
-                          "pos": pos + 1}
+    return logits[:, 0], dict(cache, pos=pos + 1)
 
 
 def make_paged_chunk_step(cfg: LlamaConfig, chunk_tokens: int,
                           top_k: Optional[int] = None,
-                          top_p: Optional[float] = None):
+                          top_p: Optional[float] = None,
+                          quant: bool = False):
     """The paged ring's resident decode step — executor.make_chunk_step
     plus the block table:
 
@@ -580,6 +723,8 @@ def make_paged_chunk_step(cfg: LlamaConfig, chunk_tokens: int,
     updated in place.  Inactive lanes compute (the price of fixed
     shapes) but their position is ZEROED each tick and their table row
     is the trash block, so nothing they write reaches a real block.
+    ``quant=True``: the int8 pool, ``active`` also steering inactive
+    lanes' tail rows to the trash tail (:func:`paged_ring_forward`).
     Everything stays on the device: no host read inside the chunk."""
     from paddle_operator_tpu_torch.infer.executor import _sample_tokens
 
@@ -587,7 +732,9 @@ def make_paged_chunk_step(cfg: LlamaConfig, chunk_tokens: int,
         toks = []
         for _ in range(chunk_tokens):
             pos = cache["pos"]
-            logits, new = paged_ring_forward(cfg, params, tok, cache, table)
+            logits, new = paged_ring_forward(
+                cfg, params, tok, cache, table, quant=quant,
+                active=active if quant else None)
             nxt = _sample_tokens(logits, temp, seeds, pos, top_k, top_p)
             cache["pos"] = torch.where(active, new["pos"],
                                        torch.zeros_like(new["pos"]))
@@ -601,7 +748,8 @@ def make_paged_chunk_step(cfg: LlamaConfig, chunk_tokens: int,
 def make_paged_prefill_insert(cfg: LlamaConfig, bucket: int,
                               block_size: int,
                               top_k: Optional[int] = None,
-                              top_p: Optional[float] = None):
+                              top_p: Optional[float] = None,
+                              quant: bool = False):
     """Cold (no prefix hit) paged admission: prefill the prompt, write
     its KV into the lane's blocks as whole-block writes, sample the
     first token and set the lane's pos/tok/temp/seed — all on the
@@ -613,7 +761,11 @@ def make_paged_prefill_insert(cfg: LlamaConfig, bucket: int,
     ``bucket`` is the admission's prompt bucket, a block multiple —
     prompts are forwarded at their own length (PyTorch compiles
     nothing) and the KV slab is rounded to whole blocks for the
-    scatter."""
+    scatter.
+
+    ``quant=True``: whole blocks quantize once into the int8 pool and
+    the prompt's write-frontier block lands exact in the lane's staging
+    tail (decode.paged_prefill's quant contract)."""
     from paddle_operator_tpu_torch.infer.executor import _sample_tokens
 
     if bucket % block_size:
@@ -622,9 +774,18 @@ def make_paged_prefill_insert(cfg: LlamaConfig, bucket: int,
 
     def insert(params, cache, table_row, tok, temp, seeds, prompt,
                prompt_len, slot, temp_val, seed):
-        logits, _ = D.paged_prefill(params, cfg, prompt[:, :prompt_len],
-                                    cache, table_row, block_size=block_size,
-                                    last_only=True)
+        if quant:
+            logits, _, tail_k, tail_v = D.paged_prefill(
+                params, cfg, prompt[:, :prompt_len], cache, table_row,
+                block_size=block_size, last_only=True, quant=True,
+                prompt_len=prompt_len)
+            cache["kt"][:, slot] = tail_k[:, 0]
+            cache["vt"][:, slot] = tail_v[:, 0]
+        else:
+            logits, _ = D.paged_prefill(params, cfg, prompt[:, :prompt_len],
+                                        cache, table_row,
+                                        block_size=block_size,
+                                        last_only=True)
         return _set_lane(cache, tok, temp, seeds, logits[0, -1], prompt_len,
                          slot, temp_val, seed, top_k, top_p, _sample_tokens)
 
@@ -651,10 +812,28 @@ def _set_lane(cache, tok, temp, seeds, logits, prompt_len, slot, temp_val,
     return first
 
 
+def _slice_lane_tails(cache: Dict[str, torch.Tensor], slot: int):
+    """One lane's staging tails as 2-row mini tails (row 0 the lane,
+    row 1 a zeroed trash row) for a batch-of-one int8 forward, which
+    addresses tails by lane index with the last row as trash."""
+    return tuple(torch.stack([cache[key][:, slot],
+                              torch.zeros_like(cache[key][:, slot])], dim=1)
+                 for key in ("kt", "vt"))
+
+
+def _restore_lane_tails(cache: Dict[str, torch.Tensor],
+                        lane: Dict[str, torch.Tensor], slot: int) -> None:
+    """Write a batch-of-one int8 forward's mini tail row back into the
+    lane's row of the full tails, in place."""
+    cache["kt"][:, slot] = lane["kt"][:, 0]
+    cache["vt"][:, slot] = lane["vt"][:, 0]
+
+
 def make_paged_suffix_insert(cfg: LlamaConfig, suffix_bucket: int,
                              block_size: int,
                              top_k: Optional[int] = None,
-                             top_p: Optional[float] = None):
+                             top_p: Optional[float] = None,
+                             quant: bool = False):
     """Prefix-HIT paged admission: the lane's table already maps the
     cached prefix blocks (read-only; CoW'd where the suffix will
     write), so the forward runs over the SUFFIX ONLY — a multi-token
@@ -662,6 +841,12 @@ def make_paged_suffix_insert(cfg: LlamaConfig, suffix_bucket: int,
     writes and attention walk the block table.  The suffix arrives
     padded to ``suffix_bucket``; pad rows past the prompt write the
     trash block.
+
+    ``quant=True``: the suffix rows accumulate in the lane's staging
+    tail (sliced to a 2-row mini tail for the batch-of-one forward and
+    restored after it) and whole blocks quantize on completion; when
+    ``hit_len`` lands mid-block the scheduler has already seeded the
+    tail from the dequantized CoW copy (:func:`make_tail_init`).
 
     ``insert(params, cache, table_row [M], tok, temp, seeds,
     suffix [1, suffix_bucket], suffix_len, hit_len, slot, temp_val,
@@ -678,10 +863,16 @@ def make_paged_suffix_insert(cfg: LlamaConfig, suffix_bucket: int,
         lane_cache = {"k": cache["k"], "v": cache["v"],
                       "pos": torch.full((1,), int(hit_len),
                                         dtype=torch.int32, device=dev)}
-        logits, _ = _multi_forward_paged(
+        if quant:
+            lane_cache["ks"], lane_cache["vs"] = cache["ks"], cache["vs"]
+            lane_cache["kt"], lane_cache["vt"] = _slice_lane_tails(cache,
+                                                                   slot)
+        logits, lane_cache = _multi_forward_paged(
             cfg, params, suffix, lane_cache, table_row[None, :],
             limit=torch.full((1,), int(prompt_len), dtype=torch.int32,
-                             device=dev))
+                             device=dev), quant=quant)
+        if quant:
+            _restore_lane_tails(cache, lane_cache, slot)
         return _set_lane(cache, tok, temp, seeds,
                          logits[0, int(suffix_len) - 1], prompt_len, slot,
                          temp_val, seed, top_k, top_p, _sample_tokens)
@@ -690,14 +881,38 @@ def make_paged_suffix_insert(cfg: LlamaConfig, suffix_bucket: int,
 
 
 def make_block_copier():
-    """The CoW device op: copy pool block ``src`` over block ``dst``
-    (all layers, K and V) in place — run once per copy-on-write
-    admission, BEFORE the admission insert, so the insert reads the
-    private copy.  ``cp(k, v, src, dst)``."""
+    """The CoW device op: copy pool block ``src`` over block ``dst`` in
+    place, in every block-indexed entry of the cache (all layers: K and
+    V, and the scales ``ks``/``vs`` of the int8 pool) — run once per
+    copy-on-write admission, BEFORE the admission insert, so the insert
+    reads the private copy.  ``cp(cache, src, dst)``"""
 
-    def cp(k, v, src, dst):
-        k[:, dst] = k[:, src]
-        v[:, dst] = v[:, src]
-        return k, v
+    def cp(cache, src, dst):
+        for key in ("k", "v", "ks", "vs"):
+            if key in cache:
+                cache[key][:, dst] = cache[key][:, src]
+        return cache
 
     return cp
+
+
+def make_tail_init():
+    """int8-pool admission helper: a lane starting MID-BLOCK (a
+    partial-tail radix hit, or a full hit capped at n - 1 tokens) will
+    write into a block that already holds quantized rows (its CoW'd
+    private copy), so its staging tail is seeded with that block's
+    DEQUANTIZED rows — the suffix forward then reads
+    [block_start, hit_len) as every other reader does, and the block's
+    eventual requantize sees them.  In place, after the CoW copy.
+
+    ``init(cache, slot, blk) -> cache``"""
+
+    def init(cache, slot, blk):
+        for kind in ("k", "v"):
+            tail = cache[kind + "t"]
+            tail[:, slot] = dequantize_kv(cache[kind][:, blk],
+                                          cache[kind + "s"][:, blk],
+                                          tail.dtype)
+        return cache
+
+    return init

@@ -19,10 +19,12 @@ queued on the current stream and never read back inside a chunk: the
 one sync per dispatch is the consume's wait for that chunk's tokens
 (``DispatchResult.host_toks``).
 
-Not ported yet, and refused when asked for (ROADMAP.md Queue A):
-speculative decoding, chunked and disaggregated prefill, the megastep,
-the int8 pool, the host tier, LoRA adapters, span tracing, the NaN-lane
-check, live weight swap, lane spill (preemption) and fleet-level KV.
+The paged ring runs over the bf16 pool or the int8 pool
+(``kv_quant="int8"``).  Not ported yet, and refused when asked for
+(ROADMAP.md Queue A): speculative decoding, chunked and disaggregated
+prefill, the megastep, the host tier, LoRA adapters, span tracing, the
+NaN-lane check, live weight swap, lane spill (preemption) and
+fleet-level KV.
 """
 
 from __future__ import annotations
@@ -153,8 +155,9 @@ class ContinuousBatcher:
     ``paged=True`` swaps the per-lane contiguous KV region for the
     block pool + radix prefix cache (infer/paged.py); greedy token
     streams equal the contiguous ring's (``paged=False``, the parity
-    oracle).  Arguments for features not ported yet raise
-    NotImplementedError when set to anything but their default."""
+    oracle).  ``kv_quant="int8"`` (paged only) stores the pool as int8
+    codes + per-block scales.  Arguments for features not ported yet
+    raise NotImplementedError when set to anything but their default."""
 
     SUFFIX_PREFILL_MAX_ROWS = X.RingExecutor.SUFFIX_PREFILL_MAX_ROWS
 
@@ -192,7 +195,6 @@ class ContinuousBatcher:
                  "speculative decoding (spec_k)"),
                 (prefill_mode != "inline",
                  f"prefill_mode={prefill_mode!r}"),
-                (kv_quant != "none", f"kv_quant={kv_quant!r}"),
                 (host_cache_blocks, "the host spill tier"),
                 (adapters is not None, "LoRA adapters"),
                 (int(megastep) != 1, f"megastep={megastep}"),
@@ -233,7 +235,8 @@ class ContinuousBatcher:
             params, cfg, slots=slots, max_len=self.max_len,
             chunk_tokens=chunk_tokens, prefill_buckets=prefill_buckets,
             top_k=top_k, top_p=top_p, paged=paged, block_size=block_size,
-            num_blocks=num_blocks, prefix_cache=prefix_cache)
+            num_blocks=num_blocks, prefix_cache=prefix_cache,
+            kv_quant=kv_quant)
         self.device = self.executor.device
         self.generation = int(generation)
         self.paged = self.executor.paged
@@ -297,6 +300,10 @@ class ContinuousBatcher:
     @property
     def pool(self):
         return self.executor.pool
+
+    @property
+    def kv_quant(self):
+        return self.executor.kv_quant
 
     @property
     def _step(self):
@@ -450,7 +457,7 @@ class ContinuousBatcher:
             "prefillHolWaitMs": 0.0,
             "handoffFrames": 0,
             "overlappedFrames": 0,
-            "kvQuantMode": "none",
+            "kvQuantMode": self.kv_quant,
             "kvPoolBytes": self.executor.pool_bytes(),
             "weightQuantMode": "none",
             "draftQuantMode": "none",
@@ -632,13 +639,22 @@ class ContinuousBatcher:
                 return b
         raise ValueError(f"no bucket fits prompt length {n}")
 
-    def _dispatch_cow(self, cow) -> None:
-        """The admission's copy-on-write block copies, queued before
-        the insert that reads the private copies."""
+    def _dispatch_cow(self, slot: int, cow, hit_len: int) -> None:
+        """The admission's copy-on-write block copies (codes and scales
+        on the int8 pool), queued before the insert that reads the
+        private copies.  int8 only: when the hit lands MID-BLOCK, the
+        lane's write-frontier block already holds quantized prefix rows
+        (its CoW'd copy), so the lane's staging tail is seeded with them
+        dequantized (paged.make_tail_init) — the suffix forward reads
+        [block_start, hit_len) from the tail, and the block's requantize
+        on completion needs them there."""
         ex = self.executor
         for src, dst in cow:
-            ex._copy_block(ex.cache["k"], ex.cache["v"], src, dst)
+            ex._copy_block(ex.cache, src, dst)
         self.stats["cow_copies"] = self.pool.stats["cow_copies"]
+        if ex._tail_init is not None and hit_len % self.block_size:
+            blk = int(self.pool.table[slot][hit_len // self.block_size])
+            ex._tail_init(ex.cache, slot, blk)
 
     def _activate(self, slot: int, req: _Request, first) -> None:
         """A lane's prefill is queued: wire up the decode-side
@@ -690,7 +706,7 @@ class ContinuousBatcher:
         n = len(req.prompt)
         hit_len, cow = self.pool.admit(          # NoFreeBlocks -> req fails
             slot, req.prompt, max_suffix=self.SUFFIX_PREFILL_MAX_ROWS)
-        self._dispatch_cow(cow)
+        self._dispatch_cow(slot, cow, hit_len)
         tbl_row = X.to_device(self.pool.table[slot], self.device,
                               torch.int32)
         if hit_len:

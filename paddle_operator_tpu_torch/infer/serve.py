@@ -21,7 +21,9 @@ Two modes, as in the JAX package:
   decode side by side, lanes recycle on eos/budget.  With
   ``SERVE_PAGED=1`` the ring's KV lives in the block pool with radix
   prefix reuse (infer/paged.py), the configuration the operator
-  deploys on every fleet replica.  Streaming (``"stream": true``),
+  deploys on every fleet replica; ``SERVE_KV_QUANT=int8`` stores that
+  pool as int8 codes + per-block scales (and implies SERVE_PAGED=1).
+  Streaming (``"stream": true``),
   deadlines (``X-Request-Deadline``/``deadline_s``, 504 partials),
   priorities (``X-Request-Priority``/``priority``) and the ring's
   ``/statusz``, ``/metrics`` and ``/debug/flightrec`` are served.
@@ -483,9 +485,6 @@ def refuse_unported(environ, checkpoint_path: str) -> None:
     if int(environ.get("SERVE_SPEC_K", "0") or 0) > 0:
         refused.append(f"SERVE_SPEC_K={environ['SERVE_SPEC_K']} "
                        "(speculative decoding)")
-    if on("SERVE_KV_QUANT", ("", "none")):
-        refused.append(f"SERVE_KV_QUANT={environ['SERVE_KV_QUANT']} "
-                       "(the int8 KV pool)")
     for key in ("SERVE_HOST_CACHE_BLOCKS", "SERVE_HOST_CACHE_MB"):
         if float(environ.get(key, "0") or 0) > 0:
             refused.append(f"{key}={environ[key]} (the host spill tier)")
@@ -527,8 +526,14 @@ def ring_kw_from_env(environ) -> dict:
     JAX entry point reads them: SERVE_SLOTS, SERVE_CHUNK,
     SERVE_MAX_QUEUE, SERVE_MAX_LEN, SERVE_GENERATION, SERVE_PAGED with
     SERVE_BLOCK_SIZE / SERVE_PREFIX_CACHE / SERVE_NUM_BLOCKS,
-    SERVE_PRIORITIES, SERVE_PREWARM and the watchdog knobs
-    (SERVE_WATCHDOG*, SERVE_MAX_RESTARTS, SERVE_RESTART_WINDOW_S)."""
+    SERVE_KV_QUANT, SERVE_PRIORITIES, SERVE_PREWARM and the watchdog
+    knobs (SERVE_WATCHDOG*, SERVE_MAX_RESTARTS, SERVE_RESTART_WINDOW_S).
+
+    SERVE_KV_QUANT=int8 (the int8 KV pool: int8 codes + one f32 scale
+    per (block, kv head), for deployments bound by capacity rather than
+    latency) needs the paged ring — the pool block is the quantization
+    unit — so it implies SERVE_PAGED=1, with the other paged knobs
+    honoured as under an explicit SERVE_PAGED=1."""
     from paddle_operator_tpu_torch.infer.qos import QoSConfig
     from paddle_operator_tpu_torch.infer.resilience import RingResilience
 
@@ -542,7 +547,13 @@ def ring_kw_from_env(environ) -> dict:
           "qos": QoSConfig.from_env(environ)}
     if environ.get("SERVE_MAX_LEN"):
         kw["max_len"] = int(environ["SERVE_MAX_LEN"])
-    if environ.get("SERVE_PAGED", "0") == "1":
+    kvq = environ.get("SERVE_KV_QUANT", "none") or "none"
+    if kvq != "none":
+        kw["kv_quant"] = kvq
+        if environ.get("SERVE_PAGED", "0") != "1":
+            print("SERVE_KV_QUANT implies SERVE_PAGED=1 (the pool block "
+                  "is the quantization unit)", flush=True)
+    if environ.get("SERVE_PAGED", "0") == "1" or kvq != "none":
         kw["paged"] = True
         kw["block_size"] = int(environ.get("SERVE_BLOCK_SIZE", "256"))
         kw["prefix_cache"] = environ.get("SERVE_PREFIX_CACHE", "1") == "1"
@@ -555,7 +566,8 @@ def main() -> int:
     """Serving entrypoint: fresh-init MODEL_PRESET (default 7b) from
     seed 0 on the card in the serving dtype and serve on TPUJOB_PORT —
     batch mode, or the decode ring with SERVE_CONTINUOUS=1 (paged with
-    SERVE_PAGED=1); SIGTERM drains and exits EXIT_PREEMPTED (83)."""
+    SERVE_PAGED=1, over the int8 pool with SERVE_KV_QUANT=int8); SIGTERM
+    drains and exits EXIT_PREEMPTED (83)."""
     from paddle_operator_tpu_torch.ft.preemption import PreemptionWatcher
     from paddle_operator_tpu_torch.infer.resilience import ServingDrain
     from paddle_operator_tpu_torch.launch.launcher import JobEnv
@@ -576,6 +588,7 @@ def main() -> int:
     mode = "batch"
     if continuous:
         mode = (f"continuous, paged={bool(ring_kw.get('paged'))}, "
+                f"kv_quant={ring_kw.get('kv_quant', 'none')}, "
                 f"slots={ring_kw['slots']}, "
                 f"chunk={ring_kw['chunk_tokens']}, "
                 f"preemption={PREEMPTION_NOTE}")

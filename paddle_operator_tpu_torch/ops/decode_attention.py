@@ -1,11 +1,13 @@
 """Single-query (decode) attention over the KV cache — the port of
 ``paddle_operator_tpu/ops/decode_attention.py`` ``decode_attention``
-and ``paged_decode_attention``.
+and ``paged_decode_attention`` (bf16 pool, and the int8 pool of
+SERVE_KV_QUANT=int8).
 
 Per kernel, three parts:
 
 - the wrapper (:func:`decode_attention` over the contiguous cache,
-  :func:`paged_decode_attention` over the paged block pool).  On CUDA
+  :func:`paged_decode_attention` over the paged block pool, which takes
+  the int8 pool's kernel when given its scales and tails).  On CUDA
   tensors it launches the hand-written kernel of
   ``csrc/decode_attention.cu`` (built for sm_90a at first use, bound
   through ``ctypes``) on the current stream; on CPU tensors it uses the
@@ -13,7 +15,9 @@ Per kernel, three parts:
   not take, a failed build or a failed launch raises.
 - the plain PyTorch version (:func:`decode_attention_reference`, the
   JAX package's einsum ground truth; :func:`paged_decode_attention_
-  reference`, the gathered lane view followed by it).
+  reference`, the gathered lane view followed by it;
+  :func:`paged_decode_attention_quant_reference`, the dequantizing lane
+  view followed by it).
 - a ``launches`` counter on each wrapper: how many times it launched
   its kernel, so a run can show that its main path went through it.
 
@@ -23,15 +27,16 @@ and what their design does about that.  The TPU kernels' block-size
 knob is gone with their grid: the contiguous kernel takes any cache
 length ``S``, the paged one any pool block size.
 
-Also here: :func:`scatter_prefill_blocks`, the block-granular prefill
-write into the pool (plain tensor writes — it was an XLA loop, not a
-Pallas kernel, in the JAX package).
+Also here: :func:`scatter_prefill_blocks` and
+:func:`scatter_prefill_blocks_quant`, the block-granular prefill writes
+into the pool (plain tensor writes — they were XLA loops, not Pallas
+kernels, in the JAX package).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -61,17 +66,24 @@ def _library():
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        fn = lib.paged_decode_attention_quant_launch
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
 def _check_kernel_inputs(q, k_cache, v_cache, lengths, *, table=None,
-                         fn: str = "decode_attention") -> None:
-    """Everything the CUDA kernels do not take raises here."""
+                         quant=None, fn: str = "decode_attention") -> None:
+    """Everything the CUDA kernels do not take raises here.  ``quant``:
+    the int8 pool's (k_scale, v_scale, k_tail, v_tail)."""
     b, hq, d = q.shape
     named = [("q", q), ("k", k_cache), ("v", v_cache), ("lengths", lengths)]
     if table is not None:
         named.append(("block_table", table))
+    if quant is not None:
+        named += list(zip(("k_scale", "v_scale", "k_tail", "v_tail"), quant))
     for name, t in named:
         if t.device != q.device:
             raise ValueError(f"{fn}: {name} on {t.device}, q on {q.device}")
@@ -83,8 +95,17 @@ def _check_kernel_inputs(q, k_cache, v_cache, lengths, *, table=None,
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"{fn}: dtype {q.dtype} not supported (float32 "
                          "or bfloat16)")
-    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
-        raise ValueError(f"{fn}: q, k and v must share one dtype")
+    if quant is None:
+        if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+            raise ValueError(f"{fn}: q, k and v must share one dtype")
+    else:
+        if k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8:
+            raise ValueError(f"{fn}: the quantized pools must be int8")
+        if quant[0].dtype != torch.float32 or quant[1].dtype != torch.float32:
+            raise ValueError(f"{fn}: k_scale and v_scale must be float32")
+        if quant[2].dtype != q.dtype or quant[3].dtype != q.dtype:
+            raise ValueError(f"{fn}: k_tail and v_tail must be in q's "
+                             f"dtype {q.dtype}")
     if lengths.dtype != torch.int32:
         raise ValueError(f"{fn}: lengths must be int32")
     if table is not None and table.dtype != torch.int32:
@@ -94,7 +115,10 @@ def _check_kernel_inputs(q, k_cache, v_cache, lengths, *, table=None,
                          f"to {MAX_HEAD_DIM}")
     if b > 65535:
         raise ValueError(f"{fn}: batch {b} > 65535")
-    for name, t in (("q", q), ("k", k_cache), ("v", v_cache)):
+    aligned = [("q", q), ("k", k_cache), ("v", v_cache)]
+    if quant is not None:
+        aligned += [("k_tail", quant[2]), ("v_tail", quant[3])]
+    for name, t in aligned:
         if t.data_ptr() % 16:
             raise ValueError(f"{fn}: {name} is not 16-byte aligned")
 
@@ -208,13 +232,34 @@ def _paged_launch(lib, q, k_pool, v_pool, table, lengths, out, scale: float,
                            f"CUDA error {rc}")
 
 
+def _paged_quant_launch(lib, q, k_pool, v_pool, k_scale, v_scale, k_tail,
+                        v_tail, table, lengths, out, scale: float,
+                        stream: int) -> None:
+    """One launch of the int8 pool's kernel; raises when the C side
+    reports an error."""
+    b, hq, d = q.shape
+    n, hkv, bs, _ = k_pool.shape
+    rc = lib.paged_decode_attention_quant_launch(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), k_tail.data_ptr(),
+        v_tail.data_ptr(), table.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), b, hq, hkv, n, bs, table.shape[1], d,
+        k_tail.shape[0], float(scale), _DTYPE_CODE[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_decode_attention (int8 pool) kernel "
+                           f"launch failed: CUDA error {rc}")
+
+
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, block_table: torch.Tensor,
                            lengths: torch.Tensor, *,
                            scale: Optional[float] = None,
                            layer: Optional[int] = None,
-                           k_scale=None, v_scale=None, k_tail=None,
-                           v_tail=None) -> torch.Tensor:
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None,
+                           k_tail: Optional[torch.Tensor] = None,
+                           v_tail: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """:func:`decode_attention` over a PAGED cache: lane b's context
     lives in pool blocks ``block_table[b, 0..ceil(len_b/bs)-1]``.
 
@@ -227,22 +272,35 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     [0, lengths[b]), capped at M * bs.  Returns [B, Hq, D] in q's
     dtype.
 
-    The quantized-pool operands (``k_scale``/``v_scale``/``k_tail``/
-    ``v_tail``, SERVE_KV_QUANT=int8) belong to the int8 pool's kernel,
-    which is not ported yet: passing any of them raises."""
-    if any(t is not None for t in (k_scale, v_scale, k_tail, v_tail)):
-        raise NotImplementedError(
-            "the int8 paged pool (k_scale/v_scale/k_tail/v_tail) is not "
-            "ported to the torch package yet (ROADMAP.md Queue B item 3)")
+    ``k_scale``/``v_scale``/``k_tail``/``v_tail`` (all four together)
+    select the int8 pool (SERVE_KV_QUANT=int8, infer/paged.py): the
+    pools hold int8 codes, the scales are f32 [N, Hkv] (one per block
+    and kv head), the tails the per-lane staging blocks
+    [lanes + 1, Hkv, bs, D] in q's dtype (stacked with a leading L
+    under ``layer``).  Lane b's row r reads, in block j = r // bs: the
+    tail row ``tail[b, :, r % bs]`` when j is the lane's write-frontier
+    block ``max(lengths[b] - 1, 0) // bs``, else ``code * scale`` of its
+    pool block, computed in f32 and rounded to q's dtype.  On a CUDA
+    tensor that launches the int8 pool's kernel (a separate ``launches``
+    count: :attr:`paged_decode_attention.quant_launches`)."""
+    quant = (k_scale, v_scale, k_tail, v_tail)
+    if any(t is not None for t in quant):
+        if any(t is None for t in quant):
+            raise ValueError("quantized paged attention needs k_scale, "
+                             "v_scale, k_tail and v_tail together")
+    else:
+        quant = None
     if layer is not None:
         k_pool, v_pool = k_pool[layer], v_pool[layer]
+        if quant is not None:
+            quant = tuple(t[layer] for t in quant)
     b, hq, d = q.shape
     if k_pool.dim() != 4 or k_pool.shape != v_pool.shape \
             or k_pool.shape[3] != d:
         raise ValueError(f"paged_decode_attention: pools "
                          f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)} do "
                          f"not match q {tuple(q.shape)} as [N, Hkv, bs, D]")
-    hkv = k_pool.shape[1]
+    n, hkv, bs, _ = k_pool.shape
     if hq % hkv:
         raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
     if block_table.dim() != 2 or block_table.shape[0] != b \
@@ -252,23 +310,45 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if lengths.shape != (b,):
         raise ValueError(f"paged_decode_attention: lengths "
                          f"{tuple(lengths.shape)} must be [{b}]")
+    if quant is not None:
+        ks, vs, kt, vt = quant
+        if ks.shape != (n, hkv) or vs.shape != (n, hkv):
+            raise ValueError(f"paged_decode_attention: scales "
+                             f"{tuple(ks.shape)}/{tuple(vs.shape)} must be "
+                             f"[N, Hkv] = [{n}, {hkv}]")
+        if kt.dim() != 4 or kt.shape != vt.shape or kt.shape[0] < b \
+                or kt.shape[1:] != (hkv, bs, d):
+            raise ValueError(f"paged_decode_attention: tails "
+                             f"{tuple(kt.shape)}/{tuple(vt.shape)} must be "
+                             f"[>= {b}, {hkv}, {bs}, {d}]")
     if scale is None:
         scale = 1.0 / float(d) ** 0.5
     if q.device.type == "cpu":
+        if quant is not None:
+            return paged_decode_attention_quant_reference(
+                q, k_pool, v_pool, block_table, lengths, *quant,
+                scale=scale)
         return paged_decode_attention_reference(
             q, k_pool, v_pool, block_table, lengths, scale=scale)
     _check_kernel_inputs(q, k_pool, v_pool, lengths, table=block_table,
-                         fn="paged_decode_attention")
+                         quant=quant, fn="paged_decode_attention")
     out = torch.empty_like(q)
     if b == 0:
         return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if quant is not None:
+        _paged_quant_launch(_library(), q, k_pool, v_pool, *quant,
+                            block_table, lengths, out, scale, stream)
+        paged_decode_attention.quant_launches += 1
+        return out
     _paged_launch(_library(), q, k_pool, v_pool, block_table, lengths, out,
-                  scale, torch.cuda.current_stream(q.device).cuda_stream)
+                  scale, stream)
     paged_decode_attention.launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.quant_launches = 0
 
 
 def gather_lane_view(pool: torch.Tensor,
@@ -297,6 +377,46 @@ def paged_decode_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
         gather_lane_view(v_pool, block_table), lengths, scale=scale)
 
 
+def gather_lane_view_quant(pool: torch.Tensor, scales: torch.Tensor,
+                           tail: torch.Tensor, block_table: torch.Tensor,
+                           wb: torch.Tensor) -> torch.Tensor:
+    """:func:`gather_lane_view` for the int8 pool (infer/paged.py
+    ``_gather_lane_view_quant`` of the JAX package): codes [N, H, bs, D]
+    and scales [N, H] gathered through the tables and dequantized in
+    f32, then lane b's staging tail ``tail[b]`` substituted for its
+    write-frontier block ``wb[b]``; returned in the tail's dtype,
+    [B, H, M*bs, D]."""
+    b, m = block_table.shape
+    _, h, bs, d = pool.shape
+    ids = block_table.long()
+    deq = pool[ids].float() * scales[ids][..., None, None]  # [B,M,H,bs,D]
+    deq = deq.permute(0, 2, 1, 3, 4).reshape(b, h, m * bs, d)
+    tiled = tail[:b].float().repeat(1, 1, m, 1)              # [B,H,M*bs,D]
+    use_tail = (torch.arange(m * bs, device=pool.device) // bs)[None, :] \
+        == wb.long()[:, None]
+    return torch.where(use_tail[:, None, :, None], tiled,
+                       deq).to(tail.dtype)
+
+
+def paged_decode_attention_quant_reference(
+        q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+        block_table: torch.Tensor, lengths: torch.Tensor,
+        k_scale: torch.Tensor, v_scale: torch.Tensor, k_tail: torch.Tensor,
+        v_tail: torch.Tensor, *, scale: Optional[float] = None
+        ) -> torch.Tensor:
+    """The int8 pool kernel's plain version: the dequantizing lane view
+    (:func:`gather_lane_view_quant`, frontier block
+    ``max(lengths - 1, 0) // bs``) followed by
+    :func:`decode_attention_reference` — as tests/test_kvquant.py builds
+    the JAX kernel's reference."""
+    bs = k_pool.shape[2]
+    wb = torch.clamp(lengths.long() - 1, min=0) // bs
+    return decode_attention_reference(
+        q, gather_lane_view_quant(k_pool, k_scale, k_tail, block_table, wb),
+        gather_lane_view_quant(v_pool, v_scale, v_tail, block_table, wb),
+        lengths, scale=scale)
+
+
 def scatter_prefill_blocks(pool: torch.Tensor, rows: torch.Tensor,
                            table_row: torch.Tensor, block_size: int,
                            start_block: int = 0) -> torch.Tensor:
@@ -318,3 +438,31 @@ def scatter_prefill_blocks(pool: torch.Tensor, rows: torch.Tensor,
     ids = table_row[start_block:start_block + nb].to(pool.device).long()
     pool[:, ids] = blocks.permute(0, 2, 1, 3, 4).to(pool.dtype)
     return pool
+
+
+def scatter_prefill_blocks_quant(pool: torch.Tensor, scales: torch.Tensor,
+                                 rows: torch.Tensor, table_row: torch.Tensor,
+                                 block_size: int, start_block: int = 0
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`scatter_prefill_blocks` for the int8 pool: each whole block
+    of ``rows`` [L, 1, H, T, D] quantizes once on the way in (one
+    absmax scale per (layer, block, kv head), infer/paged.py
+    ``quantize_kv``), codes into ``pool`` [L, N, H, bs, D] and scales
+    into ``scales`` [L, N, H] at the lane's table entries, in place.
+    The prompt's partial last block is scattered too (its pad rows make
+    its scale meaningless) but is never read from the pool: the lane's
+    staging tail serves its write-frontier block until decode completes
+    it.  Returns ``(pool, scales)``."""
+    from paddle_operator_tpu_torch.infer.paged import quantize_kv
+
+    lcount, _, h, t, d = rows.shape
+    if t % block_size:
+        raise ValueError(f"scatter_prefill_blocks_quant: {t} rows are not "
+                         f"a multiple of the block size {block_size}")
+    nb = t // block_size
+    blocks = rows[:, 0].reshape(lcount, h, nb, block_size, d)
+    codes, scale = quantize_kv(blocks.permute(0, 2, 1, 3, 4))
+    ids = table_row[start_block:start_block + nb].to(pool.device).long()
+    pool[:, ids] = codes
+    scales[:, ids] = scale
+    return pool, scales

@@ -4,7 +4,7 @@
         [--preset 7b] [--batch 4] [--prompt 512] [--steps 8]
     python3 -m paddle_operator_tpu_torch.tools.profile_decode --ring \\
         [--preset 7b] [--slots 8] [--chunk 8] [--block-size 256] \\
-        [--prompt 512] [--steps 8]
+        [--prompt 512] [--steps 8] [--kv-quant int8]
 
 Fresh-inits the preset in bf16 from seed 0.  For each decode-attention
 selection ("kernel", "plain", "kernel" again — in turns, on one card)
@@ -23,6 +23,10 @@ that take the most device time.  Prints one JSON object per selection.
   the pool's block size.  ``trace_complete`` says whether the traces
   hold every paged-kernel launch the wrapper counted; a turn where they
   do not has lost events and its device numbers are low.
+  ``--kv-quant int8`` runs the ring over the int8 pool: the counted
+  kernel is the int8 one, and ``commit_device_ms_per_chunk`` is the
+  device time of the quantize-on-completion writes (the
+  ``kv_quant_commit`` range of infer/paged.py ``paged_ring_forward``).
 """
 
 from __future__ import annotations
@@ -41,17 +45,23 @@ from paddle_operator_tpu_torch.infer import decode as D
 from paddle_operator_tpu_torch.models.llama import CONFIGS, make_model
 
 
-def _device_us(evt) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
+def _device_us(evt, self_time: bool = True) -> float:
+    """An event's device time: its own (a kernel), or with
+    ``self_time=False`` that of the kernels launched inside it (a
+    CPU-side ``record_function`` range)."""
+    prefix = "self_" if self_time else ""
+    for attr in (f"{prefix}device_time_total", f"{prefix}cuda_time_total"):
         if hasattr(evt, attr):
             return float(getattr(evt, attr))
     return 0.0
 
 
-def _measure(unit, steps: int) -> dict:
+def _measure(unit, steps: int, ranges=()) -> dict:
     """Host-clock ms per ``unit()`` over ``steps`` synchronized calls,
     then ``steps`` more, each in a profiler session of its own: device
-    busy ms per unit, idle share, top kernels (and all kernels)."""
+    busy ms per unit, idle share, top kernels (and all kernels), and the
+    device ms per unit of the kernels launched inside each
+    ``record_function`` range named in ``ranges``."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -59,15 +69,22 @@ def _measure(unit, steps: int) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
     totals = {}                                  # kernel -> [us, calls]
+    in_ranges = {name: 0.0 for name in ranges}   # range -> device us
     for _ in range(steps):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             unit()
             torch.cuda.synchronize()
         # device-side events only: the aten ops that launched them carry
-        # the same time again as their own device total
+        # the same time again as their own device total, and a
+        # record_function range appears there too, as a device-side
+        # annotation spanning the kernels it launched
         for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA and _device_us(e) > 0:
+            if e.key in in_ranges and e.device_type == DeviceType.CPU:
+                in_ranges[e.key] += _device_us(e, self_time=False)
+            if (e.device_type == DeviceType.CUDA and _device_us(e) > 0
+                    and not getattr(e, "is_user_annotation", False)
+                    and e.key not in in_ranges):
                 t = totals.setdefault(e.key, [0.0, 0])
                 t[0] += _device_us(e)
                 t[1] += e.count
@@ -86,6 +103,7 @@ def _measure(unit, steps: int) -> dict:
                         for n, ms, c in kernels[:10]],
         "all_kernels": [{"name": n, "ms": ms, "calls": c}
                         for n, ms, c in kernels],
+        "ranges_ms": {k: us / steps / 1e3 for k, us in in_ranges.items()},
     }
 
 
@@ -114,11 +132,11 @@ def run(params, cfg, prompt, steps: int) -> dict:
 
 
 def run_ring(params, cfg, prompts: np.ndarray, *, chunk: int,
-             block_size: int, steps: int) -> dict:
+             block_size: int, steps: int, kv_quant: str = "none") -> dict:
     """Ring mode: one chunk of the paged ring with every lane resident
     is the unit.  Lanes are admitted through the ring's own cold paged
     insert; their positions advance with every chunk, so the fill
-    grows by ``chunk`` per unit."""
+    grows by ``chunk`` per unit.  ``kv_quant="int8"``: the int8 pool."""
     from paddle_operator_tpu_torch.infer import executor as X
     from paddle_operator_tpu_torch.ops import decode_attention as DA
 
@@ -126,7 +144,8 @@ def run_ring(params, cfg, prompts: np.ndarray, *, chunk: int,
     max_len = n + (2 * steps + 4) * chunk
     ex = X.RingExecutor(params, cfg, slots=slots, max_len=max_len,
                         chunk_tokens=chunk, paged=True,
-                        block_size=block_size)
+                        block_size=block_size, kv_quant=kv_quant)
+    quant = kv_quant != "none"
     bucket = next(b for b in ex.buckets if n <= b)
     state = {"pos": n}
     with torch.inference_mode():
@@ -148,20 +167,30 @@ def run_ring(params, cfg, prompts: np.ndarray, *, chunk: int,
 
         unit()                                    # warm-up chunk
         DA.paged_decode_attention.launches = 0
+        DA.paged_decode_attention.quant_launches = 0
         fill = state["pos"]
-        m = _measure(unit, steps)
-        paged = DA.paged_decode_attention.launches / (2 * steps)
-    return {"mode": "ring", "decode_attn": cfg.decode_attn,
-            "slots": slots, "chunk": chunk, "block_size": block_size,
-            "fill_at_start": fill,
-            "wall_ms_per_chunk": m["wall_ms"],
-            "device_busy_ms_per_chunk": m["device_busy_ms"],
-            "device_idle_share": m["device_idle_share"],
-            "launches_per_chunk": m["launches"],
-            "paged_kernel_launches_per_chunk": paged,
-            "trace_paged_kernel_calls_per_chunk": m["paged_kernel_calls"],
-            "trace_complete": m["paged_kernel_calls"] == paged,
-            "top_kernels": m["top_kernels"]}
+        m = _measure(unit, steps, ranges=("kv_quant_commit",))
+        paged = (DA.paged_decode_attention.quant_launches if quant
+                 else DA.paged_decode_attention.launches) / (2 * steps)
+    out = {"mode": "ring", "decode_attn": cfg.decode_attn,
+           "kv_quant": kv_quant,
+           "slots": slots, "chunk": chunk, "block_size": block_size,
+           "pool_bytes": ex.pool_bytes(),
+           "fill_at_start": fill,
+           "wall_ms_per_chunk": m["wall_ms"],
+           "device_busy_ms_per_chunk": m["device_busy_ms"],
+           "device_idle_share": m["device_idle_share"],
+           "launches_per_chunk": m["launches"],
+           "paged_kernel_launches_per_chunk": paged,
+           "trace_paged_kernel_calls_per_chunk": m["paged_kernel_calls"],
+           "trace_complete": m["paged_kernel_calls"] == paged,
+           "top_kernels": m["top_kernels"]}
+    if quant:
+        out["commit_device_ms_per_chunk"] = m["ranges_ms"]["kv_quant_commit"]
+        out["quant_kernel_ms_per_chunk"] = sum(
+            k["ms"] for k in m["all_kernels"]
+            if "paged_decode_attention_quant" in k["name"])
+    return out
 
 
 def main() -> int:
@@ -176,6 +205,8 @@ def main() -> int:
     ap.add_argument("--prompt", type=int, default=512)
     ap.add_argument("--steps", type=int, default=8,
                     help="units timed and profiled")
+    ap.add_argument("--kv-quant", default="none", choices=("none", "int8"),
+                    help="the ring's KV pool (with --ring)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode needs a CUDA card")
@@ -189,7 +220,8 @@ def main() -> int:
         icfg = dataclasses.replace(cfg, decode_attn=impl)
         if args.ring:
             row = run_ring(params, icfg, prompts, chunk=args.chunk,
-                           block_size=args.block_size, steps=args.steps)
+                           block_size=args.block_size, steps=args.steps,
+                           kv_quant=args.kv_quant)
         else:
             row = run(params, icfg, torch.as_tensor(prompts, device="cuda"),
                       args.steps)

@@ -294,7 +294,7 @@ class TestForwardsMatchJax:
         _, _, _, cfg = setup
         k = torch.randn((2, 5, 2, 4, 16))
         v = torch.randn((2, 5, 2, 4, 16))
-        PG.make_block_copier()(k, v, 3, 1)
+        PG.make_block_copier()({"k": k, "v": v}, 3, 1)
         assert torch.equal(k[:, 1], k[:, 3]) and torch.equal(v[:, 1],
                                                              v[:, 3])
         # inactive lanes (zeroed table row and position) all write block

@@ -5,8 +5,9 @@ JAX package's: the same numpy inputs through the JAX pallas kernel
 CPU tensors (its plain version) — the cases of tests/test_paged.py
 TestPagedKernel, over block sizes, GQA groupings and stacked layers.
 Also ``scatter_prefill_blocks`` against the JAX scatter, the
-no-fallback rule with a mocked launch, and the CUDA kernel against its
-plain version on the card (``-m cuda``).
+no-fallback rule with a mocked launch, and the CUDA kernels (bf16 pool
+and int8 pool) against their plain versions on the card (``-m cuda``;
+the int8 pool's CPU tests are in tests/test_torch_kvquant.py).
 """
 
 import numpy as np
@@ -184,10 +185,13 @@ class TestNoFallback:
             TDA.paged_decode_attention(q, pk, pv, table, L[:1])
 
     def test_quant_operands_not_ported(self):
+        """The int8 pool's operands are ported now
+        (tests/test_torch_kvquant.py); given only in part they raise,
+        as in the JAX package."""
         q, _, _, pk, pv, table, L = (
             torch.as_tensor(a)
             for a in _paged_case(1, 2, 2, 16, 16, 8, [4]))
-        with pytest.raises(NotImplementedError, match="int8"):
+        with pytest.raises(ValueError, match="together"):
             TDA.paged_decode_attention(q, pk, pv, table, L,
                                        k_scale=torch.ones(3, 2))
 
@@ -223,3 +227,86 @@ class TestKernelOnCard:
             qt.float(), pkt.float(), pvt.float(), tt, Lt)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, atol=atol, rtol=atol)
+
+
+@pytest.mark.cuda
+class TestQuantKernelOnCard:
+    """The int8 pool's CUDA kernel against its plain version on the
+    card: lengths {0, 1, bs-1, bs, bs+1, full, a non-multiple} under a
+    scrambled block map, codes and tails unrelated so the frontier
+    block must come from the tail."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card")
+
+    @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                            (torch.bfloat16, 1e-2)])
+    @pytest.mark.parametrize("hq,hkv,d,bs", [(2, 2, 16, 8), (4, 2, 64, 16),
+                                             (16, 4, 128, 256)])
+    def test_matches_plain(self, dtype, atol, hq, hkv, d, bs):
+        rng = np.random.default_rng(40)
+        lens = [0, 1, bs - 1, bs, bs + 1, 4 * bs, 2 * bs + 3]
+        b, m = len(lens), 4
+        n = b * m + 3
+        dev = torch.device("cuda")
+        q = torch.as_tensor(rng.standard_normal((b, hq, d)), device=dev)
+        kp, vp = (torch.as_tensor(rng.integers(-127, 128, (n, hkv, bs, d)),
+                                  device=dev).to(torch.int8)
+                  for _ in range(2))
+        ks, vs = (torch.as_tensor(rng.random((n, hkv)) * 0.008 + 0.004,
+                                  device=dev).float() for _ in range(2))
+        kt, vt = (torch.as_tensor(rng.standard_normal((b + 1, hkv, bs, d)),
+                                  device=dev).to(dtype) for _ in range(2))
+        table = torch.as_tensor(
+            rng.permutation(np.arange(1, n))[:b * m].reshape(b, m)
+            .astype(np.int32), device=dev)
+        L = torch.as_tensor(np.asarray(lens, np.int32), device=dev)
+        q = q.to(dtype)
+        before = TDA.paged_decode_attention.quant_launches
+        got = TDA.paged_decode_attention(q, kp, vp, table, L, k_scale=ks,
+                                         v_scale=vs, k_tail=kt,
+                                         v_tail=vt).float()
+        assert TDA.paged_decode_attention.quant_launches == before + 1
+        # f32 q; the tails in the kernel's dtype, so the plain view
+        # rounds code x scale to it as the kernel must
+        want = TDA.paged_decode_attention_quant_reference(
+            q.float(), kp, vp, table, L, ks, vs, kt, vt)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=atol, rtol=atol)
+        # as a whole too: |out| is a few times the bf16 atol at long fills
+        assert float((got - want).norm() / want.norm()) <= 1e-2
+
+    def test_equals_bf16_pool_kernel(self):
+        """On the rows dequantized and rounded to bf16, laid out as a bf16
+        pool (each lane's frontier block from its tail), the int8 kernel
+        and the bf16 paged kernel give the same bits."""
+        rng = np.random.default_rng(41)
+        b, hq, hkv, d, bs, m = 4, 8, 4, 128, 16, 4
+        n = b * m + 1
+        dev = torch.device("cuda")
+        q = torch.as_tensor(rng.standard_normal((b, hq, d)),
+                            device=dev).to(torch.bfloat16)
+        kp, vp = (torch.as_tensor(rng.integers(-127, 128, (n, hkv, bs, d)),
+                                  device=dev).to(torch.int8)
+                  for _ in range(2))
+        ks, vs = (torch.as_tensor(rng.random((n, hkv)) * 0.008 + 0.004,
+                                  device=dev).float() for _ in range(2))
+        kt, vt = (torch.as_tensor(rng.standard_normal((b + 1, hkv, bs, d)),
+                                  device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        table = torch.as_tensor(
+            rng.permutation(np.arange(1, n))[:b * m].reshape(b, m)
+            .astype(np.int32), device=dev)
+        L = torch.as_tensor(np.asarray([1, bs, 2 * bs + 5, m * bs],
+                                       np.int32), device=dev)
+        wb = (torch.clamp(L.long() - 1, min=0) // bs)
+        front = table[torch.arange(b, device=dev), wb].long()
+        kb = (kp.float() * ks[..., None, None]).to(torch.bfloat16)
+        vb = (vp.float() * vs[..., None, None]).to(torch.bfloat16)
+        kb[front], vb[front] = kt[:b], vt[:b]
+        got = TDA.paged_decode_attention(q, kp, vp, table, L, k_scale=ks,
+                                         v_scale=vs, k_tail=kt, v_tail=vt)
+        want = TDA.paged_decode_attention(q, kb, vb, table, L)
+        assert torch.equal(got, want)

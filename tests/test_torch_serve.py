@@ -428,7 +428,7 @@ class TestContinuousServer:
 
 
 REFUSED_KNOBS = [
-    {"SERVE_SPEC_K": "2"}, {"SERVE_KV_QUANT": "int8"},
+    {"SERVE_SPEC_K": "2"},
     {"SERVE_HOST_CACHE_BLOCKS": "4"}, {"SERVE_HOST_CACHE_MB": "8"},
     {"SERVE_PREFILL": "chunked"}, {"SERVE_PREFILL": "disagg"},
     {"SERVE_MEGASTEP": "4"}, {"SERVE_ADAPTERS": "acme"},
@@ -452,6 +452,17 @@ def test_refuse_unported_names_the_knob(env):
         S.refuse_unported(environ, "")
     assert value in str(pytest.raises(ValueError, S.refuse_unported,
                                       environ, "").value)
+
+
+def test_kv_quant_is_accepted_and_implies_paged():
+    """SERVE_KV_QUANT=int8 is served (the int8 pool), and like the JAX
+    entry point it turns the paged ring on by itself."""
+    env = {"SERVE_CONTINUOUS": "1", "SERVE_KV_QUANT": "int8",
+           "SERVE_BLOCK_SIZE": "8"}
+    S.refuse_unported(env, "")
+    kw = S.ring_kw_from_env(env)
+    assert kw["kv_quant"] == "int8" and kw["paged"]
+    assert kw["block_size"] == 8 and kw["prefix_cache"]
 
 
 def test_deployed_env_is_accepted_and_parsed():
