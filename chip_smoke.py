@@ -8,7 +8,8 @@ result line; with no arguments every phase runs):
 
 1. build — compile every kernel source of the serving and training
    paths from ``paddle_operator_tpu_torch/csrc/`` (one nvcc each, in
-   parallel).
+   parallel); report each flash kernel instantiation's design, its
+   registers, spill bytes and shared memory (``-Xptxas -v``).
 2. kernel vs plain — ``decode_attention`` against
    ``decode_attention_reference`` on the card: ragged lengths with 0, 1,
    a full cache and a non-multiple of any tile; MHA and GQA (n_rep 2, 4);
@@ -50,8 +51,10 @@ result line; with no arguments every phase runs):
    ``flash_backward_dkv`` and ``flash_backward_dq`` each against its
    plain version on the same inputs (the backward kernels get the plain
    forward's lse and delta): causal and not, n_rep 1/2/4, D 64 and 128,
-   S 1, 300 and 2048, with and without three-document segment ids, plus
-   rows whose query id no key carries (o = 0, lse = 0); float32 at
+   S 1, 63, 64, 65, 127, 128, 129, 300 and 2048 (the edges of the bf16
+   bodies' 64- and 128-row tiles), Sq 300 / Sk 700 and Sq 700 / Sk 300,
+   with and without three-document segment ids, plus rows whose query
+   id no key carries (o = 0, lse = 0); float32 at
    atol = rtol = 1e-4, bfloat16 against the plain version in float32
    element by element (``FLASH_BF16_ATOL``, one limit a kernel, and
    ``FLASH_BF16_RTOL``) and as a whole (``FLASH_BF16_REL``: the
@@ -722,6 +725,75 @@ def flash_bound_ms(b, hq, hkv, s, d, dtype, kind: str) -> tuple:
                                  else "operations")
 
 
+# per wrapper, the body each group of its instantiations in
+# flash_attention.cu runs: (dtype and head dims, design)
+FLASH_DESIGNS = {
+    "flash_forward": [
+        ("bf16 D64, D128", "wgmma: S, P and the O accumulator in "
+         "registers; TMA loads into a 2-stage ring"),
+        ("bf16 D256", "WMMA 16x16x16 through shared memory"),
+        ("f32", "FMA through shared memory")],
+    "flash_backward_dkv": [
+        ("bf16 D64, D128", "wgmma: S^T, dP^T, P^T, dS^T and the dK, dV "
+         "accumulators in registers; TMA loads into a 2-stage ring"),
+        ("bf16 D256", "WMMA 16x16x16 through shared memory"),
+        ("f32", "FMA through shared memory")],
+    "flash_backward_dq": [
+        ("bf16", "WMMA 16x16x16 through shared memory"),
+        ("f32", "FMA through shared memory")],
+}
+_FLASH_SYMBOLS = {"flash_fwd": "flash_forward",
+                  "flash_bwd_dkv": "flash_backward_dkv",
+                  "flash_bwd_dq": "flash_backward_dq"}
+
+
+def flash_build_report(flash: dict) -> None:
+    """Per instantiation of the flash kernels: its registers, spill
+    bytes and static shared memory from ``nvcc -Xptxas -v`` and the
+    dynamic shared memory its launch asks for; with each wrapper's
+    designs, into ``flash[kernel]``."""
+    import ctypes
+    import re
+
+    from paddle_operator_tpu_torch.ops import _build
+
+    lib = _build.load("flash_attention")
+    lib.flash_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.flash_smem_bytes.restype = ctypes.c_int
+    log_text = _build.LOGS.get("flash_attention")
+    for kern in FLASH_KERNELS:
+        flash[kern]["designs"] = [{"instantiations": what, "body": body}
+                                  for what, body in FLASH_DESIGNS[kern]]
+        flash[kern]["ptxas"] = []
+    if log_text is None:
+        log("flash ptxas: the library was built before this process; "
+            "no -Xptxas -v output to report")
+        return
+    entry = re.compile(r"Compiling entry function '\S*?(flash_(fwd|bwd_dkv|"
+                       r"bwd_dq)_(hopper|kernel))I(.*?)Li(\d+)E")
+    blocks = log_text.split("ptxas info    : Compiling entry function")
+    for block in blocks[1:]:
+        m = entry.search("Compiling entry function" + block)
+        if m is None:
+            continue
+        kern = _FLASH_SYMBOLS[f"flash_{m.group(2)}"]
+        d = int(m.group(5))
+        dtype = 0 if m.group(4) == "f" else 1
+        nums = {key: int(v) for v, key in re.findall(
+            r"(\d+) (bytes stack frame|bytes spill stores|bytes spill "
+            r"loads|registers|bytes smem)", block)}
+        row = {"symbol": m.group(1), "dtype": ["f32", "bf16"][dtype],
+               "d": d, "registers": nums.get("registers"),
+               "spill_store_bytes": nums.get("bytes spill stores"),
+               "spill_load_bytes": nums.get("bytes spill loads"),
+               "stack_bytes": nums.get("bytes stack frame"),
+               "static_smem_bytes": nums.get("bytes smem", 0),
+               "dynamic_smem_bytes": lib.flash_smem_bytes(
+                   FLASH_KERNELS.index(kern), dtype, d)}
+        flash[kern]["ptxas"].append(row)
+        log(f"flash ptxas {kern}: " + json.dumps(row))
+
+
 def phase_flash_vs_plain(reports: dict) -> None:
     """Phase 2c: the three flash kernels against their plain versions,
     bit-identical reruns, then timings at the 7b training shape."""
@@ -743,28 +815,32 @@ def phase_flash_vs_plain(reports: dict) -> None:
         ids = (torch.arange(s, device=dev)[None, :] >= cuts[:, None]).sum(0)
         return ids.to(torch.int32)[None].repeat(b, 1).contiguous()
 
-    # (name, B, Hq, D, n_rep, S, causal, ids: none / docs / orphan q
-    # rows); the last is the training main path's shape
-    cases = [(f"D{d}-rep{n_rep}-S{s}", 2, 8, d, n_rep, s, causal, ids)
+    # (name, B, Hq, D, n_rep, Sq, Sk, causal, ids: none / docs / orphan
+    # q rows); S holds the edges of the bf16 bodies' 64- and 128-row
+    # tiles; the last case is the training main path's shape
+    cases = [(f"D{d}-rep{n_rep}-S{s}", 2, 8, d, n_rep, s, s, causal, ids)
              for d in (64, 128) for n_rep in (1, 2, 4)
-             for s in (1, 300, 2048) for causal in (True, False)
-             for ids in ("none", "docs")]
-    cases += [("orphan-rows", 2, 8, 128, 2, 300, causal, "orphan")
+             for s in (1, 63, 64, 65, 127, 128, 129, 300, 2048)
+             for causal in (True, False) for ids in ("none", "docs")]
+    cases += [(f"Sq{sq}-Sk{sk}", 2, 8, 128, 2, sq, sk, causal, ids)
+              for sq, sk in ((300, 700), (700, 300))
+              for causal in (True, False) for ids in ("none", "docs")]
+    cases += [("orphan-rows", 2, 8, 128, 2, 300, 300, causal, "orphan")
               for causal in (True, False)]
-    cases.append(("main-path-7b", 4, 32, 128, 1, 2048, True, "none"))
+    cases.append(("main-path-7b", 4, 32, 128, 1, 2048, 2048, True, "none"))
     worst = {(k, dt): 0.0 for k in FLASH_KERNELS
              for dt in (torch.float32, torch.bfloat16)}
     excess = {k: 0.0 for k in FLASH_KERNELS}   # bf16 |err| - rtol |want|
     worst_rel = {k: 0.0 for k in FLASH_KERNELS}  # bf16 relative Frobenius
     failures = []
     for dtype in (torch.float32, torch.bfloat16):
-        for name, b, hq, d, n_rep, s, causal, ids in cases:
+        for name, b, hq, d, n_rep, s, sk, causal, ids in cases:
             hkv = hq // n_rep
             q, do = rand((b, s, hq, d), dtype), rand((b, s, hq, d), dtype)
-            k, v = rand((b, s, hkv, d), dtype), rand((b, s, hkv, d), dtype)
+            k, v = rand((b, sk, hkv, d), dtype), rand((b, sk, hkv, d), dtype)
             seg_q = seg_k = None
             if ids != "none":
-                seg_q = seg_k = documents(b, s)
+                seg_q, seg_k = documents(b, s), documents(b, sk)
             if ids == "orphan":
                 # the last third of the query rows carry an id no key
                 # has: fully masked rows, reachable only through the
@@ -815,7 +891,7 @@ def phase_flash_vs_plain(reports: dict) -> None:
                         continue
                     excess[kern] = max(excess[kern], float(
                         (diff - rtol * want.abs()).max()))
-                    if s == 1 and out in ("dk", "dq"):
+                    if min(s, sk) == 1 and out in ("dk", "dq"):
                         # one key a row: the softmax gradient is 0, and
                         # both sides hold only rounding residue
                         continue
@@ -1703,6 +1779,8 @@ def main() -> int:
             fn(*args)
             log(f"phase {phase}: {time.perf_counter() - t:.1f}s")
 
+    flash_build_report(flash)
+    log(f"build: flash_attention.cu {secs['flash_attention']:.1f}s")
     run("2", phase_kernel_vs_plain, contiguous)
     run("2b", phase_paged_kernel_vs_plain, paged)
     run("2d", phase_quant_kernel_vs_plain, quant)
@@ -1729,7 +1807,7 @@ def main() -> int:
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "max_abs_err_f32", "max_abs_err_bf16",
              "decode_ms_per_step_b4", "kernel1_ms", "paged_bf16_ms", "ring",
-             "train", "fwd_bwd", "timings"]
+             "train", "fwd_bwd", "designs", "ptxas", "timings"]
     print(json.dumps({"kernels": [
         {k: r.get(k) for k in order if k in r or k in order[:11]}
         for r in (contiguous, paged, quant, *flash.values())]}))

@@ -24,11 +24,14 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+# -Xptxas -v: each kernel's registers, shared memory and spill bytes,
+# kept in LOGS for the caller to report
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+LOGS: Dict[str, str] = {}  # nvcc's output per kernel built in this process
 
 
 def _nvcc() -> str:
@@ -78,6 +81,7 @@ def build(names: Iterable[str]) -> Dict[str, float]:
             failures.append(f"{name}: nvcc exit {proc.returncode}\n"
                             f"{log.decode(errors='replace')}")
             continue
+        LOGS[name] = log.decode(errors="replace")
         os.replace(tmp, out)
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n"

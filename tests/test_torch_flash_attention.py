@@ -274,3 +274,81 @@ class TestKernelsOnCard:
         for got, want in ((o, po), (lse, plse), (dq, pdq), (dk, pdk),
                           (dv, pdv)):
             torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+    @pytest.mark.parametrize(
+        "d,n_rep,causal,seg,sq,sk",
+        [(d, n_rep, causal, seg, s, s) for d in (64, 128)
+         for n_rep in (1, 2, 4) for causal in (True, False)
+         for seg in (False, True)
+         for s in (1, 63, 64, 65, 127, 128, 129, 300, 2048)]
+        + [(128, 2, causal, seg, 300, 700) for causal in (True, False)
+           for seg in (False, True)])
+    def test_bf16_kernels_match_plain(self, d, n_rep, causal, seg, sq, sk):
+        """The bf16 bodies (wgmma, register accumulators, TMA rings at D
+        64 and 128) at the tile edges of their 64- and 128-row tiles and
+        with Sq != Sk, against the plain version in f32 on the same bf16
+        inputs, under phase 2c's limits of chip_smoke.py."""
+        from chip_smoke import (FLASH_BF16_ATOL, FLASH_BF16_REL,
+                                FLASH_BF16_RTOL)
+
+        rng = np.random.default_rng(sq + 7 * sk + d + n_rep)
+        hq = 4
+        q, do = (torch.as_tensor(rng.standard_normal((2, sq, hq, d)),
+                                 dtype=torch.bfloat16, device="cuda")
+                 for _ in range(2))
+        k, v = (torch.as_tensor(rng.standard_normal((2, sk, hq // n_rep, d)),
+                                dtype=torch.bfloat16, device="cuda")
+                for _ in range(2))
+        ids_q = ids_k = None
+        if seg:
+            ids_q, ids_k = (torch.as_tensor(
+                np.repeat(_ids([0, s // 3, 2 * s // 3 + 1], s), 2, 0),
+                device="cuda") for s in (sq, sk))
+        qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+        po, plse = FA.flash_forward_reference(qf, kf, vf, ids_q,
+                                              causal=causal, seg_k=ids_k)
+        delta = FA.attention_delta(po, dof)
+        o, lse = FA.flash_forward(q, k, v, ids_q, ids_k, causal=causal)
+        dk, dv = FA.flash_backward_dkv(q, k, v, do, plse, delta, ids_q,
+                                       ids_k, causal=causal)
+        dq = FA.flash_backward_dq(q, k, v, do, plse, delta, ids_q, ids_k,
+                                  causal=causal)
+        pdk, pdv = FA.flash_backward_dkv_reference(
+            qf, kf, vf, dof, plse, delta, ids_q, ids_k, causal=causal)
+        pdq = FA.flash_backward_dq_reference(qf, kf, vf, dof, plse, delta,
+                                             ids_q, ids_k, causal=causal)
+        torch.cuda.synchronize()
+        for kern, name, got, want in (
+                ("flash_forward", "o", o, po),
+                ("flash_forward", "lse", lse, plse),
+                ("flash_backward_dkv", "dk", dk, pdk),
+                ("flash_backward_dkv", "dv", dv, pdv),
+                ("flash_backward_dq", "dq", dq, pdq)):
+            diff = (got.float() - want).abs()
+            limit = FLASH_BF16_ATOL[kern] + FLASH_BF16_RTOL * want.abs()
+            assert bool((diff <= limit).all()), (
+                f"{name}: max |err| {float(diff.max())}")
+            if min(sq, sk) == 1 and name in ("dk", "dq"):
+                continue  # one key a row: only rounding residue on both
+            rel = float(diff.norm()) / float(want.norm())
+            assert rel <= FLASH_BF16_REL, f"{name}: relative error {rel}"
+
+    def test_bf16_dkv_runs_bit_identical(self):
+        """No atomics: two runs of the bf16 dK/dV kernel (GQA sum inside
+        the block, segment ids, ragged S) give the same bits."""
+        rng = np.random.default_rng(3)
+        b, s, hq, hkv, d = 2, 1000, 8, 2, 128
+        q, do = (torch.as_tensor(rng.standard_normal((b, s, hq, d)),
+                                 dtype=torch.bfloat16, device="cuda")
+                 for _ in range(2))
+        k, v = (torch.as_tensor(rng.standard_normal((b, s, hkv, d)),
+                                dtype=torch.bfloat16, device="cuda")
+                for _ in range(2))
+        ids = torch.as_tensor(np.repeat(_ids([0, 333, 700], s), b, 0),
+                              device="cuda")
+        o, lse = FA.flash_forward(q, k, v, ids, ids)
+        delta = FA.attention_delta(o, do)
+        first = FA.flash_backward_dkv(q, k, v, do, lse, delta, ids, ids)
+        again = FA.flash_backward_dkv(q, k, v, do, lse, delta, ids, ids)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
