@@ -9,17 +9,23 @@ result line; with no arguments every phase runs):
 1. build — compile every kernel source of the serving and training
    paths from ``paddle_operator_tpu_torch/csrc/`` (one nvcc each, in
    parallel); report each flash kernel instantiation's design, its
-   registers, spill bytes and shared memory (``-Xptxas -v``).
+   registers, spill bytes and shared memory (``-Xptxas -v``), and the
+   registers and spills of kernel #1's split kernel.
 2. kernel vs plain — ``decode_attention`` against
    ``decode_attention_reference`` on the card: ragged lengths with 0, 1,
-   a full cache and a non-multiple of any tile; MHA and GQA (n_rep 2, 4);
-   D 64 and 128; float32 (atol = rtol = 1e-4) and bfloat16 (atol 1e-2,
-   against the plain version run in float32 on the bf16 inputs); the
-   main path's shapes; the 7b shape at fills 128 and 2048.  Then the
-   kernel, the plain version and ``scaled_dot_product_attention`` (the
-   library yardstick, never used by the port) are timed at the 7b shape
-   at fills 128, 528 and 2048 — device time from CUDA-graph replay,
-   eager time from one-by-one calls — beside the bound.
+   a full cache and a non-multiple of any tile; the split's chunk edges
+   (lengths 0, 1, chunk - 1, chunk, chunk + 1 and the whole cache, 1, 2
+   and 4 query heads a block), a cache of one chunk and a stacked-layer
+   view; MHA and GQA (n_rep 2, 4); D 64 and 128; float32
+   (atol = rtol = 1e-4) and bfloat16 (atol 1e-2, against the plain
+   version run in float32 on the bf16 inputs); the main path's shapes;
+   the 7b shape at fills 128 and 2048; a length-0 lane gives zeros and
+   two runs are bit-identical.  Then the kernel, the plain version and
+   ``scaled_dot_product_attention`` (the library yardstick, never used
+   by the port) are timed at the 7b shape at fills 128, 528 and 2048 —
+   device time from CUDA-graph replay, eager time from one-by-one calls
+   — beside the bound and the chunk count; with each, the call's device
+   time at chunks of 64, 128, 256 and 512 rows.
 2b. paged kernel vs plain — ``paged_decode_attention`` against
    ``paged_decode_attention_reference`` under scrambled block maps:
    ragged lengths {0, 1, full, not a multiple of bs}, bs 16 and 256,
@@ -264,42 +270,77 @@ def phase_kernel_vs_plain(report: dict) -> None:
     def rand(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
+    # (name, B, Hq, Hkv, D, S, lengths, stacked layers or 0)
     cases = []
     for hq, hkv, d in [(8, 8, 64), (8, 4, 128), (16, 4, 64), (8, 2, 128)]:
-        cases.append(("ragged", 4, hq, hkv, d, 517, [0, 1, 517, 300]))
+        cases.append(("ragged", 4, hq, hkv, d, 517, [0, 1, 517, 300], 0))
+    # the split's chunk edges: lengths 0, 1, chunk - 1, chunk, chunk + 1
+    # and the whole cache, R = 1, 2 and 4 query heads a block, D 64 and
+    # 128; a cache of exactly one chunk (no merge); a stacked-layer view
+    cr = DA.CHUNK_ROWS
+    edges = [0, 1, cr - 1, cr, cr + 1, 3 * cr + 45]
+    for hq, hkv in ((8, 8), (8, 4), (16, 4)):
+        for d in (64, 128):
+            cases.append((f"chunk-edges-R{hq // hkv}", 6, hq, hkv, d,
+                          3 * cr + 45, edges, 0))
     cases += [
-        ("main-path-b4", 4, 32, 32, 128, 2048, [513, 520, 530, 543]),
-        ("main-path-b1", 1, 32, 32, 128, 2048, [95]),
-        ("7b-fill128", 4, 32, 32, 128, 2048, [128] * 4),
-        ("7b-fill2048", 4, 32, 32, 128, 2048, [2048] * 4),
+        ("one-chunk", 3, 8, 4, 128, cr, [0, cr - 1, cr], 0),
+        ("stacked-layer", 6, 8, 4, 128, 3 * cr + 45, edges, 3),
+        ("main-path-b4", 4, 32, 32, 128, 2048, [513, 520, 530, 543], 0),
+        ("main-path-b1", 1, 32, 32, 128, 2048, [95], 0),
+        ("7b-fill128", 4, 32, 32, 128, 2048, [128] * 4, 0),
+        ("7b-fill2048", 4, 32, 32, 128, 2048, [2048] * 4, 0),
     ]
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for dtype, atol, rtol in [(torch.float32, 1e-4, 1e-4),
                               (torch.bfloat16, BF16_ATOL, 0.0)]:
-        for name, b, hq, hkv, d, s, lens in cases:
+        for name, b, hq, hkv, d, s, lens, layers in cases:
             q = rand((b, hq, d), dtype)
-            k = rand((b, hkv, s, d), dtype)
-            v = rand((b, hkv, s, d), dtype)
+            lead = (layers,) if layers else ()
+            k = rand(lead + (b, hkv, s, d), dtype)
+            v = rand(lead + (b, hkv, s, d), dtype)
             L = torch.tensor(lens, dtype=torch.int32, device=dev)
-            got = DA.decode_attention(q, k, v, L).float()
-            want = DA.decode_attention_reference(q.float(), k.float(),
-                                                 v.float(), L)
+            layer = layers - 1 if layers else None
+            got = DA.decode_attention(q, k, v, L, layer=layer).float()
+            kl, vl = (k[layer], v[layer]) if layers else (k, v)
+            want = DA.decode_attention_reference(q.float(), kl.float(),
+                                                 vl.float(), L)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             lim = float((atol + rtol * want.abs()).min())
             ok = bool(((got - want).abs()
                        <= atol + rtol * want.abs()).all())
             log(f"kernel-vs-plain {name} {str(dtype)[6:]} B={b} Hq={hq} "
-                f"Hkv={hkv} D={d} S={s} lens={lens}: max_abs_err={err:.3e}"
+                f"Hkv={hkv} D={d} S={s} chunks={DA.split_chunks(s)} "
+                f"layers={layers} lens={lens}: max_abs_err={err:.3e}"
                 f" (atol {atol}, rtol {rtol})")
             if not ok:
                 raise AssertionError(f"decode_attention disagrees with "
                                      f"its plain version: {name} {dtype} "
                                      f"max_abs_err {err} > {lim}")
+            if 0 in lens and got[lens.index(0)].abs().max() != 0:
+                raise AssertionError(f"decode_attention: a lane of length "
+                                     f"0 does not give zeros ({name})")
             worst[dtype] = max(worst[dtype], err)
     report["max_abs_err_f32"] = worst[torch.float32]
     report["max_abs_err_bf16"] = worst[torch.bfloat16]
     report["max_abs_err"] = max(worst.values())
+
+    # two runs on the same inputs give the same bits (the merge runs in
+    # chunk order): the 7b shape at fill 2048 and the chunk edges
+    for b, hq, hkv, s, lens in ((4, 32, 32, 2048, [2048] * 4),
+                                (6, 16, 4, 3 * cr + 45, edges)):
+        q = rand((b, hq, 128), torch.bfloat16)
+        k, v = (rand((b, hkv, s, 128), torch.bfloat16) for _ in range(2))
+        L = torch.tensor(lens, dtype=torch.int32, device=dev)
+        first = DA.decode_attention(q, k, v, L)
+        again = DA.decode_attention(q, k, v, L)
+        torch.cuda.synchronize()
+        if not torch.equal(first, again):
+            raise AssertionError(f"two runs of decode_attention differ "
+                                 f"(B={b} Hq={hq} Hkv={hkv} S={s})")
+    log("decode_attention: two runs bit-identical (bf16, the 7b shape at "
+        "fill 2048 and the chunk edges)")
 
     # timing at the 7b decode shape (bf16, the serving dtype): copies
     # rotate so the filled bytes of consecutive calls exceed the 50 MB
@@ -308,6 +349,7 @@ def phase_kernel_vs_plain(report: dict) -> None:
 
     b, h, d, s, copies = 4, 32, 128, 2048, 16
     dtype = torch.bfloat16
+    lib = DA._library()
     qs = [rand((b, h, d), dtype) for _ in range(copies)]
     ks = [rand((b, h, s, d), dtype) for _ in range(copies)]
     vs = [rand((b, h, s, d), dtype) for _ in range(copies)]
@@ -330,7 +372,7 @@ def phase_kernel_vs_plain(report: dict) -> None:
 
         # in turns — plain, kernel, library, kernel, plain — so drift
         # shows as a gap between a repeat and its first reading
-        row = {"fill": fill}
+        row = {"fill": fill, "chunks": DA.split_chunks(s)}
         for key, fn, iters in (("plain_ms", plain, 16), ("ms", kern, 128),
                                ("library_ms", sdpa, 128),
                                ("ms_again", kern, 128),
@@ -339,6 +381,17 @@ def phase_kernel_vs_plain(report: dict) -> None:
                 time_ms(fn, iters)
         row["bound_ms"], row["bound_by"] = attention_bound_ms(
             b, h, h, d, fill, dtype)
+        # the call's device ms at other chunk sizes (the wrapper takes
+        # DA.CHUNK_ROWS)
+        out = torch.empty_like(qs[0])
+        sweep = {}
+        for rows in (64, 128, 256, 512):
+            sweep[rows], _ = time_ms(
+                lambda i, rows=rows: DA._launch(
+                    lib, qs[i % c], ks[i % c], vs[i % c], L, out,
+                    d ** -0.5, torch.cuda.current_stream().cuda_stream,
+                    chunk_rows=rows), 128)
+        row["chunk_rows_ms"] = sweep
         log(f"timing 7b decode_attention bf16 B={b} H={h} D={d} S={s} "
             f"fill={fill}: " + json.dumps(row))
         timings.append(row)
@@ -739,12 +792,47 @@ FLASH_DESIGNS = {
         ("bf16 D256", "WMMA 16x16x16 through shared memory"),
         ("f32", "FMA through shared memory")],
     "flash_backward_dq": [
-        ("bf16", "WMMA 16x16x16 through shared memory"),
+        ("bf16 D64, D128", "wgmma: S, dP, dS and the dQ accumulator in "
+         "registers; TMA K/V loads into a 2-stage ring"),
+        ("bf16 D256", "WMMA 16x16x16 through shared memory"),
         ("f32", "FMA through shared memory")],
 }
 _FLASH_SYMBOLS = {"flash_fwd": "flash_forward",
                   "flash_bwd_dkv": "flash_backward_dkv",
                   "flash_bwd_dq": "flash_backward_dq"}
+
+
+def ptxas_entries(name: str):
+    """(mangled symbol, counts) per kernel entry that ``nvcc -Xptxas -v``
+    reported while building kernel source ``name`` in this process:
+    registers, spill store and load bytes, stack and static shared
+    memory bytes.  None when the library was built before this process
+    (no output to report)."""
+    import re
+
+    from paddle_operator_tpu_torch.ops import _build
+
+    log_text = _build.LOGS.get(name)
+    if log_text is None:
+        log(f"{name} ptxas: the library was built before this process; "
+            "no -Xptxas -v output to report")
+        return None
+    out = []
+    for block in log_text.split("ptxas info    : Compiling entry "
+                                "function")[1:]:
+        m = re.match(r" '(\S+)'", block)
+        if m is None:
+            continue
+        nums = {key: int(v) for v, key in re.findall(
+            r"(\d+) (bytes stack frame|bytes spill stores|bytes spill "
+            r"loads|registers|bytes smem)", block)}
+        out.append((m.group(1), {
+            "registers": nums.get("registers"),
+            "spill_store_bytes": nums.get("bytes spill stores"),
+            "spill_load_bytes": nums.get("bytes spill loads"),
+            "stack_bytes": nums.get("bytes stack frame"),
+            "static_smem_bytes": nums.get("bytes smem", 0)}))
+    return out
 
 
 def flash_build_report(flash: dict) -> None:
@@ -760,38 +848,37 @@ def flash_build_report(flash: dict) -> None:
     lib = _build.load("flash_attention")
     lib.flash_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.flash_smem_bytes.restype = ctypes.c_int
-    log_text = _build.LOGS.get("flash_attention")
     for kern in FLASH_KERNELS:
         flash[kern]["designs"] = [{"instantiations": what, "body": body}
                                   for what, body in FLASH_DESIGNS[kern]]
         flash[kern]["ptxas"] = []
-    if log_text is None:
-        log("flash ptxas: the library was built before this process; "
-            "no -Xptxas -v output to report")
-        return
-    entry = re.compile(r"Compiling entry function '\S*?(flash_(fwd|bwd_dkv|"
-                       r"bwd_dq)_(hopper|kernel))I(.*?)Li(\d+)E")
-    blocks = log_text.split("ptxas info    : Compiling entry function")
-    for block in blocks[1:]:
-        m = entry.search("Compiling entry function" + block)
+    entry = re.compile(r"(flash_(fwd|bwd_dkv|bwd_dq)_(hopper|kernel))I(.*?)"
+                       r"Li(\d+)E")
+    for symbol, nums in ptxas_entries("flash_attention") or ():
+        m = entry.search(symbol)
         if m is None:
             continue
         kern = _FLASH_SYMBOLS[f"flash_{m.group(2)}"]
         d = int(m.group(5))
         dtype = 0 if m.group(4) == "f" else 1
-        nums = {key: int(v) for v, key in re.findall(
-            r"(\d+) (bytes stack frame|bytes spill stores|bytes spill "
-            r"loads|registers|bytes smem)", block)}
         row = {"symbol": m.group(1), "dtype": ["f32", "bf16"][dtype],
-               "d": d, "registers": nums.get("registers"),
-               "spill_store_bytes": nums.get("bytes spill stores"),
-               "spill_load_bytes": nums.get("bytes spill loads"),
-               "stack_bytes": nums.get("bytes stack frame"),
-               "static_smem_bytes": nums.get("bytes smem", 0),
-               "dynamic_smem_bytes": lib.flash_smem_bytes(
+               "d": d, **nums, "dynamic_smem_bytes": lib.flash_smem_bytes(
                    FLASH_KERNELS.index(kern), dtype, d)}
         flash[kern]["ptxas"].append(row)
         log(f"flash ptxas {kern}: " + json.dumps(row))
+
+
+def decode_build_report(contiguous: dict) -> None:
+    """Per instantiation of kernel #1 (the split kernel): its registers,
+    spill bytes and stack from ``nvcc -Xptxas -v``, into
+    ``contiguous["ptxas"]``."""
+    contiguous["ptxas"] = []
+    for symbol, nums in ptxas_entries("decode_attention") or ():
+        if "decode_attention_kernel" not in symbol or "paged" in symbol:
+            continue
+        row = {"symbol": symbol, **nums}
+        contiguous["ptxas"].append(row)
+        log("decode ptxas decode_attention_kernel: " + json.dumps(row))
 
 
 def phase_flash_vs_plain(reports: dict) -> None:
@@ -1780,6 +1867,7 @@ def main() -> int:
             log(f"phase {phase}: {time.perf_counter() - t:.1f}s")
 
     flash_build_report(flash)
+    decode_build_report(contiguous)
     log(f"build: flash_attention.cu {secs['flash_attention']:.1f}s")
     run("2", phase_kernel_vs_plain, contiguous)
     run("2b", phase_paged_kernel_vs_plain, paged)

@@ -40,9 +40,12 @@
 // touch the rest of the cache:
 //
 // - one thread block per (lane b, kv head, group of R <= 4 query
-//   heads): the block loops over key rows up to lengths[b] only — the
-//   fill skip; rows past the fill are never read.  A GQA group of
-//   n_rep <= 4 heads shares one pass over its K/V rows.
+//   heads) for the paged kernels; for the contiguous kernel one per
+//   (lane, kv head, group, chunk of 256 key rows), so that a long fill
+//   keeps every SM streaming (split-K, flash-decoding; see below).  A
+//   block loops over key rows up to lengths[b] only — the fill skip;
+//   rows past the fill are never read.  A GQA group of n_rep <= 4 heads
+//   shares one pass over its K/V rows.
 // - warps split a range of key rows (interleaved, kUnroll rows per lane
 //   group in flight) and keep private online-softmax state; a warp's
 //   lane groups merge by shuffles, the warps through shared memory at
@@ -61,17 +64,36 @@
 //   full 16 bytes, so the thread layout, the shuffles and the merge are
 //   the same for every kernel; the tail block loads 16 bytes of T.
 //
+// - the contiguous kernel's split: one block per (lane, kv head, head
+//   group) streams a lane's whole fill with too few bytes in flight to
+//   cover the card's load latency (41% of the byte bound at fill 2048,
+//   B 4: 128 blocks on 132 SMs).  Its grid is (head groups, B, chunks),
+//   the chunk count fixed by the cache's capacity S and the caller's
+//   chunk rows (a host shape, so the launch reads no length back); a
+//   chunk at or past lengths[b] exits at once.  A lane whose fill fits
+//   one chunk gets its output from that chunk's block; otherwise every
+//   live chunk writes its partial (f32 accumulator, row max, row sum) to
+//   a workspace the caller passes and takes an atomic ticket, and the
+//   lane's last chunk to finish merges all partials in chunk order, so
+//   two runs give the same bits.  A second merge kernel was slower at
+//   short and middle fills and no faster at long ones (its launch and
+//   its own load latency); the tickets cost a counter per (lane, head
+//   group) that the merging block leaves at 0 for the next launch.  The
+//   split kernel at R = 1 is held to 64 registers, so four blocks share
+//   an SM.
+//
 // Not carried over from the TPU kernels: their (B, key-blocks) grid with
 // scratch carried between steps, the masked all-heads contraction (a
 // trick for the MXU's 128-lane tiles) and the transposed [hq, rows]
-// bookkeeping.  Left for later: split-K over SMs for long fills
-// (flash-decoding), cp.async/TMA double buffering, and 16-byte code loads.
+// bookkeeping.  Left for later: the split for the paged kernels,
+// cp.async/TMA double buffering, and 16-byte code loads.
 //
 // Accepts float and bfloat16, D a multiple of 8 up to 256, any
 // Hq % Hkv == 0, any S (contiguous) or any block size bs >= 1 (paged).
 // Pointers must be 16-byte aligned and the tensors contiguous (the
 // Python wrapper checks).  Launches on the given stream, allocates
-// nothing, and returns cudaGetLastError().
+// nothing (the split's workspace and tickets come from the caller), and
+// returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -200,9 +222,34 @@ struct CodeRows {
   }
 };
 
+// Each warp's online-softmax state of RR query heads over MD columns, in
+// shared memory; merge() gives the block's row max for query head r and
+// the sum and column `col` of the accumulator rescaled to it (both 0
+// when no warp saw a row).
+template <int RR, int MD>
+struct WarpStates {
+  float m[kWarps][RR], l[kWarps][RR], acc[kWarps][RR][MD];
+  __device__ __forceinline__ void merge(int r, int col, float& mx,
+                                        float& num, float& den) const {
+    mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m[w][r]);
+    num = den = 0.f;
+    if (mx == -INFINITY) return;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float c = expf(m[w][r] - mx);
+      den += l[w][r] * c;
+      num += acc[w][r][col] * c;
+    }
+  }
+};
+
 // Online-softmax state of query heads [h0, h0 + R) of one lane, spread
-// over the thread block; rows() folds in a range of key rows, finish()
-// merges the warps and writes the output.
+// over the thread block; rows() folds in a range of key rows,
+// merge_groups() and store_warp() merge a warp's lane groups and hand
+// its state to shared memory, finish() merges the warps and writes the
+// output.
 template <typename T, int R>
 struct Attend {
   using V = Vec<T>;
@@ -305,9 +352,9 @@ struct Attend {
     }
   }
 
-  __device__ __forceinline__ void finish(T* __restrict__ out, int b, int h0,
-                                         int hq) {
-    // merge the lane groups of this warp (lanes with the same gl)
+  // merge the lane groups of this warp (lanes with the same gl): lane
+  // group 0 then holds the warp's state
+  __device__ __forceinline__ void merge_groups() {
     for (int off = g; off < 32; off <<= 1) {
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -325,48 +372,46 @@ struct Attend {
         m[r] = mn;
       }
     }
+  }
 
-    // merge the warps through shared memory
-    __shared__ float sm_m[kWarps][kMaxR];
-    __shared__ float sm_l[kWarps][kMaxR];
-    __shared__ float sm_acc[kWarps][kMaxR][kMaxD];
-    if (grp == 0) {
+  // lane group 0's state of each warp into `sm` (RR >= R, MD >= d)
+  template <int RR, int MD>
+  __device__ __forceinline__ void store_warp(WarpStates<RR, MD>& sm) const {
+    if (grp != 0) return;
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if (gl == 0) {
-          sm_m[warp][r] = m[r];
-          sm_l[warp][r] = l[r];
-        }
+    for (int r = 0; r < R; ++r) {
+      if (gl == 0) {
+        sm.m[warp][r] = m[r];
+        sm.l[warp][r] = l[r];
+      }
 #pragma unroll
-        for (int c = 0; c < MAXC; ++c) {
-          const int chunk = gl + c * g;
-          if (chunk < nchunks) {
+      for (int c = 0; c < MAXC; ++c) {
+        const int chunk = gl + c * g;
+        if (chunk < nchunks) {
 #pragma unroll
-            for (int e = 0; e < VEC; ++e)
-              sm_acc[warp][r][chunk * VEC + e] = acc[r][c * VEC + e];
-          }
+          for (int e = 0; e < VEC; ++e)
+            sm.acc[warp][r][chunk * VEC + e] = acc[r][c * VEC + e];
         }
       }
     }
+  }
+
+  __device__ __forceinline__ void finish(T* __restrict__ out, int b, int h0,
+                                         int hq) {
+    merge_groups();
+
+    // merge the warps through shared memory
+    __shared__ WarpStates<kMaxR, kMaxD> sm;
+    store_warp(sm);
     __syncthreads();
 
     for (int idx = threadIdx.x; idx < R * d; idx += kThreads) {
       const int r = idx / d;
       const int col = idx - r * d;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][r]);
-      float o = 0.f;  // length-0 lane: zeros, not 0/0
-      if (mx != -INFINITY) {
-        float num = 0.f, den = 0.f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) {
-          const float c = expf(sm_m[w][r] - mx);
-          den += sm_l[w][r] * c;
-          num += sm_acc[w][r][col] * c;
-        }
-        o = num / den;
-      }
+      float mx, num, den;
+      sm.merge(r, col, mx, num, den);
+      // length-0 lane: zeros, not 0/0
+      const float o = mx != -INFINITY ? num / den : 0.f;
       out[((size_t)b * hq + h0 + r) * d + col] = V::from_float(o);
     }
   }
@@ -381,23 +426,114 @@ __device__ __forceinline__ void block_heads(int hq, int hkv, int R,
   *h0 = *kvh * n_rep + (blockIdx.x % passes) * R;
 }
 
+// chunks of `rows` key rows that hold n rows: of the cache's capacity S
+// (the grid), or of a lane's fill (its live chunks; a lane of length 0
+// keeps one, whose block writes its zeros)
+__host__ __device__ __forceinline__ int chunks_of(int n, int rows) {
+  return n <= rows ? 1 : (n + rows - 1) / rows;
+}
+
+__device__ __forceinline__ int lane_length(const int* lengths, int b,
+                                           int s) {
+  const int len = lengths[b];
+  return len < 0 ? 0 : (len > s ? s : len);
+}
+
+// Blocks of the split kernel an SM holds at R = 1 (at most 64 registers
+// a thread): enough bytes in flight to stream a long fill, and the 7b
+// shape's 512 or 1024 blocks in one or two full waves.
+constexpr int kSplitBlocks = 4;
+
+// The contiguous cache, split over its rows (flash-decoding): grid
+// (head groups, B, chunks), so the blocks of every lane's first chunk
+// are scheduled first.  Block (group, b, c) folds key rows
+// [c * rows, min((c + 1) * rows, len)) of lane b into an online-softmax
+// state per query head and merges its warps.  A lane whose rows fit one
+// chunk gets its output here.  Otherwise the block writes its partial
+// (the f32 accumulator [D], the row max m and the sum l) to
+// ws [B, Hq, chunks, D + 2] and takes a ticket from
+// tickets[b, group]; the lane's last live chunk to finish merges every
+// partial in chunk order (the same bits whichever block it is) and
+// resets the ticket to 0 for the next launch.  A chunk at or past the
+// fill exits at once.
 template <typename T, int R>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, R == 1 ? kSplitBlocks : 1)
     decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v,
                             const int* __restrict__ lengths,
-                            T* __restrict__ out, int hq, int hkv, int s,
-                            int d, float scale) {
+                            T* __restrict__ out, float* __restrict__ ws,
+                            int* __restrict__ tickets, int hq, int hkv, int s,
+                            int d, int rows, float scale) {
   int kvh, h0;
   block_heads(hq, hkv, R, &kvh, &h0);
-  const int b = blockIdx.y;
-  int len = lengths[b];
-  len = len < 0 ? 0 : (len > s ? s : len);
-  Attend<T, R> at(q, b, h0, hq, d, scale);
+  const int b = blockIdx.y, c = blockIdx.z, nchunks = gridDim.z;
+  const int len = lane_length(lengths, b, s);
+  Attend<T, R> at(q, b, h0, hq, d, scale);  // q's loads beside the length's
+  const int live = chunks_of(len, rows);
+  if (c >= live) return;
+  const int begin = c * rows;
+  const int end = len - begin < rows ? len : begin + rows;
   const DenseRows<T, ContigOffset> src{
       k, v, {((size_t)b * hkv + kvh) * (size_t)s * d, d}};
-  at.rows(0, len, src);
-  at.finish(out, b, h0, hq);
+  at.rows(begin, end, src);
+  at.merge_groups();
+
+  __shared__ WarpStates<R, kMaxD> sm;
+  __shared__ int last;
+  at.store_warp(sm);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < R * d; idx += kThreads) {
+    const int r = idx / d;
+    const int col = idx - r * d;
+    float mx, num, den;
+    sm.merge(r, col, mx, num, den);
+    const size_t bh = (size_t)b * hq + h0 + r;
+    if (live == 1) {
+      // length-0 lane: zeros, not 0/0
+      out[bh * d + col] = Vec<T>::from_float(mx != -INFINITY ? num / den
+                                                              : 0.f);
+    } else {
+      float* part = ws + (bh * nchunks + c) * (d + 2);
+      part[col] = num;
+      if (col == 0) {
+        part[d] = mx;
+        part[d + 1] = den;
+      }
+    }
+  }
+  if (live == 1) return;
+
+  __threadfence();  // this block's partial is visible before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int* t = tickets + (size_t)b * gridDim.x + blockIdx.x;
+    last = atomicAdd(t, 1) == live - 1;
+    if (last) atomicExch(t, 0);
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the partials of other blocks: loads bypass L1; unrolled so several
+  // chunks' loads are in flight at once
+  for (int idx = threadIdx.x; idx < R * d; idx += kThreads) {
+    const int r = idx / d;
+    const int col = idx - r * d;
+    const size_t bh = (size_t)b * hq + h0 + r;
+    const float* part = ws + bh * nchunks * (d + 2);
+    float mx = -INFINITY;
+#pragma unroll 4
+    for (int j = 0; j < live; ++j)
+      mx = fmaxf(mx, __ldcg(part + j * (d + 2) + d));
+    float num = 0.f, den = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < live; ++j) {
+      const float* pj = part + j * (d + 2);
+      const float e = expf(__ldcg(pj + d) - mx);
+      den += __ldcg(pj + d + 1) * e;
+      num += __ldcg(pj + col) * e;
+    }
+    out[bh * d + col] = Vec<T>::from_float(num / den);
+  }
 }
 
 template <typename T, int R>
@@ -485,13 +621,26 @@ inline int heads_per_block(int n_rep) {
   } while (0)
 
 template <typename T>
-void launch_contig(const void* q, const void* k, const void* v,
-                   const void* lengths, void* out, int b, int hq, int hkv,
-                   int s, int d, float scale, cudaStream_t stream) {
-  LAUNCH_BY_R(decode_attention_kernel, T, hq, hkv, b, stream,
-              static_cast<const T*>(q), static_cast<const T*>(k),
-              static_cast<const T*>(v), static_cast<const int*>(lengths),
-              static_cast<T*>(out), hq, hkv, s, d, scale);
+cudaError_t launch_contig(const void* q, const void* k, const void* v,
+                          const void* lengths, void* out, void* ws,
+                          void* tickets, int b, int hq, int hkv, int s,
+                          int d, int rows, float scale, cudaStream_t stream) {
+  const int nchunks = chunks_of(s, rows);
+  const int r = heads_per_block(hq / hkv);
+  const dim3 grid(hkv * (hq / hkv / r), b, nchunks);
+#define CONTIG_ARGS                                                       \
+  static_cast<const T*>(q), static_cast<const T*>(k),                     \
+      static_cast<const T*>(v), static_cast<const int*>(lengths),         \
+      static_cast<T*>(out), static_cast<float*>(ws),                      \
+      static_cast<int*>(tickets), hq, hkv, s, d, rows, scale
+  if (r == 4)
+    decode_attention_kernel<T, 4><<<grid, kThreads, 0, stream>>>(CONTIG_ARGS);
+  else if (r == 2)
+    decode_attention_kernel<T, 2><<<grid, kThreads, 0, stream>>>(CONTIG_ARGS);
+  else
+    decode_attention_kernel<T, 1><<<grid, kThreads, 0, stream>>>(CONTIG_ARGS);
+#undef CONTIG_ARGS
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -534,25 +683,34 @@ bool bad_pool(int nblocks, int bs, int max_blocks) {
 
 }  // namespace
 
-// q [B, Hq, D]; k, v [B, Hkv, S, D]; lengths [B] int32; out [B, Hq, D].
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t as int.
+// q [B, Hq, D]; k, v [B, Hkv, S, D]; lengths [B] int32; out [B, Hq, D];
+// ws [B, Hq, chunks, D + 2] f32 scratch, chunks = ceil(S / chunk_rows);
+// tickets [>= B * Hq] int32, zero before the first launch and left zero
+// by every launch.  With S <= chunk_rows (one chunk) ws and tickets are
+// not read and may be null.  dtype: 0 = float32, 1 = bfloat16.  Returns a
+// cudaError_t as int.
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* lengths,
-                                       void* out, int b, int hq, int hkv,
-                                       int s, int d, float scale, int dtype,
+                                       void* out, void* ws, void* tickets,
+                                       int b, int hq, int hkv, int s, int d,
+                                       int chunk_rows, float scale, int dtype,
                                        void* stream) {
-  if (bad_heads(b, hq, hkv, d) || s < 0)
+  if (bad_heads(b, hq, hkv, d) || s < 0 || chunk_rows <= 0 ||
+      chunks_of(s, chunk_rows) > 65535 ||
+      ((ws == nullptr || tickets == nullptr) && chunks_of(s, chunk_rows) > 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
   if (dtype == 0) {
-    launch_contig<float>(q, k, v, lengths, out, b, hq, hkv, s, d, scale, st);
+    e = launch_contig<float>(q, k, v, lengths, out, ws, tickets, b, hq, hkv,
+                             s, d, chunk_rows, scale, st);
   } else if (dtype == 1) {
-    launch_contig<__nv_bfloat16>(q, k, v, lengths, out, b, hq, hkv, s, d,
-                                 scale, st);
+    e = launch_contig<__nv_bfloat16>(q, k, v, lengths, out, ws, tickets, b,
+                                     hq, hkv, s, d, chunk_rows, scale, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(e);
 }
 
 // q [B, Hq, D]; k_pool, v_pool [N, Hkv, bs, D] (one layer of the pool);

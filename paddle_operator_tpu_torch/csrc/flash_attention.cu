@@ -41,31 +41,32 @@
 // reaches their rate.  No score ever goes to device memory.  Two designs,
 // chosen by type and D at compile time:
 //
-// - bf16 at D 64 and 128, the forward and dK/dV (the Hopper bodies,
-//   `flash_fwd_hopper`, `flash_bwd_dkv_hopper`): a block of two
-//   warpgroups owns 128 rows (q rows in the forward, keys in dK/dV), 64
-//   per warpgroup.  Every product is a wgmma whose accumulator stays in
-//   registers: the forward's S = Q.K^T, online softmax (quad shuffles)
-//   and O += P.V with P rounded to bf16 as the register A operand;
-//   dK/dV's S^T = K.Q^T and dP^T = V.dO^T, then P^T and dS^T formed in
-//   registers and fed as A operands of dV += P^T.dO and dK += dS^T.Q,
-//   with dK and dV held in registers over the whole walk.  One thread
-//   issues TMA loads (128-byte swizzle, the layout the wgmma descriptors
-//   read; rows past S arrive as zeros) into a 2-stage ring of mbarrier-
-//   guarded tiles, so the next tile's load runs under the current tile's
-//   products.  The mask is evaluated only on a tile that straddles the
-//   causal diagonal, the ragged end or a segment boundary.
-// - float (whose products wgmma would round to TF32), bf16 at D 256
-//   (whose register accumulators would not fit) and dQ at every type (the
-//   shared-memory bodies): one block of 256 threads per tile, every
-//   intermediate (the score tile, p, ds, the accumulators) in shared
-//   memory, bf16 products through WMMA 16x16x16 fragments, float products
-//   through plain FMAs; synchronous loads.  The forward's and dQ's q tiles
-//   are issued longest-causal-row first in both designs.
-// Left for later (ROADMAP Queue P): dQ on the Hopper design; in the
-// Hopper bodies, overlapping one warpgroup's softmax with the other's
-// products (ping-pong), a producer warpgroup with setmaxnreg, and
-// persistent blocks.
+// - bf16 at D 64 and 128 (the Hopper bodies, `flash_fwd_hopper`,
+//   `flash_bwd_dkv_hopper`, `flash_bwd_dq_hopper`): a block of two
+//   warpgroups owns 128 rows (q rows in the forward and dQ, keys in
+//   dK/dV), 64 per warpgroup.  Every product is a wgmma whose accumulator
+//   stays in registers: the forward's S = Q.K^T, online softmax (quad
+//   shuffles) and O += P.V with P rounded to bf16 as the register A
+//   operand; dK/dV's S^T = K.Q^T and dP^T = V.dO^T, then P^T and dS^T
+//   formed in registers and fed as A operands of dV += P^T.dO and
+//   dK += dS^T.Q, with dK and dV held in registers over the whole walk;
+//   dQ's S = Q.K^T and dP = dO.V^T, then dS formed in registers and fed
+//   as the A operand of dQ += dS.K, with dQ held in registers.  One
+//   thread issues TMA loads (128-byte swizzle, the layout the wgmma
+//   descriptors read; rows past S arrive as zeros) into a 2-stage ring of
+//   mbarrier-guarded tiles, so the next tile's load runs under the
+//   current tile's products.  The mask is evaluated only on a tile that
+//   straddles the causal diagonal, the ragged end or a segment boundary.
+// - float, whose products wgmma would round to TF32, and bf16 at D 256,
+//   whose register accumulators would not fit (the shared-memory
+//   bodies): one block of 256 threads per tile, every intermediate (the
+//   score tile, p, ds, the accumulators) in shared memory, bf16 products
+//   through WMMA 16x16x16 fragments, float products through plain FMAs;
+//   synchronous loads.  The forward's and dQ's q tiles are issued
+//   longest-causal-row first in both designs.
+// Left for later (ROADMAP Queue B): in the Hopper bodies, overlapping one
+// warpgroup's softmax with the other's products (ping-pong), a producer
+// warpgroup with setmaxnreg, and persistent blocks.
 //
 // Accepts float and bfloat16, D in {64, 128, 256}, any Hq % Hkv == 0 and
 // any Sq, Sk.  Pointers must be 16-byte aligned and the tensors contiguous
@@ -652,7 +653,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Hopper bodies: bf16 forward and dK/dV at D 64 and 128
+// Hopper bodies: bf16 forward, dK/dV and dQ at D 64 and 128
 // ---------------------------------------------------------------------------
 //
 // Shared-memory operand tiles are written by TMA in 128-byte-swizzled rows
@@ -660,9 +661,10 @@ __global__ void __launch_bounds__(kThreads)
 // R x 128 bytes, each made of 8-row atoms of 1024 bytes.  That is the
 // canonical layout of a wgmma operand both K-major (a row holds the
 // reduction dimension: Q and K in Q.K^T) and MN-major (a row holds the
-// output columns: V in P.V, dO and Q in the dV and dK products).
+// output columns: V in P.V, dO and Q in the dV and dK products, K in
+// the dQ product).
 
-constexpr int kRows = 128;     // forward q tile; dK/dV k tile (2 x 64)
+constexpr int kRows = 128;  // forward and dQ q tile; dK/dV k tile (2 x 64)
 constexpr int kFwdKeys = 128;  // forward k tile
 constexpr int kHalfBytes = 128;  // one swizzled row of 64 bf16
 constexpr float kLog2e = 1.4426950408889634f;
@@ -758,6 +760,10 @@ __device__ __forceinline__ void wg_commit() {
 }
 __device__ __forceinline__ void wg_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// all but the most recently committed group
+__device__ __forceinline__ void wg_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
 // Keeps the compiler from moving reads or writes of accumulator registers
@@ -1420,6 +1426,222 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+template <int D>
+struct DqHopperSmem {
+  // k tile rows: at D 128 the 64-register dQ accumulator, S and dP (64
+  // each) and dS's bf16 fragments fit in 255 registers with no spills;
+  // 64-key tiles ran slower in a trial (more barrier round trips a row)
+  static constexpr int N = 128;
+  static constexpr int kHalfQ = kRows * kHalfBytes;  // Q, dO tiles
+  static constexpr int kHalfKV = N * kHalfBytes;     // K, V tiles
+  static constexpr int kTile = N * D * 2;            // a K or V tile
+  static constexpr int kStageBytes = 2 * kTile;      // K and V
+  static constexpr size_t q = 0;
+  static constexpr size_t d_o = q + kRows * D * 2;
+  static constexpr size_t stage = d_o + kRows * D * 2;
+  static constexpr size_t bars = stage + 2 * kStageBytes;  // q, full, empty
+  static constexpr size_t bytes = bars + 5 * 8 + 1024;
+  static_assert(bytes <= kMaxSmem, "dQ tiles exceed shared memory");
+};
+
+// One block per (q tile of 128 rows, query head, batch): warpgroup g owns
+// rows 64 g .. 64 g + 63 and keeps their dQ sum in f32 registers over the
+// whole walk.  Thread 0 issues the TMA loads: Q and dO once, then the K
+// and V tiles of kv head h / n_rep through a 2-stage ring as in the
+// forward.  A thread's two rows are fixed, so their lse and delta are
+// read once, by plain loads.  Per live k tile each warpgroup runs
+// S = Q.K^T and dP = dO.V^T on wgmma into registers, forms
+// P = exp(S scale - lse) and dS = P (dP - delta) there (masking only a
+// tile that straddles the causal diagonal, the ragged end or a segment
+// boundary), rounds dS to bf16 and runs dQ += dS.K with it as the
+// register A operand: the K tile serves as the K-major B of Q.K^T and
+// the MN-major B of dS.K.  dQ is scaled once, at the end.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_hopper(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const int* __restrict__ seg_q,
+                        const int* __restrict__ seg_k, bf16* __restrict__ dq,
+                        int sq, int sk, int hq, int hkv, float scale,
+                        int causal) {
+  using L = DqHopperSmem<D>;
+  constexpr int N = L::N;
+  // the maps are read by TMA in kernel-parameter space
+  const CUtensorMap* map_q = &tq;
+  const CUtensorMap* map_k = &tk;
+  const CUtensorMap* map_v = &tv;
+  const CUtensorMap* map_do = &tdo;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_1024(smem_raw);
+  unsigned char* sQ = smem + L::q;
+  unsigned char* sDO = smem + L::d_o;
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = bar_q + 3;
+
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int warp = (tid >> 5) & 3;
+  const int nq = (sq + kRows - 1) / kRows;
+  const int iq = nq - 1 - blockIdx.x;  // longest causal rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (hq / hkv);
+  const int q0 = iq * kRows, nvq = min(kRows, sq - q0);
+  const bool has_seg = seg_q != nullptr;
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(bar_q, 2 * kRows * D * 2);
+    for (int c = 0; c < D / 64; ++c) {
+      tma_load_4d(sQ + c * L::kHalfQ, map_q, bar_q, 64 * c, h, q0, b);
+      tma_load_4d(sDO + c * L::kHalfQ, map_do, bar_q, 64 * c, h, q0, b);
+    }
+  }
+  __syncthreads();
+
+  // the live k tiles, in order: causally reachable and, with segment ids,
+  // sharing an id range with the q tile (`_seg_gate`)
+  int qlo = 0, qhi = 0;
+  if (has_seg) seg_range(seg_q + (size_t)b * sq + q0, nvq, qlo, qhi);
+  const int nk = (sk + N - 1) / N;
+  const int kend = causal ? min(nk, (q0 + nvq - 1) / N + 1) : nk;
+  auto next_live = [&](int ik, int& lo, int& hi) {
+    for (; ik < kend; ++ik) {
+      if (!has_seg) return ik;
+      seg_range(seg_k + (size_t)b * sk + ik * N, min(N, sk - ik * N), lo, hi);
+      if (qlo <= hi && qhi >= lo) return ik;
+    }
+    return kend;
+  };
+  auto load_kv = [&](int ik, int st) {
+    unsigned char* base = smem + L::stage + st * L::kStageBytes;
+    mbar_expect_tx(full + st, L::kStageBytes);
+    for (int c = 0; c < D / 64; ++c) {
+      tma_load_4d(base + c * L::kHalfKV, map_k, full + st, 64 * c, kvh,
+                  ik * N, b);
+      tma_load_4d(base + L::kTile + c * L::kHalfKV, map_v, full + st, 64 * c,
+                  kvh, ik * N, b);
+    }
+  };
+  int klo = 0, khi = 0, nlo = 0, nhi = 0;
+  int cur = next_live(0, klo, khi);
+  int nxt = cur < kend ? next_live(cur + 1, nlo, nhi) : kend;
+  if (tid == 0) {
+    if (cur < kend) load_kv(cur, 0);
+    if (nxt < kend) load_kv(nxt, 1);
+  }
+  __syncwarp();
+
+  // this thread's rows: r0 and r0 + 8 of its warpgroup's 64, with their
+  // segment ids, lse (log2 units) and delta; 0 past the end
+  const int r0 = 16 * warp + (lane >> 2);
+  const int wrow = q0 + 64 * wg;  // the warpgroup's first row
+  const int row0 = wrow + r0;
+  int sid[2] = {0, 0};
+  float lse2[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    if (qi >= sq) continue;
+    const size_t row = ((size_t)b * hq + h) * sq + qi;
+    lse2[r] = __ldg(lse + row) * kLog2e;
+    dl[r] = __ldg(delta + row);
+    if (has_seg) sid[r] = __ldg(seg_q + (size_t)b * sq + qi);
+  }
+  const float sl2 = scale * kLog2e;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  mbar_wait(bar_q, 0);
+  __syncwarp();  // converged for the .aligned wgmma
+
+  for (int it = 0; cur < kend; ++it) {
+    const int st = it & 1;
+    const uint32_t parity = (it >> 1) & 1;
+    const int k0 = cur * N;
+    const unsigned char* sK = smem + L::stage + st * L::kStageBytes;
+    const unsigned char* sV = sK + L::kTile;
+    mbar_wait(full + st, parity);
+    __syncwarp();  // converged for the .aligned wgmma
+    // causal: every row of this warpgroup precedes every key of the tile;
+    // or the warpgroup's rows lie past the end
+    const bool dead = (causal && wrow + 63 < k0) || wrow >= sq;
+    if (!dead) {
+      float s[N / 2], dp[N / 2];
+      gemm_ss<N, D>(s, sQ + wg * 64 * kHalfBytes, L::kHalfQ, sK, L::kHalfKV);
+      gemm_ss<N, D>(dp, sDO + wg * 64 * kHalfBytes, L::kHalfQ, sV,
+                    L::kHalfKV);
+      // P while dP's products still run
+      wg_wait_one();
+      fence_regs(s);
+      const bool seg_mask =
+          has_seg && !(qlo == qhi && klo == khi && qlo == klo);
+      const bool mask =
+          k0 + N > sk || (causal && wrow < k0 + N - 1) || seg_mask;
+#pragma unroll
+      for (int i = 0; i < N / 2; i += 2) {
+        const int kj = k0 + acc_col(i, lane);
+        int id0 = 0, id1 = 0;
+        if (seg_mask) {
+          if (kj < sk) id0 = __ldg(seg_k + (size_t)b * sk + kj);
+          if (kj + 1 < sk) id1 = __ldg(seg_k + (size_t)b * sk + kj + 1);
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = (i >> 1) & 1, qi = row0 + 8 * r, col = kj + e;
+          const bool ok = !mask || (col < sk && (!causal || qi >= col) &&
+                                    (!seg_mask || sid[r] == (e ? id1 : id0)));
+          s[i + e] = ok ? exp2f(fmaf(s[i + e], sl2, -lse2[r])) : 0.f;
+        }
+      }
+      wg_wait_all();
+      fence_regs(dp);
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) s[i] *= dp[i] - dl[(i >> 1) & 1];
+      uint32_t dsa[N / 16][4];
+      to_a_frags<N>(s, dsa);
+      gemm_rs<N, D>(acc, dsa, sK, L::kHalfKV);
+      wg_wait_all();
+      fence_regs(acc);
+    }
+    mbar_arrive(empty + st);
+    int lo = 0, hi = 0;
+    const int after = nxt < kend ? next_live(nxt + 1, lo, hi) : kend;
+    if (tid == 0 && after < kend) {
+      mbar_wait(empty + st, parity);
+      load_kv(after, st);
+    }
+    __syncwarp();
+    cur = nxt;
+    klo = nlo;
+    khi = nhi;
+    nxt = after;
+    nlo = lo;
+    nhi = hi;
+  }
+
+  // a row with no live key has p = 0 on every tile: dq = 0
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    if (qi >= sq) continue;
+    uint32_t* row = reinterpret_cast<uint32_t*>(
+        dq + (((size_t)b * sq + qi) * hq + h) * D);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int i = 4 * j + 2 * r;
+      row[acc_col(i, lane) / 2] = pack_bf16(acc[i] * scale, acc[i + 1] * scale);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
@@ -1526,6 +1748,29 @@ int dkv_hopper(const Shape& s, const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int dq_hopper(const Shape& s, const void* q, const void* k, const void* v,
+              const void* dout, const void* lse, const void* delta,
+              const void* sgq, const void* sgk, void* dqo, cudaStream_t st) {
+  using L = DqHopperSmem<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!map_bshd(&tq, q, s.b, s.sq, s.hq, D, kRows) ||
+      !map_bshd(&tdo, dout, s.b, s.sq, s.hq, D, kRows) ||
+      !map_bshd(&tk, k, s.b, s.sk, s.hkv, D, L::N) ||
+      !map_bshd(&tv, v, s.b, s.sk, s.hkv, D, L::N))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = flash_bwd_dq_hopper<D>;
+  cudaError_t e = prepare(kern, L::bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((s.sq + kRows - 1) / kRows, s.hq, s.b);
+  kern<<<grid, kThreads, L::bytes, st>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int*>(sgq),
+      static_cast<const int*>(sgk), static_cast<bf16*>(dqo), s.sq, s.sk,
+      s.hq, s.hkv, s.scale, s.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D>
 int fwd_smem(const Shape& s, const void* q, const void* k, const void* v,
              const void* sgq, const void* sgk, void* o, void* lse,
@@ -1590,9 +1835,9 @@ int dkv(const Shape& s, const void* q, const void* k, const void* v,
 }
 
 template <typename T, int D>
-int dq(const Shape& s, const void* q, const void* k, const void* v,
-       const void* dout, const void* lse, const void* delta, const void* sgq,
-       const void* sgk, void* dqo, cudaStream_t st) {
+int dq_smem(const Shape& s, const void* q, const void* k, const void* v,
+            const void* dout, const void* lse, const void* delta,
+            const void* sgq, const void* sgk, void* dqo, cudaStream_t st) {
   using L = DqSmem<T, D>;
   constexpr int B = Tile<T, D>::B;
   auto kern = flash_bwd_dq_kernel<T, D>;
@@ -1608,16 +1853,27 @@ int dq(const Shape& s, const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int D>
+int dq(const Shape& s, const void* q, const void* k, const void* v,
+       const void* dout, const void* lse, const void* delta, const void* sgq,
+       const void* sgk, void* dqo, cudaStream_t st) {
+  if constexpr (std::is_same<T, bf16>::value && D <= 128)
+    return dq_hopper<D>(s, q, k, v, dout, lse, delta, sgq, sgk, dqo, st);
+  else
+    return dq_smem<T, D>(s, q, k, v, dout, lse, delta, sgq, sgk, dqo, st);
+}
+
 // Dynamic shared memory of one block: kernel 0 forward, 1 dK/dV, 2 dQ.
 template <typename T, int D>
 int smem_bytes(int kernel) {
-  if (kernel == 2) return static_cast<int>(DqSmem<T, D>::bytes);
   if constexpr (std::is_same<T, bf16>::value && D <= 128)
-    return static_cast<int>(kernel == 0 ? FwdHopperSmem<D>::bytes
-                                        : DkvHopperSmem<D>::bytes);
+    return static_cast<int>(kernel == 0   ? FwdHopperSmem<D>::bytes
+                            : kernel == 1 ? DkvHopperSmem<D>::bytes
+                                          : DqHopperSmem<D>::bytes);
   else
-    return static_cast<int>(kernel == 0 ? FwdSmem<T, D>::bytes
-                                        : DkvSmem<T, D>::bytes);
+    return static_cast<int>(kernel == 0   ? FwdSmem<T, D>::bytes
+                            : kernel == 1 ? DkvSmem<T, D>::bytes
+                                          : DqSmem<T, D>::bytes);
 }
 
 // dtype code (0 = float32, 1 = bfloat16) and head dim -> an instantiation

@@ -23,9 +23,13 @@ Per kernel, three parts:
 
 Both kernels read only the filled prefix ``[0, lengths[b])`` of each
 lane; see the note at the head of the CUDA source for what bounds them
-and what their design does about that.  The TPU kernels' block-size
-knob is gone with their grid: the contiguous kernel takes any cache
-length ``S``, the paged one any pool block size.
+and what their design does about that.  The contiguous kernel splits
+the cache into chunks of :data:`CHUNK_ROWS` key rows, one thread block
+each; a lane's last chunk to finish merges the chunks' partials.  Their
+workspace and the merge tickets come from torch's allocator and are
+kept on each device (:func:`split_scratch`).  The TPU kernels'
+block-size knob is gone with their grid: the contiguous kernel takes
+any cache length ``S``, the paged one any pool block size.
 
 Also here: :func:`scatter_prefill_blocks` and
 :func:`scatter_prefill_blocks_quant`, the block-granular prefill writes
@@ -36,7 +40,7 @@ kernels, in the JAX package).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -45,9 +49,17 @@ NEG_INF = -1e30
 # granule (infer/decode.py cache_alloc_len) so caches keep its layout
 DEFAULT_BLOCK_K = 256
 MAX_HEAD_DIM = 256
+# key rows a block of the contiguous kernel takes (its split over the
+# cache; csrc/decode_attention.cu)
+CHUNK_ROWS = 256
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
+# the split's scratch per device: (f32 partials, int32 merge tickets);
+# see split_scratch.  Replaced buffers stay referenced: a CUDA graph
+# captured earlier still holds their addresses.
+_SCRATCH: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+_RETIRED: List[Tuple[torch.Tensor, torch.Tensor]] = []
 
 
 def _library():
@@ -59,7 +71,7 @@ def _library():
 
         lib = _build.load("decode_attention")
         fn = lib.decode_attention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn = lib.paged_decode_attention_launch
@@ -123,15 +135,62 @@ def _check_kernel_inputs(q, k_cache, v_cache, lengths, *, table=None,
             raise ValueError(f"{fn}: {name} is not 16-byte aligned")
 
 
+def split_chunks(s: int, chunk_rows: int = CHUNK_ROWS) -> int:
+    """How many chunks of ``chunk_rows`` key rows the contiguous kernel
+    splits a cache of capacity ``s`` into: the grid's chunk dimension,
+    fixed by the cache's shape alone (never by the lengths, which live
+    on the device)."""
+    return max(1, -(-s // chunk_rows))
+
+
+def split_scratch(device: torch.device, b: int, hq: int, d: int, s: int,
+                  chunk_rows: int = CHUNK_ROWS
+                  ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The split's scratch on ``device`` for a call of B lanes, Hq query
+    heads, head_dim D over a cache of capacity S: (partials, tickets),
+    or (None, None) when the cache fits one chunk (no partials, no
+    merge).
+
+    partials: f32, at least B * Hq * chunks * (D + 2) elements — per
+    (lane, query head, chunk) the accumulator [D], the row max and the
+    row sum.  tickets: int32, at least B * Hq — one merge counter per
+    (lane, head group), which the lane's last chunk to finish takes and
+    resets to 0, so the buffer is zero between launches.  Both are taken
+    from torch's allocator at first use (tickets zeroed) and kept for
+    later calls on the device, replaced by larger ones when a call needs
+    more: no allocation per call.  Launches that overlap on two streams
+    of one device would share them; the port runs its decode attention
+    on one stream."""
+    chunks = split_chunks(s, chunk_rows)
+    if chunks == 1:
+        return None, None
+    need = b * hq * chunks * (d + 2)
+    got = _SCRATCH.get(device)
+    if got is None or got[0].numel() < need or got[1].numel() < b * hq:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("decode_attention: the split's scratch must "
+                               "be allocated by a call outside CUDA-graph "
+                               "capture first")
+        if got is not None:
+            _RETIRED.append(got)
+        got = (torch.empty(need, dtype=torch.float32, device=device),
+               torch.zeros(b * hq, dtype=torch.int32, device=device))
+        _SCRATCH[device] = got
+    return got
+
+
 def _launch(lib, q, k_cache, v_cache, lengths, out, scale: float,
-            stream: int) -> None:
+            stream: int, chunk_rows: int = CHUNK_ROWS) -> None:
     """One kernel launch; raises when the C side reports an error."""
     b, hq, d = q.shape
     _, hkv, s, _ = k_cache.shape
+    ws, tickets = split_scratch(q.device, b, hq, d, s, chunk_rows)
     rc = lib.decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), b, hq, hkv, s, d,
-        float(scale), _DTYPE_CODE[q.dtype], stream)
+        lengths.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), b, hq, hkv, s, d,
+        chunk_rows, float(scale), _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {rc}")

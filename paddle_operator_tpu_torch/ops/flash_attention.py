@@ -36,15 +36,15 @@ in the kernels) and there is no block-size knob; head_dim must be 64,
 128 or 256.
 
 The kernels are bound by their products (hundreds of flops per byte at
-the training shapes).  The bf16 forward and dK/dV at head_dim 64 and 128
+the training shapes).  The three bf16 kernels at head_dim 64 and 128
 (every preset of the port) run the Hopper design of
 ``csrc/flash_attention.cu``: a block of two warpgroups owns 128 rows,
 every product is a ``wgmma`` whose accumulator stays in registers (the
 scores, p and ds are formed there and fed to the next product as its
 register operand), and one thread's TMA loads fill a 2-stage ring of
 shared-memory tiles while the current tile is computed.  float32 (whose
-products ``wgmma`` would round to TF32), bf16 at head_dim 256 and the
-dQ kernel keep the earlier design: intermediates in shared memory, WMMA
+products ``wgmma`` would round to TF32) and bf16 at head_dim 256 keep
+the earlier design: intermediates in shared memory, WMMA
 fragments (bf16) or FMAs (float32), synchronous loads.  The choice is
 made by dtype and head_dim at compile time; there is no switch.
 """

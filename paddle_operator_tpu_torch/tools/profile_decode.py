@@ -15,7 +15,8 @@ of kernel times), the device's idle share of the unit, and the kernels
 that take the most device time.  Prints one JSON object per selection.
 
 - batch mode (the default): the unit is one ``decode_step`` of a batch
-  of ``--batch`` random prompts of ``--prompt`` tokens, after prefill.
+  of ``--batch`` random prompts of ``--prompt`` tokens, after prefill;
+  ``decode_kernel_ms_per_step`` is kernel #1's device time in it.
 - ``--ring``: the unit is one chunk of the continuous paged ring
   (infer/executor.py ``RingExecutor.replay``, ``--chunk`` ticks) with
   all ``--slots`` lanes resident, each admitted through the cold paged
@@ -128,6 +129,10 @@ def run(params, cfg, prompt, steps: int) -> dict:
             "device_busy_ms_per_step": m["device_busy_ms"],
             "device_idle_share": m["device_idle_share"],
             "launches_per_step": m["launches"],
+            "decode_kernel_ms_per_step": sum(
+                k["ms"] for k in m["all_kernels"]
+                if "decode_attention_kernel" in k["name"]
+                and "paged" not in k["name"]),
             "top_kernels": m["top_kernels"]}
 
 

@@ -135,6 +135,40 @@ class TestNoFallback:
             TDA.decode_attention(q[:, :2].contiguous(), k, v, L[:1])
 
 
+class TestSplitHostLogic:
+    """The contiguous kernel's split as the wrapper sets it up: the chunk
+    count follows the cache's capacity S alone, and the workspace holds
+    one partial (accumulator, row max, row sum) per chunk."""
+
+    @pytest.mark.parametrize("s,chunks", [
+        (0, 1), (1, 1), (TDA.CHUNK_ROWS - 1, 1), (TDA.CHUNK_ROWS, 1),
+        (TDA.CHUNK_ROWS + 1, 2), (2048, 2048 // TDA.CHUNK_ROWS),
+        (3 * TDA.CHUNK_ROWS + 45, 4)])
+    def test_chunk_count(self, s, chunks):
+        assert TDA.split_chunks(s) == chunks
+        assert TDA.split_chunks(s, chunk_rows=64) == max(1, -(-s // 64))
+
+    @pytest.mark.parametrize("s", [1, TDA.CHUNK_ROWS, 2048, 1000])
+    def test_workspace_shape(self, s):
+        """B * Hq * chunks * (D + 2) f32 partials and B * Hq zeroed int32
+        tickets; kept for the device, grown when a call needs more."""
+        dev = torch.device("cpu")
+        TDA._SCRATCH.pop(dev, None)
+        ws, tickets = TDA.split_scratch(dev, 3, 8, 64, s)
+        chunks = TDA.split_chunks(s)
+        if chunks == 1:
+            assert ws is None and tickets is None
+            return
+        assert ws.dtype == torch.float32 and ws.numel() == 3 * 8 * chunks * 66
+        assert tickets.dtype == torch.int32 and tickets.numel() >= 3 * 8
+        assert not tickets.any()
+        again = TDA.split_scratch(dev, 2, 8, 64, s)
+        assert again[0] is ws and again[1] is tickets
+        bigger = TDA.split_scratch(dev, 6, 8, 64, s)
+        assert bigger[0].numel() == 6 * 8 * chunks * 66
+        TDA._SCRATCH.pop(dev, None)
+
+
 @pytest.mark.cuda
 class TestKernelOnCard:
     """The CUDA kernel against its plain version on the card (built
@@ -161,3 +195,60 @@ class TestKernelOnCard:
                                               vt.float(), Lt)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, atol=atol, rtol=atol)
+
+    @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                            (torch.bfloat16, 2e-2)])
+    @pytest.mark.parametrize("hq,hkv", [(8, 8), (8, 4), (16, 4)])
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_chunk_edges(self, dtype, atol, hq, hkv, d):
+        """Lengths at the split's chunk edges (0, 1, chunk - 1, chunk,
+        chunk + 1, the whole cache) with R = 1, 2 and 4 query heads a
+        block; a length-0 lane gives zeros."""
+        torch.backends.cuda.matmul.allow_tf32 = False
+        c = TDA.CHUNK_ROWS
+        s = 3 * c + 45
+        lens = [0, 1, c - 1, c, c + 1, s]
+        q, k, v, L = _case(len(lens), s, hq, hkv, d, lens, seed=d + hq)
+        dev = torch.device("cuda")
+        qt, kt, vt = (torch.as_tensor(a, device=dev).to(dtype)
+                      for a in (q, k, v))
+        Lt = torch.as_tensor(L, device=dev)
+        got = TDA.decode_attention(qt, kt, vt, Lt).float()
+        want = TDA.decode_attention_reference(qt.float(), kt.float(),
+                                              vt.float(), Lt)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=atol, rtol=atol)
+        assert not got[0].any()
+
+    def test_stacked_layer_view(self):
+        """Layer 1 of stacked [L, B, Hkv, S, D] caches: the view's offset
+        reaches the split kernel."""
+        c = TDA.CHUNK_ROWS
+        s = 2 * c + 7
+        rng = np.random.default_rng(11)
+        dev = torch.device("cuda")
+        q = torch.as_tensor(rng.standard_normal((3, 8, 128)),
+                            dtype=torch.float32, device=dev)
+        k, v = (torch.as_tensor(rng.standard_normal((3, 3, 4, s, 128)),
+                                dtype=torch.float32, device=dev)
+                for _ in range(2))
+        L = torch.as_tensor([c, s, 5], dtype=torch.int32, device=dev)
+        got = TDA.decode_attention(q, k, v, L, layer=1)
+        want = TDA.decode_attention_reference(q, k[1], v[1], L)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+    def test_runs_bit_identical(self):
+        """The partials merge in chunk order: two runs give the same
+        bits."""
+        c = TDA.CHUNK_ROWS
+        s = 8 * c
+        q, k, v, L = _case(4, s, 32, 8, 128, [s, c + 1, 0, 3 * c], seed=12)
+        dev = torch.device("cuda")
+        qt, kt, vt = (torch.as_tensor(a, device=dev).to(torch.bfloat16)
+                      for a in (q, k, v))
+        Lt = torch.as_tensor(L, device=dev)
+        first = TDA.decode_attention(qt, kt, vt, Lt)
+        again = TDA.decode_attention(qt, kt, vt, Lt)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)

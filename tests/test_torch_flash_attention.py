@@ -352,3 +352,23 @@ class TestKernelsOnCard:
         again = FA.flash_backward_dkv(q, k, v, do, lse, delta, ids, ids)
         torch.cuda.synchronize()
         assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+    def test_bf16_dq_runs_bit_identical(self):
+        """No atomics: two runs of the bf16 dQ kernel (GQA, segment ids,
+        ragged S) give the same bits."""
+        rng = np.random.default_rng(4)
+        b, s, hq, hkv, d = 2, 1000, 8, 2, 128
+        q, do = (torch.as_tensor(rng.standard_normal((b, s, hq, d)),
+                                 dtype=torch.bfloat16, device="cuda")
+                 for _ in range(2))
+        k, v = (torch.as_tensor(rng.standard_normal((b, s, hkv, d)),
+                                dtype=torch.bfloat16, device="cuda")
+                for _ in range(2))
+        ids = torch.as_tensor(np.repeat(_ids([0, 333, 700], s), b, 0),
+                              device="cuda")
+        o, lse = FA.flash_forward(q, k, v, ids, ids)
+        delta = FA.attention_delta(o, do)
+        first = FA.flash_backward_dq(q, k, v, do, lse, delta, ids, ids)
+        again = FA.flash_backward_dq(q, k, v, do, lse, delta, ids, ids)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
