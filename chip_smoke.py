@@ -10,7 +10,9 @@ result line; with no arguments every phase runs):
    paths from ``paddle_operator_tpu_torch/csrc/`` (one nvcc each, in
    parallel); report each flash kernel instantiation's design, its
    registers, spill bytes and shared memory (``-Xptxas -v``), and the
-   registers and spills of kernel #1's split kernel.
+   registers, spills and shared memory of the three decode kernels'
+   instantiations (the paged ones with their tile ring's dynamic shared
+   memory at D 128).
 2. kernel vs plain — ``decode_attention`` against
    ``decode_attention_reference`` on the card: ragged lengths with 0, 1,
    a full cache and a non-multiple of any tile; the split's chunk edges
@@ -30,11 +32,18 @@ result line; with no arguments every phase runs):
    ``paged_decode_attention_reference`` under scrambled block maps:
    ragged lengths {0, 1, full, not a multiple of bs}, bs 16 and 256,
    MHA and GQA (n_rep 2, 4), D 64 and 128, a stacked-layer index, the
-   ring's 7b shapes; same tolerances as phase 2.  Then timed at 7b,
-   B=8, bs=256, fills 128, 528 and 2048, in turns: the paged kernel,
-   its plain version, kernel #1 on the same rows laid out contiguously,
-   and ``scaled_dot_product_attention`` on those contiguous rows (the
-   same work without the table walk; never used by the port).
+   ring's 7b shapes; the split's chunk and block edges (lengths 0, 1,
+   chunk - 1, chunk, chunk + 1, bs - 1, bs + 1 and the table's reach at
+   bs 16 and 256, 1, 2 and 4 query heads a block, D 64 and 128, and a
+   stacked-layer view); same tolerances as phase 2; a length-0 lane
+   gives zeros and two runs are bit-identical.  Then timed at 7b, B=8,
+   bs=256, fills 128, 528 and 2048, in turns: the paged kernel, its
+   plain version, kernel #1 on the same rows laid out contiguously, and
+   ``scaled_dot_product_attention`` on those contiguous rows (the same
+   work without the table walk; never used by the port); with each, the
+   call's device time at chunks of 64, 128, 256, 512, 1024 and 2048 rows
+   (2048: one chunk a lane, no split; each setting checked once against
+   the plain version).
 2d. int8 paged kernel vs plain — ``paged_decode_attention`` with the
    int8 pool's operands (codes, scales, staging tails) against
    ``paged_decode_attention_quant_reference`` under scrambled block
@@ -45,14 +54,16 @@ result line; with no arguments every phase runs):
    (code x scale rounded to bfloat16, as the function does) element by
    element (``BF16_ATOL``) and as a whole (``QUANT_BF16_REL``, the
    relative Frobenius error: at the 7b fills |out| is only a few times
-   ``BF16_ATOL``).  Then timed at 7b, B=8, bs=256, fills 128, 528 and
-   2048, in turns: the int8 kernel, its plain version, the bf16 paged
-   kernel on the same logical rows, and ``scaled_dot_product_attention``
-   on those rows laid out contiguously in bf16 (a yardstick of the same
-   attention without the dequant: no PyTorch call computes this
-   function; never used by the port).  At each timed fill the int8
-   kernel's output must equal, bit for bit, the bf16 paged kernel's on
-   the rows dequantized and rounded to bfloat16.
+   ``BF16_ATOL``); phase 2b's chunk and block edges; a length-0 lane
+   gives zeros and two runs are bit-identical.  Then timed at 7b, B=8,
+   bs=256, fills 128, 528 and 2048, in turns: the int8 kernel, its
+   plain version, the bf16 paged kernel on the same logical rows, and
+   ``scaled_dot_product_attention`` on those rows laid out contiguously
+   in bf16 (a yardstick of the same attention without the dequant: no
+   PyTorch call computes this function; never used by the port), with
+   phase 2b's sweep of chunk rows.  At each timed fill
+   the int8 kernel's output must equal, bit for bit, the bf16 paged
+   kernel's on the rows dequantized and rounded to bfloat16.
 2c. flash kernels vs plain — ``flash_forward`` (O and lse),
    ``flash_backward_dkv`` and ``flash_backward_dq`` each against its
    plain version on the same inputs (the backward kernels get the plain
@@ -412,6 +423,42 @@ def _scrambled_table(rng, b, m, n_blocks):
     return ids.reshape(b, m).astype(np.int32)
 
 
+def _paged_edges(DA, bs: int) -> tuple:
+    """Lengths at a paged kernel's chunk and block edges for pool block
+    size ``bs`` (0, 1, chunk - 1, chunk, chunk + 1, bs - 1, bs + 1 and
+    the table's reach) and the table width M that holds them (four
+    chunks or more)."""
+    c = DA.paged_chunk_rows(bs)
+    m = -(-(3 * c + 45) // bs)
+    return [0, 1, c - 1, c, c + 1, bs - 1, bs + 1, m * bs], m
+
+
+# a paged kernel's chunk rows swept beside its timing rows (2048: one
+# chunk a lane at the timed shape, no split)
+PAGED_SWEEP_ROWS = (64, 128, 256, 512, 1024, 2048)
+
+
+def _paged_sweep(launch, q0, plain) -> dict:
+    """The call's device ms at other chunk rows (the wrapper takes
+    ``paged_chunk_rows``): ``launch(i, out, chunk_rows=...)`` runs call
+    i into ``out``.  Each setting's first call is checked against
+    ``plain`` (the plain version in float32) within ``BF16_ATOL``."""
+    import torch
+
+    out = torch.empty_like(q0)
+    rows_ms = {}
+    for rows in PAGED_SWEEP_ROWS:
+        launch(0, out, chunk_rows=rows)
+        torch.cuda.synchronize()
+        err = float((out.float() - plain).abs().max())
+        if err > BF16_ATOL:
+            raise AssertionError(f"paged kernel at chunk rows {rows} "
+                                 f"disagrees with its plain version by {err}")
+        rows_ms[rows], _ = time_ms(
+            lambda i, rows=rows: launch(i, out, chunk_rows=rows), 128)
+    return {"chunk_rows_ms": rows_ms}
+
+
 def phase_paged_kernel_vs_plain(report: dict) -> None:
     import numpy as np
     import torch
@@ -434,6 +481,18 @@ def phase_paged_kernel_vs_plain(report: dict) -> None:
             m = -(-517 // bs)
             cases.append((f"ragged-bs{bs}", 4, hq, hkv, d, bs, m,
                           [0, 1, m * bs, 300], 2))
+    # the split's chunk and block edges: lengths 0, 1, chunk - 1, chunk,
+    # chunk + 1, bs - 1, bs + 1 and the table's reach, R = 1, 2 and 4
+    # query heads a block, D 64 and 128, bs 16 and 256; a stacked-layer
+    # view
+    for bs in (16, 256):
+        lens, m = _paged_edges(DA, bs)
+        for hq, hkv in ((8, 8), (8, 4), (16, 4)):
+            for d in (64, 128):
+                cases.append((f"chunk-edges-R{hq // hkv}-bs{bs}", len(lens),
+                              hq, hkv, d, bs, m, lens, 0))
+        cases.append((f"chunk-edges-stacked-bs{bs}", len(lens), 8, 4, 128,
+                      bs, m, lens, 3))
     cases += [
         ("ring-7b-b8", 8, 32, 32, 128, 256, 8,
          [0, 33, 101, 258, 301, 512, 601, 1001], 0),
@@ -465,17 +524,41 @@ def phase_paged_kernel_vs_plain(report: dict) -> None:
             ok = bool(((got - want).abs()
                        <= atol + rtol * want.abs()).all())
             log(f"paged-kernel-vs-plain {name} {str(dtype)[6:]} B={b} "
-                f"Hq={hq} Hkv={hkv} D={d} bs={bs} M={m} lens={lens} "
+                f"Hq={hq} Hkv={hkv} D={d} bs={bs} M={m} "
+                f"chunks={DA.paged_split_chunks(m, bs)} lens={lens} "
                 f"layer={layer}: max_abs_err={err:.3e} (atol {atol}, "
                 f"rtol {rtol})")
             if not ok:
                 raise AssertionError(
                     f"paged_decode_attention disagrees with its plain "
                     f"version: {name} {dtype} max_abs_err {err} > {lim}")
+            if 0 in lens and got[lens.index(0)].abs().max() != 0:
+                raise AssertionError(f"paged_decode_attention: a lane of "
+                                     f"length 0 does not give zeros "
+                                     f"({name})")
             worst[dtype] = max(worst[dtype], err)
     report["max_abs_err_f32"] = worst[torch.float32]
     report["max_abs_err_bf16"] = worst[torch.bfloat16]
     report["max_abs_err"] = max(worst.values())
+
+    # two runs on the same inputs give the same bits (the partials merge
+    # in chunk order): the chunk edges at bs 256, bf16
+    lens, m = _paged_edges(DA, 256)
+    b, n_blocks = len(lens), len(lens) * m + 1
+    q = rand((b, 32, 128), torch.bfloat16)
+    kp, vp = (rand((n_blocks, 32, 256, 128), torch.bfloat16)
+              for _ in range(2))
+    table = torch.as_tensor(_scrambled_table(rng, b, m, n_blocks),
+                            device=dev)
+    L = torch.tensor(lens, dtype=torch.int32, device=dev)
+    first = DA.paged_decode_attention(q, kp, vp, table, L)
+    again = DA.paged_decode_attention(q, kp, vp, table, L)
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        raise AssertionError("two runs of paged_decode_attention differ")
+    log("paged_decode_attention: two runs bit-identical (bf16, the chunk "
+        "edges at bs 256)")
+    del q, kp, vp
 
     # timing at the ring's 7b shape (bf16, 8 lanes, bs 256, 8 table
     # blocks per lane): the pool is stacked over 8 layers that the calls
@@ -485,6 +568,7 @@ def phase_paged_kernel_vs_plain(report: dict) -> None:
     b, h, d, bs, m, layers = 8, 32, 128, 256, 8, 8
     dtype = torch.bfloat16
     n_blocks = b * m + 1
+    lib = DA._library()
     qs = [rand((b, h, d), dtype) for _ in range(layers)]
     kp = rand((layers, n_blocks, h, bs, d), dtype)
     vp = rand((layers, n_blocks, h, bs, d), dtype)
@@ -525,6 +609,12 @@ def phase_paged_kernel_vs_plain(report: dict) -> None:
                 time_ms(fn, iters)
         row["bound_ms"], row["bound_by"] = attention_bound_ms(
             b, h, h, d, fill, dtype, table_entries=-(-fill // bs))
+        row.update(_paged_sweep(
+            lambda i, out, **kw: DA._paged_launch(
+                lib, qs[i % c], kp[i % c], vp[i % c], table, L, out,
+                d ** -0.5, torch.cuda.current_stream().cuda_stream, **kw),
+            qs[0], DA.paged_decode_attention_reference(
+                qs[0].float(), kp[0].float(), vp[0].float(), table, L)))
         log(f"timing 7b paged_decode_attention bf16 B={b} H={h} D={d} "
             f"bs={bs} M={m} fill={fill}: " + json.dumps(row))
         timings.append(row)
@@ -609,6 +699,16 @@ def phase_quant_kernel_vs_plain(report: dict) -> None:
             for layers in (0, 2):
                 cases.append((f"bs{bs}-L{layers}", len(lens), hq, hkv, d,
                               bs, m, lens, layers))
+    # the split's chunk and block edges (as phase 2b), R = 1, 2 and 4,
+    # D 64 and 128, bs 16 and 256, unstacked and a stacked-layer index
+    for bs in (16, 256):
+        lens, m = _paged_edges(DA, bs)
+        for hq, hkv in ((8, 8), (8, 4), (16, 4)):
+            for d in (64, 128):
+                cases.append((f"chunk-edges-R{hq // hkv}-bs{bs}", len(lens),
+                              hq, hkv, d, bs, m, lens, 0))
+        cases.append((f"chunk-edges-stacked-bs{bs}", len(lens), 8, 4, 128,
+                      bs, m, lens, 2))
     cases += [
         ("ring-7b-b8", 8, 32, 32, 128, 256, 8,
          [0, 33, 101, 258, 301, 512, 601, 1001], 0),
@@ -646,7 +746,8 @@ def phase_quant_kernel_vs_plain(report: dict) -> None:
                 ok = ok and rel <= QUANT_BF16_REL
                 worst_rel = max(worst_rel, rel)
             log(f"quant-kernel-vs-plain {name} {str(dtype)[6:]} B={b} "
-                f"Hq={hq} Hkv={hkv} D={d} bs={bs} M={m} lens={lens} "
+                f"Hq={hq} Hkv={hkv} D={d} bs={bs} M={m} "
+                f"chunks={DA.paged_split_chunks(m, bs)} lens={lens} "
                 f"layer={layer}: max_abs_err={err:.3e} (atol {atol}, "
                 f"rtol {rtol}) rel={rel:.3e}"
                 + (f" (limit {QUANT_BF16_REL})"
@@ -656,11 +757,36 @@ def phase_quant_kernel_vs_plain(report: dict) -> None:
                     f"the int8 paged kernel disagrees with its plain "
                     f"version: {name} {dtype} max_abs_err {err}, "
                     f"rel {rel}")
+            if 0 in lens and got[lens.index(0)].abs().max() != 0:
+                raise AssertionError(f"the int8 paged kernel: a lane of "
+                                     f"length 0 does not give zeros "
+                                     f"({name})")
             worst[dtype] = max(worst[dtype], err)
     report["max_abs_err_f32"] = worst[torch.float32]
     report["max_abs_err_bf16"] = worst[torch.bfloat16]
     report["max_rel_err_bf16"] = worst_rel
     report["max_abs_err"] = max(worst.values())
+
+    # two runs on the same inputs give the same bits: the chunk edges at
+    # bs 256, bf16
+    lens, m = _paged_edges(DA, 256)
+    b, n_blocks = len(lens), len(lens) * m + 1
+    kp, vp, ks, vs, kt, vt = _quant_pool(gen, n_blocks, 32, 256, 128, b)
+    kw = dict(k_scale=ks, v_scale=vs, k_tail=kt.to(torch.bfloat16),
+              v_tail=vt.to(torch.bfloat16))
+    q = torch.randn((b, 32, 128), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    table = torch.as_tensor(_scrambled_table(rng, b, m, n_blocks),
+                            device=dev)
+    L = torch.tensor(lens, dtype=torch.int32, device=dev)
+    first = DA.paged_decode_attention(q, kp, vp, table, L, **kw)
+    again = DA.paged_decode_attention(q, kp, vp, table, L, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        raise AssertionError("two runs of the int8 paged kernel differ")
+    log("paged_decode_attention (int8 pool): two runs bit-identical (bf16, "
+        "the chunk edges at bs 256)")
+    del kp, vp, ks, vs, kt, vt, kw
 
     # timing at the ring's 7b shape (bf16, 8 lanes, bs 256, 8 table
     # blocks a lane), the pool stacked over 8 layers the calls rotate
@@ -671,6 +797,7 @@ def phase_quant_kernel_vs_plain(report: dict) -> None:
     b, h, d, bs, m, layers = 8, 32, 128, 256, 8, 8
     dtype = torch.bfloat16
     n_blocks = b * m + 1
+    lib = DA._library()
     kp, vp, ks, vs, kt, vt = _quant_pool(gen, n_blocks, h, bs, d, b, layers)
     kt, vt = kt.to(dtype), vt.to(dtype)
     qs = [torch.randn((b, h, d), generator=gen, device=dev).to(dtype)
@@ -738,6 +865,14 @@ def phase_quant_kernel_vs_plain(report: dict) -> None:
                 time_ms(fn, iters)
         row["bound_ms"], row["bound_by"] = quant_attention_bound_ms(
             b, h, h, d, fill, bs, dtype)
+        row.update(_paged_sweep(
+            lambda i, out, **kw: DA._paged_quant_launch(
+                lib, qs[i % c], kp[i % c], vp[i % c], ks[i % c], vs[i % c],
+                kt[i % c], vt[i % c], table, L, out, d ** -0.5,
+                torch.cuda.current_stream().cuda_stream, **kw),
+            qs[0], DA.paged_decode_attention_quant_reference(
+                qs[0].float(), kp[0], vp[0], table, L, ks[0], vs[0], kt[0],
+                vt[0])))
         log(f"timing 7b paged_decode_attention_quant bf16 B={b} H={h} "
             f"D={d} bs={bs} M={m} fill={fill}: " + json.dumps(row))
         timings.append(row)
@@ -868,17 +1003,41 @@ def flash_build_report(flash: dict) -> None:
         log(f"flash ptxas {kern}: " + json.dumps(row))
 
 
-def decode_build_report(contiguous: dict) -> None:
-    """Per instantiation of kernel #1 (the split kernel): its registers,
-    spill bytes and stack from ``nvcc -Xptxas -v``, into
-    ``contiguous["ptxas"]``."""
-    contiguous["ptxas"] = []
+def decode_build_report(*reports: dict) -> None:
+    """Per instantiation of the decode kernels (the contiguous split
+    kernel, the paged kernel and the int8 pool's): registers, spill
+    bytes, stack and static shared memory from ``nvcc -Xptxas -v``, and
+    for the paged kernels (instantiated at head_dim 64, 128 and any
+    other, ``d`` 0) the dynamic shared memory a launch asks for (at D 128
+    for the generic one), into each report's ``ptxas``."""
+    import ctypes
+    import re
+
+    from paddle_operator_tpu_torch.ops import _build
+
+    lib = _build.load("decode_attention")
+    lib.paged_decode_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.paged_decode_smem_bytes.restype = ctypes.c_int
+    kernels = {r["name"]: r["name"] + "_kernel" for r in reports}
+    for r in reports:
+        r["ptxas"] = []
     for symbol, nums in ptxas_entries("decode_attention") or ():
-        if "decode_attention_kernel" not in symbol or "paged" in symbol:
-            continue
-        row = {"symbol": symbol, **nums}
-        contiguous["ptxas"].append(row)
-        log("decode ptxas decode_attention_kernel: " + json.dumps(row))
+        for r in reports:
+            kern = kernels[r["name"]]
+            # mangled: the name's length, the name, then its template
+            # arguments (T, R and, for the paged kernels, D)
+            m = re.search(rf"{len(kern)}{kern}I(f|13__nv_bfloat16)Li(\d)E"
+                          r"(?:Li(\d+)E)?", symbol)
+            if m is None:
+                continue
+            row = {"symbol": symbol, "dtype": "f32" if m.group(1) == "f"
+                   else "bf16", "r": int(m.group(2)), **nums}
+            if m.group(3) is not None:
+                row["d"] = int(m.group(3))
+                row["dynamic_smem_bytes"] = lib.paged_decode_smem_bytes(
+                    int(row["dtype"] == "bf16"), row["r"], row["d"] or 128)
+            r["ptxas"].append(row)
+            log(f"decode ptxas {kern}: " + json.dumps(row))
 
 
 def phase_flash_vs_plain(reports: dict) -> None:
@@ -1867,7 +2026,7 @@ def main() -> int:
             log(f"phase {phase}: {time.perf_counter() - t:.1f}s")
 
     flash_build_report(flash)
-    decode_build_report(contiguous)
+    decode_build_report(contiguous, paged, quant)
     log(f"build: flash_attention.cu {secs['flash_attention']:.1f}s")
     run("2", phase_kernel_vs_plain, contiguous)
     run("2b", phase_paged_kernel_vs_plain, paged)

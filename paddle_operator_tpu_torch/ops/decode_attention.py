@@ -21,15 +21,18 @@ Per kernel, three parts:
 - a ``launches`` counter on each wrapper: how many times it launched
   its kernel, so a run can show that its main path went through it.
 
-Both kernels read only the filled prefix ``[0, lengths[b])`` of each
+The kernels read only the filled prefix ``[0, lengths[b])`` of each
 lane; see the note at the head of the CUDA source for what bounds them
-and what their design does about that.  The contiguous kernel splits
-the cache into chunks of :data:`CHUNK_ROWS` key rows, one thread block
-each; a lane's last chunk to finish merges the chunks' partials.  Their
-workspace and the merge tickets come from torch's allocator and are
-kept on each device (:func:`split_scratch`).  The TPU kernels'
+and what their design does about that.  All three kernels split a
+lane's rows into chunks, one thread block each, and a lane's last chunk
+to finish merges the chunks' partials: the contiguous kernel into
+chunks of :data:`CHUNK_ROWS` key rows of the cache, the paged kernels
+into chunks of the block table's reach (:func:`paged_chunk_rows`), whose
+tiles they stage through shared memory.  The partials and the merge
+tickets come from torch's allocator and are kept on each device, one
+scratch for all three (:func:`chunk_scratch`).  The TPU kernels'
 block-size knob is gone with their grid: the contiguous kernel takes
-any cache length ``S``, the paged one any pool block size.
+any cache length ``S``, the paged ones any pool block size.
 
 Also here: :func:`scatter_prefill_blocks` and
 :func:`scatter_prefill_blocks_quant`, the block-granular prefill writes
@@ -49,15 +52,17 @@ NEG_INF = -1e30
 # granule (infer/decode.py cache_alloc_len) so caches keep its layout
 DEFAULT_BLOCK_K = 256
 MAX_HEAD_DIM = 256
-# key rows a block of the contiguous kernel takes (its split over the
-# cache; csrc/decode_attention.cu)
+# key rows a block of a split kernel takes (csrc/decode_attention.cu):
+# the contiguous kernel's chunk of the cache, and the paged kernels'
+# chunk of the table's reach where the pool block size allows it
 CHUNK_ROWS = 256
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
-# the split's scratch per device: (f32 partials, int32 merge tickets);
-# see split_scratch.  Replaced buffers stay referenced: a CUDA graph
-# captured earlier still holds their addresses.
+# the split's scratch per device, shared by the three kernels: (f32
+# partials, int32 merge tickets); see chunk_scratch.  Replaced buffers
+# stay referenced: a CUDA graph captured earlier still holds their
+# addresses.
 _SCRATCH: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 _RETIRED: List[Tuple[torch.Tensor, torch.Tensor]] = []
 
@@ -75,11 +80,11 @@ def _library():
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn = lib.paged_decode_attention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn = lib.paged_decode_attention_quant_launch
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
@@ -146,35 +151,50 @@ def split_chunks(s: int, chunk_rows: int = CHUNK_ROWS) -> int:
 def split_scratch(device: torch.device, b: int, hq: int, d: int, s: int,
                   chunk_rows: int = CHUNK_ROWS
                   ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """The split's scratch on ``device`` for a call of B lanes, Hq query
-    heads, head_dim D over a cache of capacity S: (partials, tickets),
-    or (None, None) when the cache fits one chunk (no partials, no
-    merge).
+    """The split's scratch on ``device`` for a call of the contiguous
+    kernel over B lanes, Hq query heads, head_dim D and a cache of
+    capacity S: (partials, tickets), or (None, None) when the cache fits
+    one chunk (no partials, no merge).  See :func:`chunk_scratch`."""
+    return chunk_scratch(device, b, hq, d, split_chunks(s, chunk_rows))
+
+
+def chunk_scratch(device: torch.device, b: int, hq: int, d: int,
+                  chunks: int
+                  ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The scratch of a split launch of ``chunks`` chunks over B lanes,
+    Hq query heads and head_dim D: (partials, tickets), or (None, None)
+    for one chunk.
 
     partials: f32, at least B * Hq * chunks * (D + 2) elements — per
     (lane, query head, chunk) the accumulator [D], the row max and the
     row sum.  tickets: int32, at least B * Hq — one merge counter per
     (lane, head group), which the lane's last chunk to finish takes and
-    resets to 0, so the buffer is zero between launches.  Both are taken
-    from torch's allocator at first use (tickets zeroed) and kept for
-    later calls on the device, replaced by larger ones when a call needs
-    more: no allocation per call.  Launches that overlap on two streams
-    of one device would share them; the port runs its decode attention
-    on one stream."""
-    chunks = split_chunks(s, chunk_rows)
+    resets to 0, so the buffer is zero between launches.  One pair per
+    device serves all three kernels: taken from torch's allocator at
+    first use (tickets zeroed), kept for later calls, and replaced by a
+    larger one (each buffer the larger of the old size and the call's
+    need) when a call needs more: no allocation per call.  A call under
+    CUDA-graph capture that needs more raises: the first call outside
+    capture sizes it from the shapes alone (the cache's capacity, or the
+    table's width and the pool's block size).  Launches that overlap on
+    two streams of one device would share it; the port runs its decode
+    attention on one stream."""
     if chunks == 1:
         return None, None
-    need = b * hq * chunks * (d + 2)
+    need, need_tickets = b * hq * chunks * (d + 2), b * hq
     got = _SCRATCH.get(device)
-    if got is None or got[0].numel() < need or got[1].numel() < b * hq:
+    if got is None or got[0].numel() < need \
+            or got[1].numel() < need_tickets:
         if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("decode_attention: the split's scratch must "
+            raise RuntimeError("decode attention: the split's scratch must "
                                "be allocated by a call outside CUDA-graph "
                                "capture first")
         if got is not None:
             _RETIRED.append(got)
+            need = max(need, got[0].numel())
+            need_tickets = max(need_tickets, got[1].numel())
         got = (torch.empty(need, dtype=torch.float32, device=device),
-               torch.zeros(b * hq, dtype=torch.int32, device=device))
+               torch.zeros(need_tickets, dtype=torch.int32, device=device))
         _SCRATCH[device] = got
     return got
 
@@ -275,17 +295,45 @@ def decode_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def paged_chunk_rows(bs: int) -> int:
+    """The rows a block of a paged kernel takes at pool block size
+    ``bs``: :data:`CHUNK_ROWS` when it divides ``bs``, else the largest
+    multiple of ``bs`` up to it (``bs`` itself when ``bs`` is larger), so
+    that no staged tile crosses a pool block."""
+    return CHUNK_ROWS if bs % CHUNK_ROWS == 0 else \
+        bs * max(1, CHUNK_ROWS // bs)
+
+
+def paged_split_chunks(m: int, bs: int,
+                       chunk_rows: Optional[int] = None) -> int:
+    """How many chunks a paged kernel splits a lane's table of ``m``
+    blocks of ``bs`` rows into: the grid's chunk dimension, from host
+    shapes alone.  ``chunk_rows`` (default :func:`paged_chunk_rows`)
+    must divide ``bs`` or be a multiple of it."""
+    rows = paged_chunk_rows(bs) if chunk_rows is None else chunk_rows
+    if rows <= 0 or (rows % bs and bs % rows):
+        raise ValueError(f"paged_decode_attention: chunk rows {rows} "
+                         f"neither divide the block size {bs} nor are a "
+                         f"multiple of it")
+    return max(1, -(-(m * bs) // rows))
+
+
 def _paged_launch(lib, q, k_pool, v_pool, table, lengths, out, scale: float,
-                  stream: int) -> None:
+                  stream: int, chunk_rows: Optional[int] = None) -> None:
     """One paged-kernel launch; raises when the C side reports an
     error."""
     b, hq, d = q.shape
     n, hkv, bs, _ = k_pool.shape
+    m = table.shape[1]
+    rows = paged_chunk_rows(bs) if chunk_rows is None else chunk_rows
+    ws, tickets = chunk_scratch(q.device, b, hq, d,
+                                paged_split_chunks(m, bs, rows))
     rc = lib.paged_decode_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, hq, hkv,
-        n, bs, table.shape[1], d, float(scale), _DTYPE_CODE[q.dtype],
-        stream)
+        table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), b, hq, hkv, n, bs,
+        m, d, rows, float(scale), _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
                            f"CUDA error {rc}")
@@ -293,17 +341,24 @@ def _paged_launch(lib, q, k_pool, v_pool, table, lengths, out, scale: float,
 
 def _paged_quant_launch(lib, q, k_pool, v_pool, k_scale, v_scale, k_tail,
                         v_tail, table, lengths, out, scale: float,
-                        stream: int) -> None:
+                        stream: int, chunk_rows: Optional[int] = None
+                        ) -> None:
     """One launch of the int8 pool's kernel; raises when the C side
     reports an error."""
     b, hq, d = q.shape
     n, hkv, bs, _ = k_pool.shape
+    m = table.shape[1]
+    rows = paged_chunk_rows(bs) if chunk_rows is None else chunk_rows
+    ws, tickets = chunk_scratch(q.device, b, hq, d,
+                                paged_split_chunks(m, bs, rows))
     rc = lib.paged_decode_attention_quant_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), k_tail.data_ptr(),
         v_tail.data_ptr(), table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, hq, hkv, n, bs, table.shape[1], d,
-        k_tail.shape[0], float(scale), _DTYPE_CODE[q.dtype], stream)
+        out.data_ptr(), None if ws is None else ws.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), b, hq, hkv, n, bs,
+        m, d, k_tail.shape[0], rows, float(scale),
+        _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention (int8 pool) kernel "
                            f"launch failed: CUDA error {rc}")
