@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
-    python3 chip_smoke.py [--phases 2,2b,2c,2d,3,3b,3c,3d,4,4b,4c,4d]
+    python3 chip_smoke.py [--phases 2,2b,2c,2d,3,3b,3c,3d,3e,4,4b,4c,4d,4e]
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line; with no arguments every phase runs):
@@ -95,10 +95,14 @@ result line; with no arguments every phase runs):
    block_size=256, max_len=2048)``) on the same 7b model answers a
    concurrent burst over real HTTP: 8 cold prompts, 4 followers of one
    512-token prefix, 1 streamed request, then a resubmission (a full
-   prefix hit).  Launches of the paged kernel over exactly that run
-   must equal n_layers x chunk_tokens x chunks dispatched, kernel #1
-   must not launch, followers prefill only their suffixes, the pool's
-   invariant holds and every block ends free or cached.
+   prefix hit).  The server is built with ``prewarm=True``, which
+   captures the ring's resident program as a CUDA graph while the ring
+   is empty (capture seconds and the graph pool's bytes are printed);
+   every dispatch of the run must be a replay of it.  Launches of the
+   paged kernel over exactly that run must equal n_layers x
+   chunk_tokens x chunks dispatched, kernel #1 must not launch,
+   followers prefill only their suffixes, the pool's invariant holds
+   and every block ends free or cached.
 3c. training main path — 7b at full width cut to 8 layers (f32
    params, bf16 compute, full remat), fresh init from seed 0:
    ``make_model`` -> ``create_state`` -> ``make_train_step`` -> ``fit``
@@ -120,6 +124,13 @@ result line; with no arguments every phase runs):
    ``/statusz`` reports ``kvQuantMode`` int8, the pool's invariant
    holds and every block ends free or cached.  ``kvPoolBytes``, new
    tok/s and TTFT are printed beside 3b's.
+3e. megastep main path — 3b's server with ``megastep=4`` (four chunks
+   fused into one dispatch, one CUDA graph replay) under 3b's burst:
+   every request's tokens must equal 3b's for the same prompt, token
+   for token; the paged kernel's launches must equal n_layers x
+   chunk_tokens x 4 x dispatches; ``/statusz`` reports ``megastepN`` 4
+   and a ``dispatchesPerToken`` below 3b's.  New tok/s, TTFT p50/p95
+   and wall ms per token are printed beside 3b's.
 4. kernel path == plain path — 7b width, 2 layers, float32: greedy
    ``generate`` through the kernel and through the plain version give
    the same tokens, and per-step logits agree within 1e-3.
@@ -134,6 +145,16 @@ result line; with no arguments every phase runs):
    lane over 44 ticks, each tick from the same state, agree within
    1e-3; the worst logit delta of the int8 pool against the unquantized
    pool is reported, not gated.
+4e. megastep == single step, graph == eager — 7b width, 2 layers,
+   float32, on the contiguous, paged and int8 rings (bs 16), four
+   prompts through ``ContinuousBatcher``: megastep 4 gives megastep 1's
+   tokens, also with an eos that fires inside a fused iteration and,
+   on the paged rings, with every lane's step budget cut to one
+   iteration (lanes freeze mid-megastep and resume).  Then, on two
+   executors driven from the same admissions, six dispatches (1-step
+   and 4-step, with an eos, a budget that runs out and a frozen lane):
+   each graph replay's tokens, counts, positions and lane tokens equal
+   the eager program's bit for bit.
 4c. training kernel path == plain path — 7b width, 2 layers, float32:
    three train steps with attention through the flash kernels and
    through ``reference_attention`` from the same init agree in loss
@@ -188,8 +209,8 @@ QUANT_BF16_REL = 1e-2
 # phase 3c: 7b width cut to 8 layers, B x (S + 1) tokens, bf16 compute
 TRAIN = dict(layers=8, batch=4, seq=2048, steps=12, lr=1e-3)
 PEAK_BF16 = 989e12                 # H100 SXM dense bf16, for MFU
-PHASES = ("2", "2b", "2c", "2d", "3", "3b", "3c", "3d", "4", "4b", "4c",
-          "4d")
+PHASES = ("2", "2b", "2c", "2d", "3", "3b", "3c", "3d", "3e", "4", "4b",
+          "4c", "4d", "4e")
 
 
 def log(*a) -> None:
@@ -1406,10 +1427,13 @@ RING = dict(continuous=True, paged=True, slots=8, chunk_tokens=8,
 
 
 def phase_ring_main_path(report: dict, params, cfg,
-                         kv_quant: str = "none", bf16_ring=None) -> None:
+                         kv_quant: str = "none", bf16_ring=None,
+                         megastep: int = 1, ref=None) -> dict:
     """The continuous paged server under a concurrent burst; see the
-    module docstring (phases 3b and, with ``kv_quant="int8"``, 3d —
-    whose ring is held beside 3b's ``bf16_ring`` readings)."""
+    module docstring (phases 3b, with ``kv_quant="int8"`` 3d and with
+    ``megastep=4`` 3e, whose rings are held beside 3b's ``bf16_ring``
+    readings; 3e's tokens against 3b's, ``ref``).  Returns every
+    request's output tokens, by (kind, index)."""
     import numpy as np
 
     from paddle_operator_tpu_torch.infer.serve import make_server
@@ -1418,12 +1442,28 @@ def phase_ring_main_path(report: dict, params, cfg,
     from paddle_operator_tpu_torch.utils.tracing import hist_quantile
 
     quant = kv_quant != "none"
-    srv = make_server("127.0.0.1", 0, params, cfg,
-                      **(dict(RING, kv_quant=kv_quant) if quant else RING))
+    kw = dict(RING, prewarm=True)
+    if quant:
+        kw["kv_quant"] = kv_quant
+    if megastep > 1:
+        kw["megastep"] = megastep
+    t_build = time.perf_counter()
+    srv = make_server("127.0.0.1", 0, params, cfg, **kw)
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
     base = f"http://127.0.0.1:{srv.server_address[1]}"
     batcher = srv.generator.batcher
+    ex = batcher.executor
+    # the prewarm thread captures the resident programs (ring empty)
+    if not batcher.prewarmed.wait(600) or ex.needs_capture:
+        raise AssertionError(f"the ring's CUDA graphs were not captured at "
+                             f"prewarm: {batcher.prewarm_error!r}")
+    log(f"ring: CUDA graphs of steps {sorted(ex._graphs)} captured in "
+        f"{ex.capture_s:.2f}s (server up to captured "
+        f"{time.perf_counter() - t_build:.2f}s), graph pool "
+        f"{ex.graph_pool_bytes()} bytes, launches recorded "
+        f"{ {n: g.launches for n, g in ex._graphs.items()} } on "
+        f"{card_line()}")
     bs, chunk = RING["block_size"], RING["chunk_tokens"]
     rng = np.random.default_rng(0)
 
@@ -1459,6 +1499,7 @@ def phase_ring_main_path(report: dict, params, cfg,
 
     try:
         stats0 = dict(batcher.stats)
+        replays0 = ex.graph_replays
         _zero_launches()
         t0 = time.perf_counter()
         threads = [threading.Thread(target=send, args=j) for j in jobs]
@@ -1485,6 +1526,7 @@ def phase_ring_main_path(report: dict, params, cfg,
         srv.server_close()
         th.join(timeout=30)
         srv.generator.close()                # the ring thread has ended
+    replays = ex.graph_replays - replays0
     kernels = {"decode_attention": DA.decode_attention.launches,
                "paged_decode_attention": DA.paged_decode_attention.launches,
                "paged_decode_attention_quant":
@@ -1500,6 +1542,7 @@ def phase_ring_main_path(report: dict, params, cfg,
     pool = batcher.pool
 
     new_tokens = 0
+    outputs = {}
     for (kind, i, p, n) in jobs + late:
         if kind == "stream":
             code, events, first_s, secs = results[kind, i]
@@ -1519,21 +1562,27 @@ def phase_ring_main_path(report: dict, params, cfg,
                 raise AssertionError(f"{kind} {i}: HTTP {code}")
             out = body["tokens"][0]
         _check_rows(cfg, p, out, n, f"{kind} {i}")
+        outputs[kind, i] = out
         new_tokens += n
     code, body, resub_s = results["resubmit", 0]
     _check_rows(cfg, prefix, body["tokens"][0], 48, "resubmission")
+    outputs["resubmit", 0] = body["tokens"][0]
     cold_new = results["cold", 5][1]["tokens"][0][len(prefix):]
     resub_new = body["tokens"][0][len(prefix):]
     same = sum(a == b for a, b in zip(cold_new, resub_new)) / len(cold_new)
 
-    want = cfg.n_layers * chunk * stats["chunks"]
+    want = cfg.n_layers * chunk * megastep * stats["chunks"]
     log(f"ring: {name} launches {launches} (n_layers {cfg.n_layers} x "
-        f"chunk {chunk} x chunks {stats['chunks']} = {want}); other decode "
-        f"kernels {kernels}")
+        f"chunk {chunk} x megastep {megastep} x dispatches "
+        f"{stats['chunks']} = {want}); other decode kernels {kernels}; "
+        f"CUDA graph replays {replays}")
     if launches != want or any(kernels.values()):
         raise AssertionError(f"{name} launched {launches} times, expected "
                              f"{want}; the other decode kernels {kernels} "
                              "times, expected 0")
+    if replays != stats["chunks"]:
+        raise AssertionError(f"{stats['chunks']} dispatches but {replays} "
+                             "CUDA graph replays")
     # prefill work: every cold prompt whole, each follower its 16-token
     # suffix (the mid-block follower its last token), the resubmission
     # its last token
@@ -1559,16 +1608,23 @@ def phase_ring_main_path(report: dict, params, cfg,
         raise AssertionError(f"/statusz kvQuantMode "
                              f"{statusz.get('kvQuantMode')!r}, expected "
                              f"{kv_quant!r}")
+    if statusz.get("megastepN") != megastep:
+        raise AssertionError(f"/statusz megastepN {statusz.get('megastepN')}"
+                             f", expected {megastep}")
 
     ttft = batcher.hist.ttft
     p50 = hist_quantile(ttft.bounds, ttft.counts, 0.50)
     p95 = hist_quantile(ttft.bounds, ttft.counts, 0.95)
     ring = {
-        "kv_quant": kv_quant,
+        "kv_quant": kv_quant, "megastep": megastep,
         "burst_s": burst_s, "burst_new_tokens": new_tokens,
         "burst_new_tok_s": new_tokens / burst_s,
         "burst_chunks": burst_chunks,
         "wall_ms_per_chunk": burst_s / burst_chunks * 1e3,
+        "wall_ms_per_token": burst_s / new_tokens * 1e3,
+        "dispatches_per_token": statusz["dispatchesPerToken"],
+        "graph_capture_s": ex.capture_s,
+        "graph_pool_bytes": ex.graph_pool_bytes(),
         "ttft_p50_ms": p50, "ttft_p95_ms": p95,
         "resubmit_s": resub_s, "resubmit_token_match_share": same,
         "pool_blocks": pool.num_blocks,
@@ -1576,14 +1632,38 @@ def phase_ring_main_path(report: dict, params, cfg,
         "kv_pool_bytes": statusz["kvPoolBytes"],
     }
     log("ring: " + json.dumps(ring))
-    log(f"ring {kv_quant} (a smoke reading of one burst, not a benchmark): "
-        f"{new_tokens} new tokens in {burst_s:.3f}s "
+    log(f"ring {kv_quant} megastep {megastep} (a smoke reading of one "
+        f"burst, not a benchmark): {new_tokens} new tokens in {burst_s:.3f}s "
         f"({ring['burst_new_tok_s']:.1f} new tok/s over the burst), TTFT "
         f"p50 {p50:.1f} ms, p95 {p95:.1f} ms (ring histogram), "
-        f"{ring['wall_ms_per_chunk']:.1f} ms wall per chunk; the "
+        f"{ring['wall_ms_per_chunk']:.1f} ms wall per dispatch; the "
         f"resubmission matches its cold run on {same:.3f} of its new "
         "tokens (not asserted: a prefill and a one-token suffix forward "
         "round differently in bf16)")
+    if ref is not None:
+        differ = [k for k in ref if outputs.get(k) != ref[k]]
+        log(f"ring megastep {megastep} beside 3b (this run): "
+            f"{len(ref) - len(differ)}/{len(ref)} requests token-identical; "
+            f"new tok/s {ring['burst_new_tok_s']:.1f} vs "
+            f"{bf16_ring['burst_new_tok_s']:.1f}; TTFT p50 {p50:.1f} vs "
+            f"{bf16_ring['ttft_p50_ms']:.1f} ms, p95 {p95:.1f} vs "
+            f"{bf16_ring['ttft_p95_ms']:.1f} ms; wall ms per token "
+            f"{ring['wall_ms_per_token']:.2f} vs "
+            f"{bf16_ring['wall_ms_per_token']:.2f}; dispatchesPerToken "
+            f"{ring['dispatches_per_token']} vs "
+            f"{bf16_ring['dispatches_per_token']}")
+        if differ:
+            raise AssertionError(f"megastep {megastep} tokens differ from "
+                                 f"3b's for {differ}")
+        if not ring["dispatches_per_token"] < \
+                bf16_ring["dispatches_per_token"]:
+            raise AssertionError("the megastep did not lower "
+                                 "dispatchesPerToken")
+        ring["single_step_ring"] = {k: bf16_ring[k] for k in (
+            "burst_new_tok_s", "ttft_p50_ms", "ttft_p95_ms",
+            "wall_ms_per_token", "dispatches_per_token")}
+        report["ring_megastep"] = ring
+        return outputs
     if bf16_ring is not None:
         log(f"ring int8 beside bf16 (3b, this run): kvPoolBytes "
             f"{ring['kv_pool_bytes']} vs {bf16_ring['kv_pool_bytes']} "
@@ -1599,6 +1679,7 @@ def phase_ring_main_path(report: dict, params, cfg,
             "ttft_p95_ms", "wall_ms_per_chunk")}
     report["launches"] = launches
     report["ring"] = ring
+    return outputs
 
 
 def _zero_launches() -> None:
@@ -1918,6 +1999,164 @@ def phase_quant_ring_kernel_equals_plain() -> None:
     torch.cuda.empty_cache()
 
 
+MEGA_RINGS = (("contiguous", {"paged": False}),
+              ("paged", {"paged": True, "block_size": 16}),
+              ("int8", {"paged": True, "block_size": 16,
+                        "kv_quant": "int8"}))
+
+
+def _admit_cold(ex, slot, prompt) -> None:
+    """A cold admission into a bare executor, as the scheduler makes it:
+    map the lane's blocks (paged) and run the bucket's insert."""
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.infer import executor as X
+
+    n = len(prompt)
+    bucket = next(b for b in ex.buckets if n <= b)
+    dev_prompt = X.to_device(np.asarray([prompt], np.int32), ex.device)
+    if ex.paged:
+        ex.pool.admit(slot, prompt)
+        row = X.to_device(ex.pool.table[slot], ex.device, torch.int32)
+        ex.inserts[bucket](ex.params, ex.cache, row, ex.tok, ex.temp,
+                           ex.seeds, dev_prompt, n, slot, 0.0, 0)
+    else:
+        ex.inserts[bucket](ex.params, ex.cache, ex.tok, ex.temp, ex.seeds,
+                           dev_prompt, n, slot, 0.0, 0)
+
+
+def phase_megastep_rings() -> None:
+    """Phase 4e: megastep 4 == megastep 1 on the three rings, and graph
+    replay == the eager program; see the module docstring."""
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.infer import executor as X
+    from paddle_operator_tpu_torch.infer.batcher import ContinuousBatcher
+    from paddle_operator_tpu_torch.models.llama import make_model
+
+    params, cfg = make_model("7b", device="cuda", seed=5, n_layers=2,
+                             dtype=torch.float32)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (40, 300, 129, 64)]
+    n_new, max_len, chunk = 40, 512, 8
+
+    def serve(ring, megastep, eos=None, freeze=False):
+        b = ContinuousBatcher(params, cfg, slots=4, max_len=max_len,
+                              chunk_tokens=chunk, megastep=megastep,
+                              prewarm=True, **ring)
+        budgets = []
+        if freeze:
+            # a huge per-iteration estimate: every lane's step budget is
+            # 1 of 4 iterations, so lanes freeze mid-megastep
+            b._step_s_est = 3000.0
+            real = b.executor.replay
+
+            def spy(plan):
+                budgets.append(int(np.min(
+                    plan.steps[np.asarray(plan.active, bool)])))
+                return real(plan)
+
+            b.executor.replay = spy
+        try:
+            b.prewarmed.wait(600)
+            out = [h.result(timeout=600) for h in [
+                b.submit(p, max_new_tokens=n_new, eos_token=eos,
+                         deadline_s=3000.0 if freeze else None)
+                for p in prompts]]
+            if b.pool is not None:
+                b.pool.check_invariant()
+            return out, dict(b.stats), budgets
+        finally:
+            b.close()
+
+    for name, ring in MEGA_RINGS:
+        one, s1, _ = serve(ring, 1)
+        four, s4, _ = serve(ring, 4)
+        # an eos that first fires inside a fused iteration, after the
+        # first (new token 0 comes from the prefill, 1-8 from iteration
+        # 0), and not on a chunk's last tick
+        r, at = next((r, i) for r, out in enumerate(one)
+                     for i in range(10, n_new)
+                     if out[len(prompts[r]) + i]
+                     not in out[len(prompts[r]):len(prompts[r]) + i]
+                     and i % chunk)
+        eos = one[r][len(prompts[r]) + at]
+        one_e, _, _ = serve(ring, 1, eos)
+        four_e, _, _ = serve(ring, 4, eos)
+        cut = len(one_e[r]) - len(prompts[r])
+        if cut != at + 1:
+            raise AssertionError(f"{name} ring: eos {eos} cut request {r} "
+                                 f"to {cut} new tokens, expected {at + 1}")
+        line = (f"megastep {name} ring (7b width, 2 layers, f32): N=4 "
+                f"tokens == N=1 on {sum(a == b for a, b in zip(four, one))}"
+                f"/{len(one)} requests, dispatches {s4['chunks']} vs "
+                f"{s1['chunks']}; eos {eos} cut request {r} to {cut} new "
+                f"tokens, N=4 == N=1 on "
+                f"{sum(a == b for a, b in zip(four_e, one_e))}/{len(one)}")
+        if four != one or four_e != one_e or not s4["chunks"] < s1["chunks"]:
+            raise AssertionError(line)
+        if ring["paged"]:
+            frozen, _, budgets = serve(ring, 4, freeze=True)
+            line += (f"; frozen lanes (step budgets {sorted(set(budgets))})"
+                     f" resume == N=1 on "
+                     f"{sum(a == b for a, b in zip(frozen, one))}/{len(one)}")
+            if frozen != one or min(budgets) != 1:
+                raise AssertionError(line)
+        log(line)
+
+    # graph replay == the eager program, on executors driven alike
+    with torch.inference_mode():
+        for name, ring in MEGA_RINGS:
+            exs = []
+            for _ in range(2):
+                ex = X.RingExecutor(params, cfg, slots=4, max_len=max_len,
+                                    chunk_tokens=chunk, megastep=4, **ring)
+                exs.append(ex)
+            graph, eager = exs
+            graph.prewarm()
+            for ex in exs:
+                for slot, p in enumerate(prompts):
+                    _admit_cold(ex, slot, p)
+            gone = 0
+            for k in range(6):
+                n = 4 if k % 2 else 1
+                for ex in exs:
+                    if ex.paged:
+                        for slot, p in enumerate(prompts):
+                            ex.pool.ensure(slot, len(p) + (k + 1) * 4 * chunk)
+                plan = X.ExecPlan(
+                    n, [True, True, True, k < 4],
+                    table=graph.pool.table if graph.paged else None,
+                    eos=np.asarray([-1, eos, -1, -1], np.int32),
+                    left=np.asarray([500, 500, 20, 500], np.int32),
+                    steps=np.asarray([4, 4, 4, 2 if graph.paged else 4],
+                                     np.int32))
+                gt, gc_ = graph.replay(plan).host()
+                et, ec = X.DispatchResult(*eager.run(plan), n).host()
+                same = (np.array_equal(gt, et)
+                        and (n == 1 or np.array_equal(gc_, ec))
+                        and torch.equal(graph.cache["pos"],
+                                        eager.cache["pos"])
+                        and torch.equal(graph.tok, eager.tok))
+                if not same:
+                    raise AssertionError(f"{name} ring: graph replay {k} "
+                                         f"({n} steps) differs from the "
+                                         "eager program")
+                if n > 1:
+                    gone += int((ec.sum(axis=0) < 4 * chunk).sum())
+            log(f"megastep {name} ring: 6 graph replays (1- and 4-step) == "
+                f"the eager program bit for bit (toks, counts, pos, tok); "
+                f"lanes cut short in fused dispatches {gone}; capture "
+                f"{graph.capture_s:.2f}s, graph pool "
+                f"{graph.graph_pool_bytes()} bytes")
+            del exs, graph, eager
+    del params
+    torch.cuda.empty_cache()
+
+
 def phase_train_kernel_equals_plain() -> None:
     """Phase 4c: three f32 train steps through the flash kernels and
     through the plain attention, from the same init."""
@@ -1978,6 +2217,8 @@ def main() -> int:
     phases = set(ap.parse_args().phases.split(","))
     if phases - set(PHASES):
         ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
+    if "3e" in phases:
+        phases.add("3b")            # 3e is held against 3b's tokens
     if not (ROOT / "paddle_operator_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: the paddle_operator_tpu_torch package is not "
               "beside this script", file=sys.stderr)
@@ -2022,8 +2263,10 @@ def main() -> int:
     def run(phase, fn, *args):
         if phase in phases:
             t = time.perf_counter()
-            fn(*args)
+            out = fn(*args)
             log(f"phase {phase}: {time.perf_counter() - t:.1f}s")
+            return out
+        return None
 
     flash_build_report(flash)
     decode_build_report(contiguous, paged, quant)
@@ -2035,11 +2278,15 @@ def main() -> int:
     if phases & {"3", "3b", "3d"}:
         params, cfg = make_7b()
         run("3", phase_main_path, contiguous, params, cfg)
-        run("3b", phase_ring_main_path, paged, params, cfg)
+        ring_tokens = run("3b", phase_ring_main_path, paged, params, cfg)
         gc.collect()        # the servers' reference cycles hold the caches
         torch.cuda.empty_cache()
         run("3d", phase_ring_main_path, quant, params, cfg, "int8",
             paged.get("ring"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        run("3e", phase_ring_main_path, paged, params, cfg, "none",
+            paged.get("ring"), 4, ring_tokens)
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -2048,13 +2295,15 @@ def main() -> int:
     run("4b", phase_rings_equal_generate)
     run("4c", phase_train_kernel_equals_plain)
     run("4d", phase_quant_ring_kernel_equals_plain)
+    run("4e", phase_megastep_rings)
     log(f"all phases: {time.perf_counter() - t_all:.1f}s")
 
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "max_abs_err_f32", "max_abs_err_bf16",
              "decode_ms_per_step_b4", "kernel1_ms", "paged_bf16_ms", "ring",
-             "train", "fwd_bwd", "designs", "ptxas", "timings"]
+             "ring_megastep", "train", "fwd_bwd", "designs", "ptxas",
+             "timings"]
     print(json.dumps({"kernels": [
         {k: r.get(k) for k in order if k in r or k in order[:11]}
         for r in (contiguous, paged, quant, *flash.values())]}))

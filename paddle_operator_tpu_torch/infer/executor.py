@@ -20,14 +20,22 @@ stream still depends only on (seed, position) — never on its
 co-residents — and greedy (temperature 0) stays exact.
 
 The paged ring carries the bf16 pool and the int8 pool
-(``kv_quant="int8"``, SERVE_KV_QUANT).  Not ported yet (ROADMAP.md
-Queue A): speculative rounds, the megastep (``n_steps > 1``), chunked
-and disaggregated prefill, the host tier, lane spill/restore and LoRA
-adapters.
+(``kv_quant="int8"``, SERVE_KV_QUANT).  Every resident decode dispatch
+runs through :meth:`RingExecutor.replay`: the 1-step chunk, or the
+megastep (SERVE_MEGASTEP: ``n_steps`` chunks fused into one dispatch,
+with the eos, token-budget and step-budget decisions made on the
+device by :func:`_mega_continue`).  On the card each of the two
+programs is replayed as a CUDA graph, the port's form of the JAX
+package's ``jax.jit`` of the same program; on the CPU the same programs
+run eagerly.  Not ported yet (ROADMAP.md Queue A): speculative rounds,
+chunked and disaggregated prefill, the host tier, lane spill/restore
+and LoRA adapters.
 """
 
 from __future__ import annotations
 
+import gc
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -35,60 +43,87 @@ import torch
 
 from paddle_operator_tpu_torch.infer import decode as D
 from paddle_operator_tpu_torch.models.llama import LlamaConfig
-from paddle_operator_tpu_torch.ops.decode_attention import decode_attention
+from paddle_operator_tpu_torch.ops.decode_attention import (
+    decode_attention,
+    paged_decode_attention,
+)
 
 
 class ExecPlan:
     """One resident ring dispatch, fully described host-side: the
     scheduler FILLS a plan and :meth:`RingExecutor.replay` executes it.
 
-    - ``n_steps``  fused ring iterations (only 1 is ported);
+    - ``n_steps``  fused ring iterations (1: the chunk step; N > 1: the
+      megastep);
     - ``active``   per-lane participation (host bools, [slots]);
     - ``table``    block-table snapshot (np [slots, M]; None on the
-      contiguous ring)."""
+      contiguous ring);
+    - ``eos``      per-lane eos token id, -1 for none (np int32);
+    - ``left``     per-lane remaining token budget: what the device may
+      still emit (the admission-sampled first token, if still
+      unmaterialized, is already subtracted);
+    - ``steps``    per-lane max fused iterations this dispatch (the
+      deadline-tick budget; ``n_steps`` when unconstrained).
 
-    __slots__ = ("n_steps", "active", "table")
+    ``eos``/``left``/``steps`` are only consulted when ``n_steps > 1``."""
 
-    def __init__(self, n_steps, active, table=None):
+    __slots__ = ("n_steps", "active", "table", "eos", "left", "steps")
+
+    def __init__(self, n_steps, active, table=None, eos=None, left=None,
+                 steps=None):
         self.n_steps = int(n_steps)
         self.active = active
         self.table = table
+        self.eos = eos
+        self.left = left
+        self.steps = steps
 
 
 class DispatchResult:
     """What one :meth:`RingExecutor.replay` returns — the scheduler's
     pipelining queue holds it until the consume boundary.  ``toks`` is
-    the device tensor [chunk, B]; on the card its copy to pinned host
-    memory is queued right behind the chunk (``_host``, ``_event``), so
-    the consume waits for THIS chunk only, never for the chunk
-    dispatched after it."""
+    the device tensor [chunk, B] at ``n_steps`` 1 and [n, chunk, B]
+    fused; ``counts`` [n, B] the rows of each fused boundary the host
+    consumes (None at ``n_steps`` 1, where every row is valid).  On the
+    card their copies to pinned host memory are queued right behind the
+    dispatch (``_host``, ``_event``), so the consume waits for THIS
+    dispatch only, never for the one dispatched after it.  Under a CUDA
+    graph the device tensors are the graph's static outputs, which the
+    next replay overwrites: read them through the host copies."""
 
-    __slots__ = ("toks", "n_steps", "_host", "_event")
+    __slots__ = ("toks", "counts", "n_steps", "_host", "_event")
 
-    def __init__(self, toks, n_steps):
+    def __init__(self, toks, counts, n_steps):
         self.toks = toks
+        self.counts = counts
         self.n_steps = n_steps
-        self._host, self._event = _to_host_async(toks)
+        self._host, self._event = _to_host_async(
+            *(t for t in (toks, counts) if t is not None))
 
-    def host_toks(self) -> np.ndarray:
-        """The chunk's tokens on the host — the ring's one sync."""
+    def host(self) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """``(toks, counts)`` on the host — the ring's one sync."""
         if self._event is not None:
             self._event.synchronize()
-        return self._host.numpy()
+        toks = self._host[0].numpy()
+        return toks, (self._host[1].numpy() if self.counts is not None
+                      else None)
 
 
-def _to_host_async(t: torch.Tensor):
-    """Queue a device->host copy of ``t`` into pinned memory on the
-    current stream and return ``(host_tensor, event)``; the host tensor
-    is valid once the event completes.  CPU tensors come back as they
-    are, with no event."""
-    if t.device.type != "cuda":
-        return t, None
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
+def _to_host_async(*ts: torch.Tensor):
+    """Queue device->host copies of ``ts`` into pinned memory on the
+    current stream and return ``(host_tensors, event)``; the host
+    tensors are valid once the event completes.  CPU tensors come back
+    as they are, with no event."""
+    if ts[0].device.type != "cuda":
+        return list(ts), None
+    hosts = []
+    for t in ts:
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        hosts.append(host)
     ev = torch.cuda.Event(blocking=True)
     ev.record()
-    return host, ev
+    return hosts, ev
 
 
 def to_device(arr, device, dtype=None) -> torch.Tensor:
@@ -281,6 +316,28 @@ def _sample_tokens(logits: torch.Tensor, temp: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _ticks(forward, cache: Dict[str, torch.Tensor], tok: torch.Tensor,
+           temp: torch.Tensor, seeds: torch.Tensor, mask: torch.Tensor,
+           chunk_tokens: int, top_k: Optional[int], top_p: Optional[float]
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``chunk_tokens`` ring ticks — the body every resident program
+    shares (contiguous or paged, 1-step or fused).  ``forward(tok,
+    cache) -> (logits, cache')`` is one tick's forward; lanes outside
+    ``mask`` compute (the price of fixed shapes) but their position is
+    ZEROED each tick and their token held.  Returns ``(tok', toks
+    [chunk, B])``; ``cache['pos']`` is rebound each tick."""
+    toks = []
+    for _ in range(chunk_tokens):
+        pos = cache["pos"]
+        logits, new = forward(tok, cache)
+        nxt = _sample_tokens(logits, temp, seeds, pos, top_k, top_p)
+        cache["pos"] = torch.where(mask, new["pos"],
+                                   torch.zeros_like(new["pos"]))
+        tok = torch.where(mask, nxt, tok)
+        toks.append(tok)
+    return tok, torch.stack(toks)
+
+
 def make_chunk_step(cfg: LlamaConfig, chunk_tokens: int,
                     top_k: Optional[int] = None,
                     top_p: Optional[float] = None):
@@ -295,18 +352,114 @@ def make_chunk_step(cfg: LlamaConfig, chunk_tokens: int,
     row 0, which the next admission's splice overwrites."""
 
     def step(params, cache, tok, temp, seeds, active):
-        toks = []
-        for _ in range(chunk_tokens):
-            pos = cache["pos"]
-            logits, new = _ring_forward(cfg, params, tok, cache)
-            nxt = _sample_tokens(logits, temp, seeds, pos, top_k, top_p)
-            cache["pos"] = torch.where(active, new["pos"],
-                                       torch.zeros_like(new["pos"]))
-            tok = torch.where(active, nxt, tok)
-            toks.append(tok)
-        return tok, torch.stack(toks)
+        return _ticks(lambda t, c: _ring_forward(cfg, params, t, c), cache,
+                      tok, temp, seeds, active, chunk_tokens, top_k, top_p)
 
     return step
+
+
+def _mega_advance(toks: torch.Tensor, raw: torch.Tensor, live: torch.Tensor,
+                  left: torch.Tensor, eos: torch.Tensor):
+    """On-device continuation bookkeeping at one fused-iteration
+    boundary of a megastep — the decision the host makes between two
+    1-step dispatches, as tensor ops with no host read.
+
+    ``toks`` [T, B] the boundary's tokens, ``raw`` [B] the device-valid
+    row count per lane (``chunk`` while live, 0 for lanes that sat the
+    iteration out), ``live`` [B] the continuation mask at the
+    iteration's start, ``left`` [B] the remaining token budget, ``eos``
+    [B] the eos id (-1: none).  Returns ``(count, live', left')``: the
+    tokens the host consumes for this boundary (up to and INCLUDING an
+    eos, capped by the budget — the walk of the scheduler's
+    ``_consume``) and the advanced state.  A lane that saw eos or spent
+    its budget goes dead and free-runs masked until the megastep
+    ends."""
+    t = toks.shape[0]
+    idx = torch.arange(t, device=toks.device)[:, None]
+    hitv = (eos[None, :] >= 0) & (toks == eos[None, :])
+    hit = hitv.to(torch.int32)
+    eos_before = (torch.cumsum(hit, dim=0) - hit) > 0
+    valid = ((idx < raw[None, :]) & ~eos_before
+             & (idx < left[None, :]) & live[None, :])
+    count = valid.sum(dim=0).to(torch.int32)
+    saw_eos = (hitv & valid).any(dim=0)
+    left2 = left - count
+    live2 = live & ~saw_eos & (left2 > 0)
+    return count, live2, left2
+
+
+def _mega_continue(toks: torch.Tensor, raw: torch.Tensor,
+                   live: torch.Tensor, left: torch.Tensor,
+                   steps: torch.Tensor, eos: torch.Tensor):
+    """The whole per-boundary continuation update, shared by both
+    megasteps: :func:`_mega_advance` plus the deadline-tick step
+    accounting.  Returns ``(count, live', left', steps')``."""
+    count, live2, left2 = _mega_advance(toks, raw, live, left, eos)
+    steps2 = steps - live.to(torch.int32)
+    live2 = live2 & (steps2 > 0)
+    return count, live2, left2, steps2
+
+
+def _fused(run_chunk, n_steps: int, chunk_tokens: int,
+           cache: Dict[str, torch.Tensor], tok: torch.Tensor,
+           active: torch.Tensor, eos: torch.Tensor, left: torch.Tensor,
+           steps: torch.Tensor):
+    """The megastep's outer loop over ``n_steps`` chunks (the JAX
+    outer ``scan``): ``run_chunk(tok, live) -> (tok', toks [chunk, B])``
+    runs one chunk with the lanes outside ``live`` masked; at each
+    boundary :func:`_mega_continue` advances the continuation state and
+    a lane that was not live through the chunk gets back the position
+    it had before it (so a lane frozen by its step budget resumes where
+    its last consumed token left it).  Returns ``(tok', toks [n, chunk,
+    B], counts [n, B])``."""
+    live = active & (left > 0) & (steps > 0)
+    all_toks, counts = [], []
+    for _ in range(n_steps):
+        p0 = cache["pos"].clone()
+        tok, toks = run_chunk(tok, live)
+        raw = torch.where(live, chunk_tokens, 0).to(torch.int32)
+        count, live2, left, steps = _mega_continue(toks, raw, live, left,
+                                                   steps, eos)
+        cache["pos"] = torch.where(live, cache["pos"], p0)
+        live = live2
+        all_toks.append(toks)
+        counts.append(count)
+    return tok, torch.stack(all_toks), torch.stack(counts)
+
+
+def make_megastep(cfg: LlamaConfig, chunk_tokens: int, n_steps: int,
+                  top_k: Optional[int] = None,
+                  top_p: Optional[float] = None):
+    """N fused ring iterations in ONE dispatch (SERVE_MEGASTEP) on the
+    contiguous ring: :func:`make_chunk_step`'s ticks run ``n_steps``
+    times with the host's boundary decisions — eos, token budget, step
+    budget — carried on the device (:func:`_mega_continue`).  A lane
+    that finishes mid-megastep free-runs masked: its position stops
+    advancing and its writes land at its own row 0, like an inactive
+    lane's in the 1-step program, which the next admission's splice
+    overwrites.  So the contiguous ring must only freeze lanes it will
+    EVICT at the boundary (eos / budget spent): a frozen-and-resumed
+    lane would have lost its first prompt row, and the scheduler never
+    hands a contiguous ring a step budget below ``n_steps`` (the paged
+    megastep, whose dead lanes write the trash block, is the resumable
+    one).
+
+    ``mega(params, cache, tok, temp, seeds, active, eos, left, steps)
+    -> (tok', toks [n, chunk, B], counts [n, B])``, the cache and
+    positions updated in place (``cache['pos']`` rebound).
+    ``counts[r, b]`` is the number of ``toks[r, :, b]`` rows the host
+    consumes for iteration ``r`` (0 once the lane is dead)."""
+
+    def mega(params, cache, tok, temp, seeds, active, eos, left, steps):
+        def run_chunk(t, live):
+            return _ticks(lambda tt, c: _ring_forward(cfg, params, tt, c),
+                          cache, t, temp, seeds, live, chunk_tokens, top_k,
+                          top_p)
+
+        return _fused(run_chunk, n_steps, chunk_tokens, cache, tok, active,
+                      eos, left, steps)
+
+    return mega
 
 
 def _splice_lane(ring: Dict[str, torch.Tensor],
@@ -368,6 +521,34 @@ def _default_buckets(max_len: int) -> Tuple[int, ...]:
 # ---------------------------------------------------------------------------
 
 
+class _Graph:
+    """One captured resident program: the graph, its static outputs and
+    the kernel launches it recorded."""
+
+    __slots__ = ("graph", "toks", "counts", "launches")
+
+    def __init__(self, graph, toks, counts, launches):
+        self.graph = graph
+        self.toks = toks
+        self.counts = counts
+        self.launches = launches
+
+
+_COUNTERS = ((decode_attention, "launches"),
+             (paged_decode_attention, "launches"),
+             (paged_decode_attention, "quant_launches"))
+
+
+def _launch_counts() -> List[int]:
+    """The decode kernels' launch counts (contiguous, paged, int8)."""
+    return [getattr(fn, attr) for fn, attr in _COUNTERS]
+
+
+def _add_launches(delta) -> None:
+    for (fn, attr), d in zip(_COUNTERS, delta):
+        setattr(fn, attr, getattr(fn, attr) + d)
+
+
 class RingExecutor:
     """Owns everything device-side about one continuous-batching ring:
     the resident chunk step, the admission inserts (cold, and suffix
@@ -375,7 +556,16 @@ class RingExecutor:
     tok/temp/seed state.  The scheduler (infer/scheduler.py
     ContinuousBatcher) holds no tensors of its own — it sequences work
     on this object, which is what makes the watchdog's full device
-    rebuild (:meth:`reset_state`) possible."""
+    rebuild (:meth:`reset_state`) possible.
+
+    ``megastep`` is the fused iteration count the scheduler dispatches
+    (SERVE_MEGASTEP; 1 = the chunk step alone).  On a CUDA device the
+    resident programs — the 1-step chunk and the ``megastep``-step one
+    — are captured as CUDA graphs sharing one memory pool
+    (:meth:`capture_graphs`, while no lane is resident), and
+    :meth:`replay` replays them: the plan goes into one static device
+    buffer, the state (cache, tok, temp, seeds) stays at fixed
+    addresses, and admissions write it in place between replays."""
 
     # a prefix hit with a LONGER divergent suffix admits through the
     # cold block-granular prefill instead (the JAX package's cut-over
@@ -390,7 +580,10 @@ class RingExecutor:
                  paged: bool = False, block_size: int = 256,
                  num_blocks: Optional[int] = None,
                  prefix_cache: bool = True,
-                 kv_quant: str = "none") -> None:
+                 kv_quant: str = "none", megastep: int = 1) -> None:
+        if int(megastep) < 1:
+            raise ValueError(f"megastep must be >= 1 (got {megastep})")
+        self.megastep = int(megastep)
         self.params = params
         self.cfg = cfg
         self.device = params.tok_embed.embedding.device
@@ -445,6 +638,15 @@ class RingExecutor:
             self.step = make_chunk_step(cfg, chunk_tokens, top_k, top_p)
             self.inserts = {b: make_prefill_insert(cfg, b, top_k, top_p)
                             for b in self.buckets}
+        self._mega: Dict[int, Any] = {}
+        # the plan's one static device buffer (int32): active, eos,
+        # left, steps ([slots] each), then the table [slots, M]
+        width = self.pool.max_blocks if self.paged else 0
+        self._plan = torch.zeros((4 + width) * slots, dtype=torch.int32,
+                                 device=self.device)
+        self._graphs: Optional[Dict[int, _Graph]] = None
+        self.capture_s = 0.0
+        self.graph_replays = 0
         self.reset_state()
 
     # -- state lifecycle ---------------------------------------------------
@@ -457,6 +659,9 @@ class RingExecutor:
         fresh allocator too (the radix cache keys blocks of the
         replaced pool)."""
         dev = self.device
+        # the graphs hold the old state's addresses: captured again, by
+        # capture_graphs, before the next dispatch
+        self._graphs = None
         if self.paged:
             self.pool = self._pg.PagedCacheManager(
                 self.slots, self.max_len, self.block_size,
@@ -476,38 +681,189 @@ class RingExecutor:
                                  device=dev)
 
     def prewarm(self) -> None:
-        """Build the kernel library this ring launches (PyTorch has no
-        programs to compile) so the first dispatch does not pay the
-        nvcc build — a no-op off the card."""
-        if self.device.type == "cuda" and \
-                self.cfg.resolved_decode_attn(self.device) == "kernel":
+        """Build the kernel library this ring launches and, on the card,
+        capture its resident programs (:meth:`capture_graphs`) — so the
+        first dispatch pays neither.  Off the card a no-op.  Call it
+        only while no lane is resident."""
+        if self.device.type != "cuda":
+            return
+        if self.cfg.resolved_decode_attn(self.device) == "kernel":
             from paddle_operator_tpu_torch.ops import _build
 
             _build.load("decode_attention")
+        self.capture_graphs()
 
     # -- plan replay: the ONE resident dispatch path -----------------------
 
+    def megastep_prog(self, n: int):
+        """The N-fused-iteration program for this ring's mode
+        (contiguous, paged or int8 paged), built once per N."""
+        prog = self._mega.get(n)
+        if prog is None:
+            if self.paged:
+                prog = self._pg.make_paged_megastep(
+                    self.cfg, self.chunk, n, self.top_k, self.top_p,
+                    quant=self.quant)
+            else:
+                prog = make_megastep(self.cfg, self.chunk, n, self.top_k,
+                                     self.top_p)
+            self._mega[n] = prog
+        return prog
+
+    def _plan_views(self):
+        s = self.slots
+        p = self._plan
+        table = p[4 * s:].view(s, -1) if self.paged else None
+        return p[:s], p[s:2 * s], p[2 * s:3 * s], p[3 * s:4 * s], table
+
+    def _upload(self, plan: ExecPlan) -> None:
+        """The plan into the static buffer: one host->device copy,
+        queued in stream order (from pinned memory on the card, so the
+        host does not wait for the dispatches still queued)."""
+        s = self.slots
+        host = np.zeros(self._plan.shape[0], np.int32)
+        host[:s] = np.asarray(plan.active, bool)
+        if plan.n_steps > 1:
+            host[s:2 * s] = plan.eos
+            host[2 * s:3 * s] = plan.left
+            host[3 * s:4 * s] = plan.steps
+        if self.paged:
+            host[4 * s:] = np.asarray(plan.table, np.int32).reshape(-1)
+        src = torch.from_numpy(host)
+        if self.device.type == "cuda":
+            self._plan.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            self._plan.copy_(src)
+
+    def run(self, plan: ExecPlan):
+        """The plan's program called eagerly, op by op: what
+        :meth:`replay` runs on the CPU, and on the card the program its
+        graph replays (for comparing the two).  Returns ``(toks,
+        counts)``."""
+        self._upload(plan)
+        return self._program(plan.n_steps)
+
+    def _program(self, n_steps: int):
+        """The resident program of ``n_steps`` fused iterations over the
+        static state and the uploaded plan — what :meth:`run` calls and
+        :meth:`capture_graphs` records (1 step: ``self.step``, the seam
+        pacing and fault-injection wrappers install on).  The state
+        stays at its addresses: positions and tokens are written back in
+        place.  Returns ``(toks, counts)``."""
+        active_i, eos, left, steps, table = self._plan_views()
+        active = active_i != 0
+        lead = (table,) if self.paged else ()
+        pos = self.cache["pos"]
+        if n_steps == 1:
+            tok, toks = self.step(self.params, self.cache, *lead, self.tok,
+                                  self.temp, self.seeds, active)
+            counts = None
+        else:
+            tok, toks, counts = self.megastep_prog(n_steps)(
+                self.params, self.cache, *lead, self.tok, self.temp,
+                self.seeds, active, eos, left, steps)
+        pos.copy_(self.cache["pos"])
+        self.cache["pos"] = pos
+        self.tok.copy_(tok)
+        return toks, counts
+
     def replay(self, plan: ExecPlan) -> DispatchResult:
         """Execute one scheduler-filled :class:`ExecPlan` against the
-        ring's device state: one chunk of ``chunk_tokens`` ticks for
-        every lane (inactive lanes masked).  The watchdog brackets it;
-        the tokens come back as a device tensor whose host copy is
+        ring's device state: ``plan.n_steps`` chunks of ``chunk_tokens``
+        ticks for every lane (inactive lanes masked).  On the card, the
+        CUDA graph of that program (a missing graph raises: nothing runs
+        eagerly there); on the CPU, :meth:`run`.  The watchdog brackets
+        it; the tokens come back as device tensors whose host copies are
         already queued."""
-        if plan.n_steps != 1:
-            raise NotImplementedError(
-                "the megastep (n_steps > 1, SERVE_MEGASTEP) is not ported "
-                "to the torch package yet (ROADMAP.md Queue A)")
-        dev = self.device
-        active = to_device(np.asarray(plan.active, bool), dev)
-        if self.paged:
-            tbl = to_device(plan.table, dev, torch.int32)
-            self.tok, toks = self.step(self.params, self.cache, tbl,
-                                       self.tok, self.temp, self.seeds,
-                                       active)
-        else:
-            self.tok, toks = self.step(self.params, self.cache, self.tok,
-                                       self.temp, self.seeds, active)
-        return DispatchResult(toks, 1)
+        n = plan.n_steps
+        if self.device.type != "cuda":
+            return DispatchResult(*self.run(plan), n)
+        g = (self._graphs or {}).get(n)
+        if g is None:
+            raise RuntimeError(
+                f"no CUDA graph of the {n}-step program: capture_graphs() "
+                f"(prewarm) captures steps {sorted({1, self.megastep})} "
+                "while no lane is resident")
+        self._upload(plan)
+        g.graph.replay()
+        self.graph_replays += 1
+        _add_launches(g.launches)
+        return DispatchResult(g.toks, g.counts, n)
+
+    @property
+    def needs_capture(self) -> bool:
+        """On the card, before the first dispatch and after every
+        :meth:`reset_state`: the graphs must be captured (while no lane
+        is resident)."""
+        return self.device.type == "cuda" and self._graphs is None
+
+    @torch.inference_mode()
+    def capture_graphs(self) -> None:
+        """Capture the 1-step program and the ``megastep``-step one as
+        CUDA graphs sharing one memory pool (a no-op off the card or
+        when captured).  Each is first run once for real (sizing the
+        decode kernels' split scratch and setting their attributes, which
+        must not happen under capture) with every lane inactive and the
+        table all trash: inactive lanes write row 0 of their own lane,
+        the trash block and the trash tail, and keep position 0 and
+        their token.  So this runs only while no lane is resident — at
+        prewarm and after :meth:`reset_state` — and raises otherwise.
+        The launches each graph recorded are kept and added to the
+        kernels' counts at every replay; the warm-up's and the
+        capture's own are taken back off."""
+        if not self.needs_capture:
+            return
+        if bool(self.cache["pos"].any()):
+            raise RuntimeError("capture_graphs: lanes are resident "
+                               "(non-zero positions); capture only while "
+                               "the ring is empty")
+        t0 = time.perf_counter()
+        s = self.slots
+        width = self.pool.max_blocks if self.paged else 0
+        idle = ExecPlan(self.megastep, [False] * s,
+                        table=np.zeros((s, width), np.int32),
+                        eos=np.full(s, -1, np.int32),
+                        left=np.zeros(s, np.int32),
+                        steps=np.zeros(s, np.int32))
+        steps = sorted({1, self.megastep})
+        before = _launch_counts()
+        graphs = {}
+        with torch.cuda.device(self.device):
+            for n in steps:
+                idle.n_steps = n
+                self.run(idle)
+            torch.cuda.synchronize()
+            pool = torch.cuda.graph_pool_handle()
+            # no garbage collection while capturing: collecting an
+            # unreachable object that holds a CUDA graph (an old ring)
+            # destroys that graph, which invalidates the capture
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                for n in steps:
+                    c0 = _launch_counts()
+                    g = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(g, pool=pool,
+                                          capture_error_mode="thread_local"):
+                        toks, counts = self._program(n)
+                    graphs[n] = _Graph(g, toks, counts, [
+                        b - a for a, b in zip(c0, _launch_counts())])
+            finally:
+                if collecting:
+                    gc.enable()
+            _add_launches([a - b for a, b in zip(before, _launch_counts())])
+            torch.cuda.synchronize()
+        self._graphs = graphs
+        self.capture_s = time.perf_counter() - t0
+
+    def graph_pool_bytes(self) -> int:
+        """Device bytes the captured graphs' memory pool holds (0 with
+        no graph)."""
+        if not self._graphs:
+            return 0
+        pool = next(iter(self._graphs.values())).graph.pool()
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
 
     # -- admission programs ------------------------------------------------
 

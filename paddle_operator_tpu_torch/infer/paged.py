@@ -32,9 +32,11 @@ writes where the JAX module returned donated copies), layers are a
 Python loop where JAX scanned, and the ``make_*`` functions return plain
 callables that update the pool in place — there is nothing to compile.
 
-Not ported yet (ROADMAP.md Queue A): the host spill tier and the
-durable store (bf16 and int8), lane spill/restore, the megastep and the
-prefill-pool transfers.  ``ContinuousBatcher`` refuses them.
+The megastep (SERVE_MEGASTEP) fuses N chunks into one dispatch
+(:func:`make_paged_megastep`).  Not ported yet (ROADMAP.md Queue A):
+the host spill tier and the durable store (bf16 and int8), lane
+spill/restore and the prefill-pool transfers.  ``ContinuousBatcher``
+refuses them.
 """
 
 from __future__ import annotations
@@ -726,23 +728,57 @@ def make_paged_chunk_step(cfg: LlamaConfig, chunk_tokens: int,
     ``quant=True``: the int8 pool, ``active`` also steering inactive
     lanes' tail rows to the trash tail (:func:`paged_ring_forward`).
     Everything stays on the device: no host read inside the chunk."""
-    from paddle_operator_tpu_torch.infer.executor import _sample_tokens
+    from paddle_operator_tpu_torch.infer.executor import _ticks
 
     def step(params, cache, table, tok, temp, seeds, active):
-        toks = []
-        for _ in range(chunk_tokens):
-            pos = cache["pos"]
-            logits, new = paged_ring_forward(
-                cfg, params, tok, cache, table, quant=quant,
-                active=active if quant else None)
-            nxt = _sample_tokens(logits, temp, seeds, pos, top_k, top_p)
-            cache["pos"] = torch.where(active, new["pos"],
-                                       torch.zeros_like(new["pos"]))
-            tok = torch.where(active, nxt, tok)
-            toks.append(tok)
-        return tok, torch.stack(toks)
+        return _ticks(
+            lambda t, c: paged_ring_forward(cfg, params, t, c, table,
+                                            quant=quant,
+                                            active=active if quant else None),
+            cache, tok, temp, seeds, active, chunk_tokens, top_k, top_p)
 
     return step
+
+
+def make_paged_megastep(cfg: LlamaConfig, chunk_tokens: int, n_steps: int,
+                        top_k: Optional[int] = None,
+                        top_p: Optional[float] = None,
+                        quant: bool = False):
+    """N fused PAGED ring iterations in one dispatch (SERVE_MEGASTEP):
+    :func:`make_paged_chunk_step`'s ticks run ``n_steps`` chunks with
+    the host's boundary decisions — eos, token budget, step budget —
+    carried on the device (executor._mega_continue).  The pool is what
+    makes a mid-megastep finish safe without the host: each fused chunk
+    runs on an EFFECTIVE table whose dead lanes' rows are the trash
+    block (the redirect ``retire`` makes on the host by zeroing the
+    row), so a dead lane's free-running writes — pool rows, and under
+    quant the commits and staging-tail rows (``active=live`` sends
+    those to the trash tail) — never touch a real block.  Its position
+    is restored from the pre-chunk snapshot at each boundary, so a lane
+    frozen by its STEP budget (deadline ticks) resumes bit for bit in a
+    later dispatch: its blocks, tail and position are exactly as its
+    last consumed token left them.
+
+    ``mega(params, cache, table, tok, temp, seeds, active, eos, left,
+    steps) -> (tok', toks [n, chunk, B], counts [n, B])`` — the output
+    contract of executor.make_megastep, table operand added."""
+    from paddle_operator_tpu_torch.infer.executor import _fused, _ticks
+
+    def mega(params, cache, table, tok, temp, seeds, active, eos, left,
+             steps):
+        def run_chunk(t, live):
+            tbl = torch.where(live[:, None], table,
+                              torch.full_like(table, TRASH_BLOCK))
+            return _ticks(
+                lambda tt, c: paged_ring_forward(
+                    cfg, params, tt, c, tbl, quant=quant,
+                    active=live if quant else None),
+                cache, t, temp, seeds, live, chunk_tokens, top_k, top_p)
+
+        return _fused(run_chunk, n_steps, chunk_tokens, cache, tok, active,
+                      eos, left, steps)
+
+    return mega
 
 
 def make_paged_prefill_insert(cfg: LlamaConfig, bucket: int,

@@ -161,6 +161,11 @@ class DispatchWatchdog:
         self._p95 = RollingQuantile(0.95)
         self._lock = threading.Lock()
         self._start: Optional[float] = None
+        # a region covering N fused ring iterations (SERVE_MEGASTEP)
+        # legitimately takes ~N x a 1-step one: samples are normalized
+        # to per-iteration time at end() and the threshold multiplies
+        # back by the in-flight region's scale
+        self._scale = 1.0
         self._gen = 0                 # region id, so a stall fires once
         self._stalled_gen = -1
         self._hard_gen = -1
@@ -169,10 +174,13 @@ class DispatchWatchdog:
                                         name="dispatch-watchdog")
         self._thread.start()
 
-    def begin(self) -> None:
+    def begin(self, scale: float = 1.0) -> None:
+        """``scale``: how many fused ring iterations this region covers
+        (SERVE_MEGASTEP; 1 for ordinary dispatches)."""
         with self._lock:
             self._gen += 1
             self._start = time.monotonic()
+            self._scale = max(1.0, float(scale))
 
     def end(self) -> None:
         with self._lock:
@@ -181,15 +189,20 @@ class DispatchWatchdog:
             dur = time.monotonic() - self._start
             # a region already DECLARED stalled must not feed the p95
             if self._gen != self._stalled_gen:
-                self._p95.add(dur)
+                self._p95.add(dur / self._scale)   # per-iteration time
             self._start = None
 
     def threshold(self) -> float:
-        """Stall threshold for the IN-FLIGHT region."""
+        """Stall threshold for the IN-FLIGHT region: the factor term
+        scales with its fused iteration count; the floor stays
+        absolute."""
+        with self._lock:
+            scale = self._scale
         p95 = self._p95.value()
         if p95 is None:
             return self.cfg.stall_floor_s
-        return max(self.cfg.stall_floor_s, self.cfg.stall_factor * p95)
+        return max(self.cfg.stall_floor_s,
+                   scale * self.cfg.stall_factor * p95)
 
     def _monitor(self) -> None:
         while not self._stop.wait(self.cfg.poll_s):

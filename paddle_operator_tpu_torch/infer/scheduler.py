@@ -15,16 +15,21 @@ ring's key set.
 
 The ring runs on its own thread, under ``torch.inference_mode`` (which
 is thread-local, so the thread enters it itself).  Device work is
-queued on the current stream and never read back inside a chunk: the
-one sync per dispatch is the consume's wait for that chunk's tokens
-(``DispatchResult.host_toks``).
+queued on the current stream and never read back inside a dispatch:
+the one sync per dispatch is the consume's wait for its tokens
+(``DispatchResult.host``).  ``megastep=N`` (SERVE_MEGASTEP) fuses N
+chunks into one dispatch, with eos, token budget and the deadline-tick
+step budget carried on the device; admissions, evictions and deadlines
+then act at megastep boundaries.  On the card every dispatch is a CUDA
+graph replay; the graphs are captured at prewarm (or, without it,
+before the first admission) and again after a self-healing rebuild,
+always while the ring is empty.
 
 The paged ring runs over the bf16 pool or the int8 pool
 (``kv_quant="int8"``).  Not ported yet, and refused when asked for
 (ROADMAP.md Queue A): speculative decoding, chunked and disaggregated
-prefill, the megastep, the host tier, LoRA adapters, span tracing, the
-NaN-lane check, live weight swap, lane spill (preemption) and
-fleet-level KV.
+prefill, the host tier, LoRA adapters, span tracing, the NaN-lane
+check, live weight swap, lane spill (preemption) and fleet-level KV.
 """
 
 from __future__ import annotations
@@ -197,12 +202,22 @@ class ContinuousBatcher:
                  f"prefill_mode={prefill_mode!r}"),
                 (host_cache_blocks, "the host spill tier"),
                 (adapters is not None, "LoRA adapters"),
-                (int(megastep) != 1, f"megastep={megastep}"),
                 (bool(trace), "span tracing (trace=True)"),
                 (resilience is not None and resilience.nan_check,
                  "the NaN-lane check (nan_check)")):
             if bad:
                 raise _unported(what)
+        # SERVE_MEGASTEP: fuse N ring iterations into ONE dispatch, with
+        # eos / token budget / deadline-tick step budget carried on the
+        # device; admission and eviction happen at megastep boundaries.
+        # N=1 (default) dispatches the chunk step alone.
+        self.megastep = int(megastep)
+        if self.megastep < 1:
+            raise ValueError(f"megastep must be >= 1 (got {megastep})")
+        # rolling per-iteration wall estimate (EMA over consumed
+        # dispatches): the deadline-tick budget converts a request's
+        # remaining seconds into fused iterations with it (0: none yet)
+        self._step_s_est = 0.0
         self.cfg = cfg
         self.slots = slots
         self.max_len = max_len or cfg.max_seq_len
@@ -236,7 +251,7 @@ class ContinuousBatcher:
             chunk_tokens=chunk_tokens, prefill_buckets=prefill_buckets,
             top_k=top_k, top_p=top_p, paged=paged, block_size=block_size,
             num_blocks=num_blocks, prefix_cache=prefix_cache,
-            kv_quant=kv_quant)
+            kv_quant=kv_quant, megastep=self.megastep)
         self.device = self.executor.device
         self.generation = int(generation)
         self.paged = self.executor.paged
@@ -268,8 +283,10 @@ class ContinuousBatcher:
         self._tokens_emitted = 0
         self._t_start = time.monotonic()
         # prewarm (serve.py default, SERVE_PREWARM=0 opts out): build
-        # the kernel library off-thread before the first dispatch
+        # the kernel library and capture the ring's CUDA graphs
+        # off-thread; the ring admits nothing before it is done
         self.prewarmed = threading.Event()
+        self.prewarm_error: Optional[Exception] = None
         if prewarm:
             threading.Thread(target=self._prewarm, daemon=True,
                              name="kernel-prewarm").start()
@@ -316,10 +333,11 @@ class ContinuousBatcher:
     def _prewarm(self) -> None:
         try:
             self.executor.prewarm()
-        except Exception:
-            # a prewarm failure must never take the server down: the
-            # first dispatch builds the library (and raises) itself
-            pass
+        except Exception as e:
+            # a prewarm failure must never take the server down here:
+            # the ring captures (and raises, as a ring fault) itself
+            # before its first admission
+            self.prewarm_error = e
         finally:
             self.prewarmed.set()
 
@@ -477,7 +495,7 @@ class ContinuousBatcher:
             "kvStoreEvictions": 0,
             "activeAdapters": 0,
             "adapterNames": [],
-            "megastepN": 1,
+            "megastepN": self.megastep,
             "dispatchesPerToken": (
                 round(self.stats["chunks"] / self._tokens_emitted, 4)
                 if self._tokens_emitted else 0.0),
@@ -747,7 +765,7 @@ class ContinuousBatcher:
         if fd is None:
             return
         self._lane_first[i] = None
-        host, ev = fd
+        (host,), ev = fd
         if ev is not None:
             ev.synchronize()
         t = int(host[0])
@@ -822,18 +840,26 @@ class ContinuousBatcher:
                 self.lane[i] = None
         self._shed_queue(ShuttingDown("batcher closed"))
 
-    def _consume(self, chunk_reqs, toks: np.ndarray) -> None:
+    def _consume(self, chunk_reqs, toks: np.ndarray,
+                 counts: Optional[np.ndarray] = None) -> None:
         """Apply one finished chunk's tokens ([chunk, slots] on host).
         ``chunk_reqs`` pins each lane to the REQUEST the chunk was
         dispatched for: under pipelining a lane may have been evicted
-        (and re-admitted) since dispatch — such tokens are dropped."""
+        (and re-admitted) since dispatch — such tokens are dropped.
+
+        ``counts`` (a fused megastep boundary): per-lane count of VALID
+        rows in ``toks`` — lane i takes ``toks[:counts[i], i]``, which
+        is also its device position advance (full chunks while live, 0
+        once dead); None means every row is valid.  The budget/eos walk
+        below is shared, so an eos inside a fused iteration truncates
+        exactly like one inside a chunk."""
         now = time.monotonic()
         for i, req in chunk_reqs:
             if req is None or self.lane[i] is not req \
                     or req.done.is_set():
                 continue
             self._materialize_first(i, req)
-            n = toks.shape[0]
+            n = toks.shape[0] if counts is None else int(counts[i])
             self._lane_pos[i] += n
             emitted = 0
             for t in toks[:n, i]:
@@ -857,28 +883,48 @@ class ContinuousBatcher:
                 self._evict(i)
 
     def _consume_oldest(self, pending: List[tuple]) -> None:
-        """Pop + apply the oldest in-flight chunk.  The blocking wait
-        for its tokens sits under the watchdog: a wedged dispatch
-        surfaces HERE, and the monitor fails the waiting clients while
-        this thread is still stuck."""
-        chunk_reqs, res = pending.pop(0)
+        """Pop + apply the oldest in-flight dispatch (one chunk, or one
+        megastep's N fused boundaries).  The blocking wait for its
+        tokens sits under the watchdog, scaled by the fused iteration
+        count (a legal N-step wait is ~N x a 1-step one): a wedged
+        dispatch surfaces HERE, and the monitor fails the waiting
+        clients while this thread is still stuck."""
+        chunk_reqs, res, t0 = pending.pop(0)
         wd = self._watchdog
         if wd is not None:
-            wd.begin()
+            wd.begin(scale=res.n_steps)
         try:
-            toks = res.host_toks()
+            toks, counts = res.host()
         finally:
             if wd is not None:
                 wd.end()
+        # per-iteration wall estimate for the deadline-tick budget:
+        # dispatch -> consume covers the pipeline wait too, so the EMA
+        # overestimates — a lane freezes a little early and resumes in
+        # the next dispatch, never late
+        per = (time.monotonic() - t0) / res.n_steps
+        self._step_s_est = (per if not self._step_s_est
+                            else 0.8 * self._step_s_est + 0.2 * per)
         if self._fault is not None:
             return              # stall-failed chunks must not apply
-        self._consume(chunk_reqs, toks)
+        if counts is None:
+            self._consume(chunk_reqs, toks)
+            return
+        # fused megastep: apply the N boundaries in order — each is one
+        # 1-step consume with the eos/budget walk the device precomputed
+        # (counts); a lane evicted at boundary r drops out of rounds
+        # r+1.. through the chunk_reqs identity guard
+        for r in range(res.n_steps):
+            self._consume(chunk_reqs, toks[r], counts=counts[r])
 
     def _loop_body(self) -> None:
         # Up to ``pipeline_depth`` chunks in flight: the host consumes
         # chunk N's tokens (queue pushes, evict bookkeeping, the
         # device->host wait) WHILE the card decodes chunk N+1.
-        pending: List[tuple] = []   # [(chunk_reqs, DispatchResult)]
+        pending: List[tuple] = []   # [(chunk_reqs, DispatchResult, t0)]
+        while not self.prewarmed.wait(0.1):     # it may be capturing
+            if self._stop.is_set():
+                return
         while not self._stop.is_set():
             ex = self.executor
             if self._fault is not None:
@@ -887,6 +933,16 @@ class ContinuousBatcher:
                 if not self._heal(err):
                     raise err
                 continue
+            if ex.needs_capture and not pending \
+                    and all(r is None for r in self.lane):
+                # on the card, before the first admission and after a
+                # rebuild: capture the resident programs while the ring
+                # is empty (a failure is a ring fault like a dispatch's)
+                try:
+                    ex.capture_graphs()
+                except Exception as e:
+                    self._fault = e
+                    continue
             if self._draining:
                 self._shed_queue(ShuttingDown(
                     "server draining; retry another replica"))
@@ -941,23 +997,29 @@ class ContinuousBatcher:
                 continue
             self.stats["max_active"] = max(self.stats["max_active"],
                                            len(active_idx))
+            n_mega = self.megastep
             tbl_np = None
             if self.paged:
                 # on-demand block mapping: grow each active lane's table
                 # to cover this dispatch PLUS every chunk already in
                 # flight for it (the host pos mirror lags dispatched-
-                # but-unconsumed work).  An undersized pool can run dry
+                # but-unconsumed work; a fused megastep advances up to
+                # n_steps chunks, capped by the lane's own remaining
+                # token budget).  An undersized pool can run dry
                 # mid-generation: only the lane that cannot grow fails
                 # (its request resolves with the error), and the rest of
                 # the ring keeps serving.
                 for i in list(active_idx):
-                    inflight = sum(1 for chunk_reqs, _ in pending
+                    inflight = sum(entry.n_steps
+                                   for chunk_reqs, entry, _ in pending
                                    for j, r in chunk_reqs
                                    if j == i and r is self.lane[i])
+                    left_i = max(1, self._lane_left[i])
+                    my_steps = min(n_mega, -(-left_i // self.chunk))
                     try:
                         self.pool.ensure(
                             i, self._lane_pos[i]
-                            + (inflight + 1) * self.chunk)
+                            + (inflight + my_steps) * self.chunk)
                     except ex._pg.NoFreeBlocks as e:
                         r = self.lane[i]
                         if r is not None and r.error is None:
@@ -967,11 +1029,43 @@ class ContinuousBatcher:
                 if not active_idx:
                     continue        # every lane starved: retry the loop
                 tbl_np = self.pool.table
-            plan = X.ExecPlan(1, [r is not None for r in self.lane],
-                              table=tbl_np)
+            # fill the plan: which lanes step, the table snapshot, the
+            # fused iteration count and — N>1 — the per-lane continuation
+            # budgets the device carries across boundaries (eos id,
+            # remaining tokens, and the deadline-tick step budget)
+            eos_v = left_v = steps_v = None
+            if n_mega > 1:
+                eos_v = np.full((self.slots,), -1, np.int32)
+                left_v = np.zeros((self.slots,), np.int32)
+                steps_v = np.full((self.slots,), n_mega, np.int32)
+                now = time.monotonic()
+                for i in active_idx:
+                    r = self.lane[i]
+                    if r.eos is not None:
+                        eos_v[i] = int(r.eos)
+                    # the device budget EXCLUDES the admission-sampled
+                    # first token while it is unmaterialized — the host
+                    # consumes it out of the same max_new
+                    left_v[i] = max(
+                        0, self._lane_left[i]
+                        - (1 if self._lane_first[i] is not None else 0))
+                    if (self.paged and r.deadline is not None
+                            and self._step_s_est > 0):
+                        # deadline-tick budget: stop the lane at the
+                        # boundary nearest its deadline instead of
+                        # free-running the whole megastep past it.
+                        # Paged only: a step-frozen lane resumes through
+                        # the trash redirect the contiguous ring lacks.
+                        remaining = r.deadline - now
+                        steps_v[i] = max(1, min(
+                            n_mega, int(remaining / self._step_s_est)))
+            plan = X.ExecPlan(n_mega, [r is not None for r in self.lane],
+                              table=tbl_np, eos=eos_v, left=left_v,
+                              steps=steps_v)
             wd = self._watchdog
             if wd is not None:
-                wd.begin()
+                wd.begin(scale=n_mega)
+            t0 = time.monotonic()
             try:
                 res = ex.replay(plan)
             except Exception as e:
@@ -981,7 +1075,8 @@ class ContinuousBatcher:
                 if wd is not None:
                     wd.end()
             self.stats["chunks"] += 1
-            pending.append(([(i, self.lane[i]) for i in active_idx], res))
+            pending.append(([(i, self.lane[i]) for i in active_idx], res,
+                            t0))
             if len(pending) >= self.pipeline_depth:
                 try:
                     self._consume_oldest(pending)

@@ -491,9 +491,6 @@ def refuse_unported(environ, checkpoint_path: str) -> None:
     if on("SERVE_PREFILL", ("", "inline")):
         refused.append(f"SERVE_PREFILL={environ['SERVE_PREFILL']} "
                        "(chunked/disaggregated prefill)")
-    if int(environ.get("SERVE_MEGASTEP", "0") or 0) > 1:
-        refused.append(f"SERVE_MEGASTEP={environ['SERVE_MEGASTEP']} "
-                       "(the megastep)")
     if on("SERVE_ADAPTERS"):
         refused.append(f"SERVE_ADAPTERS={environ['SERVE_ADAPTERS']} "
                        "(LoRA adapters)")
@@ -526,8 +523,16 @@ def ring_kw_from_env(environ) -> dict:
     JAX entry point reads them: SERVE_SLOTS, SERVE_CHUNK,
     SERVE_MAX_QUEUE, SERVE_MAX_LEN, SERVE_GENERATION, SERVE_PAGED with
     SERVE_BLOCK_SIZE / SERVE_PREFIX_CACHE / SERVE_NUM_BLOCKS,
-    SERVE_KV_QUANT, SERVE_PRIORITIES, SERVE_PREWARM and the watchdog
-    knobs (SERVE_WATCHDOG*, SERVE_MAX_RESTARTS, SERVE_RESTART_WINDOW_S).
+    SERVE_KV_QUANT, SERVE_MEGASTEP, SERVE_PRIORITIES, SERVE_PREWARM and
+    the watchdog knobs (SERVE_WATCHDOG*, SERVE_MAX_RESTARTS,
+    SERVE_RESTART_WINDOW_S).
+
+    SERVE_MEGASTEP=N fuses N ring iterations into one dispatch (one
+    CUDA graph replay on the card), with eos / token budget / deadline
+    ticks carried on the device: admissions move to megastep
+    boundaries, so a queued request may wait up to N iterations for a
+    lane.  0 or unset is the single-step default (the CRD's
+    ``spec.serving.megastep`` 0 means "server default").
 
     SERVE_KV_QUANT=int8 (the int8 KV pool: int8 codes + one f32 scale
     per (block, kv head), for deployments bound by capacity rather than
@@ -547,6 +552,9 @@ def ring_kw_from_env(environ) -> dict:
           "qos": QoSConfig.from_env(environ)}
     if environ.get("SERVE_MAX_LEN"):
         kw["max_len"] = int(environ["SERVE_MAX_LEN"])
+    megastep = int(environ.get("SERVE_MEGASTEP", "0") or 0)
+    if megastep > 1:
+        kw["megastep"] = megastep
     kvq = environ.get("SERVE_KV_QUANT", "none") or "none"
     if kvq != "none":
         kw["kv_quant"] = kvq
@@ -589,6 +597,7 @@ def main() -> int:
     if continuous:
         mode = (f"continuous, paged={bool(ring_kw.get('paged'))}, "
                 f"kv_quant={ring_kw.get('kv_quant', 'none')}, "
+                f"megastep={ring_kw.get('megastep', 1)}, "
                 f"slots={ring_kw['slots']}, "
                 f"chunk={ring_kw['chunk_tokens']}, "
                 f"preemption={PREEMPTION_NOTE}")

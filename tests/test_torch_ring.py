@@ -332,18 +332,21 @@ class TestSubmit:
 
     @pytest.mark.parametrize("kw", [{"spec_k": 2}, {"kv_quant": "int4"},
                                     {"prefill_mode": "chunked"},
-                                    {"megastep": 4},
+                                    {"megastep": 4, "spec_k": 2},
                                     {"host_cache_blocks": 4},
                                     {"trace": True}])
     def test_unported_options_refused(self, setup, kw):
         model, cfg, _, _, _ = setup
         # kv_quant="int8" is ported (tests/test_torch_kvquant.py); a
-        # mode the JAX package lacks too is refused by name
+        # mode the JAX package lacks too is refused by name.  The
+        # megastep is ported (tests/test_torch_megastep.py): beside an
+        # unported option it is that option that is refused
         exc, match = ((ValueError, "kv_quant") if "kv_quant" in kw
                       else (NotImplementedError, "not ported"))
-        with pytest.raises(exc, match=match):
+        with pytest.raises(exc, match=match) as e:
             ContinuousBatcher(model, cfg, slots=1, max_len=MAX_LEN,
                               paged=True, block_size=BS, **kw)
+        assert "megastep" not in str(e.value)
 
 
 def test_serving_status_keys_equal_jax_ring(setup):
