@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
-    python3 chip_smoke.py [--phases 2,2b,2c,2d,3,3b,3c,3d,3e,4,4b,4c,4d,4e]
+    python3 chip_smoke.py [--phases 2,2b,2c,2d,3,3b,3c,3d,3e,3f,4,4b,4c,4d,4e]
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line; with no arguments every phase runs):
@@ -131,6 +131,34 @@ result line; with no arguments every phase runs):
    chunk_tokens x 4 x dispatches; ``/statusz`` reports ``megastepN`` 4
    and a ``dispatchesPerToken`` below 3b's.  New tok/s, TTFT p50/p95
    and wall ms per token are printed beside 3b's.
+3f. checkpoint main path — 7b at full width cut to 2 layers (f32
+   params, bf16 compute, full remat), B 4 x 2049 tokens from
+   ``deterministic_lm_batches(seed=0)``, lr 1e-3, checkpoints under a
+   ``tempfile.mkdtemp()`` removed at the end (its free space printed
+   first).  (a) U: a fresh model from seed 0 trained 6 steps through
+   ``fit`` with a ``CheckpointManager`` at ``save_interval_steps=3``:
+   steps 3 and 6 commit; U2, the same run without a manager, gives the
+   spread of two unbroken runs.  (b) R: a fresh model from seed 0 with a
+   manager at interval 1000 and an installed ``PreemptionWatcher``;
+   ``inject_preemption(at_step=2, signal_self=True)`` delivers a real
+   SIGTERM: the watcher drains, the state stops at step 3, step 3 is
+   committed by the drain alone and the log says ``checkpoint=saved``.
+   (c) A fresh model from seed 1, restored by ``resume_or_init``: its
+   step, count and every parameter, ``mu`` and ``nu`` equal R's in
+   memory bit for bit.  (d) ``fit`` continues 3 steps from
+   ``deterministic_lm_batches(seed=0, start_step=3)``: its losses equal
+   U's steps 4-6 bit for bit, and so do its final params (two unbroken
+   runs are bit-identical: ``CKPT``'s note).  The flash launches of
+   every ``fit`` run are held to 3c's formulas.  (e)
+   ``load_serving_params`` reads R's parameter file into bf16 on the
+   card, adding no more than the bf16 parameter bytes plus
+   ``SERVE_LOAD_MARGIN`` to the allocated memory; the served params
+   equal R's cast in memory; 3b's paged server over each generates 32
+   greedy tokens for 4 prompts, the two give the same tokens, and the
+   paged kernel's launches equal n_layers x chunk_tokens x dispatches.
+   The bytes of a checkpoint, how long ``save`` held the loop (the
+   snapshot), the background write (s, GB/s) and the two restores are
+   printed beside the card's name and power limit.
 4. kernel path == plain path — 7b width, 2 layers, float32: greedy
    ``generate`` through the kernel and through the plain version give
    the same tokens, and per-step logits agree within 1e-3.
@@ -208,9 +236,23 @@ FLASH_BF16_REL = 1e-2
 QUANT_BF16_REL = 1e-2
 # phase 3c: 7b width cut to 8 layers, B x (S + 1) tokens, bf16 compute
 TRAIN = dict(layers=8, batch=4, seq=2048, steps=12, lr=1e-3)
+# phase 3f: 7b width cut to 2 layers (f32 master, bf16 compute), B x
+# (S + 1) tokens; U saves every `interval` steps, R is preempted while
+# the step consuming batch `drain_at` is in flight.  The continued run
+# must equal U bit for bit (losses and final params): two unbroken runs
+# of the phase read bit-identical with PyTorch's default algorithms (max
+# |loss difference| 0.0 on an H100 80GB HBM3 at 700 W; the embedding
+# backward sorts its indices, and cuBLAS on one stream and the flash
+# kernels rerun bit for bit)
+CKPT = dict(layers=2, batch=4, seq=2048, steps=6, interval=3, drain_at=2,
+            lr=1e-3, new_tokens=32)
+# phase 3f: what the serving restore may add to the allocated device
+# memory beyond the bf16 parameter bytes — the f32 RoPE tables (1 MiB)
+# and the allocator's 512-byte rounding
+SERVE_LOAD_MARGIN = 16 << 20
 PEAK_BF16 = 989e12                 # H100 SXM dense bf16, for MFU
-PHASES = ("2", "2b", "2c", "2d", "3", "3b", "3c", "3d", "3e", "4", "4b",
-          "4c", "4d", "4e")
+PHASES = ("2", "2b", "2c", "2d", "3", "3b", "3c", "3d", "3e", "3f", "4",
+          "4b", "4c", "4d", "4e")
 
 
 def log(*a) -> None:
@@ -1796,6 +1838,319 @@ def phase_train_main_path(reports: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_checkpoint(reports: dict) -> None:
+    """Phase 3f: save, drain, restore, continue and serve a checkpoint;
+    see the module docstring."""
+    import itertools
+    import logging
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.ft.preemption import (
+        PreemptionWatcher, inject_preemption)
+    from paddle_operator_tpu_torch.infer.quant import serving_params
+    from paddle_operator_tpu_torch.infer.serve import (load_serving_params,
+                                                       make_server)
+    from paddle_operator_tpu_torch.models.llama import CONFIGS, make_model
+    from paddle_operator_tpu_torch.ops import decode_attention as DA
+    from paddle_operator_tpu_torch.ops import flash_attention as FA
+    from paddle_operator_tpu_torch.train import trainer as T
+    from paddle_operator_tpu_torch.train.checkpoint import (
+        CheckpointManager, resume_or_init)
+    from paddle_operator_tpu_torch.train.data import (
+        DevicePrefetcher, deterministic_lm_batches)
+    from paddle_operator_tpu_torch.utils.observability import StepTimer
+
+    layers, b, s = CKPT["layers"], CKPT["batch"], CKPT["seq"]
+    steps, drain_at = CKPT["steps"], CKPT["drain_at"]
+    card = card_line()
+
+    def new_state(seed):
+        model, _ = make_model("7b", device="cuda", seed=seed,
+                              n_layers=layers)
+        opt = T.make_optimizer(CKPT["lr"], warmup_steps=1, decay_steps=1000)
+        return T.create_state(model, opt), T.make_train_step(opt)
+
+    def batches(start, n):
+        return DevicePrefetcher(itertools.islice(deterministic_lm_batches(
+            b, s + 1, CONFIGS["7b"].vocab_size, seed=0, start_step=start),
+            n), device="cuda")
+
+    def run_fit(what, state, step, data, n, **kw):
+        """``fit`` with the flash launches of exactly that run held to
+        3c's formulas."""
+        timer = StepTimer(b * s, 1.0, 1.0, window=n, clock=_synced_clock)
+        _zero_launches()
+        t0 = _synced_clock()
+        state, hist = T.fit(state, step, data, steps=n, timer=timer, **kw)
+        secs = _synced_clock() - t0
+        done = len(hist)
+        got = (FA.flash_forward.launches, FA.flash_backward_dkv.launches,
+               FA.flash_backward_dq.launches)
+        want = (2 * layers * done, layers * done, layers * done)
+        decode = (DA.decode_attention.launches
+                  + DA.paged_decode_attention.launches
+                  + DA.paged_decode_attention.quant_launches)
+        losses = [h["loss"] for h in hist]
+        log(f"checkpoint {what}: {done} steps in {secs:.2f}s (step ms "
+            f"{[round(t * 1e3, 1) for t in timer.times]}), losses "
+            f"{losses}; flash launches fwd/dkv/dq {got} (2 x {layers} x "
+            f"{done}, {layers} x {done}, {layers} x {done} = {want}), "
+            f"decode kernels {decode}; {card}")
+        if got != want or decode:
+            raise AssertionError(f"checkpoint {what}: the flash launches "
+                                 "do not match the formulas")
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"checkpoint {what}: a loss is not finite")
+        return state, losses
+
+    def same_state(got, want) -> list:
+        """Names of what differs between two TrainStates, bit for bit."""
+        bad = [k for k, v in want.model.state_dict().items()
+               if not torch.equal(got.model.state_dict()[k], v)]
+        for part in ("mu", "nu"):
+            g, w = getattr(got.opt_state, part), getattr(want.opt_state, part)
+            bad += [f"{part}.{k}" for k in w
+                    if g[k].dtype != w[k].dtype or not torch.equal(g[k], w[k])]
+        if (got.step, got.opt_state.count) != (want.step,
+                                               want.opt_state.count):
+            bad.append("step/count")
+        return bad
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(root).free
+        params_n = dataclasses.replace(CONFIGS["7b"],
+                                       n_layers=layers).num_params()
+        need = 2 * 3 * 4 * params_n          # two steps of f32 p, mu, nu
+        log(f"checkpoint: 7b width, {layers} layers ({params_n / 1e9:.3f}B "
+            f"params, f32 master, bf16 compute), B={b} S={s}; "
+            f"{free / 1e9:.1f} GB free under {root} (U keeps two steps, "
+            f"{need / 1e9:.1f} GB)")
+        if free < need:
+            raise AssertionError("not enough disk for phase 3f's "
+                                 "checkpoints")
+
+        # (a) the unbroken run U, saving under the interval; U2, the same
+        # run without a manager, reads the spread of two unbroken runs
+        state, step = new_state(0)
+        ck_u = CheckpointManager(os.path.join(root, "U"), max_to_keep=2,
+                                 save_interval_steps=CKPT["interval"])
+        state, losses_u = run_fit("U", state, step, batches(0, steps),
+                                  steps, checkpoint=ck_u)
+        ck_u.wait()
+        save_u = dict(ck_u.last_save)
+        if ck_u.all_steps() != [3, 6]:
+            raise AssertionError(f"U committed {ck_u.all_steps()}, "
+                                 "expected [3, 6]")
+        u_final = {k: v.clone() for k, v in state.model.state_dict().items()}
+        shutil.rmtree(ck_u.path)
+        del state, step
+        state, step = new_state(0)
+        state, losses_u2 = run_fit("U2", state, step, batches(0, steps),
+                                   steps)
+        spread = max(abs(x - y) for x, y in zip(losses_u, losses_u2))
+        same = "bit-identical" if losses_u == losses_u2 else "differ"
+        log(f"checkpoint: two unbroken runs, max |loss difference| "
+            f"{spread!r} ({same}; {card})")
+        del state, step
+
+        # (b) the drained run R: a real SIGTERM while step 3 is in flight
+        state_r, step_r = new_state(0)
+        ck_r = CheckpointManager(os.path.join(root, "R"), max_to_keep=2)
+        records = []
+        logger = logging.getLogger("chip_smoke.checkpoint")
+        logger.setLevel(logging.INFO)
+        handler = logging.Handler()
+        handler.emit = lambda r: records.append(r.getMessage())
+        logger.addHandler(handler)
+        watcher = PreemptionWatcher.install()
+        try:
+            data = batches(0, steps)
+            state_r, losses_r = run_fit(
+                "R", state_r, step_r,
+                inject_preemption(data, drain_at, watcher, signal_self=True),
+                steps, checkpoint=ck_r, preemption=watcher, logger=logger)
+            committed = ck_r.all_steps()     # before any wait of ours
+        finally:
+            watcher.uninstall()
+            logger.removeHandler(handler)
+        list(data)                           # let the prefetcher finish
+        save_r = dict(ck_r.last_save)
+        log(f"checkpoint R: watcher draining {watcher.draining} "
+            f"({watcher.reason}), step {state_r.step}, committed "
+            f"{committed}; log {records}")
+        if not (watcher.draining and state_r.step == drain_at + 1
+                and committed == [drain_at + 1]
+                and any(f"step={drain_at + 1} checkpoint=saved" in m
+                        for m in records)):
+            raise AssertionError("the drain did not leave a durable "
+                                 "checkpoint of the in-flight step")
+        if losses_r != losses_u[:drain_at + 1]:
+            log(f"checkpoint R: losses {losses_r} differ from U's first "
+                f"{drain_at + 1} {losses_u[:drain_at + 1]}")
+
+        # (c) restore R's checkpoint into a model from another seed
+        fresh, step_c = new_state(1)
+        t0 = _synced_clock()
+        state_c, resumed = resume_or_init(CheckpointManager(ck_r.path),
+                                          lambda: fresh)
+        restore_s = _synced_clock() - t0
+        bad = same_state(state_c, state_r)
+        log(f"checkpoint restore: resumed {resumed}, step {state_c.step}, "
+            f"count {state_c.opt_state.count} in {restore_s:.3f}s; "
+            f"{len(bad)} tensors differ from R's in memory; {card}")
+        if not resumed or bad:
+            raise AssertionError(f"the restore is not bit-exact: {bad[:8]}")
+
+        # (d) continue 3 steps from the restored state
+        state_c, losses_d = run_fit(
+            "continued", state_c, step_c, batches(drain_at + 1, steps),
+            steps - drain_at - 1)
+        worst = max(abs(x - y)
+                    for x, y in zip(losses_d, losses_u[drain_at + 1:]))
+        params_same = all(torch.equal(state_c.model.state_dict()[k], v)
+                          for k, v in u_final.items())
+        log(f"checkpoint continued: losses {losses_d} against U's "
+            f"{losses_u[drain_at + 1:]}, max |difference| {worst!r}; "
+            f"final params bit-identical to U's: {params_same}; {card}")
+        if losses_d != losses_u[drain_at + 1:] or not params_same:
+            raise AssertionError("the continued run is not bit-identical "
+                                 "to the unbroken run")
+        del state_c, step_c, fresh, u_final
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (e) serve R's checkpoint: the parameter file only, cast to bf16
+        # on its way to the card
+        scfg = dataclasses.replace(CONFIGS["7b"], n_layers=layers)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        served, scfg, resumed = load_serving_params(ck_r.path, scfg, "cuda")
+        torch.cuda.synchronize()
+        serve_restore_s = time.perf_counter() - t0
+        added = torch.cuda.memory_allocated() - base
+        bf16_bytes = 2 * scfg.num_params()
+        log(f"checkpoint serve restore: resumed {resumed} in "
+            f"{serve_restore_s:.3f}s; allocated +{added} bytes against "
+            f"{bf16_bytes} bf16 parameter bytes (margin "
+            f"{SERVE_LOAD_MARGIN}); {card}")
+        if not resumed or added > bf16_bytes + SERVE_LOAD_MARGIN:
+            raise AssertionError("the serving restore did not resume, or "
+                                 "added more than the bf16 parameters")
+        in_memory = serving_params(state_r.model, scfg.dtype)
+        del state_r, step_r
+        differ = [k for k, v in in_memory.state_dict().items()
+                  if not torch.equal(served.state_dict()[k], v)]
+        if differ:
+            raise AssertionError(f"served params differ from R's cast in "
+                                 f"memory: {differ[:8]}")
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(0, scfg.vocab_size, n).tolist()
+                   for n in (100, 257, 512, 600)]
+        n_new = CKPT["new_tokens"]
+        tokens = {}
+        for what, params in (("restored", served), ("in memory", in_memory)):
+            srv = make_server("127.0.0.1", 0, params, scfg,
+                              **dict(RING, prewarm=True))
+            th = threading.Thread(target=srv.serve_forever, daemon=True)
+            th.start()
+            base_url = f"http://127.0.0.1:{srv.server_address[1]}"
+            batcher = srv.generator.batcher
+            results, errors = {}, []
+
+            def send(i, p):
+                try:
+                    results[i] = _post(base_url, {"tokens": [p],
+                                                  "max_new_tokens": n_new})
+                except Exception as e:        # surfaced after the join
+                    errors.append(f"{i}: {e!r}")
+
+            try:
+                if not batcher.prewarmed.wait(600) or \
+                        batcher.executor.needs_capture:
+                    raise AssertionError("the ring's CUDA graphs were not "
+                                         "captured at prewarm")
+                chunks0 = batcher.stats["chunks"]
+                _zero_launches()
+                threads = [threading.Thread(target=send, args=(i, p))
+                           for i, p in enumerate(prompts)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+                chunks = batcher.stats["chunks"] - chunks0
+            finally:
+                srv.shutdown()
+                srv.server_close()
+                th.join(timeout=30)
+                srv.generator.close()
+            launches = DA.paged_decode_attention.launches
+            others = (DA.decode_attention.launches,
+                      DA.paged_decode_attention.quant_launches,
+                      FA.flash_forward.launches)
+            if errors:
+                raise AssertionError(f"serving requests failed: {errors}")
+            rows = []
+            for i, p in enumerate(prompts):
+                code, body, _ = results[i]
+                if code != 200:
+                    raise AssertionError(f"{what} {i}: HTTP {code}")
+                _check_rows(scfg, p, body["tokens"][0], n_new, f"{what} {i}")
+                rows.append(body["tokens"][0])
+            tokens[what] = rows
+            want = scfg.n_layers * RING["chunk_tokens"] * chunks
+            log(f"checkpoint serve ({what}): 4 prompts x {n_new} greedy "
+                f"tokens; paged_decode_attention launches {launches} "
+                f"(n_layers {scfg.n_layers} x chunk {RING['chunk_tokens']} "
+                f"x dispatches {chunks} = {want}); kernel #1, int8 kernel, "
+                f"flash forward {others}")
+            if launches != want or any(others):
+                raise AssertionError(f"checkpoint serve ({what}): the "
+                                     "paged kernel's launches do not match "
+                                     "the formula, or another kernel ran")
+        if tokens["restored"] != tokens["in memory"]:
+            raise AssertionError("the restored checkpoint's tokens differ "
+                                 "from the in-memory model's")
+        del served, in_memory
+
+        summary = {
+            "layers": layers, "params": params_n,
+            "checkpoint_bytes": save_u["bytes"],
+            "snapshot_s": [save_u["snapshot_s"], save_r["snapshot_s"]],
+            "write_s": [save_u["write_s"], save_r["write_s"]],
+            "write_gb_s": [save_u["bytes"] / save_u["write_s"] / 1e9,
+                           save_r["bytes"] / save_r["write_s"] / 1e9],
+            "train_restore_s": restore_s,
+            "serve_restore_s": serve_restore_s,
+            "serve_restore_added_bytes": added,
+            "bf16_param_bytes": bf16_bytes,
+            "unbroken_spread": spread, "continued_worst": worst,
+            "losses_u": losses_u, "losses_u2": losses_u2,
+            "losses_continued": losses_d, "card": card,
+        }
+        log("checkpoint: " + json.dumps(summary))
+        log(f"checkpoint (one run, not a benchmark): "
+            f"{save_u['bytes'] / 1e9:.3f} GB a step; save() held the loop "
+            f"{save_u['snapshot_s']:.3f}s (U, step 6) / "
+            f"{save_r['snapshot_s']:.3f}s (R's drain); background write "
+            f"{save_u['write_s']:.2f}s ({summary['write_gb_s'][0]:.2f} "
+            f"GB/s) / {save_r['write_s']:.2f}s "
+            f"({summary['write_gb_s'][1]:.2f} GB/s); restore "
+            f"{restore_s:.3f}s (training) / {serve_restore_s:.3f}s "
+            f"(serving, bf16); {card}")
+        reports["flash_forward"]["checkpoint"] = summary
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def phase_kernel_path_equals_plain() -> None:
     import numpy as np
     import torch
@@ -2291,6 +2646,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     run("3c", phase_train_main_path, flash)
+    run("3f", phase_checkpoint, flash)
     run("4", phase_kernel_path_equals_plain)
     run("4b", phase_rings_equal_generate)
     run("4c", phase_train_kernel_equals_plain)
@@ -2302,7 +2658,8 @@ def main() -> int:
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "max_abs_err_f32", "max_abs_err_bf16",
              "decode_ms_per_step_b4", "kernel1_ms", "paged_bf16_ms", "ring",
-             "ring_megastep", "train", "fwd_bwd", "designs", "ptxas",
+             "ring_megastep", "train", "checkpoint", "fwd_bwd", "designs",
+             "ptxas",
              "timings"]
     print(json.dumps({"kernels": [
         {k: r.get(k) for k in order if k in r or k in order[:11]}

@@ -1,17 +1,19 @@
 """Preemption drain: turn SIGTERM / maintenance notices into a clean exit.
 
-Own copy of the part of ``paddle_operator_tpu/ft/preemption.py`` that
-the serving entry point needs: the exit-code contract and
-:class:`PreemptionWatcher`.
+Own copy of ``paddle_operator_tpu/ft/preemption.py``: the exit-code
+contract, :class:`PreemptionWatcher`, :func:`inject_preemption` and
+:func:`drain_checkpoint`.
 
     0               clean completion
-    EXIT_PREEMPTED  drain completed; restart me
+    EXIT_PREEMPTED  drain completed; checkpoint durable; restart me
     anything else   program failure; consumes the restart budget
 
-Serving pods drain by "stop admissions (503 + Retry-After), finish
-in-flight work within the budget" (infer/resilience.py ServingDrain);
-the exit code, and the reconciler's preempted-not-failed accounting,
-are the trainer's.
+The training loop (train/trainer.py ``fit``) drains by finishing the
+in-flight step and forcing a durable checkpoint of it
+(:func:`drain_checkpoint`).  Serving pods drain by "stop admissions
+(503 + Retry-After), finish in-flight work within the budget"
+(infer/resilience.py ServingDrain); the exit code, and the reconciler's
+preempted-not-failed accounting, are the trainer's.
 """
 
 from __future__ import annotations
@@ -118,3 +120,49 @@ class PreemptionWatcher:
         self._poll_thread = threading.Thread(target=poll, daemon=True,
                                              name="preemption-notice")
         self._poll_thread.start()
+
+    def uninstall(self) -> None:
+        """Restore the previous signal handlers and stop the file poller
+        (test hygiene; production processes exit instead)."""
+        self._poll_stop.set()
+        for sig, prev in self._prev.items():
+            try:
+                signal.signal(sig, prev if prev is not None
+                              else signal.SIG_DFL)
+            except (ValueError, TypeError):
+                pass  # not on the main thread / handler not restorable
+        self._prev.clear()
+
+
+def inject_preemption(batches, at_step: int, watcher: PreemptionWatcher,
+                      *, signal_self: bool = False):
+    """Test harness: pass ``batches`` through, raising the preemption
+    flag just before yielding batch index ``at_step`` — so the step
+    consuming that batch is the in-flight step the drain must finish.
+    ``signal_self`` delivers a real SIGTERM to this process (the watcher
+    must be installed) instead of flipping the flag directly."""
+    for k, b in enumerate(batches):
+        if k == at_step:
+            if signal_self:
+                os.kill(os.getpid(), signal.SIGTERM)
+            else:
+                watcher.trigger("injected")
+        yield b
+
+
+def drain_checkpoint(checkpoint, state, step: int) -> bool:
+    """The durable-checkpoint half of the drain: force a save of
+    ``state`` at ``step`` and block until it is on storage.  Returns
+    True when a checkpoint manager was active (the exit code should then
+    be ``EXIT_PREEMPTED``; without one the work is lost)."""
+    if checkpoint is None or not getattr(checkpoint, "enabled", False):
+        return False
+    if step not in checkpoint.all_steps():
+        try:
+            checkpoint.save(step, state, force=True)
+        except ValueError:
+            # the loop's interval save of this very step was in flight
+            # and has committed meanwhile
+            pass
+    checkpoint.wait()
+    return True

@@ -34,7 +34,9 @@ reproduced; infer/executor.py ``_sample_tokens`` has the rule).
 ``/v1/swap``, ``/v1/kv/*`` and ``POST /v1/adapters`` answer as the JAX
 server does when those features are not configured.
 
-Run on the card::
+The entry point restores the parameters from the operator's
+``TPUJOB_CHECKPOINT_PATH`` (:func:`load_serving_params`).  Run on the
+card::
 
     SERVE_CONTINUOUS=1 SERVE_PAGED=1 MODEL_PRESET=7b TPUJOB_PORT=8999 \\
     python3 -m paddle_operator_tpu_torch.infer.serve
@@ -42,11 +44,12 @@ Run on the card::
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -462,7 +465,7 @@ def make_server(host: str, port: int, params: Llama, cfg: LlamaConfig,
     return srv
 
 
-def refuse_unported(environ, checkpoint_path: str) -> None:
+def refuse_unported(environ) -> None:
     """Raise on every knob this port cannot honour yet — it never
     silently serves something else than what was asked for.  Each
     refused knob is named in the message."""
@@ -479,9 +482,6 @@ def refuse_unported(environ, checkpoint_path: str) -> None:
     if on("SERVE_WEIGHT_QUANT", ("", "none")):
         refused.append(f"SERVE_WEIGHT_QUANT="
                        f"{environ['SERVE_WEIGHT_QUANT']}")
-    if checkpoint_path:
-        refused.append(f"TPUJOB_CHECKPOINT_PATH={checkpoint_path} "
-                       "(checkpoint restore)")
     if int(environ.get("SERVE_SPEC_K", "0") or 0) > 0:
         refused.append(f"SERVE_SPEC_K={environ['SERVE_SPEC_K']} "
                        "(speculative decoding)")
@@ -570,29 +570,58 @@ def ring_kw_from_env(environ) -> dict:
     return kw
 
 
+def load_serving_params(path: str, cfg: LlamaConfig, device="cuda"
+                        ) -> Tuple[Llama, LlamaConfig, bool]:
+    """The parameters to serve, in the serving dtype ``cfg.dtype`` on
+    ``device``: the newest committed step under ``path``
+    (train/checkpoint.py; a newest step that fails to load is passed
+    over with a logged warning), else — no path, or no step yet — a
+    fresh init from seed 0.  Returns ``(model, its config, resumed)``.
+
+    Only the checkpoint's parameter file is read, and each float tensor
+    is cast to ``cfg.dtype`` as it is copied into a model built in that
+    dtype — the JAX package's ``serving_params`` cast.  So the device
+    holds the serving-dtype model alone: no f32 master copy and no
+    optimizer state ever reach it."""
+    from paddle_operator_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+        resume_or_init,
+    )
+
+    cfg = dataclasses.replace(cfg, param_dtype=cfg.dtype)
+
+    def init() -> Llama:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        return Llama(cfg, device).init_weights(gen)
+
+    model, resumed = resume_or_init(CheckpointManager(path), init)
+    return model, cfg, resumed
+
+
 def main() -> int:
-    """Serving entrypoint: fresh-init MODEL_PRESET (default 7b) from
-    seed 0 on the card in the serving dtype and serve on TPUJOB_PORT —
-    batch mode, or the decode ring with SERVE_CONTINUOUS=1 (paged with
-    SERVE_PAGED=1, over the int8 pool with SERVE_KV_QUANT=int8); SIGTERM
-    drains and exits EXIT_PREEMPTED (83)."""
+    """Serving entrypoint: restore MODEL_PRESET (default 7b) from
+    TPUJOB_CHECKPOINT_PATH — fresh init from seed 0 when it holds no
+    step — on the card in the serving dtype (``load_serving_params``)
+    and serve on TPUJOB_PORT: batch mode, or the decode ring with
+    SERVE_CONTINUOUS=1 (paged with SERVE_PAGED=1, over the int8 pool
+    with SERVE_KV_QUANT=int8); SIGTERM drains and exits EXIT_PREEMPTED
+    (83)."""
     from paddle_operator_tpu_torch.ft.preemption import PreemptionWatcher
     from paddle_operator_tpu_torch.infer.resilience import ServingDrain
     from paddle_operator_tpu_torch.launch.launcher import JobEnv
-    from paddle_operator_tpu_torch.models.llama import CONFIGS, make_model
+    from paddle_operator_tpu_torch.models.llama import CONFIGS
 
     env = JobEnv.from_env()
-    refuse_unported(os.environ, env.checkpoint_path)
+    refuse_unported(os.environ)
     if not torch.cuda.is_available():
         raise RuntimeError("the torch server runs on a CUDA card and "
                            "found none")
     continuous = os.environ.get("SERVE_CONTINUOUS", "0") == "1"
     ring_kw = ring_kw_from_env(os.environ) if continuous else {}
     preset = os.environ.get("MODEL_PRESET", "7b")
-    serve_dtype = CONFIGS[preset].dtype
-    # no checkpoint: fresh init straight into the serving dtype
-    params, cfg = make_model(preset, device="cuda", seed=0,
-                             param_dtype=serve_dtype)
+    params, cfg, resumed = load_serving_params(
+        env.checkpoint_path, CONFIGS[preset], "cuda")
     mode = "batch"
     if continuous:
         mode = (f"continuous, paged={bool(ring_kw.get('paged'))}, "
@@ -601,7 +630,7 @@ def main() -> int:
                 f"slots={ring_kw['slots']}, "
                 f"chunk={ring_kw['chunk_tokens']}, "
                 f"preemption={PREEMPTION_NOTE}")
-    print(f"serving {preset} (resumed=False, mode={mode}, "
+    print(f"serving {preset} (resumed={resumed}, mode={mode}, "
           f"device={torch.cuda.get_device_name(0)}) on :{env.port}",
           flush=True)
     srv = make_server("0.0.0.0", env.port, params, cfg,

@@ -11,12 +11,12 @@ What differs from the JAX trainer, and why:
 - The parameters live in the model (``nn.Parameter``s); the optimizer
   state is :class:`AdamWState`, keyed by the same parameter names.
 - One device.  What the JAX trainer has beyond that is not here yet
-  (ROADMAP.md Queue A items 13-15): meshes and sharded state (no
+  (ROADMAP.md Queue A items 6, 11 and 12): meshes and sharded state (no
   ``mesh`` parameter), host offload of the moments
-  (``offload_opt_state``), int8 moments (``moments``), checkpointing
-  inside ``fit`` (``checkpoint``), the pipeline-parallel step and the
-  ERNIE/Wide&Deep/ResNet steps.  A caller that passes one of those
-  parameters gets a ``TypeError``; the steps are not defined.
+  (``offload_opt_state``), int8 moments (``moments``), the
+  pipeline-parallel step and the ERNIE/Wide&Deep/ResNet steps.  A
+  caller that passes one of those parameters gets a ``TypeError``; the
+  steps are not defined.
 - ``make_train_step`` and ``make_eval_step`` take no model definition:
   the step runs ``state.model``, the eval function the module it is
   given.
@@ -40,6 +40,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from paddle_operator_tpu_torch.ft.preemption import drain_checkpoint
 
 
 # ---------------------------------------------------------------------------
@@ -297,24 +299,27 @@ def synthetic_batch(batch_size: int, seq_len: int, vocab: int,
 
 
 def fit(state: TrainState, step_fn: Callable, batches, *, steps: int,
-        timer=None, logger=None, log_every: int = 0,
+        checkpoint=None, timer=None, logger=None, log_every: int = 0,
         eval_fn: Optional[Callable] = None, eval_every: int = 0,
         preemption=None, goodput=None
         ) -> Tuple[TrainState, List[Dict[str, float]]]:
     """Drive ``step_fn`` over ``batches`` (an iterator of device-ready
     batch dicts — typically a :class:`train.data.DevicePrefetcher`) for
-    at most ``steps`` steps, ticking ``timer``
+    at most ``steps`` steps, saving through ``checkpoint``
+    (:class:`train.checkpoint.CheckpointManager`, under its save
+    interval) and ticking ``timer``
     (:class:`utils.observability.StepTimer`) and ``goodput``
     (:class:`ft.goodput.GoodputTracker`) once per step.
 
     ``eval_fn(state) -> metrics`` runs every ``eval_every`` steps; its
     metrics land in that step's history entry as ``eval_*``.
     ``preemption`` (:class:`ft.preemption.PreemptionWatcher`): once
-    draining, the in-flight step finishes and the loop returns; with no
-    checkpoint manager (orbax, train/checkpoint.py, is not ported) the
-    drain logs ``checkpoint=DISABLED``, as the JAX loop does without
-    one.  Returns the final state and the per-step float metrics
-    (converted once, at the end)."""
+    draining, the in-flight step finishes, a checkpoint of it is forced
+    and made durable (``ft.preemption.drain_checkpoint``), the drain is
+    logged (``checkpoint=saved``, or ``DISABLED`` with no manager) and
+    the loop returns; the caller then exits ``EXIT_PREEMPTED``.  Returns
+    the final state and the per-step float metrics (converted once, at
+    the end)."""
     raw_history: List[Dict[str, Any]] = []
     start_step = state.step
     step_no = start_step
@@ -343,15 +348,25 @@ def fit(state: TrainState, step_fn: Callable, batches, *, steps: int,
             if goodput is not None:
                 goodput.pause()   # eval gap is not productive step time
         raw_history.append(metrics)   # device scalars: no host sync
+        if checkpoint is not None and checkpoint.enabled:
+            checkpoint.save(step_no, state)
         if logger is not None and log_every and (i + 1) % log_every == 0:
             msg = (f"step={step_no} "
                    f"loss={float(metrics.get('loss', math.nan)):.4f}")
             if timer is not None:
                 msg += " " + timer.report()
             logger.info(msg)
-    if preemption is not None and preemption.draining and logger is not None:
-        # no checkpoint manager: the drain has nothing to save
-        logger.info(f"preemption drain ({preemption.reason}): step={step_no} "
-                    "checkpoint=DISABLED")
+    if preemption is not None and preemption.draining:
+        # the step in flight when the signal landed has completed above;
+        # a durable checkpoint of it bounds the lost work by one save
+        # interval, not one preemption interval
+        device = next(state.model.parameters()).device
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        saved = drain_checkpoint(checkpoint, state, step_no)
+        if logger is not None:
+            logger.info(f"preemption drain ({preemption.reason}): "
+                        f"step={step_no} "
+                        f"checkpoint={'saved' if saved else 'DISABLED'}")
     history = [{k: float(v) for k, v in m.items()} for m in raw_history]
     return state, history

@@ -546,7 +546,7 @@ def test_watchdog_scale_matches_jax(monkeypatch):
                                       ({}, None)])
 def test_ring_kw_from_env_megastep(env, want):
     env = {"SERVE_CONTINUOUS": "1", "SERVE_PAGED": "1", **env}
-    S.refuse_unported(env, "")
+    S.refuse_unported(env)
     assert S.ring_kw_from_env(env).get("megastep") == want
 
 
@@ -559,7 +559,7 @@ def test_megastep_with_unported_knob_refused_by_its_name(knob):
            "SERVE_MEGASTEP": "4", **knob}
     (name, _), = knob.items()
     with pytest.raises(ValueError, match=name) as e:
-        S.refuse_unported(env, "")
+        S.refuse_unported(env)
     assert "SERVE_MEGASTEP" not in str(e.value)
 
 

@@ -6,7 +6,9 @@ refusals, the drain contract and the jax-free helper copies.
 """
 
 import json
+import os
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -188,7 +190,6 @@ class TestEntryPoint:
     @pytest.mark.parametrize("env", [
         {"SERVE_CONTINUOUS": "1", "SERVE_SPEC_K": "2"}, {"SERVE_TP": "2"},
         {"QUANTIZE": "int8"}, {"SERVE_WEIGHT_QUANT": "int8"},
-        {"TPUJOB_CHECKPOINT_PATH": "/ckpt"},
     ])
     def test_unported_knobs_refused(self, monkeypatch, env):
         for k in ENTRY_KNOBS:
@@ -208,6 +209,21 @@ class TestEntryPoint:
         # the continuous paged server needs the card just the same
         monkeypatch.setenv("SERVE_CONTINUOUS", "1")
         monkeypatch.setenv("SERVE_PAGED", "1")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            S.main()
+
+    def test_checkpoint_path_is_served_on_the_card_only(self, monkeypatch,
+                                                       tmp_path):
+        """TPUJOB_CHECKPOINT_PATH (the operator injects it into every pod
+        of a job with spec.checkpointPath) is no longer refused: main()
+        gets past the knobs and, with no card, still refuses to serve on
+        the CPU."""
+        if torch.cuda.is_available():
+            pytest.skip("a card is present: main() would serve")
+        for k in ENTRY_KNOBS:
+            monkeypatch.delenv(k, raising=False)
+        monkeypatch.setenv("TPUJOB_CHECKPOINT_PATH", str(tmp_path))
+        S.refuse_unported(dict(os.environ))
         with pytest.raises(RuntimeError, match="CUDA"):
             S.main()
 
@@ -427,6 +443,85 @@ class TestContinuousServer:
         assert code == 400 and "error" in json.loads(body)
 
 
+def _wait_for(cond, timeout=30.0):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < deadline, "timed out"
+        time.sleep(0.02)
+
+
+def test_router_fronts_a_port_replica_restored_from_a_checkpoint(
+        ring_servers, tmp_path, monkeypatch):
+    """The unchanged router (paddle_operator_tpu/router/router.py
+    ``FleetRouter`` + ``make_router_server``) in front of one port
+    replica — the continuous paged ring, booted as ``main()`` boots it,
+    from a checkpoint of the JAX replica's params saved by the port:
+    routed requests get the JAX replica's tokens, the scrape reads the
+    replica's gauges, and a drain ends in exit 83 with the router
+    taking the replica out of rotation."""
+    from paddle_operator_tpu.router.router import (FleetRouter,
+                                                   make_router_server)
+    from paddle_operator_tpu_torch.ft.preemption import EXIT_PREEMPTED
+    from paddle_operator_tpu_torch.infer.resilience import ServingDrain
+    from paddle_operator_tpu_torch.train import trainer as TT
+    from paddle_operator_tpu_torch.train.checkpoint import CheckpointManager
+
+    monkeypatch.setenv("TPUJOB_FLIGHTREC_DIR", str(tmp_path))
+    jmodel, _ = jax_make_model("tiny", dtype=jnp.float32)
+    jparams = jmodel.init(jax.random.PRNGKey(0),
+                          jnp.zeros((1, 8), jnp.int32))["params"]
+    model, cfg = make_model("tiny", device="cpu", seed=5,
+                            dtype=torch.float32)
+    model.load_state_dict(params_from_jax(jax.device_get(jparams)))
+    ckpt = CheckpointManager(str(tmp_path / "ckpt"))
+    ckpt.save(0, TT.create_state(model, TT.make_optimizer()), force=True)
+    ckpt.close()
+    params, scfg, resumed = S.load_serving_params(str(tmp_path / "ckpt"),
+                                                  cfg, device="cpu")
+    assert resumed
+    replica = S.make_server("127.0.0.1", 0, params, scfg, continuous=True,
+                            job="j", replica="r0", **RING_KW)
+    threading.Thread(target=replica.serve_forever, daemon=True).start()
+    ep = f"127.0.0.1:{replica.server_address[1]}"
+    router = FleetRouter([ep], block_size=RING_KW["block_size"],
+                         scrape_interval=0.05)
+    rsrv = make_router_server("127.0.0.1", 0, router)
+    threading.Thread(target=rsrv.serve_forever, daemon=True).start()
+    rurl = f"http://127.0.0.1:{rsrv.server_address[1]}"
+    _, urls = ring_servers
+    codes = []
+    try:
+        _wait_for(lambda: router.replicas[ep].ready)
+        for body in ({"tokens": [[1, 2, 3, 4, 5, 6, 7, 8, 9]],
+                      "max_new_tokens": 7},
+                     {"tokens": [[200, 3, 3, 9, 1] * 3],
+                      "max_new_tokens": 5, "request_id": "routed"}):
+            rc, rb, rh = _call(rurl + "/v1/generate", "POST", body)
+            jc, jb, _ = _call(urls["jax"] + "/v1/generate", "POST", body)
+            assert rc == jc == 200, (rb, jb)
+            assert rh.get("X-Router-Replica") == ep
+            assert json.loads(rb)["tokens"] == json.loads(jb)["tokens"]
+        _wait_for(lambda: router.replicas[ep].gauges.get(
+            "tokensPerSec", 0) > 0)
+        gauges = router.replicas[ep].gauges
+        assert {"queueDepth", "kvBlocksFree", "tokensPerSec"} <= set(gauges)
+        assert gauges["kvBlocksFree"] > 0
+        ServingDrain(replica, replica.state,
+                     batcher=replica.generator.batcher, budget_s=5.0,
+                     handler_grace_s=0.0, exit_fn=codes.append).run("test")
+        assert codes == [EXIT_PREEMPTED] == [83]
+        _wait_for(lambda: not router.replicas[ep].ready)
+        assert _call(rurl + "/v1/generate", "POST",
+                     {"tokens": [[1, 2, 3]], "max_new_tokens": 2})[0] == 503
+    finally:
+        rsrv.shutdown()
+        rsrv.server_close()
+        router.close()
+        replica.shutdown()
+        replica.server_close()
+        replica.generator.close()
+
+
 REFUSED_KNOBS = [
     {"SERVE_SPEC_K": "2"},
     {"SERVE_HOST_CACHE_BLOCKS": "4"}, {"SERVE_HOST_CACHE_MB": "8"},
@@ -453,9 +548,9 @@ def test_refuse_unported_names_the_knob(env):
     environ = {"SERVE_CONTINUOUS": "1", "SERVE_PAGED": "1", **env}
     knob, value = list(env.items())[-1]      # the refused knob
     with pytest.raises(ValueError, match=knob):
-        S.refuse_unported(environ, "")
-    said = str(pytest.raises(ValueError, S.refuse_unported, environ,
-                             "").value)
+        S.refuse_unported(environ)
+    said = str(pytest.raises(ValueError, S.refuse_unported,
+                             environ).value)
     assert value in said
     assert all(k in said for k in env if k != "SERVE_MEGASTEP")
     assert "SERVE_MEGASTEP" not in said
@@ -466,7 +561,7 @@ def test_kv_quant_is_accepted_and_implies_paged():
     entry point it turns the paged ring on by itself."""
     env = {"SERVE_CONTINUOUS": "1", "SERVE_KV_QUANT": "int8",
            "SERVE_BLOCK_SIZE": "8"}
-    S.refuse_unported(env, "")
+    S.refuse_unported(env)
     kw = S.ring_kw_from_env(env)
     assert kw["kv_quant"] == "int8" and kw["paged"]
     assert kw["block_size"] == 8 and kw["prefix_cache"]
@@ -482,7 +577,7 @@ def test_deployed_env_is_accepted_and_parsed():
            "SERVE_PREFILL": "inline", "SERVE_KV_QUANT": "none",
            "SERVE_WATCHDOG_FLOOR_S": "30", "SERVE_MAX_RESTARTS": "5",
            "SERVE_RESTART_WINDOW_S": "60"}
-    S.refuse_unported(env, "")
+    S.refuse_unported(env)
     kw = S.ring_kw_from_env(env)
     assert (kw["slots"], kw["chunk_tokens"], kw["max_queue"],
             kw["max_len"], kw["block_size"], kw["num_blocks"]) == \

@@ -373,7 +373,6 @@ class TestUnportedKnobs:
                                 TT.make_optimizer(), offload_opt_state=True),
         lambda: TT.make_train_step(TT.make_optimizer(), mesh=object()),
         lambda: TT.make_eval_step(mesh=object()),
-        lambda: TT.fit(None, None, [], steps=1, checkpoint=object()),
         lambda: TD.mmap_token_batches("tokens.bin", 3, 16, native=True),
         lambda: TL.make_model("tiny", device="cpu", remat_policy="dots"),
         lambda: TL.make_model("tiny", device="cpu", scan_layers=False),
