@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
-    python3 chip_smoke.py [--phases 2,2b,2c,2d,3,3b,3c,3d,3e,3f,4,4b,4c,4d,4e]
+    python3 chip_smoke.py [--phases 2,2b,2c,2d,3,3b,3c,3d,3e,3f,3g,4,4b,4c,4d,
+                           4e,4f]
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line; with no arguments every phase runs):
@@ -159,6 +160,27 @@ result line; with no arguments every phase runs):
    The bytes of a checkpoint, how long ``save`` held the loop (the
    snapshot), the background write (s, GB/s) and the two restores are
    printed beside the card's name and power limit.
+3g. preemption main path — 3b's server (``SERVE_PRIORITIES=2``,
+   preemption at its default, on) on the bf16 pool and on the int8
+   pool, each also with ``SERVE_PREEMPT=0`` on the same requests: 8
+   class-1 requests (cold 512-token prompts, 192 new tokens, streamed)
+   fill the 8 lanes; once every lane has decoded 2 chunks, 2 class-0
+   requests (``X-Request-Priority: 0``, 512-token prompts, 32 new
+   tokens, streamed) arrive.  With preemption on, ``preemptedLanes`` ==
+   the restored lanes >= 1 and ``parkedLanes`` 0 at the end; with it
+   off, none.  Every class-1 stream must equal the same request's
+   stream from the ``SERVE_PREEMPT=0`` run, token for token; the pool's
+   invariant holds after every spill and restore and at the end;
+   ``kvBlocksFree`` plus the blocks the burst's prompts left cached
+   equals its value before the burst; every dispatch is a replay of the
+   prewarm graphs, whose state keeps its addresses; the paged kernel
+   (#2, or #3 on the int8 pool) launches n_layers x chunk_tokens x
+   dispatches, and after each restore n_layers x chunk_tokens for every
+   replay.  Printed: the class-0 requests' time to first token and to
+   completion and the class-1 token gaps (p95, max), both ways; each
+   spill's ms (host, waits for its copies) and bytes, each restore's
+   host and device ms (CUDA events around its queued copies and
+   scatter); the launch and replay counts.
 4. kernel path == plain path — 7b width, 2 layers, float32: greedy
    ``generate`` through the kernel and through the plain version give
    the same tokens, and per-step logits agree within 1e-3.
@@ -183,6 +205,17 @@ result line; with no arguments every phase runs):
    and 4-step, with an eos, a budget that runs out and a frozen lane):
    each graph replay's tokens, counts, positions and lane tokens equal
    the eager program's bit for bit.
+4f. restore under graphs — 7b width, 2 layers, float32, bs 16, on the
+   paged ring at megastep 1 and 4 and the int8 ring at megastep 1 (2
+   slots, chunk 8): lane A (40 tokens) decodes alone in slot 0, every
+   dispatch a graph replay; at a boundary with its frontier mid-block
+   it is spilled, lane B takes slot 0 for one dispatch, A is restored
+   into slot 1 and both continue.  A's tokens must equal its
+   uninterrupted run's bit for bit (graphs both), and the same spill and
+   restore driven eagerly through the plain attention path (the token
+   identity phases 4b and 4d hold); the state's addresses and the graphs
+   are those from before the restore, and the paged kernel launched on
+   the dispatches after it.
 4c. training kernel path == plain path — 7b width, 2 layers, float32:
    three train steps with attention through the flash kernels and
    through ``reference_attention`` from the same init agree in loss
@@ -251,8 +284,8 @@ CKPT = dict(layers=2, batch=4, seq=2048, steps=6, interval=3, drain_at=2,
 # and the allocator's 512-byte rounding
 SERVE_LOAD_MARGIN = 16 << 20
 PEAK_BF16 = 989e12                 # H100 SXM dense bf16, for MFU
-PHASES = ("2", "2b", "2c", "2d", "3", "3b", "3c", "3d", "3e", "3f", "4",
-          "4b", "4c", "4d", "4e")
+PHASES = ("2", "2b", "2c", "2d", "3", "3b", "3c", "3d", "3e", "3f", "3g",
+          "4", "4b", "4c", "4d", "4e", "4f")
 
 
 def log(*a) -> None:
@@ -1724,6 +1757,353 @@ def phase_ring_main_path(report: dict, params, cfg,
     return outputs
 
 
+# phase 3g: 3b's server; 8 class-1 requests (cold 512-token prompts,
+# 192 new tokens) fill the lanes, then 2 class-0 requests (512-token
+# prompts, 32 new tokens) arrive once every lane has decoded 2 chunks
+PREEMPT = dict(prompt=512, victims=8, victim_new=192, urgent=2,
+               urgent_new=32, chunks_first=2)
+
+
+def _stream_timed(base: str, body: dict, headers=None) -> tuple:
+    """A ``"stream": true`` generate: (HTTP status, the ndjson events,
+    the host clock at each event, the clock at the send)."""
+    req = urllib.request.Request(
+        base + "/v1/generate", data=json.dumps(dict(body, stream=True))
+        .encode(), headers={"Content-Type": "application/json",
+                            **(headers or {})}, method="POST")
+    t0 = time.perf_counter()
+    events, times = [], []
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for line in r:
+            if line.strip():
+                events.append(json.loads(line))
+                times.append(time.perf_counter())
+        status = r.status
+    return status, events, times, t0
+
+
+def _preempt_burst(params, cfg, kv_quant: str, preempt: bool) -> dict:
+    """One run of phase 3g's traffic on a fresh 3b server (``kv_quant``
+    pool, ``SERVE_PREEMPT`` on or off): every request's tokens, the
+    class-0 latencies, the class-1 token gaps, the spills and restores
+    (timed by wrappers around the executor's methods), the launches and
+    replays, and the pool's accounting."""
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.infer.qos import QoSConfig
+    from paddle_operator_tpu_torch.infer.serve import make_server
+    from paddle_operator_tpu_torch.ops import decode_attention as DA
+
+    quant = kv_quant != "none"
+    env = {"SERVE_PRIORITIES": "2"}
+    if not preempt:
+        env["SERVE_PREEMPT"] = "0"
+    kw = dict(RING, prewarm=True, qos=QoSConfig.from_env(env))
+    if quant:
+        kw["kv_quant"] = kv_quant
+    srv = make_server("127.0.0.1", 0, params, cfg, **kw)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    batcher = srv.generator.batcher
+    ex = batcher.executor
+    if not batcher.prewarmed.wait(600) or ex.needs_capture:
+        raise AssertionError(f"3g: the ring's CUDA graphs were not captured "
+                             f"at prewarm: {batcher.prewarm_error!r}")
+    graphs = ex._graphs
+    ptrs = ex._state_ptrs()
+    counter = "quant_launches" if quant else "launches"
+    spills, restores, broken = [], [], []
+    marks = []              # (host clock, what) of dispatches, spills, restores
+    real_spill, real_restore = ex.spill_lane, ex.restore_lane
+    real_replay = ex.replay
+
+    def spill_lane(slot):
+        t0 = time.perf_counter()
+        spill = real_spill(slot)
+        t1 = time.perf_counter()
+        marks.append((t0, f"spill {(t1 - t0) * 1e3:.1f} ms"))
+        spills.append((t1 - t0, sum(
+            v.numel() * v.element_size() for v in spill.values()
+            if isinstance(v, torch.Tensor))))
+        return spill
+
+    def restore_lane(slot, spill):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        real_restore(slot, spill)
+        e1.record()
+        t1 = time.perf_counter()
+        marks.append((t0, f"restore {(t1 - t0) * 1e3:.1f} ms"))
+        restores.append((t1 - t0, e0, e1,
+                         getattr(DA.paged_decode_attention, counter),
+                         ex.graph_replays))
+
+    def replay(plan):
+        marks.append((time.perf_counter(), "dispatch"))
+        return real_replay(plan)
+
+    ex.spill_lane, ex.restore_lane = spill_lane, restore_lane
+    ex.replay = replay
+    for name in ("_preempt", "_try_restore"):
+        real = getattr(batcher, name)
+
+        def checked(*a, _real=real, _name=name):
+            out = _real(*a)
+            try:
+                batcher.pool.check_invariant()
+            except AssertionError as e:
+                broken.append(f"{_name}: {e}")
+            return out
+
+        setattr(batcher, name, checked)
+    rng = np.random.default_rng(7)
+    n = PREEMPT["prompt"]
+    victims = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for _ in range(PREEMPT["victims"])]
+    urgent = [rng.integers(0, cfg.vocab_size, n).tolist()
+              for _ in range(PREEMPT["urgent"])]
+    results, errors = {}, []
+
+    def send(kind, i, p, new, prio):
+        try:
+            results[kind, i] = _stream_timed(
+                base, {"tokens": [p], "max_new_tokens": new},
+                {"X-Request-Priority": str(prio)})
+        except Exception as e:              # surfaced after the join
+            errors.append(f"{kind} {i}: {e!r}")
+
+    try:
+        free0 = batcher.pool.blocks_free()
+        stats0 = dict(batcher.stats)
+        replays0 = ex.graph_replays
+        _zero_launches()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=send, args=(
+            "class1", i, p, PREEMPT["victim_new"], 1))
+            for i, p in enumerate(victims)]
+        for t in threads:
+            t.start()
+        want_pos = n + PREEMPT["chunks_first"] * RING["chunk_tokens"]
+        while not (all(r is not None for r in batcher.lane)
+                   and min(batcher._lane_pos) >= want_pos):
+            if errors or time.perf_counter() - t0 > 600:
+                raise AssertionError(f"3g: the class-1 lanes never all "
+                                     f"decoded 2 chunks: {errors}")
+            time.sleep(0.002)
+        late = [threading.Thread(target=send, args=(
+            "class0", i, p, PREEMPT["urgent_new"], 0))
+            for i, p in enumerate(urgent)]
+        for t in late:
+            t.start()
+        for t in threads + late:
+            t.join()
+        burst_s = time.perf_counter() - t0
+        with urllib.request.urlopen(base + "/statusz", timeout=60) as r:
+            statusz = json.loads(r.read())
+        torch.cuda.synchronize()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
+        srv.generator.close()
+    if errors:
+        raise AssertionError(f"3g requests failed: {errors}")
+    out, gaps, urgent_s, class1_done = {}, [], [], []
+    for (kind, i), (code, events, times, t_send) in sorted(results.items()):
+        p = (victims if kind == "class1" else urgent)[i]
+        new = PREEMPT["victim_new" if kind == "class1" else "urgent_new"]
+        toks = [e["token"] for e in events if "token" in e]
+        done = events[-1]
+        if code != 200 or not done.get("done") or len(toks) != new \
+                or done["tokens"] != p + toks:
+            raise AssertionError(f"3g {kind} {i}: HTTP {code}, {len(toks)} "
+                                 f"token events, last {str(done)[:200]}")
+        _check_rows(cfg, p, done["tokens"], new, f"3g {kind} {i}")
+        out[kind, i] = done["tokens"]
+        tt = [t for t, e in zip(times, events) if "token" in e]
+        if kind == "class1":
+            gaps += [b - a for a, b in zip(tt, tt[1:])]
+            class1_done.append(times[-1] - t0)
+        else:
+            urgent_s.append((tt[0] - t_send, times[-1] - t_send))
+    pool = batcher.pool
+    pool.check_invariant()
+    chunks = batcher.stats["chunks"] - stats0["chunks"]
+    launches = getattr(DA.paged_decode_attention, counter)
+    per = cfg.n_layers * RING["chunk_tokens"]
+    after = [(launches - c, ex.graph_replays - g)
+             for _, _, _, c, g in restores]
+    gaps = np.asarray(gaps)
+    # where the burst's wall time went: the longest host intervals
+    # between two dispatches, with the spills and restores inside them
+    ticks = [t for t, what in marks if what == "dispatch"]
+    waits = sorted(zip(np.diff(ticks), ticks), reverse=True)[:4]
+    stalls = [(round((a - t0) * 1e3, 1), round(float(w) * 1e3, 1),
+               [what for t, what in marks if what != "dispatch"
+                and a <= t < a + w]) for w, a in waits]
+    return {
+        "kv_quant": kv_quant, "preempt": preempt, "outputs": out,
+        "burst_s": burst_s, "chunks": chunks,
+        "replays": ex.graph_replays - replays0,
+        "launches": launches, "launches_want": per * chunks,
+        "other_kernels": (DA.decode_attention.launches,
+                          getattr(DA.paged_decode_attention,
+                                  "launches" if quant else "quant_launches")),
+        "launches_after_restores": after,
+        "per_dispatch": per,
+        "preempted": statusz["preemptedLanes"],
+        "restored": batcher.stats["restored_lanes"] - stats0.get(
+            "restored_lanes", 0),
+        "parked": statusz["parkedLanes"],
+        "free_before": free0, "free_after": statusz["kvBlocksFree"],
+        "cached_after": pool.blocks_cached(), "invariant_breaks": broken,
+        "spill_ms": [s * 1e3 for s, _ in spills],
+        "spill_bytes": [b for _, b in spills],
+        "restore_host_ms": [h * 1e3 for h, _, _, _, _ in restores],
+        "restore_device_ms": [e0.elapsed_time(e1)
+                              for _, e0, e1, _, _ in restores],
+        "urgent_ttft_s": [a for a, _ in urgent_s],
+        "urgent_done_s": [b for _, b in urgent_s],
+        "class1_itl_p95_ms": float(np.percentile(gaps, 95)) * 1e3,
+        "class1_gap_max_ms": float(gaps.max()) * 1e3,
+        "class1_done_s": sorted(class1_done),
+        "dispatch_interval_median_ms": float(np.median(np.diff(ticks))) * 1e3,
+        "longest_intervals": stalls,
+        "same_graphs": ex._graphs is graphs and ex._state_ptrs() == ptrs,
+    }
+
+
+def _host_link_readings(nbytes: int) -> dict:
+    """What a spill's bytes cost on this machine's host link, piece by
+    piece: page-locking a fresh host buffer (``torch.empty(...,
+    pin_memory=True)``), a device-to-host copy into it and again into the
+    same buffer, a copy into pageable memory, and a host-to-device copy
+    from the pinned buffer; each timed by the host clock around a
+    synchronized copy."""
+    import torch
+
+    src = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    torch.cuda.synchronize()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3, out
+
+    alloc_ms, host = timed(lambda: torch.empty(nbytes, dtype=torch.uint8,
+                                               pin_memory=True))
+    first_ms, _ = timed(lambda: host.copy_(src, non_blocking=True))
+    again_ms, _ = timed(lambda: host.copy_(src, non_blocking=True))
+    h2d_ms, _ = timed(lambda: src.copy_(host, non_blocking=True))
+    pageable_ms, _ = timed(lambda: src.cpu())
+    out = {"bytes": nbytes, "pin_alloc_ms": alloc_ms, "d2h_pinned_ms":
+           first_ms, "d2h_pinned_again_ms": again_ms, "h2d_pinned_ms": h2d_ms,
+           "d2h_pageable_ms": pageable_ms}
+    for key in ("d2h_pinned_again_ms", "h2d_pinned_ms", "d2h_pageable_ms"):
+        out[key.replace("_ms", "_gb_s")] = nbytes / out[key] / 1e6
+    del src, host
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_preemption(reports: tuple, params, cfg) -> None:
+    """Phase 3g: preemption on the 7b ring at full width, on the bf16 and
+    int8 pools, each beside a ``SERVE_PREEMPT=0`` run of the same
+    requests; see the module docstring."""
+    import torch
+
+    for report, kv_quant in zip(reports, ("none", "int8")):
+        runs = {}
+        for preempt in (True, False):
+            runs[preempt] = _preempt_burst(params, cfg, kv_quant, preempt)
+            gc.collect()
+            torch.cuda.empty_cache()
+        on, off = runs[True], runs[False]
+        name = ("paged_decode_attention_quant" if kv_quant == "int8"
+                else "paged_decode_attention")
+        differ = [k for k in on["outputs"] if k[0] == "class1"
+                  and on["outputs"][k] != off["outputs"][k]]
+        for run in (on, off):
+            log(f"preempt {kv_quant} SERVE_PREEMPT={int(run['preempt'])}: "
+                f"{name} launches {run['launches']} (n_layers x chunk x "
+                f"dispatches {run['launches_want']}), other decode kernels "
+                f"{run['other_kernels']}, CUDA graph replays "
+                f"{run['replays']} for {run['chunks']} dispatches; "
+                f"preemptedLanes {run['preempted']}, restored "
+                f"{run['restored']}, parkedLanes {run['parked']}; "
+                f"kvBlocksFree {run['free_before']} before, "
+                f"{run['free_after']} + {run['cached_after']} cached after; "
+                f"class-0 TTFT s {run['urgent_ttft_s']}, done s "
+                f"{run['urgent_done_s']}; class-1 token gap p95 "
+                f"{run['class1_itl_p95_ms']:.2f} ms, max "
+                f"{run['class1_gap_max_ms']:.1f} ms; burst "
+                f"{run['burst_s']:.3f} s on {card_line()}")
+            bad = []
+            if run["launches"] != run["launches_want"] \
+                    or any(run["other_kernels"]):
+                bad.append("launch counts")
+            if run["replays"] != run["chunks"] or not run["same_graphs"]:
+                bad.append("not every dispatch a replay of the prewarm "
+                           "graphs at their addresses")
+            if run["parked"] or run["invariant_breaks"]:
+                bad.append(f"parked {run['parked']}, invariant "
+                           f"{run['invariant_breaks']}")
+            if run["free_after"] + run["cached_after"] != run["free_before"]:
+                bad.append("blocks neither free nor cached at the end")
+            if bad:
+                raise AssertionError(f"3g {kv_quant} preempt "
+                                     f"{run['preempt']}: {bad}")
+        for run in (on, off):
+            log(f"preempt {kv_quant} SERVE_PREEMPT={int(run['preempt'])} "
+                f"timeline: class-1 done at s "
+                f"{[round(x, 3) for x in run['class1_done_s']]}; median "
+                f"interval between dispatches "
+                f"{run['dispatch_interval_median_ms']:.1f} ms, longest "
+                f"(start ms, length ms, what ran in it) "
+                f"{run['longest_intervals']}")
+        log(f"preempt {kv_quant}: spills {len(on['spill_ms'])}, ms "
+            f"{[round(x, 3) for x in on['spill_ms']]}, bytes "
+            f"{on['spill_bytes']}; restores ms host "
+            f"{[round(x, 3) for x in on['restore_host_ms']]}, device "
+            f"{[round(x, 3) for x in on['restore_device_ms']]}; after each "
+            f"restore (launches, replays) {on['launches_after_restores']}; "
+            f"class-1 streams equal to SERVE_PREEMPT=0's: "
+            f"{8 - len(differ)}/8")
+        if not on["preempted"] == on["restored"] >= 1 or off["preempted"]:
+            raise AssertionError(f"3g {kv_quant}: preempted "
+                                 f"{on['preempted']}, restored "
+                                 f"{on['restored']} (preemption on); "
+                                 f"{off['preempted']} with it off")
+        if differ:
+            raise AssertionError(f"3g {kv_quant}: class-1 streams differ "
+                                 f"from the SERVE_PREEMPT=0 run: {differ}")
+        if not all(c == g * on["per_dispatch"] and g > 0
+                   for c, g in on["launches_after_restores"]):
+            raise AssertionError(f"3g {kv_quant}: the kernel did not run the "
+                                 "restored lanes' dispatches")
+        report["preempt"] = {
+            k: {key: v for key, v in run.items() if key != "outputs"}
+            for k, run in (("on", on), ("off", off))}
+        link = _host_link_readings(on["spill_bytes"][0])
+        report["preempt"]["host_link"] = link
+        log(f"preempt {kv_quant}: the host link for one spill's "
+            f"{link['bytes']} bytes: pinning a fresh buffer "
+            f"{link['pin_alloc_ms']:.1f} ms, device to pinned host "
+            f"{link['d2h_pinned_ms']:.1f} ms (again into the same buffer "
+            f"{link['d2h_pinned_again_ms']:.1f} ms, "
+            f"{link['d2h_pinned_again_gb_s']:.1f} GB/s), pinned host to "
+            f"device {link['h2d_pinned_ms']:.1f} ms "
+            f"({link['h2d_pinned_gb_s']:.1f} GB/s), device to pageable "
+            f"{link['d2h_pageable_ms']:.1f} ms "
+            f"({link['d2h_pageable_gb_s']:.1f} GB/s) on {card_line()}")
+
+
 def _zero_launches() -> None:
     from paddle_operator_tpu_torch.ops import decode_attention as DA
     from paddle_operator_tpu_torch.ops import flash_attention as FA
@@ -2512,6 +2892,124 @@ def phase_megastep_rings() -> None:
     torch.cuda.empty_cache()
 
 
+def _restore_run(ex, prompts, megastep, graphs: bool, spill_at=None):
+    """Phase 4f's drive of one executor, every dispatch a graph replay
+    (``graphs``) or the eager program: lane A (``prompts[0]``) decodes
+    alone in slot 0; with ``spill_at`` set it is spilled after that many
+    dispatches, lane B (``prompts[1]``) takes slot 0 for one dispatch,
+    A is restored into slot 1 and both continue.  Returns A's tokens
+    over the dispatches (the admission's first token aside) and what
+    the restore saw: the state's addresses before and after, the graphs
+    object before and after, and A's kernel launches after it."""
+    import numpy as np
+
+    from paddle_operator_tpu_torch.infer import executor as X
+    from paddle_operator_tpu_torch.ops import decode_attention as DA
+
+    chunk, total = ex.chunk, 3 if megastep > 1 else 6
+    pos = {0: len(prompts[0])}
+    slot_a, seen = 0, {}
+
+    def dispatch():
+        for slot, p in pos.items():
+            ex.pool.ensure(slot, p + megastep * chunk)
+        active = [i in pos for i in range(ex.slots)]
+        plan = X.ExecPlan(megastep, active, table=ex.pool.table,
+                          eos=np.full(ex.slots, -1, np.int32),
+                          left=np.full(ex.slots, 1000, np.int32),
+                          steps=np.full(ex.slots, megastep, np.int32))
+        res = ex.replay(plan) if graphs else X.DispatchResult(
+            *ex.run(plan), megastep)
+        toks, _ = res.host()
+        for slot in pos:
+            pos[slot] += megastep * chunk
+        return toks.reshape(-1, ex.slots)
+
+    _admit_cold(ex, 0, prompts[0])
+    got = []
+    for k in range(total):
+        if k == spill_at:
+            spill = ex.spill_lane(0)
+            ex.pool.retire(0)
+            del pos[0]
+            _admit_cold(ex, 0, prompts[1])
+            pos[0] = len(prompts[1])
+            dispatch()
+            seen["ptrs"], seen["graphs"] = ex._state_ptrs(), ex._graphs
+            ex.restore_lane(1, spill)
+            seen["ptrs_after"], seen["graphs_after"] = (ex._state_ptrs(),
+                                                        ex._graphs)
+            pos[1] = spill["pos"]
+            slot_a = 1
+            seen["launches"] = (DA.paged_decode_attention.launches
+                                + DA.paged_decode_attention.quant_launches)
+        got += dispatch()[:, slot_a].tolist()
+    if spill_at is not None:
+        seen["launches"] = (DA.paged_decode_attention.launches
+                            + DA.paged_decode_attention.quant_launches
+                            - seen["launches"])
+        ex.pool.check_invariant()
+    return got, seen
+
+
+def phase_restore_under_graphs() -> None:
+    """Phase 4f: a lane spilled at a boundary and restored into another
+    slot under CUDA graph replay resumes the uninterrupted stream bit for
+    bit; see the module docstring."""
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.infer import executor as X
+    from paddle_operator_tpu_torch.models.llama import make_model
+
+    params, cfg = make_model("7b", device="cuda", seed=6, n_layers=2,
+                             dtype=torch.float32)
+    pcfg = dataclasses.replace(cfg, decode_attn="plain")
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (40, 57)]
+    rings = (("paged", {"paged": True, "block_size": 16}, 1),
+             ("paged", {"paged": True, "block_size": 16}, 4),
+             ("int8", {"paged": True, "block_size": 16, "kv_quant": "int8"},
+              1))
+    with torch.inference_mode():
+        for name, ring, megastep in rings:
+            def executor(c):
+                return X.RingExecutor(params, c, slots=2, max_len=256,
+                                      chunk_tokens=8, megastep=megastep,
+                                      **ring)
+
+            spill_at = 1 if megastep > 1 else 2
+            ref_ex = executor(cfg)
+            ref_ex.prewarm()
+            want, _ = _restore_run(ref_ex, prompts, megastep, True)
+            del ref_ex
+            ex = executor(cfg)
+            ex.prewarm()
+            replays0 = ex.graph_replays
+            got, seen = _restore_run(ex, prompts, megastep, True, spill_at)
+            replays = ex.graph_replays - replays0
+            del ex
+            plain, _ = _restore_run(executor(pcfg), prompts, megastep,
+                                    False, spill_at)
+            line = (f"restore under graphs, {name} ring megastep {megastep} "
+                    f"(7b width, 2 layers, f32, bs 16): spilled at pos "
+                    f"{len(prompts[0]) + spill_at * megastep * 8}, restored "
+                    f"into slot 1; {len(got)} tokens == uninterrupted: "
+                    f"{got == want}, == plain path (eager): {plain == got}; "
+                    f"addresses kept {seen['ptrs'] == seen['ptrs_after']}, "
+                    f"no recapture {seen['graphs'] is seen['graphs_after']}; "
+                    f"{replays} replays, paged kernel launches after the "
+                    f"restore {seen['launches']}")
+            log(line)
+            if (got != want or plain != got
+                    or seen["ptrs"] != seen["ptrs_after"]
+                    or seen["graphs"] is not seen["graphs_after"]
+                    or not seen["launches"]):
+                raise AssertionError(line)
+    del params
+    torch.cuda.empty_cache()
+
+
 def phase_train_kernel_equals_plain() -> None:
     """Phase 4c: three f32 train steps through the flash kernels and
     through the plain attention, from the same init."""
@@ -2630,7 +3128,7 @@ def main() -> int:
     run("2b", phase_paged_kernel_vs_plain, paged)
     run("2d", phase_quant_kernel_vs_plain, quant)
     run("2c", phase_flash_vs_plain, flash)
-    if phases & {"3", "3b", "3d"}:
+    if phases & {"3", "3b", "3d", "3e", "3g"}:
         params, cfg = make_7b()
         run("3", phase_main_path, contiguous, params, cfg)
         ring_tokens = run("3b", phase_ring_main_path, paged, params, cfg)
@@ -2642,6 +3140,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         run("3e", phase_ring_main_path, paged, params, cfg, "none",
             paged.get("ring"), 4, ring_tokens)
+        gc.collect()
+        torch.cuda.empty_cache()
+        run("3g", phase_preemption, (paged, quant), params, cfg)
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -2652,13 +3153,14 @@ def main() -> int:
     run("4c", phase_train_kernel_equals_plain)
     run("4d", phase_quant_ring_kernel_equals_plain)
     run("4e", phase_megastep_rings)
+    run("4f", phase_restore_under_graphs)
     log(f"all phases: {time.perf_counter() - t_all:.1f}s")
 
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "max_abs_err_f32", "max_abs_err_bf16",
              "decode_ms_per_step_b4", "kernel1_ms", "paged_bf16_ms", "ring",
-             "ring_megastep", "train", "checkpoint", "fwd_bwd", "designs",
+             "ring_megastep", "preempt", "train", "checkpoint", "fwd_bwd", "designs",
              "ptxas",
              "timings"]
     print(json.dumps({"kernels": [

@@ -27,9 +27,12 @@ with the eos, token-budget and step-budget decisions made on the
 device by :func:`_mega_continue`).  On the card each of the two
 programs is replayed as a CUDA graph, the port's form of the JAX
 package's ``jax.jit`` of the same program; on the CPU the same programs
-run eagerly.  Not ported yet (ROADMAP.md Queue A): speculative rounds,
-chunked and disaggregated prefill, the host tier, lane spill/restore
-and LoRA adapters.
+run eagerly.  A paged lane can be spilled to host memory and restored
+into any free slot (:meth:`RingExecutor.spill_lane`,
+:meth:`RingExecutor.restore_lane`: the preemption primitive), between
+replays and in place, so the graphs keep their addresses.  Not ported
+yet (ROADMAP.md Queue A): speculative rounds, chunked and disaggregated
+prefill, the host tier and LoRA adapters.
 """
 
 from __future__ import annotations
@@ -127,10 +130,12 @@ def _to_host_async(*ts: torch.Tensor):
 
 
 def to_device(arr, device, dtype=None) -> torch.Tensor:
-    """Host array -> device tensor without a stream sync: on the card
-    the copy goes through pinned memory, asynchronously, in stream
-    order (a pageable copy would wait for every queued chunk)."""
-    t = torch.as_tensor(np.ascontiguousarray(arr))
+    """Host array or CPU tensor -> device tensor without a stream sync:
+    on the card the copy goes through pinned memory (a tensor already
+    pinned is used as it is), asynchronously, in stream order (a
+    pageable copy would wait for every queued chunk)."""
+    t = (arr if isinstance(arr, torch.Tensor)
+         else torch.as_tensor(np.ascontiguousarray(arr)))
     if dtype is not None:
         t = t.to(dtype)
     if torch.device(device).type != "cuda":
@@ -625,6 +630,8 @@ class RingExecutor:
                 {min(-(-b // self.block_size) * self.block_size,
                      self.pool.view_len) for b in self.buckets}))
             self._copy_block = PG.make_block_copier()
+            self._promote = PG.make_promote_blocks(self.block_size,
+                                                   quant=self.quant)
             if self.quant:
                 self._tail_init = PG.make_tail_init()
             self.step = PG.make_paged_chunk_step(cfg, chunk_tokens, top_k,
@@ -674,6 +681,9 @@ class RingExecutor:
             self.cache = None
             self.cache = init_ring_cache(self.cfg, self.slots,
                                          self.max_len, device=dev)
+        self._pool_bytes = sum(t.numel() * t.element_size()
+                               for key, t in self.cache.items()
+                               if key != "pos")
         self.tok = torch.zeros((self.slots,), dtype=torch.int32, device=dev)
         self.temp = torch.zeros((self.slots,), dtype=torch.float32,
                                 device=dev)
@@ -865,6 +875,126 @@ class RingExecutor:
         return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                    if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
 
+    # -- lane spill/restore: the preemption primitive ----------------------
+
+    def _state_ptrs(self) -> Dict[str, int]:
+        """Addresses of the state a captured graph reads."""
+        ptrs = {key: t.data_ptr() for key, t in self.cache.items()}
+        ptrs.update(tok=self.tok.data_ptr(), temp=self.temp.data_ptr(),
+                    seeds=self.seeds.data_ptr(), plan=self._plan.data_ptr())
+        return ptrs
+
+    def _promote_blocks(self, ids, blocks: Dict[str, torch.Tensor]) -> None:
+        """Host blocks ``blocks["k"]``/``["v"]`` [L, n, H, bs, D] (and
+        the scale rows ``["ks"]``/``["vs"]`` [L, n, H] of the int8 pool)
+        into pool blocks ``ids`` through the promote scatter: each
+        tensor crosses to the card in one copy, then lands as one
+        contiguous slab."""
+        dev = {key: to_device(t, self.device) for key, t in blocks.items()}
+        lcount, n, h, bs, d = dev["k"].shape
+
+        def slab(t):
+            return t.permute(0, 2, 1, 3, 4).reshape(lcount, h, n * bs,
+                                                    d)[:, None]
+
+        self._promote(self.cache, slab(dev["k"]), slab(dev["v"]),
+                      to_device(np.asarray(ids, np.int32), self.device),
+                      dev.get("ks"), dev.get("vs"))
+
+    @torch.inference_mode()
+    def dispatch_promotions(self, promotes) -> None:
+        """Upload a batch of host payloads into their RESERVED pool blocks
+        (``promotes``: ``(dst block, payload, key)`` triples, a payload
+        holding one block: ``k``/``v`` [L, 1, H, bs, D], and under int8
+        ``ks``/``vs`` [L, 1, H]) as one slab through the promote
+        scatter.  Eager, in stream order, between replays — never
+        captured into a graph — and in place."""
+        keys = ("k", "v", "ks", "vs") if self.quant else ("k", "v")
+        self._promote_blocks(
+            [int(dst) for dst, _, _ in promotes],
+            {key: torch.cat([p[key] for _, p, _ in promotes], dim=1)
+             for key in keys})
+
+    @torch.inference_mode()
+    def spill_lane(self, slot: int) -> Dict[str, Any]:
+        """Capture a LIVE paged lane to host memory: its mapped blocks'
+        exact pool bytes (codes and scales under int8, plus the lane's
+        staging-tail row), its fill position and its carry token,
+        temperature and sampling seed — everything :meth:`restore_lane`
+        needs to resume the lane bit-identically.  Reads only: the
+        caller retires the lane afterwards.  Call it at a chunk
+        boundary, with no dispatch in flight.
+
+        The keys and layouts are the JAX package's (``n_blocks``,
+        ``pos``, ``tok``, ``temp``; ``k``/``v`` [L, m, H_kv, bs, D];
+        ``ks``/``vs`` [L, m, H_kv] and ``kt``/``vt`` [L, H_kv, bs, D]
+        under int8), with ``seed`` (the lane's int64 sampler seed) where
+        JAX keeps ``key``.  The tensors are CPU tensors — pinned on the
+        card, where the device copies are queued together and waited
+        for once."""
+        pm = self.pool
+        m = int(pm.mapped_count[slot])
+        ids = to_device(np.asarray(pm.table[slot][:m], np.int32),
+                        self.device).long()
+        c = self.cache
+        parts = {"k": c["k"].index_select(1, ids),
+                 "v": c["v"].index_select(1, ids)}
+        if self.quant:
+            parts["ks"] = c["ks"].index_select(1, ids)
+            parts["vs"] = c["vs"].index_select(1, ids)
+            parts["kt"] = c["kt"][:, slot].clone(
+                memory_format=torch.contiguous_format)
+            parts["vt"] = c["vt"][:, slot].clone(
+                memory_format=torch.contiguous_format)
+        lane = torch.stack([c["pos"][slot].long(), self.tok[slot].long(),
+                            self.seeds[slot].long()])
+        temp = self.temp[slot:slot + 1].clone()
+        hosts, ev = _to_host_async(*parts.values(), lane, temp)
+        if ev is not None:
+            ev.synchronize()
+        *blocks, lane, temp = hosts
+        spill: Dict[str, Any] = {
+            "n_blocks": m, "pos": int(lane[0]), "tok": int(lane[1]),
+            "temp": float(temp[0]), "seed": int(lane[2])}
+        spill.update(zip(parts, blocks))
+        # the draft lane (spec_k, Queue A item 7) and the adapter id
+        # (aid, item 8) join the spill with those items; the ring
+        # refuses both at construction
+        return spill
+
+    @torch.inference_mode()
+    def restore_lane(self, slot: int, spill: Dict[str, Any]) -> None:
+        """Re-admit a spilled lane into the empty ``slot``: map fresh pool
+        blocks, upload the spilled blocks through the promote scatter,
+        write the staging-tail row (int8) and the lane's pos, tok, temp
+        and seed — every write in place, so the captured graphs read the
+        restored lane at the addresses they hold, and the resumed stream
+        is bit-identical to the uninterrupted one.  No forward runs.
+        Raises :class:`~paddle_operator_tpu_torch.infer.paged.
+        NoFreeBlocks` when the pool cannot map the lane (the caller
+        retires ``slot`` to roll the partial mapping back)."""
+        pm = self.pool
+        if pm.mapped_count[slot]:
+            raise AssertionError(f"slot {slot} still holds blocks")
+        before = self._state_ptrs()
+        m = int(spill["n_blocks"])
+        pm.ensure(slot, m * self.block_size)
+        keys = ("k", "v", "ks", "vs") if self.quant else ("k", "v")
+        if m:
+            self._promote_blocks(pm.table[slot][:m],
+                                 {key: spill[key] for key in keys})
+        c = self.cache
+        if self.quant:
+            c["kt"][:, slot].copy_(to_device(spill["kt"], self.device))
+            c["vt"][:, slot].copy_(to_device(spill["vt"], self.device))
+        c["pos"][slot] = int(spill["pos"])
+        self.tok[slot] = int(spill["tok"])
+        self.temp[slot] = float(spill["temp"])
+        self.seeds[slot] = int(spill["seed"])
+        if self._state_ptrs() != before:
+            raise AssertionError("restore_lane rebound a tensor the "
+                                 "captured graphs read")
+
     # -- admission programs ------------------------------------------------
 
     def suffix_bucket(self, n: int) -> int:
@@ -892,9 +1022,10 @@ class RingExecutor:
     def pool_bytes(self) -> int:
         """Device bytes held by the KV cache (block pool with the int8
         pool's scale planes and staging tails, or the contiguous ring) —
-        the ``tpujob_serve_kv_pool_bytes`` gauge.  Shape arithmetic."""
-        return sum(t.numel() * t.element_size()
-                   for key, t in self.cache.items() if key != "pos")
+        the ``tpujob_serve_kv_pool_bytes`` gauge.  Shape arithmetic, kept
+        at :meth:`reset_state`, so a status read during a rebuild (while
+        the old pool is released) still answers."""
+        return self._pool_bytes
 
     def param_bytes(self) -> int:
         """Device bytes of the served params — the

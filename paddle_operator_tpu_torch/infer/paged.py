@@ -33,10 +33,11 @@ Python loop where JAX scanned, and the ``make_*`` functions return plain
 callables that update the pool in place — there is nothing to compile.
 
 The megastep (SERVE_MEGASTEP) fuses N chunks into one dispatch
-(:func:`make_paged_megastep`).  Not ported yet (ROADMAP.md Queue A):
-the host spill tier and the durable store (bf16 and int8), lane
-spill/restore and the prefill-pool transfers.  ``ContinuousBatcher``
-refuses them.
+(:func:`make_paged_megastep`).  A preempted lane's blocks come back
+through :func:`make_promote_blocks` (the in-place promote scatter).
+Not ported yet (ROADMAP.md Queue A): the host spill tier and the
+durable store (bf16 and int8) and the prefill-pool transfers.
+``ContinuousBatcher`` refuses them.
 """
 
 from __future__ import annotations
@@ -930,6 +931,43 @@ def make_block_copier():
         return cache
 
     return cp
+
+
+def make_promote_blocks(block_size: int, quant: bool = False):
+    """The PROMOTE upload: write a batch of whole blocks coming back from
+    the host (a spilled lane's restore) into their reserved pool blocks,
+    in place.  The batch rides as one contiguous slab ``rows_*`` [L, 1,
+    H, n * bs, D], block j landing at ``ids[j]``: the bf16 leg is the
+    prefill path's whole-block write (ops/decode_attention.py
+    ``scatter_prefill_blocks``); the int8 leg copies codes AND the scale
+    rows ``srow_*`` [L, n, H] verbatim
+    (``scatter_promote_blocks_quant``) — a promote never re-quantizes,
+    so a restored block is the block that was spilled, byte for byte.
+
+    ``up(cache, rows_k, rows_v, ids[, srow_k, srow_v]) -> cache`` writes
+    ``cache["k"]``, ``cache["v"]`` (and ``cache["ks"]``,
+    ``cache["vs"]``) and rebinds nothing, so a captured CUDA graph keeps
+    reading the pool it was captured over.  The JAX function pads the
+    batch to a ladder of shapes with trash-block ids to bound its jit
+    compiles; eager PyTorch compiles nothing, so the batch is written at
+    its own size."""
+    from paddle_operator_tpu_torch.ops.decode_attention import (
+        scatter_prefill_blocks,
+        scatter_promote_blocks_quant,
+    )
+
+    def up(cache, rows_k, rows_v, ids, srow_k=None, srow_v=None):
+        if quant:
+            scatter_promote_blocks_quant(cache["k"], cache["ks"], rows_k,
+                                         srow_k, ids, block_size)
+            scatter_promote_blocks_quant(cache["v"], cache["vs"], rows_v,
+                                         srow_v, ids, block_size)
+        else:
+            scatter_prefill_blocks(cache["k"], rows_k, ids, block_size)
+            scatter_prefill_blocks(cache["v"], rows_v, ids, block_size)
+        return cache
+
+    return up
 
 
 def make_tail_init():

@@ -1,18 +1,19 @@
-"""Priority classes for the serving ring — own copy of the jax-free
-admission half of ``paddle_operator_tpu/infer/qos.py``:
-:class:`QoSConfig` (its priority fields) and :class:`MultiClassQueue`.
+"""Priority classes and preemption budgets for the serving ring — own
+copy of the jax-free half of ``paddle_operator_tpu/infer/qos.py``:
+:class:`QoSConfig`, :class:`MultiClassQueue` and
+:class:`PreemptionBudget`.
 
 ``submit(priority=)`` / HTTP ``X-Request-Priority`` order admission in
 class-then-FIFO order (class 0 is the most urgent), each class with its
 OWN bounded queue, so a flood in one class sheds its own overflow and
-never backpressures a more urgent one.
+never backpressures a more urgent one.  On the paged ring a waiting
+request of a strictly more urgent class preempts a resident lane
+(SERVE_PREEMPT, on by default): the lane spills to host and resumes
+later, bit-identically (infer/scheduler.py), within the budgets below.
 
-Not ported yet (ROADMAP.md Queue A): preemptive lane spill with its
-budgets (``PreemptionBudget``, ``SERVE_PREEMPT*``, which serve.py
-refuses; the ring admits in priority order and never spills) and the
-LoRA ``AdapterRegistry``.  The default class count is the JAX
-package's ``controller/policy.py`` ``DEFAULT_POLICY`` value, copied as
-a constant.
+Not ported yet (ROADMAP.md Queue A): the LoRA ``AdapterRegistry``.  The
+defaults are the JAX package's ``controller/policy.py``
+``DEFAULT_POLICY`` values, copied as constants.
 """
 
 from __future__ import annotations
@@ -29,22 +30,36 @@ MAX_PRIORITIES = 8
 
 # controller/policy.py DEFAULT_POLICY of the JAX package
 DEFAULT_PRIORITIES = 2
+DEFAULT_PREEMPT_BUDGET = 16
+DEFAULT_PREEMPT_WINDOW_S = 10.0
+DEFAULT_MAX_PREEMPTS_PER_REQUEST = 2
 
 
 @dataclass
 class QoSConfig:
     """Knobs for the multi-class scheduler (env surface in
-    infer/serve.py: ``SERVE_PRIORITIES``).
+    infer/serve.py: ``SERVE_PRIORITIES`` / ``SERVE_PREEMPT*``).
 
     - ``priorities``: number of classes (class 0 most urgent).  1 turns
       the queue into a single FIFO.
     - ``default_priority``: class for unannotated requests; ``None``
       resolves to the LEAST urgent class — priorities are opt-in
       boosts, so unannotated traffic keeps FIFO behavior exactly.
+    - ``preempt``: allow lane spill for waiting more-urgent work
+      (paged rings only — the spill rides the block pool).
+    - ``max_preempts_per_request``: one victim is never bounced more
+      than this many times (starvation guard).
+    - ``preempt_budget`` / ``preempt_window_s``: at most ``budget``
+      preemptions per rolling window (anti-thrash: a pathological
+      priority mix degrades to FIFO, never to spill churn).
     """
 
     priorities: int = DEFAULT_PRIORITIES
     default_priority: Optional[int] = None
+    preempt: bool = True
+    max_preempts_per_request: int = DEFAULT_MAX_PREEMPTS_PER_REQUEST
+    preempt_budget: int = DEFAULT_PREEMPT_BUDGET
+    preempt_window_s: float = DEFAULT_PREEMPT_WINDOW_S
 
     def __post_init__(self) -> None:
         if not 1 <= self.priorities <= MAX_PRIORITIES:
@@ -60,8 +75,18 @@ class QoSConfig:
     @classmethod
     def from_env(cls, env=None) -> "QoSConfig":
         env = os.environ if env is None else env
-        return cls(priorities=int(env.get("SERVE_PRIORITIES",
-                                          str(DEFAULT_PRIORITIES))))
+        return cls(
+            priorities=int(env.get("SERVE_PRIORITIES",
+                                   str(DEFAULT_PRIORITIES))),
+            preempt=env.get("SERVE_PREEMPT", "1") == "1",
+            max_preempts_per_request=int(env.get(
+                "SERVE_PREEMPT_MAX_PER_REQ",
+                str(DEFAULT_MAX_PREEMPTS_PER_REQUEST))),
+            preempt_budget=int(env.get("SERVE_PREEMPT_BUDGET",
+                                       str(DEFAULT_PREEMPT_BUDGET))),
+            preempt_window_s=float(env.get(
+                "SERVE_PREEMPT_WINDOW_S", str(DEFAULT_PREEMPT_WINDOW_S))),
+        )
 
 
 class MultiClassQueue:
@@ -153,3 +178,31 @@ class MultiClassQueue:
         with self._lock:
             return [item for q in self._qs for item in q]
 
+
+
+class PreemptionBudget:
+    """Rolling-window preemption counter (the anti-thrash budget): at
+    most ``budget`` spends per ``window_s``.  When the mix is so
+    adversarial that the budget pins, the ring degrades to in-order
+    admission — each spill and restore moves a lane's blocks across
+    the host link."""
+
+    def __init__(self, budget: int, window_s: float,
+                 clock=time.monotonic) -> None:
+        self.budget = int(budget)
+        self.window_s = float(window_s)
+        self._clock = clock
+        self._spends: deque = deque()
+
+    def _trim(self) -> None:
+        now = self._clock()
+        while self._spends and now - self._spends[0] >= self.window_s:
+            self._spends.popleft()
+
+    def ok(self) -> bool:
+        self._trim()
+        return len(self._spends) < self.budget
+
+    def spend(self) -> None:
+        self._trim()
+        self._spends.append(self._clock())

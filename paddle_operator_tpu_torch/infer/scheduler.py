@@ -9,9 +9,14 @@ class-then-FIFO order into free lanes (paged: radix prefix hits admit
 through the suffix-only insert, with copy-on-write), a depth-2
 dispatch/consume pipeline over :class:`~paddle_operator_tpu_torch.
 infer.executor.RingExecutor`, eviction on eos/budget/cancel/deadline,
-drain/abort/close, and the dispatch watchdog with self-healing rebuilds
-(``RingExecutor.reset_state``).  ``serving_status()`` returns the JAX
-ring's key set.
+drain/abort/close, the dispatch watchdog with self-healing rebuilds
+(``RingExecutor.reset_state``), and preemptive lane spill on the paged
+ring: when every lane is busy and strictly more urgent work waits, the
+least urgent lane spills to host (``RingExecutor.spill_lane``), parks,
+and later resumes bit-identically in any free lane
+(``RingExecutor.restore_lane``), within the budgets of
+:class:`~paddle_operator_tpu_torch.infer.qos.QoSConfig`.
+``serving_status()`` returns the JAX ring's key set.
 
 The ring runs on its own thread, under ``torch.inference_mode`` (which
 is thread-local, so the thread enters it itself).  Device work is
@@ -29,7 +34,7 @@ The paged ring runs over the bf16 pool or the int8 pool
 (``kv_quant="int8"``).  Not ported yet, and refused when asked for
 (ROADMAP.md Queue A): speculative decoding, chunked and disaggregated
 prefill, the host tier, LoRA adapters, span tracing, the NaN-lane
-check, live weight swap, lane spill (preemption) and fleet-level KV.
+check, live weight swap and fleet-level KV.
 """
 
 from __future__ import annotations
@@ -85,7 +90,7 @@ class _Request:
                  "done", "out", "error", "_stream", "_cancel",
                  "dev_prompt", "bucket", "deadline", "deadline_exceeded",
                  "priority", "request_id", "t_submit", "t_first",
-                 "t_last_tok")
+                 "t_last_tok", "preempts")
 
     def __init__(self, prompt, max_new, temperature, seed, eos,
                  wants_stream=False, deadline=None):
@@ -104,6 +109,9 @@ class _Request:
         self.deadline: Optional[float] = deadline
         self.deadline_exceeded = False
         self.priority = 0
+        # times this request's lane was spilled for more urgent work
+        # (the per-request anti-thrash cap)
+        self.preempts = 0
         self.request_id: Optional[str] = None
         self.t_submit = time.monotonic()
         self.t_first: Optional[float] = None
@@ -145,6 +153,23 @@ class _Request:
                     raise self.error
                 return
             yield item
+
+
+class _ParkedLane:
+    """Host bookkeeping for one PREEMPTED lane: the byte-exact spill
+    (``RingExecutor.spill_lane``) plus the host mirrors a restore
+    re-attaches — the request itself stays unresolved, invisible to the
+    client except as latency."""
+
+    __slots__ = ("req", "spill", "out", "left", "pos", "seq")
+
+    def __init__(self, req, spill, out, left, pos, seq):
+        self.req = req
+        self.spill = spill
+        self.out = out          # tokens emitted before the spill
+        self.left = left        # remaining token budget
+        self.pos = pos          # fill position at the spill boundary
+        self.seq = seq          # park order — FIFO within a class
 
 
 class ContinuousBatcher:
@@ -273,13 +298,22 @@ class ContinuousBatcher:
         self._queue_timeout = queue_timeout
         self._pending = QOS.MultiClassQueue(
             self.qos.priorities, maxsize=self.max_queue)
+        # preemption-spilled lanes awaiting re-admission, and the rolling
+        # anti-thrash budget bounding how often residents may spill
+        self._parked: List[_ParkedLane] = []
+        self._preempt_budget = QOS.PreemptionBudget(
+            self.qos.preempt_budget, self.qos.preempt_window_s)
+        self._park_seq = 0
         self._wake = threading.Event()
         self._stop = threading.Event()
         self.stats = {"admitted": 0, "evicted": 0, "chunks": 0,
                       "max_active": 0, "rejected_queue_full": 0,
                       "prefill_calls": 0, "prefill_tokens": 0,
                       "cow_copies": 0, "deadline_exceeded": 0,
-                      "watchdog_restarts": 0}
+                      "watchdog_restarts": 0,
+                      # lanes spilled for more urgent work, and spilled
+                      # lanes resumed (tpujob_serve_lane_preemptions_total)
+                      "preempted_lanes": 0, "restored_lanes": 0}
         self._tokens_emitted = 0
         self._t_start = time.monotonic()
         # prewarm (serve.py default, SERVE_PREWARM=0 opts out): build
@@ -482,8 +516,8 @@ class ContinuousBatcher:
             "paramBytes": self.executor.param_bytes(),
             "chunkedPrefillTokenShare": 0.0,
             "priorityQueueDepth": self._pending.qsize_by_class(),
-            "preemptedLanes": 0,
-            "parkedLanes": 0,
+            "preemptedLanes": self.stats["preempted_lanes"],
+            "parkedLanes": len(self._parked),
             "laneMigrations": 0,
             "adoptedLanes": 0,
             "peerPrefixFetches": 0,
@@ -521,25 +555,29 @@ class ContinuousBatcher:
 
     def drain(self, budget_s: float = 30.0) -> None:
         """SIGTERM drain: stop admissions (queued and new requests fail
-        with :class:`ShuttingDown`), let the RESIDENT lanes finish
-        within ``budget_s``, cancel stragglers at the budget (their
-        callers receive the tokens produced so far; paged blocks return
-        to the pool), then close."""
+        with :class:`ShuttingDown`), let the RESIDENT lanes — and the
+        PARKED ones, which resume as lanes free — finish within
+        ``budget_s``, cancel stragglers at the budget (their callers
+        receive the tokens produced so far; paged blocks return to the
+        pool), then close."""
         self.flightrec.record(
             "drain_start", residents=sum(r is not None for r in self.lane),
-            queued=self._pending.qsize())
+            parked=len(self._parked), queued=self._pending.qsize())
         self._draining = True
         self._wake.set()
         deadline = time.monotonic() + budget_s
         while time.monotonic() < deadline and self._thread.is_alive():
-            if all(r is None for r in self.lane) and self._pending.empty():
+            if all(r is None for r in self.lane) \
+                    and self._pending.empty() and not self._parked:
                 break
             time.sleep(0.02)
         for req in list(self.lane):
             if req is not None:
                 req.cancel()            # partial flush at chunk boundary
+        for pk in list(self._parked):
+            pk.req.cancel()             # parked partials flush too
         grace = time.monotonic() + max(5.0, budget_s)
-        while (any(r is not None for r in self.lane)
+        while ((any(r is not None for r in self.lane) or self._parked)
                and self._thread.is_alive()
                and time.monotonic() < grace):
             time.sleep(0.02)
@@ -548,9 +586,9 @@ class ContinuousBatcher:
         self.close()
 
     def abort(self, error: Optional[Exception] = None) -> None:
-        """Second-SIGTERM semantics: immediate teardown.  Resident
-        requests RESOLVE with their partial tokens; queued ones fail
-        with ShuttingDown."""
+        """Second-SIGTERM semantics: immediate teardown.  Resident and
+        parked requests RESOLVE with their partial tokens; queued ones
+        fail with ShuttingDown."""
         self.flightrec.record("abort", error=(str(error)[:200] if error
                                               else None))
         self._draining = True
@@ -560,6 +598,11 @@ class ContinuousBatcher:
             if req is not None and not req.done.is_set():
                 req.out = req.prompt + self._lane_out[i]
                 self._finish(req)
+        for pk in list(self._parked):       # parked partials resolve too
+            if not pk.req.done.is_set():
+                pk.req.out = pk.req.prompt + pk.out
+                self._finish(pk.req)
+        self._parked.clear()
         self._shed_queue(error or ShuttingDown("server killed"))
 
     def close(self) -> None:
@@ -603,7 +646,7 @@ class ContinuousBatcher:
     def _heal(self, err: Exception) -> bool:
         """Self-heal after a ring-level fault (a raising dispatch — a
         CUDA error included — or a watchdog stall): fail whatever is
-        still resident with a retriable error, rebuild every piece of
+        still resident or parked with a retriable error, rebuild every piece of
         device state from scratch (RingExecutor.reset_state), back off
         exponentially.  Returns False — and flips ``healthy`` — when
         the restart budget is exhausted (the loop then dies and
@@ -625,6 +668,12 @@ class ContinuousBatcher:
         for req in list(self.lane):
             if req is not None and not req.done.is_set():
                 self._finish(req, wrapped)
+        # parked lanes fail with the residents: their spills are host
+        # bytes, but their clients get the same retriable signal
+        for pk in self._parked:
+            if not pk.req.done.is_set():
+                self._finish(pk.req, wrapped)
+        self._parked.clear()
         self.lane = [None] * self.slots
         self._lane_out = [[] for _ in range(self.slots)]
         self._lane_left = [0] * self.slots
@@ -648,6 +697,16 @@ class ContinuousBatcher:
                 self.flightrec.record("deadline_expired", lane=i,
                                       rid=req.request_id)
                 self._evict(i)        # resolves with the partial tokens
+        # an expired parked lane resolves with the tokens it had at the
+        # spill boundary (the partial a resident gets), without waiting
+        # for a lane
+        for pk in list(self._parked):
+            req = pk.req
+            if (req.deadline is not None and now >= req.deadline
+                    and not req.done.is_set()):
+                req.deadline_exceeded = True
+                self.stats["deadline_exceeded"] += 1
+                self._release_parked(pk)
 
     # -- admission ---------------------------------------------------------
 
@@ -820,6 +879,119 @@ class ContinuousBatcher:
         else:
             self._lane_first[slot] = None
 
+    # -- preemptive lane spill ---------------------------------------------
+
+    def _best_parked(self) -> Optional[_ParkedLane]:
+        """The parked lane that should resume next: most urgent class
+        first, then park order (FIFO within a class)."""
+        if not self._parked:
+            return None
+        return min(self._parked, key=lambda p: (p.req.priority, p.seq))
+
+    def _release_parked(self, pk: _ParkedLane) -> None:
+        """Drop a parked lane; an unresolved request resolves with the
+        tokens it had at the spill boundary."""
+        self._parked.remove(pk)
+        if not pk.req.done.is_set():
+            pk.req.out = pk.req.prompt + pk.out
+            self._finish(pk.req)
+
+    def _waiting_class(self) -> Optional[int]:
+        """Most urgent class with WAITING work (queued head or parked
+        head) — the demand side of the preemption decision."""
+        cq = self._pending.peek_class()
+        pk = self._best_parked()
+        cp = pk.req.priority if pk is not None else None
+        if cq is None:
+            return cp
+        return cq if cp is None else min(cq, cp)
+
+    def _pending_prefill_slots(self) -> set:
+        """Lanes reserved but not yet decode-active, which are never
+        victims: none here, since the port prefills inline (a lane is
+        decode-active from its admission on).  Chunked and disaggregated
+        prefill (ROADMAP.md Queue A) fill it."""
+        return set()
+
+    def _preempt_victim(self) -> Optional[int]:
+        """The lane to spill for waiting more-urgent work, or None when
+        preemption should not fire: it needs the paged pool (the spill
+        rides it; the contiguous ring never preempts), a fully busy
+        ring, a STRICTLY less urgent resident than the waiting head,
+        budget headroom, and a victim not already bounced
+        ``max_preempts_per_request`` times.  The least urgent class goes
+        first; among equals the SHORTEST lane (the smallest spill)."""
+        if (self.pool is None or not self.qos.preempt or self._draining
+                or any(r is None for r in self.lane)):
+            return None
+        demand = self._waiting_class()
+        if demand is None or not self._preempt_budget.ok():
+            return None
+        prefill_pending = self._pending_prefill_slots()
+        best, best_key = None, None
+        for i, r in enumerate(self.lane):
+            if (r is None or i in prefill_pending or r.done.is_set()
+                    or r.priority <= demand
+                    or r.preempts >= self.qos.max_preempts_per_request):
+                continue
+            key = (r.priority, -self._lane_pos[i])
+            if best_key is None or key > best_key:
+                best, best_key = i, key
+        return best
+
+    def _preempt(self, slot: int) -> None:
+        """Spill resident lane ``slot`` to host and free its lane and
+        blocks for more urgent work.  The caller has QUIESCED the
+        dispatch pipeline, so the device state and the host mirrors
+        agree at a chunk (or megastep) boundary: the spill captures
+        exactly the consumed stream and the restore resumes it
+        bit-identically.  The request stays UNRESOLVED: its client sees
+        added latency, never an error or a truncated stream."""
+        req = self.lane[slot]
+        self._materialize_first(slot, req)
+        if self._lane_left[slot] <= 0 or req.done.is_set():
+            self._evict(slot)       # finished at the boundary anyway
+            return
+        spill = self.executor.spill_lane(slot)
+        self.flightrec.record("preempt", rid=req.request_id, slot=slot,
+                              prio=req.priority)
+        self._park_seq += 1
+        self._parked.append(_ParkedLane(
+            req, spill, self._lane_out[slot], self._lane_left[slot],
+            self._lane_pos[slot], self._park_seq))
+        self.lane[slot] = None
+        self._lane_out[slot] = []
+        self._lane_pos[slot] = 0
+        self._lane_first[slot] = None
+        self.pool.retire(slot)      # blocks free for the preemptor
+        req.preempts += 1
+        self._preempt_budget.spend()
+        self.stats["preempted_lanes"] += 1
+
+    def _try_restore(self, pk: _ParkedLane) -> bool:
+        """Re-admit parked lane ``pk`` into a free slot: fresh blocks,
+        the spilled bytes uploaded, the host mirrors re-attached.
+        Returns False (the lane stays parked) when the pool cannot map
+        its blocks now — the next loop pass retries as blocks free."""
+        req = pk.req
+        if req._cancel or req.done.is_set():
+            self._release_parked(pk)
+            return True
+        slot = self.lane.index(None)
+        try:
+            self.executor.restore_lane(slot, pk.spill)
+        except self.executor._pg.NoFreeBlocks:
+            self.pool.retire(slot)  # roll back ensure's partial mapping
+            return False
+        self._parked.remove(pk)
+        self.lane[slot] = req
+        self._lane_out[slot] = pk.out
+        self._lane_left[slot] = pk.left
+        self._lane_pos[slot] = pk.pos
+        self._lane_first[slot] = None
+        self.stats["restored_lanes"] += 1
+        return True
+
     # -- the loop ----------------------------------------------------------
 
     def _loop(self) -> None:
@@ -834,10 +1006,14 @@ class ContinuousBatcher:
                 if req is not None:
                     self._finish(req, e)
             self.lane = [None] * self.slots
+        # fail whatever is still queued, resident or parked
         for i, req in enumerate(self.lane):
             if req is not None:
                 self._finish(req, ShuttingDown("batcher closed"))
                 self.lane[i] = None
+        for pk in self._parked:
+            self._finish(pk.req, ShuttingDown("batcher closed"))
+        self._parked.clear()
         self._shed_queue(ShuttingDown("batcher closed"))
 
     def _consume(self, chunk_reqs, toks: np.ndarray,
@@ -951,9 +1127,31 @@ class ContinuousBatcher:
             for i, r in enumerate(self.lane):
                 if r is not None and r._cancel:
                     self._evict(i)
-            # admit into free lanes, most urgent class first (FIFO within
-            # a class); the ring never spills a resident lane
-            while any(r is None for r in self.lane) and not self._draining:
+            # parked lanes honor cancel too, without waiting for a lane
+            for pk in list(self._parked):
+                if pk.req._cancel or pk.req.done.is_set():
+                    self._release_parked(pk)
+            # admit into free lanes: parked (preempted) lanes resume
+            # ahead of queued work of the same class — they were admitted
+            # first and already hold tokens — and queued work pops in
+            # class-then-FIFO order.  Restores run even while draining:
+            # a parked lane is admitted work the drain promises to finish
+            while any(r is None for r in self.lane):
+                pk = self._best_parked()
+                cq = (None if self._draining
+                      else self._pending.peek_class())
+                if pk is not None and (cq is None
+                                       or pk.req.priority <= cq):
+                    try:
+                        restored = self._try_restore(pk)
+                    except Exception as e:      # a device fault: heal
+                        self._fault = e
+                        break
+                    if not restored:
+                        break       # free blocks tight: retry next pass
+                    continue
+                if cq is None:
+                    break
                 try:
                     req = self._pending.get_nowait()
                 except queue.Empty:
@@ -982,6 +1180,26 @@ class ContinuousBatcher:
                         # admission may have mapped blocks before the
                         # insert failed — unmap them
                         self.pool.retire(slot)
+            # preemptive lane spill: more urgent work waits and every
+            # lane is busy — quiesce the pipeline (THE boundary: device
+            # state and host mirrors agree), re-pick the victim (a
+            # consumed chunk may have evicted it, or freed a lane), spill
+            # it, and run admission again with the freed lane and blocks
+            if self._preempt_victim() is not None:
+                while pending:
+                    try:
+                        self._consume_oldest(pending)
+                    except Exception as e:
+                        self._fault = e
+                        break
+                if self._fault is None:
+                    victim = self._preempt_victim()
+                    if victim is not None:
+                        try:
+                            self._preempt(victim)
+                        except Exception as e:  # a device fault: heal
+                            self._fault = e
+                continue
 
             active_idx = [i for i, r in enumerate(self.lane)
                           if r is not None]

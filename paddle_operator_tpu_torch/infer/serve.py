@@ -25,8 +25,10 @@ Two modes, as in the JAX package:
   pool as int8 codes + per-block scales (and implies SERVE_PAGED=1).
   Streaming (``"stream": true``),
   deadlines (``X-Request-Deadline``/``deadline_s``, 504 partials),
-  priorities (``X-Request-Priority``/``priority``) and the ring's
-  ``/statusz``, ``/metrics`` and ``/debug/flightrec`` are served.
+  priorities (``X-Request-Priority``/``priority``; on the paged ring a
+  more urgent request preempts a less urgent lane, SERVE_PREEMPT) and
+  the ring's ``/statusz``, ``/metrics`` and ``/debug/flightrec`` are
+  served.
 
 Greedy output equals the JAX server's token for token.  Sampled tokens
 differ from the JAX server's for the same seed (``jax.random`` is not
@@ -62,11 +64,6 @@ from paddle_operator_tpu_torch.infer.resilience import (
 )
 from paddle_operator_tpu_torch.models.llama import Llama, LlamaConfig
 from paddle_operator_tpu_torch.utils.tracing import safe_header_value
-
-# what /statusz and the startup line say about lane spill: the port's
-# ring admits in priority order and never preempts a resident lane
-PREEMPTION_NOTE = "off (lane spill is not ported; admission in priority order)"
-
 
 class Generator:
     """Lock-serialized wrapper around decode.generate: one request's
@@ -228,11 +225,8 @@ class _Handler(BaseHTTPRequestHandler):
         elif self.path == "/v1/adapters":
             self._send(200, {"adapters": [], "capacity": 0})
         elif self.path == "/statusz":
-            # the ring's serving_status block (batch mode publishes
-            # none), plus what this port says about lane spill
+            # the ring's serving_status block (batch mode publishes none)
             st = b.serving_status() if b is not None else {}
-            if b is not None:
-                st["preemption"] = PREEMPTION_NOTE
             if self.replica_id:
                 st["replica"] = self.replica_id
             self._send(200, st)
@@ -498,12 +492,6 @@ def refuse_unported(environ) -> None:
         refused.append("SERVE_TRACE=1 (span tracing)")
     if environ.get("SERVE_NAN_CHECK", "0") == "1":
         refused.append("SERVE_NAN_CHECK=1 (the NaN-lane check)")
-    if environ.get("SERVE_PREEMPT") == "1":
-        refused.append("SERVE_PREEMPT=1 (lane spill)")
-    for key in ("SERVE_PREEMPT_MAX_PER_REQ", "SERVE_PREEMPT_BUDGET",
-                "SERVE_PREEMPT_WINDOW_S"):
-        if on(key):
-            refused.append(f"{key}={environ[key]} (lane-spill budgets)")
     if on("TPUJOB_CHAOS"):
         refused.append(f"TPUJOB_CHAOS={environ['TPUJOB_CHAOS']} "
                        "(fault injection)")
@@ -523,9 +511,12 @@ def ring_kw_from_env(environ) -> dict:
     JAX entry point reads them: SERVE_SLOTS, SERVE_CHUNK,
     SERVE_MAX_QUEUE, SERVE_MAX_LEN, SERVE_GENERATION, SERVE_PAGED with
     SERVE_BLOCK_SIZE / SERVE_PREFIX_CACHE / SERVE_NUM_BLOCKS,
-    SERVE_KV_QUANT, SERVE_MEGASTEP, SERVE_PRIORITIES, SERVE_PREWARM and
-    the watchdog knobs (SERVE_WATCHDOG*, SERVE_MAX_RESTARTS,
-    SERVE_RESTART_WINDOW_S).
+    SERVE_KV_QUANT, SERVE_MEGASTEP, SERVE_PRIORITIES, SERVE_PREWARM, the
+    preemption knobs (SERVE_PREEMPT, on unless "0", and its budgets
+    SERVE_PREEMPT_MAX_PER_REQ / _BUDGET / _WINDOW_S: a waiting request
+    of a more urgent class spills the least urgent lane of a full paged
+    ring, which resumes later bit-identically) and the watchdog knobs
+    (SERVE_WATCHDOG*, SERVE_MAX_RESTARTS, SERVE_RESTART_WINDOW_S).
 
     SERVE_MEGASTEP=N fuses N ring iterations into one dispatch (one
     CUDA graph replay on the card), with eos / token budget / deadline
@@ -628,8 +619,7 @@ def main() -> int:
                 f"kv_quant={ring_kw.get('kv_quant', 'none')}, "
                 f"megastep={ring_kw.get('megastep', 1)}, "
                 f"slots={ring_kw['slots']}, "
-                f"chunk={ring_kw['chunk_tokens']}, "
-                f"preemption={PREEMPTION_NOTE}")
+                f"chunk={ring_kw['chunk_tokens']}")
     print(f"serving {preset} (resumed={resumed}, mode={mode}, "
           f"device={torch.cuda.get_device_name(0)}) on :{env.port}",
           flush=True)

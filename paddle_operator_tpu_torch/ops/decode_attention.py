@@ -580,3 +580,28 @@ def scatter_prefill_blocks_quant(pool: torch.Tensor, scales: torch.Tensor,
     pool[:, ids] = codes
     scales[:, ids] = scale
     return pool, scales
+
+
+def scatter_promote_blocks_quant(pool: torch.Tensor, scales: torch.Tensor,
+                                 rows: torch.Tensor, scale_rows: torch.Tensor,
+                                 table_row: torch.Tensor, block_size: int
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`scatter_prefill_blocks` for already-quantized blocks coming
+    back from the host (a spilled lane's restore): the int8 codes
+    ``rows`` [L, 1, H, T, D] (T a multiple of ``block_size``) and their
+    per-block scale rows ``scale_rows`` [L, T // bs, H] are copied
+    VERBATIM into ``pool`` [L, N, H, bs, D] and ``scales`` [L, N, H] at
+    the table entries ``table_row[:T // bs]``, in place.  Nothing is
+    quantized on the way in: a block's scale was computed once, when the
+    block completed, and a promote is a byte copy of it.  Returns
+    ``(pool, scales)``."""
+    lcount, _, h, t, d = rows.shape
+    if t % block_size:
+        raise ValueError(f"scatter_promote_blocks_quant: {t} rows are not "
+                         f"a multiple of the block size {block_size}")
+    nb = t // block_size
+    blocks = rows[:, 0].reshape(lcount, h, nb, block_size, d)
+    ids = table_row[:nb].to(pool.device).long()
+    pool[:, ids] = blocks.permute(0, 2, 1, 3, 4)
+    scales[:, ids] = scale_rows.to(scales.device, scales.dtype)
+    return pool, scales

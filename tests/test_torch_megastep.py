@@ -553,7 +553,7 @@ def test_ring_kw_from_env_megastep(env, want):
 @pytest.mark.parametrize("knob", [{"SERVE_SPEC_K": "2"},
                                   {"SERVE_ADAPTERS": "acme"},
                                   {"SERVE_NAN_CHECK": "1"},
-                                  {"SERVE_PREEMPT": "1"}])
+                                  {"TPUJOB_CHAOS": "dispatch_hang@3:0.25"}])
 def test_megastep_with_unported_knob_refused_by_its_name(knob):
     env = {"SERVE_CONTINUOUS": "1", "SERVE_PAGED": "1",
            "SERVE_MEGASTEP": "4", **knob}

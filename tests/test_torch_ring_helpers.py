@@ -43,13 +43,15 @@ def test_qos_config_from_env_equal(monkeypatch, env):
         monkeypatch.delenv(k, raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    # the port carries the priority fields; lane spill and its budgets
-    # are not ported (serve.refuse_unported names those knobs)
+    # every field of the JAX config, preemption and its budgets too
     want = dataclasses.asdict(JQ.QoSConfig.from_env())
     names = [f.name for f in dataclasses.fields(TQ.QoSConfig)]
-    assert names == ["priorities", "default_priority"]
+    assert names == ["priorities", "default_priority", "preempt",
+                     "max_preempts_per_request", "preempt_budget",
+                     "preempt_window_s"]
+    assert names == [f.name for f in dataclasses.fields(JQ.QoSConfig)]
     for got in (TQ.QoSConfig.from_env(), TQ.QoSConfig.from_env(env)):
-        assert dataclasses.asdict(got) == {k: want[k] for k in names}
+        assert dataclasses.asdict(got) == want
 
 
 @pytest.mark.parametrize("n_classes,maxsize,seed",

@@ -5,6 +5,7 @@ the same tokens, status codes and bodies.  Also the entry point's
 refusals, the drain contract and the jax-free helper copies.
 """
 
+import dataclasses
 import json
 import os
 import threading
@@ -400,9 +401,7 @@ class TestContinuousServer:
         assert _metric_keys(pm) == _metric_keys(jm)
         ps = json.loads(_call(urls["port"] + "/statusz")[1])
         js = json.loads(_call(urls["jax"] + "/statusz")[1])
-        assert set(ps) - set(js) == {"preemption"}
-        assert set(js) <= set(ps)
-        assert "not ported" in ps["preemption"]
+        assert set(ps) == set(js)
         fr = json.loads(_call(urls["port"] + "/debug/flightrec")[1])
         assert any(e["kind"] == "admit" for e in fr["events"])
 
@@ -531,9 +530,7 @@ REFUSED_KNOBS = [
     pytest.param({"SERVE_MEGASTEP": "4", "SERVE_SPEC_K": "2"},
                  id="SERVE_MEGASTEP=4"),
     {"SERVE_ADAPTERS": "acme"},
-    {"SERVE_TRACE": "1"}, {"SERVE_NAN_CHECK": "1"}, {"SERVE_PREEMPT": "1"},
-    {"SERVE_PREEMPT_MAX_PER_REQ": "5"}, {"SERVE_PREEMPT_BUDGET": "9"},
-    {"SERVE_PREEMPT_WINDOW_S": "2.5"},
+    {"SERVE_TRACE": "1"}, {"SERVE_NAN_CHECK": "1"},
     {"TPUJOB_CHAOS": "dispatch_hang@3:0.25"}, {"SERVE_KV_MIGRATE": "1"},
     {"SERVE_KV_PEER_FETCH": "1"}, {"SERVE_KV_STORE": "dir:/tmp/kvs"},
     {"SERVE_KV_BROKER": "127.0.0.1:9100"}, {"SERVE_TP": "2"},
@@ -554,6 +551,33 @@ def test_refuse_unported_names_the_knob(env):
     assert value in said
     assert all(k in said for k in env if k != "SERVE_MEGASTEP")
     assert "SERVE_MEGASTEP" not in said
+
+
+# the preemption knobs are served (tests/test_torch_qos.py): each of them
+# passes refuse_unported and parses to the JAX package's QoSConfig
+SERVED_PREEMPT_KNOBS = [
+    {"SERVE_PREEMPT": "1"}, {"SERVE_PREEMPT_MAX_PER_REQ": "5"},
+    {"SERVE_PREEMPT_BUDGET": "9"}, {"SERVE_PREEMPT_WINDOW_S": "2.5"},
+]
+
+
+@pytest.mark.parametrize("env", SERVED_PREEMPT_KNOBS,
+                         ids=lambda e: "-".join(f"{k}={v}"
+                                                for k, v in e.items()))
+def test_preempt_knobs_served_as_jax_parses_them(monkeypatch, env):
+    from paddle_operator_tpu.infer.qos import QoSConfig as JaxQoSConfig
+
+    environ = {"SERVE_CONTINUOUS": "1", "SERVE_PAGED": "1", **env}
+    S.refuse_unported(environ)
+    for k in ("SERVE_PRIORITIES", "SERVE_PREEMPT",
+              "SERVE_PREEMPT_MAX_PER_REQ", "SERVE_PREEMPT_BUDGET",
+              "SERVE_PREEMPT_WINDOW_S"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    got = S.ring_kw_from_env(environ)["qos"]
+    assert dataclasses.asdict(got) == \
+        dataclasses.asdict(JaxQoSConfig.from_env())
 
 
 def test_kv_quant_is_accepted_and_implies_paged():
