@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
-    python3 chip_smoke.py [--phases 2,2b,2c,2d,3,3b,3c,3d,3e,3f,3g,4,4b,4c,4d,
-                           4e,4f]
+    python3 chip_smoke.py [--phases 2,2b,2c,2d,3,3b,3c,3d,3e,3f,3g,3h,4,4b,4c,
+                           4d,4e,4f,4g]
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line; with no arguments every phase runs):
@@ -181,6 +181,42 @@ result line; with no arguments every phase runs):
    spill's ms (host, waits for its copies) and bytes, each restore's
    host and device ms (CUDA events around its queued copies and
    scatter); the launch and replay counts.
+3h. host tier and durable store main path — 3b's server (bf16 and
+   int8 pools, every dispatch a graph replay) at full width and depth.
+   Round 1: 24 distinct 1,024-token prefixes (4 blocks each: 96 blocks
+   against the 64-block pool), each with its own 16-token suffix and 32
+   new tokens; round 2: the same prefixes with fresh suffixes, in
+   reverse order, so device hits, host hits and cold prefills all
+   occur.  Requests stream over HTTP, each queued before the next is
+   sent.  Six servers a pool: the tier off; the tier on
+   (``SERVE_HOST_CACHE_MB=4096``: 30 bf16 blocks, 61 int8, sized by
+   ``ring_kw_from_env``); the store leg (``SERVE_KV_STORE=dir:<tmp>``,
+   round 1 on a server with a 15-block tier, which overflows whole
+   chains into the store, then ``flush()`` and close; round 2 on a fresh
+   server with a 61-block tier on the same directory, whose imports
+   outlast its own demotes); and two references — a pool that never
+   evicts (round 2 all device hits) and the prefix cache off (round 2
+   all cold).  A prefix hit and a cold prefill round differently in
+   bf16 (3b's resubmission note), so each round-2 stream of the three
+   runs is held to the reference of the path its admission took (a
+   hit — device, host or store, the same bytes — or a cold prefill),
+   and round 1 (all cold) must be equal across the runs; a failure
+   exits non-zero.  Also gated: >= 1 host promotion with the tier on,
+   >= 1 store hit after the restart, every dispatch a replay of the
+   prewarm graphs at their addresses, kernel #2 (#3) launches ==
+   n_layers x chunk x dispatches, the pool's invariant.  Printed: each
+   round-2 path, how many streams are equal across tier off / on /
+   store restart, the pinned slab's bytes and boot ms, demote host ms
+   and device ms (CUDA events around the queued slice and copy) with
+   its GB/s, promote device ms a block, round 2's per-request TTFT and
+   prefill tokens tier off / on / restart, the store's bytes, write
+   GB/s (write + fsync + rename) and fetch ms, ``/statusz``'s host and
+   store keys.  Then on a bare executor of 3b's geometry, three
+   spill/restore cycles of a 528-token lane: each spill's ms and the
+   caching host allocator's new pinned allocations (does a spill that
+   follows a restore still pin?), each restore's host ms beside a
+   dispatch in flight, its pieces and every synchronizing call PyTorch
+   reports under ``set_sync_debug_mode("warn")``.
 4. kernel path == plain path — 7b width, 2 layers, float32: greedy
    ``generate`` through the kernel and through the plain version give
    the same tokens, and per-step logits agree within 1e-3.
@@ -216,6 +252,18 @@ result line; with no arguments every phase runs):
    identity phases 4b and 4d hold); the state's addresses and the graphs
    are those from before the restore, and the paged kernel launched on
    the dispatches after it.
+4g. host tier equalities — 7b width, 2 layers, float32, bs 16, 2 slots,
+   chunk 8, on the bf16 and int8 pools at megastep 1 and 4: three
+   48-token prompts, two 112-token fillers, then the three prompts and
+   a 40-token prompt whose hit ends mid-block.  Through a pool of one
+   lane's worth of blocks (8) with a 16-block tier — the chains demote
+   while the fillers run and host-hit back — with the kernel and with
+   the plain attention path, and through a store restart (a 4-block
+   tier spills the chains, a fresh ring on the same directory serves
+   the second round), the tokens equal the tier-off ring's (a pool that
+   never evicts), with >= 3 promoted blocks, >= 1 store hit, the graphs
+   and the state's addresses those from before the host hits, and the
+   paged kernel launched after them.
 4c. training kernel path == plain path — 7b width, 2 layers, float32:
    three train steps with attention through the flash kernels and
    through ``reference_attention`` from the same init agree in loss
@@ -285,7 +333,7 @@ CKPT = dict(layers=2, batch=4, seq=2048, steps=6, interval=3, drain_at=2,
 SERVE_LOAD_MARGIN = 16 << 20
 PEAK_BF16 = 989e12                 # H100 SXM dense bf16, for MFU
 PHASES = ("2", "2b", "2c", "2d", "3", "3b", "3c", "3d", "3e", "3f", "3g",
-          "4", "4b", "4c", "4d", "4e", "4f")
+          "3h", "4", "4b", "4c", "4d", "4e", "4f", "4g")
 
 
 def log(*a) -> None:
@@ -2104,6 +2152,578 @@ def phase_preemption(reports: tuple, params, cfg) -> None:
             f"({link['d2h_pageable_gb_s']:.1f} GB/s) on {card_line()}")
 
 
+# phase 3h: 3b's ring with the host tier (SERVE_HOST_CACHE_MB) and the
+# durable store (SERVE_KV_STORE); round 1 serves `prefixes` distinct
+# `prefix`-token prefixes (4 blocks each: 96 blocks against 3b's 64),
+# each with its own `suffix`-token suffix and `new` new tokens; round 2
+# the same prefixes with fresh suffixes in reverse order.  `host_mb` is
+# the tier-on run's tier (30 bf16 blocks, 61 int8); the store leg's
+# tiers are `store_host_mb`: the first server's holds 15 blocks on
+# either pool, so that round 1 overflows whole chains into the store
+# (eviction takes the chains' last (leaf) blocks first, and at 30 / 61
+# blocks no chain leaves the tier whole); the restarted server's holds
+# 61, so the chains it imports from the store at submission outlast the
+# ~45 demotes its own cold prefills make before their admission.
+# `ref_blocks` is the hit reference's pool: round 1's 96
+# prefix blocks and 8 lanes' private blocks, nothing evicted.
+TIER = dict(prefixes=24, prefix=1024, suffix=16, new=32, host_mb=4096,
+            store_host_mb={"none": (2048, 8192), "int8": (1024, 4096)},
+            ref_blocks=112)
+TIER_RUNS = ("hit_ref", "cold_ref", "off", "on", "store_a", "store_b")
+
+
+def _ordered_round(base: str, batcher, prompts, new: int) -> list:
+    """Stream ``prompts`` to the server in order — each request is
+    queued before the next one is sent, so the ring admits them in that
+    order — and return, per request, (HTTP status, events, event
+    clocks, send clock)."""
+    results, errors = {}, []
+    queued = [0]
+    real_submit = batcher.submit
+
+    def submit(*a, **kw):
+        out = real_submit(*a, **kw)
+        queued[0] += 1
+        return out
+
+    batcher.submit = submit
+
+    def send(i, p):
+        try:
+            results[i] = _stream_timed(
+                base, {"tokens": [p], "max_new_tokens": new})
+        except Exception as e:              # surfaced after the join
+            errors.append(f"request {i}: {e!r}")
+
+    threads = []
+    t0 = time.perf_counter()
+    try:
+        for i, p in enumerate(prompts):
+            th = threading.Thread(target=send, args=(i, p))
+            th.start()
+            threads.append(th)
+            while queued[0] <= i:
+                if errors or time.perf_counter() - t0 > 600:
+                    raise AssertionError(f"3h: request {i} never queued: "
+                                         f"{errors}")
+                time.sleep(0.0005)
+        for th in threads:
+            th.join()
+    finally:
+        batcher.submit = real_submit
+    if errors:
+        raise AssertionError(f"3h requests failed: {errors}")
+    return [results[i] for i in range(len(prompts))]
+
+
+def _tier_run(params, cfg, kv_quant: str, mode: str, rounds, store_dir=None,
+              sizes=TIER) -> dict:
+    """One server of phase 3h (``mode`` in TIER_RUNS) serving ``rounds``
+    (a list of prompt lists): every request's tokens, TTFT, prefill
+    tokens and promoted blocks, and the tier's and the store's timings
+    (demotes and promotes timed by CUDA events around their queued
+    copies, the store's file writes and fetches by the host clock)."""
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.infer import serve as S
+    from paddle_operator_tpu_torch.ops import decode_attention as DA
+
+    on_card = params.tok_embed.embedding.device.type == "cuda"
+    quant = kv_quant != "none"
+    kw = dict(RING, prewarm=True)
+    if quant:
+        kw["kv_quant"] = kv_quant
+    if mode == "hit_ref":
+        kw["num_blocks"] = sizes["ref_blocks"]
+    elif mode == "cold_ref":
+        kw["prefix_cache"] = False
+    elif mode != "off":
+        mb = (sizes["host_mb"] if mode == "on"
+              else sizes["store_host_mb"][kv_quant][mode == "store_b"])
+        kw["host_cache_blocks"] = S.ring_kw_from_env(
+            {"SERVE_PAGED": "1", "SERVE_KV_QUANT": kv_quant,
+             "SERVE_BLOCK_SIZE": str(kw["block_size"]),
+             "SERVE_HOST_CACHE_MB": str(mb)}, cfg)["host_cache_blocks"]
+    srv = S.make_server("127.0.0.1", 0, params, cfg, **kw)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    batcher = srv.generator.batcher
+    ex = batcher.executor
+    store = None
+    if store_dir is not None:
+        S.wire_kv_store_from_env(batcher,
+                                 {"SERVE_KV_STORE": f"dir:{store_dir}"})
+        store = batcher.kv_store
+    if not batcher.prewarmed.wait(600) or ex.needs_capture:
+        raise AssertionError(f"3h: the ring's CUDA graphs were not captured "
+                             f"at prewarm: {batcher.prewarm_error!r}")
+    graphs, ptrs = ex._graphs, ex._state_ptrs()
+    pinned = bool(ex._slab is not None and ex._slab.registered)
+    paths, demotes, promotes, puts, fetches = {}, [], [], [], []
+    imports = []
+
+    def event():
+        return torch.cuda.Event(enable_timing=True) if on_card else None
+
+    def timed_events(fn, out, size):
+        def wrapper(*a):
+            e0, e1 = event(), event()
+            if on_card:
+                e0.record()
+            t = time.perf_counter()
+            r = fn(*a)
+            host = time.perf_counter() - t
+            if on_card:
+                e1.record()
+            out.append((host, e0, e1, size(a)))
+            return r
+        return wrapper
+
+    real_admit = batcher._admit_paged
+
+    def admit(slot, req):
+        t0 = (batcher.stats["prefill_tokens"], batcher.stats["promoted_blocks"])
+        out = real_admit(slot, req)
+        paths[tuple(req.prompt)] = (
+            batcher.stats["prefill_tokens"] - t0[0],
+            batcher.stats["promoted_blocks"] - t0[1])
+        return out
+
+    batcher._admit_paged = admit
+    if batcher.pool.host is not None:
+        batcher.pool.demote_fetch = timed_events(
+            batcher.pool.demote_fetch, demotes, lambda a: 1)
+        ex.dispatch_promotions = timed_events(ex.dispatch_promotions,
+                                              promotes, lambda a: len(a[0]))
+        batcher.pool.host_import = timed_events(batcher.pool.host_import,
+                                                imports, lambda a: 1)
+    if store is not None:
+        real_put, real_fetch = store.backend.put, store.fetch
+
+        def put(ns, key, blob):
+            t = time.perf_counter()
+            real_put(ns, key, blob)
+            puts.append((time.perf_counter() - t, len(blob)))
+
+        def fetch(*a, **k):
+            t = time.perf_counter()
+            out = real_fetch(*a, **k)
+            fetches.append((time.perf_counter() - t, len(out[1])))
+            return out
+
+        store.backend.put, store.fetch = put, fetch
+    outputs, ttfts = [], []
+    try:
+        stats0 = dict(batcher.stats)
+        replays0 = ex.graph_replays
+        _zero_launches()
+        for prompts in rounds:
+            res = _ordered_round(base, batcher, prompts, sizes["new"])
+            outs, tt = [], []
+            for p, (code, events, times, t_send) in zip(prompts, res):
+                toks = [e["token"] for e in events if "token" in e]
+                done = events[-1]
+                if code != 200 or not done.get("done") \
+                        or done["tokens"] != p + toks:
+                    raise AssertionError(f"3h {mode}: HTTP {code}, last "
+                                         f"event {str(done)[:200]}")
+                _check_rows(cfg, p, done["tokens"], sizes["new"],
+                            f"3h {mode}")
+                outs.append(done["tokens"])
+                tt.append(next(t for t, e in zip(times, events)
+                               if "token" in e) - t_send)
+            outputs.append(outs)
+            ttfts.append(tt)
+        with urllib.request.urlopen(base + "/statusz", timeout=60) as r:
+            statusz = json.loads(r.read())
+        if store is not None and not store.flush(timeout=600):
+            raise AssertionError("3h: the store's writer did not drain")
+        if on_card:
+            torch.cuda.synchronize()
+        batcher.pool.check_invariant()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
+        srv.generator.close()
+        if store is not None:
+            store.close()
+    pool = batcher.pool
+    chunks = batcher.stats["chunks"] - stats0["chunks"]
+    counter = "quant_launches" if quant else "launches"
+    other = (DA.decode_attention.launches,
+             getattr(DA.paged_decode_attention,
+                     "launches" if quant else "quant_launches"))
+    ms = (lambda e0, e1: e0.elapsed_time(e1)) if on_card else (
+        lambda e0, e1: 0.0)
+    blk_bytes = (ex._slab.slot_bytes if ex._slab is not None else 0)
+    return {
+        "mode": mode, "outputs": outputs, "ttft_s": ttfts,
+        "paths": [[paths[tuple(p)] for p in prompts] for prompts in rounds],
+        "chunks": chunks, "replays": ex.graph_replays - replays0,
+        "launches": getattr(DA.paged_decode_attention, counter),
+        "launches_want": cfg.n_layers * RING["chunk_tokens"] * chunks,
+        "other_kernels": other,
+        "same_graphs": ex._graphs is graphs and ex._state_ptrs() == ptrs,
+        "host_blocks_cap": ex.host_cache_blocks,
+        "slab_bytes": ex._slab.nbytes() if ex._slab is not None else 0,
+        "slab_boot_ms": (ex._slab.boot_s * 1e3
+                         if ex._slab is not None else 0.0),
+        "slab_pinned": pinned,
+        "block_bytes": blk_bytes,
+        "demote_host_ms": [h * 1e3 for h, _, _, _ in demotes],
+        "demote_device_ms": [ms(a, b) for _, a, b, _ in demotes],
+        "promote_host_ms": [h * 1e3 for h, _, _, _ in promotes],
+        "promote_device_ms": [ms(a, b) for _, a, b, _ in promotes],
+        "promote_blocks": [n for _, _, _, n in promotes],
+        "import_host_ms": [h * 1e3 for h, _, _, _ in imports],
+        "cache_evictions": pool.stats["cache_evictions"],
+        "host_promotions": pool.stats["host_promotions"],
+        "host_demotions": pool.stats["host_demotions"],
+        "kv_store_hits": batcher.stats["kv_store_hits"],
+        "kv_store_probes": batcher.stats["kv_store_probes"],
+        "store_bytes_written": (store.stats["bytes_written"]
+                                if store is not None else 0),
+        "store_spills": pool.stats["store_spills"],
+        "store_put_drops": (store.stats["put_drops"]
+                            if store is not None else 0),
+        "store_puts": [(s, b) for s, b in puts],
+        "store_fetch": fetches,
+        "statusz": {k: statusz[k] for k in (
+            "hostCacheBlocks", "hostHitRate", "promotedBlocks",
+            "hostCacheEvictions", "kvStoreBlocks", "kvStoreBytes",
+            "kvStoreHitRate", "kvStoreEvictions")},
+    }
+
+
+def _spill_after_restore(params, cfg) -> dict:
+    """The two readings the host tier owed (PERF.md §7), on a bare
+    executor of 3b's geometry: (a) does a spill that follows a restore
+    still page-lock fresh host memory, or does PyTorch's caching host
+    allocator hand it the blocks the restored spill gave back (spill ms
+    and the allocator's counts, three spill/restore cycles of a
+    528-token lane, 402,653,184 bytes on the bf16 pool); (b) what holds
+    the host in the first restore: each restore runs while the other
+    lane's dispatch is in flight, under
+    ``torch.cuda.set_sync_debug_mode("warn")`` (which names every
+    synchronizing call PyTorch makes), with its pieces timed by the host
+    clock."""
+    import torch
+
+    from paddle_operator_tpu_torch.infer import executor as X
+
+    with torch.inference_mode():
+        return _spill_restore_cycles(X.RingExecutor(
+            params, cfg, slots=2, max_len=RING["max_len"],
+            chunk_tokens=RING["chunk_tokens"], paged=True,
+            block_size=RING["block_size"], num_blocks=16), cfg)
+
+
+def _spill_restore_cycles(ex, cfg) -> dict:
+    """:func:`_spill_after_restore`'s three cycles on ``ex``."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.infer import executor as X
+
+    ex.prewarm()
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, 512).tolist()
+               for _ in range(2)]
+    chunk = ex.chunk
+    pos = {}
+
+    def dispatch(wait=True):
+        for s, p in pos.items():
+            ex.pool.ensure(s, p + chunk)
+        res = ex.replay(X.ExecPlan(1, [i in pos for i in range(ex.slots)],
+                                   table=ex.pool.table))
+        for s in pos:
+            pos[s] += chunk
+        if wait:
+            res.host()
+        return res
+
+    for s, p in enumerate(prompts):
+        _admit_cold(ex, s, p)
+        pos[s] = len(p)
+    dispatch()
+    dispatch()
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+
+    def host_allocs():
+        st = stats() if stats is not None else {}
+        return st.get("num_host_alloc", -1)
+
+    pieces = {}
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            pieces.setdefault(name, []).append(
+                (time.perf_counter() - t) * 1e3)
+            return out
+        return wrapper
+
+    real = (X.to_device, ex._promote, ex.pool.ensure)
+    X.to_device = timed("to_device", real[0])
+    ex._promote = timed("promote scatter", real[1])
+    ex.pool.ensure = timed("pool.ensure", real[2])
+    cycles = []
+    try:
+        for _ in range(3):
+            a0 = host_allocs()
+            t = time.perf_counter()
+            spill = ex.spill_lane(0)
+            spill_ms = (time.perf_counter() - t) * 1e3
+            a1 = host_allocs()
+            nbytes = sum(v.numel() * v.element_size() for v in spill.values()
+                         if isinstance(v, torch.Tensor))
+            ex.pool.retire(0)
+            del pos[0]
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            res = dispatch(wait=False)      # lane 1's dispatch in flight
+            e1.record()
+            pieces.clear()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                t = time.perf_counter()
+                try:
+                    ex.restore_lane(0, spill)
+                finally:
+                    restore_ms = (time.perf_counter() - t) * 1e3
+                    torch.cuda.set_sync_debug_mode("default")
+            done_at_return = e1.query()
+            res.host()
+            pos[0] = spill["pos"]
+            del spill
+            dispatch()
+            cycles.append({
+                "spill_ms": spill_ms, "spill_bytes": nbytes,
+                "host_allocs_in_spill": a1 - a0 if a0 >= 0 else None,
+                "restore_host_ms": restore_ms,
+                "dispatch_in_flight_ms": e0.elapsed_time(e1),
+                "dispatch_done_when_restore_returned": done_at_return,
+                "restore_pieces_ms": {k: [round(x, 3) for x in v]
+                                      for k, v in pieces.items()},
+                "sync_warnings": sorted({str(w.message).splitlines()[0][:120]
+                                         for w in caught}),
+            })
+    finally:
+        X.to_device = real[0]
+    # the lane-state write the restore and the admissions make, beside a
+    # dispatch in flight: item assignment of a Python number against
+    # fill_ (the lane's temperature is 0.0 already)
+    writes = {"setitem": [], "fill_": []}
+    for how in ("setitem", "fill_", "setitem", "fill_"):
+        res = dispatch(wait=False)
+        t = time.perf_counter()
+        if how == "setitem":
+            ex.temp[1] = 0.0
+        else:
+            ex.temp[1].fill_(0.0)
+        writes[how].append((time.perf_counter() - t) * 1e3)
+        res.host()
+    return {"cycles": cycles, "scalar_write_ms": writes}
+
+
+def _path(prompt, taken, suffix) -> str:
+    """An admission's path from (prefill tokens, promoted blocks): a
+    prefix hit (suffix-only forward; ``H`` when blocks came back from
+    the host tier or the store, ``D`` when all were on the device) or a
+    cold prefill ``C``."""
+    prefill, promoted = taken
+    if prefill == suffix:
+        return "H" if promoted else "D"
+    if prefill == len(prompt):
+        return "C"
+    return f"?{prefill}"
+
+
+def phase_host_tier(reports: tuple, params, cfg, sizes=TIER) -> None:
+    """Phase 3h: the host tier and the durable store on 3b's ring at full
+    width and depth, bf16 and int8 pools; see the module docstring."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    on_card = params.tok_embed.embedding.device.type == "cuda"
+    rng = np.random.default_rng(11)
+    v, n = cfg.vocab_size, sizes["prefixes"]
+    prefixes = [rng.integers(0, v, sizes["prefix"]).tolist()
+                for _ in range(n)]
+    round1 = [p + rng.integers(0, v, sizes["suffix"]).tolist()
+              for p in prefixes]
+    round2 = [p + rng.integers(0, v, sizes["suffix"]).tolist()
+              for p in prefixes][::-1]
+    for report, kv_quant in zip(reports, ("none", "int8")):
+        store_dir = tempfile.mkdtemp(prefix="chip-smoke-kvstore-")
+        usage = shutil.disk_usage(store_dir)
+        runs = {}
+        try:
+            for mode in TIER_RUNS:
+                rounds = {"cold_ref": [round2], "store_a": [round1],
+                          "store_b": [round2]}.get(mode, [round1, round2])
+                runs[mode] = _tier_run(
+                    params, cfg, kv_quant, mode, rounds, sizes=sizes,
+                    store_dir=store_dir if mode.startswith("store") else None)
+                gc.collect()
+                if on_card:
+                    torch.cuda.empty_cache()
+        finally:
+            shutil.rmtree(store_dir, ignore_errors=True)
+        bad = []
+        for mode, run in runs.items():
+            if on_card and (run["launches"] != run["launches_want"]
+                            or any(run["other_kernels"])
+                            or run["replays"] != run["chunks"]
+                            or not run["same_graphs"]):
+                bad.append(f"{mode}: launches {run['launches']} (want "
+                           f"{run['launches_want']}), other kernels "
+                           f"{run['other_kernels']}, replays "
+                           f"{run['replays']} of {run['chunks']} "
+                           f"dispatches, prewarm graphs and addresses "
+                           f"kept {run['same_graphs']}")
+        r2 = {m: runs[m]["outputs"][-1] for m in runs if m != "store_a"}
+        p2 = {m: [_path(p, t, len(p) - sizes["prefix"])
+                  for p, t in zip(round2, runs[m]["paths"][-1])]
+              for m in r2}
+        r1 = [runs[m]["outputs"][0] for m in ("hit_ref", "off", "on",
+                                               "store_a")]
+        if any(r != r1[0] for r in r1):
+            bad.append("round 1 (all cold) differs between runs")
+        if set(p2["hit_ref"]) != {"D"} or runs["hit_ref"]["cache_evictions"]:
+            bad.append(f"the hit reference did not hit every prefix on the "
+                       f"device: {p2['hit_ref']}")
+        if set(p2["cold_ref"]) != {"C"}:
+            bad.append(f"the cold reference hit a prefix: {p2['cold_ref']}")
+        for mode in ("off", "on", "store_b"):
+            for i, path in enumerate(p2[mode]):
+                ref = {"D": "hit_ref", "H": "hit_ref",
+                       "C": "cold_ref"}.get(path)
+                if ref is None or r2[mode][i] != r2[ref][i]:
+                    bad.append(f"{mode} round-2 request {i} (path {path}) "
+                               f"differs from its {ref} stream")
+        on, sb = runs["on"], runs["store_b"]
+        if not on["host_promotions"] >= 1:
+            bad.append("no host promotion in the tier-on run")
+        if not sb["kv_store_hits"] >= 1 or "H" not in p2["store_b"]:
+            bad.append(f"no store hit after the restart ({sb['kv_store_hits']}"
+                       f" hits, paths {p2['store_b']})")
+        same3 = sum(r2["off"][i] == r2["on"][i] == r2["store_b"][i]
+                    for i in range(n))
+        counts = {m: {k: p2[m].count(k) for k in sorted(set(p2[m]))}
+                  for m in p2}
+        card = card_line() if on_card else "the CPU"
+        dem = on["demote_device_ms"]
+        blk = on["block_bytes"]
+        prom = [ms / nb for ms, nb in zip(on["promote_device_ms"],
+                                          on["promote_blocks"])]
+        puts = runs["store_a"]["store_puts"]
+        put_s = sum(s for s, _ in puts)
+        fetch = sb["store_fetch"]
+        tier = {
+            "kv_quant": kv_quant, "paths_round2": counts,
+            "equal_across_off_on_store": same3,
+            "tier_blocks": on["host_blocks_cap"],
+            "store_tier_blocks": sb["host_blocks_cap"],
+            "slab_bytes": on["slab_bytes"], "slab_pinned": on["slab_pinned"],
+            "slab_boot_ms": on["slab_boot_ms"],
+            "block_bytes": blk, "demotes": len(dem),
+            "demote_host_ms_p50": float(np.median(on["demote_host_ms"]))
+            if dem else None,
+            "demote_host_ms_max": max(on["demote_host_ms"]) if dem else None,
+            "demote_device_ms_p50": float(np.median(dem)) if dem else None,
+            "demote_gb_s": blk / float(np.median(dem)) / 1e6
+            if dem and on_card else None,
+            "promote_device_ms_per_block": prom,
+            "round2_ttft_s": {m: runs[m]["ttft_s"][-1]
+                              for m in ("off", "on", "store_b")},
+            "round2_prefill_tokens": {
+                m: [t[0] for t in runs[m]["paths"][-1]]
+                for m in ("off", "on", "store_b")},
+            "store_bytes_written": runs["store_a"]["store_bytes_written"],
+            "store_spills": runs["store_a"]["store_spills"],
+            "store_put_drops": runs["store_a"]["store_put_drops"],
+            "store_files": len(puts),
+            "store_write_gb_s": (sum(b for _, b in puts) / put_s / 1e9
+                                 if put_s else None),
+            "store_fetch_ms": [round(s * 1e3, 3) for s, _ in fetch],
+            "store_import_host_ms": [round(x, 3)
+                                     for x in sb["import_host_ms"]],
+            "store_fetch_blocks": [b for _, b in fetch],
+            "store_disk_free_gb_before": usage.free / 1e9,
+            "statusz": {m: runs[m]["statusz"]
+                        for m in ("off", "on", "store_a", "store_b")},
+            "launches": {m: (runs[m]["launches"], runs[m]["launches_want"])
+                         for m in runs},
+        }
+        log(f"host tier {kv_quant}: round-2 paths (D device hit, H host "
+            f"or store hit, C cold) {counts}; {same3}/{n} round-2 streams "
+            f"equal tier off / on / after the store restart, every stream "
+            f"equal to its path's reference; tier {tier['tier_blocks']} "
+            f"blocks (store leg {tier['store_tier_blocks']}), slab "
+            f"{tier['slab_bytes']} bytes pinned={tier['slab_pinned']} in "
+            f"{tier['slab_boot_ms']:.1f} ms; {len(dem)} demotes, host ms "
+            f"p50 {tier['demote_host_ms_p50']} max "
+            f"{tier['demote_host_ms_max']}, device ms p50 "
+            f"{tier['demote_device_ms_p50']} ({tier['demote_gb_s']} GB/s "
+            f"for {blk} bytes); promote device ms a block "
+            f"{[round(x, 3) for x in prom]}; on {card}")
+        log(f"host tier {kv_quant}: round-2 TTFT s, tier off "
+            f"{[round(x, 3) for x in tier['round2_ttft_s']['off']]}; on "
+            f"{[round(x, 3) for x in tier['round2_ttft_s']['on']]}; store "
+            f"restart {[round(x, 3) for x in tier['round2_ttft_s']['store_b']]}"
+            f"; prefill tokens off {tier['round2_prefill_tokens']['off']}, "
+            f"on {tier['round2_prefill_tokens']['on']}, store restart "
+            f"{tier['round2_prefill_tokens']['store_b']}")
+        log(f"host tier {kv_quant}: the first store server offered "
+            f"{tier['store_spills']} overflowing blocks, shed "
+            f"{tier['store_put_drops']} (drop-oldest: a full slab takes "
+            f"back a queued offer's slot) and wrote "
+            f"{tier['store_bytes_written']} bytes in {tier['store_files']} "
+            f"files "
+            f"({tier['store_write_gb_s']} GB/s, write + fsync + rename; "
+            f"{tier['store_disk_free_gb_before']:.1f} GB free before), "
+            f"fetch ms {tier['store_fetch_ms']} for blocks "
+            f"{tier['store_fetch_blocks']} (submit thread), the ring "
+            f"thread's copy into the slab ms a block "
+            f"{tier['store_import_host_ms']}; /statusz {tier['statusz']}; "
+            f"launches (got, want) {tier['launches']}")
+        if bad:
+            raise AssertionError(f"3h {kv_quant}: {bad}")
+        report["host_tier"] = tier
+    if on_card:
+        cyc = _spill_after_restore(params, cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        reports[0]["host_tier"]["spill_after_restore"] = cyc
+        for i, c in enumerate(cyc["cycles"]):
+            log(f"host tier: spill/restore cycle {i}: spill "
+                f"{c['spill_ms']:.1f} ms for {c['spill_bytes']} bytes "
+                f"(pinned allocations {c['host_allocs_in_spill']}); restore "
+                f"held the host {c['restore_host_ms']:.1f} ms beside a "
+                f"{c['dispatch_in_flight_ms']:.1f} ms dispatch in flight "
+                f"(done when it returned: "
+                f"{c['dispatch_done_when_restore_returned']}); pieces ms "
+                f"{c['restore_pieces_ms']}; synchronizing calls "
+                f"{c['sync_warnings']} on {card_line()}")
+        log(f"host tier: a lane-state write beside a dispatch in flight, "
+            f"host ms: tensor[i] = number {cyc['scalar_write_ms']['setitem']}"
+            f", tensor[i].fill_(number) {cyc['scalar_write_ms']['fill_']} "
+            f"on {card_line()}")
+
+
 def _zero_launches() -> None:
     from paddle_operator_tpu_torch.ops import decode_attention as DA
     from paddle_operator_tpu_torch.ops import flash_attention as FA
@@ -3010,6 +3630,139 @@ def phase_restore_under_graphs() -> None:
     torch.cuda.empty_cache()
 
 
+
+# phase 4g: 7b width, 2 layers, f32, bs 16: a ring whose pool holds one
+# lane's worth of blocks demotes the prompts' chains while two 7-block
+# fillers run, and host-hits them back; `ref` is the tier-off ring, a
+# pool that never evicts (so its round 2 is all device hits); the store
+# leg's tier (4 blocks) overflows the chains whole into the store
+TIER_4G = dict(slots=2, max_len=128, chunk_tokens=8, block_size=16,
+               small=8, ref=64, tier=16, store_tier=4, new=16, filler_new=8)
+
+
+def phase_host_tier_equalities(params=None, cfg=None) -> None:
+    """Phase 4g: host hits and store restarts give the tier-off ring's
+    tokens, on the kernel and the plain path, bf16 and int8 pools,
+    megastep 1 and 4, with the graphs and addresses kept; see the module
+    docstring."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.infer.batcher import ContinuousBatcher
+    from paddle_operator_tpu_torch.infer.kvstore import (
+        DirBackend,
+        KVBlockStore,
+    )
+    from paddle_operator_tpu_torch.models.llama import make_model
+    from paddle_operator_tpu_torch.ops import decode_attention as DA
+
+    if params is None:
+        params, cfg = make_model("7b", device="cuda", seed=7, n_layers=2,
+                                 dtype=torch.float32)
+    on_card = params.tok_embed.embedding.device.type == "cuda"
+    pcfg = dataclasses.replace(cfg, decode_attn="plain")
+    z = TIER_4G
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, 48).tolist()
+               for _ in range(3)]
+    prompts.append(prompts[0][:40])      # its hit ends mid-block
+    fillers = [rng.integers(0, cfg.vocab_size, 112).tolist()
+               for _ in range(2)]
+
+    def serve(b, ps, new):
+        return [b.submit(p, max_new_tokens=new).result(timeout=600)
+                for p in ps]
+
+    for kv_quant in ("none", "int8"):
+        for megastep in (1, 4):
+            def ring(c, **kw):
+                return ContinuousBatcher(
+                    params, c, slots=z["slots"], max_len=z["max_len"],
+                    chunk_tokens=z["chunk_tokens"], paged=True,
+                    block_size=z["block_size"], kv_quant=kv_quant,
+                    megastep=megastep, prewarm=True, **kw)
+
+            def round1(b):
+                out = serve(b, prompts[:3], z["new"])
+                serve(b, fillers, z["filler_new"])
+                return out
+
+            ref = ring(cfg, num_blocks=z["ref"])
+            try:
+                cold = round1(ref)
+                want = serve(ref, prompts, z["new"])
+                if ref.pool.stats["cache_evictions"]:
+                    raise AssertionError("4g: the tier-off reference evicted")
+            finally:
+                ref.close()
+            seen = {}
+            for name, c in (("kernel", cfg), ("plain", pcfg)):
+                b = ring(c, num_blocks=z["small"],
+                         host_cache_blocks=z["tier"])
+                try:
+                    assert b.prewarmed.wait(600)
+                    ex = b.executor
+                    graphs, ptrs = ex._graphs, ex._state_ptrs()
+                    first = round1(b)
+                    _zero_launches()
+                    got = serve(b, prompts, z["new"])
+                    seen[name] = {
+                        "round1": first == cold, "round2": got == want,
+                        "promoted": b.stats["promoted_blocks"],
+                        "kept": (ex._graphs is graphs
+                                 and ex._state_ptrs() == ptrs),
+                        "launches": (DA.paged_decode_attention.launches
+                                     + DA.paged_decode_attention
+                                     .quant_launches)}
+                    b.pool.check_invariant()
+                finally:
+                    b.close()
+            store_dir = tempfile.mkdtemp(prefix="chip-smoke-4g-")
+            for leg in ("a", "b"):
+                b = ring(cfg, num_blocks=z["small"],
+                         host_cache_blocks=z["store_tier"])
+                store = KVBlockStore(DirBackend(store_dir),
+                                     fingerprint=b._fingerprint())
+                b.attach_kv_store(store)
+                try:
+                    if leg == "a":
+                        round1(b)
+                        spilled = b.pool.stats["store_spills"]
+                        assert store.flush(timeout=300)
+                    else:
+                        ex = b.executor
+                        assert b.prewarmed.wait(600)
+                        graphs, ptrs = ex._graphs, ex._state_ptrs()
+                        got = serve(b, prompts, z["new"])
+                        seen["store"] = {
+                            "round2": got == want, "spilled": spilled,
+                            "hits": b.stats["kv_store_hits"],
+                            "promoted": b.stats["promoted_blocks"],
+                            "kept": (ex._graphs is graphs
+                                     and ex._state_ptrs() == ptrs)}
+                    b.pool.check_invariant()
+                finally:
+                    b.close()
+                    store.close()
+            line = (f"host tier equalities, {kv_quant} pool megastep "
+                    f"{megastep} (7b width, 2 layers, f32, bs 16): {seen}")
+            log(line)
+            k, p, s = seen["kernel"], seen["plain"], seen["store"]
+            if not (k["round1"] and k["round2"] and p["round1"]
+                    and p["round2"] and s["round2"]
+                    and k["promoted"] >= 3 and p["promoted"] >= 3
+                    and s["hits"] >= 1 and s["promoted"] >= 1
+                    and (not on_card or (k["kept"] and p["kept"]
+                                         and s["kept"]
+                                         and k["launches"] > 0))):
+                raise AssertionError(line)
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+
+
 def phase_train_kernel_equals_plain() -> None:
     """Phase 4c: three f32 train steps through the flash kernels and
     through the plain attention, from the same init."""
@@ -3128,7 +3881,7 @@ def main() -> int:
     run("2b", phase_paged_kernel_vs_plain, paged)
     run("2d", phase_quant_kernel_vs_plain, quant)
     run("2c", phase_flash_vs_plain, flash)
-    if phases & {"3", "3b", "3d", "3e", "3g"}:
+    if phases & {"3", "3b", "3d", "3e", "3g", "3h"}:
         params, cfg = make_7b()
         run("3", phase_main_path, contiguous, params, cfg)
         ring_tokens = run("3b", phase_ring_main_path, paged, params, cfg)
@@ -3143,6 +3896,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         run("3g", phase_preemption, (paged, quant), params, cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        run("3h", phase_host_tier, (paged, quant), params, cfg)
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -3154,13 +3910,15 @@ def main() -> int:
     run("4d", phase_quant_ring_kernel_equals_plain)
     run("4e", phase_megastep_rings)
     run("4f", phase_restore_under_graphs)
+    run("4g", phase_host_tier_equalities)
     log(f"all phases: {time.perf_counter() - t_all:.1f}s")
 
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "max_abs_err_f32", "max_abs_err_bf16",
              "decode_ms_per_step_b4", "kernel1_ms", "paged_bf16_ms", "ring",
-             "ring_megastep", "preempt", "train", "checkpoint", "fwd_bwd", "designs",
+             "ring_megastep", "preempt", "host_tier", "train", "checkpoint",
+             "fwd_bwd", "designs",
              "ptxas",
              "timings"]
     print(json.dumps({"kernels": [

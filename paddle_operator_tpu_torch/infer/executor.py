@@ -30,15 +30,26 @@ package's ``jax.jit`` of the same program; on the CPU the same programs
 run eagerly.  A paged lane can be spilled to host memory and restored
 into any free slot (:meth:`RingExecutor.spill_lane`,
 :meth:`RingExecutor.restore_lane`: the preemption primitive), between
-replays and in place, so the graphs keep their addresses.  Not ported
-yet (ROADMAP.md Queue A): speculative rounds, chunked and disaggregated
-prefill, the host tier and LoRA adapters.
+replays and in place, so the graphs keep their addresses.
+
+With the host spill tier on (``host_cache_blocks``), demoted blocks live
+in ONE host slab (:class:`HostSlab`: page-locked on the card, allocated
+once when the ring is built, one slot per block): a demote queues a
+slice of the pool and a non-blocking device-to-host copy into a free
+slot on the ring's stream (:meth:`RingExecutor._demote_fetch`), and a
+promote queues non-blocking copies out of the slots and the in-place
+promote scatter (:meth:`RingExecutor.dispatch_promotions`) — neither
+waits for the device nor pins host memory.  Not ported yet (ROADMAP.md
+Queue A): speculative rounds, chunked and disaggregated prefill and
+LoRA adapters.
 """
 
 from __future__ import annotations
 
 import gc
+import threading
 import time
+from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -138,9 +149,150 @@ def to_device(arr, device, dtype=None) -> torch.Tensor:
          else torch.as_tensor(np.ascontiguousarray(arr)))
     if dtype is not None:
         t = t.to(dtype)
-    if torch.device(device).type != "cuda":
+    if torch.device(device).type != "cuda" or t.device.type == "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+class HostBlock(dict):
+    """One demoted block's payload in the host tier: the JAX payload's
+    keys (``k``/``v`` [L, 1, H_kv, bs, D]; ``ks``/``vs`` [L, 1, H_kv] on
+    the int8 pool), each a view of one slot of a :class:`HostSlab`.
+    ``hold``/``release`` count the slot's owners (the tier, a pending
+    promote, the store's writer); the slot returns to the free list at
+    zero.  ``wait`` returns once the slot's last queued copy landed."""
+
+    __slots__ = ("slab", "slot")
+
+    def hold(self) -> None:
+        self.slab.hold(self.slot)
+
+    def release(self) -> None:
+        self.slab.release(self.slot)
+
+    def wait(self) -> None:
+        self.slab.wait(self.slot)
+
+
+class HostSlab:
+    """The host tier's memory: ONE allocation of ``n_slots`` block-sized
+    slots, made when the ring is built and page-locked on the card
+    (``cudaHostRegister`` over one pageable allocation, so the bytes
+    pinned are the bytes asked for), so demotes and promotes are
+    asynchronous copies that never pin host memory afterwards.
+    ``boot_s`` is what the allocation and the pinning cost.
+
+    ``layout``: ``[(name, shape, dtype)]`` of one slot's arrays.  Slot
+    reuse is stream-ordered: a demote (a device write into the slot)
+    and a promote (a device read) are queued on the ring's stream, and
+    every slot remembers the event after its last queued copy, which a
+    HOST access of the slot (the store writer's read, an import's
+    write) waits for.  When no slot is free, ``reclaim`` (the durable
+    store's :meth:`~paddle_operator_tpu_torch.infer.kvstore.KVBlockStore.
+    shed_oldest`) gives one back."""
+
+    ALIGN = 256
+
+    def __init__(self, n_slots: int, layout, pin: bool) -> None:
+        t0 = time.perf_counter()
+        self.n_slots = int(n_slots)
+        self.layout = []
+        off = 0
+        for name, shape, dtype in layout:
+            nbytes = int(np.prod(shape)) * torch.empty(
+                0, dtype=dtype).element_size()
+            self.layout.append((name, tuple(shape), dtype, off, nbytes))
+            off += -(-nbytes // self.ALIGN) * self.ALIGN
+        self.slot_bytes = off
+        self.buf = torch.empty((self.n_slots, off), dtype=torch.uint8)
+        self.registered = False
+        if pin:
+            cudart = torch.cuda.cudart()
+            err = cudart.cudaHostRegister(self.buf.data_ptr(),
+                                          self.buf.numel(), 0)
+            if int(err) != 0:
+                raise RuntimeError(f"cudaHostRegister of the host tier's "
+                                   f"{self.buf.numel()} bytes failed "
+                                   f"({err})")
+            self.registered = True
+        self._views = [{name: self.buf[i, o:o + nb].view(dtype).view(shape)
+                        for name, shape, dtype, o, nb in self.layout}
+                       for i in range(self.n_slots)]
+        self.refs = [0] * self.n_slots
+        self.events: List[Any] = [None] * self.n_slots
+        self.free = deque(range(self.n_slots))
+        self._cv = threading.Condition()
+        self.reclaim = None
+        self.boot_s = time.perf_counter() - t0
+
+    def nbytes(self) -> int:
+        return self.n_slots * self.slot_bytes
+
+    def acquire(self, timeout: float = 30.0) -> HostBlock:
+        """A free slot as a :class:`HostBlock` (one owner).  A full slab
+        first asks ``reclaim`` for a slot, then waits for a holder (the
+        store's writer copying a slot out) to release one; it raises
+        when nothing can free a slot."""
+        deadline = time.monotonic() + timeout
+        while True:
+            with self._cv:
+                if self.free:
+                    slot = self.free.popleft()
+                    self.refs[slot] = 1
+                    block = HostBlock(self._views[slot])
+                    block.slab, block.slot = self, slot
+                    return block
+            if self.reclaim is not None and self.reclaim():
+                continue
+            with self._cv:
+                left = deadline - time.monotonic()
+                if (self.reclaim is None or left <= 0
+                        or not self._cv.wait_for(lambda: bool(self.free),
+                                                 timeout=left)):
+                    raise RuntimeError(
+                        f"host tier slab exhausted: all {self.n_slots} "
+                        "slots are held")
+
+    def hold(self, slot: int) -> None:
+        with self._cv:
+            self.refs[slot] += 1
+
+    def release(self, slot: int) -> None:
+        with self._cv:
+            if self.refs[slot] <= 0:
+                raise AssertionError(f"host slot {slot} released twice")
+            self.refs[slot] -= 1
+            if not self.refs[slot]:
+                self.free.append(slot)
+                self._cv.notify_all()
+
+    def mark(self, slots) -> None:
+        """Record, for ``slots``, the copies just queued on the current
+        stream (no-op off the card)."""
+        if not self.registered:
+            return
+        ev = torch.cuda.Event()
+        ev.record()
+        for slot in slots:
+            self.events[slot] = ev
+
+    def wait(self, slot: int) -> None:
+        ev = self.events[slot]
+        if ev is not None:
+            ev.synchronize()
+
+    def close(self) -> None:
+        """Unpin and drop the slab (the ring is closing): waits for the
+        card, so no copy is in flight over the memory."""
+        if self.buf is None:
+            return
+        if self.registered:
+            torch.cuda.synchronize()
+            torch.cuda.cudart().cudaHostUnregister(self.buf.data_ptr())
+            self.registered = False
+        self.buf = None
+        self._views = []
+        self.events = [None] * self.n_slots
 
 
 # ---------------------------------------------------------------------------
@@ -479,7 +631,7 @@ def _splice_lane(ring: Dict[str, torch.Tensor],
     for key in ("k", "v"):
         ring[key][:, slot].zero_()
         ring[key][:, slot, :, :n] = lane[key][:, 0, :, :n]
-    ring["pos"][slot] = int(prompt_len)
+    ring["pos"][slot].fill_(int(prompt_len))
 
 
 def make_prefill_insert(cfg: LlamaConfig, bucket: int,
@@ -585,7 +737,8 @@ class RingExecutor:
                  paged: bool = False, block_size: int = 256,
                  num_blocks: Optional[int] = None,
                  prefix_cache: bool = True,
-                 kv_quant: str = "none", megastep: int = 1) -> None:
+                 kv_quant: str = "none", megastep: int = 1,
+                 host_cache_blocks: int = 0) -> None:
         if int(megastep) < 1:
             raise ValueError(f"megastep must be >= 1 (got {megastep})")
         self.megastep = int(megastep)
@@ -616,14 +769,23 @@ class RingExecutor:
                              "(the pool block is the quantization "
                              "unit); set paged=True / SERVE_PAGED=1")
         self._tail_init = None
+        self._slab: Optional[HostSlab] = None
         if self.paged:
             self._pg = PG
             self.block_size = int(block_size)
             self._num_blocks = num_blocks
             self.prefix_cache = prefix_cache
+            # the host spill tier: demoted radix blocks live in host
+            # memory and promote back on a hit — only meaningful with the
+            # prefix cache on
+            self.host_cache_blocks = (int(host_cache_blocks)
+                                      if self.prefix_cache else 0)
             self.pool = PG.PagedCacheManager(
                 slots, max_len, self.block_size, num_blocks,
-                prefix_cache=self.prefix_cache)
+                prefix_cache=self.prefix_cache,
+                host_cache_blocks=self.host_cache_blocks)
+            if self.host_cache_blocks:
+                self._slab = self._build_slab()
             # prefill buckets scatter whole blocks: round each up to a
             # block multiple, capped at the lane view
             self.buckets = tuple(sorted(
@@ -642,6 +804,7 @@ class RingExecutor:
         else:
             self.block_size = int(block_size)
             self.prefix_cache = False
+            self.host_cache_blocks = 0
             self.step = make_chunk_step(cfg, chunk_tokens, top_k, top_p)
             self.inserts = {b: make_prefill_insert(cfg, b, top_k, top_p)
                             for b in self.buckets}
@@ -670,9 +833,19 @@ class RingExecutor:
         # capture_graphs, before the next dispatch
         self._graphs = None
         if self.paged:
+            # the host tier resets with the allocator: in-flight
+            # promotions and the old tier's payloads (settled or not)
+            # give their slots back — payloads keyed against the dead
+            # allocator's chains must never promote into the new pool
+            if self.pool is not None:
+                self.pool.drop_host_tier()
             self.pool = self._pg.PagedCacheManager(
                 self.slots, self.max_len, self.block_size,
-                self._num_blocks, prefix_cache=self.prefix_cache)
+                self._num_blocks, prefix_cache=self.prefix_cache,
+                host_cache_blocks=self.host_cache_blocks)
+            if self.host_cache_blocks:
+                self.pool.demote_fetch = self._demote_fetch
+                self.pool.host_import = self._import_payload
             self.cache = None          # free the old pool before the new
             self.cache = self._pg.init_paged_cache(
                 self.cfg, self.slots, self.pool.total, self.block_size,
@@ -901,19 +1074,106 @@ class RingExecutor:
                       to_device(np.asarray(ids, np.int32), self.device),
                       dev.get("ks"), dev.get("vs"))
 
+    # -- host spill tier: demote, import and the batched promote ----------
+
+    def _build_slab(self) -> HostSlab:
+        """The tier's pinned slab: one slot per tier block, plus the
+        slots a demote and an admission can hold beyond the tier's bound
+        (the hit chain a lane pins and promotes, at most a lane's
+        ``max_blocks``; the demote fetched before its put drops the
+        oldest; one in the store writer's hands).  Its cost is logged."""
+        cfg, bs = self.cfg, self.block_size
+        rows = (cfg.n_layers, 1, cfg.n_kv_heads, bs, cfg.head_dim)
+        dt = torch.int8 if self.quant else cfg.dtype
+        layout = [("k", rows, dt), ("v", rows, dt)]
+        if self.quant:
+            layout += [(name, rows[:3], torch.float32) for name in ("ks",
+                                                                    "vs")]
+        slab = HostSlab(self.host_cache_blocks + self.pool.max_blocks + 2,
+                        layout, pin=self.device.type == "cuda")
+        slab.reclaim = self._reclaim_slot
+        print(f"host tier: {self.host_cache_blocks} blocks in a "
+              f"{slab.nbytes()}-byte host slab of {slab.n_slots} slots "
+              f"({'pinned' if slab.registered else 'pageable'}), built in "
+              f"{slab.boot_s * 1e3:.1f} ms", flush=True)
+        return slab
+
+    def _reclaim_slot(self) -> bool:
+        """A full slab's fallback: the durable store gives back its
+        oldest queued (not yet written) offer."""
+        store = self.pool.store if self.pool is not None else None
+        return bool(store is not None and store.shed_oldest())
+
+    def _demote_fetch(self, blk: int) -> HostBlock:
+        """``PagedCacheManager.demote_fetch``: one pool block's exact
+        bytes (all layers; K and V, and the scale rows on the int8 pool)
+        into a free slab slot — a slice of the pool and a non-blocking
+        device-to-host copy queued on the ring's stream behind any
+        dispatch in flight (so it reads the block's final content).  No
+        host wait: the slot's event marks when the bytes have landed."""
+        block = self._slab.acquire()
+        c = self.cache
+        for key, view in block.items():
+            view.copy_(c[key].narrow(1, blk, 1), non_blocking=True)
+        self._slab.mark([block.slot])
+        return block
+
+    def _import_payload(self, payload) -> HostBlock:
+        """``PagedCacheManager.host_import``: a fetched payload (a store
+        hit: CPU tensors or arrays of the tier's shapes and dtypes)
+        copied into a free slot, after the slot's last queued copy."""
+        block = self._slab.acquire()
+        try:
+            block.wait()
+            for key, view in block.items():
+                src = torch.as_tensor(payload[key])
+                if src.shape != view.shape or src.dtype != view.dtype:
+                    raise ValueError(
+                        f"imported payload {key!r} is {src.dtype} "
+                        f"{tuple(src.shape)}, the tier holds {view.dtype} "
+                        f"{tuple(view.shape)}")
+                view.copy_(src)
+        except Exception:
+            block.release()
+            raise
+        return block
+
     @torch.inference_mode()
     def dispatch_promotions(self, promotes) -> None:
         """Upload a batch of host payloads into their RESERVED pool blocks
-        (``promotes``: ``(dst block, payload, key)`` triples, a payload
-        holding one block: ``k``/``v`` [L, 1, H, bs, D], and under int8
-        ``ks``/``vs`` [L, 1, H]) as one slab through the promote
-        scatter.  Eager, in stream order, between replays — never
-        captured into a graph — and in place."""
+        (``promotes``: ``(dst block, payload, key)`` triples — host-tier
+        hits from ``pool.take_promotions()``, or a spilled lane's blocks —
+        each payload one block: ``k``/``v`` [L, 1, H, bs, D], and under
+        int8 ``ks``/``vs`` [L, 1, H]) through the in-place promote
+        scatter.  Each block crosses in a non-blocking copy (from its
+        pinned slot, for a tier payload), queued in stream order between
+        replays (never captured into a graph); tier slots then go back to
+        the slab, their reuse ordered behind these copies on the same
+        stream."""
         keys = ("k", "v", "ks", "vs") if self.quant else ("k", "v")
-        self._promote_blocks(
-            [int(dst) for dst, _, _ in promotes],
-            {key: torch.cat([p[key] for _, p, _ in promotes], dim=1)
-             for key in keys})
+        dev = {}
+        for key in keys:
+            ref = promotes[0][1][key]
+            buf = torch.empty((len(promotes), ref.shape[0]) + ref.shape[2:],
+                              dtype=ref.dtype, device=self.device)
+            for j, (_, payload, _) in enumerate(promotes):
+                buf[j].copy_(payload[key][:, 0], non_blocking=True)
+            dev[key] = buf.transpose(0, 1)
+        if self._slab is not None:
+            self._slab.mark([p.slot for _, p, _ in promotes
+                             if isinstance(p, HostBlock)])
+        self._promote_blocks([int(dst) for dst, _, _ in promotes], dev)
+        for _, payload, _ in promotes:
+            if isinstance(payload, HostBlock):
+                payload.release()
+
+    def close_host_tier(self) -> None:
+        """Give the host tier's memory back (the ring is closing): the
+        tier's payloads are dropped and the slab is unpinned."""
+        if self.pool is not None:
+            self.pool.drop_host_tier()
+        if self._slab is not None:
+            self._slab.close()
 
     @torch.inference_mode()
     def spill_lane(self, slot: int) -> Dict[str, Any]:
@@ -987,10 +1247,13 @@ class RingExecutor:
         if self.quant:
             c["kt"][:, slot].copy_(to_device(spill["kt"], self.device))
             c["vt"][:, slot].copy_(to_device(spill["vt"], self.device))
-        c["pos"][slot] = int(spill["pos"])
-        self.tok[slot] = int(spill["tok"])
-        self.temp[slot] = float(spill["temp"])
-        self.seeds[slot] = int(spill["seed"])
+        # fill_, not item assignment: assigning a Python number to a
+        # CUDA tensor copies it from pageable memory and waits for the
+        # stream, i.e. for any dispatch in flight
+        c["pos"][slot].fill_(int(spill["pos"]))
+        self.tok[slot].fill_(int(spill["tok"]))
+        self.temp[slot].fill_(float(spill["temp"]))
+        self.seeds[slot].fill_(int(spill["seed"]))
         if self._state_ptrs() != before:
             raise AssertionError("restore_lane rebound a tensor the "
                                  "captured graphs read")

@@ -35,15 +35,27 @@ callables that update the pool in place — there is nothing to compile.
 The megastep (SERVE_MEGASTEP) fuses N chunks into one dispatch
 (:func:`make_paged_megastep`).  A preempted lane's blocks come back
 through :func:`make_promote_blocks` (the in-place promote scatter).
-Not ported yet (ROADMAP.md Queue A): the host spill tier and the
-durable store (bf16 and int8) and the prefill-pool transfers.
-``ContinuousBatcher`` refuses them.
+
+- **Host spill tier** (``host_cache_blocks``, SERVE_HOST_CACHE_MB):
+  with the tier on, eviction DEMOTES a refcount-0 cached block — its
+  exact device bytes move to host memory (:class:`HostCacheTier`, the
+  executor's ``demote_fetch`` hook) and its radix node stays alive — and
+  a later hit promotes it back into a fresh block through the same
+  scatter, byte for byte (codes and scales verbatim on the int8 pool).
+- **Durable store** (:meth:`PagedCacheManager.attach_store`, the
+  ``infer/kvstore.py`` tier below the host tier): a tier overflow
+  persists the dropped payload instead of discarding it, and its radix
+  node survives store-resident (``stored``) for a later store probe to
+  re-fill through :meth:`PagedCacheManager.import_host_blocks`.
+
+Not ported yet (ROADMAP.md Queue A): the peer export
+(``export_host_chain``, fleet-level KV) and the prefill-pool transfers.
 """
 
 from __future__ import annotations
 
 import heapq
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -105,15 +117,135 @@ class NoFreeBlocks(RuntimeError):
 
 
 class _CacheEntry:
-    __slots__ = ("key", "block", "chunk", "parent", "freed_at", "ns")
+    __slots__ = ("key", "block", "chunk", "parent", "freed_at", "ns",
+                 "stored")
 
     def __init__(self, key, block, chunk, parent, ns=0):
         self.key = key
-        self.block: int = block
+        # device pool block id, or None while the entry's content lives
+        # in the host tier (demoted: the radix node stays alive and a
+        # later hit promotes it back into a fresh device block)
+        self.block: Optional[int] = block
         self.chunk = chunk        # the bs tokens this block's KV encodes
         self.parent = parent      # chain key of the preceding block
         self.freed_at: Optional[int] = None   # LRU clock at refcount 0
         self.ns = ns              # radix namespace (0 = base model)
+        # durable-store residency: True while the entry's bytes live
+        # ONLY in the KV store (no device block, no host payload).  The
+        # walk treats it as a miss, but the node survives so a store
+        # fetch can re-fill it through import_host_blocks.
+        self.stored = False
+
+
+def host_block_bytes(cfg: LlamaConfig, block_size: int,
+                     quant: str = "none") -> int:
+    """Host bytes one demoted block costs in the spill tier: K + V rows
+    ([L, H_kv, bs, D] each — 2 bytes an element, or int8 codes plus the
+    per-(layer, kv head) f32 scale planes).  serve.py divides
+    ``SERVE_HOST_CACHE_MB`` by this to size ``host_cache_blocks``."""
+    rows = cfg.n_layers * cfg.n_kv_heads * block_size * cfg.head_dim
+    if quant == "int8":
+        return 2 * rows + 2 * cfg.n_layers * cfg.n_kv_heads * 4
+    return 2 * rows * 2
+
+
+def _release(payload) -> None:
+    """A payload leaves the tier for good: give back its host slot (the
+    executor's slab-backed payloads hold one; plain dicts hold none)."""
+    release = getattr(payload, "release", None)
+    if release is not None:
+        release()
+
+
+class HostCacheTier:
+    """The bounded host-memory ring behind the radix cache: demoted
+    block payloads (dicts — ``k``/``v`` rows, plus ``ks``/``vs`` scale
+    rows on the int8 pool), keyed by the entry's chain key, LRU within
+    the tier.  ``put`` on a full tier drops the oldest payloads and
+    returns their keys so the manager can retire the orphaned radix
+    nodes; a promote ``pop`` moves the payload back out (one canonical
+    location per block keeps the accounting exact).
+
+    A payload that holds a slot of the executor's pinned slab gives it
+    back when it leaves the tier other than by ``pop`` (overflow drop,
+    ``drop``); ``pop`` hands the slot to the promote."""
+
+    def __init__(self, capacity: int) -> None:
+        if capacity < 1:
+            raise ValueError(f"host tier capacity must be >= 1 "
+                             f"(got {capacity}); use host_cache_blocks=0 "
+                             "to disable the tier")
+        self.capacity = int(capacity)
+        self._data: Dict[Any, Dict[str, Any]] = {}    # insertion = LRU age
+        self.stats = {"demoted": 0, "promoted": 0, "overflow_drops": 0}
+        # durable-store spill hook: called with ``(key, payload)`` BEFORE
+        # an overflow drop deletes the payload (the store holds what it
+        # keeps).  None: the drop discards.
+        self.on_spill: Optional[Callable[[Any, Dict[str, Any]], None]] = None
+
+    def __len__(self) -> int:
+        return len(self._data)
+
+    def __contains__(self, key) -> bool:
+        return key in self._data
+
+    def keys(self):
+        return self._data.keys()
+
+    def _overflow(self, old) -> None:
+        payload = self._data.pop(old)
+        if self.on_spill is not None:
+            self.on_spill(old, payload)
+        _release(payload)
+        self.stats["overflow_drops"] += 1
+
+    def put(self, key, payload: Dict[str, Any],
+            pinned: frozenset = frozenset()) -> List[Any]:
+        """Store one demoted payload; returns the keys LRU-dropped to
+        make room (the caller must drop their radix entries).
+
+        ``pinned``: keys that must NOT be overflow-dropped — the current
+        admission's hit chain, whose payloads the admission is about to
+        pop.  With every resident key pinned the tier exceeds its bound
+        by at most the chain length until the manager trims it back."""
+        dropped: List[Any] = []
+        stale = self._data.pop(key, None)
+        if stale is not None and stale is not payload:
+            _release(stale)
+        while len(self._data) >= self.capacity:
+            old = next((k for k in self._data if k not in pinned), None)
+            if old is None:
+                break                   # all pinned: exceed, trim later
+            self._overflow(old)
+            dropped.append(old)
+        self._data[key] = payload
+        self.stats["demoted"] += 1
+        return dropped
+
+    def trim(self) -> List[Any]:
+        """Drop oldest payloads until back within the bound (after an
+        admission that pinned its chain released the pins)."""
+        dropped: List[Any] = []
+        while len(self._data) > self.capacity:
+            old = next(iter(self._data))
+            self._overflow(old)
+            dropped.append(old)
+        return dropped
+
+    def pop(self, key) -> Dict[str, Any]:
+        """Remove + return a payload for promotion back to the pool."""
+        payload = self._data.pop(key)
+        self.stats["promoted"] += 1
+        return payload
+
+    def peek(self, key) -> Optional[Dict[str, Any]]:
+        """Read a payload WITHOUT removing it."""
+        return self._data.get(key)
+
+    def drop(self, key) -> None:
+        payload = self._data.pop(key, None)
+        if payload is not None:
+            _release(payload)
 
 
 class PagedCacheManager:
@@ -131,11 +263,12 @@ class PagedCacheManager:
 
     ``check_invariant()`` asserts the partition exactly
     (free + mapped + cached-only == num_blocks, refcounts == table
-    occurrences)."""
+    occurrences), and with the host tier on its accounting too."""
 
     def __init__(self, slots: int, max_len: int, block_size: int,
                  num_blocks: Optional[int] = None,
-                 prefix_cache: bool = True) -> None:
+                 prefix_cache: bool = True,
+                 host_cache_blocks: int = 0) -> None:
         alloc = D.cache_alloc_len(max_len)
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1 (got {block_size})")
@@ -164,10 +297,42 @@ class PagedCacheManager:
         # full scan (:meth:`_select_victim_scan`, the regression oracle)
         self._ref0_heap: List[Tuple[int, int, Any]] = []
         self._heap_seq = 0
+        # host spill tier: demoted refcount-0 cached blocks keep their
+        # radix node alive with their bytes in host memory.  The
+        # executor wires ``demote_fetch`` (block id -> payload) and
+        # ``host_import`` (a fetched payload -> the tier's form) after
+        # construction.  0 blocks = tier off = the tierless pool.
+        self.host = (HostCacheTier(host_cache_blocks)
+                     if host_cache_blocks else None)
+        self.demote_fetch: Optional[Callable[[int], Dict[str, Any]]] = None
+        self.host_import: Optional[Callable[[Dict[str, Any]],
+                                            Dict[str, Any]]] = None
+        # durable prefix store (attach_store); None keeps the silent
+        # overflow discard
+        self.store = None
+        # the in-flight admission's hit-chain keys: shielded from tier
+        # overflow drops while the admit that will pop them runs
+        self._pinned_host_keys: frozenset = frozenset()
+        # promotions ALLOCATED by the current admit() and not yet
+        # uploaded: [(dst_block, payload, key)] — the scheduler drains
+        # them (take_promotions) into ONE batched upload BEFORE the CoW
+        # copies and the admission insert it dispatches next
+        self._pending_promotes: List[Tuple[int, Dict[str, Any], Any]] = []
         self.stats = {
             "prefix_lookup_tokens": 0, "prefix_hit_tokens": 0,
             "prefix_lookups": 0, "prefix_full_hits": 0,
             "cow_copies": 0, "cache_evictions": 0, "blocks_hwm": 0,
+            # host tier: blocks demoted to / promoted from host memory,
+            # and the prefix-hit tokens served out of host payloads (the
+            # hostHitRate numerator)
+            "host_demotions": 0, "host_promotions": 0,
+            "host_hit_tokens": 0,
+            # durable store: payloads offered to the store writer on
+            # tier overflow, and store-fetched blocks re-filled into
+            # store-resident radix nodes
+            "store_spills": 0, "store_refills": 0,
+            # fetched blocks imported into the tier (store hits)
+            "peer_blocks_imported": 0,
         }
 
     # -- allocation --------------------------------------------------------
@@ -176,8 +341,27 @@ class PagedCacheManager:
         return len(self.free)
 
     def blocks_cached(self) -> int:
-        """Cached blocks currently reclaimable (refcount 0)."""
-        return sum(1 for e in self.entries.values() if self.ref[e.block] == 0)
+        """DEVICE-resident cached blocks currently reclaimable
+        (refcount 0); host-demoted entries hold no pool block."""
+        return sum(1 for e in self.entries.values()
+                   if e.block is not None and self.ref[e.block] == 0)
+
+    def host_blocks(self) -> int:
+        """Blocks currently resident in the host spill tier."""
+        return len(self.host) if self.host is not None else 0
+
+    def host_hit_rate(self) -> float:
+        """Share of looked-up prefix tokens served from HOST payloads
+        (the promote path) — the ``hostHitRate`` status key."""
+        lk = self.stats["prefix_lookup_tokens"]
+        return (round(self.stats["host_hit_tokens"] / lk, 4)
+                if lk else 0.0)
+
+    def host_evictions(self) -> int:
+        """Cumulative tier overflow drops — the
+        ``tpujob_serve_host_cache_evictions_total`` gauge."""
+        return (self.host.stats["overflow_drops"]
+                if self.host is not None else 0)
 
     def _alloc_one(self) -> int:
         if not self.free:
@@ -187,12 +371,21 @@ class PagedCacheManager:
         self.stats["blocks_hwm"] = max(self.stats["blocks_hwm"], used)
         return blk
 
+    def _promoting_blocks(self) -> set:
+        """Blocks reserved by the CURRENT admission's promotions whose
+        uploads have not been queued yet: never eviction victims (a CoW
+        in the same admit can drop such a block to refcount 0, and
+        demoting it would read bytes the upload has not written)."""
+        return {dst for dst, _, _ in self._pending_promotes}
+
     def _select_victim_scan(self) -> Optional[_CacheEntry]:
         """The O(n·children) victim scan, kept as the regression oracle
         for :meth:`_select_victim`: prefer leaves (no children), oldest
         refcount-0 age among them."""
+        promoting = self._promoting_blocks()
         victims = [e for e in self.entries.values()
-                   if self.ref[e.block] == 0]
+                   if e.block is not None and self.ref[e.block] == 0
+                   and e.block not in promoting]
         if not victims:
             return None
         leaves = [e for e in victims if not self.children.get(e.key)]
@@ -209,18 +402,24 @@ class PagedCacheManager:
     def _select_victim(self) -> Optional[_CacheEntry]:
         """Heap-backed victim selection, O(log n) amortized: pop the
         refcount-0 index in age order, discarding stale items (entry
-        re-mapped or dropped since push — ``freed_at`` is the version
-        stamp) and setting valid NON-leaves aside; the first valid leaf
-        wins.  A treeful of inner nodes with no leaf falls back to the
-        oldest set-aside entry — exactly the scan's semantics."""
+        re-mapped, dropped or demoted since push — ``freed_at`` is the
+        version stamp), deferring blocks a pending promotion reserved
+        and setting valid NON-leaves aside; the first valid leaf wins.
+        A treeful of inner nodes with no leaf falls back to the oldest
+        set-aside entry — exactly the scan's semantics."""
+        promoting = self._promoting_blocks()
         stash: List[Tuple[int, int, Any]] = []
+        defer: List[Tuple[int, int, Any]] = []
         victim: Optional[_CacheEntry] = None
         while self._ref0_heap:
             fa, seq, key = heapq.heappop(self._ref0_heap)
             e = self.entries.get(key)
-            if (e is None or self.ref[e.block] != 0
+            if (e is None or e.block is None or self.ref[e.block] != 0
                     or (e.freed_at if e.freed_at is not None else 0) != fa):
                 continue                     # stale: lazily deleted
+            if e.block in promoting:
+                defer.append((fa, seq, key))  # not selectable this round
+                continue
             if self.children.get(key):
                 stash.append((fa, seq, key))  # valid, but not a leaf
                 continue
@@ -229,22 +428,79 @@ class PagedCacheManager:
         if victim is None and stash:
             fa, seq, key = stash.pop(0)       # oldest valid non-leaf
             victim = self.entries[key]
-        for item in stash:                    # survivors stay indexed
+        for item in stash + defer:            # survivors stay indexed
             heapq.heappush(self._ref0_heap, item)
         return victim
 
     def _evict_lru(self) -> None:
-        """Reclaim ONE cached refcount-0 block (its radix entry is
-        discarded)."""
+        """Reclaim ONE cached refcount-0 block.  With the host tier on
+        the victim DEMOTES — its exact device bytes move to host memory
+        and its radix node stays alive at a host location
+        (``block = None``), so a later admission promotes it back instead
+        of re-prefilling; with the tier off the entry is discarded."""
         victim = self._select_victim()
         if victim is None:
             raise NoFreeBlocks(
                 f"all {self.num_blocks} pool blocks are lane-mapped; "
                 "grow num_blocks or retire lanes first")
         blk = victim.block
-        self._drop_entry(victim)
+        if self.host is not None and self.demote_fetch is not None:
+            payload = self.demote_fetch(blk)
+            self.by_block.pop(blk, None)
+            victim.block = None
+            for key in self.host.put(victim.key, payload,
+                                     pinned=self._pinned_host_keys):
+                self._drop_host_entry(key)
+            self.stats["host_demotions"] += 1
+        else:
+            self._drop_entry(victim)
         self.free.append(blk)
         self.stats["cache_evictions"] += 1
+
+    def _drop_host_entry(self, key) -> None:
+        """A tier payload aged out (overflow).  Without a durable store
+        its radix node retires — the prefix is cold again.  With the
+        store attached and a base-namespace entry, the payload was just
+        offered to the store writer (``on_spill`` fires before the drop):
+        the node SURVIVES at ``block=None, stored=True`` so a later walk
+        can re-probe the store instead of re-prefilling."""
+        e = self.entries.get(key)
+        if e is None:
+            return
+        if self.store is not None and not e.ns:
+            e.stored = True
+            return
+        self._drop_entry(e)
+
+    def attach_store(self, store) -> None:
+        """Wire the durable prefix store (infer/kvstore.KVBlockStore)
+        below the host tier: overflow drops persist instead of
+        discarding, and their radix nodes survive store-resident.
+        Requires the host tier."""
+        if self.host is None:
+            raise ValueError("KV store requires the host cache tier "
+                             "(host_cache_blocks > 0)")
+        self.store = store
+        self.host.on_spill = self._spill_to_store
+
+    def _spill_to_store(self, key, payload: Dict[str, Any]) -> None:
+        """The tier's overflow hook: offer the about-to-be-dropped
+        payload to the store's background writer (bounded, drop-oldest —
+        never blocks the ring thread).  Adapter namespaces abstain:
+        their chain salts are per-load per-replica."""
+        e = self.entries.get(key)
+        if e is None or e.ns or self.store is None:
+            return
+        self.store.offer(key, e.chunk, payload, ns=0)
+        self.stats["store_spills"] += 1
+
+    def _servable(self, e: _CacheEntry) -> bool:
+        """Can this radix node serve a hit NOW — device-resident, or
+        host-resident with its payload in the tier?  A store-resident
+        node cannot (admit would have nothing to promote)."""
+        if e.block is not None:
+            return True
+        return self.host is not None and e.key in self.host
 
     def _drop_entry(self, e: _CacheEntry) -> None:
         del self.entries[e.key]
@@ -295,7 +551,9 @@ class PagedCacheManager:
         """Walk the cached chain: full-block hits, then at most one
         partial-tail hit (a cached child block whose chunk STARTS with
         the remaining < bs tokens — mappable read-only, CoW'd before
-        the lane's first write into it).  Returns
+        the lane's first write into it).  Each hit is device-resident
+        (``block`` set) or host-resident (``block is None``: admit
+        promotes it); a store-resident node ends the walk.  Returns
         (entries, full_hit_tokens, used_partial)."""
         bs = self.bs
         hits: List[_CacheEntry] = []
@@ -306,7 +564,7 @@ class PagedCacheManager:
             chunk = tokens[j * bs:(j + 1) * bs]
             k2 = self._chain_key(key, chunk)
             e = self.entries.get(k2)
-            if e is None or e.chunk != chunk:
+            if e is None or e.chunk != chunk or not self._servable(e):
                 break
             hits.append(e)
             key = k2
@@ -317,25 +575,35 @@ class PagedCacheManager:
         if rem and len(rem) < bs:
             for ck in self.children.get(key, ()):
                 e = self.entries[ck]
-                if e.chunk[:len(rem)] == rem:
+                if e.chunk[:len(rem)] == rem and self._servable(e):
                     hits.append(e)
                     hit += len(rem)
                     partial = True
                     break
         return hits, hit, partial
 
+    def take_promotions(self) -> List[Tuple[int, Dict[str, Any], Any]]:
+        """Drain the promotions the last ``admit`` allocated:
+        [(dst_block, host_payload, chain_key)].  The scheduler turns the
+        batch into ONE upload (RingExecutor.dispatch_promotions) queued
+        BEFORE the CoW copies and the admission insert."""
+        out, self._pending_promotes = self._pending_promotes, []
+        return out
+
     # -- lane lifecycle ----------------------------------------------------
 
     def admit(self, slot: int, prompt,
               max_suffix: Optional[int] = None, ns: int = 0
               ) -> Tuple[int, List[Tuple[int, int]]]:
-        """Map blocks for a new lane: radix hits read-only (refcounted),
-        copy-on-write for any shared block the suffix/decode writes will
-        land in, fresh blocks for the rest of the prompt.  Returns
+        """Map blocks for a new lane: radix hits read-only (refcounted;
+        a host-resident hit first promoted into a fresh block), copy-on-
+        write for any shared block the suffix/decode writes will land
+        in, fresh blocks for the rest of the prompt.  Returns
         ``(hit_len, cow)`` — the usable prefix length (always leaving
         >= 1 suffix token: the first sampled token needs the last prompt
         position's logits) and the [(src, dst)] block copies the caller
-        must run BEFORE the admission dispatch.
+        must run BEFORE the admission dispatch (after the promotions,
+        :meth:`take_promotions`).
 
         ``max_suffix``: a hit whose remaining suffix exceeds it is NOT
         taken (fresh blocks throughout, hit_len 0)."""
@@ -359,8 +627,28 @@ class PagedCacheManager:
             self.stats["prefix_full_hits"] += 1
 
         row = self.table[slot]
+        host_tokens_this_admit = 0
+        # pin this admission's WHOLE hit chain: a demotion fired by one
+        # of our own allocations must never overflow-drop a payload we
+        # are about to pop.  Device-resident hits pin too: one not yet
+        # mapped by this loop is refcount 0 and may itself be demoted
+        # mid-admit, and its turn then takes the promote branch.
+        self._pinned_host_keys = frozenset(e.key for e in hit_entries)
         try:
             for j, e in enumerate(hit_entries):
+                if e.block is None:
+                    # HOST hit: reserve a device block NOW (the whole
+                    # admission fits or fails up front) and queue the
+                    # byte-exact upload; the entry re-anchors device-side
+                    dst = self._alloc_one()
+                    payload = self.host.pop(e.key)
+                    e.block = dst
+                    self.by_block[dst] = e.key
+                    self._pending_promotes.append((dst, payload, e.key))
+                    self.stats["host_promotions"] += 1
+                    tok_inc = min(bs, max(0, hit_len - j * bs))
+                    self.stats["host_hit_tokens"] += tok_inc
+                    host_tokens_this_admit += tok_inc
                 blk = e.block
                 row[j] = blk
                 self.ref[blk] += 1
@@ -386,15 +674,42 @@ class PagedCacheManager:
                 row[self.mapped_count[slot]] = blk
                 self.mapped_count[slot] += 1
         except NoFreeBlocks:
+            # roll back this admit's promotions: their uploads never
+            # queued, so the re-anchored entries would map garbage
+            # blocks — each payload goes back to the tier (there is
+            # room: it was just popped) and retire() below frees the
+            # reserved blocks
+            for dst, payload, key in self._pending_promotes:
+                e = self.entries.get(key)
+                if e is not None:
+                    for k2 in self.host.put(key, payload,
+                                            pinned=self._pinned_host_keys):
+                        self._drop_host_entry(k2)
+                    e.block = None
+                self.by_block.pop(dst, None)
+                # a promoted block the CoW already released sits at
+                # refcount 0 with no radix anchor: retire() cannot reach
+                # it, so it returns to the free list here
+                if self.ref[dst] == 0 and dst not in self.free:
+                    self.free.append(dst)
+                self.stats["host_promotions"] -= 1
+            self._pending_promotes = []
+            self.stats["host_hit_tokens"] -= host_tokens_this_admit
             self.retire(slot)
             raise
+        finally:
+            if self.host is not None:
+                self._pinned_host_keys = frozenset()
+                for key in self.host.trim():    # back within the bound
+                    self._drop_host_entry(key)
         return hit_len, cow
 
     def publish(self, slot: int, prompt, ns: int = 0) -> None:
         """Register the lane's FULL prompt blocks in the radix cache
         (called once the admission prefill is dispatched — later readers
-        are later work on the same stream).  Blocks already cached
-        under the same key are left alone."""
+        are later work on the same stream).  Blocks already cached under
+        the same key are left alone; a store-resident node whose prefix
+        this lane just re-prefilled re-anchors on the lane's block."""
         if not self.prefix_cache:
             return
         tokens = tuple(int(t) for t in prompt)
@@ -403,13 +718,19 @@ class PagedCacheManager:
         for j in range(len(tokens) // bs):
             chunk = tokens[j * bs:(j + 1) * bs]
             k2 = self._chain_key(key, chunk)
-            if k2 not in self.entries:
-                blk = int(self.table[slot, j])
+            e = self.entries.get(k2)
+            blk = int(self.table[slot, j])
+            if e is None:
                 if blk != TRASH_BLOCK and blk not in self.by_block:
                     self.entries[k2] = _CacheEntry(k2, blk, chunk, key,
                                                    ns=ns)
                     self.by_block[blk] = k2
                     self.children.setdefault(key, set()).add(k2)
+            elif e.block is None and e.stored and e.chunk == chunk:
+                if blk != TRASH_BLOCK and blk not in self.by_block:
+                    e.block = blk
+                    e.stored = False
+                    self.by_block[blk] = k2
             key = k2
 
     def ensure(self, slot: int, pos_needed: int) -> None:
@@ -437,6 +758,103 @@ class PagedCacheManager:
         row[:] = TRASH_BLOCK
         self.mapped_count[slot] = 0
 
+    def scrub_host_chain(self, prompt, ns: int = 0) -> int:
+        """Quarantine hygiene: drop every HOST-tier payload on
+        ``prompt``'s radix chain (an opaque host copy cannot be
+        re-verified against the pool), and with the store attached
+        delete every store copy along the chain and retire its
+        store-resident nodes — a quarantined chain must not resurrect
+        from disk.  Returns the number of host or store-resident nodes
+        dropped.  (Its caller, the NaN-lane quarantine, is not ported
+        yet: ROADMAP.md Queue A.)"""
+        if self.host is None and self.store is None:
+            return 0
+        tokens = tuple(int(t) for t in prompt)
+        key = self._root_key(ns)
+        dropped = 0
+        for j in range(len(tokens) // self.bs):
+            chunk = tokens[j * self.bs:(j + 1) * self.bs]
+            key = self._chain_key(key, chunk)
+            if self.store is not None and not ns:
+                self.store.delete(key, ns=0)
+            e = self.entries.get(key)
+            if e is None:
+                continue    # gap in the chain: deeper entries may remain
+            if e.block is None:
+                if self.host is not None:
+                    self.host.drop(key)
+                self._drop_entry(e)
+                dropped += 1
+        return dropped
+
+    def drop_host_tier(self) -> None:
+        """Discard the tier (the ring is rebuilt or closing): pending
+        promotions and every tier payload give their slots back, and the
+        host-resident radix nodes retire."""
+        for _, payload, _ in self.take_promotions():
+            _release(payload)
+        if self.host is None:
+            return
+        for key in list(self.host.keys()):
+            self.host.drop(key)
+            e = self.entries.get(key)
+            if e is not None:
+                self._drop_entry(e)
+
+    def import_host_blocks(self, chunks, block_idx, payloads,
+                           ns: int = 0) -> int:
+        """Insert fetched payloads (a store hit) into the host tier and
+        the radix (ring thread only), exactly as if this replica had
+        demoted them — the next admission's walk host-hits them and
+        promotes through the batched upload.  A store-resident node is
+        re-filled; other keys already present are left alone; a block
+        whose parent is neither present nor imported is skipped (the
+        walk could never reach it).  ``host_import`` (the executor's)
+        brings each payload into the tier's form first.  Returns the
+        number of blocks imported."""
+        if self.host is None or not self.prefix_cache:
+            return 0
+        bs = self.bs
+        keys = []
+        key = self._root_key(ns)
+        for chunk in chunks:
+            if len(chunk) != bs:
+                return 0            # malformed: full blocks only
+            key = self._chain_key(key, tuple(int(t) for t in chunk))
+            keys.append(key)
+
+        def put(k, payload):
+            if self.host_import is not None:
+                payload = self.host_import(payload)
+            for dropped in self.host.put(k, payload,
+                                         pinned=self._pinned_host_keys):
+                self._drop_host_entry(dropped)
+
+        imported = 0
+        for j, payload in zip(block_idx, payloads):
+            if not 0 <= j < len(keys):
+                continue
+            chunk = tuple(int(t) for t in chunks[j])
+            existing = self.entries.get(keys[j])
+            if existing is not None:
+                if (existing.block is None and existing.stored
+                        and existing.chunk == chunk):
+                    put(keys[j], payload)
+                    existing.stored = False
+                    self.stats["store_refills"] += 1
+                    imported += 1
+                continue
+            if j and keys[j - 1] not in self.entries:
+                continue            # parent-gapped: unreachable
+            parent = keys[j - 1] if j else self._root_key(ns)
+            e = _CacheEntry(keys[j], None, chunk, parent, ns=ns)
+            self.entries[keys[j]] = e
+            self.children.setdefault(parent, set()).add(keys[j])
+            put(keys[j], payload)
+            imported += 1
+        self.stats["peer_blocks_imported"] += imported
+        return imported
+
     # -- accounting --------------------------------------------------------
 
     def hit_rate(self) -> float:
@@ -463,12 +881,39 @@ class PagedCacheManager:
             if self.ref[blk] and blk not in mapped:
                 raise AssertionError(f"block {blk} refcounted but unmapped")
         cached_only = {e.block for e in self.entries.values()
-                       if self.ref[e.block] == 0}
+                       if e.block is not None and self.ref[e.block] == 0}
         assert not (cached_only & free), "cached block on the free list"
         assert len(free) + len(mapped) + len(cached_only) \
             == self.num_blocks, (
             f"pool partition broken: {len(free)} free + {len(mapped)} "
             f"mapped + {len(cached_only)} cached != {self.num_blocks}")
+        # host tier: every demoted entry's payload is in the tier, every
+        # tier payload has a live radix node, the tier respects its
+        # bound, and in-flight promotions target mapped blocks.
+        # Store-resident nodes hold NO local payload (their bytes are on
+        # disk only): outside the demoted == tier identity, disjoint
+        # from the tier, and impossible without a store.
+        stored_keys = {e.key for e in self.entries.values()
+                       if e.block is None and e.stored}
+        if self.store is None:
+            assert not stored_keys, \
+                "store-resident entry without a KV store"
+        demoted = {e.key for e in self.entries.values()
+                   if e.block is None and not e.stored}
+        if self.host is not None:
+            host_keys = set(self.host.keys())
+            assert demoted == host_keys, (
+                f"host tier desync: {len(demoted)} demoted entries vs "
+                f"{len(host_keys)} host payloads")
+            assert not (stored_keys & host_keys), \
+                "store-resident entry also holds a host payload"
+            assert len(self.host) <= self.host.capacity, \
+                "host tier exceeded its bound"
+            promoting = {dst for dst, _, _ in self._pending_promotes}
+            assert promoting <= mapped, \
+                "in-flight promotion targets an unmapped block"
+        else:
+            assert not demoted, "demoted entry without a host tier"
 
 
 # ---------------------------------------------------------------------------
@@ -842,10 +1287,12 @@ def _set_lane(cache, tok, temp, seeds, logits, prompt_len, slot, temp_val,
                               device=dev),
                    torch.full((1,), int(prompt_len) - 1, dtype=torch.int32,
                               device=dev), top_k, top_p)[0]
-    cache["pos"][slot] = int(prompt_len)
+    # fill_ (a kernel argument), not item assignment of a Python
+    # number, which would wait for the stream (restore_lane's note)
+    cache["pos"][slot].fill_(int(prompt_len))
     tok[slot] = first
-    temp[slot] = float(temp_val)
-    seeds[slot] = int(seed)
+    temp[slot].fill_(float(temp_val))
+    seeds[slot].fill_(int(seed))
     return first
 
 

@@ -31,10 +31,16 @@ before the first admission) and again after a self-healing rebuild,
 always while the ring is empty.
 
 The paged ring runs over the bf16 pool or the int8 pool
-(``kv_quant="int8"``).  Not ported yet, and refused when asked for
-(ROADMAP.md Queue A): speculative decoding, chunked and disaggregated
-prefill, the host tier, LoRA adapters, span tracing, the NaN-lane
-check, live weight swap and fleet-level KV.
+(``kv_quant="int8"``), optionally with the host spill tier
+(``host_cache_blocks``: evicted prefix blocks demote to host memory and
+promote back on a hit, the batched promote queued at the head of each
+admission) and, below it, the durable prefix store
+(:meth:`ContinuousBatcher.attach_kv_store`: tier overflow persists, and
+the submit thread probes the store for a prompt's missing chain, whose
+payloads the ring imports into the tier before admission).  Not ported
+yet, and refused when asked for (ROADMAP.md Queue A): speculative
+decoding, chunked and disaggregated prefill, LoRA adapters, span
+tracing, the NaN-lane check, live weight swap and fleet-level KV.
 """
 
 from __future__ import annotations
@@ -43,7 +49,8 @@ import os
 import queue
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from collections import OrderedDict
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -225,7 +232,6 @@ class ContinuousBatcher:
                  "speculative decoding (spec_k)"),
                 (prefill_mode != "inline",
                  f"prefill_mode={prefill_mode!r}"),
-                (host_cache_blocks, "the host spill tier"),
                 (adapters is not None, "LoRA adapters"),
                 (bool(trace), "span tracing (trace=True)"),
                 (resilience is not None and resilience.nan_check,
@@ -276,7 +282,8 @@ class ContinuousBatcher:
             chunk_tokens=chunk_tokens, prefill_buckets=prefill_buckets,
             top_k=top_k, top_p=top_p, paged=paged, block_size=block_size,
             num_blocks=num_blocks, prefix_cache=prefix_cache,
-            kv_quant=kv_quant, megastep=self.megastep)
+            kv_quant=kv_quant, megastep=self.megastep,
+            host_cache_blocks=host_cache_blocks)
         self.device = self.executor.device
         self.generation = int(generation)
         self.paged = self.executor.paged
@@ -304,6 +311,15 @@ class ContinuousBatcher:
         self._preempt_budget = QOS.PreemptionBudget(
             self.qos.preempt_budget, self.qos.preempt_window_s)
         self._park_seq = 0
+        # durable prefix store (attach_kv_store): None = no store
+        self.kv_store = None
+        # store payloads fetched on a submit thread, awaiting import into
+        # the tier by the ring loop (the only consumer)
+        self._host_imports: "queue.Queue[tuple]" = queue.Queue()
+        # chains already asked of the fleet — the peer leg's dedupe
+        # (fleet-level KV, ROADMAP.md Queue A); the store probe
+        # stays outside it
+        self._peer_fetch_seen: "OrderedDict[Any, bool]" = OrderedDict()
         self._wake = threading.Event()
         self._stop = threading.Event()
         self.stats = {"admitted": 0, "evicted": 0, "chunks": 0,
@@ -313,7 +329,14 @@ class ContinuousBatcher:
                       "watchdog_restarts": 0,
                       # lanes spilled for more urgent work, and spilled
                       # lanes resumed (tpujob_serve_lane_preemptions_total)
-                      "preempted_lanes": 0, "restored_lanes": 0}
+                      "preempted_lanes": 0, "restored_lanes": 0,
+                      # durable store: submit-thread probes and the ones
+                      # that returned blocks
+                      "kv_store_probes": 0, "kv_store_hits": 0,
+                      # blocks uploaded back from the host tier —
+                      # cumulative across rebuilds (the pool's own stats
+                      # reset with the allocator)
+                      "promoted_blocks": 0}
         self._tokens_emitted = 0
         self._t_start = time.monotonic()
         # prewarm (serve.py default, SERVE_PREWARM=0 opts out): build
@@ -458,6 +481,16 @@ class ContinuousBatcher:
                                  if deadline_s is not None else None))
         req.priority = prio
         req.request_id = request_id
+        # a cold prefix may be warm in the durable store: fetch its
+        # blocks now, on the caller's thread, so this request's
+        # admission host-hits them (base namespace only: the port serves
+        # no adapter namespace)
+        if (self.kv_store is not None and self.pool is not None
+                and self.pool.host is not None):
+            try:
+                self._maybe_store_fetch(prompt)
+            except Exception:
+                pass    # a fetch is an optimization, never a failure
         req.bucket = self._bucket_for(len(prompt))
         req.dev_prompt = X.to_device(np.asarray([prompt], np.int32),
                                      self.device)
@@ -482,12 +515,25 @@ class ContinuousBatcher:
         self._wake.set()
         return req
 
+    def _kv_store_usage(self) -> Tuple[int, int]:
+        """``(blocks, bytes)`` resident in the durable store — (0, 0)
+        with the store off or on a listing error (telemetry never fails
+        a scrape)."""
+        if self.kv_store is None:
+            return 0, 0
+        try:
+            return self.kv_store.usage()
+        except OSError:
+            return 0, 0
+
     def serving_status(self) -> Dict[str, Any]:
         """The ``TPUJob.status.serving`` block, with the JAX ring's key
         set: features this ring does not carry report their zero
         (what ``utils/observability.py serving_gauges`` renders)."""
         elapsed = max(1e-9, time.monotonic() - self._t_start)
         pool = self.pool
+        kv_store_blocks, kv_store_bytes = self._kv_store_usage()
+        store = self.kv_store
         return {
             "tokensPerSec": round(self._tokens_emitted / elapsed, 2),
             "acceptRate": 0.0,
@@ -499,9 +545,11 @@ class ContinuousBatcher:
             "kvBlocksFree": pool.blocks_free() if pool is not None else 0,
             "kvBlocksHwm": (pool.stats["blocks_hwm"]
                             if pool is not None else 0),
-            "hostCacheBlocks": 0,
-            "hostHitRate": 0.0,
-            "promotedBlocks": 0,
+            "hostCacheBlocks": (pool.host_blocks()
+                                if pool is not None else 0),
+            "hostHitRate": (pool.host_hit_rate()
+                            if pool is not None else 0.0),
+            "promotedBlocks": self.stats["promoted_blocks"],
             "prefillMode": self.prefill_mode,
             "prefillQueueDepth": 0,
             "prefillLanes": 0,
@@ -522,11 +570,13 @@ class ContinuousBatcher:
             "adoptedLanes": 0,
             "peerPrefixFetches": 0,
             "remotePrefills": 0,
-            "hostCacheEvictions": 0,
-            "kvStoreBlocks": 0,
-            "kvStoreBytes": 0,
-            "kvStoreHitRate": 0.0,
-            "kvStoreEvictions": 0,
+            "hostCacheEvictions": (pool.host_evictions()
+                                   if pool is not None else 0),
+            "kvStoreBlocks": kv_store_blocks,
+            "kvStoreBytes": kv_store_bytes,
+            "kvStoreHitRate": store.hit_rate() if store is not None else 0.0,
+            "kvStoreEvictions": (store.evictions()
+                                 if store is not None else 0),
             "activeAdapters": 0,
             "adapterNames": [],
             "megastepN": self.megastep,
@@ -611,6 +661,9 @@ class ContinuousBatcher:
         self._thread.join(timeout=30)
         if self._watchdog is not None:
             self._watchdog.close()
+        if not self._thread.is_alive():
+            # the ring thread is gone: its host tier's memory goes back
+            self.executor.close_host_tier()
         # late blocked submitters can land requests after the loop's own
         # drain pass — sweep again so none hangs at result()
         self._shed_queue(ShuttingDown("batcher closed"))
@@ -683,6 +736,13 @@ class ContinuousBatcher:
             return False
         backoff = self._budget.spend()
         self.executor.reset_state()
+        # the rebuilt pool is fresh (no store): re-attach the durable
+        # store — surviving a rebuild is its point, and the rebuilt
+        # radix re-fills from it through the store probe
+        if (self.kv_store is not None and self.pool is not None
+                and self.pool.host is not None):
+            self.pool.attach_store(self.kv_store)
+        self._peer_fetch_seen.clear()
         self._stop.wait(backoff)
         self._rebuilding = False
         return True
@@ -717,15 +777,22 @@ class ContinuousBatcher:
         raise ValueError(f"no bucket fits prompt length {n}")
 
     def _dispatch_cow(self, slot: int, cow, hit_len: int) -> None:
-        """The admission's copy-on-write block copies (codes and scales
-        on the int8 pool), queued before the insert that reads the
-        private copies.  int8 only: when the hit lands MID-BLOCK, the
+        """The admission's host-tier PROMOTIONS, then its copy-on-write
+        block copies (codes and scales on the int8 pool), queued before
+        the insert that reads them.  A host-resident hit reserved its
+        device block inside ``pool.admit``: the batched upload must be
+        on the stream before a CoW that may copy a promoted block and
+        before the insert.  int8 only: when the hit lands MID-BLOCK, the
         lane's write-frontier block already holds quantized prefix rows
         (its CoW'd copy), so the lane's staging tail is seeded with them
         dequantized (paged.make_tail_init) — the suffix forward reads
         [block_start, hit_len) from the tail, and the block's requantize
         on completion needs them there."""
         ex = self.executor
+        promotes = self.pool.take_promotions()
+        if promotes:
+            ex.dispatch_promotions(promotes)
+            self.stats["promoted_blocks"] += len(promotes)
         for src, dst in cow:
             ex._copy_block(ex.cache, src, dst)
         self.stats["cow_copies"] = self.pool.stats["cow_copies"]
@@ -992,6 +1059,98 @@ class ContinuousBatcher:
         self.stats["restored_lanes"] += 1
         return True
 
+    # -- durable prefix store ---------------------------------------------
+
+    def _fingerprint(self) -> Dict[str, Any]:
+        """The ring geometry a stored block must match byte-layout-wise —
+        the JAX ring's dict for the same configuration, key for key (no
+        backend field: a block either package writes serves the other).
+        tp is absent (payloads are whole host blocks); the generation
+        is present (KV of one generation never serves another's
+        weights)."""
+        ex = self.executor
+        return {"layers": int(self.cfg.n_layers),
+                "kvHeads": int(self.cfg.n_kv_heads),
+                "headDim": int(self.cfg.head_dim),
+                "blockSize": int(ex.block_size),
+                "quant": ex.kv_quant,
+                "specK": 0,
+                "generation": int(self.generation)}
+
+    def attach_kv_store(self, store) -> None:
+        """Wire the durable prefix store (infer/kvstore.KVBlockStore)
+        into both halves: the POOL's spill path (tier overflow persists,
+        its radix nodes surviving store-resident) and the SUBMIT probe.
+        Requires the paged pool with the host tier."""
+        if self.pool is None or self.pool.host is None:
+            raise ValueError(
+                "KV store requires paged attention with the host cache "
+                "tier (host_cache_blocks > 0)")
+        self.pool.attach_store(store)
+        self.kv_store = store
+
+    def _maybe_store_fetch(self, prompt) -> None:
+        """Submit-thread store probe: when the prompt's full-block chain
+        is not covered locally (an entry counts only if SERVABLE — device
+        or host resident; a store-resident node is exactly what the
+        probe re-fills), read the missing blocks from the store (a
+        bounded disk read, on the caller's thread) and queue them for
+        import ahead of the request, so its admission host-hits them."""
+        from paddle_operator_tpu_torch.utils.radixkey import chain_key
+
+        pool = self.pool
+        bs = pool.bs
+        tokens = [int(t) for t in prompt]
+        n_full = len(tokens) // bs
+        if n_full == 0:
+            return
+        keys: List[Any] = []
+        key = None
+        for j in range(n_full):
+            key = chain_key(key, tuple(tokens[j * bs:(j + 1) * bs]))
+            keys.append(key)
+        # a racy read against the ring thread's radix: a surprise is
+        # caught by submit, and the fetch simply skipped
+        covered = 0
+        for k in keys:
+            e = pool.entries.get(k)
+            if e is None or not pool._servable(e):
+                break
+            covered += 1
+        if covered >= n_full:
+            return
+        tail = keys[-1]
+        if tail in self._peer_fetch_seen:
+            self._peer_fetch_seen.move_to_end(tail)
+        else:
+            self._peer_fetch_seen[tail] = True
+            while len(self._peer_fetch_seen) > 1024:
+                self._peer_fetch_seen.popitem(last=False)
+        self.stats["kv_store_probes"] += 1
+        chunks, idx, payloads, _fp = self.kv_store.fetch(
+            tokens, bs, ns=0, skip=covered)
+        if not idx:
+            return
+        self.stats["kv_store_hits"] += 1
+        self._host_imports.put((chunks, idx, payloads, 0))
+        self._wake.set()
+
+    def _import_fetched(self) -> None:
+        """Land the store payloads fetched so far in the host tier and
+        the radix (ring thread: the queue's only consumer).  Called
+        before each admission: a request's fetch is queued before the
+        request, so its blocks are in the tier when it admits — and not
+        earlier, where the demotes of the admissions before it could
+        push them out again."""
+        while not self._host_imports.empty():
+            chunks, idx, payloads, ns = self._host_imports.get_nowait()
+            if self.pool is not None:
+                try:
+                    self.pool.import_host_blocks(chunks, idx, payloads,
+                                                 ns=ns)
+                except Exception:
+                    pass    # an import is an optimization, never a fault
+
     # -- the loop ----------------------------------------------------------
 
     def _loop(self) -> None:
@@ -1168,6 +1327,11 @@ class ContinuousBatcher:
                     req.out = list(req.prompt)
                     self._finish(req)
                     continue
+                # the store payloads a submit thread fetched for this
+                # request were queued before the request itself: they
+                # land in the tier now, right before the admission that
+                # host-hits them
+                self._import_fetched()
                 slot = self.lane.index(None)
                 try:
                     self._admit(slot, req)

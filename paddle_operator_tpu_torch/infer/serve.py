@@ -22,7 +22,10 @@ Two modes, as in the JAX package:
   ``SERVE_PAGED=1`` the ring's KV lives in the block pool with radix
   prefix reuse (infer/paged.py), the configuration the operator
   deploys on every fleet replica; ``SERVE_KV_QUANT=int8`` stores that
-  pool as int8 codes + per-block scales (and implies SERVE_PAGED=1).
+  pool as int8 codes + per-block scales (and implies SERVE_PAGED=1);
+  ``SERVE_HOST_CACHE_MB`` adds the host spill tier behind the radix
+  cache and ``SERVE_KV_STORE=dir:/path`` the durable prefix store below
+  it (:func:`wire_kv_store_from_env`).
   Streaming (``"stream": true``),
   deadlines (``X-Request-Deadline``/``deadline_s``, 504 partials),
   priorities (``X-Request-Priority``/``priority``; on the paged ring a
@@ -479,9 +482,6 @@ def refuse_unported(environ) -> None:
     if int(environ.get("SERVE_SPEC_K", "0") or 0) > 0:
         refused.append(f"SERVE_SPEC_K={environ['SERVE_SPEC_K']} "
                        "(speculative decoding)")
-    for key in ("SERVE_HOST_CACHE_BLOCKS", "SERVE_HOST_CACHE_MB"):
-        if float(environ.get(key, "0") or 0) > 0:
-            refused.append(f"{key}={environ[key]} (the host spill tier)")
     if on("SERVE_PREFILL", ("", "inline")):
         refused.append(f"SERVE_PREFILL={environ['SERVE_PREFILL']} "
                        "(chunked/disaggregated prefill)")
@@ -498,15 +498,15 @@ def refuse_unported(environ) -> None:
     for key in ("SERVE_KV_MIGRATE", "SERVE_KV_PEER_FETCH"):
         if environ.get(key, "0") == "1":
             refused.append(f"{key}=1 (fleet-level KV)")
-    for key in ("SERVE_KV_STORE", "SERVE_KV_BROKER"):
-        if on(key):
-            refused.append(f"{key}={environ[key]} (fleet-level KV)")
+    if on("SERVE_KV_BROKER"):
+        refused.append(f"SERVE_KV_BROKER={environ['SERVE_KV_BROKER']} "
+                       "(fleet-level KV)")
     if refused:
         raise ValueError("not ported to the torch package yet "
                          "(ROADMAP.md Queue A): " + "; ".join(refused))
 
 
-def ring_kw_from_env(environ) -> dict:
+def ring_kw_from_env(environ, cfg: Optional[LlamaConfig] = None) -> dict:
     """The continuous ring's arguments from the ``SERVE_*`` env, as the
     JAX entry point reads them: SERVE_SLOTS, SERVE_CHUNK,
     SERVE_MAX_QUEUE, SERVE_MAX_LEN, SERVE_GENERATION, SERVE_PAGED with
@@ -517,6 +517,14 @@ def ring_kw_from_env(environ) -> dict:
     of a more urgent class spills the least urgent lane of a full paged
     ring, which resumes later bit-identically) and the watchdog knobs
     (SERVE_WATCHDOG*, SERVE_MAX_RESTARTS, SERVE_RESTART_WINDOW_S).
+
+    The host spill tier (paged only) is sized by SERVE_HOST_CACHE_BLOCKS
+    (blocks) or SERVE_HOST_CACHE_MB (megabytes, converted at the pool's
+    host bytes a block, ``paged.host_block_bytes``): eviction demotes
+    refcount-0 cached prefix blocks to host memory instead of discarding
+    them, and a later hit promotes them back byte for byte.  0 or unset
+    is the tierless ring.  ``cfg`` (default: the MODEL_PRESET's) is the
+    served model's config, whose block bytes size the tier.
 
     SERVE_MEGASTEP=N fuses N ring iterations into one dispatch (one
     CUDA graph replay on the card), with eos / token budget / deadline
@@ -558,7 +566,71 @@ def ring_kw_from_env(environ) -> dict:
         kw["prefix_cache"] = environ.get("SERVE_PREFIX_CACHE", "1") == "1"
         if environ.get("SERVE_NUM_BLOCKS"):
             kw["num_blocks"] = int(environ["SERVE_NUM_BLOCKS"])
+        host_blocks = int(environ.get("SERVE_HOST_CACHE_BLOCKS", "0") or 0)
+        host_mb = float(environ.get("SERVE_HOST_CACHE_MB", "0") or 0)
+        if not host_blocks and host_mb > 0:
+            from paddle_operator_tpu_torch.infer.paged import (
+                host_block_bytes,
+            )
+            from paddle_operator_tpu_torch.models.llama import CONFIGS
+
+            if cfg is None:
+                cfg = CONFIGS[environ.get("MODEL_PRESET", "7b")]
+            host_blocks = int(host_mb * 1e6 // host_block_bytes(
+                cfg, kw["block_size"], kvq))
+        if host_blocks > 0:
+            kw["host_cache_blocks"] = host_blocks
     return kw
+
+
+def wire_kv_store_from_env(batcher, environ=None) -> None:
+    """The durable prefix store from the env: ``SERVE_KV_STORE=dir:/path``
+    attaches the persistent tier below the host tier — tier overflow
+    persists through a background writer instead of being discarded, and
+    the submit thread probes the store for a prompt's missing chain.
+    ``SERVE_KV_STORE_TTL_S`` (expire idle entries),
+    ``SERVE_KV_STORE_BUDGET_MB`` (LRU size budget),
+    ``SERVE_KV_STORE_JANITOR_S`` (in-process janitor period; 0 leaves
+    the lifecycle to the offline ``python -m
+    paddle_operator_tpu_torch.infer.kvstore`` pass) and
+    ``SERVE_KV_STORE_QUEUE`` (the writer queue's bound, drop-oldest).
+    Needs the paged ring and the host tier; unset, nothing changes."""
+    environ = os.environ if environ is None else environ
+    url = environ.get("SERVE_KV_STORE", "").strip()
+    if not url:
+        return
+    if batcher.pool is None or batcher.pool.host is None:
+        print("SERVE_KV_STORE ignored: the durable store spills from "
+              "and promotes through the host tier — set SERVE_PAGED=1 "
+              "and SERVE_HOST_CACHE_BLOCKS/_MB", flush=True)
+        return
+    from paddle_operator_tpu_torch.infer import kvstore as KVS
+
+    try:
+        backend = KVS.parse_store_url(url)
+    except (ValueError, OSError) as e:
+        print(f"SERVE_KV_STORE ignored: {e}", flush=True)
+        return
+    store = KVS.KVBlockStore(
+        backend, fingerprint=batcher._fingerprint(),
+        ttl_s=float(environ.get("SERVE_KV_STORE_TTL_S", "0") or 0),
+        budget_mb=int(environ.get("SERVE_KV_STORE_BUDGET_MB", "0") or 0),
+        queue_len=int(environ.get("SERVE_KV_STORE_QUEUE", "256") or 256))
+    batcher.attach_kv_store(store)
+    janitor_s = float(environ.get("SERVE_KV_STORE_JANITOR_S", "0") or 0)
+    if janitor_s > 0:
+        def _janitor_loop():
+            while not batcher._stop.wait(janitor_s):
+                try:
+                    store.janitor()
+                except OSError:
+                    pass
+
+        threading.Thread(target=_janitor_loop, daemon=True,
+                         name="kvstore-janitor").start()
+    print(f"durable KV store attached: {url} "
+          f"(ttl_s={store.ttl_s}, budget_mb={store.budget_mb}, "
+          f"janitor_s={janitor_s})", flush=True)
 
 
 def load_serving_params(path: str, cfg: LlamaConfig, device="cuda"
@@ -609,8 +681,9 @@ def main() -> int:
         raise RuntimeError("the torch server runs on a CUDA card and "
                            "found none")
     continuous = os.environ.get("SERVE_CONTINUOUS", "0") == "1"
-    ring_kw = ring_kw_from_env(os.environ) if continuous else {}
     preset = os.environ.get("MODEL_PRESET", "7b")
+    ring_kw = (ring_kw_from_env(os.environ, CONFIGS[preset]) if continuous
+               else {})
     params, cfg, resumed = load_serving_params(
         env.checkpoint_path, CONFIGS[preset], "cuda")
     mode = "batch"
@@ -618,6 +691,7 @@ def main() -> int:
         mode = (f"continuous, paged={bool(ring_kw.get('paged'))}, "
                 f"kv_quant={ring_kw.get('kv_quant', 'none')}, "
                 f"megastep={ring_kw.get('megastep', 1)}, "
+                f"host_cache_blocks={ring_kw.get('host_cache_blocks', 0)}, "
                 f"slots={ring_kw['slots']}, "
                 f"chunk={ring_kw['chunk_tokens']}")
     print(f"serving {preset} (resumed={resumed}, mode={mode}, "
@@ -629,6 +703,8 @@ def main() -> int:
                       replica=os.environ.get("TPUJOB_REPLICA_ID", ""),
                       **ring_kw)
     batcher = srv.generator.batcher if continuous else None
+    if batcher is not None:
+        wire_kv_store_from_env(batcher)
     watcher = PreemptionWatcher.install()
     ServingDrain(srv, srv.state, batcher=batcher,
                  budget_s=float(os.environ.get("SERVE_DRAIN_BUDGET_S",

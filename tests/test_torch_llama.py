@@ -193,5 +193,5 @@ PORT_FILES = sorted((REPO / "paddle_operator_tpu_torch").rglob("*.py")) \
 def test_port_imports_no_jax(path):
     bad = [m for m in _imports(path)
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                  "paddle_operator_tpu")]
+                                  "ml_dtypes", "paddle_operator_tpu")]
     assert not bad, f"{path.name} imports {bad}"

@@ -333,7 +333,7 @@ class TestSubmit:
     @pytest.mark.parametrize("kw", [{"spec_k": 2}, {"kv_quant": "int4"},
                                     {"prefill_mode": "chunked"},
                                     {"megastep": 4, "spec_k": 2},
-                                    {"host_cache_blocks": 4},
+                                    {"adapters": ["acme"]},
                                     {"trace": True}])
     def test_unported_options_refused(self, setup, kw):
         model, cfg, _, _, _ = setup

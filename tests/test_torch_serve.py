@@ -523,7 +523,6 @@ def test_router_fronts_a_port_replica_restored_from_a_checkpoint(
 
 REFUSED_KNOBS = [
     {"SERVE_SPEC_K": "2"},
-    {"SERVE_HOST_CACHE_BLOCKS": "4"}, {"SERVE_HOST_CACHE_MB": "8"},
     {"SERVE_PREFILL": "chunked"}, {"SERVE_PREFILL": "disagg"},
     # the megastep is served (tests/test_torch_megastep.py); beside a
     # knob still refused, that knob is named and the megastep is not
@@ -532,7 +531,7 @@ REFUSED_KNOBS = [
     {"SERVE_ADAPTERS": "acme"},
     {"SERVE_TRACE": "1"}, {"SERVE_NAN_CHECK": "1"},
     {"TPUJOB_CHAOS": "dispatch_hang@3:0.25"}, {"SERVE_KV_MIGRATE": "1"},
-    {"SERVE_KV_PEER_FETCH": "1"}, {"SERVE_KV_STORE": "dir:/tmp/kvs"},
+    {"SERVE_KV_PEER_FETCH": "1"},
     {"SERVE_KV_BROKER": "127.0.0.1:9100"}, {"SERVE_TP": "2"},
     {"QUANTIZE": "int8"}, {"SERVE_WEIGHT_QUANT": "int8"},
 ]
@@ -551,6 +550,104 @@ def test_refuse_unported_names_the_knob(env):
     assert value in said
     assert all(k in said for k in env if k != "SERVE_MEGASTEP")
     assert "SERVE_MEGASTEP" not in said
+
+
+# the host tier and the durable store are served
+# (tests/test_torch_hostcache.py, tests/test_torch_kvstore.py): each knob
+# passes refuse_unported and parses as the JAX entry point parses it
+SERVED_TIER_KNOBS = [
+    {"SERVE_HOST_CACHE_BLOCKS": "4"}, {"SERVE_HOST_CACHE_MB": "8"},
+    {"SERVE_HOST_CACHE_MB": "8", "SERVE_KV_STORE": "dir:/tmp/kvs"},
+    {"SERVE_KV_QUANT": "int8", "SERVE_HOST_CACHE_MB": "8"},
+]
+
+
+@pytest.mark.parametrize("env", SERVED_TIER_KNOBS,
+                         ids=lambda e: "-".join(f"{k}={v}"
+                                                for k, v in e.items()))
+def test_host_tier_knobs_served_as_jax_sizes_them(env):
+    from paddle_operator_tpu.infer.paged import (
+        host_block_bytes as jax_bytes,
+    )
+    from paddle_operator_tpu.models.llama import CONFIGS as JAX_CONFIGS
+
+    from paddle_operator_tpu_torch.models.llama import CONFIGS
+
+    environ = {"SERVE_CONTINUOUS": "1", "SERVE_PAGED": "1",
+               "SERVE_BLOCK_SIZE": "8", **env}
+    S.refuse_unported(environ)
+    kw = S.ring_kw_from_env(environ, CONFIGS["tiny"])
+    want = int(env.get("SERVE_HOST_CACHE_BLOCKS", 0)) or int(
+        float(env["SERVE_HOST_CACHE_MB"]) * 1e6 // jax_bytes(
+            JAX_CONFIGS["tiny"], 8, env.get("SERVE_KV_QUANT", "none")))
+    assert kw["host_cache_blocks"] == want > 0
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_operator_replica_with_tier_and_store_boots(tmp_path, kv_quant):
+    """The env the operator renders for a replica of ``spec.serving``
+    with ``hostCacheMb`` and ``kvStore`` (TTL and budget too) passes
+    refuse_unported and builds a ring with the host tier and the store
+    attached; with fleet-level KV on, SERVE_KV_BROKER is still refused
+    by name."""
+    from paddle_operator_tpu.api import ServingSpec, TPUJob, TPUJobSpec
+    from paddle_operator_tpu.controller.builders import construct_serve_pod
+
+    tmpl = {"spec": {"containers": [{"name": "m", "image": "x",
+                                     "env": [{"name": "SERVE_KV_QUANT",
+                                              "value": kv_quant}]}]}}
+    sv = ServingSpec(replicas=1, template=tmpl, block_size=8,
+                     host_cache_mb=1, kv_store=f"dir:{tmp_path}/kvs",
+                     kv_store_ttl_s=60.0, kv_store_budget_mb=64)
+    pod = construct_serve_pod(TPUJob(name="tj", namespace="default",
+                                     spec=TPUJobSpec(serving=sv)), 0)
+    env = {e["name"]: e["value"] for e in
+           pod["spec"]["containers"][0]["env"] if "value" in e}
+    assert env["SERVE_HOST_CACHE_MB"] == "1"
+    assert env["SERVE_KV_STORE"] == f"dir:{tmp_path}/kvs"
+    S.refuse_unported(env)
+    model, cfg = make_model("tiny", device="cpu")
+    kw = S.ring_kw_from_env(dict(env, SERVE_PREWARM="0",
+                                 SERVE_SLOTS="2", SERVE_MAX_LEN="64"), cfg)
+    assert kw["host_cache_blocks"] > 0 and kw["paged"]
+    srv = S.make_server("127.0.0.1", 0, model, cfg, continuous=True, **kw)
+    b = srv.generator.batcher
+    try:
+        S.wire_kv_store_from_env(b, env)
+        assert b.pool.host is not None and b.kv_store is not None
+        assert b.pool.store is b.kv_store
+        assert (b.kv_store.ttl_s, b.kv_store.budget_mb) == (60.0, 64)
+        assert b.kv_store.fingerprint == b._fingerprint()
+        assert b.kv_quant == kv_quant
+        st = b.serving_status()
+        assert st["hostCacheBlocks"] == 0 and st["kvStoreBlocks"] == 0
+    finally:
+        srv.server_close()
+        srv.generator.close()
+        b.kv_store.close()
+    sv.kv_migration = True
+    pod = construct_serve_pod(TPUJob(name="tj", namespace="default",
+                                     spec=TPUJobSpec(serving=sv)), 0)
+    env = {e["name"]: e["value"] for e in
+           pod["spec"]["containers"][0]["env"] if "value" in e}
+    with pytest.raises(ValueError, match="SERVE_KV_BROKER") as e:
+        S.refuse_unported(env)
+    assert "SERVE_KV_STORE" not in str(e.value)
+    assert "SERVE_HOST_CACHE" not in str(e.value)
+
+
+def test_kv_store_ignored_without_the_tier(capsys):
+    model, cfg = make_model("tiny", device="cpu")
+    srv = S.make_server("127.0.0.1", 0, model, cfg, continuous=True,
+                        paged=True, block_size=8, slots=1, max_len=64)
+    try:
+        S.wire_kv_store_from_env(srv.generator.batcher,
+                                 {"SERVE_KV_STORE": "dir:/nonexistent"})
+        assert srv.generator.batcher.kv_store is None
+        assert "SERVE_KV_STORE ignored" in capsys.readouterr().out
+    finally:
+        srv.server_close()
+        srv.generator.close()
 
 
 # the preemption knobs are served (tests/test_torch_qos.py): each of them
