@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
-    python3 chip_smoke.py [--phases 2,2b,2c,2d,3,3b,3c,3d,3e,3f,3g,3h,4,4b,4c,
-                           4d,4e,4f,4g]
+    python3 chip_smoke.py [--phases 2,2b,2c,2d,2e,3,3b,3c,3d,3e,3f,3g,3h,3i,
+                           4,4b,4c,4d,4e,4f,4g,4h]
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line; with no arguments every phase runs):
@@ -13,7 +13,7 @@ result line; with no arguments every phase runs):
    registers, spill bytes and shared memory (``-Xptxas -v``), and the
    registers, spills and shared memory of the three decode kernels'
    instantiations (the paged ones with their tile ring's dynamic shared
-   memory at D 128).
+   memory at D 128) and of the int8-weight matmul's.
 2. kernel vs plain — ``decode_attention`` against
    ``decode_attention_reference`` on the card: ragged lengths with 0, 1,
    a full cache and a non-multiple of any tile; the split's chunk edges
@@ -65,6 +65,19 @@ result line; with no arguments every phase runs):
    phase 2b's sweep of chunk rows.  At each timed fill
    the int8 kernel's output must equal, bit for bit, the bf16 paged
    kernel's on the rows dequantized and rounded to bfloat16.
+2e. int8-weight matmul vs plain — ``quant_matmul`` against
+   ``quant_matmul_reference`` at the 7b shapes (K x N 4096 x 4096,
+   4096 x 11008, 11008 x 4096 and the legacy lm_head's 4096 x 32000) and
+   tails off the tile (K and N not multiples of 128, N not of 16), M 1, 4, 8
+   and 16, int8 and int4 codes, each with an all-zero column (output 0):
+   float32 at ``QMM_F32_ATOL``, bfloat16 against the plain version in
+   float32 on the same bf16 inputs at ``BF16_ATOL``; two runs
+   bit-identical.  Then timed at the 7b shapes and M 1, 4, 8, 16 (int8
+   codes, bf16 activations, each call on codes the L2 has not seen), in
+   turns: the kernel, its plain version (dequantize-then-matmul, the
+   route of a prefill's rows) and bf16 ``torch.matmul`` on the same M,
+   K, N (the bf16 replica's call, not the same function; never used by
+   the port), beside the bound.
 2c. flash kernels vs plain — ``flash_forward`` (O and lse),
    ``flash_backward_dkv`` and ``flash_backward_dq`` each against its
    plain version on the same inputs (the backward kernels get the plain
@@ -217,6 +230,21 @@ result line; with no arguments every phase runs):
    follows a restore still pin?), each restore's host ms beside a
    dispatch in flight, its pieces and every synchronizing call PyTorch
    reports under ``set_sync_debug_mode("warn")``.
+3i. weight-quantized ring main path — the 7b model as ``serve.main``
+   builds it under ``SERVE_WEIGHT_QUANT=int8`` (``load_serving_params``,
+   then ``quantize_from_env``; ``paramBytes`` must equal the shape
+   arithmetic, 7,006,265,344) on 3b's server and burst, over the bf16
+   pool and the int8 pool: every request completes, the int8-weight
+   kernel's launches equal 7 x n_layers x (ticks + the forwards of at
+   most 16 rows), ``/statusz`` reports ``weightQuantMode`` int8 and the
+   ``paramBytes``, ``/metrics`` the gauge at 1 (3b-3e hold it at
+   "none" and the kernel at 0 launches).  Then, not gated: the max
+   logit gap against the bf16 model on one prompt; one ring chunk as a
+   graph (8 lanes, fill 520-632) through the kernel, through the plain
+   route and on the bf16 model, in turns.  Then a short run of
+   ``SERVE_WEIGHT_QUANT=int4`` and one of ``QUANTIZE=int8`` (lm_head
+   quantized too: one more launch a tick and a prefill), each held to
+   its launch formula, status, gauge and ``paramBytes``.
 4. kernel path == plain path — 7b width, 2 layers, float32: greedy
    ``generate`` through the kernel and through the plain version give
    the same tokens, and per-step logits agree within 1e-3.
@@ -264,6 +292,14 @@ result line; with no arguments every phase runs):
    never evicts), with >= 3 promoted blocks, >= 1 store hit, the graphs
    and the state's addresses those from before the host hits, and the
    paged kernel launched after them.
+4h. weight-quantized rings == the plain route — 7b width, 2 layers,
+   float32, int8 and int4 weights (the serving skip list), bs 16: four
+   prompts (one a prefix hit) through the ring under graph replay at
+   megastep 1 and 4, through the int8-weight kernel, give the greedy
+   tokens of ``generate`` on the plain route (every projection by the
+   formula) on the bf16 pool, and of the same ring on the plain route
+   on the int8 pool; a lane spilled and restored into another slot
+   under graphs gives its uninterrupted tokens and the plain route's.
 4c. training kernel path == plain path — 7b width, 2 layers, float32:
    three train steps with attention through the flash kernels and
    through ``reference_attention`` from the same init agree in loss
@@ -277,6 +313,7 @@ float32 matrix products run in full float32 (TF32 off) throughout.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -292,8 +329,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 PEAK_OPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 # kernel sources: decode_attention.cu holds decode_attention_launch,
 # paged_decode_attention_launch and paged_decode_attention_quant_launch;
-# flash_attention.cu the forward and both backward kernels
-KERNELS = ["decode_attention", "flash_attention"]
+# flash_attention.cu the forward and both backward kernels;
+# quant_matmul.cu the int8-weight decode matmul
+KERNELS = ["decode_attention", "flash_attention", "quant_matmul"]
 # bf16 kernels against their plain version in f32 on the same bf16
 # inputs: about 3x the worst error read on the card over every case of
 # phases 2 and 2b (1.9e-3 and 3.1e-3 on an H100 80GB HBM3 at 700 W)
@@ -332,8 +370,8 @@ CKPT = dict(layers=2, batch=4, seq=2048, steps=6, interval=3, drain_at=2,
 # and the allocator's 512-byte rounding
 SERVE_LOAD_MARGIN = 16 << 20
 PEAK_BF16 = 989e12                 # H100 SXM dense bf16, for MFU
-PHASES = ("2", "2b", "2c", "2d", "3", "3b", "3c", "3d", "3e", "3f", "3g",
-          "3h", "4", "4b", "4c", "4d", "4e", "4f", "4g")
+PHASES = ("2", "2b", "2c", "2d", "2e", "3", "3b", "3c", "3d", "3e", "3f",
+          "3g", "3h", "3i", "4", "4b", "4c", "4d", "4e", "4f", "4g", "4h")
 
 
 def log(*a) -> None:
@@ -1031,6 +1069,164 @@ def phase_quant_kernel_vs_plain(report: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# phase 2e: the 7b projections (K x N) and the legacy lm_head, at the
+# decode rows; tails off the kernel's tile (K not a multiple of 128 or of
+# a split; N not a multiple of 128, or of 16: the bytewise fill)
+QMM_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
+QMM_TAILS = ((4100, 4112), (4100, 4104), (1000, 130), (77, 1001), (3, 5))
+QMM_ROWS = (1, 4, 8, 16)
+# a 7b layer's projections: wq, wk, wv, wo (4096 x 4096), w1 and w3
+# (4096 x 11008), w2 (11008 x 4096)
+QMM_LAYER = ((4096, 4096, 4), (4096, 11008, 2), (11008, 4096, 1))
+# f32 kernel against its plain version: the same products summed in
+# another order (K up to 11008 terms of |x w| ~ 0.004)
+QMM_F32_ATOL = 1e-4
+# the codes the timings cycle through, at least this many bytes a shape:
+# a decode step streams each projection cold, so no call may find its
+# codes in the 50 MB L2
+QMM_STREAM_BYTES = 256 << 20
+
+
+def qmm_bound_ms(m, k, n, dtype) -> tuple:
+    """Least time for one int8-weight matmul: the codes (one byte a
+    weight), x, the output and the f32 scales each moved once, against
+    2 M K N operations at the activation dtype's peak."""
+    import torch
+
+    e = torch.empty((), dtype=dtype).element_size()
+    nbytes = k * n + e * m * k + e * m * n + 4 * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * m * k * n / PEAK_OPS[str(dtype)] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def quant_build_report(report: dict) -> None:
+    """Per instantiation of the int8-weight matmul (activation dtype x
+    rows MT): registers, spills, stack and static shared memory from
+    ``nvcc -Xptxas -v``, into ``report["ptxas"]``."""
+    import re
+
+    report["ptxas"] = []
+    for symbol, nums in ptxas_entries("quant_matmul") or ():
+        m = re.search(r"quant_matmul_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+                      symbol)
+        if m is None:
+            continue
+        row = {"symbol": symbol, "dtype": "f32" if m.group(1) == "f"
+               else "bf16", "rows": int(m.group(2)), **nums}
+        report["ptxas"].append(row)
+        log("quant_matmul ptxas: " + json.dumps(row))
+
+
+def phase_quant_matmul_vs_plain(report: dict) -> None:
+    """Phase 2e: the int8-weight matmul against its plain version, a
+    bit-identical rerun, then timings at the 7b shapes; see the module
+    docstring."""
+    import torch
+
+    from paddle_operator_tpu_torch.infer import quant as Q
+    from paddle_operator_tpu_torch.ops import quant_matmul as QM
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    cases = 0
+    for k, n in QMM_SHAPES + QMM_TAILS:
+        # |out| about 0.25, so bf16's rounding of the output is well
+        # inside BF16_ATOL; column n // 2 all zero (scale 1.0)
+        w = torch.randn(k, n, generator=g, device="cuda") * (0.25 / k ** 0.5)
+        w[:, n // 2] = 0.0
+        for mode in ("int8", "int4"):
+            leaf = Q.quantize_leaf(w, mode)
+            for m in QMM_ROWS:
+                x32 = torch.randn(m, k, generator=g, device="cuda")
+                for dtype, atol in ((torch.float32, QMM_F32_ATOL),
+                                    (torch.bfloat16, BF16_ATOL)):
+                    x = x32.to(dtype)
+                    got = QM.quant_matmul(x, leaf["q"], leaf["s"])
+                    want = QM.quant_matmul_reference(x.float(), leaf["q"],
+                                                     leaf["s"])
+                    err = float((got.float() - want).abs().max())
+                    name = str(dtype).split(".")[1]
+                    worst[name] = max(worst[name], err)
+                    cases += 1
+                    if err > atol or got.dtype != dtype \
+                            or bool(got[:, n // 2].any()):
+                        raise AssertionError(
+                            f"quant_matmul {mode} {name} M={m} K={k} N={n}: "
+                            f"max |err| {err} (limit {atol}), dtype "
+                            f"{got.dtype}, zero column "
+                            f"{not bool(got[:, n // 2].any())}")
+                    if m == 8 and (k, n) == (11008, 4096):
+                        again = QM.quant_matmul(x, leaf["q"], leaf["s"])
+                        if not torch.equal(got, again):
+                            raise AssertionError("quant_matmul: two runs "
+                                                 "differ")
+        del w
+    torch.cuda.synchronize()
+    log(f"quant_matmul vs plain: {cases} cases (7b shapes and tails, int8 "
+        f"and int4 codes, M {QMM_ROWS}), max |err| f32 "
+        f"{worst['float32']:.3e} (limit {QMM_F32_ATOL}), bf16 "
+        f"{worst['bfloat16']:.3e} (limit {BF16_ATOL}); reruns bit-identical")
+    report["max_abs_err"] = max(worst.values())
+    report["max_abs_err_f32"] = worst["float32"]
+    report["max_abs_err_bf16"] = worst["bfloat16"]
+
+    # timings: int8 codes, bf16 activations, each call on codes the L2
+    # has not seen (a rotation of copies); in turns kernel, plain, bf16
+    # torch.matmul (the bf16 replica's call: not the same function), kernel
+    timings = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for k, n in QMM_SHAPES:
+        copies = max(2, -(-QMM_STREAM_BYTES // (k * n)))
+        w = torch.randn(k, n, generator=g, device="cuda") * (0.25 / k ** 0.5)
+        leaf = Q.quantize_leaf(w, "int8")
+        qs = [leaf["q"].clone() for _ in range(copies)]
+        ws = [w.to(torch.bfloat16) for _ in range(copies)]
+        s = leaf["s"]
+        del w, leaf
+        for m in QMM_ROWS:
+            x = torch.randn(m, k, generator=g, device="cuda").bfloat16()
+
+            def kern(i):
+                QM.quant_matmul(x, qs[i % copies], s)
+
+            def plain(i):
+                QM.quant_matmul_reference(x, qs[i % copies], s)
+
+            def library(i):
+                torch.matmul(x, ws[i % copies])
+
+            row = {"m": m, "k": k, "n": n,
+                   "splits": QM.split_plan(k, n, sms)[0]}
+            for key, fn in (("ms", kern), ("plain_ms", plain),
+                            ("library_ms", library), ("ms_again", kern)):
+                row[key], row[key.replace("ms", "eager_ms", 1)] = \
+                    time_ms(fn, 2 * copies)
+            row["bound_ms"], row["bound_by"] = qmm_bound_ms(
+                m, k, n, torch.bfloat16)
+            row["share_of_bound"] = row["bound_ms"] / min(row["ms"],
+                                                          row["ms_again"])
+            log(f"timing quant_matmul int8 bf16 M={m} K={k} N={n}: "
+                + json.dumps(row))
+            timings.append(row)
+        del qs, ws
+        torch.cuda.empty_cache()
+    report["timings"] = timings
+    # the JSON line's numbers: one 7b layer's seven projections at the
+    # ring's 8 lanes
+    at8 = {(r["k"], r["n"]): r for r in timings if r["m"] == 8}
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        report[key] = sum(at8[k, n][key] * c for k, n, c in QMM_LAYER)
+    report["bound_by"] = "bytes"
+    log(f"quant_matmul, one 7b layer (7 projections) at M=8: device "
+        f"{report['ms']:.4f} ms, plain {report['plain_ms']:.4f}, bf16 "
+        f"torch.matmul {report['library_ms']:.4f}, bound "
+        f"{report['bound_ms']:.5f} ({report['bound_ms'] / report['ms']:.2f}"
+        f" of it) on {card_line()}")
+
+
 FLASH_KERNELS = ("flash_forward", "flash_backward_dkv", "flash_backward_dq")
 
 
@@ -1549,18 +1745,33 @@ RING = dict(continuous=True, paged=True, slots=8, chunk_tokens=8,
             block_size=256, max_len=2048)
 
 
+def qmm_launches_want(cfg, ticks: int, short: int, cold: int,
+                      lm_head: bool) -> int:
+    """The int8-weight matmul's launches over a run of a quantized ring:
+    the seven projections of every layer (and the legacy quantized
+    lm_head) on each ring tick and on each forward of at most 16 rows (a
+    prefix hit's suffix bucket); a longer prefill takes the formula, but
+    its one-row lm_head the kernel."""
+    per = 7 * cfg.n_layers + int(lm_head)
+    return per * (ticks + short) + int(lm_head) * cold
+
+
 def phase_ring_main_path(report: dict, params, cfg,
                          kv_quant: str = "none", bf16_ring=None,
-                         megastep: int = 1, ref=None) -> dict:
+                         megastep: int = 1, ref=None,
+                         wquant=None) -> dict:
     """The continuous paged server under a concurrent burst; see the
     module docstring (phases 3b, with ``kv_quant="int8"`` 3d and with
     ``megastep=4`` 3e, whose rings are held beside 3b's ``bf16_ring``
-    readings; 3e's tokens against 3b's, ``ref``).  Returns every
-    request's output tokens, by (kind, index)."""
+    readings; 3e's tokens against 3b's, ``ref``; with ``wquant`` — the
+    quantized model's mode, its expected ``paramBytes`` and whether its
+    lm_head is quantized — 3i).  Returns every request's output tokens,
+    by (kind, index)."""
     import numpy as np
 
     from paddle_operator_tpu_torch.infer.serve import make_server
     from paddle_operator_tpu_torch.ops import decode_attention as DA
+    from paddle_operator_tpu_torch.ops import quant_matmul as QM
     from paddle_operator_tpu_torch.utils.radixkey import prefix_chain_key
     from paddle_operator_tpu_torch.utils.tracing import hist_quantile
 
@@ -1644,6 +1855,8 @@ def phase_ring_main_path(report: dict, params, cfg,
         send("resubmit", 0, prefix, 48)
         with urllib.request.urlopen(base + "/statusz", timeout=60) as r:
             statusz = json.loads(r.read())
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            metrics = r.read().decode()
     finally:
         srv.shutdown()
         srv.server_close()
@@ -1653,10 +1866,13 @@ def phase_ring_main_path(report: dict, params, cfg,
     kernels = {"decode_attention": DA.decode_attention.launches,
                "paged_decode_attention": DA.paged_decode_attention.launches,
                "paged_decode_attention_quant":
-                   DA.paged_decode_attention.quant_launches}
+                   DA.paged_decode_attention.quant_launches,
+               "quant_matmul": QM.quant_matmul.launches}
     name = ("paged_decode_attention_quant" if quant
             else "paged_decode_attention")
     launches = kernels.pop(name)
+    wmode = wquant["mode"] if wquant else "none"
+    qmm = kernels.pop("quant_matmul") if wquant else None
     if errors:
         raise AssertionError(f"ring requests failed: {errors}")
     stats = {k: batcher.stats[k] - stats0.get(k, 0)
@@ -1734,12 +1950,42 @@ def phase_ring_main_path(report: dict, params, cfg,
     if statusz.get("megastepN") != megastep:
         raise AssertionError(f"/statusz megastepN {statusz.get('megastepN')}"
                              f", expected {megastep}")
+    gauge = next((ln for ln in metrics.splitlines()
+                  if ln.startswith("tpujob_serve_weight_quant_mode{")), "")
+    if statusz.get("weightQuantMode") != wmode \
+            or f'mode="{wmode}"' not in gauge \
+            or float(gauge.split(" ")[-1]) != float(wmode != "none"):
+        raise AssertionError(f"/statusz weightQuantMode "
+                             f"{statusz.get('weightQuantMode')!r}, gauge "
+                             f"{gauge!r}; expected {wmode!r}")
+    if wquant:
+        # short forwards: 4 followers' 16-row suffix buckets, the
+        # resubmission's (and the mid-block follower's) 1-token suffix
+        short = 5 + int(quant)
+        want_q = qmm_launches_want(
+            cfg, chunk * megastep * stats["chunks"], short,
+            len(jobs) + len(late) + 1 - short, wquant["lm_head"])
+        head = " + lm_head" if wquant["lm_head"] else ""
+        log(f"ring weight quant {wmode}: quant_matmul launches {qmm} (7 x "
+            f"n_layers {cfg.n_layers}{head}"
+            f" x (ticks {chunk * megastep * stats['chunks']} + short "
+            f"forwards {short}) = {want_q}); /statusz weightQuantMode "
+            f"{statusz['weightQuantMode']}, paramBytes "
+            f"{statusz['paramBytes']} (expected {wquant['param_bytes']}); "
+            f"{gauge}")
+        if qmm != want_q:
+            raise AssertionError(f"quant_matmul launched {qmm} times, "
+                                 f"expected {want_q}")
+        if statusz["paramBytes"] != wquant["param_bytes"]:
+            raise AssertionError(f"/statusz paramBytes "
+                                 f"{statusz['paramBytes']}, expected "
+                                 f"{wquant['param_bytes']}")
 
     ttft = batcher.hist.ttft
     p50 = hist_quantile(ttft.bounds, ttft.counts, 0.50)
     p95 = hist_quantile(ttft.bounds, ttft.counts, 0.95)
     ring = {
-        "kv_quant": kv_quant, "megastep": megastep,
+        "kv_quant": kv_quant, "megastep": megastep, "weight_quant": wmode,
         "burst_s": burst_s, "burst_new_tokens": new_tokens,
         "burst_new_tok_s": new_tokens / burst_s,
         "burst_chunks": burst_chunks,
@@ -2724,12 +2970,258 @@ def phase_host_tier(reports: tuple, params, cfg, sizes=TIER) -> None:
             f"on {card_line()}")
 
 
+def expected_param_bytes(cfg, lm_head: bool) -> int:
+    """``paramBytes`` of a weight-quantized model in the serving dtype,
+    by shape arithmetic: one byte a code (int4 too) and four a scale for
+    each quantized projection (the seven of every layer, and ``lm_head``
+    under the legacy call), two a value for the embedding, the norms and
+    an unquantized ``lm_head`` (bf16)."""
+    d, f, v, n_layers, hd = (cfg.dim, cfg.ffn_dim, cfg.vocab_size,
+                             cfg.n_layers, cfg.head_dim)
+    ins = (d, d, d, cfg.n_heads * hd, d, d, f)
+    outs = (cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.n_kv_heads * hd, d,
+            f, f, d)
+    quantized = n_layers * sum(i * o + 4 * o for i, o in zip(ins, outs))
+    rest = 2 * (v * d + (2 * n_layers + 1) * d)
+    return quantized + rest + (d * v + 4 * v if lm_head else 2 * d * v)
+
+
+def _quantized_7b(environ: dict):
+    """The 7b model as ``serve.main`` builds it under ``environ``: a
+    fresh bf16 init from seed 0 (``load_serving_params`` with no
+    checkpoint) quantized by ``quantize_from_env``."""
+    import torch
+
+    from paddle_operator_tpu_torch.infer import serve as S
+    from paddle_operator_tpu_torch.models.llama import CONFIGS
+
+    t0 = time.perf_counter()
+    model, cfg, _ = S.load_serving_params(None, CONFIGS["7b"], "cuda")
+    mode = S.quantize_from_env(model, cfg, environ)
+    torch.cuda.synchronize()
+    log(f"weight quant: 7b {environ} -> {mode} in "
+        f"{time.perf_counter() - t0:.1f}s (init and quantize)")
+    return model, cfg
+
+
+def _quant_short_run(model, cfg, mode: str, lm_head: bool) -> dict:
+    """3b's server over ``model``: one cold 300-token prompt with 40 new
+    tokens, then a follower of its first block (256 tokens) and 16 more
+    (a 16-row suffix forward); launches against the formula,
+    ``/statusz``, ``paramBytes`` and the gauge."""
+    import numpy as np
+
+    from paddle_operator_tpu_torch.infer.serve import make_server
+    from paddle_operator_tpu_torch.ops import quant_matmul as QM
+
+    srv = make_server("127.0.0.1", 0, model, cfg, **dict(RING, prewarm=True))
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    batcher = srv.generator.batcher
+    rng = np.random.default_rng(9)
+    prompt = rng.integers(0, cfg.vocab_size, 300).tolist()
+    follower = prompt[:256] + rng.integers(0, cfg.vocab_size, 16).tolist()
+    try:
+        if not batcher.prewarmed.wait(600):
+            raise AssertionError("the ring's graphs were not captured")
+        c0 = batcher.stats["chunks"]
+        _zero_launches()
+        outs = [_post(base, {"tokens": [p], "max_new_tokens": 40})
+                for p in (prompt, follower)]
+        with urllib.request.urlopen(base + "/statusz", timeout=60) as r:
+            statusz = json.loads(r.read())
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            gauge = next(ln for ln in r.read().decode().splitlines()
+                         if ln.startswith("tpujob_serve_weight_quant_mode{"))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
+        srv.generator.close()
+    ticks = RING["chunk_tokens"] * (batcher.stats["chunks"] - c0)
+    want = qmm_launches_want(cfg, ticks, 1, 1, lm_head)
+    got = QM.quant_matmul.launches
+    for p, (code, body, _) in zip((prompt, follower), outs):
+        if code != 200:
+            raise AssertionError(f"weight quant {mode}: HTTP {code}")
+        _check_rows(cfg, p, body["tokens"][0], 40, f"weight quant {mode}")
+    run = {"mode": mode, "lm_head": lm_head, "launches": got,
+           "want": want, "statusz_mode": statusz["weightQuantMode"],
+           "param_bytes": statusz["paramBytes"],
+           "expected_param_bytes": expected_param_bytes(cfg, lm_head),
+           "gauge": gauge}
+    log(f"weight quant short run: {json.dumps(run)}")
+    if got != want or statusz["weightQuantMode"] != mode \
+            or f'mode="{mode}"' not in gauge or not gauge.endswith(" 1.0") \
+            or run["param_bytes"] != run["expected_param_bytes"]:
+        raise AssertionError(f"weight quant {mode} short run: {run}")
+    return run
+
+
+@contextlib.contextmanager
+def _plain_route():
+    """Every quantized projection through the formula (the JAX package's
+    ``x @ q.to(dtype) * s``), the int8-weight kernel never launched: the
+    phases' own comparison route, patched in for a block, not a switch of
+    the package."""
+    from unittest import mock
+
+    from paddle_operator_tpu_torch.infer import decode as D
+    from paddle_operator_tpu_torch.models import llama
+    from paddle_operator_tpu_torch.ops import quant_matmul as QM
+
+    plain = QM.quant_matmul_reference
+    with mock.patch.object(D, "quant_mm", plain), \
+            mock.patch.object(llama, "quant_mm", plain):
+        yield
+
+
+def _chunk_ms_turns(rings: dict, turns, prompts, dispatches: int) -> dict:
+    """Device ms of one ring dispatch (a chunk of 8 ticks, every lane
+    live, a CUDA graph replay) of each ring in ``rings`` (name -> (model,
+    cfg, route)), timed in ``turns`` on executors admitted alike: CUDA
+    events around ``dispatches`` back-to-back replays."""
+    import torch
+
+    from paddle_operator_tpu_torch.infer import executor as X
+
+    exs = {}
+    with torch.inference_mode():
+        for name, (model, cfg, route) in rings.items():
+            with (route() if route else contextlib.nullcontext()):
+                ex = X.RingExecutor(model, cfg, slots=RING["slots"],
+                                    max_len=1024,
+                                    chunk_tokens=RING["chunk_tokens"],
+                                    paged=True,
+                                    block_size=RING["block_size"])
+                ex.prewarm()
+                for slot, p in enumerate(prompts):
+                    _admit_cold(ex, slot, p)
+            exs[name] = [ex, len(prompts[0])]
+        out = {name: [] for name in rings}
+        for name in turns:
+            ms, exs[name][1] = _time_dispatches(*exs[name], dispatches)
+            out[name].append(ms)
+    return out
+
+
+def _time_dispatches(ex, fill: int, dispatches: int) -> tuple:
+    """(device ms a dispatch over ``dispatches`` graph replays of every
+    lane after a warm one, the lanes' fill after them)."""
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.infer import executor as X
+
+    slots, chunk = RING["slots"], RING["chunk_tokens"]
+    plans = []
+    for _ in range(dispatches + 1):
+        for slot in range(slots):
+            ex.pool.ensure(slot, fill + chunk)
+        plans.append(X.ExecPlan(1, [True] * slots, table=ex.pool.table,
+                                eos=np.full(slots, -1, np.int32),
+                                left=np.full(slots, 1 << 20, np.int32),
+                                steps=np.ones(slots, np.int32)))
+        fill += chunk
+    ex.replay(plans[0]).host()              # warm
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for plan in plans[1:]:
+        ex.replay(plan)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / dispatches, fill
+
+
+def phase_weight_quant_ring(report: dict, params, cfg) -> None:
+    """Phase 3i: the weight-quantized 7b replica; see the module
+    docstring."""
+    import gc as _gc
+
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.infer import decode as D
+    from paddle_operator_tpu_torch.infer import quant as Q
+    from paddle_operator_tpu_torch.ops import quant_matmul as QM
+
+    qmodel, qcfg = _quantized_7b({"SERVE_WEIGHT_QUANT": "int8"})
+    want_bytes = expected_param_bytes(qcfg, False)
+    got_bytes = Q.param_bytes(qmodel)
+    log(f"weight quant int8: paramBytes {got_bytes} (expected "
+        f"{want_bytes}; bf16 model {Q.param_bytes(params)})")
+    if got_bytes != want_bytes or Q.weight_quant_mode(qmodel) != "int8":
+        raise AssertionError("the int8 model's paramBytes or mode")
+    wq = {"mode": "int8", "param_bytes": want_bytes, "lm_head": False}
+    runs = {}
+    for kv in ("none", "int8"):
+        r = {}
+        phase_ring_main_path(r, qmodel, qcfg, kv, wquant=wq)
+        runs[kv] = r["ring"]
+        if kv == "none":
+            report["launches"] = QM.quant_matmul.launches
+        _gc.collect()
+        torch.cuda.empty_cache()
+
+    # the max logit gap against the bf16 model on one prompt (prefill by
+    # the formula, then 8 decode steps through the kernel): reported
+    prompt = torch.as_tensor(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (1, 64)), dtype=torch.int32, device="cuda")
+    gap = 0.0
+    with torch.inference_mode():
+        lb, cb = D.prefill(params, cfg, prompt, 256)
+        lq, cq = D.prefill(qmodel, qcfg, prompt, 256)
+        gap = float((lb - lq).abs().max())
+        tok = lb.argmax(-1).to(torch.int32)
+        for _ in range(8):
+            lb, cb = D.decode_step(params, cfg, tok, cb)
+            lq, cq = D.decode_step(qmodel, qcfg, tok, cq)
+            gap = max(gap, float((lb - lq).abs().max()))
+            tok = lb.argmax(-1).to(torch.int32)
+    del cb, cq
+    log(f"weight quant int8: max |logit gap| against the bf16 model, one "
+        f"64-token prompt and 8 steps: {gap:.4f} (not gated)")
+
+    # one chunk as a graph: the int8 model through the kernel, through
+    # the formula, and the bf16 model, in turns
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, 512).tolist()
+               for _ in range(RING["slots"])]
+    chunk = _chunk_ms_turns(
+        {"kernel": (qmodel, qcfg, None), "plain": (qmodel, qcfg, _plain_route),
+         "bf16": (params, cfg, None)},
+        ("kernel", "plain", "bf16", "bf16", "plain", "kernel"), prompts, 6)
+    log(f"weight quant int8: ring chunk (8 lanes x 8 ticks, fill 520-632, "
+        f"graph replay) device ms: kernel {chunk['kernel']}, plain route "
+        f"{chunk['plain']}, bf16 model {chunk['bf16']} on {card_line()}")
+    del qmodel
+    _gc.collect()
+    torch.cuda.empty_cache()
+
+    short = []
+    for env, mode, head in (({"SERVE_WEIGHT_QUANT": "int4"}, "int4", False),
+                            ({"QUANTIZE": "int8"}, "int8", True)):
+        model, mcfg = _quantized_7b(env)
+        short.append(_quant_short_run(model, mcfg, mode, head))
+        del model
+        _gc.collect()
+        torch.cuda.empty_cache()
+    report["ring"] = {"bf16_pool": runs["none"], "int8_pool": runs["int8"],
+                      "chunk_device_ms": chunk, "logit_gap": gap,
+                      "param_bytes": want_bytes, "short_runs": short}
+
+
 def _zero_launches() -> None:
     from paddle_operator_tpu_torch.ops import decode_attention as DA
     from paddle_operator_tpu_torch.ops import flash_attention as FA
+    from paddle_operator_tpu_torch.ops import quant_matmul as QM
 
     for fn in (DA.decode_attention, DA.paged_decode_attention,
-               FA.flash_forward, FA.flash_backward_dkv, FA.flash_backward_dq):
+               FA.flash_forward, FA.flash_backward_dkv, FA.flash_backward_dq,
+               QM.quant_matmul):
         fn.launches = 0
     DA.paged_decode_attention.quant_launches = 0
 
@@ -3763,6 +4255,112 @@ def phase_host_tier_equalities(params=None, cfg=None) -> None:
         torch.cuda.empty_cache()
 
 
+def phase_weight_quant_equalities() -> None:
+    """Phase 4h: the weight-quantized rings under graph replay, through
+    the int8-weight kernel, against the plain route; see the module
+    docstring."""
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.infer import decode as D
+    from paddle_operator_tpu_torch.infer import executor as X
+    from paddle_operator_tpu_torch.infer import quant as Q
+    from paddle_operator_tpu_torch.infer.batcher import ContinuousBatcher
+    from paddle_operator_tpu_torch.models.llama import CONFIGS, make_model
+    from paddle_operator_tpu_torch.ops import quant_matmul as QM
+
+    vocab = CONFIGS["7b"].vocab_size
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, vocab, n).tolist() for n in (40, 129, 64)]
+    # a prefix hit: the 129-token prompt's first 16-token block and more
+    prompts.append(prompts[1][:16] + rng.integers(0, vocab, 9).tolist())
+    n_new, max_len = 24, 256
+    pools = (("bf16 pool", {"paged": True, "block_size": 16}),
+             ("int8 pool", {"paged": True, "block_size": 16,
+                            "kv_quant": "int8"}))
+
+    def ring(model, cfg, pool, megastep, route=None):
+        with (route() if route else contextlib.nullcontext()):
+            b = ContinuousBatcher(model, cfg, slots=4, max_len=max_len,
+                                  chunk_tokens=8, megastep=megastep,
+                                  prewarm=True, **pool)
+            try:
+                b.prewarmed.wait(600)
+                if b.executor.needs_capture:
+                    raise AssertionError("the ring's graphs were not "
+                                         "captured")
+                n0 = QM.quant_matmul.launches
+                out = [h.result(timeout=600) for h in [
+                    b.submit(p, max_new_tokens=n_new) for p in prompts]]
+                b.pool.check_invariant()
+                return (out, b.executor.graph_replays,
+                        QM.quant_matmul.launches - n0)
+            finally:
+                b.close()
+
+    with torch.inference_mode():
+        for mode in ("int8", "int4"):
+            model, cfg = make_model("7b", device="cuda", seed=8, n_layers=2,
+                                    dtype=torch.float32)
+            Q.quantize_params(model, cfg, mode=mode, skip=Q.SERVING_SKIP)
+            with _plain_route():
+                want = [D.generate(model, cfg, torch.tensor(
+                    [p], dtype=torch.int32, device="cuda"),
+                    max_new_tokens=n_new, max_len=max_len)[0].tolist()
+                    for p in prompts]
+            for name, pool in pools:
+                if "kv_quant" in pool:
+                    # the int8 pool quantizes the KV: its reference is the
+                    # same ring on the plain route
+                    ref, _, plain_launches = ring(model, cfg, pool, 1,
+                                                  _plain_route)
+                    if plain_launches:
+                        raise AssertionError("the plain route launched the "
+                                             "int8-weight kernel")
+                else:
+                    ref = want
+                for megastep in (1, 4):
+                    got, replays, launched = ring(model, cfg, pool,
+                                                  megastep)
+                    line = (f"weight quant {mode} {name} megastep "
+                            f"{megastep} (7b width, 2 layers, f32, graph "
+                            f"replays {replays}): kernel route == plain "
+                            f"route on {sum(a == b for a, b in zip(got, ref))}"
+                            f"/{len(ref)} requests; quant_matmul launches "
+                            f"{launched}")
+                    log(line)
+                    if got != ref or not replays or not launched:
+                        raise AssertionError(line)
+
+            # one spill and restore under graphs (bf16 pool, megastep 1)
+            def executor():
+                return X.RingExecutor(model, cfg, slots=2, max_len=max_len,
+                                      chunk_tokens=8, paged=True,
+                                      block_size=16)
+
+            ref_ex = executor()
+            ref_ex.prewarm()
+            uninterrupted, _ = _restore_run(ref_ex, prompts, 1, True)
+            del ref_ex
+            ex = executor()
+            ex.prewarm()
+            got, seen = _restore_run(ex, prompts, 1, True, 2)
+            del ex
+            with _plain_route():
+                plain, _ = _restore_run(executor(), prompts, 1, False, 2)
+            line = (f"weight quant {mode} spill and restore (bf16 pool, "
+                    f"graphs): {len(got)} tokens == uninterrupted "
+                    f"{got == uninterrupted}, == plain route (eager) "
+                    f"{plain == got}; addresses kept "
+                    f"{seen['ptrs'] == seen['ptrs_after']}")
+            log(line)
+            if got != uninterrupted or plain != got \
+                    or seen["ptrs"] != seen["ptrs_after"]:
+                raise AssertionError(line)
+            del model
+            torch.cuda.empty_cache()
+
+
 def phase_train_kernel_equals_plain() -> None:
     """Phase 4c: three f32 train steps through the flash kernels and
     through the plain attention, from the same init."""
@@ -3859,6 +4457,11 @@ def main() -> int:
     quant = {"name": "paged_decode_attention_quant", "route": "cuda",
              "source": source,
              "replaces": "paddle_operator_tpu/ops/decode_attention.py:294"}
+    qmm = {"name": "quant_matmul", "route": "cuda",
+           "source": "paddle_operator_tpu_torch/csrc/quant_matmul.cu",
+           # no Pallas kernel: the XLA fusion of decode._mm's quantized
+           # branch
+           "replaces": "paddle_operator_tpu/infer/decode.py:99"}
     flash = {kern: {"name": kern, "route": "cuda",
                     "source": "paddle_operator_tpu_torch/csrc/"
                               "flash_attention.cu",
@@ -3876,12 +4479,14 @@ def main() -> int:
 
     flash_build_report(flash)
     decode_build_report(contiguous, paged, quant)
+    quant_build_report(qmm)
     log(f"build: flash_attention.cu {secs['flash_attention']:.1f}s")
     run("2", phase_kernel_vs_plain, contiguous)
     run("2b", phase_paged_kernel_vs_plain, paged)
     run("2d", phase_quant_kernel_vs_plain, quant)
+    run("2e", phase_quant_matmul_vs_plain, qmm)
     run("2c", phase_flash_vs_plain, flash)
-    if phases & {"3", "3b", "3d", "3e", "3g", "3h"}:
+    if phases & {"3", "3b", "3d", "3e", "3g", "3h", "3i"}:
         params, cfg = make_7b()
         run("3", phase_main_path, contiguous, params, cfg)
         ring_tokens = run("3b", phase_ring_main_path, paged, params, cfg)
@@ -3899,6 +4504,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         run("3h", phase_host_tier, (paged, quant), params, cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        run("3i", phase_weight_quant_ring, qmm, params, cfg)
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -3911,6 +4519,7 @@ def main() -> int:
     run("4e", phase_megastep_rings)
     run("4f", phase_restore_under_graphs)
     run("4g", phase_host_tier_equalities)
+    run("4h", phase_weight_quant_equalities)
     log(f"all phases: {time.perf_counter() - t_all:.1f}s")
 
     order = ["name", "route", "source", "replaces", "launches",
@@ -3923,7 +4532,7 @@ def main() -> int:
              "timings"]
     print(json.dumps({"kernels": [
         {k: r.get(k) for k in order if k in r or k in order[:11]}
-        for r in (contiguous, paged, quant, *flash.values())]}))
+        for r in (contiguous, paged, quant, *flash.values(), qmm)]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,9 +14,16 @@ layers ``layer_<i>`` instead; those leaves map one to one.
 Kernels keep flax's ``[in, out]`` orientation (the port's ``Dense``
 computes ``x @ kernel``); nothing is transposed.  bfloat16 leaves
 (numpy's ml_dtypes ``bfloat16``, which ``torch.from_numpy`` cannot
-read) go through float32, which is exact.  Weight-only int8
-``{"q", "s"}`` leaves (infer/quant.py of the JAX package) are refused
-until the quantization slice.
+read) go through float32, which is exact.
+
+A weight-only quantized tree (the JAX package's ``infer/quant.py``
+``quantize_params``) carries ``{"q", "s"}`` leaves in place of
+``kernel``: leaf ``.../wq/kernel/q`` becomes ``...wq.q`` and ``.../s``
+``...wq.s``, the buffers of the port's quantized ``Dense``.  int4 codes
+(numpy's ml_dtypes ``int4``) are widened to int8, exactly.  Load such a
+state into a model quantized with the tree's mode and skip list
+(``infer/quant.py`` ``quantize_params``), which gives its projections
+that form.
 """
 
 from __future__ import annotations
@@ -31,11 +38,10 @@ import torch
 def _leaves(tree: Any, path: Tuple[str, ...] = ()
             ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
     if isinstance(tree, dict):
-        if "q" in tree and "s" in tree:
-            raise NotImplementedError(
-                f"weight-only int8 leaf at {'/'.join(path)}: quantized "
-                "param trees are not ported to the torch package yet "
-                "(ROADMAP.md Queue A, infer/quant.py)")
+        if set(tree) == {"q", "s"} and path and path[-1] == "kernel":
+            yield path[:-1] + ("q",), tree["q"]
+            yield path[:-1] + ("s",), tree["s"]
+            return
         for key in sorted(tree):
             yield from _leaves(tree[key], path + (str(key),))
     else:
@@ -44,6 +50,8 @@ def _leaves(tree: Any, path: Tuple[str, ...] = ()
 
 def _tensor(arr: Any) -> torch.Tensor:
     arr = np.asarray(arr)
+    if arr.dtype.name == "int4":
+        arr = arr.astype(np.int8)
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
     return torch.from_numpy(np.array(arr))   # a contiguous copy

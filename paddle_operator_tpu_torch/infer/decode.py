@@ -17,9 +17,10 @@ Same structure and layouts as the JAX module, in PyTorch's idiom:
 ``params`` everywhere is the port's :class:`~paddle_operator_tpu_torch.
 models.llama.Llama` module (its ``layers[i]`` is one layer's param
 subtree).  :func:`paged_prefill` writes a prompt's KV into the paged
-ring's block pool (infer/paged.py), bf16 or int8.  Not ported yet, and
-refused when asked for: tensor-parallel meshes, LoRA adapters, MoE
-layers and weight-only int8 leaves.
+ring's block pool (infer/paged.py), bf16 or int8.  Every projection
+goes through :func:`_mm`, which also takes the weight-only int8/int4
+projections of infer/quant.py.  Not ported yet, and refused when asked
+for: tensor-parallel meshes, LoRA adapters and MoE layers.
 """
 
 from __future__ import annotations
@@ -28,11 +29,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from paddle_operator_tpu_torch.models.llama import Llama, LlamaConfig
+from paddle_operator_tpu_torch.models.llama import Dense, Llama, LlamaConfig
 from paddle_operator_tpu_torch.ops.decode_attention import (
     DEFAULT_BLOCK_K,
     decode_attention,
 )
+from paddle_operator_tpu_torch.ops.quant_matmul import quant_mm
 
 
 def _refuse_mesh(mesh) -> None:
@@ -50,14 +52,23 @@ def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float,
     return (norm * scale.float()).to(dtype)
 
 
-def _mm(x: torch.Tensor, kernel: torch.Tensor, dtype) -> torch.Tensor:
-    """x @ kernel for a raw ``[in, out]`` kernel leaf, in ``dtype``.
-    Weight-only int8 leaves come with the quantization slice."""
-    if not isinstance(kernel, torch.Tensor):
-        raise NotImplementedError(
-            "weight-only int8 kernels are not ported to the torch "
-            "package yet (ROADMAP.md Queue A, infer/quant.py)")
-    return x @ kernel.to(dtype)
+def _mm(x: torch.Tensor, w: Dense, dtype) -> torch.Tensor:
+    """x @ W for the projection ``w`` (a ``Dense``), in ``dtype``.
+
+    A raw ``[in, out]`` kernel: ``x @ kernel.to(dtype)``.  A weight-only
+    int8/int4 one (infer/quant.py: codes ``q`` [in, out], f32 scales
+    ``s`` [1, out]) goes through ops/quant_matmul.py ``quant_mm``, routed
+    by the number of rows: up to ``KERNEL_MAX_ROWS`` (16) rows — the
+    ring's lanes, a batch step, a prefix hit's short suffix — take the
+    int8-weight decode kernel on the card, which streams one byte a
+    weight where dequantize-then-matmul would move five (16 is the
+    largest row count phase 2e of ``chip_smoke.py`` measures the kernel
+    at); more rows — a prefill, bound by its operations — take the JAX
+    package's formula, ``(x @ q.to(dtype)) * s.to(dtype)``, on the
+    tensor cores.  A route by shape: nothing falls back on a failure."""
+    if w.mode == "none":
+        return x @ w.kernel.to(dtype)
+    return quant_mm(x.to(dtype), w.q, w.s)
 
 
 def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
@@ -111,18 +122,18 @@ def _qkv(cfg: LlamaConfig, lp, x: torch.Tensor, cos: torch.Tensor,
     b, t, _ = x.shape
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = _rms(x, lp.attn_norm.scale, cfg.norm_eps, cfg.dtype)
-    q = _mm(h, lp.attn.wq.kernel, cfg.dtype).reshape(b, t, hq, d)
-    k = _mm(h, lp.attn.wk.kernel, cfg.dtype).reshape(b, t, hkv, d)
-    v = _mm(h, lp.attn.wv.kernel, cfg.dtype).reshape(b, t, hkv, d)
+    q = _mm(h, lp.attn.wq, cfg.dtype).reshape(b, t, hq, d)
+    k = _mm(h, lp.attn.wk, cfg.dtype).reshape(b, t, hkv, d)
+    v = _mm(h, lp.attn.wv, cfg.dtype).reshape(b, t, hkv, d)
     return _rope(q, cos, sin, pos), _rope(k, cos, sin, pos), v
 
 
 def _ffn_residual(cfg: LlamaConfig, lp, x: torch.Tensor) -> torch.Tensor:
     """The FFN half of a decoder layer: norm -> SwiGLU -> +x."""
     n = _rms(x, lp.mlp_norm.scale, cfg.norm_eps, cfg.dtype)
-    gate = _mm(n, lp.mlp.w1.kernel, cfg.dtype)
-    up = _mm(n, lp.mlp.w3.kernel, cfg.dtype)
-    return x + _mm(torch.nn.functional.silu(gate) * up, lp.mlp.w2.kernel,
+    gate = _mm(n, lp.mlp.w1, cfg.dtype)
+    up = _mm(n, lp.mlp.w3, cfg.dtype)
+    return x + _mm(torch.nn.functional.silu(gate) * up, lp.mlp.w2,
                    cfg.dtype)
 
 
@@ -130,7 +141,7 @@ def _finish_layer(cfg: LlamaConfig, lp, x: torch.Tensor,
                   out: torch.Tensor) -> torch.Tensor:
     """Post-attention half: output projection + residual, then the FFN
     + residual."""
-    x = x + _mm(out, lp.attn.wo.kernel, cfg.dtype)
+    x = x + _mm(out, lp.attn.wo, cfg.dtype)
     return _ffn_residual(cfg, lp, x)
 
 
@@ -220,7 +231,7 @@ def _forward(cfg: LlamaConfig, params: Llama, tokens: torch.Tensor,
     if last_only:
         x = x[:, -1:]
     x = _rms(x, params.final_norm.scale, cfg.norm_eps, cfg.dtype)
-    logits = _mm(x, params.lm_head.kernel, cfg.dtype).float()
+    logits = _mm(x, params.lm_head, cfg.dtype).float()
     return logits, {"k": k_cache, "v": v_cache, "pos": pos + t}
 
 

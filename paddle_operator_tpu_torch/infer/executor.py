@@ -56,11 +56,13 @@ import numpy as np
 import torch
 
 from paddle_operator_tpu_torch.infer import decode as D
+from paddle_operator_tpu_torch.infer import quant as Q
 from paddle_operator_tpu_torch.models.llama import LlamaConfig
 from paddle_operator_tpu_torch.ops.decode_attention import (
     decode_attention,
     paged_decode_attention,
 )
+from paddle_operator_tpu_torch.ops.quant_matmul import quant_matmul
 
 
 class ExecPlan:
@@ -338,9 +340,9 @@ def _qkv_ring(cfg: LlamaConfig, lp, x: torch.Tensor, cos: torch.Tensor,
     b = x.shape[0]
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = D._rms(x, lp.attn_norm.scale, cfg.norm_eps, cfg.dtype)
-    q = D._mm(h, lp.attn.wq.kernel, cfg.dtype).reshape(b, 1, hq, d)
-    k = D._mm(h, lp.attn.wk.kernel, cfg.dtype).reshape(b, 1, hkv, d)
-    v = D._mm(h, lp.attn.wv.kernel, cfg.dtype).reshape(b, 1, hkv, d)
+    q = D._mm(h, lp.attn.wq, cfg.dtype).reshape(b, 1, hq, d)
+    k = D._mm(h, lp.attn.wk, cfg.dtype).reshape(b, 1, hkv, d)
+    v = D._mm(h, lp.attn.wv, cfg.dtype).reshape(b, 1, hkv, d)
     p = torch.clamp(pos.long(), max=cos.shape[0] - 1)
     cos_b = cos[p][:, None, None, :]            # [B, 1, 1, d/2]
     sin_b = sin[p][:, None, None, :]
@@ -409,7 +411,7 @@ def _ring_forward(cfg: LlamaConfig, params, tok: torch.Tensor,
             x = _layer_step(cfg, lp, x, cos, sin, k_cache[li], v_cache[li],
                             pos)
     x = D._rms(x, params.final_norm.scale, cfg.norm_eps, cfg.dtype)
-    logits = D._mm(x, params.lm_head.kernel, cfg.dtype).float()
+    logits = D._mm(x, params.lm_head, cfg.dtype).float()
     return logits[:, 0], {"k": k_cache, "v": v_cache, "pos": pos + 1}
 
 
@@ -693,11 +695,13 @@ class _Graph:
 
 _COUNTERS = ((decode_attention, "launches"),
              (paged_decode_attention, "launches"),
-             (paged_decode_attention, "quant_launches"))
+             (paged_decode_attention, "quant_launches"),
+             (quant_matmul, "launches"))
 
 
 def _launch_counts() -> List[int]:
-    """The decode kernels' launch counts (contiguous, paged, int8)."""
+    """The decode kernels' launch counts (contiguous, paged, int8 pool,
+    int8-weight matmul)."""
     return [getattr(fn, attr) for fn, attr in _COUNTERS]
 
 
@@ -870,10 +874,12 @@ class RingExecutor:
         only while no lane is resident."""
         if self.device.type != "cuda":
             return
-        if self.cfg.resolved_decode_attn(self.device) == "kernel":
-            from paddle_operator_tpu_torch.ops import _build
+        from paddle_operator_tpu_torch.ops import _build
 
+        if self.cfg.resolved_decode_attn(self.device) == "kernel":
             _build.load("decode_attention")
+        if Q.weight_quant_mode(self.params) != "none":
+            _build.load("quant_matmul")
         self.capture_graphs()
 
     # -- plan replay: the ONE resident dispatch path -----------------------
@@ -1291,7 +1297,8 @@ class RingExecutor:
         return self._pool_bytes
 
     def param_bytes(self) -> int:
-        """Device bytes of the served params — the
+        """Device bytes of the served params, as the JAX package counts
+        them (infer/quant.py ``param_bytes``: a quantized projection's
+        codes and scales, not the RoPE tables) — the
         ``tpujob_serve_param_bytes`` gauge."""
-        return sum(p.numel() * p.element_size()
-                   for p in self.params.parameters())
+        return Q.param_bytes(self.params)

@@ -1153,7 +1153,7 @@ def paged_ring_forward(cfg: LlamaConfig, params, tok: torch.Tensor,
         with torch.profiler.record_function("kv_quant_commit"):
             _commit_tails(cache, table, pos, commit, block_size)
     x = D._rms(x, params.final_norm.scale, cfg.norm_eps, cfg.dtype)
-    logits = D._mm(x, params.lm_head.kernel, cfg.dtype).float()
+    logits = D._mm(x, params.lm_head, cfg.dtype).float()
     return logits[:, 0], dict(cache, pos=pos + 1)
 
 

@@ -1,13 +1,64 @@
-"""Serving-side parameter preparation — the port of
-``paddle_operator_tpu/infer/quant.py``, so far only
-:func:`serving_params`.  Weight-only int8/int4 quantization
-(``quantize_params``) comes with a later slice (ROADMAP.md Queue A).
+"""Serving-side parameter preparation and weight-only int8/int4
+quantization — the port of ``paddle_operator_tpu/infer/quant.py``.
+
+Decode streams every weight every step, so storing the matmul kernels
+as integer codes with per-output-channel f32 scales cuts the bytes a
+step moves (activations and accumulation stay in the compute dtype —
+"weight-only" quantization).  Norm scales and the embedding table stay
+full precision.
+
+:func:`quantize_params` turns each targeted projection of the port's
+``Llama`` (a ``models.llama.Dense``) into its quantized form, in place:
+the ``kernel`` parameter is replaced by two buffers, the codes ``q``
+``[in, out]`` int8 and the scales ``s`` ``[1, out]`` f32 — the layout of
+the JAX package's ``{"q", "s"}`` leaf — and the module records its
+``mode``.  Every projection goes through ``infer/decode.py`` ``_mm``
+(and ``Dense.forward``), which reads either form, so every decode entry
+point (prefill, decode_step, generate, the rings, the server) serves a
+quantized model unchanged.
+
+Torch has no int4 dtype to compute with, so **int4 codes are stored as
+int8 values in [-7, 7]**: the mode cannot be read off the dtype, and
+each quantized ``Dense`` carries it (:func:`weight_quant_mode` reads
+it).  :func:`param_bytes` counts an int4 code as one byte, as the JAX
+package's does (it reports the unpacked resident size).
+
+Rounding is round-half-even (``torch.round``, like ``jnp.round``) on
+f32 math, so codes and scales equal the JAX package's bit for bit, and
+quantize -> dequantize -> quantize is a fixed point.
+
+**Skip list.**  The serving path (``skip=SERVING_SKIP``) keeps the
+embedding (gather-shaped), ``lm_head`` (its error lands on the sampling
+distribution directly) and the norm scales (tiny) unquantized; the
+legacy no-kwargs call (``QUANTIZE=int8``) keeps the original target
+set, ``lm_head`` included.
 """
 
 from __future__ import annotations
 
+import re
+from typing import Dict, Iterable, Optional
+
 import torch
 from torch import nn
+
+from paddle_operator_tpu_torch.models.llama import Dense
+
+# matmul kernels worth quantizing: attention + (dense or MoE) FFN + head,
+# matched against the JAX package's '/'-joined leaf paths
+_TARGETS = re.compile(
+    r"(attn/(wq|wk|wv|wo)/kernel"
+    r"|mlp/w[123]/kernel"
+    r"|moe/w[12]"
+    r"|lm_head/kernel)$")
+
+# leaves that stay unquantized when quantizing for the serving fleet,
+# matched as patterns of the '/'-joined leaf path
+SERVING_SKIP = ("embed", "lm_head", "norm")
+
+#: Recognized quantization modes -> max code magnitude (codes are int8
+#: in both: int4's lie in [-7, 7]).
+_MODES = {"int8": 127.0, "int4": 7.0}
 
 
 @torch.no_grad()
@@ -18,8 +69,94 @@ def serving_params(model: nn.Module, dtype) -> nn.Module:
     Training keeps f32 master params; serving them directly would stream
     4 bytes/param in the decode hot loop (decode._mm converts at use, so
     the storage dtype IS the streamed dtype).  Buffers (the f32 RoPE
-    tables) keep their dtype."""
+    tables, a quantized projection's codes and f32 scales) keep their
+    dtype."""
     for p in model.parameters():
         if p.is_floating_point() and p.dtype != dtype:
             p.data = p.data.to(dtype)
     return model
+
+
+def quantize_leaf(w: torch.Tensor, mode: str = "int8"
+                  ) -> Dict[str, torch.Tensor]:
+    """``[..., in, out]`` kernel -> ``{"q": int8 codes, "s": f32 scales
+    [..., 1, out]}`` (absmax over the contraction dim, scale 1.0 for an
+    all-zero column).  The math runs in f32 for any input dtype;
+    ``torch.round`` rounds half to even."""
+    qmax = _MODES[mode]
+    w = w.float()
+    s = w.abs().amax(dim=-2, keepdim=True) / qmax
+    s = torch.where(s == 0, torch.ones_like(s), s)
+    q = torch.clamp(torch.round(w / s), -qmax, qmax).to(torch.int8)
+    return {"q": q, "s": s}
+
+
+def dequantize_leaf(leaf, dtype) -> torch.Tensor:
+    """A ``{"q", "s"}`` leaf (or a plain tensor) in ``dtype``: both
+    operands cast to ``dtype`` before the product, as the JAX
+    package's."""
+    if isinstance(leaf, dict) and "q" in leaf:
+        return leaf["q"].to(dtype) * leaf["s"].to(dtype)
+    return leaf.to(dtype)
+
+
+def _dense_paths(model: nn.Module):
+    """(the JAX package's '/'-joined leaf path, module) of every
+    ``Dense`` of ``model``: ``layers.0.attn.wq`` -> ``layers/0/attn/wq/
+    kernel``."""
+    for name, mod in model.named_modules():
+        if isinstance(mod, Dense):
+            yield name.replace(".", "/") + "/kernel", mod
+
+
+@torch.no_grad()
+def quantize_params(model: nn.Module, cfg=None, *, mode: str = "int8",
+                    skip: Optional[Iterable[str]] = None) -> nn.Module:
+    """Quantize the decode-relevant projections of ``model`` in place
+    (one at a time: each unquantized kernel is released as its codes
+    are made) and return it.
+
+    ``quantize_params(model)`` is the legacy form (``QUANTIZE=int8``):
+    int8, the original target set, ``lm_head`` included.  The serving
+    path (``SERVE_WEIGHT_QUANT``) passes ``cfg`` (unused, as in the JAX
+    package) and ``skip=SERVING_SKIP``.  ``mode`` is ``"int8"`` or
+    ``"int4"``; another raises ``ValueError`` naming it.  A projection
+    that is already quantized is left as it is.  Quantize before a ring
+    captures its CUDA graphs: they hold the addresses they read."""
+    del cfg
+    if mode not in _MODES:
+        raise ValueError(f"unknown weight quant mode {mode!r} (want one of "
+                         f"{sorted(_MODES)})")
+    skip_pats = tuple(skip) if skip is not None else ()
+    for path, dense in list(_dense_paths(model)):
+        if dense.mode != "none" or not _TARGETS.search(path):
+            continue
+        if any(re.search(pat, path) for pat in skip_pats):
+            continue
+        leaf = quantize_leaf(dense.kernel, mode)
+        dense.set_quantized(leaf["q"], leaf["s"], mode)
+    return model
+
+
+def weight_quant_mode(model: nn.Module) -> str:
+    """The quantization mode of the served model: "int4" when any
+    projection holds int4 codes, else "int8" when any holds int8 codes,
+    else "none" — read from the modules (not a threaded flag), so
+    ``/statusz`` reports the model actually dispatched."""
+    mode = "none"
+    for _, dense in _dense_paths(model):
+        if dense.mode == "int4":
+            return "int4"
+        if dense.mode == "int8":
+            mode = "int8"
+    return mode
+
+
+def param_bytes(model: nn.Module) -> int:
+    """Device bytes of the model's parameter tree, by shape arithmetic:
+    every parameter and persistent buffer (a quantized projection's
+    codes and scales; int4 codes one byte each), not the RoPE tables,
+    which the JAX package's tree does not hold — so the number equals
+    the JAX package's ``param_bytes`` of the same model."""
+    return sum(t.numel() * t.element_size()
+               for t in model.state_dict().values())

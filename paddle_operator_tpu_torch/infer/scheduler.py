@@ -57,6 +57,7 @@ import torch
 
 from paddle_operator_tpu_torch.infer import executor as X
 from paddle_operator_tpu_torch.infer import qos as QOS
+from paddle_operator_tpu_torch.infer import quant as Q
 from paddle_operator_tpu_torch.infer.resilience import (
     DispatchWatchdog,
     RestartBudget,
@@ -559,7 +560,7 @@ class ContinuousBatcher:
             "overlappedFrames": 0,
             "kvQuantMode": self.kv_quant,
             "kvPoolBytes": self.executor.pool_bytes(),
-            "weightQuantMode": "none",
+            "weightQuantMode": Q.weight_quant_mode(self.executor.params),
             "draftQuantMode": "none",
             "paramBytes": self.executor.param_bytes(),
             "chunkedPrefillTokenShare": 0.0,

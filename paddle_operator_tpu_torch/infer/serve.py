@@ -40,8 +40,10 @@ reproduced; infer/executor.py ``_sample_tokens`` has the rule).
 server does when those features are not configured.
 
 The entry point restores the parameters from the operator's
-``TPUJOB_CHECKPOINT_PATH`` (:func:`load_serving_params`).  Run on the
-card::
+``TPUJOB_CHECKPOINT_PATH`` (:func:`load_serving_params`) and quantizes
+their projections under ``SERVE_WEIGHT_QUANT=int8|int4`` or the legacy
+``QUANTIZE=int8`` (:func:`quantize_from_env`, infer/quant.py), in either
+mode.  Run on the card::
 
     SERVE_CONTINUOUS=1 SERVE_PAGED=1 MODEL_PRESET=7b TPUJOB_PORT=8999 \\
     python3 -m paddle_operator_tpu_torch.infer.serve
@@ -474,11 +476,6 @@ def refuse_unported(environ) -> None:
     if int(environ.get("SERVE_TP", "1") or 1) > 1:
         refused.append(f"SERVE_TP={environ['SERVE_TP']} (tensor "
                        "parallelism)")
-    if on("QUANTIZE", ("", "none", "off")):
-        refused.append(f"QUANTIZE={environ['QUANTIZE']}")
-    if on("SERVE_WEIGHT_QUANT", ("", "none")):
-        refused.append(f"SERVE_WEIGHT_QUANT="
-                       f"{environ['SERVE_WEIGHT_QUANT']}")
     if int(environ.get("SERVE_SPEC_K", "0") or 0) > 0:
         refused.append(f"SERVE_SPEC_K={environ['SERVE_SPEC_K']} "
                        "(speculative decoding)")
@@ -662,14 +659,35 @@ def load_serving_params(path: str, cfg: LlamaConfig, device="cuda"
     return model, cfg, resumed
 
 
+def quantize_from_env(model: Llama, cfg: LlamaConfig, environ) -> str:
+    """Weight-only quantization of the served model, in place, as the
+    JAX entry point applies it after its restore: ``QUANTIZE=int8`` is
+    the legacy call (int8, ``lm_head`` included); ``SERVE_WEIGHT_QUANT=
+    int8|int4`` quantizes with the serving skip list (the embedding,
+    ``lm_head`` and the norms stay in the serving dtype); another mode
+    raises ``ValueError`` naming it.  One projection at a time, each
+    unquantized kernel released as its codes are made.  Call it before
+    the ring is built: graphs captured at boot read the final
+    addresses.  Returns the served model's mode ("none" unquantized)."""
+    from paddle_operator_tpu_torch.infer import quant as Q
+
+    if environ.get("QUANTIZE", "") == "int8":
+        Q.quantize_params(model)
+    wq = environ.get("SERVE_WEIGHT_QUANT", "none") or "none"
+    if wq != "none":
+        Q.quantize_params(model, cfg, mode=wq, skip=Q.SERVING_SKIP)
+    return Q.weight_quant_mode(model)
+
+
 def main() -> int:
     """Serving entrypoint: restore MODEL_PRESET (default 7b) from
     TPUJOB_CHECKPOINT_PATH — fresh init from seed 0 when it holds no
     step — on the card in the serving dtype (``load_serving_params``)
     and serve on TPUJOB_PORT: batch mode, or the decode ring with
     SERVE_CONTINUOUS=1 (paged with SERVE_PAGED=1, over the int8 pool
-    with SERVE_KV_QUANT=int8); SIGTERM drains and exits EXIT_PREEMPTED
-    (83)."""
+    with SERVE_KV_QUANT=int8), its weights quantized under
+    SERVE_WEIGHT_QUANT or QUANTIZE (``quantize_from_env``); SIGTERM
+    drains and exits EXIT_PREEMPTED (83)."""
     from paddle_operator_tpu_torch.ft.preemption import PreemptionWatcher
     from paddle_operator_tpu_torch.infer.resilience import ServingDrain
     from paddle_operator_tpu_torch.launch.launcher import JobEnv
@@ -686,6 +704,7 @@ def main() -> int:
                else {})
     params, cfg, resumed = load_serving_params(
         env.checkpoint_path, CONFIGS[preset], "cuda")
+    wquant = quantize_from_env(params, cfg, os.environ)
     mode = "batch"
     if continuous:
         mode = (f"continuous, paged={bool(ring_kw.get('paged'))}, "
@@ -694,7 +713,8 @@ def main() -> int:
                 f"host_cache_blocks={ring_kw.get('host_cache_blocks', 0)}, "
                 f"slots={ring_kw['slots']}, "
                 f"chunk={ring_kw['chunk_tokens']}")
-    print(f"serving {preset} (resumed={resumed}, mode={mode}, "
+    print(f"serving {preset} (resumed={resumed}, weight_quant={wquant}, "
+          f"mode={mode}, "
           f"device={torch.cuda.get_device_name(0)}) on :{env.port}",
           flush=True)
     srv = make_server("0.0.0.0", env.port, params, cfg,

@@ -28,9 +28,9 @@ def _proj_qkv(cfg: LlamaConfig, lp, x: torch.Tensor
     b, t, _ = x.shape
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = D._rms(x, lp.attn_norm.scale, cfg.norm_eps, cfg.dtype)
-    q = D._mm(h, lp.attn.wq.kernel, cfg.dtype)
-    k = D._mm(h, lp.attn.wk.kernel, cfg.dtype)
-    v = D._mm(h, lp.attn.wv.kernel, cfg.dtype)
+    q = D._mm(h, lp.attn.wq, cfg.dtype)
+    k = D._mm(h, lp.attn.wk, cfg.dtype)
+    v = D._mm(h, lp.attn.wv, cfg.dtype)
     return (q.reshape(b, t, hq, d), k.reshape(b, t, hkv, d),
             v.reshape(b, t, hkv, d))
 
@@ -182,5 +182,5 @@ def _multi_forward_paged(cfg: LlamaConfig, params, toks: torch.Tensor,
                                limit, quant)
     new_cache = dict(cache, pos=pos + toks.shape[1])
     x = D._rms(x, params.final_norm.scale, cfg.norm_eps, cfg.dtype)
-    logits = D._mm(x, params.lm_head.kernel, cfg.dtype).float()
+    logits = D._mm(x, params.lm_head, cfg.dtype).float()
     return logits, new_cache

@@ -44,6 +44,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from paddle_operator_tpu_torch.ops.attention import attention
+from paddle_operator_tpu_torch.ops.quant_matmul import quant_mm
 
 _MOE_TODO = ("MoE configs (n_experts > 0) are not ported to the torch "
              "package yet (ROADMAP.md Queue A, 'MoE')")
@@ -160,16 +161,37 @@ def _param(shape, cfg: LlamaConfig, device) -> nn.Parameter:
 
 class Dense(nn.Module):
     """flax DenseGeneral without bias: ``kernel`` [in, out], computed in
-    the compute dtype."""
+    the compute dtype.
+
+    Its weight-only quantized form (infer/quant.py ``quantize_params``)
+    holds, instead of ``kernel``, the JAX package's ``{"q", "s"}`` leaf
+    as two buffers — the codes ``q`` [in, out] int8 (int4 codes as int8
+    values in [-7, 7]) and the scales ``s`` [1, out] f32 — and its
+    ``mode`` ("int8" or "int4"; "none" unquantized).  As buffers they
+    move with ``.to(device)`` and sit in the ``state_dict``; a CUDA graph
+    captured afterwards reads them at their addresses."""
 
     def __init__(self, cfg: LlamaConfig, n_in: int, n_out: int,
                  device=None) -> None:
         super().__init__()
         self.dtype = cfg.dtype
+        self.mode = "none"
         self.kernel = _param((n_in, n_out), cfg, device)
 
+    def set_quantized(self, q: torch.Tensor, s: torch.Tensor,
+                      mode: str) -> None:
+        """Replace ``kernel`` by the codes ``q`` and scales ``s``,
+        releasing the kernel's tensor."""
+        del self.kernel
+        self.register_buffer("q", q)
+        self.register_buffer("s", s)
+        self.mode = mode
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x.to(self.dtype) @ self.kernel.to(self.dtype)
+        x = x.to(self.dtype)
+        if self.mode != "none":
+            return quant_mm(x, self.q, self.s)
+        return x @ self.kernel.to(self.dtype)
 
 
 class Embed(nn.Module):

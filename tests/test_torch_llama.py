@@ -92,12 +92,27 @@ class TestConvert:
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
     def test_int8_leaves_refused(self, tiny):
+        """A quantized tree's int8 ``{"q", "s"}`` leaves are refused by
+        an unquantized model (its ``kernel`` keys are missing) and load
+        into a model quantized with the tree's call (the legacy one
+        here), codes and scales equal."""
         _, jparams, _, _, _ = tiny
         from paddle_operator_tpu.infer.quant import quantize_params
 
+        from paddle_operator_tpu_torch.infer import quant as Q
+
         tree = jax.device_get(quantize_params(jparams))
-        with pytest.raises(NotImplementedError, match="int8"):
-            params_from_jax(tree)
+        state = params_from_jax(tree)
+        model, _ = TL.make_model("tiny", device="cpu", dtype=torch.float32)
+        with pytest.raises(RuntimeError, match="lm_head.kernel"):
+            model.load_state_dict(state)
+        Q.quantize_params(model)
+        model.load_state_dict(state)
+        np.testing.assert_array_equal(
+            model.lm_head.q.numpy(), tree["lm_head"]["kernel"]["q"])
+        np.testing.assert_array_equal(
+            model.layers[1].mlp.w2.s.numpy(),
+            tree["layers"]["mlp"]["w2"]["kernel"]["s"][1])
 
 
 class TestForward:
