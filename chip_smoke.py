@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
     python3 chip_smoke.py [--phases 2,2b,2c,2d,2e,3,3b,3c,3d,3e,3f,3g,3h,3i,
-                           4,4b,4c,4d,4e,4f,4g,4h]
+                           3j,4,4b,4c,4d,4e,4f,4g,4h,4i]
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line; with no arguments every phase runs):
@@ -245,6 +245,25 @@ result line; with no arguments every phase runs):
    ``SERVE_WEIGHT_QUANT=int4`` and one of ``QUANTIZE=int8`` (lm_head
    quantized too: one more launch a tick and a prefill), each held to
    its launch formula, status, gauge and ``paramBytes``.
+3j. chunked prefill main path — 3b's server (every dispatch a graph
+   replay) at full width and depth: 6 resident streams (64-token
+   prompts, 256 new tokens) decode; once each has decoded 2 chunks, 2
+   cold 1,536-token prompts (64 new tokens) arrive.  Five servers: the
+   bf16 and int8 pools each with ``SERVE_PREFILL=inline`` and with
+   ``chunked`` at ``SERVE_PREFILL_CHUNK=256``, and the bf16 pool with
+   the default slice (64).  Gated: the decode kernel (#2, or #3 on the
+   int8 pool) launches n_layers x chunk_tokens x dispatches and no other
+   decode kernel launches; every dispatch is a replay of the prewarm
+   graphs at their addresses; ``chunked_prefill_tokens`` equals the
+   prompts' tokens under ``chunked`` (0 inline) and the prefill queue is
+   empty at the end; the pool's invariant holds and every block ends
+   free or cached.  Printed: the residents' token gap (max and p95, over
+   the run and while the long prompts admit), the long prompts' TTFT,
+   each admission's and each slice's hold of the ring thread (host
+   clock) and device ms (CUDA events around the work it queued), the
+   longest intervals between dispatches, and how many streams equal the
+   inline run's (not gated: a slice and a whole-prompt prefill round
+   differently in bf16).
 4. kernel path == plain path — 7b width, 2 layers, float32: greedy
    ``generate`` through the kernel and through the plain version give
    the same tokens, and per-step logits agree within 1e-3.
@@ -300,6 +319,23 @@ result line; with no arguments every phase runs):
    formula) on the bf16 pool, and of the same ring on the plain route
    on the int8 pool; a lane spilled and restored into another slot
    under graphs gives its uninterrupted tokens and the plain route's.
+4i. chunked prefill equalities — 7b width, 2 layers, float32, bs 16,
+   4 slots, chunk 8, slices of 24 rows (not a divisor of the block), on
+   the contiguous, paged and int8 rings: four prompts (40, 300, 129 and
+   64 tokens) together, then the 64-token prompt again (a full hit
+   capped at 63 rows: a mid-block hit) and a 197-token follower of the
+   300-token prompt's first 10 blocks (a hit, then two slices).  Under
+   graph replay, chunked at megastep 4 gives megastep 1's greedy
+   tokens, and so does the same chunked ring with every dispatch run
+   eagerly; on the contiguous and paged rings they are the inline ring's
+   tokens, which are ``generate``'s (on the int8 ring the agreement with
+   inline and ``generate`` is printed, not gated: the int8 pool's tokens
+   need not equal the exact cache's, nor a slice's — which reads its
+   earlier blocks as codes — a whole prompt's).  Every graph run
+   replays the prewarm graphs at their addresses for every dispatch,
+   the ring's decode kernel launched n_layers x chunk x megastep x
+   dispatches, every prefill token came in a slice, and the paged rings
+   hit 63 + 160 rows.
 4c. training kernel path == plain path — 7b width, 2 layers, float32:
    three train steps with attention through the flash kernels and
    through ``reference_attention`` from the same init agree in loss
@@ -371,7 +407,8 @@ CKPT = dict(layers=2, batch=4, seq=2048, steps=6, interval=3, drain_at=2,
 SERVE_LOAD_MARGIN = 16 << 20
 PEAK_BF16 = 989e12                 # H100 SXM dense bf16, for MFU
 PHASES = ("2", "2b", "2c", "2d", "2e", "3", "3b", "3c", "3d", "3e", "3f",
-          "3g", "3h", "3i", "4", "4b", "4c", "4d", "4e", "4f", "4g", "4h")
+          "3g", "3h", "3i", "3j", "4", "4b", "4c", "4d", "4e", "4f", "4g",
+          "4h", "4i")
 
 
 def log(*a) -> None:
@@ -3214,6 +3251,376 @@ def phase_weight_quant_ring(report: dict, params, cfg) -> None:
                       "param_bytes": want_bytes, "short_runs": short}
 
 
+# phase 3j: 3b's ring with `residents` streams of `resident_prompt`-token
+# prompts and `resident_new` new tokens; once every resident has decoded
+# `chunks_first` chunks, `long` cold prompts of `long_prompt` tokens with
+# `long_new` new tokens arrive.  Each pool is served inline and with
+# SERVE_PREFILL=chunked at SERVE_PREFILL_CHUNK=256 (one block a slice);
+# the bf16 pool also with SERVE_PREFILL_CHUNK unset (the default, 64).
+INTERLEAVE = dict(residents=6, resident_prompt=64, resident_new=256,
+                  long=2, long_prompt=1536, long_new=64, chunks_first=2)
+INTERLEAVE_RUNS = (("none", "inline", None), ("none", "chunked", 256),
+                   ("none", "chunked", None), ("int8", "inline", None),
+                   ("int8", "chunked", 256))
+
+
+def _interleave_run(params, cfg, kv_quant: str, mode: str,
+                    chunk_env) -> dict:
+    """One run of phase 3j's traffic on a fresh 3b server (``kv_quant``
+    pool, ``SERVE_PREFILL`` ``mode``, ``SERVE_PREFILL_CHUNK``
+    ``chunk_env`` or unset): every request's tokens, the residents' token gaps,
+    the long prompts' TTFT, each admission's and each slice's hold of
+    the ring thread (host clock) and device time (CUDA events around the
+    work it queued), the launches and replays, and the pool's
+    accounting.  The ring thread's CPU time (``time.thread_time``) beside
+    each hold tells work from waiting, and the first three slices run
+    under ``torch.cuda.set_sync_debug_mode("warn")``, which names every
+    synchronizing call PyTorch makes."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.infer.serve import (
+        make_server,
+        ring_kw_from_env,
+    )
+    from paddle_operator_tpu_torch.ops import decode_attention as DA
+
+    quant = kv_quant != "none"
+    env = {"SERVE_PREFILL": mode}
+    if chunk_env:
+        env["SERVE_PREFILL_CHUNK"] = str(chunk_env)
+    prefill_kw = {k: v for k, v in ring_kw_from_env(env).items()
+                  if k.startswith("prefill_")}
+    kw = dict(RING, prewarm=True, **prefill_kw)
+    if quant:
+        kw["kv_quant"] = kv_quant
+    srv = make_server("127.0.0.1", 0, params, cfg, **kw)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    batcher = srv.generator.batcher
+    ex = batcher.executor
+    if not batcher.prewarmed.wait(600) or ex.needs_capture:
+        raise AssertionError(f"3j: the ring's CUDA graphs were not captured "
+                             f"at prewarm: {batcher.prewarm_error!r}")
+    graphs = ex._graphs
+    ptrs = ex._state_ptrs()
+    counter = "quant_launches" if quant else "launches"
+    marks = []          # (host clock, what) of dispatches and prefill work
+    holds = {"admit": [], "slice": []}
+    real_replay = ex.replay
+
+    def replay(plan):
+        marks.append((time.perf_counter(), "dispatch"))
+        return real_replay(plan)
+
+    syncs = []          # the first slices' synchronizing calls, if any
+
+    def timed(name, real):
+        def run(*a):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            watch = name == "slice" and len(holds[name]) < 3
+            with warnings.catch_warnings(record=True) as caught:
+                if watch:
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+                c0, t0 = time.thread_time(), time.perf_counter()
+                e0.record()
+                try:
+                    out = real(*a)
+                finally:
+                    e1.record()
+                    t1, c1 = time.perf_counter(), time.thread_time()
+                    if watch:
+                        torch.cuda.set_sync_debug_mode("default")
+            if watch:
+                syncs.extend(str(w.message).splitlines()[0][:160]
+                             for w in caught)
+            marks.append((t0, name))
+            holds[name].append((t1 - t0, e0, e1, c1 - c0))
+            return out
+        return run
+
+    ex.replay = replay
+    batcher._admit = timed("admit", batcher._admit)
+    batcher._advance_prefill = timed("slice", batcher._advance_prefill)
+    rng = np.random.default_rng(11)
+    cfg_i = INTERLEAVE
+    residents = [rng.integers(0, cfg.vocab_size,
+                              cfg_i["resident_prompt"]).tolist()
+                 for _ in range(cfg_i["residents"])]
+    longs = [rng.integers(0, cfg.vocab_size, cfg_i["long_prompt"]).tolist()
+             for _ in range(cfg_i["long"])]
+    results, errors = {}, []
+
+    def send(kind, i, p, new):
+        try:
+            results[kind, i] = _stream_timed(
+                base, {"tokens": [p], "max_new_tokens": new})
+        except Exception as e:              # surfaced after the join
+            errors.append(f"{kind} {i}: {e!r}")
+
+    try:
+        free0 = batcher.pool.blocks_free()
+        stats0 = dict(batcher.stats)
+        replays0 = ex.graph_replays
+        _zero_launches()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=send, args=(
+            "resident", i, p, cfg_i["resident_new"]))
+            for i, p in enumerate(residents)]
+        for t in threads:
+            t.start()
+        want_pos = (cfg_i["resident_prompt"]
+                    + cfg_i["chunks_first"] * RING["chunk_tokens"])
+        while not (sum(r is not None for r in batcher.lane)
+                   == cfg_i["residents"] and not batcher._prefilling
+                   and min((p for p in batcher._lane_pos if p),
+                           default=0) >= want_pos):
+            if errors or time.perf_counter() - t0 > 600:
+                raise AssertionError(f"3j: the residents never all decoded "
+                                     f"{cfg_i['chunks_first']} chunks: "
+                                     f"{errors}")
+            time.sleep(0.002)
+        t_long = time.perf_counter()
+        late = [threading.Thread(target=send, args=(
+            "long", i, p, cfg_i["long_new"])) for i, p in enumerate(longs)]
+        for t in late:
+            t.start()
+        for t in threads + late:
+            t.join()
+        wall_s = time.perf_counter() - t0
+        with urllib.request.urlopen(base + "/statusz", timeout=60) as r:
+            statusz = json.loads(r.read())
+        torch.cuda.synchronize()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
+        srv.generator.close()
+    if errors:
+        raise AssertionError(f"3j requests failed: {errors}")
+    out, gaps, gaps_during, ttft = {}, [], [], []
+    for (kind, i), (code, events, times, t_send) in sorted(results.items()):
+        p = (residents if kind == "resident" else longs)[i]
+        new = cfg_i["resident_new" if kind == "resident" else "long_new"]
+        toks = [e["token"] for e in events if "token" in e]
+        done = events[-1]
+        if code != 200 or not done.get("done") or len(toks) != new \
+                or done["tokens"] != p + toks:
+            raise AssertionError(f"3j {kind} {i}: HTTP {code}, {len(toks)} "
+                                 f"token events, last {str(done)[:200]}")
+        _check_rows(cfg, p, done["tokens"], new, f"3j {kind} {i}")
+        out[kind, i] = done["tokens"]
+        tt = [t for t, e in zip(times, events) if "token" in e]
+        if kind == "resident":
+            gaps += [b - a for a, b in zip(tt, tt[1:])]
+        else:
+            ttft.append(tt[0] - t_send)
+    # the residents' gaps while the long prompts admit: from their
+    # arrival until both emitted their first token
+    t_first = t_long + max(ttft)
+    for (kind, i), (_, events, times, _) in results.items():
+        if kind == "resident":
+            tt = [t for t, e in zip(times, events) if "token" in e]
+            gaps_during += [b - a for a, b in zip(tt, tt[1:])
+                            if b > t_long and a < t_first]
+    pool = batcher.pool
+    pool.check_invariant()
+    chunks = batcher.stats["chunks"] - stats0["chunks"]
+    launches = getattr(DA.paged_decode_attention, counter)
+    ticks = [t for t, what in marks if what == "dispatch"]
+    waits = sorted(zip(np.diff(ticks), ticks), reverse=True)[:3]
+    stalls = [(round((a - t0) * 1e3, 1), round(float(w) * 1e3, 1),
+               sum(1 for t, what in marks if what != "dispatch"
+                   and a <= t < a + w)) for w, a in waits]
+
+    def ms(name):
+        return ([h * 1e3 for h, _, _, _ in holds[name]],
+                [e0.elapsed_time(e1) for _, e0, e1, _ in holds[name]],
+                [c * 1e3 for _, _, _, c in holds[name]])
+
+    admit_host, admit_dev, admit_cpu = ms("admit")
+    slice_host, slice_dev, slice_cpu = ms("slice")
+    gaps, gaps_during = np.asarray(gaps), np.asarray(gaps_during or [0.0])
+    prompt_tokens = (cfg_i["residents"] * cfg_i["resident_prompt"]
+                     + cfg_i["long"] * cfg_i["long_prompt"])
+    return {
+        "kv_quant": kv_quant, "mode": mode,
+        "chunk_rows": ex.prefill_chunk if mode == "chunked" else None,
+        "outputs": out, "wall_s": wall_s, "chunks": chunks,
+        "replays": ex.graph_replays - replays0,
+        "same_graphs": ex._graphs is graphs and ex._state_ptrs() == ptrs,
+        "launches": launches,
+        "launches_want": cfg.n_layers * RING["chunk_tokens"] * chunks,
+        "other_kernels": (DA.decode_attention.launches,
+                          getattr(DA.paged_decode_attention,
+                                  "launches" if quant else "quant_launches")),
+        "chunked_tokens": (batcher.stats["chunked_prefill_tokens"]
+                           - stats0["chunked_prefill_tokens"]),
+        "chunked_want": prompt_tokens if mode == "chunked" else 0,
+        "prefill_tokens": (batcher.stats["prefill_tokens"]
+                           - stats0["prefill_tokens"]),
+        "token_share": statusz["chunkedPrefillTokenShare"],
+        "queue_depth_end": statusz["prefillQueueDepth"],
+        "free_before": free0, "free_after": statusz["kvBlocksFree"],
+        "cached_after": pool.blocks_cached(),
+        "resident_gap_max_ms": float(gaps.max()) * 1e3,
+        "resident_gap_p95_ms": float(np.percentile(gaps, 95)) * 1e3,
+        "resident_gap_max_during_ms": float(gaps_during.max()) * 1e3,
+        "resident_gap_p95_during_ms": float(
+            np.percentile(gaps_during, 95)) * 1e3,
+        "long_ttft_s": ttft,
+        "admit_host_ms": admit_host, "admit_device_ms": admit_dev,
+        "admit_cpu_ms": admit_cpu,
+        "slice_host_ms": slice_host, "slice_device_ms": slice_dev,
+        "slice_cpu_ms": slice_cpu, "slice_syncs": syncs,
+        "dispatch_interval_median_ms": float(np.median(np.diff(ticks)))
+        * 1e3,
+        "longest_intervals": stalls,
+    }
+
+
+def _slice_timings(params, cfg) -> dict:
+    """One intermediate slice alone, at 3j's geometry (7b, a lane of the
+    64-block pool at rows [512, 512 + rows) of a 1,536-token prompt), on
+    each pool at 64 and 256 rows: device ms from CUDA-graph replay, eager
+    ms from calls issued one by one (what the ring thread pays), beside
+    the bound (the weights streamed once: the bytes bound it)."""
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.infer import executor as X
+
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    out = {}
+    for kv_quant in ("none", "int8"):
+        with torch.inference_mode():
+            ex = X.RingExecutor(
+                params, cfg, slots=RING["slots"], max_len=RING["max_len"],
+                chunk_tokens=RING["chunk_tokens"], paged=True,
+                block_size=RING["block_size"], kv_quant=kv_quant)
+            prompt = np.random.default_rng(5).integers(
+                0, cfg.vocab_size, INTERLEAVE["long_prompt"]).tolist()
+            ex.pool.admit(0, prompt)
+            row = X.to_device(ex.pool.table[0], ex.device, torch.int32)
+            for rows in (64, 256):
+                ex.prefill_chunk = rows
+                prog = ex.chunk_prog(None)
+                toks = X.to_device(np.asarray([prompt[512:512 + rows]],
+                                              np.int32), ex.device)
+                tail = (0,) if kv_quant == "int8" else ()
+                dev, eager = time_ms(
+                    lambda i: prog(params, ex.cache, row, toks, 512,
+                                   512 + rows, *tail), iters=4, warmup=2)
+                bound = max(weight_bytes / HBM_BYTES_PER_S,
+                            2 * cfg.num_params() * rows / PEAK_BF16) * 1e3
+                out[f"{kv_quant}@{rows}"] = {"ms": dev, "eager_ms": eager,
+                                             "bound_ms": bound}
+            del ex
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _spread(xs) -> str:
+    """min / median / max of a list of ms readings."""
+    import numpy as np
+
+    if not len(xs):
+        return "-"
+    return (f"{min(xs):.3f} / {float(np.median(xs)):.3f} / "
+            f"{max(xs):.3f}")
+
+
+def phase_interleave(reports: tuple, params, cfg) -> None:
+    """Phase 3j: long prompts admitted while residents decode, inline
+    against chunked prefill, on the bf16 and int8 pools; see the module
+    docstring."""
+    import torch
+
+    runs = {}
+    for kv_quant, mode, chunk_env in INTERLEAVE_RUNS:
+        run = _interleave_run(params, cfg, kv_quant, mode, chunk_env)
+        rows = run["chunk_rows"]
+        runs[kv_quant, mode, rows] = run
+        gc.collect()
+        torch.cuda.empty_cache()
+        name = ("paged_decode_attention_quant" if kv_quant == "int8"
+                else "paged_decode_attention")
+        tag = f"{mode}" + (f"@{rows}" if rows else "")
+        log(f"interleave {kv_quant} {tag}: residents' token gap max "
+            f"{run['resident_gap_max_ms']:.1f} ms, p95 "
+            f"{run['resident_gap_p95_ms']:.1f} ms (while the long prompts "
+            f"admit: max {run['resident_gap_max_during_ms']:.1f}, p95 "
+            f"{run['resident_gap_p95_during_ms']:.1f}); long prompts' TTFT "
+            f"s {[round(x, 3) for x in run['long_ttft_s']]}; admissions' "
+            f"ring-thread hold ms min/median/max "
+            f"{_spread(run['admit_host_ms'])}, its thread's CPU "
+            f"{_spread(run['admit_cpu_ms'])}, device "
+            f"{_spread(run['admit_device_ms'])}; slices "
+            f"{len(run['slice_host_ms'])}, hold "
+            f"{_spread(run['slice_host_ms'])}, CPU "
+            f"{_spread(run['slice_cpu_ms'])}, device "
+            f"{_spread(run['slice_device_ms'])}, synchronizing calls in "
+            f"the first 3 {run['slice_syncs']}; median interval between "
+            f"dispatches {run['dispatch_interval_median_ms']:.1f} ms, "
+            f"longest (start ms, ms, prefill calls in it) "
+            f"{run['longest_intervals']}; {name} launches "
+            f"{run['launches']} (n_layers x chunk x dispatches "
+            f"{run['launches_want']}), other decode kernels "
+            f"{run['other_kernels']}, replays {run['replays']} for "
+            f"{run['chunks']} dispatches; chunked prefill tokens "
+            f"{run['chunked_tokens']} of {run['prefill_tokens']} "
+            f"(share {run['token_share']}); wall {run['wall_s']:.3f} s on "
+            f"{card_line()}")
+        bad = []
+        if run["launches"] != run["launches_want"] \
+                or any(run["other_kernels"]):
+            bad.append("launch counts")
+        if run["replays"] != run["chunks"] or not run["same_graphs"]:
+            bad.append("not every dispatch a replay of the prewarm graphs "
+                       "at their addresses")
+        if run["chunked_tokens"] != run["chunked_want"] \
+                or run["queue_depth_end"]:
+            bad.append(f"chunked prefill tokens {run['chunked_tokens']} "
+                       f"(want {run['chunked_want']}), queue depth "
+                       f"{run['queue_depth_end']}")
+        if run["free_after"] + run["cached_after"] != run["free_before"]:
+            bad.append("blocks neither free nor cached at the end")
+        if mode == "chunked" and not run["slice_host_ms"]:
+            bad.append("no slice ran")
+        if bad:
+            raise AssertionError(f"3j {kv_quant} {tag}: {bad}")
+    alone = _slice_timings(params, cfg)
+    log(f"interleave: one intermediate slice alone (rows 512.. of a "
+        f"1,536-token lane), device ms (graph) / eager ms / bound ms: "
+        + "; ".join(f"{k} {v['ms']:.3f} / {v['eager_ms']:.3f} / "
+                    f"{v['bound_ms']:.3f}" for k, v in alone.items())
+        + f" on {card_line()}")
+    for report, kv_quant in zip(reports, ("none", "int8")):
+        inline = runs[kv_quant, "inline", None]
+        report["interleave"] = {"slice_alone": {
+            k: v for k, v in alone.items() if k.startswith(kv_quant)}}
+        for (kq, mode, rows), run in runs.items():
+            if kq != kv_quant:
+                continue
+            same = sum(run["outputs"][k] == inline["outputs"][k]
+                       for k in inline["outputs"])
+            run["equal_to_inline"] = f"{same}/{len(inline['outputs'])}"
+            if mode == "chunked":
+                log(f"interleave {kv_quant} chunked@{rows}: streams equal "
+                    f"to inline's {run['equal_to_inline']} (not gated: a "
+                    "slice and a whole-prompt prefill round differently "
+                    "in bf16)")
+            report["interleave"][f"{mode}@{rows}" if rows else mode] = {
+                key: v for key, v in run.items() if key != "outputs"}
+
+
 def _zero_launches() -> None:
     from paddle_operator_tpu_torch.ops import decode_attention as DA
     from paddle_operator_tpu_torch.ops import flash_attention as FA
@@ -4361,6 +4768,114 @@ def phase_weight_quant_equalities() -> None:
             torch.cuda.empty_cache()
 
 
+def phase_chunked_equalities() -> None:
+    """Phase 4i: chunked prefill == inline == ``generate`` on the three
+    rings under graph replay; see the module docstring."""
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.infer import decode as D
+    from paddle_operator_tpu_torch.infer import executor as X
+    from paddle_operator_tpu_torch.infer.batcher import ContinuousBatcher
+    from paddle_operator_tpu_torch.models.llama import make_model
+    from paddle_operator_tpu_torch.ops import decode_attention as DA
+
+    params, cfg = make_model("7b", device="cuda", seed=7, n_layers=2,
+                             dtype=torch.float32)
+    rng = np.random.default_rng(7)
+    first = [rng.integers(0, cfg.vocab_size, n).tolist()
+             for n in (40, 300, 129, 64)]
+    # then: the 64-token prompt again (a full hit capped at 63 rows, mid
+    # block at bs 16: one CoW'd slice), and the 300-token prompt's first
+    # 10 blocks with a 37-token suffix (a hit, then two slices of 24)
+    then = [first[3], first[1][:160]
+            + rng.integers(0, cfg.vocab_size, 37).tolist()]
+    n_new, max_len, slice_rows = 16, 512, 24
+    with torch.inference_mode():
+        want = [D.generate(params, cfg,
+                           torch.tensor([p], dtype=torch.int32,
+                                        device="cuda"),
+                           max_new_tokens=n_new, max_len=max_len)[0]
+                .tolist() for p in first + then]
+    counters = {"contiguous": (DA.decode_attention, "launches"),
+                "paged": (DA.paged_decode_attention, "launches"),
+                "int8": (DA.paged_decode_attention, "quant_launches")}
+    for name, ring in MEGA_RINGS:
+        outs = {}
+        for mode, megastep, graphed in (("inline", 1, True),
+                                        ("chunked", 1, True),
+                                        ("chunked", 4, True),
+                                        ("chunked", 1, False)):
+            b = ContinuousBatcher(params, cfg, slots=4, max_len=max_len,
+                                  chunk_tokens=8, megastep=megastep,
+                                  prewarm=True, prefill_mode=mode,
+                                  prefill_chunk=slice_rows, **ring)
+            ex = b.executor
+            try:
+                if not b.prewarmed.wait(600) or ex.needs_capture:
+                    raise AssertionError(f"4i {name}: no graphs captured: "
+                                         f"{b.prewarm_error!r}")
+                graphs, ptrs = ex._graphs, ex._state_ptrs()
+                if not graphed:
+                    # every dispatch through the eager program instead
+                    ex.replay = lambda plan, ex=ex: X.DispatchResult(
+                        *ex.run(plan), plan.n_steps)
+                _zero_launches()
+                out = [h.result(timeout=600) for h in [
+                    b.submit(p, max_new_tokens=n_new) for p in first]]
+                out += [b.submit(p, max_new_tokens=n_new).result(
+                    timeout=600) for p in then]
+                fn, attr = counters[name]
+                launched = getattr(fn, attr)
+                hits = (b.pool.stats["prefix_hit_tokens"]
+                        if b.pool is not None else 0)
+                bad = []
+                if ex.graph_replays != graphed * b.stats["chunks"] or not (
+                        ex._graphs is graphs and ex._state_ptrs() == ptrs):
+                    bad.append("not every dispatch a replay of the "
+                               "prewarm graphs at their addresses")
+                if launched != cfg.n_layers * 8 * megastep * b.stats[
+                        "chunks"] or not launched:
+                    bad.append(f"{name} kernel launches {launched}")
+                if mode == "chunked" and b.stats[
+                        "chunked_prefill_tokens"] != b.stats[
+                        "prefill_tokens"]:
+                    bad.append("prefill tokens outside the slices")
+                if b.pool is not None:
+                    b.pool.check_invariant()
+                    if hits != 63 + 160:
+                        bad.append(f"prefix hit tokens {hits}")
+                if bad:
+                    raise AssertionError(f"4i {name} {mode} megastep "
+                                         f"{megastep}: {bad}")
+                outs[mode, megastep, graphed] = out
+            finally:
+                b.close()
+        inline, chunked = outs["inline", 1, True], outs["chunked", 1, True]
+
+        def agree(a, b):
+            return f"{sum(x == y for x, y in zip(a, b))}/{len(b)}"
+
+        line = (f"chunked {name} ring (7b width, 2 layers, f32, slices of "
+                f"{slice_rows} rows, graph replays): chunked at megastep 4 "
+                f"== megastep 1 on {agree(outs['chunked', 4, True], chunked)}"
+                f" requests, == the eager program on "
+                f"{agree(outs['chunked', 1, False], chunked)}; chunked == "
+                f"inline on {agree(chunked, inline)}, inline == generate on "
+                f"{agree(inline, want)}")
+        log(line)
+        if not (outs["chunked", 4, True] == chunked
+                == outs["chunked", 1, False]):
+            raise AssertionError(line)
+        # the int8 pool's tokens need not equal the exact cache's, nor a
+        # slice's (which reads its earlier blocks as codes) a whole
+        # prompt's (exact rows throughout): held to its own chunked ring
+        if name != "int8" and not chunked == inline == want:
+            raise AssertionError(line)
+    del params
+    torch.cuda.empty_cache()
+
+
 def phase_train_kernel_equals_plain() -> None:
     """Phase 4c: three f32 train steps through the flash kernels and
     through the plain attention, from the same init."""
@@ -4486,7 +5001,7 @@ def main() -> int:
     run("2d", phase_quant_kernel_vs_plain, quant)
     run("2e", phase_quant_matmul_vs_plain, qmm)
     run("2c", phase_flash_vs_plain, flash)
-    if phases & {"3", "3b", "3d", "3e", "3g", "3h", "3i"}:
+    if phases & {"3", "3b", "3d", "3e", "3g", "3h", "3i", "3j"}:
         params, cfg = make_7b()
         run("3", phase_main_path, contiguous, params, cfg)
         ring_tokens = run("3b", phase_ring_main_path, paged, params, cfg)
@@ -4507,6 +5022,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         run("3i", phase_weight_quant_ring, qmm, params, cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        run("3j", phase_interleave, (paged, quant), params, cfg)
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -4520,13 +5038,15 @@ def main() -> int:
     run("4f", phase_restore_under_graphs)
     run("4g", phase_host_tier_equalities)
     run("4h", phase_weight_quant_equalities)
+    run("4i", phase_chunked_equalities)
     log(f"all phases: {time.perf_counter() - t_all:.1f}s")
 
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "max_abs_err_f32", "max_abs_err_bf16",
              "decode_ms_per_step_b4", "kernel1_ms", "paged_bf16_ms", "ring",
-             "ring_megastep", "preempt", "host_tier", "train", "checkpoint",
+             "ring_megastep", "preempt", "host_tier", "interleave", "train",
+             "checkpoint",
              "fwd_bwd", "designs",
              "ptxas",
              "timings"]

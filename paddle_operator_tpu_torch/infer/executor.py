@@ -39,9 +39,16 @@ slice of the pool and a non-blocking device-to-host copy into a free
 slot on the ring's stream (:meth:`RingExecutor._demote_fetch`), and a
 promote queues non-blocking copies out of the slots and the in-place
 promote scatter (:meth:`RingExecutor.dispatch_promotions`) — neither
-waits for the device nor pins host memory.  Not ported yet (ROADMAP.md
-Queue A): speculative rounds, chunked and disaggregated prefill and
-LoRA adapters.
+waits for the device nor pins host memory.
+
+Chunked prefill (SERVE_PREFILL=chunked) admits a prompt in
+``prefill_chunk``-row slices run eagerly between the replays:
+:meth:`RingExecutor.chunk_prog` appends a slice's KV (a private staging
+lane on the contiguous ring, the lane's blocks on the paged pools) and
+:meth:`RingExecutor.final_insert` runs the last slice, samples the first
+token and activates the lane, every write in place.  Not ported yet
+(ROADMAP.md Queue A): speculative rounds, disaggregated prefill and LoRA
+adapters.
 """
 
 from __future__ import annotations
@@ -662,6 +669,70 @@ def make_prefill_insert(cfg: LlamaConfig, bucket: int,
     return insert
 
 
+# ---------------------------------------------------------------------------
+# Chunked prefill: intermediate slice + final-insert programs
+# ---------------------------------------------------------------------------
+
+
+def _staged(lane_k: torch.Tensor, lane_v: torch.Tensor,
+            start: int) -> Dict[str, torch.Tensor]:
+    """A staging lane ([L, 1, H, staging_len, D] K and V) as a cache
+    dict positioned at absolute row ``start``."""
+    return {"k": lane_k, "v": lane_v,
+            "pos": torch.full((1,), int(start), dtype=torch.int32,
+                              device=lane_k.device)}
+
+
+def make_prefill_chunk(cfg: LlamaConfig, slice_bucket: int,
+                       staging_len: int):
+    """One INTERMEDIATE chunked-prefill slice against a contiguous
+    staging lane cache ([L, 1, H, staging_len, D], private to the
+    admission): append the slice's KV rows at absolute positions
+    [start, start + slice_bucket), in place, and skip the lm head
+    entirely (only the FINAL slice needs logits).  Pad rows of the last
+    full-width slice land past the real prompt and are either
+    overwritten by the next slice or truncated/masked at the splice.
+
+    ``chunk(params, lane_k, lane_v, toks [1, slice_bucket], start)``"""
+    from paddle_operator_tpu_torch.infer.speculative import _multi_forward
+
+    def chunk(params, lane_k, lane_v, toks, start):
+        _multi_forward(cfg, params, toks, _staged(lane_k, lane_v, start),
+                       head=False)
+
+    return chunk
+
+
+def make_chunked_final_insert(cfg: LlamaConfig, slice_bucket: int,
+                              staging_len: int,
+                              top_k: Optional[int] = None,
+                              top_p: Optional[float] = None):
+    """The FINAL chunked-prefill slice for the contiguous ring: run the
+    last (right-padded) slice over the staging lane cache, splice the
+    completed lane into ring slot ``slot`` and sample the first token —
+    the back half of :func:`make_prefill_insert` with the forward
+    restricted to the rows the intermediate slices did not cover.  Every
+    write is in place (the ring's cache, tok, temp and seeds keep the
+    addresses the captured graphs read).
+
+    ``insert(params, cache, lane_k, lane_v, tok, temp, seeds,
+    toks [1, slice_bucket], n_rows, start, prompt_len, slot, temp_val,
+    seed) -> first_token`` (a 0-d device tensor)."""
+    from paddle_operator_tpu_torch.infer.paged import _set_lane
+    from paddle_operator_tpu_torch.infer.speculative import _multi_forward
+
+    def insert(params, cache, lane_k, lane_v, tok, temp, seeds, toks,
+               n_rows, start, prompt_len, slot, temp_val, seed):
+        logits, lane = _multi_forward(cfg, params, toks,
+                                      _staged(lane_k, lane_v, start))
+        _splice_lane(cache, lane, slot, prompt_len)
+        return _set_lane(cache, tok, temp, seeds, logits[0, int(n_rows) - 1],
+                         prompt_len, slot, temp_val, seed, top_k, top_p,
+                         _sample_tokens)
+
+    return insert
+
+
 def _default_buckets(max_len: int) -> Tuple[int, ...]:
     """2-3 prefill buckets, always ending at max_len so every
     admissible prompt has a bucket (the largest bucket is the submit-time
@@ -742,10 +813,18 @@ class RingExecutor:
                  num_blocks: Optional[int] = None,
                  prefix_cache: bool = True,
                  kv_quant: str = "none", megastep: int = 1,
-                 host_cache_blocks: int = 0) -> None:
+                 host_cache_blocks: int = 0,
+                 prefill_chunk: int = 64) -> None:
         if int(megastep) < 1:
             raise ValueError(f"megastep must be >= 1 (got {megastep})")
         self.megastep = int(megastep)
+        # SERVE_PREFILL_CHUNK: the chunked prefill's slice width (rows)
+        self.prefill_chunk = int(prefill_chunk)
+        if self.prefill_chunk < 1:
+            raise ValueError(
+                f"prefill_chunk must be >= 1 (got {prefill_chunk})")
+        self._chunk_progs: Dict[Any, Any] = {}
+        self._final_inserts: Dict[Any, Any] = {}
         self.params = params
         self.cfg = cfg
         self.device = params.tok_embed.embedding.device
@@ -1287,6 +1366,57 @@ class RingExecutor:
                 quant=self.quant)
             self._suffix_inserts[sb] = ins
         return ins
+
+    # -- chunked prefill: the slice programs and the staging lane -----------
+
+    def chunk_prog(self, staging_len: Optional[int]):
+        """Intermediate chunked-prefill slice program: paged (keyed by
+        the fixed slice width) or contiguous (keyed by staging
+        length)."""
+        sb = self.prefill_chunk
+        key = ("paged", sb) if self.paged else ("ring", sb, staging_len)
+        prog = self._chunk_progs.get(key)
+        if prog is None:
+            if self.paged:
+                prog = self._pg.make_paged_prefill_chunk(
+                    self.cfg, sb, self.block_size, quant=self.quant)
+            else:
+                prog = make_prefill_chunk(self.cfg, sb, staging_len)
+            self._chunk_progs[key] = prog
+        return prog
+
+    def final_insert(self, staging_len: Optional[int]):
+        """Final chunked-prefill slice program.  A paged ring reuses the
+        SUFFIX insert at the slice width (a chunked prefill's last slice
+        IS a suffix insert whose 'hit' is the rows the earlier slices
+        wrote; the ``suffix_bucket`` ladder never re-pads it)."""
+        sb = self.prefill_chunk
+        if self.paged:
+            return self.suffix_insert(sb)
+        key = ("ring", sb, staging_len)
+        prog = self._final_inserts.get(key)
+        if prog is None:
+            prog = make_chunked_final_insert(self.cfg, sb, staging_len,
+                                             self.top_k, self.top_p)
+            self._final_inserts[key] = prog
+        return prog
+
+    def staging_len(self, bucket: int) -> int:
+        """Contiguous chunked prefill stages in a private lane cache
+        whose length is the bucket rounded up to whole slices, so every
+        full-width slice write stays in bounds (a clamped write would
+        shift pad rows over real ones).  The splice truncates back to
+        the ring allocation."""
+        sb = self.prefill_chunk
+        return -(-bucket // sb) * sb
+
+    def make_staging(self, bucket: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Fresh zeroed staging K/V for one contiguous chunked prefill
+        ([L, 1, H_kv, staging_len(bucket), D] on the ring's device)."""
+        shape = (self.cfg.n_layers, 1, self.cfg.n_kv_heads,
+                 self.staging_len(bucket), self.cfg.head_dim)
+        return (torch.zeros(shape, dtype=self.cfg.dtype, device=self.device),
+                torch.zeros(shape, dtype=self.cfg.dtype, device=self.device))
 
     def pool_bytes(self) -> int:
         """Device bytes held by the KV cache (block pool with the int8

@@ -33,8 +33,11 @@ Python loop where JAX scanned, and the ``make_*`` functions return plain
 callables that update the pool in place — there is nothing to compile.
 
 The megastep (SERVE_MEGASTEP) fuses N chunks into one dispatch
-(:func:`make_paged_megastep`).  A preempted lane's blocks come back
-through :func:`make_promote_blocks` (the in-place promote scatter).
+(:func:`make_paged_megastep`).  Chunked prefill writes a prompt through
+the lane's table one slice at a time (:func:`make_paged_prefill_chunk`,
+then the suffix insert for the last slice).  A preempted lane's blocks
+come back through :func:`make_promote_blocks` (the in-place promote
+scatter).
 
 - **Host spill tier** (``host_cache_blocks``, SERVE_HOST_CACHE_MB):
   with the tier on, eviction DEMOTES a refcount-0 cached block — its
@@ -1362,6 +1365,56 @@ def make_paged_suffix_insert(cfg: LlamaConfig, suffix_bucket: int,
                          temp_val, seed, top_k, top_p, _sample_tokens)
 
     return insert
+
+
+def make_paged_prefill_chunk(cfg: LlamaConfig, slice_bucket: int,
+                             block_size: int, quant: bool = False):
+    """One INTERMEDIATE chunked-prefill slice against the block pool
+    (``prefill_mode="chunked"``): append the slice's KV rows at absolute
+    positions [start, start + slice_bucket) through the lane's table —
+    no lm head, no lane-state update, no first token; only the FINAL
+    slice (the SUFFIX insert with ``hit_len`` = the rows already
+    written) does those.  Rows at or past ``limit`` route to the trash
+    block, so a partial-tail radix hit can start a chunked prefill
+    mid-block safely.  The pools are written in place.
+
+    ``chunk(params, cache, table_row [M], toks [1, slice_bucket],
+    start, limit)``
+
+    ``quant=True`` adds a trailing ``slot`` argument (the tail rows
+    address by lane): the slice rides the lane's staging tail (sliced
+    to a 2-row mini tail for the batch-of-one forward and written back
+    in place after it) and whole blocks quantize as they complete, so
+    the tail state carried between slices IS the cache's."""
+    from paddle_operator_tpu_torch.infer.speculative import (
+        _multi_forward_paged,
+    )
+
+    def _lane(cache, start, dev):
+        return {"k": cache["k"], "v": cache["v"],
+                "pos": torch.full((1,), int(start), dtype=torch.int32,
+                                  device=dev)}
+
+    def _limit(limit, dev):
+        return torch.full((1,), int(limit), dtype=torch.int32, device=dev)
+
+    def chunk(params, cache, table_row, toks, start, limit):
+        _multi_forward_paged(cfg, params, toks,
+                             _lane(cache, start, toks.device),
+                             table_row[None, :],
+                             limit=_limit(limit, toks.device), head=False)
+
+    def chunk_quant(params, cache, table_row, toks, start, limit, slot):
+        lane = _lane(cache, start, toks.device)
+        lane["ks"], lane["vs"] = cache["ks"], cache["vs"]
+        lane["kt"], lane["vt"] = _slice_lane_tails(cache, slot)
+        _, lane = _multi_forward_paged(cfg, params, toks, lane,
+                                       table_row[None, :],
+                                       limit=_limit(limit, toks.device),
+                                       quant=True, head=False)
+        _restore_lane_tails(cache, lane, slot)
+
+    return chunk_quant if quant else chunk
 
 
 def make_block_copier():

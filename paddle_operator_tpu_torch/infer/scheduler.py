@@ -1,6 +1,6 @@
 """Host half of the serving ring: the continuous-batching scheduler —
 the port of ``paddle_operator_tpu/infer/scheduler.py``
-``ContinuousBatcher``, inline prefill.
+``ContinuousBatcher``, with inline and chunked prefill.
 
 :class:`ContinuousBatcher` keeps the JAX class's name, constructor
 surface and behavior for the configuration the port carries:
@@ -17,6 +17,16 @@ and later resumes bit-identically in any free lane
 (``RingExecutor.restore_lane``), within the budgets of
 :class:`~paddle_operator_tpu_torch.infer.qos.QoSConfig`.
 ``serving_status()`` returns the JAX ring's key set.
+
+``prefill_mode="inline"`` (the default) prefills an admission's whole
+prompt in one insert.  ``prefill_mode="chunked"`` (SERVE_PREFILL)
+prefills it in ``prefill_chunk``-token slices (SERVE_PREFILL_CHUNK),
+exactly one per ring iteration, oldest admission first, between the
+decode dispatches: an intermediate slice appends KV only, the final one
+samples the first token and activates the lane.  A lane mid-prefill is
+left out of every dispatch — not active, its table rows pointed at the
+trash block — and is never a preemption victim, so resident lanes wait
+at most one slice for a long prompt.
 
 The ring runs on its own thread, under ``torch.inference_mode`` (which
 is thread-local, so the thread enters it itself).  Device work is
@@ -39,8 +49,8 @@ admission) and, below it, the durable prefix store
 the submit thread probes the store for a prompt's missing chain, whose
 payloads the ring imports into the tier before admission).  Not ported
 yet, and refused when asked for (ROADMAP.md Queue A): speculative
-decoding, chunked and disaggregated prefill, LoRA adapters, span
-tracing, the NaN-lane check, live weight swap and fleet-level KV.
+decoding, disaggregated prefill, LoRA adapters, span tracing, the
+NaN-lane check, live weight swap and fleet-level KV.
 """
 
 from __future__ import annotations
@@ -163,6 +173,21 @@ class _Request:
             yield item
 
 
+class _PrefillState:
+    """Host bookkeeping for one mid-flight CHUNKED prefill: the slice
+    frontier plus (contiguous only) the staging K/V the slices append
+    into."""
+
+    __slots__ = ("req", "start", "seq", "lane_k", "lane_v")
+
+    def __init__(self, req, start, seq, lane_k=None, lane_v=None):
+        self.req = req
+        self.start = start          # next absolute row (a radix hit's end)
+        self.seq = seq              # admission order — oldest advances
+        self.lane_k = lane_k
+        self.lane_v = lane_v
+
+
 class _ParkedLane:
     """Host bookkeeping for one PREEMPTED lane: the byte-exact spill
     (``RingExecutor.spill_lane``) plus the host mirrors a restore
@@ -231,7 +256,7 @@ class ContinuousBatcher:
                 (mesh is not None, "tensor-parallel serving (mesh)"),
                 (spec_k or draft_params is not None,
                  "speculative decoding (spec_k)"),
-                (prefill_mode != "inline",
+                (prefill_mode == "disagg",
                  f"prefill_mode={prefill_mode!r}"),
                 (adapters is not None, "LoRA adapters"),
                 (bool(trace), "span tracing (trace=True)"),
@@ -284,7 +309,8 @@ class ContinuousBatcher:
             top_k=top_k, top_p=top_p, paged=paged, block_size=block_size,
             num_blocks=num_blocks, prefix_cache=prefix_cache,
             kv_quant=kv_quant, megastep=self.megastep,
-            host_cache_blocks=host_cache_blocks)
+            host_cache_blocks=host_cache_blocks,
+            prefill_chunk=prefill_chunk)
         self.device = self.executor.device
         self.generation = int(generation)
         self.paged = self.executor.paged
@@ -300,6 +326,11 @@ class ContinuousBatcher:
         # per-lane (pinned host tensor, event) of the admission-sampled
         # first token, materialized at the next chunk consume
         self._lane_first: List[Optional[tuple]] = [None] * slots
+        # chunked prefill in flight: lanes reserved but not yet
+        # decode-active (slot -> _PrefillState), and the admission
+        # counter that orders their slices
+        self._prefilling: Dict[int, _PrefillState] = {}
+        self._admit_seq = 0
 
         # bounded admission queue, bounded PER CLASS (infer/qos.py)
         self.max_queue = int(max_queue)
@@ -325,7 +356,10 @@ class ContinuousBatcher:
         self._stop = threading.Event()
         self.stats = {"admitted": 0, "evicted": 0, "chunks": 0,
                       "max_active": 0, "rejected_queue_full": 0,
+                      # chunked_prefill_tokens: the share of prefill
+                      # tokens that arrived in interleaved slices
                       "prefill_calls": 0, "prefill_tokens": 0,
+                      "chunked_prefill_tokens": 0,
                       "cow_copies": 0, "deadline_exceeded": 0,
                       "watchdog_restarts": 0,
                       # lanes spilled for more urgent work, and spilled
@@ -527,6 +561,12 @@ class ContinuousBatcher:
         except OSError:
             return 0, 0
 
+    def prefill_queue_depth(self) -> int:
+        """Requests admitted to a lane but still PREFILLING (chunked
+        slices mid-flight) — the ``tpujob_serve_prefill_queue_depth``
+        gauge."""
+        return len(self._prefilling)
+
     def serving_status(self) -> Dict[str, Any]:
         """The ``TPUJob.status.serving`` block, with the JAX ring's key
         set: features this ring does not carry report their zero
@@ -535,6 +575,7 @@ class ContinuousBatcher:
         pool = self.pool
         kv_store_blocks, kv_store_bytes = self._kv_store_usage()
         store = self.kv_store
+        pf_tok = self.stats["prefill_tokens"]
         return {
             "tokensPerSec": round(self._tokens_emitted / elapsed, 2),
             "acceptRate": 0.0,
@@ -552,7 +593,7 @@ class ContinuousBatcher:
                             if pool is not None else 0.0),
             "promotedBlocks": self.stats["promoted_blocks"],
             "prefillMode": self.prefill_mode,
-            "prefillQueueDepth": 0,
+            "prefillQueueDepth": self.prefill_queue_depth(),
             "prefillLanes": 0,
             "prefillBatchOccupancy": 0.0,
             "prefillHolWaitMs": 0.0,
@@ -563,7 +604,9 @@ class ContinuousBatcher:
             "weightQuantMode": Q.weight_quant_mode(self.executor.params),
             "draftQuantMode": "none",
             "paramBytes": self.executor.param_bytes(),
-            "chunkedPrefillTokenShare": 0.0,
+            "chunkedPrefillTokenShare": (
+                round(self.stats["chunked_prefill_tokens"] / pf_tok, 4)
+                if pf_tok else 0.0),
             "priorityQueueDepth": self._pending.qsize_by_class(),
             "preemptedLanes": self.stats["preempted_lanes"],
             "parkedLanes": len(self._parked),
@@ -733,6 +776,7 @@ class ContinuousBatcher:
         self._lane_left = [0] * self.slots
         self._lane_pos = [0] * self.slots
         self._lane_first = [None] * self.slots
+        self._prefilling.clear()
         if not healing:
             return False
         backoff = self._budget.spend()
@@ -817,10 +861,12 @@ class ContinuousBatcher:
             self._evict(slot)
 
     def _admit(self, slot: int, req: _Request) -> None:
-        """Admission: reserve the lane, then ONE insert (cold, or the
-        suffix insert on a prefix hit) that prefills, writes the lane's
-        KV, samples the first token and sets every piece of lane state
-        on the device."""
+        """Admission: reserve the lane, then route by prefill mode.
+        ``inline`` is ONE insert (cold, or the suffix insert on a prefix
+        hit) that prefills, writes the lane's KV, samples the first
+        token and sets every piece of lane state on the device;
+        ``chunked`` maps blocks (paged) or allocates the staging lane
+        (contiguous) and lets the loop interleave the slices."""
         ex = self.executor
         n = len(req.prompt)
         now = time.monotonic()
@@ -828,8 +874,16 @@ class ContinuousBatcher:
         self.flightrec.record("admit", rid=req.request_id, slot=slot,
                               prio=req.priority, mode=self.prefill_mode)
         self.lane[slot] = req
+        # reset the lane's host mirrors NOW, not at activation: a lane
+        # evicted MID-PREFILL (cancel, deadline) resolves through
+        # ``req.prompt + _lane_out[slot]``, and the previous occupant's
+        # tokens must never leak into it
         self._lane_out[slot] = []
         self._lane_first[slot] = None
+        if self.prefill_mode == "chunked":
+            self._admit_chunked(slot, req)
+            self.stats["admitted"] += 1
+            return
         if self.paged:
             first = self._admit_paged(slot, req)
         else:
@@ -852,8 +906,7 @@ class ContinuousBatcher:
         hit_len, cow = self.pool.admit(          # NoFreeBlocks -> req fails
             slot, req.prompt, max_suffix=self.SUFFIX_PREFILL_MAX_ROWS)
         self._dispatch_cow(slot, cow, hit_len)
-        tbl_row = X.to_device(self.pool.table[slot], self.device,
-                              torch.int32)
+        tbl_row = self._table_row(slot)
         if hit_len:
             first = self._suffix_admit(slot, req, tbl_row, hit_len)
         else:
@@ -883,6 +936,84 @@ class ContinuousBatcher:
         self.stats["prefill_calls"] += 1
         self.stats["prefill_tokens"] += len(suffix)
         return first
+
+    def _table_row(self, slot: int) -> torch.Tensor:
+        return X.to_device(self.pool.table[slot], self.device, torch.int32)
+
+    def _admit_chunked(self, slot: int, req: _Request) -> None:
+        """Chunked admission: reserve the lane and (paged) map its
+        blocks now — radix hits, their copy-on-write and, for a hit
+        ending mid-block on the int8 pool, the one seeding of the
+        lane's staging tail (:meth:`_dispatch_cow`) — or (contiguous)
+        allocate its staging lane.  The loop then advances ONE slice per
+        ring iteration (:meth:`_advance_prefill`), so resident decode
+        lanes never wait more than one slice."""
+        ex = self.executor
+        hit_len = 0
+        lane_k = lane_v = None
+        if self.paged:
+            hit_len, cow = self.pool.admit(
+                slot, req.prompt, max_suffix=self.SUFFIX_PREFILL_MAX_ROWS)
+            self._dispatch_cow(slot, cow, hit_len)
+        else:
+            lane_k, lane_v = ex.make_staging(req.bucket)
+        self._admit_seq += 1
+        self._prefilling[slot] = _PrefillState(
+            req, hit_len, self._admit_seq, lane_k, lane_v)
+
+    def _advance_prefill(self, slot: int) -> None:
+        """Dispatch the NEXT chunked-prefill slice for lane ``slot``: an
+        intermediate slice appends KV only (no logits, no lane state);
+        the final slice, padded to the slice width, runs the final
+        insert (first-token sample and lane activation) and publishes
+        the prompt's blocks to the radix cache.  Device work is queued
+        in stream order behind the dispatches in flight; nothing is read
+        back."""
+        ex = self.executor
+        st = self._prefilling[slot]
+        req = st.req
+        n = len(req.prompt)
+        sb = ex.prefill_chunk
+        remaining = n - st.start
+        toks = np.zeros((1, sb), np.int32)
+        if remaining > sb:
+            # intermediate slice: KV only, no logits, no lane state
+            toks[0, :] = req.prompt[st.start:st.start + sb]
+            dev_toks = X.to_device(toks, self.device)
+            if self.paged:
+                args = (ex.params, ex.cache, self._table_row(slot),
+                        dev_toks, st.start, st.start + sb)
+                if ex.quant:    # int8 slices address the lane's tail
+                    args += (slot,)
+                ex.chunk_prog(None)(*args)
+            else:
+                ex.chunk_prog(ex.staging_len(req.bucket))(
+                    ex.params, st.lane_k, st.lane_v, dev_toks, st.start)
+            st.start += sb
+            self.stats["prefill_calls"] += 1
+            self.stats["prefill_tokens"] += sb
+            self.stats["chunked_prefill_tokens"] += sb
+            return
+        # final slice
+        toks[0, :remaining] = req.prompt[st.start:]
+        dev_toks = X.to_device(toks, self.device)
+        if self.paged:
+            first = ex.final_insert(None)(
+                ex.params, ex.cache, self._table_row(slot), ex.tok, ex.temp,
+                ex.seeds, dev_toks, remaining, st.start, slot,
+                float(req.temperature), req.seed)
+        else:
+            first = ex.final_insert(ex.staging_len(req.bucket))(
+                ex.params, ex.cache, st.lane_k, st.lane_v, ex.tok, ex.temp,
+                ex.seeds, dev_toks, remaining, st.start, n, slot,
+                float(req.temperature), req.seed)
+        self.stats["prefill_calls"] += 1
+        self.stats["prefill_tokens"] += remaining
+        self.stats["chunked_prefill_tokens"] += remaining
+        del self._prefilling[slot]
+        if self.paged:
+            self.pool.publish(slot, req.prompt)
+        self._activate(slot, req, first)
 
     def _materialize_first(self, i: int, req: _Request) -> None:
         """Bring the admission-sampled first token to the host (its copy
@@ -933,6 +1064,9 @@ class ContinuousBatcher:
         req = self.lane[slot]
         self.lane[slot] = None
         self._lane_pos[slot] = 0        # retired lanes report no pos
+        # a lane evicted MID-PREFILL (cancel, deadline, a failed slice)
+        # drops its slice state
+        self._prefilling.pop(slot, None)
         if self.pool is not None:
             # published prompt blocks become reclaimable cache, private
             # ones rejoin the free list; the zeroed table row routes
@@ -975,11 +1109,10 @@ class ContinuousBatcher:
         return cq if cp is None else min(cq, cp)
 
     def _pending_prefill_slots(self) -> set:
-        """Lanes reserved but not yet decode-active, which are never
-        victims: none here, since the port prefills inline (a lane is
-        decode-active from its admission on).  Chunked and disaggregated
-        prefill (ROADMAP.md Queue A) fill it."""
-        return set()
+        """Lanes reserved but not yet decode-active: the lanes still
+        mid-prefill (chunked), which are never preemption victims and
+        never step in a dispatch."""
+        return set(self._prefilling)
 
     def _preempt_victim(self) -> Optional[int]:
         """The lane to spill for waiting more-urgent work, or None when
@@ -1341,6 +1474,7 @@ class ContinuousBatcher:
                     self.lane[slot] = None
                     self._lane_pos[slot] = 0
                     self._lane_first[slot] = None
+                    self._prefilling.pop(slot, None)
                     if self.pool is not None:
                         # admission may have mapped blocks before the
                         # insert failed — unmap them
@@ -1366,8 +1500,28 @@ class ContinuousBatcher:
                             self._fault = e
                 continue
 
+            # chunked prefill: advance exactly ONE slice per iteration
+            # (oldest admission first) — the interleave that bounds how
+            # long resident decode lanes ever wait
+            if self._prefilling:
+                slot = min(self._prefilling,
+                           key=lambda s: self._prefilling[s].seq)
+                req = self._prefilling[slot].req
+                wd = self._watchdog
+                if wd is not None:
+                    wd.begin()
+                try:
+                    self._advance_prefill(slot)
+                except Exception as e:          # fail THIS request only
+                    self._finish(req, e)
+                    self._evict(slot)
+                finally:
+                    if wd is not None:
+                        wd.end()
+
+            prefill_pending = self._pending_prefill_slots()
             active_idx = [i for i, r in enumerate(self.lane)
-                          if r is not None]
+                          if r is not None and i not in prefill_pending]
             if not active_idx:
                 if pending:
                     try:
@@ -1375,6 +1529,12 @@ class ContinuousBatcher:
                     except Exception as e:
                         self._fault = e
                     continue            # eviction may have freed lanes
+                if prefill_pending:
+                    # no decode work, but prefill in flight: spin the
+                    # loop (the slices run back to back)
+                    self._wake.wait(timeout=0.002)
+                    self._wake.clear()
+                    continue
                 self._wake.wait(timeout=0.1)
                 self._wake.clear()
                 continue
@@ -1412,6 +1572,15 @@ class ContinuousBatcher:
                 if not active_idx:
                     continue        # every lane starved: retry the loop
                 tbl_np = self.pool.table
+                if prefill_pending:
+                    # lanes mid-prefill hold REAL mapped blocks, but the
+                    # chunk step writes every lane's (ignored) token at
+                    # its zeroed position — point their rows at the
+                    # trash block so an inactive write never touches a
+                    # block a slice is filling (the plan's upload copies
+                    # this snapshot into the graphs' static table)
+                    tbl_np = tbl_np.copy()
+                    tbl_np[sorted(prefill_pending)] = ex._pg.TRASH_BLOCK
             # fill the plan: which lanes step, the table snapshot, the
             # fused iteration count and — N>1 — the per-lane continuation
             # budgets the device carries across boundaries (eos id,
@@ -1442,7 +1611,9 @@ class ContinuousBatcher:
                         remaining = r.deadline - now
                         steps_v[i] = max(1, min(
                             n_mega, int(remaining / self._step_s_est)))
-            plan = X.ExecPlan(n_mega, [r is not None for r in self.lane],
+            plan = X.ExecPlan(n_mega,
+                              [r is not None and i not in prefill_pending
+                               for i, r in enumerate(self.lane)],
                               table=tbl_np, eos=eos_v, left=left_v,
                               steps=steps_v)
             wd = self._watchdog

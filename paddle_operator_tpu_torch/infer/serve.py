@@ -479,9 +479,8 @@ def refuse_unported(environ) -> None:
     if int(environ.get("SERVE_SPEC_K", "0") or 0) > 0:
         refused.append(f"SERVE_SPEC_K={environ['SERVE_SPEC_K']} "
                        "(speculative decoding)")
-    if on("SERVE_PREFILL", ("", "inline")):
-        refused.append(f"SERVE_PREFILL={environ['SERVE_PREFILL']} "
-                       "(chunked/disaggregated prefill)")
+    if environ.get("SERVE_PREFILL", "").strip() == "disagg":
+        refused.append("SERVE_PREFILL=disagg (disaggregated prefill)")
     if on("SERVE_ADAPTERS"):
         refused.append(f"SERVE_ADAPTERS={environ['SERVE_ADAPTERS']} "
                        "(LoRA adapters)")
@@ -508,7 +507,8 @@ def ring_kw_from_env(environ, cfg: Optional[LlamaConfig] = None) -> dict:
     JAX entry point reads them: SERVE_SLOTS, SERVE_CHUNK,
     SERVE_MAX_QUEUE, SERVE_MAX_LEN, SERVE_GENERATION, SERVE_PAGED with
     SERVE_BLOCK_SIZE / SERVE_PREFIX_CACHE / SERVE_NUM_BLOCKS,
-    SERVE_KV_QUANT, SERVE_MEGASTEP, SERVE_PRIORITIES, SERVE_PREWARM, the
+    SERVE_KV_QUANT, SERVE_MEGASTEP, SERVE_PREFILL with
+    SERVE_PREFILL_CHUNK, SERVE_PRIORITIES, SERVE_PREWARM, the
     preemption knobs (SERVE_PREEMPT, on unless "0", and its budgets
     SERVE_PREEMPT_MAX_PER_REQ / _BUDGET / _WINDOW_S: a waiting request
     of a more urgent class spills the least urgent lane of a full paged
@@ -529,6 +529,12 @@ def ring_kw_from_env(environ, cfg: Optional[LlamaConfig] = None) -> dict:
     boundaries, so a queued request may wait up to N iterations for a
     lane.  0 or unset is the single-step default (the CRD's
     ``spec.serving.megastep`` 0 means "server default").
+
+    SERVE_PREFILL=inline|chunked: how admission prefill reaches the
+    card.  ``chunked`` interleaves SERVE_PREFILL_CHUNK-token slices
+    (default 64) into ring iterations, so a cold long prompt never
+    stalls resident decode lanes for a whole prefill (``disagg`` is
+    refused by :func:`refuse_unported`).
 
     SERVE_KV_QUANT=int8 (the int8 KV pool: int8 codes + one f32 scale
     per (block, kv head), for deployments bound by capacity rather than
@@ -551,6 +557,11 @@ def ring_kw_from_env(environ, cfg: Optional[LlamaConfig] = None) -> dict:
     megastep = int(environ.get("SERVE_MEGASTEP", "0") or 0)
     if megastep > 1:
         kw["megastep"] = megastep
+    prefill_mode = environ.get("SERVE_PREFILL", "inline")
+    if prefill_mode != "inline":
+        kw["prefill_mode"] = prefill_mode
+    if environ.get("SERVE_PREFILL_CHUNK"):
+        kw["prefill_chunk"] = int(environ["SERVE_PREFILL_CHUNK"])
     kvq = environ.get("SERVE_KV_QUANT", "none") or "none"
     if kvq != "none":
         kw["kv_quant"] = kvq
@@ -708,6 +719,7 @@ def main() -> int:
     mode = "batch"
     if continuous:
         mode = (f"continuous, paged={bool(ring_kw.get('paged'))}, "
+                f"prefill={ring_kw.get('prefill_mode', 'inline')}, "
                 f"kv_quant={ring_kw.get('kv_quant', 'none')}, "
                 f"megastep={ring_kw.get('megastep', 1)}, "
                 f"host_cache_blocks={ring_kw.get('host_cache_blocks', 0)}, "

@@ -331,7 +331,8 @@ class TestSubmit:
             b.close()
 
     @pytest.mark.parametrize("kw", [{"spec_k": 2}, {"kv_quant": "int4"},
-                                    {"prefill_mode": "chunked"},
+                                    {"prefill_mode": "disagg",
+                                     "paged": True},
                                     {"megastep": 4, "spec_k": 2},
                                     {"adapters": ["acme"]},
                                     {"trace": True}])
@@ -340,12 +341,14 @@ class TestSubmit:
         # kv_quant="int8" is ported (tests/test_torch_kvquant.py); a
         # mode the JAX package lacks too is refused by name.  The
         # megastep is ported (tests/test_torch_megastep.py): beside an
-        # unported option it is that option that is refused
+        # unported option it is that option that is refused.  Chunked
+        # prefill is ported (tests/test_torch_chunked_prefill.py);
+        # disaggregated prefill is refused on the paged ring it needs
         exc, match = ((ValueError, "kv_quant") if "kv_quant" in kw
                       else (NotImplementedError, "not ported"))
         with pytest.raises(exc, match=match) as e:
             ContinuousBatcher(model, cfg, slots=1, max_len=MAX_LEN,
-                              paged=True, block_size=BS, **kw)
+                              **{"paged": True, "block_size": BS, **kw})
         assert "megastep" not in str(e.value)
 
 

@@ -563,7 +563,11 @@ def test_router_fronts_a_port_replica_restored_from_a_checkpoint(
 
 REFUSED_KNOBS = [
     {"SERVE_SPEC_K": "2"},
-    {"SERVE_PREFILL": "chunked"}, {"SERVE_PREFILL": "disagg"},
+    # chunked prefill is served (tests/test_torch_chunked_prefill.py);
+    # beside a knob still refused, that knob is named and it is not
+    pytest.param({"SERVE_PREFILL": "chunked", "SERVE_SPEC_K": "2"},
+                 id="SERVE_PREFILL=chunked"),
+    {"SERVE_PREFILL": "disagg"},
     # the megastep is served (tests/test_torch_megastep.py); beside a
     # knob still refused, that knob is named and the megastep is not
     pytest.param({"SERVE_MEGASTEP": "4", "SERVE_SPEC_K": "2"},
@@ -579,6 +583,8 @@ REFUSED_KNOBS = [
     {"SERVE_WEIGHT_QUANT": "int8", "SERVE_ADAPTERS": "acme"},
 ]
 SERVED_KNOBS = ("SERVE_MEGASTEP", "QUANTIZE", "SERVE_WEIGHT_QUANT")
+# knobs served at some values only (SERVE_PREFILL=disagg is refused)
+SERVED_SETTINGS = {"SERVE_PREFILL": "chunked"}
 
 
 @pytest.mark.parametrize("env", REFUSED_KNOBS,
@@ -592,8 +598,11 @@ def test_refuse_unported_names_the_knob(env):
     said = str(pytest.raises(ValueError, S.refuse_unported,
                              environ).value)
     assert value in said
-    assert all(k in said for k in env if k not in SERVED_KNOBS)
+    served = [k for k, v in env.items() if SERVED_SETTINGS.get(k) == v]
+    assert all(k in said for k in env
+               if k not in SERVED_KNOBS and k not in served)
     assert not any(k in said for k in SERVED_KNOBS)
+    assert not any(k in said for k in served)
 
 
 # the host tier and the durable store are served
