@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
-    python3 chip_smoke.py [--phases 2,2b,2c,2d,2e,3,3b,3c,3d,3e,3f,3g,3h,3i,
-                           3j,4,4b,4c,4d,4e,4f,4g,4h,4i]
+    python3 chip_smoke.py [--phases 2,2b,2c,2d,2e,2f,3,3b,3c,3d,3e,3f,3g,3h,
+                           3i,3j,3k,4,4b,4c,4d,4e,4f,4g,4h,4i]
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line; with no arguments every phase runs):
@@ -78,6 +78,19 @@ result line; with no arguments every phase runs):
    route of a prefill's rows) and bf16 ``torch.matmul`` on the same M,
    K, N (the bf16 replica's call, not the same function; never used by
    the port), beside the bound.
+2f. 8-bit AdamW update vs plain — ``adam8bit_update`` against
+   ``adam8bit_update_reference`` over three updates (the clip biting at
+   the second) from zero moments, at the 7b tensors' shapes (4096 x
+   4096, 4096 x 11008, 11008 x 4096, the embedding's 32000 x 4096,
+   lm_head's 4096 x 32000, a [4096] norm scale) and last axes off 256
+   (3 x 1000: 16-byte loads; 5 x 77: value by value): p, the codes and
+   the scales bit-identical after every update.  Then timed at the 7b
+   shapes, in turns: the kernel, its plain version (eager) and
+   ``torch._fused_adamw_`` on f32 moments of the same tensor (the
+   library yardstick, not the same function; never used by the port),
+   beside the bound (the bytes: p and g read, p written, both codes and
+   scales read and written, at 3.35 TB/s); the JSON line's numbers are
+   the whole 7b model's update (291 tensors) from those timings.
 2c. flash kernels vs plain — ``flash_forward`` (O and lse),
    ``flash_backward_dkv`` and ``flash_backward_dq`` each against its
    plain version on the same inputs (the backward kernels get the plain
@@ -264,6 +277,25 @@ result line; with no arguments every phase runs):
    longest intervals between dispatches, and how many streams equal the
    inline run's (not gated: a slice and a whole-prompt prefill round
    differently in bf16).
+3k. the single-card depth recipe — 7b width, B 4 x 2049 tokens, bf16
+   compute, one repeated batch, through ``fit``: (a) full depth, 32
+   layers (6.738B params), ``make_optimizer(moments="int8")`` resident,
+   12 steps; (b) the same with ``create_state(offload_opt_state=True)``,
+   6 steps; (c) 8 layers, 6 steps each: f32 moments, int8 moments, f32
+   offloaded; (d) 8 layers, int8, ``remat_policy`` "save_attn" and
+   "dots" ((c)'s int8 run is "full").  Each run reports step ms,
+   tokens/s, MFU against 989 TFLOP/s, peak ``max_memory_allocated``, the
+   update's device ms (an event pair around ``opt.update``) and,
+   offloaded, the H2D and D2H GB/s of the copy streams and the seconds
+   the host slab took to allocate and pin.  Gates: every loss falls below
+   0.7x its first value; flash forward launches = 2 x layers x steps
+   under "full" and "dots", layers x steps under "save_attn", dK/dV and
+   dQ layers x steps; ``adam8bit_update`` launches = tensors x steps
+   with int8 moments, 0 with f32; (b)'s losses and grad norms equal
+   (a)'s first 6 bit for bit, and (c)'s offloaded f32 run its resident
+   one; (b)'s peak at least ``OFFLOAD_SAVING_GB`` below (a)'s; after
+   the offloaded runs every moment tensor is in its pinned host slab
+   view, at the address it had before the first step.
 4. kernel path == plain path — 7b width, 2 layers, float32: greedy
    ``generate`` through the kernel and through the plain version give
    the same tokens, and per-step logits agree within 1e-3.
@@ -366,8 +398,9 @@ PEAK_OPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 # kernel sources: decode_attention.cu holds decode_attention_launch,
 # paged_decode_attention_launch and paged_decode_attention_quant_launch;
 # flash_attention.cu the forward and both backward kernels;
-# quant_matmul.cu the int8-weight decode matmul
-KERNELS = ["decode_attention", "flash_attention", "quant_matmul"]
+# quant_matmul.cu the int8-weight decode matmul; adam8bit.cu the 8-bit
+# AdamW update
+KERNELS = ["decode_attention", "flash_attention", "quant_matmul", "adam8bit"]
 # bf16 kernels against their plain version in f32 on the same bf16
 # inputs: about 3x the worst error read on the card over every case of
 # phases 2 and 2b (1.9e-3 and 3.1e-3 on an H100 80GB HBM3 at 700 W)
@@ -406,9 +439,9 @@ CKPT = dict(layers=2, batch=4, seq=2048, steps=6, interval=3, drain_at=2,
 # and the allocator's 512-byte rounding
 SERVE_LOAD_MARGIN = 16 << 20
 PEAK_BF16 = 989e12                 # H100 SXM dense bf16, for MFU
-PHASES = ("2", "2b", "2c", "2d", "2e", "3", "3b", "3c", "3d", "3e", "3f",
-          "3g", "3h", "3i", "3j", "4", "4b", "4c", "4d", "4e", "4f", "4g",
-          "4h", "4i")
+PHASES = ("2", "2b", "2c", "2d", "2e", "2f", "3", "3b", "3c", "3d", "3e",
+          "3f", "3g", "3h", "3i", "3j", "3k", "4", "4b", "4c", "4d", "4e",
+          "4f", "4g", "4h", "4i")
 
 
 def log(*a) -> None:
@@ -1156,6 +1189,16 @@ def quant_build_report(report: dict) -> None:
         log("quant_matmul ptxas: " + json.dumps(row))
 
 
+def adam8_build_report(report: dict) -> None:
+    """The 8-bit AdamW kernel's two instantiations (16-byte loads, value
+    by value): registers, spills, stack and static shared memory."""
+    report["ptxas"] = []
+    for symbol, nums in ptxas_entries("adam8bit") or ():
+        row = {"symbol": symbol, "vector": "ILb1E" in symbol, **nums}
+        report["ptxas"].append(row)
+        log("adam8bit ptxas: " + json.dumps(row))
+
+
 def phase_quant_matmul_vs_plain(report: dict) -> None:
     """Phase 2e: the int8-weight matmul against its plain version, a
     bit-identical rerun, then timings at the 7b shapes; see the module
@@ -1262,6 +1305,137 @@ def phase_quant_matmul_vs_plain(report: dict) -> None:
         f"torch.matmul {report['library_ms']:.4f}, bound "
         f"{report['bound_ms']:.5f} ({report['bound_ms'] / report['ms']:.2f}"
         f" of it) on {card_line()}")
+
+
+# phase 2f: the 8-bit AdamW update at the 7b tensors' shapes (the
+# embedding, wq/wk/wv/wo, w1/w3, w2, lm_head, a norm scale) and at
+# last axes off 256 (16-byte loads; value-by-value)
+ADAM8_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (32000, 4096),
+                (4096, 32000), (4096,), (3, 1000), (5, 77))
+# the 7b model's tensors by shape: 32 layers x (4 attention projections,
+# w1 and w3, w2, 2 norm scales), the embedding, lm_head, the final norm
+ADAM8_MODEL = {(4096, 4096): 4 * 32, (4096, 11008): 2 * 32,
+               (11008, 4096): 32, (32000, 4096): 1, (4096, 32000): 1,
+               (4096,): 2 * 32 + 1}
+# f32 operations an element the update needs: clip 2, mu 4, sqrt(nu)
+# and nu 7, the update 5, decay and step 4, two requantizations 5
+ADAM8_OPS = 27
+
+
+def adam8_bound_ms(shape) -> tuple:
+    from paddle_operator_tpu_torch.ops.adam8bit import bytes_moved
+
+    n = 1
+    for d in shape:
+        n *= d
+    by_bytes = bytes_moved(shape) / HBM_BYTES_PER_S * 1e3
+    by_ops = ADAM8_OPS * n / PEAK_OPS["torch.float32"] * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
+
+
+def phase_adam8bit_vs_plain(report: dict) -> None:
+    """Phase 2f: the 8-bit AdamW kernel against its plain version, bit
+    for bit over three updates, then timings; see the module
+    docstring."""
+    import torch
+
+    from paddle_operator_tpu_torch.ops import adam8bit as A8
+    from paddle_operator_tpu_torch.train import opt8bit as Q8
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+
+    def consts(count):
+        return A8.Adam8bitConsts.make(b1=0.9, b2=0.95, eps=1e-8,
+                                      weight_decay=0.1, lr=1e-3, clip=1.0,
+                                      count=count)
+
+    for shape in ADAM8_SHAPES:
+        p = torch.randn(shape, generator=gen, device="cuda") * 0.02
+        mu = Q8.quantize_q8(torch.zeros(shape, device="cuda"))
+        nu = Q8.quantize_q8u(torch.zeros(shape, device="cuda"))
+        ref = [t.clone() for t in (p, *mu, *nu)]
+        # the clip bites at the second update only
+        for count, norm in ((1, 0.5), (2, 3.0), (3, 0.5)):
+            g = torch.randn(shape, generator=gen, device="cuda") * 0.1
+            nrm = torch.tensor(norm, device="cuda")
+            A8.adam8bit_update(p, g, mu, nu, nrm, consts(count))
+            A8.adam8bit_update_reference(ref[0], g, Q8.Q8(*ref[1:3]),
+                                         Q8.Q8(*ref[3:5]), nrm,
+                                         consts(count))
+            torch.cuda.synchronize()
+            for name, a, b in zip(("p", "mu codes", "mu scales",
+                                   "nu codes", "nu scales"),
+                                  (p, *mu, *nu), ref):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"adam8bit_update {shape} update {count}: {name} "
+                        f"differs from the plain version in "
+                        f"{int((a != b).sum())} of {a.numel()} values")
+        del p, mu, nu, ref, g
+    torch.cuda.empty_cache()
+    log(f"adam8bit vs plain: {len(ADAM8_SHAPES)} shapes x 3 updates, p, "
+        "codes and scales bit-identical")
+    report["max_abs_err"] = 0.0
+
+    timings = []
+    for shape in ADAM8_SHAPES[:6]:
+        p = torch.randn(shape, generator=gen, device="cuda") * 0.02
+        g = torch.randn(shape, generator=gen, device="cuda") * 1e-3
+        mu = Q8.quantize_q8(torch.zeros(shape, device="cuda"))
+        nu = Q8.quantize_q8u(torch.zeros(shape, device="cuda"))
+        nrm = torch.tensor(0.5, device="cuda")
+        k = consts(2)
+        # the library yardstick: torch's fused AdamW on f32 moments of
+        # the same tensor (not the same function: no clip, no int8
+        # moments; never used by the port)
+        lp, lg = [p.clone()], [g.clone()]
+        lm, lv = [torch.zeros_like(p)], [torch.zeros_like(p)]
+        steps = [torch.ones((), device="cuda")]
+        n = p.numel()
+        iters = max(4, min(50, (1 << 31) // (16 * n)))
+
+        def kern(i):
+            A8.adam8bit_update(p, g, mu, nu, nrm, k)
+
+        def plain(i):
+            A8.adam8bit_update_reference(p, g, mu, nu, nrm, k)
+
+        def library(i):
+            torch._fused_adamw_(lp, lg, lm, lv, [], steps, lr=1e-3,
+                                beta1=0.9, beta2=0.95, weight_decay=0.1,
+                                eps=1e-8, amsgrad=False, maximize=False)
+
+        row = {"shape": list(shape)}
+        for key, fn, graph in (("ms", kern, True), ("plain_ms", plain, False),
+                               ("library_ms", library, True),
+                               ("ms_again", kern, True)):
+            dev, eager = time_ms(fn, iters, graph=graph)
+            row[key] = dev if graph else eager
+            row[key.replace("ms", "eager_ms", 1)] = eager
+        row["bound_ms"], row["bound_by"] = adam8_bound_ms(shape)
+        row["share_of_bound"] = row["bound_ms"] / min(row["ms"],
+                                                      row["ms_again"])
+        row["gb_per_s"] = (A8.bytes_moved(shape) / 1e9
+                           / (min(row["ms"], row["ms_again"]) / 1e3))
+        log("timing adam8bit_update: " + json.dumps(row))
+        timings.append(row)
+        del p, g, mu, nu, lp, lg, lm, lv
+        torch.cuda.empty_cache()
+    report["timings"] = timings
+    # the JSON line's numbers: one update of the whole 7b model (291
+    # tensors), from the per-shape timings
+    by_shape = {tuple(r["shape"]): r for r in timings}
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        report[key] = sum(by_shape[s][key] * c for s, c in ADAM8_MODEL.items())
+    report["bound_by"] = "bytes"
+    log(f"adam8bit_update, the whole 7b model ({sum(ADAM8_MODEL.values())} "
+        f"tensors, 6.738B values): device {report['ms']:.3f} ms, plain "
+        f"(eager) {report['plain_ms']:.3f}, torch._fused_adamw_ on f32 "
+        f"moments {report['library_ms']:.3f}, bound {report['bound_ms']:.3f}"
+        f" ({report['bound_ms'] / report['ms']:.2f} of it) on "
+        f"{card_line()}")
 
 
 FLASH_KERNELS = ("flash_forward", "flash_backward_dkv", "flash_backward_dq")
@@ -3622,13 +3796,14 @@ def phase_interleave(reports: tuple, params, cfg) -> None:
 
 
 def _zero_launches() -> None:
+    from paddle_operator_tpu_torch.ops import adam8bit as A8
     from paddle_operator_tpu_torch.ops import decode_attention as DA
     from paddle_operator_tpu_torch.ops import flash_attention as FA
     from paddle_operator_tpu_torch.ops import quant_matmul as QM
 
     for fn in (DA.decode_attention, DA.paged_decode_attention,
                FA.flash_forward, FA.flash_backward_dkv, FA.flash_backward_dq,
-               QM.quant_matmul):
+               QM.quant_matmul, A8.adam8bit_update):
         fn.launches = 0
     DA.paged_decode_attention.quant_launches = 0
 
@@ -4048,6 +4223,186 @@ def phase_checkpoint(reports: dict) -> None:
         shutil.rmtree(root, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# phase 3k: the single-card depth recipe at 7b width, B x (S + 1) tokens,
+# bf16 compute, one repeated batch.  (a) full depth with int8 moments
+# resident, (b) the same offloaded, then at 8 layers f32 against int8
+# moments and f32 offloaded, and the remat policies (int8 moments).  lr
+# 3e-4, make_optimizer's default: at 3c's 1e-3 the 32-layer run spiked
+# and ended at 0.78x its first loss (12 steps, int8 moments; 8 layers
+# at 1e-3 fall to 0.03x in 5 steps, int8 as f32) on an H100 80GB HBM3
+# at 700 W
+DEPTH = dict(batch=4, seq=2048, lr=3e-4, full_steps=12, short_steps=6)
+DEPTH_RUNS = (("a", 32, "int8", False, "full", "full_steps"),
+              ("b", 32, "int8", True, "full", "short_steps"),
+              ("c_f32", 8, "f32", False, "full", "short_steps"),
+              ("c_int8", 8, "int8", False, "full", "short_steps"),
+              ("c_f32_offload", 8, "f32", True, "full", "short_steps"),
+              ("d_save_attn", 8, "int8", False, "save_attn", "short_steps"),
+              ("d_dots", 8, "int8", False, "dots", "short_steps"))
+# (b)'s peak must sit this far below (a)'s: the int8 codes and scales
+# (13.69 GB at 7b) leave the card, the staging ring (3 slots of the
+# largest tensor's, 0.27 GB each) stays
+OFFLOAD_SAVING_GB = 12.0
+
+
+def _depth_run(name, layers, moments, offload, policy, steps) -> dict:
+    """One run of phase 3k: build, train ``steps`` steps through ``fit``,
+    read the counters and the clocks, free everything."""
+    import itertools
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.models.llama import make_model
+    from paddle_operator_tpu_torch.ops import adam8bit as A8
+    from paddle_operator_tpu_torch.ops import flash_attention as FA
+    from paddle_operator_tpu_torch.train import trainer as T
+    from paddle_operator_tpu_torch.train.data import (
+        DevicePrefetcher, deterministic_lm_batches)
+    from paddle_operator_tpu_torch.utils.observability import StepTimer
+
+    b, s = DEPTH["batch"], DEPTH["seq"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    model, cfg = make_model("7b", device="cuda", seed=0, n_layers=layers,
+                            remat_policy=policy)
+    opt = T.make_optimizer(DEPTH["lr"], warmup_steps=1, decay_steps=1000,
+                           moments=moments)
+    state = T.create_state(model, opt, offload_opt_state=offload)
+    off = state.opt_state.offload
+    if off is not None:
+        off.timed = True
+    moments_at = {(f, k): t.data_ptr() for f, field in
+                  state.opt_state.tensors().items() for k, t in field.items()}
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    marks = []
+    update = opt.update
+
+    def timed_update(params, grads, st):
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        norm = update(params, grads, st)
+        pair[1].record()
+        marks.append(pair)
+        return norm
+
+    opt.update = timed_update          # make_train_step calls opt.update
+    step = T.make_train_step(opt)
+    batch = next(deterministic_lm_batches(b, s + 1, cfg.vocab_size, seed=0))
+    batches = DevicePrefetcher(itertools.repeat(batch, steps), device="cuda")
+    timer = StepTimer(b * s, cfg.flops_per_token(), PEAK_BF16, window=steps,
+                      clock=_synced_clock)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = _synced_clock()
+    state, history = T.fit(state, step, batches, steps=steps, timer=timer)
+    wall = _synced_clock() - t0
+    counts = {"fwd": FA.flash_forward.launches,
+              "dkv": FA.flash_backward_dkv.launches,
+              "dq": FA.flash_backward_dq.launches,
+              "adam8bit": A8.adam8bit_update.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - base_gb
+    losses = [h["loss"] for h in history]
+    norms = [h["grad_norm"] for h in history]
+    tensors = len(list(model.parameters()))
+    step_ms = statistics.median(list(timer.times)[1:]) * 1e3
+    tok_s = b * s / (step_ms / 1e3)
+    run = {
+        "layers": layers, "moments": moments, "offload": offload,
+        "remat_policy": policy, "steps": steps,
+        "params": cfg.num_params(), "build_s": build_s,
+        "losses": losses, "grad_norms": norms, "fit_wall_s": wall,
+        "step_ms_median": step_ms,
+        "step_ms": [t * 1e3 for t in timer.times],
+        "tokens_per_s": tok_s,
+        "mfu": tok_s * cfg.flops_per_token() / PEAK_BF16,
+        "max_memory_allocated_gb": peak_gb,
+        "allocated_before_gb": base_gb,
+        "update_device_ms": [a.elapsed_time(z) for a, z in marks],
+        "launches": counts, "tensors": tensors,
+    }
+    run["update_device_ms_median"] = statistics.median(
+        run["update_device_ms"][1:])
+    if off is not None:
+        h2d_ms, d2h_ms = off.copy_ms()
+        run.update(pin_s=off.pin_s, bytes_each_way=off.bytes_each_way,
+                   h2d_ms=h2d_ms, d2h_ms=d2h_ms,
+                   h2d_gb_per_s=off.bytes_each_way / 1e9 / (h2d_ms / 1e3),
+                   d2h_gb_per_s=off.bytes_each_way / 1e9 / (d2h_ms / 1e3))
+        host = [((f, k), t) for f, field in state.opt_state.tensors().items()
+                for k, t in field.items()]
+        bad = [k for k, t in host if t.device.type != "cpu"
+               or not t.is_pinned() or t.data_ptr() != moments_at[k]]
+        if bad:
+            raise AssertionError(f"3k {name}: moments not in their pinned "
+                                 f"host tensors between steps: {bad[:5]}")
+    log(f"depth {name}: " + json.dumps({k: v for k, v in run.items()
+                                        if k != "step_ms"}))
+    if len(history) != steps or not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"3k {name}: fit ran {len(history)} of {steps} "
+                             "steps, or a loss or grad norm is not finite")
+    if not losses[-1] < 0.7 * losses[0]:
+        raise AssertionError(f"3k {name}: the loss did not fall below 0.7x "
+                             f"its first value: {losses[0]} -> {losses[-1]}")
+    fwd_per = 1 if policy == "save_attn" else 2
+    want = {"fwd": fwd_per * layers * steps, "dkv": layers * steps,
+            "dq": layers * steps,
+            "adam8bit": tensors * steps if moments == "int8" else 0}
+    if counts != want:
+        raise AssertionError(f"3k {name}: launches {counts}, the formulas "
+                             f"say {want}")
+    del state, step, model, opt, batches, timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def phase_depth_recipe(report: dict) -> None:
+    """Phase 3k: the depth recipe; see the module docstring."""
+    t0 = time.perf_counter()
+    runs = {}
+    for name, layers, moments, offload, policy, steps in DEPTH_RUNS:
+        runs[name] = _depth_run(name, layers, moments, offload, policy,
+                                DEPTH[steps])
+    a, b = runs["a"], runs["b"]
+    n = b["steps"]
+    if (a["losses"][:n], a["grad_norms"][:n]) != (b["losses"],
+                                                  b["grad_norms"]):
+        raise AssertionError("3k: the offloaded run's losses or grad norms "
+                             "differ from the resident run's")
+    f32, f32_off = runs["c_f32"], runs["c_f32_offload"]
+    if (f32["losses"], f32["grad_norms"]) != (f32_off["losses"],
+                                              f32_off["grad_norms"]):
+        raise AssertionError("3k: the offloaded f32 run differs from the "
+                             "resident one")
+    saved = a["max_memory_allocated_gb"] - b["max_memory_allocated_gb"]
+    if saved < OFFLOAD_SAVING_GB:
+        raise AssertionError(f"3k: the offloaded peak is {saved:.2f} GB "
+                             f"below the resident one (need "
+                             f"{OFFLOAD_SAVING_GB})")
+    for name, r in runs.items():
+        log(f"depth {name} ({r['layers']} layers, {r['moments']} moments"
+            f"{', offloaded' if r['offload'] else ''}, remat "
+            f"{r['remat_policy']}; one run of {r['steps']} steps, not a "
+            f"benchmark): step {r['step_ms_median']:.1f} ms, "
+            f"{r['tokens_per_s']:.0f} tokens/s, MFU {r['mfu']:.3f}, peak "
+            f"{r['max_memory_allocated_gb']:.2f} GB, update "
+            f"{r['update_device_ms_median']:.2f} device ms"
+            + (f", H2D {r['h2d_gb_per_s']:.1f} / D2H {r['d2h_gb_per_s']:.1f}"
+               f" GB/s, pinning {r['pin_s']:.1f} s" if r["offload"] else "")
+            + f"; loss {r['losses'][0]:.3f} -> {r['losses'][-1]:.3f}")
+    log(f"depth: offloaded == resident bit for bit ({n} steps, int8; "
+        f"{f32['steps']} steps, f32); the offload saves {saved:.2f} GB of "
+        f"peak; on {card_line()}; {time.perf_counter() - t0:.1f}s")
+    report["launches"] = a["launches"]["adam8bit"]
+    report["depth"] = runs
 
 
 def phase_kernel_path_equals_plain() -> None:
@@ -4977,6 +5332,11 @@ def main() -> int:
            # no Pallas kernel: the XLA fusion of decode._mm's quantized
            # branch
            "replaces": "paddle_operator_tpu/infer/decode.py:99"}
+    adam8 = {"name": "adam8bit_update", "route": "cuda",
+             "source": "paddle_operator_tpu_torch/csrc/adam8bit.cu",
+             # no Pallas kernel: the XLA fusion of opt8bit.py's
+             # blocked_update and the chain's tail
+             "replaces": "paddle_operator_tpu/train/opt8bit.py:169"}
     flash = {kern: {"name": kern, "route": "cuda",
                     "source": "paddle_operator_tpu_torch/csrc/"
                               "flash_attention.cu",
@@ -4995,11 +5355,13 @@ def main() -> int:
     flash_build_report(flash)
     decode_build_report(contiguous, paged, quant)
     quant_build_report(qmm)
+    adam8_build_report(adam8)
     log(f"build: flash_attention.cu {secs['flash_attention']:.1f}s")
     run("2", phase_kernel_vs_plain, contiguous)
     run("2b", phase_paged_kernel_vs_plain, paged)
     run("2d", phase_quant_kernel_vs_plain, quant)
     run("2e", phase_quant_matmul_vs_plain, qmm)
+    run("2f", phase_adam8bit_vs_plain, adam8)
     run("2c", phase_flash_vs_plain, flash)
     if phases & {"3", "3b", "3d", "3e", "3g", "3h", "3i", "3j"}:
         params, cfg = make_7b()
@@ -5030,6 +5392,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     run("3c", phase_train_main_path, flash)
     run("3f", phase_checkpoint, flash)
+    run("3k", phase_depth_recipe, adam8)
     run("4", phase_kernel_path_equals_plain)
     run("4b", phase_rings_equal_generate)
     run("4c", phase_train_kernel_equals_plain)
@@ -5046,13 +5409,13 @@ def main() -> int:
              "library_ms", "max_abs_err_f32", "max_abs_err_bf16",
              "decode_ms_per_step_b4", "kernel1_ms", "paged_bf16_ms", "ring",
              "ring_megastep", "preempt", "host_tier", "interleave", "train",
-             "checkpoint",
+             "checkpoint", "depth",
              "fwd_bwd", "designs",
              "ptxas",
              "timings"]
     print(json.dumps({"kernels": [
         {k: r.get(k) for k in order if k in r or k in order[:11]}
-        for r in (contiguous, paged, quant, *flash.values(), qmm)]}))
+        for r in (contiguous, paged, quant, *flash.values(), qmm, adam8)]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

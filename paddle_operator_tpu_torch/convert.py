@@ -1,6 +1,6 @@
 """Convert the JAX package's flax param tree (and the optax state of
-its trainer) into the port's ``Llama`` state dict (and optimizer
-state).
+its trainer, with f32 or int8 moments) into the port's ``Llama`` state
+dict (and optimizer state).
 
 The input is the flax tree with numpy leaves (``jax.device_get`` of
 ``model.init(...)["params"]``, or a restored checkpoint's params): a
@@ -85,14 +85,26 @@ def _states(tree: Any) -> Iterator[Any]:
             yield from _states(sub)
 
 
+def _q8_field(tree: Any, field: str) -> Any:
+    """The ``field`` (``q8_codes`` or ``q8_scale``) of every ``_Q8`` leaf
+    of a moment tree, as a tree of the same dicts."""
+    if isinstance(tree, dict):
+        return {k: _q8_field(v, field) for k, v in tree.items()}
+    return getattr(tree, field)
+
+
 def opt_state_from_jax(opt_state: Any):
     """The optax state of the JAX package's ``make_optimizer`` (numpy
     leaves: ``jax.device_get`` of ``TrainState.opt_state``) -> the
-    port's :class:`train.trainer.AdamWState`: the Adam count, ``mu``
-    and ``nu`` under the port's parameter names.  The schedule's count
-    must equal the Adam count (both advance once per update); the int8
-    moments of ``moments="int8"`` are refused (train/opt8bit.py is not
-    ported)."""
+    port's optimizer state under the port's parameter names: an
+    :class:`train.trainer.AdamWState` (count, ``mu``, ``nu``) from
+    ``moments="f32"``'s ``ScaleByAdamState``, an
+    :class:`train.opt8bit.AdamW8bitState` from ``moments="int8"``'s
+    ``ScaleByAdam8bitState`` (each ``[L, ...]`` codes and scales leaf
+    unstacked into the layers' names, as the parameters are).  The
+    schedule's count must equal the Adam count (both advance once per
+    update)."""
+    from paddle_operator_tpu_torch.train import opt8bit
     from paddle_operator_tpu_torch.train.trainer import AdamWState
 
     adam = [s for s in _states(opt_state)
@@ -100,14 +112,21 @@ def opt_state_from_jax(opt_state: Any):
     sched = [s for s in _states(opt_state) if tuple(s._fields) == ("count",)]
     if len(adam) != 1 or len(sched) != 1:
         raise NotImplementedError(
-            "opt_state_from_jax reads the f32-moment AdamW state of "
-            "make_optimizer (one ScaleByAdamState and one schedule "
-            "count); other optimizer states, the int8 moments of "
-            "moments='int8' included, are not ported (ROADMAP.md Queue "
-            "A item 13)")
+            "opt_state_from_jax reads the AdamW state of make_optimizer "
+            "(one ScaleByAdamState or ScaleByAdam8bitState and one "
+            "schedule count); other optimizer states are not ported")
     count = int(np.asarray(adam[0].count))
     if int(np.asarray(sched[0].count)) != count:
         raise ValueError(f"schedule count {int(np.asarray(sched[0].count))}"
                          f" != Adam count {count}")
-    return AdamWState(count=count, mu=params_from_jax(adam[0].mu),
-                      nu=params_from_jax(adam[0].nu))
+    mu, nu = adam[0].mu, adam[0].nu
+    if type(adam[0]).__name__ != "ScaleByAdam8bitState":
+        return AdamWState(count=count, mu=params_from_jax(mu),
+                          nu=params_from_jax(nu))
+
+    def q8(tree):
+        codes = params_from_jax(_q8_field(tree, "q8_codes"))
+        scales = params_from_jax(_q8_field(tree, "q8_scale"))
+        return {k: opt8bit.Q8(codes[k], scales[k]) for k in codes}
+
+    return opt8bit.AdamW8bitState(count=count, mu=q8(mu), nu=q8(nu))

@@ -23,12 +23,27 @@ Training: :meth:`Llama.forward` takes packed-sequence ``segment_ids``
 and runs attention through ``ops/attention.py`` ``attention`` (the flash
 kernels on the card).  With ``remat`` (the JAX default) every decoder
 layer runs under ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``
-while gradients are recorded, so the backward recomputes the layer (and
-launches the flash forward again), as under the JAX package's default
-policy ``"full"`` (``nothing_saveable``).  The JAX config's other remat
-policies, ``scan_layers`` and ``cp_impl`` are not fields here, so a
-caller that sets them gets a ``TypeError`` (ROADMAP.md Queue A items 13
-and 14).
+while gradients are recorded, and ``remat_policy`` says what the
+backward recomputes, as the JAX package's ``_layer_cls`` policies do:
+
+- ``"full"`` (``nothing_saveable``): the whole layer, the flash forward
+  included (it launches twice a layer a step);
+- ``"save_attn"`` (``save_only_these_names("attn_out")``): everything but
+  the attention: each operation inside the attention call is kept (on
+  the card that is one operator, the flash forward, whose output and
+  logsumexp are kept), so the flash forward launches once;
+- ``"dots"`` (``dots_with_no_batch_dims_saveable``): everything but the
+  outputs of matrix products without batch dimensions (``aten.mm``: the
+  projections; attention's batched products and the flash forward are
+  recomputed).
+
+The last two run ``torch.utils.checkpoint``'s selective policy
+(``create_selective_checkpoint_contexts``), which sees dispatcher
+operations: that is why the flash forward is a ``torch.library``
+operator (ops/flash_attention.py).  ``scan_layers`` and ``cp_impl`` are
+not fields here, so a caller that sets them gets a ``TypeError``
+(``cp_impl`` waits for ROADMAP.md Queue A item 8; layers are always
+separate modules).
 
 MoE configs (``n_experts > 0``) are not ported yet and raise
 ``NotImplementedError`` (ROADMAP.md Queue A, "MoE").
@@ -36,12 +51,16 @@ MoE configs (``n_experts > 0``) are not ported yet and raise
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import threading
 from typing import Any, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from paddle_operator_tpu_torch.ops.attention import attention
 from paddle_operator_tpu_torch.ops.quant_matmul import quant_mm
@@ -65,9 +84,11 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16        # compute dtype
     param_dtype: Any = torch.float32   # storage dtype
-    # recompute each decoder layer in the backward (the JAX default
-    # policy "full")
+    # recompute each decoder layer in the backward
     remat: bool = True
+    # what the recompute may skip: "full" (nothing), "save_attn" (the
+    # attention), "dots" (the projections' outputs); module docstring
+    remat_policy: str = "full"
     n_experts: int = 0
     moe_capacity_factor: float = 1.25
     moe_top_k: int = 1
@@ -147,6 +168,46 @@ CONFIGS = {
     "13b": LlamaConfig(dim=5120, n_layers=40, n_heads=40, n_kv_heads=40,
                        ffn_dim=13824),
 }
+
+
+REMAT_POLICIES = ("full", "save_attn", "dots")
+# the matrix product with no batch dimensions (what "dots" keeps)
+_DOT = torch.ops.aten.mm.default
+_scope = threading.local()
+
+
+@contextlib.contextmanager
+def _attention_scope():
+    """Marks the operations of one attention call for the "save_attn"
+    policy (thread-local: the recompute may run on the backward's
+    thread, and it passes through here again)."""
+    _scope.on = True
+    try:
+        yield
+    finally:
+        _scope.on = False
+
+
+def _save_attn(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if getattr(_scope, "on", False)
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op == _DOT
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context(policy: str):
+    """``checkpoint``'s ``context_fn`` for ``policy`` (None: "full")."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r} (expected one "
+                         f"of {REMAT_POLICIES})")
+    if policy == "full":
+        return None
+    return functools.partial(create_selective_checkpoint_contexts,
+                             _save_attn if policy == "save_attn"
+                             else _save_dots)
 
 
 # ---------------------------------------------------------------------------
@@ -261,7 +322,8 @@ class Attention(nn.Module):
         v = self.wv(x).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        out = attention(q, k, v, causal=True, segment_ids=segment_ids)
+        with _attention_scope():
+            out = attention(q, k, v, causal=True, segment_ids=segment_ids)
         return self.wo(out.reshape(b, s, cfg.n_heads * cfg.head_dim))
 
 
@@ -333,10 +395,14 @@ class Llama(nn.Module):
         across them, RoPE positions stay absolute."""
         x = self.tok_embed(tokens)
         remat = self.cfg.remat and torch.is_grad_enabled()
+        extra = {}
+        context = _remat_context(self.cfg.remat_policy)
+        if context is not None:
+            extra["context_fn"] = context
         for layer in self.layers:
             if remat:
                 x = checkpoint(layer, x, self.rope_cos, self.rope_sin,
-                               segment_ids, use_reentrant=False)
+                               segment_ids, use_reentrant=False, **extra)
             else:
                 x = layer(x, self.rope_cos, self.rope_sin, segment_ids)
         x = self.final_norm(x)
@@ -352,6 +418,7 @@ def make_model(preset: str = "tiny", *, device="cuda", seed: int = 0,
     serving dtype).  The JAX signature's context-parallel ``mesh`` is
     not a parameter: meshes are not ported."""
     cfg = dataclasses.replace(CONFIGS[preset], **overrides)
+    _remat_context(cfg.remat_policy)           # an unknown policy raises
     device = torch.device(device)
     model = Llama(cfg, device)
     gen = torch.Generator(device=device)

@@ -22,8 +22,9 @@ Per kernel, three parts:
 - a ``launches`` counter on each wrapper.
 
 :func:`flash_attention` is the public ``[B, S, H, D]`` entry: a
-``torch.autograd.Function`` whose forward runs the forward kernel and
-saves (q, k, v, o, lse), and whose backward computes
+``torch.library`` custom operator with an autograd formula, whose
+forward runs the forward kernel and saves (q, k, v, o, lse), and whose
+backward computes
 ``delta = rowsum(dO * O)`` in f32 (plain torch, as the JAX package
 computes it in XLA) and runs the dK/dV and dQ kernels.  Layout: the
 kernels read ``[B, S, H, D]`` directly (the TPU kernels' ``[B, H, S, D]``
@@ -369,27 +370,45 @@ def flash_backward_reference(q, k, v, seg, o, lse, do, *,
 # ---------------------------------------------------------------------------
 
 
-class _FlashAttention(torch.autograd.Function):
-    """Forward: kernel #4, saving (q, k, v, seg, o, lse).  Backward:
-    delta in plain torch, then kernels #5 and #6."""
+@torch.library.custom_op("paddle_operator_tpu_torch::flash_attn",
+                         mutates_args=())
+def _flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                seg: Optional[torch.Tensor], causal: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel #4 as one operator, (o, lse): opaque to the dispatcher, so
+    a selective-checkpoint policy (models/llama.py ``save_attn``) can
+    keep its outputs and the recompute then does not launch it again.
+    On a tensor of any device but the CPU and CUDA (meta included) it
+    runs ``flash_forward`` too, which raises: no fallback."""
+    return flash_forward(q, k, v, seg, seg, causal=causal)
 
-    @staticmethod
-    def forward(ctx, q, k, v, seg, causal):
-        o, lse = flash_forward(q, k, v, seg, seg, causal=causal)
-        ctx.save_for_backward(q, k, v, seg, o, lse)
-        ctx.causal = causal
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, seg, o, lse = ctx.saved_tensors
-        do = do.contiguous()
-        delta = attention_delta(o, do)
-        dk, dv = flash_backward_dkv(q, k, v, do, lse, delta, seg, seg,
-                                    causal=ctx.causal)
-        dq = flash_backward_dq(q, k, v, do, lse, delta, seg, seg,
-                               causal=ctx.causal)
-        return dq, dk, dv, None, None
+_flash_attn.register_fake(
+    lambda q, k, v, seg, causal: flash_forward(q, k, v, seg, seg,
+                                               causal=causal))
+
+
+def _flash_attn_setup(ctx, inputs, output):
+    q, k, v, seg, causal = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, seg, o, lse)
+    ctx.causal = causal
+
+
+def _flash_attn_backward(ctx, do, _dlse):
+    """delta in plain torch, then kernels #5 and #6."""
+    q, k, v, seg, o, lse = ctx.saved_tensors
+    do = do.contiguous()
+    delta = attention_delta(o, do)
+    dk, dv = flash_backward_dkv(q, k, v, do, lse, delta, seg, seg,
+                                causal=ctx.causal)
+    dq = flash_backward_dq(q, k, v, do, lse, delta, seg, seg,
+                           causal=ctx.causal)
+    return dq, dk, dv, None, None
+
+
+_flash_attn.register_autograd(_flash_attn_backward,
+                              setup_context=_flash_attn_setup)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -399,8 +418,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """[B, S, H, D] flash attention, differentiable, optionally with
     packed-sequence ``segment_ids`` [B, S] (cross-document scores
     masked in the kernels).  On CUDA tensors every call launches the
-    kernels (or raises); on CPU tensors it runs the plain versions."""
+    kernels (or raises); on CPU tensors it runs the plain versions.  The
+    forward saves (q, k, v, o, lse) for the backward."""
     if segment_ids is not None:
         segment_ids = segment_ids.to(torch.int32).contiguous()
-    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), segment_ids, causal)
+    o, _ = _flash_attn(q.contiguous(), k.contiguous(), v.contiguous(),
+                       segment_ids, causal)
+    return o

@@ -9,11 +9,14 @@ this through orbax, which imports jax, so the port writes torch's own
 format:
 
 - each step is a directory ``<path>/<step>/`` holding ``params.pt`` (the
-  model's state dict, in the parameters' own dtype), ``opt.pt`` (``step``
-  and the AdamW ``count``, ``mu`` and ``nu``) and, written last,
+  model's state dict, in the parameters' own dtype), ``opt.pt`` (``step``,
+  the Adam ``count``, the ``moments`` kind and the state's tensors: f32
+  ``mu`` and ``nu``, or under int8 moments ``mu_codes``, ``mu_scales``,
+  ``nu_codes`` and ``nu_scales``) and, written last,
   ``torch_checkpoint.json`` (the format and the step).  A server reads
-  ``params.pt`` alone.  The files hold only tensors, ints and plain dicts,
-  and load with ``torch.load(weights_only=True, mmap=True)``;
+  ``params.pt`` alone, whatever ``opt.pt`` holds.  The files hold only
+  tensors, ints, strings and plain dicts, and load with
+  ``torch.load(weights_only=True, mmap=True)``;
 - a step is committed by writing it into a temporary sibling directory
   (``.<step>.tmp-*``), flushing every file and the directory, and
   renaming it to ``<path>/<step>``.  Only committed steps are steps: a
@@ -27,7 +30,11 @@ Saves are asynchronous.  ``save`` copies the state to host memory before
 it returns — the train step updates parameters and moments IN PLACE, so
 a writer that read the live tensors would write a later step's numbers —
 and one background thread writes the copy.  ``wait`` joins it and raises
-what it raised.
+what it raised.  Moments offloaded to host memory
+(``train/trainer.py`` ``MomentOffload``) are copied back by the card
+asynchronously: the snapshot and a restore first wait for the last of
+those copies, and a restore writes into the pinned host tensors in
+place.
 """
 
 from __future__ import annotations
@@ -84,6 +91,13 @@ def _check_like(saved: Dict[str, torch.Tensor], like: Dict[str, Any],
            for k in sorted(like) if saved[k].shape != like[k].shape]
     if bad:
         raise ValueError(f"{where}: {what} shapes differ: {bad}")
+
+
+def _settle(opt_state) -> None:
+    """Wait for the card's copies into an offloaded state's host
+    tensors (none for a resident state)."""
+    if getattr(opt_state, "offload", None) is not None:
+        opt_state.offload.wait()
 
 
 class CheckpointManager:
@@ -167,16 +181,17 @@ class CheckpointManager:
             raise ValueError(f"checkpoint step {step} already exists under "
                              f"{self.path}")
         t0 = time.perf_counter()
+        opt = state.opt_state
+        _settle(opt)
         # copy=True: on the CPU .to("cpu") would hand back the live
         # tensor itself
         params = {k: v.detach().to("cpu", copy=True)
                   for k, v in state.model.state_dict().items()}
-        opt = state.opt_state
         rest = {"step": int(state.step), "count": int(opt.count),
-                "mu": {k: v.detach().to("cpu", copy=True)
-                       for k, v in opt.mu.items()},
-                "nu": {k: v.detach().to("cpu", copy=True)
-                       for k, v in opt.nu.items()}}
+                "moments": opt.kind,
+                **{field: {k: v.detach().to("cpu", copy=True)
+                           for k, v in tensors.items()}
+                   for field, tensors in opt.tensors().items()}}
         self.last_save = {"step": step,
                           "snapshot_s": time.perf_counter() - t0}
         self._pending = step
@@ -222,12 +237,13 @@ class CheckpointManager:
         """Load ``step`` (default: the newest) into ``state_like`` in place
         and return it.  ``state_like`` is a TrainState — parameters
         (through ``load_state_dict``, which keeps the ``Parameter``
-        objects the optimizer state is keyed by), ``mu`` and ``nu`` (on
-        their parameters' devices, in their saved dtypes), ``count`` and
-        ``step`` — or a model, whose parameters alone are loaded, cast to
-        the model's own dtypes (the serving restore: ``opt.pt`` is not
-        read).  A missing or unexpected key or a shape mismatch raises
-        before anything is changed."""
+        objects the optimizer state is keyed by), the moments (on their
+        parameters' devices, in their saved dtypes; into the host
+        tensors of an offloaded state), ``count`` and ``step`` — or a
+        model, whose parameters alone are loaded, cast to the model's own
+        dtypes (the serving restore: ``opt.pt`` is not read).  A missing
+        or unexpected key, a shape mismatch or moments of another kind
+        (f32 or int8) raise before anything is changed."""
         if not self.enabled:
             raise RuntimeError("checkpointing disabled (no path)")
         step = step if step is not None else self.latest_step()
@@ -246,15 +262,31 @@ class CheckpointManager:
             model.load_state_dict(params)
             return state_like
         rest = _load(os.path.join(d, OPT_FILE))
-        named = dict(model.named_parameters())
-        _check_like(rest["mu"], named, "first moments", d)
-        _check_like(rest["nu"], named, "second moments", d)
-        model.load_state_dict(params)
         opt = state_like.opt_state
-        for moments, saved in ((opt.mu, rest["mu"]), (opt.nu, rest["nu"])):
-            for k, v in saved.items():
-                # copy=True: nothing stays backed by the mapped file
-                moments[k] = v.to(named[k].device, copy=True)
+        kind = rest.get("moments", "f32")      # PR 9's files say nothing
+        if kind != opt.kind:
+            raise ValueError(f"{d}: {kind} moments, the state holds "
+                             f"{opt.kind} moments")
+        named = dict(model.named_parameters())
+        mine = opt.tensors()
+        for field in opt.FIELDS:
+            _check_like(rest[field], mine[field], f"moments {field!r}", d)
+            if opt.offload is not None:
+                bad = sorted(k for k, v in rest[field].items()
+                             if v.dtype != mine[field][k].dtype)
+                if bad:
+                    raise ValueError(f"{d}: moments {field!r} of {bad} are "
+                                     "not in the offloaded state's dtype")
+        _settle(opt)
+        model.load_state_dict(params)
+        for field in opt.FIELDS:
+            for k, v in rest[field].items():
+                if opt.offload is not None:
+                    # into the pinned host tensors the offload streams
+                    mine[field][k].copy_(v)
+                else:
+                    # copy=True: nothing stays backed by the mapped file
+                    opt.replace(field, k, v.to(named[k].device, copy=True))
         opt.count = int(rest["count"])
         state_like.step = int(rest["step"])
         return state_like

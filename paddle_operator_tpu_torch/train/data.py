@@ -4,7 +4,10 @@ for one card.
 The numpy sources (:func:`synthetic_lm_batches`,
 :func:`deterministic_lm_batches`, :func:`process_slice`,
 :func:`mmap_token_batches`) are copies: they yield the same arrays as
-the JAX package's for the same arguments.  The process index and count
+the JAX package's for the same arguments.  :class:`NativeTokenFile` binds
+the C++ gather of ``native/dataio.cpp``, which the port builds with
+``g++`` at first use into ``build/native_torch/`` (its own library; the
+JAX package's ``native/build/`` is left alone).  The process index and count
 come from ``torch.distributed`` when it is initialized (0 and 1
 otherwise).  :class:`DevicePrefetcher` replaces the JAX placement onto a
 mesh: a thread pins host batches and copies them to the card ahead of
@@ -13,12 +16,23 @@ the consumer.
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
+import os
 import queue
+import subprocess
 import threading
+from pathlib import Path
 from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
+
+_ROOT = Path(__file__).resolve().parents[2]
+NATIVE_SRC = _ROOT / "native" / "dataio.cpp"
+NATIVE_DIR = _ROOT / "build" / "native_torch"
+CXX_FLAGS = ["-O2", "-fPIC", "-std=c++17", "-shared"]
+_native_lock = threading.Lock()
 
 
 def _process_index() -> int:
@@ -79,24 +93,126 @@ def process_slice(batch: Dict[str, np.ndarray],
     return out
 
 
+def _native_lib_path() -> Path:
+    h = hashlib.sha256(NATIVE_SRC.read_bytes())
+    h.update(" ".join(CXX_FLAGS).encode())
+    return NATIVE_DIR / f"libdataio-{h.hexdigest()[:16]}.so"
+
+
+def _find_native_lib() -> Optional[str]:
+    """The port's built gather library, or None (its copy of the JAX
+    package's ``controller/hostport.py`` lookup, over its own build
+    directory)."""
+    path = _native_lib_path()
+    return str(path) if path.exists() else None
+
+
+def build_native_lib() -> str:
+    """Compile ``native/dataio.cpp`` with ``g++`` into
+    ``build/native_torch/`` unless it is there (keyed by a hash of the
+    source and the flags); returns the library's path.  Raises with the
+    compiler's output when the build fails."""
+    with _native_lock:
+        found = _find_native_lib()
+        if found:
+            return found
+        out = _native_lib_path()
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            ["g++", *CXX_FLAGS, "-o", str(tmp),
+             str(NATIVE_SRC)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"building {NATIVE_SRC} failed (exit "
+                               f"{proc.returncode}):\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)
+        return str(out)
+
+
+class NativeTokenFile:
+    """ctypes binding to the native mmap gather (native/dataio.cpp): one
+    C call assembles a whole [B, win] int32 batch from a flat token
+    file.  ``lib_path`` defaults to the port's library, built here if it
+    is missing."""
+
+    def __init__(self, path: str, dtype=np.uint16,
+                 lib_path: Optional[str] = None) -> None:
+        width = np.dtype(dtype).itemsize
+        if width not in (2, 4):
+            raise ValueError(f"unsupported token dtype {dtype}")
+        lib = ctypes.CDLL(lib_path or build_native_lib())
+        lib.dio_open.restype = ctypes.c_void_p
+        lib.dio_open.argtypes = [ctypes.c_char_p, ctypes.c_int]
+        lib.dio_len.restype = ctypes.c_int64
+        lib.dio_len.argtypes = [ctypes.c_void_p]
+        lib.dio_gather.restype = ctypes.c_int
+        lib.dio_gather.argtypes = [
+            ctypes.c_void_p,
+            np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+            ctypes.c_int64, ctypes.c_int64,
+            np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")]
+        lib.dio_close.argtypes = [ctypes.c_void_p]
+        self._lib = lib
+        self._h = lib.dio_open(path.encode(), width)
+        if not self._h:
+            raise FileNotFoundError(f"dio_open failed for {path}")
+
+    def __len__(self) -> int:
+        return int(self._lib.dio_len(self._h))
+
+    def gather(self, starts: np.ndarray, win: int) -> np.ndarray:
+        starts = np.ascontiguousarray(starts, np.int64)
+        out = np.empty((len(starts), win), np.int32)
+        rc = self._lib.dio_gather(self._h, starts, len(starts), win, out)
+        if rc != 0:
+            raise IndexError("window out of bounds")
+        return out
+
+    def close(self) -> None:
+        if getattr(self, "_h", None):
+            self._lib.dio_close(self._h)
+            self._h = None
+
+    def __del__(self) -> None:
+        self.close()
+
+
 def mmap_token_batches(path: str, batch_size: int, seq_len: int,
                        *, dtype=np.uint16, seed: int = 0,
-                       loop: bool = True
+                       loop: bool = True,
+                       native: Optional[bool] = None
                        ) -> Iterator[Dict[str, np.ndarray]]:
-    """Sample [batch, seq+1] windows from a flat token file
-    (memory-mapped; zero-copy until batch assembly), per-process seeds.
-    The python gather only: the JAX package's ``native`` option (the C++
-    gather of native/dataio.cpp) waits for its binding (ROADMAP.md Queue
-    A item 13)."""
-    data = np.memmap(path, dtype=dtype, mode="r")
-    n = len(data) - seq_len - 1
+    """Sample [batch, seq+1] windows from a flat token file (memory-mapped;
+    zero-copy until batch assembly), per-process seeds.
+
+    ``native``: gather with :class:`NativeTokenFile` (one C call a
+    batch instead of a per-row python slice loop).  Default: native when
+    the port's library is built, python otherwise; True builds it if
+    needed (and raises if it cannot), False keeps to python.  Both give
+    the same batches."""
+    reader = None
+    if native or (native is None and _find_native_lib() is not None):
+        try:
+            reader = NativeTokenFile(path, dtype)
+        except (FileNotFoundError, ValueError):
+            if native:
+                raise
+    if reader is not None:
+        n = len(reader) - seq_len - 1
+    else:
+        data = np.memmap(path, dtype=dtype, mode="r")
+        n = len(data) - seq_len - 1
     if n <= 0:
         raise ValueError(f"{path}: too short for seq_len={seq_len}")
     rng = np.random.default_rng(seed + 2654435761 * _process_index())
     while True:
         starts = rng.integers(0, n, batch_size)
-        batch = np.stack([np.asarray(data[s:s + seq_len + 1])
-                          for s in starts]).astype(np.int32)
+        if reader is not None:
+            batch = reader.gather(starts, seq_len + 1)
+        else:
+            batch = np.stack([np.asarray(data[s:s + seq_len + 1])
+                              for s in starts]).astype(np.int32)
         yield {"tokens": batch}
         if not loop:
             break

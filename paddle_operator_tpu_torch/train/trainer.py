@@ -9,17 +9,22 @@ What differs from the JAX trainer, and why:
   and returns the same :class:`TrainState` (its ``step`` advanced), with
   the metrics as device scalars (no host sync inside a step).
 - The parameters live in the model (``nn.Parameter``s); the optimizer
-  state is :class:`AdamWState`, keyed by the same parameter names.
-- One device.  What the JAX trainer has beyond that is not here yet
-  (ROADMAP.md Queue A items 6, 11 and 12): meshes and sharded state (no
-  ``mesh`` parameter), host offload of the moments
-  (``offload_opt_state``), int8 moments (``moments``), the
-  pipeline-parallel step and the ERNIE/Wide&Deep/ResNet steps.  A
-  caller that passes one of those parameters gets a ``TypeError``; the
-  steps are not defined.
+  state (:class:`AdamWState`, or :class:`train.opt8bit.AdamW8bitState`
+  under ``moments="int8"``) is keyed by the same parameter names.
+- One device.  Meshes and sharded state (the ``mesh`` parameter) wait
+  for ROADMAP.md Queue A item 8, the pipeline-parallel step for the same
+  item, the ERNIE/Wide&Deep/ResNet steps for item 9: a caller that
+  passes ``mesh`` gets a ``TypeError``; the steps are not defined.
 - ``make_train_step`` and ``make_eval_step`` take no model definition:
   the step runs ``state.model``, the eval function the module it is
   given.
+- Host offload of the moments (``create_state(offload_opt_state=True)``)
+  is :class:`MomentOffload`, not a memory kind: between steps every
+  moment tensor (f32, or the int8 codes and their scales) lives in
+  pinned host memory, and the update streams each parameter's moments
+  through a ring of device staging slots on two copy streams, ordered by
+  events, with no host sync inside a step.  On the CPU the same staging
+  code runs with CPU-to-CPU copies and no pinning.
 
 The optimizer is optax's ``chain(clip_by_global_norm(grad_clip),
 adamw(warmup_cosine_decay_schedule(...), b1=0.9, b2=0.95, eps=1e-8,
@@ -28,13 +33,18 @@ tensor functions in optax's order of operations: the schedule starts at
 count 0, so with ``warmup_steps >= 1`` the first update's learning rate
 is 0; weight decay applies to every parameter (norm scales and the
 embedding too); the clip divides by the global norm only when it
-exceeds ``grad_clip`` (no epsilon).
+exceeds ``grad_clip`` (no epsilon).  ``moments="int8"`` is the JAX
+package's ``chain(clip_by_global_norm, scale_by_adam8bit(b1=0.9,
+b2=0.95), add_decayed_weights, scale_by_learning_rate)``
+(:class:`AdamW8bit`): one launch of ``ops/adam8bit.py``'s kernel per
+parameter tensor on the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -42,6 +52,7 @@ import torch
 from torch import nn
 
 from paddle_operator_tpu_torch.ft.preemption import drain_checkpoint
+from paddle_operator_tpu_torch.train import opt8bit
 
 
 # ---------------------------------------------------------------------------
@@ -54,11 +65,27 @@ class AdamWState:
     """optax's AdamW state: ``count`` updates applied (the Adam count and
     the schedule count, which advance together), the first moment ``mu``
     in f32 and the second moment ``nu`` in the parameters' dtype, keyed
-    by parameter name."""
+    by parameter name; ``offload`` (a :class:`MomentOffload`) when they
+    live in host memory."""
 
     count: int
     mu: Dict[str, torch.Tensor]
     nu: Dict[str, torch.Tensor]
+    offload: Optional["MomentOffload"] = None
+
+    kind = "f32"
+    FIELDS = ("mu", "nu")
+
+    def leaves(self, name: str) -> List[torch.Tensor]:
+        """The tensors of parameter ``name``, in :data:`FIELDS` order."""
+        return [self.mu[name], self.nu[name]]
+
+    def tensors(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Field -> name -> tensor, what a checkpoint holds."""
+        return {"mu": self.mu, "nu": self.nu}
+
+    def replace(self, field: str, name: str, t: torch.Tensor) -> None:
+        getattr(self, field)[name] = t
 
 
 @dataclasses.dataclass
@@ -68,7 +95,200 @@ class TrainState:
 
     step: int
     model: nn.Module
-    opt_state: AdamWState
+    opt_state: Any
+
+
+class MomentOffload:
+    """The moments of an offloaded state: host tensors between steps,
+    streamed through device staging slots inside the update.
+
+    :meth:`run` walks the parameters in order.  Parameter *i*'s moments
+    are copied into slot ``i % SLOTS`` on the H2D stream, updated on the
+    current stream, and copied back on the D2H stream; events order the
+    three (a slot is refilled only after its D2H, the update waits for
+    its H2D, the D2H for the update), so parameter *i+1*'s H2D overlaps
+    parameter *i*'s update and parameter *i-1*'s D2H, and the host never
+    waits.  Each slot holds one staging tensor per moment field, sized
+    by the largest parameter at the first step and kept.  :meth:`wait`
+    blocks the host until the last D2H has landed: a reader of the host
+    tensors (the checkpoint snapshot, a restore) calls it first.
+
+    The host tensors are views of ONE allocation (:meth:`adopt`),
+    page-locked on the card with ``cudaHostRegister`` (as the serving
+    host tier's ``HostSlab``), so the bytes pinned are the bytes the
+    moments take (the caching host allocator would round each tensor up
+    to a power of two); ``pin_s`` is what making it cost.  ``device``
+    "cpu": the same walk with CPU-to-CPU copies, nothing pinned.
+    ``timed``: each step records events around its copies;
+    :meth:`copy_ms` reads them."""
+
+    SLOTS = 3
+    ALIGN = 256
+
+    def __init__(self, device, *, timed: bool = False) -> None:
+        self.device = torch.device(device)
+        self._cuda = self.device.type == "cuda"
+        self._staging: Optional[List[List[torch.Tensor]]] = None
+        self._fills: List[Tuple[torch.Tensor, Any]] = []
+        self._slab: Optional[torch.Tensor] = None
+        self._registered = False
+        self.pin_s = 0.0              # seconds spent making host tensors
+        self.bytes_each_way = 0       # of the last step
+        self.timed = timed
+        if self._cuda:
+            self._h2d = torch.cuda.Stream(self.device)
+            self._d2h = torch.cuda.Stream(self.device)
+            event = torch.cuda.Event
+            self._loaded = [event() for _ in range(self.SLOTS)]
+            self._updated = [event() for _ in range(self.SLOTS)]
+            self._free = [event() for _ in range(self.SLOTS)]
+            self._flushed = event()
+            self._marks = [event(enable_timing=True) for _ in range(4)]
+
+    def new(self, shape, dtype, fill) -> torch.Tensor:
+        """A placeholder (no memory) for a moment tensor of ``shape``
+        filled with ``fill``: the optimizer's ``init`` makes its state
+        with it, then :meth:`adopt` gives every tensor its place in the
+        host slab."""
+        t = torch.empty(tuple(shape), dtype=dtype, device="meta")
+        self._fills.append((t, fill))
+        return t
+
+    def adopt(self, opt_state) -> None:
+        """Allocate the host slab for ``opt_state``'s placeholders, fill
+        each tensor's view and put it in the state.  On the card the
+        slab is page-locked; a failed pin raises."""
+        t0 = time.perf_counter()
+        fills = {id(t): fill for t, fill in self._fills}
+        layout, off = [], 0
+        for field, tensors in opt_state.tensors().items():
+            for name, t in tensors.items():
+                nbytes = t.numel() * t.element_size()
+                layout.append((field, name, t, off, nbytes))
+                off += -(-nbytes // self.ALIGN) * self.ALIGN
+        self._slab = torch.empty(max(off, 1), dtype=torch.uint8)
+        if self._cuda:
+            err = torch.cuda.cudart().cudaHostRegister(
+                self._slab.data_ptr(), self._slab.numel(), 0)
+            if int(err) != 0:
+                raise RuntimeError(f"cudaHostRegister of the moments' "
+                                   f"{self._slab.numel()} bytes failed "
+                                   f"({err})")
+            self._registered = True
+        for field, name, t, o, nbytes in layout:
+            view = self._slab[o:o + nbytes].view(t.dtype).view(t.shape)
+            view.fill_(fills[id(t)])
+            opt_state.replace(field, name, view)
+        self._fills = []
+        self.pin_s = time.perf_counter() - t0
+
+    def close(self) -> None:
+        """Unpin the slab (after the last copies over it)."""
+        if self._registered:
+            self.wait()
+            torch.cuda.cudart().cudaHostUnregister(self._slab.data_ptr())
+            self._registered = False
+
+    def __del__(self) -> None:
+        try:
+            self.close()
+        except Exception:
+            pass
+
+    def _stage(self, slot: int, host: List[torch.Tensor]
+               ) -> List[torch.Tensor]:
+        return [self._staging[slot][j][:h.numel()].view(h.shape)
+                for j, h in enumerate(host)]
+
+    def _size(self, names, leaves_of) -> None:
+        """Allocate the staging slots: per field the largest tensor.  On
+        the card the copy streams then wait for the current stream: the
+        allocator hands out memory that kernels queued there may still
+        read, and a copy on another stream would overwrite it."""
+        first = leaves_of(names[0])
+        sizes = [0] * len(first)
+        for name in names:
+            for j, h in enumerate(leaves_of(name)):
+                if h.dtype != first[j].dtype:
+                    raise ValueError(f"moment field {j} of {name} is "
+                                     f"{h.dtype}, of {names[0]} "
+                                     f"{first[j].dtype}")
+                sizes[j] = max(sizes[j], h.numel())
+        self._staging = [[torch.empty(n, dtype=h.dtype, device=self.device)
+                          for n, h in zip(sizes, first)]
+                         for _ in range(self.SLOTS)]
+        if self._cuda:
+            for slot in self._staging:
+                for t in slot:    # freed only after the copy streams
+                    t.record_stream(self._h2d)
+                    t.record_stream(self._d2h)
+            compute = torch.cuda.current_stream(self.device)
+            self._h2d.wait_stream(compute)
+            self._d2h.wait_stream(compute)
+
+    def run(self, names: List[str],
+            leaves_of: Callable[[str], List[torch.Tensor]],
+            fn: Callable[[str, List[torch.Tensor]], None]) -> None:
+        """``fn(name, staged)`` for each name, on the moments of
+        ``leaves_of(name)`` brought to the device and copied back."""
+        if not names:
+            return
+        if self._staging is None:
+            self._size(names, leaves_of)
+        self.bytes_each_way = sum(h.numel() * h.element_size()
+                                  for name in names
+                                  for h in leaves_of(name))
+        if not self._cuda:
+            for name in names:
+                host = leaves_of(name)
+                staged = self._stage(0, host)
+                for s, h in zip(staged, host):
+                    s.copy_(h)
+                fn(name, staged)
+                for s, h in zip(staged, host):
+                    h.copy_(s)
+            return
+        compute = torch.cuda.current_stream(self.device)
+        # the host tensors were last written by the previous step's D2H
+        self._h2d.wait_stream(self._d2h)
+        if self.timed:
+            self._marks[0].record(self._h2d)
+        for i, name in enumerate(names):
+            slot = i % self.SLOTS
+            host = leaves_of(name)
+            staged = self._stage(slot, host)
+            with torch.cuda.stream(self._h2d):
+                self._h2d.wait_event(self._free[slot])
+                for s, h in zip(staged, host):
+                    s.copy_(h, non_blocking=True)
+                self._loaded[slot].record(self._h2d)
+            compute.wait_event(self._loaded[slot])
+            fn(name, staged)
+            self._updated[slot].record(compute)
+            with torch.cuda.stream(self._d2h):
+                self._d2h.wait_event(self._updated[slot])
+                if self.timed and i == 0:
+                    self._marks[2].record(self._d2h)
+                for s, h in zip(staged, host):
+                    h.copy_(s, non_blocking=True)
+                self._free[slot].record(self._d2h)
+        if self.timed:
+            self._marks[1].record(self._h2d)
+            self._marks[3].record(self._d2h)
+        self._flushed.record(self._d2h)
+
+    def wait(self) -> None:
+        """Block the host until every D2H copy issued so far is done."""
+        if self._cuda:
+            self._flushed.synchronize()
+
+    def copy_ms(self) -> Tuple[float, float]:
+        """(H2D, D2H) ms of the last timed step: each copy stream's span
+        from its first copy to its last, waits for slots and updates
+        included."""
+        self.wait()
+        return (self._marks[0].elapsed_time(self._marks[1]),
+                self._marks[2].elapsed_time(self._marks[3]))
 
 
 def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
@@ -107,8 +327,8 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 class AdamW:
-    """Clip by global norm, then AdamW with a learning-rate schedule —
-    :func:`make_optimizer` builds it."""
+    """Clip by global norm, then AdamW with a learning-rate schedule, f32
+    moments — :func:`make_optimizer` builds it."""
 
     def __init__(self, schedule: Callable[[int], float], *, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
@@ -118,58 +338,131 @@ class AdamW:
         self.weight_decay = weight_decay
         self.grad_clip = grad_clip
 
-    def init(self, params: Dict[str, torch.Tensor]) -> AdamWState:
+    def init(self, params: Dict[str, torch.Tensor],
+             offload: Optional[MomentOffload] = None) -> AdamWState:
+        """Zero moments, on the parameters' devices or, with ``offload``,
+        as its placeholders (``create_state`` puts them in host
+        memory)."""
+        if offload is None:
+            return AdamWState(
+                count=0,
+                mu={n: torch.zeros_like(p, dtype=torch.float32)
+                    for n, p in params.items()},
+                nu={n: torch.zeros_like(p) for n, p in params.items()})
         return AdamWState(
             count=0,
-            mu={n: torch.zeros_like(p, dtype=torch.float32)
+            mu={n: offload.new(p.shape, torch.float32, 0)
                 for n, p in params.items()},
-            nu={n: torch.zeros_like(p) for n, p in params.items()})
+            nu={n: offload.new(p.shape, p.dtype, 0)
+                for n, p in params.items()},
+            offload=offload)
 
-    @torch.no_grad()
-    def update(self, params: Dict[str, torch.Tensor],
-               grads: Dict[str, torch.Tensor],
-               state: AdamWState) -> torch.Tensor:
-        """One update, in place on ``params`` and ``state``.  Returns the
-        global norm of the (unclipped) ``grads``."""
-        norm = global_norm(grads.values())
+    def _tensor_update(self, norm: torch.Tensor, lr: float, count: int
+                       ) -> Callable:
+        """``fn(p, g, [mu, nu])``: one parameter's update, in place."""
         keep = norm < self.grad_clip
-        lr = self.schedule(state.count)
-        count = state.count + 1
         f = np.float32
         bc1 = float(f(1) - f(self.b1) ** f(count))
         bc2 = float(f(1) - f(self.b2) ** f(count))
-        for name, p in params.items():
-            g = grads[name]
+
+        def fn(p, g, leaves):
+            mu_old, nu_old = leaves
             g = torch.where(keep, g, (g / norm.to(g.dtype)) * self.grad_clip)
-            mu = (1 - self.b1) * g + self.b1 * state.mu[name]
-            nu = (1 - self.b2) * (g * g) + self.b2 * state.nu[name]
+            mu = (1 - self.b1) * g + self.b1 * mu_old
+            nu = (1 - self.b2) * (g * g) + self.b2 * nu_old
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             u = u + self.weight_decay * p
             p.copy_(p + (-lr) * u)
-            state.mu[name].copy_(mu)
-            state.nu[name].copy_(nu)
+            mu_old.copy_(mu)
+            nu_old.copy_(nu)
+
+        return fn
+
+    @torch.no_grad()
+    def update(self, params: Dict[str, torch.Tensor],
+               grads: Dict[str, torch.Tensor], state) -> torch.Tensor:
+        """One update, in place on ``params`` and ``state``.  Returns the
+        global norm of the (unclipped) ``grads``."""
+        norm = global_norm(grads.values())
+        count = state.count + 1
+        fn = self._tensor_update(norm, self.schedule(state.count), count)
+        if state.offload is None:
+            for name, p in params.items():
+                fn(p, grads[name], state.leaves(name))
+        else:
+            state.offload.run(
+                list(params), state.leaves,
+                lambda name, staged: fn(params[name], grads[name], staged))
         state.count = count
         return norm
 
 
+class AdamW8bit(AdamW):
+    """:class:`AdamW` with block-quantized int8 moments
+    (train/opt8bit.py): the same interface and schedule, the update of
+    each tensor one call of ``ops/adam8bit.py`` ``adam8bit_update`` (the
+    kernel on the card, the plain version on the CPU)."""
+
+    def init(self, params: Dict[str, torch.Tensor],
+             offload: Optional[MomentOffload] = None
+             ) -> opt8bit.AdamW8bitState:
+        state = opt8bit.init_state(params,
+                                   None if offload is None else offload.new)
+        state.offload = offload
+        return state
+
+    def _tensor_update(self, norm: torch.Tensor, lr: float, count: int
+                       ) -> Callable:
+        from paddle_operator_tpu_torch.ops.adam8bit import (Adam8bitConsts,
+                                                            adam8bit_update)
+
+        consts = Adam8bitConsts.make(
+            b1=self.b1, b2=self.b2, eps=self.eps,
+            weight_decay=self.weight_decay, lr=lr, clip=self.grad_clip,
+            count=count)
+
+        def fn(p, g, leaves):
+            mc, ms, nc, ns = leaves
+            adam8bit_update(p, g, opt8bit.Q8(mc, ms), opt8bit.Q8(nc, ns),
+                            norm, consts)
+
+        return fn
+
+
 def make_optimizer(learning_rate: float = 3e-4, warmup_steps: int = 100,
                    decay_steps: int = 10000, weight_decay: float = 0.1,
-                   grad_clip: float = 1.0) -> AdamW:
+                   grad_clip: float = 1.0, moments: str = "f32") -> AdamW:
     """AdamW + warmup-cosine schedule + global-norm clip (the LLaMA
-    recipe of the JAX package), moments in f32."""
+    recipe of the JAX package).  ``moments="int8"`` stores both moments
+    block-quantized (:class:`AdamW8bit`, ~3.9x smaller than f32: the
+    single-card depth recipe at 7b width, alone or with the host
+    offload, which then moves a quarter of the bytes)."""
     schedule = warmup_cosine_decay_schedule(
         0.0, learning_rate, warmup_steps,
         max(decay_steps, warmup_steps + 1), end_value=learning_rate * 0.1)
-    return AdamW(schedule, b1=0.9, b2=0.95, weight_decay=weight_decay,
-                 grad_clip=grad_clip)
+    if moments not in ("f32", "int8"):
+        raise ValueError(f"unknown moments dtype {moments!r} "
+                         "(expected 'f32' or 'int8')")
+    cls = AdamW8bit if moments == "int8" else AdamW
+    return cls(schedule, b1=0.9, b2=0.95, weight_decay=weight_decay,
+               grad_clip=grad_clip)
 
 
-def create_state(model: nn.Module, optimizer: AdamW) -> TrainState:
+def create_state(model: nn.Module, optimizer: AdamW, *,
+                 offload_opt_state: bool = False) -> TrainState:
     """A fresh :class:`TrainState` over ``model``'s parameters (the model
-    is already initialized: ``models.llama.make_model``)."""
-    return TrainState(step=0, model=model,
-                      opt_state=optimizer.init(dict(
-                          model.named_parameters())))
+    is already initialized: ``models.llama.make_model``).
+    ``offload_opt_state``: the moments are made in host memory (pinned
+    on the card) and stay there between steps (:class:`MomentOffload`);
+    the device then holds only the staging slots."""
+    params = dict(model.named_parameters())
+    if not offload_opt_state:
+        return TrainState(step=0, model=model,
+                          opt_state=optimizer.init(params))
+    offload = MomentOffload(next(iter(params.values())).device)
+    opt_state = optimizer.init(params, offload)
+    offload.adopt(opt_state)
+    return TrainState(step=0, model=model, opt_state=opt_state)
 
 
 # ---------------------------------------------------------------------------

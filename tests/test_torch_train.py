@@ -363,18 +363,24 @@ class TestFit:
 
 
 class TestUnportedKnobs:
-    """What the JAX trainer and config take beyond one device and remat
-    "full" is not a parameter of the port: passing it raises TypeError
-    (no silent no-op), and the unported steps are not defined."""
+    """What the JAX trainer, data pipeline and config take beyond one
+    device (meshes, shardings, context parallelism, the unscanned
+    layout) is not a parameter of the port: passing it raises TypeError
+    (no silent no-op), and the unported steps are not defined.  The
+    depth recipe's knobs (``moments``, ``offload_opt_state``,
+    ``remat_policy``, ``native``) are ported: tests/test_torch_opt8bit.py,
+    test_torch_offload.py, test_torch_remat.py, test_torch_native_data.py."""
 
     @pytest.mark.parametrize("call", [
-        lambda: TT.make_optimizer(moments="int8"),
         lambda: TT.create_state(TL.make_model("tiny", device="cpu")[0],
-                                TT.make_optimizer(), offload_opt_state=True),
+                                TT.make_optimizer(), mesh=object()),
+        lambda: TD.DevicePrefetcher(iter(()), mesh=object()),
         lambda: TT.make_train_step(TT.make_optimizer(), mesh=object()),
         lambda: TT.make_eval_step(mesh=object()),
-        lambda: TD.mmap_token_batches("tokens.bin", 3, 16, native=True),
-        lambda: TL.make_model("tiny", device="cpu", remat_policy="dots"),
+        lambda: TD.DevicePrefetcher(iter(()), sharding=object()),
+        lambda: TT.create_state(TL.make_model("tiny", device="cpu")[0],
+                                TT.make_optimizer(moments="int8"),
+                                rng=object()),
         lambda: TL.make_model("tiny", device="cpu", scan_layers=False),
         lambda: TL.make_model("tiny", device="cpu", cp_impl="ulysses"),
         lambda: TL.make_model("tiny", device="cpu", mesh=object()),
