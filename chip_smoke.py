@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
     python3 chip_smoke.py [--phases 2,2b,2c,2d,2e,2f,3,3b,3c,3d,3e,3f,3g,3h,
-                           3i,3j,3k,4,4b,4c,4d,4e,4f,4g,4h,4i]
+                           3i,3j,3k,3l,4,4b,4c,4d,4e,4f,4g,4h,4i,4j]
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line; with no arguments every phase runs):
@@ -22,7 +22,10 @@ result line; with no arguments every phase runs):
    view; MHA and GQA (n_rep 2, 4); D 64 and 128; float32
    (atol = rtol = 1e-4) and bfloat16 (atol 1e-2, against the plain
    version run in float32 on the bf16 inputs); the main path's shapes;
-   the 7b shape at fills 128 and 2048; a length-0 lane gives zeros and
+   the 7b shape at fills 128 and 2048; phase 3l's draft ring (the 7b
+   ``cfg.draft()``: 8 lanes, 16 heads over 16, D 128, its 8 layers
+   stacked; ``SPEC_DRAFT_ATTN``) at the burst's fills; a length-0 lane
+   gives zeros and
    two runs are bit-identical.  Then the kernel, the plain version and
    ``scaled_dot_product_attention`` (the library yardstick, never used
    by the port) are timed at the 7b shape at fills 128, 528 and 2048 —
@@ -67,7 +70,9 @@ result line; with no arguments every phase runs):
    kernel's on the rows dequantized and rounded to bfloat16.
 2e. int8-weight matmul vs plain — ``quant_matmul`` against
    ``quant_matmul_reference`` at the 7b shapes (K x N 4096 x 4096,
-   4096 x 11008, 11008 x 4096 and the legacy lm_head's 4096 x 32000) and
+   4096 x 11008, 11008 x 4096 and the legacy lm_head's 4096 x 32000),
+   the 7b draft's (``QMM_DRAFT_SHAPES``: 2048 x 2048, 2048 x 5504 and
+   5504 x 2048, phase 3l (c)'s ``SERVE_DRAFT_QUANT=int8``) and
    tails off the tile (K and N not multiples of 128, N not of 16), M 1, 4, 8
    and 16, int8 and int4 codes, each with an all-zero column (output 0):
    float32 at ``QMM_F32_ATOL``, bfloat16 against the plain version in
@@ -296,6 +301,44 @@ result line; with no arguments every phase runs):
    one; (b)'s peak at least ``OFFLOAD_SAVING_GB`` below (a)'s; after
    the offloaded runs every moment tensor is in its pinned host slab
    view, at the address it had before the first step.
+3l. speculative decoding main path — 3b's server (8 slots, block 256,
+   the 64-block pool, every dispatch a graph replay) with
+   ``spec_k=4`` at full width and depth, bf16: (a) ``SERVE_DRAFT=auto``
+   through ``spec_kw_from_env`` (the entry point's draft boot: a random
+   ``cfg.draft()``, 8 layers, dim 2048, from seed 1) under 3b's burst
+   (the cold prompts, the followers and the stream together, as a
+   speculative ring caches no prefix; then the resubmission), and the
+   cold prompts again at megastep 4; (b) a self-draft (the target
+   drafts for itself) on the cold prompts; (c) (a) with
+   ``SERVE_DRAFT_QUANT=int8``; (d) (a) on the int8 pool, where the
+   tail resync is live.  Gated in every run: each request completes,
+   kernel #1 launches draft n_layers x (K+1) x rounds, kernels #2 and
+   #3 not at all, kernel #7 7 x that in (c) and not at all elsewhere,
+   every dispatch is a replay of the prewarm graphs, ``/statusz``
+   reads ``specK`` 4, the ring's own ``acceptRate`` and the draft's
+   mode (and ``/metrics`` their gauges), ``paramBytes`` is the
+   target's plus the draft's; megastep 4 gives megastep 1's tokens;
+   (b) accepts at least ``SPEC_SELF_ACCEPT_BF16`` of its drafts (not
+   1.0 at bf16: the draft's single-row tick and the multi-row verify
+   round differently, and random weights are full of near-ties); the
+   verify's logits at (a)'s cold streams' committed tokens lie within
+   ``SPEC_VERIFY_TOL`` of the plain single-row forward's (the verify's
+   attention recipe at one row), while a planted fault, the same
+   verify one position off, lies beyond it and its argmax share with
+   kernel #1 predicts a self-draft keeping less than
+   ``SPEC_SELF_ACCEPT_BF16``; (a)'s draft ring and (c)'s quantized
+   projections have the shapes phases 2 and 2e held kernels #1 and #7
+   to (``SPEC_DRAFT_ATTN``, ``QMM_DRAFT_SHAPES``); (e) ``serve.main()``
+   in a process of its own, with ``SERVE_CONTINUOUS=1 SERVE_PAGED=1
+   SERVE_SPEC_K=4`` and again with ``SERVE_DRAFT_QUANT=int8``, boots,
+   answers a request, reads ``specK`` 4, the response's acceptance
+   and the draft's mode on ``/statusz`` (``paramBytes`` as in (a) or
+   (c)) and exits 83 on SIGTERM.  Printed: those gaps, the
+   agreement with 3b's streams, a round's device ms at fill 520 (the
+   whole round as its graph; the draft's ticks, the verify and the
+   acceptance each as a graph of its own, beside their byte bounds),
+   the burst's new tok/s beside 3b's, the graph pool's bytes and
+   ``paramBytes``.
 4. kernel path == plain path — 7b width, 2 layers, float32: greedy
    ``generate`` through the kernel and through the plain version give
    the same tokens, and per-step logits agree within 1e-3.
@@ -368,6 +411,21 @@ result line; with no arguments every phase runs):
    the ring's decode kernel launched n_layers x chunk x megastep x
    dispatches, every prefill token came in a slice, and the paged rings
    hit 63 + 160 rows.
+4j. speculative rings == ``generate`` — 7b width, 2 layers, float32,
+   K 4, bs 16, under graph replay: four prompts through the contiguous,
+   paged and int8 spec rings with a random draft (seed 1) and a
+   self-draft, at megastep 1 and 4, and with chunked prefill (24-row
+   slices: the speculative final inserts).  Megastep 4 gives megastep
+   1's tokens on every ring; on the contiguous and paged rings every
+   stream (random, self-draft, chunked) equals ``generate``'s and the
+   self-draft accepts at least 0.9 (the int8 ring is held to itself:
+   its verify reads the blocks it completes as codes); kernel #1
+   launches draft n_layers x (K+1) x rounds and the paged kernels not
+   at all.  A lane spilled and restored mid-speculation (a class-0
+   arrival on a one-slot ring, both pools) resumes its uninterrupted
+   stream (and, on the paged ring, ``generate``'s).  A sampled stream
+   (T 0.8) is the same on a second run with its seed and stays in the
+   vocabulary.
 4c. training kernel path == plain path — 7b width, 2 layers, float32:
    three train steps with attention through the flash kernels and
    through ``reference_attention`` from the same init agree in loss
@@ -385,6 +443,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -439,9 +498,14 @@ CKPT = dict(layers=2, batch=4, seq=2048, steps=6, interval=3, drain_at=2,
 # and the allocator's 512-byte rounding
 SERVE_LOAD_MARGIN = 16 << 20
 PEAK_BF16 = 989e12                 # H100 SXM dense bf16, for MFU
+# phase 3l's draft ring, kernel #1's operands: the 7b cfg.draft() (16
+# heads over 16 KV heads, D 128, 8 layers stacked in one cache) on 3b's
+# 8 lanes of 2048 rows; phase 2 holds the kernel to its plain version
+# there at the burst's fills, and 3l checks its draft against it
+SPEC_DRAFT_ATTN = dict(b=8, hq=16, hkv=16, d=128, s=2048, layers=8)
 PHASES = ("2", "2b", "2c", "2d", "2e", "2f", "3", "3b", "3c", "3d", "3e",
-          "3f", "3g", "3h", "3i", "3j", "3k", "4", "4b", "4c", "4d", "4e",
-          "4f", "4g", "4h", "4i")
+          "3f", "3g", "3h", "3i", "3j", "3k", "3l", "4", "4b", "4c", "4d",
+          "4e", "4f", "4g", "4h", "4i", "4j")
 
 
 def log(*a) -> None:
@@ -553,6 +617,12 @@ def phase_kernel_vs_plain(report: dict) -> None:
         ("main-path-b1", 1, 32, 32, 128, 2048, [95], 0),
         ("7b-fill128", 4, 32, 32, 128, 2048, [128] * 4, 0),
         ("7b-fill2048", 4, 32, 32, 128, 2048, [2048] * 4, 0),
+        # 3l's draft ring: its burst's prompts (32 to 1000 tokens) a
+        # few ticks on, and the last row of a 48-token answer
+        ("spec-draft", *(SPEC_DRAFT_ATTN[k] for k in (
+            "b", "hq", "hkv", "d", "s")),
+         [33, 106, 262, 301, 514, 520, 611, 1052],
+         SPEC_DRAFT_ATTN["layers"]),
     ]
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for dtype, atol, rtol in [(torch.float32, 1e-4, 1e-4),
@@ -1143,6 +1213,10 @@ def phase_quant_kernel_vs_plain(report: dict) -> None:
 # decode rows; tails off the kernel's tile (K not a multiple of 128 or of
 # a split; N not a multiple of 128, or of 16: the bytewise fill)
 QMM_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
+# the 7b cfg.draft()'s projections, which phase 3l (c) runs at M = 8
+# under SERVE_DRAFT_QUANT=int8 (3l checks its draft against these):
+# wq, wk, wv, wo 2048 x 2048, w1 and w3 2048 x 5504, w2 5504 x 2048
+QMM_DRAFT_SHAPES = ((2048, 2048), (2048, 5504), (5504, 2048))
 QMM_TAILS = ((4100, 4112), (4100, 4104), (1000, 130), (77, 1001), (3, 5))
 QMM_ROWS = (1, 4, 8, 16)
 # a 7b layer's projections: wq, wk, wv, wo (4096 x 4096), w1 and w3
@@ -1212,7 +1286,7 @@ def phase_quant_matmul_vs_plain(report: dict) -> None:
     g.manual_seed(0)
     worst = {"float32": 0.0, "bfloat16": 0.0}
     cases = 0
-    for k, n in QMM_SHAPES + QMM_TAILS:
+    for k, n in QMM_SHAPES + QMM_DRAFT_SHAPES + QMM_TAILS:
         # |out| about 0.25, so bf16's rounding of the output is well
         # inside BF16_ATOL; column n // 2 all zero (scale 1.0)
         w = torch.randn(k, n, generator=g, device="cuda") * (0.25 / k ** 0.5)
@@ -1245,7 +1319,8 @@ def phase_quant_matmul_vs_plain(report: dict) -> None:
                                                  "differ")
         del w
     torch.cuda.synchronize()
-    log(f"quant_matmul vs plain: {cases} cases (7b shapes and tails, int8 "
+    log(f"quant_matmul vs plain: {cases} cases (7b and 7b draft shapes "
+        f"and tails, int8 "
         f"and int4 codes, M {QMM_ROWS}), max |err| f32 "
         f"{worst['float32']:.3e} (limit {QMM_F32_ATOL}), bf16 "
         f"{worst['bfloat16']:.3e} (limit {BF16_ATOL}); reruns bit-identical")
@@ -5231,6 +5306,815 @@ def phase_chunked_equalities() -> None:
     torch.cuda.empty_cache()
 
 
+# phase 3l: 3b's server and burst as speculative rings (SERVE_SPEC_K=4).
+SPEC_K = 4
+# (a)'s verify logits at its cold streams' committed tokens, against the
+# plain single-row forward's (the verify's own attention recipe at one
+# row) on the same lanes: max |gap| 0.125 read at 7b in bf16 (an H100
+# 80GB HBM3 at 700 W).  A planted fault, the same verify one position
+# off (``pos + 1``), is read in every run beside it and must land above
+# the limit, or the gate could not see such a fault
+SPEC_VERIFY_TOL = 0.15
+# a self-draft's acceptance: at f32 (4j) every draft but a rare near-tie;
+# at bf16 (3l) the draft's single-row tick (kernel #1) and the multi-row
+# verify pick different argmaxes at the near-ties random weights are full
+# of: they share the argmax on 0.906 of positions, which predicts
+# (p + p^2 + p^3 + p^4) / 4 = 0.786 of drafts kept, and 0.7708 was read
+# (7b on an H100 80GB HBM3 at 700 W).  The one-position-off verify's
+# argmax share predicts what a fault in the draft's or the verify's
+# positions keeps; 3l requires it below this limit, and the self-draft
+# above it
+SPEC_SELF_ACCEPT = 0.9
+SPEC_SELF_ACCEPT_BF16 = 0.5
+
+
+def _spec_burst(cfg, short: bool):
+    """3b's burst, drawn from 3b's generator in 3b's order so each
+    request is 3b's (kind, index): the 8 cold prompts (48 new tokens)
+    and, unless ``short``, 3b's 4 followers of the 512-token prompt and
+    its streamed request (32 new), then the resubmission.  A
+    speculative ring caches no prefix, so the followers and the
+    resubmission prefill whole and go with the rest."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+
+    def prompt(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    cold = [prompt(n) for n in (32, 100, 257, 300, 511, 512, 600, 1000)]
+    followers = [cold[5] + prompt(16) for _ in range(4)]
+    streamed = prompt(64)
+    jobs = [("cold", i, p, 48) for i, p in enumerate(cold)]
+    if not short:
+        jobs += ([("follower", i, p, 32) for i, p in enumerate(followers)]
+                 + [("stream", 0, streamed, 32)])
+    return jobs, ([("resubmit", 0, cold[5], 48)] if not short else [])
+
+
+def _spec_run(params, cfg, what: str, ring_kw: dict, short: bool) -> dict:
+    """One speculative server (3b's arguments plus ``ring_kw``: the
+    draft, ``spec_k``, ``kv_quant``, ``megastep``) under 3b's burst over
+    HTTP; gated: every request completes with its prompt echoed,
+    kernel #1 launched draft n_layers x (K+1) x rounds, kernels #2/#3
+    not at all, kernel #7 7 x that with a quantized draft (else 0),
+    every dispatch a replay of the prewarm graphs, ``/statusz`` and
+    ``/metrics`` reading the ring's own acceptance, ``specK`` and draft
+    mode, and ``paramBytes`` the target's plus the draft's.  Returns the
+    readings, the outputs by (kind, index) and the executor (its graphs
+    and state kept for timing)."""
+    from paddle_operator_tpu_torch.infer import quant as Q
+    from paddle_operator_tpu_torch.infer.serve import make_server
+    from paddle_operator_tpu_torch.ops import decode_attention as DA
+    from paddle_operator_tpu_torch.ops import quant_matmul as QM
+
+    kw = dict(RING, prewarm=True, **ring_kw)
+    megastep = kw.get("megastep", 1)
+    t_build = time.perf_counter()
+    srv = make_server("127.0.0.1", 0, params, cfg, **kw)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    batcher = srv.generator.batcher
+    ex = batcher.executor
+    dcfg = ex.draft_cfg
+    if not batcher.prewarmed.wait(600) or ex.needs_capture:
+        raise AssertionError(f"3l {what}: the ring's CUDA graphs were not "
+                             f"captured: {batcher.prewarm_error!r}")
+    capture = {"capture_s": ex.capture_s,
+               "up_s": time.perf_counter() - t_build,
+               "graph_pool_bytes": ex.graph_pool_bytes(),
+               "recorded": {n: g.launches for n, g in ex._graphs.items()}}
+    jobs, late = _spec_burst(cfg, short)
+    results, errors = {}, []
+
+    def send(kind, i, p, n):
+        try:
+            body = {"tokens": [p], "max_new_tokens": n}
+            results[kind, i] = (_post_stream(base, body) if kind == "stream"
+                                else _post(base, body))
+        except Exception as e:               # surfaced after the join
+            errors.append(f"{kind} {i}: {e!r}")
+
+    try:
+        stats0 = dict(batcher.stats)
+        replays0 = ex.graph_replays
+        _zero_launches()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=send, args=j) for j in jobs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        burst_s = time.perf_counter() - t0
+        for j in late:
+            send(*j)
+        with urllib.request.urlopen(base + "/statusz", timeout=60) as r:
+            statusz = json.loads(r.read())
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
+        srv.generator.close()
+    if errors:
+        raise AssertionError(f"3l {what}: requests failed: {errors}")
+    outputs, new_tokens = {}, 0
+    for kind, i, p, n in jobs + late:
+        if kind == "stream":
+            code, events, _, _ = results[kind, i]
+            done = events[-1]
+            if code != 200 or not done.get("done") \
+                    or "accept_rate" not in done:
+                raise AssertionError(f"3l {what}: streamed request: HTTP "
+                                     f"{code}, last event {str(done)[:200]}")
+            out = done["tokens"]
+        else:
+            code, body, _ = results[kind, i]
+            if code != 200 or len(body.get("accept_rate", ())) != 1:
+                raise AssertionError(f"3l {what}: {kind} {i}: HTTP {code} "
+                                     f"or no accept_rate")
+            out = body["tokens"][0]
+        _check_rows(cfg, p, out, n, f"3l {what} {kind} {i}")
+        outputs[kind, i] = out
+        if (kind, i, p, n) in jobs:
+            new_tokens += n
+    dispatches = batcher.stats["chunks"] - stats0["chunks"]
+    rounds = dispatches * megastep
+    replays = ex.graph_replays - replays0
+    ticks = dcfg.n_layers * (SPEC_K + 1) * rounds
+    dquant = Q.weight_quant_mode(ex.draft_params)
+    got = [DA.decode_attention.launches, DA.paged_decode_attention.launches,
+           DA.paged_decode_attention.quant_launches,
+           QM.quant_matmul.launches]
+    want = [ticks, 0, 0, 7 * ticks if dquant != "none" else 0]
+    drafted = batcher.stats["spec_drafted"] - stats0["spec_drafted"]
+    accepted = batcher.stats["spec_accepted"] - stats0["spec_accepted"]
+    run = {"what": what, "megastep": megastep,
+           "kv_quant": kw.get("kv_quant", "none"), "draft_quant": dquant,
+           "draft_layers": dcfg.n_layers, "dispatches": dispatches,
+           "rounds": rounds, "replays": replays,
+           "launches": dict(zip(("decode_attention",
+                                 "paged_decode_attention",
+                                 "paged_decode_attention_quant",
+                                 "quant_matmul"), got)),
+           "accept_rate": round(accepted / drafted, 4) if drafted else 0.0,
+           "statusz": {k: statusz.get(k) for k in (
+               "specK", "acceptRate", "draftQuantMode", "weightQuantMode",
+               "paramBytes", "kvQuantMode", "megastepN", "kvPoolBytes")},
+           "burst_s": burst_s, "burst_new_tokens": new_tokens,
+           "burst_new_tok_s": new_tokens / burst_s, **capture}
+    gauges = {ln.split("{")[0]: ln for ln in metrics.splitlines()
+              if ln.startswith(("tpujob_serve_accept_rate{",
+                                "tpujob_serve_weight_quant_mode{"))}
+    run["gauges"] = gauges
+    log(f"3l {what}: {json.dumps(run)}")
+    bad = []
+    if got != want:
+        bad.append(f"launches {got}, expected {want} (kernel #1 draft "
+                   f"n_layers {dcfg.n_layers} x (K+1) x rounds {rounds})")
+    if replays != dispatches:
+        bad.append(f"{dispatches} dispatches but {replays} graph replays")
+    if statusz.get("specK") != SPEC_K or statusz.get("draftQuantMode") \
+            != dquant or statusz.get("acceptRate") != run["accept_rate"] \
+            or statusz.get("megastepN") != megastep:
+        bad.append(f"/statusz {run['statusz']}")
+    rate = gauges.get("tpujob_serve_accept_rate", "")
+    wq = gauges.get("tpujob_serve_weight_quant_mode", "")
+    if not rate or float(rate.split(" ")[-1]) != run["accept_rate"] \
+            or f'draft="{dquant}"' not in wq:
+        bad.append(f"/metrics {gauges}")
+    if statusz.get("paramBytes") != (Q.param_bytes(params)
+                                     + Q.param_bytes(ex.draft_params)):
+        bad.append(f"paramBytes {statusz.get('paramBytes')}")
+    if bad:
+        raise AssertionError(f"3l {what}: {bad}")
+    return {"run": run, "outputs": outputs, "ex": ex}
+
+
+def _kept_share(p: float) -> float:
+    """The share of K drafts a greedy round keeps when each position's
+    argmax agrees with probability ``p``: (p + ... + p^K) / K."""
+    return sum(p ** j for j in range(1, SPEC_K + 1)) / SPEC_K
+
+
+def _verify_logit_gap(params, cfg, streams) -> dict:
+    """The verify's multi-row forward (rows of K+1 at the lanes'
+    positions, teacher-forced with the streams' own tokens) against
+    single-row forwards from the same prefilled lanes, at every
+    committed position: the plain single-row forward (the same
+    attention recipe as the verify: f32 scores, probabilities rounded
+    to the compute dtype) and the one a non-speculative ring runs
+    (kernel #1), and the two single-row forwards against each other.
+    Beside them a planted fault: the same verify one position off
+    (``pos + 1``, run first, so the sound verify overwrites its rows).
+    ``streams`` [(prompt, output)].  Returns the largest |logit| gaps,
+    over the whole vocabulary and at the committed tokens, and the share
+    of positions whose argmax the verify (the plain forward, the
+    shifted verify) shares with kernel #1's: a self-draft's chance to
+    keep a draft."""
+    import torch
+
+    from paddle_operator_tpu_torch.infer import decode as D
+    from paddle_operator_tpu_torch.infer import executor as X
+    from paddle_operator_tpu_torch.infer import speculative as SP
+
+    b = len(streams)
+    dev = params.tok_embed.embedding.device
+    plain = dataclasses.replace(cfg, decode_attn="plain")
+    max_len = max(len(o) for _, o in streams) + SPEC_K + 1
+    caches = [X.init_ring_cache(cfg, b, max_len, device=dev)
+              for _ in range(3)]
+    n_new = min(len(o) - len(p) for p, o in streams)
+    gaps = {k: 0.0 for k in ("verify_vs_plain", "verify_vs_kernel",
+                             "plain_vs_kernel", "shifted_vs_plain",
+                             "token_verify_vs_plain",
+                             "token_verify_vs_kernel",
+                             "token_shifted_vs_plain")}
+    same = {"argmax_verify_eq_kernel": 0, "argmax_plain_eq_kernel": 0,
+            "argmax_shifted_eq_kernel": 0}
+    rows_seen = 0
+    with torch.inference_mode():
+        for i, (p, _) in enumerate(streams):
+            lane = D.init_cache(cfg, 1, len(p), device=dev)
+            _, lane = D._forward(cfg, params, torch.tensor(
+                [p], dtype=torch.int32, device=dev), lane, last_only=True)
+            for c in caches:
+                X._splice_lane(c, lane, i, len(p))
+        for r in range((n_new - 1) // (SPEC_K + 1)):
+            start = [len(p) + r * (SPEC_K + 1) for p, _ in streams]
+            rows = [o[s:s + SPEC_K + 2] for (_, o), s in zip(streams, start)]
+            seq = torch.tensor([x[:-1] for x in rows], dtype=torch.int32,
+                               device=dev)
+            nxt = torch.tensor([x[1:] for x in rows], dtype=torch.int64,
+                               device=dev)
+            pos = torch.tensor(start, dtype=torch.int32, device=dev)
+            shifted, _ = SP._multi_forward(cfg, params, seq,
+                                           dict(caches[0], pos=pos + 1))
+            verify, _ = SP._multi_forward(cfg, params, seq,
+                                          dict(caches[0], pos=pos))
+            ones = [dict(caches[1], pos=pos), dict(caches[2], pos=pos)]
+            for j in range(SPEC_K + 1):
+                (lp, ones[0]), (lk, ones[1]) = (
+                    X._ring_forward(plain, params, seq[:, j], ones[0]),
+                    X._ring_forward(cfg, params, seq[:, j], ones[1]))
+                v, t = verify[:, j], nxt[:, j:j + 1]
+                sv = shifted[:, j]
+                for key, a in (("verify", v), ("plain", lp),
+                               ("shifted", sv)):
+                    same[f"argmax_{key}_eq_kernel"] += int(
+                        (a.argmax(-1) == lk.argmax(-1)).sum())
+                rows_seen += b
+                for key, a, c in (("verify_vs_plain", v, lp),
+                                  ("verify_vs_kernel", v, lk),
+                                  ("plain_vs_kernel", lp, lk),
+                                  ("shifted_vs_plain", sv, lp)):
+                    gaps[key] = max(gaps[key], float((a - c).abs().max()))
+                    if key != "plain_vs_kernel":
+                        gaps["token_" + key] = max(
+                            gaps["token_" + key],
+                            float((a.gather(1, t) - c.gather(1, t))
+                                  .abs().max()))
+    del caches
+    torch.cuda.empty_cache()
+    gaps.update({k: v / rows_seen for k, v in same.items()})
+    return gaps
+
+
+def _spec_round_ms(ex, cfg, fill: int, reps: int = 10) -> dict:
+    """A round's device ms on the executor ``ex`` of a run (graphs and
+    state kept, its ring thread ended): 8 lanes admitted cold at
+    ``fill`` tokens, then the round's CUDA graph replayed ``reps`` times
+    between CUDA events, and its pieces, each as a graph of its own
+    (``time_ms``): the draft's K+1 ticks, the verify over the pool, the
+    acceptance.  Beside each, a bound: the bytes the piece must read
+    (weights once, the lanes' filled K/V rows once) at 3.35 TB/s."""
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.infer import executor as X
+    from paddle_operator_tpu_torch.infer import quant as Q
+    from paddle_operator_tpu_torch.infer import speculative as SP
+
+    rng = np.random.default_rng(3)
+    slots = ex.slots
+    k = SPEC_K
+    with torch.inference_mode():
+        for slot in range(slots):
+            p = rng.integers(0, cfg.vocab_size, fill).tolist()
+            n = len(p)
+            bucket = next(b for b in ex.buckets if n <= b)
+            dev = X.to_device(np.asarray([p], np.int32), ex.device)
+            ex.pool.admit(slot, p)
+            ex.pool.ensure(slot, fill + (reps + 4) * (k + 1))
+            row = X.to_device(ex.pool.table[slot], ex.device, torch.int32)
+            ex.inserts[bucket](ex.params, ex.cache, row, ex.tok, ex.temp,
+                               ex.seeds, dev, n, slot, 0.0, 0)
+            ex.draft_prefill(slot, dev, n)
+        plan = X.ExecPlan(1, [True] * slots, table=ex.pool.table)
+        ex._upload(plan)
+        g = ex._graphs[1]
+        g.graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            g.graph.replay()
+        end.record()
+        end.synchronize()
+        round_ms = start.elapsed_time(end) / reps
+        committed = int(g.counts.sum())
+        _, _, _, _, table = ex._plan_views()
+        dcfg, dparams = ex.draft_cfg, ex.draft_params
+        tok = ex.tok.clone()
+        dcache = dict(ex.dcache)
+        seq = torch.randint(0, cfg.vocab_size, (slots, k + 1),
+                            dtype=torch.int32, device=ex.device)
+        active = torch.ones(slots, dtype=torch.bool, device=ex.device)
+
+        def draft(_):
+            dc = dict(dcache)
+            for _ in range(k + 1):
+                _, dc = X._ring_forward(dcfg, dparams, tok, dc)
+
+        def verify(_):
+            return SP._multi_forward_paged(cfg, ex.params, seq,
+                                           dict(ex.cache), table,
+                                           quant=ex.quant)
+
+        tl = torch.randn(slots, k + 1, cfg.vocab_size, device=ex.device)
+        dl = torch.randn(slots, k, cfg.vocab_size, device=ex.device)
+        drafts = seq[:, 1:].contiguous()
+        pos = ex.cache["pos"].clone()
+
+        def accept(_):
+            return SP.spec_accept(tl, dl, drafts, ex.temp, ex.seeds, pos,
+                                  active)
+
+        draft_ms, _ = time_ms(draft, 2)
+        verify_ms, _ = time_ms(verify, 2)
+        accept_ms, _ = time_ms(accept, 4)
+        resync_ms = None
+        if ex.quant:
+            # the int8 tail resync, every lane needing it (its cost does
+            # not depend on how many do: no branch)
+            end = pos + k + 1
+
+            def resync(_):
+                SP._resync_tails(ex.cache, table, end, pos, active)
+
+            resync_ms, _ = time_ms(resync, 4)
+    kv_row = 2 * cfg.n_kv_heads * cfg.head_dim * (
+        1 if ex.quant else torch.empty((), dtype=cfg.dtype).element_size())
+    dkv_row = 2 * dcfg.n_kv_heads * dcfg.head_dim * torch.empty(
+        (), dtype=dcfg.dtype).element_size()
+    fills = slots * fill
+    draft_bytes = (k + 1) * (Q.param_bytes(dparams)
+                             + dcfg.n_layers * dkv_row * fills)
+    verify_bytes = (Q.param_bytes(ex.params) + cfg.n_layers * kv_row * fills)
+    out = {"fill": fill, "lanes": slots, "round_ms": round_ms,
+           "tokens_per_round": committed / slots,
+           "draft_ms": draft_ms, "verify_ms": verify_ms,
+           "accept_ms": accept_ms, "resync_ms": resync_ms,
+           "draft_bound_ms": draft_bytes / HBM_BYTES_PER_S * 1e3,
+           "verify_bound_ms": verify_bytes / HBM_BYTES_PER_S * 1e3}
+    for slot in range(slots):
+        ex.pool.retire(slot)
+    return out
+
+
+def _spec_main_boot(cfg, extra: dict) -> dict:
+    """``serve.main()`` as a pod runs it: ``python -m
+    paddle_operator_tpu_torch.infer.serve`` in a process of its own with
+    3b's ring (``SERVE_CONTINUOUS=1 SERVE_PAGED=1``, 8 slots, block 256,
+    64 blocks) and ``SERVE_SPEC_K=4``, plus ``extra``; no checkpoint, so
+    the 7b target from seed 0 and the ``SERVE_DRAFT=auto`` draft from
+    seed 1.  Once ``/readyz`` answers: one request, then ``/statusz``;
+    then SIGTERM, which must drain and exit 83.  The process is killed
+    if it is still up when this returns.  Returns the startup line, the
+    response, the status keys and the exit code."""
+    import signal
+    import socket
+
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        port = so.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("TPUJOB_CHECKPOINT_PATH",
+                        "TPUJOB_DRAFT_CHECKPOINT_PATH")}
+    env.update(MODEL_PRESET="7b", SERVE_CONTINUOUS="1", SERVE_PAGED="1",
+               SERVE_SLOTS=str(RING["slots"]),
+               SERVE_CHUNK=str(RING["chunk_tokens"]),
+               SERVE_BLOCK_SIZE=str(RING["block_size"]),
+               SERVE_NUM_BLOCKS="64", SERVE_MAX_LEN=str(RING["max_len"]),
+               SERVE_SPEC_K=str(SPEC_K), TPUJOB_PORT=str(port),
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT)] + ([env["PYTHONPATH"]]
+                                  if env.get("PYTHONPATH") else [])),
+               **extra)
+    what = " ".join(f"{k}={v}" for k, v in extra.items()) or "no extra"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_operator_tpu_torch.infer.serve"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    lines = []
+    reader = threading.Thread(target=lambda: lines.extend(proc.stdout),
+                              daemon=True)
+    reader.start()
+    base = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"3l main() ({what}) exited "
+                                     f"{proc.returncode} before it was "
+                                     f"ready: {''.join(lines)[-3000:]}")
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError(f"3l main() ({what}) not ready in "
+                                     f"600 s: {''.join(lines)[-3000:]}")
+            try:
+                with urllib.request.urlopen(base + "/readyz",
+                                            timeout=5) as r:
+                    if r.status == 200:
+                        break
+            except OSError:
+                pass
+            time.sleep(1.0)
+        ready_s = time.perf_counter() - t0
+        prompt = list(range(1, 40))
+        code, body, _ = _post(base, {"tokens": [prompt],
+                                     "max_new_tokens": 16})
+        with urllib.request.urlopen(base + "/statusz", timeout=60) as r:
+            statusz = json.loads(r.read())
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=10)
+    if code != 200:
+        raise AssertionError(f"3l main() ({what}): HTTP {code}")
+    _check_rows(cfg, prompt, body["tokens"][0], 16, f"3l main() {what}")
+    startup = next((ln.strip() for ln in lines
+                    if ln.startswith("serving ")), "")
+    return {"startup": startup, "ready_s": ready_s, "rc": rc,
+            "accept_rate": body.get("accept_rate"),
+            "statusz": {k: statusz.get(k) for k in (
+                "specK", "acceptRate", "draftQuantMode", "paramBytes",
+                "tokensTotal")}}
+
+
+def phase_spec_ring(contiguous: dict, qmm: dict, params, cfg,
+                    ring_tokens=None, bf16_ring=None) -> None:
+    """Phase 3l: speculative decoding on 3b's server; see the module
+    docstring."""
+    import torch
+
+    from paddle_operator_tpu_torch.infer import quant as Q
+    from paddle_operator_tpu_torch.infer.serve import spec_kw_from_env
+
+    base = {"SERVE_SPEC_K": str(SPEC_K)}
+    runs = {}
+
+    def clean():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (a) SERVE_DRAFT=auto through the entry point's draft boot: a
+    # random cfg.draft() from seed 1
+    t0 = time.perf_counter()
+    auto = spec_kw_from_env(dict(base, SERVE_DRAFT="auto"), cfg, "cuda")
+    log(f"3l: draft {auto['draft_cfg'].n_layers} layers, dim "
+        f"{auto['draft_cfg'].dim}, {auto['draft_cfg'].n_heads} heads "
+        f"({Q.param_bytes(auto['draft_params'])} bytes) built in "
+        f"{time.perf_counter() - t0:.1f}s")
+    a = _spec_run(params, cfg, "a: random draft", auto, short=False)
+    runs["a"] = a["run"]
+    # kernel #1 ran at the draft-ring shape phase 2 checked
+    dk = a["ex"].dcache["k"]
+    want = tuple(SPEC_DRAFT_ATTN[k] for k in ("layers", "b", "hkv", "s",
+                                               "d"))
+    if tuple(dk.shape) != want or dk.dtype != torch.bfloat16 \
+            or a["ex"].draft_cfg.n_heads != SPEC_DRAFT_ATTN["hq"]:
+        raise AssertionError(f"3l: the draft ring {tuple(dk.shape)} "
+                             f"{dk.dtype}, {a['ex'].draft_cfg.n_heads} "
+                             f"heads, is not phase 2's {SPEC_DRAFT_ATTN}")
+    timing = _spec_round_ms(a["ex"], cfg, fill=520)
+    log(f"3l round (7b, 8 lanes, fill 520, K {SPEC_K}, random draft, "
+        f"{card_line()}): {json.dumps(timing)}")
+    del a["ex"]
+    clean()
+    gap = _verify_logit_gap(params, cfg, [
+        (p, a["outputs"][kind, i])
+        for kind, i, p, _ in _spec_burst(cfg, True)[0]])
+    gap["kept_share_verify"] = _kept_share(gap["argmax_verify_eq_kernel"])
+    gap["kept_share_shifted"] = _kept_share(gap["argmax_shifted_eq_kernel"])
+    log(f"3l: the verify's logits at the committed positions against the "
+        f"single-row forwards, and a verify one position off (max |gap|; "
+        f"at the committed tokens the verify against the plain one is "
+        f"held to {SPEC_VERIFY_TOL}, which the shifted one must exceed): "
+        f"{json.dumps(gap)}")
+    if gap["token_verify_vs_plain"] > SPEC_VERIFY_TOL:
+        raise AssertionError(f"3l: verify logits at the committed tokens "
+                             f"{gap['token_verify_vs_plain']} from the plain "
+                             f"single-row forward's (limit "
+                             f"{SPEC_VERIFY_TOL})")
+    if gap["token_shifted_vs_plain"] <= SPEC_VERIFY_TOL:
+        raise AssertionError(f"3l: a verify one position off reads "
+                             f"{gap['token_shifted_vs_plain']}, within the "
+                             f"limit {SPEC_VERIFY_TOL}: the gate cannot "
+                             f"see it")
+    if gap["kept_share_shifted"] >= SPEC_SELF_ACCEPT_BF16:
+        raise AssertionError(f"3l: a verify one position off would keep "
+                             f"{gap['kept_share_shifted']:.4f} of a "
+                             f"self-draft's drafts, not below the limit "
+                             f"{SPEC_SELF_ACCEPT_BF16}")
+    # megastep 4 == megastep 1 (the cold requests)
+    a4 = _spec_run(params, cfg, "a: random draft, megastep 4",
+                   dict(auto, megastep=4), short=True)
+    runs["a_megastep4"] = a4["run"]
+    del a4["ex"]
+    clean()
+    differ = [k for k in a4["outputs"] if a4["outputs"][k]
+              != a["outputs"][k]]
+    if differ:
+        raise AssertionError(f"3l: megastep 4 tokens differ from megastep "
+                             f"1's for {differ}")
+    # (b) a self-draft: the target drafts for itself
+    b = _spec_run(params, cfg, "b: self-draft",
+                  {"draft_params": params, "draft_cfg": cfg,
+                   "spec_k": SPEC_K}, short=True)
+    runs["b"] = b["run"]
+    del b["ex"]
+    clean()
+    if b["run"]["accept_rate"] < SPEC_SELF_ACCEPT_BF16:
+        raise AssertionError(f"3l: a self-draft accepted "
+                             f"{b['run']['accept_rate']} of its drafts "
+                             f"(at least {SPEC_SELF_ACCEPT_BF16} expected)")
+    # (c) (a) with SERVE_DRAFT_QUANT=int8
+    c = _spec_run(params, cfg, "c: random draft, SERVE_DRAFT_QUANT=int8",
+                  spec_kw_from_env(dict(base, SERVE_DRAFT_QUANT="int8"), cfg,
+                                   "cuda"), short=True)
+    runs["c"] = c["run"]
+    # kernel #7 ran at the projection shapes phase 2e checked
+    shapes = {tuple(m.q.shape) for m in c["ex"].draft_params.modules()
+              if getattr(m, "mode", "none") != "none"}
+    if not shapes or not shapes <= set(QMM_DRAFT_SHAPES):
+        raise AssertionError(f"3l (c): the draft's quantized projections "
+                             f"{sorted(shapes)} are not phase 2e's "
+                             f"{QMM_DRAFT_SHAPES}")
+    del c["ex"]
+    clean()
+    # (d) (a) on the int8 pool, where the tail resync is live
+    d = _spec_run(params, cfg, "d: random draft, int8 pool",
+                  dict(auto, kv_quant="int8"), short=True)
+    runs["d"] = d["run"]
+    timing_int8 = _spec_round_ms(d["ex"], cfg, fill=520)
+    log(f"3l round on the int8 pool (same shape, {card_line()}): "
+        f"{json.dumps(timing_int8)}")
+    del d["ex"], auto
+    clean()
+    # (e) serve.main() boots the speculative paged ring from the env, as
+    # a pod does, with and without SERVE_DRAFT_QUANT=int8
+    boots = {}
+    for key, extra, run in (("e", {}, "a"),
+                            ("e_int8", {"SERVE_DRAFT_QUANT": "int8"}, "c")):
+        boot = _spec_main_boot(cfg, extra)
+        boots[key] = boot
+        log(f"3l ({key}) serve.main(): {json.dumps(boot)}")
+        st, dq = boot["statusz"], runs[run]["draft_quant"]
+        bad = []
+        if boot["rc"] != 83:
+            bad.append(f"exit {boot['rc']} on SIGTERM, 83 expected")
+        if f"spec_k={SPEC_K}," not in boot["startup"] \
+                or f"draft_quant={dq}," not in boot["startup"]:
+            bad.append(f"startup line {boot['startup']!r}")
+        if st["specK"] != SPEC_K or st["draftQuantMode"] != dq \
+                or boot["accept_rate"] is None \
+                or st["acceptRate"] != boot["accept_rate"][0] \
+                or st["paramBytes"] != runs[run]["statusz"]["paramBytes"]:
+            bad.append(f"/statusz {st} (the response's accept_rate "
+                       f"{boot['accept_rate']}, paramBytes "
+                       f"{runs[run]['statusz']['paramBytes']} expected)")
+        if bad:
+            raise AssertionError(f"3l ({key}) serve.main(): {bad}")
+    agree = None
+    if ring_tokens is not None:
+        common = [k for k in a["outputs"] if k in ring_tokens]
+        agree = (sum(a["outputs"][k] == ring_tokens[k] for k in common),
+                 len(common))
+    spec = {"k": SPEC_K, "launches": runs["a"]["launches"][
+                "decode_attention"],
+            "round": timing, "round_int8": timing_int8,
+            "verify_logit_gap": gap,
+            "main_boots": boots,
+            "agree_with_3b": agree,
+            "tok_s": runs["a"]["burst_new_tok_s"],
+            "tok_s_3b": bf16_ring["burst_new_tok_s"] if bf16_ring else None,
+            "runs": runs}
+    tok_s_3b = spec["tok_s_3b"]
+    log(f"3l (a smoke reading of one burst a run, not a benchmark; "
+        f"{card_line()}): random draft {spec['tok_s']:.1f} new tok/s over "
+        f"3b's burst against 3b's "
+        f"{tok_s_3b if tok_s_3b is None else round(tok_s_3b, 1)}"
+        f"; requests equal to 3b's {agree}; round {timing['round_ms']:.2f} "
+        f"ms (draft {timing['draft_ms']:.2f}, verify "
+        f"{timing['verify_ms']:.2f}, acceptance {timing['accept_ms']:.3f}) "
+        f"committing {timing['tokens_per_round']:.2f} tokens a lane; "
+        f"acceptance random {runs['a']['accept_rate']}, self "
+        f"{runs['b']['accept_rate']}, draft int8 {runs['c']['accept_rate']}"
+        f", int8 pool {runs['d']['accept_rate']}")
+    contiguous["spec"] = spec
+    qmm["draft_quant"] = {"launches": runs["c"]["launches"]["quant_matmul"],
+                          "rounds": runs["c"]["rounds"],
+                          "draft_layers": runs["c"]["draft_layers"]}
+
+
+def phase_spec_equalities() -> None:
+    """Phase 4j: the speculative rings == ``generate`` under graph
+    replay; see the module docstring."""
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.infer import decode as D
+    from paddle_operator_tpu_torch.infer.batcher import ContinuousBatcher
+    from paddle_operator_tpu_torch.infer.qos import QoSConfig
+    from paddle_operator_tpu_torch.models.llama import Llama, make_model
+    from paddle_operator_tpu_torch.ops import decode_attention as DA
+
+    params, cfg = make_model("7b", device="cuda", seed=9, n_layers=2,
+                             dtype=torch.float32)
+    dcfg = cfg.draft()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    dparams = Llama(dcfg, "cuda").init_weights(gen)
+    params.requires_grad_(False)
+    dparams.requires_grad_(False)
+    drafts = {"random": (dparams, dcfg), "self": (params, cfg)}
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (40, 300, 129, 64)]
+    n_new, max_len = 24, 512
+    with torch.inference_mode():
+        want = [D.generate(params, cfg,
+                           torch.tensor([p], dtype=torch.int32,
+                                        device="cuda"),
+                           max_new_tokens=n_new, max_len=max_len)[0]
+                .tolist() for p in prompts]
+
+    def ring(name, kw, draft="random", megastep=1, **extra):
+        dp, dc = drafts[draft]
+        args = dict(slots=4, max_len=max_len, chunk_tokens=8,
+                    megastep=megastep, prewarm=True, draft_params=dp,
+                    draft_cfg=dc, spec_k=SPEC_K, **kw)
+        args.update(extra)
+        return ContinuousBatcher(params, cfg, **args)
+
+    def serve(b, what, reqs):
+        ex = b.executor
+        try:
+            if not b.prewarmed.wait(600) or ex.needs_capture:
+                raise AssertionError(f"4j {what}: no graphs captured: "
+                                     f"{b.prewarm_error!r}")
+            graphs, ptrs = ex._graphs, ex._state_ptrs()
+            _zero_launches()
+            out = [h.result(timeout=600) for h in [
+                b.submit(p, max_new_tokens=n_new, **kw) for p, kw in reqs]]
+            rounds = b.stats["chunks"] * b.megastep
+            got = [DA.decode_attention.launches,
+                   DA.paged_decode_attention.launches
+                   + DA.paged_decode_attention.quant_launches]
+            bad = []
+            if ex.graph_replays != b.stats["chunks"] or not (
+                    ex._graphs is graphs and ex._state_ptrs() == ptrs):
+                bad.append("not every dispatch a replay of the prewarm "
+                           "graphs at their addresses")
+            if got != [ex.draft_cfg.n_layers * (SPEC_K + 1) * rounds, 0]:
+                bad.append(f"decode kernel launches {got} over {rounds} "
+                           "rounds")
+            if b.pool is not None:
+                b.pool.check_invariant()
+            if bad:
+                raise AssertionError(f"4j {what}: {bad}")
+            return out, b.serving_status()["acceptRate"]
+        finally:
+            b.close()
+
+    def agree(a, b):
+        return f"{sum(x == y for x, y in zip(a, b))}/{len(b)}"
+
+    greedy = [(p, {}) for p in prompts]
+    for name, kw in MEGA_RINGS:
+        outs = {}
+        for draft in ("random", "self"):
+            for megastep in (1, 4):
+                outs[draft, megastep], rate = serve(
+                    ring(name, kw, draft, megastep),
+                    f"{name} {draft} megastep {megastep}", greedy)
+                # (on the int8 pool the verify reads codes where the
+                # draft read exact rows: its acceptance is printed)
+                log(f"4j {name} {draft} megastep {megastep}: acceptRate "
+                    f"{rate}")
+                if draft == "self" and name != "int8" \
+                        and rate < SPEC_SELF_ACCEPT:
+                    raise AssertionError(f"4j {name}: a self-draft accepted "
+                                         f"{rate} of its drafts")
+        chunked, _ = serve(ring(name, kw, prefill_mode="chunked",
+                                prefill_chunk=24),
+                           f"{name} chunked", greedy)
+        one = outs["random", 1]
+        plain_line = ""
+        if name == "int8":
+            # the non-speculative int8 ring on the same prompts, for the
+            # record: how far the int8 pool alone takes a stream from
+            # generate's
+            b = ring(name, kw, spec_k=0, draft_params=None, draft_cfg=None)
+            try:
+                b.prewarmed.wait(600)
+                plain8 = [h.result(timeout=600) for h in [
+                    b.submit(p, max_new_tokens=n_new) for p in prompts]]
+            finally:
+                b.close()
+            plain_line = (f"; the non-speculative int8 ring == generate on "
+                          f"{agree(plain8, want)}, == this ring on "
+                          f"{agree(one, plain8)}")
+        line = (f"spec {name} ring (7b width, 2 layers, f32, K {SPEC_K}, "
+                f"graph replays): megastep 4 == 1 on "
+                f"{agree(outs['random', 4], one)} (random draft) and "
+                f"{agree(outs['self', 4], outs['self', 1])} (self-draft); "
+                f"self == random on {agree(outs['self', 1], one)}; chunked "
+                f"== inline on {agree(chunked, one)}; == generate on "
+                f"{agree(one, want)}{plain_line}")
+        log(line)
+        if outs["random", 4] != one or outs["self", 4] != outs["self", 1]:
+            raise AssertionError(line)
+        # the int8 pool's tokens need not equal the exact cache's, and a
+        # verify reads the blocks it completed as codes where a
+        # single-row tick read its rows exact: held to itself
+        if name != "int8" and not (
+                one == outs["self", 1] == chunked == want):
+            raise AssertionError(line)
+    # a spill and restore mid-speculation, both pools: the victim
+    # resumes its uninterrupted stream
+    for name, kw in MEGA_RINGS[1:]:
+        b = ring(name, kw, "self", slots=1, num_blocks=64,
+                 qos=QoSConfig(priorities=2, default_priority=1))
+        try:
+            b.prewarmed.wait(600)
+            victim = prompts[0]
+            alone = b.submit(victim, max_new_tokens=40).result(timeout=600)
+            real = b.executor.replay
+            gate = threading.Event()
+            gate.set()
+
+            def slow(plan, real=real, gate=gate):
+                gate.wait(timeout=120)
+                time.sleep(0.02)
+                return real(plan)
+
+            b.executor.replay = slow
+            n0, c0 = b.stats["admitted"], b.stats["chunks"]
+            h = b.submit(victim, max_new_tokens=40)
+            while b.stats["chunks"] < c0 + 2 or b.stats["admitted"] <= n0:
+                time.sleep(0.001)
+            gate.clear()
+            h0 = b.submit(prompts[3][:7], max_new_tokens=4, priority=0)
+            gate.set()
+            h0.result(timeout=600)
+            out = h.result(timeout=600)
+            line = (f"spec {name} ring: a lane spilled and restored "
+                    f"mid-speculation ({b.stats['preempted_lanes']} "
+                    f"spills) == its uninterrupted stream: {out == alone}"
+                    f"; == generate: {out[:len(victim) + n_new] == want[0]}")
+            log(line)
+            if out != alone or b.stats["restored_lanes"] < 1 or (
+                    name == "paged" and out[:len(victim) + n_new]
+                    != want[0]):
+                raise AssertionError(line)
+            b.pool.check_invariant()
+        finally:
+            b.close()
+    # sampled streams: deterministic per seed, inside the vocabulary
+    b = ring("contiguous", MEGA_RINGS[0][1])
+    try:
+        b.prewarmed.wait(600)
+        s1, s2 = [b.submit(prompts[1], max_new_tokens=n_new,
+                           temperature=0.8, seed=5).result(timeout=600)
+                  for _ in range(2)]
+    finally:
+        b.close()
+    log(f"spec sampled stream (T 0.8, seed 5): repeat equal {s1 == s2}, "
+        f"in vocab {0 <= min(s1) and max(s1) < cfg.vocab_size}")
+    if s1 != s2 or min(s1) < 0 or max(s1) >= cfg.vocab_size:
+        raise AssertionError("4j: a sampled spec stream is not "
+                             "deterministic per seed or left the vocab")
+    del params, dparams
+    torch.cuda.empty_cache()
+
+
 def phase_train_kernel_equals_plain() -> None:
     """Phase 4c: three f32 train steps through the flash kernels and
     through the plain attention, from the same init."""
@@ -5363,7 +6247,7 @@ def main() -> int:
     run("2e", phase_quant_matmul_vs_plain, qmm)
     run("2f", phase_adam8bit_vs_plain, adam8)
     run("2c", phase_flash_vs_plain, flash)
-    if phases & {"3", "3b", "3d", "3e", "3g", "3h", "3i", "3j"}:
+    if phases & {"3", "3b", "3d", "3e", "3g", "3h", "3i", "3j", "3l"}:
         params, cfg = make_7b()
         run("3", phase_main_path, contiguous, params, cfg)
         ring_tokens = run("3b", phase_ring_main_path, paged, params, cfg)
@@ -5387,6 +6271,10 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         run("3j", phase_interleave, (paged, quant), params, cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        run("3l", phase_spec_ring, contiguous, qmm, params, cfg,
+            ring_tokens, paged.get("ring"))
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -5402,13 +6290,15 @@ def main() -> int:
     run("4g", phase_host_tier_equalities)
     run("4h", phase_weight_quant_equalities)
     run("4i", phase_chunked_equalities)
+    run("4j", phase_spec_equalities)
     log(f"all phases: {time.perf_counter() - t_all:.1f}s")
 
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "max_abs_err_f32", "max_abs_err_bf16",
              "decode_ms_per_step_b4", "kernel1_ms", "paged_bf16_ms", "ring",
-             "ring_megastep", "preempt", "host_tier", "interleave", "train",
+             "ring_megastep", "spec", "draft_quant", "preempt", "host_tier",
+             "interleave", "train",
              "checkpoint", "depth",
              "fwd_bwd", "designs",
              "ptxas",

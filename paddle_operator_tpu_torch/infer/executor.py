@@ -46,9 +46,16 @@ Chunked prefill (SERVE_PREFILL=chunked) admits a prompt in
 :meth:`RingExecutor.chunk_prog` appends a slice's KV (a private staging
 lane on the contiguous ring, the lane's blocks on the paged pools) and
 :meth:`RingExecutor.final_insert` runs the last slice, samples the first
-token and activates the lane, every write in place.  Not ported yet
-(ROADMAP.md Queue A): speculative rounds, disaggregated prefill and LoRA
-adapters.
+token and activates the lane, every write in place.
+
+Speculative decoding (``spec_k``, SERVE_SPEC_K; infer/speculative.py)
+replaces the chunk step with the round: the draft's K+1 propose ticks
+on its own contiguous ring (``dcache``, beside the target's cache of
+either kind), the target's multi-row verify, the acceptance and the
+rewind, each dispatch (a round, or N rounds fused) replayed as a CUDA
+graph; the admissions prefill the draft lane too, and a spilled lane
+carries it.  Not ported yet (ROADMAP.md Queue A): disaggregated prefill
+and LoRA adapters.
 """
 
 from __future__ import annotations
@@ -107,21 +114,26 @@ class DispatchResult:
     pipelining queue holds it until the consume boundary.  ``toks`` is
     the device tensor [chunk, B] at ``n_steps`` 1 and [n, chunk, B]
     fused; ``counts`` [n, B] the rows of each fused boundary the host
-    consumes (None at ``n_steps`` 1, where every row is valid).  On the
-    card their copies to pinned host memory are queued right behind the
-    dispatch (``_host``, ``_event``), so the consume waits for THIS
-    dispatch only, never for the one dispatched after it.  Under a CUDA
-    graph the device tensors are the graph's static outputs, which the
-    next replay overwrites: read them through the host copies."""
+    consumes (None at ``n_steps`` 1, where every row is valid).  A
+    speculative ring's dispatch is always shaped as fused: ``toks`` [n,
+    K+1, B] committed tokens, ``counts`` [n, B] and ``raw`` [n, B], each
+    round's device commit count (the acceptance telemetry; ``counts``
+    equals it at ``n_steps`` 1).  On the card their copies to pinned
+    host memory are queued right behind the dispatch (``_host``,
+    ``_event``), so the consume waits for THIS dispatch only, never for
+    the one dispatched after it.  Under a CUDA graph the device tensors
+    are the graph's static outputs, which the next replay overwrites:
+    read them through the host copies."""
 
-    __slots__ = ("toks", "counts", "n_steps", "_host", "_event")
+    __slots__ = ("toks", "counts", "raw", "n_steps", "_host", "_event")
 
-    def __init__(self, toks, counts, n_steps):
+    def __init__(self, toks, counts, n_steps, raw=None):
         self.toks = toks
         self.counts = counts
+        self.raw = raw
         self.n_steps = n_steps
         self._host, self._event = _to_host_async(
-            *(t for t in (toks, counts) if t is not None))
+            *(t for t in (toks, counts, raw) if t is not None))
 
     def host(self) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """``(toks, counts)`` on the host — the ring's one sync."""
@@ -130,6 +142,11 @@ class DispatchResult:
         toks = self._host[0].numpy()
         return toks, (self._host[1].numpy() if self.counts is not None
                       else None)
+
+    def raw_host(self) -> Optional[np.ndarray]:
+        """``raw`` on the host (after :meth:`host`), None off a
+        speculative ring."""
+        return self._host[-1].numpy() if self.raw is not None else None
 
 
 def _to_host_async(*ts: torch.Tensor):
@@ -446,19 +463,33 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def _gumbel(seeds: torch.Tensor, pos: torch.Tensor,
-            vocab: int) -> torch.Tensor:
-    """[B, V] standard Gumbel noise, a pure function of each lane's
-    (seed, position) and the vocab id — computed on the device, no
-    generator state, so a lane's draws never depend on its
-    co-residents or on how many other lanes sampled before it."""
+def _uniform(seeds: torch.Tensor, pos: torch.Tensor, n: int) -> torch.Tensor:
+    """[B, n] uniforms in (0, 1), a pure function of each lane's (seed,
+    position) and the column — computed on the device, no generator
+    state, so a lane's draws never depend on its co-residents or on how
+    many other lanes sampled before it."""
     s = _mix32((seeds.long() & _M32) ^ 0x9E3779B9)
     s = _mix32(s ^ (pos.long() & _M32))
-    ids = torch.arange(vocab, device=seeds.device, dtype=torch.int64)
+    ids = torch.arange(n, device=seeds.device, dtype=torch.int64)
     h = _mix32((s[:, None] + _mul32(ids, 0x85EBCA6B)[None, :]) & _M32)
     h = _mix32(h ^ 0x27D4EB2F)
-    u = (h >> 8).float() * (2.0 ** -24) + 2.0 ** -25      # (0, 1)
-    return -torch.log(-torch.log(u))
+    return (h >> 8).float() * (2.0 ** -24) + 2.0 ** -25
+
+
+def _gumbel(seeds: torch.Tensor, pos: torch.Tensor,
+            vocab: int) -> torch.Tensor:
+    """[B, V] standard Gumbel noise of (seed, position, vocab id), from
+    :func:`_uniform`."""
+    return -torch.log(-torch.log(_uniform(seeds, pos, vocab)))
+
+
+def _stream(seeds: torch.Tensor, stream: int) -> torch.Tensor:
+    """The seeds of sampling stream ``stream`` (1, 2, 3, ...): each
+    lane's seed hashed with the stream id, so draws keyed on a stream's
+    seeds are independent of stream 0 (the seeds themselves, which
+    :func:`_sample_tokens` uses) and of every other stream — the port's
+    form of ``jax.random.fold_in(key, stream)``."""
+    return _mix32((seeds.long() & _M32) ^ (stream * 0x632BE5AB & _M32))
 
 
 def _sample_tokens(logits: torch.Tensor, temp: torch.Tensor,
@@ -566,31 +597,37 @@ def _mega_continue(toks: torch.Tensor, raw: torch.Tensor,
     return count, live2, left2, steps2
 
 
-def _fused(run_chunk, n_steps: int, chunk_tokens: int,
-           cache: Dict[str, torch.Tensor], tok: torch.Tensor,
+def _fused(run_chunk, n_steps: int, caches, tok: torch.Tensor,
            active: torch.Tensor, eos: torch.Tensor, left: torch.Tensor,
            steps: torch.Tensor):
-    """The megastep's outer loop over ``n_steps`` chunks (the JAX
-    outer ``scan``): ``run_chunk(tok, live) -> (tok', toks [chunk, B])``
-    runs one chunk with the lanes outside ``live`` masked; at each
+    """The megastep's outer loop over ``n_steps`` iterations (the JAX
+    outer ``scan``), shared by the plain and speculative megasteps:
+    ``run_chunk(tok, live) -> (tok', toks [T, B][, raw [B]])`` runs one
+    iteration with the lanes outside ``live`` masked (``raw``: the rows
+    of ``toks`` each lane produced, 0 outside ``live``; a plain chunk
+    leaves it out, every row of a live lane being valid); at each
     boundary :func:`_mega_continue` advances the continuation state and
-    a lane that was not live through the chunk gets back the position
-    it had before it (so a lane frozen by its step budget resumes where
-    its last consumed token left it).  Returns ``(tok', toks [n, chunk,
-    B], counts [n, B])``."""
+    a lane that was not live through the iteration gets back the
+    positions it had before it in every cache of ``caches`` (so a lane
+    frozen by its step budget resumes where its last consumed token
+    left it).  Returns ``(tok', toks [n, T, B], counts [n, B], raws
+    [n, B])``."""
     live = active & (left > 0) & (steps > 0)
-    all_toks, counts = [], []
+    all_toks, counts, raws = [], [], []
     for _ in range(n_steps):
-        p0 = cache["pos"].clone()
-        tok, toks = run_chunk(tok, live)
-        raw = torch.where(live, chunk_tokens, 0).to(torch.int32)
+        p0 = [c["pos"].clone() for c in caches]
+        tok, toks, *raw = run_chunk(tok, live)
+        raw = (raw[0] if raw
+               else torch.where(live, toks.shape[0], 0).to(torch.int32))
         count, live2, left, steps = _mega_continue(toks, raw, live, left,
                                                    steps, eos)
-        cache["pos"] = torch.where(live, cache["pos"], p0)
+        for c, p in zip(caches, p0):
+            c["pos"] = torch.where(live, c["pos"], p)
         live = live2
         all_toks.append(toks)
         counts.append(count)
-    return tok, torch.stack(all_toks), torch.stack(counts)
+        raws.append(raw)
+    return tok, torch.stack(all_toks), torch.stack(counts), torch.stack(raws)
 
 
 def make_megastep(cfg: LlamaConfig, chunk_tokens: int, n_steps: int,
@@ -622,8 +659,9 @@ def make_megastep(cfg: LlamaConfig, chunk_tokens: int, n_steps: int,
                           cache, t, temp, seeds, live, chunk_tokens, top_k,
                           top_p)
 
-        return _fused(run_chunk, n_steps, chunk_tokens, cache, tok, active,
-                      eos, left, steps)
+        tok, toks, counts, _ = _fused(run_chunk, n_steps, (cache,), tok,
+                                      active, eos, left, steps)
+        return tok, toks, counts
 
     return mega
 
@@ -755,12 +793,13 @@ class _Graph:
     """One captured resident program: the graph, its static outputs and
     the kernel launches it recorded."""
 
-    __slots__ = ("graph", "toks", "counts", "launches")
+    __slots__ = ("graph", "toks", "counts", "raw", "launches")
 
-    def __init__(self, graph, toks, counts, launches):
+    def __init__(self, graph, toks, counts, raw, launches):
         self.graph = graph
         self.toks = toks
         self.counts = counts
+        self.raw = raw
         self.launches = launches
 
 
@@ -797,7 +836,13 @@ class RingExecutor:
     (:meth:`capture_graphs`, while no lane is resident), and
     :meth:`replay` replays them: the plan goes into one static device
     buffer, the state (cache, tok, temp, seeds) stays at fixed
-    addresses, and admissions write it in place between replays."""
+    addresses, and admissions write it in place between replays.
+
+    ``spec_k`` > 0 (with ``draft_params`` and ``draft_cfg``): the
+    resident programs are the speculative round and its megastep
+    (infer/speculative.py) over the target's cache and the draft's
+    contiguous ring ``dcache``; the prefix cache and the host tier are
+    off, as on the JAX ring."""
 
     # a prefix hit with a LONGER divergent suffix admits through the
     # cold block-granular prefill instead (the JAX package's cut-over
@@ -814,7 +859,10 @@ class RingExecutor:
                  prefix_cache: bool = True,
                  kv_quant: str = "none", megastep: int = 1,
                  host_cache_blocks: int = 0,
-                 prefill_chunk: int = 64) -> None:
+                 prefill_chunk: int = 64,
+                 draft_params: Any = None,
+                 draft_cfg: Optional[LlamaConfig] = None,
+                 spec_k: int = 0) -> None:
         if int(megastep) < 1:
             raise ValueError(f"megastep must be >= 1 (got {megastep})")
         self.megastep = int(megastep)
@@ -863,6 +911,12 @@ class RingExecutor:
             # prefix cache on
             self.host_cache_blocks = (int(host_cache_blocks)
                                       if self.prefix_cache else 0)
+            if spec_k:
+                # a speculative ring turns the prefix cache and the host
+                # tier off, as the JAX ring does: every admission
+                # prefills the draft's whole prompt anyway
+                self.prefix_cache = False
+                self.host_cache_blocks = 0
             self.pool = PG.PagedCacheManager(
                 slots, max_len, self.block_size, num_blocks,
                 prefix_cache=self.prefix_cache,
@@ -891,6 +945,17 @@ class RingExecutor:
             self.step = make_chunk_step(cfg, chunk_tokens, top_k, top_p)
             self.inserts = {b: make_prefill_insert(cfg, b, top_k, top_p)
                             for b in self.buckets}
+        # SERVE_SPEC_K: speculative rounds (infer/speculative.py) replace
+        # the chunk step as the resident program, and every admission
+        # prefills the draft lane too
+        self.spec_k = int(spec_k)
+        self.draft_cfg = draft_cfg
+        self.draft_params = None
+        self.dcache: Optional[Dict[str, torch.Tensor]] = None
+        if self.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0 (got {spec_k})")
+        if self.spec_k:
+            self._init_spec(draft_params, draft_cfg)
         self._mega: Dict[int, Any] = {}
         # the plan's one static device buffer (int32): active, eos,
         # left, steps ([slots] each), then the table [slots, M]
@@ -901,6 +966,52 @@ class RingExecutor:
         self.capture_s = 0.0
         self.graph_replays = 0
         self.reset_state()
+
+    def _init_spec(self, draft_params: Any,
+                   draft_cfg: Optional[LlamaConfig]) -> None:
+        """The speculative ring's checks and its 1-step program, the
+        round.  The admissions stay the target's: the scheduler adds
+        :meth:`draft_prefill` after each."""
+        from paddle_operator_tpu_torch.infer.speculative import (
+            check_draft_compat,
+            make_spec_round_fn,
+        )
+
+        cfg = self.cfg
+        if draft_params is None or draft_cfg is None:
+            raise ValueError("spec_k > 0 requires draft_params and "
+                             "draft_cfg (see LlamaConfig.draft())")
+        check_draft_compat(cfg, draft_cfg)
+        if self.max_len > draft_cfg.max_seq_len:
+            raise ValueError(
+                f"draft max_seq_len ({draft_cfg.max_seq_len}) < ring "
+                f"max_len ({self.max_len}); derive the draft with "
+                "cfg.draft() to inherit the target's RoPE table")
+        ddev = draft_params.tok_embed.embedding.device
+        if ddev != self.device:
+            raise ValueError(f"the draft's params are on {ddev}, the "
+                             f"target's on {self.device}")
+        self.draft_params = draft_params
+        self.step = make_spec_round_fn(cfg, draft_cfg, self.spec_k,
+                                       self.top_k, self.top_p,
+                                       quant=self.quant)
+
+    @torch.inference_mode()
+    def draft_prefill(self, slot: int, prompt: torch.Tensor,
+                      prompt_len: int) -> None:
+        """The draft's half of a speculative admission, queued after the
+        target's insert (or chunked prefill's final slice): prefill the
+        whole prompt ([1, n] on the card, its first ``prompt_len`` tokens
+        real) through the draft model into a batch-of-one lane and
+        splice it into the draft ring's lane ``slot`` at position
+        ``prompt_len``, in place.  The logits are discarded: the draft
+        needs only the KV context to propose from.  The draft lane is a
+        contiguous ring whatever the target's cache is."""
+        dcfg = self.draft_cfg
+        dlane = D.init_cache(dcfg, 1, prompt_len, device=prompt.device)
+        _, dlane = D._forward(dcfg, self.draft_params,
+                              prompt[:, :prompt_len], dlane, last_only=True)
+        _splice_lane(self.dcache, dlane, slot, prompt_len)
 
     # -- state lifecycle ---------------------------------------------------
 
@@ -940,6 +1051,15 @@ class RingExecutor:
         self._pool_bytes = sum(t.numel() * t.element_size()
                                for key, t in self.cache.items()
                                if key != "pos")
+        if self.spec_k:
+            # the draft's contiguous ring, allocated once: a rebuild
+            # zeroes it in place (a heal rebuilds BOTH caches)
+            if self.dcache is None:
+                self.dcache = init_ring_cache(self.draft_cfg, self.slots,
+                                              self.max_len, device=dev)
+            else:
+                for t in self.dcache.values():
+                    t.zero_()
         self.tok = torch.zeros((self.slots,), dtype=torch.int32, device=dev)
         self.temp = torch.zeros((self.slots,), dtype=torch.float32,
                                 device=dev)
@@ -955,9 +1075,13 @@ class RingExecutor:
             return
         from paddle_operator_tpu_torch.ops import _build
 
-        if self.cfg.resolved_decode_attn(self.device) == "kernel":
+        models = [(self.cfg, self.params)]
+        if self.spec_k:
+            models.append((self.draft_cfg, self.draft_params))
+        if any(cfg.resolved_decode_attn(self.device) == "kernel"
+               for cfg, _ in models):
             _build.load("decode_attention")
-        if Q.weight_quant_mode(self.params) != "none":
+        if any(Q.weight_quant_mode(p) != "none" for _, p in models):
             _build.load("quant_matmul")
         self.capture_graphs()
 
@@ -968,7 +1092,15 @@ class RingExecutor:
         (contiguous, paged or int8 paged), built once per N."""
         prog = self._mega.get(n)
         if prog is None:
-            if self.paged:
+            if self.spec_k:
+                from paddle_operator_tpu_torch.infer.speculative import (
+                    make_spec_megastep,
+                )
+
+                prog = make_spec_megastep(
+                    self.cfg, self.draft_cfg, self.spec_k, n, self.top_k,
+                    self.top_p, quant=self.quant)
+            elif self.paged:
                 prog = self._pg.make_paged_megastep(
                     self.cfg, self.chunk, n, self.top_k, self.top_p,
                     quant=self.quant)
@@ -1009,20 +1141,34 @@ class RingExecutor:
         graph replays (for comparing the two).  Returns ``(toks,
         counts)``."""
         self._upload(plan)
-        return self._program(plan.n_steps)
+        return self._program(plan.n_steps)[:2]
 
     def _program(self, n_steps: int):
         """The resident program of ``n_steps`` fused iterations over the
         static state and the uploaded plan — what :meth:`run` calls and
         :meth:`capture_graphs` records (1 step: ``self.step``, the seam
-        pacing and fault-injection wrappers install on).  The state
-        stays at its addresses: positions and tokens are written back in
-        place.  Returns ``(toks, counts)``."""
+        pacing and fault-injection wrappers install on; on a speculative
+        ring the round).  The state stays at its addresses: positions
+        and tokens are written back in place.  Returns ``(toks, counts,
+        raw)`` (``raw`` None off a speculative ring)."""
         active_i, eos, left, steps, table = self._plan_views()
         active = active_i != 0
         lead = (table,) if self.paged else ()
-        pos = self.cache["pos"]
-        if n_steps == 1:
+        caches = [self.cache] + ([self.dcache] if self.spec_k else [])
+        held = [c["pos"] for c in caches]
+        raw = None
+        if self.spec_k:
+            args = (self.params, self.draft_params, self.cache, self.dcache,
+                    self.tok, self.temp, self.seeds, active)
+            tbl = table if self.paged else None
+            if n_steps == 1:
+                tok, toks, counts = self.step(*args, table=tbl)
+                toks, counts = toks[None], counts[None]
+                raw = counts
+            else:
+                tok, toks, raw, counts = self.megastep_prog(n_steps)(
+                    *args, eos, left, steps, table=tbl)
+        elif n_steps == 1:
             tok, toks = self.step(self.params, self.cache, *lead, self.tok,
                                   self.temp, self.seeds, active)
             counts = None
@@ -1030,10 +1176,11 @@ class RingExecutor:
             tok, toks, counts = self.megastep_prog(n_steps)(
                 self.params, self.cache, *lead, self.tok, self.temp,
                 self.seeds, active, eos, left, steps)
-        pos.copy_(self.cache["pos"])
-        self.cache["pos"] = pos
+        for c, pos in zip(caches, held):
+            pos.copy_(c["pos"])
+            c["pos"] = pos
         self.tok.copy_(tok)
-        return toks, counts
+        return toks, counts, raw
 
     def replay(self, plan: ExecPlan) -> DispatchResult:
         """Execute one scheduler-filled :class:`ExecPlan` against the
@@ -1045,7 +1192,9 @@ class RingExecutor:
         already queued."""
         n = plan.n_steps
         if self.device.type != "cuda":
-            return DispatchResult(*self.run(plan), n)
+            self._upload(plan)
+            toks, counts, raw = self._program(n)
+            return DispatchResult(toks, counts, n, raw)
         g = (self._graphs or {}).get(n)
         if g is None:
             raise RuntimeError(
@@ -1056,7 +1205,7 @@ class RingExecutor:
         g.graph.replay()
         self.graph_replays += 1
         _add_launches(g.launches)
-        return DispatchResult(g.toks, g.counts, n)
+        return DispatchResult(g.toks, g.counts, n, g.raw)
 
     @property
     def needs_capture(self) -> bool:
@@ -1081,7 +1230,8 @@ class RingExecutor:
         capture's own are taken back off."""
         if not self.needs_capture:
             return
-        if bool(self.cache["pos"].any()):
+        if bool(self.cache["pos"].any()) or (
+                self.spec_k and bool(self.dcache["pos"].any())):
             raise RuntimeError("capture_graphs: lanes are resident "
                                "(non-zero positions); capture only while "
                                "the ring is empty")
@@ -1113,8 +1263,8 @@ class RingExecutor:
                     g = torch.cuda.CUDAGraph()
                     with torch.cuda.graph(g, pool=pool,
                                           capture_error_mode="thread_local"):
-                        toks, counts = self._program(n)
-                    graphs[n] = _Graph(g, toks, counts, [
+                        toks, counts, raw = self._program(n)
+                    graphs[n] = _Graph(g, toks, counts, raw, [
                         b - a for a, b in zip(c0, _launch_counts())])
             finally:
                 if collecting:
@@ -1138,6 +1288,9 @@ class RingExecutor:
     def _state_ptrs(self) -> Dict[str, int]:
         """Addresses of the state a captured graph reads."""
         ptrs = {key: t.data_ptr() for key, t in self.cache.items()}
+        if self.spec_k:
+            ptrs.update({"d" + key: t.data_ptr()
+                         for key, t in self.dcache.items()})
         ptrs.update(tok=self.tok.data_ptr(), temp=self.temp.data_ptr(),
                     seeds=self.seeds.data_ptr(), plan=self._plan.data_ptr())
         return ptrs
@@ -1273,10 +1426,11 @@ class RingExecutor:
         The keys and layouts are the JAX package's (``n_blocks``,
         ``pos``, ``tok``, ``temp``; ``k``/``v`` [L, m, H_kv, bs, D];
         ``ks``/``vs`` [L, m, H_kv] and ``kt``/``vt`` [L, H_kv, bs, D]
-        under int8), with ``seed`` (the lane's int64 sampler seed) where
-        JAX keeps ``key``.  The tensors are CPU tensors — pinned on the
-        card, where the device copies are queued together and waited
-        for once."""
+        under int8; on a speculative ring the draft lane ``dk``/``dv``
+        [L, H_kv, S, D] and ``dpos``), with ``seed`` (the lane's int64
+        sampler seed) where JAX keeps ``key``.  The tensors are CPU
+        tensors — pinned on the card, where the device copies are queued
+        together and waited for once."""
         pm = self.pool
         m = int(pm.mapped_count[slot])
         ids = to_device(np.asarray(pm.table[slot][:m], np.int32),
@@ -1291,8 +1445,21 @@ class RingExecutor:
                 memory_format=torch.contiguous_format)
             parts["vt"] = c["vt"][:, slot].clone(
                 memory_format=torch.contiguous_format)
+        if self.spec_k:
+            # the DRAFT lane is resident context too (a contiguous ring
+            # lane, captured whole: rows past dpos are hidden by the fill
+            # mask): a round resumed without it would propose from a
+            # zeroed draft cache and diverge from the uninterrupted stream
+            # the moment a draft is accepted
+            d = self.dcache
+            parts["dk"] = d["k"][:, slot].clone(
+                memory_format=torch.contiguous_format)
+            parts["dv"] = d["v"][:, slot].clone(
+                memory_format=torch.contiguous_format)
         lane = torch.stack([c["pos"][slot].long(), self.tok[slot].long(),
-                            self.seeds[slot].long()])
+                            self.seeds[slot].long()]
+                           + ([self.dcache["pos"][slot].long()]
+                              if self.spec_k else []))
         temp = self.temp[slot:slot + 1].clone()
         hosts, ev = _to_host_async(*parts.values(), lane, temp)
         if ev is not None:
@@ -1302,19 +1469,21 @@ class RingExecutor:
             "n_blocks": m, "pos": int(lane[0]), "tok": int(lane[1]),
             "temp": float(temp[0]), "seed": int(lane[2])}
         spill.update(zip(parts, blocks))
-        # the draft lane (spec_k, Queue A item 7) and the adapter id
-        # (aid, item 8) join the spill with those items; the ring
-        # refuses both at construction
+        if self.spec_k:
+            spill["dpos"] = int(lane[3])
+        # the adapter id (aid, Queue A item 5) joins the spill with the
+        # adapters; the ring refuses them at construction
         return spill
 
     @torch.inference_mode()
     def restore_lane(self, slot: int, spill: Dict[str, Any]) -> None:
         """Re-admit a spilled lane into the empty ``slot``: map fresh pool
         blocks, upload the spilled blocks through the promote scatter,
-        write the staging-tail row (int8) and the lane's pos, tok, temp
-        and seed — every write in place, so the captured graphs read the
-        restored lane at the addresses they hold, and the resumed stream
-        is bit-identical to the uninterrupted one.  No forward runs.
+        write the staging-tail row (int8), the draft lane (speculative)
+        and the lane's pos, tok, temp and seed — every write in place,
+        so the captured graphs read the restored lane at the addresses
+        they hold, and the resumed stream is bit-identical to the
+        uninterrupted one.  No forward runs.
         Raises :class:`~paddle_operator_tpu_torch.infer.paged.
         NoFreeBlocks` when the pool cannot map the lane (the caller
         retires ``slot`` to roll the partial mapping back)."""
@@ -1332,6 +1501,11 @@ class RingExecutor:
         if self.quant:
             c["kt"][:, slot].copy_(to_device(spill["kt"], self.device))
             c["vt"][:, slot].copy_(to_device(spill["vt"], self.device))
+        if self.spec_k:
+            d = self.dcache
+            d["k"][:, slot].copy_(to_device(spill["dk"], self.device))
+            d["v"][:, slot].copy_(to_device(spill["dv"], self.device))
+            d["pos"][slot].fill_(int(spill["dpos"]))
         # fill_, not item assignment: assigning a Python number to a
         # CUDA tensor copies it from pageable memory and waits for the
         # stream, i.e. for any dispatch in flight
@@ -1427,8 +1601,12 @@ class RingExecutor:
         return self._pool_bytes
 
     def param_bytes(self) -> int:
-        """Device bytes of the served params, as the JAX package counts
-        them (infer/quant.py ``param_bytes``: a quantized projection's
-        codes and scales, not the RoPE tables) — the
+        """Device bytes of the served params (the target, plus the draft
+        on a speculative ring), as the JAX package counts them
+        (infer/quant.py ``param_bytes``: a quantized projection's codes
+        and scales, not the RoPE tables) — the
         ``tpujob_serve_param_bytes`` gauge."""
-        return Q.param_bytes(self.params)
+        total = Q.param_bytes(self.params)
+        if self.draft_params is not None:
+            total += Q.param_bytes(self.draft_params)
+        return total

@@ -1224,8 +1224,9 @@ def make_paged_megastep(cfg: LlamaConfig, chunk_tokens: int, n_steps: int,
                     active=live if quant else None),
                 cache, t, temp, seeds, live, chunk_tokens, top_k, top_p)
 
-        return _fused(run_chunk, n_steps, chunk_tokens, cache, tok, active,
-                      eos, left, steps)
+        tok, toks, counts, _ = _fused(run_chunk, n_steps, (cache,), tok,
+                                      active, eos, left, steps)
+        return tok, toks, counts
 
     return mega
 

@@ -47,10 +47,16 @@ promote back on a hit, the batched promote queued at the head of each
 admission) and, below it, the durable prefix store
 (:meth:`ContinuousBatcher.attach_kv_store`: tier overflow persists, and
 the submit thread probes the store for a prompt's missing chain, whose
-payloads the ring imports into the tier before admission).  Not ported
-yet, and refused when asked for (ROADMAP.md Queue A): speculative
-decoding, disaggregated prefill, LoRA adapters, span tracing, the
-NaN-lane check, live weight swap and fleet-level KV.
+payloads the ring imports into the tier before admission).
+
+``spec_k`` > 0 with ``draft_params``/``draft_cfg`` (SERVE_SPEC_K) makes
+every dispatch a speculative round (or N of them, fused) on any of the
+three rings: a dispatch commits 1..K+1 tokens a lane, which the consume
+walks as it walks a chunk, and each request counts its drafts offered
+and accepted (``accept_rate``, ``/statusz`` ``acceptRate``).  Not ported
+yet, and refused when asked for (ROADMAP.md Queue A): disaggregated
+prefill, LoRA adapters, span tracing, the NaN-lane check, live weight
+swap and fleet-level KV.
 """
 
 from __future__ import annotations
@@ -108,7 +114,7 @@ class _Request:
                  "done", "out", "error", "_stream", "_cancel",
                  "dev_prompt", "bucket", "deadline", "deadline_exceeded",
                  "priority", "request_id", "t_submit", "t_first",
-                 "t_last_tok", "preempts")
+                 "t_last_tok", "preempts", "accepted", "drafted")
 
     def __init__(self, prompt, max_new, temperature, seed, eos,
                  wants_stream=False, deadline=None):
@@ -138,8 +144,21 @@ class _Request:
         # ring thread never pays the host->device copy
         self.dev_prompt: Optional[torch.Tensor] = None
         self.bucket: int = 0
+        # speculative telemetry (spec_k > 0 rings): drafts offered and
+        # accepted for THIS request — serve.py returns the rate
+        self.accepted = 0
+        self.drafted = 0
         self._stream: Optional["queue.Queue"] = (
             queue.Queue() if wants_stream else None)
+
+    @property
+    def accept_rate(self) -> Optional[float]:
+        """Accepted drafts / offered drafts for this request, or None
+        when the ring is not speculative (or no round has consumed
+        yet)."""
+        if not self.drafted:
+            return None
+        return round(self.accepted / self.drafted, 4)
 
     def result(self, timeout: Optional[float] = None) -> List[int]:
         if not self.done.wait(timeout):
@@ -254,8 +273,6 @@ class ContinuousBatcher:
                              f"{PREFILL_MODES}")
         for bad, what in (
                 (mesh is not None, "tensor-parallel serving (mesh)"),
-                (spec_k or draft_params is not None,
-                 "speculative decoding (spec_k)"),
                 (prefill_mode == "disagg",
                  f"prefill_mode={prefill_mode!r}"),
                 (adapters is not None, "LoRA adapters"),
@@ -310,8 +327,11 @@ class ContinuousBatcher:
             num_blocks=num_blocks, prefix_cache=prefix_cache,
             kv_quant=kv_quant, megastep=self.megastep,
             host_cache_blocks=host_cache_blocks,
-            prefill_chunk=prefill_chunk)
+            prefill_chunk=prefill_chunk, draft_params=draft_params,
+            draft_cfg=draft_cfg, spec_k=spec_k)
         self.device = self.executor.device
+        self.spec_k = self.executor.spec_k
+        self.draft_cfg = self.executor.draft_cfg
         self.generation = int(generation)
         self.paged = self.executor.paged
         self._top_k, self._top_p = top_k, top_p
@@ -361,6 +381,8 @@ class ContinuousBatcher:
                       "prefill_calls": 0, "prefill_tokens": 0,
                       "chunked_prefill_tokens": 0,
                       "cow_copies": 0, "deadline_exceeded": 0,
+                      # speculative rounds: drafts offered and accepted
+                      "spec_accepted": 0, "spec_drafted": 0,
                       "watchdog_restarts": 0,
                       # lanes spilled for more urgent work, and spilled
                       # lanes resumed (tpujob_serve_lane_preemptions_total)
@@ -393,6 +415,10 @@ class ContinuousBatcher:
     @property
     def params(self):
         return self.executor.params
+
+    @property
+    def draft_params(self):
+        return self.executor.draft_params
 
     @property
     def buckets(self):
@@ -479,14 +505,26 @@ class ContinuousBatcher:
             raise ValueError(
                 f"prompt length {n} exceeds the largest prefill "
                 f"bucket ({self.buckets[-1]}){rid}")
-        # the FIRST token is sampled from the prefill logits, so only
-        # max_new-1 tokens ride chunk steps; the worst-case cache
-        # position is prompt + ceil((max_new-1)/chunk)*chunk
-        budget = -(-(max_new_tokens - 1) // self.chunk) * self.chunk
-        if n + budget > self.max_len:
-            raise ValueError(
-                f"prompt ({n}) + chunk-rounded budget "
-                f"({budget}) exceeds max_len ({self.max_len}){rid}")
+        if self.spec_k:
+            # a verify round starting at the last in-budget position
+            # (prompt + max_new - 2) writes rows through pos + spec_k,
+            # so spec_k - 1 positions of headroom must exist past
+            # prompt + max_new
+            if n + max_new_tokens + self.spec_k - 1 > self.max_len:
+                raise ValueError(
+                    f"prompt ({n}) + max_new_tokens "
+                    f"({max_new_tokens}) + speculative headroom "
+                    f"({self.spec_k - 1}) exceeds max_len "
+                    f"({self.max_len}){rid}")
+        else:
+            # the FIRST token is sampled from the prefill logits, so
+            # only max_new-1 tokens ride chunk steps; the worst-case
+            # cache position is prompt + ceil((max_new-1)/chunk)*chunk
+            budget = -(-(max_new_tokens - 1) // self.chunk) * self.chunk
+            if n + budget > self.max_len:
+                raise ValueError(
+                    f"prompt ({n}) + chunk-rounded budget "
+                    f"({budget}) exceeds max_len ({self.max_len}){rid}")
         # validation passed: NOW pay the tokenize copy
         prompt = list(map(int, prompt))
         if min(prompt) < 0 or max(prompt) >= self.cfg.vocab_size:
@@ -561,6 +599,12 @@ class ContinuousBatcher:
         except OSError:
             return 0, 0
 
+    def draft_quant_mode(self) -> str:
+        """Weight-quant mode of the DRAFT params ("none" on
+        non-speculative rings) — SERVE_DRAFT_QUANT's visibility."""
+        dp = self.executor.draft_params
+        return Q.weight_quant_mode(dp) if dp is not None else "none"
+
     def prefill_queue_depth(self) -> int:
         """Requests admitted to a lane but still PREFILLING (chunked
         slices mid-flight) — the ``tpujob_serve_prefill_queue_depth``
@@ -576,9 +620,11 @@ class ContinuousBatcher:
         kv_store_blocks, kv_store_bytes = self._kv_store_usage()
         store = self.kv_store
         pf_tok = self.stats["prefill_tokens"]
+        drafted = self.stats["spec_drafted"]
         return {
             "tokensPerSec": round(self._tokens_emitted / elapsed, 2),
-            "acceptRate": 0.0,
+            "acceptRate": (round(self.stats["spec_accepted"] / drafted, 4)
+                           if drafted else 0.0),
             "queueDepth": self._pending.qsize(),
             "tokensTotal": self._tokens_emitted,
             "activeLanes": sum(r is not None for r in self.lane),
@@ -602,7 +648,7 @@ class ContinuousBatcher:
             "kvQuantMode": self.kv_quant,
             "kvPoolBytes": self.executor.pool_bytes(),
             "weightQuantMode": Q.weight_quant_mode(self.executor.params),
-            "draftQuantMode": "none",
+            "draftQuantMode": self.draft_quant_mode(),
             "paramBytes": self.executor.param_bytes(),
             "chunkedPrefillTokenShare": (
                 round(self.stats["chunked_prefill_tokens"] / pf_tok, 4)
@@ -637,6 +683,9 @@ class ContinuousBatcher:
             "weightGeneration": int(self.generation),
             "servingTp": 1,
             "weightSwaps": 0,
+            # the round's draft depth, on speculative rings only (the
+            # JAX status has no such key; its fingerprint does)
+            **({"specK": self.spec_k} if self.spec_k else {}),
         }
 
     @property
@@ -849,8 +898,11 @@ class ContinuousBatcher:
         """A lane's prefill is queued: wire up the decode-side
         bookkeeping so the next chunk dispatch includes it.  The first
         token's host copy is queued now, behind the insert, and read at
-        the next consume."""
+        the next consume.  A speculative ring prefills the lane's draft
+        here too, behind the target's insert."""
         n = len(req.prompt)
+        if self.spec_k:
+            self.executor.draft_prefill(slot, req.dev_prompt, n)
         self._lane_out[slot] = []
         self._lane_first[slot] = X._to_host_async(first.reshape(1))
         self._lane_left[slot] = req.max_new
@@ -1208,7 +1260,7 @@ class ContinuousBatcher:
                 "headDim": int(self.cfg.head_dim),
                 "blockSize": int(ex.block_size),
                 "quant": ex.kv_quant,
-                "specK": 0,
+                "specK": int(ex.spec_k),
                 "generation": int(self.generation)}
 
     def attach_kv_store(self, store) -> None:
@@ -1310,7 +1362,8 @@ class ContinuousBatcher:
         self._shed_queue(ShuttingDown("batcher closed"))
 
     def _consume(self, chunk_reqs, toks: np.ndarray,
-                 counts: Optional[np.ndarray] = None) -> None:
+                 counts: Optional[np.ndarray] = None,
+                 spec_raw: Optional[np.ndarray] = None) -> None:
         """Apply one finished chunk's tokens ([chunk, slots] on host).
         ``chunk_reqs`` pins each lane to the REQUEST the chunk was
         dispatched for: under pipelining a lane may have been evicted
@@ -1321,7 +1374,13 @@ class ContinuousBatcher:
         is also its device position advance (full chunks while live, 0
         once dead); None means every row is valid.  The budget/eos walk
         below is shared, so an eos inside a fused iteration truncates
-        exactly like one inside a chunk."""
+        exactly like one inside a chunk.
+
+        ``spec_raw`` (speculative rings): each lane's DEVICE commit count
+        for the round — its position advance, even where the eos/budget
+        walk stops earlier (the lane is then evicted and its position
+        zeroed regardless), and the acceptance telemetry; 0 marks a
+        fused round the lane sat out, which feeds no stat."""
         now = time.monotonic()
         for i, req in chunk_reqs:
             if req is None or self.lane[i] is not req \
@@ -1329,7 +1388,17 @@ class ContinuousBatcher:
                 continue
             self._materialize_first(i, req)
             n = toks.shape[0] if counts is None else int(counts[i])
-            self._lane_pos[i] += n
+            if spec_raw is not None:
+                n_raw = int(spec_raw[i])
+                if n_raw == 0:
+                    continue    # a fused round the (dead) lane sat out
+                self._lane_pos[i] += n_raw
+                self.stats["spec_drafted"] += self.spec_k
+                self.stats["spec_accepted"] += n_raw - 1
+                req.drafted += self.spec_k
+                req.accepted += n_raw - 1
+            else:
+                self._lane_pos[i] += n
             emitted = 0
             for t in toks[:n, i]:
                 if self._lane_left[i] <= 0:
@@ -1364,6 +1433,7 @@ class ContinuousBatcher:
             wd.begin(scale=res.n_steps)
         try:
             toks, counts = res.host()
+            raw = res.raw_host()
         finally:
             if wd is not None:
                 wd.end()
@@ -1384,7 +1454,8 @@ class ContinuousBatcher:
         # (counts); a lane evicted at boundary r drops out of rounds
         # r+1.. through the chunk_reqs identity guard
         for r in range(res.n_steps):
-            self._consume(chunk_reqs, toks[r], counts=counts[r])
+            self._consume(chunk_reqs, toks[r], counts=counts[r],
+                          spec_raw=None if raw is None else raw[r])
 
     def _loop_body(self) -> None:
         # Up to ``pipeline_depth`` chunks in flight: the host consumes
@@ -1548,21 +1619,25 @@ class ContinuousBatcher:
                 # flight for it (the host pos mirror lags dispatched-
                 # but-unconsumed work; a fused megastep advances up to
                 # n_steps chunks, capped by the lane's own remaining
-                # token budget).  An undersized pool can run dry
-                # mid-generation: only the lane that cannot grow fails
-                # (its request resolves with the error), and the rest of
-                # the ring keeps serving.
+                # token budget; a speculative round advances a
+                # data-dependent 1..K+1, so the bound is the worst case).
+                # An undersized pool can run dry mid-generation: only
+                # the lane that cannot grow fails (its request resolves
+                # with the error), and the rest of the ring keeps
+                # serving.
+                advance = self.spec_k + 1 if self.spec_k else self.chunk
                 for i in list(active_idx):
                     inflight = sum(entry.n_steps
                                    for chunk_reqs, entry, _ in pending
                                    for j, r in chunk_reqs
                                    if j == i and r is self.lane[i])
                     left_i = max(1, self._lane_left[i])
-                    my_steps = min(n_mega, -(-left_i // self.chunk))
+                    my_steps = (min(n_mega, left_i) if self.spec_k
+                                else min(n_mega, -(-left_i // self.chunk)))
                     try:
                         self.pool.ensure(
                             i, self._lane_pos[i]
-                            + (inflight + my_steps) * self.chunk)
+                            + (inflight + my_steps) * advance)
                     except ex._pg.NoFreeBlocks as e:
                         r = self.lane[i]
                         if r is not None and r.error is None:

@@ -25,7 +25,13 @@ Two modes, as in the JAX package:
   pool as int8 codes + per-block scales (and implies SERVE_PAGED=1);
   ``SERVE_HOST_CACHE_MB`` adds the host spill tier behind the radix
   cache and ``SERVE_KV_STORE=dir:/path`` the durable prefix store below
-  it (:func:`wire_kv_store_from_env`).
+  it (:func:`wire_kv_store_from_env`).  With ``SERVE_SPEC_K=K`` the
+  ring decodes SPECULATIVELY (infer/speculative.py): a draft model
+  (``SERVE_DRAFT``: "auto" derives ``cfg.draft()``, or a preset name;
+  its weights from ``TPUJOB_DRAFT_CHECKPOINT_PATH``, quantized under
+  ``SERVE_DRAFT_QUANT``; :func:`spec_kw_from_env`) proposes K tokens a
+  round, the target verifies them in one forward, and every response
+  carries the per-row ``accept_rate``.
   Streaming (``"stream": true``),
   deadlines (``X-Request-Deadline``/``deadline_s``, 504 partials),
   priorities (``X-Request-Priority``/``priority``; on the paged ring a
@@ -127,7 +133,7 @@ class ContinuousGenerator:
                  top_p: Optional[float] = None,
                  eos_token: Optional[int] = None,
                  seed: int = 0) -> list:
-        rows, _ = self.generate_rows(
+        rows, _, _ = self.generate_rows(
             tokens, max_new_tokens=max_new_tokens, temperature=temperature,
             top_k=top_k, top_p=top_p, eos_token=eos_token, seed=seed)
         return rows
@@ -141,8 +147,10 @@ class ContinuousGenerator:
                       deadline_s: Optional[float] = None,
                       priority: Optional[int] = None,
                       adapter: Optional[str] = None):
-        """Rows + per-row deadline-exceeded flags (a flagged row carries
-        the PARTIAL tokens produced before its budget ran out).
+        """Rows + per-row speculative accept rates (None entries when
+        the ring is not speculative) + per-row deadline-exceeded flags
+        (a flagged row carries the PARTIAL tokens produced before its
+        budget ran out).
         ``request_id`` is threaded into ``submit`` per row so capacity
         rejections name the offender."""
         if (top_k, top_p) != (self.batcher._top_k, self.batcher._top_p) \
@@ -171,7 +179,8 @@ class ContinuousGenerator:
             for r in reqs:
                 r.cancel()
             raise
-        return rows, [r.deadline_exceeded for r in reqs]
+        return (rows, [r.accept_rate for r in reqs],
+                [r.deadline_exceeded for r in reqs])
 
     def close(self) -> None:
         self.batcher.close()
@@ -311,6 +320,8 @@ class _Handler(BaseHTTPRequestHandler):
             for tok in handle.stream(timeout=600):
                 emit({"token": tok})
             done_ev = {"done": True, "tokens": handle.result(timeout=5)}
+            if handle.accept_rate is not None:   # speculative ring
+                done_ev["accept_rate"] = handle.accept_rate
             if handle.deadline_exceeded:         # 504-style partial
                 done_ev["deadline_exceeded"] = True
             emit(done_ev)
@@ -403,7 +414,7 @@ class _Handler(BaseHTTPRequestHandler):
                 seed=int(req.get("seed", 0)))
             gen = self.generator
             if continuous:
-                rows, expired = gen.generate_rows(
+                rows, rates, expired = gen.generate_rows(
                     tokens, request_id=req.get("request_id"),
                     deadline_s=(float(deadline_s)
                                 if deadline_s is not None else None),
@@ -411,6 +422,9 @@ class _Handler(BaseHTTPRequestHandler):
                               if priority is not None else None),
                     adapter=req.get("adapter"), **opts)
                 resp = {"tokens": rows}
+                if gen.batcher.spec_k > 0:
+                    # speculative ring: acceptance rides every response
+                    resp["accept_rate"] = rates
                 if any(expired):
                     # deadline partials: 504 when EVERY row ran out,
                     # 200 with per-row flags on a mixed batch — either
@@ -476,9 +490,6 @@ def refuse_unported(environ) -> None:
     if int(environ.get("SERVE_TP", "1") or 1) > 1:
         refused.append(f"SERVE_TP={environ['SERVE_TP']} (tensor "
                        "parallelism)")
-    if int(environ.get("SERVE_SPEC_K", "0") or 0) > 0:
-        refused.append(f"SERVE_SPEC_K={environ['SERVE_SPEC_K']} "
-                       "(speculative decoding)")
     if environ.get("SERVE_PREFILL", "").strip() == "disagg":
         refused.append("SERVE_PREFILL=disagg (disaggregated prefill)")
     if on("SERVE_ADAPTERS"):
@@ -641,13 +652,14 @@ def wire_kv_store_from_env(batcher, environ=None) -> None:
           f"janitor_s={janitor_s})", flush=True)
 
 
-def load_serving_params(path: str, cfg: LlamaConfig, device="cuda"
-                        ) -> Tuple[Llama, LlamaConfig, bool]:
+def load_serving_params(path: str, cfg: LlamaConfig, device="cuda",
+                        seed: int = 0) -> Tuple[Llama, LlamaConfig, bool]:
     """The parameters to serve, in the serving dtype ``cfg.dtype`` on
     ``device``: the newest committed step under ``path``
     (train/checkpoint.py; a newest step that fails to load is passed
     over with a logged warning), else — no path, or no step yet — a
-    fresh init from seed 0.  Returns ``(model, its config, resumed)``.
+    fresh init from ``seed``.  Returns ``(model, its config,
+    resumed)``.
 
     Only the checkpoint's parameter file is read, and each float tensor
     is cast to ``cfg.dtype`` as it is copied into a model built in that
@@ -663,11 +675,58 @@ def load_serving_params(path: str, cfg: LlamaConfig, device="cuda"
 
     def init() -> Llama:
         gen = torch.Generator(device=device)
-        gen.manual_seed(0)
+        gen.manual_seed(seed)
         return Llama(cfg, device).init_weights(gen)
 
     model, resumed = resume_or_init(CheckpointManager(path), init)
     return model, cfg, resumed
+
+
+def spec_kw_from_env(environ, cfg: LlamaConfig, device="cuda") -> dict:
+    """The speculative ring's arguments from the env, as the JAX entry
+    point builds them: ``SERVE_SPEC_K=K`` (0 or unset: none, ``{}``);
+    ``SERVE_DRAFT`` names the draft config — "auto" (the default)
+    derives ``cfg.draft()``, a preset name uses that preset; the draft's
+    weights restore from ``TPUJOB_DRAFT_CHECKPOINT_PATH`` as
+    :func:`load_serving_params` restores the target's, else a fresh
+    init from seed 1 (a random draft: acceptance about 1/vocab); and
+    ``SERVE_DRAFT_QUANT=int8|int4`` quantizes the DRAFT's projections
+    with the serving skip list.  A coarser draft can only lower the
+    acceptance, never change a greedy token.  Returns ``{"draft_params",
+    "draft_cfg", "spec_k"}`` with the draft on ``device``; call it
+    before the ring is built (its graphs read the final addresses)."""
+    from paddle_operator_tpu_torch.infer import quant as Q
+    from paddle_operator_tpu_torch.infer.speculative import (
+        check_draft_compat,
+    )
+    from paddle_operator_tpu_torch.models.llama import CONFIGS
+
+    spec_k = int(environ.get("SERVE_SPEC_K", "0") or 0)
+    if spec_k <= 0:
+        return {}
+    name = environ.get("SERVE_DRAFT", "auto") or "auto"
+    if name == "auto":
+        dcfg = cfg.draft()
+    elif name in CONFIGS:
+        dcfg = CONFIGS[name]
+    else:
+        raise ValueError(f"SERVE_DRAFT={name!r}: expected 'auto' or one "
+                         f"of {sorted(CONFIGS)}")
+    check_draft_compat(cfg, dcfg)
+    dpath = environ.get("TPUJOB_DRAFT_CHECKPOINT_PATH", "").strip()
+    if dpath:
+        dmodel, dcfg, _ = load_serving_params(dpath, dcfg, device, seed=1)
+    else:
+        # no manager at all: CheckpointManager(None) would read the
+        # TARGET's TPUJOB_CHECKPOINT_PATH
+        dcfg = dataclasses.replace(dcfg, param_dtype=dcfg.dtype)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(1)
+        dmodel = Llama(dcfg, device).init_weights(gen)
+    dwq = environ.get("SERVE_DRAFT_QUANT", "none") or "none"
+    if dwq != "none":
+        Q.quantize_params(dmodel, dcfg, mode=dwq, skip=Q.SERVING_SKIP)
+    return {"draft_params": dmodel, "draft_cfg": dcfg, "spec_k": spec_k}
 
 
 def quantize_from_env(model: Llama, cfg: LlamaConfig, environ) -> str:
@@ -697,9 +756,11 @@ def main() -> int:
     and serve on TPUJOB_PORT: batch mode, or the decode ring with
     SERVE_CONTINUOUS=1 (paged with SERVE_PAGED=1, over the int8 pool
     with SERVE_KV_QUANT=int8), its weights quantized under
-    SERVE_WEIGHT_QUANT or QUANTIZE (``quantize_from_env``); SIGTERM
-    drains and exits EXIT_PREEMPTED (83)."""
+    SERVE_WEIGHT_QUANT or QUANTIZE (``quantize_from_env``) and, with
+    SERVE_SPEC_K, a draft model beside it (``spec_kw_from_env``);
+    SIGTERM drains and exits EXIT_PREEMPTED (83)."""
     from paddle_operator_tpu_torch.ft.preemption import PreemptionWatcher
+    from paddle_operator_tpu_torch.infer.quant import weight_quant_mode
     from paddle_operator_tpu_torch.infer.resilience import ServingDrain
     from paddle_operator_tpu_torch.launch.launcher import JobEnv
     from paddle_operator_tpu_torch.models.llama import CONFIGS
@@ -718,10 +779,15 @@ def main() -> int:
     wquant = quantize_from_env(params, cfg, os.environ)
     mode = "batch"
     if continuous:
+        ring_kw.update(spec_kw_from_env(os.environ, cfg, "cuda"))
+        dquant = (weight_quant_mode(ring_kw["draft_params"])
+                  if "draft_params" in ring_kw else "none")
         mode = (f"continuous, paged={bool(ring_kw.get('paged'))}, "
                 f"prefill={ring_kw.get('prefill_mode', 'inline')}, "
                 f"kv_quant={ring_kw.get('kv_quant', 'none')}, "
                 f"megastep={ring_kw.get('megastep', 1)}, "
+                f"spec_k={ring_kw.get('spec_k', 0)}, "
+                f"draft_quant={dquant}, "
                 f"host_cache_blocks={ring_kw.get('host_cache_blocks', 0)}, "
                 f"slots={ring_kw['slots']}, "
                 f"chunk={ring_kw['chunk_tokens']}")

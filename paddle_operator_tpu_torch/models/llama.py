@@ -113,6 +113,25 @@ class LlamaConfig:
                              "(expected 'auto', 'kernel' or 'plain')")
         return self.decode_attn
 
+    def draft(self, **overrides) -> "LlamaConfig":
+        """The companion draft config for speculative decoding
+        (infer/speculative.py): depth/4 and heads/2 at the SAME
+        head_dim, the GQA grouping kept, sharing everything that couples
+        draft to target — vocab, RoPE table, dtypes, decode-attention
+        choice.  Only token ids cross between the two models, so the
+        vocab is the one compatibility invariant
+        (``speculative.check_draft_compat``).  ``overrides`` replace any
+        field of the derived config."""
+        n_heads = max(1, self.n_heads // 2)
+        n_kv = max(1, self.n_kv_heads // 2)
+        while n_heads % n_kv:       # the GQA grouping survives the halving
+            n_kv -= 1
+        kw = dict(n_layers=max(1, self.n_layers // 4), n_heads=n_heads,
+                  n_kv_heads=n_kv, dim=self.head_dim * n_heads,
+                  ffn_dim=max(self.head_dim, self.ffn_dim // 2))
+        kw.update(overrides)
+        return dataclasses.replace(self, **kw)
+
     @property
     def head_dim(self) -> int:
         return self.dim // self.n_heads

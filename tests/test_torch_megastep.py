@@ -550,7 +550,7 @@ def test_ring_kw_from_env_megastep(env, want):
     assert S.ring_kw_from_env(env).get("megastep") == want
 
 
-@pytest.mark.parametrize("knob", [{"SERVE_SPEC_K": "2"},
+@pytest.mark.parametrize("knob", [{"SERVE_KV_MIGRATE": "1"},
                                   {"SERVE_ADAPTERS": "acme"},
                                   {"SERVE_NAN_CHECK": "1"},
                                   {"TPUJOB_CHAOS": "dispatch_hang@3:0.25"}])

@@ -330,10 +330,10 @@ class TestSubmit:
         finally:
             b.close()
 
-    @pytest.mark.parametrize("kw", [{"spec_k": 2}, {"kv_quant": "int4"},
+    @pytest.mark.parametrize("kw", [{"mesh": "tp2"}, {"kv_quant": "int4"},
                                     {"prefill_mode": "disagg",
                                      "paged": True},
-                                    {"megastep": 4, "spec_k": 2},
+                                    {"megastep": 4, "mesh": "tp2"},
                                     {"adapters": ["acme"]},
                                     {"trace": True}])
     def test_unported_options_refused(self, setup, kw):
@@ -343,7 +343,9 @@ class TestSubmit:
         # megastep is ported (tests/test_torch_megastep.py): beside an
         # unported option it is that option that is refused.  Chunked
         # prefill is ported (tests/test_torch_chunked_prefill.py);
-        # disaggregated prefill is refused on the paged ring it needs
+        # disaggregated prefill is refused on the paged ring it needs.
+        # Speculative decoding is ported (tests/test_torch_spec_ring.py):
+        # tensor-parallel serving (mesh) stands where spec_k stood
         exc, match = ((ValueError, "kv_quant") if "kv_quant" in kw
                       else (NotImplementedError, "not ported"))
         with pytest.raises(exc, match=match) as e:

@@ -189,7 +189,8 @@ ENTRY_KNOBS = ("SERVE_CONTINUOUS", "SERVE_PAGED", "SERVE_TP", "QUANTIZE",
 
 class TestEntryPoint:
     @pytest.mark.parametrize("env", [
-        {"SERVE_CONTINUOUS": "1", "SERVE_SPEC_K": "2"}, {"SERVE_TP": "2"},
+        {"SERVE_CONTINUOUS": "1", "SERVE_ADAPTERS": "acme"},
+        {"SERVE_TP": "2"},
     ])
     def test_unported_knobs_refused(self, monkeypatch, env):
         for k in ENTRY_KNOBS:
@@ -272,9 +273,9 @@ class TestEntryPoint:
         # the continuous server serves (TestContinuousServer); what it
         # does not carry yet is refused at construction
         model, cfg = make_model("tiny", device="cpu")
-        with pytest.raises(NotImplementedError, match="speculative"):
+        with pytest.raises(NotImplementedError, match="LoRA adapters"):
             S.make_server("127.0.0.1", 0, model, cfg, continuous=True,
-                          spec_k=2)
+                          adapters=["acme"])
 
     def test_job_env_matches_jax(self):
         from paddle_operator_tpu.launch.launcher import JobEnv as JEnv
@@ -562,15 +563,18 @@ def test_router_fronts_a_port_replica_restored_from_a_checkpoint(
 
 
 REFUSED_KNOBS = [
-    {"SERVE_SPEC_K": "2"},
+    # speculative decoding is served (tests/test_torch_spec_ring.py);
+    # beside a knob still refused, that knob is named and it is not
+    {"SERVE_SPEC_K": "2", "SERVE_TRACE": "1"},
     # chunked prefill is served (tests/test_torch_chunked_prefill.py);
     # beside a knob still refused, that knob is named and it is not
-    pytest.param({"SERVE_PREFILL": "chunked", "SERVE_SPEC_K": "2"},
+    pytest.param({"SERVE_PREFILL": "chunked", "SERVE_NAN_CHECK": "1"},
                  id="SERVE_PREFILL=chunked"),
     {"SERVE_PREFILL": "disagg"},
     # the megastep is served (tests/test_torch_megastep.py); beside a
     # knob still refused, that knob is named and the megastep is not
-    pytest.param({"SERVE_MEGASTEP": "4", "SERVE_SPEC_K": "2"},
+    pytest.param({"SERVE_MEGASTEP": "4",
+                  "TPUJOB_CHAOS": "dispatch_hang@3:0.25"},
                  id="SERVE_MEGASTEP=4"),
     {"SERVE_ADAPTERS": "acme"},
     {"SERVE_TRACE": "1"}, {"SERVE_NAN_CHECK": "1"},
@@ -579,10 +583,11 @@ REFUSED_KNOBS = [
     {"SERVE_KV_BROKER": "127.0.0.1:9100"}, {"SERVE_TP": "2"},
     # the weight-quant knobs are served (tests/test_torch_weight_quant.py);
     # beside a knob still refused, that knob is named and they are not
-    {"QUANTIZE": "int8", "SERVE_SPEC_K": "2"},
+    {"QUANTIZE": "int8", "SERVE_KV_PEER_FETCH": "1"},
     {"SERVE_WEIGHT_QUANT": "int8", "SERVE_ADAPTERS": "acme"},
 ]
-SERVED_KNOBS = ("SERVE_MEGASTEP", "QUANTIZE", "SERVE_WEIGHT_QUANT")
+SERVED_KNOBS = ("SERVE_MEGASTEP", "QUANTIZE", "SERVE_WEIGHT_QUANT",
+                "SERVE_SPEC_K")
 # knobs served at some values only (SERVE_PREFILL=disagg is refused)
 SERVED_SETTINGS = {"SERVE_PREFILL": "chunked"}
 
