@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
     python3 chip_smoke.py [--phases 2,2b,2c,2d,2e,2f,3,3b,3c,3d,3e,3f,3g,3h,
-                           3i,3j,3k,3l,4,4b,4c,4d,4e,4f,4g,4h,4i,4j]
+                           3i,3j,3k,3l,3m,4,4b,4c,4d,4e,4f,4g,4h,4i,4j,4k]
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line; with no arguments every phase runs):
@@ -339,6 +339,30 @@ result line; with no arguments every phase runs):
    acceptance each as a graph of its own, beside their byte bounds),
    the burst's new tok/s beside 3b's, the graph pool's bytes and
    ``paramBytes``.
+3m. many-adapter serving main path — 3b's server (8 slots, block 256,
+   the 64-block pool, every dispatch a graph replay) at full width and
+   depth, bf16, with an ``AdapterRegistry`` of adapters a1, a2, a3
+   (seeds 1-3; rank 8, capacity 8, the JAX defaults: 226,492,416 bytes
+   of stacks at 7b): (a) 3b's 8 cold prompts over HTTP, the lanes
+   alternating base / a1 / a2 / a3 in the same dispatches; each request
+   completes, kernel #2 launches n_layers x chunk x dispatches, one
+   graph replay each, ``/statusz`` lists the adapters; the base lanes'
+   agreement with 3b's streams is printed.  (b) After capture, ``POST
+   /v1/adapters`` loads a4 (seed 4) into free slot 4; a request with a4
+   must stream what a ring booted with a4 streams.  (c) An evict of a4
+   answers 409 while a lane serves it, 200 once idle, and ``/metrics``
+   then marks a1-a3 loaded only; no captured tensor moved.  (d) On
+   executors admitted alike (8 lanes at fill 520 on slots 0-3, 0-3),
+   the adapter ring against the adapterless ring in turns: a chunk's
+   device ms as a graph on the bf16 pool at megastep 1 and 4 and on the
+   int8 pool, the aid-0 lanes' tokens bit-identical; the delta alone
+   (``lora_qkv`` over every layer for one tick, as a graph) on that mix
+   and on 8 distinct adapters, beside its byte bound; the launches of a
+   tick on both rings (profiler); the graph pools.  (e) ``serve.main()``
+   in a process of its own with ``SERVE_ADAPTERS=a1:seed:1,...``
+   boots, answers a request with ``"adapter": "a2"``, lists the three
+   on ``/v1/adapters``, ``/statusz`` and ``/metrics``
+   (``tpujob_serve_adapter_loaded``) and exits 83 on SIGTERM.
 4. kernel path == plain path — 7b width, 2 layers, float32: greedy
    ``generate`` through the kernel and through the plain version give
    the same tokens, and per-step logits agree within 1e-3.
@@ -426,6 +450,20 @@ result line; with no arguments every phase runs):
    stream (and, on the paged ring, ``generate``'s).  A sampled stream
    (T 0.8) is the same on a second run with its seed and stays in the
    vocabulary.
+4k. adapter rings — 7b width, 2 layers, float32, bs 16, 4 slots, chunk
+   8, rank 8, under graph replay, on the contiguous, paged and int8
+   rings: 4i's four prompts on the base model, a1, a2 and a3 in one
+   batch, then a1's follower (a hit on a1's chain) and a3's prompt again
+   (a capped full hit), inline, chunked (24-row slices) and chunked at
+   megastep 4.  The base lane equals the adapterless ring's; each lane
+   equals its run alone; megastep 4 equals 1; on the contiguous and
+   paged rings every stream equals ``generate`` with the same ``lora``
+   leg (the int8 ring is held to itself, as in 4i); an a1 lane
+   preempted by a class-0 arrival on a one-slot paged ring resumes its
+   uninterrupted stream (both pools); with each adapter, the prefill's
+   and a kernel #1 decode step's logits lie within 1e-4 of a forward on
+   merged weights W + A.B.  Graph replays, addresses, launches and the
+   prefix hits (63 + 160 rows) are held as in 4i.
 4c. training kernel path == plain path — 7b width, 2 layers, float32:
    three train steps with attention through the flash kernels and
    through ``reference_attention`` from the same init agree in loss
@@ -504,8 +542,8 @@ PEAK_BF16 = 989e12                 # H100 SXM dense bf16, for MFU
 # there at the burst's fills, and 3l checks its draft against it
 SPEC_DRAFT_ATTN = dict(b=8, hq=16, hkv=16, d=128, s=2048, layers=8)
 PHASES = ("2", "2b", "2c", "2d", "2e", "2f", "3", "3b", "3c", "3d", "3e",
-          "3f", "3g", "3h", "3i", "3j", "3k", "3l", "4", "4b", "4c", "4d",
-          "4e", "4f", "4g", "4h", "4i", "4j")
+          "3f", "3g", "3h", "3i", "3j", "3k", "3l", "3m", "4", "4b", "4c",
+          "4d", "4e", "4f", "4g", "4h", "4i", "4j", "4k")
 
 
 def log(*a) -> None:
@@ -3387,14 +3425,16 @@ def _chunk_ms_turns(rings: dict, turns, prompts, dispatches: int) -> dict:
             exs[name] = [ex, len(prompts[0])]
         out = {name: [] for name in rings}
         for name in turns:
-            ms, exs[name][1] = _time_dispatches(*exs[name], dispatches)
+            ms, exs[name][1], _ = _time_dispatches(*exs[name], dispatches)
             out[name].append(ms)
     return out
 
 
-def _time_dispatches(ex, fill: int, dispatches: int) -> tuple:
-    """(device ms a dispatch over ``dispatches`` graph replays of every
-    lane after a warm one, the lanes' fill after them)."""
+def _time_dispatches(ex, fill: int, dispatches: int,
+                     n_steps: int = 1) -> tuple:
+    """(device ms a CHUNK over ``dispatches`` graph replays of every lane
+    after a warm one, each ``n_steps`` fused chunks; the lanes' fill
+    after them; the warm dispatch's tokens on the host)."""
     import numpy as np
     import torch
 
@@ -3404,13 +3444,13 @@ def _time_dispatches(ex, fill: int, dispatches: int) -> tuple:
     plans = []
     for _ in range(dispatches + 1):
         for slot in range(slots):
-            ex.pool.ensure(slot, fill + chunk)
-        plans.append(X.ExecPlan(1, [True] * slots, table=ex.pool.table,
+            ex.pool.ensure(slot, fill + n_steps * chunk)
+        plans.append(X.ExecPlan(n_steps, [True] * slots, table=ex.pool.table,
                                 eos=np.full(slots, -1, np.int32),
                                 left=np.full(slots, 1 << 20, np.int32),
-                                steps=np.ones(slots, np.int32)))
-        fill += chunk
-    ex.replay(plans[0]).host()              # warm
+                                steps=np.full(slots, n_steps, np.int32)))
+        fill += n_steps * chunk
+    warm = ex.replay(plans[0]).host()[0]
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -3419,7 +3459,8 @@ def _time_dispatches(ex, fill: int, dispatches: int) -> tuple:
         ex.replay(plan)
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / dispatches, fill
+    return (start.elapsed_time(end) / (dispatches * n_steps), fill,
+            np.array(warm))
 
 
 def phase_weight_quant_ring(report: dict, params, cfg) -> None:
@@ -4689,9 +4730,10 @@ MEGA_RINGS = (("contiguous", {"paged": False}),
                         "kv_quant": "int8"}))
 
 
-def _admit_cold(ex, slot, prompt) -> None:
+def _admit_cold(ex, slot, prompt, aid: int = 0) -> None:
     """A cold admission into a bare executor, as the scheduler makes it:
-    map the lane's blocks (paged) and run the bucket's insert."""
+    map the lane's blocks (paged), set the lane's adapter slot ``aid`` (an
+    adapter ring) and run the bucket's insert."""
     import numpy as np
     import torch
 
@@ -4700,14 +4742,17 @@ def _admit_cold(ex, slot, prompt) -> None:
     n = len(prompt)
     bucket = next(b for b in ex.buckets if n <= b)
     dev_prompt = X.to_device(np.asarray([prompt], np.int32), ex.device)
+    ex.set_aid(slot, aid)
+    lora = ex.lora_insert_tail(slot)
     if ex.paged:
-        ex.pool.admit(slot, prompt)
+        ex.pool.admit(slot, prompt,
+                      ns=ex.adapters.ns_of(aid) if aid else 0)
         row = X.to_device(ex.pool.table[slot], ex.device, torch.int32)
         ex.inserts[bucket](ex.params, ex.cache, row, ex.tok, ex.temp,
-                           ex.seeds, dev_prompt, n, slot, 0.0, 0)
+                           ex.seeds, dev_prompt, n, slot, 0.0, 0, lora=lora)
     else:
         ex.inserts[bucket](ex.params, ex.cache, ex.tok, ex.temp, ex.seeds,
-                           dev_prompt, n, slot, 0.0, 0)
+                           dev_prompt, n, slot, 0.0, 0, lora=lora)
 
 
 def phase_megastep_rings() -> None:
@@ -5685,16 +5730,19 @@ def _spec_round_ms(ex, cfg, fill: int, reps: int = 10) -> dict:
     return out
 
 
-def _spec_main_boot(cfg, extra: dict) -> dict:
+def _main_boot(cfg, extra: dict, tag: str, body_extra=None) -> dict:
     """``serve.main()`` as a pod runs it: ``python -m
     paddle_operator_tpu_torch.infer.serve`` in a process of its own with
     3b's ring (``SERVE_CONTINUOUS=1 SERVE_PAGED=1``, 8 slots, block 256,
-    64 blocks) and ``SERVE_SPEC_K=4``, plus ``extra``; no checkpoint, so
-    the 7b target from seed 0 and the ``SERVE_DRAFT=auto`` draft from
-    seed 1.  Once ``/readyz`` answers: one request, then ``/statusz``;
-    then SIGTERM, which must drain and exit 83.  The process is killed
-    if it is still up when this returns.  Returns the startup line, the
-    response, the status keys and the exit code."""
+    64 blocks) plus ``extra`` (phase ``tag``'s knobs: 3l's
+    ``SERVE_SPEC_K=4``, 3m's ``SERVE_ADAPTERS``); no checkpoint, so the
+    7b target from seed 0 (and a ``SERVE_DRAFT=auto`` draft from seed 1).
+    Once ``/readyz`` answers: one request (its body with
+    ``body_extra``), then ``/statusz``, ``/metrics`` and
+    ``/v1/adapters``; then SIGTERM, which must drain and exit 83.  The
+    process is killed if it is still up when this returns.  Returns the
+    startup line, the response, the status keys, the pages and the exit
+    code."""
     import signal
     import socket
 
@@ -5709,7 +5757,7 @@ def _spec_main_boot(cfg, extra: dict) -> dict:
                SERVE_CHUNK=str(RING["chunk_tokens"]),
                SERVE_BLOCK_SIZE=str(RING["block_size"]),
                SERVE_NUM_BLOCKS="64", SERVE_MAX_LEN=str(RING["max_len"]),
-               SERVE_SPEC_K=str(SPEC_K), TPUJOB_PORT=str(port),
+               TPUJOB_PORT=str(port),
                PYTHONPATH=os.pathsep.join(
                    [str(ROOT)] + ([env["PYTHONPATH"]]
                                   if env.get("PYTHONPATH") else [])),
@@ -5728,11 +5776,11 @@ def _spec_main_boot(cfg, extra: dict) -> dict:
     try:
         while True:
             if proc.poll() is not None:
-                raise AssertionError(f"3l main() ({what}) exited "
+                raise AssertionError(f"{tag} main() ({what}) exited "
                                      f"{proc.returncode} before it was "
                                      f"ready: {''.join(lines)[-3000:]}")
             if time.perf_counter() - t0 > 600:
-                raise AssertionError(f"3l main() ({what}) not ready in "
+                raise AssertionError(f"{tag} main() ({what}) not ready in "
                                      f"600 s: {''.join(lines)[-3000:]}")
             try:
                 with urllib.request.urlopen(base + "/readyz",
@@ -5745,9 +5793,13 @@ def _spec_main_boot(cfg, extra: dict) -> dict:
         ready_s = time.perf_counter() - t0
         prompt = list(range(1, 40))
         code, body, _ = _post(base, {"tokens": [prompt],
-                                     "max_new_tokens": 16})
-        with urllib.request.urlopen(base + "/statusz", timeout=60) as r:
-            statusz = json.loads(r.read())
+                                     "max_new_tokens": 16,
+                                     **(body_extra or {})})
+        pages = {}
+        for page in ("/statusz", "/metrics", "/v1/adapters"):
+            with urllib.request.urlopen(base + page, timeout=60) as r:
+                pages[page] = r.read().decode()
+        statusz = json.loads(pages["/statusz"])
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=120)
     finally:
@@ -5756,15 +5808,19 @@ def _spec_main_boot(cfg, extra: dict) -> dict:
             proc.wait()
         reader.join(timeout=10)
     if code != 200:
-        raise AssertionError(f"3l main() ({what}): HTTP {code}")
-    _check_rows(cfg, prompt, body["tokens"][0], 16, f"3l main() {what}")
+        raise AssertionError(f"{tag} main() ({what}): HTTP {code}")
+    _check_rows(cfg, prompt, body["tokens"][0], 16, f"{tag} main() {what}")
     startup = next((ln.strip() for ln in lines
                     if ln.startswith("serving ")), "")
     return {"startup": startup, "ready_s": ready_s, "rc": rc,
             "accept_rate": body.get("accept_rate"),
             "statusz": {k: statusz.get(k) for k in (
                 "specK", "acceptRate", "draftQuantMode", "paramBytes",
-                "tokensTotal")}}
+                "tokensTotal", "activeAdapters", "adapterNames")},
+            "adapters": json.loads(pages["/v1/adapters"]),
+            "adapter_gauges": sorted(
+                ln for ln in pages["/metrics"].splitlines()
+                if ln.startswith("tpujob_serve_adapter_loaded{"))}
 
 
 def phase_spec_ring(contiguous: dict, qmm: dict, params, cfg,
@@ -5882,7 +5938,7 @@ def phase_spec_ring(contiguous: dict, qmm: dict, params, cfg,
     boots = {}
     for key, extra, run in (("e", {}, "a"),
                             ("e_int8", {"SERVE_DRAFT_QUANT": "int8"}, "c")):
-        boot = _spec_main_boot(cfg, extra)
+        boot = _main_boot(cfg, dict(base, **extra), "3l")
         boots[key] = boot
         log(f"3l ({key}) serve.main(): {json.dumps(boot)}")
         st, dq = boot["statusz"], runs[run]["draft_quant"]
@@ -6115,6 +6171,578 @@ def phase_spec_equalities() -> None:
     torch.cuda.empty_cache()
 
 
+# phase 3m: 3b's server with SERVE_ADAPTERS: adapters a1..a3 from seeds 1-3
+# at the JAX defaults (rank 8, capacity 8); the burst's lanes alternate over
+# the base model and the three adapters; a4 (seed 4) is loaded at runtime
+ADAPT = dict(rank=8, capacity=8, names=("a1", "a2", "a3"), late="a4",
+             new=48, fill=520, dispatches=10)
+
+
+def _registry(cfg, names, capacity, rank, device="cuda"):
+    """An adapter registry with ``names`` loaded from seeds 1, 2, ..."""
+    from paddle_operator_tpu_torch.infer.qos import AdapterRegistry
+
+    reg = AdapterRegistry(cfg, capacity=capacity, rank=rank, device=device)
+    for i, name in enumerate(names):
+        reg.load(name, seed=i + 1)
+    return reg
+
+
+def _admin(base: str, body: dict) -> tuple:
+    """POST /v1/adapters: (HTTP status, the JSON body), error statuses
+    included."""
+    import urllib.error
+
+    req = urllib.request.Request(
+        base + "/v1/adapters", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _count_kernels(fn):
+    """Device kernels one call of ``fn`` launches, read from the
+    profiler's CUDA activity (None when it records none: not
+    measured)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not any(w in e.name.lower() for w in ("memcpy", "memset")))
+    return n or None
+
+
+def _delta_bound_ms(cfg, lanes: int, distinct: int, rank: int) -> float:
+    """Least time of one tick's LoRA delta over every layer: the distinct
+    adapters' A and B of the three projections read once (f32), each
+    lane's post-norm activation read and its q, k and v read and written
+    (bf16) — at 3.35 TB/s (the products, 2 x lanes x rank x (dim + out)
+    a projection, are far below the peak rate)."""
+    dims = [(cfg.dim, cfg.n_heads * cfg.head_dim)] + \
+        [(cfg.dim, cfg.n_kv_heads * cfg.head_dim)] * 2
+    stacks = distinct * sum(4 * rank * (i + o) for i, o in dims)
+    acts = lanes * 2 * (cfg.dim + 2 * sum(o for _, o in dims))
+    return cfg.n_layers * (stacks + acts) / HBM_BYTES_PER_S * 1e3
+
+
+def _adapter_timings(params, cfg, reg, kv_quant: str, megastep: int) -> dict:
+    """Device ms of a resident dispatch on an adapter ring (``reg``; the
+    8 lanes on slots 0, 1, 2, 3, 0, 1, 2, 3) against the adapterless ring
+    on the same admissions, in turns (plain, adapters, plain, adapters),
+    each a CUDA graph replay of every lane at 3b's shape (chunk 8, block
+    256, fill ``ADAPT["fill"]``); with ``megastep`` 4 the 4-step dispatch
+    too.  The aid-0 lanes' tokens must equal the adapterless ring's.  Then
+    the delta alone (``lora_qkv`` over every layer for one tick, as a
+    graph) on this mix and on 8 distinct adapters, beside its bound; the
+    launches of a tick (profiler) on both rings; the graph pools and the
+    stacks' bytes."""
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.infer import executor as X
+    from paddle_operator_tpu_torch.infer import qos as QOS
+
+    slots, chunk, fill = RING["slots"], RING["chunk_tokens"], ADAPT["fill"]
+    aids = [i % (len(ADAPT["names"]) + 1) for i in range(slots)]
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, fill).tolist()
+               for _ in range(slots)]
+    steps = sorted({1, megastep})
+    exs, toks, out = {}, {}, {}
+    with torch.inference_mode():
+        for name, adapters in (("plain", None), ("adapters", reg)):
+            ex = X.RingExecutor(params, cfg, slots=slots,
+                                max_len=RING["max_len"],
+                                chunk_tokens=chunk, paged=True,
+                                block_size=RING["block_size"],
+                                kv_quant=kv_quant, megastep=megastep,
+                                adapters=adapters)
+            ex.prewarm()
+            for slot, p in enumerate(prompts):
+                _admit_cold(ex, slot, p, aids[slot] if adapters else 0)
+            exs[name] = [ex, fill]
+        for n in steps:
+            for name in ("plain", "adapters", "plain", "adapters"):
+                ex, f = exs[name]
+                ms, exs[name][1], tk = _time_dispatches(
+                    ex, f, ADAPT["dispatches"], n)
+                out.setdefault(f"{name}_ms_n{n}", []).append(ms)
+                toks.setdefault(name, []).append(tk)
+        # the aid-0 lanes decode as on the adapterless ring, bit for bit
+        base = [i for i, a in enumerate(aids) if a == 0]
+        for tp, ta in zip(toks["plain"], toks["adapters"]):
+            if not np.array_equal(tp[..., base], ta[..., base]):
+                raise AssertionError(f"3m {kv_quant} megastep {megastep}: "
+                                     "an aid-0 lane's tokens differ from "
+                                     "the adapterless ring's")
+            if np.array_equal(tp, ta):
+                raise AssertionError(f"3m {kv_quant}: the adapters changed "
+                                     "no token")
+        for name in ("plain", "adapters"):
+            e = exs[name][0]
+            for slot in range(slots):
+                e.pool.ensure(slot, exs[name][1] + chunk)
+            plan = X.ExecPlan(1, [True] * slots, table=e.pool.table)
+            n = _count_kernels(lambda e=e, plan=plan: e.run(plan))
+            out[f"{name}_launches_tick"] = None if n is None else n / chunk
+            out[f"{name}_graph_pool_bytes"] = e.graph_pool_bytes()
+        ex = exs["adapters"][0]
+        h = torch.randn(slots, 1, cfg.dim, dtype=cfg.dtype, device="cuda")
+        qkv = [torch.randn(slots, 1, o, dtype=cfg.dtype, device="cuda")
+               for o in (cfg.n_heads * cfg.head_dim,
+                         cfg.n_kv_heads * cfg.head_dim,
+                         cfg.n_kv_heads * cfg.head_dim)]
+
+        def delta(aid):
+            def tick(_=None):
+                for li in range(cfg.n_layers):
+                    adp_l, _a = QOS.layer_lora((reg.arrays(), aid), li)
+                    QOS.lora_qkv(h, adp_l, aid, *qkv, cfg.dtype)
+            return tick
+
+        mixed = ex.aid.clone()
+        out["delta_ms_tick"], out["delta_eager_ms_tick"] = time_ms(
+            delta(mixed), 2)
+        out["delta_launches_tick"] = _count_kernels(delta(mixed))
+        out["delta_bound_ms"] = _delta_bound_ms(
+            cfg, slots, len(set(aids) - {0}), reg.rank)
+        # 8 distinct adapters (the ISSUE's bound case): fill the pool
+        added = [f"t{i}" for i in range(len(reg), reg.capacity)]
+        for i, name in enumerate(added):
+            reg.load(name, seed=100 + i)
+        eight = torch.arange(1, slots + 1, dtype=torch.int32, device="cuda")
+        out["delta_ms_tick_8"], _ = time_ms(delta(eight), 2)
+        out["delta_bound_ms_8"] = _delta_bound_ms(cfg, slots, slots,
+                                                  reg.rank)
+        for name in added:
+            reg.evict(name)
+    out["stacks_bytes"] = reg.nbytes()
+    out.update(kv_quant=kv_quant, megastep=megastep, fill=fill, lanes=slots,
+               lane_adapters=aids)
+    del exs, ex
+    return out
+
+
+def phase_adapter_ring(paged: dict, params, cfg, ring_tokens=None,
+                       bf16_ring=None) -> None:
+    """Phase 3m: many-adapter serving on 3b's server; see the module
+    docstring."""
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.infer.batcher import ContinuousBatcher
+    from paddle_operator_tpu_torch.infer.serve import make_server
+    from paddle_operator_tpu_torch.ops import decode_attention as DA
+
+    def clean():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    names, late = ADAPT["names"], ADAPT["late"]
+    reg = _registry(cfg, names, ADAPT["capacity"], ADAPT["rank"])
+    log(f"3m: {len(names)} adapters, rank {reg.rank}, capacity "
+        f"{reg.capacity}: stacks {reg.nbytes()} bytes on the card")
+    # (a) 3b's cold prompts over HTTP, lanes alternating base / a1 / a2 / a3
+    srv = make_server("127.0.0.1", 0, params, cfg, prewarm=True,
+                      adapters=reg, **RING)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    batcher = srv.generator.batcher
+    ex = batcher.executor
+    rng = np.random.default_rng(0)          # 3b's generator, 3b's order
+    cold = [rng.integers(0, cfg.vocab_size, n).tolist()
+            for n in (32, 100, 257, 300, 511, 512, 600, 1000)]
+    lane_adapter = [None if i % 4 == 0 else names[i % 4 - 1]
+                    for i in range(len(cold))]
+    results, errors = {}, []
+
+    def send(i, p, n, adapter, key=None):
+        try:
+            body = {"tokens": [p], "max_new_tokens": n}
+            if adapter is not None:
+                body["adapter"] = adapter
+            results[key if key is not None else i] = _post(base, body)
+        except Exception as e:
+            errors.append(f"{key or i}: {e!r}")
+
+    try:
+        if not batcher.prewarmed.wait(600) or ex.needs_capture:
+            raise AssertionError(f"3m: no graphs captured at prewarm: "
+                                 f"{batcher.prewarm_error!r}")
+        graphs, ptrs = ex._graphs, ex._state_ptrs()
+        stats0 = dict(batcher.stats)
+        replays0 = ex.graph_replays
+        _zero_launches()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=send,
+                                    args=(i, p, ADAPT["new"], a))
+                   for i, (p, a) in enumerate(zip(cold, lane_adapter))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        burst_s = time.perf_counter() - t0
+        chunks = batcher.stats["chunks"] - stats0["chunks"]
+        replays = ex.graph_replays - replays0
+        launches = DA.paged_decode_attention.launches
+        if errors:
+            raise AssertionError(f"3m burst requests failed: {errors}")
+        outputs = {}
+        for i, p in enumerate(cold):
+            code, body, _ = results[i]
+            if code != 200:
+                raise AssertionError(f"3m cold {i}: HTTP {code}")
+            _check_rows(cfg, p, body["tokens"][0], ADAPT["new"],
+                        f"3m cold {i}")
+            outputs[i] = body["tokens"][0]
+        want = cfg.n_layers * RING["chunk_tokens"] * chunks
+        if launches != want or replays != chunks:
+            raise AssertionError(f"3m: paged kernel launches {launches} "
+                                 f"(expected {want}), replays {replays} for "
+                                 f"{chunks} dispatches")
+        with urllib.request.urlopen(base + "/statusz", timeout=60) as r:
+            statusz = json.loads(r.read())
+        if statusz["activeAdapters"] != 3 \
+                or statusz["adapterNames"] != list(names):
+            raise AssertionError(f"3m /statusz adapters: "
+                                 f"{statusz['activeAdapters']} "
+                                 f"{statusz['adapterNames']}")
+        same_3b = None
+        if ring_tokens is not None:
+            same_3b = [outputs[i] == ring_tokens.get(("cold", i))
+                       for i, a in enumerate(lane_adapter)]
+        new_tokens = ADAPT["new"] * len(cold)
+        burst = {"burst_s": burst_s, "new_tok_s": new_tokens / burst_s,
+                 "dispatches": chunks,
+                 "wall_ms_per_chunk": burst_s / chunks * 1e3,
+                 "graph_pool_bytes": ex.graph_pool_bytes(),
+                 "equal_to_3b": same_3b}
+        log(f"3m burst ({card_line()}): {json.dumps(burst)}; lanes "
+            f"{lane_adapter}; kernel #2 launches {launches} == n_layers x "
+            f"chunk x {chunks} dispatches, one graph replay each")
+        # (b) a4 loaded at runtime, after the capture, into a free slot
+        code, body = _admin(base, {"load": {"name": late, "seed": 4}})
+        if code != 200 or body != {"loaded": late, "slot": 4}:
+            raise AssertionError(f"3m runtime load: HTTP {code} {body}")
+        probe = cold[3]
+        code, body, _ = _post(base, {"tokens": [probe], "max_new_tokens": 32,
+                                     "adapter": late})
+        if code != 200:
+            raise AssertionError(f"3m: generate with {late}: HTTP {code}")
+        late_tokens = body["tokens"][0]
+        # (c) an evict while a lane serves it: 409; once idle: 200
+        holder = threading.Thread(target=send, args=(
+            0, cold[1], 400, late, "holder"))
+        holder.start()
+        t1 = time.perf_counter()
+        while 4 not in ex.aid_host.tolist():
+            if time.perf_counter() - t1 > 120 or errors:
+                raise AssertionError(f"3m: the holder never admitted "
+                                     f"{errors}")
+            time.sleep(0.002)
+        code409, body409 = _admin(base, {"evict": late})
+        holder.join()
+        code200, body200 = _admin(base, {"evict": late})
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            gauges = sorted(ln for ln in r.read().decode().splitlines()
+                            if ln.startswith("tpujob_serve_adapter_loaded{"))
+        if (code409, code200) != (409, 200) or errors \
+                or results["holder"][0] != 200:
+            raise AssertionError(f"3m evict: in use HTTP {code409} "
+                                 f"{body409}, idle HTTP {code200} "
+                                 f"{body200}; {errors}")
+        if len(gauges) != 3 or any(late in g for g in gauges):
+            raise AssertionError(f"3m /metrics after the evict: {gauges}")
+        if ex._graphs is not graphs or ex._state_ptrs() != ptrs:
+            raise AssertionError("3m: the runtime load and evict moved a "
+                                 "captured tensor or recaptured")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
+        srv.generator.close()
+    del srv, batcher, ex
+    clean()
+    # the same request on a ring booted with a4
+    booted = _registry(cfg, names + (late,), ADAPT["capacity"], ADAPT["rank"])
+    b = ContinuousBatcher(params, cfg, prewarm=True, adapters=booted,
+                          **{k: v for k, v in RING.items()
+                             if k != "continuous"})
+    try:
+        if not b.prewarmed.wait(600):
+            raise AssertionError("3m: booted ring never prewarmed")
+        booted_tokens = b.submit(probe, max_new_tokens=32,
+                                 adapter=late).result(timeout=600)
+    finally:
+        b.close()
+    del b, booted
+    clean()
+    log(f"3m: {late} loaded after capture into slot 4 streams "
+        f"{'==' if late_tokens == booted_tokens else '!='} a ring booted "
+        f"with it ({len(late_tokens) - len(probe)} tokens); evict while in "
+        f"use {code409}, idle {code200}; gauges after: {gauges}")
+    if late_tokens != booted_tokens:
+        raise AssertionError("3m: the runtime-loaded adapter's stream "
+                             "differs from the booted ring's")
+    # (d) a chunk's device ms, the delta's, launches, pools: bf16 pool at
+    # megastep 1 and 4 (one ring), the int8 pool at megastep 1
+    timings = {}
+    for key, kvq, mega in (("bf16", "none", 4), ("int8", "int8", 1)):
+        timings[key] = _adapter_timings(params, cfg, reg, kvq, mega)
+        log(f"3m timings {key} ({card_line()}): "
+            f"{json.dumps(timings[key])}")
+        clean()
+    # (e) serve.main() with SERVE_ADAPTERS, as a pod boots it
+    env = {"SERVE_ADAPTERS": ",".join(f"{n}:seed:{i + 1}"
+                                      for i, n in enumerate(names)),
+           "SERVE_ADAPTER_RANK": str(ADAPT["rank"]),
+           "SERVE_MAX_ADAPTERS": str(ADAPT["capacity"])}
+    boot = _main_boot(cfg, env, "3m", {"adapter": names[1]})
+    log(f"3m serve.main(): {json.dumps(boot)}")
+    st = boot["statusz"]
+    if (boot["rc"] != 83 or "adapters=3," not in boot["startup"]
+            or st["activeAdapters"] != 3
+            or st["adapterNames"] != list(names)
+            or boot["adapters"] != {"adapters": list(names),
+                                    "capacity": ADAPT["capacity"],
+                                    "rank": ADAPT["rank"]}
+            or len(boot["adapter_gauges"]) != 3):
+        raise AssertionError(f"3m serve.main(): {boot}")
+    from statistics import fmean as mean
+
+    bf = timings["bf16"]
+    report = {"burst": burst, "timings": timings, "main_boot": boot,
+              "stacks_bytes": reg.nbytes(),
+              "late_load_equal": late_tokens == booted_tokens,
+              "burst_3b_new_tok_s": (bf16_ring["burst_new_tok_s"]
+                                     if bf16_ring else None)}
+    log(f"3m ({card_line()}): a chunk as a graph "
+        f"{mean(bf['adapters_ms_n1']):.2f} ms with adapters against "
+        f"{mean(bf['plain_ms_n1']):.2f} without "
+        f"(megastep 4: {mean(bf['adapters_ms_n4']):.2f} / "
+        f"{mean(bf['plain_ms_n4']):.2f} a chunk; int8 pool "
+        f"{mean(timings['int8']['adapters_ms_n1']):.2f} / "
+        f"{mean(timings['int8']['plain_ms_n1']):.2f}); the delta "
+        f"{bf['delta_ms_tick']:.4f} ms a tick (bound "
+        f"{bf['delta_bound_ms']:.4f}; 8 distinct adapters "
+        f"{bf['delta_ms_tick_8']:.4f}, bound {bf['delta_bound_ms_8']:.4f}), "
+        f"{bf['delta_launches_tick']} launches a tick of "
+        f"{bf['adapters_launches_tick']} (without: "
+        f"{bf['plain_launches_tick']}); stacks {reg.nbytes()} bytes; "
+        f"burst {burst['new_tok_s']:.1f} new tok/s")
+    paged["adapters"] = report
+    del reg
+    clean()
+
+
+def phase_adapter_equalities() -> None:
+    """Phase 4k: adapter rings at f32 under graph replay; see the module
+    docstring."""
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.infer import decode as D
+    from paddle_operator_tpu_torch.infer.batcher import ContinuousBatcher
+    from paddle_operator_tpu_torch.models.llama import make_model
+
+    from paddle_operator_tpu_torch.ops import decode_attention as DA
+
+    params, cfg = make_model("7b", device="cuda", seed=8, n_layers=2,
+                             dtype=torch.float32)
+    params.requires_grad_(False)
+    names = ("a1", "a2", "a3")
+    reg = _registry(cfg, names, 4, 8)
+    rng = np.random.default_rng(8)
+    first = [rng.integers(0, cfg.vocab_size, n).tolist()
+             for n in (40, 300, 129, 64)]
+    adapters = [None, "a1", "a2", "a3"]
+    # then: a1's 300-token prompt's first 10 blocks with a 37-token suffix
+    # (a hit on a1's chain, then two slices of 24), and the 64-token prompt
+    # again under a3 (a full hit capped at 63 rows)
+    then = [(first[1][:160] + rng.integers(0, cfg.vocab_size, 37).tolist(),
+             "a1"), (first[3], "a3")]
+    n_new, max_len, slice_rows = 16, 512, 24
+    stacks = reg.arrays()
+
+    def lora(adapter):
+        return (stacks, torch.tensor([reg.resolve(adapter) if adapter
+                                      else 0], dtype=torch.int32,
+                                     device="cuda"))
+
+    jobs = list(zip(first, adapters)) + then
+    with torch.no_grad():
+        want = [D.generate(params, cfg,
+                           torch.tensor([p], dtype=torch.int32,
+                                        device="cuda"),
+                           max_new_tokens=n_new, max_len=max_len,
+                           lora=lora(a))[0].tolist() for p, a in jobs]
+        # the delta against merged weights W + A.B, prefill and a decode
+        # step (kernel #1), each adapter: the kernels are merged in place
+        # and put back from copies
+        gaps = {}
+        x = torch.tensor([first[2]], dtype=torch.int32, device="cuda")
+        kernels = [(li, proj, getattr(lp.attn, proj).kernel)
+                   for li, lp in enumerate(params.layers)
+                   for proj in ("wq", "wk", "wv")]
+        for a in names:
+            idx = reg.resolve(a)
+            got, cache = D.prefill(params, cfg, x, max_len, lora=lora(a))
+            tok = got.argmax(-1).to(torch.int32)
+            got2, _ = D.decode_step(params, cfg, tok, cache, lora=lora(a))
+            saved = [w.clone() for _, _, w in kernels]
+            for li, proj, w in kernels:
+                w += stacks[proj]["a"][li, idx] @ stacks[proj]["b"][li, idx]
+            try:
+                ref, cache = D.prefill(params, cfg, x, max_len)
+                ref2, _ = D.decode_step(params, cfg, tok, cache)
+            finally:
+                for (_, _, w), w0 in zip(kernels, saved):
+                    w.copy_(w0)
+            gaps[a] = max(float((got - ref).abs().max()),
+                          float((got2 - ref2).abs().max()))
+    log(f"4k: logits with the delta against a forward on merged weights "
+        f"W + A.B (prefill and a kernel #1 decode step): {gaps}")
+    if max(gaps.values()) > 1e-4:
+        raise AssertionError(f"4k: delta vs merged weights {gaps} > 1e-4")
+    counters = {"contiguous": (DA.decode_attention, "launches"),
+                "paged": (DA.paged_decode_attention, "launches"),
+                "int8": (DA.paged_decode_attention, "quant_launches")}
+    for name, ring in MEGA_RINGS:
+        def batcher(ring=ring, **kw):
+            args = dict(slots=4, max_len=max_len, chunk_tokens=8,
+                        prewarm=True, prefill_chunk=slice_rows,
+                        adapters=reg, **ring)
+            args.update(kw)
+            return ContinuousBatcher(params, cfg, **args)
+
+        outs = {}
+        for mode, megastep in (("inline", 1), ("chunked", 1),
+                               ("chunked", 4)):
+            b = batcher(prefill_mode=mode, megastep=megastep)
+            ex = b.executor
+            try:
+                if not b.prewarmed.wait(600) or ex.needs_capture:
+                    raise AssertionError(f"4k {name}: no graphs captured: "
+                                         f"{b.prewarm_error!r}")
+                graphs, ptrs = ex._graphs, ex._state_ptrs()
+                _zero_launches()
+                out = [h.result(timeout=600) for h in [
+                    b.submit(p, max_new_tokens=n_new, adapter=a)
+                    for p, a in zip(first, adapters)]]
+                out += [b.submit(p, max_new_tokens=n_new, adapter=a).result(
+                    timeout=600) for p, a in then]
+                fn, attr = counters[name]
+                launched = getattr(fn, attr)
+                bad = []
+                if ex.graph_replays != b.stats["chunks"] or not (
+                        ex._graphs is graphs and ex._state_ptrs() == ptrs):
+                    bad.append("not every dispatch a replay of the "
+                               "prewarm graphs at their addresses")
+                if launched != cfg.n_layers * 8 * megastep * b.stats[
+                        "chunks"] or not launched:
+                    bad.append(f"{name} kernel launches {launched}")
+                if b.pool is not None:
+                    b.pool.check_invariant()
+                    hits = b.pool.stats["prefix_hit_tokens"]
+                    if hits != 63 + 160:
+                        bad.append(f"prefix hit tokens {hits}")
+                if bad:
+                    raise AssertionError(f"4k {name} {mode} megastep "
+                                         f"{megastep}: {bad}")
+                outs[mode, megastep] = out
+            finally:
+                b.close()
+        # each lane of the mixed batch alone (no prefix cache: cold, as
+        # in the batch); the adapterless ring on the base prompt
+        solo_kw = {"prefix_cache": False} if ring.get("paged") else {}
+        b = batcher(**solo_kw)
+        try:
+            solo = [b.submit(p, max_new_tokens=n_new, adapter=a).result(
+                timeout=600) for p, a in zip(first, adapters)]
+        finally:
+            b.close()
+        b = batcher(adapters=None)
+        try:
+            plain = b.submit(first[0], max_new_tokens=n_new).result(
+                timeout=600)
+        finally:
+            b.close()
+        restored = None
+        if ring.get("paged"):
+            restored = _preempted_adapter_lane(batcher, first, n_new)
+        inline = outs["inline", 1]
+        chunked = outs["chunked", 1]
+
+        def agree(a, b):
+            return f"{sum(x == y for x, y in zip(a, b))}/{len(b)}"
+
+        line = (f"adapter {name} ring (7b width, 2 layers, f32, lanes "
+                f"{adapters}, graph replays): aid-0 lane == adapterless "
+                f"ring {inline[0] == plain}; mixed == solo on "
+                f"{agree(inline[:4], solo)}; chunked megastep 4 == 1 on "
+                f"{agree(outs['chunked', 4], chunked)}; chunked == inline on "
+                f"{agree(chunked, inline)}; inline == generate(lora) on "
+                f"{agree(inline, want)}; preempted {restored}")
+        log(line)
+        if (inline[0] != plain or inline[:4] != solo
+                or outs["chunked", 4] != chunked
+                or (restored is not None and not restored["equal"])):
+            raise AssertionError(line)
+        if name != "int8" and not chunked == inline == want:
+            raise AssertionError(line)
+    del params, reg
+    torch.cuda.empty_cache()
+
+
+def _preempted_adapter_lane(batcher, first, n_new) -> dict:
+    """A lane serving a1 (prompt 1, 40 tokens) on a one-slot ring,
+    preempted by a class-0 base request and restored: its stream equals
+    its uninterrupted run (no prefix cache, so both are cold)."""
+    b = batcher(slots=1, prefix_cache=False)
+    ex = b.executor
+    try:
+        if not b.prewarmed.wait(600):
+            raise AssertionError("4k: preemption ring never prewarmed")
+        want = b.submit(first[1], max_new_tokens=40,
+                        adapter="a1").result(timeout=600)
+        real = ex.replay
+        gate = threading.Event()
+        gate.set()
+
+        def slow(plan):
+            gate.wait(timeout=120)
+            time.sleep(0.02)
+            return real(plan)
+
+        ex.replay = slow
+        n0 = b.stats["admitted"]
+        h = b.submit(first[1], max_new_tokens=40, adapter="a1")
+        t0 = time.perf_counter()
+        while b.stats["admitted"] == n0 or ex.aid_host[0] != 1:
+            if time.perf_counter() - t0 > 120:
+                raise AssertionError("4k: the adapter lane never admitted")
+            time.sleep(0.001)
+        gate.clear()
+        h0 = b.submit(first[0], max_new_tokens=4, priority=0)
+        gate.set()
+        h0.result(timeout=600)
+        got = h.result(timeout=600)
+        return {"equal": got == want and b.stats["restored_lanes"] >= 1,
+                "preempted": b.stats["preempted_lanes"],
+                "restored": b.stats["restored_lanes"]}
+    finally:
+        b.close()
+
+
 def phase_train_kernel_equals_plain() -> None:
     """Phase 4c: three f32 train steps through the flash kernels and
     through the plain attention, from the same init."""
@@ -6247,7 +6875,8 @@ def main() -> int:
     run("2e", phase_quant_matmul_vs_plain, qmm)
     run("2f", phase_adam8bit_vs_plain, adam8)
     run("2c", phase_flash_vs_plain, flash)
-    if phases & {"3", "3b", "3d", "3e", "3g", "3h", "3i", "3j", "3l"}:
+    if phases & {"3", "3b", "3d", "3e", "3g", "3h", "3i", "3j", "3l",
+                  "3m"}:
         params, cfg = make_7b()
         run("3", phase_main_path, contiguous, params, cfg)
         ring_tokens = run("3b", phase_ring_main_path, paged, params, cfg)
@@ -6275,6 +6904,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         run("3l", phase_spec_ring, contiguous, qmm, params, cfg,
             ring_tokens, paged.get("ring"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        run("3m", phase_adapter_ring, paged, params, cfg, ring_tokens,
+            paged.get("ring"))
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -6291,6 +6924,7 @@ def main() -> int:
     run("4h", phase_weight_quant_equalities)
     run("4i", phase_chunked_equalities)
     run("4j", phase_spec_equalities)
+    run("4k", phase_adapter_equalities)
     log(f"all phases: {time.perf_counter() - t_all:.1f}s")
 
     order = ["name", "route", "source", "replaces", "launches",

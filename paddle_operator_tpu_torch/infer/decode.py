@@ -19,8 +19,12 @@ models.llama.Llama` module (its ``layers[i]`` is one layer's param
 subtree).  :func:`paged_prefill` writes a prompt's KV into the paged
 ring's block pool (infer/paged.py), bf16 or int8.  Every projection
 goes through :func:`_mm`, which also takes the weight-only int8/int4
-projections of infer/quant.py.  Not ported yet, and refused when asked
-for: tensor-parallel meshes, LoRA adapters and MoE layers.
+projections of infer/quant.py.  ``lora=(stacks, aid)`` (infer/qos.py
+``AdapterRegistry.arrays()`` and per-row adapter slots) adds each row's
+low-rank delta to q, k and v before RoPE (``qos.lora_qkv``), so adapter
+KV enters the cache as a merged-weight forward would write it.  Not
+ported yet, and refused when asked for: tensor-parallel meshes and MoE
+layers.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from paddle_operator_tpu_torch.infer.qos import layer_lora, lora_qkv
 from paddle_operator_tpu_torch.models.llama import Dense, Llama, LlamaConfig
 from paddle_operator_tpu_torch.ops.decode_attention import (
     DEFAULT_BLOCK_K,
@@ -114,17 +119,33 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: Optional[int] = None,
     }
 
 
+def _proj(cfg: LlamaConfig, lp, h: torch.Tensor, lora=None
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The q/k/v projections of the post-norm ``h`` [B, T, dim], plus
+    each row's LoRA delta when ``lora=(adp_l, aid)`` (one layer's
+    stacks and the per-row adapter slots): [B, T, out] each, before the
+    head reshape."""
+    q = _mm(h, lp.attn.wq, cfg.dtype)
+    k = _mm(h, lp.attn.wk, cfg.dtype)
+    v = _mm(h, lp.attn.wv, cfg.dtype)
+    if lora is not None:
+        q, k, v = lora_qkv(h, lora[0], lora[1], q, k, v, cfg.dtype)
+    return q, k, v
+
+
 def _qkv(cfg: LlamaConfig, lp, x: torch.Tensor, cos: torch.Tensor,
-         sin: torch.Tensor, pos: int
+         sin: torch.Tensor, pos: int, lora=None
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Pre-attention half of a decoder layer: RMSNorm -> q/k/v
-    projections -> RoPE at offset ``pos``.  Shapes [B, T, H, D]."""
+    projections (+ the LoRA delta, :func:`_proj`) -> RoPE at offset
+    ``pos``.  Shapes [B, T, H, D]."""
     b, t, _ = x.shape
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = _rms(x, lp.attn_norm.scale, cfg.norm_eps, cfg.dtype)
-    q = _mm(h, lp.attn.wq, cfg.dtype).reshape(b, t, hq, d)
-    k = _mm(h, lp.attn.wk, cfg.dtype).reshape(b, t, hkv, d)
-    v = _mm(h, lp.attn.wv, cfg.dtype).reshape(b, t, hkv, d)
+    q, k, v = _proj(cfg, lp, h, lora)
+    q = q.reshape(b, t, hq, d)
+    k = k.reshape(b, t, hkv, d)
+    v = v.reshape(b, t, hkv, d)
     return _rope(q, cos, sin, pos), _rope(k, cos, sin, pos), v
 
 
@@ -157,13 +178,13 @@ def _write_kv(k_cache: torch.Tensor, v_cache: torch.Tensor,
 
 def _layer(cfg: LlamaConfig, lp, x: torch.Tensor, cos: torch.Tensor,
            sin: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-           pos: int) -> torch.Tensor:
+           pos: int, lora=None) -> torch.Tensor:
     """One decoder layer over [B, T] new positions starting at ``pos``,
     attending to the cache's [0, pos+T) with plain einsum attention.
     Writes this layer's cache ([B, H_kv, S, D]) in place; returns y."""
     b, t, _ = x.shape
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, k, v = _qkv(cfg, lp, x, cos, sin, pos)
+    q, k, v = _qkv(cfg, lp, x, cos, sin, pos, lora)
     _write_kv(k_cache, v_cache, k, v, pos)
 
     # GQA: group query heads onto kv heads; rows attend cache columns up
@@ -202,12 +223,12 @@ def _forward(cfg: LlamaConfig, params: Llama, tokens: torch.Tensor,
     the plain selection) runs :func:`_layer`'s einsums.
 
     ``last_only``: apply the norm + lm head to the final position only
-    (logits [B, 1, vocab]) — prefill needs just the next-token logits."""
+    (logits [B, 1, vocab]) — prefill needs just the next-token logits.
+
+    ``lora``: ``(stacks, aid)`` — the registry's stacked [L, ...]
+    adapter tensors and per-row adapter slots [B] (infer/qos.py); each
+    layer reads its own slice of the stacks."""
     _refuse_mesh(mesh)
-    if lora is not None:
-        raise NotImplementedError(
-            "LoRA adapters are not ported to the torch package yet "
-            "(ROADMAP.md Queue A, infer/qos.py)")
     pos = cache["pos"]
     k_cache, v_cache = cache["k"], cache["v"]
     x = params.tok_embed.embedding.to(cfg.dtype)[tokens]
@@ -219,7 +240,7 @@ def _forward(cfg: LlamaConfig, params: Llama, tokens: torch.Tensor,
         lengths = torch.full((b,), pos + 1, dtype=torch.int32,
                              device=x.device)
         for li, lp in enumerate(params.layers):
-            q, k, v = _qkv(cfg, lp, x, cos, sin, pos)
+            q, k, v = _qkv(cfg, lp, x, cos, sin, pos, layer_lora(lora, li))
             _write_kv(k_cache[li], v_cache[li], k, v, pos)
             out = decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
                                    lengths, layer=li)
@@ -227,7 +248,8 @@ def _forward(cfg: LlamaConfig, params: Llama, tokens: torch.Tensor,
             x = _finish_layer(cfg, lp, x, out)
     else:
         for li, lp in enumerate(params.layers):
-            x = _layer(cfg, lp, x, cos, sin, k_cache[li], v_cache[li], pos)
+            x = _layer(cfg, lp, x, cos, sin, k_cache[li], v_cache[li], pos,
+                       layer_lora(lora, li))
     if last_only:
         x = x[:, -1:]
     x = _rms(x, params.final_norm.scale, cfg.norm_eps, cfg.dtype)
@@ -236,17 +258,19 @@ def _forward(cfg: LlamaConfig, params: Llama, tokens: torch.Tensor,
 
 
 def prefill(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
-            max_len: Optional[int] = None, mesh=None
+            max_len: Optional[int] = None, mesh=None, lora=None
             ) -> Tuple[torch.Tensor, Dict[str, object]]:
-    """Process the whole prompt [B, S] in one pass.  Returns
-    ([B, vocab] last-position logits, filled cache)."""
+    """Process the whole prompt [B, S] in one pass (``lora``: as
+    :func:`_forward`).  Returns ([B, vocab] last-position logits, filled
+    cache)."""
     cache_len = max_len or cfg.max_seq_len
     if tokens.shape[1] > cache_len:
         raise ValueError(f"prompt length {tokens.shape[1]} exceeds the "
                          f"cache ({cache_len} positions)")
     cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device,
                        mesh=mesh)
-    logits, cache = _forward(cfg, params, tokens, cache, last_only=True)
+    logits, cache = _forward(cfg, params, tokens, cache, last_only=True,
+                             lora=lora)
     return logits[:, 0], cache
 
 
@@ -255,7 +279,7 @@ def paged_prefill(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
                   table_row: torch.Tensor, *,
                   block_size: Optional[int] = None,
                   last_only: bool = False, quant: bool = False,
-                  prompt_len: Optional[int] = None):
+                  prompt_len: Optional[int] = None, lora=None):
     """Prefill a whole [1, T] prompt and write its KV into the PAGED
     block pool (infer/paged.py) as whole-block writes at the lane's
     ``table_row`` entries — the cold-admission half of paged serving.
@@ -278,7 +302,8 @@ def paged_prefill(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
     ``(logits, cache, tail_k, tail_v)`` with tails [L, 1, H, bs, D].
     A start past the lane cache (a prompt of whole blocks) clamps back
     to its last block, as the JAX ``dynamic_slice`` does: decode then
-    opens a fresh block and those rows sit behind the fill mask."""
+    opens a fresh block and those rows sit behind the fill mask.
+    ``lora``: as :func:`_forward` (an adapter lane's KV)."""
     from paddle_operator_tpu_torch.ops.decode_attention import (
         scatter_prefill_blocks,
         scatter_prefill_blocks_quant,
@@ -296,7 +321,8 @@ def paged_prefill(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
                          device=tokens.device),
         "pos": 0,
     }
-    logits, lane = _forward(cfg, params, tokens, lane, last_only=last_only)
+    logits, lane = _forward(cfg, params, tokens, lane, last_only=last_only,
+                            lora=lora)
     if not quant:
         scatter_prefill_blocks(pool_cache["k"], lane["k"], table_row, bs)
         scatter_prefill_blocks(pool_cache["v"], lane["v"], table_row, bs)
@@ -314,11 +340,12 @@ def paged_prefill(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
 
 
 def decode_step(params: Llama, cfg: LlamaConfig, token: torch.Tensor,
-                cache: Dict[str, object], mesh=None
+                cache: Dict[str, object], mesh=None, lora=None
                 ) -> Tuple[torch.Tensor, Dict[str, object]]:
     """One token [B] -> next-position logits [B, vocab] + advanced cache
     (the cache tensors are updated in place)."""
-    logits, cache = _forward(cfg, params, token[:, None], cache, mesh=mesh)
+    logits, cache = _forward(cfg, params, token[:, None], cache, mesh=mesh,
+                             lora=lora)
     return logits[:, 0], cache
 
 
@@ -349,7 +376,8 @@ def generate(params: Llama, cfg: LlamaConfig, prompt: torch.Tensor, *,
              top_k: Optional[int] = None, top_p: Optional[float] = None,
              generator: Optional[torch.Generator] = None,
              max_len: Optional[int] = None,
-             eos_token: Optional[int] = None, mesh=None) -> torch.Tensor:
+             eos_token: Optional[int] = None, mesh=None,
+             lora=None) -> torch.Tensor:
     """Greedy (temperature=0) or temperature sampling, with optional
     top-k / nucleus (top-p) filtering.  prompt [B, S] (on the params'
     device) -> [B, S + max_new_tokens].  With ``eos_token``, a sequence
@@ -362,7 +390,10 @@ def generate(params: Llama, cfg: LlamaConfig, prompt: torch.Tensor, *,
 
     The JAX module's scan runs max_new_tokens decode steps and drops
     the last step's logits; this loop skips that step, so a call runs
-    max_new_tokens - 1 decode steps (n_layers kernel launches each)."""
+    max_new_tokens - 1 decode steps (n_layers kernel launches each).
+
+    ``lora``: ``(stacks, aid [B])`` — every row's prefill and decode
+    steps add its adapter's delta (the ring's rule, infer/qos.py)."""
     _refuse_mesh(mesh)
     if temperature > 0 and generator is None:
         generator = torch.Generator(device=prompt.device)
@@ -374,7 +405,7 @@ def generate(params: Llama, cfg: LlamaConfig, prompt: torch.Tensor, *,
                          f"({max_new_tokens}) = {need} exceeds the cache "
                          f"({cache_len} positions)")
 
-    logits, cache = prefill(params, cfg, prompt, max_len)
+    logits, cache = prefill(params, cfg, prompt, max_len, lora=lora)
     done = torch.zeros(prompt.shape[0], dtype=torch.bool,
                        device=prompt.device)
 
@@ -394,7 +425,7 @@ def generate(params: Llama, cfg: LlamaConfig, prompt: torch.Tensor, *,
             done = done | (tok == eos_token)
         toks.append(tok)
         if i + 1 < max_new_tokens:
-            logits, cache = decode_step(params, cfg, tok, cache)
+            logits, cache = decode_step(params, cfg, tok, cache, lora=lora)
     if not toks:
         return prompt
     return torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)

@@ -54,8 +54,15 @@ on its own contiguous ring (``dcache``, beside the target's cache of
 either kind), the target's multi-row verify, the acceptance and the
 rewind, each dispatch (a round, or N rounds fused) replayed as a CUDA
 graph; the admissions prefill the draft lane too, and a spilled lane
-carries it.  Not ported yet (ROADMAP.md Queue A): disaggregated prefill
-and LoRA adapters.
+carries it.
+
+Many-adapter serving (``adapters``: an infer/qos.py ``AdapterRegistry``)
+threads ``lora=(stacks, aid)`` through every program: the registry's
+fixed stacks and a per-lane adapter-slot buffer ``RingExecutor.aid``
+(device int32, written in place by admission, eviction, restore and a
+heal), so a batch of lanes on different adapters is one dispatch, one
+CUDA graph replay on the card.  Not ported yet (ROADMAP.md Queue A):
+disaggregated prefill.
 """
 
 from __future__ import annotations
@@ -71,6 +78,7 @@ import torch
 
 from paddle_operator_tpu_torch.infer import decode as D
 from paddle_operator_tpu_torch.infer import quant as Q
+from paddle_operator_tpu_torch.infer.qos import layer_lora
 from paddle_operator_tpu_torch.models.llama import LlamaConfig
 from paddle_operator_tpu_torch.ops.decode_attention import (
     decode_attention,
@@ -355,18 +363,21 @@ def _write_lane(cache_l: torch.Tensor, kv: torch.Tensor,
 
 
 def _qkv_ring(cfg: LlamaConfig, lp, x: torch.Tensor, cos: torch.Tensor,
-              sin: torch.Tensor, pos: torch.Tensor):
+              sin: torch.Tensor, pos: torch.Tensor, lora=None):
     """Pre-attention half for ONE new token per lane at per-lane
-    positions ``pos`` [B]: RMSNorm -> projections -> RoPE at each
-    lane's own position.  Shapes [B, 1, H, D].  Positions past the RoPE
-    table (pipelined overshoot of a finished lane) read its last row,
-    as the JAX gather clamps."""
+    positions ``pos`` [B]: RMSNorm -> projections (+ each lane's LoRA
+    delta with ``lora=(adp_l, aid)``, one layer's stacks and the
+    per-LANE slots, decode._proj) -> RoPE at each lane's own position.
+    Shapes [B, 1, H, D].  Positions past the RoPE table (pipelined
+    overshoot of a finished lane) read its last row, as the JAX gather
+    clamps."""
     b = x.shape[0]
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = D._rms(x, lp.attn_norm.scale, cfg.norm_eps, cfg.dtype)
-    q = D._mm(h, lp.attn.wq, cfg.dtype).reshape(b, 1, hq, d)
-    k = D._mm(h, lp.attn.wk, cfg.dtype).reshape(b, 1, hkv, d)
-    v = D._mm(h, lp.attn.wv, cfg.dtype).reshape(b, 1, hkv, d)
+    q, k, v = D._proj(cfg, lp, h, lora)
+    q = q.reshape(b, 1, hq, d)
+    k = k.reshape(b, 1, hkv, d)
+    v = v.reshape(b, 1, hkv, d)
     p = torch.clamp(pos.long(), max=cos.shape[0] - 1)
     cos_b = cos[p][:, None, None, :]            # [B, 1, 1, d/2]
     sin_b = sin[p][:, None, None, :]
@@ -381,13 +392,14 @@ def _qkv_ring(cfg: LlamaConfig, lp, x: torch.Tensor, cos: torch.Tensor,
 
 def _layer_step(cfg: LlamaConfig, lp, x: torch.Tensor, cos: torch.Tensor,
                 sin: torch.Tensor, k_cache: torch.Tensor,
-                v_cache: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+                v_cache: torch.Tensor, pos: torch.Tensor,
+                lora=None) -> torch.Tensor:
     """One decoder layer for ONE new token per lane ([B, 1, dim] at lane
     positions ``pos``) with the plain einsum attention over the whole
     lane (masked past ``pos``); writes the layer's cache in place."""
     b = x.shape[0]
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, k, v = _qkv_ring(cfg, lp, x, cos, sin, pos)
+    q, k, v = _qkv_ring(cfg, lp, x, cos, sin, pos, lora)
     _write_lane(k_cache, k[:, 0], pos)
     _write_lane(v_cache, v[:, 0], pos)
     n_rep = hq // hkv
@@ -407,13 +419,14 @@ def _layer_step(cfg: LlamaConfig, lp, x: torch.Tensor, cos: torch.Tensor,
 
 
 def _ring_forward(cfg: LlamaConfig, params, tok: torch.Tensor,
-                  cache: Dict[str, torch.Tensor]
+                  cache: Dict[str, torch.Tensor], lora=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """tok [B] at per-lane cache['pos'] -> (logits [B, V] f32, cache
     written in place with ``pos + 1``).  With the kernel selected (a
     CUDA tensor) each layer's attention is ``decode_attention`` over
     that layer's cache view with lengths ``pos + 1`` — kernel #1 serves
-    the contiguous ring as it serves batch decoding."""
+    the contiguous ring as it serves batch decoding.  ``lora``:
+    ``(stacks, aid [B])``, each lane's adapter (infer/qos.py)."""
     pos = cache["pos"]
     x = params.tok_embed.embedding.to(cfg.dtype)[tok[:, None].long()]
     cos, sin = params.rope_cos, params.rope_sin
@@ -423,7 +436,8 @@ def _ring_forward(cfg: LlamaConfig, params, tok: torch.Tensor,
     if cfg.resolved_decode_attn(x.device) == "kernel":
         lengths = pos + 1
         for li, lp in enumerate(params.layers):
-            q, k, v = _qkv_ring(cfg, lp, x, cos, sin, pos)
+            q, k, v = _qkv_ring(cfg, lp, x, cos, sin, pos,
+                                layer_lora(lora, li))
             _write_lane(k_cache[li], k[:, 0], pos)
             _write_lane(v_cache[li], v[:, 0], pos)
             out = decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
@@ -433,7 +447,7 @@ def _ring_forward(cfg: LlamaConfig, params, tok: torch.Tensor,
     else:
         for li, lp in enumerate(params.layers):
             x = _layer_step(cfg, lp, x, cos, sin, k_cache[li], v_cache[li],
-                            pos)
+                            pos, layer_lora(lora, li))
     x = D._rms(x, params.final_norm.scale, cfg.norm_eps, cfg.dtype)
     logits = D._mm(x, params.lm_head, cfg.dtype).float()
     return logits[:, 0], {"k": k_cache, "v": v_cache, "pos": pos + 1}
@@ -540,17 +554,20 @@ def make_chunk_step(cfg: LlamaConfig, chunk_tokens: int,
                     top_p: Optional[float] = None):
     """The contiguous ring's resident decode step.
 
-    ``step(params, cache, tok [B], temp [B], seeds [B], active [B])
-    -> (tok', toks [chunk, B])``
+    ``step(params, cache, tok [B], temp [B], seeds [B], active [B],
+    lora=None) -> (tok', toks [chunk, B])``
 
     Runs ``chunk_tokens`` ticks for every lane, the cache updated in
     place.  Inactive lanes compute (the price of fixed shapes) but
     their position is ZEROED each tick, so their ignored writes land at
-    row 0, which the next admission's splice overwrites."""
+    row 0, which the next admission's splice overwrites.  ``lora``:
+    ``(stacks, aid [B])`` on an adapter ring (every lane its own
+    adapter, slot 0 the base)."""
 
-    def step(params, cache, tok, temp, seeds, active):
-        return _ticks(lambda t, c: _ring_forward(cfg, params, t, c), cache,
-                      tok, temp, seeds, active, chunk_tokens, top_k, top_p)
+    def step(params, cache, tok, temp, seeds, active, lora=None):
+        return _ticks(lambda t, c: _ring_forward(cfg, params, t, c, lora),
+                      cache, tok, temp, seeds, active, chunk_tokens, top_k,
+                      top_p)
 
     return step
 
@@ -647,17 +664,18 @@ def make_megastep(cfg: LlamaConfig, chunk_tokens: int, n_steps: int,
     megastep, whose dead lanes write the trash block, is the resumable
     one).
 
-    ``mega(params, cache, tok, temp, seeds, active, eos, left, steps)
-    -> (tok', toks [n, chunk, B], counts [n, B])``, the cache and
-    positions updated in place (``cache['pos']`` rebound).
+    ``mega(params, cache, tok, temp, seeds, active, eos, left, steps,
+    lora=None) -> (tok', toks [n, chunk, B], counts [n, B])``, the cache
+    and positions updated in place (``cache['pos']`` rebound).
     ``counts[r, b]`` is the number of ``toks[r, :, b]`` rows the host
     consumes for iteration ``r`` (0 once the lane is dead)."""
 
-    def mega(params, cache, tok, temp, seeds, active, eos, left, steps):
+    def mega(params, cache, tok, temp, seeds, active, eos, left, steps,
+             lora=None):
         def run_chunk(t, live):
-            return _ticks(lambda tt, c: _ring_forward(cfg, params, tt, c),
-                          cache, t, temp, seeds, live, chunk_tokens, top_k,
-                          top_p)
+            return _ticks(
+                lambda tt, c: _ring_forward(cfg, params, tt, c, lora),
+                cache, t, temp, seeds, live, chunk_tokens, top_k, top_p)
 
         tok, toks, counts, _ = _fused(run_chunk, n_steps, (cache,), tok,
                                       active, eos, left, steps)
@@ -689,16 +707,17 @@ def make_prefill_insert(cfg: LlamaConfig, bucket: int,
     tok/temp/seed — device work only, nothing read back.
 
     ``insert(params, cache, tok, temp, seeds, prompt [1, n],
-    prompt_len, slot, temp_val, seed) -> first_token`` (0-d device
-    tensor).  ``bucket`` is the admission's prompt bucket; the prompt
-    is forwarded at its own length."""
+    prompt_len, slot, temp_val, seed, lora=None) -> first_token`` (0-d
+    device tensor; ``lora``: the stacks and the admitted lane's slot
+    [1]).  ``bucket`` is the admission's prompt bucket; the prompt is
+    forwarded at its own length."""
     from paddle_operator_tpu_torch.infer.paged import _set_lane
 
     def insert(params, cache, tok, temp, seeds, prompt, prompt_len, slot,
-               temp_val, seed):
+               temp_val, seed, lora=None):
         lane = D.init_cache(cfg, 1, prompt_len, device=prompt.device)
         logits, lane = D._forward(cfg, params, prompt[:, :prompt_len],
-                                  lane, last_only=True)
+                                  lane, last_only=True, lora=lora)
         _splice_lane(cache, lane, slot, prompt_len)
         return _set_lane(cache, tok, temp, seeds, logits[0, -1],
                          prompt_len, slot, temp_val, seed, top_k, top_p,
@@ -731,12 +750,13 @@ def make_prefill_chunk(cfg: LlamaConfig, slice_bucket: int,
     full-width slice land past the real prompt and are either
     overwritten by the next slice or truncated/masked at the splice.
 
-    ``chunk(params, lane_k, lane_v, toks [1, slice_bucket], start)``"""
+    ``chunk(params, lane_k, lane_v, toks [1, slice_bucket], start,
+    lora=None)``"""
     from paddle_operator_tpu_torch.infer.speculative import _multi_forward
 
-    def chunk(params, lane_k, lane_v, toks, start):
+    def chunk(params, lane_k, lane_v, toks, start, lora=None):
         _multi_forward(cfg, params, toks, _staged(lane_k, lane_v, start),
-                       head=False)
+                       head=False, lora=lora)
 
     return chunk
 
@@ -755,14 +775,15 @@ def make_chunked_final_insert(cfg: LlamaConfig, slice_bucket: int,
 
     ``insert(params, cache, lane_k, lane_v, tok, temp, seeds,
     toks [1, slice_bucket], n_rows, start, prompt_len, slot, temp_val,
-    seed) -> first_token`` (a 0-d device tensor)."""
+    seed, lora=None) -> first_token`` (a 0-d device tensor)."""
     from paddle_operator_tpu_torch.infer.paged import _set_lane
     from paddle_operator_tpu_torch.infer.speculative import _multi_forward
 
     def insert(params, cache, lane_k, lane_v, tok, temp, seeds, toks,
-               n_rows, start, prompt_len, slot, temp_val, seed):
+               n_rows, start, prompt_len, slot, temp_val, seed, lora=None):
         logits, lane = _multi_forward(cfg, params, toks,
-                                      _staged(lane_k, lane_v, start))
+                                      _staged(lane_k, lane_v, start),
+                                      lora=lora)
         _splice_lane(cache, lane, slot, prompt_len)
         return _set_lane(cache, tok, temp, seeds, logits[0, int(n_rows) - 1],
                          prompt_len, slot, temp_val, seed, top_k, top_p,
@@ -842,7 +863,12 @@ class RingExecutor:
     resident programs are the speculative round and its megastep
     (infer/speculative.py) over the target's cache and the draft's
     contiguous ring ``dcache``; the prefix cache and the host tier are
-    off, as on the JAX ring."""
+    off, as on the JAX ring.
+
+    ``adapters`` (an infer/qos.py ``AdapterRegistry`` on this ring's
+    device): every program adds each lane's LoRA delta; the lane's
+    adapter slot lives in :attr:`aid` (device int32 [slots], with the
+    host mirror :attr:`aid_host`).  Refused with ``spec_k``, as in JAX."""
 
     # a prefix hit with a LONGER divergent suffix admits through the
     # cold block-granular prefill instead (the JAX package's cut-over
@@ -862,7 +888,17 @@ class RingExecutor:
                  prefill_chunk: int = 64,
                  draft_params: Any = None,
                  draft_cfg: Optional[LlamaConfig] = None,
-                 spec_k: int = 0) -> None:
+                 spec_k: int = 0, adapters=None) -> None:
+        # many-adapter serving: a draft proposing base-only against an
+        # adapted target would collapse acceptance, so the JAX ring
+        # refuses the pair
+        if adapters is not None and spec_k:
+            raise ValueError(
+                "adapters are not supported on speculative rings (the "
+                "draft proposes base-only); disable one of them")
+        self.adapters = adapters
+        self.aid: Optional[torch.Tensor] = None
+        self.aid_host = np.zeros((slots,), np.int32)
         if int(megastep) < 1:
             raise ValueError(f"megastep must be >= 1 (got {megastep})")
         self.megastep = int(megastep)
@@ -952,6 +988,10 @@ class RingExecutor:
         self.draft_cfg = draft_cfg
         self.draft_params = None
         self.dcache: Optional[Dict[str, torch.Tensor]] = None
+        if adapters is not None and adapters.device != self.device:
+            raise ValueError(f"the adapter stacks are on "
+                             f"{adapters.device}, the params on "
+                             f"{self.device}")
         if self.spec_k < 0:
             raise ValueError(f"spec_k must be >= 0 (got {spec_k})")
         if self.spec_k:
@@ -1060,6 +1100,15 @@ class RingExecutor:
             else:
                 for t in self.dcache.values():
                     t.zero_()
+        if self.adapters is not None:
+            # the per-lane adapter slots, allocated once: the graphs read
+            # them at a fixed address, and a heal zeroes them in place
+            if self.aid is None:
+                self.aid = torch.zeros((self.slots,), dtype=torch.int32,
+                                       device=dev)
+            else:
+                self.aid.zero_()
+            self.aid_host[:] = 0
         self.tok = torch.zeros((self.slots,), dtype=torch.int32, device=dev)
         self.temp = torch.zeros((self.slots,), dtype=torch.float32,
                                 device=dev)
@@ -1084,6 +1133,34 @@ class RingExecutor:
         if any(Q.weight_quant_mode(p) != "none" for _, p in models):
             _build.load("quant_matmul")
         self.capture_graphs()
+
+    # -- adapter (LoRA) operands ------------------------------------------
+
+    def lora_step_tail(self):
+        """The resident programs' ``lora``: the registry's stacks and the
+        per-lane slot buffer (both at fixed addresses, so a captured
+        graph reads every load, evict and admission), or None without
+        adapters."""
+        if self.adapters is None:
+            return None
+        return (self.adapters.arrays(), self.aid)
+
+    def lora_insert_tail(self, slot: int):
+        """An admission's ``lora`` for lane ``slot``: the stacks and the
+        lane's own slot ([1], a view of :attr:`aid`, which
+        :meth:`set_aid` wrote before the insert in stream order), or
+        None without adapters."""
+        if self.adapters is None:
+            return None
+        return (self.adapters.arrays(), self.aid[slot:slot + 1])
+
+    def set_aid(self, slot: int, idx: int) -> None:
+        """Lane ``slot``'s adapter slot, host mirror and device buffer
+        (in place, ``fill_``: queued in stream order, no wait)."""
+        if self.adapters is None:
+            return
+        self.aid_host[slot] = int(idx)
+        self.aid[slot].fill_(int(idx))
 
     # -- plan replay: the ONE resident dispatch path -----------------------
 
@@ -1154,6 +1231,10 @@ class RingExecutor:
         active_i, eos, left, steps, table = self._plan_views()
         active = active_i != 0
         lead = (table,) if self.paged else ()
+        # adapterless, the programs are called as they always were (the
+        # seam wrappers of ``self.step`` take positional arguments)
+        lora = self.lora_step_tail()
+        lora_kw = {} if lora is None else {"lora": lora}
         caches = [self.cache] + ([self.dcache] if self.spec_k else [])
         held = [c["pos"] for c in caches]
         raw = None
@@ -1170,12 +1251,12 @@ class RingExecutor:
                     *args, eos, left, steps, table=tbl)
         elif n_steps == 1:
             tok, toks = self.step(self.params, self.cache, *lead, self.tok,
-                                  self.temp, self.seeds, active)
+                                  self.temp, self.seeds, active, **lora_kw)
             counts = None
         else:
             tok, toks, counts = self.megastep_prog(n_steps)(
                 self.params, self.cache, *lead, self.tok, self.temp,
-                self.seeds, active, eos, left, steps)
+                self.seeds, active, eos, left, steps, **lora_kw)
         for c, pos in zip(caches, held):
             pos.copy_(c["pos"])
             c["pos"] = pos
@@ -1293,6 +1374,8 @@ class RingExecutor:
                          for key, t in self.dcache.items()})
         ptrs.update(tok=self.tok.data_ptr(), temp=self.temp.data_ptr(),
                     seeds=self.seeds.data_ptr(), plan=self._plan.data_ptr())
+        if self.aid is not None:
+            ptrs["aid"] = self.aid.data_ptr()
         return ptrs
 
     def _promote_blocks(self, ids, blocks: Dict[str, torch.Tensor]) -> None:
@@ -1427,7 +1510,8 @@ class RingExecutor:
         ``pos``, ``tok``, ``temp``; ``k``/``v`` [L, m, H_kv, bs, D];
         ``ks``/``vs`` [L, m, H_kv] and ``kt``/``vt`` [L, H_kv, bs, D]
         under int8; on a speculative ring the draft lane ``dk``/``dv``
-        [L, H_kv, S, D] and ``dpos``), with ``seed`` (the lane's int64
+        [L, H_kv, S, D] and ``dpos``; on an adapter ring the lane's
+        adapter slot ``aid``), with ``seed`` (the lane's int64
         sampler seed) where JAX keeps ``key``.  The tensors are CPU
         tensors — pinned on the card, where the device copies are queued
         together and waited for once."""
@@ -1471,8 +1555,8 @@ class RingExecutor:
         spill.update(zip(parts, blocks))
         if self.spec_k:
             spill["dpos"] = int(lane[3])
-        # the adapter id (aid, Queue A item 5) joins the spill with the
-        # adapters; the ring refuses them at construction
+        if self.adapters is not None:
+            spill["aid"] = int(self.aid_host[slot])
         return spill
 
     @torch.inference_mode()
@@ -1513,6 +1597,8 @@ class RingExecutor:
         self.tok[slot].fill_(int(spill["tok"]))
         self.temp[slot].fill_(float(spill["temp"]))
         self.seeds[slot].fill_(int(spill["seed"]))
+        if "aid" in spill:
+            self.set_aid(slot, spill["aid"])
         if self._state_ptrs() != before:
             raise AssertionError("restore_lane rebound a tensor the "
                                  "captured graphs read")

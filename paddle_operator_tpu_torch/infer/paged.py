@@ -1083,7 +1083,7 @@ def _attend_plain(cfg: LlamaConfig, q: torch.Tensor, k_view: torch.Tensor,
 def paged_ring_forward(cfg: LlamaConfig, params, tok: torch.Tensor,
                        cache: Dict[str, torch.Tensor], table: torch.Tensor,
                        quant: bool = False,
-                       active: Optional[torch.Tensor] = None
+                       active: Optional[torch.Tensor] = None, lora=None
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The ring's one-token step over the paged pool: tok [B] at
     per-lane ``cache['pos']`` -> (logits [B, V] f32, cache with the
@@ -1100,8 +1100,11 @@ def paged_ring_forward(cfg: LlamaConfig, params, tok: torch.Tensor,
     dequantizing view), and after the layers each lane whose row
     completed its block commits it (:func:`_commit_tails`).  ``active``
     [B] (default: all) sends inactive lanes' tail rows to the trash
-    tail — a lane whose admission is queued may hold a live tail."""
+    tail — a lane whose admission is queued may hold a live tail.
+    ``lora``: ``(stacks, aid [B])``, each lane's adapter (infer/qos.py):
+    adapter K/V enters either pool like any other K/V."""
     from paddle_operator_tpu_torch.infer.executor import _qkv_ring
+    from paddle_operator_tpu_torch.infer.qos import layer_lora
 
     pos = cache["pos"]
     block_size = cache["k"].shape[3]
@@ -1119,7 +1122,7 @@ def paged_ring_forward(cfg: LlamaConfig, params, tok: torch.Tensor,
                                      torch.full_like(lanes, trash_row)))
         wb = (pos // block_size).long()
     for li, lp in enumerate(params.layers):
-        q, k, v = _qkv_ring(cfg, lp, x, cos, sin, pos)
+        q, k, v = _qkv_ring(cfg, lp, x, cos, sin, pos, layer_lora(lora, li))
         if quant:
             _write_token_tail(cache["kt"][li], k[:, 0], rows_idx, pos,
                               block_size)
@@ -1167,7 +1170,7 @@ def make_paged_chunk_step(cfg: LlamaConfig, chunk_tokens: int,
     """The paged ring's resident decode step — executor.make_chunk_step
     plus the block table:
 
-    ``step(params, cache, table, tok, temp, seeds, active)
+    ``step(params, cache, table, tok, temp, seeds, active, lora=None)
     -> (tok', toks [chunk, B])``
 
     ``chunk_tokens`` ticks for every lane, the pool and ``cache['pos']``
@@ -1179,11 +1182,12 @@ def make_paged_chunk_step(cfg: LlamaConfig, chunk_tokens: int,
     Everything stays on the device: no host read inside the chunk."""
     from paddle_operator_tpu_torch.infer.executor import _ticks
 
-    def step(params, cache, table, tok, temp, seeds, active):
+    def step(params, cache, table, tok, temp, seeds, active, lora=None):
         return _ticks(
             lambda t, c: paged_ring_forward(cfg, params, t, c, table,
                                             quant=quant,
-                                            active=active if quant else None),
+                                            active=active if quant else None,
+                                            lora=lora),
             cache, tok, temp, seeds, active, chunk_tokens, top_k, top_p)
 
     return step
@@ -1209,19 +1213,20 @@ def make_paged_megastep(cfg: LlamaConfig, chunk_tokens: int, n_steps: int,
     last consumed token left them.
 
     ``mega(params, cache, table, tok, temp, seeds, active, eos, left,
-    steps) -> (tok', toks [n, chunk, B], counts [n, B])`` — the output
-    contract of executor.make_megastep, table operand added."""
+    steps, lora=None) -> (tok', toks [n, chunk, B], counts [n, B])`` —
+    the output contract of executor.make_megastep, table operand
+    added."""
     from paddle_operator_tpu_torch.infer.executor import _fused, _ticks
 
     def mega(params, cache, table, tok, temp, seeds, active, eos, left,
-             steps):
+             steps, lora=None):
         def run_chunk(t, live):
             tbl = torch.where(live[:, None], table,
                               torch.full_like(table, TRASH_BLOCK))
             return _ticks(
                 lambda tt, c: paged_ring_forward(
                     cfg, params, tt, c, tbl, quant=quant,
-                    active=live if quant else None),
+                    active=live if quant else None, lora=lora),
                 cache, t, temp, seeds, live, chunk_tokens, top_k, top_p)
 
         tok, toks, counts, _ = _fused(run_chunk, n_steps, (cache,), tok,
@@ -1242,8 +1247,9 @@ def make_paged_prefill_insert(cfg: LlamaConfig, bucket: int,
     device, nothing read back.
 
     ``insert(params, cache, table_row, tok, temp, seeds, prompt [1, n],
-    prompt_len, slot, temp_val, seed) -> first_token`` (a 0-d device
-    tensor; ``cache``/``tok``/``temp``/``seeds`` are updated in place).
+    prompt_len, slot, temp_val, seed, lora=None) -> first_token`` (a
+    0-d device tensor; ``cache``/``tok``/``temp``/``seeds`` are updated
+    in place; ``lora``: the stacks and the lane's adapter slot [1]).
     ``bucket`` is the admission's prompt bucket, a block multiple —
     prompts are forwarded at their own length (PyTorch compiles
     nothing) and the KV slab is rounded to whole blocks for the
@@ -1259,19 +1265,19 @@ def make_paged_prefill_insert(cfg: LlamaConfig, bucket: int,
                          f"block size {block_size}")
 
     def insert(params, cache, table_row, tok, temp, seeds, prompt,
-               prompt_len, slot, temp_val, seed):
+               prompt_len, slot, temp_val, seed, lora=None):
         if quant:
             logits, _, tail_k, tail_v = D.paged_prefill(
                 params, cfg, prompt[:, :prompt_len], cache, table_row,
                 block_size=block_size, last_only=True, quant=True,
-                prompt_len=prompt_len)
+                prompt_len=prompt_len, lora=lora)
             cache["kt"][:, slot] = tail_k[:, 0]
             cache["vt"][:, slot] = tail_v[:, 0]
         else:
             logits, _ = D.paged_prefill(params, cfg, prompt[:, :prompt_len],
                                         cache, table_row,
                                         block_size=block_size,
-                                        last_only=True)
+                                        last_only=True, lora=lora)
         return _set_lane(cache, tok, temp, seeds, logits[0, -1], prompt_len,
                          slot, temp_val, seed, top_k, top_p, _sample_tokens)
 
@@ -1338,14 +1344,14 @@ def make_paged_suffix_insert(cfg: LlamaConfig, suffix_bucket: int,
 
     ``insert(params, cache, table_row [M], tok, temp, seeds,
     suffix [1, suffix_bucket], suffix_len, hit_len, slot, temp_val,
-    seed) -> first_token``"""
+    seed, lora=None) -> first_token``"""
     from paddle_operator_tpu_torch.infer.executor import _sample_tokens
     from paddle_operator_tpu_torch.infer.speculative import (
         _multi_forward_paged,
     )
 
     def insert(params, cache, table_row, tok, temp, seeds, suffix,
-               suffix_len, hit_len, slot, temp_val, seed):
+               suffix_len, hit_len, slot, temp_val, seed, lora=None):
         prompt_len = hit_len + suffix_len
         dev = suffix.device
         lane_cache = {"k": cache["k"], "v": cache["v"],
@@ -1358,7 +1364,7 @@ def make_paged_suffix_insert(cfg: LlamaConfig, suffix_bucket: int,
         logits, lane_cache = _multi_forward_paged(
             cfg, params, suffix, lane_cache, table_row[None, :],
             limit=torch.full((1,), int(prompt_len), dtype=torch.int32,
-                             device=dev), quant=quant)
+                             device=dev), quant=quant, lora=lora)
         if quant:
             _restore_lane_tails(cache, lane_cache, slot)
         return _set_lane(cache, tok, temp, seeds,
@@ -1380,7 +1386,7 @@ def make_paged_prefill_chunk(cfg: LlamaConfig, slice_bucket: int,
     mid-block safely.  The pools are written in place.
 
     ``chunk(params, cache, table_row [M], toks [1, slice_bucket],
-    start, limit)``
+    start, limit, lora=None)``
 
     ``quant=True`` adds a trailing ``slot`` argument (the tail rows
     address by lane): the slice rides the lane's staging tail (sliced
@@ -1399,20 +1405,22 @@ def make_paged_prefill_chunk(cfg: LlamaConfig, slice_bucket: int,
     def _limit(limit, dev):
         return torch.full((1,), int(limit), dtype=torch.int32, device=dev)
 
-    def chunk(params, cache, table_row, toks, start, limit):
+    def chunk(params, cache, table_row, toks, start, limit, lora=None):
         _multi_forward_paged(cfg, params, toks,
                              _lane(cache, start, toks.device),
                              table_row[None, :],
-                             limit=_limit(limit, toks.device), head=False)
+                             limit=_limit(limit, toks.device), head=False,
+                             lora=lora)
 
-    def chunk_quant(params, cache, table_row, toks, start, limit, slot):
+    def chunk_quant(params, cache, table_row, toks, start, limit, slot,
+                    lora=None):
         lane = _lane(cache, start, toks.device)
         lane["ks"], lane["vs"] = cache["ks"], cache["vs"]
         lane["kt"], lane["vt"] = _slice_lane_tails(cache, slot)
         _, lane = _multi_forward_paged(cfg, params, toks, lane,
                                        table_row[None, :],
                                        limit=_limit(limit, toks.device),
-                                       quant=True, head=False)
+                                       quant=True, head=False, lora=lora)
         _restore_lane_tails(cache, lane, slot)
 
     return chunk_quant if quant else chunk

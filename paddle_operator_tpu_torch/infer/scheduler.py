@@ -53,9 +53,17 @@ payloads the ring imports into the tier before admission).
 every dispatch a speculative round (or N of them, fused) on any of the
 three rings: a dispatch commits 1..K+1 tokens a lane, which the consume
 walks as it walks a chunk, and each request counts its drafts offered
-and accepted (``accept_rate``, ``/statusz`` ``acceptRate``).  Not ported
-yet, and refused when asked for (ROADMAP.md Queue A): disaggregated
-prefill, LoRA adapters, span tracing, the NaN-lane check, live weight
+and accepted (``accept_rate``, ``/statusz`` ``acceptRate``).
+
+``adapters`` (an infer/qos.py ``AdapterRegistry``) serves many LoRA
+adapters off the one base model: ``submit(adapter=name)`` resolves the
+adapter's slot and radix namespace, the admission re-validates that
+namespace (an adapter evicted or replaced while its request queued is
+refused) and writes the lane's slot into the executor's per-lane buffer,
+and lanes of different adapters decode in the same dispatch.  A prefix
+cached under one adapter load is never hit by another, nor by the base
+model.  Not ported yet, and refused when asked for (ROADMAP.md Queue A):
+disaggregated prefill, span tracing, the NaN-lane check, live weight
 swap and fleet-level KV.
 """
 
@@ -114,7 +122,8 @@ class _Request:
                  "done", "out", "error", "_stream", "_cancel",
                  "dev_prompt", "bucket", "deadline", "deadline_exceeded",
                  "priority", "request_id", "t_submit", "t_first",
-                 "t_last_tok", "preempts", "accepted", "drafted")
+                 "t_last_tok", "preempts", "accepted", "drafted",
+                 "adapter", "adapter_idx", "ns")
 
     def __init__(self, prompt, max_new, temperature, seed, eos,
                  wants_stream=False, deadline=None):
@@ -133,6 +142,11 @@ class _Request:
         self.deadline: Optional[float] = deadline
         self.deadline_exceeded = False
         self.priority = 0
+        # the request's adapter: its name, registry slot and radix
+        # namespace (0 and 0 for the base model)
+        self.adapter: Optional[str] = None
+        self.adapter_idx = 0
+        self.ns = 0
         # times this request's lane was spilled for more urgent work
         # (the per-request anti-thrash cap)
         self.preempts = 0
@@ -275,7 +289,6 @@ class ContinuousBatcher:
                 (mesh is not None, "tensor-parallel serving (mesh)"),
                 (prefill_mode == "disagg",
                  f"prefill_mode={prefill_mode!r}"),
-                (adapters is not None, "LoRA adapters"),
                 (bool(trace), "span tracing (trace=True)"),
                 (resilience is not None and resilience.nan_check,
                  "the NaN-lane check (nan_check)")):
@@ -314,6 +327,8 @@ class ContinuousBatcher:
         # while the host consumes the previous one)
         self.pipeline_depth = max(1, pipeline_depth)
         self.qos = qos if qos is not None else QOS.QoSConfig()
+        # the LoRA adapter registry (None: base model only)
+        self.adapters = adapters
 
         pod = os.environ.get("TPUJOB_REPLICA_ID", "")
         self.tracer = None
@@ -328,7 +343,7 @@ class ContinuousBatcher:
             kv_quant=kv_quant, megastep=self.megastep,
             host_cache_blocks=host_cache_blocks,
             prefill_chunk=prefill_chunk, draft_params=draft_params,
-            draft_cfg=draft_cfg, spec_k=spec_k)
+            draft_cfg=draft_cfg, spec_k=spec_k, adapters=adapters)
         self.device = self.executor.device
         self.spec_k = self.executor.spec_k
         self.draft_cfg = self.executor.draft_cfg
@@ -493,10 +508,18 @@ class ContinuousBatcher:
             raise ValueError(
                 f"priority {prio} outside [0, {self.qos.priorities}) — "
                 f"this ring serves {self.qos.priorities} class(es){rid}")
+        adapter_idx = adapter_ns = 0
         if adapter is not None:
-            raise ValueError(
-                f"no adapter registry on this ring (SERVE_ADAPTERS "
-                f"unset) for adapter {adapter!r}{rid}")
+            if self.spec_k:
+                raise ValueError(
+                    f"adapters are not supported on speculative rings "
+                    f"(the draft proposes base-only){rid}")
+            if self.adapters is None:
+                raise ValueError(
+                    f"no adapter registry on this ring (SERVE_ADAPTERS "
+                    f"unset) for adapter {adapter!r}{rid}")
+            adapter_idx, adapter_ns = \
+                self.adapters.resolve_ns(adapter)      # ValueError
         if self._draining:
             raise ShuttingDown("server draining; retry another replica")
         if self._stop.is_set() or not self._thread.is_alive():
@@ -553,13 +576,17 @@ class ContinuousBatcher:
                        deadline=(time.monotonic() + deadline_s
                                  if deadline_s is not None else None))
         req.priority = prio
+        req.adapter = adapter
+        req.adapter_idx = adapter_idx
+        req.ns = adapter_ns if adapter_idx else 0
         req.request_id = request_id
         # a cold prefix may be warm in the durable store: fetch its
         # blocks now, on the caller's thread, so this request's
-        # admission host-hits them (base namespace only: the port serves
-        # no adapter namespace)
-        if (self.kv_store is not None and self.pool is not None
-                and self.pool.host is not None):
+        # admission host-hits them.  Base namespace only: an adapter's
+        # namespace is minted per load, so its chains never match a
+        # stored one
+        if (self.kv_store is not None and req.ns == 0
+                and self.pool is not None and self.pool.host is not None):
             try:
                 self._maybe_store_fetch(prompt)
             except Exception:
@@ -667,8 +694,10 @@ class ContinuousBatcher:
             "kvStoreHitRate": store.hit_rate() if store is not None else 0.0,
             "kvStoreEvictions": (store.evictions()
                                  if store is not None else 0),
-            "activeAdapters": 0,
-            "adapterNames": [],
+            "activeAdapters": (len(self.adapters)
+                               if self.adapters is not None else 0),
+            "adapterNames": (self.adapters.names()
+                             if self.adapters is not None else []),
             "megastepN": self.megastep,
             "dispatchesPerToken": (
                 round(self.stats["chunks"] / self._tokens_emitted, 4)
@@ -925,7 +954,28 @@ class ContinuousBatcher:
         self.hist.queue_wait.observe((now - req.t_submit) * 1e3)
         self.flightrec.record("admit", rid=req.request_id, slot=slot,
                               prio=req.priority, mode=self.prefill_mode)
+        # reserve the lane FIRST: the admin surface's in-use snapshot
+        # (serve.py) reads lanes, parked lanes and the queue from another
+        # thread, and a request popped from the queue but not yet in a
+        # lane would slip through its evict guard
         self.lane[slot] = req
+        if req.adapter_idx and self.adapters is not None:
+            # re-validate: the adapter may have been evicted (and its
+            # slot reloaded with another tenant's deltas) while this
+            # request queued — the load generation captured at submit
+            # is the identity check (the admission's exception path
+            # releases the lane)
+            try:
+                live_ns = self.adapters.ns_of(req.adapter_idx)
+            except KeyError:
+                live_ns = -1
+            if live_ns != req.ns:
+                raise ValueError(
+                    f"adapter {req.adapter!r} was evicted/replaced "
+                    "while this request was queued; resubmit")
+        # the lane's adapter slot: every dispatch from here on gathers
+        # this lane's LoRA pair (a no-op without adapters)
+        ex.set_aid(slot, req.adapter_idx)
         # reset the lane's host mirrors NOW, not at activation: a lane
         # evicted MID-PREFILL (cancel, deadline) resolves through
         # ``req.prompt + _lane_out[slot]``, and the previous occupant's
@@ -941,7 +991,8 @@ class ContinuousBatcher:
         else:
             first = ex.inserts[req.bucket](
                 ex.params, ex.cache, ex.tok, ex.temp, ex.seeds,
-                req.dev_prompt, n, slot, float(req.temperature), req.seed)
+                req.dev_prompt, n, slot, float(req.temperature), req.seed,
+                lora=ex.lora_insert_tail(slot))
             self.stats["prefill_calls"] += 1
             self.stats["prefill_tokens"] += n
         self.stats["admitted"] += 1
@@ -956,7 +1007,8 @@ class ContinuousBatcher:
         ex = self.executor
         n = len(req.prompt)
         hit_len, cow = self.pool.admit(          # NoFreeBlocks -> req fails
-            slot, req.prompt, max_suffix=self.SUFFIX_PREFILL_MAX_ROWS)
+            slot, req.prompt, max_suffix=self.SUFFIX_PREFILL_MAX_ROWS,
+            ns=req.ns)
         self._dispatch_cow(slot, cow, hit_len)
         tbl_row = self._table_row(slot)
         if hit_len:
@@ -964,12 +1016,15 @@ class ContinuousBatcher:
         else:
             first = ex.inserts[req.bucket](
                 ex.params, ex.cache, tbl_row, ex.tok, ex.temp, ex.seeds,
-                req.dev_prompt, n, slot, float(req.temperature), req.seed)
+                req.dev_prompt, n, slot, float(req.temperature), req.seed,
+                lora=ex.lora_insert_tail(slot))
             self.stats["prefill_calls"] += 1
             self.stats["prefill_tokens"] += n
         # register this lane's full prompt blocks for later admissions
-        # (their content is written before any later work on the stream)
-        self.pool.publish(slot, req.prompt)
+        # (their content is written before any later work on the stream;
+        # an adapter lane publishes under its namespace, so reuse stays
+        # within one adapter load)
+        self.pool.publish(slot, req.prompt, ns=req.ns)
         return first
 
     def _suffix_admit(self, slot: int, req: _Request, tbl_row, hit_len):
@@ -984,7 +1039,7 @@ class ContinuousBatcher:
         first = ins(ex.params, ex.cache, tbl_row, ex.tok, ex.temp,
                     ex.seeds, X.to_device(padded, self.device),
                     len(suffix), hit_len, slot, float(req.temperature),
-                    req.seed)
+                    req.seed, lora=ex.lora_insert_tail(slot))
         self.stats["prefill_calls"] += 1
         self.stats["prefill_tokens"] += len(suffix)
         return first
@@ -1005,7 +1060,8 @@ class ContinuousBatcher:
         lane_k = lane_v = None
         if self.paged:
             hit_len, cow = self.pool.admit(
-                slot, req.prompt, max_suffix=self.SUFFIX_PREFILL_MAX_ROWS)
+                slot, req.prompt, max_suffix=self.SUFFIX_PREFILL_MAX_ROWS,
+                ns=req.ns)
             self._dispatch_cow(slot, cow, hit_len)
         else:
             lane_k, lane_v = ex.make_staging(req.bucket)
@@ -1037,10 +1093,11 @@ class ContinuousBatcher:
                         dev_toks, st.start, st.start + sb)
                 if ex.quant:    # int8 slices address the lane's tail
                     args += (slot,)
-                ex.chunk_prog(None)(*args)
+                ex.chunk_prog(None)(*args, lora=ex.lora_insert_tail(slot))
             else:
                 ex.chunk_prog(ex.staging_len(req.bucket))(
-                    ex.params, st.lane_k, st.lane_v, dev_toks, st.start)
+                    ex.params, st.lane_k, st.lane_v, dev_toks, st.start,
+                    lora=ex.lora_insert_tail(slot))
             st.start += sb
             self.stats["prefill_calls"] += 1
             self.stats["prefill_tokens"] += sb
@@ -1053,18 +1110,20 @@ class ContinuousBatcher:
             first = ex.final_insert(None)(
                 ex.params, ex.cache, self._table_row(slot), ex.tok, ex.temp,
                 ex.seeds, dev_toks, remaining, st.start, slot,
-                float(req.temperature), req.seed)
+                float(req.temperature), req.seed,
+                lora=ex.lora_insert_tail(slot))
         else:
             first = ex.final_insert(ex.staging_len(req.bucket))(
                 ex.params, ex.cache, st.lane_k, st.lane_v, ex.tok, ex.temp,
                 ex.seeds, dev_toks, remaining, st.start, n, slot,
-                float(req.temperature), req.seed)
+                float(req.temperature), req.seed,
+                lora=ex.lora_insert_tail(slot))
         self.stats["prefill_calls"] += 1
         self.stats["prefill_tokens"] += remaining
         self.stats["chunked_prefill_tokens"] += remaining
         del self._prefilling[slot]
         if self.paged:
-            self.pool.publish(slot, req.prompt)
+            self.pool.publish(slot, req.prompt, ns=req.ns)
         self._activate(slot, req, first)
 
     def _materialize_first(self, i: int, req: _Request) -> None:
@@ -1109,13 +1168,15 @@ class ContinuousBatcher:
             req._stream.put(None)
 
     def _evict(self, slot: int) -> None:
-        """Host bookkeeping only — no device work: the lane's stale
-        device state is harmless (inactive lanes' tokens are ignored,
-        their position zeroes, and the next admission overwrites all
-        lane state)."""
+        """Host bookkeeping, plus the lane's adapter slot zeroed in place
+        (hygiene, queued without a wait): the lane's other stale device
+        state is harmless (inactive lanes' tokens are ignored, their
+        position zeroes, and the next admission overwrites all lane
+        state)."""
         req = self.lane[slot]
         self.lane[slot] = None
         self._lane_pos[slot] = 0        # retired lanes report no pos
+        self.executor.set_aid(slot, 0)
         # a lane evicted MID-PREFILL (cancel, deadline, a failed slice)
         # drops its slice state
         self._prefilling.pop(slot, None)
@@ -1216,6 +1277,7 @@ class ContinuousBatcher:
         self._lane_out[slot] = []
         self._lane_pos[slot] = 0
         self._lane_first[slot] = None
+        self.executor.set_aid(slot, 0)  # the spill carries it
         self.pool.retire(slot)      # blocks free for the preemptor
         req.preempts += 1
         self._preempt_budget.spend()
@@ -1543,6 +1605,7 @@ class ContinuousBatcher:
                 except Exception as e:          # bad request: fail it only
                     self._finish(req, e)
                     self.lane[slot] = None
+                    ex.set_aid(slot, 0)
                     self._lane_pos[slot] = 0
                     self._lane_first[slot] = None
                     self._prefilling.pop(slot, None)

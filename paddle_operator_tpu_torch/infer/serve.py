@@ -37,13 +37,18 @@ Two modes, as in the JAX package:
   priorities (``X-Request-Priority``/``priority``; on the paged ring a
   more urgent request preempts a less urgent lane, SERVE_PREEMPT) and
   the ring's ``/statusz``, ``/metrics`` and ``/debug/flightrec`` are
-  served.
+  served.  ``SERVE_ADAPTERS`` serves many LoRA adapters off the one base
+  model (infer/qos.py ``AdapterRegistry``; ``SERVE_ADAPTER_RANK``,
+  ``SERVE_MAX_ADAPTERS``): a request's ``"adapter"`` selects one, and
+  ``GET``/``POST /v1/adapters`` list, load and evict them at runtime.
 
 Greedy output equals the JAX server's token for token.  Sampled tokens
 differ from the JAX server's for the same seed (``jax.random`` is not
 reproduced; infer/executor.py ``_sample_tokens`` has the rule).
-``/v1/swap``, ``/v1/kv/*`` and ``POST /v1/adapters`` answer as the JAX
-server does when those features are not configured.
+``/v1/swap`` and ``/v1/kv/*`` answer as the JAX server does when those
+features are not configured; so does ``/v1/adapters`` on a server
+without a registry.  The batch server ignores a request's
+``"adapter"``, as the JAX batch server does.
 
 The entry point restores the parameters from the operator's
 ``TPUJOB_CHECKPOINT_PATH`` (:func:`load_serving_params`) and quantizes
@@ -237,7 +242,14 @@ class _Handler(BaseHTTPRequestHandler):
                                             else "ring")},
                            headers=self._retry_hdr())
         elif self.path == "/v1/adapters":
-            self._send(200, {"adapters": [], "capacity": 0})
+            # the loaded set and the pool's capacity/rank contract
+            reg = getattr(b, "adapters", None) if b is not None else None
+            if reg is None:
+                self._send(200, {"adapters": [], "capacity": 0})
+            else:
+                self._send(200, {"adapters": reg.names(),
+                                 "capacity": reg.capacity,
+                                 "rank": reg.rank})
         elif self.path == "/statusz":
             # the ring's serving_status block (batch mode publishes none)
             st = b.serving_status() if b is not None else {}
@@ -337,6 +349,61 @@ class _Handler(BaseHTTPRequestHandler):
         finally:
             handle.cancel()     # a no-op once the generation finished
 
+    def _adapters_admin(self, body: bytes) -> None:
+        """POST /v1/adapters — runtime load/evict:
+        ``{"load": {"name": ..., "path"?: ..., "seed"?: ...}}`` installs
+        (path: .npz deltas; seed or neither: the deterministic random
+        smoke adapter), ``{"evict": "name"}`` removes — 409 while a
+        resident, parked or queued lane still uses it, 400 for anything
+        else that fails."""
+        from paddle_operator_tpu_torch.infer.qos import (
+            AdapterInUse,
+            load_adapter_file,
+        )
+
+        b = self._batcher()
+        reg = getattr(b, "adapters", None) if b is not None else None
+        if reg is None:
+            self._send(400, {"error": "no adapter registry (set "
+                                      "SERVE_ADAPTERS to enable)"})
+            return
+
+        def lanes_in_use():
+            # resident + parked + QUEUED: a queued request resolved its
+            # adapter slot at submit, and evicting or replacing it (or a
+            # later load reusing the slot) would serve it another
+            # tenant's deltas
+            in_use = {r.adapter_idx for r in list(b.lane) if r is not None}
+            in_use |= {pk.req.adapter_idx for pk in list(b._parked)}
+            in_use |= {r.adapter_idx for r in b._pending.items()}
+            return in_use
+
+        try:
+            req = json.loads(body)
+            if "load" in req:
+                spec = req["load"]
+                name = spec["name"]
+                if spec.get("path"):
+                    deltas = load_adapter_file(b.cfg, spec["path"],
+                                               reg.rank)
+                    idx = reg.load(name, deltas, in_use=lanes_in_use())
+                else:
+                    idx = reg.load(name, seed=spec.get("seed"),
+                                   in_use=lanes_in_use())
+                self._send(200, {"loaded": name, "slot": idx})
+            elif "evict" in req:
+                reg.evict(req["evict"], in_use=lanes_in_use())
+                self._send(200, {"evicted": req["evict"]})
+            else:
+                raise ValueError("body must carry 'load' or 'evict'")
+        except AdapterInUse as e:
+            self._send(409, {"error": str(e)})
+        except (ValueError, KeyError, TypeError,
+                json.JSONDecodeError) as e:
+            self._send(400, {"error": str(e)})
+        except OSError as e:
+            self._send(400, {"error": f"adapter file: {e}"})
+
     def do_POST(self):
         # drain the body before ANY response: under HTTP/1.1 keep-alive
         # an unread body would be parsed as the next request's start line
@@ -357,8 +424,7 @@ class _Handler(BaseHTTPRequestHandler):
             self.end_headers()
             return
         if self.path == "/v1/adapters":
-            self._send(400, {"error": "no adapter registry (set "
-                                      "SERVE_ADAPTERS to enable)"})
+            self._adapters_admin(body)
             return
         if self.path == "/v1/swap":
             self._send(400, {"error": (
@@ -492,9 +558,6 @@ def refuse_unported(environ) -> None:
                        "parallelism)")
     if environ.get("SERVE_PREFILL", "").strip() == "disagg":
         refused.append("SERVE_PREFILL=disagg (disaggregated prefill)")
-    if on("SERVE_ADAPTERS"):
-        refused.append(f"SERVE_ADAPTERS={environ['SERVE_ADAPTERS']} "
-                       "(LoRA adapters)")
     if environ.get("SERVE_TRACE", "0") == "1":
         refused.append("SERVE_TRACE=1 (span tracing)")
     if environ.get("SERVE_NAN_CHECK", "0") == "1":
@@ -729,6 +792,27 @@ def spec_kw_from_env(environ, cfg: LlamaConfig, device="cuda") -> dict:
     return {"draft_params": dmodel, "draft_cfg": dcfg, "spec_k": spec_k}
 
 
+def adapter_kw_from_env(environ, cfg: LlamaConfig, spec_k: int = 0,
+                        device="cuda") -> dict:
+    """The ring's LoRA registry from the env, as the JAX entry point
+    builds it: ``SERVE_ADAPTERS`` (``name``, ``name:seed:<int>`` or
+    ``name:/path.npz`` entries; SERVE_ADAPTER_RANK / SERVE_MAX_ADAPTERS
+    size the pool) -> ``{"adapters": registry}`` on ``device``, more
+    loaded and evicted at runtime through POST /v1/adapters.  Unset:
+    ``{}``.  Beside ``SERVE_SPEC_K`` > 0 it prints the JAX server's line
+    and returns ``{}``: the ring serves the base model only."""
+    from paddle_operator_tpu_torch.infer.qos import AdapterRegistry
+
+    if spec_k:
+        if environ.get("SERVE_ADAPTERS", "").strip():
+            print("SERVE_ADAPTERS ignored: adapters are not supported "
+                  "on speculative rings (the draft proposes base-only)",
+                  flush=True)
+        return {}
+    adapters = AdapterRegistry.from_env(cfg, environ, device)
+    return {"adapters": adapters} if adapters is not None else {}
+
+
 def quantize_from_env(model: Llama, cfg: LlamaConfig, environ) -> str:
     """Weight-only quantization of the served model, in place, as the
     JAX entry point applies it after its restore: ``QUANTIZE=int8`` is
@@ -757,7 +841,9 @@ def main() -> int:
     SERVE_CONTINUOUS=1 (paged with SERVE_PAGED=1, over the int8 pool
     with SERVE_KV_QUANT=int8), its weights quantized under
     SERVE_WEIGHT_QUANT or QUANTIZE (``quantize_from_env``) and, with
-    SERVE_SPEC_K, a draft model beside it (``spec_kw_from_env``);
+    SERVE_SPEC_K, a draft model beside it (``spec_kw_from_env``), or,
+    with SERVE_ADAPTERS, its LoRA adapters (``adapter_kw_from_env``;
+    ignored beside SERVE_SPEC_K, as in the JAX package);
     SIGTERM drains and exits EXIT_PREEMPTED (83)."""
     from paddle_operator_tpu_torch.ft.preemption import PreemptionWatcher
     from paddle_operator_tpu_torch.infer.quant import weight_quant_mode
@@ -780,6 +866,9 @@ def main() -> int:
     mode = "batch"
     if continuous:
         ring_kw.update(spec_kw_from_env(os.environ, cfg, "cuda"))
+        ring_kw.update(adapter_kw_from_env(os.environ, cfg,
+                                           ring_kw.get("spec_k", 0),
+                                           "cuda"))
         dquant = (weight_quant_mode(ring_kw["draft_params"])
                   if "draft_params" in ring_kw else "none")
         mode = (f"continuous, paged={bool(ring_kw.get('paged'))}, "
@@ -789,6 +878,7 @@ def main() -> int:
                 f"spec_k={ring_kw.get('spec_k', 0)}, "
                 f"draft_quant={dquant}, "
                 f"host_cache_blocks={ring_kw.get('host_cache_blocks', 0)}, "
+                f"adapters={len(ring_kw.get('adapters') or ())}, "
                 f"slots={ring_kw['slots']}, "
                 f"chunk={ring_kw['chunk_tokens']}")
     print(f"serving {preset} (resumed={resumed}, weight_quant={wquant}, "

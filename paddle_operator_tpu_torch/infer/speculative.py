@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from paddle_operator_tpu_torch.infer import decode as D
+from paddle_operator_tpu_torch.infer.qos import layer_lora
 from paddle_operator_tpu_torch.models.llama import LlamaConfig
 
 
@@ -54,16 +55,16 @@ def check_draft_compat(cfg: LlamaConfig, draft_cfg: LlamaConfig) -> None:
             "models, so they must share one tokenizer")
 
 
-def _proj_qkv(cfg: LlamaConfig, lp, x: torch.Tensor
+def _proj_qkv(cfg: LlamaConfig, lp, x: torch.Tensor, lora=None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Shared multi-token projection block: norm -> q/k/v, reshaped to
+    """Shared multi-token projection block: norm -> q/k/v (+ the
+    per-row LoRA delta when ``lora=(adp_l, aid)``: qos.lora_qkv, the
+    rule every other projection site applies), reshaped to
     [B, T, H, D] pre-RoPE."""
     b, t, _ = x.shape
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = D._rms(x, lp.attn_norm.scale, cfg.norm_eps, cfg.dtype)
-    q = D._mm(h, lp.attn.wq, cfg.dtype)
-    k = D._mm(h, lp.attn.wk, cfg.dtype)
-    v = D._mm(h, lp.attn.wv, cfg.dtype)
+    q, k, v = D._proj(cfg, lp, h, lora)
     return (q.reshape(b, t, hq, d), k.reshape(b, t, hkv, d),
             v.reshape(b, t, hkv, d))
 
@@ -85,13 +86,14 @@ def _write_rows(cache_l: torch.Tensor, kv: torch.Tensor,
 
 def _layer_multi(cfg: LlamaConfig, lp, x: torch.Tensor, cos: torch.Tensor,
                  sin: torch.Tensor, k_cache: torch.Tensor,
-                 v_cache: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+                 v_cache: torch.Tensor, pos: torch.Tensor,
+                 lora=None) -> torch.Tensor:
     """One decoder layer over [B, T] new tokens starting at PER-LANE
     offsets ``pos`` [B] over a contiguous cache layer [B, H, S, D]:
     row (b, j) sits at absolute position pos[b]+j and attends cache
     columns [0, pos[b]+j].  Writes the layer's cache in place."""
     t = x.shape[1]
-    q, k, v = _proj_qkv(cfg, lp, x)
+    q, k, v = _proj_qkv(cfg, lp, x, lora)
     abs_pos = pos[:, None].long() + torch.arange(t, device=x.device)[None]
     q, k = _rope_rows(q, cos, sin, abs_pos), _rope_rows(k, cos, sin, abs_pos)
     _write_rows(k_cache, k.transpose(1, 2), pos)
@@ -141,7 +143,8 @@ def _head(cfg: LlamaConfig, params, x: torch.Tensor) -> torch.Tensor:
 
 
 def _multi_forward(cfg: LlamaConfig, params, toks: torch.Tensor,
-                   cache: Dict[str, torch.Tensor], head: bool = True
+                   cache: Dict[str, torch.Tensor], head: bool = True,
+                   lora=None
                    ) -> Tuple[Optional[torch.Tensor],
                               Dict[str, torch.Tensor]]:
     """[B, T] new tokens at per-lane ``cache['pos']`` over a contiguous
@@ -149,14 +152,16 @@ def _multi_forward(cfg: LlamaConfig, params, toks: torch.Tensor,
     k/v written in place and ``pos + T``).  ``head=False`` skips the
     final norm and the lm head and returns ``(None, cache)``: an
     intermediate chunked-prefill slice (executor.make_prefill_chunk)
-    only appends KV.  The JAX function's LoRA and TP variants are not
-    ported yet."""
+    only appends KV.  ``lora``: ``(stacks, aid [B])``, each row's
+    adapter (the chunked prefill's slices; the speculative round stays
+    base-only, adapters being refused on speculative rings).  The JAX
+    function's TP variant is not ported yet."""
     pos = cache["pos"]
     x = params.tok_embed.embedding.to(cfg.dtype)[toks.long()]
     cos, sin = params.rope_cos, params.rope_sin
     for li, lp in enumerate(params.layers):
         x = _layer_multi(cfg, lp, x, cos, sin, cache["k"][li],
-                         cache["v"][li], pos)
+                         cache["v"][li], pos, layer_lora(lora, li))
     new_cache = dict(cache, pos=pos + toks.shape[1])
     return (_head(cfg, params, x) if head else None), new_cache
 
@@ -167,8 +172,8 @@ def _layer_multi_paged(cfg: LlamaConfig, lp, x: torch.Tensor,
                        table: torch.Tensor, pos: torch.Tensor,
                        limit: Optional[torch.Tensor],
                        quant: bool,
-                       lane_mask: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       lane_mask: Optional[torch.Tensor] = None,
+                       lora=None) -> torch.Tensor:
     """One decoder layer over [B, T] new tokens at PER-LANE offsets
     ``pos`` [B] over the paged pool: row (b, j) sits at absolute
     position pos[b]+j, lands in whatever pool block the lane's table
@@ -193,7 +198,7 @@ def _layer_multi_paged(cfg: LlamaConfig, lp, x: torch.Tensor,
     )
 
     t = x.shape[1]
-    q, k, v = _proj_qkv(cfg, lp, x)
+    q, k, v = _proj_qkv(cfg, lp, x, lora)
     abs_pos = pos[:, None].long() + torch.arange(t, device=x.device)[None]
     q, k = _rope_rows(q, cos, sin, abs_pos), _rope_rows(k, cos, sin, abs_pos)
     block_size = cache["k"].shape[3]
@@ -275,7 +280,8 @@ def _multi_forward_paged(cfg: LlamaConfig, params, toks: torch.Tensor,
                          table: torch.Tensor,
                          limit: Optional[torch.Tensor] = None,
                          quant: bool = False, head: bool = True,
-                         lane_mask: Optional[torch.Tensor] = None
+                         lane_mask: Optional[torch.Tensor] = None,
+                         lora=None
                          ) -> Tuple[Optional[torch.Tensor],
                                     Dict[str, torch.Tensor]]:
     """[B, T] new tokens at per-lane ``cache['pos']`` over the paged
@@ -288,14 +294,16 @@ def _multi_forward_paged(cfg: LlamaConfig, params, toks: torch.Tensor,
     paged.make_paged_prefill_chunk).  ``lane_mask`` [B] (with
     ``quant``: the spec round's ``active``) redirects masked lanes'
     writes to the trash tail — their tail rows may be live prefill
-    state.  The JAX function's LoRA, TP and ``aligned`` variants are
-    not ported yet."""
+    state.  ``lora``: ``(stacks, aid [B])``, as :func:`_multi_forward`.
+    The JAX function's TP and ``aligned`` variants are not ported
+    yet."""
     pos = cache["pos"]
     x = params.tok_embed.embedding.to(cfg.dtype)[toks.long()]
     cos, sin = params.rope_cos, params.rope_sin
     for li, lp in enumerate(params.layers):
         x = _layer_multi_paged(cfg, lp, x, cos, sin, cache, li, table, pos,
-                               limit, quant, lane_mask)
+                               limit, quant, lane_mask,
+                               layer_lora(lora, li))
     new_cache = dict(cache, pos=pos + toks.shape[1])
     return (_head(cfg, params, x) if head else None), new_cache
 

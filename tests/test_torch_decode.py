@@ -162,9 +162,21 @@ class TestCache:
         with pytest.raises(NotImplementedError):
             D.init_cache(cfg, 1, 16, device="cpu", mesh=object())
         cache = D.init_cache(cfg, 1, 16, device="cpu")
+        tok = torch.zeros((1, 1), dtype=torch.int32)
         with pytest.raises(NotImplementedError):
-            D._forward(cfg, model, torch.zeros((1, 1), dtype=torch.int32),
-                       cache, lora=(None, None))
+            D._forward(cfg, model, tok, cache, mesh=object())
+        # the lora leg is served (tests/test_torch_adapters.py): the base
+        # slot adds an exact zero
+        from paddle_operator_tpu_torch.infer.qos import AdapterRegistry
+
+        reg = AdapterRegistry(cfg, capacity=1, rank=2, device="cpu")
+        reg.load("x", seed=1)
+        want, _ = D._forward(cfg, model, tok,
+                             D.init_cache(cfg, 1, 16, device="cpu"))
+        got, _ = D._forward(cfg, model, tok, cache,
+                            lora=(reg.arrays(),
+                                  torch.zeros(1, dtype=torch.int32)))
+        assert torch.equal(got, want)
 
 
 class TestSampling:

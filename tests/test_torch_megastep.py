@@ -551,7 +551,9 @@ def test_ring_kw_from_env_megastep(env, want):
 
 
 @pytest.mark.parametrize("knob", [{"SERVE_KV_MIGRATE": "1"},
-                                  {"SERVE_ADAPTERS": "acme"},
+                                  # SERVE_ADAPTERS is served
+                                  # (tests/test_torch_adapters.py)
+                                  {"SERVE_PREFILL": "disagg"},
                                   {"SERVE_NAN_CHECK": "1"},
                                   {"TPUJOB_CHAOS": "dispatch_hang@3:0.25"}])
 def test_megastep_with_unported_knob_refused_by_its_name(knob):

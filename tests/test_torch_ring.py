@@ -325,7 +325,9 @@ class TestSubmit:
                 b.submit([1, 2], max_new_tokens=2, priority=5)
             with pytest.raises(ValueError, match="vocab|token ids"):
                 b.submit([1, 999], max_new_tokens=2)
-            with pytest.raises(ValueError, match="adapter"):
+            # adapters are served (tests/test_torch_adapters.py); a ring
+            # built without a registry refuses one with JAX's message
+            with pytest.raises(ValueError, match="no adapter registry"):
                 b.submit([1, 2], max_new_tokens=2, adapter="acme")
         finally:
             b.close()
@@ -334,7 +336,7 @@ class TestSubmit:
                                     {"prefill_mode": "disagg",
                                      "paged": True},
                                     {"megastep": 4, "mesh": "tp2"},
-                                    {"adapters": ["acme"]},
+                                    {"adapters": "acme", "trace": True},
                                     {"trace": True}])
     def test_unported_options_refused(self, setup, kw):
         model, cfg, _, _, _ = setup
@@ -345,7 +347,9 @@ class TestSubmit:
         # prefill is ported (tests/test_torch_chunked_prefill.py);
         # disaggregated prefill is refused on the paged ring it needs.
         # Speculative decoding is ported (tests/test_torch_spec_ring.py):
-        # tensor-parallel serving (mesh) stands where spec_k stood
+        # tensor-parallel serving (mesh) stands where spec_k stood.  LoRA
+        # adapters are ported (tests/test_torch_adapters.py): beside an
+        # unported option it is that option that is refused
         exc, match = ((ValueError, "kv_quant") if "kv_quant" in kw
                       else (NotImplementedError, "not ported"))
         with pytest.raises(exc, match=match) as e:

@@ -189,7 +189,10 @@ ENTRY_KNOBS = ("SERVE_CONTINUOUS", "SERVE_PAGED", "SERVE_TP", "QUANTIZE",
 
 class TestEntryPoint:
     @pytest.mark.parametrize("env", [
-        {"SERVE_CONTINUOUS": "1", "SERVE_ADAPTERS": "acme"},
+        # SERVE_ADAPTERS is served (tests/test_torch_adapters.py): beside
+        # a knob still refused, main() refuses that knob
+        {"SERVE_CONTINUOUS": "1", "SERVE_ADAPTERS": "acme",
+         "SERVE_TRACE": "1"},
         {"SERVE_TP": "2"},
     ])
     def test_unported_knobs_refused(self, monkeypatch, env):
@@ -270,12 +273,13 @@ class TestEntryPoint:
             S.main()
 
     def test_continuous_server_refused(self):
-        # the continuous server serves (TestContinuousServer); what it
-        # does not carry yet is refused at construction
+        # the continuous server serves (TestContinuousServer), adapters
+        # included (tests/test_torch_adapters.py); what it does not carry
+        # yet is refused at construction
         model, cfg = make_model("tiny", device="cpu")
-        with pytest.raises(NotImplementedError, match="LoRA adapters"):
+        with pytest.raises(NotImplementedError, match="span tracing"):
             S.make_server("127.0.0.1", 0, model, cfg, continuous=True,
-                          adapters=["acme"])
+                          trace=True)
 
     def test_job_env_matches_jax(self):
         from paddle_operator_tpu.launch.launcher import JobEnv as JEnv
@@ -576,7 +580,10 @@ REFUSED_KNOBS = [
     pytest.param({"SERVE_MEGASTEP": "4",
                   "TPUJOB_CHAOS": "dispatch_hang@3:0.25"},
                  id="SERVE_MEGASTEP=4"),
-    {"SERVE_ADAPTERS": "acme"},
+    # adapters are served (tests/test_torch_adapters.py); beside a knob
+    # still refused, that knob is named and SERVE_ADAPTERS is not
+    pytest.param({"SERVE_ADAPTERS": "acme", "SERVE_TRACE": "1"},
+                 id="SERVE_ADAPTERS=acme"),
     {"SERVE_TRACE": "1"}, {"SERVE_NAN_CHECK": "1"},
     {"TPUJOB_CHAOS": "dispatch_hang@3:0.25"}, {"SERVE_KV_MIGRATE": "1"},
     {"SERVE_KV_PEER_FETCH": "1"},
@@ -584,10 +591,12 @@ REFUSED_KNOBS = [
     # the weight-quant knobs are served (tests/test_torch_weight_quant.py);
     # beside a knob still refused, that knob is named and they are not
     {"QUANTIZE": "int8", "SERVE_KV_PEER_FETCH": "1"},
-    {"SERVE_WEIGHT_QUANT": "int8", "SERVE_ADAPTERS": "acme"},
+    pytest.param({"SERVE_WEIGHT_QUANT": "int8", "SERVE_ADAPTERS": "acme",
+                  "SERVE_KV_MIGRATE": "1"},
+                 id="SERVE_WEIGHT_QUANT=int8-SERVE_ADAPTERS=acme"),
 ]
 SERVED_KNOBS = ("SERVE_MEGASTEP", "QUANTIZE", "SERVE_WEIGHT_QUANT",
-                "SERVE_SPEC_K")
+                "SERVE_SPEC_K", "SERVE_ADAPTERS")
 # knobs served at some values only (SERVE_PREFILL=disagg is refused)
 SERVED_SETTINGS = {"SERVE_PREFILL": "chunked"}
 
