@@ -13,7 +13,8 @@ result line; with no arguments every phase runs):
    registers, spill bytes and shared memory (``-Xptxas -v``), and the
    registers, spills and shared memory of the three decode kernels'
    instantiations (the paged ones with their tile ring's dynamic shared
-   memory at D 128) and of the int8-weight matmul's.
+   memory at D 128) and of the int8-weight kernels' (A and B: the wgmma
+   body by rows and product group, the two f32 bodies).
 2. kernel vs plain — ``decode_attention`` against
    ``decode_attention_reference`` on the card: ragged lengths with 0, 1,
    a full cache and a non-multiple of any tile; the split's chunk edges
@@ -68,21 +69,32 @@ result line; with no arguments every phase runs):
    phase 2b's sweep of chunk rows.  At each timed fill
    the int8 kernel's output must equal, bit for bit, the bf16 paged
    kernel's on the rows dequantized and rounded to bfloat16.
-2e. int8-weight matmul vs plain — ``quant_matmul`` against
+2e. int8-weight kernels vs plain — kernel A (``quant_matmul``, M 1, 4,
+   8, 16, 24, 40 and 64: ``QMM_ROWS``) and kernel B (``quant_gemm``, M
+   17, 40, 64, 256, 512 and 2048: ``QMM_GEMM_ROWS``) against
    ``quant_matmul_reference`` at the 7b shapes (K x N 4096 x 4096,
    4096 x 11008, 11008 x 4096 and the legacy lm_head's 4096 x 32000),
    the 7b draft's (``QMM_DRAFT_SHAPES``: 2048 x 2048, 2048 x 5504 and
    5504 x 2048, phase 3l (c)'s ``SERVE_DRAFT_QUANT=int8``) and
-   tails off the tile (K and N not multiples of 128, N not of 16), M 1, 4, 8
-   and 16, int8 and int4 codes, each with an all-zero column (output 0):
-   float32 at ``QMM_F32_ATOL``, bfloat16 against the plain version in
-   float32 on the same bf16 inputs at ``BF16_ATOL``; two runs
-   bit-identical.  Then timed at the 7b shapes and M 1, 4, 8, 16 (int8
-   codes, bf16 activations, each call on codes the L2 has not seen), in
-   turns: the kernel, its plain version (dequantize-then-matmul, the
-   route of a prefill's rows) and bf16 ``torch.matmul`` on the same M,
-   K, N (the bf16 replica's call, not the same function; never used by
-   the port), beside the bound.
+   tails off the tile (K and N not multiples of 128, N not of 16), int8
+   and int4 codes, each with an all-zero column (output 0): float32 at
+   ``QMM_F32_ATOL``, bfloat16 against the plain version in float32 on
+   the same bf16 inputs at ``BF16_ATOL``; two runs bit-identical (A at
+   M 8 and 40, B at its smallest routed M and 512); the kernel the route
+   gives 40 rows, and kernel B at its smallest routed M, captured in a
+   CUDA graph, replay equal.  Then timed at the 7b shapes (int8 codes,
+   bf16 activations, each call on codes the L2 has not seen), kernel A
+   at ``QMM_ROWS`` and kernel B at M 16 to 2048 (``QMM_GEMM_TIMED``;
+   16-64 beside kernel A: the route's limit), in turns: the kernel, its
+   plain version (dequantize-then-matmul) and bf16 ``torch.matmul`` on
+   the same M, K, N (the bf16 replica's call, not the same function;
+   never used by the port), beside the bound; kernel A at M 8 also as
+   its variants (``QMM_PROBES``: no products, no split finish, a wait
+   after every step), kernel B at M 512 and 2048 as its
+   (``QMM_GEMM_PROBES``: no products, no split finish, products a stage
+   at a time), launched from a second build of the source compiled with
+   ``-DQMM_PROBE`` (``QMM_PROBE_BUILD``), which the port never loads.  The JSON line's numbers are one 7b layer's seven
+   projections, kernel A at M 8 and kernel B at M 512.
 2f. 8-bit AdamW update vs plain — ``adam8bit_update`` against
    ``adam8bit_update_reference`` over three updates (the clip biting at
    the second) from zero moments, at the 7b tensors' shapes (4096 x
@@ -253,13 +265,19 @@ result line; with no arguments every phase runs):
    then ``quantize_from_env``; ``paramBytes`` must equal the shape
    arithmetic, 7,006,265,344) on 3b's server and burst, over the bf16
    pool and the int8 pool: every request completes, the int8-weight
-   kernel's launches equal 7 x n_layers x (ticks + the forwards of at
-   most 16 rows), ``/statusz`` reports ``weightQuantMode`` int8 and the
+   kernels' launches equal 7 x n_layers x ticks plus 7 x n_layers a
+   forward — kernel A's up to ``KERNEL_MAX_ROWS`` rows, kernel B's above
+   — (the plain formula never runs), ``/statusz`` reports
+   ``weightQuantMode`` int8 and the
    ``paramBytes``, ``/metrics`` the gauge at 1 (3b-3e hold it at
    "none" and the kernel at 0 launches).  Then, not gated: the max
    logit gap against the bf16 model on one prompt; one ring chunk as a
-   graph (8 lanes, fill 520-632) through the kernel, through the plain
-   route and on the bf16 model, in turns.  Then a short run of
+   graph (8 lanes, fill 520-632) through the kernels, through the plain
+   route and on the bf16 model, in turns; a quantized prefill, 8 cold
+   512-token prompts one by one and one 2048-token prompt
+   (``PREFILL_LONG``; kernel B: 7 x n_layers launches a prompt), the
+   same three ways, each with the host's ms to queue it beside the
+   device's.  Then a short run of
    ``SERVE_WEIGHT_QUANT=int4`` and one of ``QUANTIZE=int8`` (lm_head
    quantized too: one more launch a tick and a prefill), each held to
    its launch formula, status, gauge and ``paramBytes``.
@@ -413,11 +431,25 @@ result line; with no arguments every phase runs):
 4h. weight-quantized rings == the plain route — 7b width, 2 layers,
    float32, int8 and int4 weights (the serving skip list), bs 16: four
    prompts (one a prefix hit) through the ring under graph replay at
-   megastep 1 and 4, through the int8-weight kernel, give the greedy
-   tokens of ``generate`` on the plain route (every projection by the
-   formula) on the bf16 pool, and of the same ring on the plain route
-   on the int8 pool; a lane spilled and restored into another slot
-   under graphs gives its uninterrupted tokens and the plain route's.
+   megastep 1 and 4, through the int8-weight kernels (the 129-token
+   prompt's prefill through kernel B's f32 body, the rest through kernel
+   A's; both must launch), give the greedy tokens of ``generate`` on the
+   plain route (every projection by the formula) on the bf16 pool.  On
+   the int8 pool, which quantizes each prefill's K/V, so that the
+   kernels' f32 sums (in another order than cuBLAS's) can move a code
+   and a near-tied argmax with it: megastep 4 gives megastep 1's
+   tokens, and the agreement with the same ring on the plain route is
+   printed with the first differing token; the port's route before
+   kernel B (``_formula_above(16)``: the ticks and the hit's suffix
+   through kernel A, prefills by the formula) gives the plain route's
+   tokens at megastep 1 and 4; and each cold prompt's prefill into an
+   int8 pool through the kernels and through the plain route from empty
+   pools gives logits within ``QUANT_POOL_LOGIT_ATOL`` (1e-3, 4d's), codes
+   at most one step apart and scales within ``QMM_F32_ATOL`` relatively,
+   then 24 ticks through kernel A, each also run on the plain route from
+   a copy of the same state, logits within the same limit.  A lane
+   spilled and restored into another slot under graphs gives its
+   uninterrupted tokens and the plain route's.
 4i. chunked prefill equalities — 7b width, 2 layers, float32, bs 16,
    4 slots, chunk 8, slices of 24 rows (not a divisor of the block), on
    the contiguous, paged and int8 rings: four prompts (40, 300, 129 and
@@ -495,9 +527,13 @@ PEAK_OPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 # kernel sources: decode_attention.cu holds decode_attention_launch,
 # paged_decode_attention_launch and paged_decode_attention_quant_launch;
 # flash_attention.cu the forward and both backward kernels;
-# quant_matmul.cu the int8-weight decode matmul; adam8bit.cu the 8-bit
-# AdamW update
-KERNELS = ["decode_attention", "flash_attention", "quant_matmul", "adam8bit"]
+# quant_matmul.cu the int8-weight kernels (A: the decode rows, B: the
+# prefills); adam8bit.cu the 8-bit AdamW update
+# phase 2e's timing build of csrc/quant_matmul.cu (its variants, compiled
+# only with -DQMM_PROBE; the port's wrappers load the plain build)
+QMM_PROBE_BUILD = "quant_matmul:QMM_PROBE"
+KERNELS = ["decode_attention", "flash_attention", "quant_matmul", "adam8bit",
+           QMM_PROBE_BUILD]
 # bf16 kernels against their plain version in f32 on the same bf16
 # inputs: about 3x the worst error read on the card over every case of
 # phases 2 and 2b (1.9e-3 and 3.1e-3 on an H100 80GB HBM3 at 700 W)
@@ -1256,7 +1292,27 @@ QMM_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
 # wq, wk, wv, wo 2048 x 2048, w1 and w3 2048 x 5504, w2 5504 x 2048
 QMM_DRAFT_SHAPES = ((2048, 2048), (2048, 5504), (5504, 2048))
 QMM_TAILS = ((4100, 4112), (4100, 4104), (1000, 130), (77, 1001), (3, 5))
-QMM_ROWS = (1, 4, 8, 16)
+# kernel A's rows, held to the plain version and timed (the ring's 8
+# lanes, a batch step, suffixes, the speculative verify's 8 x 5 = 40, a
+# 64-row prefill slice)
+QMM_ROWS = (1, 4, 8, 16, 24, 40, 64)
+# kernel B's rows held to the plain version (a verify or a short prompt
+# above kernel A's limit, prefills), and timed: from 16 to 64 beside
+# kernel A (the route's limit), then the prefills
+QMM_GEMM_ROWS = (17, 40, 64, 256, 512, 2048)
+QMM_GEMM_TIMED = (16, 24, 40, 64, 256, 512, 1024, 1536, 2048)
+# the JSON line's kernel B numbers: one 7b layer at a 512-token prompt
+QMM_GEMM_LINE_ROWS = 512
+# the kernels' timing variants (csrc/quant_matmul.cu's QMM_PROBE build,
+# quant_matmul_set_probe's bits): the codes
+# converted but no product, the partials written but no split finish,
+# and the products' groups — kernel A at M = 8 with a wait after every
+# 16-row step (the first design's), kernel B at M 512 and 2048 a stage at
+# a time
+QMM_PROBES = {"no_products": 1, "no_split_finish": 2, "wait_each_step": 4}
+QMM_GEMM_PROBES = {"no_products": 1, "no_split_finish": 2,
+                   "group_per_stage": 4}
+QMM_GEMM_PROBE_ROWS = (512, 2048)
 # a 7b layer's projections: wq, wk, wv, wo (4096 x 4096), w1 and w3
 # (4096 x 11008), w2 (11008 x 4096)
 QMM_LAYER = ((4096, 4096, 4), (4096, 11008, 2), (11008, 4096, 1))
@@ -1283,21 +1339,34 @@ def qmm_bound_ms(m, k, n, dtype) -> tuple:
                                  else "operations")
 
 
-def quant_build_report(report: dict) -> None:
-    """Per instantiation of the int8-weight matmul (activation dtype x
-    rows MT): registers, spills, stack and static shared memory from
-    ``nvcc -Xptxas -v``, into ``report["ptxas"]``."""
+def quant_build_report(report: dict, report_b: dict) -> None:
+    """Per instantiation of the int8-weight kernels: registers, spills,
+    stack and static shared memory from ``nvcc -Xptxas -v`` — the wgmma
+    body by rows BM, product group G and warpgroups (one: kernel A, two:
+    kernel B), kernel A's f32 body by rows and kernel B's — into
+    ``report["ptxas"]`` (kernel A) and ``report_b["ptxas"]``."""
     import re
 
-    report["ptxas"] = []
+    report["ptxas"], report_b["ptxas"] = [], []
     for symbol, nums in ptxas_entries("quant_matmul") or ():
-        m = re.search(r"quant_matmul_kernelI(f|13__nv_bfloat16)Li(\d+)E",
-                      symbol)
-        if m is None:
+        wg = re.search(r"quant_matmul_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                       symbol)
+        fma = re.search(r"quant_matmul_fma_kernelILi(\d+)E", symbol)
+        if wg:
+            row = {"symbol": symbol, "body": "wgmma bf16",
+                   "rows": int(wg.group(1)), "group": int(wg.group(2)),
+                   "warpgroups": int(wg.group(3)), **nums}
+            into = report if row["warpgroups"] == 1 else report_b
+        elif fma:
+            row = {"symbol": symbol, "body": "fma f32",
+                   "rows": int(fma.group(1)), **nums}
+            into = report
+        elif "quant_gemm_f32_kernel" in symbol:
+            row = {"symbol": symbol, "body": "tiled f32", **nums}
+            into = report_b
+        else:
             continue
-        row = {"symbol": symbol, "dtype": "f32" if m.group(1) == "f"
-               else "bf16", "rows": int(m.group(2)), **nums}
-        report["ptxas"].append(row)
+        into["ptxas"].append(row)
         log("quant_matmul ptxas: " + json.dumps(row))
 
 
@@ -1311,18 +1380,29 @@ def adam8_build_report(report: dict) -> None:
         log("adam8bit ptxas: " + json.dumps(row))
 
 
-def phase_quant_matmul_vs_plain(report: dict) -> None:
-    """Phase 2e: the int8-weight matmul against its plain version, a
-    bit-identical rerun, then timings at the 7b shapes; see the module
+def _qmm_layer(rows: list, m: int, key: str) -> float:
+    """One 7b layer's seven projections at ``m`` rows from timing rows."""
+    at = {(r["k"], r["n"]): r for r in rows if r["m"] == m}
+    return sum(at[k, n][key] * c for k, n, c in QMM_LAYER)
+
+
+def phase_quant_matmul_vs_plain(report: dict, report_b: dict) -> None:
+    """Phase 2e: the int8-weight kernels A (``report``) and B
+    (``report_b``) against their plain version, bit-identical reruns and
+    graph replays, then timings at the 7b shapes; see the module
     docstring."""
+    import ctypes
+
     import torch
 
     from paddle_operator_tpu_torch.infer import quant as Q
+    from paddle_operator_tpu_torch.ops import _build
     from paddle_operator_tpu_torch.ops import quant_matmul as QM
 
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
-    worst = {"float32": 0.0, "bfloat16": 0.0}
+    worst = {(f, d): 0.0 for f in ("quant_matmul", "quant_gemm")
+             for d in ("float32", "bfloat16")}
     cases = 0
     for k, n in QMM_SHAPES + QMM_DRAFT_SHAPES + QMM_TAILS:
         # |out| about 0.25, so bf16's rounding of the output is well
@@ -1331,46 +1411,84 @@ def phase_quant_matmul_vs_plain(report: dict) -> None:
         w[:, n // 2] = 0.0
         for mode in ("int8", "int4"):
             leaf = Q.quantize_leaf(w, mode)
-            for m in QMM_ROWS:
-                x32 = torch.randn(m, k, generator=g, device="cuda")
-                for dtype, atol in ((torch.float32, QMM_F32_ATOL),
-                                    (torch.bfloat16, BF16_ATOL)):
-                    x = x32.to(dtype)
-                    got = QM.quant_matmul(x, leaf["q"], leaf["s"])
-                    want = QM.quant_matmul_reference(x.float(), leaf["q"],
-                                                     leaf["s"])
-                    err = float((got.float() - want).abs().max())
-                    name = str(dtype).split(".")[1]
-                    worst[name] = max(worst[name], err)
-                    cases += 1
-                    if err > atol or got.dtype != dtype \
-                            or bool(got[:, n // 2].any()):
-                        raise AssertionError(
-                            f"quant_matmul {mode} {name} M={m} K={k} N={n}: "
-                            f"max |err| {err} (limit {atol}), dtype "
-                            f"{got.dtype}, zero column "
-                            f"{not bool(got[:, n // 2].any())}")
-                    if m == 8 and (k, n) == (11008, 4096):
-                        again = QM.quant_matmul(x, leaf["q"], leaf["s"])
-                        if not torch.equal(got, again):
-                            raise AssertionError("quant_matmul: two runs "
-                                                 "differ")
+            for fn, rows in ((QM.quant_matmul, QMM_ROWS),
+                             (QM.quant_gemm, QMM_GEMM_ROWS)):
+                for m in rows:
+                    x32 = torch.randn(m, k, generator=g, device="cuda")
+                    for dtype, atol in ((torch.float32, QMM_F32_ATOL),
+                                        (torch.bfloat16, BF16_ATOL)):
+                        x = x32.to(dtype)
+                        got = fn(x, leaf["q"], leaf["s"])
+                        want = QM.quant_matmul_reference(
+                            x.float(), leaf["q"], leaf["s"])
+                        err = float((got.float() - want).abs().max())
+                        name = str(dtype).split(".")[1]
+                        worst[fn.__name__, name] = max(
+                            worst[fn.__name__, name], err)
+                        cases += 1
+                        if err > atol or got.dtype != dtype \
+                                or bool(got[:, n // 2].any()):
+                            raise AssertionError(
+                                f"{fn.__name__} {mode} {name} M={m} K={k} "
+                                f"N={n}: max |err| {err} (limit {atol}), "
+                                f"dtype {got.dtype}, zero column "
+                                f"{not bool(got[:, n // 2].any())}")
+                        if (k, n) == (11008, 4096) and m in (
+                                8, 40, QM.KERNEL_MAX_ROWS + 1, 512):
+                            again = fn(x, leaf["q"], leaf["s"])
+                            if not torch.equal(got, again):
+                                raise AssertionError(f"{fn.__name__}: two "
+                                                     f"runs differ at M={m}")
         del w
     torch.cuda.synchronize()
-    log(f"quant_matmul vs plain: {cases} cases (7b and 7b draft shapes "
-        f"and tails, int8 "
-        f"and int4 codes, M {QMM_ROWS}), max |err| f32 "
-        f"{worst['float32']:.3e} (limit {QMM_F32_ATOL}), bf16 "
-        f"{worst['bfloat16']:.3e} (limit {BF16_ATOL}); reruns bit-identical")
-    report["max_abs_err"] = max(worst.values())
-    report["max_abs_err_f32"] = worst["float32"]
-    report["max_abs_err_bf16"] = worst["bfloat16"]
+    # a graph replay equals the eager call: the kernel the route gives
+    # the verify's 40 rows, and kernel B at its smallest routed rows
+    w = torch.randn(4096, 11008, generator=g, device="cuda") * (0.25 / 64)
+    leaf = Q.quantize_leaf(w, "int8")
+    replays = {}
+    for m in (40, QM.KERNEL_MAX_ROWS + 1):
+        x = torch.randn(m, 4096, generator=g, device="cuda").bfloat16()
+        eager = QM.quant_mm(x, leaf["q"], leaf["s"])
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = QM.quant_mm(x, leaf["q"], leaf["s"])
+        graph.replay()
+        torch.cuda.synchronize()
+        replays[m] = ("quant_matmul" if m <= QM.KERNEL_MAX_ROWS
+                      else "quant_gemm")
+        if not torch.equal(eager, out):
+            raise AssertionError(f"{replays[m]}: a graph replay at M={m} "
+                                 "differs from the eager call")
+        del graph
+    del w, leaf
+    log(f"int8-weight kernels vs plain: {cases} cases (7b and 7b draft "
+        f"shapes and tails, int8 and int4 codes; kernel A M {QMM_ROWS}, "
+        f"kernel B M {QMM_GEMM_ROWS}), max |err| f32 A "
+        f"{worst['quant_matmul', 'float32']:.3e} B "
+        f"{worst['quant_gemm', 'float32']:.3e} (limit {QMM_F32_ATOL}), bf16 "
+        f"A {worst['quant_matmul', 'bfloat16']:.3e} B "
+        f"{worst['quant_gemm', 'bfloat16']:.3e} (limit {BF16_ATOL}); reruns "
+        f"bit-identical; graph replays == eager ({replays})")
+    for rep, fn in ((report, "quant_matmul"), (report_b, "quant_gemm")):
+        rep["max_abs_err_f32"] = worst[fn, "float32"]
+        rep["max_abs_err_bf16"] = worst[fn, "bfloat16"]
+        rep["max_abs_err"] = max(rep["max_abs_err_f32"],
+                                 rep["max_abs_err_bf16"])
 
     # timings: int8 codes, bf16 activations, each call on codes the L2
     # has not seen (a rotation of copies); in turns kernel, plain, bf16
-    # torch.matmul (the bf16 replica's call: not the same function), kernel
-    timings = []
+    # torch.matmul (the bf16 replica's call: not the same function),
+    # kernel; then the kernels' variants (QMM_PROBES, QMM_GEMM_PROBES)
+    timings, timings_b = [], []
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    probe_lib = QM.declare(_build.load(QMM_PROBE_BUILD))
+    probe_lib.quant_matmul_set_probe.argtypes = [ctypes.c_int]
+
+    def set_probe(bits):
+        torch.cuda.synchronize()
+        rc = probe_lib.quant_matmul_set_probe(bits)
+        if rc != 0:
+            raise RuntimeError(f"quant_matmul_set_probe: CUDA error {rc}")
     for k, n in QMM_SHAPES:
         copies = max(2, -(-QMM_STREAM_BYTES // (k * n)))
         w = torch.randn(k, n, generator=g, device="cuda") * (0.25 / k ** 0.5)
@@ -1379,45 +1497,83 @@ def phase_quant_matmul_vs_plain(report: dict) -> None:
         ws = [w.to(torch.bfloat16) for _ in range(copies)]
         s = leaf["s"]
         del w, leaf
-        for m in QMM_ROWS:
-            x = torch.randn(m, k, generator=g, device="cuda").bfloat16()
+        for fn, plan_of, rows, into in (
+                (QM.quant_matmul, QM.matmul_plan, QMM_ROWS, timings),
+                (QM.quant_gemm, QM.gemm_plan, QMM_GEMM_TIMED, timings_b)):
+            for m in rows:
+                x = torch.randn(m, k, generator=g, device="cuda").bfloat16()
 
-            def kern(i):
-                QM.quant_matmul(x, qs[i % copies], s)
+                def kern(i):
+                    fn(x, qs[i % copies], s)
 
-            def plain(i):
-                QM.quant_matmul_reference(x, qs[i % copies], s)
+                def plain(i):
+                    QM.quant_matmul_reference(x, qs[i % copies], s)
 
-            def library(i):
-                torch.matmul(x, ws[i % copies])
+                def library(i):
+                    torch.matmul(x, ws[i % copies])
 
-            row = {"m": m, "k": k, "n": n,
-                   "splits": QM.split_plan(k, n, sms)[0]}
-            for key, fn in (("ms", kern), ("plain_ms", plain),
-                            ("library_ms", library), ("ms_again", kern)):
-                row[key], row[key.replace("ms", "eager_ms", 1)] = \
-                    time_ms(fn, 2 * copies)
-            row["bound_ms"], row["bound_by"] = qmm_bound_ms(
-                m, k, n, torch.bfloat16)
-            row["share_of_bound"] = row["bound_ms"] / min(row["ms"],
-                                                          row["ms_again"])
-            log(f"timing quant_matmul int8 bf16 M={m} K={k} N={n}: "
-                + json.dumps(row))
-            timings.append(row)
+                plan = plan_of(m, k, n, torch.bfloat16, sms)
+                row = {"m": m, "k": k, "n": n, "blocks": plan[0],
+                       "splits": plan[2]}
+                for key, f in (("ms", kern), ("plain_ms", plain),
+                               ("library_ms", library), ("ms_again", kern)):
+                    row[key], row[key.replace("ms", "eager_ms", 1)] = \
+                        time_ms(f, 2 * copies)
+                probes = (QMM_PROBES if fn is QM.quant_matmul and m == 8
+                          else QMM_GEMM_PROBES if fn is QM.quant_gemm
+                          and m in QMM_GEMM_PROBE_ROWS else {})
+                x2, out, vec, xvec = QM._operands(x, qs[0])
+                for name, bits in probes.items():
+                    set_probe(bits)
+                    row[name + "_ms"] = time_ms(
+                        lambda i: QM._launch(
+                            fn.__name__, x2, qs[i % copies], s, out, vec,
+                            xvec, plan, probe_lib), 2 * copies)[0]
+                    set_probe(0)
+                row["bound_ms"], row["bound_by"] = qmm_bound_ms(
+                    m, k, n, torch.bfloat16)
+                row["share_of_bound"] = row["bound_ms"] / min(
+                    row["ms"], row["ms_again"])
+                log(f"timing {fn.__name__} int8 bf16 M={m} K={k} N={n}: "
+                    + json.dumps(row))
+                into.append(row)
         del qs, ws
         torch.cuda.empty_cache()
-    report["timings"] = timings
-    # the JSON line's numbers: one 7b layer's seven projections at the
-    # ring's 8 lanes
-    at8 = {(r["k"], r["n"]): r for r in timings if r["m"] == 8}
-    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-        report[key] = sum(at8[k, n][key] * c for k, n, c in QMM_LAYER)
+    report["timings"], report_b["timings"] = timings, timings_b
+    # the JSON line's numbers: one 7b layer's seven projections, kernel A
+    # at the ring's 8 lanes, kernel B at a 512-token prompt
+    for rep, rows, m in ((report, timings, 8),
+                         (report_b, timings_b, QMM_GEMM_LINE_ROWS)):
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            rep[key] = _qmm_layer(rows, m, key)
     report["bound_by"] = "bytes"
-    log(f"quant_matmul, one 7b layer (7 projections) at M=8: device "
-        f"{report['ms']:.4f} ms, plain {report['plain_ms']:.4f}, bf16 "
-        f"torch.matmul {report['library_ms']:.4f}, bound "
-        f"{report['bound_ms']:.5f} ({report['bound_ms'] / report['ms']:.2f}"
-        f" of it) on {card_line()}")
+    at = {(r["k"], r["n"]): r for r in timings_b
+          if r["m"] == QMM_GEMM_LINE_ROWS}
+    report_b["bound_by"] = ("bytes" if all(
+        at[k, n]["bound_by"] == "bytes" for k, n, _ in QMM_LAYER)
+        else "operations")
+    report["probes_ms"] = {name: _qmm_layer(timings, 8, name + "_ms")
+                           for name in QMM_PROBES}
+    report_b["probes_ms"] = {
+        m: {name: _qmm_layer(timings_b, m, name + "_ms")
+            for name in QMM_GEMM_PROBES} for m in QMM_GEMM_PROBE_ROWS}
+    # the route's limit: kernel A against kernel B on a 7b layer
+    limit = {m: {"A": _qmm_layer(timings, m, "ms"),
+                 "B": _qmm_layer(timings_b, m, "ms")}
+             for m in QMM_GEMM_TIMED if m in QMM_ROWS}
+    report["limit_check"] = limit
+    for rep, name, m in ((report, "kernel A", 8),
+                         (report_b, "kernel B", QMM_GEMM_LINE_ROWS)):
+        log(f"int8-weight {name}, one 7b layer (7 projections) at M={m}: "
+            f"device {rep['ms']:.5f} ms, plain {rep['plain_ms']:.5f}, bf16 "
+            f"torch.matmul {rep['library_ms']:.5f}, bound "
+            f"{rep['bound_ms']:.5f} ({rep['bound_ms'] / rep['ms']:.2f} of "
+            f"it) on {card_line()}")
+    log(f"kernel A's variants, one 7b layer at M=8 (ms): "
+        f"{json.dumps(report['probes_ms'])}; kernel B's at M "
+        f"{QMM_GEMM_PROBE_ROWS}: {json.dumps(report_b['probes_ms'])}; A "
+        f"against B by rows (ms a "
+        f"layer; route limit {QM.KERNEL_MAX_ROWS}): {json.dumps(limit)}")
 
 
 # phase 2f: the 8-bit AdamW update at the 7b tensors' shapes (the
@@ -2069,15 +2225,20 @@ RING = dict(continuous=True, paged=True, slots=8, chunk_tokens=8,
             block_size=256, max_len=2048)
 
 
-def qmm_launches_want(cfg, ticks: int, short: int, cold: int,
-                      lm_head: bool) -> int:
-    """The int8-weight matmul's launches over a run of a quantized ring:
-    the seven projections of every layer (and the legacy quantized
-    lm_head) on each ring tick and on each forward of at most 16 rows (a
-    prefix hit's suffix bucket); a longer prefill takes the formula, but
-    its one-row lm_head the kernel."""
-    per = 7 * cfg.n_layers + int(lm_head)
-    return per * (ticks + short) + int(lm_head) * cold
+def qmm_launches_want(cfg, ticks: int, forwards, lm_head: bool) -> tuple:
+    """The int8-weight kernels' launches over a run of a quantized ring,
+    (kernel A, kernel B): the seven projections of every layer on each
+    ring tick (8 rows: kernel A) and on each forward of ``forwards``
+    (their row counts: a prompt's length, a prefix hit's padded suffix
+    bucket) — kernel A up to ``KERNEL_MAX_ROWS`` rows, kernel B above;
+    the legacy quantized lm_head once a tick and once a forward, on its
+    one last row (kernel A)."""
+    from paddle_operator_tpu_torch.ops.quant_matmul import KERNEL_MAX_ROWS
+
+    per = 7 * cfg.n_layers
+    short = sum(r <= KERNEL_MAX_ROWS for r in forwards)
+    return ((per + int(lm_head)) * ticks + per * short
+            + int(lm_head) * len(forwards), per * (len(forwards) - short))
 
 
 def phase_ring_main_path(report: dict, params, cfg,
@@ -2191,12 +2352,14 @@ def phase_ring_main_path(report: dict, params, cfg,
                "paged_decode_attention": DA.paged_decode_attention.launches,
                "paged_decode_attention_quant":
                    DA.paged_decode_attention.quant_launches,
-               "quant_matmul": QM.quant_matmul.launches}
+               "quant_matmul": QM.quant_matmul.launches,
+               "quant_gemm": QM.quant_gemm.launches}
     name = ("paged_decode_attention_quant" if quant
             else "paged_decode_attention")
     launches = kernels.pop(name)
     wmode = wquant["mode"] if wquant else "none"
-    qmm = kernels.pop("quant_matmul") if wquant else None
+    qmm = ((kernels.pop("quant_matmul"), kernels.pop("quant_gemm"))
+           if wquant else None)
     if errors:
         raise AssertionError(f"ring requests failed: {errors}")
     stats = {k: batcher.stats[k] - stats0.get(k, 0)
@@ -2283,23 +2446,24 @@ def phase_ring_main_path(report: dict, params, cfg,
                              f"{statusz.get('weightQuantMode')!r}, gauge "
                              f"{gauge!r}; expected {wmode!r}")
     if wquant:
-        # short forwards: 4 followers' 16-row suffix buckets, the
-        # resubmission's (and the mid-block follower's) 1-token suffix
-        short = 5 + int(quant)
-        want_q = qmm_launches_want(
-            cfg, chunk * megastep * stats["chunks"], short,
-            len(jobs) + len(late) + 1 - short, wquant["lm_head"])
+        # the forwards: every cold and streamed prompt at its length, the
+        # 4 followers' 16-row suffix buckets, the resubmission's (and the
+        # mid-block follower's) 1-token suffix in an 8-row bucket
+        forwards = ([len(p) for kind, _, p, _ in jobs]
+                    + [16 if kind == "follower" else 8
+                       for kind, _, _, _ in late] + [8])
+        ticks = chunk * megastep * stats["chunks"]
+        want_q = qmm_launches_want(cfg, ticks, forwards, wquant["lm_head"])
         head = " + lm_head" if wquant["lm_head"] else ""
-        log(f"ring weight quant {wmode}: quant_matmul launches {qmm} (7 x "
-            f"n_layers {cfg.n_layers}{head}"
-            f" x (ticks {chunk * megastep * stats['chunks']} + short "
-            f"forwards {short}) = {want_q}); /statusz weightQuantMode "
-            f"{statusz['weightQuantMode']}, paramBytes "
-            f"{statusz['paramBytes']} (expected {wquant['param_bytes']}); "
-            f"{gauge}")
+        log(f"ring weight quant {wmode}: (kernel A, kernel B) launches "
+            f"{qmm}, expected {want_q} (7 x n_layers {cfg.n_layers}{head} "
+            f"a tick, {ticks} ticks, and a forward, rows {forwards}); "
+            f"/statusz weightQuantMode {statusz['weightQuantMode']}, "
+            f"paramBytes {statusz['paramBytes']} (expected "
+            f"{wquant['param_bytes']}); {gauge}")
         if qmm != want_q:
-            raise AssertionError(f"quant_matmul launched {qmm} times, "
-                                 f"expected {want_q}")
+            raise AssertionError(f"(quant_matmul, quant_gemm) launched "
+                                 f"{qmm} times, expected {want_q}")
         if statusz["paramBytes"] != wquant["param_bytes"]:
             raise AssertionError(f"/statusz paramBytes "
                                  f"{statusz['paramBytes']}, expected "
@@ -3331,7 +3495,7 @@ def _quantized_7b(environ: dict):
 def _quant_short_run(model, cfg, mode: str, lm_head: bool) -> dict:
     """3b's server over ``model``: one cold 300-token prompt with 40 new
     tokens, then a follower of its first block (256 tokens) and 16 more
-    (a 16-row suffix forward); launches against the formula,
+    (a 16-row suffix forward); both kernels' launches against the formula,
     ``/statusz``, ``paramBytes`` and the gauge."""
     import numpy as np
 
@@ -3364,8 +3528,9 @@ def _quant_short_run(model, cfg, mode: str, lm_head: bool) -> dict:
         th.join(timeout=30)
         srv.generator.close()
     ticks = RING["chunk_tokens"] * (batcher.stats["chunks"] - c0)
-    want = qmm_launches_want(cfg, ticks, 1, 1, lm_head)
-    got = QM.quant_matmul.launches
+    # the cold prompt at its length, the follower's 16-row suffix bucket
+    want = qmm_launches_want(cfg, ticks, [len(prompt), 16], lm_head)
+    got = (QM.quant_matmul.launches, QM.quant_gemm.launches)
     for p, (code, body, _) in zip((prompt, follower), outs):
         if code != 200:
             raise AssertionError(f"weight quant {mode}: HTTP {code}")
@@ -3386,7 +3551,7 @@ def _quant_short_run(model, cfg, mode: str, lm_head: bool) -> dict:
 @contextlib.contextmanager
 def _plain_route():
     """Every quantized projection through the formula (the JAX package's
-    ``x @ q.to(dtype) * s``), the int8-weight kernel never launched: the
+    ``x @ q.to(dtype) * s``), neither int8-weight kernel launched: the
     phases' own comparison route, patched in for a block, not a switch of
     the package."""
     from unittest import mock
@@ -3398,6 +3563,27 @@ def _plain_route():
     plain = QM.quant_matmul_reference
     with mock.patch.object(D, "quant_mm", plain), \
             mock.patch.object(llama, "quant_mm", plain):
+        yield
+
+
+@contextlib.contextmanager
+def _formula_above(rows: int):
+    """Projections of at most ``rows`` rows through kernel A, more rows
+    through the formula: the route of the port before kernel B (16 rows),
+    patched in for a block as :func:`_plain_route` is."""
+    from unittest import mock
+
+    from paddle_operator_tpu_torch.infer import decode as D
+    from paddle_operator_tpu_torch.models import llama
+    from paddle_operator_tpu_torch.ops import quant_matmul as QM
+
+    def route(x, q, s):
+        if x.numel() // x.shape[-1] <= rows:
+            return QM.quant_matmul(x, q, s)
+        return QM.quant_matmul_reference(x, q, s)
+
+    with mock.patch.object(D, "quant_mm", route), \
+            mock.patch.object(llama, "quant_mm", route):
         yield
 
 
@@ -3463,9 +3649,44 @@ def _time_dispatches(ex, fill: int, dispatches: int,
             np.array(warm))
 
 
-def phase_weight_quant_ring(report: dict, params, cfg) -> None:
+# phase 3i's long prompt: one prefill of this many tokens (kernel B's
+# rows; 2048 is the 7b config's max_seq_len)
+PREFILL_LONG = 2048
+
+
+def _prefill_ms(model, cfg, prompts, route=None) -> tuple:
+    """(device ms of prefilling ``prompts`` one after another, as cold
+    admissions forward them — ``decode.prefill`` of [1, n] — after a warm
+    one; the host's ms to queue that work, which is below the device's
+    only when the host keeps ahead of the card; each int8-weight kernel's
+    launches over the timed prefills)."""
+    import torch
+
+    from paddle_operator_tpu_torch.infer import decode as D
+    from paddle_operator_tpu_torch.ops import quant_matmul as QM
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with (route() if route else contextlib.nullcontext()), \
+            torch.inference_mode():
+        D.prefill(model, cfg, prompts[0], prompts[0].shape[1])
+        torch.cuda.synchronize()
+        n0 = (QM.quant_matmul.launches, QM.quant_gemm.launches)
+        t0 = time.perf_counter()
+        start.record()
+        for p in prompts:
+            D.prefill(model, cfg, p, p.shape[1])
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+    return start.elapsed_time(end), host_ms, (
+        QM.quant_matmul.launches - n0[0], QM.quant_gemm.launches - n0[1])
+
+
+def phase_weight_quant_ring(report: dict, report_b: dict, params,
+                            cfg) -> None:
     """Phase 3i: the weight-quantized 7b replica; see the module
-    docstring."""
+    docstring (``report``: kernel A's, ``report_b``: kernel B's)."""
     import gc as _gc
 
     import numpy as np
@@ -3490,11 +3711,12 @@ def phase_weight_quant_ring(report: dict, params, cfg) -> None:
         runs[kv] = r["ring"]
         if kv == "none":
             report["launches"] = QM.quant_matmul.launches
+            report_b["launches"] = QM.quant_gemm.launches
         _gc.collect()
         torch.cuda.empty_cache()
 
-    # the max logit gap against the bf16 model on one prompt (prefill by
-    # the formula, then 8 decode steps through the kernel): reported
+    # the max logit gap against the bf16 model on one prompt (prefill and
+    # 8 decode steps through kernel A): reported
     prompt = torch.as_tensor(np.random.default_rng(11).integers(
         0, cfg.vocab_size, (1, 64)), dtype=torch.int32, device="cuda")
     gap = 0.0
@@ -3524,6 +3746,45 @@ def phase_weight_quant_ring(report: dict, params, cfg) -> None:
     log(f"weight quant int8: ring chunk (8 lanes x 8 ticks, fill 520-632, "
         f"graph replay) device ms: kernel {chunk['kernel']}, plain route "
         f"{chunk['plain']}, bf16 model {chunk['bf16']} on {card_line()}")
+
+    # a quantized prefill, through the kernels (kernel B), through the
+    # plain route and on the bf16 model, in turns: 8 cold 512-token
+    # prompts one by one (3b's burst admits 8 cold prompts), then one
+    # 2048-token prompt (a long prompt's TTFT, where the host keeps ahead
+    # of the card)
+    prompts = [torch.as_tensor([p], dtype=torch.int32, device="cuda")
+               for p in prompts]
+    long_prompt = [torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (1, PREFILL_LONG)), dtype=torch.int32,
+        device="cuda")]
+    prefill = {}
+    for label, batch in (("8 x 512", prompts),
+                         (f"1 x {PREFILL_LONG}", long_prompt)):
+        got = {"kernel": [], "plain": [], "bf16": [], "host_ms": {
+            "kernel": [], "plain": [], "bf16": []}}
+        for name in ("kernel", "plain", "bf16", "bf16", "plain", "kernel"):
+            model, mcfg, route = {"kernel": (qmodel, qcfg, None),
+                                  "plain": (qmodel, qcfg, _plain_route),
+                                  "bf16": (params, cfg, None)}[name]
+            ms, host_ms, n = _prefill_ms(model, mcfg, batch, route)
+            got[name].append(ms)
+            got["host_ms"][name].append(host_ms)
+            if name == "kernel":
+                got["launches"] = n
+            elif n != (0, 0):
+                raise AssertionError(f"the {name} prefill launched the "
+                                     f"int8-weight kernels {n} times")
+        want = (0, 7 * cfg.n_layers * len(batch))
+        log(f"weight quant int8: prefill of {label}-token prompts one by "
+            f"one, device ms: kernels {got['kernel']}, plain route "
+            f"{got['plain']}, bf16 model {got['bf16']}; host ms to queue "
+            f"them {json.dumps(got['host_ms'])}; (kernel A, kernel B) "
+            f"launches {got['launches']} (expected {want}) on "
+            f"{card_line()}")
+        if got["launches"] != want:
+            raise AssertionError(f"the quantized prefill launched "
+                                 f"{got['launches']}, expected {want}")
+        prefill[label] = got
     del qmodel
     _gc.collect()
     torch.cuda.empty_cache()
@@ -3539,6 +3800,7 @@ def phase_weight_quant_ring(report: dict, params, cfg) -> None:
     report["ring"] = {"bf16_pool": runs["none"], "int8_pool": runs["int8"],
                       "chunk_device_ms": chunk, "logit_gap": gap,
                       "param_bytes": want_bytes, "short_runs": short}
+    report_b["prefill"] = prefill
 
 
 # phase 3j: 3b's ring with `residents` streams of `resident_prompt`-token
@@ -3919,7 +4181,7 @@ def _zero_launches() -> None:
 
     for fn in (DA.decode_attention, DA.paged_decode_attention,
                FA.flash_forward, FA.flash_backward_dkv, FA.flash_backward_dq,
-               QM.quant_matmul, A8.adam8bit_update):
+               QM.quant_matmul, QM.quant_gemm, A8.adam8bit_update):
         fn.launches = 0
     DA.paged_decode_attention.quant_launches = 0
 
@@ -5137,9 +5399,108 @@ def phase_host_tier_equalities(params=None, cfg=None) -> None:
         torch.cuda.empty_cache()
 
 
+def _first_difference(got, ref) -> list:
+    """Per request: the first position of its sequence (prompt and new
+    tokens) where ``got`` leaves ``ref`` (None where they agree)."""
+    out = []
+    for a, b in zip(got, ref):
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        out.append(i if i is not None or len(a) == len(b)
+                   else min(len(a), len(b)))
+    return out
+
+
+# phase 4h's int8-pool steps: kernel route against the plain route from
+# the same state, as 4d holds the int8 ring's attention (f32 logits)
+QUANT_POOL_LOGIT_ATOL = 1e-3
+
+
+def _quant_pool_steps(model, cfg, mode: str, prompts, n_new: int,
+                      max_len: int) -> None:
+    """Phase 4h (2): each prompt's cold paged prefill into an int8 pool
+    through the kernels (kernel B above ``KERNEL_MAX_ROWS`` rows, kernel
+    A below) and through the plain route, from empty pools: the logits
+    of every position within :data:`QUANT_POOL_LOGIT_ATOL`, the pools'
+    codes at most one step apart (a last-bit difference in an f32 sum
+    moves a code across a rounding midpoint, no further) and the scales
+    within :data:`QMM_F32_ATOL` of each other, relatively; then ``n_new`` ticks through kernel A, each also
+    run on the plain route from a copy of the same state, the logits
+    within the same limit.  The kernels must launch where the route
+    sends each call."""
+    import torch
+
+    from paddle_operator_tpu_torch.infer import decode as D
+    from paddle_operator_tpu_torch.infer import paged as PG
+    from paddle_operator_tpu_torch.ops import quant_matmul as QM
+
+    bs = 16
+    table = torch.arange(1, max_len // bs + 1, dtype=torch.int32,
+                         device="cuda")[None]
+    per_call = 7 * cfg.n_layers
+    for prompt in prompts:
+        n = len(prompt)
+        tokens = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+        caches, logits, launched = {}, {}, None
+        for route in ("kernel", "plain"):
+            cache = PG.init_paged_cache(cfg, 1, max_len // bs + 1, bs,
+                                        quant="int8")
+            n0 = (QM.quant_matmul.launches, QM.quant_gemm.launches)
+            with (_plain_route() if route == "plain"
+                  else contextlib.nullcontext()):
+                out = D.paged_prefill(model, cfg, tokens, cache, table[0],
+                                      block_size=bs, quant=True,
+                                      prompt_len=n)
+            if route == "kernel":
+                launched = (QM.quant_matmul.launches - n0[0],
+                            QM.quant_gemm.launches - n0[1])
+            cache["kt"][:, 0], cache["vt"][:, 0] = out[2][:, 0], \
+                out[3][:, 0]
+            cache["pos"][0] = n
+            caches[route], logits[route] = cache, out[0]
+        k_cache, p_cache = caches["kernel"], caches["plain"]
+        err = float((logits["kernel"] - logits["plain"]).abs().max())
+        step = max(int((k_cache[key].int() - p_cache[key].int()).abs().max())
+                   for key in ("k", "v"))
+        moved = sum(int((k_cache[key] != p_cache[key]).sum())
+                    for key in ("k", "v"))
+        scale_err = max(float(((k_cache[key] - p_cache[key]).abs()
+                               / p_cache[key].abs()).max())
+                        for key in ("ks", "vs"))  # limit QMM_F32_ATOL
+        want = ((0, per_call) if n > QM.KERNEL_MAX_ROWS
+                else (per_call, 0))
+        tok = logits["kernel"][0, -1].argmax(-1).reshape(1).to(torch.int32)
+        tick_err, tick_a = 0.0, QM.quant_matmul.launches
+        for _ in range(n_new):
+            twin = {key: t.clone() for key, t in k_cache.items()}
+            lk, _ = PG.paged_ring_forward(cfg, model, tok, k_cache, table,
+                                          quant=True)
+            with _plain_route():
+                lp, _ = PG.paged_ring_forward(cfg, model, tok, twin, table,
+                                              quant=True)
+            k_cache["pos"] += 1
+            tick_err = max(tick_err, float((lk - lp).abs().max()))
+            tok = lk[0].argmax(-1).reshape(1).to(torch.int32)
+        tick_a = QM.quant_matmul.launches - tick_a
+        line = (f"weight quant {mode} int8 pool, {n}-token prefill and "
+                f"{n_new} ticks, kernels against the plain route from the "
+                f"same state (7b width, 2 layers, f32): prefill logits max "
+                f"|diff| {err:.3e}, codes moved {moved} (at most {step} "
+                f"step), scales rel diff {scale_err:.3e}, tick logits max "
+                f"|diff| {tick_err:.3e} (limit {QUANT_POOL_LOGIT_ATOL}); "
+                f"(kernel A, kernel B) prefill launches {launched} "
+                f"(expected {want}), kernel A tick launches {tick_a} "
+                f"(expected {per_call * n_new})")
+        log(line)
+        if err > QUANT_POOL_LOGIT_ATOL or tick_err > QUANT_POOL_LOGIT_ATOL \
+                or step > 1 or scale_err > QMM_F32_ATOL or launched != want \
+                or tick_a != per_call * n_new:
+            raise AssertionError(line)
+        del caches, logits, k_cache, p_cache
+
+
 def phase_weight_quant_equalities() -> None:
     """Phase 4h: the weight-quantized rings under graph replay, through
-    the int8-weight kernel, against the plain route; see the module
+    the int8-weight kernels, against the plain route; see the module
     docstring."""
     import numpy as np
     import torch
@@ -5171,12 +5532,13 @@ def phase_weight_quant_equalities() -> None:
                 if b.executor.needs_capture:
                     raise AssertionError("the ring's graphs were not "
                                          "captured")
-                n0 = QM.quant_matmul.launches
+                n0 = (QM.quant_matmul.launches, QM.quant_gemm.launches)
                 out = [h.result(timeout=600) for h in [
                     b.submit(p, max_new_tokens=n_new) for p in prompts]]
                 b.pool.check_invariant()
                 return (out, b.executor.graph_replays,
-                        QM.quant_matmul.launches - n0)
+                        (QM.quant_matmul.launches - n0[0],
+                         QM.quant_gemm.launches - n0[1]))
             finally:
                 b.close()
 
@@ -5191,28 +5553,68 @@ def phase_weight_quant_equalities() -> None:
                     max_new_tokens=n_new, max_len=max_len)[0].tolist()
                     for p in prompts]
             for name, pool in pools:
-                if "kv_quant" in pool:
+                quant = "kv_quant" in pool
+                if quant:
                     # the int8 pool quantizes the KV: its reference is the
                     # same ring on the plain route
                     ref, _, plain_launches = ring(model, cfg, pool, 1,
                                                   _plain_route)
-                    if plain_launches:
+                    if plain_launches != (0, 0):
                         raise AssertionError("the plain route launched the "
-                                             "int8-weight kernel")
+                                             "int8-weight kernels")
                 else:
                     ref = want
+                outs = {}
                 for megastep in (1, 4):
                     got, replays, launched = ring(model, cfg, pool,
                                                   megastep)
+                    outs[megastep] = got
+                    same = sum(a == b for a, b in zip(got, ref))
                     line = (f"weight quant {mode} {name} megastep "
                             f"{megastep} (7b width, 2 layers, f32, graph "
                             f"replays {replays}): kernel route == plain "
-                            f"route on {sum(a == b for a, b in zip(got, ref))}"
-                            f"/{len(ref)} requests; quant_matmul launches "
-                            f"{launched}")
+                            f"route on {same}/{len(ref)} requests"
+                            + (f" (not gated; first differing position, "
+                               f"prompt included, "
+                               f"{_first_difference(got, ref)})"
+                               if quant else "")
+                            + f"; (kernel A, kernel B) launches {launched}")
                     log(line)
-                    if got != ref or not replays or not launched:
+                    # the 129-token prompt prefills through kernel B's f32
+                    # body, the others and the ticks through kernel A's
+                    if (got != ref and not quant) or not replays \
+                            or not all(launched):
                         raise AssertionError(line)
+                if outs[1] != outs[4]:
+                    raise AssertionError(f"weight quant {mode} {name}: the "
+                                         "kernel route's megastep 4 tokens "
+                                         "differ from megastep 1's")
+                if not quant:
+                    continue
+                # the int8 pool, through the kernels, gated two ways.
+                # (1) the port's route before kernel B — ticks and the
+                # hit's suffix through kernel A, prefills by the formula
+                # — gives the plain route's tokens under graphs, as it
+                # did with PR 12's kernel.
+                for megastep in (1, 4):
+                    got, replays, launched = ring(
+                        model, cfg, pool, megastep,
+                        lambda: _formula_above(16))
+                    line = (f"weight quant {mode} {name} megastep "
+                            f"{megastep}, prefills by the formula and the "
+                            f"rest through kernel A (graph replays "
+                            f"{replays}): == plain route on "
+                            f"{sum(a == b for a, b in zip(got, ref))}/"
+                            f"{len(ref)} requests; (kernel A, kernel B) "
+                            f"launches {launched}")
+                    log(line)
+                    if got != ref or not replays or not launched[0] \
+                            or launched[1]:
+                        raise AssertionError(line)
+                # (2) every prefill and tick through the kernels, held to
+                # the plain route one step at a time from the same state
+                _quant_pool_steps(model, cfg, mode, prompts[:3], n_new,
+                                  max_len)
 
             # one spill and restore under graphs (bf16 pool, megastep 1)
             def executor():
@@ -5492,8 +5894,15 @@ def _spec_run(params, cfg, what: str, ring_kw: dict, short: bool) -> dict:
     dquant = Q.weight_quant_mode(ex.draft_params)
     got = [DA.decode_attention.launches, DA.paged_decode_attention.launches,
            DA.paged_decode_attention.quant_launches,
-           QM.quant_matmul.launches]
-    want = [ticks, 0, 0, 7 * ticks if dquant != "none" else 0]
+           QM.quant_matmul.launches, QM.quant_gemm.launches]
+    # a quantized draft: 7 projections a draft layer on each draft tick
+    # (kernel A) and on each draft prefill (the whole prompt: kernel A up
+    # to its limit, kernel B above)
+    prefills = [len(p) for _, _, p, _ in jobs + late]
+    short = sum(n <= QM.KERNEL_MAX_ROWS for n in prefills)
+    per = 7 * dcfg.n_layers if dquant != "none" else 0
+    want = [ticks, 0, 0, 7 * ticks + per * short if per else 0,
+            per * (len(prefills) - short)]
     drafted = batcher.stats["spec_drafted"] - stats0["spec_drafted"]
     accepted = batcher.stats["spec_accepted"] - stats0["spec_accepted"]
     run = {"what": what, "megastep": megastep,
@@ -5503,7 +5912,7 @@ def _spec_run(params, cfg, what: str, ring_kw: dict, short: bool) -> dict:
            "launches": dict(zip(("decode_attention",
                                  "paged_decode_attention",
                                  "paged_decode_attention_quant",
-                                 "quant_matmul"), got)),
+                                 "quant_matmul", "quant_gemm"), got)),
            "accept_rate": round(accepted / drafted, 4) if drafted else 0.0,
            "statusz": {k: statusz.get(k) for k in (
                "specK", "acceptRate", "draftQuantMode", "weightQuantMode",
@@ -6844,6 +7253,8 @@ def main() -> int:
            # no Pallas kernel: the XLA fusion of decode._mm's quantized
            # branch
            "replaces": "paddle_operator_tpu/infer/decode.py:99"}
+    # kernel B: the same fusion at a prefill's rows
+    qmm_b = dict(qmm, name="quant_gemm")
     adam8 = {"name": "adam8bit_update", "route": "cuda",
              "source": "paddle_operator_tpu_torch/csrc/adam8bit.cu",
              # no Pallas kernel: the XLA fusion of opt8bit.py's
@@ -6866,13 +7277,13 @@ def main() -> int:
 
     flash_build_report(flash)
     decode_build_report(contiguous, paged, quant)
-    quant_build_report(qmm)
+    quant_build_report(qmm, qmm_b)
     adam8_build_report(adam8)
     log(f"build: flash_attention.cu {secs['flash_attention']:.1f}s")
     run("2", phase_kernel_vs_plain, contiguous)
     run("2b", phase_paged_kernel_vs_plain, paged)
     run("2d", phase_quant_kernel_vs_plain, quant)
-    run("2e", phase_quant_matmul_vs_plain, qmm)
+    run("2e", phase_quant_matmul_vs_plain, qmm, qmm_b)
     run("2f", phase_adam8bit_vs_plain, adam8)
     run("2c", phase_flash_vs_plain, flash)
     if phases & {"3", "3b", "3d", "3e", "3g", "3h", "3i", "3j", "3l",
@@ -6896,7 +7307,7 @@ def main() -> int:
         run("3h", phase_host_tier, (paged, quant), params, cfg)
         gc.collect()
         torch.cuda.empty_cache()
-        run("3i", phase_weight_quant_ring, qmm, params, cfg)
+        run("3i", phase_weight_quant_ring, qmm, qmm_b, params, cfg)
         gc.collect()
         torch.cuda.empty_cache()
         run("3j", phase_interleave, (paged, quant), params, cfg)
@@ -6932,14 +7343,15 @@ def main() -> int:
              "library_ms", "max_abs_err_f32", "max_abs_err_bf16",
              "decode_ms_per_step_b4", "kernel1_ms", "paged_bf16_ms", "ring",
              "ring_megastep", "spec", "draft_quant", "preempt", "host_tier",
-             "interleave", "train",
+             "interleave", "prefill", "probes_ms", "limit_check", "train",
              "checkpoint", "depth",
              "fwd_bwd", "designs",
              "ptxas",
              "timings"]
     print(json.dumps({"kernels": [
         {k: r.get(k) for k in order if k in r or k in order[:11]}
-        for r in (contiguous, paged, quant, *flash.values(), qmm, adam8)]}))
+        for r in (contiguous, paged, quant, *flash.values(), qmm, qmm_b,
+                  adam8)]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -63,14 +63,15 @@ def _mm(x: torch.Tensor, w: Dense, dtype) -> torch.Tensor:
     A raw ``[in, out]`` kernel: ``x @ kernel.to(dtype)``.  A weight-only
     int8/int4 one (infer/quant.py: codes ``q`` [in, out], f32 scales
     ``s`` [1, out]) goes through ops/quant_matmul.py ``quant_mm``, routed
-    by the number of rows: up to ``KERNEL_MAX_ROWS`` (16) rows — the
-    ring's lanes, a batch step, a prefix hit's short suffix — take the
-    int8-weight decode kernel on the card, which streams one byte a
-    weight where dequantize-then-matmul would move five (16 is the
-    largest row count phase 2e of ``chip_smoke.py`` measures the kernel
-    at); more rows — a prefill, bound by its operations — take the JAX
-    package's formula, ``(x @ q.to(dtype)) * s.to(dtype)``, on the
-    tensor cores.  A route by shape: nothing falls back on a failure."""
+    by the number of rows: up to ``KERNEL_MAX_ROWS`` rows — the ring's
+    lanes, a batch step, a prefix hit's suffix, the speculative verify,
+    a 64-row prefill slice — take kernel A on the card, which streams
+    one byte a weight where dequantize-then-matmul would move five; more
+    rows — a prompt's prefill, bound by its operations — take kernel B,
+    the same function tiled for the tensor cores.  The JAX package's
+    formula, ``(x @ q.to(dtype)) * s.to(dtype)``, is the plain version:
+    it runs on CPU tensors only.  A route by shape: nothing falls back on
+    a failure."""
     if w.mode == "none":
         return x @ w.kernel.to(dtype)
     return quant_mm(x.to(dtype), w.q, w.s)

@@ -84,7 +84,7 @@ from paddle_operator_tpu_torch.ops.decode_attention import (
     decode_attention,
     paged_decode_attention,
 )
-from paddle_operator_tpu_torch.ops.quant_matmul import quant_matmul
+from paddle_operator_tpu_torch.ops.quant_matmul import quant_gemm, quant_matmul
 
 
 class ExecPlan:
@@ -827,12 +827,13 @@ class _Graph:
 _COUNTERS = ((decode_attention, "launches"),
              (paged_decode_attention, "launches"),
              (paged_decode_attention, "quant_launches"),
-             (quant_matmul, "launches"))
+             (quant_matmul, "launches"),
+             (quant_gemm, "launches"))
 
 
 def _launch_counts() -> List[int]:
     """The decode kernels' launch counts (contiguous, paged, int8 pool,
-    int8-weight matmul)."""
+    the int8-weight kernels A and B)."""
     return [getattr(fn, attr) for fn, attr in _COUNTERS]
 
 

@@ -894,11 +894,25 @@ def main() -> int:
     if batcher is not None:
         wire_kv_store_from_env(batcher)
     watcher = PreemptionWatcher.install()
-    ServingDrain(srv, srv.state, batcher=batcher,
-                 budget_s=float(os.environ.get("SERVE_DRAIN_BUDGET_S",
-                                               "30"))).install(watcher)
+    drain = ServingDrain(srv, srv.state, batcher=batcher,
+                         budget_s=float(os.environ.get(
+                             "SERVE_DRAIN_BUDGET_S", "30")))
+    drain.install(watcher)
+    return serve_until_drained(srv, drain)
+
+
+def serve_until_drained(srv, drain) -> int:
+    """Serve until the drain shuts ``srv`` down, then wait for the drain
+    and return ``EXIT_PREEMPTED``.  The drain's ``shutdown`` ends
+    ``serve_forever`` on this thread while the drain thread still gives
+    the handler threads their grace before it exits the process as
+    preempted; returning 0 here first ended the process with 0 (seen on
+    the card in a SIGTERM of ``main()``)."""
+    from paddle_operator_tpu_torch.ft.preemption import EXIT_PREEMPTED
+
     srv.serve_forever()
-    return 0
+    drain.done.wait()
+    return EXIT_PREEMPTED
 
 
 if __name__ == "__main__":

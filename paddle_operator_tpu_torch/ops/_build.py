@@ -8,6 +8,10 @@ the source and the flags, so an edited source rebuilds and an unchanged
 one is reused.  Nothing builds at import: the first wrapper call on a
 CUDA tensor builds its kernel (or :func:`build` builds several at once,
 one ``nvcc`` process each, all started together).
+
+A name ``"<source>:<MACRO>[,<MACRO>...]"`` builds ``csrc/<source>.cu``
+once more with those macros defined (``-D``), as a library of its own
+(a timing build; the wrappers load the plain name).
 """
 
 from __future__ import annotations
@@ -46,11 +50,19 @@ def _nvcc() -> str:
                        "CUDA toolkit's nvcc (on PATH or under CUDA_HOME)")
 
 
+def _source(name: str):
+    """(source file, nvcc flags) of kernel library ``name``."""
+    src, _, macros = name.partition(":")
+    return CSRC / f"{src}.cu", NVCC_FLAGS + [
+        f"-D{m}" for m in macros.split(",") if m]
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    src, flags = _source(name)
     h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join(flags).encode())
+    stem = name.replace(":", "-").replace(",", "-")
+    return BUILD_DIR / f"lib{stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, float]:
@@ -68,8 +80,8 @@ def build(names: Iterable[str]) -> Dict[str, float]:
         # write to a private name, rename into place once complete: a
         # concurrent builder never loads a half-written library
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        src, flags = _source(name)
+        cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT),
                        tmp, out, time.perf_counter())

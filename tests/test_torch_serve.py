@@ -175,6 +175,37 @@ class TestDrain:
         assert state.draining and srv.shut
         assert codes == [EXIT_PREEMPTED] == [J83] == [83]
 
+    def test_main_returns_preempted_after_a_drain(self):
+        """``serve_until_drained`` (main()'s tail): once the drain's
+        shutdown ends ``serve_forever``, the entry point waits for the
+        drain, which exits 83, and itself returns 83 — never 0."""
+        from paddle_operator_tpu_torch.infer.resilience import (
+            ServerState,
+            ServingDrain,
+        )
+
+        class Srv:
+            def __init__(self):
+                self.stop = threading.Event()
+
+            def serve_forever(self):
+                self.stop.wait(30)
+
+            def shutdown(self):
+                self.stop.set()
+
+        codes, srv = [], Srv()
+        drain = ServingDrain(srv, ServerState(), handler_grace_s=0.3,
+                             exit_fn=codes.append)
+        threading.Timer(0.05, drain.start_async, ("test",)).start()
+        assert S.serve_until_drained(srv, drain) == 83
+        assert drain.done.is_set()
+        for _ in range(500):          # done is set just before the exit
+            if codes:
+                break
+            time.sleep(0.01)
+        assert codes == [83]
+
 
 ENTRY_KNOBS = ("SERVE_CONTINUOUS", "SERVE_PAGED", "SERVE_TP", "QUANTIZE",
                "SERVE_WEIGHT_QUANT", "TPUJOB_CHECKPOINT_PATH",

@@ -622,7 +622,7 @@ class TestOnCard:
                 graw = res.raw_host()
                 ticks = n * n_layers * (K + 1)
                 assert [b - a for a, b in zip(c0, X._launch_counts())] \
-                    == [ticks, 0, 0, 7 * ticks if dquant else 0]
+                    == [ticks, 0, 0, 7 * ticks if dquant else 0, 0]
                 eager._upload(plan)
                 et, ec, er = eager._program(n)
                 np.testing.assert_array_equal(gt, et.cpu().numpy())
