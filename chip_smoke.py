@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
     python3 chip_smoke.py [--phases 2,2b,2c,2d,2e,2f,3,3b,3c,3d,3e,3f,3g,3h,
-                           3i,3j,3k,3l,3m,4,4b,4c,4d,4e,4f,4g,4h,4i,4j,4k]
+                           3i,3j,3k,3l,3m,3n,4,4b,4c,4d,4e,4f,4g,4h,4i,4j,
+                           4k,4l]
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line; with no arguments every phase runs):
@@ -22,7 +23,12 @@ result line; with no arguments every phase runs):
    and 4 query heads a block), a cache of one chunk and a stacked-layer
    view; MHA and GQA (n_rep 2, 4); D 64 and 128; float32
    (atol = rtol = 1e-4) and bfloat16 (atol 1e-2, against the plain
-   version run in float32 on the bf16 inputs); the main path's shapes;
+   version run in float32 on the bf16 inputs); NaN rows
+   (``nan_lanes_check``, also in 2b and 2d: one all-NaN chunk among
+   finite ones, every visible row NaN, a NaN V row, on the int8 pool a
+   NaN scale and NaN tail rows) reach exactly the heads where they reach
+   the plain version's output, every other value the bits of the run
+   without them; the main path's shapes;
    the 7b shape at fills 128 and 2048; phase 3l's draft ring (the 7b
    ``cfg.draft()``: 8 lanes, 16 heads over 16, D 128, its 8 layers
    stacked; ``SPEC_DRAFT_ATTN``) at the burst's fills; a length-0 lane
@@ -381,6 +387,33 @@ result line; with no arguments every phase runs):
    boots, answers a request with ``"adapter": "a2"``, lists the three
    on ``/v1/adapters``, ``/statusz`` and ``/metrics``
    (``tpujob_serve_adapter_loaded``) and exits 83 on SIGTERM.
+3n. ring operations main path — 3b's server at full width and depth,
+   bf16, with ``SERVE_NAN_CHECK`` and ``SERVE_TRACE`` on: (a) on
+   executors admitted alike (8 lanes at fill 512), a chunk's device ms
+   as a graph with the finite check and without it, in turns, the warm
+   dispatch's tokens identical; (b) 3b's burst (``burst_requests``) with
+   a ``nan_lane`` fault before dispatch 6 (or the first after it with
+   such a lane) on a seeded pick of the resident lanes that will still
+   decode that dispatch (``_live_victim_injector``): exactly that
+   request fails (503, or the stream's error event) as quarantined,
+   every other equals 3b's stream, the
+   paged kernel launches n_layers x chunk x dispatches, the pool's
+   invariant holds and every block ends free or cached; (d) every
+   response carries a span tree with one root and the phase spans, and
+   the host cost of span capture a dispatch is printed beside the
+   burst's wall a dispatch; (c) one ``dispatch_fail``: a retriable 503,
+   the ring heals, captures new graphs and serves the retry with 3b's
+   tokens; (e) a mid-flight swap (a streamed request decoding) to the 7b
+   params of seed 1, made on the card, then a checkpoint-less ``POST
+   /v1/swap`` back to the retained base (``serve.host_state``, as
+   ``SERVE_SWAP_RETAIN`` keeps it): the stream completes across each
+   swap with its lane parked and restored, each swap's wall and its
+   park, upload, flip, capture and restore seconds, the stream's largest
+   token gap and the peak allocated memory are printed, and 3b's burst
+   then equals 3b's streams; (f) ``POST /v1/swap {"weight_quant":
+   "int8"}``: 3b's cold prompts through the int8 weights, kernel A and
+   kernel B launched as ``qmm_launches_want`` counts them, ``/statusz``
+   ``weightQuantMode`` int8.
 4. kernel path == plain path — 7b width, 2 layers, float32: greedy
    ``generate`` through the kernel and through the plain version give
    the same tokens, and per-step logits agree within 1e-3.
@@ -496,6 +529,18 @@ result line; with no arguments every phase runs):
    and a kernel #1 decode step's logits lie within 1e-4 of a forward on
    merged weights W + A.B.  Graph replays, addresses, launches and the
    prefix hits (63 + 160 rows) are held as in 4i.
+4l. ring operations — 7b width, 2 layers, float32, block 256, 4 slots,
+   chunk 8, under graph replay, on the contiguous, paged and int8 rings
+   at megastep 1 and 4, four prompts (two greedy, two sampled): a ring
+   with ``SERVE_TRACE`` and ``SERVE_NAN_CHECK`` streams what an untraced
+   ring streams (one span root a request); the prompts again take the
+   prefix-hit path, and under a ``nan_lane`` fault on lane 1 its request
+   alone fails with ``LaneQuarantined`` while the others equal that
+   chaos-free path; on the paged and int8 rings a mid-flight swap to
+   identical weights (lanes parked, graphs captured again, lanes
+   restored) changes no stream, and a swap to the seed-4 params streams
+   what a fresh ring on them streams (the paged ring: ``generate``'s
+   greedy tokens); every dispatch is a graph replay.
 4c. training kernel path == plain path — 7b width, 2 layers, float32:
    three train steps with attention through the flash kernels and
    through ``reference_attention`` from the same init agree in loss
@@ -518,6 +563,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -578,8 +624,8 @@ PEAK_BF16 = 989e12                 # H100 SXM dense bf16, for MFU
 # there at the burst's fills, and 3l checks its draft against it
 SPEC_DRAFT_ATTN = dict(b=8, hq=16, hkv=16, d=128, s=2048, layers=8)
 PHASES = ("2", "2b", "2c", "2d", "2e", "2f", "3", "3b", "3c", "3d", "3e",
-          "3f", "3g", "3h", "3i", "3j", "3k", "3l", "3m", "4", "4b", "4c",
-          "4d", "4e", "4f", "4g", "4h", "4i", "4j", "4k")
+          "3f", "3g", "3h", "3i", "3j", "3k", "3l", "3m", "3n", "4", "4b",
+          "4c", "4d", "4e", "4f", "4g", "4h", "4i", "4j", "4k", "4l")
 
 
 def log(*a) -> None:
@@ -664,6 +710,7 @@ def phase_kernel_vs_plain(report: dict) -> None:
 
     from paddle_operator_tpu_torch.ops import decode_attention as DA
 
+    nan_lanes_check("contiguous", report)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -810,6 +857,116 @@ def phase_kernel_vs_plain(report: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def nan_lanes_check(kind: str, report: dict) -> None:
+    """Phases 2, 2b and 2d: NaN K/V rows reach the output of kernel #1
+    (``kind`` "contiguous"), #2 ("paged") and #3 ("quant") as they reach
+    the plain version's — the NaN-lane check (SERVE_NAN_CHECK) reads the
+    logits.  At the 7b ring's heads (32 over 32, D 128), bs 256, 4
+    chunks of rows, f32 and bf16, seven lanes: 0 and 5 finite, 4 of
+    length 0; 1 (a) one all-NaN chunk in kv head 0 (the int8 pool: (c)
+    a NaN K scale on a fully visible block); 2 (b) every visible row NaN
+    in kv head 1, one chunk (int8: its staging tail); 3 (b) every
+    visible row NaN in every head over three chunks (int8: the scales of
+    its full blocks and its tail rows); 6 one NaN V row in kv head 2.
+    The kernel must give non-finite values exactly where the plain
+    version does — those heads — and, everywhere else, the bits of its
+    own run on the same inputs without the NaNs."""
+    import torch
+
+    from paddle_operator_tpu_torch.ops import decode_attention as DA
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    h, d, bs, cr = 32, 128, 256, DA.CHUNK_ROWS
+    s = 4 * cr
+    m = s // bs
+    lens = [s, 2 * cr + 10, 100, 2 * cr + 10, 0, cr + 1, 3 * cr]
+    b = len(lens)
+    n = b * m + 1
+    nan = float("nan")
+    want = sorted({(1, 0), (2, 1), (6, 2)} | {(3, i) for i in range(h)})
+    L = torch.tensor(lens, dtype=torch.int32, device=dev)
+    table = (torch.randperm(n - 1, generator=gen, device=dev)[:b * m] + 1
+             ).view(b, m).to(torch.int32)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        q = randn((b, h, d), dtype)
+        if kind == "quant":
+            kc, vc = (torch.randint(-127, 128, (n, h, bs, d), generator=gen,
+                                    device=dev).to(torch.int8)
+                      for _ in range(2))
+            ks, vs = (torch.rand((n, h), generator=gen, device=dev) * 0.008
+                      + 0.004 for _ in range(2))
+            kt, vt = (randn((b + 1, h, bs, d), dtype) for _ in range(2))
+            pks, pvs, pkt, pvt = (t.clone() for t in (ks, vs, kt, vt))
+            pks[table[1, 1], 0] = nan
+            pkt[2, 1, :100] = pvt[2, 1, :100] = nan
+            for j in range(2):
+                pks[table[3, j]] = pvs[table[3, j]] = nan
+            pkt[3, :, :10] = pvt[3, :, :10] = nan
+            pvt[6, 2, 1] = nan
+
+            def run(ops):
+                return DA.paged_decode_attention(
+                    q, kc, vc, table, L, k_scale=ops[0], v_scale=ops[1],
+                    k_tail=ops[2], v_tail=ops[3]).float()
+
+            clean, poisoned = (ks, vs, kt, vt), (pks, pvs, pkt, pvt)
+            plain = DA.paged_decode_attention_quant_reference(
+                q.float(), kc, vc, table, L, *poisoned)
+        else:
+            k, v = (randn((b, h, s, d), dtype) for _ in range(2))
+            pk, pv = k.clone(), v.clone()
+            pk[1, 0, cr:2 * cr] = pv[1, 0, cr:2 * cr] = nan
+            pk[2, 1, :100] = pv[2, 1, :100] = nan
+            pk[3, :, :2 * cr + 10] = pv[3, :, :2 * cr + 10] = nan
+            pv[6, 2, 5] = nan
+            plain = DA.decode_attention_reference(q.float(), pk.float(),
+                                                  pv.float(), L)
+            if kind == "paged":
+                def pool_of(x):
+                    pool = torch.zeros((n, h, bs, d), dtype=dtype,
+                                       device=dev)
+                    pool[table.reshape(-1).long()] = x.view(
+                        b, h, m, bs, d).transpose(1, 2).reshape(
+                            b * m, h, bs, d)
+                    return pool
+
+                def run(ops):
+                    return DA.paged_decode_attention(
+                        q, pool_of(ops[0]), pool_of(ops[1]), table,
+                        L).float()
+            else:
+                def run(ops):
+                    return DA.decode_attention(q, ops[0], ops[1], L).float()
+
+            clean, poisoned = (k, v), (pk, pv)
+        got, base = run(poisoned), run(clean)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(got)
+        heads = sorted(tuple(x) for x in
+                       (~fin).any(-1).nonzero().tolist())
+        log(f"NaN lanes, {kind} kernel {str(dtype)[6:]}: non-finite "
+            f"(lane, head) {len(heads)} (plain: "
+            f"{int((~torch.isfinite(plain)).any(-1).sum())}, want "
+            f"{len(want)}); the rest equals the clean run bit for bit: "
+            f"{bool(torch.equal(got[fin], base[fin]))}")
+        if not torch.equal(fin, torch.isfinite(plain)) or heads != want:
+            raise AssertionError(
+                f"{kind} kernel {dtype}: NaN rows do not reach the output "
+                f"as in the plain version: non-finite heads {heads}, "
+                f"expected {want}")
+        if not torch.equal(got[fin], base[fin]):
+            raise AssertionError(f"{kind} kernel {dtype}: the finite "
+                                 "values differ from the clean run")
+    report["nan_lanes"] = {"lanes": b, "nonfinite_heads": len(want),
+                           "dtypes": ["float32", "bfloat16"]}
+
+
 def _scrambled_table(rng, b, m, n_blocks):
     """[b, m] distinct pool ids drawn from 1..n_blocks-1 in a random
     order (block 0 is the trash block and is never mapped)."""
@@ -862,6 +1019,7 @@ def phase_paged_kernel_vs_plain(report: dict) -> None:
 
     from paddle_operator_tpu_torch.ops import decode_attention as DA
 
+    nan_lanes_check("paged", report)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
@@ -1080,6 +1238,7 @@ def phase_quant_kernel_vs_plain(report: dict) -> None:
 
     from paddle_operator_tpu_torch.ops import decode_attention as DA
 
+    nan_lanes_check("quant", report)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
@@ -2097,6 +2256,20 @@ def _post(base: str, body: dict) -> tuple:
     return out + (time.perf_counter() - t0,)
 
 
+def _post_any(base: str, path: str, body: dict, headers=None) -> tuple:
+    """A POST to ``path``: ``(HTTP status, the JSON body)``, error
+    statuses included (``_post`` raises on them)."""
+    req = urllib.request.Request(
+        base + path, data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})},
+        method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
 def _post_stream(base: str, body: dict) -> tuple:
     """A ``"stream": true`` generate: (HTTP status, the ndjson events,
     seconds to the first event, seconds to the end)."""
@@ -2241,6 +2414,34 @@ def qmm_launches_want(cfg, ticks: int, forwards, lm_head: bool) -> tuple:
             + int(lm_head) * len(forwards), per * (len(forwards) - short))
 
 
+def burst_requests(cfg) -> tuple:
+    """3b's burst (3e, 3m and 3n send it again): 8 cold prompts of 32 to
+    1,000 tokens (48 new tokens each) and a streamed 64-token prompt (32
+    new), then 4 followers of the 512-token cold prompt (its 512 tokens
+    + 16 of their own, 32 new).  Returns ``(cold, prefix, jobs, late,
+    keys)``: ``jobs`` and ``late`` as (kind, index, prompt, new tokens),
+    ``late`` to be sent once the radix holds ``keys`` (the prefix's
+    chain), so each follower admits through the suffix-only insert."""
+    import numpy as np
+
+    from paddle_operator_tpu_torch.utils.radixkey import prefix_chain_key
+
+    rng = np.random.default_rng(0)
+
+    def prompt(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    cold = [prompt(n) for n in (32, 100, 257, 300, 511, 512, 600, 1000)]
+    prefix = cold[5]                       # the 512-token prompt
+    followers = [prefix + prompt(16) for _ in range(4)]
+    streamed = prompt(64)
+    jobs = ([("cold", i, p, 48) for i, p in enumerate(cold)]
+            + [("stream", 0, streamed, 32)])
+    late = [("follower", i, p, 32) for i, p in enumerate(followers)]
+    keys = [prefix_chain_key(prefix, RING["block_size"], max_blocks=2)[0]]
+    return cold, prefix, jobs, late, keys
+
+
 def phase_ring_main_path(report: dict, params, cfg,
                          kv_quant: str = "none", bf16_ring=None,
                          megastep: int = 1, ref=None,
@@ -2284,22 +2485,8 @@ def phase_ring_main_path(report: dict, params, cfg,
         f"{ {n: g.launches for n, g in ex._graphs.items()} } on "
         f"{card_line()}")
     bs, chunk = RING["block_size"], RING["chunk_tokens"]
-    rng = np.random.default_rng(0)
-
-    def prompt(n):
-        return rng.integers(0, cfg.vocab_size, n).tolist()
-
-    cold = [prompt(n) for n in (32, 100, 257, 300, 511, 512, 600, 1000)]
-    prefix = cold[5]                       # the 512-token prompt
-    followers = [prefix + prompt(16) for _ in range(4)]
-    streamed = prompt(64)
-    jobs = ([("cold", i, p, 48) for i, p in enumerate(cold)]
-            + [("stream", 0, streamed, 32)])
-    late = [("follower", i, p, 32) for i, p in enumerate(followers)]
-    # the followers go once their shared blocks are in the radix cache
-    # (published at the cold prompt's admission), so each one admits
-    # through the suffix-only insert
-    keys = [prefix_chain_key(prefix, bs, max_blocks=2)[0]]
+    cold, prefix, jobs, late, keys = burst_requests(cfg)
+    streamed = jobs[-1][2]
     if quant:
         # int8: one more follower, the first 600 tokens of the cold
         # 1000-token prompt — its hit (599 tokens) ends mid-block, so it
@@ -5782,21 +5969,11 @@ def _spec_burst(cfg, short: bool):
     its streamed request (32 new), then the resubmission.  A
     speculative ring caches no prefix, so the followers and the
     resubmission prefill whole and go with the rest."""
-    import numpy as np
-
-    rng = np.random.default_rng(0)
-
-    def prompt(n):
-        return rng.integers(0, cfg.vocab_size, n).tolist()
-
-    cold = [prompt(n) for n in (32, 100, 257, 300, 511, 512, 600, 1000)]
-    followers = [cold[5] + prompt(16) for _ in range(4)]
-    streamed = prompt(64)
-    jobs = [("cold", i, p, 48) for i, p in enumerate(cold)]
+    _, prefix, burst, late, _ = burst_requests(cfg)
+    jobs = [j for j in burst if j[0] == "cold"]
     if not short:
-        jobs += ([("follower", i, p, 32) for i, p in enumerate(followers)]
-                 + [("stream", 0, streamed, 32)])
-    return jobs, ([("resubmit", 0, cold[5], 48)] if not short else [])
+        jobs += late + [j for j in burst if j[0] == "stream"]
+    return jobs, ([("resubmit", 0, prefix, 48)] if not short else [])
 
 
 def _spec_run(params, cfg, what: str, ring_kw: dict, short: bool) -> dict:
@@ -6597,21 +6774,6 @@ def _registry(cfg, names, capacity, rank, device="cuda"):
     return reg
 
 
-def _admin(base: str, body: dict) -> tuple:
-    """POST /v1/adapters: (HTTP status, the JSON body), error statuses
-    included."""
-    import urllib.error
-
-    req = urllib.request.Request(
-        base + "/v1/adapters", data=json.dumps(body).encode(),
-        headers={"Content-Type": "application/json"}, method="POST")
-    try:
-        with urllib.request.urlopen(req, timeout=120) as r:
-            return r.status, json.loads(r.read())
-    except urllib.error.HTTPError as e:
-        return e.code, json.loads(e.read())
-
-
 def _count_kernels(fn):
     """Device kernels one call of ``fn`` launches, read from the
     profiler's CUDA activity (None when it records none: not
@@ -6839,7 +7001,8 @@ def phase_adapter_ring(paged: dict, params, cfg, ring_tokens=None,
             f"{lane_adapter}; kernel #2 launches {launches} == n_layers x "
             f"chunk x {chunks} dispatches, one graph replay each")
         # (b) a4 loaded at runtime, after the capture, into a free slot
-        code, body = _admin(base, {"load": {"name": late, "seed": 4}})
+        code, body = _post_any(base, "/v1/adapters",
+                               {"load": {"name": late, "seed": 4}})
         if code != 200 or body != {"loaded": late, "slot": 4}:
             raise AssertionError(f"3m runtime load: HTTP {code} {body}")
         probe = cold[3]
@@ -6858,9 +7021,9 @@ def phase_adapter_ring(paged: dict, params, cfg, ring_tokens=None,
                 raise AssertionError(f"3m: the holder never admitted "
                                      f"{errors}")
             time.sleep(0.002)
-        code409, body409 = _admin(base, {"evict": late})
+        code409, body409 = _post_any(base, "/v1/adapters", {"evict": late})
         holder.join()
-        code200, body200 = _admin(base, {"evict": late})
+        code200, body200 = _post_any(base, "/v1/adapters", {"evict": late})
         with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
             gauges = sorted(ln for ln in r.read().decode().splitlines()
                             if ln.startswith("tpujob_serve_adapter_loaded{"))
@@ -7152,6 +7315,528 @@ def _preempted_adapter_lane(batcher, first, n_new) -> dict:
         b.close()
 
 
+# phase 3n: 3b's server with SERVE_NAN_CHECK and SERVE_TRACE on.  The
+# nan_lane fault fires before this dispatch of 3b's burst (or the first
+# after it with a lane that decodes it), on a seeded pick of such lanes;
+# a chunk's device ms takes this many graph replays a turn; the params swapped in are the 7b init from this seed;
+# the mid-flight swaps ride a streamed request of this many new tokens
+# (about 10 s of decoding: a swap from the retained base uploads 13.48 GB
+# before it reaches the ring)
+RINGOPS = dict(nan_at=6, chaos_seed=5, dispatches=12, seed2=1,
+               stream_new=1024)
+
+
+def _stream_events(base: str, body: dict, out: dict) -> None:
+    """A streamed generate into ``out``: its events, each with the host
+    time it arrived (``t``)."""
+    req = urllib.request.Request(
+        base + "/v1/generate", data=json.dumps(dict(body, stream=True))
+        .encode(), headers={"Content-Type": "application/json"},
+        method="POST")
+    events = out.setdefault("events", [])
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for line in r:
+            if line.strip():
+                events.append(dict(json.loads(line),
+                                   t=time.perf_counter()))
+
+
+def _ops_burst(base: str, batcher, cfg, headers=None) -> dict:
+    """3b's burst (``burst_requests``) against ``base``: ``{(kind, i):
+    (status, body)}``, the streamed request's body its last event."""
+    _, _, jobs, late, keys = burst_requests(cfg)
+    results, errors = {}, []
+
+    def send(kind, i, p, n):
+        try:
+            body = {"tokens": [p], "max_new_tokens": n}
+            if kind == "stream":
+                got = {}
+                _stream_events(base, body, got)
+                ev = got["events"]
+                toks = [e["token"] for e in ev if "token" in e]
+                results[kind, i] = (200, dict(ev[-1], streamed=toks))
+            else:
+                results[kind, i] = _post_any(base, "/v1/generate", body,
+                                             headers)
+        except Exception as e:               # surfaced after the join
+            errors.append(f"{kind} {i}: {e!r}")
+
+    threads = [threading.Thread(target=send, args=j) for j in jobs]
+    for t in threads:
+        t.start()
+    t0 = time.perf_counter()
+    while not all(k in batcher.pool.entries for k in keys):
+        if errors or time.perf_counter() - t0 > 600:
+            raise AssertionError(f"3n: the shared prefix was never cached: "
+                                 f"{errors}")
+        time.sleep(0.005)
+    more = [threading.Thread(target=send, args=j) for j in late]
+    for t in more:
+        t.start()
+    for t in threads + more:
+        t.join()
+    if errors:
+        raise AssertionError(f"3n burst requests failed: {errors}")
+    return results
+
+
+def _burst_outcomes(results: dict, ring_tokens: dict, what: str) -> tuple:
+    """Each request of a burst against 3b's tokens: ``(equal keys,
+    failed {key: (status, error)})``; a completed request with other
+    tokens than 3b's raises."""
+    equal, failed = [], {}
+    for key, (code, body) in sorted(results.items()):
+        err = body.get("error")
+        if code != 200 or err is not None:
+            failed[key] = (code, err)
+            continue
+        toks = body["tokens"][0] if key[0] != "stream" else body["tokens"]
+        if toks != ring_tokens[key]:
+            raise AssertionError(f"3n {what}: {key} differs from 3b's "
+                                 "stream")
+        equal.append(key)
+    return equal, failed
+
+
+def _live_victim_injector(CH, spec: str, seed: int):
+    """A ``ChaosInjector`` whose seeded ``nan_lane`` pick (an event that
+    names no lane) is made among the lanes that will still decode the
+    poisoned dispatch: decode-active, not done, and with more tokens
+    left than the dispatches already in flight can emit.  A resident
+    lane that the in-flight dispatches finish is dropped at the consume
+    without a verdict, so a pick of it injects nothing; which lanes
+    those are depends on how the burst's requests arrived.  While no
+    lane qualifies, the event moves on to the next dispatch."""
+
+    class LiveVictim(CH.ChaosInjector):
+        def _apply(self, ev, idx):
+            if ev.kind == "nan_lane" and ev.arg is None:
+                b = self.batcher
+                pre = b._pending_prefill_slots()
+                need = b.pipeline_depth * b.executor.chunk * b.megastep
+                live = [i for i, r in enumerate(b.lane)
+                        if r is not None and not r.done.is_set()
+                        and i not in pre and b._lane_left[i] > need]
+                if not live:
+                    self.events.setdefault(idx + 1, []).append(ev)
+                    return
+                ev = CH.ChaosEvent(ev.kind, idx, float(self.rng.choice(live)))
+            super()._apply(ev, idx)
+
+    return LiveVictim(spec, seed=seed)
+
+
+def _trace_cost_us(TR, lanes: int, chunks: int = 200) -> float:
+    """Host microseconds a consumed dispatch spends on span capture on
+    a ring of ``lanes`` traced lanes (one ``decode_dispatch`` span a
+    lane, as ``_consume_oldest`` adds them)."""
+    traces = [TR.RequestTrace(pod="r") for _ in range(lanes)]
+    t = time.monotonic()
+    t0 = time.perf_counter()
+    for i in range(chunks):
+        if i % 100 == 0:
+            traces = [TR.RequestTrace(pod="r") for _ in range(lanes)]
+        for tr in traces:
+            tr.add("decode_dispatch", t, t, steps=1)
+    return (time.perf_counter() - t0) / chunks * 1e6
+
+
+def phase_ring_ops(report: dict, params, cfg, ring_tokens) -> None:
+    """Phase 3n: the ring operations on 3b's server; see the module
+    docstring."""
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.infer import chaos as CH
+    from paddle_operator_tpu_torch.infer import executor as X
+    from paddle_operator_tpu_torch.infer.resilience import RingResilience
+    from paddle_operator_tpu_torch.infer.serve import host_state, make_server
+    from paddle_operator_tpu_torch.models.llama import make_model
+    from paddle_operator_tpu_torch.ops import decode_attention as DA
+    from paddle_operator_tpu_torch.ops import quant_matmul as QM
+    from paddle_operator_tpu_torch.utils import tracing as TR
+
+    def clean():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out = {}
+    slots, chunk = RING["slots"], RING["chunk_tokens"]
+    # (a) one chunk as a graph, the check off and on, in turns, on
+    # executors admitted alike (8 lanes at fill 512)
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, 512).tolist()
+               for _ in range(slots)]
+    exs, ms, warm = {}, {"off": [], "on": []}, {}
+    with torch.inference_mode():
+        for name in ("off", "on"):
+            ex = X.RingExecutor(params, cfg, slots=slots, max_len=1024,
+                                chunk_tokens=chunk, paged=True,
+                                block_size=RING["block_size"],
+                                check_finite=name == "on")
+            ex.prewarm()
+            for slot, p in enumerate(prompts):
+                _admit_cold(ex, slot, p)
+            exs[name] = [ex, 512]
+        for name in ("off", "on", "on", "off"):
+            t, exs[name][1], w = _time_dispatches(*exs[name],
+                                                  RINGOPS["dispatches"])
+            ms[name].append(t)
+            warm.setdefault(name, w)
+    del exs, ex
+    clean()
+    log(f"3n (a) a chunk as a graph (8 lanes x 8 ticks, fill 520-720), "
+        f"device ms: check off {ms['off']}, on {ms['on']}; tokens "
+        f"identical: {bool(np.array_equal(warm['off'], warm['on']))} on "
+        f"{card_line()}")
+    if not np.array_equal(warm["off"], warm["on"]):
+        raise AssertionError("3n: the finite check changed the tokens")
+    out["chunk_ms_check_off"], out["chunk_ms_check_on"] = ms["off"], ms["on"]
+
+    # (b)-(d) the server: 3b's, with the check and span tracing on
+    srv = make_server("127.0.0.1", 0, params, cfg, prewarm=True, trace=True,
+                      resilience=RingResilience(watchdog=False,
+                                                nan_check=True), **RING)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    batcher = srv.generator.batcher
+    ex = batcher.executor
+    try:
+        if not batcher.prewarmed.wait(600) or ex.needs_capture:
+            raise AssertionError(f"3n: no graphs captured at prewarm: "
+                                 f"{batcher.prewarm_error!r}")
+        inj = _live_victim_injector(CH, f"nan_lane@{RINGOPS['nan_at']}",
+                                    RINGOPS["chaos_seed"]).install(batcher)
+        stats0 = dict(batcher.stats)
+        _zero_launches()
+        t0 = time.perf_counter()
+        results = _ops_burst(base, batcher, cfg,
+                             headers={TR.TRACE_HEADER: "3n-trace"})
+        burst_s = time.perf_counter() - t0
+        chunks = batcher.stats["chunks"] - stats0["chunks"]
+        equal, failed = _burst_outcomes(results, ring_tokens, "(b)")
+        launches = DA.paged_decode_attention.launches
+        log(f"3n (b) 3b's burst with nan_lane at dispatch "
+            f"{RINGOPS['nan_at']}: fired {inj.fired}; failed {failed}; "
+            f"{len(equal)}/{len(results) - len(failed)} others equal 3b's "
+            f"streams; quarantinedLanes "
+            f"{batcher.stats['quarantined_lanes']}; {chunks} dispatches, "
+            f"paged kernel launches {launches}, {burst_s:.2f}s")
+        if (len(failed) != 1 or batcher.stats["quarantined_lanes"] != 1
+                or [k for k, _ in inj.fired] != ["nan_lane"]):
+            raise AssertionError(f"3n: expected one quarantined request, "
+                                 f"got {failed}")
+        (code, err), = failed.values()
+        if "quarantined" not in str(err) or code not in (200, 503):
+            raise AssertionError(f"3n: the victim failed with {code} {err}")
+        if launches != cfg.n_layers * chunk * chunks:
+            raise AssertionError(f"3n: paged kernel launches {launches}")
+        pool = batcher.pool
+        pool.check_invariant()
+        if pool.blocks_free() + pool.blocks_cached() != pool.num_blocks:
+            raise AssertionError("3n: blocks still mapped after the burst")
+        # (d) every response's span tree has one root
+        roots = {}
+        for key, (code, body) in results.items():
+            if key in failed:
+                continue
+            tree = body["trace"] if key[0] == "stream" else body["trace"][0]
+            rs = TR.span_roots(tree["spans"])
+            names = {s["name"] for s in tree["spans"]}
+            if len(rs) != 1 or not {"queue_wait", "admit", "ttft",
+                                    "decode_dispatch"} <= names:
+                raise AssertionError(f"3n: {key}'s trace: roots {rs}, "
+                                     f"spans {names}")
+            roots[key] = len(tree["spans"])
+        cost = _trace_cost_us(TR, slots)
+        wall = burst_s / max(1, chunks) * 1e3
+        log(f"3n (d) {len(roots)} responses, one root each, spans "
+            f"{sorted(roots.values())}; span capture {cost:.1f} us of host "
+            f"a dispatch of 8 traced lanes (against {wall:.1f} ms wall a "
+            f"dispatch in this burst, "
+            f"{report['ring']['wall_ms_per_chunk']:.1f} in 3b's)")
+        out.update(quarantined=[list(k) for k in failed],
+                   equal_streams=len(equal), burst_s=burst_s,
+                   trace_us_per_dispatch=cost, wall_ms_per_dispatch=wall)
+
+        # (c) one dispatch_fail: the ring heals, captures again, serves
+        graphs = ex._graphs
+        nxt = inj.dispatches
+        inj.events[nxt] = [CH.ChaosEvent("dispatch_fail", nxt)]
+        code, body = _post_any(base, "/v1/generate",
+                               {"tokens": [burst_requests(cfg)[0][0]],
+                                "max_new_tokens": 48})
+        t0 = time.perf_counter()
+        while not batcher.accepting and time.perf_counter() - t0 < 60:
+            time.sleep(0.01)
+        heal_s = time.perf_counter() - t0
+        code2, body2 = _post_any(base, "/v1/generate",
+                                 {"tokens": [burst_requests(cfg)[0][0]],
+                                  "max_new_tokens": 48})
+        log(f"3n (c) dispatch_fail: HTTP {code} ({body.get('error')!r}), "
+            f"ready again after {heal_s:.2f}s, graphs captured again: "
+            f"{ex._graphs is not graphs and not ex.needs_capture}; the "
+            f"retry HTTP {code2}, equal to 3b's cold 0: "
+            f"{code2 == 200 and body2['tokens'][0] == ring_tokens['cold', 0]}")
+        if (code != 503 or code2 != 200
+                or body2["tokens"][0] != ring_tokens["cold", 0]
+                or ex._graphs is graphs or ex.needs_capture
+                or batcher.stats["watchdog_restarts"] != 1):
+            raise AssertionError("3n: the ring did not heal from an "
+                                 "injected dispatch failure")
+
+        # (e) a mid-flight swap to the seed-2 params, made on the card
+        t0 = time.perf_counter()
+        params2, _ = make_model("7b", device="cuda", seed=RINGOPS["seed2"],
+                                param_dtype=cfg.dtype)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        streamed = burst_requests(cfg)[2][-1][2]
+        swaps = {}
+
+        def swap_mid_flight(what, fn):
+            """``fn()`` runs the swap while a streamed request decodes;
+            returns the stream's events."""
+            got = {}
+            st = threading.Thread(target=_stream_events, args=(
+                base, {"tokens": [streamed],
+                       "max_new_tokens": RINGOPS["stream_new"]}, got))
+            st.start()
+            while len([e for e in got.get("events", [])
+                       if "token" in e]) < 16:
+                time.sleep(0.005)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = fn()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            st.join()
+            ev = got["events"]
+            ts = [e["t"] for e in ev if "token" in e]
+            toks = [e["token"] for e in ev if "token" in e]
+            if (len(toks) != RINGOPS["stream_new"] or not ev[-1].get("done")
+                    or res["parkedLanes"] != 1):
+                raise AssertionError(f"3n {what}: the stream broke across "
+                                     f"the swap: {len(toks)} tokens, last "
+                                     f"event {str(ev[-1])[:200]}, {res}")
+            split = {k: round(v, 4) for k, v in batcher.last_swap.items()}
+            swaps[what] = dict(res, wall_s=wall, split_s=split,
+                               peak_gb=peak / 1e9,
+                               max_token_gap_s=max(np.diff(ts)))
+            log(f"3n (e) {what}: {res}; wall {wall:.3f}s, split {split}; "
+                f"the stream's largest token gap "
+                f"{max(np.diff(ts)):.3f}s; peak allocated {peak / 1e9:.2f} "
+                f"GB on {card_line()}")
+            return toks
+
+        swap_mid_flight("swap to seed-1 params",
+                        lambda: batcher.swap_weights(params2))
+        if batcher.executor.params is not params2 or batcher.generation != 1:
+            raise AssertionError("3n: the swap did not flip the weights")
+        # the retained base (SERVE_SWAP_RETAIN): a host copy of params
+        t0 = time.perf_counter()
+        srv.swap_base = {"params": host_state(params),
+                         "weight_quant": "none"}
+        retain_s = time.perf_counter() - t0
+        del params2
+        swap_mid_flight("checkpoint-less swap back to the retained base",
+                        lambda: _post_any(base, "/v1/swap", {})[1])
+        clean()
+        results = _ops_burst(base, batcher, cfg)
+        equal, failed = _burst_outcomes(results, ring_tokens, "(e)")
+        log(f"3n (e) after the swap back: {len(equal)}/{len(results)} "
+            f"streams equal 3b's; retaining the base took {retain_s:.1f}s "
+            f"of host copy, the seed-1 init {init_s:.1f}s")
+        if failed:
+            raise AssertionError(f"3n: requests failed after the swap "
+                                 f"back: {failed}")
+
+        # (f) a flip to int8 weights: kernels A and B launched as
+        # qmm_launches_want counts them
+        t0 = time.perf_counter()
+        code, res = _post_any(base, "/v1/swap", {"weight_quant": "int8"})
+        flip_s = time.perf_counter() - t0
+        if code != 200 or res["weightQuantMode"] != "int8":
+            raise AssertionError(f"3n: the int8 flip answered {code} {res}")
+        swaps["flip to int8"] = dict(
+            res, wall_s=flip_s,
+            split_s={k: round(v, 4) for k, v in batcher.last_swap.items()})
+        cold = burst_requests(cfg)[0]
+        stats0 = dict(batcher.stats)
+        _zero_launches()
+        got = {}
+        threads = [threading.Thread(target=lambda i=i, p=p: got.__setitem__(
+            i, _post_any(base, "/v1/generate",
+                         {"tokens": [p], "max_new_tokens": 48})))
+            for i, p in enumerate(cold)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        chunks = batcher.stats["chunks"] - stats0["chunks"]
+        for i, p in enumerate(cold):
+            code, body = got[i]
+            if code != 200:
+                raise AssertionError(f"3n int8 cold {i}: HTTP {code}")
+            _check_rows(cfg, p, body["tokens"][0], 48, f"3n int8 cold {i}")
+        qmm = (QM.quant_matmul.launches, QM.quant_gemm.launches)
+        want = qmm_launches_want(cfg, chunk * chunks, [len(p) for p in cold],
+                                 False)
+        with urllib.request.urlopen(base + "/statusz", timeout=60) as r:
+            statusz = json.loads(r.read())
+        log(f"3n (f) int8 flip in {flip_s:.2f}s ({swaps['flip to int8']}): "
+            f"(kernel A, kernel B) launches {qmm}, expected {want}; "
+            f"/statusz weightQuantMode {statusz['weightQuantMode']}, "
+            f"weightSwaps {statusz['weightSwaps']}, weightGeneration "
+            f"{statusz['weightGeneration']}")
+        if qmm != want or statusz["weightQuantMode"] != "int8":
+            raise AssertionError(f"3n: int8 launches {qmm}, expected {want}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
+        srv.generator.close()
+        srv.swap_base = None
+    out["swaps"] = swaps
+    report["ring_ops"] = out
+
+
+def phase_ring_ops_equalities() -> None:
+    """Phase 4l: the ring operations at 7b width, 2 layers, float32,
+    under graphs; see the module docstring."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.infer import chaos as CH
+    from paddle_operator_tpu_torch.infer import decode as D
+    from paddle_operator_tpu_torch.infer.batcher import ContinuousBatcher
+    from paddle_operator_tpu_torch.infer.resilience import (
+        LaneQuarantined,
+        RingResilience,
+    )
+    from paddle_operator_tpu_torch.models.llama import make_model
+    from paddle_operator_tpu_torch.utils import tracing as TR
+
+    params, cfg = make_model("7b", device="cuda", seed=3, n_layers=2,
+                             dtype=torch.float32)
+    params1, _ = make_model("7b", device="cuda", seed=4, n_layers=2,
+                            dtype=torch.float32)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (300, 64, 513, 40)]
+    temps, seeds, n_new, max_len = [0.0, 0.0, 0.8, 0.8], [0, 0, 11, 12], 80, 1024
+    with torch.inference_mode():
+        gen1 = [D.generate(params1, cfg, torch.tensor([p], dtype=torch.int32,
+                                                      device="cuda"),
+                           max_new_tokens=n_new, max_len=max_len)[0].tolist()
+                for p in prompts[:2]]
+
+    def ring(model, kind, megastep, **kw):
+        return ContinuousBatcher(
+            model, cfg, slots=4, max_len=max_len, chunk_tokens=8,
+            megastep=megastep, paged=kind != "contiguous", block_size=256,
+            kv_quant="int8" if kind == "int8" else "none", **kw)
+
+    def submit(b):
+        return [b.submit(p, max_new_tokens=n_new, temperature=t, seed=s)
+                for p, t, s in zip(prompts, temps, seeds)]
+
+    def served(model, kind, megastep):
+        b = ring(model, kind, megastep)
+        try:
+            return [h.result(timeout=600) for h in submit(b)]
+        finally:
+            b.close()
+
+    for kind in ("contiguous", "paged", "int8"):
+        for megastep in (1, 4):
+            what = f"{kind} ring, megastep {megastep}"
+            want = served(params, kind, megastep)
+            b = ring(params, kind, megastep, trace=True,
+                     resilience=RingResilience(watchdog=False,
+                                               nan_check=True))
+            ex = b.executor
+            try:
+                hs = submit(b)
+                got = [h.result(timeout=600) for h in hs]
+                if got != want or any(
+                        len(TR.span_roots(h.trace.to_wire()["spans"])) != 1
+                        for h in hs):
+                    raise AssertionError(f"4l {what}: traced != untraced")
+                # the same prompts again: their full blocks now hit the
+                # radix, the path the runs below take (on the int8 pool a
+                # hit reads the quantized prefix where a cold prefill
+                # attends the exact rows, so its tokens may differ)
+                again = [h.result(timeout=600) for h in submit(b)]
+                if kind != "int8" and again != want:
+                    raise AssertionError(f"4l {what}: a prefix hit != the "
+                                         "cold prefill")
+                inj = CH.ChaosInjector("").install(b)
+                nxt = inj.dispatches
+                inj.events[nxt] = [CH.ChaosEvent("nan_lane", nxt, 1)]
+                outs = []
+                for h in submit(b):
+                    try:
+                        outs.append(h.result(timeout=600))
+                    except LaneQuarantined:
+                        outs.append(None)
+                bad = [i for i, o in enumerate(outs) if o is None]
+                if (len(bad) != 1 or b.stats["quarantined_lanes"] != 1
+                        or any(o != w for o, w in zip(outs, again)
+                               if o is not None)):
+                    raise AssertionError(f"4l {what}: nan_lane quarantined "
+                                         f"{bad}; the others equal: "
+                                         f"{[o == w for o, w in zip(outs, again)]}")
+                swapped = "not swapped (an unpaged ring refuses)"
+                if kind != "contiguous":
+                    # replays paced, so the swap lands mid-flight
+                    replay = ex.replay
+                    ex.replay = lambda plan: (time.sleep(0.05),
+                                              replay(plan))[1]
+                    hs = submit(b)
+                    chunks = b.stats["chunks"]
+                    while b.stats["chunks"] < chunks + 1:
+                        time.sleep(0.001)
+                    res = b.swap_weights(copy.deepcopy(params))
+                    got = [h.result(timeout=600) for h in hs]
+                    ex.replay = replay
+                    if not res["parkedLanes"]:
+                        raise AssertionError(f"4l {what}: the swap parked "
+                                             "no lane")
+                    if got != again:
+                        raise AssertionError(f"4l {what}: a mid-flight swap "
+                                             "to identical weights changed "
+                                             "the streams")
+                    b.swap_weights(params1)
+                    got = [h.result(timeout=600) for h in submit(b)]
+                    fresh = served(params1, kind, megastep)
+                    if got != fresh or (kind == "paged"
+                                        and got[:2] != gen1):
+                        raise AssertionError(f"4l {what}: the swap to "
+                                             "seed-4 params != a fresh "
+                                             "ring / generate on them")
+                    swapped = (f"mid-flight swap ({res['parkedLanes']} "
+                               "parked) == unswapped, swap to seed-4 == "
+                               "fresh ring" + (" == generate"
+                                               if kind == "paged" else ""))
+                if ex.graph_replays != b.stats["chunks"]:
+                    raise AssertionError(f"4l {what}: {b.stats['chunks']} "
+                                         f"dispatches, {ex.graph_replays} "
+                                         "graph replays")
+            finally:
+                b.close()
+            log(f"4l {what} (7b width, 2 layers, f32, graphs): traced == "
+                f"untraced (sampled lanes included), nan_lane victim "
+                f"{bad} quarantined and the rest == the chaos-free run on "
+                f"the same prefix-hit path, {swapped}")
+    del params, params1
+    torch.cuda.empty_cache()
+
+
 def phase_train_kernel_equals_plain() -> None:
     """Phase 4c: three f32 train steps through the flash kernels and
     through the plain attention, from the same init."""
@@ -7212,8 +7897,8 @@ def main() -> int:
     phases = set(ap.parse_args().phases.split(","))
     if phases - set(PHASES):
         ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
-    if "3e" in phases:
-        phases.add("3b")            # 3e is held against 3b's tokens
+    if phases & {"3e", "3n"}:
+        phases.add("3b")            # 3e and 3n are held to 3b's tokens
     if not (ROOT / "paddle_operator_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: the paddle_operator_tpu_torch package is not "
               "beside this script", file=sys.stderr)
@@ -7287,7 +7972,7 @@ def main() -> int:
     run("2f", phase_adam8bit_vs_plain, adam8)
     run("2c", phase_flash_vs_plain, flash)
     if phases & {"3", "3b", "3d", "3e", "3g", "3h", "3i", "3j", "3l",
-                  "3m"}:
+                  "3m", "3n"}:
         params, cfg = make_7b()
         run("3", phase_main_path, contiguous, params, cfg)
         ring_tokens = run("3b", phase_ring_main_path, paged, params, cfg)
@@ -7319,6 +8004,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         run("3m", phase_adapter_ring, paged, params, cfg, ring_tokens,
             paged.get("ring"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        run("3n", phase_ring_ops, paged, params, cfg, ring_tokens)
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -7336,11 +8024,13 @@ def main() -> int:
     run("4i", phase_chunked_equalities)
     run("4j", phase_spec_equalities)
     run("4k", phase_adapter_equalities)
+    run("4l", phase_ring_ops_equalities)
     log(f"all phases: {time.perf_counter() - t_all:.1f}s")
 
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "max_abs_err_f32", "max_abs_err_bf16",
+             "nan_lanes", "ring_ops",
              "decode_ms_per_step_b4", "kernel1_ms", "paged_bf16_ms", "ring",
              "ring_megastep", "spec", "draft_quant", "preempt", "host_tier",
              "interleave", "prefill", "probes_ms", "limit_check", "train",

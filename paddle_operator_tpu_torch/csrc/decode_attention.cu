@@ -222,6 +222,20 @@ __host__ __device__ __forceinline__ constexpr int row_lanes(int d, int vec) {
   return g;
 }
 
+// The running maxima (a row's score, a warp's, a block's, the chunks')
+// take the max that returns NaN when either operand is NaN.  fmaxf
+// returns the other operand, so a chunk whose visible rows are all NaN
+// kept m = -inf, merged as an empty chunk (num = den = 0) and left the
+// lane's output finite; the TPU kernels' jnp.maximum and the plain
+// version propagate the NaN, and the serving ring's NaN-lane check
+// (SERVE_NAN_CHECK) needs it in the logits.  Equal to fmaxf on any
+// two non-NaN operands.
+__device__ __forceinline__ float nan_max(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
 // key rows of a staged tile: one pass of the block over its lane
 // groups, kUnroll rows each
 __host__ __device__ __forceinline__ constexpr int tile_rows(int d, int vec) {
@@ -299,7 +313,7 @@ struct WarpStates {
                                         float& num, float& den) const {
     mx = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m[w][r]);
+    for (int w = 0; w < kWarps; ++w) mx = nan_max(mx, m[w][r]);
     num = den = 0.f;
     if (mx == -INFINITY) return;
 #pragma unroll
@@ -408,7 +422,7 @@ struct Attend {
           for (int off = g >> 1; off > 0; off >>= 1)
             sc += __shfl_xor_sync(kFull, sc, off);
           if (valid[u]) {
-            const float mn = fmaxf(m[r], sc);
+            const float mn = nan_max(m[r], sc);
             const float corr = expf(m[r] - mn);  // 0 while m is -inf
             const float p = expf(sc - mn);
             l[r] = l[r] * corr + p;
@@ -469,7 +483,7 @@ struct Attend {
       float mn = m[r];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
-        if (valid[u]) mn = fmaxf(mn, sc[u][r]);
+        if (valid[u]) mn = nan_max(mn, sc[u][r]);
       // no valid row yet: nothing to rescale (and no -inf - -inf)
       const float corr = mn == -INFINITY ? 1.f : ex2(m[r] - mn);
       float sum = l[r] * corr;
@@ -522,7 +536,7 @@ struct Attend {
       for (int r = 0; r < R; ++r) {
         const float om = __shfl_xor_sync(kFull, m[r], off);
         const float ol = __shfl_xor_sync(kFull, l[r], off);
-        const float mn = fmaxf(m[r], om);
+        const float mn = nan_max(m[r], om);
         const float c1 = mn == -INFINITY ? 0.f : expf(m[r] - mn);
         const float c2 = mn == -INFINITY ? 0.f : expf(om - mn);
         l[r] = l[r] * c1 + ol * c2;
@@ -640,7 +654,7 @@ __device__ __forceinline__ void split_finish(const WarpStates<R, kMaxD>& sm,
     float mx = -INFINITY;
 #pragma unroll 4
     for (int j = 0; j < live; ++j)
-      mx = fmaxf(mx, __ldcg(part + j * (d + 2) + d));
+      mx = nan_max(mx, __ldcg(part + j * (d + 2) + d));
     float num = 0.f, den = 0.f;
 #pragma unroll 4
     for (int j = 0; j < live; ++j) {

@@ -131,30 +131,46 @@ class DispatchResult:
     ``_event``), so the consume waits for THIS dispatch only, never for
     the one dispatched after it.  Under a CUDA graph the device tensors
     are the graph's static outputs, which the next replay overwrites:
-    read them through the host copies."""
+    read them through the host copies.  ``ok`` (a ring with
+    ``check_finite``): each lane's isfinite verdict, [B] at ``n_steps``
+    1 and [n, B] fused; None otherwise."""
 
-    __slots__ = ("toks", "counts", "raw", "n_steps", "_host", "_event")
+    __slots__ = ("toks", "counts", "raw", "ok", "n_steps", "_host",
+                 "_event")
 
-    def __init__(self, toks, counts, n_steps, raw=None):
+    def __init__(self, toks, counts, n_steps, raw=None, ok=None):
         self.toks = toks
         self.counts = counts
         self.raw = raw
+        self.ok = ok
         self.n_steps = n_steps
         self._host, self._event = _to_host_async(
-            *(t for t in (toks, counts, raw) if t is not None))
+            *(t for t in (toks, counts, raw, ok) if t is not None))
+
+    def _at(self, name: str) -> Optional[np.ndarray]:
+        """Output ``name``'s host copy, None when the dispatch has no
+        such output."""
+        present = [k for k in ("toks", "counts", "raw", "ok")
+                   if getattr(self, k) is not None]
+        if name not in present:
+            return None
+        return self._host[present.index(name)].numpy()
 
     def host(self) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """``(toks, counts)`` on the host — the ring's one sync."""
         if self._event is not None:
             self._event.synchronize()
-        toks = self._host[0].numpy()
-        return toks, (self._host[1].numpy() if self.counts is not None
-                      else None)
+        return self._at("toks"), self._at("counts")
 
     def raw_host(self) -> Optional[np.ndarray]:
         """``raw`` on the host (after :meth:`host`), None off a
         speculative ring."""
-        return self._host[-1].numpy() if self.raw is not None else None
+        return self._at("raw")
+
+    def ok_host(self) -> Optional[np.ndarray]:
+        """``ok`` on the host (after :meth:`host`), None without the
+        check."""
+        return self._at("ok")
 
 
 def _to_host_async(*ts: torch.Tensor):
@@ -529,29 +545,40 @@ def _sample_tokens(logits: torch.Tensor, temp: torch.Tensor,
 
 def _ticks(forward, cache: Dict[str, torch.Tensor], tok: torch.Tensor,
            temp: torch.Tensor, seeds: torch.Tensor, mask: torch.Tensor,
-           chunk_tokens: int, top_k: Optional[int], top_p: Optional[float]
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
+           chunk_tokens: int, top_k: Optional[int], top_p: Optional[float],
+           check_finite: bool = False):
     """``chunk_tokens`` ring ticks — the body every resident program
     shares (contiguous or paged, 1-step or fused).  ``forward(tok,
     cache) -> (logits, cache')`` is one tick's forward; lanes outside
     ``mask`` compute (the price of fixed shapes) but their position is
     ZEROED each tick and their token held.  Returns ``(tok', toks
-    [chunk, B])``; ``cache['pos']`` is rebound each tick."""
+    [chunk, B])``; ``cache['pos']`` is rebound each tick.
+
+    ``check_finite`` (SERVE_NAN_CHECK) adds ``ok [B]`` last: the
+    isfinite fold of every tick's logits a lane, forced True outside
+    ``mask`` (a masked lane's garbage never quarantines it), so the
+    host can fail one non-finite lane without reading logits back."""
     toks = []
+    ok = torch.ones_like(mask) if check_finite else None
     for _ in range(chunk_tokens):
         pos = cache["pos"]
         logits, new = forward(tok, cache)
         nxt = _sample_tokens(logits, temp, seeds, pos, top_k, top_p)
+        if check_finite:
+            ok = ok & (torch.isfinite(logits).all(-1) | ~mask)
         cache["pos"] = torch.where(mask, new["pos"],
                                    torch.zeros_like(new["pos"]))
         tok = torch.where(mask, nxt, tok)
         toks.append(tok)
+    if check_finite:
+        return tok, torch.stack(toks), ok
     return tok, torch.stack(toks)
 
 
 def make_chunk_step(cfg: LlamaConfig, chunk_tokens: int,
                     top_k: Optional[int] = None,
-                    top_p: Optional[float] = None):
+                    top_p: Optional[float] = None,
+                    check_finite: bool = False):
     """The contiguous ring's resident decode step.
 
     ``step(params, cache, tok [B], temp [B], seeds [B], active [B],
@@ -562,12 +589,13 @@ def make_chunk_step(cfg: LlamaConfig, chunk_tokens: int,
     their position is ZEROED each tick, so their ignored writes land at
     row 0, which the next admission's splice overwrites.  ``lora``:
     ``(stacks, aid [B])`` on an adapter ring (every lane its own
-    adapter, slot 0 the base)."""
+    adapter, slot 0 the base).  ``check_finite``: ``ok [B]`` last
+    (:func:`_ticks`)."""
 
     def step(params, cache, tok, temp, seeds, active, lora=None):
         return _ticks(lambda t, c: _ring_forward(cfg, params, t, c, lora),
                       cache, tok, temp, seeds, active, chunk_tokens, top_k,
-                      top_p)
+                      top_p, check_finite)
 
     return step
 
@@ -616,7 +644,7 @@ def _mega_continue(toks: torch.Tensor, raw: torch.Tensor,
 
 def _fused(run_chunk, n_steps: int, caches, tok: torch.Tensor,
            active: torch.Tensor, eos: torch.Tensor, left: torch.Tensor,
-           steps: torch.Tensor):
+           steps: torch.Tensor, check_finite: bool = False):
     """The megastep's outer loop over ``n_steps`` iterations (the JAX
     outer ``scan``), shared by the plain and speculative megasteps:
     ``run_chunk(tok, live) -> (tok', toks [T, B][, raw [B]])`` runs one
@@ -628,12 +656,16 @@ def _fused(run_chunk, n_steps: int, caches, tok: torch.Tensor,
     positions it had before it in every cache of ``caches`` (so a lane
     frozen by its step budget resumes where its last consumed token
     left it).  Returns ``(tok', toks [n, T, B], counts [n, B], raws
-    [n, B])``."""
+    [n, B])``, and ``oks [n, B]`` last under ``check_finite`` (then
+    ``run_chunk`` returns its iteration's ``ok`` last, True for lanes
+    that sat the iteration out)."""
     live = active & (left > 0) & (steps > 0)
-    all_toks, counts, raws = [], [], []
+    all_toks, counts, raws, oks = [], [], [], []
     for _ in range(n_steps):
         p0 = [c["pos"].clone() for c in caches]
         tok, toks, *raw = run_chunk(tok, live)
+        if check_finite:
+            oks.append(raw.pop())
         raw = (raw[0] if raw
                else torch.where(live, toks.shape[0], 0).to(torch.int32))
         count, live2, left, steps = _mega_continue(toks, raw, live, left,
@@ -644,12 +676,15 @@ def _fused(run_chunk, n_steps: int, caches, tok: torch.Tensor,
         all_toks.append(toks)
         counts.append(count)
         raws.append(raw)
-    return tok, torch.stack(all_toks), torch.stack(counts), torch.stack(raws)
+    out = (tok, torch.stack(all_toks), torch.stack(counts),
+           torch.stack(raws))
+    return out + (torch.stack(oks),) if check_finite else out
 
 
 def make_megastep(cfg: LlamaConfig, chunk_tokens: int, n_steps: int,
                   top_k: Optional[int] = None,
-                  top_p: Optional[float] = None):
+                  top_p: Optional[float] = None,
+                  check_finite: bool = False):
     """N fused ring iterations in ONE dispatch (SERVE_MEGASTEP) on the
     contiguous ring: :func:`make_chunk_step`'s ticks run ``n_steps``
     times with the host's boundary decisions — eos, token budget, step
@@ -668,18 +703,22 @@ def make_megastep(cfg: LlamaConfig, chunk_tokens: int, n_steps: int,
     lora=None) -> (tok', toks [n, chunk, B], counts [n, B])``, the cache
     and positions updated in place (``cache['pos']`` rebound).
     ``counts[r, b]`` is the number of ``toks[r, :, b]`` rows the host
-    consumes for iteration ``r`` (0 once the lane is dead)."""
+    consumes for iteration ``r`` (0 once the lane is dead).
+    ``check_finite``: ``oks [n, B]`` last, each iteration's isfinite
+    verdict (True for a lane dead through that iteration)."""
 
     def mega(params, cache, tok, temp, seeds, active, eos, left, steps,
              lora=None):
         def run_chunk(t, live):
             return _ticks(
                 lambda tt, c: _ring_forward(cfg, params, tt, c, lora),
-                cache, t, temp, seeds, live, chunk_tokens, top_k, top_p)
+                cache, t, temp, seeds, live, chunk_tokens, top_k, top_p,
+                check_finite)
 
-        tok, toks, counts, _ = _fused(run_chunk, n_steps, (cache,), tok,
-                                      active, eos, left, steps)
-        return tok, toks, counts
+        tok, toks, counts, _, *oks = _fused(
+            run_chunk, n_steps, (cache,), tok, active, eos, left, steps,
+            check_finite)
+        return (tok, toks, counts, *oks)
 
     return mega
 
@@ -814,13 +853,14 @@ class _Graph:
     """One captured resident program: the graph, its static outputs and
     the kernel launches it recorded."""
 
-    __slots__ = ("graph", "toks", "counts", "raw", "launches")
+    __slots__ = ("graph", "toks", "counts", "raw", "ok", "launches")
 
-    def __init__(self, graph, toks, counts, raw, launches):
+    def __init__(self, graph, toks, counts, raw, ok, launches):
         self.graph = graph
         self.toks = toks
         self.counts = counts
         self.raw = raw
+        self.ok = ok
         self.launches = launches
 
 
@@ -869,7 +909,19 @@ class RingExecutor:
     ``adapters`` (an infer/qos.py ``AdapterRegistry`` on this ring's
     device): every program adds each lane's LoRA delta; the lane's
     adapter slot lives in :attr:`aid` (device int32 [slots], with the
-    host mirror :attr:`aid_host`).  Refused with ``spec_k``, as in JAX."""
+    host mirror :attr:`aid_host`).  Refused with ``spec_k``, as in JAX.
+
+    ``check_finite`` (SERVE_NAN_CHECK): every resident program also
+    returns ``ok``, the isfinite fold of each lane's logits (a static
+    output of each captured graph, read after the replay's event beside
+    the tokens); the scheduler quarantines a lane whose ``ok`` is False.
+    Off, the programs and graphs are the unchecked ones.  A speculative
+    ring's round has no such fold (the scheduler refuses the pair).
+
+    :meth:`swap_weights` replaces the served params (the device half of
+    the live weight swap): the caller parks every lane, swaps, rebuilds
+    the state (:meth:`reset_state`) and captures the graphs again
+    before any lane resumes."""
 
     # a prefix hit with a LONGER divergent suffix admits through the
     # cold block-granular prefill instead (the JAX package's cut-over
@@ -889,7 +941,9 @@ class RingExecutor:
                  prefill_chunk: int = 64,
                  draft_params: Any = None,
                  draft_cfg: Optional[LlamaConfig] = None,
-                 spec_k: int = 0, adapters=None) -> None:
+                 spec_k: int = 0, adapters=None,
+                 check_finite: bool = False) -> None:
+        self.check_finite = bool(check_finite)
         # many-adapter serving: a draft proposing base-only against an
         # adapted target would collapse acceptance, so the JAX ring
         # refuses the pair
@@ -970,8 +1024,9 @@ class RingExecutor:
                                                    quant=self.quant)
             if self.quant:
                 self._tail_init = PG.make_tail_init()
-            self.step = PG.make_paged_chunk_step(cfg, chunk_tokens, top_k,
-                                                 top_p, quant=self.quant)
+            self.step = PG.make_paged_chunk_step(
+                cfg, chunk_tokens, top_k, top_p, quant=self.quant,
+                check_finite=self.check_finite)
             self.inserts = {b: PG.make_paged_prefill_insert(
                 cfg, b, self.block_size, top_k, top_p, quant=self.quant)
                 for b in self.buckets}
@@ -979,7 +1034,8 @@ class RingExecutor:
             self.block_size = int(block_size)
             self.prefix_cache = False
             self.host_cache_blocks = 0
-            self.step = make_chunk_step(cfg, chunk_tokens, top_k, top_p)
+            self.step = make_chunk_step(cfg, chunk_tokens, top_k, top_p,
+                                        self.check_finite)
             self.inserts = {b: make_prefill_insert(cfg, b, top_k, top_p)
                             for b in self.buckets}
         # SERVE_SPEC_K: speculative rounds (infer/speculative.py) replace
@@ -1181,10 +1237,10 @@ class RingExecutor:
             elif self.paged:
                 prog = self._pg.make_paged_megastep(
                     self.cfg, self.chunk, n, self.top_k, self.top_p,
-                    quant=self.quant)
+                    quant=self.quant, check_finite=self.check_finite)
             else:
                 prog = make_megastep(self.cfg, self.chunk, n, self.top_k,
-                                     self.top_p)
+                                     self.top_p, self.check_finite)
             self._mega[n] = prog
         return prog
 
@@ -1225,10 +1281,11 @@ class RingExecutor:
         """The resident program of ``n_steps`` fused iterations over the
         static state and the uploaded plan — what :meth:`run` calls and
         :meth:`capture_graphs` records (1 step: ``self.step``, the seam
-        pacing and fault-injection wrappers install on; on a speculative
-        ring the round).  The state stays at its addresses: positions
-        and tokens are written back in place.  Returns ``(toks, counts,
-        raw)`` (``raw`` None off a speculative ring)."""
+        pacing wrappers install on; on a speculative ring the round).
+        The state stays at its addresses: positions and tokens are
+        written back in place.  Returns ``(toks, counts, raw, ok)``
+        (``raw`` None off a speculative ring, ``ok`` None without
+        ``check_finite``)."""
         active_i, eos, left, steps, table = self._plan_views()
         active = active_i != 0
         lead = (table,) if self.paged else ()
@@ -1238,7 +1295,7 @@ class RingExecutor:
         lora_kw = {} if lora is None else {"lora": lora}
         caches = [self.cache] + ([self.dcache] if self.spec_k else [])
         held = [c["pos"] for c in caches]
-        raw = None
+        raw = ok = None
         if self.spec_k:
             args = (self.params, self.draft_params, self.cache, self.dcache,
                     self.tok, self.temp, self.seeds, active)
@@ -1251,18 +1308,21 @@ class RingExecutor:
                 tok, toks, raw, counts = self.megastep_prog(n_steps)(
                     *args, eos, left, steps, table=tbl)
         elif n_steps == 1:
-            tok, toks = self.step(self.params, self.cache, *lead, self.tok,
-                                  self.temp, self.seeds, active, **lora_kw)
+            tok, toks, *ok = self.step(self.params, self.cache, *lead,
+                                       self.tok, self.temp, self.seeds,
+                                       active, **lora_kw)
             counts = None
         else:
-            tok, toks, counts = self.megastep_prog(n_steps)(
+            tok, toks, counts, *ok = self.megastep_prog(n_steps)(
                 self.params, self.cache, *lead, self.tok, self.temp,
                 self.seeds, active, eos, left, steps, **lora_kw)
+        if not self.spec_k:
+            ok = ok[0] if ok else None
         for c, pos in zip(caches, held):
             pos.copy_(c["pos"])
             c["pos"] = pos
         self.tok.copy_(tok)
-        return toks, counts, raw
+        return toks, counts, raw, ok
 
     def replay(self, plan: ExecPlan) -> DispatchResult:
         """Execute one scheduler-filled :class:`ExecPlan` against the
@@ -1275,8 +1335,8 @@ class RingExecutor:
         n = plan.n_steps
         if self.device.type != "cuda":
             self._upload(plan)
-            toks, counts, raw = self._program(n)
-            return DispatchResult(toks, counts, n, raw)
+            toks, counts, raw, ok = self._program(n)
+            return DispatchResult(toks, counts, n, raw, ok)
         g = (self._graphs or {}).get(n)
         if g is None:
             raise RuntimeError(
@@ -1287,7 +1347,7 @@ class RingExecutor:
         g.graph.replay()
         self.graph_replays += 1
         _add_launches(g.launches)
-        return DispatchResult(g.toks, g.counts, n, g.raw)
+        return DispatchResult(g.toks, g.counts, n, g.raw, g.ok)
 
     @property
     def needs_capture(self) -> bool:
@@ -1345,8 +1405,8 @@ class RingExecutor:
                     g = torch.cuda.CUDAGraph()
                     with torch.cuda.graph(g, pool=pool,
                                           capture_error_mode="thread_local"):
-                        toks, counts, raw = self._program(n)
-                    graphs[n] = _Graph(g, toks, counts, raw, [
+                        toks, counts, raw, ok = self._program(n)
+                    graphs[n] = _Graph(g, toks, counts, raw, ok, [
                         b - a for a, b in zip(c0, _launch_counts())])
             finally:
                 if collecting:
@@ -1603,6 +1663,64 @@ class RingExecutor:
         if self._state_ptrs() != before:
             raise AssertionError("restore_lane rebound a tensor the "
                                  "captured graphs read")
+
+    @torch.inference_mode()
+    def scrub_lane(self, slot: int, blocks) -> None:
+        """Clear a quarantined lane's private state before its blocks go
+        back to the free list, in place and queued on the stream behind
+        the dispatches in flight (no wait): pool blocks ``blocks`` to
+        zero (on the int8 pool codes 0 and scales 1.0, the all-zero
+        block's scale, so no stale scale dequantizes a NaN) and, on the
+        int8 pool, lane ``slot``'s staging-tail row, where the poisoned
+        rows of a block not yet complete live."""
+        c = self.cache
+        if blocks:
+            ids = to_device(np.asarray(blocks, np.int32),
+                            self.device).long()
+            for key in ("k", "v"):
+                c[key].index_fill_(1, ids, 0)
+            if self.quant:
+                for key in ("ks", "vs"):
+                    c[key].index_fill_(1, ids, 1.0)
+        if self.quant:
+            c["kt"][:, slot].zero_()
+            c["vt"][:, slot].zero_()
+
+    # -- live weight swap: the device half ----------------------------------
+
+    def swap_weights(self, params: Any, draft_params: Any = None) -> tuple:
+        """Make ``params`` (and, on a speculative ring, ``draft_params``:
+        a swap ships the draft with the target, whose drafts are
+        verified against the new weights only) the served models and
+        return the old ``(params, draft_params)`` for a rollback.  The
+        programs take the params as an argument, so a model of another
+        weight-quant mode routes its projections as at boot (kernel A or
+        B for quantized ones).  The captured graphs hold the old
+        models' addresses: the caller has parked every lane and runs
+        :meth:`reset_state` and :meth:`capture_graphs` before the next
+        dispatch, and keeps the returned models alive until that capture
+        is done (collecting an object that holds a graph during a
+        capture invalidates it)."""
+        if self.spec_k and draft_params is None:
+            raise ValueError(
+                "speculative ring: a weight swap must ship the draft "
+                "with the target (drafts are verified against the NEW "
+                "params only; a stale draft would silently collapse "
+                "acceptance)")
+        for model, what in ((params, "params"),
+                            (draft_params if self.spec_k else None,
+                             "draft params")):
+            if model is None:
+                continue
+            dev = model.tok_embed.embedding.device
+            if dev != self.device:
+                raise ValueError(f"the new {what} are on {dev}, the ring "
+                                 f"on {self.device}")
+        old = (self.params, self.draft_params)
+        self.params = params
+        if self.spec_k:
+            self.draft_params = draft_params
+        return old
 
     # -- admission programs ------------------------------------------------
 

@@ -321,6 +321,9 @@ class PagedCacheManager:
         # them (take_promotions) into ONE batched upload BEFORE the CoW
         # copies and the admission insert it dispatches next
         self._pending_promotes: List[Tuple[int, Dict[str, Any], Any]] = []
+        # fault injection (infer/chaos.py pool_oom): the next N
+        # allocations raise NoFreeBlocks whatever the free list holds
+        self.chaos_fail_allocs = 0
         self.stats = {
             "prefix_lookup_tokens": 0, "prefix_hit_tokens": 0,
             "prefix_lookups": 0, "prefix_full_hits": 0,
@@ -367,6 +370,9 @@ class PagedCacheManager:
                 if self.host is not None else 0)
 
     def _alloc_one(self) -> int:
+        if self.chaos_fail_allocs > 0:
+            self.chaos_fail_allocs -= 1
+            raise NoFreeBlocks("chaos: injected pool OOM")
         if not self.free:
             self._evict_lru()
         blk = self.free.pop()
@@ -761,6 +767,16 @@ class PagedCacheManager:
         row[:] = TRASH_BLOCK
         self.mapped_count[slot] = 0
 
+    def private_blocks(self, slot: int) -> List[int]:
+        """Lane ``slot``'s PRIVATE mapped blocks: refcount 1 and not in
+        the radix cache, so no other lane reads them (a block the lane
+        writes is private by construction: admission copies any hit
+        block at or after its first written position)."""
+        row = self.table[slot]
+        return [int(row[j]) for j in range(self.mapped_count[slot])
+                if self.ref[int(row[j])] == 1
+                and int(row[j]) not in self.by_block]
+
     def scrub_host_chain(self, prompt, ns: int = 0) -> int:
         """Quarantine hygiene: drop every HOST-tier payload on
         ``prompt``'s radix chain (an opaque host copy cannot be
@@ -768,8 +784,8 @@ class PagedCacheManager:
         delete every store copy along the chain and retire its
         store-resident nodes — a quarantined chain must not resurrect
         from disk.  Returns the number of host or store-resident nodes
-        dropped.  (Its caller, the NaN-lane quarantine, is not ported
-        yet: ROADMAP.md Queue A.)"""
+        dropped.  The NaN-lane quarantine calls it
+        (``ContinuousBatcher._scrub_lane_blocks``)."""
         if self.host is None and self.store is None:
             return 0
         tokens = tuple(int(t) for t in prompt)
@@ -1166,7 +1182,8 @@ def paged_ring_forward(cfg: LlamaConfig, params, tok: torch.Tensor,
 def make_paged_chunk_step(cfg: LlamaConfig, chunk_tokens: int,
                           top_k: Optional[int] = None,
                           top_p: Optional[float] = None,
-                          quant: bool = False):
+                          quant: bool = False,
+                          check_finite: bool = False):
     """The paged ring's resident decode step — executor.make_chunk_step
     plus the block table:
 
@@ -1179,7 +1196,8 @@ def make_paged_chunk_step(cfg: LlamaConfig, chunk_tokens: int,
     is the trash block, so nothing they write reaches a real block.
     ``quant=True``: the int8 pool, ``active`` also steering inactive
     lanes' tail rows to the trash tail (:func:`paged_ring_forward`).
-    Everything stays on the device: no host read inside the chunk."""
+    Everything stays on the device: no host read inside the chunk.
+    ``check_finite``: ``ok [B]`` last (executor._ticks)."""
     from paddle_operator_tpu_torch.infer.executor import _ticks
 
     def step(params, cache, table, tok, temp, seeds, active, lora=None):
@@ -1188,7 +1206,8 @@ def make_paged_chunk_step(cfg: LlamaConfig, chunk_tokens: int,
                                             quant=quant,
                                             active=active if quant else None,
                                             lora=lora),
-            cache, tok, temp, seeds, active, chunk_tokens, top_k, top_p)
+            cache, tok, temp, seeds, active, chunk_tokens, top_k, top_p,
+            check_finite)
 
     return step
 
@@ -1196,7 +1215,8 @@ def make_paged_chunk_step(cfg: LlamaConfig, chunk_tokens: int,
 def make_paged_megastep(cfg: LlamaConfig, chunk_tokens: int, n_steps: int,
                         top_k: Optional[int] = None,
                         top_p: Optional[float] = None,
-                        quant: bool = False):
+                        quant: bool = False,
+                        check_finite: bool = False):
     """N fused PAGED ring iterations in one dispatch (SERVE_MEGASTEP):
     :func:`make_paged_chunk_step`'s ticks run ``n_steps`` chunks with
     the host's boundary decisions — eos, token budget, step budget —
@@ -1215,7 +1235,7 @@ def make_paged_megastep(cfg: LlamaConfig, chunk_tokens: int, n_steps: int,
     ``mega(params, cache, table, tok, temp, seeds, active, eos, left,
     steps, lora=None) -> (tok', toks [n, chunk, B], counts [n, B])`` —
     the output contract of executor.make_megastep, table operand
-    added."""
+    added (``oks [n, B]`` last under ``check_finite``)."""
     from paddle_operator_tpu_torch.infer.executor import _fused, _ticks
 
     def mega(params, cache, table, tok, temp, seeds, active, eos, left,
@@ -1227,11 +1247,13 @@ def make_paged_megastep(cfg: LlamaConfig, chunk_tokens: int, n_steps: int,
                 lambda tt, c: paged_ring_forward(
                     cfg, params, tt, c, tbl, quant=quant,
                     active=live if quant else None, lora=lora),
-                cache, t, temp, seeds, live, chunk_tokens, top_k, top_p)
+                cache, t, temp, seeds, live, chunk_tokens, top_k, top_p,
+                check_finite)
 
-        tok, toks, counts, _ = _fused(run_chunk, n_steps, (cache,), tok,
-                                      active, eos, left, steps)
-        return tok, toks, counts
+        tok, toks, counts, _, *oks = _fused(
+            run_chunk, n_steps, (cache,), tok, active, eos, left, steps,
+            check_finite)
+        return (tok, toks, counts, *oks)
 
     return mega
 

@@ -17,9 +17,10 @@ device):
   admissions (503) -> finish resident lanes within a budget (the ring
   half, with a batcher) -> flush partials -> exit ``EXIT_PREEMPTED``.
 
-The NaN-lane check (``SERVE_NAN_CHECK``) is not ported yet: its knob
-stays in :class:`RingResilience` so ``from_env`` reads what the JAX
-package reads, and the scheduler refuses ``nan_check=True``.
+``RingResilience(nan_check=True)`` (``SERVE_NAN_CHECK``) turns on the
+NaN-lane check: every ring dispatch also returns each lane's isfinite
+verdict, and the scheduler fails a non-finite lane's request alone with
+:class:`LaneQuarantined`.
 """
 
 from __future__ import annotations
@@ -92,7 +93,8 @@ class RingResilience:
     restart_window_s: float = 300.0
     backoff_base_s: float = 0.25
     backoff_max_s: float = 10.0
-    # per-dispatch isfinite fold (not ported: the scheduler refuses it)
+    # per-dispatch isfinite fold: a non-finite lane is quarantined, its
+    # request failed, the ring untouched (not on speculative rings)
     nan_check: bool = False
 
     @classmethod

@@ -62,9 +62,22 @@ namespace (an adapter evicted or replaced while its request queued is
 refused) and writes the lane's slot into the executor's per-lane buffer,
 and lanes of different adapters decode in the same dispatch.  A prefix
 cached under one adapter load is never hit by another, nor by the base
-model.  Not ported yet, and refused when asked for (ROADMAP.md Queue A):
-disaggregated prefill, span tracing, the NaN-lane check, live weight
-swap and fleet-level KV.
+model.
+
+Ring operations: ``trace=True`` (SERVE_TRACE) gives each request a span
+tree (utils/tracing.py ``RequestTrace``: queue wait, admission, prefill
+slices, TTFT, one span a consumed dispatch, spill, restore) from host
+timestamps taken where the loop already stands, so tracing adds no
+device synchronization and traced streams equal untraced ones;
+``RingResilience(nan_check=True)`` (SERVE_NAN_CHECK) makes every
+dispatch return each lane's isfinite verdict, and a non-finite lane
+fails its request alone with :class:`LaneQuarantined` while its private
+blocks are scrubbed; :meth:`ContinuousBatcher.swap_weights` (``/v1/swap``)
+flips the served weights of a paged ring at a quiesced boundary — the
+residents park through the preemption spill, the executor swaps and
+captures its graphs again, and the parked lanes resume.  Not ported
+yet, and refused when asked for (ROADMAP.md Queue A): disaggregated
+prefill, tensor-parallel serving and fleet-level KV.
 """
 
 from __future__ import annotations
@@ -84,6 +97,7 @@ from paddle_operator_tpu_torch.infer import qos as QOS
 from paddle_operator_tpu_torch.infer import quant as Q
 from paddle_operator_tpu_torch.infer.resilience import (
     DispatchWatchdog,
+    LaneQuarantined,
     RestartBudget,
     RetriableError,
     RingResilience,
@@ -123,7 +137,7 @@ class _Request:
                  "dev_prompt", "bucket", "deadline", "deadline_exceeded",
                  "priority", "request_id", "t_submit", "t_first",
                  "t_last_tok", "preempts", "accepted", "drafted",
-                 "adapter", "adapter_idx", "ns")
+                 "adapter", "adapter_idx", "ns", "trace")
 
     def __init__(self, prompt, max_new, temperature, seed, eos,
                  wants_stream=False, deadline=None):
@@ -151,6 +165,8 @@ class _Request:
         # (the per-request anti-thrash cap)
         self.preempts = 0
         self.request_id: Optional[str] = None
+        # the request's span tree (SERVE_TRACE rings; None: untraced)
+        self.trace: Optional[TR.RequestTrace] = None
         self.t_submit = time.monotonic()
         self.t_first: Optional[float] = None
         self.t_last_tok: Optional[float] = None
@@ -238,6 +254,26 @@ class _ParkedLane:
         self.seq = seq          # park order — FIFO within a class
 
 
+class _SwapRequest:
+    """One posted live weight swap, handed from the caller's thread to
+    the ring loop: the new models (already loaded, quantized and on the
+    card — the expensive work happened off the ring thread), the
+    generation to set (None: bump by one) and the completion event the
+    caller blocks on.  ``error`` is set instead of ``result`` when the
+    swap aborted: the ring then still serves the old generation."""
+
+    __slots__ = ("params", "draft_params", "generation", "done", "error",
+                 "result")
+
+    def __init__(self, params, draft_params, generation):
+        self.params = params
+        self.draft_params = draft_params
+        self.generation = generation
+        self.done = threading.Event()
+        self.error: Optional[Exception] = None
+        self.result: Optional[Dict[str, Any]] = None
+
+
 class ContinuousBatcher:
     """Slot scheduler over the resident chunk step.
 
@@ -288,12 +324,16 @@ class ContinuousBatcher:
         for bad, what in (
                 (mesh is not None, "tensor-parallel serving (mesh)"),
                 (prefill_mode == "disagg",
-                 f"prefill_mode={prefill_mode!r}"),
-                (bool(trace), "span tracing (trace=True)"),
-                (resilience is not None and resilience.nan_check,
-                 "the NaN-lane check (nan_check)")):
+                 f"prefill_mode={prefill_mode!r}")):
             if bad:
                 raise _unported(what)
+        # SERVE_NAN_CHECK: every dispatch also returns each lane's
+        # isfinite verdict, and a non-finite lane fails alone
+        self._check_finite = bool(resilience and resilience.nan_check)
+        if self._check_finite and spec_k:
+            raise ValueError("nan_check is not supported on speculative "
+                             "rings (the spec round has no per-lane "
+                             "finite fold); disable one of them")
         # SERVE_MEGASTEP: fuse N ring iterations into ONE dispatch, with
         # eos / token budget / deadline-tick step budget carried on the
         # device; admission and eviction happen at megastep boundaries.
@@ -330,8 +370,14 @@ class ContinuousBatcher:
         # the LoRA adapter registry (None: base model only)
         self.adapters = adapters
 
+        # span capture (SERVE_TRACE=1) is opt-in: off, requests carry
+        # trace=None and every capture site is one attribute check; the
+        # histograms and the flight recorder are always on
         pod = os.environ.get("TPUJOB_REPLICA_ID", "")
-        self.tracer = None
+        if trace is None:
+            trace = TR.trace_enabled()
+        self.tracer: Optional[TR.Tracer] = (
+            TR.Tracer(pod=pod) if trace else None)
         self.hist = TR.ServeHistograms()
         self.flightrec = TR.FlightRecorder(pod=pod)
 
@@ -343,11 +389,19 @@ class ContinuousBatcher:
             kv_quant=kv_quant, megastep=self.megastep,
             host_cache_blocks=host_cache_blocks,
             prefill_chunk=prefill_chunk, draft_params=draft_params,
-            draft_cfg=draft_cfg, spec_k=spec_k, adapters=adapters)
+            draft_cfg=draft_cfg, spec_k=spec_k, adapters=adapters,
+            check_finite=self._check_finite)
         self.device = self.executor.device
         self.spec_k = self.executor.spec_k
         self.draft_cfg = self.executor.draft_cfg
+        # live weight swap: the generation of the served weights
+        # (SERVE_GENERATION seeds it; a swap bumps or sets it), the
+        # single pending swap the loop takes at a quiesced boundary, and
+        # the last swap's timings
         self.generation = int(generation)
+        self._swap_req: Optional[_SwapRequest] = None
+        self._swap_lock = threading.Lock()
+        self.last_swap: Dict[str, Any] = {}
         self.paged = self.executor.paged
         self._top_k, self._top_p = top_k, top_p
 
@@ -408,7 +462,10 @@ class ContinuousBatcher:
                       # blocks uploaded back from the host tier —
                       # cumulative across rebuilds (the pool's own stats
                       # reset with the allocator)
-                      "promoted_blocks": 0}
+                      "promoted_blocks": 0,
+                      # lanes failed by the NaN-lane check, and live
+                      # weight swaps completed
+                      "quarantined_lanes": 0, "weight_swaps": 0}
         self._tokens_emitted = 0
         self._t_start = time.monotonic()
         # prewarm (serve.py default, SERVE_PREWARM=0 opts out): build
@@ -483,9 +540,16 @@ class ContinuousBatcher:
                request_id: Optional[str] = None,
                deadline_s: Optional[float] = None,
                priority: Optional[int] = None,
-               adapter: Optional[str] = None) -> _Request:
+               adapter: Optional[str] = None,
+               trace_ctx: Optional[tuple] = None) -> _Request:
         """Queue one generation request; returns a handle whose
         ``result()``/``stream()`` deliver the tokens.
+
+        ``trace_ctx``: ``(trace_id, parent_span_id | None)`` from the
+        ``X-Tpujob-Trace`` header — on a tracing ring the request's
+        spans hang under that context and ``handle.trace`` rides the
+        response, so the router stitches one timeline; a tracing ring
+        without one mints a trace id; ignored when tracing is off.
 
         ``deadline_s``: relative budget in seconds for the WHOLE
         generation; past it the lane retires at the next chunk boundary
@@ -575,6 +639,14 @@ class ContinuousBatcher:
                        eos_token, wants_stream=stream,
                        deadline=(time.monotonic() + deadline_s
                                  if deadline_s is not None else None))
+        if self.tracer is not None:
+            req.trace = self.tracer.begin(ctx=trace_ctx,
+                                          request_id=request_id)
+            # workload-shape stamps on the root span: an exported span
+            # tree alone reconstructs the request served
+            req.trace.annotate(promptLen=len(prompt),
+                               maxNew=int(max_new_tokens), prio=prio,
+                               adapter=adapter)
         req.priority = prio
         req.adapter = adapter
         req.adapter_idx = adapter_idx
@@ -626,6 +698,10 @@ class ContinuousBatcher:
         except OSError:
             return 0, 0
 
+    def weight_quant_mode(self) -> str:
+        """Weight-quant mode of the served (target) params."""
+        return Q.weight_quant_mode(self.executor.params)
+
     def draft_quant_mode(self) -> str:
         """Weight-quant mode of the DRAFT params ("none" on
         non-speculative rings) — SERVE_DRAFT_QUANT's visibility."""
@@ -674,7 +750,7 @@ class ContinuousBatcher:
             "overlappedFrames": 0,
             "kvQuantMode": self.kv_quant,
             "kvPoolBytes": self.executor.pool_bytes(),
-            "weightQuantMode": Q.weight_quant_mode(self.executor.params),
+            "weightQuantMode": self.weight_quant_mode(),
             "draftQuantMode": self.draft_quant_mode(),
             "paramBytes": self.executor.param_bytes(),
             "chunkedPrefillTokenShare": (
@@ -708,10 +784,10 @@ class ContinuousBatcher:
             "healthy": self.healthy,
             "deadlineExceeded": self.stats["deadline_exceeded"],
             "watchdogRestarts": self.stats["watchdog_restarts"],
-            "quarantinedLanes": 0,
+            "quarantinedLanes": self.stats["quarantined_lanes"],
             "weightGeneration": int(self.generation),
-            "servingTp": 1,
-            "weightSwaps": 0,
+            "servingTp": self.serving_tp(),
+            "weightSwaps": self.stats["weight_swaps"],
             # the round's draft depth, on speculative rings only (the
             # JAX status has no such key; its fingerprint does)
             **({"specK": self.spec_k} if self.spec_k else {}),
@@ -720,10 +796,165 @@ class ContinuousBatcher:
     @property
     def accepting(self) -> bool:
         """Readiness (/readyz): the ring takes new admissions — not
-        draining, not mid-rebuild, loop alive, budget unspent."""
+        draining, not mid-rebuild, not mid-swap, loop alive, budget
+        unspent.  Mid-swap is a readiness event, not an availability
+        one: the router routes new traffic elsewhere while requests
+        already here queue through the flip."""
         return (self.healthy and not self._draining
-                and not self._rebuilding and not self._stop.is_set()
-                and self._thread.is_alive())
+                and not self._rebuilding and self._swap_req is None
+                and not self._stop.is_set() and self._thread.is_alive())
+
+    # -- live weight swap --------------------------------------------------
+
+    def serving_tp(self) -> int:
+        """The tensor-parallel degree served: 1 (tensor-parallel serving
+        is not ported; ROADMAP.md Queue A)."""
+        return 1
+
+    def swap_weights(self, params: Any, *, draft_params: Any = None,
+                     mesh: Any = None, tp: int = 1,
+                     generation: Optional[int] = None,
+                     timeout: Optional[float] = 120.0) -> Dict[str, Any]:
+        """Live weight swap: flip the served model (and, on a speculative
+        ring, the draft, which must come with it) without restarting the
+        process or dropping a request.
+
+        Call from any thread (serve.py's ``/v1/swap`` handler) with the
+        new models already on the ring's card: the load, the
+        quantization and the upload happened on the caller's thread.
+        The ring loop, at the next boundary with no lane mid-prefill,
+        consumes every dispatch in flight, parks every resident lane
+        through the preemption spill, swaps the executor's models,
+        rebuilds its state (a fresh pool and radix: KV of the old
+        generation never serves the new one) and captures its graphs
+        again, then restores the parked lanes.  All-or-nothing: a failure
+        at any step (and a self-healing rebuild racing the swap) puts
+        the old models back and raises here, and the generation does not
+        move.  ``generation=None`` bumps it by one; a value sets it.
+        ``mesh`` / ``tp`` other than None / 1 (a tensor-parallel resize)
+        are refused.  Returns the post-swap summary."""
+        if mesh is not None or int(tp) != 1:
+            raise _unported("a tensor-parallel resize (mesh / tp > 1)")
+        if self.pool is None:
+            raise ValueError(
+                "live weight swap requires the paged ring "
+                "(SERVE_PAGED=1): resident lanes park through the "
+                "block-granular spill")
+        if not self.accepting and self._swap_req is None:
+            raise ShuttingDown(
+                "ring is draining/rebuilding/stopped; not swapping")
+        if self.device.type == "cuda" and any(
+                m is not None and Q.weight_quant_mode(m) != "none"
+                for m in (params, draft_params)):
+            # a flip to quantized weights: build the int8-weight kernels
+            # here, on the caller's thread, not on the ring's
+            from paddle_operator_tpu_torch.ops import _build
+
+            _build.load("quant_matmul")
+        sw = _SwapRequest(params, draft_params, generation)
+        with self._swap_lock:
+            if self._swap_req is not None:
+                raise ValueError("a weight swap is already in flight")
+            self._swap_req = sw
+        self._wake.set()
+        if not sw.done.wait(timeout):
+            # the ring never reached a boundary (a wedged dispatch): the
+            # watchdog fails the residents; un-post so the replica does
+            # not stay unready
+            with self._swap_lock:
+                if self._swap_req is sw:
+                    self._swap_req = None
+            raise RetriableError(
+                f"weight swap timed out after {timeout}s awaiting a "
+                "quiesced boundary; the ring still serves generation "
+                f"{self.generation} — retry")
+        if sw.error is not None:
+            raise sw.error
+        return sw.result or {}
+
+    def _park_residents_for_swap(self) -> int:
+        """Park every resident decode lane at the boundary (the caller
+        consumed every dispatch in flight, so device state and host
+        mirrors agree), through the preemption spill."""
+        parked = 0
+        for i, r in enumerate(self.lane):
+            if r is None or r.done.is_set() or r._cancel:
+                continue
+            self._preempt(i)
+            parked += 1
+        return parked
+
+    def _do_swap(self) -> None:
+        """Run the posted swap at the quiesced boundary (ring loop only,
+        nothing in flight): park, swap the models, rebuild the state,
+        capture the graphs, restore the parked lanes.  The old models
+        stay referenced until the new graphs are captured.  On a failure
+        the old models come back (the loop captures their graphs again)
+        and the parked lanes restore onto them."""
+        with self._swap_lock:
+            sw, self._swap_req = self._swap_req, None
+        if sw is None:
+            return
+        ex = self.executor
+        t0 = time.monotonic()
+        self.flightrec.record(
+            "swap_begin", generation=sw.generation,
+            residents=sum(r is not None for r in self.lane))
+        try:
+            parked = self._park_residents_for_swap()
+            t_park = time.monotonic()
+            old = ex.swap_weights(sw.params, sw.draft_params)
+            try:
+                ex.reset_state()
+                t_flip = time.monotonic()
+                ex.capture_graphs()
+            except Exception:
+                ex.swap_weights(*old)
+                ex.reset_state()
+                raise
+            t_cap = time.monotonic()
+            del old     # the last references: the new graphs exist
+        except Exception as e:
+            self.flightrec.record("swap_failed", error=str(e)[:200])
+            sw.error = e
+            sw.done.set()
+            return
+        self.generation = (int(sw.generation)
+                           if sw.generation is not None
+                           else self.generation + 1)
+        # the rebuilt pool is fresh: re-attach the durable store under a
+        # fingerprint carrying the new generation, so the old
+        # generation's stored blocks are refused, never promoted
+        if (self.kv_store is not None and self.pool is not None
+                and self.pool.host is not None):
+            self.pool.attach_store(self.kv_store)
+            if getattr(self.kv_store, "fingerprint", None) is not None:
+                self.kv_store.fingerprint = self._fingerprint()
+        self._peer_fetch_seen.clear()
+        # the parked lanes resume now, on the new graphs
+        try:
+            while self._parked and any(r is None for r in self.lane):
+                if not self._try_restore(self._best_parked()):
+                    break       # the rest resume as blocks free
+        except Exception as e:  # a device fault: the loop heals
+            self._fault = e
+        t_end = time.monotonic()
+        self.stats["weight_swaps"] += 1
+        self.last_swap = {"park_s": t_park - t0,
+                          "flip_s": t_flip - t_park,
+                          "capture_s": t_cap - t_flip,
+                          "restore_s": t_end - t_cap,
+                          "total_s": t_end - t0, "parked": parked}
+        self.flightrec.record(
+            "swap_done", generation=self.generation, parked=parked,
+            ms=round((t_end - t0) * 1e3, 1))
+        sw.result = {"generation": self.generation,
+                     "servingTp": self.serving_tp(),
+                     "parkedLanes": parked,
+                     "weightQuantMode": self.weight_quant_mode(),
+                     "swapMs": round((t_end - t0) * 1e3, 1)}
+        sw.done.set()
+        self._wake.set()
 
     def drain(self, budget_s: float = 30.0) -> None:
         """SIGTERM drain: stop admissions (queued and new requests fail
@@ -855,6 +1086,15 @@ class ContinuousBatcher:
         self._lane_pos = [0] * self.slots
         self._lane_first = [None] * self.slots
         self._prefilling.clear()
+        # a rebuild aborts a pending live swap: the rebuilt ring serves
+        # the old generation, and the swap's caller must retry
+        with self._swap_lock:
+            sw, self._swap_req = self._swap_req, None
+        if sw is not None:
+            sw.error = RetriableError(
+                "ring rebuilt mid-swap; the old generation was "
+                "restored — retry the swap")
+            sw.done.set()
         if not healing:
             return False
         backoff = self._budget.spend()
@@ -952,6 +1192,9 @@ class ContinuousBatcher:
         n = len(req.prompt)
         now = time.monotonic()
         self.hist.queue_wait.observe((now - req.t_submit) * 1e3)
+        if req.trace is not None:
+            req.trace.add("queue_wait", req.t_submit, now,
+                          prio=req.priority)
         self.flightrec.record("admit", rid=req.request_id, slot=slot,
                               prio=req.priority, mode=self.prefill_mode)
         # reserve the lane FIRST: the admin surface's in-use snapshot
@@ -1083,6 +1326,7 @@ class ContinuousBatcher:
         n = len(req.prompt)
         sb = ex.prefill_chunk
         remaining = n - st.start
+        t_slice0 = time.monotonic()
         toks = np.zeros((1, sb), np.int32)
         if remaining > sb:
             # intermediate slice: KV only, no logits, no lane state
@@ -1102,6 +1346,9 @@ class ContinuousBatcher:
             self.stats["prefill_calls"] += 1
             self.stats["prefill_tokens"] += sb
             self.stats["chunked_prefill_tokens"] += sb
+            if req.trace is not None:
+                req.trace.add("prefill_slice", t_slice0,
+                              start=st.start - sb, tokens=sb)
             return
         # final slice
         toks[0, :remaining] = req.prompt[st.start:]
@@ -1121,6 +1368,9 @@ class ContinuousBatcher:
         self.stats["prefill_calls"] += 1
         self.stats["prefill_tokens"] += remaining
         self.stats["chunked_prefill_tokens"] += remaining
+        if req.trace is not None:
+            req.trace.add("prefill_slice", t_slice0, start=st.start,
+                          tokens=remaining, final=True)
         del self._prefilling[slot]
         if self.paged:
             self.pool.publish(slot, req.prompt, ns=req.ns)
@@ -1142,6 +1392,8 @@ class ContinuousBatcher:
         if req.t_first is None:
             req.t_first = now
             self.hist.ttft.observe((now - req.t_submit) * 1e3)
+            if req.trace is not None:
+                req.trace.add("ttft", req.t_submit, now)
         req.t_last_tok = now
         self._lane_out[i].append(t)
         self._tokens_emitted += 1
@@ -1157,10 +1409,16 @@ class ContinuousBatcher:
         if error is not None and req.error is None \
                 and not req.done.is_set():
             req.error = error
-        if not req.done.is_set() and req.error is None:
+        if not req.done.is_set():
             # e2e latency: successful resolutions only (deadline
             # partials included)
-            self.hist.e2e.observe((time.monotonic() - req.t_submit) * 1e3)
+            if req.error is None:
+                self.hist.e2e.observe(
+                    (time.monotonic() - req.t_submit) * 1e3)
+            if req.trace is not None:
+                req.trace.finish(
+                    error=(type(req.error).__name__
+                           if req.error is not None else None))
         # done BEFORE the stream sentinel: a stream() consumer that sees
         # the close must find result() already resolvable
         req.done.set()
@@ -1266,7 +1524,10 @@ class ContinuousBatcher:
         if self._lane_left[slot] <= 0 or req.done.is_set():
             self._evict(slot)       # finished at the boundary anyway
             return
+        t_sp0 = time.monotonic()
         spill = self.executor.spill_lane(slot)
+        if req.trace is not None:
+            req.trace.add("spill", t_sp0, pos=int(self._lane_pos[slot]))
         self.flightrec.record("preempt", rid=req.request_id, slot=slot,
                               prio=req.priority)
         self._park_seq += 1
@@ -1293,11 +1554,14 @@ class ContinuousBatcher:
             self._release_parked(pk)
             return True
         slot = self.lane.index(None)
+        t_rs0 = time.monotonic()
         try:
             self.executor.restore_lane(slot, pk.spill)
         except self.executor._pg.NoFreeBlocks:
             self.pool.retire(slot)  # roll back ensure's partial mapping
             return False
+        if req.trace is not None:
+            req.trace.add("restore", t_rs0, slot=slot)
         self._parked.remove(pk)
         self.lane[slot] = req
         self._lane_out[slot] = pk.out
@@ -1423,9 +1687,24 @@ class ContinuousBatcher:
         self._parked.clear()
         self._shed_queue(ShuttingDown("batcher closed"))
 
+    def _scrub_lane_blocks(self, slot: int, req=None) -> None:
+        """Clear lane ``slot``'s PRIVATE pool blocks (and, int8, its
+        staging tail) before they return to the free list: a NaN row in
+        a re-mapped block would poison the next lane through the masked
+        contraction of the plain path (a masked column's probability is
+        exactly 0, but 0 * NaN = NaN).  Published (radix-cached) blocks
+        are skipped (``pool.private_blocks``): other admissions read
+        them, and this lane cannot have written them.  With ``req``, the
+        host tier's and the store's copies on its prompt's chain go too:
+        they cannot be re-verified."""
+        self.executor.scrub_lane(slot, self.pool.private_blocks(slot))
+        if req is not None:
+            self.pool.scrub_host_chain(req.prompt, ns=req.ns)
+
     def _consume(self, chunk_reqs, toks: np.ndarray,
                  counts: Optional[np.ndarray] = None,
-                 spec_raw: Optional[np.ndarray] = None) -> None:
+                 spec_raw: Optional[np.ndarray] = None,
+                 ok: Optional[np.ndarray] = None) -> None:
         """Apply one finished chunk's tokens ([chunk, slots] on host).
         ``chunk_reqs`` pins each lane to the REQUEST the chunk was
         dispatched for: under pipelining a lane may have been evicted
@@ -1442,11 +1721,29 @@ class ContinuousBatcher:
         for the round — its position advance, even where the eos/budget
         walk stops earlier (the lane is then evicted and its position
         zeroed regardless), and the acceptance telemetry; 0 marks a
-        fused round the lane sat out, which feeds no stat."""
+        fused round the lane sat out, which feeds no stat.
+
+        ``ok`` (SERVE_NAN_CHECK): each lane's isfinite verdict for this
+        chunk — a False lane is QUARANTINED: its request fails with
+        :class:`LaneQuarantined`, its private blocks are scrubbed and
+        freed, and no token of the poisoned chunk reaches a consumer.
+        The other lanes are attention-independent, so their streams are
+        unchanged."""
         now = time.monotonic()
         for i, req in chunk_reqs:
             if req is None or self.lane[i] is not req \
                     or req.done.is_set():
+                continue
+            if ok is not None and not bool(ok[i]):
+                self.stats["quarantined_lanes"] += 1
+                self.flightrec.record("nan_quarantine", lane=i,
+                                      rid=req.request_id)
+                if self.pool is not None:
+                    self._scrub_lane_blocks(i, req)
+                self._finish(req, LaneQuarantined(
+                    f"lane {i} produced non-finite logits; request "
+                    "failed, lane quarantined (ring unaffected)"))
+                self._evict(i)
                 continue
             self._materialize_first(i, req)
             n = toks.shape[0] if counts is None else int(counts[i])
@@ -1496,6 +1793,7 @@ class ContinuousBatcher:
         try:
             toks, counts = res.host()
             raw = res.raw_host()
+            ok = res.ok_host()
         finally:
             if wd is not None:
                 wd.end()
@@ -1506,10 +1804,20 @@ class ContinuousBatcher:
         per = (time.monotonic() - t0) / res.n_steps
         self._step_s_est = (per if not self._step_s_est
                             else 0.8 * self._step_s_est + 0.2 * per)
+        # decode spans: one a consumed dispatch a traced lane, dispatch to
+        # the end of the completion wait (megastep-granular; the span cap
+        # bounds a long generation)
+        if any(r is not None and r.trace is not None
+               for _, r in chunk_reqs):
+            t1 = time.monotonic()
+            for _, r in chunk_reqs:
+                if r is not None and r.trace is not None:
+                    r.trace.add("decode_dispatch", t0, t1,
+                                steps=res.n_steps)
         if self._fault is not None:
             return              # stall-failed chunks must not apply
         if counts is None:
-            self._consume(chunk_reqs, toks)
+            self._consume(chunk_reqs, toks, ok=ok)
             return
         # fused megastep: apply the N boundaries in order — each is one
         # 1-step consume with the eos/budget walk the device precomputed
@@ -1517,7 +1825,8 @@ class ContinuousBatcher:
         # r+1.. through the chunk_reqs identity guard
         for r in range(res.n_steps):
             self._consume(chunk_reqs, toks[r], counts=counts[r],
-                          spec_raw=None if raw is None else raw[r])
+                          spec_raw=None if raw is None else raw[r],
+                          ok=None if ok is None else ok[r])
 
     def _loop_body(self) -> None:
         # Up to ``pipeline_depth`` chunks in flight: the host consumes
@@ -1545,6 +1854,20 @@ class ContinuousBatcher:
                 except Exception as e:
                     self._fault = e
                     continue
+            # a posted live swap fires at THE quiesced boundary: every
+            # dispatch in flight consumed, no lane mid-prefill (the
+            # admissions pause below while it is pending, so the slices
+            # drain within a few passes)
+            if self._swap_req is not None and not self._prefilling:
+                try:
+                    while pending:
+                        self._consume_oldest(pending)
+                except Exception as e:
+                    self._fault = e
+                    continue
+                if self._fault is None:
+                    self._do_swap()
+                continue
             if self._draining:
                 self._shed_queue(ShuttingDown(
                     "server draining; retry another replica"))
@@ -1563,6 +1886,10 @@ class ContinuousBatcher:
             # class-then-FIFO order.  Restores run even while draining:
             # a parked lane is admitted work the drain promises to finish
             while any(r is None for r in self.lane):
+                if self._swap_req is not None:
+                    # a swap is pending: admissions and restores wait,
+                    # so the quiesce converges; both resume after it
+                    break
                 pk = self._best_parked()
                 cq = (None if self._draining
                       else self._pending.peek_class())
@@ -1600,8 +1927,15 @@ class ContinuousBatcher:
                 # host-hits them
                 self._import_fetched()
                 slot = self.lane.index(None)
+                t_admit0 = time.monotonic()
                 try:
                     self._admit(slot, req)
+                    if req.trace is not None:
+                        # the admission's host time (inline: the insert;
+                        # chunked: the block map, the slices have their
+                        # own spans)
+                        req.trace.add("admit", t_admit0, slot=slot,
+                                      mode=self.prefill_mode)
                 except Exception as e:          # bad request: fail it only
                     self._finish(req, e)
                     self.lane[slot] = None

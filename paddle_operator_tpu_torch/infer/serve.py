@@ -42,13 +42,24 @@ Two modes, as in the JAX package:
   ``SERVE_MAX_ADAPTERS``): a request's ``"adapter"`` selects one, and
   ``GET``/``POST /v1/adapters`` list, load and evict them at runtime.
 
+Ring operations, as the JAX server has them: ``POST /v1/swap`` flips
+new weights into the running paged ring (:meth:`_Handler._swap`; a
+checkpoint, or the base retained under ``SERVE_SWAP_RETAIN``, loaded,
+quantized and uploaded on the handler's thread, off the ring's);
+``SERVE_TRACE=1`` gives every response a span tree under its
+``X-Tpujob-Trace`` context (``"trace"`` in batch responses and in a
+stream's done event), which the fleet router stitches;
+``SERVE_NAN_CHECK=1`` fails a lane whose logits go non-finite alone
+(503, retriable); ``TPUJOB_CHAOS`` injects the deterministic faults of
+infer/chaos.py into the live ring.
+
 Greedy output equals the JAX server's token for token.  Sampled tokens
 differ from the JAX server's for the same seed (``jax.random`` is not
 reproduced; infer/executor.py ``_sample_tokens`` has the rule).
-``/v1/swap`` and ``/v1/kv/*`` answer as the JAX server does when those
-features are not configured; so does ``/v1/adapters`` on a server
-without a registry.  The batch server ignores a request's
-``"adapter"``, as the JAX batch server does.
+``/v1/kv/*`` answer as the JAX server does when fleet-level KV is not
+configured; so does ``/v1/adapters`` on a server without a registry.
+The batch server ignores a request's ``"adapter"``, as the JAX batch
+server does.
 
 The entry point restores the parameters from the operator's
 ``TPUJOB_CHECKPOINT_PATH`` (:func:`load_serving_params`) and quantizes
@@ -62,10 +73,12 @@ mode.  Run on the card::
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Tuple
 
@@ -79,7 +92,7 @@ from paddle_operator_tpu_torch.infer.resilience import (
     ShuttingDown,
 )
 from paddle_operator_tpu_torch.models.llama import Llama, LlamaConfig
-from paddle_operator_tpu_torch.utils.tracing import safe_header_value
+from paddle_operator_tpu_torch.utils import tracing as TR
 
 class Generator:
     """Lock-serialized wrapper around decode.generate: one request's
@@ -138,10 +151,9 @@ class ContinuousGenerator:
                  top_p: Optional[float] = None,
                  eos_token: Optional[int] = None,
                  seed: int = 0) -> list:
-        rows, _, _ = self.generate_rows(
+        return self.generate_rows(
             tokens, max_new_tokens=max_new_tokens, temperature=temperature,
-            top_k=top_k, top_p=top_p, eos_token=eos_token, seed=seed)
-        return rows
+            top_k=top_k, top_p=top_p, eos_token=eos_token, seed=seed)[0]
 
     def generate_rows(self, tokens, *, max_new_tokens: int,
                       temperature: float = 0.0,
@@ -151,13 +163,16 @@ class ContinuousGenerator:
                       request_id: Optional[str] = None,
                       deadline_s: Optional[float] = None,
                       priority: Optional[int] = None,
-                      adapter: Optional[str] = None):
+                      adapter: Optional[str] = None,
+                      trace_ctx=None):
         """Rows + per-row speculative accept rates (None entries when
         the ring is not speculative) + per-row deadline-exceeded flags
         (a flagged row carries the PARTIAL tokens produced before its
-        budget ran out).
+        budget ran out) + per-row span trees (None entries when the ring
+        does not trace).
         ``request_id`` is threaded into ``submit`` per row so capacity
-        rejections name the offender."""
+        rejections name the offender; ``trace_ctx`` is the parsed
+        ``X-Tpujob-Trace`` context every row traces under."""
         if (top_k, top_p) != (self.batcher._top_k, self.batcher._top_p) \
                 and (top_k is not None or top_p is not None):
             raise ValueError(
@@ -174,7 +189,7 @@ class ContinuousGenerator:
                     temperature=temperature, seed=seed + i,
                     eos_token=eos_token, deadline_s=deadline_s,
                     priority=priority, adapter=adapter,
-                    request_id=rid_row))
+                    request_id=rid_row, trace_ctx=trace_ctx))
             # ragged rows: sequences stop at eos, no rectangular array
             rows = [r.result(timeout=600) for r in reqs]
         except Exception:
@@ -185,7 +200,8 @@ class ContinuousGenerator:
                 r.cancel()
             raise
         return (rows, [r.accept_rate for r in reqs],
-                [r.deadline_exceeded for r in reqs])
+                [r.deadline_exceeded for r in reqs],
+                [r.trace for r in reqs])
 
     def close(self) -> None:
         self.batcher.close()
@@ -282,12 +298,12 @@ class _Handler(BaseHTTPRequestHandler):
         else:
             self._send(404, {})
 
-    def _stream_generate(self, req, id_hdrs=None) -> None:
+    def _stream_generate(self, req, trace_ctx=None, id_hdrs=None) -> None:
         """``"stream": true`` (continuous mode, single row): emit
         newline-delimited JSON events as the ring produces tokens —
         {"token": t} per generated token, then {"done": true, "tokens":
-        [full sequence]} — over chunked transfer, in chunk-sized
-        bursts."""
+        [full sequence]} (with ``"trace"`` on a tracing ring) — over
+        chunked transfer, in chunk-sized bursts."""
         gen = self.generator
         if not isinstance(gen, ContinuousGenerator):
             raise ValueError("streaming requires the continuous server "
@@ -311,7 +327,7 @@ class _Handler(BaseHTTPRequestHandler):
             stream=True, request_id=req.get("request_id"),
             deadline_s=req.get("deadline_s"),
             priority=int(prio) if prio is not None else None,
-            adapter=req.get("adapter"))
+            adapter=req.get("adapter"), trace_ctx=trace_ctx)
 
         def emit(obj) -> None:
             body = json.dumps(obj).encode() + b"\n"
@@ -336,6 +352,8 @@ class _Handler(BaseHTTPRequestHandler):
                 done_ev["accept_rate"] = handle.accept_rate
             if handle.deadline_exceeded:         # 504-style partial
                 done_ev["deadline_exceeded"] = True
+            if handle.trace is not None:
+                done_ev["trace"] = handle.trace.to_wire()
             emit(done_ev)
             self.wfile.write(b"0\r\n\r\n")
         except OSError:
@@ -404,6 +422,88 @@ class _Handler(BaseHTTPRequestHandler):
         except OSError as e:
             self._send(400, {"error": f"adapter file: {e}"})
 
+    def _swap(self, body: bytes) -> None:
+        """POST /v1/swap — the live weight swap, with the JAX server's
+        body and codes.  Body (every key optional): ``checkpoint`` (a
+        training checkpoint directory; omitted: the retained base,
+        ``SERVE_SWAP_RETAIN``), ``draft_checkpoint`` (speculative rings),
+        ``weight_quant`` / ``draft_quant`` (none|int8|int4; omitted: the
+        base's mode), ``generation`` (omitted: bump by one), ``tp``
+        (only 1: a resize is refused), ``timeout_s``.  The load, the
+        quantization and the upload to the card (on a stream of its
+        own) run on THIS thread while the old weights keep serving; only
+        the park, flip, capture and restore run on the ring.  200 + the
+        summary; 400 a bad body or nothing to swap to; 409 a swap
+        already in flight; 503 + Retry-After when the ring cannot swap
+        now (draining, rebuilding, no boundary reached)."""
+        b = self._batcher()
+        if b is None:
+            self._send(400, {"error": "live swap requires the "
+                             "continuous ring (SERVE_CONTINUOUS=1)"})
+            return
+        try:
+            req = json.loads(body) if body else {}
+            base = getattr(self.server, "swap_base", None)
+            cfg = self.generator.cfg
+            tp = req.get("tp")
+            if tp is not None and int(tp) != b.serving_tp():
+                raise NotImplementedError(
+                    f"a swap to tp={tp}: tensor-parallel serving is not "
+                    "ported to the torch package yet (ROADMAP.md Queue A)")
+            wq = req.get("weight_quant")
+            if wq is None:
+                wq = (base or {}).get("weight_quant", "none")
+            t0 = time.perf_counter()
+            ckpt = req.get("checkpoint")
+            if ckpt:
+                params = _load_swap_checkpoint(ckpt, cfg, b.device,
+                                               wq or "none")
+            elif base is not None:
+                params = model_from_state(base["params"], cfg, b.device,
+                                          wq or "none",
+                                          base.get("legacy_quant", False))
+            else:
+                raise ValueError(
+                    "no 'checkpoint' given and no retained base "
+                    "(SERVE_SWAP_RETAIN=0) — nothing to swap to")
+            dparams = None
+            if b.spec_k > 0:
+                dwq = req.get("draft_quant")
+                if dwq is None:
+                    dwq = (base or {}).get("draft_quant", "none")
+                dck = req.get("draft_checkpoint")
+                if dck:
+                    dparams = _load_swap_checkpoint(dck, b.draft_cfg,
+                                                    b.device, dwq or "none")
+                elif base is not None \
+                        and base.get("draft_params") is not None:
+                    dparams = model_from_state(base["draft_params"],
+                                               b.draft_cfg, b.device,
+                                               dwq or "none")
+                else:
+                    raise ValueError(
+                        "speculative ring: a swap needs "
+                        "'draft_checkpoint' or a retained draft base")
+            upload_s = time.perf_counter() - t0
+            kw = {}
+            if req.get("generation") is not None:
+                kw["generation"] = int(req["generation"])
+            res = b.swap_weights(
+                params, draft_params=dparams,
+                timeout=float(req.get("timeout_s", 120.0)), **kw)
+            b.last_swap["upload_s"] = upload_s
+            self._send(200, res)
+        except (ShuttingDown, RetriableError) as e:
+            self._send(503, {"error": str(e)}, headers=self._retry_hdr())
+        except ValueError as e:
+            already = "already in flight" in str(e)
+            self._send(409 if already else 400, {"error": str(e)})
+        except (NotImplementedError, KeyError, TypeError,
+                json.JSONDecodeError) as e:
+            self._send(400, {"error": str(e)})
+        except Exception as e:     # noqa: BLE001 — refuse, never crash
+            self._send(503, {"error": str(e)}, headers=self._retry_hdr())
+
     def do_POST(self):
         # drain the body before ANY response: under HTTP/1.1 keep-alive
         # an unread body would be parsed as the next request's start line
@@ -427,11 +527,7 @@ class _Handler(BaseHTTPRequestHandler):
             self._adapters_admin(body)
             return
         if self.path == "/v1/swap":
-            self._send(400, {"error": (
-                "live weight swap is not ported to the torch package yet "
-                "(ROADMAP.md Queue A)" if continuous
-                else "live swap requires the continuous ring "
-                     "(SERVE_CONTINUOUS=1)")})
+            self._swap(body)
             return
         if self.path != "/v1/generate":
             self._send(404, {})
@@ -456,9 +552,14 @@ class _Handler(BaseHTTPRequestHandler):
             phdr = self.headers.get("X-Request-Priority")
             if priority is None and phdr is not None:
                 priority = int(phdr)
+            # trace context: the router (or a client) propagates
+            # X-Tpujob-Trace; on a SERVE_TRACE=1 ring every row traces
+            # under it and the span sets ride the response
+            trace_ctx = TR.parse_trace_header(
+                self.headers.get(TR.TRACE_HEADER))
             id_hdrs = {}
             if req.get("request_id") is not None:
-                id_hdrs["X-Request-Id"] = safe_header_value(
+                id_hdrs["X-Request-Id"] = TR.safe_header_value(
                     req.get("request_id"))
             if self.replica_id:
                 id_hdrs["X-Tpujob-Replica"] = self.replica_id
@@ -467,7 +568,8 @@ class _Handler(BaseHTTPRequestHandler):
                     req["deadline_s"] = float(deadline_s)
                 if priority is not None:
                     req["priority"] = int(priority)
-                return self._stream_generate(req, id_hdrs=id_hdrs)
+                return self._stream_generate(req, trace_ctx=trace_ctx,
+                                             id_hdrs=id_hdrs)
             tokens = np.asarray(req["tokens"], np.int32)
             if tokens.ndim != 2:
                 raise ValueError("tokens must be [batch, seq]")
@@ -480,17 +582,23 @@ class _Handler(BaseHTTPRequestHandler):
                 seed=int(req.get("seed", 0)))
             gen = self.generator
             if continuous:
-                rows, rates, expired = gen.generate_rows(
+                rows, rates, expired, traces = gen.generate_rows(
                     tokens, request_id=req.get("request_id"),
                     deadline_s=(float(deadline_s)
                                 if deadline_s is not None else None),
                     priority=(int(priority)
                               if priority is not None else None),
-                    adapter=req.get("adapter"), **opts)
+                    adapter=req.get("adapter"), trace_ctx=trace_ctx,
+                    **opts)
                 resp = {"tokens": rows}
                 if gen.batcher.spec_k > 0:
                     # speculative ring: acceptance rides every response
                     resp["accept_rate"] = rates
+                if any(t is not None for t in traces):
+                    # per-row span sets: response metadata only, the
+                    # token payload is untouched
+                    resp["trace"] = [t.to_wire() if t is not None
+                                     else None for t in traces]
                 if any(expired):
                     # deadline partials: 504 when EVERY row ran out,
                     # 200 with per-row flags on a mixed batch — either
@@ -558,13 +666,6 @@ def refuse_unported(environ) -> None:
                        "parallelism)")
     if environ.get("SERVE_PREFILL", "").strip() == "disagg":
         refused.append("SERVE_PREFILL=disagg (disaggregated prefill)")
-    if environ.get("SERVE_TRACE", "0") == "1":
-        refused.append("SERVE_TRACE=1 (span tracing)")
-    if environ.get("SERVE_NAN_CHECK", "0") == "1":
-        refused.append("SERVE_NAN_CHECK=1 (the NaN-lane check)")
-    if on("TPUJOB_CHAOS"):
-        refused.append(f"TPUJOB_CHAOS={environ['TPUJOB_CHAOS']} "
-                       "(fault injection)")
     for key in ("SERVE_KV_MIGRATE", "SERVE_KV_PEER_FETCH"):
         if environ.get(key, "0") == "1":
             refused.append(f"{key}=1 (fleet-level KV)")
@@ -582,7 +683,8 @@ def ring_kw_from_env(environ, cfg: Optional[LlamaConfig] = None) -> dict:
     SERVE_MAX_QUEUE, SERVE_MAX_LEN, SERVE_GENERATION, SERVE_PAGED with
     SERVE_BLOCK_SIZE / SERVE_PREFIX_CACHE / SERVE_NUM_BLOCKS,
     SERVE_KV_QUANT, SERVE_MEGASTEP, SERVE_PREFILL with
-    SERVE_PREFILL_CHUNK, SERVE_PRIORITIES, SERVE_PREWARM, the
+    SERVE_PREFILL_CHUNK, SERVE_PRIORITIES, SERVE_PREWARM, SERVE_TRACE
+    (span capture), SERVE_NAN_CHECK (the NaN-lane check), the
     preemption knobs (SERVE_PREEMPT, on unless "0", and its budgets
     SERVE_PREEMPT_MAX_PER_REQ / _BUDGET / _WINDOW_S: a waiting request
     of a more urgent class spills the least urgent lane of a full paged
@@ -621,8 +723,11 @@ def ring_kw_from_env(environ, cfg: Optional[LlamaConfig] = None) -> dict:
     kw = {"slots": int(environ.get("SERVE_SLOTS", "8")),
           "chunk_tokens": int(environ.get("SERVE_CHUNK", "8")),
           "max_queue": int(environ.get("SERVE_MAX_QUEUE", "0")),
-          # self-healing on by default for deployed rings
+          # self-healing on by default for deployed rings (with the
+          # NaN-lane check under SERVE_NAN_CHECK=1)
           "resilience": RingResilience.from_env(environ),
+          # SERVE_TRACE=1: per-request span capture
+          "trace": TR.trace_enabled(environ),
           "generation": int(environ.get("SERVE_GENERATION", "0") or 0),
           "prewarm": environ.get("SERVE_PREWARM", "1") == "1",
           "qos": QoSConfig.from_env(environ)}
@@ -715,6 +820,79 @@ def wire_kv_store_from_env(batcher, environ=None) -> None:
           f"janitor_s={janitor_s})", flush=True)
 
 
+_SIDE_STREAMS: dict = {}
+
+
+@contextlib.contextmanager
+def _side_stream(device):
+    """The block's device work (a swap's upload and quantization) on a
+    CUDA stream of its own, waited for at the end, so the ring's stream
+    never queues behind it; off the card just ``no_grad``.  One stream a
+    device: the allocator reuses a swapped-out model's memory only for
+    allocations on the stream that made it."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        with torch.no_grad():
+            yield
+        return
+    side = _SIDE_STREAMS.get(device)
+    if side is None:
+        side = _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    with torch.cuda.stream(side), torch.no_grad():
+        yield
+    side.synchronize()
+
+
+def model_from_state(state: dict, cfg: LlamaConfig, device,
+                     weight_quant: str = "none",
+                     legacy_quant: bool = False) -> Llama:
+    """A served model on ``device`` from a host state dict (the base
+    retained under ``SERVE_SWAP_RETAIN``), quantized as at boot
+    (``legacy_quant``: ``QUANTIZE=int8``'s call first; ``weight_quant``
+    with the serving skip list), built on a stream of its own."""
+    from paddle_operator_tpu_torch.infer import quant as Q
+
+    with _side_stream(device):
+        model = Llama(cfg, torch.device(device))
+        model.load_state_dict(state)
+        if legacy_quant:
+            Q.quantize_params(model)
+        if weight_quant != "none":
+            Q.quantize_params(model, cfg, mode=weight_quant,
+                              skip=Q.SERVING_SKIP)
+    return model
+
+
+def host_state(model: Llama) -> dict:
+    """The model's state dict copied to host memory: the retained swap
+    base (``SERVE_SWAP_RETAIN``), host RAM, not the card's."""
+    return {k: v.detach().to("cpu", copy=True)
+            for k, v in model.state_dict().items()}
+
+
+def _load_swap_checkpoint(path: str, cfg: LlamaConfig, device,
+                          weight_quant: str = "none") -> Llama:
+    """The weights of a ``/v1/swap`` from a training checkpoint, on the
+    handler's thread: the newest committed step under ``path``
+    restored as at boot (:func:`load_serving_params`: serving dtype, an
+    orbax step of the JAX package refused by name), uploaded on a stream
+    of its own and quantized under ``weight_quant``.  Raises when no
+    step is there: a swap never flips to fresh-init weights."""
+    from paddle_operator_tpu_torch.infer import quant as Q
+    from paddle_operator_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+    )
+
+    if CheckpointManager(path).latest_step() is None:
+        raise ValueError(f"no checkpoint restorable at {path}")
+    with _side_stream(device):
+        model, cfg, _ = load_serving_params(path, cfg, device)
+        if weight_quant != "none":
+            Q.quantize_params(model, cfg, mode=weight_quant,
+                              skip=Q.SERVING_SKIP)
+    return model
+
+
 def load_serving_params(path: str, cfg: LlamaConfig, device="cuda",
                         seed: int = 0) -> Tuple[Llama, LlamaConfig, bool]:
     """The parameters to serve, in the serving dtype ``cfg.dtype`` on
@@ -745,7 +923,8 @@ def load_serving_params(path: str, cfg: LlamaConfig, device="cuda",
     return model, cfg, resumed
 
 
-def spec_kw_from_env(environ, cfg: LlamaConfig, device="cuda") -> dict:
+def spec_kw_from_env(environ, cfg: LlamaConfig, device="cuda",
+                     retain: bool = False) -> dict:
     """The speculative ring's arguments from the env, as the JAX entry
     point builds them: ``SERVE_SPEC_K=K`` (0 or unset: none, ``{}``);
     ``SERVE_DRAFT`` names the draft config — "auto" (the default)
@@ -756,8 +935,10 @@ def spec_kw_from_env(environ, cfg: LlamaConfig, device="cuda") -> dict:
     ``SERVE_DRAFT_QUANT=int8|int4`` quantizes the DRAFT's projections
     with the serving skip list.  A coarser draft can only lower the
     acceptance, never change a greedy token.  Returns ``{"draft_params",
-    "draft_cfg", "spec_k"}`` with the draft on ``device``; call it
-    before the ring is built (its graphs read the final addresses)."""
+    "draft_cfg", "spec_k"}`` with the draft on ``device`` (and, with
+    ``retain``, ``"draft_base"``: the draft's host state dict before its
+    quantization, with ``"draft_quant"``); call it before the ring is
+    built (its graphs read the final addresses)."""
     from paddle_operator_tpu_torch.infer import quant as Q
     from paddle_operator_tpu_torch.infer.speculative import (
         check_draft_compat,
@@ -787,9 +968,12 @@ def spec_kw_from_env(environ, cfg: LlamaConfig, device="cuda") -> dict:
         gen.manual_seed(1)
         dmodel = Llama(dcfg, device).init_weights(gen)
     dwq = environ.get("SERVE_DRAFT_QUANT", "none") or "none"
+    kw = {"draft_params": dmodel, "draft_cfg": dcfg, "spec_k": spec_k}
+    if retain:
+        kw.update(draft_base=host_state(dmodel), draft_quant=dwq)
     if dwq != "none":
         Q.quantize_params(dmodel, dcfg, mode=dwq, skip=Q.SERVING_SKIP)
-    return {"draft_params": dmodel, "draft_cfg": dcfg, "spec_k": spec_k}
+    return kw
 
 
 def adapter_kw_from_env(environ, cfg: LlamaConfig, spec_k: int = 0,
@@ -844,8 +1028,16 @@ def main() -> int:
     SERVE_SPEC_K, a draft model beside it (``spec_kw_from_env``), or,
     with SERVE_ADAPTERS, its LoRA adapters (``adapter_kw_from_env``;
     ignored beside SERVE_SPEC_K, as in the JAX package);
-    SIGTERM drains and exits EXIT_PREEMPTED (83)."""
+    SIGTERM drains and exits EXIT_PREEMPTED (83).
+
+    The continuous ring serves ``POST /v1/swap``; ``SERVE_SWAP_RETAIN``
+    (default 1) keeps a host copy of the base weights before their
+    quantization (and of the draft's), so a swap without a checkpoint
+    rebuilds from it (0: a swap must name a checkpoint).
+    ``TPUJOB_CHAOS`` installs the fault injector (infer/chaos.py) on the
+    ring."""
     from paddle_operator_tpu_torch.ft.preemption import PreemptionWatcher
+    from paddle_operator_tpu_torch.infer.chaos import maybe_install_from_env
     from paddle_operator_tpu_torch.infer.quant import weight_quant_mode
     from paddle_operator_tpu_torch.infer.resilience import ServingDrain
     from paddle_operator_tpu_torch.launch.launcher import JobEnv
@@ -862,10 +1054,22 @@ def main() -> int:
                else {})
     params, cfg, resumed = load_serving_params(
         env.checkpoint_path, CONFIGS[preset], "cuda")
+    retain = (continuous
+              and os.environ.get("SERVE_SWAP_RETAIN", "1") == "1")
+    swap_base = None
+    if retain:
+        swap_base = {"params": host_state(params),
+                     "weight_quant": (os.environ.get("SERVE_WEIGHT_QUANT",
+                                                     "none") or "none"),
+                     "legacy_quant": os.environ.get("QUANTIZE", "") == "int8"}
     wquant = quantize_from_env(params, cfg, os.environ)
     mode = "batch"
     if continuous:
-        ring_kw.update(spec_kw_from_env(os.environ, cfg, "cuda"))
+        spec_kw = spec_kw_from_env(os.environ, cfg, "cuda", retain=retain)
+        if retain and "draft_base" in spec_kw:
+            swap_base["draft_params"] = spec_kw.pop("draft_base")
+            swap_base["draft_quant"] = spec_kw.pop("draft_quant")
+        ring_kw.update(spec_kw)
         ring_kw.update(adapter_kw_from_env(os.environ, cfg,
                                            ring_kw.get("spec_k", 0),
                                            "cuda"))
@@ -890,8 +1094,12 @@ def main() -> int:
                       job=os.environ.get("TPUJOB_NAME", "local"),
                       replica=os.environ.get("TPUJOB_REPLICA_ID", ""),
                       **ring_kw)
+    # the /v1/swap handler reaches the retained base through the server
+    srv.swap_base = swap_base
     batcher = srv.generator.batcher if continuous else None
     if batcher is not None:
+        # TPUJOB_CHAOS: deterministic fault injection on the live ring
+        maybe_install_from_env(batcher)
         wire_kv_store_from_env(batcher)
     watcher = PreemptionWatcher.install()
     drain = ServingDrain(srv, srv.state, batcher=batcher,

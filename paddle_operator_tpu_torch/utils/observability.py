@@ -8,11 +8,15 @@
   for the serving pod's ``/metrics``, so a port replica renders the same
   gauge names (docs/serving.md, docs/observability.md) the fleet router
   and manager scrape.  A batch-mode server publishes an empty status
-  block: every gauge then reads its zero default.
+  block: every gauge then reads its zero default;
+- :func:`trace`, the profiler context of the JAX package's ``trace``:
+  ``torch.profiler`` over the enclosed work, its Chrome trace written
+  into a directory.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
@@ -226,3 +230,28 @@ def render_histogram_lines(name: str, entry: dict,
     lines.append(f'{name}_count{labels} '
                  f'{int(entry.get("count", 0))}')
     return lines
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """``with trace("/tmp/trace"):`` profiles the enclosed work with
+    ``torch.profiler`` (host activity, and the card's kernels when CUDA
+    is available) and writes its Chrome trace to
+    ``<log_dir>/trace_<pid>_<n>.json`` on exit (open it in Perfetto or
+    ``chrome://tracing``).  The profiler object is yielded, so a caller
+    may also read ``key_averages()``."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = torch.profiler.profile(activities=acts)
+    prof.__enter__()
+    try:
+        yield prof
+    finally:
+        prof.__exit__(None, None, None)
+        n = len([f for f in os.listdir(log_dir) if f.startswith("trace_")])
+        prof.export_chrome_trace(
+            os.path.join(log_dir, f"trace_{os.getpid()}_{n}.json"))

@@ -554,8 +554,10 @@ def test_ring_kw_from_env_megastep(env, want):
                                   # SERVE_ADAPTERS is served
                                   # (tests/test_torch_adapters.py)
                                   {"SERVE_PREFILL": "disagg"},
-                                  {"SERVE_NAN_CHECK": "1"},
-                                  {"TPUJOB_CHAOS": "dispatch_hang@3:0.25"}])
+                                  # SERVE_NAN_CHECK and TPUJOB_CHAOS are
+                                  # served (tests/test_torch_resilience.py)
+                                  {"SERVE_KV_PEER_FETCH": "1"},
+                                  {"SERVE_KV_BROKER": "127.0.0.1:9100"}])
 def test_megastep_with_unported_knob_refused_by_its_name(knob):
     env = {"SERVE_CONTINUOUS": "1", "SERVE_PAGED": "1",
            "SERVE_MEGASTEP": "4", **knob}

@@ -336,8 +336,8 @@ class TestSubmit:
                                     {"prefill_mode": "disagg",
                                      "paged": True},
                                     {"megastep": 4, "mesh": "tp2"},
-                                    {"adapters": "acme", "trace": True},
-                                    {"trace": True}])
+                                    {"adapters": "acme", "mesh": "tp2"},
+                                    {"trace": True, "mesh": "tp2"}])
     def test_unported_options_refused(self, setup, kw):
         model, cfg, _, _, _ = setup
         # kv_quant="int8" is ported (tests/test_torch_kvquant.py); a
@@ -348,8 +348,9 @@ class TestSubmit:
         # disaggregated prefill is refused on the paged ring it needs.
         # Speculative decoding is ported (tests/test_torch_spec_ring.py):
         # tensor-parallel serving (mesh) stands where spec_k stood.  LoRA
-        # adapters are ported (tests/test_torch_adapters.py): beside an
-        # unported option it is that option that is refused
+        # adapters are ported (tests/test_torch_adapters.py), and so is
+        # span tracing (tests/test_torch_tracing.py): beside an unported
+        # option it is that option that is refused
         exc, match = ((ValueError, "kv_quant") if "kv_quant" in kw
                       else (NotImplementedError, "not ported"))
         with pytest.raises(exc, match=match) as e:

@@ -223,7 +223,7 @@ class TestEntryPoint:
         # SERVE_ADAPTERS is served (tests/test_torch_adapters.py): beside
         # a knob still refused, main() refuses that knob
         {"SERVE_CONTINUOUS": "1", "SERVE_ADAPTERS": "acme",
-         "SERVE_TRACE": "1"},
+         "SERVE_KV_MIGRATE": "1"},
         {"SERVE_TP": "2"},
     ])
     def test_unported_knobs_refused(self, monkeypatch, env):
@@ -305,12 +305,14 @@ class TestEntryPoint:
 
     def test_continuous_server_refused(self):
         # the continuous server serves (TestContinuousServer), adapters
-        # included (tests/test_torch_adapters.py); what it does not carry
-        # yet is refused at construction
+        # and span tracing included (tests/test_torch_adapters.py,
+        # tests/test_torch_tracing.py); what it does not carry yet is
+        # refused at construction
         model, cfg = make_model("tiny", device="cpu")
-        with pytest.raises(NotImplementedError, match="span tracing"):
+        with pytest.raises(NotImplementedError,
+                           match="disaggregated|disagg"):
             S.make_server("127.0.0.1", 0, model, cfg, continuous=True,
-                          trace=True)
+                          trace=True, paged=True, prefill_mode="disagg")
 
     def test_job_env_matches_jax(self):
         from paddle_operator_tpu.launch.launcher import JobEnv as JEnv
@@ -513,9 +515,39 @@ class TestContinuousServer:
     @pytest.mark.parametrize("path", ["/v1/swap", "/v1/kv/restore",
                                       "/v1/adapters"])
     def test_unported_routes_answer_400(self, ring_servers, path):
-        _, urls = ring_servers
-        code, body, _ = _call(urls["port"] + path, "POST", {})
-        assert code == 400 and "error" in json.loads(body)
+        """Routes of features a server does not carry answer 400 as the
+        JAX server's do: /v1/kv/restore (fleet-level KV is not ported)
+        and /v1/adapters without a registry.  /v1/swap is served: it
+        answers 400 on an unpaged ring (a swap parks the residents
+        through the paged spill) and 200 on a paged one, where it bumps
+        the generation (tests/test_torch_swap.py has the rest)."""
+        srvs, urls = ring_servers
+        if path != "/v1/swap":
+            code, body, _ = _call(urls["port"] + path, "POST", {})
+            assert code == 400 and "error" in json.loads(body)
+            return
+        ring = srvs["port"].generator
+        for paged, want in ((False, 400), (True, 200)):
+            kw = dict(RING_KW, paged=paged)
+            srv = S.make_server("127.0.0.1", 0, ring.batcher.params,
+                                ring.cfg, continuous=True, **kw)
+            srv.swap_base = {"params": S.host_state(ring.batcher.params),
+                             "weight_quant": "none"}
+            threading.Thread(target=srv.serve_forever, daemon=True).start()
+            url = f"http://127.0.0.1:{srv.server_address[1]}"
+            try:
+                code, body, _ = _call(url + path, "POST", {})
+                assert code == want, body
+                if paged:
+                    assert json.loads(body)["generation"] == 1
+                    code, body, _ = _call(url + "/statusz")
+                    assert json.loads(body)["weightGeneration"] == 1
+                else:
+                    assert "paged" in json.loads(body)["error"]
+            finally:
+                srv.shutdown()
+                srv.server_close()
+                srv.generator.close()
 
 
 def _wait_for(cond, timeout=30.0):
@@ -598,25 +630,38 @@ def test_router_fronts_a_port_replica_restored_from_a_checkpoint(
 
 
 REFUSED_KNOBS = [
-    # speculative decoding is served (tests/test_torch_spec_ring.py);
-    # beside a knob still refused, that knob is named and it is not
-    {"SERVE_SPEC_K": "2", "SERVE_TRACE": "1"},
-    # chunked prefill is served (tests/test_torch_chunked_prefill.py);
-    # beside a knob still refused, that knob is named and it is not
-    pytest.param({"SERVE_PREFILL": "chunked", "SERVE_NAN_CHECK": "1"},
+    # speculative decoding is served (tests/test_torch_spec_ring.py), and
+    # so is span tracing (tests/test_torch_tracing.py); beside a knob
+    # still refused, that knob is named and they are not
+    pytest.param({"SERVE_SPEC_K": "2", "SERVE_TRACE": "1",
+                  "SERVE_KV_BROKER": "127.0.0.1:9100"},
+                 id="SERVE_SPEC_K=2-SERVE_TRACE=1"),
+    # chunked prefill is served (tests/test_torch_chunked_prefill.py),
+    # and so is the NaN-lane check (tests/test_torch_resilience.py)
+    pytest.param({"SERVE_PREFILL": "chunked", "SERVE_NAN_CHECK": "1",
+                  "SERVE_KV_MIGRATE": "1"},
                  id="SERVE_PREFILL=chunked"),
     {"SERVE_PREFILL": "disagg"},
-    # the megastep is served (tests/test_torch_megastep.py); beside a
-    # knob still refused, that knob is named and the megastep is not
+    # the megastep is served (tests/test_torch_megastep.py), and so is
+    # fault injection (tests/test_torch_resilience.py)
     pytest.param({"SERVE_MEGASTEP": "4",
-                  "TPUJOB_CHAOS": "dispatch_hang@3:0.25"},
+                  "TPUJOB_CHAOS": "dispatch_hang@3:0.25",
+                  "SERVE_KV_PEER_FETCH": "1"},
                  id="SERVE_MEGASTEP=4"),
     # adapters are served (tests/test_torch_adapters.py); beside a knob
     # still refused, that knob is named and SERVE_ADAPTERS is not
-    pytest.param({"SERVE_ADAPTERS": "acme", "SERVE_TRACE": "1"},
+    pytest.param({"SERVE_ADAPTERS": "acme", "SERVE_TRACE": "1",
+                  "SERVE_TP": "2"},
                  id="SERVE_ADAPTERS=acme"),
-    {"SERVE_TRACE": "1"}, {"SERVE_NAN_CHECK": "1"},
-    {"TPUJOB_CHAOS": "dispatch_hang@3:0.25"}, {"SERVE_KV_MIGRATE": "1"},
+    # the ring operations are served: each beside a knob still refused
+    pytest.param({"SERVE_TRACE": "1", "SERVE_KV_MIGRATE": "1"},
+                 id="SERVE_TRACE=1"),
+    pytest.param({"SERVE_NAN_CHECK": "1", "SERVE_PREFILL": "disagg"},
+                 id="SERVE_NAN_CHECK=1"),
+    pytest.param({"TPUJOB_CHAOS": "dispatch_hang@3:0.25",
+                  "SERVE_KV_BROKER": "127.0.0.1:9100"},
+                 id="TPUJOB_CHAOS=dispatch_hang@3:0.25"),
+    {"SERVE_KV_MIGRATE": "1"},
     {"SERVE_KV_PEER_FETCH": "1"},
     {"SERVE_KV_BROKER": "127.0.0.1:9100"}, {"SERVE_TP": "2"},
     # the weight-quant knobs are served (tests/test_torch_weight_quant.py);
@@ -627,7 +672,8 @@ REFUSED_KNOBS = [
                  id="SERVE_WEIGHT_QUANT=int8-SERVE_ADAPTERS=acme"),
 ]
 SERVED_KNOBS = ("SERVE_MEGASTEP", "QUANTIZE", "SERVE_WEIGHT_QUANT",
-                "SERVE_SPEC_K", "SERVE_ADAPTERS")
+                "SERVE_SPEC_K", "SERVE_ADAPTERS", "SERVE_TRACE",
+                "SERVE_NAN_CHECK", "TPUJOB_CHAOS")
 # knobs served at some values only (SERVE_PREFILL=disagg is refused)
 SERVED_SETTINGS = {"SERVE_PREFILL": "chunked"}
 

@@ -624,7 +624,7 @@ class TestOnCard:
                 assert [b - a for a, b in zip(c0, X._launch_counts())] \
                     == [ticks, 0, 0, 7 * ticks if dquant else 0, 0]
                 eager._upload(plan)
-                et, ec, er = eager._program(n)
+                et, ec, er, _ = eager._program(n)
                 np.testing.assert_array_equal(gt, et.cpu().numpy())
                 np.testing.assert_array_equal(gc, ec.cpu().numpy())
                 np.testing.assert_array_equal(graw, er.cpu().numpy())
