@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
     python3 chip_smoke.py [--phases 2,2b,2c,2d,2e,2f,3,3b,3c,3d,3e,3f,3g,3h,
-                           3i,3j,3k,3l,3m,3n,4,4b,4c,4d,4e,4f,4g,4h,4i,4j,
-                           4k,4l]
+                           3i,3j,3k,3l,3m,3n,3o,4,4b,4c,4d,4e,4f,4g,4h,4i,
+                           4j,4k,4l,4m]
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line; with no arguments every phase runs):
@@ -414,6 +414,30 @@ result line; with no arguments every phase runs):
    "int8"}``: 3b's cold prompts through the int8 weights, kernel A and
    kernel B launched as ``qmm_launches_want`` counts them, ``/statusz``
    ``weightQuantMode`` int8.
+3o. disaggregated prefill main path — 7b at full width and depth, bf16,
+   3b's server with ``SERVE_PREFILL=disagg``: (a) 3b's burst through the
+   in-process 1-lane engine (its own thread, stream and pool; the
+   inline insert's prefill program), every stream equal to 3b's bit for
+   bit, kernel #2 launched n_layers x chunk x dispatches times; (b) 3j's
+   traffic (6 residents, two cold 1,536-token prompts) under
+   chunked@256 (3j's run when 3j ran), the 1-lane engine and the 4-lane
+   engine with streamed frames (SERVE_PREFILL_CHUNK 256), on the bf16
+   and int8 pools: the residents' largest and p95 token gap, the long
+   prompts' TTFT, the engine's dispatches' device ms (CUDA events on its
+   stream), each handoff item's hold of the ring thread, the handoff and
+   frame counters, kernel #2 / #3 launches, replays and peak allocated
+   memory; (c) the same traffic on the bf16 pool against a prefill pod
+   started as a subprocess (``python -m
+   paddle_operator_tpu_torch.infer.prefill_serve``, 4 lanes, frames
+   streamed) on the same card, through the client a replica builds from
+   its environment (``remote_prefill_client_from_env``: two workers):
+   every handoff remote, the most residents ever decoding at once and
+   how many resolved before the long prompts came (they go once each
+   resident has decoded two chunks or resolved), the long prompts'
+   bytes and submit-to-final seconds, one whole-envelope POST's wire
+   GB/s (the body's read alone), and the pod's exit code 83 after
+   SIGTERM; (d) the handoff copy of a 1,536-token prompt alone (6
+   blocks), device ms against its byte bound.
 4. kernel path == plain path — 7b width, 2 layers, float32: greedy
    ``generate`` through the kernel and through the plain version give
    the same tokens, and per-step logits agree within 1e-3.
@@ -534,13 +558,29 @@ result line; with no arguments every phase runs):
    at megastep 1 and 4, four prompts (two greedy, two sampled): a ring
    with ``SERVE_TRACE`` and ``SERVE_NAN_CHECK`` streams what an untraced
    ring streams (one span root a request); the prompts again take the
-   prefix-hit path, and under a ``nan_lane`` fault on lane 1 its request
+   prefix-hit path, and under a ``nan_lane`` fault on lane 1 (at the
+   first dispatch that lane 1 decodes with tokens to spare,
+   ``_live_victim_injector``) its request
    alone fails with ``LaneQuarantined`` while the others equal that
    chaos-free path; on the paged and int8 rings a mid-flight swap to
    identical weights (lanes parked, graphs captured again, lanes
    restored) changes no stream, and a swap to the seed-4 params streams
    what a fresh ring on them streams (the paged ring: ``generate``'s
    greedy tokens); every dispatch is a graph replay.
+4m. disaggregated rings — 7b width, 2 layers, float32, bs 16, 4 slots,
+   chunk 8, under graph replay, 4i's traffic (four cold prompts, then a
+   full and a partial prefix hit, which admit inline): on the bf16 pool
+   the 1-lane engine at megastep 1 and 4, the 4-lane engine (slices of
+   24 rows, rounded to 32) with and without streamed frames and its own
+   prefix cache, a remote prefill pod (a server in this process, 4
+   lanes, frames streamed) and a speculative ring (self-draft, K 4)
+   each equal the inline ring and ``generate``, and so does an inline
+   speculative ring; on the int8 pool the 1-lane engine (megastep 1 and
+   4) equals the inline ring, the speculative disaggregated ring the
+   inline speculative ring, and the 4-lane rings and the pod equal each
+   other (their slices read earlier blocks as codes).  Launches,
+   replays, the handoff counters, the prefix hits and the pool
+   invariant are held.
 4c. training kernel path == plain path — 7b width, 2 layers, float32:
    three train steps with attention through the flash kernels and
    through ``reference_attention`` from the same init agree in loss
@@ -625,7 +665,8 @@ PEAK_BF16 = 989e12                 # H100 SXM dense bf16, for MFU
 SPEC_DRAFT_ATTN = dict(b=8, hq=16, hkv=16, d=128, s=2048, layers=8)
 PHASES = ("2", "2b", "2c", "2d", "2e", "2f", "3", "3b", "3c", "3d", "3e",
           "3f", "3g", "3h", "3i", "3j", "3k", "3l", "3m", "3n", "4", "4b",
-          "4c", "4d", "4e", "4f", "4g", "4h", "4i", "4j", "4k", "4l")
+          "4c", "4d", "4e", "4f", "4g", "4h", "4i", "4j", "4k", "4l", "3o",
+          "4m")
 
 
 def log(*a) -> None:
@@ -2445,14 +2486,15 @@ def burst_requests(cfg) -> tuple:
 def phase_ring_main_path(report: dict, params, cfg,
                          kv_quant: str = "none", bf16_ring=None,
                          megastep: int = 1, ref=None,
-                         wquant=None) -> dict:
+                         wquant=None, ring_extra=None) -> dict:
     """The continuous paged server under a concurrent burst; see the
     module docstring (phases 3b, with ``kv_quant="int8"`` 3d and with
     ``megastep=4`` 3e, whose rings are held beside 3b's ``bf16_ring``
     readings; 3e's tokens against 3b's, ``ref``; with ``wquant`` — the
     quantized model's mode, its expected ``paramBytes`` and whether its
-    lm_head is quantized — 3i).  Returns every request's output tokens,
-    by (kind, index)."""
+    lm_head is quantized — 3i; ``ring_extra``: more ring arguments, 3o's
+    disaggregated engine).  Returns every request's output tokens, by
+    (kind, index)."""
     import numpy as np
 
     from paddle_operator_tpu_torch.infer.serve import make_server
@@ -2462,7 +2504,7 @@ def phase_ring_main_path(report: dict, params, cfg,
     from paddle_operator_tpu_torch.utils.tracing import hist_quantile
 
     quant = kv_quant != "none"
-    kw = dict(RING, prewarm=True)
+    kw = dict(RING, prewarm=True, **(ring_extra or {}))
     if quant:
         kw["kv_quant"] = kv_quant
     if megastep > 1:
@@ -3998,23 +4040,38 @@ def phase_weight_quant_ring(report: dict, report_b: dict, params,
 # the bf16 pool also with SERVE_PREFILL_CHUNK unset (the default, 64).
 INTERLEAVE = dict(residents=6, resident_prompt=64, resident_new=256,
                   long=2, long_prompt=1536, long_new=64, chunks_first=2)
+# the longest wait for the residents to decode before the long prompts
+INTERLEAVE_WAIT_S = 600
 INTERLEAVE_RUNS = (("none", "inline", None), ("none", "chunked", 256),
                    ("none", "chunked", None), ("int8", "inline", None),
                    ("int8", "chunked", 256))
 
 
 def _interleave_run(params, cfg, kv_quant: str, mode: str,
-                    chunk_env) -> dict:
+                    chunk_env, extra_env=None, ring_extra=None,
+                    wait_all: bool = True) -> dict:
     """One run of phase 3j's traffic on a fresh 3b server (``kv_quant``
     pool, ``SERVE_PREFILL`` ``mode``, ``SERVE_PREFILL_CHUNK``
-    ``chunk_env`` or unset): every request's tokens, the residents' token gaps,
+    ``chunk_env`` or unset, and ``extra_env``'s other SERVE_PREFILL_*
+    knobs; ``ring_extra``: ring arguments beside them, 3o's remote
+    client): every request's tokens, the residents' token gaps,
     the long prompts' TTFT, each admission's and each slice's hold of
     the ring thread (host clock) and device time (CUDA events around the
     work it queued), the launches and replays, and the pool's
     accounting.  The ring thread's CPU time (``time.thread_time``) beside
     each hold tells work from waiting, and the first three slices run
     under ``torch.cuda.set_sync_debug_mode("warn")``, which names every
-    synchronizing call PyTorch makes."""
+    synchronizing call PyTorch makes.  A disaggregated ring (3o) also
+    gives each handoff item's hold of the ring thread, the prefill
+    engine's dispatches' device ms (CUDA events on the engine's stream),
+    its handoff counters and the run's peak allocated bytes.
+
+    ``wait_all`` False (3o's remote run, whose handoffs may come in
+    slower than a resident decodes): the long prompts go once every
+    resident has decoded ``chunks_first`` chunks OR resolved, and the
+    run records the most residents ever decoding at once
+    (``residents_overlap_max``) and how many had resolved before the
+    long prompts arrived (``residents_done_before_long``)."""
     import warnings
 
     import numpy as np
@@ -4030,11 +4087,14 @@ def _interleave_run(params, cfg, kv_quant: str, mode: str,
     env = {"SERVE_PREFILL": mode}
     if chunk_env:
         env["SERVE_PREFILL_CHUNK"] = str(chunk_env)
+    env.update(extra_env or {})
     prefill_kw = {k: v for k, v in ring_kw_from_env(env).items()
                   if k.startswith("prefill_")}
-    kw = dict(RING, prewarm=True, **prefill_kw)
+    kw = dict(RING, prewarm=True, **prefill_kw, **(ring_extra or {}))
     if quant:
         kw["kv_quant"] = kv_quant
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     srv = make_server("127.0.0.1", 0, params, cfg, **kw)
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
@@ -4048,7 +4108,7 @@ def _interleave_run(params, cfg, kv_quant: str, mode: str,
     ptrs = ex._state_ptrs()
     counter = "quant_launches" if quant else "launches"
     marks = []          # (host clock, what) of dispatches and prefill work
-    holds = {"admit": [], "slice": []}
+    holds = {"admit": [], "slice": [], "handoff": []}
     real_replay = ex.replay
 
     def replay(plan):
@@ -4086,6 +4146,26 @@ def _interleave_run(params, cfg, kv_quant: str, mode: str,
     ex.replay = replay
     batcher._admit = timed("admit", batcher._admit)
     batcher._advance_prefill = timed("slice", batcher._advance_prefill)
+    batcher._land_item = timed("handoff", batcher._land_item)
+    engine = []         # (dispatch, start event, end event) on its stream
+    pe = ex.prefill_exec
+    if pe is not None and not ex.prefill_remote:
+        def on_engine(what, real):
+            def run(*a, **k):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = real(*a, **k)
+                e1.record()
+                engine.append((what, e0, e1))
+                return out
+            return run
+        if pe.lanes > 1:
+            pe._slice_prog = on_engine("slice", pe._slice_prog)
+            pe._final_prog = on_engine("final", pe._final_prog)
+        else:
+            pe._progs = {b: on_engine("prefill", prog)
+                         for b, prog in pe._progs.items()}
     rng = np.random.default_rng(11)
     cfg_i = INTERLEAVE
     residents = [rng.integers(0, cfg.vocab_size,
@@ -4115,15 +4195,28 @@ def _interleave_run(params, cfg, kv_quant: str, mode: str,
             t.start()
         want_pos = (cfg_i["resident_prompt"]
                     + cfg_i["chunks_first"] * RING["chunk_tokens"])
-        while not (sum(r is not None for r in batcher.lane)
-                   == cfg_i["residents"] and not batcher._prefilling
-                   and min((p for p in batcher._lane_pos if p),
-                           default=0) >= want_pos):
-            if errors or time.perf_counter() - t0 > 600:
-                raise AssertionError(f"3j: the residents never all decoded "
-                                     f"{cfg_i['chunks_first']} chunks: "
-                                     f"{errors}")
+        overlap_max = 0
+        while True:
+            # residents decoding: a lane past its prefill and handoff
+            live = [s for s, r in enumerate(batcher.lane)
+                    if r is not None and s not in batcher._prefilling
+                    and s not in batcher._disagg_waiting]
+            overlap_max = max(overlap_max, len(live))
+            past = sum(batcher._lane_pos[s] >= want_pos for s in live)
+            if past + (0 if wait_all else len(results)) \
+                    == cfg_i["residents"]:
+                break
+            if (errors or (results and wait_all)
+                    or time.perf_counter() - t0 > INTERLEAVE_WAIT_S):
+                # a resident that resolved already cannot be waited for
+                raise AssertionError(
+                    f"3j: the residents never all decoded "
+                    f"{cfg_i['chunks_first']} chunks: {errors}; resolved "
+                    f"{ {k: str(v)[:400] for k, v in results.items()} }; "
+                    f"ring stats {batcher.stats}; flight recorder "
+                    f"{str(batcher.flightrec.dump('3j'))[-1500:]}")
             time.sleep(0.002)
+        done_before_long = len(results)
         t_long = time.perf_counter()
         late = [threading.Thread(target=send, args=(
             "long", i, p, cfg_i["long_new"])) for i, p in enumerate(longs)]
@@ -4140,6 +4233,7 @@ def _interleave_run(params, cfg, kv_quant: str, mode: str,
         srv.server_close()
         th.join(timeout=30)
         srv.generator.close()
+    peak = torch.cuda.max_memory_allocated()
     if errors:
         raise AssertionError(f"3j requests failed: {errors}")
     out, gaps, gaps_during, ttft = {}, [], [], []
@@ -4184,6 +4278,7 @@ def _interleave_run(params, cfg, kv_quant: str, mode: str,
 
     admit_host, admit_dev, admit_cpu = ms("admit")
     slice_host, slice_dev, slice_cpu = ms("slice")
+    hand_host, _, hand_cpu = ms("handoff")
     gaps, gaps_during = np.asarray(gaps), np.asarray(gaps_during or [0.0])
     prompt_tokens = (cfg_i["residents"] * cfg_i["resident_prompt"]
                      + cfg_i["long"] * cfg_i["long_prompt"])
@@ -4220,6 +4315,16 @@ def _interleave_run(params, cfg, kv_quant: str, mode: str,
         "dispatch_interval_median_ms": float(np.median(np.diff(ticks)))
         * 1e3,
         "longest_intervals": stalls,
+        "handoff_host_ms": hand_host, "handoff_cpu_ms": hand_cpu,
+        "engine_ms": [(what, e0.elapsed_time(e1))
+                      for what, e0, e1 in engine],
+        "engine_lanes": (ex.prefill_lanes if pe is not None else 0),
+        "disagg": {k: batcher.stats[k] - stats0[k] for k in (
+            "disagg_prefills", "remote_prefills", "handoff_frames",
+            "overlapped_frames")},
+        "peak_gb": peak / 1e9,
+        "residents_overlap_max": overlap_max,
+        "residents_done_before_long": done_before_long,
     }
 
 
@@ -4276,10 +4381,11 @@ def _spread(xs) -> str:
             f"{max(xs):.3f}")
 
 
-def phase_interleave(reports: tuple, params, cfg) -> None:
+def phase_interleave(reports: tuple, params, cfg) -> dict:
     """Phase 3j: long prompts admitted while residents decode, inline
     against chunked prefill, on the bf16 and int8 pools; see the module
-    docstring."""
+    docstring.  Returns the runs by (pool, mode, slice rows): 3o reuses
+    the chunked@256 ones."""
     import torch
 
     runs = {}
@@ -4358,6 +4464,397 @@ def phase_interleave(reports: tuple, params, cfg) -> None:
                     "in bf16)")
             report["interleave"][f"{mode}@{rows}" if rows else mode] = {
                 key: v for key, v in run.items() if key != "outputs"}
+    return runs
+
+
+# phase 3o: disaggregated prefill at 7b, full width and depth.  (a) 3b's
+# burst through the in-process 1-lane engine, held to 3b's streams bit
+# for bit; (b) 3j's traffic under chunked@256 (3j's own run when 3j ran
+# in this call), the 1-lane engine, and the 4-lane engine with streamed
+# frames, on both pools; (c) the same traffic on the bf16 pool against a
+# prefill pod started as a subprocess on the same card (4 lanes, frames
+# streamed), with one whole-envelope POST timed on the wire; (d) the
+# handoff copy alone.
+DISAGG_CHUNK = 256
+DISAGG_RUNS = (("disagg", {}),
+               ("disagg", {"SERVE_PREFILL_LANES": "4",
+                           "SERVE_PREFILL_STREAM": "1"}))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _log_tail(logf, n: int = 3000) -> str:
+    logf.seek(0)
+    return logf.read()[-n:].decode(errors="replace")
+
+
+def _start_prefill_pod(lanes: int):
+    """A prefill pod as the operator starts one, on this card: ``python
+    -m paddle_operator_tpu_torch.infer.prefill_serve`` (7b from seed 0:
+    the weights :func:`make_7b` builds), ``lanes`` engine lanes.  Returns
+    (process, endpoint, its output file, seconds to ready)."""
+    import tempfile
+
+    port = _free_port()
+    env = dict(os.environ, MODEL_PRESET="7b", TPUJOB_PORT=str(port),
+               SERVE_BLOCK_SIZE=str(RING["block_size"]),
+               SERVE_MAX_LEN=str(RING["max_len"]),
+               SERVE_PREFILL_LANES=str(lanes),
+               SERVE_PREFILL_CHUNK=str(DISAGG_CHUNK),
+               PYTHONPATH=str(ROOT))
+    env.pop("TPUJOB_CHECKPOINT_PATH", None)
+    logf = tempfile.TemporaryFile()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_operator_tpu_torch.infer.prefill_serve"],
+        cwd=str(ROOT), env=env, stdout=logf, stderr=subprocess.STDOUT)
+    ep = f"127.0.0.1:{port}"
+    while True:
+        if proc.poll() is not None:
+            raise AssertionError(f"3o: the prefill pod exited with "
+                                 f"{proc.returncode}: {_log_tail(logf)}")
+        try:
+            with urllib.request.urlopen(f"http://{ep}/readyz",
+                                        timeout=5) as r:
+                if r.status == 200:
+                    break
+        except (urllib.error.URLError, OSError):
+            pass
+        if time.perf_counter() - t0 > 300:
+            proc.kill()
+            proc.wait()
+            raise AssertionError(f"3o: the prefill pod was not ready in "
+                                 f"300 s: {_log_tail(logf)}")
+        time.sleep(0.5)
+    return proc, ep, logf, time.perf_counter() - t0
+
+
+def _stop_prefill_pod(proc):
+    """SIGTERM (the pod drains and exits EXIT_PREEMPTED, 83); killed if
+    it has not exited within 60 s.  Returns its exit code (None:
+    killed)."""
+    proc.terminate()
+    try:
+        return proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        return None
+
+
+def _wire_reading(ep: str, prompt, fingerprint) -> dict:
+    """One whole-envelope POST of ``prompt`` to the pod: the response
+    headers leave after the prefill and the encoding, so the body's read
+    is the loopback wire alone."""
+    from http.client import HTTPConnection
+
+    from paddle_operator_tpu_torch.utils import fleetkv as FK
+
+    host, _, port = ep.rpartition(":")
+    conn = HTTPConnection(host, int(port), timeout=300)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/v1/prefill", body=json.dumps(
+            {"tokens": prompt, "fingerprint": fingerprint}).encode(),
+            headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        t_head = time.perf_counter()
+        raw = resp.read()
+        t_end = time.perf_counter()
+    finally:
+        conn.close()
+    if resp.status != 200:
+        raise AssertionError(f"3o: POST /v1/prefill -> {resp.status}: "
+                             f"{raw[:200]!r}")
+    meta, arrays = FK.decode_handoff(raw)
+    want = -(-len(prompt) // RING["block_size"])
+    if meta["nBlocks"] != want or meta["promptLen"] != len(prompt):
+        raise AssertionError(f"3o: the pod's envelope says {meta} for a "
+                             f"{len(prompt)}-token prompt")
+    return {"bytes": len(raw), "to_headers_s": t_head - t0,
+            "body_s": t_end - t_head,
+            "wire_gb_s": len(raw) / (t_end - t_head) / 1e9}
+
+
+def _stamp_client(client) -> dict:
+    """Per request (by prompt length and submit order): the client's
+    submit time, its first frame's and its terminal item's arrival and
+    the payload bytes landed (the queue ``put`` and ``submit`` wrapped,
+    no behaviour changed)."""
+    stamps = {}
+    real_submit, real_put = client.submit, client.results.put
+
+    def submit(req, slot):
+        stamps[id(req)] = {"n": len(req.prompt), "t0": time.perf_counter(),
+                           "bytes": 0, "frames": 0}
+        real_submit(req, slot)
+
+    def put(item, *a, **k):
+        if isinstance(item[0], str):
+            st = stamps.get(id(item[1]))
+            if st is not None:
+                now = time.perf_counter()
+                st["bytes"] += sum(t.numel() * t.element_size()
+                                   for t in item[3].values())
+                if item[0] == "frame":
+                    st["frames"] += 1
+                    st.setdefault("t_first_frame", now)
+                else:
+                    st["t_final"] = now
+        return real_put(item, *a, **k)
+
+    client.submit = submit
+    client.results.put = put
+    return stamps
+
+
+def _handoff_timings(params, cfg) -> dict:
+    """The handoff copy alone at 3o's geometry: a 1,536-token prompt's 6
+    blocks from a 1-lane engine's pool into the 64-block decode pool
+    (int8: codes, scales and the tail row), device ms from CUDA-graph
+    replay and eager ms, beside the bound (each block read once and
+    written once at 3.35 TB/s)."""
+    import torch
+
+    from paddle_operator_tpu_torch.infer import executor as X
+    from paddle_operator_tpu_torch.infer import paged as PG
+
+    out = {}
+    n = -(-INTERLEAVE["long_prompt"] // RING["block_size"])
+    for kv_quant in ("none", "int8"):
+        with torch.inference_mode():
+            ex = X.RingExecutor(
+                params, cfg, slots=RING["slots"], max_len=RING["max_len"],
+                chunk_tokens=RING["chunk_tokens"], paged=True,
+                block_size=RING["block_size"], kv_quant=kv_quant,
+                prefill_mode="disagg")
+            pe = ex.prefill_exec
+            try:
+                src = torch.arange(1, n + 1, device="cuda")
+                dst = torch.arange(1, n + 1, device="cuda")
+
+                def land(i):
+                    # a 1-lane terminal item's landing: the block copy,
+                    # then (int8) the tail row from engine lane 0
+                    ex._frame_transfer(ex.cache, pe.cache, src, dst)
+                    if ex.quant:
+                        ex._tail_copy(ex.cache, pe.cache, 0, 0)
+
+                dev, eager = time_ms(land, iters=8, warmup=2)
+            finally:
+                pe.close()
+            nbytes = n * PG.host_block_bytes(cfg, RING["block_size"],
+                                              kv_quant)
+            out[kv_quant] = {"ms": dev, "eager_ms": eager,
+                             "bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
+                             "bytes": nbytes}
+            del ex, pe
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _disagg_line(tag: str, run: dict) -> str:
+    eng = [ms for _, ms in run["engine_ms"]]
+    return (f"disagg {run['kv_quant']} {tag}: residents' token gap max "
+            f"{run['resident_gap_max_ms']:.1f} ms, p95 "
+            f"{run['resident_gap_p95_ms']:.1f} ms (while the long prompts "
+            f"admit: max {run['resident_gap_max_during_ms']:.1f}, p95 "
+            f"{run['resident_gap_p95_during_ms']:.1f}); long prompts' TTFT s "
+            f"{[round(x, 3) for x in run['long_ttft_s']]}; engine "
+            f"dispatches {len(eng)}, device ms min/median/max "
+            f"{_spread(eng)}, total {sum(eng):.1f}; handoff items "
+            f"{len(run['handoff_host_ms'])}, ring-thread hold ms "
+            f"{_spread(run['handoff_host_ms'])} (its CPU "
+            f"{_spread(run['handoff_cpu_ms'])}); slices on the ring "
+            f"{len(run['slice_host_ms'])}, hold "
+            f"{_spread(run['slice_host_ms'])}; {run['disagg']}; launches "
+            f"{run['launches']} (want {run['launches_want']}), replays "
+            f"{run['replays']} for {run['chunks']} dispatches; peak "
+            f"allocated {run['peak_gb']:.2f} GB; wall {run['wall_s']:.3f} s "
+            f"on {card_line()}")
+
+
+def _disagg_checks(tag: str, run: dict, handoffs: int,
+                   frames: bool) -> None:
+    bad = []
+    if run["launches"] != run["launches_want"] or any(run["other_kernels"]):
+        bad.append(f"launch counts {run['launches']} (want "
+                   f"{run['launches_want']}), other {run['other_kernels']}")
+    if run["replays"] != run["chunks"] or not run["same_graphs"]:
+        bad.append("not every dispatch a replay of the prewarm graphs at "
+                   "their addresses")
+    if run["queue_depth_end"] or \
+            run["free_after"] + run["cached_after"] != run["free_before"]:
+        bad.append(f"queue depth {run['queue_depth_end']}, or blocks "
+                   "neither free nor cached at the end")
+    if run["mode"] == "disagg":
+        d = run["disagg"]
+        if d["disagg_prefills"] != handoffs or run["slice_host_ms"]:
+            bad.append(f"{d['disagg_prefills']} handoffs (want "
+                       f"{handoffs}), {len(run['slice_host_ms'])} slices "
+                       "on the ring")
+        if frames and not (d["handoff_frames"] and d["overlapped_frames"]):
+            bad.append(f"streamed frames {d}")
+    if bad:
+        raise AssertionError(f"3o {tag}: {bad}")
+
+
+def phase_disagg(reports: tuple, params, cfg, ring_tokens,
+                 runs_3j=None) -> None:
+    """Phase 3o: disaggregated prefill at 7b; see the module docstring."""
+    import torch
+
+    from paddle_operator_tpu_torch.infer.prefill_serve import (
+        handoff_fingerprint,
+        remote_prefill_client_from_env,
+    )
+
+    out = {"none": {}, "int8": {}}
+    # (a) 3b's burst through the 1-lane engine: the same prefill program
+    # as 3b's inline insert, its bytes copied — bit-equal streams
+    burst = phase_ring_main_path({}, params, cfg,
+                                 ring_extra={"prefill_mode": "disagg"})
+    gc.collect()
+    torch.cuda.empty_cache()
+    differ = sorted(k for k in ring_tokens if burst.get(k) != ring_tokens[k])
+    log(f"disagg: 3b's burst through the 1-lane engine: "
+        f"{len(ring_tokens) - len(differ)}/{len(ring_tokens)} requests "
+        f"token-identical to 3b's inline ring")
+    if ring_tokens and differ:
+        raise AssertionError(f"3o: the 1-lane engine's streams differ from "
+                             f"3b's for {differ}")
+    out["none"]["burst_equal"] = f"{len(ring_tokens) - len(differ)}/" \
+                                 f"{len(ring_tokens)}"
+    # (b) 3j's traffic, both pools
+    n_req = INTERLEAVE["residents"] + INTERLEAVE["long"]
+    for kv_quant in ("none", "int8"):
+        runs = {}
+        chunked = (runs_3j or {}).get((kv_quant, "chunked", DISAGG_CHUNK))
+        if chunked is None:
+            chunked = _interleave_run(params, cfg, kv_quant, "chunked",
+                                      DISAGG_CHUNK)
+            gc.collect()
+            torch.cuda.empty_cache()
+        runs[f"chunked@{DISAGG_CHUNK}"] = chunked
+        for mode, extra in DISAGG_RUNS:
+            lanes = int(extra.get("SERVE_PREFILL_LANES", "1"))
+            tag = f"disagg lanes {lanes}" + (
+                ", stream" if extra.get("SERVE_PREFILL_STREAM") else "")
+            run = _interleave_run(params, cfg, kv_quant, mode, DISAGG_CHUNK,
+                                  extra_env=extra)
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(_disagg_line(tag, run))
+            _disagg_checks(tag, run, n_req,
+                           bool(extra.get("SERVE_PREFILL_STREAM")))
+            runs[tag] = run
+        base = runs[f"chunked@{DISAGG_CHUNK}"]
+        for tag, run in runs.items():
+            same = sum(run["outputs"][k] == base["outputs"][k]
+                       for k in base["outputs"])
+            run["equal_to_chunked"] = f"{same}/{len(base['outputs'])}"
+        log(f"disagg {kv_quant}: streams equal to chunked@{DISAGG_CHUNK}'s "
+            + "; ".join(f"{t} {r['equal_to_chunked']}"
+                        for t, r in runs.items())
+            + " (not gated: a whole-prompt prefill, a slice and the "
+              "engine's batched slices round differently in bf16)")
+        if kv_quant == "none":
+            inproc4 = runs["disagg lanes 4, stream"]["outputs"]
+        out[kv_quant]["traffic"] = {
+            t: {k: v for k, v in r.items() if k != "outputs"}
+            for t, r in runs.items()}
+    # (c) the remote run: a prefill pod in its own process on this card
+    free_gb = torch.cuda.mem_get_info()[0] / 1e9
+    proc, ep, logf, boot_s = _start_prefill_pod(lanes=4)
+    # the client as a replica builds it from its environment, with its
+    # two workers: a handoff of 7b's 128 MiB blocks crosses the loopback
+    # wire in about a second (Queue B item 14), so the residents may
+    # attach two at a time and the first may finish before the last
+    # attaches — the run records how many ever decoded together
+    remote_env = {"SERVE_PREFILL_REMOTE": "1", "SERVE_PREFILL_PEERS": ep,
+                  "SERVE_PREFILL_STREAM": "1"}
+    client = remote_prefill_client_from_env(remote_env)
+    try:
+        stamps = _stamp_client(client)
+        run = _interleave_run(
+            params, cfg, "none", "disagg", DISAGG_CHUNK,
+            extra_env=remote_env, ring_extra={"prefill_client": client},
+            wait_all=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+        long_stamps = [st for st in stamps.values()
+                       if st["n"] == INTERLEAVE["long_prompt"]]
+        wire = _wire_reading(ep, list(range(1, INTERLEAVE["long_prompt"]
+                                            + 1)),
+                             handoff_fingerprint(
+                                 cfg, block_size=RING["block_size"],
+                                 kv_quant="none", top_k=None, top_p=None))
+    except Exception:
+        try:
+            with urllib.request.urlopen(f"http://{ep}/statusz",
+                                        timeout=10) as r:
+                pod = r.read().decode()[:1500]
+        except OSError as e:
+            pod = repr(e)
+        log(f"3o remote failed: the card's free memory "
+            f"{torch.cuda.mem_get_info()[0] / 1e9:.2f} GB now, "
+            f"{free_gb:.2f} GB before the pod; client {client.stats}, "
+            f"its workers alive {[t.is_alive() for t in client._threads]}"
+            f", jobs queued {client.jobs.qsize()}; the pod's /statusz "
+            f"{pod}")
+        raise
+    finally:
+        code = _stop_prefill_pod(proc)
+        client.close()
+        log(f"3o: the prefill pod's output (tail): {_log_tail(logf, 1500)}")
+    tag = "remote (a prefill pod, 4 lanes, stream)"
+    handoff = [{"bytes": st["bytes"], "frames": st["frames"],
+                "first_frame_s": st.get("t_first_frame", 0) - st["t0"],
+                "final_s": st.get("t_final", 0) - st["t0"],
+                "gb_s": st["bytes"] / max(1e-9, st.get("t_final", 0)
+                                          - st["t0"]) / 1e9}
+               for st in long_stamps]
+    log(_disagg_line(tag, run))
+    log(f"disagg remote: the card's free memory before the pod "
+        f"{free_gb:.2f} GB; pod ready {boot_s:.1f} s after its start, exit "
+        f"code {code} after SIGTERM; the long prompts' handoffs "
+        f"{handoff} (bytes over submit-to-final: prefill and wire "
+        f"together); one whole-envelope POST of a 1,536-token prompt "
+        f"{wire}; the client's workers {len(client._threads)}; residents "
+        f"decoding at once at most {run['residents_overlap_max']} of "
+        f"{INTERLEAVE['residents']}, {run['residents_done_before_long']} "
+        f"resolved before the long prompts came; streams equal to the "
+        f"in-process 4-lane run's "
+        f"{sum(run['outputs'][k] == inproc4[k] for k in inproc4)}/"
+        f"{len(inproc4)} (not gated: the batch each slice runs in may "
+        f"differ)")
+    if code != 83:
+        raise AssertionError(f"3o: the prefill pod exited {code} after "
+                             f"SIGTERM, not EXIT_PREEMPTED (83): "
+                             f"{_log_tail(logf)}")
+    if run["disagg"]["remote_prefills"] != n_req:
+        raise AssertionError(f"3o remote: {run['disagg']} (want "
+                             f"{n_req} remote prefills)")
+    _disagg_checks(tag, run, n_req, frames=True)
+    out["none"]["remote"] = dict(
+        {k: v for k, v in run.items() if k != "outputs"},
+        pod_boot_s=boot_s, pod_exit=code, long_handoffs=handoff, wire=wire)
+    # (d) the copy alone
+    alone = _handoff_timings(params, cfg)
+    log(f"disagg: the handoff copy of a 1,536-token prompt (6 blocks) "
+        f"alone, device ms (graph) / eager ms / bound ms / bytes: "
+        + "; ".join(f"{k} {v['ms']:.4f} / {v['eager_ms']:.4f} / "
+                    f"{v['bound_ms']:.4f} / {v['bytes']}"
+                    for k, v in alone.items()) + f" on {card_line()}")
+    for report, kv_quant in zip(reports, ("none", "int8")):
+        report["disagg"] = dict(out[kv_quant], copy_alone=alone[kv_quant])
 
 
 def _zero_launches() -> None:
@@ -5940,6 +6437,162 @@ def phase_chunked_equalities() -> None:
     torch.cuda.empty_cache()
 
 
+# phase 4m: 4i's traffic on disaggregated rings at 7b width, 2 layers,
+# f32, every dispatch a graph replay: the 1-lane engine (megastep 1 and
+# 4), the 4-lane engine with and without streamed frames (its own prefix
+# cache on), a remote prefill pod (4 lanes, frames streamed; a server in
+# this process on the card) and a speculative ring (a self-draft, K 4),
+# beside the inline ring and an inline speculative ring
+DISAGG_VARIANTS = (
+    ("inline", {}),
+    ("lanes 1", {"prefill_mode": "disagg"}),
+    ("lanes 1, megastep 4", {"prefill_mode": "disagg", "megastep": 4}),
+    ("lanes 4", {"prefill_mode": "disagg", "prefill_lanes": 4}),
+    ("lanes 4, stream", {"prefill_mode": "disagg", "prefill_lanes": 4,
+                         "prefill_stream": True,
+                         "prefill_prefix_blocks": 64}),
+    ("remote", {"prefill_mode": "disagg"}),
+    ("inline speculative", {"spec_k": 4}),
+    ("speculative", {"prefill_mode": "disagg", "spec_k": 4}))
+
+
+def phase_disagg_equalities() -> None:
+    """Phase 4m: disaggregated rings == the inline ring == ``generate``
+    on both pools under graph replay; see the module docstring."""
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.infer import decode as D
+    from paddle_operator_tpu_torch.infer.batcher import ContinuousBatcher
+    from paddle_operator_tpu_torch.infer.prefill_serve import (
+        RemotePrefillClient,
+        make_prefill_server,
+    )
+    from paddle_operator_tpu_torch.models.llama import make_model
+    from paddle_operator_tpu_torch.ops import decode_attention as DA
+
+    params, cfg = make_model("7b", device="cuda", seed=7, n_layers=2,
+                             dtype=torch.float32)
+    rng = np.random.default_rng(7)
+    first = [rng.integers(0, cfg.vocab_size, n).tolist()
+             for n in (40, 300, 129, 64)]
+    # then: a full hit capped at 63 rows and a 160-token hit with a
+    # 37-token suffix — both admit inline through the suffix insert
+    then = [first[3], first[1][:160]
+            + rng.integers(0, cfg.vocab_size, 37).tolist()]
+    n_new, max_len, slice_rows, bs = 16, 512, 24, 16
+    with torch.inference_mode():
+        want = [D.generate(params, cfg,
+                           torch.tensor([p], dtype=torch.int32,
+                                        device="cuda"),
+                           max_new_tokens=n_new, max_len=max_len)[0]
+                .tolist() for p in first + then]
+    for pool, ring in (("paged", {"paged": True, "block_size": bs}),
+                       ("int8", {"paged": True, "block_size": bs,
+                                 "kv_quant": "int8"})):
+        quant = pool == "int8"
+        fn, attr = ((DA.paged_decode_attention, "quant_launches") if quant
+                    else (DA.paged_decode_attention, "launches"))
+        outs = {}
+        for name, extra in DISAGG_VARIANTS:
+            kw = dict(ring, **extra)
+            psrv = None
+            if name == "remote":
+                psrv = make_prefill_server(
+                    "127.0.0.1", 0, params, cfg, block_size=bs,
+                    max_len=max_len, kv_quant=kw.get("kv_quant", "none"),
+                    lanes=4, prefill_chunk=slice_rows, prefix_blocks=64)
+                threading.Thread(target=psrv.serve_forever,
+                                 daemon=True).start()
+                kw["prefill_client"] = RemotePrefillClient(
+                    peers=[f"127.0.0.1:{psrv.server_address[1]}"],
+                    stream=True)
+            spec = "spec_k" in extra
+            if spec:
+                kw.update(draft_params=params, draft_cfg=cfg)
+            b = ContinuousBatcher(params, cfg, slots=4, max_len=max_len,
+                                  chunk_tokens=8, prewarm=True,
+                                  prefill_chunk=slice_rows, **kw)
+            ex = b.executor
+            try:
+                if not b.prewarmed.wait(600) or ex.needs_capture:
+                    raise AssertionError(f"4m {pool} {name}: no graphs "
+                                         f"captured: {b.prewarm_error!r}")
+                graphs, ptrs = ex._graphs, ex._state_ptrs()
+                _zero_launches()
+                out = [h.result(timeout=600) for h in [
+                    b.submit(p, max_new_tokens=n_new) for p in first]]
+                out += [b.submit(p, max_new_tokens=n_new).result(
+                    timeout=600) for p in then]
+                launched = getattr(fn, attr)
+                bad = []
+                if ex.graph_replays != b.stats["chunks"] or not (
+                        ex._graphs is graphs and ex._state_ptrs() == ptrs):
+                    bad.append("not every dispatch a replay of the prewarm "
+                               "graphs at their addresses")
+                if spec:
+                    if not DA.decode_attention.launches:
+                        bad.append("no draft tick on kernel #1")
+                elif launched != cfg.n_layers * 8 * b.megastep \
+                        * b.stats["chunks"] or not launched:
+                    bad.append(f"{pool} kernel launches {launched}")
+                b.pool.check_invariant()
+                cold = ((len(first) + (len(then) if spec else 0))
+                        if extra.get("prefill_mode") == "disagg" else 0)
+                if b.stats["disagg_prefills"] != cold:
+                    bad.append(f"{b.stats['disagg_prefills']} handoffs "
+                               f"(want {cold})")
+                if not spec and b.pool.stats["prefix_hit_tokens"] != 63 + 160:
+                    bad.append(f"prefix hit tokens "
+                               f"{b.pool.stats['prefix_hit_tokens']}")
+                if name == "remote" and b.stats["remote_prefills"] != cold:
+                    bad.append(f"{b.stats['remote_prefills']} remote "
+                               "prefills")
+                if name.endswith("stream") and not b.stats["handoff_frames"]:
+                    bad.append("no streamed frame landed")
+                if bad:
+                    raise AssertionError(f"4m {pool} {name}: {bad}")
+                outs[name] = out
+            finally:
+                b.close()
+                if psrv is not None:
+                    psrv.shutdown()
+                    psrv.server_close()
+                    psrv.frontend.close()
+
+        def agree(a, b):
+            return f"{sum(x == y for x, y in zip(a, b))}/{len(b)}"
+
+        line = (f"disagg {pool} rings (7b width, 2 layers, f32, graph "
+                f"replays): inline == generate on "
+                f"{agree(outs['inline'], want)}; beside inline: "
+                + "; ".join(f"{n} {agree(o, outs['inline'])}"
+                            for n, o in outs.items() if n != "inline")
+                + "; the 4-lane rings and the remote pod beside lanes 4: "
+                + "; ".join(f"{n} {agree(outs[n], outs['lanes 4'])}"
+                            for n in ("lanes 4, stream", "remote"))
+                + "; speculative beside inline speculative "
+                + agree(outs["speculative"], outs["inline speculative"]))
+        log(line)
+        if not quant:
+            if not all(o == want for o in outs.values()):
+                raise AssertionError(line)
+        else:
+            # the int8 pool's tokens need not equal the exact cache's,
+            # nor the engine's slices' (which read earlier blocks as
+            # codes) a whole prompt's: the 1-lane engine runs the inline
+            # insert's program (a speculative ring's too), the 4-lane
+            # rings and the pod one program
+            if not (outs["lanes 1"] == outs["lanes 1, megastep 4"]
+                    == outs["inline"]
+                    and outs["speculative"] == outs["inline speculative"]
+                    and outs["lanes 4"] == outs["lanes 4, stream"]
+                    == outs["remote"]):
+                raise AssertionError(line)
+    del params
+    torch.cuda.empty_cache()
+
+
 # phase 3l: 3b's server and burst as speculative rings (SERVE_SPEC_K=4).
 SPEC_K = 4
 # (a)'s verify logits at its cold streams' committed tokens, against the
@@ -7400,24 +8053,26 @@ def _burst_outcomes(results: dict, ring_tokens: dict, what: str) -> tuple:
 
 
 def _live_victim_injector(CH, spec: str, seed: int):
-    """A ``ChaosInjector`` whose seeded ``nan_lane`` pick (an event that
-    names no lane) is made among the lanes that will still decode the
-    poisoned dispatch: decode-active, not done, and with more tokens
-    left than the dispatches already in flight can emit.  A resident
-    lane that the in-flight dispatches finish is dropped at the consume
-    without a verdict, so a pick of it injects nothing; which lanes
-    those are depends on how the burst's requests arrived.  While no
-    lane qualifies, the event moves on to the next dispatch."""
+    """A ``ChaosInjector`` whose ``nan_lane`` victim is a lane that will
+    still decode the poisoned dispatch: decode-active, not done, and
+    with more tokens left than the dispatches already in flight can
+    emit — the seeded pick among such lanes for an event that names no
+    lane, the named lane once it is such a lane.  An empty lane, one
+    still prefilling or one that the in-flight dispatches finish is
+    dropped at the consume without a verdict, so poisoning it injects
+    nothing; which lanes those are depends on how the requests arrived.
+    While no lane qualifies, the event moves on to the next dispatch."""
 
     class LiveVictim(CH.ChaosInjector):
         def _apply(self, ev, idx):
-            if ev.kind == "nan_lane" and ev.arg is None:
+            if ev.kind == "nan_lane":
                 b = self.batcher
                 pre = b._pending_prefill_slots()
                 need = b.pipeline_depth * b.executor.chunk * b.megastep
                 live = [i for i, r in enumerate(b.lane)
                         if r is not None and not r.done.is_set()
-                        and i not in pre and b._lane_left[i] > need]
+                        and i not in pre and b._lane_left[i] > need
+                        and (ev.arg is None or i == int(ev.arg))]
                 if not live:
                     self.events.setdefault(idx + 1, []).append(ev)
                     return
@@ -7775,7 +8430,7 @@ def phase_ring_ops_equalities() -> None:
                 if kind != "int8" and again != want:
                     raise AssertionError(f"4l {what}: a prefix hit != the "
                                          "cold prefill")
-                inj = CH.ChaosInjector("").install(b)
+                inj = _live_victim_injector(CH, "", seed=0).install(b)
                 nxt = inj.dispatches
                 inj.events[nxt] = [CH.ChaosEvent("nan_lane", nxt, 1)]
                 outs = []
@@ -7897,8 +8552,8 @@ def main() -> int:
     phases = set(ap.parse_args().phases.split(","))
     if phases - set(PHASES):
         ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
-    if phases & {"3e", "3n"}:
-        phases.add("3b")            # 3e and 3n are held to 3b's tokens
+    if phases & {"3e", "3n", "3o"}:
+        phases.add("3b")        # 3e, 3n and 3o are held to 3b's tokens
     if not (ROOT / "paddle_operator_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: the paddle_operator_tpu_torch package is not "
               "beside this script", file=sys.stderr)
@@ -7972,7 +8627,7 @@ def main() -> int:
     run("2f", phase_adam8bit_vs_plain, adam8)
     run("2c", phase_flash_vs_plain, flash)
     if phases & {"3", "3b", "3d", "3e", "3g", "3h", "3i", "3j", "3l",
-                  "3m", "3n"}:
+                  "3m", "3n", "3o"}:
         params, cfg = make_7b()
         run("3", phase_main_path, contiguous, params, cfg)
         ring_tokens = run("3b", phase_ring_main_path, paged, params, cfg)
@@ -7995,7 +8650,7 @@ def main() -> int:
         run("3i", phase_weight_quant_ring, qmm, qmm_b, params, cfg)
         gc.collect()
         torch.cuda.empty_cache()
-        run("3j", phase_interleave, (paged, quant), params, cfg)
+        runs_3j = run("3j", phase_interleave, (paged, quant), params, cfg)
         gc.collect()
         torch.cuda.empty_cache()
         run("3l", phase_spec_ring, contiguous, qmm, params, cfg,
@@ -8007,6 +8662,10 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         run("3n", phase_ring_ops, paged, params, cfg, ring_tokens)
+        gc.collect()
+        torch.cuda.empty_cache()
+        run("3o", phase_disagg, (paged, quant), params, cfg, ring_tokens,
+            runs_3j)
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -8025,6 +8684,7 @@ def main() -> int:
     run("4j", phase_spec_equalities)
     run("4k", phase_adapter_equalities)
     run("4l", phase_ring_ops_equalities)
+    run("4m", phase_disagg_equalities)
     log(f"all phases: {time.perf_counter() - t_all:.1f}s")
 
     order = ["name", "route", "source", "replaces", "launches",
@@ -8033,7 +8693,7 @@ def main() -> int:
              "nan_lanes", "ring_ops",
              "decode_ms_per_step_b4", "kernel1_ms", "paged_bf16_ms", "ring",
              "ring_megastep", "spec", "draft_quant", "preempt", "host_tier",
-             "interleave", "prefill", "probes_ms", "limit_check", "train",
+             "interleave", "disagg", "prefill", "probes_ms", "limit_check", "train",
              "checkpoint", "depth",
              "fwd_bwd", "designs",
              "ptxas",

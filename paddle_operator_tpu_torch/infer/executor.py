@@ -61,13 +61,24 @@ threads ``lora=(stacks, aid)`` through every program: the registry's
 fixed stacks and a per-lane adapter-slot buffer ``RingExecutor.aid``
 (device int32, written in place by admission, eviction, restore and a
 heal), so a batch of lanes on different adapters is one dispatch, one
-CUDA graph replay on the card.  Not ported yet (ROADMAP.md Queue A):
-disaggregated prefill.
+CUDA graph replay on the card.
+
+Disaggregated prefill (SERVE_PREFILL=disagg) moves cold prompts off the
+ring's stream: :class:`PrefillExecutor` prefills them on its own thread,
+CUDA stream and block pool (one lane, or N chunk-interleaved lanes), and
+the ring lands each result by an in-place block copy into the lane's
+reserved blocks (``paged.make_pool_frame_transfer``, and on the int8
+pool ``paged.make_pool_tail_copy``, queued on the ring's stream behind
+the engine's event) and a
+tiny attach (:func:`make_attach_lane`; :func:`make_spec_attach` on a
+speculative ring).  A remote prefill pod's result lands through the
+promote scatter instead.
 """
 
 from __future__ import annotations
 
 import gc
+import queue
 import threading
 import time
 from collections import deque
@@ -845,6 +856,865 @@ def _default_buckets(max_len: int) -> Tuple[int, ...]:
 
 
 # ---------------------------------------------------------------------------
+# Disaggregated prefill: the handoff programs and the prefill engine
+# ---------------------------------------------------------------------------
+
+
+def make_attach_lane():
+    """The decode ring's half of a disaggregated handoff: activate lane
+    ``slot`` — fill position, carry token, temperature, sampling seed —
+    once the prefilled blocks have been copied into the decode pool.  No
+    forward runs here; that is the point of disaggregation.  Every write
+    is in place (the captured graphs read the lane state at fixed
+    addresses); ``first`` is a device scalar (an in-process engine's
+    sample, copied on the device) or a host int (a remote pod's).
+
+    ``attach(cache, tok, temp, seeds, slot, first, prompt_len, temp_val,
+    seed)``"""
+
+    def attach(cache, tok, temp, seeds, slot, first, prompt_len, temp_val,
+               seed):
+        cache["pos"][slot].fill_(int(prompt_len))
+        if isinstance(first, torch.Tensor) and first.device == tok.device:
+            tok[slot] = first
+        else:
+            tok[slot].fill_(int(first))
+        temp[slot].fill_(float(temp_val))
+        seeds[slot].fill_(int(seed))
+
+    return attach
+
+
+def _draft_prefill(dcfg: LlamaConfig, dparams, dcache, prompt: torch.Tensor,
+                   prompt_len: int, slot: int) -> None:
+    """Prefill a prompt ([1, n], its first ``prompt_len`` tokens real)
+    through the draft model into a batch-of-one lane and splice it into
+    the draft ring's lane ``slot`` at position ``prompt_len``, in place.
+    The logits are discarded: the draft needs only the KV context to
+    propose from.  The draft lane is a contiguous ring whatever the
+    target's cache is."""
+    dlane = D.init_cache(dcfg, 1, prompt_len, device=prompt.device)
+    _, dlane = D._forward(dcfg, dparams, prompt[:, :prompt_len], dlane,
+                          last_only=True)
+    _splice_lane(dcache, dlane, slot, prompt_len)
+
+
+def make_spec_attach(cfg: LlamaConfig, dcfg: LlamaConfig, bucket: int):
+    """The disaggregated handoff for a SPECULATIVE ring: the target KV
+    arrived by block copy, but the DRAFT lane still needs its prompt
+    context to propose from — prefill it here (:func:`_draft_prefill`)
+    together with the lane activation.  ``bucket`` is the admission's
+    bucket (the prompt is forwarded at its own length).
+
+    ``attach(dparams, dcache, cache, tok, temp, seeds, prompt [1, n],
+    prompt_len, slot, first, temp_val, seed)``, in place."""
+    lane = make_attach_lane()
+
+    def attach(dparams, dcache, cache, tok, temp, seeds, prompt,
+               prompt_len, slot, first, temp_val, seed):
+        _draft_prefill(dcfg, dparams, dcache, prompt, prompt_len, slot)
+        lane(cache, tok, temp, seeds, slot, first, prompt_len, temp_val,
+             seed)
+
+    return attach
+
+
+def make_disagg_prefill(cfg: LlamaConfig, bucket: int, block_size: int,
+                        top_k: Optional[int] = None,
+                        top_p: Optional[float] = None,
+                        quant: bool = False):
+    """The 1-lane engine's whole-prompt program: prefill a prompt into
+    the ENGINE pool's blocks (the same ``decode.paged_prefill`` call as
+    the inline paged insert, at the prompt's own length — what keeps the
+    disaggregated first token and KV bit-identical to inline) and sample
+    the first token through the shared rule.  It touches no ring state:
+    the handoff copies blocks and attaches the lane later, on the ring's
+    thread.  ``bucket`` (a block multiple) is the engine's bucket.
+
+    ``quant=True``: whole blocks quantize once into the engine's int8
+    pool and the prompt's write-frontier block lands exact in tail row 0
+    (the 1-lane pool is one lane wide) — the handoff carries codes,
+    scales AND tail across.
+
+    ``prefill(params, cache, table_row, prompt [1, n], prompt_len,
+    temp_val, seed, lora=None) -> first`` (a 0-d device tensor)."""
+    if bucket % block_size:
+        raise ValueError(f"prefill bucket {bucket} not a multiple of the "
+                         f"block size {block_size}")
+
+    def prefill(params, cache, table_row, prompt, prompt_len, temp_val,
+                seed, lora=None):
+        if quant:
+            logits, _, tail_k, tail_v = D.paged_prefill(
+                params, cfg, prompt[:, :prompt_len], cache, table_row,
+                block_size=block_size, last_only=True, quant=True,
+                prompt_len=prompt_len, lora=lora)
+            cache["kt"][:, 0] = tail_k[:, 0]
+            cache["vt"][:, 0] = tail_v[:, 0]
+        else:
+            logits, _ = D.paged_prefill(params, cfg, prompt[:, :prompt_len],
+                                        cache, table_row,
+                                        block_size=block_size,
+                                        last_only=True, lora=lora)
+        dev = logits.device
+        return _sample_tokens(
+            logits[0, -1][None],
+            torch.full((1,), float(temp_val), device=dev),
+            torch.full((1,), int(seed), dtype=torch.int64, device=dev),
+            torch.full((1,), int(prompt_len) - 1, dtype=torch.int32,
+                       device=dev), top_k, top_p)[0]
+
+    return prefill
+
+
+def _engine_lanes(cache: Dict[str, torch.Tensor], starts: torch.Tensor,
+                  quant: bool) -> Dict[str, torch.Tensor]:
+    """The N-lane engine pool as a multi-lane cache dict positioned at
+    ``starts`` [N] (the batch index IS the engine lane, so the pool's
+    per-lane staging tails address directly)."""
+    lane = {"k": cache["k"], "v": cache["v"], "pos": starts}
+    if quant:
+        for key in ("ks", "vs", "kt", "vt"):
+            lane[key] = cache[key]
+    return lane
+
+
+def make_pool_prefill_slice(cfg: LlamaConfig, quant: bool = False):
+    """One MULTI-LANE intermediate prefill slice for the N-lane engine:
+    advance every participating lane's job by ``slice`` tokens in ONE
+    forward — per-lane block tables, per-lane absolute positions, no lm
+    head.  Lanes sitting the iteration out ride masked: their rows route
+    to the trash block (``limits`` 0) and — quant — their staging-tail
+    writes go to the trash tail (``mask``), so a paused lane's live tail
+    is never touched.  bf16 writes go whole-block (``aligned``: the
+    engine rounds its slice to a block multiple, so every start is
+    block-aligned); the quant tail protocol is per-row.
+
+    ``slice(params, cache, tables [N, M], toks [N, sb], starts [N],
+    limits [N], mask [N], lora=None)``, the pool written in place."""
+    from paddle_operator_tpu_torch.infer.speculative import (
+        _multi_forward_paged,
+    )
+
+    def slice_(params, cache, tables, toks, starts, limits, mask,
+               lora=None):
+        _multi_forward_paged(cfg, params, toks,
+                             _engine_lanes(cache, starts, quant), tables,
+                             limit=limits, quant=quant, head=False,
+                             lane_mask=mask if quant else None, lora=lora,
+                             aligned=not quant)
+
+    return slice_
+
+
+def make_pool_prefill_final(cfg: LlamaConfig,
+                            top_k: Optional[int] = None,
+                            top_p: Optional[float] = None,
+                            quant: bool = False):
+    """The FINAL prefill slice for the N-lane engine: each finishing
+    lane's last ``n_rows`` prompt tokens (right-padded to the slice
+    width) WITH the lm head, and every finishing lane's first token
+    sampled through the shared rule at its last real row.  Lanes that do
+    not finish ride masked as in :func:`make_pool_prefill_slice`; their
+    sampled "firsts" are garbage the host ignores.  bf16 writes are
+    whole-block like the intermediate slice: the straddling block's pad
+    rows land in the lane's real block (masked in the slice, overwritten
+    by decode before any read), as in the JAX engine.
+
+    ``final(params, cache, tables [N, M], toks [N, sb], n_rows [N],
+    starts [N], temps [N], seeds [N], limits [N], mask [N], lora=None)
+    -> firsts [N]``"""
+    from paddle_operator_tpu_torch.infer.speculative import (
+        _multi_forward_paged,
+    )
+
+    def final(params, cache, tables, toks, n_rows, starts, temps, seeds,
+              limits, mask, lora=None):
+        logits, _ = _multi_forward_paged(
+            cfg, params, toks, _engine_lanes(cache, starts, quant), tables,
+            limit=limits, quant=quant, lane_mask=mask if quant else None,
+            lora=lora, aligned=not quant)
+        last = torch.clamp(n_rows - 1, min=0)
+        rows = logits.gather(1, last.long()[:, None, None].expand(
+            -1, 1, logits.shape[-1]))[:, 0]
+        return _sample_tokens(rows, temps.float(), seeds.long(),
+                              (starts + last).to(torch.int32), top_k, top_p)
+
+    return final
+
+
+class PrefillPrefixCache:
+    """The prefill engine's OWN radix prefix cache: completed full
+    blocks' exact pool bytes, host-resident, keyed by the SAME
+    ``utils/radixkey`` rolling-hash chain the decode radix uses — so a
+    repeated system prompt prefills only its suffix on the prefill side
+    too.  A hit's payloads upload into the job's lane blocks through the
+    promote scatter (byte-exact, no requantization), which keeps a hit
+    bit-identical to cold.  Bounded LRU by block count; stored chunks
+    are compared on a hit (the radix collision check).  A payload's
+    device-to-host copy may still be in flight when it is stored: its
+    event is waited for in :meth:`materialize`, before the next lookup."""
+
+    def __init__(self, capacity_blocks: int) -> None:
+        from collections import OrderedDict
+
+        self.cap = int(capacity_blocks)
+        self._d: "OrderedDict[Any, tuple]" = OrderedDict()
+        self._lazy: List[Any] = []
+
+    def __len__(self) -> int:
+        return len(self._d)
+
+    def materialize(self) -> None:
+        for ev in self._lazy:
+            ev.synchronize()
+        self._lazy.clear()
+
+    def put(self, key, chunk: Tuple[int, ...], payload: Dict[str, Any],
+            event=None) -> None:
+        if self.cap <= 0 or key in self._d:
+            if key in self._d:
+                self._d.move_to_end(key)
+            return
+        self._d[key] = (tuple(chunk), payload)
+        if event is not None:
+            self._lazy.append(event)
+        while len(self._d) > self.cap:
+            self._d.popitem(last=False)
+
+    def get(self, key, chunk: Tuple[int, ...]) -> Optional[Dict[str, Any]]:
+        ent = self._d.get(key)
+        if ent is None or ent[0] != tuple(chunk):
+            return None
+        self._d.move_to_end(key)
+        return ent[1]
+
+
+class _EngineJob:
+    """One in-flight job's host state on the N-lane prefill engine."""
+
+    __slots__ = ("req", "slot", "n", "start", "hit", "frames_done",
+                 "prompt")
+
+    def __init__(self, req, slot, start, hit):
+        self.req = req
+        self.slot = slot
+        self.prompt = [int(t) for t in req.prompt]
+        self.n = len(self.prompt)
+        self.start = start          # next absolute row to prefill
+        self.hit = hit              # prefix-cache rows (block-aligned)
+        self.frames_done = 0        # blocks already posted as frames
+
+
+class PrefillExecutor:
+    """The disaggregated prefill engine: its OWN thread, its OWN CUDA
+    stream and its OWN block pool, so a cold 2k-token prefill never
+    occupies the decode ring's stream.  The decode scheduler submits
+    ``(request, slot)`` jobs; this thread prefills prompts into its
+    private pool and posts results the scheduler lands through the
+    handoff path.
+
+    **Two engine shapes.**
+
+    - ``lanes == 1`` (default): the monolithic engine — one job at a
+      time, the whole prompt in one forward into lane 0's blocks, one
+      terminal item (below) with every block; the parity ORACLE for the
+      rest.
+    - ``lanes >= 2``: lane ``i`` owns the FIXED identity blocks
+      ``[1 + i*M, 1 + (i+1)*M)`` (block 0 stays trash) and the loop is a
+      mini-ring: each iteration coalesces every active job into ONE
+      batched slice (``make_pool_prefill_slice``), long jobs advance one
+      ``prefill_chunk`` slice per iteration ALONGSIDE short ones
+      (chunk-interleaved: a 40-token prompt is never stuck behind a
+      2k-token one), and finishing jobs run the lm head and the shared
+      first-token sample in the batched final program.
+
+    **Results.**  A job ends in ONE terminal item, ``("final", req, slot,
+    snapshot, lane, j0, n_blocks, first, t_done)``: blocks ``[j0,
+    n_blocks)`` of engine lane ``lane``, its (int8) staging-tail row and
+    the first token.  **Streamed handoff** (``stream=True``, lanes >= 2):
+    completed block groups post before it as ``("frame", req, slot,
+    snapshot, lane, j0, j1)`` items the decode side copies WHILE this
+    engine computes the rest, and the terminal's ``j0`` is the first
+    block no frame carried (0 without frames).
+
+    **The snapshot-lifetime rule.**  A ``snapshot`` is the engine pool
+    itself (its tensors, at fixed addresses) plus ``"ready"``: the CUDA
+    event recorded on the engine's stream after the dispatch that wrote
+    the blocks (None off the card).  The consumer's stream waits on it
+    before it copies — the engine's writes are ordered before the
+    transfer by the event, not by the host.  The pool is written in
+    place (where JAX arrays were immutable versions), so a lane is
+    reassigned only after the consumer's copy of its job's last item has
+    completed: posting a job's terminal item — its final or its error —
+    HOLDS the lane, the consumer calls :meth:`release` once its copy is
+    queued, with an event recorded on its own stream after that copy,
+    and this engine's stream waits on that event before it next writes
+    the lane.  Every terminal item must be released, landed or dropped;
+    a jobs's frames precede its terminal item, so the terminal's release
+    covers them.
+
+    **Prefix reuse** (``prefix_blocks > 0``, lanes >= 2): a
+    :class:`PrefillPrefixCache` keyed on the shared radix chain; a hit
+    uploads cached block bytes into the job's lane and the prefill
+    starts at the (block-aligned) hit frontier — bit-identical to cold,
+    because the uploaded bytes ARE a cold run's.  Adapter jobs skip the
+    cache (deltas change the KV).
+
+    Fault isolation: a prefill dispatch failure posts ``(request, slot,
+    error)`` — batch-granular on the N-lane engine (one fused dispatch
+    serves every active job, so all of them fail; their lanes are
+    rewritten by the next assignments) — and the decode ring never sees
+    the fault.  Jobs whose request resolved meanwhile (cancel, deadline,
+    heal) are dropped at either end.
+
+    The int8 engine pool starts its scales at 0.0, the JAX pool's
+    initial value (the decode pool's is 1.0): a block a handoff carries
+    that no job ever committed — an N-lane job's write-frontier block —
+    crosses the wire with the bytes a JAX engine sends."""
+
+    def __init__(self, params: Any, cfg: LlamaConfig, *, max_len: int,
+                 block_size: int, buckets: Tuple[int, ...],
+                 top_k: Optional[int] = None,
+                 top_p: Optional[float] = None,
+                 kv_quant: str = "none", adapters=None,
+                 lanes: int = 1, prefill_chunk: int = 64,
+                 stream: bool = False, prefix_blocks: int = 0) -> None:
+        from paddle_operator_tpu_torch.infer import paged as PG
+
+        self._pg = PG
+        # the adapter registry shared with the decode ring: a cold
+        # adapter prompt prefills WITH its delta
+        self.adapters = adapters
+        self.params = params
+        self.cfg = cfg
+        self.device = params.tok_embed.embedding.device
+        self.block_size = int(block_size)
+        self.kv_quant = kv_quant
+        self.quant = kv_quant == "int8"
+        self.lanes = max(1, int(lanes))
+        self.stream = bool(stream) and self.lanes > 1
+        self.prefill_chunk = max(1, int(prefill_chunk))
+        if self.lanes > 1 and not self.quant:
+            # bf16 slices write WHOLE BLOCKS, which needs every slice
+            # start block-aligned: round the slice up to a block
+            # multiple (the int8 tail protocol is per-row regardless)
+            self.prefill_chunk = (-(-self.prefill_chunk // self.block_size)
+                                  * self.block_size)
+        self.max_blocks = -(-D.cache_alloc_len(max_len) // self.block_size)
+        m = self.max_blocks
+        self.cache = PG.init_paged_cache(
+            cfg, self.lanes, self.lanes * m + 1, self.block_size,
+            device=self.device, quant=kv_quant)
+        if self.quant:
+            for key in ("ks", "vs"):
+                self.cache[key].zero_()
+        self.table_row = to_device(np.arange(1, m + 1, dtype=np.int32),
+                                   self.device)
+        self.tables = np.stack(
+            [np.arange(1 + i * m, 1 + (i + 1) * m, dtype=np.int32)
+             for i in range(self.lanes)])
+        self._cuda = self.device.type == "cuda"
+        self._stream = (torch.cuda.Stream(self.device) if self._cuda
+                        else None)
+        # the snapshot-lifetime rule: lane -> the request whose terminal
+        # item is out, and lane -> the consumer's copy event
+        self._cv = threading.Condition()
+        self._held: Dict[int, Any] = {}
+        self._fence: Dict[int, Any] = {}
+        self.lane_waits = 0
+        # test hook: a callable the loop invokes at each iteration top
+        self.pause_gate = None
+        # telemetry: batch occupancy EMA (lanes busy / N per iteration)
+        # and per-job head-of-line wait samples
+        self._occ_ema = 0.0
+        self._hol: List[float] = []
+        self._stats_lock = threading.Lock()
+        self.iterations = 0
+        self.prefix_hits = 0
+        # the engine's own radix prefix cache (N-lane engine only — the
+        # 1-lane path stays the byte-identical oracle)
+        self.prefix = (PrefillPrefixCache(prefix_blocks)
+                       if prefix_blocks > 0 and self.lanes > 1 else None)
+        if self.lanes > 1:
+            self.buckets = (self.prefill_chunk,)
+            self._slice_prog = make_pool_prefill_slice(cfg, quant=self.quant)
+            self._final_prog = make_pool_prefill_final(cfg, top_k, top_p,
+                                                       quant=self.quant)
+            self._progs: Dict[int, Any] = {}
+            if self.prefix is not None:
+                self._upload_prog = PG.make_promote_blocks(
+                    self.block_size, quant=self.quant)
+        else:
+            # the engine's own bucket ladder, finer than the ring's:
+            # block-multiple powers of two up to the ring's largest
+            cap = max(buckets)
+            ladder = []
+            b = self.block_size
+            while b < cap:
+                ladder.append(b)
+                b *= 2
+            self.buckets = tuple(ladder) + (cap,)
+            self._progs = {b: make_disagg_prefill(
+                cfg, b, self.block_size, top_k, top_p, quant=self.quant)
+                for b in self.buckets}
+        self.jobs: "queue.Queue[tuple]" = queue.Queue()
+        self.results: "queue.Queue[tuple]" = queue.Queue()
+        if self._cuda:
+            # the pool's zeros and the table were queued on the caller's
+            # stream: the engine's stream starts behind them
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._run, daemon=True, name="prefill-executor")
+        self._thread.start()
+
+    def submit(self, req, slot: int) -> None:
+        self.jobs.put((req, slot, time.monotonic()))
+
+    # -- the snapshot-lifetime rule ------------------------------------------
+
+    def release(self, req, event=None) -> None:
+        """The consumer's half of the snapshot-lifetime rule: ``req``'s
+        terminal item has been landed (its copies queued on the
+        consumer's stream, ``event`` recorded after them) or dropped, so
+        its lane may take the next job — whose writes this engine's
+        stream orders after ``event``."""
+        with self._cv:
+            for lane, r in list(self._held.items()):
+                if r is req:
+                    del self._held[lane]
+                    self._fence[lane] = event
+            self._cv.notify_all()
+
+    def _hold(self, lane: int, req) -> None:
+        with self._cv:
+            self._held[lane] = req
+
+    def _lane_free(self, lane: int) -> bool:
+        with self._cv:
+            return lane not in self._held
+
+    def _claim(self, lane: int) -> bool:
+        """Wait (host) until ``lane``'s last terminal item is released,
+        then order this stream after the consumer's copy.  False when
+        the engine is closing."""
+        with self._cv:
+            if lane in self._held:
+                self.lane_waits += 1
+            while lane in self._held:
+                if self._stop.is_set():
+                    return False
+                self._cv.wait(0.05)
+            ev = self._fence.pop(lane, None)
+        if ev is not None:
+            self._stream.wait_event(ev)
+        return True
+
+    def _mark(self):
+        """An event on the engine's stream after the work queued so far
+        (None off the card)."""
+        if not self._cuda:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(self._stream)
+        return ev
+
+    def _snapshot(self) -> Dict[str, Any]:
+        snap = {key: self.cache[key]
+                for key in ("k", "v", "ks", "vs", "kt", "vt")
+                if key in self.cache}
+        snap["ready"] = self._mark()
+        return snap
+
+    # -- telemetry ------------------------------------------------------------
+
+    def batch_occupancy(self) -> float:
+        """EMA of lanes-busy / N per engine iteration — 1.0 is a
+        saturated batch."""
+        with self._stats_lock:
+            return round(self._occ_ema, 4)
+
+    def hol_wait_ms_p95(self) -> float:
+        """p95 of recent jobs' queue wait (submit -> lane assignment),
+        ms — the head-of-line blocking proxy."""
+        with self._stats_lock:
+            if not self._hol:
+                return 0.0
+            s = sorted(self._hol)
+            return round(s[min(len(s) - 1, int(0.95 * (len(s) - 1)))], 3)
+
+    def _note_wait(self, t_enq: float) -> None:
+        with self._stats_lock:
+            self._hol.append((time.monotonic() - t_enq) * 1e3)
+            if len(self._hol) > 256:
+                del self._hol[:len(self._hol) - 256]
+
+    def _note_occ(self, busy: int) -> None:
+        occ = busy / self.lanes
+        with self._stats_lock:
+            self._occ_ema = (occ if not self._occ_ema
+                             else 0.8 * self._occ_ema + 0.2 * occ)
+            self.iterations += 1
+
+    # -- the engine thread ---------------------------------------------------
+
+    def _run(self) -> None:
+        loop = self._loop_engine if self.lanes > 1 else self._loop
+        with torch.inference_mode():
+            if self._cuda:
+                with torch.cuda.device(self.device), \
+                        torch.cuda.stream(self._stream):
+                    loop()
+            else:
+                loop()
+
+    def _prompt(self, prompt) -> torch.Tensor:
+        """The prompt [1, n] on the card, copied on the engine's stream
+        (a request's ``dev_prompt`` was shipped on another stream)."""
+        return to_device(np.asarray([prompt], np.int32), self.device)
+
+    def _lora1(self, req):
+        if self.adapters is None:
+            return None
+        return (self.adapters.arrays(),
+                torch.full((1,), int(getattr(req, "adapter_idx", 0)),
+                           dtype=torch.int32, device=self.device))
+
+    @torch.inference_mode()
+    def warm(self) -> None:
+        """Run the smallest program once on the engine's stream (the card
+        loads its kernels and the GEMM library its handles before the
+        first cold prompt pays for them).  Writes only lane 0's blocks:
+        call it while no job is in flight."""
+        ctx = (torch.cuda.stream(self._stream) if self._cuda
+               else torch.inference_mode())
+        with ctx:
+            sb = self.buckets[0]
+            if self.lanes == 1:
+                self._progs[sb](self.params, self.cache, self.table_row,
+                                self._prompt([0] * sb), sb, 0.0, 0,
+                                lora=self._lora1(None))
+            else:
+                nl = self.lanes
+                z = torch.zeros((nl,), dtype=torch.int32, device=self.device)
+                tables = to_device(self.tables[:, :1], self.device)
+                toks = torch.zeros((nl, sb), dtype=torch.int32,
+                                   device=self.device)
+                mask = torch.zeros((nl,), dtype=torch.bool,
+                                   device=self.device)
+                lora = self._lora_tail({})
+                self._slice_prog(self.params, self.cache, tables, toks, z, z,
+                                 mask, lora=lora)
+                self._final_prog(self.params, self.cache, tables, toks,
+                                 z + 1, z, z.float(), z, z, mask, lora=lora)
+            if self._cuda:
+                self._stream.synchronize()
+
+    # -- the 1-lane monolithic loop (the oracle) -------------------------------
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                req, slot, t_enq = self.jobs.get(timeout=0.05)
+            except queue.Empty:
+                continue
+            if self.pause_gate is not None:
+                self.pause_gate()
+            if req.done.is_set() or req._cancel:
+                continue            # resolved while queued: drop
+            if not self._claim(0):
+                return
+            try:
+                self._note_wait(t_enq)
+                self._note_occ(1)
+                n = len(req.prompt)
+                pb = next((b for b in self.buckets if b >= n), None)
+                if pb is None:
+                    raise ValueError(f"prompt length {n} exceeds the "
+                                     f"engine's largest bucket "
+                                     f"({self.buckets[-1]})")
+                first = self._progs[pb](
+                    self.params, self.cache, self.table_row,
+                    self._prompt(req.prompt), n, float(req.temperature),
+                    req.seed, lora=self._lora1(req))
+                snap = self._snapshot()
+                self._hold(0, req)
+                self.results.put(("final", req, slot, snap, 0, 0,
+                                  -(-n // self.block_size), first,
+                                  time.monotonic()))
+            except Exception as e:      # noqa: BLE001 — isolate per job
+                self._hold(0, req)
+                self.results.put((req, slot, e))
+
+    # -- the N-lane batched, chunk-interleaved engine ------------------------
+
+    def _prefix_walk(self, prompt: List[int]) -> Tuple[int, list]:
+        """Longest cached chain of leading FULL blocks, capped so at
+        least one real token remains to prefill (the final slice samples
+        from a real row); returns (hit_blocks, payloads)."""
+        from paddle_operator_tpu_torch.utils.radixkey import chain_key
+
+        bs = self.block_size
+        self.prefix.materialize()
+        key = None
+        payloads = []
+        for j in range((len(prompt) - 1) // bs):
+            chunk = tuple(prompt[j * bs:(j + 1) * bs])
+            key = chain_key(key, chunk)
+            p = self.prefix.get(key, chunk)
+            if p is None:
+                break
+            payloads.append(p)
+        return len(payloads), payloads
+
+    def _prefix_upload(self, lane: int, payloads: list) -> None:
+        """Land prefix-hit payloads in the lane's identity blocks through
+        the in-place promote scatter — byte-exact."""
+        n = len(payloads)
+        bs = self.block_size
+        lc, _, h, _, d = payloads[0]["k"].shape
+        cat = {key: torch.cat([p[key] for p in payloads], dim=1)
+               for key in payloads[0]}
+        dev = {key: to_device(t, self.device) for key, t in cat.items()}
+
+        def slab(t):
+            return t.permute(0, 2, 1, 3, 4).reshape(lc, h, n * bs, d)[:, None]
+
+        ids = to_device(self.tables[lane][:n], self.device)
+        self._upload_prog(self.cache, slab(dev["k"]), slab(dev["v"]), ids,
+                          dev.get("ks"), dev.get("vs"))
+
+    def _store_prefix(self, lane: int, job: _EngineJob) -> None:
+        """Store the finished job's full blocks under their chain keys:
+        device-to-host copies queued on the engine's stream (pinned on
+        the card), waited for at the next lookup.  Never called for
+        adapter jobs: their KV is delta-dependent."""
+        from paddle_operator_tpu_torch.utils.radixkey import chain_key
+
+        bs = self.block_size
+        key = None
+        keys = ("k", "v", "ks", "vs") if self.quant else ("k", "v")
+        todo = []
+        for j in range(job.n // bs):
+            chunk = tuple(job.prompt[j * bs:(j + 1) * bs])
+            key = chain_key(key, chunk)
+            if self.prefix.get(key, chunk) is None:
+                todo.append((key, chunk, int(self.tables[lane][j])))
+        if not todo:
+            return
+        payloads = []
+        for key, chunk, blk in todo:
+            payload = {}
+            for name in keys:
+                src = self.cache[name].narrow(1, blk, 1)
+                host = torch.empty(src.shape, dtype=src.dtype,
+                                   pin_memory=self._cuda)
+                host.copy_(src, non_blocking=self._cuda)
+                payload[name] = host
+            payloads.append(payload)
+        ev = self._mark()
+        for (key, chunk, _), payload in zip(todo, payloads):
+            self.prefix.put(key, chunk, payload, event=ev)
+
+    def _start_job(self, lane: int, req, slot: int) -> _EngineJob:
+        hit = 0
+        if self.prefix is not None and not getattr(req, "adapter_idx", 0):
+            try:
+                n_hit, payloads = self._prefix_walk(
+                    [int(t) for t in req.prompt])
+            except Exception:       # the cache is an optimization only
+                n_hit, payloads = 0, []
+            if n_hit:
+                self._prefix_upload(lane, payloads)
+                hit = n_hit * self.block_size
+                self.prefix_hits += 1
+        return _EngineJob(req, slot, hit, hit)
+
+    def _lora_tail(self, active: Dict[int, _EngineJob]):
+        if self.adapters is None:
+            return None
+        aid = np.zeros((self.lanes,), np.int32)
+        for lane, job in active.items():
+            aid[lane] = getattr(job.req, "adapter_idx", 0)
+        return (self.adapters.arrays(), to_device(aid, self.device))
+
+    def _width(self, rows_max: int) -> int:
+        """Table width (blocks) for one batched dispatch: the smallest
+        power-of-two block count covering the deepest participating
+        lane's attended rows, capped at the lane width — the gathered
+        lane view, and with it the attention's score width, is the
+        table's, so slice work stays prompt-proportional."""
+        need = -(-rows_max // self.block_size)
+        w = 1
+        while w < need:
+            w *= 2
+        return min(w, self.max_blocks)
+
+    def _advance(self, active: Dict[int, _EngineJob],
+                 free: List[int]) -> None:
+        """One engine iteration: ONE batched intermediate slice for every
+        long job and ONE batched final slice for every finishing job,
+        then the frame and terminal posts."""
+        sb = self.prefill_chunk
+        bs = self.block_size
+        nl = self.lanes
+        dev = self.device
+        inter = [ln for ln, j in sorted(active.items()) if j.n - j.start > sb]
+        fin = [ln for ln, j in sorted(active.items()) if j.n - j.start <= sb]
+        self._note_occ(len(active))
+        lora = self._lora_tail(active)
+        trash = self._pg.TRASH_BLOCK
+        if inter:
+            mw = self._width(max(active[ln].start + sb for ln in inter))
+            toks = np.zeros((nl, sb), np.int32)
+            starts = np.zeros((nl,), np.int32)
+            limits = np.zeros((nl,), np.int32)
+            tables = np.full((nl, mw), trash, np.int32)
+            mask = np.zeros((nl,), bool)
+            for ln in inter:
+                j = active[ln]
+                toks[ln] = j.prompt[j.start:j.start + sb]
+                starts[ln] = j.start
+                limits[ln] = j.start + sb
+                tables[ln] = self.tables[ln][:mw]
+                mask[ln] = True
+            self._slice_prog(self.params, self.cache, to_device(tables, dev),
+                             to_device(toks, dev), to_device(starts, dev),
+                             to_device(limits, dev), to_device(mask, dev),
+                             lora=lora)
+            for ln in inter:
+                active[ln].start += sb
+        firsts = None
+        if fin:
+            mw = self._width(max(active[ln].start + sb for ln in fin))
+            toks = np.zeros((nl, sb), np.int32)
+            starts = np.zeros((nl,), np.int32)
+            limits = np.zeros((nl,), np.int32)
+            n_rows = np.zeros((nl,), np.int32)
+            temps = np.zeros((nl,), np.float32)
+            seeds = np.zeros((nl,), np.int64)
+            tables = np.full((nl, mw), trash, np.int32)
+            mask = np.zeros((nl,), bool)
+            for ln in fin:
+                j = active[ln]
+                rem = j.n - j.start
+                toks[ln, :rem] = j.prompt[j.start:]
+                starts[ln] = j.start
+                limits[ln] = j.n
+                n_rows[ln] = rem
+                temps[ln] = float(j.req.temperature)
+                seeds[ln] = int(j.req.seed)
+                tables[ln] = self.tables[ln][:mw]
+                mask[ln] = True
+            firsts = self._final_prog(
+                self.params, self.cache, to_device(tables, dev),
+                to_device(toks, dev), to_device(n_rows, dev),
+                to_device(starts, dev), to_device(temps, dev),
+                to_device(seeds, dev), to_device(limits, dev),
+                to_device(mask, dev), lora=lora)
+            for ln in fin:
+                active[ln].start = active[ln].n
+        # streamed frames: every lane's newly COMPLETED blocks (frames
+        # carry full blocks only; the moving write frontier crosses once,
+        # with the terminal item).  ONE snapshot after both dispatches
+        # serves every post: completed blocks never change afterwards
+        snap = (self._snapshot()
+                if fin or (self.stream and inter) else None)
+        if self.stream:
+            for ln in inter:
+                j = active[ln]
+                done = j.start // bs
+                if done > j.frames_done:
+                    self.results.put(("frame", j.req, j.slot, snap, ln,
+                                      j.frames_done, done))
+                    j.frames_done = done
+        for ln in fin:
+            j = active.pop(ln)
+            free.append(ln)
+            self._hold(ln, j.req)
+            self.results.put(("final", j.req, j.slot, snap, ln,
+                              j.frames_done, -(-j.n // bs), firsts[ln],
+                              time.monotonic()))
+            if self.prefix is not None and not getattr(j.req, "adapter_idx",
+                                                       0):
+                try:
+                    self._store_prefix(ln, j)
+                except Exception:
+                    pass            # the cache is an optimization only
+        free.sort()
+
+    def _loop_engine(self) -> None:
+        pending: "deque[tuple]" = deque()
+        active: Dict[int, _EngineJob] = {}
+        free = list(range(self.lanes))
+        # depth-2 dispatch pacing: the host runs at most two iterations
+        # ahead of the engine's stream, so a late arrival reaches the
+        # front of the batch within ~2 slices in DEVICE order
+        fences: "deque[Any]" = deque()
+        while not self._stop.is_set():
+            if self.pause_gate is not None:
+                self.pause_gate()
+            try:
+                if not active and not pending:
+                    pending.append(self.jobs.get(timeout=0.05))
+                while True:
+                    pending.append(self.jobs.get_nowait())
+            except queue.Empty:
+                pass
+            # assign free lanes FIFO (lowest lane first); a lane whose
+            # last terminal item the consumer has not released yet waits
+            while pending:
+                ready = [ln for ln in free if self._lane_free(ln)]
+                if not ready:
+                    break
+                req, slot, t_enq = pending.popleft()
+                if req.done.is_set() or req._cancel:
+                    continue        # resolved while queued: drop
+                lane = ready[0]
+                free.remove(lane)
+                if not self._claim(lane):
+                    return
+                try:
+                    self._note_wait(t_enq)
+                    active[lane] = self._start_job(lane, req, slot)
+                except Exception as e:  # noqa: BLE001
+                    self._hold(lane, req)
+                    self.results.put((req, slot, e))
+                    free.append(lane)
+                    free.sort()
+            if not active:
+                if pending:
+                    with self._cv:
+                        self.lane_waits += 1
+                        self._cv.wait(0.05)
+                continue
+            try:
+                while len(fences) >= 2:
+                    fences.popleft().synchronize()
+                self._advance(active, free)
+                ev = self._mark()
+                if ev is not None:
+                    fences.append(ev)
+            except Exception as e:      # noqa: BLE001 — batch-granular
+                fences.clear()
+                for lane, job in list(active.items()):
+                    self._hold(lane, job.req)
+                    self.results.put((job.req, job.slot, e))
+                    free.append(lane)
+                active.clear()
+                free.sort()
+
+    def close(self) -> None:
+        self._stop.set()
+        with self._cv:
+            self._cv.notify_all()
+        self._thread.join(timeout=30)
+        if self._cuda:
+            self._stream.synchronize()
+
+
+# ---------------------------------------------------------------------------
 # RingExecutor: step + admission programs and device state for one ring
 # ---------------------------------------------------------------------------
 
@@ -942,8 +1812,14 @@ class RingExecutor:
                  draft_params: Any = None,
                  draft_cfg: Optional[LlamaConfig] = None,
                  spec_k: int = 0, adapters=None,
-                 check_finite: bool = False) -> None:
+                 check_finite: bool = False,
+                 prefill_mode: str = "inline",
+                 prefill_client: Any = None,
+                 prefill_lanes: int = 1,
+                 prefill_stream: bool = False,
+                 prefill_prefix_blocks: int = 0) -> None:
         self.check_finite = bool(check_finite)
+        self.prefill_mode = prefill_mode
         # many-adapter serving: a draft proposing base-only against an
         # adapted target would collapse acceptance, so the JAX ring
         # refuses the pair
@@ -1063,6 +1939,46 @@ class RingExecutor:
         self.capture_s = 0.0
         self.graph_replays = 0
         self.reset_state()
+        # the disaggregated prefill engine (prefill_mode="disagg"): built
+        # with the ring, so its pool lives with the rest of the device
+        # state; the scheduler drives its queues.  With a
+        # ``prefill_client`` (infer/prefill_serve.RemotePrefillClient)
+        # the engine lives in the prefill pool's own pods: the client
+        # keeps the same submit/results contract, its results are HOST
+        # payloads the scheduler lands through the promote scatter, and
+        # only the attach runs here
+        self.prefill_exec: Optional[Any] = None
+        self.prefill_remote = False
+        self.prefill_lanes = max(1, int(prefill_lanes))
+        self.prefill_stream = bool(prefill_stream)
+        self._attach = None
+        self._spec_attach: Dict[int, Any] = {}
+        self._frame_transfer = None
+        self._tail_copy = None
+        if prefill_mode == "disagg":
+            if not self.paged:
+                raise ValueError("prefill_mode='disagg' requires the paged "
+                                 "ring (block-granular handoff)")
+            self._attach = make_attach_lane()
+            if prefill_client is not None:
+                self.prefill_exec = prefill_client
+                self.prefill_remote = True
+            else:
+                self.prefill_exec = PrefillExecutor(
+                    self.params, cfg, max_len=max_len,
+                    block_size=self.block_size, buckets=self.buckets,
+                    top_k=top_k, top_p=top_p, kv_quant=self.kv_quant,
+                    adapters=adapters, lanes=self.prefill_lanes,
+                    prefill_chunk=self.prefill_chunk,
+                    stream=self.prefill_stream,
+                    prefix_blocks=int(prefill_prefix_blocks))
+                # handoffs land block group by block group through the
+                # frame transfer, the (int8) staging tail once, with the
+                # terminal item, through the lane-addressed copy
+                self._frame_transfer = self._pg.make_pool_frame_transfer(
+                    self.pool.max_blocks, quant=self.quant)
+                if self.quant:
+                    self._tail_copy = self._pg.make_pool_tail_copy()
 
     def _init_spec(self, draft_params: Any,
                    draft_cfg: Optional[LlamaConfig]) -> None:
@@ -1097,18 +2013,11 @@ class RingExecutor:
     def draft_prefill(self, slot: int, prompt: torch.Tensor,
                       prompt_len: int) -> None:
         """The draft's half of a speculative admission, queued after the
-        target's insert (or chunked prefill's final slice): prefill the
-        whole prompt ([1, n] on the card, its first ``prompt_len`` tokens
-        real) through the draft model into a batch-of-one lane and
-        splice it into the draft ring's lane ``slot`` at position
-        ``prompt_len``, in place.  The logits are discarded: the draft
-        needs only the KV context to propose from.  The draft lane is a
-        contiguous ring whatever the target's cache is."""
-        dcfg = self.draft_cfg
-        dlane = D.init_cache(dcfg, 1, prompt_len, device=prompt.device)
-        _, dlane = D._forward(dcfg, self.draft_params,
-                              prompt[:, :prompt_len], dlane, last_only=True)
-        _splice_lane(self.dcache, dlane, slot, prompt_len)
+        target's insert (or chunked prefill's final slice):
+        :func:`_draft_prefill` of the whole prompt ([1, n] on the card)
+        into the draft ring's lane ``slot``."""
+        _draft_prefill(self.draft_cfg, self.draft_params, self.dcache,
+                       prompt, prompt_len, slot)
 
     # -- state lifecycle ---------------------------------------------------
 
@@ -1189,6 +2098,11 @@ class RingExecutor:
             _build.load("decode_attention")
         if any(Q.weight_quant_mode(p) != "none" for _, p in models):
             _build.load("quant_matmul")
+        if self.prefill_exec is not None and not self.prefill_remote:
+            # the engine's programs on its own stream, so the first cold
+            # prompt pays no first-call cost in its TTFT (a remote ring's
+            # programs live, and warm, in the prefill pods)
+            self.prefill_exec.warm()
         self.capture_graphs()
 
     # -- adapter (LoRA) operands ------------------------------------------
@@ -1720,6 +2634,11 @@ class RingExecutor:
         self.params = params
         if self.spec_k:
             self.draft_params = draft_params
+        if self.prefill_exec is not None and not self.prefill_remote:
+            # the in-process engine dispatches the same model; the
+            # scheduler quiesced its queues before the flip, so no job
+            # reads a torn reference
+            self.prefill_exec.params = params
         return old
 
     # -- admission programs ------------------------------------------------
@@ -1778,6 +2697,16 @@ class RingExecutor:
             prog = make_chunked_final_insert(self.cfg, sb, staging_len,
                                              self.top_k, self.top_p)
             self._final_inserts[key] = prog
+        return prog
+
+    def spec_attach(self, bucket: int):
+        """The disaggregated attach of a speculative ring (the draft
+        lane's prefill with the lane activation), built once per
+        bucket."""
+        prog = self._spec_attach.get(bucket)
+        if prog is None:
+            prog = make_spec_attach(self.cfg, self.draft_cfg, bucket)
+            self._spec_attach[bucket] = prog
         return prog
 
     def staging_len(self, bucket: int) -> int:

@@ -1006,17 +1006,27 @@ def _write_token_paged(pool_l: torch.Tensor, kv: torch.Tensor,
 def _write_rows_paged(pool_l: torch.Tensor, kv: torch.Tensor,
                       table: torch.Tensor, pos: torch.Tensor,
                       block_size: int,
-                      limit: Optional[torch.Tensor] = None) -> None:
+                      limit: Optional[torch.Tensor] = None,
+                      aligned: bool = False) -> None:
     """One layer's pool [N, H, bs, D] <- [B, H, T, D] rows at per-lane
     start positions ``pos`` — each row lands in whatever pool block the
     table maps for its absolute position (a row span may straddle
     blocks).  Rows at/after ``limit`` (per lane; suffix-prefill pads)
-    are redirected to the trash block."""
+    are redirected to the trash block.
+
+    ``aligned=True`` (the N-lane prefill engine's slices: ``pos`` a
+    block multiple, ``T`` a multiple of ``block_size``): the JAX
+    function's whole-block writes — a block whose FIRST row is real
+    writes whole, its pad rows past ``limit`` included (masked in the
+    slice, overwritten by decode before any read), and a block
+    entirely past ``limit`` goes to the trash block.  So the straddling
+    block holds the pad tokens' KV, as the JAX engine's pool does."""
     b, h, t, d = kv.shape
     p = pos[:, None].long() + torch.arange(t, device=pos.device)[None, :]
     blk = _block_index(table, p, block_size)
     if limit is not None:
-        blk = torch.where(p < limit[:, None].long(), blk,
+        first = (p // block_size) * block_size if aligned else p
+        blk = torch.where(first < limit[:, None].long(), blk,
                           torch.zeros_like(blk))
     rows = kv.permute(0, 2, 1, 3).reshape(b * t, h, d)
     pool_l[blk.reshape(-1), :, (p % block_size).reshape(-1)] = \
@@ -1499,6 +1509,48 @@ def make_promote_blocks(block_size: int, quant: bool = False):
         return cache
 
     return up
+
+
+def make_pool_frame_transfer(max_blocks: int, quant: bool = False):
+    """The disaggregated HANDOFF copy of one block group: pool blocks of
+    the prefill engine's (small, private) pool into the decode pool's
+    reserved blocks — all layers, K and V (codes and scales on the int8
+    pool) — in place, on the current stream (the ring's), so the
+    captured graphs keep reading the decode pool at its address.  A
+    streamed frame and a terminal item's remainder both land through
+    it; the int8 staging tail crosses once, with the terminal item
+    (:func:`make_pool_tail_copy`).  The JAX ops pad their id vectors to
+    ``max_blocks`` with the trash block to bound their compiles; eager
+    PyTorch compiles nothing, so the ids go at their own length
+    (``max_blocks`` is kept as the bound they must respect).
+
+    ``transfer(dst, src, src_ids [n], dst_ids [n])``: ``dst``/``src``
+    the two pools' cache dicts, the ids long tensors on the device."""
+    keys = ("k", "v", "ks", "vs") if quant else ("k", "v")
+
+    def transfer(dst, src, src_ids, dst_ids):
+        if src_ids.numel() > max_blocks:
+            raise ValueError(f"a handoff of {src_ids.numel()} blocks "
+                             f"exceeds the lane's {max_blocks}")
+        for key in keys:
+            dst[key].index_copy_(1, dst_ids, src[key].index_select(
+                1, src_ids))
+
+    return transfer
+
+
+def make_pool_tail_copy():
+    """The terminal handoff item's staging-tail copy (int8 pools):
+    src tail row ``src_row`` — the prefill ENGINE lane that ran the job
+    — lands in decode tail row ``slot``, in place.
+
+    ``cp(dst, src, src_row, slot)``"""
+
+    def cp(dst, src, src_row, slot):
+        for key in ("kt", "vt"):
+            dst[key][:, slot].copy_(src[key][:, src_row])
+
+    return cp
 
 
 def make_tail_init():

@@ -40,6 +40,17 @@ graph replay; the graphs are captured at prewarm (or, without it,
 before the first admission) and again after a self-healing rebuild,
 always while the ring is empty.
 
+``prefill_mode="disagg"`` (implies the paged ring) moves cold prompts
+off the ring: a radix prefix hit still admits inline through the suffix
+insert, but a cold prompt maps fresh (reserved) blocks and ships to the
+prefill engine (``executor.PrefillExecutor``: its own thread, stream
+and pool; SERVE_PREFILL_LANES, _STREAM, _PREFIX_BLOCKS) or to the
+prefill pool's pods (``prefill_client``: infer/prefill_serve.py
+``RemotePrefillClient``).  The lane waits out of every dispatch, as a
+chunked lane does; the loop lands each result — streamed frames as they
+arrive — by block copy (remote: the promote scatter) and attaches the
+lane with one small in-place write of its state.
+
 The paged ring runs over the bf16 pool or the int8 pool
 (``kv_quant="int8"``), optionally with the host spill tier
 (``host_cache_blocks``: evicted prefix blocks demote to host memory and
@@ -66,7 +77,8 @@ model.
 
 Ring operations: ``trace=True`` (SERVE_TRACE) gives each request a span
 tree (utils/tracing.py ``RequestTrace``: queue wait, admission, prefill
-slices, TTFT, one span a consumed dispatch, spill, restore) from host
+slices, the disaggregated prefill, its frames and attach, TTFT, one
+span a consumed dispatch, spill, restore) from host
 timestamps taken where the loop already stands, so tracing adds no
 device synchronization and traced streams equal untraced ones;
 ``RingResilience(nan_check=True)`` (SERVE_NAN_CHECK) makes every
@@ -76,8 +88,8 @@ blocks are scrubbed; :meth:`ContinuousBatcher.swap_weights` (``/v1/swap``)
 flips the served weights of a paged ring at a quiesced boundary — the
 residents park through the preemption spill, the executor swaps and
 captures its graphs again, and the parked lanes resume.  Not ported
-yet, and refused when asked for (ROADMAP.md Queue A): disaggregated
-prefill, tensor-parallel serving and fleet-level KV.
+yet, and refused when asked for (ROADMAP.md Queue A): tensor-parallel
+serving and fleet-level KV.
 """
 
 from __future__ import annotations
@@ -137,7 +149,7 @@ class _Request:
                  "dev_prompt", "bucket", "deadline", "deadline_exceeded",
                  "priority", "request_id", "t_submit", "t_first",
                  "t_last_tok", "preempts", "accepted", "drafted",
-                 "adapter", "adapter_idx", "ns", "trace")
+                 "adapter", "adapter_idx", "ns", "trace", "t_prefill0")
 
     def __init__(self, prompt, max_new, temperature, seed, eos,
                  wants_stream=False, deadline=None):
@@ -170,6 +182,8 @@ class _Request:
         self.t_submit = time.monotonic()
         self.t_first: Optional[float] = None
         self.t_last_tok: Optional[float] = None
+        # a disaggregated prefill's submit to the engine (its span)
+        self.t_prefill0: Optional[float] = None
         # the prompt, shipped to the device on the SUBMIT thread, so the
         # ring thread never pays the host->device copy
         self.dev_prompt: Optional[torch.Tensor] = None
@@ -316,17 +330,21 @@ class ContinuousBatcher:
                  qos: Optional[QOS.QoSConfig] = None,
                  adapters=None,
                  megastep: int = 1,
+                 prefill_client: Any = None,
+                 prefill_lanes: int = 1,
+                 prefill_stream: bool = False,
+                 prefill_prefix_blocks: int = 0,
                  trace: Optional[bool] = None,
                  generation: int = 0) -> None:
         if prefill_mode not in PREFILL_MODES:
             raise ValueError(f"prefill_mode {prefill_mode!r} not in "
                              f"{PREFILL_MODES}")
-        for bad, what in (
-                (mesh is not None, "tensor-parallel serving (mesh)"),
-                (prefill_mode == "disagg",
-                 f"prefill_mode={prefill_mode!r}")):
-            if bad:
-                raise _unported(what)
+        if mesh is not None:
+            raise _unported("tensor-parallel serving (mesh)")
+        if prefill_mode == "disagg":
+            # the disaggregated handoff is block-granular by design: the
+            # paged pool IS the transfer unit
+            paged = True
         # SERVE_NAN_CHECK: every dispatch also returns each lane's
         # isfinite verdict, and a non-finite lane fails alone
         self._check_finite = bool(resilience and resilience.nan_check)
@@ -390,7 +408,10 @@ class ContinuousBatcher:
             host_cache_blocks=host_cache_blocks,
             prefill_chunk=prefill_chunk, draft_params=draft_params,
             draft_cfg=draft_cfg, spec_k=spec_k, adapters=adapters,
-            check_finite=self._check_finite)
+            check_finite=self._check_finite, prefill_mode=prefill_mode,
+            prefill_client=prefill_client, prefill_lanes=prefill_lanes,
+            prefill_stream=prefill_stream,
+            prefill_prefix_blocks=prefill_prefix_blocks)
         self.device = self.executor.device
         self.spec_k = self.executor.spec_k
         self.draft_cfg = self.executor.draft_cfg
@@ -404,6 +425,15 @@ class ContinuousBatcher:
         self.last_swap: Dict[str, Any] = {}
         self.paged = self.executor.paged
         self._top_k, self._top_p = top_k, top_p
+        if self.executor.prefill_remote:
+            # every POST carries THIS ring's handoff fingerprint: the pod
+            # refuses a mismatch with 409 and the client re-validates the
+            # returned envelope before the ring touches its bytes.  On the
+            # card the client pins the payload on its worker thread, so
+            # the landing's upload leaves from pinned memory
+            client = self.executor.prefill_exec
+            client.fingerprint = self.handoff_fingerprint()
+            client.pin = self.device.type == "cuda"
 
         self.lane: List[Optional[_Request]] = [None] * slots
         self._lane_out: List[List[int]] = [[] for _ in range(slots)]
@@ -420,6 +450,15 @@ class ContinuousBatcher:
         # counter that orders their slices
         self._prefilling: Dict[int, _PrefillState] = {}
         self._admit_seq = 0
+        # a disaggregated prompt away on the prefill engine or pod (slot
+        # -> request): reserved, not decode-active, like a chunked lane;
+        # and the upload stamps of its streamed frames landed BEFORE the
+        # terminal item (a stamp earlier than the engine's done stamp
+        # provably overlapped prefill compute)
+        self._disagg_waiting: Dict[int, _Request] = {}
+        self._handoff_frame_t: Dict[int, List[float]] = {}
+        # test hook: a callable invoked before each handoff drain
+        self.handoff_gate = None
 
         # bounded admission queue, bounded PER CLASS (infer/qos.py)
         self.max_queue = int(max_queue)
@@ -446,9 +485,15 @@ class ContinuousBatcher:
         self.stats = {"admitted": 0, "evicted": 0, "chunks": 0,
                       "max_active": 0, "rejected_queue_full": 0,
                       # chunked_prefill_tokens: the share of prefill
-                      # tokens that arrived in interleaved slices
+                      # tokens that arrived in interleaved slices;
+                      # disagg_prefills: handoffs attached (remote ones
+                      # also count remote_prefills), handoff_frames the
+                      # streamed frames landed, overlapped_frames those
+                      # landed before their prompt's prefill finished
                       "prefill_calls": 0, "prefill_tokens": 0,
-                      "chunked_prefill_tokens": 0,
+                      "chunked_prefill_tokens": 0, "disagg_prefills": 0,
+                      "remote_prefills": 0, "handoff_frames": 0,
+                      "overlapped_frames": 0,
                       "cow_copies": 0, "deadline_exceeded": 0,
                       # speculative rounds: drafts offered and accepted
                       "spec_accepted": 0, "spec_drafted": 0,
@@ -709,10 +754,22 @@ class ContinuousBatcher:
         return Q.weight_quant_mode(dp) if dp is not None else "none"
 
     def prefill_queue_depth(self) -> int:
-        """Requests admitted to a lane but still PREFILLING (chunked
-        slices mid-flight) — the ``tpujob_serve_prefill_queue_depth``
-        gauge."""
-        return len(self._prefilling)
+        """Requests admitted to a lane but still PREFILLING: chunked
+        slices mid-flight plus disaggregated jobs queued or running on
+        the prefill engine or pod, or awaiting their handoff — the
+        ``tpujob_serve_prefill_queue_depth`` gauge."""
+        return len(self._prefilling) + len(self._disagg_waiting)
+
+    def _prefill_engine_stat(self, name: str, default):
+        """A LOCAL prefill engine's telemetry (lanes, batch occupancy,
+        head-of-line wait) — the default on rings without one (inline,
+        chunked, remote: the pods export their own)."""
+        pe = self.executor.prefill_exec
+        if pe is None or self.executor.prefill_remote:
+            return default
+        if name == "lanes":
+            return pe.lanes
+        return getattr(pe, name)()
 
     def serving_status(self) -> Dict[str, Any]:
         """The ``TPUJob.status.serving`` block, with the JAX ring's key
@@ -743,11 +800,13 @@ class ContinuousBatcher:
             "promotedBlocks": self.stats["promoted_blocks"],
             "prefillMode": self.prefill_mode,
             "prefillQueueDepth": self.prefill_queue_depth(),
-            "prefillLanes": 0,
-            "prefillBatchOccupancy": 0.0,
-            "prefillHolWaitMs": 0.0,
-            "handoffFrames": 0,
-            "overlappedFrames": 0,
+            "prefillLanes": self._prefill_engine_stat("lanes", 0),
+            "prefillBatchOccupancy": self._prefill_engine_stat(
+                "batch_occupancy", 0.0),
+            "prefillHolWaitMs": self._prefill_engine_stat(
+                "hol_wait_ms_p95", 0.0),
+            "handoffFrames": self.stats["handoff_frames"],
+            "overlappedFrames": self.stats["overlapped_frames"],
             "kvQuantMode": self.kv_quant,
             "kvPoolBytes": self.executor.pool_bytes(),
             "weightQuantMode": self.weight_quant_mode(),
@@ -762,7 +821,7 @@ class ContinuousBatcher:
             "laneMigrations": 0,
             "adoptedLanes": 0,
             "peerPrefixFetches": 0,
-            "remotePrefills": 0,
+            "remotePrefills": self.stats["remote_prefills"],
             "hostCacheEvictions": (pool.host_evictions()
                                    if pool is not None else 0),
             "kvStoreBlocks": kv_store_blocks,
@@ -930,6 +989,11 @@ class ContinuousBatcher:
             self.pool.attach_store(self.kv_store)
             if getattr(self.kv_store, "fingerprint", None) is not None:
                 self.kv_store.fingerprint = self._fingerprint()
+        # the prefill pods must serve the same generation: re-stamp the
+        # client's fingerprint, so a pod still on the old one 409s
+        if self.executor.prefill_remote:
+            self.executor.prefill_exec.fingerprint = \
+                self.handoff_fingerprint()
         self._peer_fetch_seen.clear()
         # the parked lanes resume now, on the new graphs
         try:
@@ -1014,6 +1078,8 @@ class ContinuousBatcher:
         self._thread.join(timeout=30)
         if self._watchdog is not None:
             self._watchdog.close()
+        if self.executor.prefill_exec is not None:
+            self.executor.prefill_exec.close()
         if not self._thread.is_alive():
             # the ring thread is gone: its host tier's memory goes back
             self.executor.close_host_tier()
@@ -1086,6 +1152,10 @@ class ContinuousBatcher:
         self._lane_pos = [0] * self.slots
         self._lane_first = [None] * self.slots
         self._prefilling.clear()
+        # a disaggregated result for a healed-away request is dropped
+        # (and its engine lane released) by the handoff drain
+        self._disagg_waiting.clear()
+        self._handoff_frame_t.clear()
         # a rebuild aborts a pending live swap: the rebuilt ring serves
         # the old generation, and the swap's caller must retry
         with self._swap_lock:
@@ -1163,14 +1233,16 @@ class ContinuousBatcher:
             blk = int(self.pool.table[slot][hit_len // self.block_size])
             ex._tail_init(ex.cache, slot, blk)
 
-    def _activate(self, slot: int, req: _Request, first) -> None:
+    def _activate(self, slot: int, req: _Request, first,
+                  draft: bool = True) -> None:
         """A lane's prefill is queued: wire up the decode-side
         bookkeeping so the next chunk dispatch includes it.  The first
         token's host copy is queued now, behind the insert, and read at
         the next consume.  A speculative ring prefills the lane's draft
-        here too, behind the target's insert."""
+        here too, behind the target's insert (``draft=False``: the
+        disaggregated attach did)."""
         n = len(req.prompt)
-        if self.spec_k:
+        if self.spec_k and draft:
             self.executor.draft_prefill(slot, req.dev_prompt, n)
         self._lane_out[slot] = []
         self._lane_first[slot] = X._to_host_async(first.reshape(1))
@@ -1227,6 +1299,10 @@ class ContinuousBatcher:
         self._lane_first[slot] = None
         if self.prefill_mode == "chunked":
             self._admit_chunked(slot, req)
+            self.stats["admitted"] += 1
+            return
+        if self.prefill_mode == "disagg":
+            self._admit_disagg(slot, req)
             self.stats["admitted"] += 1
             return
         if self.paged:
@@ -1376,6 +1452,216 @@ class ContinuousBatcher:
             self.pool.publish(slot, req.prompt, ns=req.ns)
         self._activate(slot, req, first)
 
+    # -- disaggregated prefill: the decode side ------------------------------
+
+    def _admit_disagg(self, slot: int, req: _Request) -> None:
+        """Disaggregated admission: a radix prefix HIT admits inline
+        through the suffix insert (the cached blocks live in the decode
+        pool; the suffix forward is already cheap).  A COLD prompt maps
+        fresh decode-pool blocks now (reserved, so the handoff can never
+        fail on NoFreeBlocks) and ships its prefill to the engine (or the
+        prefill pool); the loop attaches the lane when the result
+        lands."""
+        ex = self.executor
+        hit_len, cow = self.pool.admit(          # NoFreeBlocks -> req fails
+            slot, req.prompt, max_suffix=self.SUFFIX_PREFILL_MAX_ROWS,
+            ns=req.ns)
+        if hit_len and not self.spec_k:
+            self._dispatch_cow(slot, cow, hit_len)
+            first = self._suffix_admit(slot, req, self._table_row(slot),
+                                       hit_len)
+            self.pool.publish(slot, req.prompt, ns=req.ns)
+            self._activate(slot, req, first)
+            return
+        # cold: the blocks are mapped; a hit_len-0 partial-tail hit may
+        # still have promoted one block, whose upload must not stay
+        # pending
+        self._dispatch_cow(slot, cow, hit_len)
+        if ex.prefill_remote and req.adapter_idx:
+            # the prefill pods serve the BASE model: an adapter prompt
+            # prefilled there would hand off base-model KV under a
+            # tenant's namespace.  It admits inline on the ring instead
+            n = len(req.prompt)
+            first = ex.inserts[req.bucket](
+                ex.params, ex.cache, self._table_row(slot), ex.tok, ex.temp,
+                ex.seeds, req.dev_prompt, n, slot, float(req.temperature),
+                req.seed, lora=ex.lora_insert_tail(slot))
+            self.stats["prefill_calls"] += 1
+            self.stats["prefill_tokens"] += n
+            self.pool.publish(slot, req.prompt, ns=req.ns)
+            self._activate(slot, req, first)
+            return
+        self._disagg_waiting[slot] = req
+        req.t_prefill0 = time.monotonic()
+        ex.prefill_exec.submit(req, slot)
+
+    def _await_snapshot(self, snap) -> None:
+        """Order the ring's stream after the engine's writes of an
+        in-process snapshot (its ``ready`` event; none off the card)."""
+        ev = snap.get("ready")
+        if ev is not None:
+            torch.cuda.current_stream(self.device).wait_event(ev)
+
+    def _release_handoff(self, req) -> None:
+        """The snapshot-lifetime rule's consumer half: ``req``'s terminal
+        item has been landed or dropped — hand its engine lane back with
+        an event recorded on the ring's stream after the copies queued
+        so far (a remote pod's payloads are host copies: nothing to
+        release)."""
+        ex = self.executor
+        if ex.prefill_remote:
+            return
+        ev = None
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+        ex.prefill_exec.release(req, ev)
+
+    def _land_handoff_blocks(self, slot: int, payload, lane, j0: int,
+                             j1: int) -> None:
+        """Upload one handoff block group ``[j0, j1)`` into the lane's
+        reserved decode-pool blocks: the promote scatter for a remote
+        (host) payload, whose arrays start at block ``j0``; the in-place
+        frame transfer from engine lane ``lane``'s blocks for an
+        in-process snapshot, queued behind the engine's event.  Shared by
+        streamed frames and the terminal item's remainder; both are
+        queued on the ring's stream and overlap the decoding chunk."""
+        if j1 <= j0:
+            return
+        ex = self.executor
+        dst = self.pool.table[slot][j0:j1]
+        if ex.prefill_remote:
+            keys = ("k", "v", "ks", "vs") if ex.quant else ("k", "v")
+            ex._promote_blocks(dst, {key: payload[key] for key in keys})
+            return
+        self._await_snapshot(payload)
+        src = ex.prefill_exec.tables[lane][j0:j1]
+        ex._frame_transfer(ex.cache, payload,
+                           X.to_device(src, self.device).long(),
+                           X.to_device(dst, self.device).long())
+
+    def _land_remote_tail(self, slot: int, payload) -> None:
+        """A REMOTE handoff's (int8) staging tail: the wire payload's
+        exact tail row lands in decode tail row ``slot``."""
+        c = self.executor.cache
+        for key in ("kt", "vt"):
+            c[key][:, slot].copy_(
+                X.to_device(payload[key][:, 0], self.device))
+
+    def _drain_handoffs(self) -> None:
+        """Attach completed disaggregated prefills: copy the blocks into
+        the lane's already-mapped decode-pool blocks, then one small
+        attach of the lane state.  Results for requests that resolved
+        meanwhile (cancel, deadline, heal) are dropped — their decode
+        blocks were retired with the lane.
+
+        Every engine and the remote client end a job in one terminal
+        ``("final", req, slot, payload, lane, j0, n_blocks, first,
+        t_done)`` — blocks ``[j0, n_blocks)``, the (int8) staging tail
+        and the first token — or ``(req, slot, error)``.  Streamed
+        handoff: the N-lane engine (and the streaming remote client)
+        post ``("frame", req, slot, payload, lane, j0, j1)`` block
+        groups before it, WHILE the prompt is still prefilling, so the
+        upload overlaps the remaining prefill.  Frames of a resolved
+        request drop like stale results; a retried remote stream
+        re-uploads from block 0 (uploads are idempotent by
+        destination).  Every in-process terminal item, landed or
+        dropped, releases its engine lane (:meth:`_release_handoff`)."""
+        ex = self.executor
+        pexec = ex.prefill_exec
+        if self.handoff_gate is not None:
+            self.handoff_gate()
+        while True:
+            try:
+                item = pexec.results.get_nowait()
+            except queue.Empty:
+                return
+            error = not isinstance(item[0], str)    # (req, slot, error)
+            req, slot = item[:2] if error else item[1:3]
+            try:
+                self._land_item(item, error, req, slot)
+            finally:
+                if error or item[0] == "final":
+                    self._release_handoff(req)
+
+    def _land_item(self, item, error: bool, req, slot: int) -> None:
+        """One handoff item of :meth:`_drain_handoffs`."""
+        ex = self.executor
+        if (self._disagg_waiting.get(slot) is not req
+                or self.lane[slot] is not req or req.done.is_set()):
+            return                      # stale frame or result: drop
+        if error:
+            del self._disagg_waiting[slot]
+            self._finish(req, item[2])
+            self._evict(slot)
+            return
+        if item[0] == "frame":
+            _, _, _, payload, lane, j0, j1 = item
+            t_fr0 = time.monotonic()
+            self._land_handoff_blocks(slot, payload, lane, j0, j1)
+            self.stats["handoff_frames"] += 1
+            self._handoff_frame_t.setdefault(slot, []).append(
+                time.monotonic())
+            if req.trace is not None:
+                # host time of the frame's upload dispatch (queued: it
+                # overlaps the decoding chunk)
+                req.trace.add("handoff_frame", t_fr0, j0=j0, j1=j1)
+            return
+        _, _, _, payload, lane, j0, n_blocks, first, t_done = item
+        del self._disagg_waiting[slot]
+        # a remote payload is the wire envelope's HOST arrays, landed
+        # through the promote scatter (codes and scales verbatim under
+        # int8) with the exact tail row
+        self._land_handoff_blocks(slot, payload, lane, j0, n_blocks)
+        if ex.quant:
+            if ex.prefill_remote:
+                self._land_remote_tail(slot, payload)
+            else:
+                ex._tail_copy(ex.cache, payload, lane, slot)
+        stamps = self._handoff_frame_t.pop(slot, [])
+        self.stats["overlapped_frames"] += sum(1 for t in stamps
+                                               if t < t_done)
+        if ex.prefill_remote:
+            self.stats["remote_prefills"] += 1
+        self._attach_handoff(slot, req, len(req.prompt), first)
+
+    def _attach_handoff(self, slot: int, req: _Request, n: int,
+                        first) -> None:
+        """The handoff's decode-side tail, shared by the in-process
+        (device block copy) and remote (promote upload) paths: one small
+        attach — a speculative ring also prefills the DRAFT lane here,
+        which is why a handoff never carries draft state — then publish
+        and activate.  ``first``: a device scalar from an in-process
+        engine (its memory is marked in use on the ring's stream) or a
+        remote pod's int."""
+        ex = self.executor
+        t_att0 = time.monotonic()
+        if req.trace is not None and req.t_prefill0 is not None:
+            # the whole off-ring prefill phase: the engine's queue wait
+            # and compute (and, remote, the wire) up to this attach
+            req.trace.add("disagg_prefill", req.t_prefill0, t_att0,
+                          remote=bool(ex.prefill_remote))
+        if isinstance(first, torch.Tensor):
+            if first.is_cuda:
+                first.record_stream(torch.cuda.current_stream(self.device))
+        else:
+            first = torch.tensor(int(first), dtype=torch.int32)
+        if self.spec_k:
+            ex.spec_attach(req.bucket)(
+                ex.draft_params, ex.dcache, ex.cache, ex.tok, ex.temp,
+                ex.seeds, req.dev_prompt, n, slot, first,
+                float(req.temperature), req.seed)
+        else:
+            ex._attach(ex.cache, ex.tok, ex.temp, ex.seeds, slot, first, n,
+                       float(req.temperature), req.seed)
+        self.stats["prefill_calls"] += 1
+        self.stats["prefill_tokens"] += n
+        self.stats["disagg_prefills"] += 1
+        if req.trace is not None:
+            req.trace.add("handoff_attach", t_att0, slot=slot)
+        self.pool.publish(slot, req.prompt, ns=req.ns)
+        self._activate(slot, req, first, draft=False)
+
     def _materialize_first(self, i: int, req: _Request) -> None:
         """Bring the admission-sampled first token to the host (its copy
         was queued right behind the insert) and run it through the same
@@ -1436,8 +1722,11 @@ class ContinuousBatcher:
         self._lane_pos[slot] = 0        # retired lanes report no pos
         self.executor.set_aid(slot, 0)
         # a lane evicted MID-PREFILL (cancel, deadline, a failed slice)
-        # drops its slice state
+        # drops its slice or handoff state; a late disaggregated result
+        # is dropped by the identity check in _drain_handoffs
         self._prefilling.pop(slot, None)
+        self._disagg_waiting.pop(slot, None)
+        self._handoff_frame_t.pop(slot, None)
         if self.pool is not None:
             # published prompt blocks become reclaimable cache, private
             # ones rejoin the free list; the zeroed table row routes
@@ -1481,9 +1770,10 @@ class ContinuousBatcher:
 
     def _pending_prefill_slots(self) -> set:
         """Lanes reserved but not yet decode-active: the lanes still
-        mid-prefill (chunked), which are never preemption victims and
-        never step in a dispatch."""
-        return set(self._prefilling)
+        mid-prefill (chunked) or awaiting their disaggregated handoff,
+        which are never preemption victims and never step in a
+        dispatch."""
+        return set(self._prefilling) | set(self._disagg_waiting)
 
     def _preempt_victim(self) -> Optional[int]:
         """The lane to spill for waiting more-urgent work, or None when
@@ -1588,6 +1878,22 @@ class ContinuousBatcher:
                 "quant": ex.kv_quant,
                 "specK": int(ex.spec_k),
                 "generation": int(self.generation)}
+
+    def handoff_fingerprint(self) -> Dict[str, Any]:
+        """The geometry and sampling rule a remote-prefill HANDOFF must
+        match (infer/prefill_serve.py ``handoff_fingerprint``, the JAX
+        ring's dict key for key): narrower than the store fingerprint —
+        spec depth is absent (the draft lane prefills decode-side at
+        attach) and top-k/top-p are PRESENT (the pod samples the first
+        token)."""
+        from paddle_operator_tpu_torch.infer.prefill_serve import (
+            handoff_fingerprint,
+        )
+
+        return handoff_fingerprint(
+            self.cfg, block_size=self.executor.block_size,
+            kv_quant=self.kv_quant, top_k=self._top_k, top_p=self._top_p,
+            wquant=self.weight_quant_mode(), generation=self.generation)
 
     def attach_kv_store(self, store) -> None:
         """Wire the durable prefix store (infer/kvstore.KVBlockStore)
@@ -1854,11 +2160,22 @@ class ContinuousBatcher:
                 except Exception as e:
                     self._fault = e
                     continue
+            # disaggregated prefills that completed since the last pass:
+            # block copy and attach.  Gated on the ENGINE, not on
+            # _disagg_waiting: a result posted for an evicted request
+            # must still be popped, dropped and its engine lane released
+            if ex.prefill_exec is not None:
+                try:
+                    self._drain_handoffs()
+                except Exception as e:
+                    self._fault = e
+                    continue
             # a posted live swap fires at THE quiesced boundary: every
-            # dispatch in flight consumed, no lane mid-prefill (the
-            # admissions pause below while it is pending, so the slices
-            # drain within a few passes)
-            if self._swap_req is not None and not self._prefilling:
+            # dispatch in flight consumed, no lane mid-prefill or awaiting
+            # its handoff (the admissions pause below while it is
+            # pending, so both drain within a few passes)
+            if (self._swap_req is not None and not self._prefilling
+                    and not self._disagg_waiting):
                 try:
                     while pending:
                         self._consume_oldest(pending)
@@ -1943,6 +2260,7 @@ class ContinuousBatcher:
                     self._lane_pos[slot] = 0
                     self._lane_first[slot] = None
                     self._prefilling.pop(slot, None)
+                    self._disagg_waiting.pop(slot, None)
                     if self.pool is not None:
                         # admission may have mapped blocks before the
                         # insert failed — unmap them

@@ -664,8 +664,6 @@ def refuse_unported(environ) -> None:
     if int(environ.get("SERVE_TP", "1") or 1) > 1:
         refused.append(f"SERVE_TP={environ['SERVE_TP']} (tensor "
                        "parallelism)")
-    if environ.get("SERVE_PREFILL", "").strip() == "disagg":
-        refused.append("SERVE_PREFILL=disagg (disaggregated prefill)")
     for key in ("SERVE_KV_MIGRATE", "SERVE_KV_PEER_FETCH"):
         if environ.get(key, "0") == "1":
             refused.append(f"{key}=1 (fleet-level KV)")
@@ -706,11 +704,19 @@ def ring_kw_from_env(environ, cfg: Optional[LlamaConfig] = None) -> dict:
     lane.  0 or unset is the single-step default (the CRD's
     ``spec.serving.megastep`` 0 means "server default").
 
-    SERVE_PREFILL=inline|chunked: how admission prefill reaches the
-    card.  ``chunked`` interleaves SERVE_PREFILL_CHUNK-token slices
+    SERVE_PREFILL=inline|chunked|disagg: how admission prefill reaches
+    the card.  ``chunked`` interleaves SERVE_PREFILL_CHUNK-token slices
     (default 64) into ring iterations, so a cold long prompt never
-    stalls resident decode lanes for a whole prefill (``disagg`` is
-    refused by :func:`refuse_unported`).
+    stalls resident decode lanes for a whole prefill; ``disagg`` (implies
+    SERVE_PAGED=1: the handoff is block-granular) moves cold prefills to
+    a separate engine — SERVE_PREFILL_LANES (1: the monolithic engine;
+    N: N chunk-interleaved lanes), SERVE_PREFILL_STREAM=1 (completed
+    block groups land while the rest prefills) and
+    SERVE_PREFILL_PREFIX_BLOCKS (the engine's own prefix cache, 0 off)
+    — or, with SERVE_PREFILL_REMOTE=1, to the prefill pool's pods
+    (SERVE_PREFILL_BROKER / SERVE_PREFILL_PEERS: the client itself is
+    :func:`~paddle_operator_tpu_torch.infer.prefill_serve.
+    remote_prefill_client_from_env`'s, built by ``main``).
 
     SERVE_KV_QUANT=int8 (the int8 KV pool: int8 codes + one f32 scale
     per (block, kv head), for deployments bound by capacity rather than
@@ -739,6 +745,16 @@ def ring_kw_from_env(environ, cfg: Optional[LlamaConfig] = None) -> dict:
     prefill_mode = environ.get("SERVE_PREFILL", "inline")
     if prefill_mode != "inline":
         kw["prefill_mode"] = prefill_mode
+    if prefill_mode == "disagg":
+        if environ.get("SERVE_PAGED", "0") != "1":
+            print("SERVE_PREFILL=disagg implies SERVE_PAGED=1 "
+                  "(block-granular handoff)", flush=True)
+        kw["prefill_lanes"] = int(environ.get("SERVE_PREFILL_LANES", "1")
+                                  or 1)
+        kw["prefill_stream"] = environ.get("SERVE_PREFILL_STREAM",
+                                           "0") == "1"
+        kw["prefill_prefix_blocks"] = int(
+            environ.get("SERVE_PREFILL_PREFIX_BLOCKS", "0") or 0)
     if environ.get("SERVE_PREFILL_CHUNK"):
         kw["prefill_chunk"] = int(environ["SERVE_PREFILL_CHUNK"])
     kvq = environ.get("SERVE_KV_QUANT", "none") or "none"
@@ -747,7 +763,8 @@ def ring_kw_from_env(environ, cfg: Optional[LlamaConfig] = None) -> dict:
         if environ.get("SERVE_PAGED", "0") != "1":
             print("SERVE_KV_QUANT implies SERVE_PAGED=1 (the pool block "
                   "is the quantization unit)", flush=True)
-    if environ.get("SERVE_PAGED", "0") == "1" or kvq != "none":
+    if (environ.get("SERVE_PAGED", "0") == "1" or kvq != "none"
+            or prefill_mode == "disagg"):
         kw["paged"] = True
         kw["block_size"] = int(environ.get("SERVE_BLOCK_SIZE", "256"))
         kw["prefix_cache"] = environ.get("SERVE_PREFIX_CACHE", "1") == "1"
@@ -1073,6 +1090,15 @@ def main() -> int:
         ring_kw.update(adapter_kw_from_env(os.environ, cfg,
                                            ring_kw.get("spec_k", 0),
                                            "cuda"))
+        if ring_kw.get("prefill_mode") == "disagg":
+            # SERVE_PREFILL_REMOTE=1: cold prefills go to the prefill pool
+            from paddle_operator_tpu_torch.infer.prefill_serve import (
+                remote_prefill_client_from_env,
+            )
+
+            client = remote_prefill_client_from_env(os.environ)
+            if client is not None:
+                ring_kw["prefill_client"] = client
         dquant = (weight_quant_mode(ring_kw["draft_params"])
                   if "draft_params" in ring_kw else "none")
         mode = (f"continuous, paged={bool(ring_kw.get('paged'))}, "

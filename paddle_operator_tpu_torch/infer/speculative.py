@@ -173,7 +173,7 @@ def _layer_multi_paged(cfg: LlamaConfig, lp, x: torch.Tensor,
                        limit: Optional[torch.Tensor],
                        quant: bool,
                        lane_mask: Optional[torch.Tensor] = None,
-                       lora=None) -> torch.Tensor:
+                       lora=None, aligned: bool = False) -> torch.Tensor:
     """One decoder layer over [B, T] new tokens at PER-LANE offsets
     ``pos`` [B] over the paged pool: row (b, j) sits at absolute
     position pos[b]+j, lands in whatever pool block the lane's table
@@ -190,7 +190,8 @@ def _layer_multi_paged(cfg: LlamaConfig, lp, x: torch.Tensor,
     suffix's own completed blocks are read as codes, as in the JAX
     function.  ``lane_mask`` [B] (int8 only): a masked lane's rows are
     written nowhere — its tail row goes to the trash tail (it may be
-    live prefill state) and no block of it commits."""
+    live prefill state) and no block of it commits.  ``aligned`` (bf16
+    only): whole-block writes (paged ``_write_rows_paged``)."""
     from paddle_operator_tpu_torch.infer.paged import (
         _gather_lane_view,
         _gather_view_quant,
@@ -219,7 +220,7 @@ def _layer_multi_paged(cfg: LlamaConfig, lp, x: torch.Tensor,
     else:
         for kind, rows in (("k", k), ("v", v)):
             _write_rows_paged(cache[kind][li], rows.transpose(1, 2), table,
-                              pos, block_size, limit)
+                              pos, block_size, limit, aligned=aligned)
         k_view = _gather_lane_view(cache["k"], table, li)
         v_view = _gather_lane_view(cache["v"], table, li)
     return D._finish_layer(cfg, lp, x,
@@ -281,7 +282,7 @@ def _multi_forward_paged(cfg: LlamaConfig, params, toks: torch.Tensor,
                          limit: Optional[torch.Tensor] = None,
                          quant: bool = False, head: bool = True,
                          lane_mask: Optional[torch.Tensor] = None,
-                         lora=None
+                         lora=None, aligned: bool = False
                          ) -> Tuple[Optional[torch.Tensor],
                                     Dict[str, torch.Tensor]]:
     """[B, T] new tokens at per-lane ``cache['pos']`` over the paged
@@ -295,15 +296,17 @@ def _multi_forward_paged(cfg: LlamaConfig, params, toks: torch.Tensor,
     ``quant``: the spec round's ``active``) redirects masked lanes'
     writes to the trash tail — their tail rows may be live prefill
     state.  ``lora``: ``(stacks, aid [B])``, as :func:`_multi_forward`.
-    The JAX function's TP and ``aligned`` variants are not ported
-    yet."""
+    ``aligned=True`` (bf16; block-aligned ``pos``, a block-multiple
+    ``T``: the N-lane prefill engine's slices): whole-block writes, the
+    pad rows of the straddling block included, as the JAX function
+    writes them.  The JAX function's TP variant is not ported yet."""
     pos = cache["pos"]
     x = params.tok_embed.embedding.to(cfg.dtype)[toks.long()]
     cos, sin = params.rope_cos, params.rope_sin
     for li, lp in enumerate(params.layers):
         x = _layer_multi_paged(cfg, lp, x, cos, sin, cache, li, table, pos,
                                limit, quant, lane_mask,
-                               layer_lora(lora, li))
+                               layer_lora(lora, li), aligned=aligned)
     new_cache = dict(cache, pos=pos + toks.shape[1])
     return (_head(cfg, params, x) if head else None), new_cache
 

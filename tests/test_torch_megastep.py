@@ -552,8 +552,10 @@ def test_ring_kw_from_env_megastep(env, want):
 
 @pytest.mark.parametrize("knob", [{"SERVE_KV_MIGRATE": "1"},
                                   # SERVE_ADAPTERS is served
-                                  # (tests/test_torch_adapters.py)
-                                  {"SERVE_PREFILL": "disagg"},
+                                  # (tests/test_torch_adapters.py), and
+                                  # so is SERVE_PREFILL=disagg
+                                  # (tests/test_torch_disagg.py)
+                                  {"SERVE_TP": "2"},
                                   # SERVE_NAN_CHECK and TPUJOB_CHAOS are
                                   # served (tests/test_torch_resilience.py)
                                   {"SERVE_KV_PEER_FETCH": "1"},

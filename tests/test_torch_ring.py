@@ -334,7 +334,7 @@ class TestSubmit:
 
     @pytest.mark.parametrize("kw", [{"mesh": "tp2"}, {"kv_quant": "int4"},
                                     {"prefill_mode": "disagg",
-                                     "paged": True},
+                                     "paged": True, "mesh": "tp2"},
                                     {"megastep": 4, "mesh": "tp2"},
                                     {"adapters": "acme", "mesh": "tp2"},
                                     {"trace": True, "mesh": "tp2"}])
@@ -344,8 +344,9 @@ class TestSubmit:
         # mode the JAX package lacks too is refused by name.  The
         # megastep is ported (tests/test_torch_megastep.py): beside an
         # unported option it is that option that is refused.  Chunked
-        # prefill is ported (tests/test_torch_chunked_prefill.py);
-        # disaggregated prefill is refused on the paged ring it needs.
+        # prefill is ported (tests/test_torch_chunked_prefill.py), and
+        # so is disaggregated prefill (tests/test_torch_disagg.py):
+        # beside an unported option it is that option that is refused.
         # Speculative decoding is ported (tests/test_torch_spec_ring.py):
         # tensor-parallel serving (mesh) stands where spec_k stood.  LoRA
         # adapters are ported (tests/test_torch_adapters.py), and so is

@@ -304,15 +304,17 @@ class TestEntryPoint:
             S.main()
 
     def test_continuous_server_refused(self):
-        # the continuous server serves (TestContinuousServer), adapters
-        # and span tracing included (tests/test_torch_adapters.py,
-        # tests/test_torch_tracing.py); what it does not carry yet is
-        # refused at construction
+        # the continuous server serves (TestContinuousServer), adapters,
+        # span tracing and disaggregated prefill included
+        # (tests/test_torch_adapters.py, tests/test_torch_tracing.py,
+        # tests/test_torch_disagg.py); what it does not carry yet —
+        # tensor-parallel serving — is refused at construction
         model, cfg = make_model("tiny", device="cpu")
         with pytest.raises(NotImplementedError,
-                           match="disaggregated|disagg"):
+                           match="tensor-parallel"):
             S.make_server("127.0.0.1", 0, model, cfg, continuous=True,
-                          trace=True, paged=True, prefill_mode="disagg")
+                          trace=True, paged=True, prefill_mode="disagg",
+                          mesh="tp2")
 
     def test_job_env_matches_jax(self):
         from paddle_operator_tpu.launch.launcher import JobEnv as JEnv
@@ -641,7 +643,11 @@ REFUSED_KNOBS = [
     pytest.param({"SERVE_PREFILL": "chunked", "SERVE_NAN_CHECK": "1",
                   "SERVE_KV_MIGRATE": "1"},
                  id="SERVE_PREFILL=chunked"),
-    {"SERVE_PREFILL": "disagg"},
+    # disaggregated prefill is served (tests/test_torch_disagg.py); beside
+    # a knob still refused, that knob is named and SERVE_PREFILL is not
+    pytest.param({"SERVE_PREFILL": "disagg", "SERVE_PREFILL_LANES": "4",
+                  "SERVE_KV_MIGRATE": "1"},
+                 id="SERVE_PREFILL=disagg"),
     # the megastep is served (tests/test_torch_megastep.py), and so is
     # fault injection (tests/test_torch_resilience.py)
     pytest.param({"SERVE_MEGASTEP": "4",
@@ -656,7 +662,8 @@ REFUSED_KNOBS = [
     # the ring operations are served: each beside a knob still refused
     pytest.param({"SERVE_TRACE": "1", "SERVE_KV_MIGRATE": "1"},
                  id="SERVE_TRACE=1"),
-    pytest.param({"SERVE_NAN_CHECK": "1", "SERVE_PREFILL": "disagg"},
+    pytest.param({"SERVE_NAN_CHECK": "1", "SERVE_PREFILL": "disagg",
+                  "SERVE_KV_BROKER": "127.0.0.1:9100"},
                  id="SERVE_NAN_CHECK=1"),
     pytest.param({"TPUJOB_CHAOS": "dispatch_hang@3:0.25",
                   "SERVE_KV_BROKER": "127.0.0.1:9100"},
@@ -673,9 +680,9 @@ REFUSED_KNOBS = [
 ]
 SERVED_KNOBS = ("SERVE_MEGASTEP", "QUANTIZE", "SERVE_WEIGHT_QUANT",
                 "SERVE_SPEC_K", "SERVE_ADAPTERS", "SERVE_TRACE",
-                "SERVE_NAN_CHECK", "TPUJOB_CHAOS")
-# knobs served at some values only (SERVE_PREFILL=disagg is refused)
-SERVED_SETTINGS = {"SERVE_PREFILL": "chunked"}
+                "SERVE_NAN_CHECK", "TPUJOB_CHAOS", "SERVE_PREFILL_LANES")
+# knobs served at the values listed (every SERVE_PREFILL mode is served)
+SERVED_SETTINGS = {"SERVE_PREFILL": ("chunked", "disagg")}
 
 
 @pytest.mark.parametrize("env", REFUSED_KNOBS,
@@ -689,7 +696,7 @@ def test_refuse_unported_names_the_knob(env):
     said = str(pytest.raises(ValueError, S.refuse_unported,
                              environ).value)
     assert value in said
-    served = [k for k, v in env.items() if SERVED_SETTINGS.get(k) == v]
+    served = [k for k, v in env.items() if v in SERVED_SETTINGS.get(k, ())]
     assert all(k in said for k in env
                if k not in SERVED_KNOBS and k not in served)
     assert not any(k in said for k in SERVED_KNOBS)
