@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
     python3 chip_smoke.py [--phases 2,2b,2c,2d,2e,2f,3,3b,3c,3d,3e,3f,3g,3h,
-                           3i,3j,3k,3l,3m,3n,3o,4,4b,4c,4d,4e,4f,4g,4h,4i,
-                           4j,4k,4l,4m]
+                           3i,3j,3k,3l,3m,3n,3o,3p,4,4b,4c,4d,4e,4f,4g,4h,
+                           4i,4j,4k,4l,4m,4n]
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line; with no arguments every phase runs):
@@ -231,15 +231,17 @@ result line; with no arguments every phase runs):
    host and device ms (CUDA events around its queued copies and
    scatter); the launch and replay counts.
 3h. host tier and durable store main path — 3b's server (bf16 and
-   int8 pools, every dispatch a graph replay) at full width and depth.
+   int8 pools, every dispatch a graph replay) at full width, depth cut
+   to the 7b params' first 16 layers (``TIER_LAYERS``; the tiers'
+   megabytes halved with it, so each holds the blocks it held at 32).
    Round 1: 24 distinct 1,024-token prefixes (4 blocks each: 96 blocks
    against the 64-block pool), each with its own 16-token suffix and 32
    new tokens; round 2: the same prefixes with fresh suffixes, in
    reverse order, so device hits, host hits and cold prefills all
    occur.  Requests stream over HTTP, each queued before the next is
    sent.  Six servers a pool: the tier off; the tier on
-   (``SERVE_HOST_CACHE_MB=4096``: 30 bf16 blocks, 61 int8, sized by
-   ``ring_kw_from_env``); the store leg (``SERVE_KV_STORE=dir:<tmp>``,
+   (``SERVE_HOST_CACHE_MB=4096`` at 32 layers, 2048 at 16: 30 bf16
+   blocks, 61 int8, sized by ``ring_kw_from_env``); the store leg (``SERVE_KV_STORE=dir:<tmp>``,
    round 1 on a server with a 15-block tier, which overflows whole
    chains into the store, then ``flush()`` and close; round 2 on a fresh
    server with a 61-block tier on the same directory, whose imports
@@ -438,6 +440,31 @@ result line; with no arguments every phase runs):
    GB/s (the body's read alone), and the pod's exit code 83 after
    SIGTERM; (d) the handoff copy of a 1,536-token prompt alone (6
    blocks), device ms against its byte bound.
+3p. fleet-level KV — 7b at full width and depth, bf16 weights: two port
+   replicas in one process over one params tree, each 3b's ring with a
+   64-block pool and a host tier (16 blocks on A, 2 on B), served on
+   loopback and wired by ``wire_fleet_kv_from_env`` from the env a pod
+   gets (SERVE_KV_MIGRATE=1, SERVE_KV_PEER_FETCH=1, SERVE_KV_PEERS naming
+   the other).  (c) peer prefix fetch: B's cold admission of a 528-token
+   prompt, waves of 8 cold 1,900-token prompts decoding 48 tokens each
+   (together they map the whole pool) that push its chain out of B and
+   demote its two full blocks into A's tier, then the prompt on B,
+   which fetches them from A's ``/v1/kv/prefix``: one fetch, two blocks
+   imported and promoted, 16 prefill tokens; B's TTFT fetched and cold,
+   the export's ms and bytes.  (a) drain by migration on the bf16 pool:
+   8 requests (prompts of 100-400 tokens, 256 new tokens, each with a
+   ``request_id``) on A once their streams ran unmigrated on B; when
+   every lane decoded two chunks A drains, every lane migrates to B over
+   HTTP (A answers each request 503, ``LaneMigrated``) and each request,
+   retried on B with its ``request_id``, completes there with the
+   unmigrated run's tokens bit for bit; A's ``laneMigrations`` == B's
+   ``adoptedLanes`` == the lanes resident at the drain, and B's kernel #2
+   launches == n_layers x chunk x B's replays (counted replay by
+   replay); readings: each spill's hold of A's ring thread, each lane's
+   envelope bytes, encode ms, POST ms and GB/s, B's decode and adoption
+   ms, adopt to first resumed token, the move's token gap and each
+   stream's largest gap.  (b) the same with 4 lanes on the int8 pool
+   (kernel #3 on B).  The peak memory allocated is printed.
 4. kernel path == plain path — 7b width, 2 layers, float32: greedy
    ``generate`` through the kernel and through the plain version give
    the same tokens, and per-step logits agree within 1e-3.
@@ -581,6 +608,18 @@ result line; with no arguments every phase runs):
    other (their slices read earlier blocks as codes).  Launches,
    replays, the handoff counters, the prefix hits and the pool
    invariant are held.
+4n. fleet-level KV — 7b width, 2 layers, float32, bs 16, 2 slots,
+   chunk 8, under graph replay: a lane drained off ring A by migration
+   through the lane envelope's codec and adopted by ring B (the origin's
+   handle raises ``LaneMigrated``) equals the same request run
+   unmigrated on B — on the bf16 pool at megastep 1 and 4, on the int8
+   pool at megastep 1 and 4, a speculative lane (self-draft, K 4) and an
+   adapter lane — and ``generate`` (with the adapter's ``lora`` leg; on
+   the int8 pool reported, not gated); B keeps its graphs and their
+   addresses, every B dispatch is a replay, and the int8 envelope's
+   never-committed blocks carry scale 0.0.  A 70-token prompt demoted
+   on one server and fetched over HTTP by the other (SERVE_KV_PEERS)
+   admits with the cold admission's tokens, which equal ``generate``.
 4c. training kernel path == plain path — 7b width, 2 layers, float32:
    three train steps with attention through the flash kernels and
    through ``reference_attention`` from the same init agree in loss
@@ -666,7 +705,7 @@ SPEC_DRAFT_ATTN = dict(b=8, hq=16, hkv=16, d=128, s=2048, layers=8)
 PHASES = ("2", "2b", "2c", "2d", "2e", "2f", "3", "3b", "3c", "3d", "3e",
           "3f", "3g", "3h", "3i", "3j", "3k", "3l", "3m", "3n", "4", "4b",
           "4c", "4d", "4e", "4f", "4g", "4h", "4i", "4j", "4k", "4l", "3o",
-          "4m")
+          "4m", "3p", "4n")
 
 
 def log(*a) -> None:
@@ -3133,6 +3172,34 @@ TIER = dict(prefixes=24, prefix=1024, suffix=16, new=32, host_mb=4096,
             store_host_mb={"none": (2048, 8192), "int8": (1024, 4096)},
             ref_blocks=112)
 TIER_RUNS = ("hit_ref", "cold_ref", "off", "on", "store_a", "store_b")
+# 3h runs on the first TIER_LAYERS of the 7b params (the script's time
+# limit: 3h took 163 s of 1,100 at 32 layers), its tiers' megabytes
+# scaled with the depth, so each tier holds the blocks it held at 32
+TIER_LAYERS = 16
+
+
+def _depth_cut(params, cfg, n_layers: int) -> tuple:
+    """The first ``n_layers`` decoder layers of ``params`` as a model of
+    their own, sharing every tensor (nothing is copied), and its
+    config."""
+    import copy
+
+    from torch import nn
+
+    cut = copy.copy(params)
+    cut._modules = dict(params._modules)
+    cut._modules["layers"] = nn.ModuleList(list(params.layers)[:n_layers])
+    cut.cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    return cut, cut.cfg
+
+
+def _tier_sizes(n_layers: int, cfg) -> dict:
+    """TIER with its host megabytes scaled from ``cfg``'s depth to
+    ``n_layers`` (a block's bytes scale with the depth)."""
+    return dict(TIER, host_mb=TIER["host_mb"] * n_layers // cfg.n_layers,
+                store_host_mb={k: tuple(mb * n_layers // cfg.n_layers
+                                        for mb in v)
+                               for k, v in TIER["store_host_mb"].items()})
 
 
 def _ordered_round(base: str, batcher, prompts, new: int) -> list:
@@ -3513,7 +3580,8 @@ def _path(prompt, taken, suffix) -> str:
 
 def phase_host_tier(reports: tuple, params, cfg, sizes=TIER) -> None:
     """Phase 3h: the host tier and the durable store on 3b's ring at full
-    width and depth, bf16 and int8 pools; see the module docstring."""
+    width (``params`` cut to TIER_LAYERS by the caller), bf16 and int8
+    pools; see the module docstring."""
     import shutil
     import tempfile
 
@@ -4855,6 +4923,449 @@ def phase_disagg(reports: tuple, params, cfg, ring_tokens,
                     for k, v in alone.items()) + f" on {card_line()}")
     for report, kv_quant in zip(reports, ("none", "int8")):
         report["disagg"] = dict(out[kv_quant], copy_alone=alone[kv_quant])
+
+
+# phase 3p: fleet-level KV at 7b, full width and depth, bf16 weights —
+# two port replicas in this process over one params tree, each 3b's ring
+# with a 64-block pool and a host tier (16 blocks on A, 2 on B: B's tier
+# is small enough for a wave of cold prompts to push a chain out of it
+# whole), served on loopback, wired by ``wire_fleet_kv_from_env`` with
+# SERVE_KV_MIGRATE=1, SERVE_KV_PEER_FETCH=1 and SERVE_KV_PEERS naming
+# the other.  (a) 8 lanes (prompts of 100-400 tokens, 256 new) drained
+# off A by migration on the bf16 pool, (b) 4 on the int8 pool, both once
+# every lane decoded `chunks_first` chunks; (c) a 512-token prefix (+16)
+# fetched by B from A's host tier
+FLEET = dict(num_blocks=64, host_blocks=(16, 2), lanes=8, int8_lanes=4,
+             new=256, prompt_lens=(100, 143, 186, 229, 271, 314, 357, 400),
+             chunks_first=2, prefix=512, suffix=16, fetched_new=16,
+             wave_len=1900, wave_new=48)
+
+
+def _fleet_pair(params, cfg, kv_quant: str) -> list:
+    """Phase 3p's two replicas, A then B (built one at a time: each ring
+    captures its graphs at prewarm before the next is made), each a
+    ``make_server`` on loopback wired for fleet-level KV from the env a
+    replica pod gets.  Returns ``[(server, batcher, base url), ...]``."""
+    from paddle_operator_tpu_torch.infer.serve import (
+        make_server,
+        wire_fleet_kv_from_env,
+    )
+
+    reps = []
+    for host in FLEET["host_blocks"]:
+        kw = dict(RING, prewarm=True, num_blocks=FLEET["num_blocks"],
+                  host_cache_blocks=host)
+        if kv_quant != "none":
+            kw["kv_quant"] = kv_quant
+        srv = make_server("127.0.0.1", 0, params, cfg, **kw)
+        b = srv.generator.batcher
+        if not b.prewarmed.wait(600) or b.executor.needs_capture:
+            raise AssertionError(f"3p: a replica's graphs were not "
+                                 f"captured: {b.prewarm_error!r}")
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        reps.append((srv, b, f"http://127.0.0.1:{srv.server_address[1]}"))
+    eps = [f"127.0.0.1:{srv.server_address[1]}" for srv, _, _ in reps]
+    for (srv, b, _), other in zip(reps, reversed(eps)):
+        wire_fleet_kv_from_env(b, srv.server_address[1], {
+            "SERVE_KV_MIGRATE": "1", "SERVE_KV_PEER_FETCH": "1",
+            "SERVE_KV_PEERS": other, "POD_IP": "127.0.0.1"})
+        if b.migrate_out is None or b.peer_fetch is None \
+                or b.peer_fetch.__self__.peers != [other]:
+            raise AssertionError("3p: the env did not wire fleet-level KV")
+    return reps
+
+
+def _close_pair(reps) -> None:
+    import torch
+
+    for srv, _, _ in reps:
+        srv.shutdown()
+        srv.server_close()
+        srv.generator.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _stamp_consumes(batcher, stamps: dict, where: str) -> None:
+    """Stamp, after every consumed dispatch boundary of ``batcher``, the
+    host clock and each identified request's emitted-token count:
+    ``stamps[request id]`` gets ``(t, tokens, where)``."""
+    real = batcher._consume
+
+    def consume(chunk_reqs, toks, *a, **k):
+        real(chunk_reqs, toks, *a, **k)
+        now = time.perf_counter()
+        for i, r in chunk_reqs:
+            if r is None or r.request_id is None:
+                continue
+            if batcher.lane[i] is r:
+                n = len(batcher._lane_out[i])
+            elif r.done.is_set() and r.out is not None:
+                n = len(r.out) - len(r.prompt)
+            else:
+                continue
+            stamps.setdefault(r.request_id, []).append((now, n, where))
+
+    batcher._consume = consume
+
+
+def _wave(base: str, batcher, cfg, rng) -> None:
+    """Pool pressure: one cold prompt of ``FLEET['wave_len']`` tokens per
+    lane, each decoding ``FLEET['wave_new']`` tokens, so that together
+    they map the whole pool — every block cached before the wave is
+    evicted (demoted into the host tier), inner chain blocks too.  The
+    ring's dispatches are slowed meanwhile, so every lane is admitted
+    before the first finishes."""
+    prompts = [rng.integers(0, cfg.vocab_size, FLEET["wave_len"]).tolist()
+               for _ in range(RING["slots"])]
+    res = [None] * len(prompts)
+    ex = batcher.executor
+    real = ex.replay
+
+    def slow(plan):
+        time.sleep(0.1)
+        return real(plan)
+
+    def send(i):
+        res[i] = _post_any(base, "/v1/generate",
+                           {"tokens": [prompts[i]],
+                            "max_new_tokens": FLEET["wave_new"]})
+
+    ex.replay = slow
+    try:
+        threads = [threading.Thread(target=send, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        ex.replay = real
+    if any(r is None or r[0] != 200 for r in res):
+        raise AssertionError(f"3p: a pressure prompt failed: "
+                             f"{[r and r[0] for r in res]}")
+
+
+def _migration_run(reps, cfg, n_lanes: int, tag: str) -> dict:
+    """Phase 3p (a)/(b): the lanes' reference run on B, then the same
+    requests on A, A drained by migration once every lane decoded
+    ``chunks_first`` chunks, each request retried on B with its
+    ``request_id``.  Returns the readings; raises on a failed gate."""
+    import numpy as np
+
+    from paddle_operator_tpu_torch.ops import decode_attention as DA
+    from paddle_operator_tpu_torch.utils import fleetkv as FK
+
+    (sa, A, base_a), (sb, B, base_b) = reps
+    quant = A.kv_quant != "none"
+    attr = "quant_launches" if quant else "launches"
+    chunk, new = RING["chunk_tokens"], FLEET["new"]
+    rng = np.random.default_rng(11 if quant else 10)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in FLEET["prompt_lens"][:n_lanes]]
+
+    def run(base, rid_tag, retry=None):
+        first, final = [None] * n_lanes, [None] * n_lanes
+
+        def send(i):
+            body = {"tokens": [prompts[i]], "max_new_tokens": new,
+                    "request_id": f"{rid_tag}-{i}"}
+            first[i] = _post_any(base, "/v1/generate", body)
+            final[i] = first[i]
+            if retry is not None and first[i][0] == 503:
+                final[i] = _post_any(retry, "/v1/generate", body)
+
+        threads = [threading.Thread(target=send, args=(i,))
+                   for i in range(n_lanes)]
+        for t in threads:
+            t.start()
+        return threads, first, final
+
+    # the unmigrated streams, on the adopter's ring
+    threads, _, ref = run(base_b, f"{tag}-ref")
+    for t in threads:
+        t.join()
+    if any(r[0] != 200 for r in ref):
+        raise AssertionError(f"3p {tag}: reference run {[r[0] for r in ref]}")
+    ref = [r[1]["tokens"][0] for r in ref]
+
+    # instrumentation: the spill's hold of A's ring thread, the encode
+    # and the POST of each lane (the client the env built), B's decode
+    # and adoption, every boundary's token counts on both rings, and B's
+    # kernel launches replay by replay (A parks every lane before B's
+    # first adopted dispatch, so no A replay overlaps a B replay)
+    holds, wires, adopts, stamps = [], [], {}, {}
+    real_spill = A.executor.spill_lane
+
+    def spill(slot):
+        t0 = time.perf_counter()
+        out = real_spill(slot)
+        holds.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    A.executor.spill_lane = spill
+    client = A.peer_fetch.__self__
+    # (a)'s cold admissions on A must not host-hit B's chains: its
+    # streams are held to the unmigrated run's bit for bit
+    A.peer_fetch = None
+
+    def migrate_out(meta, spill_):
+        t0 = time.perf_counter()
+        buf = FK.encode_lane(meta, spill_)
+        t1 = time.perf_counter()
+        target = client.migrate_out(buf)
+        t2 = time.perf_counter()
+        wires.append({"rid": meta["requestId"], "bytes": len(buf),
+                      "blocks": int(spill_["n_blocks"]),
+                      "encode_ms": (t1 - t0) * 1e3,
+                      "post_ms": (t2 - t1) * 1e3, "ok": target is not None})
+        return target is not None
+
+    A.migrate_out = migrate_out
+    real_adopt = sb.generator.adopt_envelope
+
+    def adopt_envelope(buf):
+        t0 = time.perf_counter()
+        rid = real_adopt(buf)
+        adopts[rid] = (t0, time.perf_counter())
+        return rid
+
+    sb.generator.adopt_envelope = adopt_envelope
+    _stamp_consumes(A, stamps, "A")
+    _stamp_consumes(B, stamps, "B")
+    b_launch = {"n": 0, "replays": 0}
+    real_replay = B.executor.replay
+    fn = DA.paged_decode_attention
+
+    def replay(plan):
+        c0 = getattr(fn, attr)
+        res = real_replay(plan)
+        b_launch["n"] += getattr(fn, attr) - c0
+        b_launch["replays"] += 1
+        return res
+
+    B.executor.replay = replay
+    b_chunks0, b_adopt0 = B.stats["chunks"], B.stats["adopted_lanes"]
+    other0 = DA.decode_attention.launches
+
+    threads, first, final = run(base_a, tag, retry=base_b)
+    t0 = time.perf_counter()
+    want = 1 + FLEET["chunks_first"] * chunk
+    while not (sum(r is not None for r in A.lane) == n_lanes and all(
+            len(A._lane_out[i]) >= want for i, r in enumerate(A.lane)
+            if r is not None)):
+        if time.perf_counter() - t0 > 600:
+            raise AssertionError(f"3p {tag}: the lanes never all decoded "
+                                 f"{FLEET['chunks_first']} chunks")
+        time.sleep(0.002)
+    resident = sum(r is not None for r in A.lane)
+    a_chunks = A.stats["chunks"]
+    t_drain = time.perf_counter()
+    sa.state.draining = True
+    A.drain(budget_s=600)
+    drain_s = time.perf_counter() - t_drain
+    for t in threads:
+        t.join()
+    bad = []
+    if any(r[0] != 503 or "migrated" not in r[1].get("error", "")
+           for r in first):
+        bad.append(f"A answered {[r[0] for r in first]}")
+    if any(r[0] != 200 for r in final):
+        bad.append(f"B answered {[r[0] for r in final]}")
+    got = [r[1]["tokens"][0] if r[0] == 200 else None for r in final]
+    same = sum(g == w for g, w in zip(got, ref))
+    migrated = A.stats["lane_migrations"]
+    adopted = B.stats["adopted_lanes"] - b_adopt0
+    b_chunks = B.stats["chunks"] - b_chunks0
+    want_launch = cfg.n_layers * chunk * b_launch["replays"]
+    if not resident == migrated == adopted == n_lanes:
+        bad.append(f"resident {resident}, laneMigrations {migrated}, "
+                   f"adoptedLanes {adopted}, want {n_lanes}")
+    if same != n_lanes:
+        bad.append(f"{same}/{n_lanes} streams equal the unmigrated run's")
+    if b_launch["n"] != want_launch or not b_launch["n"] \
+            or b_launch["replays"] != b_chunks:
+        bad.append(f"B's kernel launches {b_launch['n']}, want "
+                   f"{want_launch} (n_layers x chunk x {b_launch['replays']}"
+                   f" replays; {b_chunks} dispatches)")
+    if DA.decode_attention.launches != other0:
+        bad.append("kernel #1 launched")
+    if len(wires) != n_lanes or not all(w["ok"] for w in wires):
+        bad.append(f"wires {wires}")
+    B.pool.check_invariant()
+    # readings, lane by lane
+    lanes = []
+    for w in wires:
+        rid = w["rid"]
+        st = sorted(stamps.get(rid, []))
+        a_last = max((s for s in st if s[2] == "A"), default=None)
+        at_move = a_last[1] if a_last else 0
+        b_first = next((s for s in st if s[2] == "B" and s[1] > at_move),
+                       None)
+        prog = [s for i, s in enumerate(st) if i == 0 or s[1] > st[i - 1][1]]
+        gaps = [(b[0] - a[0]) * 1e3 for a, b in zip(prog, prog[1:])]
+        ad = adopts.get(rid)
+        lanes.append(dict(
+            w, wire_gb_s=w["bytes"] / w["post_ms"] / 1e6,
+            decode_adopt_ms=(ad[1] - ad[0]) * 1e3 if ad else None,
+            adopt_to_first_token_ms=((b_first[0] - ad[1]) * 1e3
+                                     if ad and b_first else None),
+            move_gap_ms=((b_first[0] - a_last[0]) * 1e3
+                         if a_last and b_first else None),
+            largest_gap_ms=max(gaps) if gaps else None,
+            tokens_at_move=at_move))
+    out = {"lanes": n_lanes, "kv_quant": A.kv_quant,
+           "resident_at_drain": resident, "lane_migrations": migrated,
+           "adopted_lanes": adopted, "streams_equal_unmigrated":
+           f"{same}/{n_lanes}", "a_dispatches": a_chunks,
+           "b_dispatches": b_chunks, "b_launches": b_launch["n"],
+           "b_launches_want": want_launch, "drain_s": drain_s,
+           "spill_hold_ms": holds, "per_lane": lanes}
+
+    def spread(key):
+        xs = [ln[key] for ln in lanes if ln[key] is not None]
+        return f"{min(xs):.1f}-{max(xs):.1f}" if xs else "n/a"
+
+    log(f"fleet kv {tag} ({A.kv_quant} pool, {n_lanes} lanes, 7b bf16): A "
+        f"drained by migration in {drain_s:.2f} s, laneMigrations "
+        f"{migrated} == B adoptedLanes {adopted} == resident {resident}; "
+        f"streams == unmigrated {same}/{n_lanes}; B's "
+        f"{'#3' if quant else '#2'} launches {b_launch['n']} (want "
+        f"{want_launch}); spill hold of A's ring thread ms "
+        f"{[round(h, 1) for h in holds]}; a lane's envelope "
+        f"{[w['bytes'] for w in wires]} bytes, encode ms {spread('encode_ms')}"
+        f", POST ms {spread('post_ms')} ({spread('wire_gb_s')} GB/s), B's "
+        f"decode + adopt ms {spread('decode_adopt_ms')}, adopt to first "
+        f"resumed token ms {spread('adopt_to_first_token_ms')}, the move's "
+        f"token gap ms {spread('move_gap_ms')}, largest gap per stream ms "
+        f"{spread('largest_gap_ms')} on {card_line()}")
+    if bad:
+        raise AssertionError(f"3p {tag}: {bad}")
+    return out
+
+
+def _prefix_fetch_run(reps, cfg) -> dict:
+    """Phase 3p (c): B's cold admission of a 528-token prompt, a wave of
+    cold prompts that pushes its chain out of B's pool and tier, the
+    prompt cold on A and a wave that demotes its two full blocks into
+    A's tier, then the prompt on B: B's submit thread fetches the blocks
+    from A's ``/v1/kv/prefix`` and the admission host-hits them."""
+    import numpy as np
+
+    from paddle_operator_tpu_torch.utils.radixkey import chain_key
+
+    (sa, A, base_a), (sb, B, base_b) = reps
+    bs, new = RING["block_size"], FLEET["fetched_new"]
+    rng = np.random.default_rng(12)
+    prompt = rng.integers(0, cfg.vocab_size,
+                          FLEET["prefix"] + FLEET["suffix"]).tolist()
+    keys, key = [], None
+    for j in range(FLEET["prefix"] // bs):
+        key = chain_key(key, tuple(prompt[j * bs:(j + 1) * bs]))
+        keys.append(key)
+    body = {"tokens": [prompt], "max_new_tokens": new}
+    # B's cold admission runs with its peer leg off: the submit probe
+    # asks the fleet once per chain, and the fetched admission below
+    # must be B's first ask of this one
+    real_fetch = B.peer_fetch
+    B.peer_fetch = None
+    code, events, cold_ttft, _ = _post_stream(base_b, body)
+    B.peer_fetch = real_fetch
+    cold = events[-1]["tokens"]
+    # the first wave demotes the chain into B's two-block tier, the
+    # second pushes it out of the tier
+    _wave(base_b, B, cfg, rng)
+    _wave(base_b, B, cfg, rng)
+    if any(k in B.pool.entries for k in keys):
+        raise AssertionError("3p (c): the prefix is still on B")
+    if _post_any(base_a, "/v1/generate", body)[0] != 200:
+        raise AssertionError("3p (c): A's cold admission failed")
+    _wave(base_a, A, cfg, rng)
+    if not all(k in A.pool.entries and A.pool.entries[k].block is None
+               and k in A.pool.host for k in keys):
+        raise AssertionError("3p (c): the prefix was not demoted into A's "
+                             "host tier")
+    timing = {}
+    real_export = A.pool.export_host_chain
+
+    def export(tokens, ns=0):
+        t0 = time.perf_counter()
+        out = real_export(tokens, ns=ns)
+        timing["export_ms"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    A.pool.export_host_chain = export
+
+    def fetch(tokens, ns):
+        t0 = time.perf_counter()
+        buf = real_fetch(tokens, ns)
+        timing["fetch_ms"] = (time.perf_counter() - t0) * 1e3
+        timing["bytes"] = len(buf) if buf else 0
+        return buf
+
+    B.peer_fetch = fetch
+    s0 = dict(B.stats)
+    p0 = dict(B.pool.stats)
+    code, events, fetched_ttft, _ = _post_stream(base_b, body)
+    got = events[-1]["tokens"]
+    st = json.loads(urllib.request.urlopen(base_b + "/statusz",
+                                           timeout=60).read())
+    out = {"prefix_tokens": FLEET["prefix"], "bytes": timing.get("bytes"),
+           "export_ms": timing.get("export_ms"),
+           "fetch_ms": timing.get("fetch_ms"),
+           "cold_ttft_s": cold_ttft, "fetched_ttft_s": fetched_ttft,
+           "peer_prefix_fetches": B.stats["peer_prefix_fetches"]
+           - s0["peer_prefix_fetches"],
+           "peer_blocks_imported": B.pool.stats["peer_blocks_imported"]
+           - p0["peer_blocks_imported"],
+           "host_promotions": B.pool.stats["host_promotions"]
+           - p0["host_promotions"],
+           "prefill_tokens": B.stats["prefill_tokens"] - s0["prefill_tokens"],
+           "statusz_peer_prefix_fetches": st["peerPrefixFetches"],
+           "tokens_equal_cold": sum(a == b for a, b in zip(
+               got[len(prompt):], cold[len(prompt):])) / new}
+    log(f"fleet kv (c) peer prefix fetch (7b bf16, a {FLEET['prefix']}-token "
+        f"prefix + {FLEET['suffix']}): B's TTFT {fetched_ttft * 1e3:.1f} ms "
+        f"fetched against {cold_ttft * 1e3:.1f} ms cold; the export "
+        f"{out['export_ms']} ms on A's handler thread, the fetch "
+        f"{out['fetch_ms']} ms for {out['bytes']} bytes; "
+        f"peerPrefixFetches {out['peer_prefix_fetches']}, blocks imported "
+        f"{out['peer_blocks_imported']}, promoted {out['host_promotions']},"
+        f" prefill tokens {out['prefill_tokens']}; new tokens equal to the "
+        f"cold run's {out['tokens_equal_cold']:.3f} (not gated: a hit and a "
+        f"cold prefill round differently in bf16) on {card_line()}")
+    n = FLEET["prefix"] // bs
+    if (code != 200 or out["peer_prefix_fetches"] != 1
+            or out["peer_blocks_imported"] != n
+            or out["host_promotions"] != n
+            or out["statusz_peer_prefix_fetches"] < 1
+            or out["prefill_tokens"] != FLEET["suffix"]):
+        raise AssertionError(f"3p (c): {out}")
+    return out
+
+
+def phase_fleet_kv(reports: tuple, params, cfg) -> None:
+    """Phase 3p: fleet-level KV at 7b; see the module docstring."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    reps = _fleet_pair(params, cfg, "none")
+    try:
+        fetch = _prefix_fetch_run(reps, cfg)
+        bf16 = _migration_run(reps, cfg, FLEET["lanes"], "a")
+    finally:
+        _close_pair(reps)
+    reps = _fleet_pair(params, cfg, "int8")
+    try:
+        int8 = _migration_run(reps, cfg, FLEET["int8_lanes"], "b")
+    finally:
+        _close_pair(reps)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"fleet kv: peak memory allocated {peak:.2f} GB (one 7b params tree "
+        f"and two 64-block pools) on {card_line()}")
+    reports[0]["fleet_kv"] = {"migration": bf16, "prefix_fetch": fetch,
+                              "peak_gb": peak}
+    reports[1]["fleet_kv"] = {"migration": int8, "peak_gb": peak}
 
 
 def _zero_launches() -> None:
@@ -6590,6 +7101,226 @@ def phase_disagg_equalities() -> None:
                     == outs["remote"]):
                 raise AssertionError(line)
     del params
+    torch.cuda.empty_cache()
+
+
+# phase 4n: 7b width, 2 layers, f32, bs 16, 2 slots: a lane drained off
+# ring A by migration (through the lane envelope's codec) and adopted by
+# ring B equals the same request run unmigrated on B and ``generate`` —
+# on the bf16 pool at megastep 1 and 4, on the int8 pool at megastep 1
+# and 4, a speculative lane (self-draft, K 4) and an adapter lane; and a
+# prefix fetched over HTTP from a peer's host tier admits as a cold
+# prompt does
+FLEET_4N = (("bf16", {}, 1), ("bf16", {}, 4),
+            ("int8", {"kv_quant": "int8"}, 1),
+            ("int8", {"kv_quant": "int8"}, 4),
+            ("speculative", {"spec_k": 4}, 1), ("adapter", {}, 1))
+
+
+def phase_fleet_kv_equalities() -> None:
+    """Phase 4n: migrated lanes and a peer-fetched prefix at f32 under
+    graph replay; see the module docstring."""
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.infer import decode as D
+    from paddle_operator_tpu_torch.infer.batcher import ContinuousBatcher
+    from paddle_operator_tpu_torch.infer.resilience import LaneMigrated
+    from paddle_operator_tpu_torch.infer.serve import (
+        make_server,
+        wire_fleet_kv_from_env,
+    )
+    from paddle_operator_tpu_torch.models.llama import make_model
+    from paddle_operator_tpu_torch.ops import decode_attention as DA
+    from paddle_operator_tpu_torch.utils import fleetkv as FK
+
+    params, cfg = make_model("7b", device="cuda", seed=9, n_layers=2,
+                             dtype=torch.float32)
+    params.requires_grad_(False)
+    dev = params.tok_embed.embedding.device
+    bs, max_len, chunk = 16, 256, 8
+    rng = np.random.default_rng(9)
+    prompt = rng.integers(0, cfg.vocab_size, 70).tolist()
+
+    def want(new, lora=None):
+        with torch.inference_mode():
+            return D.generate(params, cfg, torch.tensor(
+                [prompt], dtype=torch.int32, device=dev),
+                max_new_tokens=new, max_len=max_len, lora=lora)[0].tolist()
+
+    def ring(extra, megastep):
+        kw = dict(slots=2, max_len=max_len, chunk_tokens=chunk, paged=True,
+                  block_size=bs, megastep=megastep, prewarm=True)
+        extra = dict(extra)
+        if extra.get("spec_k"):
+            extra.update(draft_params=params, draft_cfg=cfg)
+        b = ContinuousBatcher(params, cfg, **kw, **extra)
+        if not b.prewarmed.wait(600) or b.executor.needs_capture:
+            raise AssertionError(f"4n: no graphs captured: "
+                                 f"{b.prewarm_error!r}")
+        return b
+
+    lines = []
+    for name, extra, megastep in FLEET_4N:
+        new = 96 if megastep > 1 else 48
+        sub, lora = {}, None
+        if name == "adapter":
+            sub = {"adapter": "a1"}
+        rings = []
+        try:
+            regs = [_registry(cfg, ("a1",), 2, 8, device=dev)
+                    if name == "adapter" else None for _ in range(2)]
+            B = ring(extra if regs[1] is None
+                     else dict(extra, adapters=regs[1]), megastep)
+            rings.append(B)
+            unmigrated = B.submit(prompt, max_new_tokens=new,
+                                  **sub).result(timeout=600)
+            A = ring(extra if regs[0] is None
+                     else dict(extra, adapters=regs[0]), megastep)
+            rings.append(A)
+            if name == "adapter":
+                stacks = regs[1].arrays()
+                lora = (stacks, torch.tensor([regs[1].resolve("a1")],
+                                             dtype=torch.int32, device=dev))
+            graphs, ptrs = B.executor._graphs, B.executor._state_ptrs()
+            replays0, chunks0 = B.executor.graph_replays, B.stats["chunks"]
+            sent = {}
+
+            def migrate_out(meta, spill):
+                buf = FK.encode_lane(meta, spill)
+                m, s = FK.decode_lane(buf)
+                sent["meta"], sent["spill"] = m, s
+                sent["handle"] = B.adopt(m, s)
+                return True
+
+            A.migrate_out = migrate_out
+            A._migrate_on_drain = True
+            real = A.executor.replay
+
+            def slow(plan, real=real):
+                time.sleep(0.05)
+                return real(plan)
+
+            A.executor.replay = slow
+            h = A.submit(prompt, max_new_tokens=new, request_id="n/row0",
+                         **sub)
+            t0 = time.perf_counter()
+            while A.stats["chunks"] < (1 if megastep > 1 else 2):
+                if time.perf_counter() - t0 > 600:
+                    raise AssertionError(f"4n {name}: no dispatch")
+                time.sleep(0.002)
+            _zero_launches()
+            A.drain(budget_s=600)
+            try:
+                h.result(timeout=60)
+                raised = None
+            except LaneMigrated as e:
+                raised = e
+            got = sent["handle"].result(timeout=600)
+            # a speculative ring's draft ticks run kernel #1 (its verify
+            # the plain multi-row attention); the others the pool's kernel
+            kname, launched = (
+                ("#1", DA.decode_attention.launches) if "spec_k" in extra
+                else ("#3", DA.paged_decode_attention.quant_launches)
+                if "kv_quant" in extra
+                else ("#2", DA.paged_decode_attention.launches))
+            bad = []
+            if raised is None:
+                bad.append("the origin's handle did not raise LaneMigrated")
+            out_at_move = len(sent["meta"]["out"])
+            if not 0 < out_at_move < new:
+                bad.append(f"moved with {out_at_move} of {new} tokens")
+            if got != unmigrated:
+                bad.append("!= the unmigrated run")
+            ref = want(new, lora)
+            if name != "int8" and got != ref:
+                bad.append("!= generate")
+            if not (B.executor._graphs is graphs
+                    and B.executor._state_ptrs() == ptrs):
+                bad.append("B captured again or moved its state")
+            if B.executor.graph_replays - replays0 \
+                    != B.stats["chunks"] - chunks0:
+                bad.append("a B dispatch was not a graph replay")
+            if not launched:
+                bad.append("B's decode kernel never launched")
+            scales = ""
+            if name == "int8":
+                done = int(sent["spill"]["pos"]) // bs
+                ks = sent["spill"]["ks"]
+                scales = (f"; the envelope's {ks.shape[1] - done} "
+                          f"never-committed block(s) read scale "
+                          f"{sorted(set(ks[:, done:].flatten().tolist()))}")
+                if ks[:, done:].count_nonzero() or ks[:, :done].le(0).any():
+                    bad.append("the never-committed scales are not 0.0")
+            B.pool.check_invariant()
+            gated = " (not gated on the int8 pool)" if name == "int8" else ""
+            line = (f"fleet kv {name} lane, megastep {megastep} (7b width, "
+                    f"2 layers, f32, graph replays): moved after "
+                    f"{out_at_move} tokens, {len(got) - len(prompt)} "
+                    f"tokens == unmigrated {got == unmigrated}, == generate "
+                    f"{got == ref}{gated}"
+                    f"; B's {kname} launches {launched}{scales}")
+            log(line)
+            lines.append(line)
+            if bad:
+                raise AssertionError(f"4n {name} megastep {megastep}: {bad}")
+        finally:
+            for b in rings:
+                if b._thread.is_alive():
+                    b.close()
+            gc.collect()
+            torch.cuda.empty_cache()
+    # a prefix fetched over HTTP from a peer's tier (SERVE_KV_PEERS)
+    srvs = []
+    try:
+        for _ in range(2):
+            srv = make_server("127.0.0.1", 0, params, cfg, continuous=True,
+                              slots=2, max_len=max_len, chunk_tokens=chunk,
+                              paged=True, block_size=bs, num_blocks=16,
+                              host_cache_blocks=16, prewarm=True)
+            b = srv.generator.batcher
+            if not b.prewarmed.wait(600) or b.executor.needs_capture:
+                raise AssertionError("4n: no graphs captured")
+            threading.Thread(target=srv.serve_forever, daemon=True).start()
+            srvs.append(srv)
+        eps = [f"127.0.0.1:{s.server_address[1]}" for s in srvs]
+        for srv in srvs:
+            wire_fleet_kv_from_env(srv.generator.batcher,
+                                   srv.server_address[1], {
+                                       "SERVE_KV_PEER_FETCH": "1",
+                                       "SERVE_KV_PEERS": ",".join(eps),
+                                       "POD_IP": "127.0.0.1"})
+        A, B = (s.generator.batcher for s in srvs)
+        body = {"tokens": [prompt], "max_new_tokens": 48}
+        code, cold = _post_any(f"http://{eps[0]}", "/v1/generate", body)
+        for i in range(2):
+            filler = rng.integers(0, cfg.vocab_size, 200).tolist()
+            _post_any(f"http://{eps[0]}", "/v1/generate",
+                      {"tokens": [filler], "max_new_tokens": 8})
+        if A.pool.stats["host_demotions"] < 4:
+            raise AssertionError("4n: the prefix was not demoted")
+        code2, fetched = _post_any(f"http://{eps[1]}", "/v1/generate", body)
+        ref = want(48)
+        line = (f"fleet kv peer fetch (7b width, 2 layers, f32): fetched "
+                f"admission == cold {fetched['tokens'] == cold['tokens']}, "
+                f"== generate {fetched['tokens'][0] == ref}; "
+                f"peerPrefixFetches {B.stats['peer_prefix_fetches']}, "
+                f"blocks imported {B.pool.stats['peer_blocks_imported']}, "
+                f"promoted {B.pool.stats['host_promotions']}")
+        log(line)
+        if (code != 200 or code2 != 200 or fetched["tokens"] != cold["tokens"]
+                or fetched["tokens"][0] != ref
+                or B.stats["peer_prefix_fetches"] != 1
+                or B.pool.stats["peer_blocks_imported"] < 4):
+            raise AssertionError(line)
+        B.pool.check_invariant()
+    finally:
+        for srv in srvs:
+            srv.shutdown()
+            srv.server_close()
+            srv.generator.close()
+    del params
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -8627,7 +9358,7 @@ def main() -> int:
     run("2f", phase_adam8bit_vs_plain, adam8)
     run("2c", phase_flash_vs_plain, flash)
     if phases & {"3", "3b", "3d", "3e", "3g", "3h", "3i", "3j", "3l",
-                  "3m", "3n", "3o"}:
+                  "3m", "3n", "3o", "3p"}:
         params, cfg = make_7b()
         run("3", phase_main_path, contiguous, params, cfg)
         ring_tokens = run("3b", phase_ring_main_path, paged, params, cfg)
@@ -8644,7 +9375,9 @@ def main() -> int:
         run("3g", phase_preemption, (paged, quant), params, cfg)
         gc.collect()
         torch.cuda.empty_cache()
-        run("3h", phase_host_tier, (paged, quant), params, cfg)
+        run("3h", phase_host_tier, (paged, quant),
+            *_depth_cut(params, cfg, TIER_LAYERS),
+            _tier_sizes(TIER_LAYERS, cfg))
         gc.collect()
         torch.cuda.empty_cache()
         run("3i", phase_weight_quant_ring, qmm, qmm_b, params, cfg)
@@ -8666,6 +9399,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         run("3o", phase_disagg, (paged, quant), params, cfg, ring_tokens,
             runs_3j)
+        gc.collect()
+        torch.cuda.empty_cache()
+        run("3p", phase_fleet_kv, (paged, quant), params, cfg)
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -8685,6 +9421,7 @@ def main() -> int:
     run("4k", phase_adapter_equalities)
     run("4l", phase_ring_ops_equalities)
     run("4m", phase_disagg_equalities)
+    run("4n", phase_fleet_kv_equalities)
     log(f"all phases: {time.perf_counter() - t_all:.1f}s")
 
     order = ["name", "route", "source", "replaces", "launches",
@@ -8693,7 +9430,8 @@ def main() -> int:
              "nan_lanes", "ring_ops",
              "decode_ms_per_step_b4", "kernel1_ms", "paged_bf16_ms", "ring",
              "ring_megastep", "spec", "draft_quant", "preempt", "host_tier",
-             "interleave", "disagg", "prefill", "probes_ms", "limit_check", "train",
+             "interleave", "disagg", "fleet_kv", "prefill", "probes_ms",
+             "limit_check", "train",
              "checkpoint", "depth",
              "fwd_bwd", "designs",
              "ptxas",

@@ -1169,9 +1169,9 @@ class PrefillExecutor:
     heal) are dropped at either end.
 
     The int8 engine pool starts its scales at 0.0, the JAX pool's
-    initial value (the decode pool's is 1.0): a block a handoff carries
-    that no job ever committed — an N-lane job's write-frontier block —
-    crosses the wire with the bytes a JAX engine sends."""
+    initial value (``paged.init_paged_cache``): a block a handoff
+    carries that no job ever committed — an N-lane job's write-frontier
+    block — crosses the wire with the bytes a JAX engine sends."""
 
     def __init__(self, params: Any, cfg: LlamaConfig, *, max_len: int,
                  block_size: int, buckets: Tuple[int, ...],
@@ -1206,9 +1206,6 @@ class PrefillExecutor:
         self.cache = PG.init_paged_cache(
             cfg, self.lanes, self.lanes * m + 1, self.block_size,
             device=self.device, quant=kv_quant)
-        if self.quant:
-            for key in ("ks", "vs"):
-                self.cache[key].zero_()
         self.table_row = to_device(np.arange(1, m + 1, dtype=np.int32),
                                    self.device)
         self.tables = np.stack(

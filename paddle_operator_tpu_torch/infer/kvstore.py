@@ -31,9 +31,9 @@ prefill by the same construction the host tier already pins.
 Lifecycle: :meth:`KVBlockStore.janitor` applies a TTL (last-touch mtime)
 then a size budget (LRU by mtime); ``python -m
 paddle_operator_tpu_torch.infer.kvstore dir:/path --ttl-s ... --budget-mb
-...`` runs the same pass against a shared volume.  The router's consult
-(``fetch_prefix_envelope``) comes with fleet-level KV (ROADMAP.md Queue
-A).
+...`` runs the same pass against a shared volume.  The router's own
+consult of the store (JAX ``KVBlockStore.fetch_prefix_envelope``) runs
+in the router, which reads the same volume; a replica never calls it.
 """
 
 from __future__ import annotations

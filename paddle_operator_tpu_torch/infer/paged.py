@@ -51,8 +51,11 @@ scatter).
   node survives store-resident (``stored``) for a later store probe to
   re-fill through :meth:`PagedCacheManager.import_host_blocks`.
 
-Not ported yet (ROADMAP.md Queue A): the peer export
-(``export_host_chain``, fleet-level KV) and the prefill-pool transfers.
+- **Peer export** (:meth:`PagedCacheManager.export_host_chain`,
+  fleet-level KV): a peer whose radix walk missed gets copies of a
+  prompt's demoted blocks (serve.py ``/v1/kv/prefix``), read from an
+  HTTP thread under the slot-reuse rule of the method's docstring, and
+  imports them through :meth:`PagedCacheManager.import_host_blocks`.
 """
 
 from __future__ import annotations
@@ -820,6 +823,55 @@ class PagedCacheManager:
             if e is not None:
                 self._drop_entry(e)
 
+    def export_host_chain(self, prompt, ns: int = 0):
+        """The peer-fetch EXPORT: walk ``prompt``'s radix chain and
+        collect every HOST-resident (demoted) full block along it —
+        ``(chunks, block_idx, payloads)``: ``chunks`` lists EVERY full
+        block's tokens from the chain start (the importer recomputes the
+        parent keys from them), ``block_idx``/``payloads`` the demoted
+        subset that travels, as copies.  Device-resident blocks are
+        skipped and the walk goes on: the importer may hold the head
+        already.
+
+        Called on an HTTP handler thread while the ring thread mutates
+        the radix and reuses host slots.  A payload's bytes are read
+        after its slot's last queued copy landed (``wait``), copied out,
+        and kept only if the tier still holds THAT payload under the key
+        afterwards — a slot the ring released (and may have refilled)
+        meanwhile raises ``LookupError``, never torn bytes.  Callers
+        treat any exception as "nothing to export" (serve answers
+        204)."""
+        if self.host is None:
+            return [], [], []
+        tokens = tuple(int(t) for t in prompt)
+        bs = self.bs
+        chunks, block_idx, payloads = [], [], []
+        key = self._root_key(ns)
+        for j in range(len(tokens) // bs):
+            chunk = tokens[j * bs:(j + 1) * bs]
+            key = self._chain_key(key, chunk)
+            e = self.entries.get(key)
+            if e is None or e.chunk != chunk:
+                break               # chain cold from here on
+            chunks.append(list(chunk))
+            if e.block is not None:
+                continue
+            payload = self.host.peek(key)
+            if payload is None:
+                continue
+            wait = getattr(payload, "wait", None)
+            if wait is not None:
+                wait()              # the demote's copy has landed
+            copy = {name: (a.clone() if isinstance(a, torch.Tensor)
+                           else np.array(a, copy=True))
+                    for name, a in payload.items()}
+            if self.host.peek(key) is not payload:
+                raise LookupError(f"host block {j} of the chain left the "
+                                  "tier during its export")
+            block_idx.append(j)
+            payloads.append(copy)
+        return chunks, block_idx, payloads
+
     def import_host_blocks(self, chunks, block_idx, payloads,
                            ns: int = 0) -> int:
         """Insert fetched payloads (a store hit) into the host tier and
@@ -953,7 +1005,9 @@ def init_paged_cache(cfg: LlamaConfig, slots: int, total_blocks: int,
     ``kt``/``vt`` [L, slots + 1, H_kv, bs, D] in the compute dtype —
     lane b's write block accumulates exact rows in tail row b and
     quantizes into the pool once, when it completes; row ``slots`` is
-    the trash tail."""
+    the trash tail.  The scales start at 0.0, the JAX pool's value: a
+    block no completion has quantized yet (a lane's frontier, read from
+    its tail) keeps it, so a spill of the lane carries JAX's bytes."""
     shape = (cfg.n_layers, total_blocks, cfg.n_kv_heads, block_size,
              cfg.head_dim)
     pos = torch.zeros((slots,), dtype=torch.int32, device=device)
@@ -970,8 +1024,8 @@ def init_paged_cache(cfg: LlamaConfig, slots: int, total_blocks: int,
     return {
         "k": torch.zeros(shape, dtype=torch.int8, device=device),
         "v": torch.zeros(shape, dtype=torch.int8, device=device),
-        "ks": torch.ones(scale_shape, dtype=torch.float32, device=device),
-        "vs": torch.ones(scale_shape, dtype=torch.float32, device=device),
+        "ks": torch.zeros(scale_shape, dtype=torch.float32, device=device),
+        "vs": torch.zeros(scale_shape, dtype=torch.float32, device=device),
         "kt": torch.zeros(tail_shape, dtype=cfg.dtype, device=device),
         "vt": torch.zeros(tail_shape, dtype=cfg.dtype, device=device),
         "pos": pos,

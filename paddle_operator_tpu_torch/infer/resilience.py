@@ -5,7 +5,7 @@ device):
 - the typed failure surface: :class:`ShuttingDown` /
   :class:`RetriableError` (503 + ``Retry-After``: the request was fine,
   the server was not), :class:`DeadlineExceeded`,
-  :class:`LaneQuarantined`;
+  :class:`LaneQuarantined`, :class:`LaneMigrated`;
 - :class:`RingResilience` — the knobs (watchdog thresholds, restart
   budget, backoff), env-constructable for serve.py;
 - :class:`RollingQuantile` and :class:`DispatchWatchdog` — a monitor
@@ -62,6 +62,16 @@ class DeadlineExceeded(RuntimeError):
 class LaneQuarantined(RetriableError):
     """This lane's logits went non-finite (NaN/inf) — its request is
     failed and the lane retired WITHOUT touching the other lanes."""
+
+
+class LaneMigrated(RetriableError):
+    """This lane migrated to a peer replica (fleet-level KV:
+    drain-by-migration or the parked-lane shed).  The peer resumes the
+    stream from the spilled bytes; the client's retry — same idempotent
+    ``request_id`` — lands on the adopter (the router's migration table
+    pins the id there before this error is raised) and collects the
+    FULL result.  serve.py maps it to 503 + ``Retry-After`` like every
+    retriable."""
 
 
 # ---------------------------------------------------------------------------

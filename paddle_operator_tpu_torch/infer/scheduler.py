@@ -87,9 +87,23 @@ fails its request alone with :class:`LaneQuarantined` while its private
 blocks are scrubbed; :meth:`ContinuousBatcher.swap_weights` (``/v1/swap``)
 flips the served weights of a paged ring at a quiesced boundary — the
 residents park through the preemption spill, the executor swaps and
-captures its graphs again, and the parked lanes resume.  Not ported
-yet, and refused when asked for (ROADMAP.md Queue A): tensor-parallel
-serving and fleet-level KV.
+captures its graphs again, and the parked lanes resume.
+
+Fleet-level KV (paged rings; serve.py ``wire_fleet_kv_from_env`` wires
+it): with ``migrate_out`` set, a drain parks every resident decode lane
+at a boundary with nothing in flight and offers each spill to a peer as
+a lane envelope (utils/fleetkv.py) on a side thread; an adopted lane's
+request resolves here with :class:`LaneMigrated` (503, the client's
+retry collects the result on the adopter), a refused one resumes
+locally.  ``migrate_parked_s`` offers preemption-parked lanes that
+waited that long.  :meth:`ContinuousBatcher.adopt` takes a peer's lane
+(the ``/v1/kv/restore`` handler's thread: validation only, nothing on
+the device) and the loop restores it through the preemption restore.
+With ``peer_fetch`` set, the submit thread asks the fleet for a cold
+prompt's demoted blocks (peer, then the durable store) and the loop
+imports them into the host tier before the admission.  Not ported yet,
+and refused when asked for (ROADMAP.md Queue A): tensor-parallel
+serving.
 """
 
 from __future__ import annotations
@@ -109,6 +123,7 @@ from paddle_operator_tpu_torch.infer import qos as QOS
 from paddle_operator_tpu_torch.infer import quant as Q
 from paddle_operator_tpu_torch.infer.resilience import (
     DispatchWatchdog,
+    LaneMigrated,
     LaneQuarantined,
     RestartBudget,
     RetriableError,
@@ -149,7 +164,8 @@ class _Request:
                  "dev_prompt", "bucket", "deadline", "deadline_exceeded",
                  "priority", "request_id", "t_submit", "t_first",
                  "t_last_tok", "preempts", "accepted", "drafted",
-                 "adapter", "adapter_idx", "ns", "trace", "t_prefill0")
+                 "adapter", "adapter_idx", "ns", "trace", "t_prefill0",
+                 "migrate_state")
 
     def __init__(self, prompt, max_new, temperature, seed, eos,
                  wants_stream=False, deadline=None):
@@ -176,7 +192,12 @@ class _Request:
         # times this request's lane was spilled for more urgent work
         # (the per-request anti-thrash cap)
         self.preempts = 0
+        # the client's idempotent id (the migration's retrieval key) and
+        # the request's migration state: None (never offered),
+        # "inflight" (its envelope on the wire), "done" or "failed" (a
+        # peer refused: never offered again, it resumes here)
         self.request_id: Optional[str] = None
+        self.migrate_state: Optional[str] = None
         # the request's span tree (SERVE_TRACE rings; None: untraced)
         self.trace: Optional[TR.RequestTrace] = None
         self.t_submit = time.monotonic()
@@ -257,15 +278,23 @@ class _ParkedLane:
     re-attaches — the request itself stays unresolved, invisible to the
     client except as latency."""
 
-    __slots__ = ("req", "spill", "out", "left", "pos", "seq")
+    __slots__ = ("req", "spill", "out", "left", "pos", "seq",
+                 "generation", "migrating", "t_parked")
 
-    def __init__(self, req, spill, out, left, pos, seq):
+    def __init__(self, req, spill, out, left, pos, seq, generation=0):
         self.req = req
         self.spill = spill
         self.out = out          # tokens emitted before the spill
         self.left = left        # remaining token budget
         self.pos = pos          # fill position at the spill boundary
         self.seq = seq          # park order — FIFO within a class
+        # the weight generation its KV was computed under: a lane parked
+        # across a live swap is never offered to the fleet
+        self.generation = generation
+        # its envelope is on the wire to a peer: not restorable here
+        # (and deadline / cancel wait) until the outcome lands
+        self.migrating = False
+        self.t_parked = time.monotonic()
 
 
 class _SwapRequest:
@@ -476,10 +505,23 @@ class ContinuousBatcher:
         # store payloads fetched on a submit thread, awaiting import into
         # the tier by the ring loop (the only consumer)
         self._host_imports: "queue.Queue[tuple]" = queue.Queue()
-        # chains already asked of the fleet — the peer leg's dedupe
-        # (fleet-level KV, ROADMAP.md Queue A); the store probe
-        # stays outside it
+        # chains already asked of the fleet — the peer leg's dedupe;
+        # the store probe stays outside it
         self._peer_fetch_seen: "OrderedDict[Any, bool]" = OrderedDict()
+        # fleet-level KV (serve.wire_fleet_kv_from_env):
+        # ``migrate_out(meta, spill) -> bool`` offers a parked lane to a
+        # peer (a FleetKVClient behind it), ``peer_fetch(tokens, ns)``
+        # asks the fleet for a prompt's demoted blocks; a drain migrates
+        # its residents when ``_migrate_on_drain``, and parked lanes
+        # older than ``migrate_parked_s`` are offered out
+        self.migrate_out = None
+        self.peer_fetch = None
+        self._migrate_on_drain = False
+        self.migrate_parked_s: Optional[float] = None
+        # lanes adopted from peers (HTTP thread -> loop) and migration
+        # outcomes (worker thread -> loop)
+        self._adopt_q: "queue.Queue[_ParkedLane]" = queue.Queue()
+        self._migr_done: "queue.Queue[tuple]" = queue.Queue()
         self._wake = threading.Event()
         self._stop = threading.Event()
         self.stats = {"admitted": 0, "evicted": 0, "chunks": 0,
@@ -510,7 +552,11 @@ class ContinuousBatcher:
                       "promoted_blocks": 0,
                       # lanes failed by the NaN-lane check, and live
                       # weight swaps completed
-                      "quarantined_lanes": 0, "weight_swaps": 0}
+                      "quarantined_lanes": 0, "weight_swaps": 0,
+                      # lanes migrated out to a peer, lanes adopted in,
+                      # and prefix chains fetched from a peer's tier
+                      "lane_migrations": 0, "adopted_lanes": 0,
+                      "peer_prefix_fetches": 0}
         self._tokens_emitted = 0
         self._t_start = time.monotonic()
         # prewarm (serve.py default, SERVE_PREWARM=0 opts out): build
@@ -697,15 +743,16 @@ class ContinuousBatcher:
         req.adapter_idx = adapter_idx
         req.ns = adapter_ns if adapter_idx else 0
         req.request_id = request_id
-        # a cold prefix may be warm in the durable store: fetch its
-        # blocks now, on the caller's thread, so this request's
-        # admission host-hits them.  Base namespace only: an adapter's
-        # namespace is minted per load, so its chains never match a
-        # stored one
-        if (self.kv_store is not None and req.ns == 0
-                and self.pool is not None and self.pool.host is not None):
+        # a cold prefix may be warm on a peer or in the durable store:
+        # fetch its blocks now, on the caller's thread (peer first, then
+        # the store), so this request's admission host-hits them.  Base
+        # namespace only: an adapter's namespace is minted per load, so
+        # its chains never match another replica's or a stored one
+        if ((self.peer_fetch is not None or self.kv_store is not None)
+                and req.ns == 0 and self.pool is not None
+                and self.pool.host is not None):
             try:
-                self._maybe_store_fetch(prompt)
+                self._maybe_peer_fetch(prompt)
             except Exception:
                 pass    # a fetch is an optimization, never a failure
         req.bucket = self._bucket_for(len(prompt))
@@ -818,9 +865,9 @@ class ContinuousBatcher:
             "priorityQueueDepth": self._pending.qsize_by_class(),
             "preemptedLanes": self.stats["preempted_lanes"],
             "parkedLanes": len(self._parked),
-            "laneMigrations": 0,
-            "adoptedLanes": 0,
-            "peerPrefixFetches": 0,
+            "laneMigrations": self.stats["lane_migrations"],
+            "adoptedLanes": self.stats["adopted_lanes"],
+            "peerPrefixFetches": self.stats["peer_prefix_fetches"],
             "remotePrefills": self.stats["remote_prefills"],
             "hostCacheEvictions": (pool.host_evictions()
                                    if pool is not None else 0),
@@ -995,10 +1042,12 @@ class ContinuousBatcher:
             self.executor.prefill_exec.fingerprint = \
                 self.handoff_fingerprint()
         self._peer_fetch_seen.clear()
-        # the parked lanes resume now, on the new graphs
+        # the parked lanes resume now, on the new graphs (a lane whose
+        # envelope is on the wire waits for its outcome)
         try:
-            while self._parked and any(r is None for r in self.lane):
-                if not self._try_restore(self._best_parked()):
+            while any(r is None for r in self.lane):
+                pk = self._best_parked()
+                if pk is None or not self._try_restore(pk):
                     break       # the rest resume as blocks free
         except Exception as e:  # a device fault: the loop heals
             self._fault = e
@@ -1192,9 +1241,14 @@ class ContinuousBatcher:
                 self._evict(i)        # resolves with the partial tokens
         # an expired parked lane resolves with the tokens it had at the
         # spill boundary (the partial a resident gets), without waiting
-        # for a lane
+        # for a lane.  A lane whose envelope is on the wire waits for the
+        # outcome: expiring it while a peer adopts would resolve a
+        # partial here AND decode the whole stream there (the deadline
+        # travels in the envelope, and the adopter enforces it)
         for pk in list(self._parked):
             req = pk.req
+            if pk.migrating:
+                continue
             if (req.deadline is not None and now >= req.deadline
                     and not req.done.is_set()):
                 req.deadline_exceeded = True
@@ -1745,10 +1799,13 @@ class ContinuousBatcher:
 
     def _best_parked(self) -> Optional[_ParkedLane]:
         """The parked lane that should resume next: most urgent class
-        first, then park order (FIFO within a class)."""
-        if not self._parked:
+        first, then park order (FIFO within a class).  A lane whose
+        envelope is on the wire to a peer is not restorable: resuming it
+        here while the peer adopts it would decode the stream twice."""
+        candidates = [p for p in self._parked if not p.migrating]
+        if not candidates:
             return None
-        return min(self._parked, key=lambda p: (p.req.priority, p.seq))
+        return min(candidates, key=lambda p: (p.req.priority, p.seq))
 
     def _release_parked(self, pk: _ParkedLane) -> None:
         """Drop a parked lane; an unresolved request resolves with the
@@ -1823,7 +1880,7 @@ class ContinuousBatcher:
         self._park_seq += 1
         self._parked.append(_ParkedLane(
             req, spill, self._lane_out[slot], self._lane_left[slot],
-            self._lane_pos[slot], self._park_seq))
+            self._lane_pos[slot], self._park_seq, self.generation))
         self.lane[slot] = None
         self._lane_out[slot] = []
         self._lane_pos[slot] = 0
@@ -1907,13 +1964,17 @@ class ContinuousBatcher:
         self.pool.attach_store(store)
         self.kv_store = store
 
-    def _maybe_store_fetch(self, prompt) -> None:
-        """Submit-thread store probe: when the prompt's full-block chain
-        is not covered locally (an entry counts only if SERVABLE — device
-        or host resident; a store-resident node is exactly what the
-        probe re-fills), read the missing blocks from the store (a
-        bounded disk read, on the caller's thread) and queue them for
-        import ahead of the request, so its admission host-hits them."""
+    def _maybe_peer_fetch(self, prompt) -> None:
+        """Submit-thread prefix probe, order peer -> store: when the
+        prompt's full-block chain is not covered locally (an entry counts
+        only if SERVABLE — device or host resident; a store-resident node
+        is exactly what the probe re-fills), ask the fleet for its
+        demoted blocks (one bounded HTTP round trip on the caller's
+        thread, never the ring's) and, on a peer miss, read the missing
+        blocks from the store (a bounded disk read).  Either hit queues
+        the payloads for import ahead of the request, so its admission
+        host-hits them."""
+        from paddle_operator_tpu_torch.utils import fleetkv as FK
         from paddle_operator_tpu_torch.utils.radixkey import chain_key
 
         pool = self.pool
@@ -1937,13 +1998,30 @@ class ContinuousBatcher:
             covered += 1
         if covered >= n_full:
             return
+        # the seen-cache dedupes the PEER round trip only (one ask per
+        # distinct chain); the store probe stays outside it: a clean
+        # miss costs one file stat, and a store-resident node exists to
+        # be probed again
         tail = keys[-1]
-        if tail in self._peer_fetch_seen:
+        seen = tail in self._peer_fetch_seen
+        if seen:
             self._peer_fetch_seen.move_to_end(tail)
         else:
             self._peer_fetch_seen[tail] = True
             while len(self._peer_fetch_seen) > 1024:
                 self._peer_fetch_seen.popitem(last=False)
+        if self.peer_fetch is not None and not seen:
+            buf = self.peer_fetch(tokens, 0)
+            if buf:
+                meta, chunks, idx, payloads = FK.decode_prefix(buf)
+                FK.check_fingerprint(meta, self._fingerprint())
+                if idx:
+                    self._host_imports.put((chunks, idx, payloads, 0))
+                    self.stats["peer_prefix_fetches"] += 1
+                    self._wake.set()
+                    return
+        if self.kv_store is None:
+            return
         self.stats["kv_store_probes"] += 1
         chunks, idx, payloads, _fp = self.kv_store.fetch(
             tokens, bs, ns=0, skip=covered)
@@ -1954,11 +2032,11 @@ class ContinuousBatcher:
         self._wake.set()
 
     def _import_fetched(self) -> None:
-        """Land the store payloads fetched so far in the host tier and
-        the radix (ring thread: the queue's only consumer).  Called
-        before each admission: a request's fetch is queued before the
-        request, so its blocks are in the tier when it admits — and not
-        earlier, where the demotes of the admissions before it could
+        """Land the peer and store payloads fetched so far in the host
+        tier and the radix (ring thread: the queue's only consumer).
+        Called before each admission: a request's fetch is queued before
+        the request, so its blocks are in the tier when it admits — and
+        not earlier, where the demotes of the admissions before it could
         push them out again."""
         while not self._host_imports.empty():
             chunks, idx, payloads, ns = self._host_imports.get_nowait()
@@ -1968,6 +2046,250 @@ class ContinuousBatcher:
                                                  ns=ns)
                 except Exception:
                     pass    # an import is an optimization, never a fault
+
+    # -- fleet-level KV: lane migration ------------------------------------
+
+    def _migration_meta(self, pk: _ParkedLane) -> Dict[str, Any]:
+        """The JSON half of a lane envelope (the JAX ring's keys): the
+        request's identity, its stream state, the REMAINING deadline
+        (monotonic stamps are process-local: the adopter re-anchors it),
+        the spans traced so far, and the ring fingerprint the adopter
+        validates against."""
+        req = pk.req
+        return {"requestId": req.request_id,
+                "prompt": [int(t) for t in req.prompt],
+                "out": [int(t) for t in pk.out],
+                "left": int(pk.left),
+                "maxNew": int(req.max_new),
+                "temperature": float(req.temperature),
+                "seed": int(req.seed),
+                "eos": req.eos,
+                "priority": int(req.priority),
+                "adapter": req.adapter,
+                "deadlineS": (round(req.deadline - time.monotonic(), 3)
+                              if req.deadline is not None else None),
+                "trace": (req.trace.to_wire()
+                          if req.trace is not None else None),
+                "fingerprint": self._fingerprint()}
+
+    def adopt(self, meta: Dict[str, Any],
+              spill: Dict[str, Any]) -> _Request:
+        """Adopt a migrated lane from a peer (the ``/v1/kv/restore``
+        handler, on its own thread): validate the envelope against THIS
+        ring, re-resolve the adapter by name, and queue the lane for the
+        ring loop, which parks it and restores it through the preemption
+        restore (``RingExecutor.restore_lane``, every write in place), so
+        the resumed stream equals the unmigrated one.  Touches no device
+        state and no lane.  Raises
+        :class:`~paddle_operator_tpu_torch.utils.fleetkv.EnvelopeError`
+        (409 upstream) on any mismatch — the origin then keeps the lane
+        — and :class:`ShuttingDown` while draining."""
+        from paddle_operator_tpu_torch.utils import fleetkv as FK
+
+        if self.pool is None:
+            raise FK.EnvelopeError(
+                "lane adoption requires the paged ring (the spill is "
+                "block-granular); this replica is contiguous")
+        FK.check_fingerprint(meta, self._fingerprint())
+        if self._draining or self._stop.is_set() or not self.healthy:
+            raise ShuttingDown("replica not accepting migrations")
+        left = int(meta["left"])
+        if left <= 0:
+            raise FK.EnvelopeError(
+                "migrated lane has no remaining token budget")
+        ex = self.executor
+        m = int(spill["n_blocks"])
+        if not 0 <= m <= self.pool.max_blocks:
+            raise FK.EnvelopeError(
+                f"lane carries {m} blocks; a lane here maps at most "
+                f"{self.pool.max_blocks}")
+        exp = (self.cfg.n_layers, m, self.cfg.n_kv_heads, ex.block_size,
+               self.cfg.head_dim)
+        pool_dtype = ex.cache["k"].dtype
+        for name in ("k", "v"):
+            got = spill[name]
+            if tuple(got.shape) != exp:
+                raise FK.EnvelopeError(
+                    f"lane payload {name} shape {tuple(got.shape)} != "
+                    f"expected {exp}")
+            if got.dtype != pool_dtype:
+                raise FK.EnvelopeError(
+                    f"lane payload {name} dtype {got.dtype} != the "
+                    f"pool's {pool_dtype}")
+        if ex.quant:
+            if not all(k in spill for k in ("ks", "vs", "kt", "vt")):
+                raise FK.EnvelopeError(
+                    "int8 ring: lane envelope missing scale/tail planes")
+            tail = tuple(ex.cache["kt"][:, 0].shape)
+            for name, want in (("ks", exp[:3]), ("vs", exp[:3]),
+                               ("kt", tail), ("vt", tail)):
+                if tuple(spill[name].shape) != want:
+                    raise FK.EnvelopeError(
+                        f"lane payload {name} shape "
+                        f"{tuple(spill[name].shape)} != expected {want}")
+        if ex.spec_k:
+            if not all(k in spill for k in ("dk", "dv", "dpos")):
+                raise FK.EnvelopeError(
+                    "speculative ring: lane envelope missing draft lane")
+            # the draft lane's rows are the draft ring's capacity, which
+            # the fingerprint's specK does not pin
+            want = tuple(ex.dcache["k"][:, 0].shape)
+            for name in ("dk", "dv"):
+                if tuple(spill[name].shape) != want:
+                    raise FK.EnvelopeError(
+                        f"lane payload {name} shape "
+                        f"{tuple(spill[name].shape)} != expected {want}")
+        adapter = meta.get("adapter")
+        aidx = ns = 0
+        if adapter:
+            if self.adapters is None:
+                raise FK.EnvelopeError(
+                    f"adapter {adapter!r} is not served here "
+                    "(no registry)")
+            try:
+                aidx, ns = self.adapters.resolve_ns(adapter)
+            except ValueError as e:
+                raise FK.EnvelopeError(str(e)) from None
+        prompt = [int(t) for t in meta["prompt"]]
+        out = [int(t) for t in meta.get("out", ())]
+        dl = meta.get("deadlineS")
+        req = _Request(prompt,
+                       int(meta.get("maxNew", left + len(out))),
+                       float(meta.get("temperature", spill["temp"])),
+                       int(meta.get("seed", spill["seed"])),
+                       meta.get("eos"),
+                       deadline=(time.monotonic() + max(0.0, float(dl))
+                                 if dl is not None else None))
+        req.priority = min(max(0, int(meta.get(
+            "priority", self.qos.default_priority))),
+            self.qos.priorities - 1)
+        req.adapter = adapter
+        req.adapter_idx = aidx
+        req.ns = ns if aidx else 0
+        req.request_id = meta.get("requestId")
+        # TTFT was produced (and observed) at the origin: pre-stamp
+        # t_first, so this ring never counts the stream's first token
+        req.t_first = time.monotonic()
+        if self.tracer is not None:
+            wire = meta.get("trace")
+            if isinstance(wire, dict) and wire.get("spans"):
+                # the same trace, parented on the ORIGIN's request root:
+                # the stitched timeline stays one tree
+                req.trace = self.tracer.begin(
+                    ctx=(wire.get("traceId"), wire.get("rootId")),
+                    request_id=req.request_id)
+                req.trace.seed(wire["spans"])
+            else:
+                req.trace = self.tracer.begin(request_id=req.request_id)
+            req.trace.add("adopt", time.monotonic(), blocks=m)
+        self.flightrec.record("adopt", rid=req.request_id, blocks=m)
+        spill = dict(spill)
+        # adapter SLOT ids are replica-local: re-stamp with OUR slot
+        if self.adapters is not None:
+            spill["aid"] = aidx
+        else:
+            spill.pop("aid", None)
+        pk = _ParkedLane(req, spill, out, left, int(spill["pos"]), 0,
+                         self.generation)
+        self.stats["adopted_lanes"] += 1
+        self._adopt_q.put(pk)
+        self._wake.set()
+        return req
+
+    def _kick_migration(self, pk: _ParkedLane) -> None:
+        """Offer one parked lane to the fleet on a side thread (the POST
+        never holds the ring thread).  The meta is taken here, on the
+        ring thread, so its fingerprint is the generation the lane's KV
+        was parked under."""
+        pk.migrating = True
+        pk.req.migrate_state = "inflight"
+        meta = self._migration_meta(pk)
+        threading.Thread(target=self._migrate_worker, args=(pk, meta),
+                         daemon=True, name="kv-migrate").start()
+
+    def _migrate_worker(self, pk: _ParkedLane, meta: Dict[str, Any]) -> None:
+        ok = False
+        try:
+            ok = bool(self.migrate_out(meta, pk.spill))
+        except Exception:
+            ok = False
+        self._migr_done.put((pk, ok))
+        self._wake.set()
+
+    def _pump_fleetkv(self, pending: List[tuple]) -> None:
+        """One loop pass of fleet-KV work (ring thread): land adopted
+        lanes in the parked list, apply migration outcomes, and —
+        draining with migration on, or a parked lane past its patience —
+        offer lanes to the fleet.  The drain parks every resident decode
+        lane at THE boundary: every dispatch in flight is consumed first,
+        so the spill holds exactly the tokens the stream has emitted."""
+        # the loop is the only consumer of both queues: the empty()
+        # checks are race-free
+        while not self._adopt_q.empty():
+            pk = self._adopt_q.get_nowait()
+            if self._stop.is_set() or self._draining:
+                # raced a shutdown: fail retriably, so the client's next
+                # retry goes elsewhere
+                self._finish(pk.req, ShuttingDown(
+                    "replica shut down before the adopted lane ran"))
+                continue
+            self._park_seq += 1
+            pk.seq = self._park_seq
+            self._parked.append(pk)
+        while not self._migr_done.empty():
+            pk, ok = self._migr_done.get_nowait()
+            if pk not in self._parked:
+                continue    # healed away while on the wire
+            self.flightrec.record("migrate_out", ok=bool(ok),
+                                  rid=pk.req.request_id)
+            if ok:
+                self._parked.remove(pk)
+                self.stats["lane_migrations"] += 1
+                pk.req.migrate_state = "done"
+                self._finish(pk.req, LaneMigrated(
+                    "lane migrated to a peer replica; retry with the "
+                    "same request_id to collect the result"))
+            else:
+                # refused or unreachable: resume here, never offered
+                # again (completion-wait is the drain's fallback)
+                pk.req.migrate_state = "failed"
+                pk.migrating = False
+        if self.migrate_out is None:
+            return
+        drain_migrate = (self._draining and self._migrate_on_drain
+                         and self.pool is not None)
+        if drain_migrate:
+            prefill_pending = self._pending_prefill_slots()
+            todo = [i for i, r in enumerate(self.lane)
+                    if r is not None and i not in prefill_pending
+                    and not r.done.is_set() and not r._cancel
+                    and r.migrate_state is None and r._stream is None
+                    and r.request_id is not None]
+            if todo:
+                try:
+                    while pending:
+                        self._consume_oldest(pending)
+                    for i in todo:
+                        r = self.lane[i]
+                        if (r is not None and not r.done.is_set()
+                                and r.migrate_state is None):
+                            self._preempt(i)
+                except Exception as e:      # a device fault: heal
+                    self._fault = e
+                    return
+        now = time.monotonic()
+        for pk in list(self._parked):
+            r = pk.req
+            if (pk.migrating or r.migrate_state is not None
+                    or r.request_id is None or r._stream is not None
+                    or r._cancel or r.done.is_set()
+                    or pk.generation != self.generation):
+                continue
+            if drain_migrate or (
+                    self.migrate_parked_s is not None
+                    and self.migrate_parked_s > 0
+                    and now - pk.t_parked >= self.migrate_parked_s):
+                self._kick_migration(pk)
 
     # -- the loop ----------------------------------------------------------
 
@@ -2188,13 +2510,22 @@ class ContinuousBatcher:
             if self._draining:
                 self._shed_queue(ShuttingDown(
                     "server draining; retry another replica"))
+            # fleet-level KV: adopted lanes land, migration outcomes
+            # apply, and — draining with migration on — the residents
+            # park and are offered out
+            self._pump_fleetkv(pending)
+            if self._fault is not None:
+                continue
             self._expire_deadlines()
             # cancelled lanes leave at the chunk boundary
             for i, r in enumerate(self.lane):
                 if r is not None and r._cancel:
                     self._evict(i)
             # parked lanes honor cancel too, without waiting for a lane
+            # (one on the wire waits for its outcome first)
             for pk in list(self._parked):
+                if pk.migrating:
+                    continue
                 if pk.req._cancel or pk.req.done.is_set():
                     self._release_parked(pk)
             # admit into free lanes: parked (preempted) lanes resume

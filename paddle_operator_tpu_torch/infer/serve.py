@@ -56,8 +56,19 @@ infer/chaos.py into the live ring.
 Greedy output equals the JAX server's token for token.  Sampled tokens
 differ from the JAX server's for the same seed (``jax.random`` is not
 reproduced; infer/executor.py ``_sample_tokens`` has the rule).
-``/v1/kv/*`` answer as the JAX server does when fleet-level KV is not
-configured; so does ``/v1/adapters`` on a server without a registry.
+``/v1/adapters`` answers as the JAX server does on a server without a
+registry.
+
+Fleet-level KV, as the JAX server has it (:func:`wire_fleet_kv_from_env`:
+``SERVE_KV_MIGRATE``, ``SERVE_KV_PEER_FETCH``, ``SERVE_KV_BROKER``,
+``SERVE_KV_PEERS``, ``SERVE_MIGRATE_PARKED_S``; paged rings): a drain
+migrates the resident lanes to peers instead of waiting them out, and
+``POST /v1/kv/restore`` adopts such a lane (a lane envelope,
+utils/fleetkv.py — the JAX replica's bytes, so a lane moves between a
+port replica and a JAX one either way); the client's retry with the same
+``request_id`` collects the result on the adopter.  ``POST
+/v1/kv/prefix`` exports a prompt's demoted host-tier blocks to a peer
+whose radix walk missed.
 The batch server ignores a request's ``"adapter"``, as the JAX batch
 server does.
 
@@ -79,6 +90,7 @@ import json
 import os
 import threading
 import time
+from collections import OrderedDict
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Tuple
 
@@ -145,6 +157,43 @@ class ContinuousGenerator:
 
         self.batcher = ContinuousBatcher(params, cfg, **ring_kw)
         self.cfg = cfg
+        # lanes adopted from peers, keyed by the migrated request's row
+        # id: the client's retry (routed here by the router's migration
+        # table) collects the result instead of generating again.
+        # Bounded: an unclaimed handle is dropped oldest first
+        self.adopted: "OrderedDict[str, object]" = OrderedDict()
+        self._adopted_lock = threading.Lock()
+
+    ADOPTED_CAP = 512
+
+    def adopt_envelope(self, buf: bytes) -> str:
+        """Decode and adopt one migrated lane's envelope; returns the
+        adopted request id.  Raises ``fleetkv.EnvelopeError`` on any
+        validation failure (the handler answers 409)."""
+        from paddle_operator_tpu_torch.utils import fleetkv as FK
+
+        meta, spill = FK.decode_lane(buf)
+        rid = meta.get("requestId")
+        if not rid:
+            raise FK.EnvelopeError(
+                "lane envelope carries no requestId — the result "
+                "would be unretrievable")
+        handle = self.batcher.adopt(meta, spill)
+        with self._adopted_lock:
+            old = self.adopted.pop(rid, None)
+            if old is not None:
+                old.cancel()    # a replayed migration: one runner only
+            self.adopted[rid] = handle
+            while len(self.adopted) > self.ADOPTED_CAP:
+                _, stale = self.adopted.popitem(last=False)
+                stale.cancel()
+        return rid
+
+    def take_adopted(self, rid: Optional[str]):
+        if rid is None:
+            return None
+        with self._adopted_lock:
+            return self.adopted.pop(rid, None)
 
     def __call__(self, tokens: np.ndarray, *, max_new_tokens: int,
                  temperature: float = 0.0, top_k: Optional[int] = None,
@@ -184,12 +233,17 @@ class ContinuousGenerator:
             for i, row in enumerate(tokens):
                 rid_row = (f"{request_id}/row{i}"
                            if request_id is not None else None)
-                reqs.append(self.batcher.submit(
-                    row, max_new_tokens=max_new_tokens,
-                    temperature=temperature, seed=seed + i,
-                    eos_token=eos_token, deadline_s=deadline_s,
-                    priority=priority, adapter=adapter,
-                    request_id=rid_row, trace_ctx=trace_ctx))
+                # a row whose lane migrated HERE is already decoding (or
+                # done): collect it instead of generating it again
+                handle = self.take_adopted(rid_row)
+                if handle is None:
+                    handle = self.batcher.submit(
+                        row, max_new_tokens=max_new_tokens,
+                        temperature=temperature, seed=seed + i,
+                        eos_token=eos_token, deadline_s=deadline_s,
+                        priority=priority, adapter=adapter,
+                        request_id=rid_row, trace_ctx=trace_ctx)
+                reqs.append(handle)
             # ragged rows: sequences stop at eos, no rectangular array
             rows = [r.result(timeout=600) for r in reqs]
         except Exception:
@@ -504,24 +558,84 @@ class _Handler(BaseHTTPRequestHandler):
         except Exception as e:     # noqa: BLE001 — refuse, never crash
             self._send(503, {"error": str(e)}, headers=self._retry_hdr())
 
+    def _kv_restore(self, body: bytes) -> None:
+        """POST /v1/kv/restore — adopt a migrated lane.  The body is a
+        lane envelope; a valid one is queued for the ring, which restores
+        it at its next boundary, and the client's retry (same
+        ``request_id``) collects the result.  Any validation failure
+        refuses the WHOLE envelope: 409 tells the origin to keep the
+        lane."""
+        from paddle_operator_tpu_torch.utils.fleetkv import EnvelopeError
+
+        gen = self.generator
+        if not isinstance(gen, ContinuousGenerator):
+            self._send(400, {"error": "lane adoption requires the "
+                                      "continuous server"})
+            return
+        if self.state is not None and self.state.draining:
+            self._send(503, {"error": "draining"},
+                       headers={"Retry-After": self.state.retry_after_s})
+            return
+        try:
+            rid = gen.adopt_envelope(body)
+            self._send(200, {"adopted": rid})
+        except ShuttingDown as e:
+            self._send(503, {"error": str(e)})
+        except EnvelopeError as e:
+            # a refused envelope (CRC, fingerprint skew, truncation) is
+            # the event fleet debugging needs a record of
+            fr = getattr(self._batcher(), "flightrec", None)
+            if fr is not None:
+                fr.record("envelope_refused", error=str(e)[:200])
+            self._send(409, {"error": str(e)})
+        except Exception as e:      # noqa: BLE001 — refuse, never crash
+            self._send(400, {"error": str(e)})
+
+    def _kv_prefix(self, body: bytes) -> None:
+        """POST /v1/kv/prefix — export the demoted blocks of a prompt's
+        radix chain: 200 and a prefix envelope when the host tier holds
+        any of it, 204 otherwise.  The radix and the host slots are the
+        ring thread's: ``export_host_chain`` copies each payload out and
+        keeps it only if its slot was not reused meanwhile, and any
+        surprise answers 204 (the peer prefills cold, as without the
+        fetch)."""
+        from paddle_operator_tpu_torch.utils import fleetkv as FK
+
+        b = self._batcher()
+        try:
+            req = json.loads(body)
+            tokens = [int(t) for t in req["tokens"]]
+            ns = int(req.get("ns", 0))
+            if (b is None or b.pool is None or ns != 0
+                    or b.pool.host is None):
+                raise LookupError
+            chunks, idx, payloads = b.pool.export_host_chain(tokens, ns=0)
+            if not idx:
+                raise LookupError
+            buf = FK.encode_prefix({"fingerprint": b._fingerprint()},
+                                   chunks, idx, payloads)
+        except Exception:       # noqa: BLE001 — nothing to export
+            self.send_response(204)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+            return
+        self.send_response(200)
+        self.send_header("Content-Type", "application/octet-stream")
+        self.send_header("Content-Length", str(len(buf)))
+        self.end_headers()
+        self.wfile.write(buf)
+
     def do_POST(self):
         # drain the body before ANY response: under HTTP/1.1 keep-alive
         # an unread body would be parsed as the next request's start line
         n = int(self.headers.get("Content-Length", 0))
         body = self.rfile.read(n) if n else b""
         continuous = isinstance(self.generator, ContinuousGenerator)
-        # the routes of features this port does not carry, answered as
-        # the JAX server answers them when the feature is not configured
         if self.path == "/v1/kv/restore":
-            self._send(400, {"error": (
-                "lane adoption (fleet-level KV) is not ported to the "
-                "torch package yet (ROADMAP.md Queue A)" if continuous
-                else "lane adoption requires the continuous server")})
+            self._kv_restore(body)
             return
         if self.path == "/v1/kv/prefix":
-            self.send_response(204)
-            self.send_header("Content-Length", "0")
-            self.end_headers()
+            self._kv_prefix(body)
             return
         if self.path == "/v1/adapters":
             self._adapters_admin(body)
@@ -655,21 +769,12 @@ def make_server(host: str, port: int, params: Llama, cfg: LlamaConfig,
 def refuse_unported(environ) -> None:
     """Raise on every knob this port cannot honour yet — it never
     silently serves something else than what was asked for.  Each
-    refused knob is named in the message."""
+    refused knob is named in the message.  The one left is
+    ``SERVE_TP`` > 1 (tensor-parallel serving)."""
     refused = []
-
-    def on(key, off=("", "0")):
-        return environ.get(key, "").strip() not in off
-
     if int(environ.get("SERVE_TP", "1") or 1) > 1:
         refused.append(f"SERVE_TP={environ['SERVE_TP']} (tensor "
                        "parallelism)")
-    for key in ("SERVE_KV_MIGRATE", "SERVE_KV_PEER_FETCH"):
-        if environ.get(key, "0") == "1":
-            refused.append(f"{key}=1 (fleet-level KV)")
-    if on("SERVE_KV_BROKER"):
-        refused.append(f"SERVE_KV_BROKER={environ['SERVE_KV_BROKER']} "
-                       "(fleet-level KV)")
     if refused:
         raise ValueError("not ported to the torch package yet "
                          "(ROADMAP.md Queue A): " + "; ".join(refused))
@@ -785,6 +890,58 @@ def ring_kw_from_env(environ, cfg: Optional[LlamaConfig] = None) -> dict:
         if host_blocks > 0:
             kw["host_cache_blocks"] = host_blocks
     return kw
+
+
+def wire_fleet_kv_from_env(batcher, port: int, environ=None) -> None:
+    """Fleet-level KV from the env, as the JAX entry point wires it:
+    ``SERVE_KV_MIGRATE=1`` drains by MIGRATION (residents spill and post
+    to a peer instead of waiting out their completions; completion-wait
+    stays the fallback for lanes no peer takes), ``SERVE_KV_PEER_FETCH=1``
+    asks the fleet for demoted prefix blocks on a local radix miss.
+    ``SERVE_KV_BROKER`` names the router (it picks adopters and dedupes
+    replayed migrations); ``SERVE_KV_PEERS`` is the router-less static
+    peer list.  ``SERVE_MIGRATE_PARKED_S`` also sheds preemption-parked
+    lanes to idle peers outside a drain.  With ``TPUJOB_WIRE_CHAOS``
+    scheduling faults on the ``replica-broker`` edge, the broker endpoint
+    is replaced by an injured in-process proxy (utils/wirechaos.py).
+    Needs the paged ring (spills are block-granular); peer fetch also
+    needs the host tier (imports land there and promote through the
+    host-hit path).  ``POD_IP`` and ``port`` name this replica (the
+    broker's origin exclusion)."""
+    environ = os.environ if environ is None else environ
+    kv_migrate = environ.get("SERVE_KV_MIGRATE", "0") == "1"
+    kv_fetch = environ.get("SERVE_KV_PEER_FETCH", "0") == "1"
+    if not (kv_migrate or kv_fetch):
+        return
+    if batcher.pool is None:
+        print("SERVE_KV_MIGRATE/SERVE_KV_PEER_FETCH ignored: "
+              "fleet-level KV requires the paged ring (SERVE_PAGED=1)",
+              flush=True)
+        return
+    from paddle_operator_tpu_torch.utils import fleetkv as FK
+    from paddle_operator_tpu_torch.utils import wirechaos as WC
+
+    origin = f"{environ.get('POD_IP', '127.0.0.1')}:{port}"
+    kv_client = FK.FleetKVClient(
+        broker=WC.wire_endpoint_from_env(
+            "replica-broker", environ.get("SERVE_KV_BROKER", ""),
+            env=environ),
+        peers=environ.get("SERVE_KV_PEERS", "").split(","),
+        origin=origin)
+    if kv_migrate:
+        batcher.migrate_out = lambda meta, spill: \
+            kv_client.migrate_out(FK.encode_lane(meta, spill))
+        batcher._migrate_on_drain = True
+        parked_s = float(environ.get("SERVE_MIGRATE_PARKED_S", "0") or 0)
+        if parked_s > 0:
+            batcher.migrate_parked_s = parked_s
+    if kv_fetch:
+        if batcher.pool.host is None:
+            print("SERVE_KV_PEER_FETCH ignored: peer payloads import "
+                  "through the host tier — set "
+                  "SERVE_HOST_CACHE_BLOCKS/_MB", flush=True)
+        else:
+            batcher.peer_fetch = kv_client.fetch_prefix
 
 
 def wire_kv_store_from_env(batcher, environ=None) -> None:
@@ -1052,7 +1209,9 @@ def main() -> int:
     quantization (and of the draft's), so a swap without a checkpoint
     rebuilds from it (0: a swap must name a checkpoint).
     ``TPUJOB_CHAOS`` installs the fault injector (infer/chaos.py) on the
-    ring."""
+    ring, and the ``SERVE_KV_*`` knobs wire fleet-level KV
+    (``wire_fleet_kv_from_env``).  Only ``SERVE_TP`` > 1 is refused
+    (``refuse_unported``)."""
     from paddle_operator_tpu_torch.ft.preemption import PreemptionWatcher
     from paddle_operator_tpu_torch.infer.chaos import maybe_install_from_env
     from paddle_operator_tpu_torch.infer.quant import weight_quant_mode
@@ -1126,6 +1285,7 @@ def main() -> int:
     if batcher is not None:
         # TPUJOB_CHAOS: deterministic fault injection on the live ring
         maybe_install_from_env(batcher)
+        wire_fleet_kv_from_env(batcher, env.port)
         wire_kv_store_from_env(batcher)
     watcher = PreemptionWatcher.install()
     drain = ServingDrain(srv, srv.state, batcher=batcher,

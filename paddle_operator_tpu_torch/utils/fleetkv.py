@@ -35,9 +35,19 @@ A disaggregated prefill's result crosses hosts as a HANDOFF envelope
 (:func:`encode_handoff`) or, streamed, as length-prefixed frames
 (:func:`encode_handoff_frame` ... :func:`encode_handoff_final`) on a
 chunked HTTP response; :func:`http_post_retry` is the bounded-retry POST
-the remote prefill client walks the prefill pool with.  Lanes
-(migration) and :class:`FleetKVClient` come with fleet-level KV
-(ROADMAP.md Queue A).
+the remote prefill client walks the prefill pool with.
+
+A live lane crosses replicas as a LANE envelope (:func:`encode_lane`,
+:func:`decode_lane`): drain-by-migration and the parked-lane shed post
+it to a peer's ``/v1/kv/restore`` (through the router's
+``/v1/kv/migrate`` when one brokers), and a peer whose radix walk misses
+asks for a prompt's demoted blocks as a PREFIX envelope
+(``/v1/kv/prefix``).  :class:`FleetKVClient` is the replica's side of
+both wires.  The port's spill keeps the lane's sampling ``seed`` where
+the JAX spill keeps ``key`` (``jax.random.PRNGKey(seed)``, fixed for
+the lane's life): the lane envelope carries JAX's ``key`` pair
+(:func:`lane_key`), so a lane envelope of either package adopts on
+the other.
 """
 
 from __future__ import annotations
@@ -59,6 +69,12 @@ VERSION = 1
 _HDR = struct.Struct("<II")           # version, header_len
 
 _BF16 = "bfloat16"
+
+# The replica's budget for one fleet-KV POST, the JAX package's: the
+# router's forward to an adopter (its own 4 s budget) completes or fails
+# well inside it, so an ambiguous hop never reads as a clean refusal —
+# which would resume the lane here while the adopter decodes it too.
+BROKER_TIMEOUT_S = 8.0
 
 
 class EnvelopeError(ValueError):
@@ -194,6 +210,74 @@ def check_fingerprint(meta: Dict[str, Any], mine: Dict[str, Any]) -> None:
         raise EnvelopeError(
             f"ring fingerprint mismatch: envelope {theirs} vs "
             f"receiver {mine} — refusing (mixed fleet config?)")
+
+
+# ---------------------------------------------------------------------------
+# Lane (migration) envelopes
+# ---------------------------------------------------------------------------
+
+# spill-dict keys that are arrays (everything else rides in meta)
+_LANE_ARRAYS = ("k", "v", "ks", "vs", "kt", "vt", "dk", "dv")
+
+
+def lane_key(seed: int) -> List[int]:
+    """The JAX lane's sampler key for ``seed``: ``jax.random.PRNGKey``'s
+    threefry seed pair ``[seed >> 32, seed & 0xFFFFFFFF]`` as uint32
+    words (the key never changes over a JAX lane's life: its draws fold
+    the position in)."""
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return [(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF]
+
+
+def encode_lane(meta: Dict[str, Any], spill: Dict[str, Any]) -> bytes:
+    """A live lane's spill (``RingExecutor.spill_lane``) plus request
+    meta -> wire envelope, byte-equal to the JAX package's for the same
+    meta and arrays.  Scalars (pos/tok/temp/key/n_blocks/dpos) fold into
+    meta; the port's ``seed`` travels as JAX's ``key`` (:func:`lane_key`;
+    a spill that already holds ``key`` keeps it).  The per-replica
+    adapter SLOT does not travel: the adopter re-resolves the adapter by
+    name."""
+    m = dict(meta)
+    m["pos"] = int(spill["pos"])
+    m["tok"] = int(spill["tok"])
+    m["temp"] = float(spill["temp"])
+    m["key"] = ([int(x) for x in np.asarray(spill["key"]).ravel()]
+                if "key" in spill else lane_key(spill["seed"]))
+    m["nBlocks"] = int(spill["n_blocks"])
+    if "dpos" in spill:
+        m["dpos"] = int(spill["dpos"])
+    arrays = {k: spill[k] for k in _LANE_ARRAYS if k in spill}
+    return encode_envelope("lane", m, arrays)
+
+
+def decode_lane(buf: bytes) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Wire envelope -> ``(meta, spill)`` ready for
+    ``ContinuousBatcher.adopt`` / ``RingExecutor.restore_lane``: the
+    arrays as CPU tensors, ``seed`` from ``meta["seed"]`` (or, without
+    it, the key's low word) beside JAX's ``key``.  Refuses what the JAX
+    decoder refuses, with :class:`EnvelopeError`."""
+    kind, meta, arrays = decode_envelope(buf)
+    if kind != "lane":
+        raise EnvelopeError(f"expected a lane envelope, got {kind!r}")
+    for req_key in ("pos", "tok", "temp", "key", "nBlocks", "prompt",
+                    "left"):
+        if req_key not in meta:
+            raise EnvelopeError(f"lane envelope missing meta "
+                                f"{req_key!r}")
+    if "k" not in arrays or "v" not in arrays:
+        raise EnvelopeError("lane envelope missing k/v arrays")
+    key = np.asarray(meta["key"], np.uint32)
+    spill: Dict[str, Any] = {
+        "pos": int(meta["pos"]), "tok": int(meta["tok"]),
+        "temp": float(meta["temp"]), "key": key,
+        "seed": (int(meta["seed"]) if meta.get("seed") is not None
+                 else int(key.ravel()[-1])),
+        "n_blocks": int(meta["nBlocks"]),
+    }
+    if "dpos" in meta:
+        spill["dpos"] = int(meta["dpos"])
+    spill.update(arrays)
+    return meta, spill
 
 
 # ---------------------------------------------------------------------------
@@ -493,3 +577,75 @@ def http_post_retry(endpoints, path: str, body: bytes, *,
         if delay > 0:
             sleep(delay)
     return last
+
+
+class FleetKVClient:
+    """The replica-side wire client of fleet-level KV.  ``broker`` (the
+    fleet router's ``host:port``) is preferred — it picks the migration
+    target from its scraped peer directory and dedupes replayed
+    migrations; static ``peers`` (SERVE_KV_PEERS) are the router-less
+    fallback, tried in order.  Every failure degrades to ``None``: the
+    caller falls back to completion-wait or a cold prefill, never errors
+    the request."""
+
+    def __init__(self, broker: str = "", peers: Sequence[str] = (),
+                 origin: str = "",
+                 timeout: float = BROKER_TIMEOUT_S) -> None:
+        self.broker = broker.strip().rstrip("/")
+        self.peers = [p.strip() for p in peers if p.strip()]
+        self.origin = origin
+        self.timeout = timeout
+
+    def _post(self, endpoint: str, path: str, body: bytes,
+              content_type: str = "application/octet-stream"
+              ) -> Tuple[int, bytes]:
+        headers = ({"X-Migrate-Origin": self.origin}
+                   if self.origin else None)
+        return http_post(endpoint, path, body, content_type=content_type,
+                         timeout=self.timeout, headers=headers)
+
+    def migrate_out(self, envelope: bytes) -> Optional[str]:
+        """Offer a lane envelope to the fleet; returns the adopting
+        endpoint, or None (the lane stays local)."""
+        if self.broker:
+            try:
+                code, body = self._post(self.broker, "/v1/kv/migrate",
+                                        envelope)
+                if code == 200:
+                    return json.loads(body).get("target") or self.broker
+            except (OSError, socket.timeout, ValueError):
+                pass
+            return None
+        for peer in self.peers:
+            if peer == self.origin:
+                continue
+            try:
+                code, _ = self._post(peer, "/v1/kv/restore", envelope)
+                if code == 200:
+                    return peer
+            except ConnectionRefusedError:
+                continue            # never reached: the next peer is safe
+            except (OSError, socket.timeout):
+                # ambiguous — the peer may have adopted before the
+                # socket died; offering the envelope again could run
+                # one lane on two replicas.  Keep the lane local.
+                return None
+        return None
+
+    def fetch_prefix(self, tokens: Sequence[int],
+                     ns: int = 0) -> Optional[bytes]:
+        """Ask the fleet for demoted blocks of this prompt's chain;
+        returns a prefix envelope or None."""
+        body = json.dumps({"tokens": [int(t) for t in tokens],
+                           "ns": int(ns)}).encode()
+        targets = ([self.broker] if self.broker else
+                   [p for p in self.peers if p != self.origin])
+        for ep in targets:
+            try:
+                code, raw = self._post(ep, "/v1/kv/prefix", body,
+                                       content_type="application/json")
+                if code == 200 and raw:
+                    return raw
+            except (OSError, socket.timeout):
+                continue
+        return None

@@ -1186,18 +1186,44 @@ class TestEnv:
         assert "prefill_lanes" not in S.ring_kw_from_env(
             {"SERVE_PREFILL": "chunked"})
 
-    @pytest.mark.parametrize("knob", [{"SERVE_KV_MIGRATE": "1"},
-                                      {"SERVE_KV_PEER_FETCH": "1"},
-                                      {"SERVE_KV_BROKER": "127.0.0.1:9100"},
-                                      {"SERVE_TP": "2"}])
-    def test_fleet_kv_and_tp_still_refused_by_name(self, knob):
+    @pytest.mark.parametrize("knob", [
+        # fleet-level KV is served (tests/test_torch_fleetkv.py): beside
+        # remote disaggregated prefill each knob passes and reaches the
+        # ring; SERVE_TP > 1 is still refused, by its name
+        pytest.param({"SERVE_KV_MIGRATE": "1"}, id="knob0"),
+        pytest.param({"SERVE_KV_PEER_FETCH": "1",
+                      "SERVE_HOST_CACHE_BLOCKS": "8"}, id="knob1"),
+        pytest.param({"SERVE_KV_BROKER": "127.0.0.1:9100",
+                      "SERVE_KV_MIGRATE": "1"}, id="knob2"),
+        pytest.param({"SERVE_TP": "2"}, id="knob3")])
+    def test_fleet_kv_and_tp_still_refused_by_name(self, setup, knob):
         env = {"SERVE_CONTINUOUS": "1", "SERVE_PREFILL": "disagg",
                "SERVE_PREFILL_REMOTE": "1",
                "SERVE_PREFILL_BROKER": "127.0.0.1:9000", **knob}
-        (name, _), = knob.items()
-        with pytest.raises(ValueError, match=name) as e:
-            S.refuse_unported(env)
-        assert "SERVE_PREFILL" not in str(e.value)
+        name = next(iter(knob))
+        if name == "SERVE_TP":
+            with pytest.raises(ValueError, match=name) as e:
+                S.refuse_unported(env)
+            assert "SERVE_PREFILL" not in str(e.value)
+            return
+        S.refuse_unported(env)
+        kw = S.ring_kw_from_env(dict(env, SERVE_BLOCK_SIZE=str(BS),
+                                     SERVE_MAX_LEN=str(MAX_LEN),
+                                     SERVE_SLOTS="2", SERVE_CHUNK="4"),
+                                setup["cfg"])
+        assert kw["prefill_mode"] == "disagg"
+        b = ContinuousBatcher(setup["model"], setup["cfg"],
+                              prefill_buckets=(16, MAX_LEN), **kw)
+        try:
+            S.wire_fleet_kv_from_env(b, 9102, environ=dict(
+                env, POD_IP="127.0.0.1"))
+            assert (b.migrate_out is not None) == (
+                env.get("SERVE_KV_MIGRATE") == "1")
+            assert (b.peer_fetch is not None) == (
+                env.get("SERVE_KV_PEER_FETCH") == "1")
+            assert b.serving_status()["prefillMode"] == "disagg"
+        finally:
+            b.close()
 
     def test_remote_client_from_env(self):
         assert PS.remote_prefill_client_from_env({}) is None

@@ -550,23 +550,64 @@ def test_ring_kw_from_env_megastep(env, want):
     assert S.ring_kw_from_env(env).get("megastep") == want
 
 
-@pytest.mark.parametrize("knob", [{"SERVE_KV_MIGRATE": "1"},
-                                  # SERVE_ADAPTERS is served
-                                  # (tests/test_torch_adapters.py), and
-                                  # so is SERVE_PREFILL=disagg
-                                  # (tests/test_torch_disagg.py)
-                                  {"SERVE_TP": "2"},
-                                  # SERVE_NAN_CHECK and TPUJOB_CHAOS are
-                                  # served (tests/test_torch_resilience.py)
-                                  {"SERVE_KV_PEER_FETCH": "1"},
-                                  {"SERVE_KV_BROKER": "127.0.0.1:9100"}])
-def test_megastep_with_unported_knob_refused_by_its_name(knob):
+def _kv_client(b):
+    """The ``FleetKVClient`` ``wire_fleet_kv_from_env`` gave ring ``b``:
+    the peer fetch's owner, else the one the migration hook closes
+    over."""
+    from paddle_operator_tpu_torch.utils.fleetkv import FleetKVClient
+
+    if b.peer_fetch is not None:
+        return b.peer_fetch.__self__
+    return next(c.cell_contents for c in b.migrate_out.__closure__
+                if isinstance(c.cell_contents, FleetKVClient))
+
+
+@pytest.mark.parametrize("knob", [
+    # fleet-level KV is served (tests/test_torch_fleetkv.py): beside the
+    # megastep each knob passes and reaches a megastep ring, as
+    # serve.wire_fleet_kv_from_env wires it
+    pytest.param({"SERVE_KV_MIGRATE": "1"}, id="knob0"),
+    # SERVE_ADAPTERS is served (tests/test_torch_adapters.py), and so is
+    # SERVE_PREFILL=disagg (tests/test_torch_disagg.py)
+    pytest.param({"SERVE_TP": "2"}, id="knob1"),
+    # SERVE_NAN_CHECK and TPUJOB_CHAOS are served
+    # (tests/test_torch_resilience.py)
+    pytest.param({"SERVE_KV_PEER_FETCH": "1",
+                  "SERVE_HOST_CACHE_BLOCKS": "8"}, id="knob2"),
+    pytest.param({"SERVE_KV_BROKER": "127.0.0.1:9100",
+                  "SERVE_KV_MIGRATE": "1"}, id="knob3")])
+def test_megastep_with_unported_knob_refused_by_its_name(setup, knob):
+    """Only SERVE_TP > 1 is still refused beside SERVE_MEGASTEP, by its
+    name; the fleet-KV knobs boot a megastep ring and reach it."""
     env = {"SERVE_CONTINUOUS": "1", "SERVE_PAGED": "1",
            "SERVE_MEGASTEP": "4", **knob}
-    (name, _), = knob.items()
-    with pytest.raises(ValueError, match=name) as e:
-        S.refuse_unported(env)
-    assert "SERVE_MEGASTEP" not in str(e.value)
+    name = next(iter(knob))
+    if name == "SERVE_TP":
+        with pytest.raises(ValueError, match=name) as e:
+            S.refuse_unported(env)
+        assert "SERVE_MEGASTEP" not in str(e.value)
+        return
+    S.refuse_unported(env)
+    model, cfg = setup[:2]
+    kw = S.ring_kw_from_env(dict(env, SERVE_BLOCK_SIZE=str(BS),
+                                 SERVE_MAX_LEN=str(MAX_LEN),
+                                 SERVE_SLOTS="2",
+                                 SERVE_CHUNK=str(CHUNK)), cfg)
+    assert kw["megastep"] == 4
+    b = ContinuousBatcher(model, cfg, prefill_buckets=(16, MAX_LEN), **kw)
+    try:
+        S.wire_fleet_kv_from_env(b, 9101, environ=dict(env,
+                                                       POD_IP="127.0.0.1"))
+        migrate = env.get("SERVE_KV_MIGRATE") == "1"
+        assert (b.migrate_out is not None) == migrate == b._migrate_on_drain
+        assert (b.peer_fetch is not None) == (
+            env.get("SERVE_KV_PEER_FETCH") == "1")
+        client = _kv_client(b)
+        assert client.broker == env.get("SERVE_KV_BROKER", "")
+        assert client.origin == "127.0.0.1:9101"
+        assert b.serving_status()["megastepN"] == 4
+    finally:
+        b.close()
 
 
 def test_http_megastep_server_equals_jax_ring(setup):

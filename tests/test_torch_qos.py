@@ -351,14 +351,17 @@ class TestSpillRestore:
         if kv_quant == "int8":
             # the scales of the blocks committed below the frontier; the
             # frontier block was never committed (its rows are read from
-            # the staging tail), so its scale is each pool's initial
-            # value, 1.0 here and 0.0 in the JAX pool
+            # the staging tail), so its scale is the pools' initial 0.0,
+            # the same bytes in both spills
             done = got["pos"] // BS
             assert got["ks"].shape == want["ks"].shape
             for key in ("ks", "vs"):
                 np.testing.assert_allclose(got[key].numpy()[:, :done],
                                            np.asarray(want[key])[:, :done],
                                            rtol=1e-5, err_msg=key)
+                np.testing.assert_array_equal(
+                    got[key].numpy()[:, done:],
+                    np.asarray(want[key])[:, done:], err_msg=key)
 
     @pytest.mark.parametrize("kv_quant", QUANTS)
     def test_dispatch_promotions_copies_blocks_verbatim(self, setup,

@@ -215,15 +215,22 @@ ENTRY_KNOBS = ("SERVE_CONTINUOUS", "SERVE_PAGED", "SERVE_TP", "QUANTIZE",
                "SERVE_PREEMPT", "SERVE_PREEMPT_MAX_PER_REQ",
                "SERVE_PREEMPT_BUDGET", "SERVE_PREEMPT_WINDOW_S",
                "TPUJOB_CHAOS", "SERVE_KV_MIGRATE",
-               "SERVE_KV_PEER_FETCH", "SERVE_KV_STORE", "SERVE_KV_BROKER")
+               "SERVE_KV_PEER_FETCH", "SERVE_KV_STORE", "SERVE_KV_BROKER",
+               "SERVE_KV_PEERS", "SERVE_MIGRATE_PARKED_S")
+# fleet-level KV is served (tests/test_torch_fleetkv.py)
+FLEET_KV_KNOBS = ("SERVE_KV_MIGRATE", "SERVE_KV_PEER_FETCH",
+                  "SERVE_KV_BROKER", "SERVE_KV_PEERS",
+                  "SERVE_MIGRATE_PARKED_S")
 
 
 class TestEntryPoint:
     @pytest.mark.parametrize("env", [
-        # SERVE_ADAPTERS is served (tests/test_torch_adapters.py): beside
-        # a knob still refused, main() refuses that knob
+        # SERVE_ADAPTERS is served (tests/test_torch_adapters.py), and so
+        # is fleet-level KV (tests/test_torch_fleetkv.py): beside the one
+        # knob still refused, main() refuses that knob and names no other
         {"SERVE_CONTINUOUS": "1", "SERVE_ADAPTERS": "acme",
-         "SERVE_KV_MIGRATE": "1"},
+         "SERVE_KV_MIGRATE": "1", "SERVE_KV_PEER_FETCH": "1",
+         "SERVE_MIGRATE_PARKED_S": "5", "SERVE_TP": "2"},
         {"SERVE_TP": "2"},
     ])
     def test_unported_knobs_refused(self, monkeypatch, env):
@@ -231,8 +238,10 @@ class TestEntryPoint:
             monkeypatch.delenv(k, raising=False)
         for k, v in env.items():
             monkeypatch.setenv(k, v)
-        with pytest.raises(ValueError, match="not ported"):
+        with pytest.raises(ValueError, match="not ported") as e:
             S.main()
+        assert "SERVE_TP=2" in str(e.value)
+        assert not any(k in str(e.value) for k in FLEET_KV_KNOBS)
 
     @pytest.mark.parametrize("env,mode", [
         ({"QUANTIZE": "int8"}, "int8"),
@@ -517,13 +526,19 @@ class TestContinuousServer:
     @pytest.mark.parametrize("path", ["/v1/swap", "/v1/kv/restore",
                                       "/v1/adapters"])
     def test_unported_routes_answer_400(self, ring_servers, path):
-        """Routes of features a server does not carry answer 400 as the
-        JAX server's do: /v1/kv/restore (fleet-level KV is not ported)
-        and /v1/adapters without a registry.  /v1/swap is served: it
+        """Routes answer as the JAX server's do: /v1/adapters without a
+        registry 400s.  /v1/kv/restore is served (fleet-level KV,
+        tests/test_torch_fleetkv.py): a body that is no lane envelope
+        is refused with 409, on both servers.  /v1/swap is served: it
         answers 400 on an unpaged ring (a swap parks the residents
         through the paged spill) and 200 on a paged one, where it bumps
         the generation (tests/test_torch_swap.py has the rest)."""
         srvs, urls = ring_servers
+        if path == "/v1/kv/restore":
+            for url in urls.values():
+                code, body, _ = _call(url + path, "POST", {})
+                assert code == 409 and "magic" in json.loads(body)["error"]
+            return
         if path != "/v1/swap":
             code, body, _ = _call(urls["port"] + path, "POST", {})
             assert code == 400 and "error" in json.loads(body)
@@ -636,23 +651,23 @@ REFUSED_KNOBS = [
     # so is span tracing (tests/test_torch_tracing.py); beside a knob
     # still refused, that knob is named and they are not
     pytest.param({"SERVE_SPEC_K": "2", "SERVE_TRACE": "1",
-                  "SERVE_KV_BROKER": "127.0.0.1:9100"},
+                  "SERVE_KV_BROKER": "127.0.0.1:9100", "SERVE_TP": "2"},
                  id="SERVE_SPEC_K=2-SERVE_TRACE=1"),
     # chunked prefill is served (tests/test_torch_chunked_prefill.py),
     # and so is the NaN-lane check (tests/test_torch_resilience.py)
     pytest.param({"SERVE_PREFILL": "chunked", "SERVE_NAN_CHECK": "1",
-                  "SERVE_KV_MIGRATE": "1"},
+                  "SERVE_KV_MIGRATE": "1", "SERVE_TP": "2"},
                  id="SERVE_PREFILL=chunked"),
     # disaggregated prefill is served (tests/test_torch_disagg.py); beside
     # a knob still refused, that knob is named and SERVE_PREFILL is not
     pytest.param({"SERVE_PREFILL": "disagg", "SERVE_PREFILL_LANES": "4",
-                  "SERVE_KV_MIGRATE": "1"},
+                  "SERVE_KV_MIGRATE": "1", "SERVE_TP": "2"},
                  id="SERVE_PREFILL=disagg"),
     # the megastep is served (tests/test_torch_megastep.py), and so is
     # fault injection (tests/test_torch_resilience.py)
     pytest.param({"SERVE_MEGASTEP": "4",
                   "TPUJOB_CHAOS": "dispatch_hang@3:0.25",
-                  "SERVE_KV_PEER_FETCH": "1"},
+                  "SERVE_KV_PEER_FETCH": "1", "SERVE_TP": "2"},
                  id="SERVE_MEGASTEP=4"),
     # adapters are served (tests/test_torch_adapters.py); beside a knob
     # still refused, that knob is named and SERVE_ADAPTERS is not
@@ -660,27 +675,39 @@ REFUSED_KNOBS = [
                   "SERVE_TP": "2"},
                  id="SERVE_ADAPTERS=acme"),
     # the ring operations are served: each beside a knob still refused
-    pytest.param({"SERVE_TRACE": "1", "SERVE_KV_MIGRATE": "1"},
+    pytest.param({"SERVE_TRACE": "1", "SERVE_KV_MIGRATE": "1",
+                  "SERVE_TP": "2"},
                  id="SERVE_TRACE=1"),
     pytest.param({"SERVE_NAN_CHECK": "1", "SERVE_PREFILL": "disagg",
-                  "SERVE_KV_BROKER": "127.0.0.1:9100"},
+                  "SERVE_KV_BROKER": "127.0.0.1:9100", "SERVE_TP": "2"},
                  id="SERVE_NAN_CHECK=1"),
     pytest.param({"TPUJOB_CHAOS": "dispatch_hang@3:0.25",
-                  "SERVE_KV_BROKER": "127.0.0.1:9100"},
+                  "SERVE_KV_BROKER": "127.0.0.1:9100", "SERVE_TP": "2"},
                  id="TPUJOB_CHAOS=dispatch_hang@3:0.25"),
-    {"SERVE_KV_MIGRATE": "1"},
-    {"SERVE_KV_PEER_FETCH": "1"},
-    {"SERVE_KV_BROKER": "127.0.0.1:9100"}, {"SERVE_TP": "2"},
+    # fleet-level KV is served (tests/test_torch_fleetkv.py): each of its
+    # knobs beside the one still refused, which alone is named
+    pytest.param({"SERVE_KV_MIGRATE": "1", "SERVE_TP": "2"},
+                 id="SERVE_KV_MIGRATE=1"),
+    pytest.param({"SERVE_KV_PEER_FETCH": "1", "SERVE_KV_PEERS":
+                  "127.0.0.1:9101", "SERVE_TP": "2"},
+                 id="SERVE_KV_PEER_FETCH=1"),
+    pytest.param({"SERVE_KV_BROKER": "127.0.0.1:9100",
+                  "SERVE_MIGRATE_PARKED_S": "5", "SERVE_TP": "2"},
+                 id="SERVE_KV_BROKER=127.0.0.1:9100"),
+    {"SERVE_TP": "2"},
     # the weight-quant knobs are served (tests/test_torch_weight_quant.py);
     # beside a knob still refused, that knob is named and they are not
-    {"QUANTIZE": "int8", "SERVE_KV_PEER_FETCH": "1"},
+    pytest.param({"QUANTIZE": "int8", "SERVE_KV_PEER_FETCH": "1",
+                  "SERVE_TP": "2"},
+                 id="QUANTIZE=int8-SERVE_KV_PEER_FETCH=1"),
     pytest.param({"SERVE_WEIGHT_QUANT": "int8", "SERVE_ADAPTERS": "acme",
-                  "SERVE_KV_MIGRATE": "1"},
+                  "SERVE_KV_MIGRATE": "1", "SERVE_TP": "2"},
                  id="SERVE_WEIGHT_QUANT=int8-SERVE_ADAPTERS=acme"),
 ]
 SERVED_KNOBS = ("SERVE_MEGASTEP", "QUANTIZE", "SERVE_WEIGHT_QUANT",
                 "SERVE_SPEC_K", "SERVE_ADAPTERS", "SERVE_TRACE",
-                "SERVE_NAN_CHECK", "TPUJOB_CHAOS", "SERVE_PREFILL_LANES")
+                "SERVE_NAN_CHECK", "TPUJOB_CHAOS",
+                "SERVE_PREFILL_LANES") + FLEET_KV_KNOBS
 # knobs served at the values listed (every SERVE_PREFILL mode is served)
 SERVED_SETTINGS = {"SERVE_PREFILL": ("chunked", "disagg")}
 
@@ -739,8 +766,8 @@ def test_operator_replica_with_tier_and_store_boots(tmp_path, kv_quant):
     """The env the operator renders for a replica of ``spec.serving``
     with ``hostCacheMb`` and ``kvStore`` (TTL and budget too) passes
     refuse_unported and builds a ring with the host tier and the store
-    attached; with fleet-level KV on, SERVE_KV_BROKER is still refused
-    by name."""
+    attached; with fleet-level KV on it passes too, and the knobs
+    reach the ring (tests/test_torch_fleetkv.py has the rest)."""
     from paddle_operator_tpu.api import ServingSpec, TPUJob, TPUJobSpec
     from paddle_operator_tpu.controller.builders import construct_serve_pod
 
@@ -781,10 +808,22 @@ def test_operator_replica_with_tier_and_store_boots(tmp_path, kv_quant):
                                      spec=TPUJobSpec(serving=sv)), 0)
     env = {e["name"]: e["value"] for e in
            pod["spec"]["containers"][0]["env"] if "value" in e}
-    with pytest.raises(ValueError, match="SERVE_KV_BROKER") as e:
-        S.refuse_unported(env)
-    assert "SERVE_KV_STORE" not in str(e.value)
-    assert "SERVE_HOST_CACHE" not in str(e.value)
+    assert env["SERVE_KV_BROKER"] == "tj-serve:8700"
+    S.refuse_unported(env)
+    kw = S.ring_kw_from_env(dict(env, SERVE_PREWARM="0",
+                                 SERVE_SLOTS="2", SERVE_MAX_LEN="64"), cfg)
+    srv = S.make_server("127.0.0.1", 0, model, cfg, continuous=True, **kw)
+    b = srv.generator.batcher
+    try:
+        S.wire_kv_store_from_env(b, env)
+        S.wire_fleet_kv_from_env(b, 8700, dict(env, POD_IP="127.0.0.1"))
+        assert b.migrate_out is not None and b._migrate_on_drain
+        assert b.peer_fetch is None         # peerPrefixFetch unset
+        assert b.kv_store is not None
+    finally:
+        srv.server_close()
+        srv.generator.close()
+        b.kv_store.close()
 
 
 def test_kv_store_ignored_without_the_tier(capsys):
