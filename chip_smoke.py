@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases 2,2b,2c,2d,2e,2f,3,3b,3c,3d,3e,3f,3g,3h,
                            3i,3j,3k,3l,3m,3n,3o,3p,4,4b,4c,4d,4e,4f,4g,4h,
-                           4i,4j,4k,4l,4m,4n]
+                           4i,4j,4k,4l,4m,4n,3q,3r,4o]
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line; with no arguments every phase runs):
@@ -232,8 +232,8 @@ result line; with no arguments every phase runs):
    scatter); the launch and replay counts.
 3h. host tier and durable store main path — 3b's server (bf16 and
    int8 pools, every dispatch a graph replay) at full width, depth cut
-   to the 7b params' first 16 layers (``TIER_LAYERS``; the tiers'
-   megabytes halved with it, so each holds the blocks it held at 32).
+   to the 7b params' first 8 layers (``TIER_LAYERS``; the tiers'
+   megabytes scaled with it, so each holds the blocks it held at 32).
    Round 1: 24 distinct 1,024-token prefixes (4 blocks each: 96 blocks
    against the 64-block pool), each with its own 16-token suffix and 32
    new tokens; round 2: the same prefixes with fresh suffixes, in
@@ -620,6 +620,45 @@ result line; with no arguments every phase runs):
    never-committed blocks carry scale 0.0.  A 70-token prompt demoted
    on one server and fetched over HTTP by the other (SERVE_KV_PEERS)
    admits with the cold admission's tokens, which equal ``generate``.
+3q. the operator's training pod on the port — ``python -m
+   paddle_operator_tpu_torch.launch.launcher -- python <child>`` in a
+   subprocess with ``TPUJOB_DRAIN=1`` and the env the JAX package's
+   ``controller/builders.py`` gives the one worker of a one-worker job
+   (``MOE_POD_ENV``; the checkpoint path a temporary directory).  The
+   child (``MOE_TRAIN_CHILD``) calls ``launcher.initialize()``, restores
+   or inits ``7b-moe`` at full width cut to 1 layer (f32 master, bf16
+   compute, f32 moments) and trains it through ``fit`` under a
+   ``PreemptionWatcher`` on B=4 x 2,049 tokens, one line a step (loss,
+   aux_loss).  After step 3 the shim gets SIGTERM: it forwards it, the
+   child drains a checkpoint of the step in flight and exits 83, and the
+   shim's own exit code must be 83.  A second launch through the shim
+   resumes at the drained step and takes 2 steps (exit 0).  Gates: rc
+   83; the resumed step; finite loss and aux_loss on every step; the
+   checkpoint holds ``layers.0.moe.*``; kernels #4-#6 launched 2 x 1 /
+   1 / 1 a step (full remat).  Read: step ms, MFU on active params.
+3r. ``7b-moe`` served at full depth (32 layers, 25.5B params, bf16) —
+   the dense 7b released first and the allocated memory logged before
+   the init; 3b's server and burst (``phase_ring_main_path``: 8 slots,
+   chunk 8, block 256, a 64-block pool; kernel #2 32 launches a tick),
+   then the same model quantized in place under
+   ``SERVE_WEIGHT_QUANT=int8`` (one expert weight at a time) on the same
+   traffic (kernel A (4 + 2E) x 32 = 640 launches a tick, kernel B on
+   the prompts above 64 tokens, ``paramBytes``); each ring's device ms
+   a chunk (a graph, 8 lanes at fill 520) against the bound of reading
+   every weight but the embedding and the lanes' KV each tick (the
+   exact MoE FFN reads every expert every tick), TTFT and the peak
+   allocated memory.  Gate: every stream ends and its tokens are in
+   range.
+4o. MoE equalities — ``7b-moe`` and ``7b-moe2`` at 7b width, 2 layers,
+   float32, ``moe_capacity_factor`` 8 (>= E: no drop): the prefill's
+   logits equal the training forward's (1e-4) and a decode step the
+   forward's last position (2e-4); the paged ring through kernel #2
+   equals ``generate`` token for token (a prefix hit among the
+   prompts); a speculative ring (K 4, the random ``cfg.draft()``, an
+   MoE model too) equals ``generate``; the int8-weight ring through
+   kernels A and B equals the same ring through the formula; the
+   int8-pool ring through kernel #3 equals the same ring through the
+   plain version.
 4c. training kernel path == plain path — 7b width, 2 layers, float32:
    three train steps with attention through the flash kernels and
    through ``reference_attention`` from the same init agree in loss
@@ -705,7 +744,27 @@ SPEC_DRAFT_ATTN = dict(b=8, hq=16, hkv=16, d=128, s=2048, layers=8)
 PHASES = ("2", "2b", "2c", "2d", "2e", "2f", "3", "3b", "3c", "3d", "3e",
           "3f", "3g", "3h", "3i", "3j", "3k", "3l", "3m", "3n", "4", "4b",
           "4c", "4d", "4e", "4f", "4g", "4h", "4i", "4j", "4k", "4l", "3o",
-          "4m", "3p", "4n")
+          "4m", "3p", "4n", "3q", "3r", "4o")
+# phase 3q: 7b-moe at full width cut to 1 layer (each layer adds 0.79B
+# params, ~9.5 GB of f32 params and moments to a save); B x (S + 1)
+# tokens; SIGTERM to the shim once step `drain_after` is logged; the
+# resumed launch takes `resume_steps`
+MOE_TRAIN = dict(layers=1, batch=4, seq=2048, steps=12, drain_after=3,
+                 resume_steps=2, lr=1e-3)
+# the env controller/builders.py of the JAX package gives the one worker
+# of a one-worker TPUJob named moe-train (the ConfigMap's data and the
+# pod's own vars, POD_IP its podIP); TPUJOB_CHECKPOINT_PATH is set per
+# run.  tests/test_torch_launcher.py holds it equal to what
+# controller/builders.py makes.
+MOE_POD_ENV = {
+    "TPUJOB_PORT": "8476", "TPUJOB_PORTS_NUM": "8",
+    "TPUJOB_NAME": "moe-train", "TPUJOB_WORKER_HOSTS": "127.0.0.1",
+    "TPUJOB_NUM_WORKERS": "1",
+    "TPUJOB_COORDINATOR_ADDRESS": "127.0.0.1:8476",
+    "POD_IP": "127.0.0.1", "TPUJOB_RANK": "0", "TPUJOB_ROLE_RANK": "0",
+    "TPUJOB_RES_TYPE": "worker", "TPU_WORKER_ID": "0",
+    "TPUJOB_ROLE": "TRAINER", "TRAINING_ROLE": "TRAINER",
+}
 
 
 def log(*a) -> None:
@@ -2478,17 +2537,24 @@ RING = dict(continuous=True, paged=True, slots=8, chunk_tokens=8,
             block_size=256, max_len=2048)
 
 
+def quantized_per_layer(cfg) -> int:
+    """The quantized projections of a layer: q, k, v, o and the FFN's
+    three, or an MoE layer's two a expert (the router stays bf16)."""
+    return 4 + (2 * cfg.n_experts if cfg.n_experts > 0 else 3)
+
+
 def qmm_launches_want(cfg, ticks: int, forwards, lm_head: bool) -> tuple:
     """The int8-weight kernels' launches over a run of a quantized ring,
-    (kernel A, kernel B): the seven projections of every layer on each
-    ring tick (8 rows: kernel A) and on each forward of ``forwards``
-    (their row counts: a prompt's length, a prefix hit's padded suffix
-    bucket) — kernel A up to ``KERNEL_MAX_ROWS`` rows, kernel B above;
-    the legacy quantized lm_head once a tick and once a forward, on its
-    one last row (kernel A)."""
+    (kernel A, kernel B): the projections of every layer
+    (:func:`quantized_per_layer`: seven, or 4 + 2E) on each ring tick (8
+    rows: kernel A) and on each forward of ``forwards`` (their row
+    counts: a prompt's length, a prefix hit's padded suffix bucket) —
+    kernel A up to ``KERNEL_MAX_ROWS`` rows, kernel B above; the legacy
+    quantized lm_head once a tick and once a forward, on its one last
+    row (kernel A)."""
     from paddle_operator_tpu_torch.ops.quant_matmul import KERNEL_MAX_ROWS
 
-    per = 7 * cfg.n_layers
+    per = quantized_per_layer(cfg) * cfg.n_layers
     short = sum(r <= KERNEL_MAX_ROWS for r in forwards)
     return ((per + int(lm_head)) * ticks + per * short
             + int(lm_head) * len(forwards), per * (len(forwards) - short))
@@ -2724,8 +2790,9 @@ def phase_ring_main_path(report: dict, params, cfg,
         want_q = qmm_launches_want(cfg, ticks, forwards, wquant["lm_head"])
         head = " + lm_head" if wquant["lm_head"] else ""
         log(f"ring weight quant {wmode}: (kernel A, kernel B) launches "
-            f"{qmm}, expected {want_q} (7 x n_layers {cfg.n_layers}{head} "
-            f"a tick, {ticks} ticks, and a forward, rows {forwards}); "
+            f"{qmm}, expected {want_q} ({quantized_per_layer(cfg)} x "
+            f"n_layers {cfg.n_layers}{head} a tick, {ticks} ticks, and a "
+            f"forward, rows {forwards}); "
             f"/statusz weightQuantMode {statusz['weightQuantMode']}, "
             f"paramBytes {statusz['paramBytes']} (expected "
             f"{wquant['param_bytes']}); {gauge}")
@@ -2756,6 +2823,8 @@ def phase_ring_main_path(report: dict, params, cfg,
         "pool_gb": batcher.executor.pool_bytes() / 1e9,
         "kv_pool_bytes": statusz["kvPoolBytes"],
     }
+    if wquant:
+        ring["qmm_launches"] = list(qmm)
     log("ring: " + json.dumps(ring))
     log(f"ring {kv_quant} megastep {megastep} (a smoke reading of one "
         f"burst, not a benchmark): {new_tokens} new tokens in {burst_s:.3f}s "
@@ -3173,9 +3242,10 @@ TIER = dict(prefixes=24, prefix=1024, suffix=16, new=32, host_mb=4096,
             ref_blocks=112)
 TIER_RUNS = ("hit_ref", "cold_ref", "off", "on", "store_a", "store_b")
 # 3h runs on the first TIER_LAYERS of the 7b params (the script's time
-# limit: 3h took 163 s of 1,100 at 32 layers), its tiers' megabytes
-# scaled with the depth, so each tier holds the blocks it held at 32
-TIER_LAYERS = 16
+# limit: 3h took 163 s of 1,100 at 32 layers, 85.7 s at 16, and the MoE
+# phases 3q, 3r and 4o add about 135 s), its tiers' megabytes scaled
+# with the depth, so each tier holds the blocks it held at 32
+TIER_LAYERS = 8
 
 
 def _depth_cut(params, cfg, n_layers: int) -> tuple:
@@ -3760,14 +3830,19 @@ def expected_param_bytes(cfg, lm_head: bool) -> int:
     by shape arithmetic: one byte a code (int4 too) and four a scale for
     each quantized projection (the seven of every layer, and ``lm_head``
     under the legacy call), two a value for the embedding, the norms and
-    an unquantized ``lm_head`` (bf16)."""
+    an unquantized ``lm_head`` (bf16); an MoE layer's experts (two
+    projections each) are quantized and its router stays bf16."""
     d, f, v, n_layers, hd = (cfg.dim, cfg.ffn_dim, cfg.vocab_size,
                              cfg.n_layers, cfg.head_dim)
-    ins = (d, d, d, cfg.n_heads * hd, d, d, f)
-    outs = (cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.n_kv_heads * hd, d,
-            f, f, d)
+    ffn_in, ffn_out = ((d, f), (f, d)) if cfg.n_experts > 0 \
+        else ((d, d, f), (f, f, d))
+    experts = max(cfg.n_experts, 1)
+    ins = (d, d, d, cfg.n_heads * hd) + ffn_in * experts
+    outs = (cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.n_kv_heads * hd,
+            d) + ffn_out * experts
     quantized = n_layers * sum(i * o + 4 * o for i, o in zip(ins, outs))
-    rest = 2 * (v * d + (2 * n_layers + 1) * d)
+    rest = 2 * (v * d + (2 * n_layers + 1) * d
+                + n_layers * d * cfg.n_experts)
     return quantized + rest + (d * v + 4 * v if lm_head else 2 * d * v)
 
 
@@ -9275,6 +9350,507 @@ def phase_train_kernel_equals_plain() -> None:
     torch.cuda.empty_cache()
 
 
+# phase 3q's child: the user's training program in the pod, started by
+# the launcher (``python -m paddle_operator_tpu_torch.launch.launcher --
+# python <this file> <json>``).  It prints one JSON line an event.
+MOE_TRAIN_CHILD = r'''
+import itertools
+import json
+import logging
+import sys
+import time
+
+import torch
+
+from paddle_operator_tpu_torch.ft.preemption import (EXIT_PREEMPTED,
+                                                     PreemptionWatcher)
+from paddle_operator_tpu_torch.launch import launcher
+from paddle_operator_tpu_torch.models.llama import make_model
+from paddle_operator_tpu_torch.ops import flash_attention as FA
+from paddle_operator_tpu_torch.train import trainer as T
+from paddle_operator_tpu_torch.train.checkpoint import (CheckpointManager,
+                                                        resume_or_init)
+from paddle_operator_tpu_torch.train.data import (DevicePrefetcher,
+                                                  deterministic_lm_batches)
+from paddle_operator_tpu_torch.utils.observability import StepTimer
+
+
+def emit(**kw):
+    print(json.dumps(kw), flush=True)
+
+
+def synced():
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def main():
+    a = json.loads(sys.argv[1])
+    env = launcher.initialize()            # one worker: no process group
+    watcher = PreemptionWatcher.install()
+    opt = T.make_optimizer(a["lr"], warmup_steps=1, decay_steps=1000)
+    cfgs = {}
+
+    def init():
+        model, cfgs["cfg"] = make_model("7b-moe", device="cuda", seed=0,
+                                        n_layers=a["layers"])
+        return T.create_state(model, opt)
+
+    t0 = time.perf_counter()
+    ckpt = CheckpointManager(env.checkpoint_path,
+                             save_interval_steps=10 ** 9)
+    state, resumed = resume_or_init(ckpt, init)
+    cfg = cfgs["cfg"]
+    start = state.step
+    emit(event="start", step=start, resumed=resumed, rank=env.rank,
+         num_workers=env.num_workers, params=cfg.num_params(),
+         active_params=cfg.active_params(), ready_s=time.perf_counter() - t0)
+    b, s = a["batch"], a["seq"]
+    data = DevicePrefetcher(itertools.islice(deterministic_lm_batches(
+        b, s + 1, cfg.vocab_size, seed=0, start_step=start), a["steps"]),
+        device="cuda")
+    step = T.make_train_step(opt)
+
+    def step_logged(st, batch):
+        st, m = step(st, batch)
+        emit(event="step", step=st.step, loss=float(m["loss"]),
+             aux_loss=float(m["aux_loss"]),
+             grad_norm=float(m["grad_norm"]))
+        return st, m
+
+    timer = StepTimer(b * s, cfg.flops_per_token(), a["peak"],
+                      window=a["steps"], clock=synced)
+    for fn in (FA.flash_forward, FA.flash_backward_dkv,
+               FA.flash_backward_dq):
+        fn.launches = 0
+    logger = logging.getLogger("moe-train")
+    logger.setLevel(logging.INFO)
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda r: records.append(r.getMessage())
+    logger.addHandler(handler)
+    t0 = synced()
+    state, hist = T.fit(state, step_logged, data, steps=a["steps"],
+                        checkpoint=ckpt, timer=timer, preemption=watcher,
+                        logger=logger)
+    wall = synced() - t0
+    ckpt.wait()
+    emit(event="drained" if watcher.draining else "done", step=state.step,
+         steps=len(hist), fit_wall_s=wall,
+         step_ms=[t * 1e3 for t in timer.times],
+         flops_per_token=cfg.flops_per_token(),
+         launches=[FA.flash_forward.launches,
+                   FA.flash_backward_dkv.launches,
+                   FA.flash_backward_dq.launches],
+         save=ckpt.last_save, log=records,
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return EXIT_PREEMPTED if watcher.draining else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
+'''
+
+
+def _launch_pod(child: str, ckpt_dir: str, args: dict, logf,
+                sigterm_after=None) -> tuple:
+    """One run of the training pod: the launcher shim over ``child``
+    with ``MOE_POD_ENV``, ``TPUJOB_DRAIN=1`` and ``ckpt_dir``; SIGTERM
+    to the shim once the child logs step ``sigterm_after``.  Returns
+    (the shim's exit code, the child's events, the host clock of the
+    SIGTERM)."""
+    import signal
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TPU_", "TPUJOB_", "MEGASCALE_"))}
+    env.update(MOE_POD_ENV, TPUJOB_DRAIN="1",
+               TPUJOB_CHECKPOINT_PATH=ckpt_dir,
+               PYTHONPATH=str(ROOT) + os.pathsep + env.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_operator_tpu_torch.launch.launcher",
+         "--", sys.executable, child, json.dumps(args)],
+        env=env, cwd=str(ROOT), stdout=subprocess.PIPE, stderr=logf,
+        text=True)
+    events, sent = [], None
+    try:
+        for line in proc.stdout:
+            line = line.strip()
+            if not line.startswith("{"):
+                continue
+            ev = json.loads(line)
+            events.append(ev)
+            if (sigterm_after is not None and sent is None
+                    and ev.get("event") == "step"
+                    and ev["step"] >= sigterm_after):
+                sent = time.perf_counter()
+                proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return rc, events, sent
+
+
+def phase_moe_train_pod(reports: dict) -> None:
+    """Phase 3q: the operator's training pod, supervised by the port's
+    launcher, trains 7b-moe; see the module docstring."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.ft.preemption import EXIT_PREEMPTED
+    from paddle_operator_tpu_torch.models.llama import CONFIGS
+
+    card = card_line()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_moe_")
+    child = os.path.join(root, "train_moe.py")
+    ckpt_dir = os.path.join(root, "ckpt")
+    Path(child).write_text(MOE_TRAIN_CHILD)
+    logpath = os.path.join(root, "pod.log")
+    cfg = dataclasses.replace(CONFIGS["7b-moe"],
+                              n_layers=MOE_TRAIN["layers"])
+    args = {k: MOE_TRAIN[k] for k in ("layers", "batch", "seq", "lr")}
+    args["peak"] = PEAK_BF16
+    try:
+        free = shutil.disk_usage(root).free
+        need = 3 * 4 * cfg.num_params()          # one step of f32 p, mu, nu
+        log(f"moe train pod: 7b-moe width, {cfg.n_layers} layer(s) "
+            f"({cfg.num_params() / 1e9:.3f}B params, "
+            f"{cfg.active_params() / 1e9:.3f}B active), B="
+            f"{MOE_TRAIN['batch']} S={MOE_TRAIN['seq']}; {free / 1e9:.1f} "
+            f"GB free under {root} (a save {need / 1e9:.1f} GB); {card}")
+        if free < need:
+            raise AssertionError("not enough disk for phase 3q's checkpoint")
+        with open(logpath, "w") as logf:
+            t0 = time.perf_counter()
+            rc1, ev1, sent = _launch_pod(
+                child, ckpt_dir, dict(args, steps=MOE_TRAIN["steps"]), logf,
+                sigterm_after=MOE_TRAIN["drain_after"])
+            first_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rc2, ev2, _ = _launch_pod(
+                child, ckpt_dir, dict(args, steps=MOE_TRAIN["resume_steps"]),
+                logf)
+            second_s = time.perf_counter() - t0
+        tail = Path(logpath).read_text()[-3000:]
+        ends = [e for e in ev1 if e["event"] in ("drained", "done")]
+        if rc1 != EXIT_PREEMPTED or sent is None or not ends \
+                or ends[-1]["event"] != "drained":
+            raise AssertionError(f"3q: the shim exited {rc1} after SIGTERM "
+                                 f"(want {EXIT_PREEMPTED}); events "
+                                 f"{str(ev1)[-1500:]}; log {tail}")
+        drained = ends[-1]
+        d_step = drained["step"]
+        committed = sorted(int(n) for n in os.listdir(ckpt_dir)
+                           if n.isdigit())
+        saved = torch.load(os.path.join(ckpt_dir, str(d_step), "params.pt"),
+                           mmap=True, weights_only=True, map_location="cpu")
+        moe_keys = sorted(k for k in saved if k.startswith("layers.0.moe."))
+        del saved
+        start2 = next(e for e in ev2 if e["event"] == "start")
+        done2 = [e for e in ev2 if e["event"] == "done"]
+        steps1 = [e for e in ev1 if e["event"] == "step"]
+        steps2 = [e for e in ev2 if e["event"] == "step"]
+        finite = all(np.isfinite([e["loss"], e["aux_loss"], e["grad_norm"]]
+                                 ).all() for e in steps1 + steps2)
+        log(f"moe train pod: launch 1 exit {rc1} in {first_s:.1f}s (SIGTERM "
+            f"to the shim after step {MOE_TRAIN['drain_after']}; the child "
+            f"drained at step {d_step}, checkpoint steps {committed}, "
+            f"{drained['log']}); launch 2 exit {rc2} in {second_s:.1f}s, "
+            f"started at step {start2['step']} (resumed "
+            f"{start2['resumed']}), ended at "
+            f"{done2[-1]['step'] if done2 else None}; checkpoint keys "
+            f"{moe_keys}; {card}")
+        log(f"moe train pod: losses {[e['loss'] for e in steps1 + steps2]}, "
+            f"aux_loss {[e['aux_loss'] for e in steps1 + steps2]}")
+        if committed != [d_step] or d_step < MOE_TRAIN["drain_after"]:
+            raise AssertionError(f"3q: the drain committed {committed}, the "
+                                 f"child drained at step {d_step}")
+        if rc2 != 0 or not start2["resumed"] or start2["step"] != d_step \
+                or not done2 \
+                or done2[-1]["step"] != d_step + MOE_TRAIN["resume_steps"]:
+            raise AssertionError(f"3q: the second launch (exit {rc2}) did not "
+                                 f"resume at step {d_step} and take "
+                                 f"{MOE_TRAIN['resume_steps']} steps: "
+                                 f"{str(ev2)[-1500:]}; log {tail}")
+        if not finite or len(steps1) != drained["steps"]:
+            raise AssertionError("3q: a loss, aux_loss or grad norm is not "
+                                 "finite, or a step was not logged")
+        if not {"layers.0.moe.router.kernel", "layers.0.moe.w1",
+                "layers.0.moe.w2"} <= set(moe_keys):
+            raise AssertionError(f"3q: the checkpoint lacks the MoE leaves: "
+                                 f"{moe_keys}")
+        layers = cfg.n_layers
+        bad = []
+        for what, e in (("launch 1", drained), ("launch 2", done2[-1])):
+            n = e["steps"]
+            want = [2 * layers * n, layers * n, layers * n]
+            if e["launches"] != want:
+                bad.append(f"{what}: flash launches {e['launches']}, "
+                           f"expected {want}")
+        if bad:
+            raise AssertionError(f"3q: {bad}")
+        times = drained["step_ms"]          # steps 2..N of launch 1
+        step_ms = float(np.median(times[1:] if len(times) > 1 else times))
+        b, s = MOE_TRAIN["batch"], MOE_TRAIN["seq"]
+        tok_s = b * s / (step_ms / 1e3)
+        mfu = tok_s * drained["flops_per_token"] / PEAK_BF16
+        run = {"layers": layers, "batch": b, "seq": s,
+               "params": cfg.num_params(),
+               "active_params": cfg.active_params(),
+               "drained_step": d_step, "exit_codes": [rc1, rc2],
+               "resumed_at": start2["step"],
+               "step_ms": times, "step_ms_median": step_ms,
+               "tokens_per_s": tok_s, "mfu_active": mfu,
+               "losses": [e["loss"] for e in steps1 + steps2],
+               "aux_losses": [e["aux_loss"] for e in steps1 + steps2],
+               "launches": {"launch1": drained["launches"],
+                            "launch2": done2[-1]["launches"]},
+               "drain_save": drained["save"],
+               "launch_s": [first_s, second_s],
+               "child_ready_s": [next(e for e in ev1
+                                      if e["event"] == "start")["ready_s"],
+                                 start2["ready_s"]],
+               "peak_gb": [drained["peak_gb"], done2[-1]["peak_gb"]]}
+        log("moe train pod: " + json.dumps(run))
+        log(f"moe train pod (one run, not a benchmark): step {step_ms:.1f} ms "
+            f"(median of steps 2..{len(times)}), {tok_s:.0f} tokens/s, MFU "
+            f"{mfu:.3f} on active params against {PEAK_BF16 / 1e12:.0f} "
+            f"TFLOP/s bf16; drain save {drained['save']}; {card}")
+        reports["flash_forward"]["moe_train"] = run
+        for kern, i in (("flash_forward", 0), ("flash_backward_dkv", 1),
+                        ("flash_backward_dq", 2)):
+            reports[kern].setdefault("moe_train_launches",
+                                     drained["launches"][i]
+                                     + done2[-1]["launches"][i])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _moe_chunk_bound_ms(model, cfg, fill: int) -> float:
+    """The least device ms of one ring chunk of the exact-FFN MoE model:
+    every tick reads every weight but the embedding (each expert runs
+    over every lane) and each lane's K and V rows up to its fill, at
+    the card's memory rate."""
+    emb = model.tok_embed.embedding
+    weights = sum(t.numel() * t.element_size()
+                  for t in model.state_dict().values()) \
+        - emb.numel() * emb.element_size()
+    chunk, slots = RING["chunk_tokens"], RING["slots"]
+    kv_row = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2
+    kv = sum(slots * kv_row * (fill + t) for t in range(chunk))
+    return (chunk * weights + kv) / HBM_BYTES_PER_S * 1e3
+
+
+def phase_moe_serving(paged: dict, qmm: dict, qmm_b: dict) -> None:
+    """Phase 3r: 7b-moe at full depth on 3b's server, bf16 then int8
+    weights; see the module docstring."""
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.infer import quant as Q
+    from paddle_operator_tpu_torch.infer import serve as S
+    from paddle_operator_tpu_torch.models.llama import CONFIGS, make_model
+
+    card = card_line()
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, cfg = make_model("7b-moe", device="cuda", seed=0,
+                             param_dtype=CONFIGS["7b-moe"].dtype)
+    params.requires_grad_(False)
+    torch.cuda.synchronize()
+    log(f"moe serving: allocated {before} bytes before the init; 7b-moe "
+        f"init on the card {time.perf_counter() - t0:.1f}s "
+        f"({cfg.num_params() / 1e9:.2f}B params, "
+        f"{cfg.active_params() / 1e9:.2f}B active, {cfg.dtype}, "
+        f"{cfg.n_layers} layers, {cfg.n_experts} experts, "
+        f"{Q.param_bytes(params)} bytes); {card}")
+    rng = np.random.default_rng(5)
+    fill = 520
+    prompts = [rng.integers(0, cfg.vocab_size, fill).tolist()
+               for _ in range(RING["slots"])]
+    readings = {}
+    for mode in ("none", "int8"):
+        if mode == "int8":
+            t0 = time.perf_counter()
+            got = S.quantize_from_env(params, cfg,
+                                      {"SERVE_WEIGHT_QUANT": "int8"})
+            torch.cuda.synchronize()
+            log(f"moe serving: SERVE_WEIGHT_QUANT=int8 -> {got} in place in "
+                f"{time.perf_counter() - t0:.1f}s, paramBytes "
+                f"{Q.param_bytes(params)} (expected "
+                f"{expected_param_bytes(cfg, False)}), allocated "
+                f"{torch.cuda.memory_allocated()}")
+        wquant = (None if mode == "none" else
+                  {"mode": mode, "lm_head": False,
+                   "param_bytes": expected_param_bytes(cfg, False)})
+        report = {}
+        outputs = phase_ring_main_path(report, params, cfg, wquant=wquant)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ms = _chunk_ms_turns({mode: (params, cfg, None)}, [mode] * 2,
+                             prompts, dispatches=3)[mode]
+        gc.collect()
+        torch.cuda.empty_cache()
+        bound = _moe_chunk_bound_ms(params, cfg, fill)
+        ring = dict(report["ring"], paged_launches=report["launches"],
+                    device_ms_per_chunk=ms, bound_ms_per_chunk=bound,
+                    bound_fill=fill, param_bytes=Q.param_bytes(params))
+        readings[mode] = ring
+        for (kind, i), out in outputs.items():
+            if len(out) <= 0 or min(out) < 0 or max(out) >= cfg.vocab_size:
+                raise AssertionError(f"3r {mode}: {kind} {i} out of range")
+        log(f"moe serving {mode} weights (one burst, not a benchmark): "
+            f"{ring['wall_ms_per_chunk']:.1f} ms wall a chunk, device "
+            f"{[round(x, 3) for x in ms]} ms a chunk (fill {fill}, a "
+            f"graph) against the {bound:.2f} ms bound; TTFT p50 "
+            f"{ring['ttft_p50_ms']:.1f} ms, p95 {ring['ttft_p95_ms']:.1f}; "
+            f"{ring['burst_new_tok_s']:.1f} new tok/s; paged kernel "
+            f"launches {report['launches']}; {card}")
+    readings["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    readings["allocated_before"] = before
+    log(f"moe serving: peak allocated "
+        f"{readings['peak_allocated_gb']:.2f} GB; {card}")
+    paged["moe"] = readings
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_moe_equalities() -> None:
+    """Phase 4o: the MoE serving paths held to each other and to the
+    training forward at f32; see the module docstring."""
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.infer import decode as D
+    from paddle_operator_tpu_torch.infer import quant as Q
+    from paddle_operator_tpu_torch.infer.batcher import ContinuousBatcher
+    from paddle_operator_tpu_torch.models.llama import Llama, make_model
+    from paddle_operator_tpu_torch.ops import decode_attention as DA
+    from paddle_operator_tpu_torch.ops import quant_matmul as QM
+
+    n_new, max_len, bs = 12, 512, 16
+    for preset in ("7b-moe", "7b-moe2"):
+        params, cfg = make_model(preset, device="cuda", seed=6, n_layers=2,
+                                 dtype=torch.float32,
+                                 moe_capacity_factor=8.0)
+        params.requires_grad_(False)
+        rng = np.random.default_rng(6)
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+                   for n in (40, 129, 64)]
+        # a prefix hit: the 129-token prompt's 8 full blocks + 5 tokens
+        prompts.append(prompts[1][:128]
+                       + rng.integers(0, cfg.vocab_size, 5).tolist())
+        res = {}
+        with torch.inference_mode():
+            toks = torch.tensor([prompts[1][:64], prompts[2][:64]],
+                                dtype=torch.int32, device="cuda")
+            train, _ = params(toks)
+            cache = D.init_cache(cfg, 2, 128)
+            logits, cache = D._forward(cfg, params, toks[:, :-1], cache)
+            step, _ = D.decode_step(params, cfg, toks[:, -1], cache)
+            res["prefill_vs_train"] = float(
+                (logits - train[:, :-1]).abs().max())
+            res["decode_vs_train"] = float(
+                (step - train[:, -1]).abs().max())
+            want = [D.generate(params, cfg, torch.tensor(
+                [p], dtype=torch.int32, device="cuda"),
+                max_new_tokens=n_new, max_len=max_len)[0].tolist()
+                for p in prompts]
+        if not (torch.allclose(logits, train[:, :-1], rtol=1e-4, atol=1e-4)
+                and torch.allclose(step, train[:, -1], rtol=2e-4,
+                                   atol=2e-4)):
+            raise AssertionError(f"4o {preset}: the prefill or decode "
+                                 f"logits differ from the training "
+                                 f"forward's: {res}")
+
+        def serve(model, c, what, route=None, **kw):
+            with (route() if route else contextlib.nullcontext()):
+                _zero_launches()
+                ring = ContinuousBatcher(model, c, slots=4, max_len=max_len,
+                                         chunk_tokens=8, paged=True,
+                                         block_size=bs, **kw)
+                try:
+                    first = [h.result(timeout=600) for h in [
+                        ring.submit(p, max_new_tokens=n_new)
+                        for p in prompts[:3]]]
+                    out = first + [ring.submit(
+                        prompts[3], max_new_tokens=n_new).result(
+                        timeout=600)]
+                    hit = ring.pool.stats["prefix_hit_tokens"]
+                    ring.pool.check_invariant()
+                finally:
+                    ring.close()
+            seen = {"#1": DA.decode_attention.launches,
+                    "#2": DA.paged_decode_attention.launches,
+                    "#3": DA.paged_decode_attention.quant_launches,
+                    "A": QM.quant_matmul.launches,
+                    "B": QM.quant_gemm.launches, "hit": hit}
+            res[what] = seen
+            return out
+
+        got = serve(params, cfg, "paged")
+        if got != want or not res["paged"]["#2"] or res["paged"]["#1"] \
+                or res["paged"]["hit"] < 128:
+            raise AssertionError(f"4o {preset}: the paged ring != generate, "
+                                 f"or not through kernel #2 alone, or no "
+                                 f"prefix hit: {res['paged']}")
+        dcfg = cfg.draft()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1)
+        draft = Llama(dcfg, "cuda").init_weights(gen)
+        draft.requires_grad_(False)
+        got = serve(params, cfg, "spec", draft_params=draft, draft_cfg=dcfg,
+                    spec_k=4)
+        if got != want or not res["spec"]["#1"]:
+            raise AssertionError(f"4o {preset}: the speculative ring (K 4, "
+                                 f"an MoE draft of {dcfg.n_experts} experts)"
+                                 f" != generate: {res['spec']}")
+        del draft
+        kcfg = dataclasses.replace(cfg, decode_attn="kernel")
+        pcfg = dataclasses.replace(cfg, decode_attn="plain")
+        got_k = serve(params, kcfg, "int8_pool_kernel", kv_quant="int8")
+        got_p = serve(params, pcfg, "int8_pool_plain", kv_quant="int8")
+        if got_k != got_p or not res["int8_pool_kernel"]["#3"] \
+                or res["int8_pool_plain"]["#3"]:
+            raise AssertionError(f"4o {preset}: the int8 pool through kernel "
+                                 f"#3 != its plain version: "
+                                 f"{res['int8_pool_kernel']}, "
+                                 f"{res['int8_pool_plain']}")
+        qmodel = Llama(cfg, "cuda")
+        qmodel.load_state_dict(params.state_dict())
+        qmodel.requires_grad_(False)
+        del params
+        Q.quantize_params(qmodel, cfg, mode="int8", skip=Q.SERVING_SKIP)
+        got_k = serve(qmodel, cfg, "wq_kernels")
+        got_p = serve(qmodel, cfg, "wq_formula", route=_plain_route)
+        if got_k != got_p or not res["wq_kernels"]["A"] \
+                or not res["wq_kernels"]["B"] or res["wq_formula"]["A"] \
+                or res["wq_formula"]["B"]:
+            raise AssertionError(f"4o {preset}: the int8-weight ring through "
+                                 f"kernels A/B != the formula: "
+                                 f"{res['wq_kernels']}, {res['wq_formula']}")
+        log(f"4o {preset} (7b width, 2 layers, f32, capacity factor 8): "
+            f"prefill vs training forward {res['prefill_vs_train']:.3e} "
+            f"(1e-4), decode step {res['decode_vs_train']:.3e} (2e-4); paged "
+            f"ring == generate ({res['paged']}); speculative K 4 == generate "
+            f"({res['spec']}); int8 pool kernel == plain "
+            f"({res['int8_pool_kernel']}, {res['int8_pool_plain']}); int8 "
+            f"weights kernels == formula ({res['wq_kernels']}, "
+            f"{res['wq_formula']})")
+        del qmodel
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -9422,6 +9998,9 @@ def main() -> int:
     run("4l", phase_ring_ops_equalities)
     run("4m", phase_disagg_equalities)
     run("4n", phase_fleet_kv_equalities)
+    run("3q", phase_moe_train_pod, flash)
+    run("3r", phase_moe_serving, paged, qmm, qmm_b)
+    run("4o", phase_moe_equalities)
     log(f"all phases: {time.perf_counter() - t_all:.1f}s")
 
     order = ["name", "route", "source", "replaces", "launches",
@@ -9430,7 +10009,8 @@ def main() -> int:
              "nan_lanes", "ring_ops",
              "decode_ms_per_step_b4", "kernel1_ms", "paged_bf16_ms", "ring",
              "ring_megastep", "spec", "draft_quant", "preempt", "host_tier",
-             "interleave", "disagg", "fleet_kv", "prefill", "probes_ms",
+             "interleave", "disagg", "fleet_kv", "moe", "moe_train",
+             "moe_train_launches", "prefill", "probes_ms",
              "limit_check", "train",
              "checkpoint", "depth",
              "fwd_bwd", "designs",

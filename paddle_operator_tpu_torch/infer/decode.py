@@ -22,9 +22,10 @@ goes through :func:`_mm`, which also takes the weight-only int8/int4
 projections of infer/quant.py.  ``lora=(stacks, aid)`` (infer/qos.py
 ``AdapterRegistry.arrays()`` and per-row adapter slots) adds each row's
 low-rank delta to q, k and v before RoPE (``qos.lora_qkv``), so adapter
-KV enters the cache as a merged-weight forward would write it.  Not
-ported yet, and refused when asked for: tensor-parallel meshes and MoE
-layers.
+KV enters the cache as a merged-weight forward would write it.  An MoE
+config's FFN is :func:`_moe_ffn` (exact, no capacity drop) on every
+path.  Not ported yet, and refused when asked for: tensor-parallel
+meshes.
 """
 
 from __future__ import annotations
@@ -150,9 +151,50 @@ def _qkv(cfg: LlamaConfig, lp, x: torch.Tensor, cos: torch.Tensor,
     return _rope(q, cos, sin, pos), _rope(k, cos, sin, pos), v
 
 
+def _expert_mm(x: torch.Tensor, w, e: int, dtype) -> torch.Tensor:
+    """x @ expert ``e``'s slice of the MoE weight ``w``: a raw ``[E, in,
+    out]`` parameter, or its quantized form (models/moe.py
+    ``ExpertCodes``: codes ``[E, in, out]``, scales ``[E, 1, out]``),
+    whose slices take ``quant_mm`` as any quantized projection does."""
+    if isinstance(w, torch.Tensor):
+        return x @ w[e].to(dtype)
+    return quant_mm(x.to(dtype), w.q[e], w.s[e])
+
+
+def _moe_ffn(cfg: LlamaConfig, mp, n: torch.Tensor) -> torch.Tensor:
+    """Top-k MoE FFN at inference (``mp``: one layer's
+    models/moe.py ``MoELayer``): exact conditional computation with NO
+    capacity drop (the training layer's capacity buffer is a
+    static-shape device, its drops an approximation, not the model).
+    The router runs in f32, :func:`models.moe.route_top_k` picks the
+    experts (the training layer's rule), every expert's GELU FFN runs
+    over every token — static shapes, as a CUDA graph needs — and the
+    gates combine the outputs through a ``[T, E]`` selection built by
+    comparison (no ``one_hot``: its host-side index check would break
+    graph capture)."""
+    from paddle_operator_tpu_torch.models.moe import (expert_selection,
+                                                      route_top_k)
+
+    b, t, d = n.shape
+    tokens = n.reshape(b * t, d)
+    probs = torch.softmax(tokens.float() @ mp.router.kernel.float(), dim=-1)
+    gates, topi = route_top_k(probs, cfg.moe_top_k)         # [T, k]
+    outs = torch.stack([
+        _expert_mm(torch.nn.functional.gelu(
+            _expert_mm(tokens, mp.w1, e, cfg.dtype), approximate="tanh"),
+            mp.w2, e, cfg.dtype)
+        for e in range(cfg.n_experts)])                     # [E, T, D]
+    sel = (expert_selection(topi, cfg.n_experts).float()
+           * gates[..., None]).sum(1)                       # [T, E]
+    out = torch.einsum("te,etd->td", sel.to(cfg.dtype), outs)
+    return out.reshape(b, t, d)
+
+
 def _ffn_residual(cfg: LlamaConfig, lp, x: torch.Tensor) -> torch.Tensor:
-    """The FFN half of a decoder layer: norm -> SwiGLU -> +x."""
+    """The FFN half of a decoder layer: norm -> (SwiGLU or MoE) -> +x."""
     n = _rms(x, lp.mlp_norm.scale, cfg.norm_eps, cfg.dtype)
+    if cfg.n_experts > 0:
+        return x + _moe_ffn(cfg, lp.moe, n)
     gate = _mm(n, lp.mlp.w1, cfg.dtype)
     up = _mm(n, lp.mlp.w3, cfg.dtype)
     return x + _mm(torch.nn.functional.silu(gate) * up, lp.mlp.w2,
@@ -161,8 +203,8 @@ def _ffn_residual(cfg: LlamaConfig, lp, x: torch.Tensor) -> torch.Tensor:
 
 def _finish_layer(cfg: LlamaConfig, lp, x: torch.Tensor,
                   out: torch.Tensor) -> torch.Tensor:
-    """Post-attention half: output projection + residual, then the FFN
-    + residual."""
+    """Post-attention half: output projection + residual, then the
+    (dense SwiGLU or MoE) FFN + residual."""
     x = x + _mm(out, lp.attn.wo, cfg.dtype)
     return _ffn_residual(cfg, lp, x)
 

@@ -12,9 +12,13 @@ full precision.
 the ``kernel`` parameter is replaced by two buffers, the codes ``q``
 ``[in, out]`` int8 and the scales ``s`` ``[1, out]`` f32 — the layout of
 the JAX package's ``{"q", "s"}`` leaf — and the module records its
-``mode``.  Every projection goes through ``infer/decode.py`` ``_mm``
-(and ``Dense.forward``), which reads either form, so every decode entry
-point (prefill, decode_step, generate, the rings, the server) serves a
+``mode``.  An MoE layer's expert weights (``moe/w1`` ``[E, D, F]``,
+``moe/w2`` ``[E, F, D]``) become ``models.moe.ExpertCodes``: codes
+``[E, in, out]`` and per-out-channel scales ``[E, 1, out]``, the JAX
+``quantize_leaf`` of the ``[..., in, out]`` leaf.  Every projection goes
+through ``infer/decode.py`` ``_mm`` or ``_expert_mm`` (and
+``Dense.forward``), which read either form, so every decode entry point
+(prefill, decode_step, generate, the rings, the server) serves a
 quantized model unchanged.
 
 Torch has no int4 dtype to compute with, so **int4 codes are stored as
@@ -43,6 +47,7 @@ import torch
 from torch import nn
 
 from paddle_operator_tpu_torch.models.llama import Dense
+from paddle_operator_tpu_torch.models.moe import ExpertCodes, MoELayer
 
 # matmul kernels worth quantizing: attention + (dense or MoE) FFN + head,
 # matched against the JAX package's '/'-joined leaf paths
@@ -100,21 +105,52 @@ def dequantize_leaf(leaf, dtype) -> torch.Tensor:
     return leaf.to(dtype)
 
 
-def _dense_paths(model: nn.Module):
-    """(the JAX package's '/'-joined leaf path, module) of every
-    ``Dense`` of ``model``: ``layers.0.attn.wq`` -> ``layers/0/attn/wq/
-    kernel``."""
+class _Leaf:
+    """One quantizable weight: a ``Dense``'s kernel, or an MoE layer's
+    expert weight ``w1`` / ``w2``."""
+
+    def __init__(self, mod: nn.Module, name: Optional[str] = None) -> None:
+        self.mod, self.name = mod, name
+
+    @property
+    def mode(self) -> str:
+        if self.name is None:
+            return self.mod.mode
+        w = getattr(self.mod, self.name)
+        return w.mode if isinstance(w, ExpertCodes) else "none"
+
+    def weight(self) -> torch.Tensor:
+        return (self.mod.kernel if self.name is None
+                else getattr(self.mod, self.name))
+
+    def set_quantized(self, q: torch.Tensor, s: torch.Tensor,
+                      mode: str) -> None:
+        if self.name is None:
+            self.mod.set_quantized(q, s, mode)
+        else:
+            self.mod.set_quantized(self.name, q, s, mode)
+
+
+def _leaf_paths(model: nn.Module):
+    """(the JAX package's '/'-joined leaf path, :class:`_Leaf`) of every
+    ``Dense`` kernel and MoE expert weight of ``model``:
+    ``layers.0.attn.wq`` -> ``layers/0/attn/wq/kernel``,
+    ``layers.0.moe``'s ``w1`` -> ``layers/0/moe/w1``."""
     for name, mod in model.named_modules():
+        path = name.replace(".", "/")
         if isinstance(mod, Dense):
-            yield name.replace(".", "/") + "/kernel", mod
+            yield path + "/kernel", _Leaf(mod)
+        elif isinstance(mod, MoELayer):
+            for w in ("w1", "w2"):
+                yield f"{path}/{w}", _Leaf(mod, w)
 
 
 @torch.no_grad()
 def quantize_params(model: nn.Module, cfg=None, *, mode: str = "int8",
                     skip: Optional[Iterable[str]] = None) -> nn.Module:
     """Quantize the decode-relevant projections of ``model`` in place
-    (one at a time: each unquantized kernel is released as its codes
-    are made) and return it.
+    (one at a time: each unquantized kernel, or expert weight, is
+    released as its codes are made) and return it.
 
     ``quantize_params(model)`` is the legacy form (``QUANTIZE=int8``):
     int8, the original target set, ``lm_head`` included.  The serving
@@ -128,13 +164,14 @@ def quantize_params(model: nn.Module, cfg=None, *, mode: str = "int8",
         raise ValueError(f"unknown weight quant mode {mode!r} (want one of "
                          f"{sorted(_MODES)})")
     skip_pats = tuple(skip) if skip is not None else ()
-    for path, dense in list(_dense_paths(model)):
-        if dense.mode != "none" or not _TARGETS.search(path):
+    for path, target in list(_leaf_paths(model)):
+        if target.mode != "none" or not _TARGETS.search(path):
             continue
         if any(re.search(pat, path) for pat in skip_pats):
             continue
-        leaf = quantize_leaf(dense.kernel, mode)
-        dense.set_quantized(leaf["q"], leaf["s"], mode)
+        leaf = quantize_leaf(target.weight(), mode)
+        target.set_quantized(leaf["q"], leaf["s"], mode)
+        del leaf
     return model
 
 
@@ -144,10 +181,10 @@ def weight_quant_mode(model: nn.Module) -> str:
     else "none" — read from the modules (not a threaded flag), so
     ``/statusz`` reports the model actually dispatched."""
     mode = "none"
-    for _, dense in _dense_paths(model):
-        if dense.mode == "int4":
+    for _, target in _leaf_paths(model):
+        if target.mode == "int4":
             return "int4"
-        if dense.mode == "int8":
+        if target.mode == "int8":
             mode = "int8"
     return mode
 

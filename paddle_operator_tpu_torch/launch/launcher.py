@@ -1,32 +1,245 @@
-"""In-pod env contract — own copy of the part of
-``paddle_operator_tpu/launch/launcher.py`` ``JobEnv.from_env`` that the
-serving entry point reads.  No distributed init: the serving slice runs
-one process on one card.  The rest of the contract (ranks, mesh,
-worker hosts, ``torch.distributed`` init) comes with the parallelism
-slice (ROADMAP.md Queue A).
+"""In-pod launcher — the port of ``paddle_operator_tpu/launch/launcher.py``:
+consume the env contract the operator injects (``controller/builders.py``
+of the JAX package: the rendezvous ConfigMap and the pod's own env) and
+bring up ``torch.distributed`` over it.
+
+    env (TPUJOB_*, MEGASCALE_*, TPU_WORKER_ID)
+      -> JobEnv.from_env()
+      -> initialize()            # torch.distributed over the coordinator
+
+Entry point inside a training pod's container::
+
+    python -m paddle_operator_tpu_torch.launch.launcher -- python train.py ...
+    # or, programmatically (in the child):
+    from paddle_operator_tpu_torch.launch import launcher
+    env = launcher.initialize()
+
+What differs from the JAX module:
+
+- :func:`initialize` is ``torch.distributed.init_process_group`` (the
+  coordinator address as a ``tcp://`` rendezvous, the worker count as
+  the world size, the global rank as the rank): backend ``nccl`` on the
+  card, ``gloo`` only when the caller asks for the CPU.  No card and no
+  CPU request raises; nothing falls back to gloo.
+- :func:`job_mesh` refuses by name: meshes wait for ROADMAP.md Queue A
+  item 8 (parallelism), as ``train/trainer.py`` refuses a ``mesh``.
+- A ``ps`` or ``heter`` pod with no command would run the JAX package's
+  parameter or batch-preparation server, which the port does not have
+  (ROADMAP.md Queue A item 9): :func:`main` names that item and exits
+  non-zero instead of exiting 0 with nothing served.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from dataclasses import dataclass
+import sys
+from dataclasses import dataclass, field
+from typing import List, Optional
 
-# the coordinator port of the JAX package's api/types.py — the default
-# TPUJOB_PORT the operator injects
-COORDINATOR_PORT = 8476
+from paddle_operator_tpu_torch.api.types import COORDINATOR_PORT, MeshSpec
+
+# main()'s exit code for a pod whose default program is not ported
+EXIT_UNPORTED = 2
+_PS_TODO = ("the {res} tier's default program (a {res} pod started with no "
+            "command) is not ported to the torch package (ROADMAP.md Queue A "
+            "item 9, 'PS / heter'); give the pod a command")
+_MESH_TODO = ("job meshes are not ported to the torch package (ROADMAP.md "
+              "Queue A item 8, 'Parallelism')")
 
 
 @dataclass
 class JobEnv:
-    """Parsed view of the env keys one serving pod reads."""
+    """Parsed view of the env contract one pod sees."""
 
+    job_name: str = ""
+    rank: int = 0                    # global rank, disjoint across roles
+    role_rank: int = 0               # index within this pod's role
+    res_type: str = "worker"         # worker | ps | heter
+    worker_id: int = 0               # slice-local id (TPU_WORKER_ID)
+    slice_id: int = 0                # MEGASCALE_SLICE_ID
+    num_workers: int = 1
+    workers_per_slice: int = 1
+    num_slices: int = 1
+    coordinator_address: str = ""
+    worker_hosts: List[str] = field(default_factory=list)
+    ps_endpoints: List[str] = field(default_factory=list)
+    heter_endpoints: List[str] = field(default_factory=list)
+    role: str = "TRAINER"
     port: int = COORDINATOR_PORT
+    mesh: MeshSpec = field(default_factory=MeshSpec)
+    topology: str = ""
+    accelerator: str = ""
     checkpoint_path: str = ""
+    max_restarts: int = 0
 
     @classmethod
     def from_env(cls, environ=None) -> "JobEnv":
         e = environ if environ is not None else os.environ
+        mesh_json = e.get("TPUJOB_MESH", "")
+        mesh = MeshSpec.from_dict(json.loads(mesh_json)) if mesh_json \
+            else MeshSpec()
+
+        def split(key: str) -> List[str]:
+            return [s for s in e.get(key, "").split(",") if s]
+
+        rank = int(e.get("TPUJOB_RANK", 0))
+        role = e.get("TPUJOB_ROLE", e.get("TRAINING_ROLE", "TRAINER"))
+        # env from a controller older than TPUJOB_RES_TYPE: a PSERVER
+        # role is the ps tier (else a ps pod would count as a worker and
+        # collide with a worker's rank); old heter pods say TRAINER and
+        # cannot be told from workers
+        res_type = e.get("TPUJOB_RES_TYPE") or (
+            "ps" if role == "PSERVER" else "worker")
         return cls(
+            job_name=e.get("TPUJOB_NAME", ""),
+            rank=rank,
+            role_rank=int(e.get("TPUJOB_ROLE_RANK", rank)),
+            res_type=res_type,
+            worker_id=int(e.get("TPU_WORKER_ID", 0)),
+            slice_id=int(e.get("MEGASCALE_SLICE_ID", 0)),
+            num_workers=int(e.get("TPUJOB_NUM_WORKERS", 1)),
+            workers_per_slice=int(e.get("TPUJOB_WORKERS_PER_SLICE", 1) or 1),
+            num_slices=int(e.get("TPUJOB_NUM_SLICES", 1) or 1),
+            coordinator_address=e.get("TPUJOB_COORDINATOR_ADDRESS", ""),
+            worker_hosts=split("TPUJOB_WORKER_HOSTS"),
+            ps_endpoints=split("TPUJOB_PS_ENDPOINTS"),
+            heter_endpoints=split("TPUJOB_HETER_ENDPOINTS"),
+            role=role,
             port=int(e.get("TPUJOB_PORT", COORDINATOR_PORT)),
+            mesh=mesh,
+            topology=e.get("TPUJOB_TOPOLOGY", ""),
+            accelerator=e.get("TPUJOB_ACCELERATOR", ""),
             checkpoint_path=e.get("TPUJOB_CHECKPOINT_PATH", ""),
+            max_restarts=int(e.get("TPUJOB_MAX_RESTARTS", 0)),
         )
+
+    @property
+    def is_xla_worker(self) -> bool:
+        """Whether this process joins the collective world: only
+        ``worker`` pods do (the ps and heter tiers serve workers over
+        their own endpoints).  Worker ranks are 0..num_workers-1 by
+        construction, so ``rank`` is the process group rank.  The name
+        is the JAX package's."""
+        return self.res_type == "worker"
+
+    def slice_local_hosts(self) -> List[str]:
+        """The hostnames of this pod's slice (``TPU_WORKER_HOSTNAMES``),
+        derived because the job-wide ConfigMap cannot carry per-slice
+        values."""
+        lo = self.slice_id * self.workers_per_slice
+        return self.worker_hosts[lo:lo + self.workers_per_slice]
+
+
+def _export_hosts(env: JobEnv) -> None:
+    """Set ``TPU_WORKER_HOSTNAMES`` to the slice's hosts, unconditionally:
+    the job contract outranks a default a base image may have set."""
+    hosts = env.slice_local_hosts()
+    if hosts:
+        os.environ["TPU_WORKER_HOSTNAMES"] = ",".join(hosts)
+
+
+def initialize(env: Optional[JobEnv] = None, *, force: bool = False,
+               device="cuda") -> JobEnv:
+    """``torch.distributed.init_process_group`` from the env contract.
+
+    A no-op for a pod outside the collective world (ps, heter), and for
+    a one-worker job unless ``force``.  ``device`` "cuda" (the default)
+    takes the ``nccl`` backend and needs a card; "cpu" takes ``gloo``
+    (the tests).  No card on a "cuda" request raises."""
+    env = env or JobEnv.from_env()
+    if not env.is_xla_worker and not force:
+        return env
+    if env.num_workers > 1 or force:
+        import torch
+        import torch.distributed as dist
+
+        kind = torch.device(device).type
+        if kind == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "initialize: no CUDA card for the nccl backend; pass "
+                    "device='cpu' to rendezvous over gloo")
+            backend = "nccl"
+        elif kind == "cpu":
+            backend = "gloo"
+        else:
+            raise ValueError(f"initialize: device {device!r} (expected "
+                             "'cuda' or 'cpu')")
+        dist.init_process_group(
+            backend, init_method="tcp://" + env.coordinator_address,
+            world_size=env.num_workers, rank=env.rank)
+        _export_hosts(env)
+    return env
+
+
+def job_mesh(env: Optional[JobEnv] = None):
+    """The JAX package builds the job-wide Mesh here; not ported."""
+    raise NotImplementedError(_MESH_TODO)
+
+
+def run_supervised(argv: List[str]) -> int:
+    """Drain-aware child supervision (``TPUJOB_DRAIN=1``): run the command
+    as a child, forward SIGTERM and SIGINT to it, and return its exit
+    code — so a trainer that drains with ``EXIT_PREEMPTED``
+    (ft/preemption.py) makes that the pod's exit code, which the
+    reconciler reads as preempted, not failed.  A child killed by a
+    signal N it did not handle gives 128+N (it never drained)."""
+    import signal
+    import subprocess
+
+    child = subprocess.Popen(argv)
+
+    def forward(signum, frame):
+        try:
+            child.send_signal(signum)
+        except (ProcessLookupError, OSError):
+            pass
+
+    prev = {}
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        prev[sig] = signal.signal(sig, forward)
+    try:
+        rc = child.wait()
+    finally:
+        for sig, h in prev.items():
+            signal.signal(sig, h)
+    return 128 - rc if rc < 0 else rc
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """``python -m paddle_operator_tpu_torch.launch.launcher -- cmd...``:
+    export the slice-local hosts and **exec** the command, replacing
+    this process (the child, not the shim, calls :func:`initialize`, so
+    one process per rank joins the group).  With ``TPUJOB_DRAIN`` 1,
+    true or yes the shim supervises the child instead
+    (:func:`run_supervised`): as a container's PID 1 an exec'd trainer
+    would ignore an unhandled SIGTERM.
+
+    No command: a worker pod prints its view of the contract as one
+    JSON line and exits 0; a ps or heter pod exits
+    :data:`EXIT_UNPORTED` naming ROADMAP.md Queue A item 9."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "--":
+        argv = argv[1:]
+    env = JobEnv.from_env()
+    _export_hosts(env)
+    if not argv:
+        if env.res_type in ("ps", "heter"):
+            print("launcher: " + _PS_TODO.format(res=env.res_type),
+                  file=sys.stderr)
+            return EXIT_UNPORTED
+        print(json.dumps({
+            "rank": env.rank, "num_workers": env.num_workers,
+            "coordinator": env.coordinator_address,
+            "mesh": env.mesh.to_dict(), "topology": env.topology,
+        }))
+        return 0
+    if os.environ.get("TPUJOB_DRAIN", "").lower() in ("1", "true", "yes"):
+        return run_supervised(argv)
+    sys.stdout.flush()
+    os.execvp(argv[0], argv)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -45,8 +45,12 @@ not fields here, so a caller that sets them gets a ``TypeError``
 (``cp_impl`` waits for ROADMAP.md Queue A item 8; layers are always
 separate modules).
 
-MoE configs (``n_experts > 0``) are not ported yet and raise
-``NotImplementedError`` (ROADMAP.md Queue A, "MoE").
+MoE configs (``n_experts > 0``): each layer's FFN is a
+:class:`models.moe.MoELayer` mounted as ``moe`` (no ``mlp``), and
+:meth:`Llama.forward` returns ``(logits, aux)``, the layers' summed
+load-balancing losses times ``moe_aux_weight`` — the pair the JAX
+model returns; every layer returns ``(x, aux)`` (aux None for a dense
+FFN), so the per-layer checkpoint carries the pair.
 """
 
 from __future__ import annotations
@@ -64,10 +68,6 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from paddle_operator_tpu_torch.ops.attention import attention
 from paddle_operator_tpu_torch.ops.quant_matmul import quant_mm
-
-_MOE_TODO = ("MoE configs (n_experts > 0) are not ported to the torch "
-             "package yet (ROADMAP.md Queue A, 'MoE')")
-
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
@@ -360,19 +360,39 @@ class MLP(nn.Module):
 
 
 class DecoderLayer(nn.Module):
+    """Attention and FFN halves, each behind an RMSNorm and a residual.
+    The FFN is SwiGLU (``mlp``) or, with ``n_experts > 0``, a
+    :class:`models.moe.MoELayer` (``moe``)."""
+
     def __init__(self, cfg: LlamaConfig, device=None) -> None:
         super().__init__()
-        if cfg.n_experts > 0:
-            raise NotImplementedError(_MOE_TODO)
         self.attn_norm = RMSNorm(cfg, cfg.dim, device)
         self.attn = Attention(cfg, device)
         self.mlp_norm = RMSNorm(cfg, cfg.dim, device)
-        self.mlp = MLP(cfg, device)
+        if cfg.n_experts > 0:
+            from paddle_operator_tpu_torch.models.moe import (MoEConfig,
+                                                              MoELayer)
+
+            self.moe = MoELayer(MoEConfig(
+                dim=cfg.dim, ffn_dim=cfg.ffn_dim, n_experts=cfg.n_experts,
+                capacity_factor=cfg.moe_capacity_factor,
+                top_k=cfg.moe_top_k, dtype=cfg.dtype,
+                param_dtype=cfg.param_dtype), device)
+        else:
+            self.mlp = MLP(cfg, device)
 
     def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                segment_ids: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """-> ``(y, aux)``: aux is the MoE layer's load-balancing loss,
+        None for a dense FFN."""
         h = x + self.attn(self.attn_norm(x), cos, sin, segment_ids)
-        return h + self.mlp(self.mlp_norm(h))
+        normed = self.mlp_norm(h)
+        if hasattr(self, "moe"):
+            ffn, aux = self.moe(normed)
+        else:
+            ffn, aux = self.mlp(normed), None
+        return h + ffn, aux
 
 
 class Llama(nn.Module):
@@ -383,8 +403,6 @@ class Llama(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, device=None) -> None:
         super().__init__()
-        if cfg.n_experts > 0:
-            raise NotImplementedError(_MOE_TODO)
         self.cfg = cfg
         self.tok_embed = Embed(cfg, device)
         self.layers = nn.ModuleList(DecoderLayer(cfg, device)
@@ -409,23 +427,33 @@ class Llama(nn.Module):
         return self
 
     def forward(self, tokens: torch.Tensor,
-                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                segment_ids: Optional[torch.Tensor] = None):
         """``segment_ids`` [B, S]: packed documents; attention is masked
-        across them, RoPE positions stay absolute."""
+        across them, RoPE positions stay absolute.  Returns the logits,
+        or for an MoE config ``(logits, aux)``: the layers' summed
+        load-balancing losses times ``moe_aux_weight``, which the
+        trainer adds to the task loss."""
         x = self.tok_embed(tokens)
         remat = self.cfg.remat and torch.is_grad_enabled()
         extra = {}
         context = _remat_context(self.cfg.remat_policy)
         if context is not None:
             extra["context_fn"] = context
+        aux_sum = None
         for layer in self.layers:
             if remat:
-                x = checkpoint(layer, x, self.rope_cos, self.rope_sin,
-                               segment_ids, use_reentrant=False, **extra)
+                x, aux = checkpoint(layer, x, self.rope_cos, self.rope_sin,
+                                    segment_ids, use_reentrant=False,
+                                    **extra)
             else:
-                x = layer(x, self.rope_cos, self.rope_sin, segment_ids)
+                x, aux = layer(x, self.rope_cos, self.rope_sin, segment_ids)
+            if aux is not None:
+                aux_sum = aux if aux_sum is None else aux_sum + aux
         x = self.final_norm(x)
-        return self.lm_head(x).float()
+        logits = self.lm_head(x).float()
+        if self.cfg.n_experts > 0:
+            return logits, aux_sum * self.cfg.moe_aux_weight
+        return logits
 
 
 def make_model(preset: str = "tiny", *, device="cuda", seed: int = 0,

@@ -58,8 +58,11 @@ def run(preset: str, layers: int, batch: int, seq: int, steps: int,
         for p in model.parameters():
             p.grad = None
         tokens = b["tokens"]
-        loss, _ = T.cross_entropy_loss(model(tokens[:, :-1]), tokens[:, 1:])
-        loss.backward()
+        out = model(tokens[:, :-1])
+        # an MoE model's (logits, aux): the step's optimized total
+        logits, aux = out if isinstance(out, tuple) else (out, 0.0)
+        loss, _ = T.cross_entropy_loss(logits, tokens[:, 1:])
+        (loss + aux).backward()
 
     for _ in range(2):
         unit()

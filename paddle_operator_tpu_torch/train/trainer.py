@@ -547,12 +547,20 @@ def make_train_step(optimizer: AdamW) -> Callable:
     "segment_ids" [B, S] for packed sequences — attention then masks
     cross-document positions).  Computes the next-token loss on
     tokens[:, 1:] and updates the state in place.  Metrics: ``loss``,
-    ``tokens`` (the loss denominator) and ``grad_norm``."""
+    ``tokens`` (the loss denominator) and ``grad_norm``; for an MoE
+    model (its forward returns ``(logits, aux)``, aux already scaled by
+    ``moe_aux_weight``) also ``aux_loss``, which joins the optimized
+    total while ``loss`` stays the task loss."""
 
     def forward_loss(m: nn.Module, inputs, targets, mask, segment_ids=None):
-        logits = m(inputs, segment_ids)
+        out = m(inputs, segment_ids)
+        logits, aux = out if isinstance(out, tuple) else (out, None)
         loss, denom = cross_entropy_loss(logits, targets, mask)
-        return loss, {"loss": loss, "tokens": denom}
+        metrics = {"loss": loss, "tokens": denom}
+        if aux is None:
+            return loss, metrics
+        metrics["aux_loss"] = aux
+        return loss + aux, metrics
 
     return _causal_lm_train_step(forward_loss, optimizer)
 
@@ -561,13 +569,16 @@ def make_eval_step() -> Callable:
     """``eval_fn(model, batch) -> {"loss": ...}``: the next-token loss
     without gradients.  An optional ``mask`` [B, S] is sliced to the
     targets as in the train step (the JAX eval step expects it already
-    [B, S - 1])."""
+    [B, S - 1]).  An MoE model's logits come out of its ``(logits,
+    aux)`` pair."""
 
     @torch.no_grad()
     def eval_fn(m: nn.Module, batch: Dict[str, torch.Tensor]):
         tokens = batch["tokens"]
         mask = batch.get("mask")
-        loss, _ = cross_entropy_loss(m(tokens[:, :-1]), tokens[:, 1:],
+        out = m(tokens[:, :-1])
+        logits = out[0] if isinstance(out, tuple) else out
+        loss, _ = cross_entropy_loss(logits, tokens[:, 1:],
                                      None if mask is None else mask[:, 1:])
         return {"loss": loss}
 

@@ -156,8 +156,17 @@ class TestForward:
                            again.state_dict()["lm_head.kernel"])
 
     def test_moe_refused(self):
-        with pytest.raises(NotImplementedError, match="MoE"):
-            TL.make_model("tiny-moe", device="cpu")
+        """MoE presets are ported: no preset is refused any more, and an
+        MoE layer holds ``moe`` (router, w1, w2) where a dense one holds
+        ``mlp``."""
+        for preset in ("tiny-moe", "tiny-moe2"):
+            model, cfg = TL.make_model(preset, device="cpu")
+            names = set(model.state_dict())
+            assert "layers.0.moe.router.kernel" in names
+            assert "layers.0.moe.w1" in names and "layers.0.moe.w2" in names
+            assert not any(".mlp." in n for n in names)
+            assert sum(p.numel() for p in model.parameters()) == \
+                cfg.num_params()
 
 
 class TestConfig:

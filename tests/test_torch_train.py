@@ -397,8 +397,17 @@ class TestUnportedKnobs:
         assert hasattr(JT, name) and not hasattr(TT, name)
 
     def test_moe_is_refused(self):
-        with pytest.raises(NotImplementedError, match="MoE"):
-            TL.make_model("tiny-moe", device="cpu")
+        """No longer refused: an MoE model's train step reports its
+        aux loss beside the task loss (tests/test_torch_moe.py holds the
+        trajectory against the JAX package's)."""
+        model, cfg = TL.make_model("tiny-moe", device="cpu",
+                                   dtype=torch.float32)
+        opt = TT.make_optimizer(1e-3, warmup_steps=1, decay_steps=100)
+        state = TT.create_state(model, opt)
+        batch = TT.synthetic_batch(2, 9, cfg.vocab_size, device="cpu")
+        _, metrics = TT.make_train_step(opt)(state, batch)
+        assert set(metrics) == {"loss", "tokens", "grad_norm", "aux_loss"}
+        assert float(metrics["aux_loss"]) > 0
 
 
 class TestCopiedHelpers:
