@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases 2,2b,2c,2d,2e,2f,3,3b,3c,3d,3e,3f,3g,3h,
                            3i,3j,3k,3l,3m,3n,3o,3p,4,4b,4c,4d,4e,4f,4g,4h,
-                           4i,4j,4k,4l,4m,4n,3q,3r,4o]
+                           4i,4j,4k,4l,4m,4n,3q,3r,4o,3s]
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line; with no arguments every phase runs):
@@ -181,7 +181,7 @@ result line; with no arguments every phase runs):
    chunk_tokens x 4 x dispatches; ``/statusz`` reports ``megastepN`` 4
    and a ``dispatchesPerToken`` below 3b's.  New tok/s, TTFT p50/p95
    and wall ms per token are printed beside 3b's.
-3f. checkpoint main path — 7b at full width cut to 2 layers (f32
+3f. checkpoint main path — 7b at full width cut to 1 layer (f32
    params, bf16 compute, full remat), B 4 x 2049 tokens from
    ``deterministic_lm_batches(seed=0)``, lr 1e-3, checkpoints under a
    ``tempfile.mkdtemp()`` removed at the end (its free space printed
@@ -209,7 +209,9 @@ result line; with no arguments every phase runs):
    The bytes of a checkpoint, how long ``save`` held the loop (the
    snapshot), the background write (s, GB/s) and the two restores are
    printed beside the card's name and power limit.
-3g. preemption main path — 3b's server (``SERVE_PRIORITIES=2``,
+3g. preemption main path — 3b's server at full width, depth cut to
+   the 7b params' first ``CUT_LAYERS`` (8, for the script's time
+   limit) (``SERVE_PRIORITIES=2``,
    preemption at its default, on) on the bf16 pool and on the int8
    pool, each also with ``SERVE_PREEMPT=0`` on the same requests: 8
    class-1 requests (cold 512-token prompts, 192 new tokens, streamed)
@@ -232,7 +234,7 @@ result line; with no arguments every phase runs):
    scatter); the launch and replay counts.
 3h. host tier and durable store main path — 3b's server (bf16 and
    int8 pools, every dispatch a graph replay) at full width, depth cut
-   to the 7b params' first 8 layers (``TIER_LAYERS``; the tiers'
+   to the 7b params' first 4 layers (``TIER_LAYERS``; the tiers'
    megabytes scaled with it, so each holds the blocks it held at 32).
    Round 1: 24 distinct 1,024-token prefixes (4 blocks each: 96 blocks
    against the 64-block pool), each with its own 16-token suffix and 32
@@ -440,7 +442,8 @@ result line; with no arguments every phase runs):
    GB/s (the body's read alone), and the pod's exit code 83 after
    SIGTERM; (d) the handoff copy of a 1,536-token prompt alone (6
    blocks), device ms against its byte bound.
-3p. fleet-level KV — 7b at full width and depth, bf16 weights: two port
+3p. fleet-level KV — 7b at full width, depth cut to the first
+   ``CUT_LAYERS`` (8), bf16 weights: two port
    replicas in one process over one params tree, each 3b's ring with a
    64-block pool and a host tier (16 blocks on A, 2 on B), served on
    loopback and wired by ``wire_fleet_kv_from_env`` from the env a pod
@@ -663,6 +666,36 @@ result line; with no arguments every phase runs):
    three train steps with attention through the flash kernels and
    through ``reference_attention`` from the same init agree in loss
    (rtol 1e-5) and grad_norm (rtol 1e-4).
+3s. the operator's training pod of a mesh job — ``python -m
+   paddle_operator_tpu_torch.launch.launcher -- python <child>`` with the
+   env the JAX package's ``controller/builders.py`` gives the one worker
+   of a one-worker TPUJob whose ConfigMap carries ``TPUJOB_MESH`` of
+   size 1 (``MESH_POD_ENV``).  The child (``MESH_TRAIN_CHILD``) runs the
+   mesh path a multi-worker job runs: ``initialize()`` -> ``job_mesh``
+   (a world-1 nccl group, every axis 1) -> ``state_shardings`` /
+   ``create_state(mesh=...)`` -> ``make_step_for_mesh`` -> ``fit`` over
+   ``DevicePrefetcher(mesh=...)``, on 7b at full width cut to
+   ``MESH_TRAIN["layers"]`` layers (f32 master, bf16 compute, full
+   remat), B=4 x 2,049 tokens; first the same 3 steps without a mesh
+   (phase 3c's step) from the same seed on the same batches.  Gates: the
+   mesh step's losses and grad norms (rtol 1e-5) and parameters (atol
+   1e-5) equal the step without a mesh — the phase prints whether they
+   are bit-equal or the largest differences; kernels #4-#6 launched
+   2 x layers / layers / layers a step on both runs.  Read: step ms,
+   tokens/s, MFU, peak memory over 6 more mesh steps.  (b): two
+   processes on the one card try gloo's all-reduce, all-gather and
+   reduce-scatter on CUDA tensors (NCCL cannot put two ranks on one
+   device); the ones it refuses are printed, and then no two-rank run
+   follows.  Where it carries them all, two ranks on the one card train
+   ``MESH_PAIR`` (the 1b preset's width, 2 layers, f32, B=4 x 513) on an
+   fsdp=2 mesh and then a tp=2 mesh (8 of 16 heads a rank through
+   kernels #4-#6), 3 steps, held to the same model's run without a
+   mesh in this process: losses (rtol 1e-5), grad norms (rtol 1e-4),
+   the ranks' metrics equal, and of the gathered parameters at most one
+   in 10,000 off by more than 1e-5 and none by more than 2 lr a step
+   (Adam's step is about lr whatever a gradient's size, so an element
+   whose gradient sits at the f32 noise of the two summation orders can
+   step either way; a wrong shard would move whole blocks).
 5. report — a ``kernels`` JSON line, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -721,15 +754,16 @@ FLASH_BF16_REL = 1e-2
 QUANT_BF16_REL = 1e-2
 # phase 3c: 7b width cut to 8 layers, B x (S + 1) tokens, bf16 compute
 TRAIN = dict(layers=8, batch=4, seq=2048, steps=12, lr=1e-3)
-# phase 3f: 7b width cut to 2 layers (f32 master, bf16 compute), B x
-# (S + 1) tokens; U saves every `interval` steps, R is preempted while
-# the step consuming batch `drain_at` is in flight.  The continued run
-# must equal U bit for bit (losses and final params): two unbroken runs
-# of the phase read bit-identical with PyTorch's default algorithms (max
-# |loss difference| 0.0 on an H100 80GB HBM3 at 700 W; the embedding
-# backward sorts its indices, and cuBLAS on one stream and the flash
-# kernels rerun bit for bit)
-CKPT = dict(layers=2, batch=4, seq=2048, steps=6, interval=3, drain_at=2,
+# phase 3f: 7b width cut to 1 layer (f32 master, bf16 compute; 2 layers
+# took 78 s of a 1,266 s run on an H100 80GB HBM3 at 700 W), B x (S + 1)
+# tokens; U saves every `interval` steps, R is preempted while the step
+# consuming batch `drain_at` is in flight.  The continued run must equal
+# U bit for bit (losses and final params): two unbroken runs of the
+# phase read bit-identical with PyTorch's default algorithms (max |loss
+# difference| 0.0 on an H100 80GB HBM3 at 700 W; the embedding backward
+# sorts its indices, and cuBLAS on one stream and the flash kernels
+# rerun bit for bit)
+CKPT = dict(layers=1, batch=4, seq=2048, steps=6, interval=3, drain_at=2,
             lr=1e-3, new_tokens=32)
 # phase 3f: what the serving restore may add to the allocated device
 # memory beyond the bf16 parameter bytes — the f32 RoPE tables (1 MiB)
@@ -744,7 +778,7 @@ SPEC_DRAFT_ATTN = dict(b=8, hq=16, hkv=16, d=128, s=2048, layers=8)
 PHASES = ("2", "2b", "2c", "2d", "2e", "2f", "3", "3b", "3c", "3d", "3e",
           "3f", "3g", "3h", "3i", "3j", "3k", "3l", "3m", "3n", "4", "4b",
           "4c", "4d", "4e", "4f", "4g", "4h", "4i", "4j", "4k", "4l", "3o",
-          "4m", "3p", "4n", "3q", "3r", "4o")
+          "4m", "3p", "4n", "3q", "3r", "4o", "3s")
 # phase 3q: 7b-moe at full width cut to 1 layer (each layer adds 0.79B
 # params, ~9.5 GB of f32 params and moments to a save); B x (S + 1)
 # tokens; SIGTERM to the shim once step `drain_after` is logged; the
@@ -765,6 +799,24 @@ MOE_POD_ENV = {
     "TPUJOB_RES_TYPE": "worker", "TPU_WORKER_ID": "0",
     "TPUJOB_ROLE": "TRAINER", "TRAINING_ROLE": "TRAINER",
 }
+# phase 3s: 7b at full width cut to `layers`, B x (S + 1) tokens; the
+# mesh run and the run without a mesh take `steps` steps from the same
+# init on the same batches, then the mesh state takes `timed_steps` more
+MESH_TRAIN = dict(layers=4, batch=4, seq=2048, steps=3, timed_steps=6,
+                  lr=1e-3)
+# phase 3s (b): the 1b preset's width (dim 2048, 16 heads of 128, ffn
+# 5504, vocab 32000) cut to 2 layers, f32, B x (S + 1) tokens, on two
+# ranks sharing the one card
+MESH_PAIR = dict(preset="1b", layers=2, batch=4, seq=512, steps=3, lr=1e-3)
+# the env controller/builders.py gives the one worker of a one-worker
+# TPUJob named mesh-train with a 1x1 TPU slice (so the ConfigMap carries
+# TPUJOB_MESH, the mesh of size 1); tests/test_torch_mesh.py holds it
+# equal to what controller/builders.py makes
+MESH_POD_ENV = dict(
+    MOE_POD_ENV, TPUJOB_NAME="mesh-train",
+    TPUJOB_ACCELERATOR="tpu-v5-lite-podslice", TPUJOB_TOPOLOGY="1x1",
+    TPUJOB_NUM_SLICES="1", TPUJOB_WORKERS_PER_SLICE="1",
+    TPUJOB_MESH='{"dp": 1}')
 
 
 def log(*a) -> None:
@@ -3242,10 +3294,16 @@ TIER = dict(prefixes=24, prefix=1024, suffix=16, new=32, host_mb=4096,
             ref_blocks=112)
 TIER_RUNS = ("hit_ref", "cold_ref", "off", "on", "store_a", "store_b")
 # 3h runs on the first TIER_LAYERS of the 7b params (the script's time
-# limit: 3h took 163 s of 1,100 at 32 layers, 85.7 s at 16, and the MoE
-# phases 3q, 3r and 4o add about 135 s), its tiers' megabytes scaled
-# with the depth, so each tier holds the blocks it held at 32
-TIER_LAYERS = 8
+# limit: on an H100 80GB HBM3 at 700 W 3h took 163 s of 1,100 at 32
+# layers, 85.7 s at 16, 45.7 s at 8; the MoE phases 3q, 3r and 4o add
+# about 135 s, the mesh phase 3s about 110 s), its tiers' megabytes
+# scaled with the depth, so each tier holds the blocks it held at 32
+TIER_LAYERS = 4
+# 3g and 3p run on the first CUT_LAYERS of the 7b params (the script's
+# time limit: on an H100 80GB HBM3 at 700 W they took 36.6 s
+# and 53.6 s at 32 layers in a whole run of 1,266 s); their lanes,
+# blocks and tiers are counts, not bytes, so nothing else scales
+CUT_LAYERS = 8
 
 
 def _depth_cut(params, cfg, n_layers: int) -> tuple:
@@ -9851,6 +9909,437 @@ def phase_moe_equalities() -> None:
         torch.cuda.empty_cache()
 
 
+# phase 3s's child: the user's training program in a pod of a one-worker
+# mesh job, started by the launcher (``python -m
+# paddle_operator_tpu_torch.launch.launcher -- python <this file>
+# <json>``).  It prints one JSON line an event.
+MESH_TRAIN_CHILD = r'''
+import itertools
+import json
+import sys
+import time
+
+import torch
+import torch.distributed as dist
+
+from paddle_operator_tpu_torch.launch import launcher
+from paddle_operator_tpu_torch.models.llama import make_model
+from paddle_operator_tpu_torch.ops import flash_attention as FA
+from paddle_operator_tpu_torch.parallel.sharding import to_local
+from paddle_operator_tpu_torch.train import trainer as T
+from paddle_operator_tpu_torch.train.data import (DevicePrefetcher,
+                                                  deterministic_lm_batches)
+from paddle_operator_tpu_torch.utils.observability import StepTimer
+
+FLASH = (FA.flash_forward, FA.flash_backward_dkv, FA.flash_backward_dq)
+
+
+def emit(**kw):
+    print(json.dumps(kw), flush=True)
+
+
+def synced():
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def zero():
+    for fn in FLASH:
+        fn.launches = 0
+
+
+def counts():
+    return [fn.launches for fn in FLASH]
+
+
+def main():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    a = json.loads(sys.argv[1])
+    t0 = time.perf_counter()
+    env = launcher.initialize()            # one worker: no group here
+    mesh = launcher.job_mesh(env)          # a world-1 nccl group
+    emit(event="mesh", names=list(mesh.mesh_dim_names),
+         shape=list(mesh.mesh.shape), backend=dist.get_backend(),
+         world=dist.get_world_size(), ready_s=time.perf_counter() - t0)
+    b, s, steps = a["batch"], a["seq"], a["steps"]
+    host = list(itertools.islice(deterministic_lm_batches(
+        b, s + 1, 32000, seed=0), steps + a["timed_steps"]))
+    opt = T.make_optimizer(a["lr"], warmup_steps=1, decay_steps=1000)
+
+    # phase 3c's step without a mesh, from the same init on the same data
+    model, cfg = make_model("7b", device="cuda", seed=0,
+                            n_layers=a["layers"])
+    state = T.create_state(model, opt)
+    zero()
+    state, plain = T.fit(state, T.make_train_step(opt), DevicePrefetcher(
+        iter(host[:steps]), device="cuda"), steps=steps)
+    plain_launches = counts()
+    want = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    del state, model
+    torch.cuda.empty_cache()
+
+    # the mesh job's main path: state_shardings / create_state on the
+    # job mesh, make_step_for_mesh, fit over DevicePrefetcher(mesh=...)
+    model, cfg = make_model("7b", device="cuda", seed=0,
+                            n_layers=a["layers"])
+    plan = T.state_shardings(model, opt, mesh)
+    state = T.create_state(model, opt, mesh=mesh)
+    step = T.make_step_for_mesh(opt, mesh)
+    replicated = all(p.is_replicate() for pl in plan.params.values()
+                     for p in pl)
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    state, got = T.fit(state, step, DevicePrefetcher(iter(host[:steps]),
+                                                     mesh=mesh), steps=steps)
+    launches = counts()
+    bit_equal = all(torch.equal(to_local(p).detach(), want[n])
+                    for n, p in state.model.named_parameters())
+    param_diff = max(float((to_local(p).detach().float()
+                            - want[n].float()).abs().max())
+                     for n, p in state.model.named_parameters())
+    del want
+    torch.cuda.empty_cache()
+    timer = StepTimer(b * s, cfg.flops_per_token(), a["peak"],
+                      window=a["timed_steps"], clock=synced)
+    zero()
+    state, timed = T.fit(state, step, DevicePrefetcher(
+        iter(host[steps:]), mesh=mesh), steps=a["timed_steps"], timer=timer)
+    emit(event="done", plain=plain, mesh=got, bit_equal=bit_equal,
+         max_param_diff=param_diff, replicated=replicated,
+         launches=launches, plain_launches=plain_launches,
+         timed_launches=counts(), timed=timed,
+         step_ms=[t * 1e3 for t in timer.times],
+         flops_per_token=cfg.flops_per_token(), params=cfg.num_params(),
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
+'''
+
+# phase 3s (b): one rank of the two-rank meshes on the one card over
+# gloo.  It first tries each collective the mesh step uses on CUDA
+# tensors and prints the answers (if gloo refuses one it stops there);
+# then it trains on each mesh of ``axes`` in turn, and rank 0 holds the
+# gathered parameters to the reference run's (``ref``), one JSON line a
+# mesh.
+MESH_PAIR_CHILD = r'''
+import faulthandler
+import itertools
+import json
+import sys
+
+import torch
+import torch.distributed as dist
+
+from paddle_operator_tpu_torch.api.types import MeshSpec
+from paddle_operator_tpu_torch.models.llama import make_model
+from paddle_operator_tpu_torch.ops import flash_attention as FA
+from paddle_operator_tpu_torch.parallel.collectives import full_tensor
+from paddle_operator_tpu_torch.parallel.mesh import make_mesh
+from paddle_operator_tpu_torch.parallel.sharding import shard_batch
+from paddle_operator_tpu_torch.train import trainer as T
+from paddle_operator_tpu_torch.train.data import deterministic_lm_batches
+
+faulthandler.enable()
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+a, rank = json.loads(sys.argv[1]), int(sys.argv[2])
+torch.cuda.set_device(0)
+
+
+def stage(what):
+    print(f"rank {rank}: {what}", file=sys.stderr, flush=True)
+
+
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{a['port']}",
+                        world_size=2, rank=rank)
+x = torch.full((4,), float(rank + 1), device="cuda")
+probes = {
+    "all_reduce": lambda: dist.all_reduce(x.clone()),
+    "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+        torch.empty(8, device="cuda"), x),
+    "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+        torch.empty(2, device="cuda"), x),
+}
+probe = {}
+for name, fn in probes.items():
+    try:
+        fn()
+        torch.cuda.synchronize()
+        probe[name] = "ok"
+    except Exception as err:
+        probe[name] = f"{type(err).__name__}: {str(err)[:200]}"
+print(json.dumps({"probe": probe}), flush=True)
+if set(probe.values()) != {"ok"}:
+    raise SystemExit(0)
+ref = (torch.load(a["ref"], weights_only=True, map_location="cuda")
+       if rank == 0 else None)
+flash = (FA.flash_forward, FA.flash_backward_dkv, FA.flash_backward_dq)
+for axes in a["axes"]:
+    mesh = make_mesh(MeshSpec(**axes), device="cuda")
+    model, cfg = make_model(a["preset"], device="cuda", seed=0,
+                            n_layers=a["layers"], dtype=torch.float32)
+    opt = T.make_optimizer(a["lr"], warmup_steps=1, decay_steps=1000)
+    state = T.create_state(model, opt, mesh=mesh)
+    step = T.make_step_for_mesh(opt, mesh)
+    stage(f"{axes}: state")
+    for fn in flash:
+        fn.launches = 0
+    metrics = []
+    for b in itertools.islice(deterministic_lm_batches(
+            a["batch"], a["seq"] + 1, cfg.vocab_size, seed=1), a["steps"]):
+        state, m = step(state, shard_batch(b, mesh, "cuda"))
+        metrics.append({k: float(v) for k, v in m.items()})
+        stage(f"{axes}: step {len(metrics)}")
+    out = {"axes": axes, "rank": rank, "metrics": metrics,
+           "launches": [fn.launches for fn in flash],
+           "local_heads": cfg.n_heads // dict(zip(
+               mesh.mesh_dim_names, mesh.mesh.shape))["tp"]}
+    diff, off, total = 0.0, 0, 0
+    for n, p in state.model.named_parameters():
+        full = full_tensor(p)
+        if rank == 0:
+            d = (full - ref[n]).abs()
+            diff = max(diff, float(d.max()))
+            off += int((d > 1e-5).sum())
+            total += d.numel()
+    if rank == 0:
+        out.update(max_param_diff=diff, params_off=off, params_total=total)
+    print(json.dumps(out), flush=True)
+    del state, model, step, opt
+    torch.cuda.empty_cache()
+dist.destroy_process_group()
+'''
+
+
+def _mesh_pair_runs() -> tuple:
+    """Phase 3s (b): fsdp=2, then tp=2, on two processes sharing the one
+    card over gloo (``MESH_PAIR`` width and depth, f32), held to the same
+    model's run without a mesh in this process on the same batches.
+    Returns (gloo's answer to each collective on CUDA tensors, the runs;
+    None when gloo refused one and nothing ran)."""
+    import itertools
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.models.llama import make_model
+    from paddle_operator_tpu_torch.train import trainer as T
+    from paddle_operator_tpu_torch.train.data import deterministic_lm_batches
+
+    a = dict(MESH_PAIR)
+    model, cfg = make_model(a["preset"], device="cuda", seed=0,
+                            n_layers=a["layers"], dtype=torch.float32)
+    opt = T.make_optimizer(a["lr"], warmup_steps=1, decay_steps=1000)
+    state, step = T.create_state(model, opt), T.make_train_step(opt)
+    want = []
+    for b in itertools.islice(deterministic_lm_batches(
+            a["batch"], a["seq"] + 1, cfg.vocab_size, seed=1), a["steps"]):
+        state, m = step(state, {"tokens": torch.as_tensor(b["tokens"],
+                                                          device="cuda")})
+        want.append({k: float(v) for k, v in m.items()})
+    root = tempfile.mkdtemp(prefix="chip_smoke_pair_")
+    args = dict(a, axes=[{"fsdp": 2}, {"tp": 2}], port=_free_port(),
+                ref=os.path.join(root, "ref.pt"))
+    torch.save({n: p.detach().cpu()
+                for n, p in state.model.named_parameters()}, args["ref"])
+    del state, model
+    torch.cuda.empty_cache()
+    script = os.path.join(root, "pair.py")
+    Path(script).write_text(MESH_PAIR_CHILD)
+    env = dict(os.environ,
+               PYTHONPATH=str(ROOT) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, script, json.dumps(args), str(r)],
+        env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=400)
+            if p.returncode != 0:
+                raise AssertionError(f"3s (b): a rank exited "
+                                     f"{p.returncode}: {err[-3000:]}")
+            outs.append([json.loads(ln) for ln in out.splitlines()
+                         if ln.startswith("{")])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    # the ranks' answers (they agree unless one rank failed)
+    probe = {k: next((o[0]["probe"][k] for o in outs
+                      if o[0]["probe"][k] != "ok"), "ok")
+             for k in outs[0][0]["probe"]}
+    refused = sorted(k for k, v in probe.items() if v != "ok")
+    log(f"mesh train pod (b): gloo on CUDA tensors, two processes on the "
+        f"one card: {probe}; "
+        + ("every collective carried: (b) runs" if not refused
+           else f"(b) left out: gloo refused {', '.join(refused)}"))
+    if refused:
+        return probe, None
+    runs = {}
+    for mesh_out in zip(*(o[1:] for o in outs)):
+        first = mesh_out[0]
+        tag = "x".join(f"{k}{v}" for k, v in first["axes"].items())
+        metrics = first["metrics"]
+        same = all(o["metrics"] == metrics for o in mesh_out)
+        diff, off = first["max_param_diff"], first["params_off"]
+        total = first["params_total"]
+        pairs = [(m["loss"], w["loss"], m["grad_norm"], w["grad_norm"])
+                 for m, w in zip(metrics, want)]
+        log(f"mesh train pod (b) {tag}: two ranks on the one card over "
+            f"gloo, {cfg.n_heads} heads ({first['local_heads']} a rank), "
+            f"(loss, want, grad_norm, want) {pairs}; the ranks' metrics "
+            f"equal: {same}; largest |param difference| {diff:.3e}, {off} "
+            f"of {total} parameters off by more than 1e-5; flash launches "
+            f"a rank {[o['launches'] for o in mesh_out]}")
+        # Adam moves an element by about lr a step whatever its
+        # gradient's size: an element whose gradient is at the f32 noise
+        # of the two summation orders can step either way, so a few
+        # elements may differ by up to 2 lr a step; a wrong shard would
+        # move whole blocks
+        ok = (same and len(metrics) == len(want) and off <= 1e-4 * total
+              and diff <= 2 * a["lr"] * a["steps"]
+              and all(np.isclose(m["loss"], w["loss"], rtol=1e-5, atol=0)
+                      and np.isclose(m["grad_norm"], w["grad_norm"],
+                                     rtol=1e-4, atol=0)
+                      for m, w in zip(metrics, want)))
+        if not ok:
+            raise AssertionError(f"3s (b) {tag}: the two-rank mesh run "
+                                 "differs from the run without a mesh")
+        runs[tag] = {"losses": [m["loss"] for m in metrics],
+                     "grad_norms": [m["grad_norm"] for m in metrics],
+                     "want_losses": [w["loss"] for w in want],
+                     "max_param_diff": diff, "params_off": off,
+                     "params_total": total,
+                     "launches": [o["launches"] for o in mesh_out]}
+    runs["wall_s"] = wall
+    log(f"mesh train pod (b): both meshes in {wall:.1f}s")
+    return probe, runs
+
+
+def phase_mesh_train_pod(reports: dict) -> None:
+    """Phase 3s: the operator's training pod of a one-worker mesh job;
+    see the module docstring."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.parallel.mesh import AXIS_ORDER
+
+    card = card_line()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    child = os.path.join(root, "train_mesh.py")
+    Path(child).write_text(MESH_TRAIN_CHILD)
+    args = dict(MESH_TRAIN, peak=PEAK_BF16)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TPU_", "TPUJOB_", "MEGASCALE_"))}
+    env.update(MESH_POD_ENV,
+               PYTHONPATH=str(ROOT) + os.pathsep + env.get("PYTHONPATH", ""))
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "paddle_operator_tpu_torch.launch.launcher",
+             "--", sys.executable, child, json.dumps(args)],
+            env=env, cwd=str(ROOT), capture_output=True, text=True,
+            timeout=600)
+        launch_s = time.perf_counter() - t0
+        events = [json.loads(ln) for ln in proc.stdout.splitlines()
+                  if ln.startswith("{")]
+        if proc.returncode != 0 or not events \
+                or events[-1].get("event") != "done":
+            raise AssertionError(f"3s: the pod exited {proc.returncode}; "
+                                 f"events {str(events)[-1500:]}; log "
+                                 f"{proc.stderr[-3000:]}")
+        mesh_ev = next(e for e in events if e["event"] == "mesh")
+        done = events[-1]
+        layers, steps = MESH_TRAIN["layers"], MESH_TRAIN["steps"]
+        axes = dict(zip(mesh_ev["names"], mesh_ev["shape"]))
+        log(f"mesh train pod: job_mesh {axes} over {mesh_ev['backend']} "
+            f"(world {mesh_ev['world']}, ready "
+            f"{mesh_ev['ready_s']:.1f}s); 7b width, {layers} layers "
+            f"({done['params'] / 1e9:.3f}B params), B={MESH_TRAIN['batch']} "
+            f"S={MESH_TRAIN['seq']}; pod exit 0 in {launch_s:.1f}s; {card}")
+        if mesh_ev["names"] != list(AXIS_ORDER) or set(mesh_ev["shape"]) \
+                != {1} or mesh_ev["backend"] != "nccl" \
+                or mesh_ev["world"] != 1 or not done["replicated"]:
+            raise AssertionError(f"3s: the job mesh is not the one-card "
+                                 f"nccl mesh of AXIS_ORDER: {mesh_ev}")
+        plain = [(m["loss"], m["grad_norm"]) for m in done["plain"]]
+        got = [(m["loss"], m["grad_norm"]) for m in done["mesh"]]
+        loss_diff = max(abs(a - b) for a, b in zip(
+            np.ravel(plain), np.ravel(got)))
+        log(f"mesh train pod: {steps} steps, mesh (loss, grad_norm) {got}, "
+            f"without a mesh {plain}; "
+            + ("bit-equal (losses, grad norms and every parameter)"
+               if done["bit_equal"] and plain == got else
+               f"NOT bit-equal: largest |loss or grad norm difference| "
+               f"{loss_diff:.3e}, largest |param difference| "
+               f"{done['max_param_diff']:.3e}"))
+        if len(got) != steps or not np.allclose(got, plain, rtol=1e-5,
+                                                 atol=0) \
+                or done["max_param_diff"] > 1e-5:
+            raise AssertionError("3s: the mesh step differs from the step "
+                                 "without a mesh")
+        want = [2 * layers * steps, layers * steps, layers * steps]
+        timed = MESH_TRAIN["timed_steps"]
+        want_timed = [2 * layers * timed, layers * timed, layers * timed]
+        log(f"mesh train pod: flash launches (#4/#5/#6) {done['launches']} "
+            f"over the mesh run's {steps} steps (want {want}), "
+            f"{done['timed_launches']} over the {timed} timed steps, "
+            f"{done['plain_launches']} without a mesh")
+        if done["launches"] != want or done["plain_launches"] != want \
+                or done["timed_launches"] != want_timed:
+            raise AssertionError("3s: flash launches do not match the "
+                                 "formulas")
+        times = done["step_ms"]                 # steps 2..N of the timed fit
+        step_ms = float(np.median(times))
+        b, s = MESH_TRAIN["batch"], MESH_TRAIN["seq"]
+        tok_s = b * s / (step_ms / 1e3)
+        mfu = tok_s * done["flops_per_token"] / PEAK_BF16
+        timed_losses = [m["loss"] for m in done["timed"]]
+        if not np.isfinite(timed_losses).all():
+            raise AssertionError(f"3s: a timed loss is not finite: "
+                                 f"{timed_losses}")
+        probe, pair = _mesh_pair_runs()
+        run = {"layers": layers, "batch": b, "seq": s, "steps": steps,
+               "params": done["params"], "bit_equal": done["bit_equal"],
+               "max_param_diff": done["max_param_diff"],
+               "max_metric_diff": loss_diff,
+               "losses": [m["loss"] for m in done["mesh"]],
+               "timed_losses": timed_losses,
+               "step_ms": times, "step_ms_median": step_ms,
+               "tokens_per_s": tok_s, "mfu": mfu,
+               "peak_gb": done["peak_gb"], "launches": done["launches"],
+               "timed_launches": done["timed_launches"],
+               "launch_s": launch_s, "gloo_cuda": probe, "pair": pair}
+        log("mesh train pod: " + json.dumps(run))
+        log(f"mesh train pod (one run, not a benchmark): step "
+            f"{step_ms:.1f} ms (median of {len(times)} intervals), "
+            f"{tok_s:.0f} tokens/s, MFU {mfu:.3f} against "
+            f"{PEAK_BF16 / 1e12:.0f} TFLOP/s bf16, peak "
+            f"{done['peak_gb']:.2f} GB; {card}")
+        reports["flash_forward"]["mesh_train"] = run
+        for i, kern in enumerate(FLASH_KERNELS):
+            reports[kern]["mesh_train_launches"] = done["launches"][i]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -9948,7 +10437,8 @@ def main() -> int:
             paged.get("ring"), 4, ring_tokens)
         gc.collect()
         torch.cuda.empty_cache()
-        run("3g", phase_preemption, (paged, quant), params, cfg)
+        run("3g", phase_preemption, (paged, quant),
+            *_depth_cut(params, cfg, CUT_LAYERS))
         gc.collect()
         torch.cuda.empty_cache()
         run("3h", phase_host_tier, (paged, quant),
@@ -9977,7 +10467,8 @@ def main() -> int:
             runs_3j)
         gc.collect()
         torch.cuda.empty_cache()
-        run("3p", phase_fleet_kv, (paged, quant), params, cfg)
+        run("3p", phase_fleet_kv, (paged, quant),
+            *_depth_cut(params, cfg, CUT_LAYERS))
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -10001,6 +10492,7 @@ def main() -> int:
     run("3q", phase_moe_train_pod, flash)
     run("3r", phase_moe_serving, paged, qmm, qmm_b)
     run("4o", phase_moe_equalities)
+    run("3s", phase_mesh_train_pod, flash)
     log(f"all phases: {time.perf_counter() - t_all:.1f}s")
 
     order = ["name", "route", "source", "replaces", "launches",
@@ -10010,7 +10502,8 @@ def main() -> int:
              "decode_ms_per_step_b4", "kernel1_ms", "paged_bf16_ms", "ring",
              "ring_megastep", "spec", "draft_quant", "preempt", "host_tier",
              "interleave", "disagg", "fleet_kv", "moe", "moe_train",
-             "moe_train_launches", "prefill", "probes_ms",
+             "moe_train_launches", "mesh_train", "mesh_train_launches",
+             "prefill", "probes_ms",
              "limit_check", "train",
              "checkpoint", "depth",
              "fwd_bwd", "designs",

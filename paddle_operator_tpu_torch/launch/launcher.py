@@ -21,8 +21,14 @@ What differs from the JAX module:
   the world size, the global rank as the rank): backend ``nccl`` on the
   card, ``gloo`` only when the caller asks for the CPU.  No card and no
   CPU request raises; nothing falls back to gloo.
-- :func:`job_mesh` refuses by name: meshes wait for ROADMAP.md Queue A
-  item 8 (parallelism), as ``train/trainer.py`` refuses a ``mesh``.
+- :func:`job_mesh` builds ``parallel/mesh.py`` ``make_mesh(env.mesh)``,
+  a DeviceMesh over the group :func:`initialize` set up (``device``
+  "cuda": nccl, one card a pod; "cpu": gloo).  A one-worker job, for
+  which :func:`initialize` makes no group, gets a world-1 group over an
+  in-process store: no coordinator, no ``MASTER_ADDR``.  A mesh larger
+  than the worker count (``chips_per_worker`` > 1: several cards a pod)
+  is refused by name: one process a card under the shim is a later
+  step (ROADMAP.md Queue A item 8).
 - A ``ps`` or ``heter`` pod with no command would run the JAX package's
   parameter or batch-preparation server, which the port does not have
   (ROADMAP.md Queue A item 9): :func:`main` names that item and exits
@@ -44,8 +50,11 @@ EXIT_UNPORTED = 2
 _PS_TODO = ("the {res} tier's default program (a {res} pod started with no "
             "command) is not ported to the torch package (ROADMAP.md Queue A "
             "item 9, 'PS / heter'); give the pod a command")
-_MESH_TODO = ("job meshes are not ported to the torch package (ROADMAP.md "
-              "Queue A item 8, 'Parallelism')")
+_MULTICARD_TODO = ("mesh {mesh} has {size} devices over {workers} worker "
+                   "process(es): pods of more than one card "
+                   "(chips_per_worker > 1) are not ported to the torch "
+                   "package, one process a card under the launcher is "
+                   "(ROADMAP.md Queue A item 8, 'Parallelism')")
 
 
 @dataclass
@@ -173,9 +182,30 @@ def initialize(env: Optional[JobEnv] = None, *, force: bool = False,
     return env
 
 
-def job_mesh(env: Optional[JobEnv] = None):
-    """The JAX package builds the job-wide Mesh here; not ported."""
-    raise NotImplementedError(_MESH_TODO)
+def job_mesh(env: Optional[JobEnv] = None, *, device="cuda"):
+    """Build the job-wide DeviceMesh from the contract (all processes
+    agree, by construction: the MeshSpec comes from the ConfigMap).  A
+    multi-worker job must have called :func:`initialize` first."""
+    import torch.distributed as dist
+
+    from paddle_operator_tpu_torch.parallel.mesh import (init_world_of_one,
+                                                         make_mesh)
+
+    env = env or JobEnv.from_env()
+    size = env.mesh.size()
+    if size > env.num_workers:
+        raise NotImplementedError(_MULTICARD_TODO.format(
+            mesh=env.mesh.to_dict(), size=size, workers=env.num_workers))
+    if not dist.is_initialized():
+        if env.num_workers > 1:
+            raise RuntimeError(f"job_mesh: a {env.num_workers}-worker job "
+                               "needs initialize() first")
+        init_world_of_one(device)
+    if dist.get_world_size() != env.num_workers:
+        raise ValueError(f"job_mesh: the process group has "
+                         f"{dist.get_world_size()} ranks, the job "
+                         f"{env.num_workers} workers")
+    return make_mesh(env.mesh, device=device)
 
 
 def run_supervised(argv: List[str]) -> int:

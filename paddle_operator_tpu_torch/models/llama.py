@@ -51,6 +51,16 @@ MoE configs (``n_experts > 0``): each layer's FFN is a
 load-balancing losses times ``moe_aux_weight`` — the pair the JAX
 model returns; every layer returns ``(x, aux)`` (aux None for a dense
 FFN), so the per-layer checkpoint carries the pair.
+
+On a mesh (``train/trainer.py`` ``create_state(mesh=...)``) every
+parameter is a DTensor shard laid out by :func:`partition_patterns`
+(the JAX package's specs).  The modules gather a weight over fsdp where
+they use it, and under tp run Megatron's pairs (``parallel/
+collectives.py``): wq/wk/wv and w1/w3 are column shards, wo and w2 the
+matching row shards, so attention runs on the rank's own heads through
+the flash kernels (whole GQA groups: :func:`check_tp`), the embedding
+looks up the rank's vocab rows and ``lm_head`` gives its vocab slice of
+the logits.  Unsharded, each of these is the single-device operation.
 """
 
 from __future__ import annotations
@@ -68,6 +78,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from paddle_operator_tpu_torch.ops.attention import attention
 from paddle_operator_tpu_torch.ops.quant_matmul import quant_mm
+from paddle_operator_tpu_torch.parallel.collectives import (
+    copy_to_tp, gather_param, reduce_from_tp, tp_group, vocab_parallel_embed)
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
@@ -271,7 +283,7 @@ class Dense(nn.Module):
         x = x.to(self.dtype)
         if self.mode != "none":
             return quant_mm(x, self.q, self.s)
-        return x @ self.kernel.to(self.dtype)
+        return x @ gather_param(self.kernel).to(self.dtype)
 
 
 class Embed(nn.Module):
@@ -284,7 +296,11 @@ class Embed(nn.Module):
         self.embedding = _param((cfg.vocab_size, cfg.dim), cfg, device)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embedding.to(self.dtype)[tokens]
+        weight = gather_param(self.embedding).to(self.dtype)
+        tp = tp_group(self.embedding)
+        if tp is not None:
+            return vocab_parallel_embed(weight, tokens, tp)
+        return weight[tokens]
 
 
 class RMSNorm(nn.Module):
@@ -297,7 +313,7 @@ class RMSNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         norm = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + self.eps)
-        return (norm * self.scale.float()).to(self.dtype)
+        return (norm * gather_param(self.scale).float()).to(self.dtype)
 
 
 def rope_frequencies(head_dim: int, max_len: int, theta: float,
@@ -336,14 +352,18 @@ class Attention(nn.Module):
                 segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         b, s, _ = x.shape
-        q = self.wq(x).reshape(b, s, cfg.n_heads, cfg.head_dim)
-        k = self.wk(x).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-        v = self.wv(x).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+        # under tp the projections hold this rank's heads (column shards
+        # of wq/wk/wv, row shard of wo): attention runs on local heads
+        tp = tp_group(getattr(self.wq, "kernel", None))
+        x = copy_to_tp(x, tp)
+        q = self.wq(x).reshape(b, s, -1, cfg.head_dim)
+        k = self.wk(x).reshape(b, s, -1, cfg.head_dim)
+        v = self.wv(x).reshape(b, s, -1, cfg.head_dim)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         with _attention_scope():
             out = attention(q, k, v, causal=True, segment_ids=segment_ids)
-        return self.wo(out.reshape(b, s, cfg.n_heads * cfg.head_dim))
+        return reduce_from_tp(self.wo(out.reshape(b, s, -1)), tp)
 
 
 class MLP(nn.Module):
@@ -356,7 +376,11 @@ class MLP(nn.Module):
         self.w2 = Dense(cfg, cfg.ffn_dim, cfg.dim, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w2(torch.nn.functional.silu(self.w1(x)) * self.w3(x))
+        # under tp: w1/w3 column shards, w2 the matching row shard
+        tp = tp_group(getattr(self.w1, "kernel", None))
+        x = copy_to_tp(x, tp)
+        return reduce_from_tp(
+            self.w2(torch.nn.functional.silu(self.w1(x)) * self.w3(x)), tp)
 
 
 class DecoderLayer(nn.Module):
@@ -432,7 +456,10 @@ class Llama(nn.Module):
         across them, RoPE positions stay absolute.  Returns the logits,
         or for an MoE config ``(logits, aux)``: the layers' summed
         load-balancing losses times ``moe_aux_weight``, which the
-        trainer adds to the task loss."""
+        trainer adds to the task loss.  A model sharded over a mesh
+        (``train/trainer.py`` ``create_state(mesh=...)``) takes this
+        rank's rows and, under tp, returns its vocab slice of the
+        logits."""
         x = self.tok_embed(tokens)
         remat = self.cfg.remat and torch.is_grad_enabled()
         extra = {}
@@ -450,6 +477,9 @@ class Llama(nn.Module):
             if aux is not None:
                 aux_sum = aux if aux_sum is None else aux_sum + aux
         x = self.final_norm(x)
+        # under tp: lm_head's column shard gives this rank's vocab slice
+        # of the logits, [B, S, V/tp]
+        x = copy_to_tp(x, tp_group(getattr(self.lm_head, "kernel", None)))
         logits = self.lm_head(x).float()
         if self.cfg.n_experts > 0:
             return logits, aux_sum * self.cfg.moe_aux_weight
@@ -462,8 +492,10 @@ def make_model(preset: str = "tiny", *, device="cuda", seed: int = 0,
     caller asks otherwise) from ``torch.Generator`` seed ``seed``.
     ``overrides`` replace config fields (``dtype=torch.float32`` for
     f32 tests, ``param_dtype=torch.bfloat16`` to init straight into the
-    serving dtype).  The JAX signature's context-parallel ``mesh`` is
-    not a parameter: meshes are not ported."""
+    serving dtype).  The JAX signature's ``mesh`` only switches on
+    context parallelism, which waits (ROADMAP.md Queue A item 8): it is
+    not a parameter.  A model is sharded over a mesh after its init
+    (``train/trainer.py`` ``create_state``)."""
     cfg = dataclasses.replace(CONFIGS[preset], **overrides)
     _remat_context(cfg.remat_policy)           # an unknown policy raises
     device = torch.device(device)
@@ -472,3 +504,46 @@ def make_model(preset: str = "tiny", *, device="cuda", seed: int = 0,
     gen.manual_seed(seed)
     model.init_weights(gen)
     return model, cfg
+
+
+# The JAX package's _LAYER_PATTERNS keyed on the port's state-dict names
+# (its scanned "layers" axis is unstacked here, so no "layers" prefix)
+_LAYER_PATTERNS = [
+    (r"attn\.wq\.kernel", ("embed", "heads")),
+    (r"attn\.wk\.kernel", ("embed", "heads")),
+    (r"attn\.wv\.kernel", ("embed", "heads")),
+    (r"attn\.wo\.kernel", ("heads", "embed")),
+    (r"mlp\.w1\.kernel", ("embed", "mlp")),
+    (r"mlp\.w3\.kernel", ("embed", "mlp")),
+    (r"mlp\.w2\.kernel", ("mlp", "embed")),
+    (r"attn_norm\.scale", ("embed",)),
+    (r"mlp_norm\.scale", ("embed",)),
+]
+
+
+def partition_patterns(cfg: LlamaConfig):
+    """(name-regex, logical spec) table for
+    ``parallel/sharding.py`` ``tree_shardings``: the JAX package's
+    specs on the port's names.  MoE configs are refused by name (the
+    expert axis waits for expert parallelism)."""
+    if cfg.n_experts > 0:
+        raise NotImplementedError(
+            "MoE models on a mesh: expert parallelism for models/moe.py is "
+            "not ported to the torch package (ROADMAP.md Queue A item 8, "
+            "'Parallelism')")
+    return [
+        (r"tok_embed\.embedding", ("vocab", "embed")),
+        (r"final_norm\.scale", ("embed",)),
+        (r"lm_head\.kernel", ("embed", "vocab")),
+    ] + list(_LAYER_PATTERNS)
+
+
+def check_tp(cfg: LlamaConfig, tp: int) -> None:
+    """Refuse a tp that splits a GQA group: with contiguous head shards,
+    query head h of shard s reads kv head h // n_rep on the same shard
+    only when tp divides both head counts."""
+    if cfg.n_heads % tp or cfg.n_kv_heads % tp:
+        raise ValueError(
+            f"tp={tp} must divide n_heads={cfg.n_heads} and n_kv_heads="
+            f"{cfg.n_kv_heads}: a shard's query heads must find their kv "
+            "heads (whole GQA groups) on the same shard")

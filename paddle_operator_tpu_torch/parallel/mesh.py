@@ -1,0 +1,188 @@
+"""Device-mesh construction — the port of
+``paddle_operator_tpu/parallel/mesh.py``.
+
+The ``TPUJob`` CRD carries logical axes (``api.types.MeshSpec``); every
+process of the job builds the same
+``torch.distributed.device_mesh.DeviceMesh`` over the process group
+that ``launch/launcher.py`` ``initialize`` set up, one rank a card, its
+dimensions named as the JAX package names them (outermost → innermost):
+
+    dp    pure data parallel — gradient all-reduce only (across slices);
+    pp    pipeline stages;
+    fsdp  fully-sharded data parallel — params and moments sharded,
+          gathered a layer at a time, gradients reduce-scattered;
+    cp    context (sequence) parallel;
+    ep    expert parallel;
+    tp    tensor parallel — activations all-reduced every layer, the
+          chattiest axis, so innermost.
+
+What differs from the JAX module:
+
+- ``make_mesh`` takes the card type (``device`` "cuda", the default:
+  nccl groups; "cpu": gloo groups, the tests) instead of a device list
+  (a gloo group carries CUDA tensors too: phase 3s (b) of chip_smoke.py
+  puts two ranks on one card through it, which nccl refuses);
+  rank *r* of the process group sits at flat position *r* of the mesh
+  (the JAX package's reshape of the device list).  The axis product
+  must equal the world size (the same ``ValueError``).  With no process
+  group initialized, a mesh of size 1 builds a world-1 group over an
+  in-process store (``torch.distributed.HashStore``): a one-worker job
+  needs no coordinator and no ``MASTER_ADDR``.
+- ``make_serving_mesh`` waits for serving tensor parallelism;
+  ``resolve_shard_map_mesh``, ``supports_partial_manual`` and
+  ``compat_shard_map`` are JAX-version shims with no counterpart.
+- :func:`check_supported` refuses, by name, the axes whose parallel
+  step is not ported: ``pp``, ``cp`` and ``ep`` above 1 (ROADMAP.md
+  Queue A item 8).
+- A mesh over more than one rank carries a gloo group over the same
+  ranks (:func:`control_group`) for host-side agreement (the drain
+  flag, the checkpoint commit): it never waits for the card.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+
+from paddle_operator_tpu_torch.api.types import MeshSpec
+
+# outermost → innermost (see module docstring)
+AXIS_ORDER: Sequence[str] = ("dp", "pp", "fsdp", "cp", "ep", "tp")
+
+# Axes over which a batch is split (data axes): batch sharding and gradient
+# reduction happen over these.
+DATA_AXES = ("dp", "fsdp")
+
+# the parallel steps not ported yet, by axis (ROADMAP.md Queue A item 8)
+_UNPORTED = {
+    "pp": "the pipeline-parallel step (make_pp_train_step, "
+          "parallel/pipeline.py)",
+    "cp": "context parallelism (ring and Ulysses attention)",
+    "ep": "expert parallelism for models/moe.py",
+}
+
+# mesh -> its host-side gloo group (meshes over the same ranks compare
+# equal and share one)
+_CONTROL: Dict[DeviceMesh, Optional[dist.ProcessGroup]] = {}
+
+
+def mesh_shape(spec: MeshSpec) -> List[int]:
+    return [getattr(spec, a) for a in AXIS_ORDER]
+
+
+def _backend(device) -> Tuple[str, str]:
+    """(device type, backend) for ``device``: nccl on the card, gloo
+    on the CPU.  No card on a "cuda" request raises."""
+    kind = torch.device(device).type
+    if kind == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh: no CUDA card for an nccl mesh; "
+                               "pass device='cpu' for a gloo mesh")
+        return kind, "nccl"
+    if kind == "cpu":
+        return kind, "gloo"
+    raise ValueError(f"make_mesh: device {device!r} (expected 'cuda' or "
+                     "'cpu')")
+
+
+def init_world_of_one(device="cuda") -> None:
+    """A world-1 process group over an in-process store, unless one is
+    initialized: the group a one-worker job's mesh is built over."""
+    if dist.is_initialized():
+        return
+    _, backend = _backend(device)
+    dist.init_process_group(backend, store=dist.HashStore(), world_size=1,
+                            rank=0)
+
+
+def make_mesh(spec: Optional[MeshSpec] = None, *,
+              device="cuda") -> DeviceMesh:
+    """The job's DeviceMesh for ``spec`` over every rank of the process
+    group, dimensions named by :data:`AXIS_ORDER` (size-1 axes
+    included, as in the JAX mesh).
+
+    The axis product must equal the world size (validated — the
+    CRD-side twin of this check is TPUJob.validate()).  Every rank must
+    call this in the same order as its other group creations."""
+    spec = spec or MeshSpec()
+    shape = mesh_shape(spec)
+    size = 1
+    for n in shape:
+        size *= n
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if size != world:
+        raise ValueError(
+            f"mesh {dict(zip(AXIS_ORDER, shape))} needs {size} devices, "
+            f"have {world}"
+        )
+    kind, backend = _backend(device)
+    init_world_of_one(device)
+    have = dist.get_backend()
+    if have not in (backend, "gloo"):
+        raise ValueError(f"make_mesh: a {kind} mesh needs the {backend} "
+                         f"or gloo backend; the process group is {have}")
+    if kind == "cuda":
+        # one card a process: the current card (set before the groups'
+        # communicators are made)
+        torch.cuda.set_device(torch.cuda.current_device())
+    mesh = DeviceMesh(kind, torch.arange(world).reshape(shape),
+                      mesh_dim_names=tuple(AXIS_ORDER))
+    # a host-side group over the same ranks (created by every rank here,
+    # right after the mesh's own groups)
+    _CONTROL[mesh] = dist.new_group(backend="gloo") if world > 1 else None
+    return mesh
+
+
+def single_device_mesh(device="cuda") -> DeviceMesh:
+    """A 1-card mesh (all axes size 1) — lets the same mesh train step
+    run unmodified on one device."""
+    return make_mesh(MeshSpec(), device=device)
+
+
+def mesh_axis_sizes(mesh: DeviceMesh) -> Dict[str, int]:
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def axis_group(mesh: DeviceMesh, axis: str
+               ) -> Optional[dist.ProcessGroup]:
+    """The process group along ``axis`` through this rank, or None when
+    the axis has size 1 (nothing to communicate)."""
+    if mesh_axis_sizes(mesh)[axis] <= 1:
+        return None
+    return mesh.get_group(axis)
+
+
+def coordinates(mesh: DeviceMesh) -> Dict[str, int]:
+    """This rank's position on every axis."""
+    return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+
+
+def control_group(mesh: DeviceMesh) -> Optional[dist.ProcessGroup]:
+    """The gloo group over the mesh's ranks (None for one rank)."""
+    return _CONTROL.get(mesh)
+
+
+def is_trivial(mesh: Optional[DeviceMesh]) -> bool:
+    """No mesh, or every axis of size 1."""
+    return mesh is None or mesh.mesh.numel() == 1
+
+
+def require_mesh(mesh) -> None:
+    """A ``mesh`` argument is None or a DeviceMesh (:func:`make_mesh`):
+    anything else raises ``TypeError``."""
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch DeviceMesh (parallel/mesh.py "
+                        f"make_mesh), not {type(mesh).__name__}")
+
+
+def check_supported(mesh: DeviceMesh) -> None:
+    """Refuse, by name, an axis whose parallel step is not ported."""
+    sizes = mesh_axis_sizes(mesh)
+    for axis, what in _UNPORTED.items():
+        if sizes[axis] > 1:
+            raise NotImplementedError(
+                f"{axis}={sizes[axis]}: {what} is not ported to the torch "
+                "package (ROADMAP.md Queue A item 8, 'Parallelism')")

@@ -1,0 +1,298 @@
+"""Logical-axis sharding rules — the port of
+``paddle_operator_tpu/parallel/sharding.py``.
+
+Parameters are sharded by *logical* axis names (``embed``, ``mlp``,
+``heads`` …) mapped to mesh axes through a rule table, matched against
+state-dict names by regex (first match wins; unmatched tensors are
+replicated).  Default rule set (the standard LLM recipe):
+
+    batch      → (dp, fsdp)   activations' batch dim
+    seq        → cp           sequence dim under context parallelism
+    embed      → fsdp         params' model dim (FSDP shards here)
+    heads      → tp           attention heads (tensor parallel)
+    kv_heads   → tp
+    mlp        → tp           ffn hidden dim
+    vocab      → tp           output projection
+    expert     → ep
+    layers     → pp           stacked-layer dim under pipeline parallelism
+    (unlisted) → replicated
+
+What differs from the JAX module:
+
+- :func:`logical_to_mesh` returns the per-dimension tuple a JAX
+  ``PartitionSpec`` holds (``None``, an axis name, or a tuple of axis
+  names), without building a mesh: ``tuple(P(...))`` of the JAX result
+  equals it.  Size-1 axes are dropped when a mesh (or its axis sizes,
+  a mapping) is given; :func:`tree_specs` gives every tensor's tuple
+  the same way.
+- :func:`tree_shardings` maps each state-dict name to its DTensor
+  placements (one ``Shard(dim)`` or ``Replicate()`` a mesh dimension,
+  in :data:`parallel.mesh.AXIS_ORDER`), not to a ``NamedSharding``.  A
+  dimension its mesh factor does not divide raises (JAX's partitioner
+  refuses it too); the int8-moment leaves that JAX replicates when
+  their blocked shape is indivisible do not occur (int8 moments are
+  refused on a mesh with an axis above 1, ROADMAP.md).
+- :func:`batch_sharding` gives the batch's placements; :func:`shard_batch`
+  wraps this rank's rows of a global batch as DTensors with them (the
+  port of placing a host batch onto the mesh).
+- ``kv_cache_sharding`` waits for serving tensor parallelism.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
+
+from paddle_operator_tpu_torch.parallel.mesh import (coordinates,
+                                                     mesh_axis_sizes)
+
+LogicalSpec = Tuple[Optional[str], ...]
+MeshSpecTuple = Tuple[Any, ...]
+
+# logical axis name -> mesh axis (or tuple of mesh axes)
+DEFAULT_RULES: Dict[str, Any] = {
+    "batch": ("dp", "fsdp"),
+    "seq": "cp",
+    "embed": "fsdp",
+    "heads": "tp",
+    "kv_heads": "tp",
+    "mlp": "tp",
+    "vocab": "tp",
+    "expert": "ep",
+    "layers": "pp",
+}
+
+
+def _sizes(mesh) -> Optional[Dict[str, int]]:
+    """Axis sizes of a DeviceMesh, or of a mapping that already is
+    them."""
+    if mesh is None:
+        return None
+    return dict(mesh) if isinstance(mesh, Mapping) else mesh_axis_sizes(mesh)
+
+
+def logical_to_mesh(spec: LogicalSpec,
+                    rules: Optional[Dict[str, Any]] = None,
+                    mesh=None) -> MeshSpecTuple:
+    """Translate a logical spec like ("embed", "mlp") into a per-dim
+    tuple of mesh axes.
+
+    Axes whose mesh size is 1 are dropped (replicated) so the same rules
+    work on any mesh, including single-device.  ``mesh``: a DeviceMesh
+    or its axis sizes.
+    """
+    rules = rules if rules is not None else DEFAULT_RULES
+    sizes = _sizes(mesh)
+
+    def live(mesh_axis: Any):
+        if mesh_axis is None:
+            return None
+        if isinstance(mesh_axis, (tuple, list)):
+            kept = tuple(a for a in mesh_axis
+                         if sizes is None or sizes.get(a, 1) > 1)
+            # one axis left is that axis (as PartitionSpec holds it)
+            return (kept[0] if len(kept) == 1 else kept) if kept else None
+        if sizes is not None and sizes.get(mesh_axis, 1) <= 1:
+            return None
+        return mesh_axis
+
+    return tuple(live(rules.get(ax)) if ax is not None else None
+                 for ax in spec)
+
+
+def spec_for_path(path_patterns: Sequence[Tuple[str, LogicalSpec]],
+                  path: str) -> LogicalSpec:
+    """First-match lookup of a state-dict name against (regex, logical
+    spec)."""
+    for pat, spec in path_patterns:
+        if re.search(pat, path):
+            return spec
+    return ()
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def placements(spec: MeshSpecTuple, mesh: DeviceMesh
+               ) -> Tuple[Placement, ...]:
+    """DTensor placements of a tensor whose dim *d* is sharded over the
+    mesh axes of ``spec[d]``.  Axes sharding one dim must come in mesh
+    order (outer first), as DTensor nests them."""
+    names = list(mesh.mesh_dim_names)
+    out: list = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        last = -1
+        for a in _axes(entry):
+            i = names.index(a)
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"mesh axis {a!r} shards two dims of "
+                                 f"{spec}")
+            if i < last:
+                raise ValueError(f"axes {entry} of dim {d} are not in mesh "
+                                 f"order {tuple(names)}")
+            out[i], last = Shard(d), i
+    return tuple(out)
+
+
+def spec_of(pl: Sequence[Placement], mesh: DeviceMesh,
+            ndim: int) -> MeshSpecTuple:
+    """The per-dim tuple of mesh axes of ``pl`` (the inverse of
+    :func:`placements`); a dim sharded by one axis gives its name, by
+    several a tuple."""
+    dims: list = [[] for _ in range(ndim)]
+    for name, p in zip(mesh.mesh_dim_names, pl):
+        if isinstance(p, Shard):
+            dims[p.dim].append(name)
+    return tuple(None if not a else (a[0] if len(a) == 1 else tuple(a))
+                 for a in dims)
+
+
+def tree_specs(shapes: Mapping[str, Any], mesh,
+               path_patterns: Sequence[Tuple[str, LogicalSpec]],
+               rules: Optional[Dict[str, Any]] = None
+               ) -> Dict[str, MeshSpecTuple]:
+    """The per-dim mesh axes of every name of ``shapes`` (a state dict,
+    or name -> shape) on ``mesh`` (a DeviceMesh or its axis sizes): the
+    JAX ``leaf_sharding``'s spec, the first matching pattern's (none:
+    replicated), cut or padded with None to the tensor's rank.  A dim
+    whose size its mesh factor does not divide raises ``ValueError``
+    naming it."""
+    sizes = _sizes(mesh)
+    out = {}
+    for name, t in shapes.items():
+        shape = tuple(getattr(t, "shape", t))
+        pspec = list(logical_to_mesh(spec_for_path(path_patterns, name),
+                                     rules, sizes))[:len(shape)]
+        spec = tuple(pspec + [None] * (len(shape) - len(pspec)))
+        for d, entry in enumerate(spec):
+            n = int(np.prod([sizes[a] for a in _axes(entry)]))
+            if shape[d] % n:
+                raise ValueError(f"{name}: dim {d} of size {shape[d]} is "
+                                 f"not divisible by its mesh factor {n} "
+                                 f"({entry})")
+        out[name] = spec
+    return out
+
+
+def tree_shardings(shapes: Mapping[str, Any], mesh: DeviceMesh,
+                   path_patterns: Sequence[Tuple[str, LogicalSpec]],
+                   rules: Optional[Dict[str, Any]] = None
+                   ) -> Dict[str, Tuple[Placement, ...]]:
+    """DTensor placements for every name of ``shapes``
+    (:func:`tree_specs` on ``mesh``)."""
+    return {name: placements(spec, mesh) for name, spec in
+            tree_specs(shapes, mesh, path_patterns, rules).items()}
+
+
+def batch_sharding(mesh: DeviceMesh) -> Tuple[Placement, ...]:
+    """Placements of a [batch, seq, ...] input batch: batch over (dp,
+    fsdp).  The JAX signature's ``extra_dims`` only pads its
+    PartitionSpec with None; its ``seq_axis`` (seq over cp) waits for
+    context parallelism (ROADMAP.md Queue A item 8)."""
+    return placements(logical_to_mesh(("batch",), None, mesh), mesh)
+
+
+def region(shape: Sequence[int], spec: MeshSpecTuple,
+           sizes: Mapping[str, int], coords: Mapping[str, int]
+           ) -> Tuple[slice, ...]:
+    """The region of a global tensor of ``shape`` that the rank at
+    ``coords`` holds when dim *d* is sharded over the axes of
+    ``spec[d]`` (``sizes``: every axis's size): per dim, the block of its
+    axes' nested coordinates, outer first.  Needs no mesh (a checkpoint
+    reassembles shards with it)."""
+    index = [0] * len(shape)
+    count = [1] * len(shape)
+    for d, entry in enumerate(spec):
+        for name in _axes(entry):
+            index[d] = index[d] * sizes[name] + coords[name]
+            count[d] *= sizes[name]
+    out = []
+    for d, n in enumerate(shape):
+        if n % count[d]:
+            raise ValueError(f"dim {d} of size {n} is not divisible by "
+                             f"{count[d]} shards")
+        per = n // count[d]
+        out.append(slice(index[d] * per, (index[d] + 1) * per))
+    return tuple(out)
+
+
+def local_slices(shape: Sequence[int], mesh: DeviceMesh,
+                 pl: Sequence[Placement],
+                 coords: Optional[Mapping[str, int]] = None
+                 ) -> Tuple[slice, ...]:
+    """:func:`region` of the rank at ``coords`` (default: this rank)
+    under the placements ``pl``."""
+    return region(shape, spec_of(pl, mesh, len(shape)),
+                  mesh_axis_sizes(mesh),
+                  coordinates(mesh) if coords is None else coords)
+
+
+def shard_tensor(full: torch.Tensor, mesh: DeviceMesh,
+                 pl: Sequence[Placement]) -> DTensor:
+    """A DTensor over ``mesh`` whose local tensor is this rank's region
+    of ``full`` (every rank holds ``full``: nothing is communicated)."""
+    local = full[local_slices(full.shape, mesh, pl)].contiguous()
+    if local.data_ptr() == full.data_ptr():
+        local = local.clone()
+    return DTensor.from_local(local, mesh, tuple(pl), run_check=False,
+                              shape=full.shape, stride=full.stride())
+
+
+def data_block(mesh: DeviceMesh) -> Tuple[int, int]:
+    """(index, count) of this rank's row block of a global batch: the
+    batch is sharded over (dp, fsdp) and replicated over every other
+    axis, so ranks that differ only off the data axes share a block."""
+    sizes, coords = mesh_axis_sizes(mesh), coordinates(mesh)
+    index, count = 0, 1
+    for a in ("dp", "fsdp"):
+        index = index * sizes[a] + coords[a]
+        count *= sizes[a]
+    return index, count
+
+
+def local_batch(batch: Mapping[str, Any], mesh: DeviceMesh,
+                device) -> Dict[str, DTensor]:
+    """This rank's rows of a batch as DTensors with the batch's
+    placements: ``batch`` holds the rows of this rank's block
+    (:func:`data_block`), numpy arrays or tensors."""
+    pl = batch_sharding(mesh)
+    _, count = data_block(mesh)
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
+        t = t.to(device)
+        out[k] = DTensor.from_local(
+            t, mesh, pl, run_check=False,
+            shape=(t.shape[0] * count, *t.shape[1:]),
+            stride=torch.empty((t.shape[0] * count, *t.shape[1:]),
+                               device="meta").stride())
+    return out
+
+
+def shard_batch(batch: Mapping[str, Any], mesh: DeviceMesh,
+                device) -> Dict[str, DTensor]:
+    """A GLOBAL batch (every rank holds all of it) as DTensors: each rank
+    keeps its block's rows (:func:`data_block`)."""
+    index, count = data_block(mesh)
+    rows = {}
+    for k, v in batch.items():
+        n = v.shape[0]
+        if n % count:
+            raise ValueError(f"global batch {n} of {k!r} is not divisible "
+                             f"by the {count} data blocks of the mesh")
+        per = n // count
+        rows[k] = v[index * per:(index + 1) * per]
+    return local_batch(rows, mesh, device)
+
+
+def to_local(t):
+    """The local tensor of a DTensor; any other tensor as it is."""
+    return t.to_local() if isinstance(t, DTensor) else t

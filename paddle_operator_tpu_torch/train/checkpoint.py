@@ -26,6 +26,33 @@ format:
   say).  Every listing refuses the path with an error naming it: it is
   neither skipped in silence nor overwritten by a fresh start.
 
+A state sharded over a mesh of more than one rank
+(``train/trainer.py`` ``create_state(mesh=...)``) is saved in the same
+step directory, so a server and a one-card trainer read it as they read
+any step:
+
+- ``params.pt`` is whole: every parameter is all-gathered
+  (``parallel/collectives.py`` ``full_tensor``) and rank 0 writes the
+  file;
+- the moments are written per rank, unreplicated: each rank at dp
+  coordinate 0 writes ``opt-<rank>.pt`` (its coordinates, the mesh's
+  axis sizes, and per field and name the local shard with the global
+  shape and the per-dim mesh axes that cut it), and rank 0 writes
+  ``opt.pt`` with ``step``, ``count``, ``moments`` and ``"sharded"``
+  (the axis sizes and the shard files) instead of the tensors;
+- the ranks agree on the temporary directory, each writes its files
+  there, and the step is committed in ``wait``: once every rank's
+  writer is done, the ranks agree over the mesh's gloo group that none
+  failed (a failure on any rank raises on every rank and leaves no
+  step), rank 0 writes the marker and renames, and a barrier follows.
+
+A restore into a sharded state cuts each rank's region out of
+``params.pt``, and reads its moments from the shard file of its
+coordinates (dp 0) when the mesh has the saved axis sizes, else
+reassembles them whole and cuts them; a restore into a one-card state
+reassembles the moments from the shard files.  So a step restores on
+its mesh bit for bit, on one card, on another mesh, and in the server.
+
 Saves are asynchronous.  ``save`` copies the state to host memory before
 it returns — the train step updates parameters and moments IN PLACE, so
 a writer that read the live tensors would write a later step's numbers —
@@ -48,12 +75,19 @@ import uuid
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from paddle_operator_tpu_torch.parallel import mesh as M
+from paddle_operator_tpu_torch.parallel.sharding import (local_slices,
+                                                         region, spec_of,
+                                                         to_local)
 
 FORMAT = 1
 PARAMS_FILE = "params.pt"
 OPT_FILE = "opt.pt"
 MARKER = "torch_checkpoint.json"
+SHARD_FILE = "opt-{rank}.pt"
 
 
 def _fsync_dir(path: str) -> None:
@@ -93,6 +127,27 @@ def _check_like(saved: Dict[str, torch.Tensor], like: Dict[str, Any],
         raise ValueError(f"{where}: {what} shapes differ: {bad}")
 
 
+class _Shard:
+    """A moment shard read from its file: compares as its global shape
+    (``_check_like``), copies as its local tensor."""
+
+    def __init__(self, entry: dict) -> None:
+        self.shape = torch.Size(entry["shape"])
+        self.local = entry["local"]
+        self.dtype = self.local.dtype
+
+    def to(self, *args, **kwargs) -> torch.Tensor:
+        return self.local.to(*args, **kwargs)
+
+
+def _cut(p, mesh) -> tuple:
+    """The region of parameter ``p``'s global tensor that this rank
+    holds (all of it on one card or a mesh of one rank)."""
+    if M.is_trivial(mesh):
+        return tuple(slice(None) for _ in p.shape)
+    return local_slices(p.shape, mesh, p.placements)
+
+
 def _settle(opt_state) -> None:
     """Wait for the card's copies into an offloaded state's host
     tensors (none for a resident state)."""
@@ -126,6 +181,8 @@ class CheckpointManager:
         self._thread: Optional[threading.Thread] = None
         self._pending: Optional[int] = None
         self._error: Optional[BaseException] = None
+        # a sharded save waiting for its commit: (step, tmp dir, mesh)
+        self._commit: Optional[tuple] = None
 
     @property
     def enabled(self) -> bool:
@@ -183,9 +240,13 @@ class CheckpointManager:
         t0 = time.perf_counter()
         opt = state.opt_state
         _settle(opt)
+        mesh = getattr(state, "mesh", None)
+        if not M.is_trivial(mesh):
+            self._save_sharded(step, state, mesh, t0)
+            return True
         # copy=True: on the CPU .to("cpu") would hand back the live
         # tensor itself
-        params = {k: v.detach().to("cpu", copy=True)
+        params = {k: to_local(v).detach().to("cpu", copy=True)
                   for k, v in state.model.state_dict().items()}
         rest = {"step": int(state.step), "count": int(opt.count),
                 "moments": opt.kind,
@@ -200,6 +261,111 @@ class CheckpointManager:
             name=f"checkpoint-{step}")
         self._thread.start()
         return True
+
+    def _save_sharded(self, step: int, state: Any, mesh, t0: float) -> None:
+        """The snapshot of a sharded state (module docstring): the whole
+        parameters on rank 0, this rank's moment shards if it is a
+        writer; one background thread a rank writes its files."""
+        from paddle_operator_tpu_torch.parallel.collectives import (
+            full_tensor)
+
+        rank = dist.get_rank()
+        ctrl = M.control_group(mesh)
+        tmp = [f".{step}.tmp-{uuid.uuid4().hex[:12]}" if rank == 0 else None]
+        dist.broadcast_object_list(tmp, src=0, group=ctrl)
+        tmp = os.path.join(self.path, tmp[0])
+        files: Dict[str, Any] = {}
+        params = {}
+        for k, v in state.model.state_dict().items():
+            full = full_tensor(v)
+            if rank == 0:
+                params[k] = full.detach().to("cpu", copy=True)
+            del full
+        opt = state.opt_state
+        writers = [int(r) for r in mesh.mesh[0].flatten()]
+        sizes, coords = M.mesh_axis_sizes(mesh), M.coordinates(mesh)
+        if rank == 0:
+            files[PARAMS_FILE] = params
+            files[OPT_FILE] = {
+                "step": int(state.step), "count": int(opt.count),
+                "moments": opt.kind,
+                "sharded": {"mesh": sizes,
+                            "files": [SHARD_FILE.format(rank=r)
+                                      for r in writers]}}
+        if rank in writers:
+            named = dict(state.model.named_parameters())
+            files[SHARD_FILE.format(rank=rank)] = {
+                "coords": coords, "mesh": sizes,
+                **{field: {k: {"local": t.detach().to("cpu", copy=True),
+                               "shape": tuple(named[k].shape),
+                               "spec": spec_of(named[k].placements, mesh,
+                                               named[k].ndim)}
+                           for k, t in tensors.items()}
+                   for field, tensors in opt.tensors().items()}}
+        self.last_save = {"step": step,
+                          "snapshot_s": time.perf_counter() - t0}
+        self._pending = step
+        self._commit = (step, tmp, mesh, time.perf_counter())
+        self._thread = threading.Thread(
+            target=self._write_files, args=(tmp, files),
+            name=f"checkpoint-{step}")
+        self._thread.start()
+
+    def _write_files(self, tmp: str, files: Dict[str, Any]) -> None:
+        try:
+            os.makedirs(tmp, exist_ok=True)
+            for name, obj in files.items():
+                _write_file(os.path.join(tmp, name), obj)
+        except BaseException as err:   # raised by wait(), on every rank
+            self._error = err
+
+    def _commit_sharded(self, commit: tuple,
+                        err: Optional[BaseException]
+                        ) -> Optional[BaseException]:
+        """Commit a sharded step once every rank's files are written:
+        the ranks agree that none failed, rank 0 writes the marker and
+        renames, and a second agreement is the barrier.  Returns the
+        error to raise (this rank's, or one naming a peer's failure)."""
+        step, tmp, mesh, t0 = commit
+        ctrl = M.control_group(mesh)
+        ok = torch.tensor([int(err is None)], dtype=torch.int32)
+        dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=ctrl)
+        failed: Optional[BaseException] = None
+        if dist.get_rank() == 0:
+            try:
+                if not ok.item():
+                    shutil.rmtree(tmp, ignore_errors=True)
+                else:
+                    _write_file(os.path.join(tmp, MARKER), json.dumps(
+                        {"format": FORMAT, "step": step}).encode())
+                    _fsync_dir(tmp)
+                    nbytes = sum(os.path.getsize(os.path.join(tmp, f))
+                                 for f in os.listdir(tmp))
+                    os.rename(tmp, self._step_dir(step))
+                    _fsync_dir(self.path)
+                    self.last_save["bytes"] = nbytes
+                    self._drop_old()
+            except BaseException as e:
+                failed = e
+                shutil.rmtree(tmp, ignore_errors=True)
+        done = torch.tensor([int(failed is None)], dtype=torch.int32)
+        dist.all_reduce(done, op=dist.ReduceOp.MIN, group=ctrl)
+        self.last_save["write_s"] = time.perf_counter() - t0
+        if err is not None or failed is not None:
+            return err or failed
+        if not ok.item() or not done.item():
+            return RuntimeError(f"checkpoint step {step}: another rank's "
+                                "part failed; the step was not committed")
+        return None
+
+    def _drop_old(self) -> None:
+        for old in self.all_steps()[:-self.max_to_keep]:
+            # renamed out of the step namespace first: a kill mid-delete
+            # leaves a temporary directory, not a torn step
+            doomed = os.path.join(
+                self.path, f".{old}.tmp-{uuid.uuid4().hex[:12]}")
+            os.rename(self._step_dir(old), doomed)
+            shutil.rmtree(doomed)
 
     def _write(self, step: int, params: dict, rest: dict) -> None:
         try:
@@ -223,13 +389,7 @@ class CheckpointManager:
             _fsync_dir(self.path)
             self.last_save.update(bytes=nbytes,
                                   write_s=time.perf_counter() - t0)
-            for old in self.all_steps()[:-self.max_to_keep]:
-                # renamed out of the step namespace first: a kill
-                # mid-delete leaves a temporary directory, not a torn step
-                doomed = os.path.join(
-                    self.path, f".{old}.tmp-{uuid.uuid4().hex[:12]}")
-                os.rename(self._step_dir(old), doomed)
-                shutil.rmtree(doomed)
+            self._drop_old()
         except BaseException as err:   # raised by wait()
             self._error = err
 
@@ -243,7 +403,8 @@ class CheckpointManager:
         model, whose parameters alone are loaded, cast to the model's own
         dtypes (the serving restore: ``opt.pt`` is not read).  A missing
         or unexpected key, a shape mismatch or moments of another kind
-        (f32 or int8) raise before anything is changed."""
+        (f32 or int8) raise before anything is changed.  A state on a
+        mesh gets its ranks' regions (module docstring)."""
         if not self.enabled:
             raise RuntimeError("checkpointing disabled (no path)")
         step = step if step is not None else self.latest_step()
@@ -269,27 +430,69 @@ class CheckpointManager:
                              f"{opt.kind} moments")
         named = dict(model.named_parameters())
         mine = opt.tensors()
+        mesh = getattr(state_like, "mesh", None)
+        moments, cut = self._moments(d, rest, opt.FIELDS, mesh)
         for field in opt.FIELDS:
-            _check_like(rest[field], mine[field], f"moments {field!r}", d)
+            # a sharded state's moments have its parameters' global shapes
+            like = mine[field] if M.is_trivial(mesh) else named
+            _check_like(moments[field], like, f"moments {field!r}", d)
             if opt.offload is not None:
-                bad = sorted(k for k, v in rest[field].items()
+                bad = sorted(k for k, v in moments[field].items()
                              if v.dtype != mine[field][k].dtype)
                 if bad:
                     raise ValueError(f"{d}: moments {field!r} of {bad} are "
                                      "not in the offloaded state's dtype")
         _settle(opt)
-        model.load_state_dict(params)
+        if mesh is None:
+            model.load_state_dict(params)
+        else:
+            with torch.no_grad():
+                for k, p in named.items():
+                    to_local(p).copy_(params[k][_cut(p, mesh)])
         for field in opt.FIELDS:
-            for k, v in rest[field].items():
+            for k, v in moments[field].items():
+                if cut:
+                    v = v[_cut(named[k], mesh)]
                 if opt.offload is not None:
                     # into the pinned host tensors the offload streams
                     mine[field][k].copy_(v)
                 else:
                     # copy=True: nothing stays backed by the mapped file
-                    opt.replace(field, k, v.to(named[k].device, copy=True))
+                    opt.replace(field, k, v.to(to_local(named[k]).device,
+                                               copy=True).contiguous())
         opt.count = int(rest["count"])
         state_like.step = int(rest["step"])
         return state_like
+
+    def _moments(self, d: str, rest: dict, fields, mesh) -> tuple:
+        """(field -> name -> tensor, whether each tensor is whole and must
+        be cut to this rank's region).  A sharded step restored on a mesh
+        of its axis sizes reads this rank's shard file as it is (its
+        shapes checked as the global ones); otherwise the moments are
+        whole: ``opt.pt``'s, or reassembled from the shard files."""
+        sharded = rest.get("sharded")
+        if sharded is None:
+            return {f: rest[f] for f in fields}, not M.is_trivial(mesh)
+        if not M.is_trivial(mesh) \
+                and sharded["mesh"] == M.mesh_axis_sizes(mesh):
+            coords = M.coordinates(mesh)
+            writer = int(mesh.mesh[tuple(0 if a == "dp" else coords[a]
+                                         for a in mesh.mesh_dim_names)])
+            shard = _load(os.path.join(d, SHARD_FILE.format(rank=writer)))
+            return {f: {k: _Shard(e) for k, e in shard[f].items()}
+                    for f in fields}, False
+        whole: Dict[str, Dict[str, torch.Tensor]] = {f: {} for f in fields}
+        for name in sharded["files"]:
+            shard = _load(os.path.join(d, name))
+            for f in fields:
+                for k, e in shard[f].items():
+                    full = whole[f].get(k)
+                    if full is None:
+                        full = whole[f][k] = torch.empty(
+                            e["shape"], dtype=e["local"].dtype)
+                    full[region(e["shape"], e["spec"], shard["mesh"],
+                                shard["coords"])] = e["local"]
+        return whole, not M.is_trivial(mesh)
 
     def wait(self) -> None:
         """Block until the pending save is durable; raise what its
@@ -299,6 +502,9 @@ class CheckpointManager:
             t.join()
         self._pending = None
         err, self._error = self._error, None
+        commit, self._commit = self._commit, None
+        if commit is not None:
+            err = self._commit_sharded(commit, err)
         if err is not None:
             raise err
 

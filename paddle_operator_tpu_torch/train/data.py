@@ -11,7 +11,11 @@ JAX package's ``native/build/`` is left alone).  The process index and count
 come from ``torch.distributed`` when it is initialized (0 and 1
 otherwise).  :class:`DevicePrefetcher` replaces the JAX placement onto a
 mesh: a thread pins host batches and copies them to the card ahead of
-the consumer.
+the consumer, and with a ``mesh`` hands them out as this rank's rows of
+the global batch (DTensors sharded over (dp, fsdp)).  On a mesh the row
+block comes from the rank's mesh coordinates (``process_slice(...,
+mesh=...)``): ranks that differ only in their tp coordinate read the
+same rows.
 """
 
 from __future__ import annotations
@@ -75,9 +79,15 @@ def deterministic_lm_batches(global_batch: int, seq_len: int, vocab: int,
 
 def process_slice(batch: Dict[str, np.ndarray],
                   process_index: Optional[int] = None,
-                  process_count: Optional[int] = None
-                  ) -> Dict[str, np.ndarray]:
-    """This process's contiguous row block of a *global* batch."""
+                  process_count: Optional[int] = None, *,
+                  mesh=None) -> Dict[str, np.ndarray]:
+    """This process's contiguous row block of a *global* batch.  With a
+    ``mesh`` the block is the rank's (dp, fsdp) block
+    (``parallel/sharding.py`` ``data_block``), not its rank."""
+    if mesh is not None:
+        from paddle_operator_tpu_torch.parallel.sharding import data_block
+
+        process_index, process_count = data_block(mesh)
     pi = _process_index() if process_index is None else process_index
     pc = _process_count() if process_count is None else process_count
     if pc == 1:
@@ -227,11 +237,26 @@ class DevicePrefetcher:
     on a side stream; ``__next__`` makes the consumer's current stream
     wait on that copy's event (and records the tensors on it for the
     caching allocator), so a batch is never read while it is being
-    written.  On the CPU the arrays become tensors as they are."""
+    written.  On the CPU the arrays become tensors as they are.
+
+    ``mesh``: the iterator yields this rank's rows (its (dp, fsdp)
+    block, ``process_slice(..., mesh=mesh)``), placed on the mesh's
+    device type and handed out as DTensors of the global batch, sharded
+    over (dp, fsdp) and replicated over the other axes."""
 
     def __init__(self, it: Iterator[Dict[str, np.ndarray]], *,
-                 device="cuda", depth: int = 2) -> None:
+                 device=None, depth: int = 2, mesh=None) -> None:
+        from paddle_operator_tpu_torch.parallel.mesh import require_mesh
+
+        require_mesh(mesh)
         self.it = it
+        self.mesh = mesh
+        if device is None:
+            device = "cuda" if mesh is None else mesh.device_type
+        elif mesh is not None and torch.device(device).type \
+                != mesh.device_type:
+            raise ValueError(f"DevicePrefetcher: device {device!r} is not "
+                             f"the mesh's {mesh.device_type!r}")
         self.device = torch.device(device)
         self._cuda = self.device.type == "cuda"
         self._stream = torch.cuda.Stream(self.device) if self._cuda else None
@@ -277,4 +302,9 @@ class DevicePrefetcher:
             consumer.wait_event(ready)
             for t in batch.values():
                 t.record_stream(consumer)
+        if self.mesh is not None:
+            from paddle_operator_tpu_torch.parallel.sharding import (
+                local_batch)
+
+            batch = local_batch(batch, self.mesh, self.device)
         return batch

@@ -11,13 +11,29 @@ What differs from the JAX trainer, and why:
 - The parameters live in the model (``nn.Parameter``s); the optimizer
   state (:class:`AdamWState`, or :class:`train.opt8bit.AdamW8bitState`
   under ``moments="int8"``) is keyed by the same parameter names.
-- One device.  Meshes and sharded state (the ``mesh`` parameter) wait
-  for ROADMAP.md Queue A item 8, the pipeline-parallel step for the same
-  item, the ERNIE/Wide&Deep/ResNet steps for item 9: a caller that
-  passes ``mesh`` gets a ``TypeError``; the steps are not defined.
+- A mesh (``parallel/mesh.py``, a ``dp × fsdp × tp`` DeviceMesh) is
+  explicit SPMD, not a partitioner: ``create_state(mesh=...)`` replaces
+  each parameter by a DTensor holding this rank's shard under the JAX
+  layout (:func:`state_shardings`); the moments are local tensors of the
+  same shape, laid out as their parameter.  The step takes this rank's
+  rows (the batch sharded over (dp, fsdp), replicated over tp); the
+  model gathers each weight over fsdp where its layer runs and runs
+  Megatron's column/row pairs over tp (``parallel/collectives.py``);
+  the loss is this rank's share of the global mean (the denominator
+  all-reduced, the vocab-sharded logits never gathered); the gradients
+  leave the backward reduce-scattered over fsdp and are all-reduced
+  over dp (over any data axis a parameter is replicated on) BEFORE the
+  clip, whose global norm sums every shard once; each rank then updates
+  its shards.  Every metric is global and bit-equal on every rank.  On
+  a mesh whose axes are all 1 the step runs exactly the single-device
+  operations.  Refused by name: ``pp``, ``cp`` and ``ep`` above 1, MoE
+  models on a mesh, int8 moments and moment offload on a mesh with an
+  axis above 1 (ROADMAP.md Queue A item 8); the ERNIE/Wide&Deep/ResNet
+  steps wait for item 9 and are not defined.
 - ``make_train_step`` and ``make_eval_step`` take no model definition:
   the step runs ``state.model``, the eval function the module it is
-  given.
+  given; neither takes the JAX ``state_sharding`` (the placements ride
+  on the parameters).
 - Host offload of the moments (``create_state(offload_opt_state=True)``)
   is :class:`MomentOffload`, not a memory kind: between steps every
   moment tensor (f32, or the int8 codes and their scales) lives in
@@ -49,9 +65,15 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from paddle_operator_tpu_torch.ft.preemption import drain_checkpoint
+from paddle_operator_tpu_torch.parallel import collectives as C
+from paddle_operator_tpu_torch.parallel import mesh as M
+from paddle_operator_tpu_torch.parallel.mesh import mesh_axis_sizes
+from paddle_operator_tpu_torch.parallel.sharding import (to_local,
+                                                         tree_shardings)
 from paddle_operator_tpu_torch.train import opt8bit
 
 
@@ -91,11 +113,14 @@ class AdamWState:
 @dataclasses.dataclass
 class TrainState:
     """``step``: updates applied; ``model``: the module whose parameters
-    are trained (in place); ``opt_state``: its optimizer state."""
+    are trained (in place); ``opt_state``: its optimizer state;
+    ``mesh``: the DeviceMesh its parameters are sharded over (None on
+    one device)."""
 
     step: int
     model: nn.Module
     opt_state: Any
+    mesh: Any = None
 
 
 class MomentOffload:
@@ -326,6 +351,30 @@ def global_norm(tensors) -> torch.Tensor:
                           for t in tensors))
 
 
+def _replicas(pl, mesh) -> int:
+    """How many ranks hold each shard of a tensor placed by ``pl``."""
+    n = 1
+    for size, p in zip(mesh.mesh.shape, pl):
+        if p.is_replicate():
+            n *= int(size)
+    return n
+
+
+def sharded_global_norm(grads: Dict[str, torch.Tensor],
+                        shardings: Dict[str, Any], mesh) -> torch.Tensor:
+    """:func:`global_norm` of the global gradients from this rank's
+    shards (``grads`` local tensors, ``shardings`` their placements):
+    each shard's sum of squares divided by its replica count, the sum
+    all-reduced over the mesh, so every element counts once and every
+    rank reads the same bits.  One rank: :func:`global_norm`."""
+    if M.is_trivial(mesh):
+        return global_norm(grads.values())
+    total = sum(torch.sum(g.float() * g.float())
+                / _replicas(shardings[n], mesh) for n, g in grads.items())
+    dist.all_reduce(total)
+    return torch.sqrt(total)
+
+
 class AdamW:
     """Clip by global norm, then AdamW with a learning-rate schedule, f32
     moments — :func:`make_optimizer` builds it."""
@@ -380,10 +429,13 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, params: Dict[str, torch.Tensor],
-               grads: Dict[str, torch.Tensor], state) -> torch.Tensor:
+               grads: Dict[str, torch.Tensor], state,
+               norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One update, in place on ``params`` and ``state``.  Returns the
-        global norm of the (unclipped) ``grads``."""
-        norm = global_norm(grads.values())
+        global norm of the (unclipped) ``grads`` — ``norm`` when given
+        (a mesh step's norm over every shard), else computed here."""
+        if norm is None:
+            norm = global_norm(grads.values())
         count = state.count + 1
         fn = self._tensor_update(norm, self.schedule(state.count), count)
         if state.offload is None:
@@ -448,21 +500,95 @@ def make_optimizer(learning_rate: float = 3e-4, warmup_steps: int = 100,
                grad_clip=grad_clip)
 
 
+@dataclasses.dataclass
+class StateShardings:
+    """The placements of a sharded :class:`TrainState`: ``params`` maps
+    each parameter name to its DTensor placements (one a mesh axis, in
+    ``parallel.mesh.AXIS_ORDER``), ``opt_state`` each moment field
+    (``opt_state.tensors()``'s keys) to the same map — a moment takes
+    its parameter's placements."""
+
+    params: Dict[str, tuple]
+    opt_state: Dict[str, Dict[str, tuple]]
+
+
+def state_shardings(model: nn.Module, optimizer: AdamW, mesh, *,
+                    offload_opt_state: bool = False) -> StateShardings:
+    """Plan the placements of ``model``'s training state on ``mesh``
+    without moving anything: the JAX package's ``tree_shardings`` over
+    ``models.llama.partition_patterns(model.cfg)`` (the JAX signature's
+    ``partition_patterns`` and ``example_inputs`` are not parameters:
+    the model is a LLaMA, already built).  Refused by name:
+    ``pp``/``cp``/``ep`` above 1, MoE models, a tp that splits a GQA
+    group, and — on a mesh with an axis above 1 — int8 moments (their
+    256-wide blocks would not be the global ones) and moment offload
+    (ROADMAP.md Queue A item 8)."""
+    from paddle_operator_tpu_torch.models import llama
+
+    M.require_mesh(mesh)
+    M.check_supported(mesh)
+    patterns = llama.partition_patterns(model.cfg)
+    llama.check_tp(model.cfg, mesh_axis_sizes(mesh)["tp"])
+    if not M.is_trivial(mesh):
+        if isinstance(optimizer, AdamW8bit):
+            raise NotImplementedError(
+                "int8 moments on a mesh with an axis above 1 are not "
+                "ported to the torch package (ROADMAP.md Queue A item 8: "
+                "the 256-wide blocks of a shard are not the global ones)")
+        if offload_opt_state:
+            raise NotImplementedError(
+                "moment offload on a mesh with an axis above 1 is not "
+                "ported to the torch package (ROADMAP.md Queue A item 8)")
+    params = tree_shardings(dict(model.named_parameters()), mesh, patterns)
+    if isinstance(optimizer, AdamW8bit):
+        fields = ("mu_codes", "mu_scales", "nu_codes", "nu_scales")
+    else:
+        fields = AdamWState.FIELDS
+    return StateShardings(params=params,
+                          opt_state={f: dict(params) for f in fields})
+
+
+def _shard_parameters(model: nn.Module, mesh,
+                      shardings: Dict[str, tuple]) -> None:
+    """Replace each parameter of ``model`` by a DTensor Parameter holding
+    this rank's shard of it (the full tensor is released)."""
+    from paddle_operator_tpu_torch.parallel.sharding import shard_tensor
+
+    for name, p in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        module = model.get_submodule(owner) if owner else model
+        setattr(module, leaf, nn.Parameter(
+            shard_tensor(p.detach(), mesh, shardings[name]),
+            requires_grad=p.requires_grad))
+
+
 def create_state(model: nn.Module, optimizer: AdamW, *,
-                 offload_opt_state: bool = False) -> TrainState:
+                 offload_opt_state: bool = False,
+                 mesh=None) -> TrainState:
     """A fresh :class:`TrainState` over ``model``'s parameters (the model
     is already initialized: ``models.llama.make_model``).
     ``offload_opt_state``: the moments are made in host memory (pinned
     on the card) and stay there between steps (:class:`MomentOffload`);
-    the device then holds only the staging slots."""
-    params = dict(model.named_parameters())
+    the device then holds only the staging slots.
+
+    ``mesh``: the parameters are sharded over it by
+    :func:`state_shardings` (the same values as the single-device init,
+    then cut: every rank built the whole model from the same seed), and
+    the moments are made for the local shards."""
+    M.require_mesh(mesh)
+    if mesh is not None:
+        shardings = state_shardings(model, optimizer, mesh,
+                                    offload_opt_state=offload_opt_state)
+        _shard_parameters(model, mesh, shardings.params)
+    with torch.no_grad():
+        params = {n: to_local(p) for n, p in model.named_parameters()}
     if not offload_opt_state:
         return TrainState(step=0, model=model,
-                          opt_state=optimizer.init(params))
+                          opt_state=optimizer.init(params), mesh=mesh)
     offload = MomentOffload(next(iter(params.values())).device)
     opt_state = optimizer.init(params, offload)
     offload.adopt(opt_state)
-    return TrainState(step=0, model=model, opt_state=opt_state)
+    return TrainState(step=0, model=model, opt_state=opt_state, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -482,29 +608,72 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     return -(ll * mask).sum() / denom, denom
 
 
-def make_grads_train_step(compute_grads: Callable,
-                          optimizer: AdamW) -> Callable:
+def _reduce_grads(grads: Dict[str, torch.Tensor],
+                  shardings: Dict[str, tuple], mesh) -> None:
+    """Sum each local gradient over the data axes its parameter is
+    replicated on (one flat all-reduce an axis); over an axis that
+    shards it the gradient was reduce-scattered in the backward."""
+    names = list(mesh.mesh_dim_names)
+    for axis in M.DATA_AXES:
+        group = M.axis_group(mesh, axis)
+        if group is None:
+            continue
+        i = names.index(axis)
+        todo = [g for n, g in grads.items()
+                if shardings[n][i].is_replicate()]
+        if todo:
+            C.all_reduce_flat(todo, group)
+
+
+def make_grads_train_step(compute_grads: Callable, optimizer: AdamW,
+                          mesh=None) -> Callable:
     """Train step from an explicit-gradients function
     ``compute_grads(model, batch) -> (metrics, grads)`` (grads keyed by
     parameter name): the optimizer update, ``step`` + 1, and
-    ``grad_norm`` (of the unclipped grads) added to the metrics."""
+    ``grad_norm`` (of the unclipped grads) added to the metrics.
+
+    ``mesh``: the state's parameters are sharded over it.  The batch's
+    tensors are this rank's rows (DTensors from
+    ``train/data.py`` ``DevicePrefetcher(mesh=...)`` or
+    ``parallel/sharding.py`` ``shard_batch``, or their local tensors);
+    ``compute_grads`` gets the local rows and returns global metrics and
+    each parameter's gradient for this rank's shard, which is reduced
+    over the data axes (:func:`_reduce_grads`) before the clip reads the
+    global norm (:func:`sharded_global_norm`)."""
+    M.require_mesh(mesh)
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]):
+        if mesh is not None:
+            batch = {k: to_local(v) for k, v in batch.items()}
         metrics, grads = compute_grads(state.model, batch)
         metrics = dict(metrics)
-        metrics["grad_norm"] = optimizer.update(
-            dict(state.model.named_parameters()), grads, state.opt_state)
+        named = dict(state.model.named_parameters())
+        if mesh is None:
+            metrics["grad_norm"] = optimizer.update(named, grads,
+                                                    state.opt_state)
+        else:
+            shardings = {n: p.placements for n, p in named.items()}
+            with torch.no_grad():
+                named = {n: to_local(p) for n, p in named.items()}
+                grads = {n: to_local(g) for n, g in grads.items()}
+                _reduce_grads(grads, shardings, mesh)
+                norm = sharded_global_norm(grads, shardings, mesh)
+            metrics["grad_norm"] = optimizer.update(
+                named, grads, state.opt_state, norm=norm)
         state.step += 1
         return state, metrics
 
     return step_fn
 
 
-def make_custom_train_step(batch_loss: Callable,
-                           optimizer: AdamW) -> Callable:
+def make_custom_train_step(batch_loss: Callable, optimizer: AdamW,
+                           mesh=None) -> Callable:
     """The generic train step: backward through ``batch_loss(model,
     batch) -> (total_loss, metrics)`` (metrics must include "loss" and
-    "tokens"), then the optimizer update."""
+    "tokens"), then the optimizer update.  On a ``mesh`` ``batch_loss``
+    gets this rank's rows and returns its share of the total (the
+    gradients are summed over the data axes) and metrics that are
+    already global."""
 
     def compute_grads(model: nn.Module, batch):
         for p in model.parameters():
@@ -515,11 +684,11 @@ def make_custom_train_step(batch_loss: Callable,
                  for n, p in model.named_parameters()}
         return {k: v.detach() for k, v in aux.items()}, grads
 
-    return make_grads_train_step(compute_grads, optimizer)
+    return make_grads_train_step(compute_grads, optimizer, mesh)
 
 
-def _causal_lm_train_step(forward_loss: Callable,
-                          optimizer: AdamW) -> Callable:
+def _causal_lm_train_step(forward_loss: Callable, optimizer: AdamW,
+                          mesh=None) -> Callable:
     """The JAX package's ``_jit_train_step``: slices the next-token
     (inputs, targets) pair out of ``batch["tokens"]`` (and ``mask[:,
     1:]``, ``segment_ids[:, :-1]``) for ``forward_loss(model, inputs,
@@ -536,10 +705,33 @@ def _causal_lm_train_step(forward_loss: Callable,
             seg = seg[:, :-1]
         return forward_loss(model, inputs, targets, mask, seg)
 
-    return make_custom_train_step(batch_loss, optimizer)
+    return make_custom_train_step(batch_loss, optimizer, mesh)
 
 
-def make_train_step(optimizer: AdamW) -> Callable:
+def _mesh_loss(logits: torch.Tensor, targets: torch.Tensor,
+               mask: Optional[torch.Tensor], mesh
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """This rank's share of the global mean next-token xent, the global
+    loss and the global denominator ``max(sum of every rank's mask,
+    1)``.  ``logits``: this rank's rows and, under tp, its vocab slice
+    (the target's log-probability then comes from
+    ``parallel/collectives.py`` ``vocab_parallel_log_prob``: nothing
+    gathers the logits).  With every axis of size 1 these are the
+    operations of :func:`cross_entropy_loss`."""
+    tp = C.group_of(mesh, "tp")
+    if tp is None:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        ll = logp.gather(-1, targets.long()[..., None])[..., 0]
+    else:
+        ll = C.vocab_parallel_log_prob(logits.float(), targets, tp)
+    mask = (torch.ones_like(ll) if mask is None else mask.float())
+    denom = torch.clamp(C.all_reduce_data(mask.sum().detach(), mesh),
+                        min=1.0)
+    share = -(ll * mask).sum() / denom
+    return share, C.all_reduce_data(share.detach().clone(), mesh), denom
+
+
+def make_train_step(optimizer: AdamW, mesh=None) -> Callable:
     """The causal-LM train step ``step(state, batch) -> (state,
     metrics)`` for a :class:`models.llama.Llama` (``state.model``).
 
@@ -550,7 +742,22 @@ def make_train_step(optimizer: AdamW) -> Callable:
     ``tokens`` (the loss denominator) and ``grad_norm``; for an MoE
     model (its forward returns ``(logits, aux)``, aux already scaled by
     ``moe_aux_weight``) also ``aux_loss``, which joins the optimized
-    total while ``loss`` stays the task loss."""
+    total while ``loss`` stays the task loss.
+
+    ``mesh``: the step of a state sharded over it
+    (:func:`make_grads_train_step`); ``loss`` and ``tokens`` are the
+    global batch's, on every rank."""
+
+    M.require_mesh(mesh)
+    if mesh is not None:
+        M.check_supported(mesh)
+
+        def mesh_loss(m: nn.Module, inputs, targets, mask, segment_ids=None):
+            share, loss, denom = _mesh_loss(m(inputs, segment_ids), targets,
+                                            mask, mesh)
+            return share, {"loss": loss, "tokens": denom}
+
+        return _causal_lm_train_step(mesh_loss, optimizer, mesh)
 
     def forward_loss(m: nn.Module, inputs, targets, mask, segment_ids=None):
         out = m(inputs, segment_ids)
@@ -565,24 +772,39 @@ def make_train_step(optimizer: AdamW) -> Callable:
     return _causal_lm_train_step(forward_loss, optimizer)
 
 
-def make_eval_step() -> Callable:
+def make_eval_step(mesh=None) -> Callable:
     """``eval_fn(model, batch) -> {"loss": ...}``: the next-token loss
     without gradients.  An optional ``mask`` [B, S] is sliced to the
     targets as in the train step (the JAX eval step expects it already
     [B, S - 1]).  An MoE model's logits come out of its ``(logits,
-    aux)`` pair."""
+    aux)`` pair.  ``mesh``: the model is sharded over it, the batch is
+    this rank's rows (as the train step takes them) and the loss is the
+    global batch's, on every rank."""
+    M.require_mesh(mesh)
 
     @torch.no_grad()
     def eval_fn(m: nn.Module, batch: Dict[str, torch.Tensor]):
-        tokens = batch["tokens"]
+        tokens = to_local(batch["tokens"])
         mask = batch.get("mask")
+        mask = None if mask is None else to_local(mask)[:, 1:]
         out = m(tokens[:, :-1])
         logits = out[0] if isinstance(out, tuple) else out
-        loss, _ = cross_entropy_loss(logits, tokens[:, 1:],
-                                     None if mask is None else mask[:, 1:])
+        if mesh is not None:
+            return {"loss": _mesh_loss(logits, tokens[:, 1:], mask,
+                                       mesh)[1]}
+        loss, _ = cross_entropy_loss(logits, tokens[:, 1:], mask)
         return {"loss": loss}
 
     return eval_fn
+
+
+def make_step_for_mesh(optimizer: AdamW, mesh) -> Callable:
+    """The train step for ``mesh``: :func:`make_train_step` on it.  A
+    mesh with pp > 1 needs the pipeline step, which is refused by name
+    (so are its ``num_microbatches`` and ``schedule``)."""
+    M.require_mesh(mesh)
+    M.check_supported(mesh)
+    return make_train_step(optimizer, mesh=mesh)
 
 
 def synthetic_batch(batch_size: int, seq_len: int, vocab: int,
@@ -623,7 +845,16 @@ def fit(state: TrainState, step_fn: Callable, batches, *, steps: int,
     logged (``checkpoint=saved``, or ``DISABLED`` with no manager) and
     the loop returns; the caller then exits ``EXIT_PREEMPTED``.  Returns
     the final state and the per-step float metrics (converted once, at
-    the end)."""
+    the end).
+
+    A state on a mesh of more than one rank: every rank runs the loop
+    (the metrics are global), only rank 0 logs and ticks ``timer``, and
+    the ranks agree before each step whether any of them is draining
+    (a host-side all-reduce over the mesh's gloo group), so they stop
+    after the same step and drain together."""
+    mesh = None if M.is_trivial(state.mesh) else state.mesh
+    if mesh is not None and dist.get_rank() != 0:
+        logger = timer = None
     raw_history: List[Dict[str, Any]] = []
     start_step = state.step
     step_no = start_step
@@ -632,8 +863,10 @@ def fit(state: TrainState, step_fn: Callable, batches, *, steps: int,
         # the gap since the tracker's last tick, and this segment's first
         # step (batch fetch, warm-up), are not productive
         goodput.pause()
+    draining = False
     for i in range(steps):
-        if preemption is not None and preemption.draining:
+        draining = _draining(preemption, mesh)
+        if draining:
             break
         try:
             batch = next(it)
@@ -660,7 +893,10 @@ def fit(state: TrainState, step_fn: Callable, batches, *, steps: int,
             if timer is not None:
                 msg += " " + timer.report()
             logger.info(msg)
-    if preemption is not None and preemption.draining:
+    if not draining:
+        # a signal during the last step
+        draining = _draining(preemption, mesh)
+    if draining:
         # the step in flight when the signal landed has completed above;
         # a durable checkpoint of it bounds the lost work by one save
         # interval, not one preemption interval
@@ -674,3 +910,20 @@ def fit(state: TrainState, step_fn: Callable, batches, *, steps: int,
                         f"checkpoint={'saved' if saved else 'DISABLED'}")
     history = [{k: float(v) for k, v in m.items()} for m in raw_history]
     return state, history
+
+
+def _draining(preemption, mesh) -> bool:
+    """Whether the loop drains now: this process's watcher, or on a mesh
+    any rank's (every rank reads the same answer; a rank drained by a
+    peer's signal has its own watcher triggered, so its process exits
+    ``EXIT_PREEMPTED`` too)."""
+    if preemption is None:
+        return False
+    flag = preemption.draining
+    if mesh is None:
+        return flag
+    t = torch.tensor([int(flag)], dtype=torch.int32)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=M.control_group(mesh))
+    if t.item() and not flag:
+        preemption.trigger("a peer rank is draining")
+    return bool(t.item())

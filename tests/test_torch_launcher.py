@@ -183,8 +183,27 @@ class TestMeshSpec:
             [f.name for f in dataclasses.fields(JTY.MeshSpec)]
 
     def test_job_mesh_refused_by_name(self):
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            TLA.job_mesh(TLA.JobEnv.from_env(CONTRACT))
+        """``job_mesh`` is ported: it plans the JAX ``job_mesh``'s axes and
+        shape for the contract's 8 workers (the built mesh of 8 gloo
+        ranks is held to JAX's in tests/test_torch_sharded_train.py), and
+        what it still refuses it refuses by name: a mesh larger than the
+        worker count (several cards a pod) and, before ``initialize``, a
+        multi-worker job."""
+        import torch.distributed as dist
+
+        from paddle_operator_tpu_torch.parallel import mesh as TM
+
+        env = TLA.JobEnv.from_env(CONTRACT)
+        want = JLA.job_mesh(JLA.JobEnv.from_env(CONTRACT))
+        assert tuple(TM.AXIS_ORDER) == tuple(want.axis_names)
+        assert tuple(TM.mesh_shape(env.mesh)) == want.devices.shape
+        with pytest.raises(RuntimeError, match="initialize"):
+            TLA.job_mesh(env, device="cpu")
+        cards = TLA.JobEnv.from_env(dict(CONTRACT, TPUJOB_NUM_WORKERS="4"))
+        with pytest.raises(NotImplementedError,
+                           match=r"chips_per_worker > 1.*Queue A item 8"):
+            TLA.job_mesh(cards, device="cpu")
+        assert not dist.is_initialized()
 
 
 # ---------------------------------------------------------------------------

@@ -363,13 +363,18 @@ class TestFit:
 
 
 class TestUnportedKnobs:
-    """What the JAX trainer, data pipeline and config take beyond one
-    device (meshes, shardings, context parallelism, the unscanned
+    """What the JAX trainer, data pipeline and config take that the port
+    does not (shardings, the rng, context parallelism, the unscanned
     layout) is not a parameter of the port: passing it raises TypeError
     (no silent no-op), and the unported steps are not defined.  The
-    depth recipe's knobs (``moments``, ``offload_opt_state``,
-    ``remat_policy``, ``native``) are ported: tests/test_torch_opt8bit.py,
-    test_torch_offload.py, test_torch_remat.py, test_torch_native_data.py."""
+    ``mesh`` of ``create_state``, ``DevicePrefetcher``,
+    ``make_train_step`` and ``make_eval_step`` is ported (a torch
+    DeviceMesh: tests/test_torch_mesh.py, test_torch_sharded_train.py):
+    its first four cases now hold that a mesh that is not a DeviceMesh
+    raises TypeError.  The depth recipe's knobs (``moments``,
+    ``offload_opt_state``, ``remat_policy``, ``native``) are ported:
+    tests/test_torch_opt8bit.py, test_torch_offload.py,
+    test_torch_remat.py, test_torch_native_data.py."""
 
     @pytest.mark.parametrize("call", [
         lambda: TT.create_state(TL.make_model("tiny", device="cpu")[0],
