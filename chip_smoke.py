@@ -234,7 +234,7 @@ result line; with no arguments every phase runs):
    scatter); the launch and replay counts.
 3h. host tier and durable store main path — 3b's server (bf16 and
    int8 pools, every dispatch a graph replay) at full width, depth cut
-   to the 7b params' first 4 layers (``TIER_LAYERS``; the tiers'
+   to the 7b params' first 2 layers (``TIER_LAYERS``; the tiers'
    megabytes scaled with it, so each holds the blocks it held at 32).
    Round 1: 24 distinct 1,024-token prefixes (4 blocks each: 96 blocks
    against the 64-block pool), each with its own 16-token suffix and 32
@@ -270,18 +270,21 @@ result line; with no arguments every phase runs):
    follows a restore still pin?), each restore's host ms beside a
    dispatch in flight, its pieces and every synchronizing call PyTorch
    reports under ``set_sync_debug_mode("warn")``.
-3i. weight-quantized ring main path — the 7b model as ``serve.main``
-   builds it under ``SERVE_WEIGHT_QUANT=int8`` (``load_serving_params``,
-   then ``quantize_from_env``; ``paramBytes`` must equal the shape
-   arithmetic, 7,006,265,344) on 3b's server and burst, over the bf16
+3i. weight-quantized ring main path — the 7b model at full width, depth
+   cut to ``CUT_LAYERS`` (8, for the script's time limit), as
+   ``serve.main`` builds it under ``SERVE_WEIGHT_QUANT=int8``
+   (``load_serving_params``, then ``quantize_from_env``; ``paramBytes``
+   must equal the shape arithmetic, 2,144,788,480 at 8 layers) on 3b's
+   server and burst, over the bf16
    pool and the int8 pool: every request completes, the int8-weight
    kernels' launches equal 7 x n_layers x ticks plus 7 x n_layers a
    forward — kernel A's up to ``KERNEL_MAX_ROWS`` rows, kernel B's above
    — (the plain formula never runs), ``/statusz`` reports
    ``weightQuantMode`` int8 and the
    ``paramBytes``, ``/metrics`` the gauge at 1 (3b-3e hold it at
-   "none" and the kernel at 0 launches).  Then, not gated: the max
-   logit gap against the bf16 model on one prompt; one ring chunk as a
+   "none" and the kernel at 0 launches).  Then, not gated, against the
+   same init unquantized (the bf16 model): the max
+   logit gap on one prompt; one ring chunk as a
    graph (8 lanes, fill 520-632) through the kernels, through the plain
    route and on the bf16 model, in turns; a quantized prefill, 8 cold
    512-token prompts one by one and one 2048-token prompt
@@ -313,10 +316,11 @@ result line; with no arguments every phase runs):
 3k. the single-card depth recipe — 7b width, B 4 x 2049 tokens, bf16
    compute, one repeated batch, through ``fit``: (a) full depth, 32
    layers (6.738B params), ``make_optimizer(moments="int8")`` resident,
-   12 steps; (b) the same with ``create_state(offload_opt_state=True)``,
-   6 steps; (c) 8 layers, 6 steps each: f32 moments, int8 moments, f32
-   offloaded; (d) 8 layers, int8, ``remat_policy`` "save_attn" and
-   "dots" ((c)'s int8 run is "full").  Each run reports step ms,
+   6 steps; (b) the same with ``create_state(offload_opt_state=True)``,
+   3 steps; (c) 6 steps each: 8 layers with int8 moments, and 2 layers
+   with f32 moments resident and offloaded (phase 3c trains the f32
+   step at 8 layers); (d) 8 layers, int8, ``remat_policy`` "save_attn"
+   and "dots" ((c)'s int8 run is "full").  Each run reports step ms,
    tokens/s, MFU against 989 TFLOP/s, peak ``max_memory_allocated``, the
    update's device ms (an event pair around ``opt.update``) and,
    offloaded, the H2D and D2H GB/s of the copy streams and the seconds
@@ -325,7 +329,7 @@ result line; with no arguments every phase runs):
    under "full" and "dots", layers x steps under "save_attn", dK/dV and
    dQ layers x steps; ``adam8bit_update`` launches = tensors x steps
    with int8 moments, 0 with f32; (b)'s losses and grad norms equal
-   (a)'s first 6 bit for bit, and (c)'s offloaded f32 run its resident
+   (a)'s first 3 bit for bit, and (c)'s offloaded f32 run its resident
    one; (b)'s peak at least ``OFFLOAD_SAVING_GB`` below (a)'s; after
    the offloaded runs every moment tensor is in its pinned host slab
    view, at the address it had before the first step.
@@ -639,13 +643,14 @@ result line; with no arguments every phase runs):
    83; the resumed step; finite loss and aux_loss on every step; the
    checkpoint holds ``layers.0.moe.*``; kernels #4-#6 launched 2 x 1 /
    1 / 1 a step (full remat).  Read: step ms, MFU on active params.
-3r. ``7b-moe`` served at full depth (32 layers, 25.5B params, bf16) —
-   the dense 7b released first and the allocated memory logged before
+3r. ``7b-moe`` served at full width, depth cut to ``CUT_LAYERS`` (8
+   layers, 6.57B params, bf16; 32 until the script's time limit cut it)
+   — the dense 7b released first and the allocated memory logged before
    the init; 3b's server and burst (``phase_ring_main_path``: 8 slots,
    chunk 8, block 256, a 64-block pool; kernel #2 32 launches a tick),
    then the same model quantized in place under
    ``SERVE_WEIGHT_QUANT=int8`` (one expert weight at a time) on the same
-   traffic (kernel A (4 + 2E) x 32 = 640 launches a tick, kernel B on
+   traffic (kernel A (4 + 2E) x 8 = 160 launches a tick, kernel B on
    the prompts above 64 tokens, ``paramBytes``); each ring's device ms
    a chunk (a graph, 8 lanes at fill 520) against the bound of reading
    every weight but the embedding and the lanes' KV each tick (the
@@ -683,19 +688,28 @@ result line; with no arguments every phase runs):
    are bit-equal or the largest differences; kernels #4-#6 launched
    2 x layers / layers / layers a step on both runs.  Read: step ms,
    tokens/s, MFU, peak memory over 6 more mesh steps.  (b): two
-   processes on the one card try gloo's all-reduce, all-gather and
-   reduce-scatter on CUDA tensors (NCCL cannot put two ranks on one
-   device); the ones it refuses are printed, and then no two-rank run
-   follows.  Where it carries them all, two ranks on the one card train
-   ``MESH_PAIR`` (the 1b preset's width, 2 layers, f32, B=4 x 513) on an
-   fsdp=2 mesh and then a tp=2 mesh (8 of 16 heads a rank through
-   kernels #4-#6), 3 steps, held to the same model's run without a
-   mesh in this process: losses (rtol 1e-5), grad norms (rtol 1e-4),
-   the ranks' metrics equal, and of the gathered parameters at most one
-   in 10,000 off by more than 1e-5 and none by more than 2 lr a step
-   (Adam's step is about lr whatever a gradient's size, so an element
-   whose gradient sits at the f32 noise of the two summation orders can
-   step either way; a wrong shard would move whole blocks).
+   processes, started before (a) so that their start overlaps it and
+   waiting for the reference run before they train, on the one card
+   try gloo's all-reduce, all-gather and
+   reduce-scatter and the cp/pp exchange (``all_to_all_single`` with
+   split sizes, one way, and even) on CUDA tensors (NCCL cannot put two
+   ranks on one device) and print its answers; a refused one fails the
+   phase.  Then the two ranks train ``MESH_PAIR`` (the 1b preset's
+   width, 2 layers, f32, B=4 x 513) on each mesh of
+   ``MESH_PAIR_MESHES`` in turn: fsdp=2, tp=2 (8 of 16 heads a rank
+   through kernels #4-#6), cp=2 with ring attention (plain ops: no flash
+   launch) and with Ulysses (8 heads a rank over all 512 positions
+   through kernels #4-#6), pp=2 under GPipe and under 1F1B (1 layer a
+   stage, 4 microbatches), 3 steps each, held to the same model's run
+   without a mesh in this process: losses (rtol 1e-5), grad norms (rtol
+   1e-4), the ranks' metrics equal, every parameter compared once, at
+   most one in 10,000 off by more than 1e-5 and none by more than 2 lr a
+   step (Adam's step is about lr whatever a gradient's size, so an
+   element whose gradient sits at the f32 noise of the two summation
+   orders can step either way; a wrong shard would move whole blocks),
+   and each rank's flash launches the formula's
+   (``mesh_pair_launches``).  Read: each rank's step ms and the bytes
+   its cp/pp exchanges sent a step.
 5. report — a ``kernels`` JSON line, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -3295,14 +3309,19 @@ TIER = dict(prefixes=24, prefix=1024, suffix=16, new=32, host_mb=4096,
 TIER_RUNS = ("hit_ref", "cold_ref", "off", "on", "store_a", "store_b")
 # 3h runs on the first TIER_LAYERS of the 7b params (the script's time
 # limit: on an H100 80GB HBM3 at 700 W 3h took 163 s of 1,100 at 32
-# layers, 85.7 s at 16, 45.7 s at 8; the MoE phases 3q, 3r and 4o add
-# about 135 s, the mesh phase 3s about 110 s), its tiers' megabytes
-# scaled with the depth, so each tier holds the blocks it held at 32
-TIER_LAYERS = 4
+# layers, 85.7 s at 16, 45.7 s at 8, 29.4 s at 4; the MoE phases 3q, 3r
+# and 4o add about 135 s, the mesh phase 3s about 85 s, 3s (b)'s cp and
+# pp meshes took it from 4 layers to 2), its tiers' megabytes scaled
+# with the depth, so each tier holds the blocks it held at 32
+TIER_LAYERS = 2
 # 3g and 3p run on the first CUT_LAYERS of the 7b params (the script's
 # time limit: on an H100 80GB HBM3 at 700 W they took 36.6 s
 # and 53.6 s at 32 layers in a whole run of 1,266 s); their lanes,
-# blocks and tiers are counts, not bytes, so nothing else scales
+# blocks and tiers are counts, not bytes, so nothing else scales.  3i
+# and 3r serve fresh CUT_LAYERS-layer inits (32.1 s and 27.2 s at 32
+# layers on that card; cut when 3s (b) ran its cp and pp meshes): their
+# launch formulas, bounds and paramBytes follow the depth, and their
+# kernels' shapes are a layer's, which the depth does not change
 CUT_LAYERS = 8
 
 
@@ -3905,20 +3924,23 @@ def expected_param_bytes(cfg, lm_head: bool) -> int:
 
 
 def _quantized_7b(environ: dict):
-    """The 7b model as ``serve.main`` builds it under ``environ``: a
-    fresh bf16 init from seed 0 (``load_serving_params`` with no
-    checkpoint) quantized by ``quantize_from_env``."""
+    """The 7b model cut to ``CUT_LAYERS`` as ``serve.main`` builds it
+    under ``environ``: a fresh bf16 init from seed 0
+    (``load_serving_params`` with no checkpoint) quantized by
+    ``quantize_from_env`` (``environ`` empty: left bf16)."""
     import torch
 
     from paddle_operator_tpu_torch.infer import serve as S
     from paddle_operator_tpu_torch.models.llama import CONFIGS
 
     t0 = time.perf_counter()
-    model, cfg, _ = S.load_serving_params(None, CONFIGS["7b"], "cuda")
+    model, cfg, _ = S.load_serving_params(
+        None, dataclasses.replace(CONFIGS["7b"], n_layers=CUT_LAYERS),
+        "cuda")
     mode = S.quantize_from_env(model, cfg, environ)
     torch.cuda.synchronize()
-    log(f"weight quant: 7b {environ} -> {mode} in "
-        f"{time.perf_counter() - t0:.1f}s (init and quantize)")
+    log(f"weight quant: 7b at {cfg.n_layers} layers {environ} -> {mode} "
+        f"in {time.perf_counter() - t0:.1f}s (init and quantize)")
     return model, cfg
 
 
@@ -4113,10 +4135,10 @@ def _prefill_ms(model, cfg, prompts, route=None) -> tuple:
         QM.quant_matmul.launches - n0[0], QM.quant_gemm.launches - n0[1])
 
 
-def phase_weight_quant_ring(report: dict, report_b: dict, params,
-                            cfg) -> None:
-    """Phase 3i: the weight-quantized 7b replica; see the module
-    docstring (``report``: kernel A's, ``report_b``: kernel B's)."""
+def phase_weight_quant_ring(report: dict, report_b: dict) -> None:
+    """Phase 3i: the weight-quantized 7b replica, cut to ``CUT_LAYERS``;
+    see the module docstring (``report``: kernel A's, ``report_b``:
+    kernel B's)."""
     import gc as _gc
 
     import numpy as np
@@ -4127,6 +4149,8 @@ def phase_weight_quant_ring(report: dict, report_b: dict, params,
     from paddle_operator_tpu_torch.ops import quant_matmul as QM
 
     qmodel, qcfg = _quantized_7b({"SERVE_WEIGHT_QUANT": "int8"})
+    # the same init unquantized: the bf16 model the readings compare with
+    params, cfg = _quantized_7b({})
     want_bytes = expected_param_bytes(qcfg, False)
     got_bytes = Q.param_bytes(qmodel)
     log(f"weight quant int8: paramBytes {got_bytes} (expected "
@@ -4215,7 +4239,7 @@ def phase_weight_quant_ring(report: dict, report_b: dict, params,
             raise AssertionError(f"the quantized prefill launched "
                                  f"{got['launches']}, expected {want}")
         prefill[label] = got
-    del qmodel
+    del qmodel, params
     _gc.collect()
     torch.cuda.empty_cache()
 
@@ -5938,15 +5962,18 @@ def phase_checkpoint(reports: dict) -> None:
 # 3e-4, make_optimizer's default: at 3c's 1e-3 the 32-layer run spiked
 # and ended at 0.78x its first loss (12 steps, int8 moments; 8 layers
 # at 1e-3 fall to 0.03x in 5 steps, int8 as f32) on an H100 80GB HBM3
-# at 700 W
-DEPTH = dict(batch=4, seq=2048, lr=3e-4, full_steps=12, short_steps=6)
-DEPTH_RUNS = (("a", 32, "int8", False, "full", "full_steps"),
-              ("b", 32, "int8", True, "full", "short_steps"),
-              ("c_f32", 8, "f32", False, "full", "short_steps"),
-              ("c_int8", 8, "int8", False, "full", "short_steps"),
-              ("c_f32_offload", 8, "f32", True, "full", "short_steps"),
-              ("d_save_attn", 8, "int8", False, "save_attn", "short_steps"),
-              ("d_dots", 8, "int8", False, "dots", "short_steps"))
+# at 700 W.  For the script's limit, once 3s (b) ran its cp and pp
+# meshes, (a) runs 6 steps (12 before), (b) 3 (6), and the f32 pair 2
+# layers (8; phase 3c trains 8 layers with f32 moments): 70.9 -> 40.7 s
+# on an H100 80GB HBM3 at 700 W, most of it the f32 slab's pinning
+DEPTH = dict(batch=4, seq=2048, lr=3e-4, steps=6, offload_steps=3)
+DEPTH_RUNS = (("a", 32, "int8", False, "full", "steps"),
+              ("b", 32, "int8", True, "full", "offload_steps"),
+              ("c_f32", 2, "f32", False, "full", "steps"),
+              ("c_int8", 8, "int8", False, "full", "steps"),
+              ("c_f32_offload", 2, "f32", True, "full", "steps"),
+              ("d_save_attn", 8, "int8", False, "save_attn", "steps"),
+              ("d_dots", 8, "int8", False, "dots", "steps"))
 # (b)'s peak must sit this far below (a)'s: the int8 codes and scales
 # (13.69 GB at 7b) leave the card, the staging ring (3 slots of the
 # largest tensor's, 0.27 GB each) stays
@@ -9312,7 +9339,11 @@ def phase_ring_ops_equalities() -> None:
                                          f"{[o == w for o, w in zip(outs, again)]}")
                 swapped = "not swapped (an unpaged ring refuses)"
                 if kind != "contiguous":
-                    # replays paced, so the swap lands mid-flight
+                    # replays paced, so the swap lands mid-flight; the
+                    # identical weights are copied before the streams
+                    # start (a copy inside the window once let the
+                    # megastep-4 paged ring finish its lanes first)
+                    same = copy.deepcopy(params)
                     replay = ex.replay
                     ex.replay = lambda plan: (time.sleep(0.05),
                                               replay(plan))[1]
@@ -9320,7 +9351,7 @@ def phase_ring_ops_equalities() -> None:
                     chunks = b.stats["chunks"]
                     while b.stats["chunks"] < chunks + 1:
                         time.sleep(0.001)
-                    res = b.swap_weights(copy.deepcopy(params))
+                    res = b.swap_weights(same)
                     got = [h.result(timeout=600) for h in hs]
                     ex.replay = replay
                     if not res["parkedLanes"]:
@@ -9705,7 +9736,7 @@ def _moe_chunk_bound_ms(model, cfg, fill: int) -> float:
 
 
 def phase_moe_serving(paged: dict, qmm: dict, qmm_b: dict) -> None:
-    """Phase 3r: 7b-moe at full depth on 3b's server, bf16 then int8
+    """Phase 3r: 7b-moe cut to ``CUT_LAYERS`` on 3b's server, bf16 then int8
     weights; see the module docstring."""
     import numpy as np
     import torch
@@ -9721,7 +9752,8 @@ def phase_moe_serving(paged: dict, qmm: dict, qmm_b: dict) -> None:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params, cfg = make_model("7b-moe", device="cuda", seed=0,
-                             param_dtype=CONFIGS["7b-moe"].dtype)
+                             param_dtype=CONFIGS["7b-moe"].dtype,
+                             n_layers=CUT_LAYERS)
     params.requires_grad_(False)
     torch.cuda.synchronize()
     log(f"moe serving: allocated {before} bytes before the init; 7b-moe "
@@ -10021,25 +10053,31 @@ if __name__ == "__main__":
 '''
 
 # phase 3s (b): one rank of the two-rank meshes on the one card over
-# gloo.  It first tries each collective the mesh step uses on CUDA
-# tensors and prints the answers (if gloo refuses one it stops there);
-# then it trains on each mesh of ``axes`` in turn, and rank 0 holds the
-# gathered parameters to the reference run's (``ref``), one JSON line a
-# mesh.
-MESH_PAIR_CHILD = r'''
+# gloo.  It first tries each collective and exchange the mesh steps use
+# on CUDA tensors and prints the answers (if gloo refuses one it stops
+# there and the phase fails); then it trains on each mesh of ``meshes``
+# in turn, each rank times its steps and counts its flash launches and
+# the bytes its cp/pp exchanges sent, and every rank holds the
+# parameters it is the first holder of (gathered over its mesh) to the
+# reference run's (``ref``), one JSON line a mesh.
+MESH_PAIR_CHILD = r"""
 import faulthandler
 import itertools
 import json
+import os
 import sys
+import time
 
 import torch
 import torch.distributed as dist
 
 from paddle_operator_tpu_torch.api.types import MeshSpec
-from paddle_operator_tpu_torch.models.llama import make_model
+from paddle_operator_tpu_torch.models.llama import layer_index, make_model
 from paddle_operator_tpu_torch.ops import flash_attention as FA
-from paddle_operator_tpu_torch.parallel.collectives import full_tensor
-from paddle_operator_tpu_torch.parallel.mesh import make_mesh
+from paddle_operator_tpu_torch.parallel import collectives as C
+from paddle_operator_tpu_torch.parallel.mesh import (coordinates,
+                                                     make_mesh,
+                                                     mesh_axis_sizes)
 from paddle_operator_tpu_torch.parallel.sharding import shard_batch
 from paddle_operator_tpu_torch.train import trainer as T
 from paddle_operator_tpu_torch.train.data import deterministic_lm_batches
@@ -10058,12 +10096,38 @@ def stage(what):
 dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{a['port']}",
                         world_size=2, rank=rank)
 x = torch.full((4,), float(rank + 1), device="cuda")
+other = 1 - rank
+
+
+def uneven():
+    # the cp/pp exchange: bytes to the other rank only, none to itself
+    got = C.exchange({other: x}, {other: (4,)}, dist.group.WORLD, like=x)
+    assert float(got[other][0]) == float(other + 1)
+
+
+def one_way():
+    # a pipeline hop: rank 0 sends, rank 1 receives, nothing back
+    got = C.exchange({1: x} if rank == 0 else {},
+                     {0: (4,)} if rank == 1 else {}, dist.group.WORLD,
+                     like=x)
+    assert rank == 0 or float(got[0][0]) == 1.0
+
+
+def even():
+    out = torch.empty(4, device="cuda")
+    dist.all_to_all_single(out, x)
+    assert float(out[2 * other]) == float(other + 1)
+
+
 probes = {
     "all_reduce": lambda: dist.all_reduce(x.clone()),
     "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
         torch.empty(8, device="cuda"), x),
     "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
         torch.empty(2, device="cuda"), x),
+    "all_to_all_single (split sizes, the cp/pp exchange)": uneven,
+    "all_to_all_single (one way, a pipeline hop)": one_way,
+    "all_to_all_single (even, Ulysses)": even,
 }
 probe = {}
 for name, fn in probes.items():
@@ -10073,58 +10137,153 @@ for name, fn in probes.items():
         probe[name] = "ok"
     except Exception as err:
         probe[name] = f"{type(err).__name__}: {str(err)[:200]}"
-print(json.dumps({"probe": probe}), flush=True)
+print(json.dumps({"probe": probe, "ready_s": time.time() - a["t_launch"]}),
+      flush=True)
 if set(probe.values()) != {"ok"}:
     raise SystemExit(0)
-ref = (torch.load(a["ref"], weights_only=True, map_location="cuda")
-       if rank == 0 else None)
+# the parent writes the reference (by rename) once (a) and the run
+# without a mesh are done: the card is this pair's from then on
+deadline = time.time() + 900
+while not os.path.exists(a["ref"]):
+    if time.time() > deadline:
+        raise SystemExit("no reference within 900 s")
+    time.sleep(0.1)
+ref = torch.load(a["ref"], weights_only=True, map_location="cuda")
 flash = (FA.flash_forward, FA.flash_backward_dkv, FA.flash_backward_dq)
-for axes in a["axes"]:
+for spec in a["meshes"]:
+    axes, over, opts = spec["axes"], spec["model"], spec["step"]
+    t_setup = time.perf_counter()
     mesh = make_mesh(MeshSpec(**axes), device="cuda")
     model, cfg = make_model(a["preset"], device="cuda", seed=0,
-                            n_layers=a["layers"], dtype=torch.float32)
+                            n_layers=a["layers"], dtype=torch.float32,
+                            **over)
     opt = T.make_optimizer(a["lr"], warmup_steps=1, decay_steps=1000)
     state = T.create_state(model, opt, mesh=mesh)
-    step = T.make_step_for_mesh(opt, mesh)
-    stage(f"{axes}: state")
+    step = T.make_step_for_mesh(opt, mesh, **opts)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_setup
+    stage(f"{spec['tag']}: state")
     for fn in flash:
         fn.launches = 0
-    metrics = []
+    for k in C.EXCHANGE:
+        C.EXCHANGE[k] = 0
+    metrics, step_ms = [], []
     for b in itertools.islice(deterministic_lm_batches(
             a["batch"], a["seq"] + 1, cfg.vocab_size, seed=1), a["steps"]):
-        state, m = step(state, shard_batch(b, mesh, "cuda"))
+        batch = shard_batch(b, mesh, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
         metrics.append({k: float(v) for k, v in m.items()})
-        stage(f"{axes}: step {len(metrics)}")
-    out = {"axes": axes, "rank": rank, "metrics": metrics,
+        stage(f"{spec['tag']}: step {len(metrics)}")
+    sizes, coords = mesh_axis_sizes(mesh), coordinates(mesh)
+    out = {"tag": spec["tag"], "rank": rank, "metrics": metrics,
+           "step_ms": step_ms,
            "launches": [fn.launches for fn in flash],
-           "local_heads": cfg.n_heads // dict(zip(
-               mesh.mesh_dim_names, mesh.mesh.shape))["tp"]}
+           "exchange_bytes_per_step": {k: v / a["steps"]
+                                       for k, v in C.EXCHANGE.items()},
+           "local_heads": cfg.n_heads // sizes["tp"],
+           "layers_here": len(state.model.stage_layers().layers)}
+    # each parameter is held to the reference once: by the rank at
+    # every coordinate 0 but pp, and one replicated over pp by stage 0
+    first = all(c == 0 for ax, c in coords.items() if ax != "pp")
+    t_check = time.perf_counter()
     diff, off, total = 0.0, 0, 0
     for n, p in state.model.named_parameters():
-        full = full_tensor(p)
-        if rank == 0:
+        full = C.full_tensor(p)
+        if first and (layer_index(n) is not None or coords["pp"] == 0):
             d = (full - ref[n]).abs()
             diff = max(diff, float(d.max()))
             off += int((d > 1e-5).sum())
             total += d.numel()
-    if rank == 0:
-        out.update(max_param_diff=diff, params_off=off, params_total=total)
+    out.update(max_param_diff=diff, params_off=off, params_total=total,
+               setup_s=setup_s, check_s=time.perf_counter() - t_check)
     print(json.dumps(out), flush=True)
     del state, model, step, opt
     torch.cuda.empty_cache()
 dist.destroy_process_group()
-'''
+"""
+
+# 3s (b)'s meshes, in turn on the one pair of processes: (tag, mesh axes,
+# model overrides, step options); the flash launches a rank makes over
+# the run's steps: 2 layers of full remat (forward twice, dK/dV and dQ
+# once a layer a step) through kernels #4-#6 everywhere but ring
+# attention (plain ops: none); a pp stage's 1 layer over 4 microbatches,
+# and under 1F1B stage 0 also forwards each microbatch once without a
+# graph before its backward slot recomputes it (the last stage keeps the
+# graph of its round)
+MESH_PAIR_MESHES = (
+    ("fsdp2", {"fsdp": 2}, {}, {}),
+    ("tp2", {"tp": 2}, {}, {}),
+    ("cp2_ring", {"cp": 2}, {"cp_impl": "ring"}, {}),
+    ("cp2_ulysses", {"cp": 2}, {"cp_impl": "ulysses"}, {}),
+    ("pp2_gpipe", {"pp": 2}, {}, {"schedule": "gpipe",
+                                  "num_microbatches": 4}),
+    ("pp2_1f1b", {"pp": 2}, {}, {"schedule": "1f1b",
+                                 "num_microbatches": 4}),
+)
 
 
-def _mesh_pair_runs() -> tuple:
-    """Phase 3s (b): fsdp=2, then tp=2, on two processes sharing the one
-    card over gloo (``MESH_PAIR`` width and depth, f32), held to the same
-    model's run without a mesh in this process on the same batches.
-    Returns (gloo's answer to each collective on CUDA tensors, the runs;
-    None when gloo refused one and nothing ran)."""
-    import itertools
-    import shutil
+def mesh_pair_launches(tag: str, rank: int, layers: int, steps: int,
+                       microbatches: int = 4) -> list:
+    """The flash launches (#4, #5, #6) rank ``rank`` makes over
+    ``steps`` steps on the 3s (b) mesh ``tag`` (``MESH_PAIR_MESHES``)."""
+    if tag == "cp2_ring":
+        return [0, 0, 0]
+    if tag.startswith("pp2"):
+        per = layers // 2 * microbatches * steps
+        fwd = 3 if tag == "pp2_1f1b" and rank == 0 else 2
+        return [fwd * per, per, per]
+    return [2 * layers * steps, layers * steps, layers * steps]
+
+
+def _mesh_pair_start() -> dict:
+    """Phase 3s (b)'s two processes, started before (a) so that their
+    start (imports, CUDA, gloo, the probe) overlaps it: each waits for
+    the reference that :func:`_mesh_pair_runs` writes before it trains
+    a mesh."""
     import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_pair_")
+    meshes = [{"tag": t, "axes": ax, "model": over, "step": opts}
+              for t, ax, over, opts in MESH_PAIR_MESHES]
+    args = dict(MESH_PAIR, meshes=meshes, port=_free_port(),
+                ref=os.path.join(root, "ref.pt"), t_launch=time.time())
+    script = os.path.join(root, "pair.py")
+    Path(script).write_text(MESH_PAIR_CHILD)
+    env = dict(os.environ,
+               PYTHONPATH=str(ROOT) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(
+        [sys.executable, script, json.dumps(args), str(r)],
+        env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    return {"root": root, "args": args, "procs": procs,
+            "t0": time.perf_counter()}
+
+
+def _mesh_pair_stop(pair: dict) -> None:
+    """Stops (b)'s processes if they still run and removes their
+    directory."""
+    import shutil
+
+    for p in pair["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    shutil.rmtree(pair["root"], ignore_errors=True)
+
+
+def _mesh_pair_runs(pair: dict) -> tuple:
+    """Phase 3s (b): the meshes of ``MESH_PAIR_MESHES`` on the two
+    processes of ``pair`` (:func:`_mesh_pair_start`) sharing the one card
+    over gloo (``MESH_PAIR`` width and depth, f32), each held to the
+    same model's run without a mesh in this process on the same batches.
+    Returns (gloo's answer to each collective and exchange on CUDA
+    tensors, the runs); a refused one fails the phase."""
+    import itertools
 
     import numpy as np
     import torch
@@ -10134,6 +10293,7 @@ def _mesh_pair_runs() -> tuple:
     from paddle_operator_tpu_torch.train.data import deterministic_lm_batches
 
     a = dict(MESH_PAIR)
+    t_ref = time.perf_counter()
     model, cfg = make_model(a["preset"], device="cuda", seed=0,
                             n_layers=a["layers"], dtype=torch.float32)
     opt = T.make_optimizer(a["lr"], warmup_steps=1, decay_steps=1000)
@@ -10144,38 +10304,26 @@ def _mesh_pair_runs() -> tuple:
         state, m = step(state, {"tokens": torch.as_tensor(b["tokens"],
                                                           device="cuda")})
         want.append({k: float(v) for k, v in m.items()})
-    root = tempfile.mkdtemp(prefix="chip_smoke_pair_")
-    args = dict(a, axes=[{"fsdp": 2}, {"tp": 2}], port=_free_port(),
-                ref=os.path.join(root, "ref.pt"))
+    ref = pair["args"]["ref"]
     torch.save({n: p.detach().cpu()
-                for n, p in state.model.named_parameters()}, args["ref"])
+                for n, p in state.model.named_parameters()}, ref + ".tmp")
+    os.replace(ref + ".tmp", ref)
     del state, model
     torch.cuda.empty_cache()
-    script = os.path.join(root, "pair.py")
-    Path(script).write_text(MESH_PAIR_CHILD)
-    env = dict(os.environ,
-               PYTHONPATH=str(ROOT) + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
+    ref_s = time.perf_counter() - t_ref
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, script, json.dumps(args), str(r)],
-        env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    procs = pair["procs"]
     outs = []
     try:
         for p in procs:
-            out, err = p.communicate(timeout=400)
+            out, err = p.communicate(timeout=600)
             if p.returncode != 0:
                 raise AssertionError(f"3s (b): a rank exited "
                                      f"{p.returncode}: {err[-3000:]}")
             outs.append([json.loads(ln) for ln in out.splitlines()
                          if ln.startswith("{")])
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        shutil.rmtree(root, ignore_errors=True)
+        _mesh_pair_stop(pair)
     wall = time.perf_counter() - t0
     # the ranks' answers (they agree unless one rank failed)
     probe = {k: next((o[0]["probe"][k] for o in outs
@@ -10183,34 +10331,49 @@ def _mesh_pair_runs() -> tuple:
              for k in outs[0][0]["probe"]}
     refused = sorted(k for k, v in probe.items() if v != "ok")
     log(f"mesh train pod (b): gloo on CUDA tensors, two processes on the "
-        f"one card: {probe}; "
-        + ("every collective carried: (b) runs" if not refused
-           else f"(b) left out: gloo refused {', '.join(refused)}"))
+        f"one card: {probe}")
     if refused:
-        return probe, None
+        raise AssertionError(f"3s (b): gloo refused {', '.join(refused)} "
+                             "on CUDA tensors, which the mesh steps need")
     runs = {}
     for mesh_out in zip(*(o[1:] for o in outs)):
         first = mesh_out[0]
-        tag = "x".join(f"{k}{v}" for k, v in first["axes"].items())
+        tag = first["tag"]
         metrics = first["metrics"]
         same = all(o["metrics"] == metrics for o in mesh_out)
-        diff, off = first["max_param_diff"], first["params_off"]
-        total = first["params_total"]
+        diff = max(o["max_param_diff"] for o in mesh_out)
+        off = sum(o["params_off"] for o in mesh_out)
+        total = sum(o["params_total"] for o in mesh_out)
+        launches = [o["launches"] for o in mesh_out]
+        want_launches = [mesh_pair_launches(tag, o["rank"], a["layers"],
+                                            a["steps"]) for o in mesh_out]
+        step_ms = [o["step_ms"] for o in mesh_out]
+        xbytes = [o["exchange_bytes_per_step"] for o in mesh_out]
+        secs = [(round(o["setup_s"], 2), round(o["check_s"], 2))
+                for o in mesh_out]
         pairs = [(m["loss"], w["loss"], m["grad_norm"], w["grad_norm"])
                  for m, w in zip(metrics, want)]
         log(f"mesh train pod (b) {tag}: two ranks on the one card over "
             f"gloo, {cfg.n_heads} heads ({first['local_heads']} a rank), "
+            f"layers a rank {[o['layers_here'] for o in mesh_out]}, "
             f"(loss, want, grad_norm, want) {pairs}; the ranks' metrics "
             f"equal: {same}; largest |param difference| {diff:.3e}, {off} "
             f"of {total} parameters off by more than 1e-5; flash launches "
-            f"a rank {[o['launches'] for o in mesh_out]}")
+            f"a rank {launches} (want {want_launches}"
+            + ("; ring attention runs plain ops, no flash kernel"
+               if tag == "cp2_ring" else "")
+            + f"); step ms a rank {step_ms}; exchange bytes a step a rank "
+            f"{xbytes}; s a rank to build the state and to check it "
+            f"{secs}")
         # Adam moves an element by about lr a step whatever its
         # gradient's size: an element whose gradient is at the f32 noise
         # of the two summation orders can step either way, so a few
         # elements may differ by up to 2 lr a step; a wrong shard would
         # move whole blocks
         ok = (same and len(metrics) == len(want) and off <= 1e-4 * total
+              and total == cfg.num_params()
               and diff <= 2 * a["lr"] * a["steps"]
+              and launches == want_launches
               and all(np.isclose(m["loss"], w["loss"], rtol=1e-5, atol=0)
                       and np.isclose(m["grad_norm"], w["grad_norm"],
                                      rtol=1e-4, atol=0)
@@ -10222,10 +10385,16 @@ def _mesh_pair_runs() -> tuple:
                      "grad_norms": [m["grad_norm"] for m in metrics],
                      "want_losses": [w["loss"] for w in want],
                      "max_param_diff": diff, "params_off": off,
-                     "params_total": total,
-                     "launches": [o["launches"] for o in mesh_out]}
+                     "params_total": total, "launches": launches,
+                     "step_ms": step_ms, "exchange_bytes": xbytes}
+    if set(runs) != {m[0] for m in MESH_PAIR_MESHES}:
+        raise AssertionError(f"3s (b): ran {sorted(runs)}, not every mesh "
+                             "of MESH_PAIR_MESHES")
     runs["wall_s"] = wall
-    log(f"mesh train pod (b): both meshes in {wall:.1f}s")
+    log(f"mesh train pod (b): {len(MESH_PAIR_MESHES)} meshes in "
+        f"{wall:.1f}s after the run without a mesh and its save "
+        f"({ref_s:.1f}s); the ranks, started before (a), probed after "
+        f"{[round(o[0]['ready_s'], 1) for o in outs]}s")
     return probe, runs
 
 
@@ -10250,6 +10419,7 @@ def phase_mesh_train_pod(reports: dict) -> None:
            if not k.startswith(("TPU_", "TPUJOB_", "MEGASCALE_"))}
     env.update(MESH_POD_ENV,
                PYTHONPATH=str(ROOT) + os.pathsep + env.get("PYTHONPATH", ""))
+    pair = _mesh_pair_start()
     try:
         t0 = time.perf_counter()
         proc = subprocess.run(
@@ -10315,7 +10485,7 @@ def phase_mesh_train_pod(reports: dict) -> None:
         if not np.isfinite(timed_losses).all():
             raise AssertionError(f"3s: a timed loss is not finite: "
                                  f"{timed_losses}")
-        probe, pair = _mesh_pair_runs()
+        probe, pair_runs = _mesh_pair_runs(pair)
         run = {"layers": layers, "batch": b, "seq": s, "steps": steps,
                "params": done["params"], "bit_equal": done["bit_equal"],
                "max_param_diff": done["max_param_diff"],
@@ -10326,7 +10496,7 @@ def phase_mesh_train_pod(reports: dict) -> None:
                "tokens_per_s": tok_s, "mfu": mfu,
                "peak_gb": done["peak_gb"], "launches": done["launches"],
                "timed_launches": done["timed_launches"],
-               "launch_s": launch_s, "gloo_cuda": probe, "pair": pair}
+               "launch_s": launch_s, "gloo_cuda": probe, "pair": pair_runs}
         log("mesh train pod: " + json.dumps(run))
         log(f"mesh train pod (one run, not a benchmark): step "
             f"{step_ms:.1f} ms (median of {len(times)} intervals), "
@@ -10337,6 +10507,7 @@ def phase_mesh_train_pod(reports: dict) -> None:
         for i, kern in enumerate(FLASH_KERNELS):
             reports[kern]["mesh_train_launches"] = done["launches"][i]
     finally:
+        _mesh_pair_stop(pair)
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -10446,7 +10617,7 @@ def main() -> int:
             _tier_sizes(TIER_LAYERS, cfg))
         gc.collect()
         torch.cuda.empty_cache()
-        run("3i", phase_weight_quant_ring, qmm, qmm_b, params, cfg)
+        run("3i", phase_weight_quant_ring, qmm, qmm_b)
         gc.collect()
         torch.cuda.empty_cache()
         runs_3j = run("3j", phase_interleave, (paged, quant), params, cfg)

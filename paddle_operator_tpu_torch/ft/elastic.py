@@ -3,8 +3,8 @@ for one card.
 
 A checkpoint holds whole tensors, so a restarted job may resume with
 another global batch: on one card the resize is a change of global
-batch (dp itself waits for ROADMAP.md Queue A item 8).  Two things do
-not come for free and are handled here:
+batch (an elastic dp over the mesh waits for ROADMAP.md Queue A item
+8.2).  Two things do not come for free and are handled here:
 
 - **data continuity**: the batch at global step *k* must be the same
   data whatever the batch size, or a resume repeats or skips data.

@@ -28,7 +28,8 @@ What differs from the JAX module:
   in-process store: no coordinator, no ``MASTER_ADDR``.  A mesh larger
   than the worker count (``chips_per_worker`` > 1: several cards a pod)
   is refused by name: one process a card under the shim is a later
-  step (ROADMAP.md Queue A item 8).
+  step (ROADMAP.md Queue A item 8.4).  Every axis the mesh step runs
+  (dp, pp, fsdp, cp, tp) is accepted; ``ep`` is refused by the step.
 - A ``ps`` or ``heter`` pod with no command would run the JAX package's
   parameter or batch-preparation server, which the port does not have
   (ROADMAP.md Queue A item 9): :func:`main` names that item and exits
@@ -54,7 +55,7 @@ _MULTICARD_TODO = ("mesh {mesh} has {size} devices over {workers} worker "
                    "process(es): pods of more than one card "
                    "(chips_per_worker > 1) are not ported to the torch "
                    "package, one process a card under the launcher is "
-                   "(ROADMAP.md Queue A item 8, 'Parallelism')")
+                   "(ROADMAP.md Queue A item 8.4, 'Parallelism')")
 
 
 @dataclass

@@ -40,9 +40,8 @@ backward recomputes, as the JAX package's ``_layer_cls`` policies do:
 The last two run ``torch.utils.checkpoint``'s selective policy
 (``create_selective_checkpoint_contexts``), which sees dispatcher
 operations: that is why the flash forward is a ``torch.library``
-operator (ops/flash_attention.py).  ``scan_layers`` and ``cp_impl`` are
-not fields here, so a caller that sets them gets a ``TypeError``
-(``cp_impl`` waits for ROADMAP.md Queue A item 8; layers are always
+operator (ops/flash_attention.py).  ``scan_layers`` is not a field
+here, so a caller that sets it gets a ``TypeError`` (layers are always
 separate modules).
 
 MoE configs (``n_experts > 0``): each layer's FFN is a
@@ -61,6 +60,24 @@ matching row shards, so attention runs on the rank's own heads through
 the flash kernels (whole GQA groups: :func:`check_tp`), the embedding
 looks up the rank's vocab rows and ``lm_head`` gives its vocab slice of
 the logits.  Unsharded, each of these is the single-device operation.
+
+Context parallelism (a mesh whose ``cp`` axis is above 1): each rank
+holds a contiguous chunk of the sequence, RoPE takes the chunk's
+absolute offset, and attention runs over the whole sequence as JAX's
+``Attention`` dispatches it: ``cp_impl`` "ring"
+(``parallel/ring_attention.py``) or "ulysses"
+(``parallel/ulysses.py``, when ``cp`` divides ``n_heads`` and
+``n_kv_heads``; ring otherwise); another ``cp_impl`` raises.
+
+Pipeline parallelism (``pp`` above 1): a rank holds only its stage's
+layers, a contiguous block; the others are :class:`OtherStage`
+placeholders without parameters, so the state dict names the layers the
+rank holds under their global indices.  The pipeline train step
+(``train/trainer.py`` ``make_pp_train_step``) runs the stage through
+:class:`LayerStack` (JAX's ``LayerStack``: the same per-layer remat as
+:meth:`Llama.forward`) and the embedding and head through
+:meth:`Llama.embed` and :meth:`Llama.head` (JAX's standalone
+``embed_module``, ``final_norm_module`` and ``lm_head_module``).
 """
 
 from __future__ import annotations
@@ -68,6 +85,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import re
 import threading
 from typing import Any, Optional, Tuple
 
@@ -78,8 +96,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from paddle_operator_tpu_torch.ops.attention import attention
 from paddle_operator_tpu_torch.ops.quant_matmul import quant_mm
+from paddle_operator_tpu_torch.parallel.ring_attention import ring_attention
+from paddle_operator_tpu_torch.parallel.ulysses import (kv_repeat,
+                                                        ulysses_attention)
 from paddle_operator_tpu_torch.parallel.collectives import (
-    copy_to_tp, gather_param, reduce_from_tp, tp_group, vocab_parallel_embed)
+    copy_to_tp, cp_group, gather_param, reduce_from_tp, tp_group,
+    vocab_parallel_embed)
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
@@ -101,6 +123,11 @@ class LlamaConfig:
     # what the recompute may skip: "full" (nothing), "save_attn" (the
     # attention), "dots" (the projections' outputs); module docstring
     remat_policy: str = "full"
+    # context-parallel attention when cp > 1: "ring" (K/V rotation,
+    # parallel/ring_attention.py) or "ulysses" (head/seq all-to-all,
+    # parallel/ulysses.py — needs n_heads and n_kv_heads divisible by
+    # cp; ring otherwise)
+    cp_impl: str = "ring"
     n_experts: int = 0
     moe_capacity_factor: float = 1.25
     moe_top_k: int = 1
@@ -359,11 +386,35 @@ class Attention(nn.Module):
         q = self.wq(x).reshape(b, s, -1, cfg.head_dim)
         k = self.wk(x).reshape(b, s, -1, cfg.head_dim)
         v = self.wv(x).reshape(b, s, -1, cfg.head_dim)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        # under cp this rank holds chunk cp[1] of the sequence: RoPE
+        # takes its absolute positions
+        cp = cp_group(getattr(self.wq, "kernel", None))
+        offset = 0 if cp is None else cp[1] * s
+        q = apply_rope(q, cos, sin, offset)
+        k = apply_rope(k, cos, sin, offset)
         with _attention_scope():
-            out = attention(q, k, v, causal=True, segment_ids=segment_ids)
+            if cp is None:
+                out = attention(q, k, v, causal=True,
+                                segment_ids=segment_ids)
+            elif cp_attention(cfg, cp[2]) == "ulysses":
+                out = ulysses_attention(q, k, v, segment_ids, cp=cp)
+            else:
+                out = ring_attention(q, k, v, segment_ids, cp=cp)
         return reduce_from_tp(self.wo(out.reshape(b, s, -1)), tp)
+
+
+def cp_attention(cfg: LlamaConfig, cp: int) -> str:
+    """The attention a layer runs over a ``cp`` axis of size ``cp`` > 1
+    (JAX ``Attention``'s dispatch): "ulysses" when ``cfg.cp_impl`` asks
+    for it and ``cp`` divides ``n_heads`` and ``n_kv_heads``, else
+    "ring".  An unknown ``cp_impl`` raises ``ValueError``."""
+    if cfg.cp_impl not in ("ring", "ulysses"):
+        raise ValueError(f"unknown cp_impl {cfg.cp_impl!r} "
+                         "(expected 'ring' or 'ulysses')")
+    if (cfg.cp_impl == "ulysses" and cfg.n_heads % cp == 0
+            and cfg.n_kv_heads % cp == 0):
+        return "ulysses"
+    return "ring"
 
 
 class MLP(nn.Module):
@@ -419,6 +470,63 @@ class DecoderLayer(nn.Module):
         return h + ffn, aux
 
 
+class OtherStage(nn.Module):
+    """The place of layer ``index`` on a rank of another pipeline stage
+    (``stage``): no parameters, and running it raises."""
+
+    def __init__(self, index: int, stage: int) -> None:
+        super().__init__()
+        self.index, self.stage = index, stage
+
+    def forward(self, *args, **kwargs):
+        raise RuntimeError(f"layer {self.index} lives on pp stage "
+                           f"{self.stage}: a pp-sharded model runs through "
+                           "the pipeline step (train/trainer.py "
+                           "make_pp_train_step)")
+
+
+def _run_layers(cfg: LlamaConfig, layers, x: torch.Tensor,
+                cos: torch.Tensor, sin: torch.Tensor,
+                segment_ids: Optional[torch.Tensor]):
+    """``layers`` in turn, each under the per-layer checkpoint of
+    ``cfg.remat`` while gradients are recorded -> ``(x, aux)``: the
+    layers' summed MoE load-balancing losses, None for dense FFNs."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    extra = {}
+    context = _remat_context(cfg.remat_policy)
+    if context is not None:
+        extra["context_fn"] = context
+    aux_sum = None
+    for layer in layers:
+        if remat:
+            x, aux = checkpoint(layer, x, cos, sin, segment_ids,
+                                use_reentrant=False, **extra)
+        else:
+            x, aux = layer(x, cos, sin, segment_ids)
+        if aux is not None:
+            aux_sum = aux if aux_sum is None else aux_sum + aux
+    return x, aux_sum
+
+
+class LayerStack(nn.Module):
+    """The decoder trunk alone: a contiguous block of a model's
+    :class:`DecoderLayer` s under the same per-layer remat as
+    :meth:`Llama.forward` (JAX ``LayerStack``).  A pipeline stage runs
+    its block through it; its parameters are the block's.  Returns
+    ``(x, aux)`` as JAX's does (aux None for dense configs).  The RoPE
+    tables are the caller's (:attr:`Llama.rope_cos`/``rope_sin``)."""
+
+    def __init__(self, cfg: LlamaConfig, layers) -> None:
+        super().__init__()
+        self.cfg = cfg
+        self.layers = nn.ModuleList(layers)
+
+    def forward(self, x: torch.Tensor, cos: torch.Tensor,
+                sin: torch.Tensor,
+                segment_ids: Optional[torch.Tensor] = None):
+        return _run_layers(self.cfg, self.layers, x, cos, sin, segment_ids)
+
+
 class Llama(nn.Module):
     """``tokens [B, S]`` int -> ``[B, S, vocab]`` f32 logits (the
     training forward; decoding goes through infer/decode.py over the
@@ -460,30 +568,30 @@ class Llama(nn.Module):
         (``train/trainer.py`` ``create_state(mesh=...)``) takes this
         rank's rows and, under tp, returns its vocab slice of the
         logits."""
-        x = self.tok_embed(tokens)
-        remat = self.cfg.remat and torch.is_grad_enabled()
-        extra = {}
-        context = _remat_context(self.cfg.remat_policy)
-        if context is not None:
-            extra["context_fn"] = context
-        aux_sum = None
-        for layer in self.layers:
-            if remat:
-                x, aux = checkpoint(layer, x, self.rope_cos, self.rope_sin,
-                                    segment_ids, use_reentrant=False,
-                                    **extra)
-            else:
-                x, aux = layer(x, self.rope_cos, self.rope_sin, segment_ids)
-            if aux is not None:
-                aux_sum = aux if aux_sum is None else aux_sum + aux
-        x = self.final_norm(x)
-        # under tp: lm_head's column shard gives this rank's vocab slice
-        # of the logits, [B, S, V/tp]
-        x = copy_to_tp(x, tp_group(getattr(self.lm_head, "kernel", None)))
-        logits = self.lm_head(x).float()
+        x, aux_sum = _run_layers(self.cfg, self.layers, self.embed(tokens),
+                                 self.rope_cos, self.rope_sin, segment_ids)
+        logits = self.head(x)
         if self.cfg.n_experts > 0:
             return logits, aux_sum * self.cfg.moe_aux_weight
         return logits
+
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The token embedding alone (JAX ``embed_module``)."""
+        return self.tok_embed(tokens)
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """The final norm and the LM head alone (JAX
+        ``final_norm_module`` and ``lm_head_module``): f32 logits; under
+        tp this rank's vocab slice, ``[..., V/tp]``."""
+        x = self.final_norm(x)
+        x = copy_to_tp(x, tp_group(getattr(self.lm_head, "kernel", None)))
+        return self.lm_head(x).float()
+
+    def stage_layers(self) -> LayerStack:
+        """The layers this rank holds (all of them unless pp-sharded),
+        as a :class:`LayerStack`."""
+        return LayerStack(self.cfg, [m for m in self.layers
+                                     if not isinstance(m, OtherStage)])
 
 
 def make_model(preset: str = "tiny", *, device="cuda", seed: int = 0,
@@ -492,10 +600,10 @@ def make_model(preset: str = "tiny", *, device="cuda", seed: int = 0,
     caller asks otherwise) from ``torch.Generator`` seed ``seed``.
     ``overrides`` replace config fields (``dtype=torch.float32`` for
     f32 tests, ``param_dtype=torch.bfloat16`` to init straight into the
-    serving dtype).  The JAX signature's ``mesh`` only switches on
-    context parallelism, which waits (ROADMAP.md Queue A item 8): it is
-    not a parameter.  A model is sharded over a mesh after its init
-    (``train/trainer.py`` ``create_state``)."""
+    serving dtype).  The JAX signature's ``mesh`` is not a parameter: a
+    model is sharded over a mesh after its init (``train/trainer.py``
+    ``create_state``), and its layers read the ``cp`` axis (context
+    parallelism) from their parameters' mesh."""
     cfg = dataclasses.replace(CONFIGS[preset], **overrides)
     _remat_context(cfg.remat_policy)           # an unknown policy raises
     device = torch.device(device)
@@ -524,12 +632,14 @@ _LAYER_PATTERNS = [
 def partition_patterns(cfg: LlamaConfig):
     """(name-regex, logical spec) table for
     ``parallel/sharding.py`` ``tree_shardings``: the JAX package's
-    specs on the port's names.  MoE configs are refused by name (the
-    expert axis waits for expert parallelism)."""
+    specs on the port's names (a layer's leading ``layers`` dim, pp
+    under pipeline parallelism, is its stage: :func:`layer_stage`).  MoE
+    configs are refused by name (the expert axis waits for expert
+    parallelism)."""
     if cfg.n_experts > 0:
         raise NotImplementedError(
             "MoE models on a mesh: expert parallelism for models/moe.py is "
-            "not ported to the torch package (ROADMAP.md Queue A item 8, "
+            "not ported to the torch package (ROADMAP.md Queue A item 8.1, "
             "'Parallelism')")
     return [
         (r"tok_embed\.embedding", ("vocab", "embed")),
@@ -547,3 +657,30 @@ def check_tp(cfg: LlamaConfig, tp: int) -> None:
             f"tp={tp} must divide n_heads={cfg.n_heads} and n_kv_heads="
             f"{cfg.n_kv_heads}: a shard's query heads must find their kv "
             "heads (whole GQA groups) on the same shard")
+
+
+def layer_index(name: str) -> Optional[int]:
+    """The layer a state-dict name belongs to (``layers.<i>.…``), or
+    None for the embedding, the final norm and the head."""
+    m = re.match(r"layers\.(\d+)\.", name)
+    return None if m is None else int(m.group(1))
+
+
+def layer_stage(cfg: LlamaConfig, index: int, pp: int) -> int:
+    """The pipeline stage holding layer ``index``: stage *s* holds layers
+    ``[s·L/pp, (s+1)·L/pp)`` (JAX's ``layers → pp`` sharding of the
+    stacked axis).  ``n_layers`` not divisible by ``pp`` raises JAX's
+    ``ValueError``."""
+    if cfg.n_layers % pp:
+        raise ValueError(f"n_layers={cfg.n_layers} not divisible by "
+                         f"pp={pp}")
+    return index // (cfg.n_layers // pp)
+
+
+def check_cp(cfg: LlamaConfig, cp: int, tp: int) -> None:
+    """Refuse, before any step, what the attention over a ``cp`` axis of
+    size ``cp`` would refuse at its first call: an unknown ``cp_impl``,
+    and Ulysses on ``H/tp`` query heads that ``cp`` does not divide
+    (``parallel/ulysses.py`` ``kv_repeat``)."""
+    if cp > 1 and cp_attention(cfg, cp) == "ulysses":
+        kv_repeat(cfg.n_heads // tp, cfg.n_kv_heads // tp, cp)

@@ -25,7 +25,7 @@ does); the work is ``E * C * D`` copies instead of a product.  The
 expert products run as batched matrix products over the expert axis.
 
 Expert parallelism (the ``ep`` mesh axis) waits for ROADMAP.md Queue A
-item 8: every expert lives on the one card.
+item 8.1: every expert lives on the one card.
 """
 
 from __future__ import annotations

@@ -28,13 +28,39 @@ out for a ``dp × fsdp × tp`` mesh (``parallel/mesh.py``).
   a process whose gloo group carries CUDA tensors (torch 2.11, phase 3s
   (b) of chip_smoke.py).
 
+The exchanges of context and pipeline parallelism (JAX's ``ppermute``
+and ``all_to_all``) all run on ONE c10d primitive,
+``all_to_all_single`` with split sizes (:func:`exchange`): nccl runs it
+on a pod, gloo on the CPU and (staging through the host) on CUDA tensors
+of ranks that share a card, where gloo's ``send``/``recv`` would read a
+device pointer as a host one.
+
+- :func:`ring_shift` — tensors sent to the next rank of an axis and
+  received from the previous one (a cyclic ``ppermute``); its backward
+  is the reverse shift.  Ring attention rotates K and V with it, in one
+  exchange a hop, so each hop's backward is one exchange too (two
+  separate exchanges could be issued in different orders by ranks whose
+  graphs differ).
+- :func:`all_to_all` — each tensor split along one dim, the i-th piece
+  sent to rank i, the received pieces concatenated along another dim in
+  rank order (JAX's tiled ``all_to_all``); its backward is the inverse
+  exchange (Ulysses).
+- :func:`all_gather_no_grad` — an all-gather along a dim outside
+  autograd (Ulysses' ``segment_ids``).
+- :func:`pipeline_hop` — the acyclic exchange of a pipeline round,
+  outside autograd: an activation to the next stage, a cotangent to the
+  previous one.
+
+Every exchange counts the bytes it sends in :data:`EXCHANGE`.
+
 An axis of size 1 gets no collective: on a mesh whose axes are all 1 the
 step runs the single-device operations and nothing else.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -204,12 +230,12 @@ def vocab_parallel_log_prob(logits: torch.Tensor, targets: torch.Tensor,
     return _VocabParallelLogProb.apply(logits, targets.long(), group, rank)
 
 
-def all_reduce_data(t: torch.Tensor, mesh, op=dist.ReduceOp.SUM
-                    ) -> torch.Tensor:
-    """``t`` reduced in place over the data axes of ``mesh`` (dp, then
-    fsdp; an axis of size 1 is skipped).  Every rank ends with the same
-    bits."""
-    for axis in DATA_AXES:
+def all_reduce_data(t: torch.Tensor, mesh, op=dist.ReduceOp.SUM,
+                    axes=DATA_AXES) -> torch.Tensor:
+    """``t`` reduced in place over ``axes`` of ``mesh`` (the data axes,
+    dp then fsdp, by default; an axis of size 1 is skipped).  Every rank
+    ends with the same bits."""
+    for axis in axes:
         group = axis_group(mesh, axis)
         if group is not None:
             dist.all_reduce(t, op=op, group=group)
@@ -238,3 +264,169 @@ def group_of(mesh, axis: str) -> Optional[Tuple]:
     if group is None:
         return None
     return group, dist.get_rank(group), dist.get_world_size(group)
+
+
+def cp_group(p: torch.Tensor):
+    """(group, rank, size) of the ``cp`` axis of the mesh that parameter
+    ``p`` is laid over, or None when that axis has size 1 (or ``p`` is
+    not a DTensor): the ranks that split the sequence of ``p``'s
+    layer."""
+    if not isinstance(p, DTensor):
+        return None
+    mesh = p.device_mesh
+    i = list(mesh.mesh_dim_names).index("cp")
+    if mesh.mesh.shape[i] <= 1:
+        return None
+    group = mesh.get_group("cp")
+    return group, dist.get_rank(group), dist.get_world_size(group)
+
+
+# bytes each kind of exchange sent from this process ("shift", "a2a",
+# "hop"); a caller zeroes and reads them around the work it measures
+EXCHANGE: Dict[str, int] = {"shift": 0, "a2a": 0, "hop": 0}
+
+
+def exchange(sends: Dict[int, torch.Tensor],
+             recvs: Dict[int, Sequence[int]], group, *, like: torch.Tensor,
+             kind: str = "hop") -> Dict[int, torch.Tensor]:
+    """One ``all_to_all_single`` over ``group``: ``sends`` maps a group
+    rank to the tensor sent to it, ``recvs`` a group rank to the shape
+    of the tensor received from it (dtype and device of ``like``, as
+    every sent tensor).  Returns the received tensors by source, each
+    contiguous.  Every rank of ``group`` calls it, with matching sizes;
+    a rank that neither sends nor receives passes two empty maps."""
+    n = dist.get_world_size(group)
+    size = like.element_size()
+    in_splits, out_splits = [0] * n, [0] * n
+    for dst, t in sends.items():
+        in_splits[dst] = t.numel() * size
+    for src, shape in recvs.items():
+        out_splits[src] = math.prod(shape) * size
+    # moved as bytes: the exchange copies, and every backend moves uint8
+    parts = [sends[r].reshape(-1).view(torch.uint8) for r in sorted(sends)]
+    inp = (torch.cat(parts) if parts
+           else torch.empty(0, dtype=torch.uint8, device=like.device))
+    out = torch.empty(sum(out_splits), dtype=torch.uint8, device=like.device)
+    dist.all_to_all_single(out, inp, out_splits, in_splits, group=group)
+    EXCHANGE[kind] += inp.numel()
+    got, off = {}, 0
+    for r in range(n):
+        if r in recvs:
+            got[r] = out[off:off + out_splits[r]].view(like.dtype) \
+                .view(tuple(recvs[r]))
+        off += out_splits[r]
+    return got
+
+
+def _shift(xs: Sequence[torch.Tensor], cp, step: int
+           ) -> Tuple[torch.Tensor, ...]:
+    """``xs`` (one dtype) sent ``step`` ranks on around the ring of
+    ``cp`` and received from ``step`` ranks back, in one exchange."""
+    group, rank, n = cp
+    buf = torch.cat([x.reshape(-1) for x in xs])
+    got = exchange({(rank + step) % n: buf},
+                   {(rank - step) % n: buf.shape}, group, like=buf,
+                   kind="shift")[(rank - step) % n]
+    out, off = [], 0
+    for x in xs:
+        out.append(got[off:off + x.numel()].view(x.shape))
+        off += x.numel()
+    return tuple(out)
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cp, *xs):
+        ctx.cp = cp
+        return _shift(xs, cp, 1)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None,) + _shift(gs, ctx.cp, -1)
+
+
+def ring_shift(*xs: torch.Tensor, cp) -> Tuple[torch.Tensor, ...]:
+    """``xs`` (one dtype) from the previous rank of the ``cp`` ring
+    ((group, rank, size)), this rank's sent to the next: JAX's
+    ``ppermute`` with ``perm [(i, (i + 1) % n)]``.  Differentiable: the
+    backward shifts the gradients the other way.  Outside autograd
+    (integer ``segment_ids``) it is the same exchange."""
+    if not any(x.requires_grad for x in xs) or not torch.is_grad_enabled():
+        with torch.no_grad():
+            return _shift(xs, cp, 1)
+    return _RingShift.apply(cp, *xs)
+
+
+def _a2a(xs: Sequence[torch.Tensor], split_dim: int, concat_dim: int,
+         group) -> Tuple[torch.Tensor, ...]:
+    n = dist.get_world_size(group)
+    pieces = [x.chunk(n, split_dim) for x in xs]
+    sends = {r: torch.cat([p[r].reshape(-1) for p in pieces])
+             for r in range(n)}
+    got = exchange(sends, {r: sends[r].shape for r in range(n)}, group,
+                   like=sends[0], kind="a2a")
+    res, off = [], 0
+    for p in pieces:
+        shape, size = p[0].shape, p[0].numel()
+        res.append(torch.cat([got[r][off:off + size].view(shape)
+                              for r in range(n)], dim=concat_dim))
+        off += size
+    return tuple(res)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, split_dim, concat_dim, group, *xs):
+        ctx.dims, ctx.group = (split_dim, concat_dim), group
+        return _a2a(xs, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        split_dim, concat_dim = ctx.dims
+        return (None, None, None) + _a2a(gs, concat_dim, split_dim,
+                                         ctx.group)
+
+
+def all_to_all(*xs: torch.Tensor, split_dim: int, concat_dim: int,
+               cp) -> Tuple[torch.Tensor, ...]:
+    """Each of ``xs`` (one dtype) split along ``split_dim`` into the
+    ``cp`` axis' size pieces, piece *i* to rank *i*, and what arrives
+    concatenated along ``concat_dim`` in rank order (JAX's tiled
+    ``all_to_all``), all in one exchange.  Its backward is the inverse
+    exchange."""
+    return _AllToAll.apply(split_dim, concat_dim, cp[0], *xs)
+
+
+@torch.no_grad()
+def all_gather_no_grad(x: torch.Tensor, dim: int, cp) -> torch.Tensor:
+    """``x`` gathered along ``dim`` over the ``cp`` axis, in rank order,
+    without a gradient."""
+    return _all_gather_dim(x, dim, cp[0])
+
+
+@torch.no_grad()
+def pipeline_hop(pp, *, fwd: Optional[torch.Tensor] = None,
+                 bwd: Optional[torch.Tensor] = None,
+                 recv_fwd: Optional[Sequence[int]] = None,
+                 recv_bwd: Optional[Sequence[int]] = None,
+                 like: torch.Tensor
+                 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """One round's exchange along the pipeline axis ``pp`` ((group,
+    stage, size)), outside autograd: ``fwd`` to the next stage and
+    ``bwd`` to the previous one; returns what arrives from the previous
+    stage (shape ``recv_fwd``) and from the next (``recv_bwd``).  JAX's
+    acyclic ``ppermute`` pair: the first stage receives no activation,
+    the last sends none.  Every stage calls it every round, with the
+    sizes that the schedule makes live."""
+    group, stage, _ = pp
+    sends, recvs = {}, {}
+    if fwd is not None:
+        sends[stage + 1] = fwd
+    if bwd is not None:
+        sends[stage - 1] = bwd
+    if recv_fwd is not None:
+        recvs[stage - 1] = recv_fwd
+    if recv_bwd is not None:
+        recvs[stage + 1] = recv_bwd
+    got = exchange(sends, recvs, group, like=like)
+    return got.get(stage - 1), got.get(stage + 1)

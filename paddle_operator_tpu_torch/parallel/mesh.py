@@ -31,9 +31,13 @@ What differs from the JAX module:
 - ``make_serving_mesh`` waits for serving tensor parallelism;
   ``resolve_shard_map_mesh``, ``supports_partial_manual`` and
   ``compat_shard_map`` are JAX-version shims with no counterpart.
-- :func:`check_supported` refuses, by name, the axes whose parallel
-  step is not ported: ``pp``, ``cp`` and ``ep`` above 1 (ROADMAP.md
-  Queue A item 8).
+- :func:`check_supported` refuses, by name, the axis whose parallel
+  step is not ported: ``ep`` above 1 (ROADMAP.md Queue A item 8.1).
+  ``cp`` and ``pp`` run (ring and Ulysses attention, the GPipe and 1F1B
+  pipeline step).
+- Under ``pp`` a stage's layers live only on that stage's ranks: their
+  DTensors are laid over :func:`stage_mesh`, the mesh without ``pp`` at
+  this rank's stage (:data:`STAGE_AXES`).
 - A mesh over more than one rank carries a gloo group over the same
   ranks (:func:`control_group`) for host-side agreement (the drain
   flag, the checkpoint commit): it never waits for the card.
@@ -56,17 +60,24 @@ AXIS_ORDER: Sequence[str] = ("dp", "pp", "fsdp", "cp", "ep", "tp")
 # reduction happen over these.
 DATA_AXES = ("dp", "fsdp")
 
-# the parallel steps not ported yet, by axis (ROADMAP.md Queue A item 8)
+# Axes over which the tokens of a global batch are split: a loss's
+# denominator and every gradient are summed over these.
+TOKEN_AXES = DATA_AXES + ("cp",)
+
+# The axes of a pipeline stage's sub-mesh (every axis but pp).
+STAGE_AXES: Sequence[str] = tuple(a for a in AXIS_ORDER if a != "pp")
+
+# the parallel steps not ported yet, by axis: (what, ROADMAP.md Queue A
+# item)
 _UNPORTED = {
-    "pp": "the pipeline-parallel step (make_pp_train_step, "
-          "parallel/pipeline.py)",
-    "cp": "context parallelism (ring and Ulysses attention)",
-    "ep": "expert parallelism for models/moe.py",
+    "ep": ("expert parallelism for models/moe.py", "8.1"),
 }
 
 # mesh -> its host-side gloo group (meshes over the same ranks compare
 # equal and share one)
 _CONTROL: Dict[DeviceMesh, Optional[dist.ProcessGroup]] = {}
+# mesh -> the sub-mesh of this rank's pipeline stage
+_STAGE: Dict[DeviceMesh, DeviceMesh] = {}
 
 
 def mesh_shape(spec: MeshSpec) -> List[int]:
@@ -179,10 +190,23 @@ def require_mesh(mesh) -> None:
 
 
 def check_supported(mesh: DeviceMesh) -> None:
-    """Refuse, by name, an axis whose parallel step is not ported."""
+    """Refuse, by name, an axis whose parallel step is not ported
+    (``ep``; ``dp``, ``pp``, ``fsdp``, ``cp`` and ``tp`` run)."""
     sizes = mesh_axis_sizes(mesh)
-    for axis, what in _UNPORTED.items():
+    for axis, (what, item) in _UNPORTED.items():
         if sizes[axis] > 1:
             raise NotImplementedError(
                 f"{axis}={sizes[axis]}: {what} is not ported to the torch "
-                "package (ROADMAP.md Queue A item 8, 'Parallelism')")
+                f"package (ROADMAP.md Queue A item {item}, 'Parallelism')")
+
+
+def stage_mesh(mesh: DeviceMesh) -> DeviceMesh:
+    """The sub-mesh of this rank's pipeline stage: ``mesh`` without its
+    ``pp`` axis, at this rank's pp coordinate (:data:`STAGE_AXES`).  A
+    stage's layers are DTensors over it: replicated or sharded over the
+    ranks that hold that stage and no others.  Every rank of ``mesh``
+    calls this in the same order (the first call slices the mesh)."""
+    sub = _STAGE.get(mesh)
+    if sub is None:
+        sub = _STAGE[mesh] = mesh[tuple(STAGE_AXES)]
+    return sub

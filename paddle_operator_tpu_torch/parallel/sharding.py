@@ -34,7 +34,17 @@ What differs from the JAX module:
   refused on a mesh with an axis above 1, ROADMAP.md).
 - :func:`batch_sharding` gives the batch's placements; :func:`shard_batch`
   wraps this rank's rows of a global batch as DTensors with them (the
-  port of placing a host batch onto the mesh).
+  port of placing a host batch onto the mesh).  A rank holds whole
+  rows, replicated over ``cp``: the causal-LM train step cuts its cp
+  chunk itself after the next-token shift, since a chunk's last target
+  is the next chunk's first token.
+- ``layers → pp``: the port's layers are separate modules, not a
+  stacked axis, so the rule is a placement of whole layers: stage *s*
+  holds layers ``[s·L/pp, (s+1)·L/pp)`` (``models/llama.py``
+  ``layer_stage``), each a DTensor over the stage's sub-mesh
+  (``parallel/mesh.py`` ``stage_mesh``) with the placements of the rest
+  of its spec.  :func:`placement_by_axis` reads any parameter's
+  placements by axis name, whichever mesh it lies on.
 - ``kv_cache_sharding`` waits for serving tensor parallelism.
 """
 
@@ -48,7 +58,8 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
 
-from paddle_operator_tpu_torch.parallel.mesh import (coordinates,
+from paddle_operator_tpu_torch.parallel.mesh import (STAGE_AXES,
+                                                     coordinates,
                                                      mesh_axis_sizes)
 
 LogicalSpec = Tuple[Optional[str], ...]
@@ -121,12 +132,13 @@ def _axes(entry) -> Tuple[str, ...]:
     return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
 
 
-def placements(spec: MeshSpecTuple, mesh: DeviceMesh
+def placements(spec: MeshSpecTuple, mesh
                ) -> Tuple[Placement, ...]:
     """DTensor placements of a tensor whose dim *d* is sharded over the
-    mesh axes of ``spec[d]``.  Axes sharding one dim must come in mesh
-    order (outer first), as DTensor nests them."""
-    names = list(mesh.mesh_dim_names)
+    mesh axes of ``spec[d]``, on ``mesh`` (a DeviceMesh, or its axis
+    names).  Axes sharding one dim must come in mesh order (outer
+    first), as DTensor nests them."""
+    names = list(getattr(mesh, "mesh_dim_names", mesh))
     out: list = [Replicate()] * len(names)
     for d, entry in enumerate(spec):
         last = -1
@@ -142,13 +154,13 @@ def placements(spec: MeshSpecTuple, mesh: DeviceMesh
     return tuple(out)
 
 
-def spec_of(pl: Sequence[Placement], mesh: DeviceMesh,
+def spec_of(pl: Sequence[Placement], mesh,
             ndim: int) -> MeshSpecTuple:
-    """The per-dim tuple of mesh axes of ``pl`` (the inverse of
-    :func:`placements`); a dim sharded by one axis gives its name, by
-    several a tuple."""
+    """The per-dim tuple of mesh axes of ``pl`` on ``mesh`` (a
+    DeviceMesh, or its axis names; the inverse of :func:`placements`);
+    a dim sharded by one axis gives its name, by several a tuple."""
     dims: list = [[] for _ in range(ndim)]
-    for name, p in zip(mesh.mesh_dim_names, pl):
+    for name, p in zip(getattr(mesh, "mesh_dim_names", mesh), pl):
         if isinstance(p, Shard):
             dims[p.dim].append(name)
     return tuple(None if not a else (a[0] if len(a) == 1 else tuple(a))
@@ -184,20 +196,36 @@ def tree_specs(shapes: Mapping[str, Any], mesh,
 
 def tree_shardings(shapes: Mapping[str, Any], mesh: DeviceMesh,
                    path_patterns: Sequence[Tuple[str, LogicalSpec]],
-                   rules: Optional[Dict[str, Any]] = None
-                   ) -> Dict[str, Tuple[Placement, ...]]:
+                   rules: Optional[Dict[str, Any]] = None,
+                   stage_names=()) -> Dict[str, Tuple[Placement, ...]]:
     """DTensor placements for every name of ``shapes``
-    (:func:`tree_specs` on ``mesh``)."""
-    return {name: placements(spec, mesh) for name, spec in
-            tree_specs(shapes, mesh, path_patterns, rules).items()}
+    (:func:`tree_specs` on ``mesh``); a name of ``stage_names`` (a pp
+    stage's layer) gets them over the stage's axes
+    (``parallel.mesh.STAGE_AXES``)."""
+    return {name: placements(spec, STAGE_AXES if name in stage_names
+                             else mesh)
+            for name, spec in tree_specs(shapes, mesh, path_patterns,
+                                         rules).items()}
 
 
-def batch_sharding(mesh: DeviceMesh) -> Tuple[Placement, ...]:
+def batch_sharding(mesh: DeviceMesh,
+                   seq_axis: bool = False) -> Tuple[Placement, ...]:
     """Placements of a [batch, seq, ...] input batch: batch over (dp,
-    fsdp).  The JAX signature's ``extra_dims`` only pads its
-    PartitionSpec with None; its ``seq_axis`` (seq over cp) waits for
-    context parallelism (ROADMAP.md Queue A item 8)."""
-    return placements(logical_to_mesh(("batch",), None, mesh), mesh)
+    fsdp), and with ``seq_axis`` seq over cp.  The JAX signature's
+    ``extra_dims`` only pads its PartitionSpec with None."""
+    spec = ("batch", "seq") if seq_axis else ("batch",)
+    return placements(logical_to_mesh(spec, None, mesh), mesh)
+
+
+def placement_by_axis(p: torch.Tensor) -> Dict[str, Placement]:
+    """Axis name -> placement of DTensor ``p`` over its own mesh (a
+    stage's layer lies on the stage's sub-mesh, which has no pp)."""
+    return dict(zip(p.device_mesh.mesh_dim_names, p.placements))
+
+
+def param_spec(p: torch.Tensor) -> MeshSpecTuple:
+    """:func:`spec_of` a DTensor ``p`` over its own mesh."""
+    return spec_of(p.placements, p.device_mesh, p.ndim)
 
 
 def region(shape: Sequence[int], spec: MeshSpecTuple,
@@ -268,12 +296,11 @@ def local_batch(batch: Mapping[str, Any], mesh: DeviceMesh,
     out = {}
     for k, v in batch.items():
         t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
-        t = t.to(device)
+        shape = [t.shape[0] * count, *t.shape[1:]]
+        t = t.contiguous().to(device)
         out[k] = DTensor.from_local(
-            t, mesh, pl, run_check=False,
-            shape=(t.shape[0] * count, *t.shape[1:]),
-            stride=torch.empty((t.shape[0] * count, *t.shape[1:]),
-                               device="meta").stride())
+            t, mesh, pl, run_check=False, shape=tuple(shape),
+            stride=torch.empty(shape, device="meta").stride())
     return out
 
 

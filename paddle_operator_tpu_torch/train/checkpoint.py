@@ -33,7 +33,10 @@ any step:
 
 - ``params.pt`` is whole: every parameter is all-gathered
   (``parallel/collectives.py`` ``full_tensor``) and rank 0 writes the
-  file;
+  file.  Under pp rank 0 holds only stage 0's layers: each other
+  stage's first rank sends its gathered layers to rank 0 over the
+  mesh's gloo group (c10d ``send``/``recv`` of host copies), so every
+  layer is saved once;
 - the moments are written per rank, unreplicated: each rank at dp
   coordinate 0 writes ``opt-<rank>.pt`` (its coordinates, the mesh's
   axis sizes, and per field and name the local shard with the global
@@ -50,7 +53,8 @@ A restore into a sharded state cuts each rank's region out of
 ``params.pt``, and reads its moments from the shard file of its
 coordinates (dp 0) when the mesh has the saved axis sizes, else
 reassembles them whole and cuts them; a restore into a one-card state
-reassembles the moments from the shard files.  So a step restores on
+reassembles the moments from the shard files.  A pp rank reads only its
+stage's layers and the replicated parameters.  So a step restores on
 its mesh bit for bit, on one card, on another mesh, and in the server.
 
 Saves are asynchronous.  ``save`` copies the state to host memory before
@@ -80,7 +84,7 @@ from torch import nn
 
 from paddle_operator_tpu_torch.parallel import mesh as M
 from paddle_operator_tpu_torch.parallel.sharding import (local_slices,
-                                                         region, spec_of,
+                                                         param_spec, region,
                                                          to_local)
 
 FORMAT = 1
@@ -142,10 +146,25 @@ class _Shard:
 
 def _cut(p, mesh) -> tuple:
     """The region of parameter ``p``'s global tensor that this rank
-    holds (all of it on one card or a mesh of one rank)."""
+    holds (all of it on one card or a mesh of one rank); a stage's
+    layer is cut over the stage's sub-mesh it lies on."""
     if M.is_trivial(mesh):
         return tuple(slice(None) for _ in p.shape)
-    return local_slices(p.shape, mesh, p.placements)
+    return local_slices(p.shape, p.device_mesh, p.placements)
+
+
+def _stage_view(saved: Dict[str, Any], model: nn.Module) -> Dict[str, Any]:
+    """``saved`` without the layers that ``model`` leaves to other
+    pipeline stages (``models.llama.OtherStage``); what is left must
+    then match the model (``_check_like``)."""
+    from paddle_operator_tpu_torch.models.llama import (OtherStage,
+                                                        layer_index)
+
+    others = {i for i, m in enumerate(getattr(model, "layers", ()))
+              if isinstance(m, OtherStage)}
+    if not others:
+        return saved
+    return {k: v for k, v in saved.items() if layer_index(k) not in others}
 
 
 def _settle(opt_state) -> None:
@@ -153,6 +172,43 @@ def _settle(opt_state) -> None:
     tensors (none for a resident state)."""
     if getattr(opt_state, "offload", None) is not None:
         opt_state.offload.wait()
+
+
+def _stage_leader(mesh, stage: int) -> int:
+    """The rank that sends pp stage ``stage``'s layers to rank 0: the
+    stage's rank at every other coordinate 0."""
+    return int(mesh.mesh[tuple(stage if a == "pp" else 0
+                               for a in mesh.mesh_dim_names)])
+
+
+def _gather_stages(params: Dict[str, torch.Tensor], mesh, ctrl) -> None:
+    """Under pp, bring every stage's gathered layers (host copies; its
+    leader holds them) to rank 0 in ``params``, in order over the gloo
+    group ``ctrl``: each leader sends its layers, rank 0 receives them
+    into tensors shaped as its own stage's layer at the same place in
+    the block.  Other ranks drop what they gathered."""
+    from paddle_operator_tpu_torch.models.llama import layer_index
+
+    pp = M.mesh_axis_sizes(mesh)["pp"]
+    if pp <= 1:
+        return
+    rank = dist.get_rank()
+    mine = [k for k in params if layer_index(k) is not None]
+    per = len({layer_index(k) for k in mine})
+    for stage in range(1, pp):
+        src = _stage_leader(mesh, stage)
+        if rank == src:
+            for k in mine:
+                dist.send(params[k], dst=0, group=ctrl)
+        elif rank == 0:
+            for k in mine:
+                i = layer_index(k)
+                name = f"layers.{i + stage * per}." \
+                    + k[len(f"layers.{i}."):]
+                params[name] = torch.empty_like(params[k])
+                dist.recv(params[name], src=src, group=ctrl)
+    if rank != 0:
+        params.clear()
 
 
 class CheckpointManager:
@@ -276,11 +332,13 @@ class CheckpointManager:
         tmp = os.path.join(self.path, tmp[0])
         files: Dict[str, Any] = {}
         params = {}
+        leader = _stage_leader(mesh, M.coordinates(mesh)["pp"])
         for k, v in state.model.state_dict().items():
             full = full_tensor(v)
-            if rank == 0:
+            if rank == leader:        # rank 0 leads stage 0
                 params[k] = full.detach().to("cpu", copy=True)
             del full
+        _gather_stages(params, mesh, ctrl)
         opt = state.opt_state
         writers = [int(r) for r in mesh.mesh[0].flatten()]
         sizes, coords = M.mesh_axis_sizes(mesh), M.coordinates(mesh)
@@ -298,8 +356,7 @@ class CheckpointManager:
                 "coords": coords, "mesh": sizes,
                 **{field: {k: {"local": t.detach().to("cpu", copy=True),
                                "shape": tuple(named[k].shape),
-                               "spec": spec_of(named[k].placements, mesh,
-                                               named[k].ndim)}
+                               "spec": param_spec(named[k])}
                            for k, t in tensors.items()}
                    for field, tensors in opt.tensors().items()}}
         self.last_save = {"step": step,
@@ -417,7 +474,7 @@ class CheckpointManager:
             raise ValueError(f"{d}: unexpected {MARKER} {meta}")
         model = state_like if isinstance(state_like, nn.Module) \
             else state_like.model
-        params = _load(os.path.join(d, PARAMS_FILE))
+        params = _stage_view(_load(os.path.join(d, PARAMS_FILE)), model)
         _check_like(params, model.state_dict(), "parameters", d)
         if isinstance(state_like, nn.Module):
             model.load_state_dict(params)
@@ -432,6 +489,7 @@ class CheckpointManager:
         mine = opt.tensors()
         mesh = getattr(state_like, "mesh", None)
         moments, cut = self._moments(d, rest, opt.FIELDS, mesh)
+        moments = {f: _stage_view(v, model) for f, v in moments.items()}
         for field in opt.FIELDS:
             # a sharded state's moments have its parameters' global shapes
             like = mine[field] if M.is_trivial(mesh) else named

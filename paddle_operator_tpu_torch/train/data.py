@@ -14,8 +14,8 @@ mesh: a thread pins host batches and copies them to the card ahead of
 the consumer, and with a ``mesh`` hands them out as this rank's rows of
 the global batch (DTensors sharded over (dp, fsdp)).  On a mesh the row
 block comes from the rank's mesh coordinates (``process_slice(...,
-mesh=...)``): ranks that differ only in their tp coordinate read the
-same rows.
+mesh=...)``): ranks that differ only off the data axes (tp, cp, pp)
+read the same rows.
 """
 
 from __future__ import annotations
@@ -242,7 +242,9 @@ class DevicePrefetcher:
     ``mesh``: the iterator yields this rank's rows (its (dp, fsdp)
     block, ``process_slice(..., mesh=mesh)``), placed on the mesh's
     device type and handed out as DTensors of the global batch, sharded
-    over (dp, fsdp) and replicated over the other axes."""
+    over (dp, fsdp) and replicated over the other axes (whole rows over
+    cp: the causal-LM train step cuts a rank's cp chunk itself, after
+    the next-token shift)."""
 
     def __init__(self, it: Iterator[Dict[str, np.ndarray]], *,
                  device=None, depth: int = 2, mesh=None) -> None:

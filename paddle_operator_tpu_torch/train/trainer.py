@@ -11,25 +11,36 @@ What differs from the JAX trainer, and why:
 - The parameters live in the model (``nn.Parameter``s); the optimizer
   state (:class:`AdamWState`, or :class:`train.opt8bit.AdamW8bitState`
   under ``moments="int8"``) is keyed by the same parameter names.
-- A mesh (``parallel/mesh.py``, a ``dp × fsdp × tp`` DeviceMesh) is
-  explicit SPMD, not a partitioner: ``create_state(mesh=...)`` replaces
-  each parameter by a DTensor holding this rank's shard under the JAX
-  layout (:func:`state_shardings`); the moments are local tensors of the
-  same shape, laid out as their parameter.  The step takes this rank's
-  rows (the batch sharded over (dp, fsdp), replicated over tp); the
-  model gathers each weight over fsdp where its layer runs and runs
+- A mesh (``parallel/mesh.py``, a ``dp × pp × fsdp × cp × tp``
+  DeviceMesh) is explicit SPMD, not a partitioner:
+  ``create_state(mesh=...)`` replaces each parameter by a DTensor
+  holding this rank's shard under the JAX layout
+  (:func:`state_shardings`); the moments are local tensors of the same
+  shape, laid out as their parameter.  The step takes this rank's rows
+  (the batch sharded over (dp, fsdp), replicated over the other axes);
+  the model gathers each weight over fsdp where its layer runs and runs
   Megatron's column/row pairs over tp (``parallel/collectives.py``);
   the loss is this rank's share of the global mean (the denominator
   all-reduced, the vocab-sharded logits never gathered); the gradients
   leave the backward reduce-scattered over fsdp and are all-reduced
-  over dp (over any data axis a parameter is replicated on) BEFORE the
-  clip, whose global norm sums every shard once; each rank then updates
-  its shards.  Every metric is global and bit-equal on every rank.  On
-  a mesh whose axes are all 1 the step runs exactly the single-device
-  operations.  Refused by name: ``pp``, ``cp`` and ``ep`` above 1, MoE
-  models on a mesh, int8 moments and moment offload on a mesh with an
-  axis above 1 (ROADMAP.md Queue A item 8); the ERNIE/Wide&Deep/ResNet
-  steps wait for item 9 and are not defined.
+  over dp and cp (over any token axis a parameter is replicated on)
+  BEFORE the clip, whose global norm sums every shard once; each rank
+  then updates its shards.  Every metric is global and bit-equal on
+  every rank.  On a mesh whose axes are all 1 the step runs exactly the
+  single-device operations.
+- ``cp`` above 1: the step cuts this rank's chunk of the sequence AFTER
+  the next-token shift (inputs, targets, mask and segments alike), the
+  layers attend over the whole sequence by ring or Ulysses attention
+  (``models/llama.py``), and the loss's denominator counts every rank's
+  tokens.  ``pp`` above 1: a rank holds its stage's layers
+  (``parallel/mesh.py`` ``stage_mesh``) and :func:`make_pp_train_step`
+  runs them through ``parallel/pipeline.py``'s GPipe or 1F1B schedule;
+  the embedding, final norm and head are replicated over pp and every
+  pp rank ends with the same gradient for them, as under JAX.
+- Refused by name: ``ep`` above 1, MoE models on a mesh (ROADMAP.md
+  Queue A item 8.1), int8 moments and moment offload on a mesh with an
+  axis above 1 (item 8.3); the ERNIE/Wide&Deep/ResNet steps wait for
+  item 9 and are not defined.
 - ``make_train_step`` and ``make_eval_step`` take no model definition:
   the step runs ``state.model``, the eval function the module it is
   given; neither takes the JAX ``state_sharding`` (the placements ride
@@ -72,7 +83,11 @@ from paddle_operator_tpu_torch.ft.preemption import drain_checkpoint
 from paddle_operator_tpu_torch.parallel import collectives as C
 from paddle_operator_tpu_torch.parallel import mesh as M
 from paddle_operator_tpu_torch.parallel.mesh import mesh_axis_sizes
-from paddle_operator_tpu_torch.parallel.sharding import (to_local,
+from paddle_operator_tpu_torch.parallel.pipeline import (microbatch,
+                                                         pipeline_1f1b_grads,
+                                                         pipeline_apply)
+from paddle_operator_tpu_torch.parallel.sharding import (placement_by_axis,
+                                                         to_local,
                                                          tree_shardings)
 from paddle_operator_tpu_torch.train import opt8bit
 
@@ -351,22 +366,27 @@ def global_norm(tensors) -> torch.Tensor:
                           for t in tensors))
 
 
-def _replicas(pl, mesh) -> int:
-    """How many ranks hold each shard of a tensor placed by ``pl``."""
+def _replicas(pl: Dict[str, Any], mesh) -> int:
+    """How many ranks hold each shard of a tensor placed by ``pl``
+    (placements by axis name, ``parallel/sharding.py``
+    ``placement_by_axis``: a stage's layer is not on the pp axis)."""
+    sizes = mesh_axis_sizes(mesh)
     n = 1
-    for size, p in zip(mesh.mesh.shape, pl):
+    for axis, p in pl.items():
         if p.is_replicate():
-            n *= int(size)
+            n *= int(sizes[axis])
     return n
 
 
 def sharded_global_norm(grads: Dict[str, torch.Tensor],
                         shardings: Dict[str, Any], mesh) -> torch.Tensor:
     """:func:`global_norm` of the global gradients from this rank's
-    shards (``grads`` local tensors, ``shardings`` their placements):
-    each shard's sum of squares divided by its replica count, the sum
-    all-reduced over the mesh, so every element counts once and every
-    rank reads the same bits.  One rank: :func:`global_norm`."""
+    shards (``grads`` local tensors, ``shardings`` their placements, as
+    :func:`_replicas` takes them): each shard's sum of squares divided
+    by its replica count, the sum all-reduced over the mesh, so every
+    element counts once (a stage's layers on its stage's ranks only, the
+    replicated embedding and head once) and every rank reads the same
+    bits.  One rank: :func:`global_norm`."""
     if M.is_trivial(mesh):
         return global_norm(grads.values())
     total = sum(torch.sum(g.float() * g.float())
@@ -504,12 +524,25 @@ def make_optimizer(learning_rate: float = 3e-4, warmup_steps: int = 100,
 class StateShardings:
     """The placements of a sharded :class:`TrainState`: ``params`` maps
     each parameter name to its DTensor placements (one a mesh axis, in
-    ``parallel.mesh.AXIS_ORDER``), ``opt_state`` each moment field
-    (``opt_state.tensors()``'s keys) to the same map — a moment takes
-    its parameter's placements."""
+    ``parallel.mesh.AXIS_ORDER``; under pp a layer's are over the
+    stage's axes, ``parallel.mesh.STAGE_AXES``), ``opt_state`` each
+    moment field (``opt_state.tensors()``'s keys) to the same map — a
+    moment takes its parameter's placements.  ``stages`` maps each
+    layer's names to the pp stage that holds it (empty without pp)."""
 
     params: Dict[str, tuple]
     opt_state: Dict[str, Dict[str, tuple]]
+    stages: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def spec(self, name: str, ndim: int) -> tuple:
+        """JAX's PartitionSpec tuple of parameter ``name`` (of ``ndim``
+        dims): its placements' mesh axes, after ``"pp"`` for a stage's
+        layer (JAX's stacked ``layers`` dim, sharded over pp)."""
+        from paddle_operator_tpu_torch.parallel.sharding import spec_of
+
+        if name not in self.stages:
+            return spec_of(self.params[name], M.AXIS_ORDER, ndim)
+        return ("pp",) + spec_of(self.params[name], M.STAGE_AXES, ndim)
 
 
 def state_shardings(model: nn.Module, optimizer: AdamW, mesh, *,
@@ -518,47 +551,77 @@ def state_shardings(model: nn.Module, optimizer: AdamW, mesh, *,
     without moving anything: the JAX package's ``tree_shardings`` over
     ``models.llama.partition_patterns(model.cfg)`` (the JAX signature's
     ``partition_patterns`` and ``example_inputs`` are not parameters:
-    the model is a LLaMA, already built).  Refused by name:
-    ``pp``/``cp``/``ep`` above 1, MoE models, a tp that splits a GQA
-    group, and — on a mesh with an axis above 1 — int8 moments (their
-    256-wide blocks would not be the global ones) and moment offload
-    (ROADMAP.md Queue A item 8)."""
+    the model is a LLaMA, already built).  Under pp each layer goes to
+    its stage (``models.llama.layer_stage``) with the placements of the
+    rest of its spec over the stage's sub-mesh.  Refused by name: ``ep``
+    above 1 and MoE models (ROADMAP.md Queue A item 8.1), a tp that
+    splits a GQA group, ``n_layers`` indivisible by pp, an unknown
+    ``cp_impl`` and Ulysses that cannot split a rank's heads, and — on a
+    mesh with an axis above 1 — int8 moments (their 256-wide blocks
+    would not be the global ones) and moment offload (item 8.3)."""
     from paddle_operator_tpu_torch.models import llama
 
     M.require_mesh(mesh)
     M.check_supported(mesh)
-    patterns = llama.partition_patterns(model.cfg)
-    llama.check_tp(model.cfg, mesh_axis_sizes(mesh)["tp"])
+    cfg = model.cfg
+    sizes = mesh_axis_sizes(mesh)
+    patterns = llama.partition_patterns(cfg)
+    llama.check_tp(cfg, sizes["tp"])
+    llama.check_cp(cfg, sizes["cp"], sizes["tp"])
     if not M.is_trivial(mesh):
         if isinstance(optimizer, AdamW8bit):
             raise NotImplementedError(
                 "int8 moments on a mesh with an axis above 1 are not "
-                "ported to the torch package (ROADMAP.md Queue A item 8: "
-                "the 256-wide blocks of a shard are not the global ones)")
+                "ported to the torch package (ROADMAP.md Queue A item "
+                "8.3: the 256-wide blocks of a shard are not the global "
+                "ones)")
         if offload_opt_state:
             raise NotImplementedError(
                 "moment offload on a mesh with an axis above 1 is not "
-                "ported to the torch package (ROADMAP.md Queue A item 8)")
-    params = tree_shardings(dict(model.named_parameters()), mesh, patterns)
+                "ported to the torch package (ROADMAP.md Queue A item "
+                "8.3)")
+    named = dict(model.named_parameters())
+    stages = {}
+    if sizes["pp"] > 1:
+        # every layer's stage, whether or not this rank still holds it
+        idx = {n: llama.layer_index(n) for n in named}
+        stages = {n: llama.layer_stage(cfg, i, sizes["pp"])
+                  for n, i in idx.items() if i is not None}
+    params = tree_shardings(named, mesh, patterns, stage_names=stages)
     if isinstance(optimizer, AdamW8bit):
         fields = ("mu_codes", "mu_scales", "nu_codes", "nu_scales")
     else:
         fields = AdamWState.FIELDS
     return StateShardings(params=params,
-                          opt_state={f: dict(params) for f in fields})
+                          opt_state={f: dict(params) for f in fields},
+                          stages=stages)
 
 
 def _shard_parameters(model: nn.Module, mesh,
-                      shardings: Dict[str, tuple]) -> None:
+                      shardings: StateShardings) -> None:
     """Replace each parameter of ``model`` by a DTensor Parameter holding
-    this rank's shard of it (the full tensor is released)."""
+    this rank's shard of it (the full tensor is released); under pp a
+    layer of another stage is replaced by a placeholder
+    (``models.llama.OtherStage``) and a layer of this rank's stage is
+    laid over the stage's sub-mesh."""
+    from paddle_operator_tpu_torch.models.llama import (OtherStage,
+                                                        layer_index)
     from paddle_operator_tpu_torch.parallel.sharding import shard_tensor
 
+    mine = M.coordinates(mesh)["pp"]
+    sub = M.stage_mesh(mesh) if shardings.stages else None
     for name, p in list(model.named_parameters()):
+        stage = shardings.stages.get(name)
+        if stage is not None and stage != mine:
+            i = layer_index(name)
+            if not isinstance(model.layers[i], OtherStage):
+                model.layers[i] = OtherStage(i, stage)
+            continue
         owner, _, leaf = name.rpartition(".")
         module = model.get_submodule(owner) if owner else model
         setattr(module, leaf, nn.Parameter(
-            shard_tensor(p.detach(), mesh, shardings[name]),
+            shard_tensor(p.detach(), mesh if stage is None else sub,
+                         shardings.params[name]),
             requires_grad=p.requires_grad))
 
 
@@ -579,7 +642,7 @@ def create_state(model: nn.Module, optimizer: AdamW, *,
     if mesh is not None:
         shardings = state_shardings(model, optimizer, mesh,
                                     offload_opt_state=offload_opt_state)
-        _shard_parameters(model, mesh, shardings.params)
+        _shard_parameters(model, mesh, shardings)
     with torch.no_grad():
         params = {n: to_local(p) for n, p in model.named_parameters()}
     if not offload_opt_state:
@@ -609,18 +672,19 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def _reduce_grads(grads: Dict[str, torch.Tensor],
-                  shardings: Dict[str, tuple], mesh) -> None:
-    """Sum each local gradient over the data axes its parameter is
-    replicated on (one flat all-reduce an axis); over an axis that
-    shards it the gradient was reduce-scattered in the backward."""
-    names = list(mesh.mesh_dim_names)
-    for axis in M.DATA_AXES:
+                  shardings: Dict[str, Any], mesh) -> None:
+    """Sum each local gradient over the token axes (dp, fsdp, cp) its
+    parameter is replicated on (one flat all-reduce an axis); over an
+    axis that shards it the gradient was reduce-scattered in the
+    backward.  Under cp every gradient is a partial sum over the
+    sequence's chunks.  ``shardings``: placements as :func:`_replicas`
+    takes them."""
+    for axis in M.TOKEN_AXES:
         group = M.axis_group(mesh, axis)
         if group is None:
             continue
-        i = names.index(axis)
         todo = [g for n, g in grads.items()
-                if shardings[n][i].is_replicate()]
+                if shardings[n][axis].is_replicate()]
         if todo:
             C.all_reduce_flat(todo, group)
 
@@ -652,7 +716,7 @@ def make_grads_train_step(compute_grads: Callable, optimizer: AdamW,
             metrics["grad_norm"] = optimizer.update(named, grads,
                                                     state.opt_state)
         else:
-            shardings = {n: p.placements for n, p in named.items()}
+            shardings = {n: placement_by_axis(p) for n, p in named.items()}
             with torch.no_grad():
                 named = {n: to_local(p) for n, p in named.items()}
                 grads = {n: to_local(g) for n, g in grads.items()}
@@ -664,6 +728,20 @@ def make_grads_train_step(compute_grads: Callable, optimizer: AdamW,
         return state, metrics
 
     return step_fn
+
+
+def _cp_chunk(t: Optional[torch.Tensor], mesh) -> Optional[torch.Tensor]:
+    """This rank's contiguous chunk of dim 1 of ``t`` (a [B, S, ...]
+    slice of the batch) on a mesh whose cp axis is above 1."""
+    cp = C.group_of(mesh, "cp") if mesh is not None else None
+    if t is None or cp is None:
+        return t
+    _, rank, n = cp
+    if t.shape[1] % n:
+        raise ValueError(f"sequence length {t.shape[1]} (tokens - 1) is not "
+                         f"divisible by cp={n}")
+    per = t.shape[1] // n
+    return t[:, rank * per:(rank + 1) * per]
 
 
 def make_custom_train_step(batch_loss: Callable, optimizer: AdamW,
@@ -687,25 +765,48 @@ def make_custom_train_step(batch_loss: Callable, optimizer: AdamW,
     return make_grads_train_step(compute_grads, optimizer, mesh)
 
 
+def _next_token(batch: Dict[str, torch.Tensor], mesh=None) -> tuple:
+    """(inputs, targets, mask, segment_ids) of a causal-LM batch:
+    ``tokens[:, :-1]``, ``tokens[:, 1:]``, ``mask[:, 1:]`` and
+    ``segment_ids[:, :-1]`` (None when absent), each cut to this rank's
+    cp chunk after the shift."""
+    tokens = batch["tokens"]
+    mask, seg = batch.get("mask"), batch.get("segment_ids")
+    return tuple(_cp_chunk(t, mesh) for t in (
+        tokens[:, :-1], tokens[:, 1:],
+        None if mask is None else mask[:, 1:],
+        None if seg is None else seg[:, :-1]))
+
+
 def _causal_lm_train_step(forward_loss: Callable, optimizer: AdamW,
                           mesh=None) -> Callable:
     """The JAX package's ``_jit_train_step``: slices the next-token
     (inputs, targets) pair out of ``batch["tokens"]`` (and ``mask[:,
-    1:]``, ``segment_ids[:, :-1]``) for ``forward_loss(model, inputs,
-    targets, mask, segment_ids)``."""
+    1:]``, ``segment_ids[:, :-1]``; under cp this rank's chunk of each,
+    :func:`_next_token`) for ``forward_loss(model, inputs, targets, mask,
+    segment_ids)``."""
 
     def batch_loss(model: nn.Module, batch: Dict[str, torch.Tensor]):
-        tokens = batch["tokens"]
-        inputs, targets = tokens[:, :-1], tokens[:, 1:]
-        mask = batch.get("mask")
-        if mask is not None:
-            mask = mask[:, 1:]
-        seg = batch.get("segment_ids")
-        if seg is not None:
-            seg = seg[:, :-1]
-        return forward_loss(model, inputs, targets, mask, seg)
+        return forward_loss(model, *_next_token(batch, mesh))
 
     return make_custom_train_step(batch_loss, optimizer, mesh)
+
+
+def _token_log_prob(logits: torch.Tensor, targets: torch.Tensor,
+                    mesh) -> torch.Tensor:
+    """log softmax(logits)[target] per position; under tp from this
+    rank's vocab slice (``parallel/collectives.py``
+    ``vocab_parallel_log_prob``: nothing gathers the logits)."""
+    tp = C.group_of(mesh, "tp")
+    if tp is None:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return logp.gather(-1, targets.long()[..., None])[..., 0]
+    return C.vocab_parallel_log_prob(logits.float(), targets, tp)
+
+
+def _all_reduce_tokens(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t`` summed in place over the token axes (dp, fsdp, cp)."""
+    return C.all_reduce_data(t, mesh, axes=M.TOKEN_AXES)
 
 
 def _mesh_loss(logits: torch.Tensor, targets: torch.Tensor,
@@ -713,22 +814,15 @@ def _mesh_loss(logits: torch.Tensor, targets: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """This rank's share of the global mean next-token xent, the global
     loss and the global denominator ``max(sum of every rank's mask,
-    1)``.  ``logits``: this rank's rows and, under tp, its vocab slice
-    (the target's log-probability then comes from
-    ``parallel/collectives.py`` ``vocab_parallel_log_prob``: nothing
-    gathers the logits).  With every axis of size 1 these are the
-    operations of :func:`cross_entropy_loss`."""
-    tp = C.group_of(mesh, "tp")
-    if tp is None:
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        ll = logp.gather(-1, targets.long()[..., None])[..., 0]
-    else:
-        ll = C.vocab_parallel_log_prob(logits.float(), targets, tp)
+    1)``.  ``logits``: this rank's rows (under cp its chunk of them)
+    and, under tp, its vocab slice.  With every axis of size 1 these are
+    the operations of :func:`cross_entropy_loss`."""
+    ll = _token_log_prob(logits, targets, mesh)
     mask = (torch.ones_like(ll) if mask is None else mask.float())
-    denom = torch.clamp(C.all_reduce_data(mask.sum().detach(), mesh),
+    denom = torch.clamp(_all_reduce_tokens(mask.sum().detach(), mesh),
                         min=1.0)
     share = -(ll * mask).sum() / denom
-    return share, C.all_reduce_data(share.detach().clone(), mesh), denom
+    return share, _all_reduce_tokens(share.detach().clone(), mesh), denom
 
 
 def make_train_step(optimizer: AdamW, mesh=None) -> Callable:
@@ -751,6 +845,9 @@ def make_train_step(optimizer: AdamW, mesh=None) -> Callable:
     M.require_mesh(mesh)
     if mesh is not None:
         M.check_supported(mesh)
+        if mesh_axis_sizes(mesh)["pp"] > 1:
+            raise ValueError("a mesh with pp > 1 needs the pipeline step "
+                             "(make_pp_train_step, or make_step_for_mesh)")
 
         def mesh_loss(m: nn.Module, inputs, targets, mask, segment_ids=None):
             share, loss, denom = _mesh_loss(m(inputs, segment_ids), targets,
@@ -781,29 +878,144 @@ def make_eval_step(mesh=None) -> Callable:
     this rank's rows (as the train step takes them) and the loss is the
     global batch's, on every rank."""
     M.require_mesh(mesh)
+    pp = None if mesh is None else C.group_of(mesh, "pp")
 
     @torch.no_grad()
     def eval_fn(m: nn.Module, batch: Dict[str, torch.Tensor]):
-        tokens = to_local(batch["tokens"])
-        mask = batch.get("mask")
-        mask = None if mask is None else to_local(mask)[:, 1:]
-        out = m(tokens[:, :-1])
-        logits = out[0] if isinstance(out, tuple) else out
-        if mesh is not None:
-            return {"loss": _mesh_loss(logits, tokens[:, 1:], mask,
-                                       mesh)[1]}
-        loss, _ = cross_entropy_loss(logits, tokens[:, 1:], mask)
-        return {"loss": loss}
+        if mesh is None:
+            tokens = batch["tokens"]
+            mask = batch.get("mask")
+            mask = None if mask is None else mask[:, 1:]
+            out = m(tokens[:, :-1])
+            logits = out[0] if isinstance(out, tuple) else out
+            loss, _ = cross_entropy_loss(logits, tokens[:, 1:], mask)
+            return {"loss": loss}
+        inputs, targets, mask, _ = _next_token(
+            {k: to_local(v) for k, v in batch.items()
+             if k in ("tokens", "mask")}, mesh)
+        if pp is None:
+            out = m(inputs)
+            logits = out[0] if isinstance(out, tuple) else out
+        else:
+            stack = m.stage_layers()
+            x = m.embed(inputs)
+            y = pipeline_apply(
+                lambda h: stack(h, m.rope_cos, m.rope_sin)[0],
+                list(stack.parameters()), x[None], pp=pp,
+                num_microbatches=1)[0]
+            logits = m.head(y)
+        return {"loss": _mesh_loss(logits, targets, mask, mesh)[1]}
 
     return eval_fn
 
 
-def make_step_for_mesh(optimizer: AdamW, mesh) -> Callable:
-    """The train step for ``mesh``: :func:`make_train_step` on it.  A
-    mesh with pp > 1 needs the pipeline step, which is refused by name
-    (so are its ``num_microbatches`` and ``schedule``)."""
+def make_pp_train_step(optimizer: AdamW, mesh, *, num_microbatches: int,
+                       schedule: str = "gpipe") -> Callable:
+    """Pipeline-parallel LLaMA train step over the ``pp`` mesh axis (JAX
+    ``make_pp_train_step``), composing with dp, fsdp, cp and tp.
+
+    Each rank runs its stage's layers (``models.llama.Llama
+    .stage_layers``, the same per-layer remat as the step without pp)
+    over ``num_microbatches`` microbatches of its rows through
+    ``parallel/pipeline.py``; the embedding and the head are replicated
+    over pp.
+
+    - ``schedule="gpipe"``: every pp rank embeds the inputs,
+      ``pipeline_apply`` returns the last stage's output on every rank,
+      and every rank computes the head and the loss alike; the backward
+      runs the reverse schedule, and the embedding's gradient is stage
+      0's input gradient on every rank.
+    - ``schedule="1f1b"``: ``pipeline_1f1b_grads`` runs the
+      PipeDream-flush schedule, the last stage computes each
+      microbatch's head SUM-loss seeded with ``1/denom`` (the global
+      token count), and the loss and the head's gradients reach every
+      pp rank from it; the embedding backpropagates stage 0's input
+      gradient on every rank.
+
+    Refused as JAX refuses: pp <= 1, an unknown schedule, and (at
+    ``create_state``) ``n_layers`` not divisible by pp.  JAX's
+    ``scan_layers`` check has no counterpart (the port's layers are
+    always separate modules).  MoE on a mesh is refused by
+    ``partition_patterns`` (ROADMAP.md Queue A item 8.1)."""
     M.require_mesh(mesh)
     M.check_supported(mesh)
+    pp = C.group_of(mesh, "pp")
+    if pp is None:
+        raise ValueError("make_pp_train_step needs a mesh with pp > 1")
+    if schedule not in ("gpipe", "1f1b"):
+        raise ValueError(f"unknown pipeline schedule {schedule!r}")
+    nm = num_microbatches
+
+    def stage_fn_of(m: nn.Module):
+        stack = m.stage_layers()
+
+        def stage_fn(h, seg=None):
+            return stack(h, m.rope_cos, m.rope_sin, seg)[0]
+
+        return stack, stage_fn
+
+    if schedule == "gpipe":
+        def forward_loss(m: nn.Module, inputs, targets, mask,
+                         segment_ids=None):
+            stack, stage_fn = stage_fn_of(m)
+            x = m.embed(inputs)
+            sm = (None if segment_ids is None
+                  else microbatch(segment_ids, nm))
+            ym = pipeline_apply(stage_fn, list(stack.parameters()),
+                                microbatch(x, nm), sm, pp=pp,
+                                num_microbatches=nm)
+            logits = m.head(ym.reshape(x.shape))
+            share, loss, denom = _mesh_loss(logits, targets, mask, mesh)
+            return share, {"loss": loss, "tokens": denom}
+
+        return _causal_lm_train_step(forward_loss, optimizer, mesh)
+
+    def compute_grads(m: nn.Module, batch):
+        inputs, targets, mask, seg = _next_token(batch, mesh)
+        stack, stage_fn = stage_fn_of(m)
+        msk = (torch.ones(targets.shape, dtype=torch.float32,
+                          device=targets.device)
+               if mask is None else mask.float())
+        denom = torch.clamp(_all_reduce_tokens(msk.sum(), mesh), min=1.0)
+
+        def head_loss(h, tgt, mk):
+            # SUM-loss of one microbatch: the schedule seeds its
+            # gradient with 1/denom
+            return -(_token_log_prob(m.head(h), tgt, mesh) * mk).sum()
+
+        for p in m.parameters():
+            p.grad = None
+        x = m.embed(inputs)
+        trunk = list(stack.parameters())
+        head = list(m.final_norm.parameters()) \
+            + list(m.lm_head.parameters())
+        loss_sum, d_trunk, d_head, d_xm = pipeline_1f1b_grads(
+            stage_fn, head_loss, trunk, head, microbatch(x.detach(), nm),
+            microbatch(targets, nm), microbatch(msk, nm), 1.0 / denom,
+            None if seg is None else microbatch(seg, nm), pp=pp)
+        x.backward(d_xm.reshape(x.shape))
+        grads = {n: p.grad for n, p in m.tok_embed.named_parameters(
+            prefix="tok_embed")}
+        by_id = {id(p): n for n, p in m.named_parameters()}
+        for p, g in zip(trunk + head, d_trunk + d_head):
+            grads[by_id[id(p)]] = g
+        loss = _all_reduce_tokens((loss_sum / denom).reshape(1), mesh)[0]
+        return {"loss": loss, "tokens": denom}, grads
+
+    return make_grads_train_step(compute_grads, optimizer, mesh)
+
+
+def make_step_for_mesh(optimizer: AdamW, mesh, *, num_microbatches: int = 4,
+                       schedule: str = "gpipe") -> Callable:
+    """The train step for ``mesh``: :func:`make_pp_train_step` (the
+    ``schedule``, over ``num_microbatches``) when pp > 1, else
+    :func:`make_train_step` on it (JAX ``make_step_for_mesh``)."""
+    M.require_mesh(mesh)
+    M.check_supported(mesh)
+    if mesh_axis_sizes(mesh)["pp"] > 1:
+        return make_pp_train_step(optimizer, mesh,
+                                  num_microbatches=num_microbatches,
+                                  schedule=schedule)
     return make_train_step(optimizer, mesh=mesh)
 
 

@@ -30,8 +30,9 @@ shim (``python -m paddle_operator_tpu_torch.launch.launcher -- python
   the newest step; a drain signalled on one rank stops every rank after
   the same step and commits it; a writer failing on one rank leaves no
   step.  Only rank 0 logs and ticks the timer.  The refusals that need
-  a live mesh: pp, cp, ep above 1, int8 moments and moment offload on
-  the mesh.
+  a live mesh: ep above 1, MoE on a pp mesh, n_layers indivisible by
+  pp, an unknown pipeline schedule or cp_impl, int8 moments and moment
+  offload on the mesh.
 - fsdp2 (2 ranks, one slice): the same trajectory against JAX on that
   mesh, and the rendezvous test's per-rank data through
   ``DevicePrefetcher(mesh=...)`` against the JAX single-process
@@ -111,7 +112,7 @@ def fingerprint(model):
     total = torch.zeros((), dtype=torch.float64)
     for p in model.parameters():
         total += (PS.to_local(p).detach().double().abs().sum()
-                  / TT._replicas(p.placements, mesh))
+                  / TT._replicas(PS.placement_by_axis(p), mesh))
     dist.all_reduce(total)
     return float(total)
 
@@ -224,23 +225,37 @@ if "trajectory" in a:
             out["kill"] = f"{type(err).__name__}: {err}"
         out["after_kill_steps"] = ckpt.all_steps()
         refused = {}
-        for axes in ({"pp": 2, "fsdp": 4}, {"cp": 2, "fsdp": 4},
-                     {"ep": 2, "fsdp": 4}):
-            other = PM.make_mesh(PM.MeshSpec(**axes), device="cpu")
+        meshes = {k: PM.make_mesh(PM.MeshSpec(**axes), device="cpu")
+                  for k, axes in (("ep", {"ep": 2, "fsdp": 4}),
+                                  ("pp", {"pp": 2, "fsdp": 4}),
+                                  ("cp", {"cp": 2, "fsdp": 4}),
+                                  ("pp4", {"pp": 4, "fsdp": 2}))}
+        cases = {
+            "ep": lambda: TT.make_step_for_mesh(opt, meshes["ep"]),
+            "moe_pp": lambda: TT.create_state(
+                TL.make_model("tiny-moe", device="cpu")[0],
+                TT.make_optimizer(), mesh=meshes["pp"]),
+            "layers_pp": lambda: TT.create_state(
+                TL.make_model("tiny", device="cpu")[0],
+                TT.make_optimizer(), mesh=meshes["pp4"]),
+            "schedule": lambda: TT.make_step_for_mesh(
+                opt, meshes["pp"], schedule="interleaved"),
+            "cp_impl": lambda: TT.create_state(
+                TL.make_model("tiny", device="cpu", cp_impl="spiral")[0],
+                TT.make_optimizer(), mesh=meshes["cp"]),
+            "int8": lambda: TT.create_state(
+                TL.make_model("tiny", device="cpu")[0],
+                TT.make_optimizer(moments="int8"), mesh=mesh),
+            "offload": lambda: TT.create_state(
+                TL.make_model("tiny", device="cpu")[0],
+                TT.make_optimizer(), mesh=mesh, offload_opt_state=True),
+        }
+        for what, fn in cases.items():
             try:
-                TT.make_step_for_mesh(opt, other)
-                refused[str(axes)] = None
-            except NotImplementedError as err:
-                refused[str(axes)] = str(err)
-        for what, kw in (("int8", {"moments": "int8"}),
-                         ("offload", {})):
-            m2, _ = TL.make_model("tiny", device="cpu")
-            try:
-                TT.create_state(m2, TT.make_optimizer(**kw), mesh=mesh,
-                                offload_opt_state=what == "offload")
+                fn()
                 refused[what] = None
-            except NotImplementedError as err:
-                refused[what] = str(err)
+            except (NotImplementedError, ValueError) as err:
+                refused[what] = f"{type(err).__name__}: {err}"
         out["refused"] = refused
 
 if "pod" in a:
@@ -297,10 +312,11 @@ def _pod_env(cm, pod):
     return env
 
 
-def _world(tmp, name, slices, workers, mesh, args):
-    """Run CHILD on every pod of a ``slices`` x ``workers`` job through
-    the launcher shim; returns (the ranks' results in rank order, the
-    first pod's env)."""
+def _world(tmp, name, slices, workers, mesh, args, child_src=CHILD,
+           timeout=240):
+    """Run ``child_src`` (default CHILD) on every pod of a ``slices`` x
+    ``workers`` job through the launcher shim; returns (the ranks'
+    results in rank order, the first pod's env)."""
     port = _free_port()
     tmpl = {"spec": {"containers": [{"name": "m", "image": "i"}]}}
     job = TPUJob(name=name, spec=TPUJobSpec(
@@ -319,8 +335,8 @@ def _world(tmp, name, slices, workers, mesh, args):
     cm = B.construct_configmap(job, pods)
     out = tmp / f"{name}-out"
     out.mkdir()
-    child = tmp / "child.py"
-    child.write_text(CHILD)
+    child = tmp / f"{name}-child.py"
+    child.write_text(child_src)
     argf = tmp / f"{name}.json"
     argf.write_text(json.dumps(dict(args, out=str(out))))
     envs = [_pod_env(cm, pod) for pod in pods]
@@ -331,7 +347,7 @@ def _world(tmp, name, slices, workers, mesh, args):
         text=True) for env in envs]
     try:
         for i, p in enumerate(procs):
-            _, err = p.communicate(timeout=240)
+            _, err = p.communicate(timeout=timeout)
             assert p.returncode == 0, f"rank {i} failed:\n{err[-4000:]}"
     finally:
         for p in procs:
@@ -594,14 +610,27 @@ class TestDpFsdpTp:
         assert all(not r["logs"] and r["timer_ticks"] == 0 for r in res[1:])
 
     def test_refusals_that_need_a_live_mesh(self, world_a):
+        """What stays refused once cp and pp run: ep, MoE on a mesh
+        (Queue A item 8.1), n_layers indivisible by pp, an unknown
+        pipeline schedule or cp_impl, and int8 moments and moment
+        offload on a mesh with an axis above 1 (item 8.3)."""
         refused = world_a["res"][0]["refused"]
-        for axes, what in (("{'pp': 2, 'fsdp': 4}", "pipeline"),
-                           ("{'cp': 2, 'fsdp': 4}", "context"),
-                           ("{'ep': 2, 'fsdp': 4}", "expert")):
-            assert what in refused[axes] and "Queue A item 8" in \
-                refused[axes]
-        assert "int8 moments" in refused["int8"]
-        assert "moment offload" in refused["offload"]
+        for what, want in (
+                ("ep", "NotImplementedError: ep=2: expert parallelism"),
+                ("moe_pp", "NotImplementedError: MoE models on a mesh"),
+                ("layers_pp", "ValueError: n_layers=2 not divisible by "
+                              "pp=4"),
+                ("schedule", "ValueError: unknown pipeline schedule "
+                             "'interleaved'"),
+                ("cp_impl", "ValueError: unknown cp_impl 'spiral'"),
+                ("int8", "NotImplementedError: int8 moments"),
+                ("offload", "NotImplementedError: moment offload")):
+            assert refused[what] is not None \
+                and refused[what].startswith(want), (what, refused[what])
+        for what in ("ep", "moe_pp"):
+            assert "Queue A item 8.1" in refused[what]
+        for what in ("int8", "offload"):
+            assert "Queue A item 8.3" in refused[what]
 
 
 @pytest.fixture(scope="module")

@@ -364,9 +364,11 @@ class TestFit:
 
 class TestUnportedKnobs:
     """What the JAX trainer, data pipeline and config take that the port
-    does not (shardings, the rng, context parallelism, the unscanned
-    layout) is not a parameter of the port: passing it raises TypeError
-    (no silent no-op), and the unported steps are not defined.  The
+    does not (shardings, the rng, the unscanned layout) is not a
+    parameter of the port: passing it raises TypeError (no silent
+    no-op), and the unported steps are not defined.  ``cp_impl`` is a
+    config field now (context parallelism: its case became the pipeline
+    step's JAX-only ``state_sharding``).  The
     ``mesh`` of ``create_state``, ``DevicePrefetcher``,
     ``make_train_step`` and ``make_eval_step`` is ported (a torch
     DeviceMesh: tests/test_torch_mesh.py, test_torch_sharded_train.py):
@@ -387,7 +389,9 @@ class TestUnportedKnobs:
                                 TT.make_optimizer(moments="int8"),
                                 rng=object()),
         lambda: TL.make_model("tiny", device="cpu", scan_layers=False),
-        lambda: TL.make_model("tiny", device="cpu", cp_impl="ulysses"),
+        lambda: TT.make_pp_train_step(TT.make_optimizer(), None,
+                                      state_sharding=object(),
+                                      num_microbatches=2),
         lambda: TL.make_model("tiny", device="cpu", mesh=object()),
     ])
     def test_knob_is_not_accepted(self, call):
@@ -399,7 +403,12 @@ class TestUnportedKnobs:
                                       "make_wide_deep_train_step",
                                       "make_resnet_train_step"])
     def test_unported_step_is_not_defined(self, name):
-        assert hasattr(JT, name) and not hasattr(TT, name)
+        """``make_pp_train_step`` is ported now (the GPipe and 1F1B
+        pipeline step: tests/test_torch_pipeline.py holds it against the
+        JAX package's), so its case holds that it is defined; the other
+        steps wait for ROADMAP.md Queue A item 9."""
+        assert hasattr(JT, name)
+        assert hasattr(TT, name) == (name == "make_pp_train_step")
 
     def test_moe_is_refused(self):
         """No longer refused: an MoE model's train step reports its
