@@ -210,7 +210,7 @@ result line; with no arguments every phase runs):
    snapshot), the background write (s, GB/s) and the two restores are
    printed beside the card's name and power limit.
 3g. preemption main path — 3b's server at full width, depth cut to
-   the 7b params' first ``CUT_LAYERS`` (8, for the script's time
+   the 7b params' first ``CUT_LAYERS`` (4, for the script's time
    limit) (``SERVE_PRIORITIES=2``,
    preemption at its default, on) on the bf16 pool and on the int8
    pool, each also with ``SERVE_PREEMPT=0`` on the same requests: 8
@@ -271,10 +271,10 @@ result line; with no arguments every phase runs):
    dispatch in flight, its pieces and every synchronizing call PyTorch
    reports under ``set_sync_debug_mode("warn")``.
 3i. weight-quantized ring main path — the 7b model at full width, depth
-   cut to ``CUT_LAYERS`` (8, for the script's time limit), as
+   cut to ``CUT_LAYERS`` (4, for the script's time limit), as
    ``serve.main`` builds it under ``SERVE_WEIGHT_QUANT=int8``
    (``load_serving_params``, then ``quantize_from_env``; ``paramBytes``
-   must equal the shape arithmetic, 2,144,788,480 at 8 layers) on 3b's
+   must equal the shape arithmetic, 1,334,542,336 at 4 layers) on 3b's
    server and burst, over the bf16
    pool and the int8 pool: every request completes, the int8-weight
    kernels' launches equal 7 x n_layers x ticks plus 7 x n_layers a
@@ -316,8 +316,9 @@ result line; with no arguments every phase runs):
 3k. the single-card depth recipe — 7b width, B 4 x 2049 tokens, bf16
    compute, one repeated batch, through ``fit``: (a) full depth, 32
    layers (6.738B params), ``make_optimizer(moments="int8")`` resident,
-   6 steps; (b) the same with ``create_state(offload_opt_state=True)``,
-   3 steps; (c) 6 steps each: 8 layers with int8 moments, and 2 layers
+   4 steps; (b) (c)'s int8 run with ``create_state(
+   offload_opt_state=True)``, 3 steps (32 layers until the script's
+   time limit cut it); (c) 6 steps each: 8 layers with int8 moments, and 2 layers
    with f32 moments resident and offloaded (phase 3c trains the f32
    step at 8 layers); (d) 8 layers, int8, ``remat_policy`` "save_attn"
    and "dots" ((c)'s int8 run is "full").  Each run reports step ms,
@@ -329,8 +330,9 @@ result line; with no arguments every phase runs):
    under "full" and "dots", layers x steps under "save_attn", dK/dV and
    dQ layers x steps; ``adam8bit_update`` launches = tensors x steps
    with int8 moments, 0 with f32; (b)'s losses and grad norms equal
-   (a)'s first 3 bit for bit, and (c)'s offloaded f32 run its resident
-   one; (b)'s peak at least ``OFFLOAD_SAVING_GB`` below (a)'s; after
+   (c)'s int8 run's first 3 bit for bit, and (c)'s offloaded f32 run its
+   resident one; (b)'s peak at least ``OFFLOAD_SAVING_GB`` below that
+   run's; after
    the offloaded runs every moment tensor is in its pinned host slab
    view, at the address it had before the first step.
 3l. speculative decoding main path — 3b's server (8 slots, block 256,
@@ -447,7 +449,7 @@ result line; with no arguments every phase runs):
    SIGTERM; (d) the handoff copy of a 1,536-token prompt alone (6
    blocks), device ms against its byte bound.
 3p. fleet-level KV — 7b at full width, depth cut to the first
-   ``CUT_LAYERS`` (8), bf16 weights: two port
+   ``CUT_LAYERS`` (4), bf16 weights: two port
    replicas in one process over one params tree, each 3b's ring with a
    64-block pool and a host tier (16 blocks on A, 2 on B), served on
    loopback and wired by ``wire_fleet_kv_from_env`` from the env a pod
@@ -643,8 +645,8 @@ result line; with no arguments every phase runs):
    83; the resumed step; finite loss and aux_loss on every step; the
    checkpoint holds ``layers.0.moe.*``; kernels #4-#6 launched 2 x 1 /
    1 / 1 a step (full remat).  Read: step ms, MFU on active params.
-3r. ``7b-moe`` served at full width, depth cut to ``CUT_LAYERS`` (8
-   layers, 6.57B params, bf16; 32 until the script's time limit cut it)
+3r. ``7b-moe`` served at full width, depth cut to ``CUT_LAYERS`` (4
+   layers, 3.42B params, bf16; 32 until the script's time limit cut it)
    — the dense 7b released first and the allocated memory logged before
    the init; 3b's server and burst (``phase_ring_main_path``: 8 slots,
    chunk 8, block 256, a 64-block pool; kernel #2 32 launches a tick),
@@ -708,8 +710,22 @@ result line; with no arguments every phase runs):
    element whose gradient sits at the f32 noise of the two summation
    orders can step either way; a wrong shard would move whole blocks),
    and each rank's flash launches the formula's
-   (``mesh_pair_launches``).  Read: each rank's step ms and the bytes
-   its cp/pp exchanges sent a step.
+   (``mesh_pair_launches``).  Two more runs on the pair: dp=2, whose
+   step 3 is saved and then restored on one card in this process through
+   ``ft/elastic.py`` ``elastic_resume`` (the moments reassembled from the
+   dp2 shard file) and trained 2 more steps, held by the same gate to the
+   reference run's steps 4 and 5 (its plan's step 3, no step lost, kernels
+   #4-#6 4/2/2 a step pair); and ep=2 at ``MESH_PAIR_MOE`` (``7b-moe`` at
+   full width, 1 layer, f32, capacity factor 0.5: each rank runs 4 of
+   the 8 experts on all 2,048 tokens), held by the same gate (and its
+   ``aux_loss``, rtol 1e-5) to ``7b-moe`` without a mesh, kernels #4-#6
+   6/3/3 a rank, and assignments dropped on every step.  The references
+   run before the pair trains, the card theirs alone; each rank compares
+   the region it holds of each parameter no earlier rank on its
+   replicated axes holds.  Read: each rank's step ms, peak memory, the
+   bytes its cp/pp exchanges sent a step and its ep (and tp)
+   all-reduces moved a step, the dropped assignments, the restore's
+   seconds.
 5. report — a ``kernels`` JSON line, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -3321,8 +3337,11 @@ TIER_LAYERS = 2
 # and 3r serve fresh CUT_LAYERS-layer inits (32.1 s and 27.2 s at 32
 # layers on that card; cut when 3s (b) ran its cp and pp meshes): their
 # launch formulas, bounds and paramBytes follow the depth, and their
-# kernels' shapes are a layer's, which the depth does not change
-CUT_LAYERS = 8
+# kernels' shapes are a layer's, which the depth does not change.  8
+# until 3s (b) ran its ep and elastic runs (at 8 layers 3g, 3i, 3p and
+# 3r took 11.6, 12.5, 16.1 and 9.7 s in a whole run of 885.6 s on an
+# H100 80GB HBM3 at 700 W)
+CUT_LAYERS = 4
 
 
 def _depth_cut(params, cfg, n_layers: int) -> tuple:
@@ -5965,19 +5984,25 @@ def phase_checkpoint(reports: dict) -> None:
 # at 700 W.  For the script's limit, once 3s (b) ran its cp and pp
 # meshes, (a) runs 6 steps (12 before), (b) 3 (6), and the f32 pair 2
 # layers (8; phase 3c trains 8 layers with f32 moments): 70.9 -> 40.7 s
-# on an H100 80GB HBM3 at 700 W, most of it the f32 slab's pinning
-DEPTH = dict(batch=4, seq=2048, lr=3e-4, steps=6, offload_steps=3)
-DEPTH_RUNS = (("a", 32, "int8", False, "full", "steps"),
-              ("b", 32, "int8", True, "full", "offload_steps"),
+# on an H100 80GB HBM3 at 700 W, most of it the f32 slab's pinning; once
+# 3s (b) ran its ep and elastic runs, (b) offloads (c)'s 8-layer int8 run
+# (32 layers before: 11.5 s of its 42.5 s the slab's pinning on an H100
+# 80GB HBM3 at 700 W) and (a) runs 4 steps (6 before; 1.13 s a step)
+DEPTH = dict(batch=4, seq=2048, lr=3e-4, steps=6, offload_steps=3,
+             full_depth_steps=4)
+DEPTH_RUNS = (("a", 32, "int8", False, "full", "full_depth_steps"),
+              ("b", 8, "int8", True, "full", "offload_steps"),
               ("c_f32", 2, "f32", False, "full", "steps"),
               ("c_int8", 8, "int8", False, "full", "steps"),
               ("c_f32_offload", 2, "f32", True, "full", "steps"),
               ("d_save_attn", 8, "int8", False, "save_attn", "steps"),
               ("d_dots", 8, "int8", False, "dots", "steps"))
-# (b)'s peak must sit this far below (a)'s: the int8 codes and scales
-# (13.69 GB at 7b) leave the card, the staging ring (3 slots of the
-# largest tensor's, 0.27 GB each) stays
-OFFLOAD_SAVING_GB = 12.0
+# (b)'s peak must sit this far below c_int8's: the int8 codes and scales
+# (3.82 GB at 7b width and 8 layers; 13.69 GB at 32, where the offload
+# saved 13.09) leave the card, the staging ring (3 slots of the largest
+# tensor's, 0.27 GB each) stays; 9/10 of what that leaves, for the
+# allocator's rounding
+OFFLOAD_SAVING_GB = 0.9 * (3.82 - 3 * 0.27)
 
 
 def _depth_run(name, layers, moments, offload, policy, steps) -> dict:
@@ -6104,7 +6129,7 @@ def phase_depth_recipe(report: dict) -> None:
     for name, layers, moments, offload, policy, steps in DEPTH_RUNS:
         runs[name] = _depth_run(name, layers, moments, offload, policy,
                                 DEPTH[steps])
-    a, b = runs["a"], runs["b"]
+    a, b = runs["c_int8"], runs["b"]
     n = b["steps"]
     if (a["losses"][:n], a["grad_norms"][:n]) != (b["losses"],
                                                   b["grad_norms"]):
@@ -10072,14 +10097,16 @@ import torch
 import torch.distributed as dist
 
 from paddle_operator_tpu_torch.api.types import MeshSpec
-from paddle_operator_tpu_torch.models.llama import layer_index, make_model
+from paddle_operator_tpu_torch.models.llama import make_model
 from paddle_operator_tpu_torch.ops import flash_attention as FA
 from paddle_operator_tpu_torch.parallel import collectives as C
 from paddle_operator_tpu_torch.parallel.mesh import (coordinates,
                                                      make_mesh,
                                                      mesh_axis_sizes)
-from paddle_operator_tpu_torch.parallel.sharding import shard_batch
+from paddle_operator_tpu_torch.parallel.sharding import (local_slices,
+                                                         shard_batch)
 from paddle_operator_tpu_torch.train import trainer as T
+from paddle_operator_tpu_torch.train.checkpoint import CheckpointManager
 from paddle_operator_tpu_torch.train.data import deterministic_lm_batches
 
 faulthandler.enable()
@@ -10141,22 +10168,34 @@ print(json.dumps({"probe": probe, "ready_s": time.time() - a["t_launch"]}),
       flush=True)
 if set(probe.values()) != {"ok"}:
     raise SystemExit(0)
-# the parent writes the reference (by rename) once (a) and the run
-# without a mesh are done: the card is this pair's from then on
-deadline = time.time() + 900
-while not os.path.exists(a["ref"]):
-    if time.time() > deadline:
-        raise SystemExit("no reference within 900 s")
-    time.sleep(0.1)
-ref = torch.load(a["ref"], weights_only=True, map_location="cuda")
+refs = {}
+
+
+def reference(key):
+    # the run without a mesh that a mesh is held to: the parent writes it
+    # (by rename) once (a) and that run are done, and the card is this
+    # pair's from then on; read as a memory map, each tensor moved to the
+    # card when compared
+    if key not in refs:
+        deadline = time.time() + 900
+        while not os.path.exists(a[key]):
+            if time.time() > deadline:
+                raise SystemExit(f"no {key} within 900 s")
+            time.sleep(0.1)
+        refs[key] = torch.load(a[key], weights_only=True, mmap=True)
+    return refs[key]
+
+
 flash = (FA.flash_forward, FA.flash_backward_dkv, FA.flash_backward_dq)
 for spec in a["meshes"]:
-    axes, over, opts = spec["axes"], spec["model"], spec["step"]
+    axes, over, opts, run = (spec["axes"], spec["model"], spec["step"],
+                             spec["run"])
+    ref = reference(run.get("ref", "ref"))
     t_setup = time.perf_counter()
     mesh = make_mesh(MeshSpec(**axes), device="cuda")
-    model, cfg = make_model(a["preset"], device="cuda", seed=0,
-                            n_layers=a["layers"], dtype=torch.float32,
-                            **over)
+    model, cfg = make_model(run.get("preset", a["preset"]), device="cuda",
+                            seed=0, n_layers=run.get("layers", a["layers"]),
+                            dtype=torch.float32, **over)
     opt = T.make_optimizer(a["lr"], warmup_steps=1, decay_steps=1000)
     state = T.create_state(model, opt, mesh=mesh)
     step = T.make_step_for_mesh(opt, mesh, **opts)
@@ -10167,7 +10206,7 @@ for spec in a["meshes"]:
         fn.launches = 0
     for k in C.EXCHANGE:
         C.EXCHANGE[k] = 0
-    metrics, step_ms = [], []
+    metrics, step_ms, dropped = [], [], []
     for b in itertools.islice(deterministic_lm_batches(
             a["batch"], a["seq"] + 1, cfg.vocab_size, seed=1), a["steps"]):
         batch = shard_batch(b, mesh, "cuda")
@@ -10177,53 +10216,84 @@ for spec in a["meshes"]:
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         metrics.append({k: float(v) for k, v in m.items()})
+        # the MoE layers' assignments past the capacity this step
+        dropped.append(sum(int(l.moe.dropped) for l in state.model.layers
+                           if hasattr(l, "moe")))
         stage(f"{spec['tag']}: step {len(metrics)}")
     sizes, coords = mesh_axis_sizes(mesh), coordinates(mesh)
     out = {"tag": spec["tag"], "rank": rank, "metrics": metrics,
-           "step_ms": step_ms,
+           "step_ms": step_ms, "dropped": dropped,
            "launches": [fn.launches for fn in flash],
            "exchange_bytes_per_step": {k: v / a["steps"]
                                        for k, v in C.EXCHANGE.items()},
            "local_heads": cfg.n_heads // sizes["tp"],
-           "layers_here": len(state.model.stage_layers().layers)}
-    # each parameter is held to the reference once: by the rank at
-    # every coordinate 0 but pp, and one replicated over pp by stage 0
-    first = all(c == 0 for ax, c in coords.items() if ax != "pp")
+           "layers_here": len(state.model.stage_layers().layers),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if run.get("save"):
+        # the elastic source: this mesh's last step, saved for the
+        # parent's resume on one card
+        ckpt = CheckpointManager(a["elastic_ckpt"])
+        ckpt.save(state.step, state, force=True)
+        ckpt.wait()
+        out["saved"] = ckpt.all_steps()
+    # each element is held to the reference once: a rank compares the
+    # region it holds of each parameter that no rank before it on the
+    # parameter's replicated axes holds (the parent sums the counts)
     t_check = time.perf_counter()
     diff, off, total = 0.0, 0, 0
     for n, p in state.model.named_parameters():
-        full = C.full_tensor(p)
-        if first and (layer_index(n) is not None or coords["pp"] == 0):
-            d = (full - ref[n]).abs()
-            diff = max(diff, float(d.max()))
-            off += int((d > 1e-5).sum())
-            total += d.numel()
+        pm = p.device_mesh
+        if any(c and pl.is_replicate() for c, pl in
+               zip(coordinates(pm).values(), p.placements)):
+            continue
+        region = local_slices(p.shape, pm, p.placements)
+        d = (p.to_local() - ref[n][region].to("cuda")).abs()
+        diff = max(diff, float(d.max()))
+        off += int((d > 1e-5).sum())
+        total += d.numel()
     out.update(max_param_diff=diff, params_off=off, params_total=total,
                setup_s=setup_s, check_s=time.perf_counter() - t_check)
     print(json.dumps(out), flush=True)
     del state, model, step, opt
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 dist.destroy_process_group()
 """
 
+# phase 3s (b)'s expert-parallel run: 7b-moe at full width (dim 4096, 32
+# heads, 8 experts of ffn 11008) cut to 1 layer, f32, capacity factor 0.5
+# (every step drops assignments), MESH_PAIR's batch; each ep rank runs 4
+# experts on all 4 x 512 tokens
+MESH_PAIR_MOE = dict(preset="7b-moe", layers=1, capacity_factor=0.5)
 # 3s (b)'s meshes, in turn on the one pair of processes: (tag, mesh axes,
-# model overrides, step options); the flash launches a rank makes over
-# the run's steps: 2 layers of full remat (forward twice, dK/dV and dQ
-# once a layer a step) through kernels #4-#6 everywhere but ring
-# attention (plain ops: none); a pp stage's 1 layer over 4 microbatches,
-# and under 1F1B stage 0 also forwards each microbatch once without a
-# graph before its backward slot recomputes it (the last stage keeps the
-# graph of its round)
+# model overrides, step options, run options: another preset or depth,
+# the reference it is held to, a save); the flash launches a rank makes
+# over the run's steps: full remat (forward twice, dK/dV and dQ once a
+# layer a step) through kernels #4-#6 everywhere but ring attention
+# (plain ops: none); a pp stage's 1 layer over 4 microbatches, and under
+# 1F1B stage 0 also forwards each microbatch once without a graph before
+# its backward slot recomputes it (the last stage keeps the graph of its
+# round).  dp2 saves its last step for the parent's elastic resume on one
+# card (``MESH_PAIR_ELASTIC``); ep2_moe is ``MESH_PAIR_MOE`` over ep=2
 MESH_PAIR_MESHES = (
-    ("fsdp2", {"fsdp": 2}, {}, {}),
-    ("tp2", {"tp": 2}, {}, {}),
-    ("cp2_ring", {"cp": 2}, {"cp_impl": "ring"}, {}),
-    ("cp2_ulysses", {"cp": 2}, {"cp_impl": "ulysses"}, {}),
+    ("fsdp2", {"fsdp": 2}, {}, {}, {}),
+    ("tp2", {"tp": 2}, {}, {}, {}),
+    ("cp2_ring", {"cp": 2}, {"cp_impl": "ring"}, {}, {}),
+    ("cp2_ulysses", {"cp": 2}, {"cp_impl": "ulysses"}, {}, {}),
     ("pp2_gpipe", {"pp": 2}, {}, {"schedule": "gpipe",
-                                  "num_microbatches": 4}),
+                                  "num_microbatches": 4}, {}),
     ("pp2_1f1b", {"pp": 2}, {}, {"schedule": "1f1b",
-                                 "num_microbatches": 4}),
+                                 "num_microbatches": 4}, {}),
+    ("dp2", {"dp": 2}, {}, {}, {"save": True}),
+    ("ep2_moe", {"ep": 2},
+     {"moe_capacity_factor": MESH_PAIR_MOE["capacity_factor"]}, {},
+     {"preset": MESH_PAIR_MOE["preset"], "layers": MESH_PAIR_MOE["layers"],
+      "ref": "ref_moe"}),
 )
+# the elastic resume: the pair's dp2 step 3 restored on one card through
+# ft/elastic.py elastic_resume, then `steps` more steps held to the
+# reference run's steps 4 and 5
+MESH_PAIR_ELASTIC = dict(steps=2)
 
 
 def mesh_pair_launches(tag: str, rank: int, layers: int, steps: int,
@@ -10247,10 +10317,14 @@ def _mesh_pair_start() -> dict:
     import tempfile
 
     root = tempfile.mkdtemp(prefix="chip_smoke_pair_")
-    meshes = [{"tag": t, "axes": ax, "model": over, "step": opts}
-              for t, ax, over, opts in MESH_PAIR_MESHES]
+    meshes = [{"tag": t, "axes": ax, "model": over, "step": opts,
+               "run": run}
+              for t, ax, over, opts, run in MESH_PAIR_MESHES]
     args = dict(MESH_PAIR, meshes=meshes, port=_free_port(),
-                ref=os.path.join(root, "ref.pt"), t_launch=time.time())
+                ref=os.path.join(root, "ref.pt"),
+                ref_moe=os.path.join(root, "ref_moe.pt"),
+                elastic_ckpt=os.path.join(root, "elastic"),
+                t_launch=time.time())
     script = os.path.join(root, "pair.py")
     Path(script).write_text(MESH_PAIR_CHILD)
     env = dict(os.environ,
@@ -10276,41 +10350,180 @@ def _mesh_pair_stop(pair: dict) -> None:
     shutil.rmtree(pair["root"], ignore_errors=True)
 
 
-def _mesh_pair_runs(pair: dict) -> tuple:
-    """Phase 3s (b): the meshes of ``MESH_PAIR_MESHES`` on the two
-    processes of ``pair`` (:func:`_mesh_pair_start`) sharing the one card
-    over gloo (``MESH_PAIR`` width and depth, f32), each held to the
-    same model's run without a mesh in this process on the same batches.
-    Returns (gloo's answer to each collective and exchange on CUDA
-    tensors, the runs); a refused one fails the phase."""
+def _pair_reference(preset: str, layers: int, steps: int, keep: int,
+                    **over) -> tuple:
+    """The run without a mesh that (b)'s meshes are held to: ``preset`` at
+    ``layers`` layers, f32, on ``MESH_PAIR``'s batches from seed 0, this
+    process.  Returns (each step's metrics, the parameters after ``keep``
+    steps and after ``steps`` steps on the host, the parameter count,
+    the seconds)."""
     import itertools
 
-    import numpy as np
     import torch
 
     from paddle_operator_tpu_torch.models.llama import make_model
     from paddle_operator_tpu_torch.train import trainer as T
     from paddle_operator_tpu_torch.train.data import deterministic_lm_batches
 
-    a = dict(MESH_PAIR)
-    t_ref = time.perf_counter()
-    model, cfg = make_model(a["preset"], device="cuda", seed=0,
-                            n_layers=a["layers"], dtype=torch.float32)
+    a = MESH_PAIR
+    t0 = time.perf_counter()
+    model, cfg = make_model(preset, device="cuda", seed=0, n_layers=layers,
+                            dtype=torch.float32, **over)
     opt = T.make_optimizer(a["lr"], warmup_steps=1, decay_steps=1000)
     state, step = T.create_state(model, opt), T.make_train_step(opt)
     want = []
     for b in itertools.islice(deterministic_lm_batches(
-            a["batch"], a["seq"] + 1, cfg.vocab_size, seed=1), a["steps"]):
+            a["batch"], a["seq"] + 1, cfg.vocab_size, seed=1), steps):
         state, m = step(state, {"tokens": torch.as_tensor(b["tokens"],
                                                           device="cuda")})
         want.append({k: float(v) for k, v in m.items()})
-    ref = pair["args"]["ref"]
-    torch.save({n: p.detach().cpu()
-                for n, p in state.model.named_parameters()}, ref + ".tmp")
-    os.replace(ref + ".tmp", ref)
+        if len(want) == keep:
+            kept = {n: p.detach().cpu()
+                    for n, p in state.model.named_parameters()}
+    final = kept if keep == steps else {
+        n: p.detach().cpu() for n, p in state.model.named_parameters()}
     del state, model
     torch.cuda.empty_cache()
-    ref_s = time.perf_counter() - t_ref
+    return want, kept, final, cfg.num_params(), time.perf_counter() - t0
+
+
+def _publish(params: dict, path: str) -> None:
+    """``params`` written to ``path`` by rename (a rank waits for it)."""
+    import torch
+
+    torch.save(params, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
+def _pair_gate(metrics: list, want: list, diff: float, off: int,
+               total: int, n_params: int, steps: int) -> bool:
+    """(b)'s gate for a run's steps against the run without a mesh's, the
+    parameters after ``steps`` steps from the same init: losses and aux
+    losses rtol 1e-5, grad norms rtol 1e-4, every
+    parameter compared once, at most one in 10,000 off by more than 1e-5
+    and none by more than 2 lr a step.  Adam moves an element by about lr
+    a step whatever its gradient's size: an element whose gradient is at
+    the f32 noise of the two summation orders can step either way, so a
+    few elements may differ by up to 2 lr a step; a wrong shard would
+    move whole blocks."""
+    import numpy as np
+
+    return (len(metrics) == len(want) and off <= 1e-4 * total
+            and total == n_params
+            and diff <= 2 * MESH_PAIR["lr"] * steps
+            and all(np.isclose(m[k], w[k], rtol=1e-5, atol=0)
+                    for m, w in zip(metrics, want)
+                    for k in ("loss", "aux_loss") if k in w)
+            and all(np.isclose(m["grad_norm"], w["grad_norm"], rtol=1e-4,
+                               atol=0) for m, w in zip(metrics, want)))
+
+
+def _pair_elastic_resume(ckpt_dir: str, want: list, final: dict,
+                         n_params: int) -> dict:
+    """The parent's side of (b)'s elastic run: the pair's dp2 step,
+    restored on one card through ``ft/elastic.py`` ``elastic_resume`` (a
+    state built without a mesh, its moments reassembled from the dp2
+    shard file), then ``MESH_PAIR_ELASTIC["steps"]`` steps from the plan's
+    data offset, held by (b)'s gate to the reference run's next steps."""
+    import itertools
+
+    import torch
+
+    from paddle_operator_tpu_torch.ft.elastic import elastic_resume
+    from paddle_operator_tpu_torch.ft.goodput import GoodputTracker
+    from paddle_operator_tpu_torch.models.llama import make_model
+    from paddle_operator_tpu_torch.ops import flash_attention as FA
+    from paddle_operator_tpu_torch.train import trainer as T
+    from paddle_operator_tpu_torch.train.checkpoint import CheckpointManager
+    from paddle_operator_tpu_torch.train.data import deterministic_lm_batches
+
+    a, n = MESH_PAIR, MESH_PAIR_ELASTIC["steps"]
+    opt = T.make_optimizer(a["lr"], warmup_steps=1, decay_steps=1000)
+
+    def init_fn():
+        model, _ = make_model(a["preset"], device="cuda", seed=0,
+                              n_layers=a["layers"], dtype=torch.float32)
+        return T.create_state(model, opt)
+
+    tracker = GoodputTracker()
+    state, resumed, plan = elastic_resume(
+        CheckpointManager(ckpt_dir), init_fn, saved_global_batch=a["batch"],
+        global_batch=a["batch"], goodput=tracker)
+    step = T.make_train_step(opt)
+    flash = (FA.flash_forward, FA.flash_backward_dkv, FA.flash_backward_dq)
+    for fn in flash:
+        fn.launches = 0
+    got, step_ms = [], []
+    for b in itertools.islice(deterministic_lm_batches(
+            a["batch"], a["seq"] + 1, state.model.cfg.vocab_size, seed=1,
+            start_step=plan["data_start_step"]), n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, {"tokens": torch.as_tensor(b["tokens"],
+                                                          device="cuda")})
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        got.append({k: float(v) for k, v in m.items()})
+    diff, off, total = 0.0, 0, 0
+    for name, p in state.model.named_parameters():
+        d = (p.detach() - final[name].to("cuda")).abs()
+        diff, off = max(diff, float(d.max())), off + int((d > 1e-5).sum())
+        total += d.numel()
+    launches = [fn.launches for fn in flash]
+    want_launches = [2 * a["layers"] * n, a["layers"] * n, a["layers"] * n]
+    run = {"resumed": resumed, "plan": plan,
+           "restore_s": tracker.badput()["restore"],
+           "losses": [m["loss"] for m in got],
+           "want_losses": [w["loss"] for w in want[-n:]],
+           "grad_norms": [m["grad_norm"] for m in got],
+           "max_param_diff": diff, "params_off": off, "params_total": total,
+           "launches": launches, "step_ms": step_ms}
+    log(f"mesh train pod (b) elastic: dp2's step {plan['step']} restored on "
+        f"one card in {run['restore_s']:.2f}s (resumed {resumed}, plan "
+        f"{plan}); {n} steps, losses {run['losses']} (want "
+        f"{run['want_losses']}), largest |param difference| {diff:.3e}, "
+        f"{off} of {total} off by more than 1e-5; flash launches "
+        f"{launches} (want {want_launches}); step ms {step_ms}")
+    steps_lost = a["steps"] - plan["data_start_step"]
+    if not (resumed and plan["step"] == a["steps"] and steps_lost == 0
+            and launches == want_launches
+            and _pair_gate(got, want[-n:], diff, off, total, n_params,
+                           a["steps"] + n)):
+        raise AssertionError("3s (b) elastic: the resumed run differs from "
+                             "the run without a mesh")
+    run["steps_lost"] = steps_lost
+    del state
+    torch.cuda.empty_cache()
+    return run
+
+
+def _mesh_pair_runs(pair: dict) -> tuple:
+    """Phase 3s (b): the meshes of ``MESH_PAIR_MESHES`` on the two
+    processes of ``pair`` (:func:`_mesh_pair_start`) sharing the one card
+    over gloo (``MESH_PAIR`` width and depth, f32; ep2_moe at
+    ``MESH_PAIR_MOE``), each held to the same model's run without a mesh
+    in this process on the same batches, then the elastic resume of dp2's
+    step on one card (:func:`_pair_elastic_resume`).  Returns (gloo's
+    answer to each collective and exchange on CUDA tensors, the runs); a
+    refused one fails the phase."""
+    import numpy as np
+    import torch
+
+    a = dict(MESH_PAIR)
+    args = pair["args"]
+    n_el = MESH_PAIR_ELASTIC["steps"]
+    # both references first, the card this process's alone, then the
+    # ranks go (they wait for ref.pt)
+    moe = MESH_PAIR_MOE
+    want_moe, kept_moe, _, n_moe, moe_s = _pair_reference(
+        moe["preset"], moe["layers"], a["steps"], a["steps"],
+        moe_capacity_factor=moe["capacity_factor"])
+    _publish(kept_moe, args["ref_moe"])
+    del kept_moe
+    want, kept, final, n_params, ref_s = _pair_reference(
+        a["preset"], a["layers"], a["steps"] + n_el, a["steps"])
+    _publish(kept, args["ref"])
+    del kept
     t0 = time.perf_counter()
     procs = pair["procs"]
     outs = []
@@ -10322,9 +10535,13 @@ def _mesh_pair_runs(pair: dict) -> tuple:
                                      f"{p.returncode}: {err[-3000:]}")
             outs.append([json.loads(ln) for ln in out.splitlines()
                          if ln.startswith("{")])
+        wall = time.perf_counter() - t0
+        t_el = time.perf_counter()
+        elastic = _pair_elastic_resume(args["elastic_ckpt"], want, final,
+                                       n_params)
+        elastic_s = time.perf_counter() - t_el
     finally:
         _mesh_pair_stop(pair)
-    wall = time.perf_counter() - t0
     # the ranks' answers (they agree unless one rank failed)
     probe = {k: next((o[0]["probe"][k] for o in outs
                       if o[0]["probe"][k] != "ok"), "ok")
@@ -10336,65 +10553,77 @@ def _mesh_pair_runs(pair: dict) -> tuple:
         raise AssertionError(f"3s (b): gloo refused {', '.join(refused)} "
                              "on CUDA tensors, which the mesh steps need")
     runs = {}
+    runs_of = {t: run for t, _, _, _, run in MESH_PAIR_MESHES}
     for mesh_out in zip(*(o[1:] for o in outs)):
         first = mesh_out[0]
         tag = first["tag"]
+        is_moe = runs_of[tag].get("ref") == "ref_moe"
+        layers = moe["layers"] if is_moe else a["layers"]
+        want_tag = (want_moe if is_moe else want)[:a["steps"]]
         metrics = first["metrics"]
         same = all(o["metrics"] == metrics for o in mesh_out)
         diff = max(o["max_param_diff"] for o in mesh_out)
         off = sum(o["params_off"] for o in mesh_out)
         total = sum(o["params_total"] for o in mesh_out)
         launches = [o["launches"] for o in mesh_out]
-        want_launches = [mesh_pair_launches(tag, o["rank"], a["layers"],
+        want_launches = [mesh_pair_launches(tag, o["rank"], layers,
                                             a["steps"]) for o in mesh_out]
         step_ms = [o["step_ms"] for o in mesh_out]
         xbytes = [o["exchange_bytes_per_step"] for o in mesh_out]
+        dropped = [o["dropped"] for o in mesh_out]
         secs = [(round(o["setup_s"], 2), round(o["check_s"], 2))
                 for o in mesh_out]
-        pairs = [(m["loss"], w["loss"], m["grad_norm"], w["grad_norm"])
-                 for m, w in zip(metrics, want)]
+        keys = ("loss", "aux_loss") if is_moe else ("loss",)
+        pairs = [tuple(x for k in keys + ("grad_norm",)
+                       for x in (m[k], w[k]))
+                 for m, w in zip(metrics, want_tag)]
         log(f"mesh train pod (b) {tag}: two ranks on the one card over "
-            f"gloo, {cfg.n_heads} heads ({first['local_heads']} a rank), "
+            f"gloo, {first['local_heads']} heads a rank, "
             f"layers a rank {[o['layers_here'] for o in mesh_out]}, "
-            f"(loss, want, grad_norm, want) {pairs}; the ranks' metrics "
-            f"equal: {same}; largest |param difference| {diff:.3e}, {off} "
-            f"of {total} parameters off by more than 1e-5; flash launches "
-            f"a rank {launches} (want {want_launches}"
+            f"({', '.join(f'{k}, want' for k in keys)}, grad_norm, want) "
+            f"{pairs}; the ranks' metrics equal: {same}; largest |param "
+            f"difference| {diff:.3e}, {off} of {total} parameters off by "
+            f"more than 1e-5; flash launches a rank {launches} (want "
+            f"{want_launches}"
             + ("; ring attention runs plain ops, no flash kernel"
                if tag == "cp2_ring" else "")
             + f"); step ms a rank {step_ms}; exchange bytes a step a rank "
             f"{xbytes}; s a rank to build the state and to check it "
-            f"{secs}")
-        # Adam moves an element by about lr a step whatever its
-        # gradient's size: an element whose gradient is at the f32 noise
-        # of the two summation orders can step either way, so a few
-        # elements may differ by up to 2 lr a step; a wrong shard would
-        # move whole blocks
-        ok = (same and len(metrics) == len(want) and off <= 1e-4 * total
-              and total == cfg.num_params()
-              and diff <= 2 * a["lr"] * a["steps"]
-              and launches == want_launches
-              and all(np.isclose(m["loss"], w["loss"], rtol=1e-5, atol=0)
-                      and np.isclose(m["grad_norm"], w["grad_norm"],
-                                     rtol=1e-4, atol=0)
-                      for m, w in zip(metrics, want)))
+            f"{secs}; peak GB a rank {[round(o['peak_gb'], 2) for o in mesh_out]}"
+            + (f"; dropped assignments a step a rank {dropped}"
+               if is_moe else "")
+            + (f"; saved steps {first['saved']}" if "saved" in first
+               else ""))
+        ok = (same and launches == want_launches
+              and len(metrics) == a["steps"]
+              and _pair_gate(metrics, want_tag, diff, off, total,
+                             n_moe if is_moe else n_params, a["steps"])
+              and (not is_moe or all(d > 0 for r in dropped for d in r))
+              and (not runs_of[tag].get("save")
+                   or first["saved"] == [a["steps"]]))
         if not ok:
             raise AssertionError(f"3s (b) {tag}: the two-rank mesh run "
                                  "differs from the run without a mesh")
         runs[tag] = {"losses": [m["loss"] for m in metrics],
                      "grad_norms": [m["grad_norm"] for m in metrics],
-                     "want_losses": [w["loss"] for w in want],
+                     "want_losses": [w["loss"] for w in want_tag],
                      "max_param_diff": diff, "params_off": off,
                      "params_total": total, "launches": launches,
-                     "step_ms": step_ms, "exchange_bytes": xbytes}
+                     "step_ms": step_ms, "exchange_bytes": xbytes,
+                     "peak_gb": [o["peak_gb"] for o in mesh_out]}
+        if is_moe:
+            runs[tag].update(aux_losses=[m["aux_loss"] for m in metrics],
+                             dropped=dropped)
     if set(runs) != {m[0] for m in MESH_PAIR_MESHES}:
         raise AssertionError(f"3s (b): ran {sorted(runs)}, not every mesh "
                              "of MESH_PAIR_MESHES")
+    runs["elastic"] = elastic
     runs["wall_s"] = wall
     log(f"mesh train pod (b): {len(MESH_PAIR_MESHES)} meshes in "
-        f"{wall:.1f}s after the run without a mesh and its save "
-        f"({ref_s:.1f}s); the ranks, started before (a), probed after "
-        f"{[round(o[0]['ready_s'], 1) for o in outs]}s")
+        f"{wall:.1f}s after the runs without a mesh ({ref_s:.1f}s, "
+        f"{moe_s:.1f}s {moe['preset']}) and their saves; the elastic "
+        f"resume {elastic_s:.1f}s; the ranks, started before (a), probed "
+        f"after {[round(o[0]['ready_s'], 1) for o in outs]}s")
     return probe, runs
 
 

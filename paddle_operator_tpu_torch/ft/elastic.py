@@ -1,10 +1,17 @@
-"""Elastic resume — the port of ``paddle_operator_tpu/ft/elastic.py``
-for one card.
+"""Elastic resume — the port of ``paddle_operator_tpu/ft/elastic.py``.
 
-A checkpoint holds whole tensors, so a restarted job may resume with
-another global batch: on one card the resize is a change of global
-batch (an elastic dp over the mesh waits for ROADMAP.md Queue A item
-8.2).  Two things do not come for free and are handled here:
+A checkpoint holds global tensors (``params.pt`` whole, the moments in
+shard files that carry their global shapes and mesh axes;
+``train/checkpoint.py``), so a restarted gang may resume on another
+mesh: the production case is the operator's elastic slice drop, after
+which the ConfigMap's ``TPUJOB_MESH`` has a smaller ``dp``
+(``controller/builders.py`` of the JAX package) and the gang builds
+that mesh (``launch/launcher.py`` ``job_mesh``).  :func:`elastic_resume`
+restores into a template built against the CURRENT mesh (``init_fn``:
+``create_state(..., mesh=mesh)``), which cuts each rank's region out of
+the saved tensors (an fsdp, tp or ep reshape reassembles and recuts the
+moments), or onto one card.  Two things do not come for free and are
+handled here:
 
 - **data continuity**: the batch at global step *k* must be the same
   data whatever the batch size, or a resume repeats or skips data.
@@ -61,13 +68,18 @@ def elastic_resume(ckpt: CheckpointManager, init_fn: Callable,
                    goodput=None,
                    logger=None) -> Tuple[Any, bool, Dict[str, Any]]:
     """The restart entry of a resized job: restore the newest complete
-    checkpoint into ``state_like`` (default ``init_fn()``), falling back
-    over corrupt steps like :func:`train.checkpoint.resume_or_init`.
+    checkpoint into ``state_like`` (default ``init_fn()``, a state built
+    against the current mesh), falling back over corrupt steps like
+    :func:`train.checkpoint.resume_or_init`.  On a mesh every rank calls
+    it together (the restore reads the same step on every rank).
 
     Returns ``(state, resumed, plan)``; ``plan`` holds ``step`` (the
     restored step, 0 when fresh), ``tokens_consumed`` (step x
     ``saved_global_batch``) and ``data_start_step`` (the fast-forward
-    offset at the new ``global_batch``).  ``goodput`` (an
+    offset at the new ``global_batch``: ``deterministic_lm_batches(...,
+    start_step=plan["data_start_step"])`` through ``train/data.py``
+    ``process_slice(..., mesh=mesh)`` gives each rank of the new mesh
+    its rows, none repeated or skipped).  ``goodput`` (an
     :class:`ft.goodput.GoodputTracker`) books the restore's wall time
     under ``restore``."""
     phase = (goodput.phase("restore") if goodput is not None

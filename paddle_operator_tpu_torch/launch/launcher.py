@@ -28,8 +28,13 @@ What differs from the JAX module:
   in-process store: no coordinator, no ``MASTER_ADDR``.  A mesh larger
   than the worker count (``chips_per_worker`` > 1: several cards a pod)
   is refused by name: one process a card under the shim is a later
-  step (ROADMAP.md Queue A item 8.4).  Every axis the mesh step runs
-  (dp, pp, fsdp, cp, tp) is accepted; ``ep`` is refused by the step.
+  step (ROADMAP.md Queue A item 8.4).  Every axis of the ConfigMap's
+  ``TPUJOB_MESH`` is accepted (dp, pp, fsdp, cp, ep, tp): the mesh step
+  runs them all, and refuses by name only an MoE model with ``cp``
+  above 1 (item 8.6).  After an elastic slice drop the operator
+  rewrites ``TPUJOB_MESH`` with a smaller ``dp``
+  (``controller/builders.py`` of the JAX package), and the gang that
+  restarts builds that mesh and resumes into it (``ft/elastic.py``).
 - A ``ps`` or ``heter`` pod with no command would run the JAX package's
   parameter or batch-preparation server, which the port does not have
   (ROADMAP.md Queue A item 9): :func:`main` names that item and exits

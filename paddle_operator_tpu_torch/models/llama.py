@@ -100,7 +100,7 @@ from paddle_operator_tpu_torch.parallel.ring_attention import ring_attention
 from paddle_operator_tpu_torch.parallel.ulysses import (kv_repeat,
                                                         ulysses_attention)
 from paddle_operator_tpu_torch.parallel.collectives import (
-    copy_to_tp, cp_group, gather_param, reduce_from_tp, tp_group,
+    copy_over, cp_group, gather_param, sum_over, tp_group,
     vocab_parallel_embed)
 
 @dataclasses.dataclass(frozen=True)
@@ -313,6 +313,13 @@ class Dense(nn.Module):
         return x @ gather_param(self.kernel).to(self.dtype)
 
 
+def _tp_groups(dense: Dense) -> tuple:
+    """The groups ``copy_over``/``sum_over`` take around ``dense``'s tp
+    block: the ``tp`` group that shards its kernel, or none."""
+    tp = tp_group(getattr(dense, "kernel", None))
+    return () if tp is None else (tp[0],)
+
+
 class Embed(nn.Module):
     """flax Embed: ``embedding`` [vocab, dim], gathered in the compute
     dtype."""
@@ -381,8 +388,8 @@ class Attention(nn.Module):
         b, s, _ = x.shape
         # under tp the projections hold this rank's heads (column shards
         # of wq/wk/wv, row shard of wo): attention runs on local heads
-        tp = tp_group(getattr(self.wq, "kernel", None))
-        x = copy_to_tp(x, tp)
+        tp = _tp_groups(self.wq)
+        x = copy_over(x, tp)
         q = self.wq(x).reshape(b, s, -1, cfg.head_dim)
         k = self.wk(x).reshape(b, s, -1, cfg.head_dim)
         v = self.wv(x).reshape(b, s, -1, cfg.head_dim)
@@ -400,7 +407,7 @@ class Attention(nn.Module):
                 out = ulysses_attention(q, k, v, segment_ids, cp=cp)
             else:
                 out = ring_attention(q, k, v, segment_ids, cp=cp)
-        return reduce_from_tp(self.wo(out.reshape(b, s, -1)), tp)
+        return sum_over(self.wo(out.reshape(b, s, -1)), tp)
 
 
 def cp_attention(cfg: LlamaConfig, cp: int) -> str:
@@ -428,9 +435,9 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # under tp: w1/w3 column shards, w2 the matching row shard
-        tp = tp_group(getattr(self.w1, "kernel", None))
-        x = copy_to_tp(x, tp)
-        return reduce_from_tp(
+        tp = _tp_groups(self.w1)
+        x = copy_over(x, tp)
+        return sum_over(
             self.w2(torch.nn.functional.silu(self.w1(x)) * self.w3(x)), tp)
 
 
@@ -584,7 +591,7 @@ class Llama(nn.Module):
         ``final_norm_module`` and ``lm_head_module``): f32 logits; under
         tp this rank's vocab slice, ``[..., V/tp]``."""
         x = self.final_norm(x)
-        x = copy_to_tp(x, tp_group(getattr(self.lm_head, "kernel", None)))
+        x = copy_over(x, _tp_groups(self.lm_head))
         return self.lm_head(x).float()
 
     def stage_layers(self) -> LayerStack:
@@ -633,19 +640,32 @@ def partition_patterns(cfg: LlamaConfig):
     """(name-regex, logical spec) table for
     ``parallel/sharding.py`` ``tree_shardings``: the JAX package's
     specs on the port's names (a layer's leading ``layers`` dim, pp
-    under pipeline parallelism, is its stage: :func:`layer_stage`).  MoE
-    configs are refused by name (the expert axis waits for expert
-    parallelism)."""
+    under pipeline parallelism, is its stage: :func:`layer_stage`).  An
+    MoE config adds ``models/moe.py``'s rows under ``moe`` (the expert
+    dim over ``ep``)."""
+    layer_pats = list(_LAYER_PATTERNS)
     if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "MoE models on a mesh: expert parallelism for models/moe.py is "
-            "not ported to the torch package (ROADMAP.md Queue A item 8.1, "
-            "'Parallelism')")
+        from paddle_operator_tpu_torch.models.moe import (
+            moe_partition_patterns)
+
+        layer_pats += moe_partition_patterns()
     return [
         (r"tok_embed\.embedding", ("vocab", "embed")),
         (r"final_norm\.scale", ("embed",)),
         (r"lm_head\.kernel", ("embed", "vocab")),
-    ] + list(_LAYER_PATTERNS)
+    ] + layer_pats
+
+
+def check_moe(cfg: LlamaConfig, cp: int) -> None:
+    """Refuse an MoE config on a ``cp`` axis above 1 by name: the global
+    token order interleaves each row's cp chunks, so the capacity
+    positions need another prefix of the counts (ROADMAP.md Queue A
+    item 8.6)."""
+    if cfg.n_experts > 0 and cp > 1:
+        raise NotImplementedError(
+            f"MoE models with cp={cp}: the capacity positions over a "
+            "sequence split into cp chunks are not ported to the torch "
+            "package (ROADMAP.md Queue A item 8.6, 'Parallelism')")
 
 
 def check_tp(cfg: LlamaConfig, tp: int) -> None:

@@ -9,10 +9,17 @@ out for a ``dp × fsdp × tp`` mesh (``parallel/mesh.py``).
   the full weight lives only while its layer runs (and again in the
   recompute), and a shard's gradient leaves the backward already summed
   over ``fsdp``.
-- :func:`copy_to_tp` / :func:`reduce_from_tp` — Megatron's pair around
-  a column-parallel then row-parallel block: identity forward and a
-  ``tp`` all-reduce of the input's gradient backward; a ``tp``
-  all-reduce of the partial output forward and identity backward.
+- :func:`copy_over` / :func:`sum_over` — Megatron's pair around a
+  column-parallel then row-parallel block, over any groups: identity
+  forward and an all-reduce of the input's gradient backward; an
+  all-reduce of the partial output forward and identity backward.  The
+  tp blocks of ``models/llama.py`` run it over ``tp``, the MoE layer
+  (``models/moe.py``) over ``ep`` and ``tp`` around its local experts,
+  and the MoE layer sums its load-balancing statistics over the data
+  axes with :func:`sum_over`.
+- :func:`all_gather_blocks` — a small tensor of every data block, in
+  block order, outside autograd (the MoE layer's expert counts, whose
+  prefix gives each assignment its global capacity position).
 - :func:`vocab_parallel_embed` — the embedding over this rank's vocab
   rows; tokens outside them give zeros, and the ``tp`` all-reduce sums
   the one row each token has.
@@ -105,14 +112,13 @@ class _Gather(torch.autograd.Function):
         return _reduce_scatter_dim(g, ctx.dim, ctx.group), None, None
 
 
-def _gather(p: DTensor, keep_tp: bool, gather) -> torch.Tensor:
-    """``p``'s local shard gathered over its sharding axes (but ``tp``
-    when ``keep_tp``), inner axes first so nested blocks land in
-    order."""
+def _gather(p: DTensor, keep: Sequence[str], gather) -> torch.Tensor:
+    """``p``'s local shard gathered over its sharding axes but those of
+    ``keep``, inner axes first so nested blocks land in order."""
     mesh = p.device_mesh
     local = p.to_local()
     for name, pl in reversed(list(zip(mesh.mesh_dim_names, p.placements))):
-        if isinstance(pl, Shard) and not (keep_tp and name == "tp"):
+        if isinstance(pl, Shard) and name not in keep:
             local = gather(local, pl.dim, mesh.get_group(name))
     return local
 
@@ -120,10 +126,11 @@ def _gather(p: DTensor, keep_tp: bool, gather) -> torch.Tensor:
 def gather_param(p: torch.Tensor) -> torch.Tensor:
     """The tensor a layer computes with: a plain tensor as it is; a
     DTensor's local shard all-gathered over its sharding axes other
-    than ``tp``."""
+    than ``tp`` and ``ep`` (a rank computes with its own columns and
+    its own experts)."""
     if not isinstance(p, DTensor):
         return p
-    return _gather(p, True, _Gather.apply)
+    return _gather(p, ("tp", "ep"), _Gather.apply)
 
 
 @torch.no_grad()
@@ -131,7 +138,7 @@ def full_tensor(p: torch.Tensor) -> torch.Tensor:
     """The whole of ``p`` on every rank (a plain tensor as it is)."""
     if not isinstance(p, DTensor):
         return p
-    return _gather(p, False, _all_gather_dim)
+    return _gather(p, (), _all_gather_dim)
 
 
 def tp_group(p: torch.Tensor):
@@ -147,39 +154,60 @@ def tp_group(p: torch.Tensor):
     return group, dist.get_rank(group), dist.get_world_size(group)
 
 
-class _CopyToTP(torch.autograd.Function):
+def _all_reduce_groups(x: torch.Tensor, groups) -> torch.Tensor:
+    out = x.clone(memory_format=torch.contiguous_format)
+    for group in groups:
+        dist.all_reduce(out, group=group)
+    EXCHANGE["reduce"] += out.numel() * out.element_size() * len(groups)
+    return out
+
+
+class _CopyOver(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, groups):
+        ctx.groups = groups
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        return _all_reduce_groups(g, ctx.groups), None
 
 
-class _ReduceFromTP(torch.autograd.Function):
+class _SumOver(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        out = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, group=group)
-        return out
+    def forward(ctx, x, groups):
+        return _all_reduce_groups(x, groups)
 
     @staticmethod
     def backward(ctx, g):
         return g, None
 
 
-def copy_to_tp(x: torch.Tensor, tp) -> torch.Tensor:
-    """``x`` (replicated over ``tp``) entering column-parallel weights."""
-    return x if tp is None else _CopyToTP.apply(x, tp[0])
+def copy_over(x: torch.Tensor, groups: Sequence) -> torch.Tensor:
+    """``x``, replicated over ``groups``, entering work that each rank of
+    them does a part of: identity forward, the gradient's parts summed
+    over every group of ``groups`` backward.  No groups: ``x``."""
+    return _CopyOver.apply(x, tuple(groups)) if groups else x
 
 
-def reduce_from_tp(x: torch.Tensor, tp) -> torch.Tensor:
-    """The sum over ``tp`` of a row-parallel block's partial outputs."""
-    return x if tp is None else _ReduceFromTP.apply(x, tp[0])
+def sum_over(x: torch.Tensor, groups: Sequence) -> torch.Tensor:
+    """The sum of ``x`` over every group of ``groups`` (one all-reduce a
+    group, in order), with an identity backward: each rank's ``x`` is its
+    part of the sum, and the gradient of the sum is its gradient.  No
+    groups: ``x``."""
+    return _SumOver.apply(x, tuple(groups)) if groups else x
+
+
+@torch.no_grad()
+def all_gather_blocks(x: torch.Tensor, groups: Sequence) -> torch.Tensor:
+    """``x`` of every rank of ``groups`` (outer axis first, as
+    ``parallel/sharding.py`` ``data_block`` numbers the blocks) stacked
+    on a new leading dim in block order, without a gradient.  No
+    groups: ``x[None]``."""
+    out = x[None]
+    for group in reversed(tuple(groups)):
+        out = _all_gather_dim(out, 0, group)
+    return out
 
 
 def vocab_parallel_embed(weight: torch.Tensor, tokens: torch.Tensor,
@@ -191,7 +219,7 @@ def vocab_parallel_embed(weight: torch.Tensor, tokens: torch.Tensor,
     local = tokens.long() - rank * rows
     miss = (local < 0) | (local >= rows)
     out = weight[local.clamp(0, rows - 1)].masked_fill(miss[..., None], 0)
-    return reduce_from_tp(out, tp)
+    return sum_over(out, (group,))
 
 
 class _VocabParallelLogProb(torch.autograd.Function):
@@ -282,8 +310,10 @@ def cp_group(p: torch.Tensor):
 
 
 # bytes each kind of exchange sent from this process ("shift", "a2a",
-# "hop"); a caller zeroes and reads them around the work it measures
-EXCHANGE: Dict[str, int] = {"shift": 0, "a2a": 0, "hop": 0}
+# "hop"), and the bytes of the tensors the copy/sum pair all-reduced
+# ("reduce", once a group: tp's and ep's); a caller zeroes and reads them
+# around the work it measures
+EXCHANGE: Dict[str, int] = {"shift": 0, "a2a": 0, "hop": 0, "reduce": 0}
 
 
 def exchange(sends: Dict[int, torch.Tensor],

@@ -31,10 +31,10 @@ What differs from the JAX module:
 - ``make_serving_mesh`` waits for serving tensor parallelism;
   ``resolve_shard_map_mesh``, ``supports_partial_manual`` and
   ``compat_shard_map`` are JAX-version shims with no counterpart.
-- :func:`check_supported` refuses, by name, the axis whose parallel
-  step is not ported: ``ep`` above 1 (ROADMAP.md Queue A item 8.1).
-  ``cp`` and ``pp`` run (ring and Ulysses attention, the GPipe and 1F1B
-  pipeline step).
+- Every axis runs: ``cp`` (ring and Ulysses attention), ``pp`` (the
+  GPipe and 1F1B pipeline step) and ``ep`` (the MoE layer's local
+  experts, ``models/moe.py``); the ``ep`` group of a rank is
+  ``axis_group(mesh, "ep")``, inside its pp stage's sub-mesh under pp.
 - Under ``pp`` a stage's layers live only on that stage's ranks: their
   DTensors are laid over :func:`stage_mesh`, the mesh without ``pp`` at
   this rank's stage (:data:`STAGE_AXES`).
@@ -66,12 +66,6 @@ TOKEN_AXES = DATA_AXES + ("cp",)
 
 # The axes of a pipeline stage's sub-mesh (every axis but pp).
 STAGE_AXES: Sequence[str] = tuple(a for a in AXIS_ORDER if a != "pp")
-
-# the parallel steps not ported yet, by axis: (what, ROADMAP.md Queue A
-# item)
-_UNPORTED = {
-    "ep": ("expert parallelism for models/moe.py", "8.1"),
-}
 
 # mesh -> its host-side gloo group (meshes over the same ranks compare
 # equal and share one)
@@ -187,17 +181,6 @@ def require_mesh(mesh) -> None:
     if mesh is not None and not isinstance(mesh, DeviceMesh):
         raise TypeError(f"mesh must be a torch DeviceMesh (parallel/mesh.py "
                         f"make_mesh), not {type(mesh).__name__}")
-
-
-def check_supported(mesh: DeviceMesh) -> None:
-    """Refuse, by name, an axis whose parallel step is not ported
-    (``ep``; ``dp``, ``pp``, ``fsdp``, ``cp`` and ``tp`` run)."""
-    sizes = mesh_axis_sizes(mesh)
-    for axis, (what, item) in _UNPORTED.items():
-        if sizes[axis] > 1:
-            raise NotImplementedError(
-                f"{axis}={sizes[axis]}: {what} is not ported to the torch "
-                f"package (ROADMAP.md Queue A item {item}, 'Parallelism')")
 
 
 def stage_mesh(mesh: DeviceMesh) -> DeviceMesh:

@@ -39,8 +39,13 @@ What differs from the JAX module:
   autograd function whose backward runs the reverse schedule;
   :func:`pipeline_1f1b_grads` returns the gradients, as JAX's does.
 - ``pp`` is ``(group, stage, size)`` (``collectives.group_of``), or
-  None for one stage.  MoE stages (``has_aux``) wait for expert
-  parallelism (ROADMAP.md Queue A item 8.1): MoE on a mesh is refused.
+  None for one stage.
+- ``has_aux`` (MoE stages): a stage function returns ``(h, aux)``, its
+  layers' load-balancing loss for one microbatch.  As in JAX, each stage
+  sums its live microbatches' aux (the forward slots'), the sum over pp
+  divided by ``M`` comes back beside the output, and the aux of every
+  stage-microbatch gets the cotangent ``d total / d aux_out / M``
+  (GPipe) or the constant ``aux_seed`` (1F1B: ``moe_aux_weight / M``).
 """
 
 from __future__ import annotations
@@ -114,8 +119,8 @@ class _GPipe(torch.autograd.Function):
         return run.forward(x, keep=True)
 
     @staticmethod
-    def backward(ctx, g):
-        dx, dparams = ctx.run.backward(g)
+    def backward(ctx, g, g_aux=None):
+        dx, dparams = ctx.run.backward(g, g_aux)
         ctx.run = None
         return (None, dx) + tuple(dparams)
 
@@ -124,9 +129,10 @@ class _GPipeRun:
     """One GPipe call: the forward schedule (keeping each live
     microbatch's stage graph when asked) and the reverse schedule."""
 
-    def __init__(self, layer_fn, params, extras, pp, m) -> None:
+    def __init__(self, layer_fn, params, extras, pp, m,
+                 has_aux=False) -> None:
         self.layer_fn, self.params, self.extras = layer_fn, params, extras
-        self.pp, self.m = pp, m
+        self.pp, self.m, self.has_aux = pp, m, has_aux
         self.stage, self.n = (0, 1) if pp is None else (pp[1], pp[2])
         self.kept = {}
 
@@ -135,10 +141,17 @@ class _GPipeRun:
             return None, None
         return pipeline_hop(self.pp, **kw)
 
-    def forward(self, x: torch.Tensor, keep: bool) -> torch.Tensor:
+    def _run(self, h, f):
+        """``(out, aux)`` of this stage on microbatch ``f`` (aux None
+        without ``has_aux``)."""
+        res = self.layer_fn(h, *_extra(self.extras, f))
+        return res if self.has_aux else (res, None)
+
+    def forward(self, x: torch.Tensor, keep: bool):
         s, n, m = self.stage, self.n, self.m
         shape = tuple(x.shape[1:])
         outs = torch.zeros_like(x)
+        aux = torch.zeros(1, dtype=torch.float32, device=x.device)
         recv = None
         for t in range(m + n - 1):
             out = None
@@ -148,11 +161,13 @@ class _GPipeRun:
                 if keep:
                     h = inp.detach().requires_grad_()
                     with torch.enable_grad():
-                        o = self.layer_fn(h, *_extra(self.extras, f))
-                    self.kept[f] = (h, o)
+                        o, a = self._run(h, f)
+                    self.kept[f] = (h, o, a)
                     out = o.detach()
                 else:
-                    out = self.layer_fn(inp, *_extra(self.extras, f))
+                    out, a = self._run(inp, f)
+                if a is not None:
+                    aux = aux + a.detach().float()
                 if s == n - 1:
                     outs[f] = out
             # every stage takes part in a tick's exchange when any stage
@@ -162,10 +177,13 @@ class _GPipeRun:
                     fwd=out if s < n - 1 else None,
                     recv_fwd=shape if s > 0 and _live(t, s - 1, m) else None,
                     like=x)
-        _sum_over([outs], self.pp)
-        return outs
+        if not self.has_aux:
+            _sum_over([outs], self.pp)
+            return outs
+        _sum_over([outs, aux], self.pp)
+        return outs, aux[0] / m
 
-    def backward(self, g: torch.Tensor):
+    def backward(self, g: torch.Tensor, g_aux=None):
         s, n, m = self.stage, self.n, self.m
         shape = tuple(g.shape[1:])
         dx = torch.zeros_like(g)
@@ -176,9 +194,13 @@ class _GPipeRun:
             if _live(t, s, m):
                 f = t - s
                 cot = g[f] if s == n - 1 else recv
-                h, o = self.kept.pop(f)
-                grads = torch.autograd.grad(o, [h] + list(self.params), cot,
-                                            allow_unused=True)
+                h, o, a = self.kept.pop(f)
+                outputs, cots = [o], [cot]
+                if a is not None:
+                    outputs.append(a)
+                    cots.append((g_aux / m).to(a.dtype))
+                grads = torch.autograd.grad(outputs, [h] + list(self.params),
+                                            cots, allow_unused=True)
                 d_in = grads[0]
                 for acc, gp, p in zip(dparams, grads[1:], self.params):
                     acc += _local(gp, p)
@@ -197,7 +219,7 @@ class _GPipeRun:
 
 def pipeline_apply(layer_fn: Callable, stage_params: Sequence[torch.Tensor],
                    x: torch.Tensor, extras: Optional[torch.Tensor] = None,
-                   *, pp, num_microbatches: int) -> torch.Tensor:
+                   *, pp, num_microbatches: int, has_aux: bool = False):
     """GPipe over the pp axis ``pp`` ((group, stage, size), or None for
     one stage).
 
@@ -209,12 +231,15 @@ def pipeline_apply(layer_fn: Callable, stage_params: Sequence[torch.Tensor],
     current microbatch (packed-sequence ``segment_ids``).  Returns the
     last stage's outputs [M, Bm, ...], the same on every stage.
     Differentiable in ``x`` and ``stage_params`` (the backward is the
-    reverse schedule; ``x``'s gradient is stage 0's, on every stage)."""
+    reverse schedule; ``x``'s gradient is stage 0's, on every stage).
+    With ``has_aux`` ``layer_fn`` returns ``(h, aux)`` and the result is
+    ``(out, aux)``: the stages' aux summed over their live microbatches
+    and over pp, divided by M, the same on every stage."""
     m = num_microbatches
     if x.shape[0] != m:
         raise ValueError(f"x has {x.shape[0]} microbatches, not M={m}")
     params = list(stage_params)
-    run = _GPipeRun(layer_fn, params, extras, pp, m)
+    run = _GPipeRun(layer_fn, params, extras, pp, m, has_aux)
     if torch.is_grad_enabled() and (x.requires_grad
                                     or any(p.requires_grad for p in params)):
         return _GPipe.apply(run, x, *params)
@@ -239,9 +264,8 @@ def pipeline_1f1b_grads(stage_fn: Callable, head_loss_fn: Callable,
                         head_params: Sequence[torch.Tensor],
                         xm: torch.Tensor, targets_m: torch.Tensor,
                         mask_m: torch.Tensor, seed,
-                        extras: Optional[torch.Tensor] = None, *, pp
-                        ) -> Tuple[torch.Tensor, List[torch.Tensor],
-                                   List[torch.Tensor], torch.Tensor]:
+                        extras: Optional[torch.Tensor] = None, *, pp,
+                        has_aux: bool = False, aux_seed=0.0) -> tuple:
     """The 1F1B schedule's forward and backward over the pp axis ``pp``
     ((group, stage, size), or None for one stage), gradients computed
     explicitly (module docstring).
@@ -257,12 +281,31 @@ def pipeline_1f1b_grads(stage_fn: Callable, head_loss_fn: Callable,
     ``d_head`` and ``d_xm`` the same on every stage (the last stage's
     and stage 0's, summed over pp from a one-hot), ``d_trunk`` this
     stage's; the parameter gradients are local tensors (a DTensor's
-    local shard)."""
+    local shard).  With ``has_aux`` ``stage_fn`` returns ``(h', aux)``,
+    each stage-microbatch's aux gets the cotangent ``aux_seed``, and a
+    fifth item is the stages' forward-slot aux summed over pp, divided
+    by M (unscaled)."""
     stage, n = (0, 1) if pp is None else (pp[1], pp[2])
     m = xm.shape[0]
     trunk, head = list(trunk_params), list(head_params)
     is_last = stage == n - 1
     seed = torch.as_tensor(seed, dtype=torch.float32, device=xm.device)
+    aux_seed = torch.as_tensor(aux_seed, dtype=torch.float32,
+                               device=xm.device)
+
+    def run(h, f):
+        res = stage_fn(h, *_extra(extras, f))
+        return res if has_aux else (res, None)
+
+    def grad(outputs, inputs, cots):
+        """The gradients of ``outputs[0]`` (cotangent ``cots[0]``) and,
+        with aux, of the aux (``aux_seed``)."""
+        outputs, cots = list(outputs), list(cots)
+        if outputs[-1] is None:
+            outputs, cots = outputs[:-1], cots[:-1]
+        return torch.autograd.grad(outputs, inputs, cots, allow_unused=True)
+
+    aux_sum = torch.zeros(1, dtype=torch.float32, device=xm.device)
     shape = tuple(xm.shape[1:])
     stash = {}                       # microbatch -> its stage input
     kept = {}                        # the last stage's graph of the round
@@ -281,13 +324,15 @@ def pipeline_1f1b_grads(stage_fn: Callable, head_loss_fn: Callable,
             if is_last:
                 h = inp.detach().requires_grad_()
                 with torch.enable_grad():
-                    o = stage_fn(h, *_extra(extras, f))
+                    o, a = run(h, f)
                     loss_f = head_loss_fn(o, targets_m[f], mask_m[f])
-                kept[f] = (h, loss_f)
+                kept[f] = (h, loss_f, a)
                 loss_sum = loss_sum + loss_f.detach().float()
             else:
                 with torch.no_grad():
-                    out = stage_fn(inp, *_extra(extras, f))
+                    out, a = run(inp, f)
+            if a is not None:
+                aux_sum = aux_sum + a.detach().float()
         if len(stash) > min(m, 2 * n - 1):
             raise AssertionError("1F1B stashed more than min(M, 2P-1) "
                                  "stage inputs")
@@ -297,18 +342,16 @@ def pipeline_1f1b_grads(stage_fn: Callable, head_loss_fn: Callable,
         if 0 <= b < m:
             saved = stash.pop(b)
             if is_last:
-                h, loss_b = kept.pop(b)
-                grads = torch.autograd.grad(
-                    loss_b, [h] + trunk + head, seed.to(loss_b.dtype),
-                    allow_unused=True)
+                h, loss_b, a = kept.pop(b)
+                grads = grad((loss_b, a), [h] + trunk + head,
+                             (seed.to(loss_b.dtype), aux_seed))
                 for acc, gp, p in zip(d_head, grads[1 + len(trunk):], head):
                     acc += _local(gp, p)
             else:
                 h = saved.detach().requires_grad_()
                 with torch.enable_grad():
-                    o = stage_fn(h, *_extra(extras, b))
-                grads = torch.autograd.grad(o, [h] + trunk, cot_in,
-                                            allow_unused=True)
+                    o, a = run(h, b)
+                grads = grad((o, a), [h] + trunk, (cot_in, aux_seed))
             d_in = grads[0]
             for acc, gp, p in zip(d_trunk, grads[1:1 + len(trunk)], trunk):
                 acc += _local(gp, p)
@@ -325,8 +368,11 @@ def pipeline_1f1b_grads(stage_fn: Callable, head_loss_fn: Callable,
                           and 0 <= r - (2 * n - 3 - stage) < m else None),
                 like=xm)
     loss_sum = loss_sum.reshape(1)
-    _sum_over([loss_sum] + d_head + [d_xm], pp)
-    return loss_sum[0], d_trunk, d_head, d_xm
+    if not has_aux:
+        _sum_over([loss_sum] + d_head + [d_xm], pp)
+        return loss_sum[0], d_trunk, d_head, d_xm
+    _sum_over([loss_sum, aux_sum] + d_head + [d_xm], pp)
+    return loss_sum[0], d_trunk, d_head, d_xm, aux_sum[0] / m
 
 
 def make_pipeline_1f1b_fn(mesh, stage_fn: Callable, head_loss_fn: Callable,

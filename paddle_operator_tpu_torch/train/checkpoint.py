@@ -40,7 +40,9 @@ any step:
 - the moments are written per rank, unreplicated: each rank at dp
   coordinate 0 writes ``opt-<rank>.pt`` (its coordinates, the mesh's
   axis sizes, and per field and name the local shard with the global
-  shape and the per-dim mesh axes that cut it), and rank 0 writes
+  shape and the per-dim mesh axes that cut it; a rank at ep coordinate
+  above 0 only its expert shards, the tensors sharded over ``ep``: a
+  moment replicated over ``ep`` is written once), and rank 0 writes
   ``opt.pt`` with ``step``, ``count``, ``moments`` and ``"sharded"``
   (the axis sizes and the shard files) instead of the tensors;
 - the ranks agree on the temporary directory, each writes its files
@@ -52,7 +54,8 @@ any step:
 A restore into a sharded state cuts each rank's region out of
 ``params.pt``, and reads its moments from the shard file of its
 coordinates (dp 0) when the mesh has the saved axis sizes, else
-reassembles them whole and cuts them; a restore into a one-card state
+reassembles them whole and cuts them (another ``ep`` size, or none:
+the experts are reassembled and recut); a restore into a one-card state
 reassembles the moments from the shard files.  A pp rank reads only its
 stage's layers and the replicated parameters.  So a step restores on
 its mesh bit for bit, on one card, on another mesh, and in the server.
@@ -151,6 +154,12 @@ def _cut(p, mesh) -> tuple:
     if M.is_trivial(mesh):
         return tuple(slice(None) for _ in p.shape)
     return local_slices(p.shape, p.device_mesh, p.placements)
+
+
+def _axes_of(p) -> set:
+    """The mesh axes that shard parameter ``p`` (a DTensor)."""
+    return {a for entry in param_spec(p) if entry is not None
+            for a in ((entry,) if isinstance(entry, str) else entry)}
 
 
 def _stage_view(saved: Dict[str, Any], model: nn.Module) -> Dict[str, Any]:
@@ -352,12 +361,14 @@ class CheckpointManager:
                                       for r in writers]}}
         if rank in writers:
             named = dict(state.model.named_parameters())
+            mine = {k for k, p in named.items()
+                    if coords["ep"] == 0 or "ep" in _axes_of(p)}
             files[SHARD_FILE.format(rank=rank)] = {
                 "coords": coords, "mesh": sizes,
                 **{field: {k: {"local": t.detach().to("cpu", copy=True),
                                "shape": tuple(named[k].shape),
                                "spec": param_spec(named[k])}
-                           for k, t in tensors.items()}
+                           for k, t in tensors.items() if k in mine}
                    for field, tensors in opt.tensors().items()}}
         self.last_save = {"step": step,
                           "snapshot_s": time.perf_counter() - t0}
@@ -534,11 +545,22 @@ class CheckpointManager:
         if not M.is_trivial(mesh) \
                 and sharded["mesh"] == M.mesh_axis_sizes(mesh):
             coords = M.coordinates(mesh)
-            writer = int(mesh.mesh[tuple(0 if a == "dp" else coords[a]
-                                         for a in mesh.mesh_dim_names)])
-            shard = _load(os.path.join(d, SHARD_FILE.format(rank=writer)))
-            return {f: {k: _Shard(e) for k, e in shard[f].items()}
-                    for f in fields}, False
+            out: Dict[str, Dict[str, Any]] = {f: {} for f in fields}
+            # this rank's expert shards from its writer's file, then only
+            # the names still missing (those replicated over ep) from the
+            # file of the writer at ep 0 (the same file when this rank is
+            # at ep 0).  The files are memory-mapped: ep 0's expert
+            # moments in that file are never read
+            writers = dict.fromkeys(int(mesh.mesh[tuple(
+                0 if a in ("dp", zero) else coords[a]
+                for a in mesh.mesh_dim_names)]) for zero in ("dp", "ep"))
+            for writer in writers:
+                shard = _load(os.path.join(d, SHARD_FILE.format(
+                    rank=writer)))
+                for f in fields:
+                    out[f].update((k, _Shard(e)) for k, e in shard[f].items()
+                                  if k not in out[f])
+            return out, False
         whole: Dict[str, Dict[str, torch.Tensor]] = {f: {} for f in fields}
         for name in sharded["files"]:
             shard = _load(os.path.join(d, name))

@@ -37,10 +37,18 @@ What differs from the JAX trainer, and why:
   runs them through ``parallel/pipeline.py``'s GPipe or 1F1B schedule;
   the embedding, final norm and head are replicated over pp and every
   pp rank ends with the same gradient for them, as under JAX.
-- Refused by name: ``ep`` above 1, MoE models on a mesh (ROADMAP.md
-  Queue A item 8.1), int8 moments and moment offload on a mesh with an
-  axis above 1 (item 8.3); the ERNIE/Wide&Deep/ResNet steps wait for
-  item 9 and are not defined.
+- ``ep`` above 1: an MoE layer runs its rank's experts
+  (``models/moe.py``) on the tokens of the rank's data block, which
+  every ``ep`` rank holds alike; ``ep`` is not a token axis, so an
+  expert's gradient stays on its rank and a gradient replicated over
+  ``ep`` is the same on every ``ep`` rank and is not summed over it.
+  The MoE aux loss joins each rank's share whole: its gradient reaches
+  only the rank's own router probabilities, and the sum over the data
+  axes makes it the global one.
+- Refused by name: MoE models with ``cp`` above 1 (ROADMAP.md Queue A
+  item 8.6), int8 moments and moment offload on a mesh with an axis
+  above 1 (item 8.3); the ERNIE/Wide&Deep/ResNet steps wait for item 9
+  and are not defined.
 - ``make_train_step`` and ``make_eval_step`` take no model definition:
   the step runs ``state.model``, the eval function the module it is
   given; neither takes the JAX ``state_sharding`` (the placements ride
@@ -86,7 +94,8 @@ from paddle_operator_tpu_torch.parallel.mesh import mesh_axis_sizes
 from paddle_operator_tpu_torch.parallel.pipeline import (microbatch,
                                                          pipeline_1f1b_grads,
                                                          pipeline_apply)
-from paddle_operator_tpu_torch.parallel.sharding import (placement_by_axis,
+from paddle_operator_tpu_torch.parallel.sharding import (data_block,
+                                                         placement_by_axis,
                                                          to_local,
                                                          tree_shardings)
 from paddle_operator_tpu_torch.train import opt8bit
@@ -553,8 +562,8 @@ def state_shardings(model: nn.Module, optimizer: AdamW, mesh, *,
     ``partition_patterns`` and ``example_inputs`` are not parameters:
     the model is a LLaMA, already built).  Under pp each layer goes to
     its stage (``models.llama.layer_stage``) with the placements of the
-    rest of its spec over the stage's sub-mesh.  Refused by name: ``ep``
-    above 1 and MoE models (ROADMAP.md Queue A item 8.1), a tp that
+    rest of its spec over the stage's sub-mesh.  Refused by name: an MoE
+    model with ``cp`` above 1 (ROADMAP.md Queue A item 8.6), a tp that
     splits a GQA group, ``n_layers`` indivisible by pp, an unknown
     ``cp_impl`` and Ulysses that cannot split a rank's heads, and — on a
     mesh with an axis above 1 — int8 moments (their 256-wide blocks
@@ -562,12 +571,12 @@ def state_shardings(model: nn.Module, optimizer: AdamW, mesh, *,
     from paddle_operator_tpu_torch.models import llama
 
     M.require_mesh(mesh)
-    M.check_supported(mesh)
     cfg = model.cfg
     sizes = mesh_axis_sizes(mesh)
     patterns = llama.partition_patterns(cfg)
     llama.check_tp(cfg, sizes["tp"])
     llama.check_cp(cfg, sizes["cp"], sizes["tp"])
+    llama.check_moe(cfg, sizes["cp"])
     if not M.is_trivial(mesh):
         if isinstance(optimizer, AdamW8bit):
             raise NotImplementedError(
@@ -825,6 +834,50 @@ def _mesh_loss(logits: torch.Tensor, targets: torch.Tensor,
     return share, _all_reduce_tokens(share.detach().clone(), mesh), denom
 
 
+def _logits_aux(out) -> tuple:
+    """(logits, aux) of a forward's output: an MoE model's pair, or the
+    logits and None."""
+    return out if isinstance(out, tuple) else (out, None)
+
+
+def _add_aux(loss: torch.Tensor, metrics: Dict[str, torch.Tensor],
+             aux: Optional[torch.Tensor]) -> tuple:
+    """(the optimized total, metrics): ``loss`` alone, or with an MoE
+    model's scaled aux added and reported as ``aux_loss``."""
+    if aux is None:
+        return loss, metrics
+    metrics["aux_loss"] = aux
+    return loss + aux, metrics
+
+
+def _microbatch_rows(m: nn.Module, batch: Dict[str, torch.Tensor], mesh,
+                     nm: int) -> Dict[str, torch.Tensor]:
+    """This rank's rows for a pipeline step of ``nm`` microbatches.  JAX
+    cuts the GLOBAL batch into microbatches (microbatch *j* is rows
+    ``[j·B/M, (j+1)·B/M)``), and an MoE layer routes over a
+    microbatch's tokens; so for an MoE model on more than one data block
+    the global batch is gathered over the data axes (tokens only, no
+    gradient) and this rank keeps, for each microbatch, its block's share
+    of it, in order.  A dense model, one microbatch or one block: the
+    batch as it is."""
+    groups = [M.axis_group(mesh, a) for a in M.DATA_AXES]
+    groups = [g for g in groups if g is not None]
+    if m.cfg.n_experts == 0 or nm == 1 or not groups:
+        return batch
+    index, count = data_block(mesh)
+    out = {}
+    for k, v in batch.items():
+        whole = C.all_gather_blocks(v, groups)
+        whole = whole.reshape(-1, *v.shape[1:])
+        if whole.shape[0] % (nm * count):
+            raise ValueError(f"global batch {whole.shape[0]} is not "
+                             f"divisible by {nm} microbatches of "
+                             f"{count} data blocks")
+        out[k] = whole.reshape(nm, count, -1, *v.shape[1:])[:, index] \
+            .reshape(v.shape)
+    return out
+
+
 def make_train_step(optimizer: AdamW, mesh=None) -> Callable:
     """The causal-LM train step ``step(state, batch) -> (state,
     metrics)`` for a :class:`models.llama.Llama` (``state.model``).
@@ -844,27 +897,21 @@ def make_train_step(optimizer: AdamW, mesh=None) -> Callable:
 
     M.require_mesh(mesh)
     if mesh is not None:
-        M.check_supported(mesh)
         if mesh_axis_sizes(mesh)["pp"] > 1:
             raise ValueError("a mesh with pp > 1 needs the pipeline step "
                              "(make_pp_train_step, or make_step_for_mesh)")
 
         def mesh_loss(m: nn.Module, inputs, targets, mask, segment_ids=None):
-            share, loss, denom = _mesh_loss(m(inputs, segment_ids), targets,
-                                            mask, mesh)
-            return share, {"loss": loss, "tokens": denom}
+            logits, aux = _logits_aux(m(inputs, segment_ids))
+            share, loss, denom = _mesh_loss(logits, targets, mask, mesh)
+            return _add_aux(share, {"loss": loss, "tokens": denom}, aux)
 
         return _causal_lm_train_step(mesh_loss, optimizer, mesh)
 
     def forward_loss(m: nn.Module, inputs, targets, mask, segment_ids=None):
-        out = m(inputs, segment_ids)
-        logits, aux = out if isinstance(out, tuple) else (out, None)
+        logits, aux = _logits_aux(m(inputs, segment_ids))
         loss, denom = cross_entropy_loss(logits, targets, mask)
-        metrics = {"loss": loss, "tokens": denom}
-        if aux is None:
-            return loss, metrics
-        metrics["aux_loss"] = aux
-        return loss + aux, metrics
+        return _add_aux(loss, {"loss": loss, "tokens": denom}, aux)
 
     return _causal_lm_train_step(forward_loss, optimizer)
 
@@ -932,13 +979,19 @@ def make_pp_train_step(optimizer: AdamW, mesh, *, num_microbatches: int,
       pp rank from it; the embedding backpropagates stage 0's input
       gradient on every rank.
 
+    An MoE model routes each microbatch over its global tokens, as JAX
+    does: the rows are regrouped first (:func:`_microbatch_rows`) so
+    that a rank's microbatch *m* is its data block's share of JAX's
+    microbatch *m*; each stage sums its layers' aux over its live
+    microbatches, the sum over pp divided by M times ``moe_aux_weight``
+    joins the loss (GPipe) or seeds each stage-microbatch's aux with
+    ``moe_aux_weight / M`` (1F1B), and ``aux_loss`` is reported.
+
     Refused as JAX refuses: pp <= 1, an unknown schedule, and (at
     ``create_state``) ``n_layers`` not divisible by pp.  JAX's
     ``scan_layers`` check has no counterpart (the port's layers are
-    always separate modules).  MoE on a mesh is refused by
-    ``partition_patterns`` (ROADMAP.md Queue A item 8.1)."""
+    always separate modules)."""
     M.require_mesh(mesh)
-    M.check_supported(mesh)
     pp = C.group_of(mesh, "pp")
     if pp is None:
         raise ValueError("make_pp_train_step needs a mesh with pp > 1")
@@ -948,31 +1001,41 @@ def make_pp_train_step(optimizer: AdamW, mesh, *, num_microbatches: int,
 
     def stage_fn_of(m: nn.Module):
         stack = m.stage_layers()
+        moe = m.cfg.n_experts > 0
 
         def stage_fn(h, seg=None):
-            return stack(h, m.rope_cos, m.rope_sin, seg)[0]
+            y, aux = stack(h, m.rope_cos, m.rope_sin, seg)
+            return (y, aux) if moe else y
 
         return stack, stage_fn
 
+    def inputs_of(m: nn.Module, batch):
+        return _next_token(_microbatch_rows(m, batch, mesh, nm), mesh)
+
     if schedule == "gpipe":
-        def forward_loss(m: nn.Module, inputs, targets, mask,
-                         segment_ids=None):
+        def batch_loss(m: nn.Module, batch):
+            inputs, targets, mask, segment_ids = inputs_of(m, batch)
             stack, stage_fn = stage_fn_of(m)
+            moe = m.cfg.n_experts > 0
             x = m.embed(inputs)
             sm = (None if segment_ids is None
                   else microbatch(segment_ids, nm))
-            ym = pipeline_apply(stage_fn, list(stack.parameters()),
-                                microbatch(x, nm), sm, pp=pp,
-                                num_microbatches=nm)
+            out = pipeline_apply(stage_fn, list(stack.parameters()),
+                                 microbatch(x, nm), sm, pp=pp,
+                                 num_microbatches=nm, has_aux=moe)
+            ym, aux = out if moe else (out, None)
             logits = m.head(ym.reshape(x.shape))
             share, loss, denom = _mesh_loss(logits, targets, mask, mesh)
-            return share, {"loss": loss, "tokens": denom}
+            return _add_aux(share, {"loss": loss, "tokens": denom},
+                            None if aux is None
+                            else aux * m.cfg.moe_aux_weight)
 
-        return _causal_lm_train_step(forward_loss, optimizer, mesh)
+        return make_custom_train_step(batch_loss, optimizer, mesh)
 
     def compute_grads(m: nn.Module, batch):
-        inputs, targets, mask, seg = _next_token(batch, mesh)
+        inputs, targets, mask, seg = inputs_of(m, batch)
         stack, stage_fn = stage_fn_of(m)
+        moe = m.cfg.n_experts > 0
         msk = (torch.ones(targets.shape, dtype=torch.float32,
                           device=targets.device)
                if mask is None else mask.float())
@@ -989,10 +1052,12 @@ def make_pp_train_step(optimizer: AdamW, mesh, *, num_microbatches: int,
         trunk = list(stack.parameters())
         head = list(m.final_norm.parameters()) \
             + list(m.lm_head.parameters())
-        loss_sum, d_trunk, d_head, d_xm = pipeline_1f1b_grads(
+        res = pipeline_1f1b_grads(
             stage_fn, head_loss, trunk, head, microbatch(x.detach(), nm),
             microbatch(targets, nm), microbatch(msk, nm), 1.0 / denom,
-            None if seg is None else microbatch(seg, nm), pp=pp)
+            None if seg is None else microbatch(seg, nm), pp=pp,
+            has_aux=moe, aux_seed=m.cfg.moe_aux_weight / nm if moe else 0.0)
+        loss_sum, d_trunk, d_head, d_xm = res[:4]
         x.backward(d_xm.reshape(x.shape))
         grads = {n: p.grad for n, p in m.tok_embed.named_parameters(
             prefix="tok_embed")}
@@ -1000,7 +1065,10 @@ def make_pp_train_step(optimizer: AdamW, mesh, *, num_microbatches: int,
         for p, g in zip(trunk + head, d_trunk + d_head):
             grads[by_id[id(p)]] = g
         loss = _all_reduce_tokens((loss_sum / denom).reshape(1), mesh)[0]
-        return {"loss": loss, "tokens": denom}, grads
+        metrics = {"loss": loss, "tokens": denom}
+        if moe:
+            metrics["aux_loss"] = res[4] * m.cfg.moe_aux_weight
+        return metrics, grads
 
     return make_grads_train_step(compute_grads, optimizer, mesh)
 
@@ -1011,7 +1079,6 @@ def make_step_for_mesh(optimizer: AdamW, mesh, *, num_microbatches: int = 4,
     ``schedule``, over ``num_microbatches``) when pp > 1, else
     :func:`make_train_step` on it (JAX ``make_step_for_mesh``)."""
     M.require_mesh(mesh)
-    M.check_supported(mesh)
     if mesh_axis_sizes(mesh)["pp"] > 1:
         return make_pp_train_step(optimizer, mesh,
                                   num_microbatches=num_microbatches,

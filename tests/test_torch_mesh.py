@@ -10,8 +10,10 @@ against the JAX package's, in this process:
   conftest's 8 virtual CPU devices; its stacked ``layers`` dim dropped,
   the port's layers being separate modules);
 - ``make_mesh``'s size error, the card default (no fallback to gloo),
-  the refusals that need no live mesh (MoE, a tp that splits a GQA
-  group, ``chips_per_worker`` > 1) and the mesh knob's type;
+  the refusals that need no live mesh (MoE with cp above 1, a tp that
+  splits a GQA group, ``chips_per_worker`` > 1), the MoE rows of
+  ``partition_patterns`` (JAX's ``moe_partition_patterns``, the tiny-moe
+  specs on four ep meshes) and the mesh knob's type;
 - on a world of one rank (a gloo group over an in-process store, torn
   down after each test): the single-device mesh, a one-worker job's
   ``job_mesh``, and the mesh step on it, which must equal the step
@@ -56,13 +58,13 @@ def _sizes(axes):
     return {a: axes.get(a, 1) for a in TM.AXIS_ORDER}
 
 
-def jax_param_specs(axes):
-    """name (the port's) -> spec tuple of JAX ``state_shardings`` on the
-    mesh ``axes`` (over the conftest's virtual devices), and the JAX
-    moments' specs keyed the same way."""
+def jax_param_specs(axes, preset="tiny"):
+    """name (the port's) -> spec tuple of JAX ``state_shardings`` of
+    ``preset`` on the mesh ``axes`` (over the conftest's virtual
+    devices), and the JAX moments' specs keyed the same way."""
     spec = JMeshSpec(**axes)
     mesh = JM.make_mesh(spec, devices=jax.devices()[:spec.size()])
-    model, cfg = JL.make_model("tiny")
+    model, cfg = JL.make_model(preset)
     opt = JT.make_optimizer(1e-3, warmup_steps=1, decay_steps=100)
     sh, _ = JT.state_shardings(model, opt, mesh, JL.partition_patterns(cfg),
                                (jnp.zeros((8, 8), jnp.int32),))
@@ -177,8 +179,42 @@ class TestRefusals:
         assert not dist.is_initialized()
 
     def test_moe_on_a_mesh_is_refused_by_name(self):
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            TL.partition_patterns(TL.CONFIGS["tiny-moe"])
+        """What stays refused of MoE on a mesh: a cp axis above 1
+        (ROADMAP.md Queue A item 8.6); ep and every other axis run."""
+        for preset in ("tiny-moe", "tiny-moe2"):
+            cfg = TL.CONFIGS[preset]
+            with pytest.raises(NotImplementedError,
+                               match=r"MoE models with cp=2.*Queue A "
+                                     r"item 8\.6"):
+                TL.check_moe(cfg, 2)
+            TL.check_moe(cfg, 1)
+        TL.check_moe(TL.CONFIGS["tiny"], 2)
+
+    @pytest.mark.parametrize("axes", [{"ep": 4, "dp": 2}, {"ep": 2, "dp": 4},
+                                      {"ep": 2, "fsdp": 2, "tp": 2},
+                                      {"ep": 2, "fsdp": 4}])
+    def test_moe_rows_equal_jax_moe_partition_patterns(self, axes):
+        """The MoE rows of partition_patterns are JAX's
+        ``moe_partition_patterns`` on the port's names, and every MoE
+        parameter's spec is JAX's ``state_shardings`` spec."""
+        from paddle_operator_tpu.models import moe as JMoE
+        from paddle_operator_tpu_torch.models import moe as TMoE
+
+        assert {k.replace("/", "."): v
+                for k, v in JMoE.MOE_PARAM_SPECS.items()} \
+            == TMoE.MOE_PARAM_SPECS
+        rows = TMoE.moe_partition_patterns()
+        assert [spec for _, spec in rows] == [
+            spec for _, spec in JMoE.moe_partition_patterns(prefix="moe/")]
+        cfg = TL.CONFIGS["tiny-moe"]
+        pats = TL.partition_patterns(cfg)
+        assert pats[-len(rows):] == rows
+        model, _ = TL.make_model("tiny-moe", device="cpu")
+        got = TS.tree_specs(dict(model.named_parameters()), _sizes(axes),
+                            pats)
+        want, _ = jax_param_specs(axes, "tiny-moe")
+        assert got == want
+        assert got["layers.0.moe.w1"][0] == "ep"
 
     @pytest.mark.parametrize("tp,ok", [(1, True), (2, True), (4, False)])
     def test_tp_that_splits_a_gqa_group_is_refused(self, tp, ok):

@@ -180,6 +180,31 @@ class TestLayer:
         flat = _np(out).reshape(-1, 16)
         assert (np.abs(flat).sum(-1) < 1e-6).any()
 
+    @pytest.mark.parametrize("cf,e,t_local,n_blk",
+                             [(0.7, 7, 3, 10), (1.25, 4, 16, 2),
+                              (0.5, 4, 16, 4)])
+    def test_capacity_is_jaxs_over_the_global_tokens(self, cf, e, t_local,
+                                                     n_blk):
+        """``capacity`` over the global token count (a rank's tokens times
+        the data blocks) is the buffer JAX's layer keeps for those
+        tokens: every token routed to expert 0, the rows with an output
+        are the kept ones.  At cf 0.7 over 3 x 10 tokens a product that
+        rounds per block would give 2, not 3."""
+        t = t_local * n_blk
+        jcfg = JM.MoEConfig(dim=16, ffn_dim=32, n_experts=e,
+                            capacity_factor=cf, top_k=1, dtype=jnp.float32)
+        x = jnp.ones((1, t, 16))
+        jp = JM.MoELayer(jcfg).init(jax.random.PRNGKey(0), x)["params"]
+        kernel = np.zeros((16, e), np.float32)
+        kernel[:, 0] = 10.0
+        jp = {**jp, "router": {"kernel": jnp.asarray(kernel)}}
+        out, _ = JM.MoELayer(jcfg).apply({"params": jp}, x)
+        kept = int((np.abs(np.asarray(out)).sum(-1) > 0).sum())
+        tcfg = TM.MoEConfig(dim=16, ffn_dim=32, n_experts=e,
+                            capacity_factor=cf, top_k=1,
+                            dtype=torch.float32)
+        assert TM.capacity(tcfg, t_local * n_blk) == kept
+
     def test_aux_loss_balanced_vs_collapsed(self):
         _, jp, tlayer, x = _layers(1, 8.0)
         xt = torch.as_tensor(np.asarray(x))

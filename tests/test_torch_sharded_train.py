@@ -30,9 +30,9 @@ shim (``python -m paddle_operator_tpu_torch.launch.launcher -- python
   the newest step; a drain signalled on one rank stops every rank after
   the same step and commits it; a writer failing on one rank leaves no
   step.  Only rank 0 logs and ticks the timer.  The refusals that need
-  a live mesh: ep above 1, MoE on a pp mesh, n_layers indivisible by
-  pp, an unknown pipeline schedule or cp_impl, int8 moments and moment
-  offload on the mesh.
+  a live mesh: MoE with cp above 1, n_layers indivisible by pp, an
+  unknown pipeline schedule or cp_impl, int8 moments and moment offload
+  on the mesh (an ep mesh and MoE on a pp mesh are accepted).
 - fsdp2 (2 ranks, one slice): the same trajectory against JAX on that
   mesh, and the rendezvous test's per-rank data through
   ``DevicePrefetcher(mesh=...)`` against the JAX single-process
@@ -235,6 +235,9 @@ if "trajectory" in a:
             "moe_pp": lambda: TT.create_state(
                 TL.make_model("tiny-moe", device="cpu")[0],
                 TT.make_optimizer(), mesh=meshes["pp"]),
+            "moe_cp": lambda: TT.create_state(
+                TL.make_model("tiny-moe", device="cpu")[0],
+                TT.make_optimizer(), mesh=meshes["cp"]),
             "layers_pp": lambda: TT.create_state(
                 TL.make_model("tiny", device="cpu")[0],
                 TT.make_optimizer(), mesh=meshes["pp4"]),
@@ -610,14 +613,15 @@ class TestDpFsdpTp:
         assert all(not r["logs"] and r["timer_ticks"] == 0 for r in res[1:])
 
     def test_refusals_that_need_a_live_mesh(self, world_a):
-        """What stays refused once cp and pp run: ep, MoE on a mesh
-        (Queue A item 8.1), n_layers indivisible by pp, an unknown
+        """What stays refused once cp, pp and ep run: MoE with cp > 1
+        (Queue A item 8.6), n_layers indivisible by pp, an unknown
         pipeline schedule or cp_impl, and int8 moments and moment
-        offload on a mesh with an axis above 1 (item 8.3)."""
+        offload on a mesh with an axis above 1 (item 8.3).  An ep mesh
+        and MoE on a pp mesh are accepted."""
         refused = world_a["res"][0]["refused"]
+        assert refused["ep"] is None and refused["moe_pp"] is None
         for what, want in (
-                ("ep", "NotImplementedError: ep=2: expert parallelism"),
-                ("moe_pp", "NotImplementedError: MoE models on a mesh"),
+                ("moe_cp", "NotImplementedError: MoE models with cp=2"),
                 ("layers_pp", "ValueError: n_layers=2 not divisible by "
                               "pp=4"),
                 ("schedule", "ValueError: unknown pipeline schedule "
@@ -627,8 +631,7 @@ class TestDpFsdpTp:
                 ("offload", "NotImplementedError: moment offload")):
             assert refused[what] is not None \
                 and refused[what].startswith(want), (what, refused[what])
-        for what in ("ep", "moe_pp"):
-            assert "Queue A item 8.1" in refused[what]
+        assert "Queue A item 8.6" in refused["moe_cp"]
         for what in ("int8", "offload"):
             assert "Queue A item 8.3" in refused[what]
 
