@@ -210,7 +210,7 @@ result line; with no arguments every phase runs):
    snapshot), the background write (s, GB/s) and the two restores are
    printed beside the card's name and power limit.
 3g. preemption main path — 3b's server at full width, depth cut to
-   the 7b params' first ``CUT_LAYERS`` (4, for the script's time
+   the 7b params' first ``CUT_LAYERS`` (2, for the script's time
    limit) (``SERVE_PRIORITIES=2``,
    preemption at its default, on) on the bf16 pool and on the int8
    pool, each also with ``SERVE_PREEMPT=0`` on the same requests: 8
@@ -271,10 +271,10 @@ result line; with no arguments every phase runs):
    dispatch in flight, its pieces and every synchronizing call PyTorch
    reports under ``set_sync_debug_mode("warn")``.
 3i. weight-quantized ring main path — the 7b model at full width, depth
-   cut to ``CUT_LAYERS`` (4, for the script's time limit), as
+   cut to ``CUT_LAYERS`` (2, for the script's time limit), as
    ``serve.main`` builds it under ``SERVE_WEIGHT_QUANT=int8``
    (``load_serving_params``, then ``quantize_from_env``; ``paramBytes``
-   must equal the shape arithmetic, 1,334,542,336 at 4 layers) on 3b's
+   must equal the shape arithmetic) on 3b's
    server and burst, over the bf16
    pool and the int8 pool: every request completes, the int8-weight
    kernels' launches equal 7 x n_layers x ticks plus 7 x n_layers a
@@ -449,7 +449,7 @@ result line; with no arguments every phase runs):
    SIGTERM; (d) the handoff copy of a 1,536-token prompt alone (6
    blocks), device ms against its byte bound.
 3p. fleet-level KV — 7b at full width, depth cut to the first
-   ``CUT_LAYERS`` (4), bf16 weights: two port
+   ``CUT_LAYERS`` (2), bf16 weights: two port
    replicas in one process over one params tree, each 3b's ring with a
    64-block pool and a host tier (16 blocks on A, 2 on B), served on
    loopback and wired by ``wire_fleet_kv_from_env`` from the env a pod
@@ -636,7 +636,9 @@ result line; with no arguments every phase runs):
    (``MOE_POD_ENV``; the checkpoint path a temporary directory).  The
    child (``MOE_TRAIN_CHILD``) calls ``launcher.initialize()``, restores
    or inits ``7b-moe`` at full width cut to 1 layer (f32 master, bf16
-   compute, f32 moments) and trains it through ``fit`` under a
+   compute, int8 moments through kernel #8: f32 moments made each save
+   12.6 GB, a third of the phase, until the script's time limit cut
+   them) and trains it through ``fit`` under a
    ``PreemptionWatcher`` on B=4 x 2,049 tokens, one line a step (loss,
    aux_loss).  After step 3 the shim gets SIGTERM: it forwards it, the
    child drains a checkpoint of the step in flight and exits 83, and the
@@ -645,8 +647,8 @@ result line; with no arguments every phase runs):
    83; the resumed step; finite loss and aux_loss on every step; the
    checkpoint holds ``layers.0.moe.*``; kernels #4-#6 launched 2 x 1 /
    1 / 1 a step (full remat).  Read: step ms, MFU on active params.
-3r. ``7b-moe`` served at full width, depth cut to ``CUT_LAYERS`` (4
-   layers, 3.42B params, bf16; 32 until the script's time limit cut it)
+3r. ``7b-moe`` served at full width, depth cut to ``CUT_LAYERS`` (2
+   layers, bf16; 32 until the script's time limit cut it)
    — the dense 7b released first and the allocated memory logged before
    the init; 3b's server and burst (``phase_ring_main_path``: 8 slots,
    chunk 8, block 256, a 64-block pool; kernel #2 32 launches a tick),
@@ -699,7 +701,8 @@ result line; with no arguments every phase runs):
    phase.  Then the two ranks train ``MESH_PAIR`` (the 1b preset's
    width, 2 layers, f32, B=4 x 513) on each mesh of
    ``MESH_PAIR_MESHES`` in turn: fsdp=2, tp=2 (8 of 16 heads a rank
-   through kernels #4-#6), cp=2 with ring attention (plain ops: no flash
+   through kernels #4-#6; both with int8 moments, below), cp=2 with
+   ring attention (plain ops: no flash
    launch) and with Ulysses (8 heads a rank over all 512 positions
    through kernels #4-#6), pp=2 under GPipe and under 1F1B (1 layer a
    stage, 4 microbatches), 3 steps each, held to the same model's run
@@ -719,13 +722,37 @@ result line; with no arguments every phase runs):
    full width, 1 layer, f32, capacity factor 0.5: each rank runs 4 of
    the 8 experts on all 2,048 tokens), held by the same gate (and its
    ``aux_loss``, rtol 1e-5) to ``7b-moe`` without a mesh, kernels #4-#6
-   6/3/3 a rank, and assignments dropped on every step.  The references
-   run before the pair trains, the card theirs alone; each rank compares
+   6/3/3 a rank, and assignments dropped on every step.  The pair
+   trains once (a) is done, while this process runs the references
+   (int8 first), and reads each when it checks a mesh.  Each rank compares
    the region it holds of each parameter no earlier rank on its
-   replicated axes holds.  Read: each rank's step ms, peak memory, the
-   bytes its cp/pp exchanges sent a step and its ep (and tp)
-   all-reduces moved a step, the dropped assignments, the restore's
-   seconds.
+   replicated axes holds.  fsdp=2 and tp=2 run with int8 moments
+   (``MESH_PAIR_INT8``): fsdp=2 (every parameter aligned: a rank's
+   256-wide blocks are its own columns), tp=2 (``w1``/``w3`` not aligned
+   and ``lm_head``'s blocks replicated: their rows gathered over tp), and
+   fsdp=2 once more with the moments offloaded for 2 steps, held to the
+   int8 run without a mesh in this process: losses and grad norms rtol
+   1e-5, the ranks' metrics equal, the parameters after step 3 by the
+   gate above (counting off only elements under no code that came out
+   other than the reference's at some step, as
+   tests/test_torch_opt8bit.py does), codes more than one off in fewer
+   than one in 10,000, kernel #8 launched once a parameter tensor a step
+   on every rank and the plain update never; the offloaded run equals
+   the resident fsdp=2 run bit for bit after each step, its moments in
+   the pinned slab between steps.  tp=2 saves its step 3 and goes on to
+   step 5; beside the pair's later meshes, this process restores step 3
+   on one card (every region the ranks held, of each parameter, code and
+   scale, equal bit for bit to their checksums) and trains 2 more steps,
+   held by the same rule to tp=2's own steps 4 and 5 and by their
+   losses and grad norms to the reference's (``_pair_int8_restore``;
+   both are also read against the reference's step 5).
+   And the launcher shim, given a
+   ConfigMap of one pod of 2 cards (``CARDS2_POD_ENV``), starts 2
+   children that refuse to share the one card by name before joining a
+   group: the pod exits non-zero within seconds.  Read: each rank's step
+   ms, peak memory, the bytes its cp/pp exchanges sent a step, its ep
+   (and tp) all-reduces moved and its int8 gathers brought by case, the
+   dropped assignments, the restores' seconds.
 5. report — a ``kernels`` JSON line, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -810,11 +837,12 @@ PHASES = ("2", "2b", "2c", "2d", "2e", "2f", "3", "3b", "3c", "3d", "3e",
           "4c", "4d", "4e", "4f", "4g", "4h", "4i", "4j", "4k", "4l", "3o",
           "4m", "3p", "4n", "3q", "3r", "4o", "3s")
 # phase 3q: 7b-moe at full width cut to 1 layer (each layer adds 0.79B
-# params, ~9.5 GB of f32 params and moments to a save); B x (S + 1)
+# params, ~3.9 GB of f32 params and int8 moments to a save; with f32
+# moments a save was 12.6 GB, 24 s of the phase); B x (S + 1)
 # tokens; SIGTERM to the shim once step `drain_after` is logged; the
 # resumed launch takes `resume_steps`
 MOE_TRAIN = dict(layers=1, batch=4, seq=2048, steps=12, drain_after=3,
-                 resume_steps=2, lr=1e-3)
+                 resume_steps=2, lr=1e-3, moments="int8")
 # the env controller/builders.py of the JAX package gives the one worker
 # of a one-worker TPUJob named moe-train (the ConfigMap's data and the
 # pod's own vars, POD_IP its podIP); TPUJOB_CHECKPOINT_PATH is set per
@@ -838,6 +866,11 @@ MESH_TRAIN = dict(layers=4, batch=4, seq=2048, steps=3, timed_steps=6,
 # 5504, vocab 32000) cut to 2 layers, f32, B x (S + 1) tokens, on two
 # ranks sharing the one card
 MESH_PAIR = dict(preset="1b", layers=2, batch=4, seq=512, steps=3, lr=1e-3)
+# the int8-moment runs of 3s (b): kernel #8 launches a rank a step, one a
+# parameter tensor (1b at 2 layers: 2 x 9 + the embedding, the final norm
+# and lm_head); codes more than one off the reference's at most this
+# share
+MESH_PAIR_INT8 = dict(tensors=21, codes_far=1e-4)
 # the env controller/builders.py gives the one worker of a one-worker
 # TPUJob named mesh-train with a 1x1 TPU slice (so the ConfigMap carries
 # TPUJOB_MESH, the mesh of size 1); tests/test_torch_mesh.py holds it
@@ -847,6 +880,12 @@ MESH_POD_ENV = dict(
     TPUJOB_ACCELERATOR="tpu-v5-lite-podslice", TPUJOB_TOPOLOGY="1x1",
     TPUJOB_NUM_SLICES="1", TPUJOB_WORKERS_PER_SLICE="1",
     TPUJOB_MESH='{"dp": 1}')
+# the env controller/builders.py gives the one worker of a one-worker
+# TPUJob named two-cards with 2 chips a worker on a 2x1 slice, mesh fsdp 2
+# (tests/test_torch_multicard.py holds it to the builders'): a pod of 2
+# cards, which a machine of one card must refuse
+CARDS2_POD_ENV = dict(MESH_POD_ENV, TPUJOB_NAME="two-cards",
+                      TPUJOB_TOPOLOGY="2x1", TPUJOB_MESH='{"fsdp": 2}')
 
 
 def log(*a) -> None:
@@ -3340,8 +3379,10 @@ TIER_LAYERS = 2
 # kernels' shapes are a layer's, which the depth does not change.  8
 # until 3s (b) ran its ep and elastic runs (at 8 layers 3g, 3i, 3p and
 # 3r took 11.6, 12.5, 16.1 and 9.7 s in a whole run of 885.6 s on an
-# H100 80GB HBM3 at 700 W)
-CUT_LAYERS = 4
+# H100 80GB HBM3 at 700 W), 4 until the int8 moments joined 3s (b) (at 4
+# layers 10.6, 9.6, 10.6 and 6.6 s of a whole run of 890.8 s on that
+# card)
+CUT_LAYERS = 2
 
 
 def _depth_cut(params, cfg, n_layers: int) -> tuple:
@@ -9502,7 +9543,8 @@ def main():
     a = json.loads(sys.argv[1])
     env = launcher.initialize()            # one worker: no process group
     watcher = PreemptionWatcher.install()
-    opt = T.make_optimizer(a["lr"], warmup_steps=1, decay_steps=1000)
+    opt = T.make_optimizer(a["lr"], warmup_steps=1, decay_steps=1000,
+                           moments=a["moments"])
     cfgs = {}
 
     def init():
@@ -9627,11 +9669,12 @@ def phase_moe_train_pod(reports: dict) -> None:
     logpath = os.path.join(root, "pod.log")
     cfg = dataclasses.replace(CONFIGS["7b-moe"],
                               n_layers=MOE_TRAIN["layers"])
-    args = {k: MOE_TRAIN[k] for k in ("layers", "batch", "seq", "lr")}
+    args = {k: MOE_TRAIN[k]
+            for k in ("layers", "batch", "seq", "lr", "moments")}
     args["peak"] = PEAK_BF16
     try:
         free = shutil.disk_usage(root).free
-        need = 3 * 4 * cfg.num_params()          # one step of f32 p, mu, nu
+        need = 6 * cfg.num_params()    # a step of f32 p, int8 mu and nu
         log(f"moe train pod: 7b-moe width, {cfg.n_layers} layer(s) "
             f"({cfg.num_params() / 1e9:.3f}B params, "
             f"{cfg.active_params() / 1e9:.3f}B active), B="
@@ -10098,6 +10141,7 @@ import torch.distributed as dist
 
 from paddle_operator_tpu_torch.api.types import MeshSpec
 from paddle_operator_tpu_torch.models.llama import make_model
+from paddle_operator_tpu_torch.ops import adam8bit as A8
 from paddle_operator_tpu_torch.ops import flash_attention as FA
 from paddle_operator_tpu_torch.parallel import collectives as C
 from paddle_operator_tpu_torch.parallel.mesh import (coordinates,
@@ -10171,44 +10215,220 @@ if set(probe.values()) != {"ok"}:
 refs = {}
 
 
+def wait_for(key):
+    # a file the parent writes (by rename)
+    deadline = time.time() + 900
+    while not os.path.exists(a[key]):
+        if time.time() > deadline:
+            raise SystemExit(f"no {key} within 900 s")
+        time.sleep(0.1)
+
+
 def reference(key):
-    # the run without a mesh that a mesh is held to: the parent writes it
-    # (by rename) once (a) and that run are done, and the card is this
-    # pair's from then on; read as a memory map, each tensor moved to the
-    # card when compared
+    # the run without a mesh that a mesh is held to, which the parent
+    # writes while the first meshes train; read as a memory map, each
+    # tensor moved to the card when compared
     if key not in refs:
-        deadline = time.time() + 900
-        while not os.path.exists(a[key]):
-            if time.time() > deadline:
-                raise SystemExit(f"no {key} within 900 s")
-            time.sleep(0.1)
+        wait_for(key)
         refs[key] = torch.load(a[key], weights_only=True, mmap=True)
     return refs[key]
+
+
+# the meshes go once (a) is done and the card is (b)'s
+wait_for("go")
+
+
+# calls of the 8-bit update's plain version (none may run on the card)
+plain_calls = [0]
+_plain_update = A8.adam8bit_update_reference
+
+
+def _counted_plain(*args, **kwargs):
+    plain_calls[0] += 1
+    return _plain_update(*args, **kwargs)
+
+
+A8.adam8bit_update_reference = _counted_plain
+
+
+def in_slab(state):
+    # every moment tensor a view of the offload's page-locked host slab
+    off = state.opt_state.offload
+    lo = off._slab.data_ptr()
+    hi = lo + off._slab.numel()
+    return off._registered and all(
+        t.device.type == "cpu" and lo <= t.data_ptr() < hi
+        for ts in state.opt_state.tensors().values() for t in ts.values())
+
+
+def checksum(tensors):
+    # every element's bit pattern times its position's weight, summed
+    # (mod 2**64) on the card: equal tensors, equal sums, and a block
+    # moved or swapped changes them
+    total = 0
+    for t in tensors:
+        t = t.detach().to("cuda").contiguous().view(-1)
+        bits = t.view(torch.int32 if t.element_size() == 4
+                      else torch.int8).to(torch.int64)
+        weight = torch.arange(bits.numel(), device="cuda") % 65521 + 1
+        total += int((bits * weight).sum())
+    return total
+
+
+def first_holder(pm, spec, coords):
+    # no rank before this one on the axes of `pm` that do not cut `spec`
+    cut = {x for e in spec if e for x in ((e,) if isinstance(e, str) else e)}
+    return all(coords[n] == 0 for n in pm.mesh_dim_names if n not in cut)
+
+
+def holds_first(p):
+    # no rank before this one on an axis that replicates parameter `p`
+    return not any(c and pl.is_replicate() for c, pl in
+                   zip(coordinates(p.device_mesh).values(), p.placements))
+
+
+def spans(region):
+    return [[r.start, r.stop] for r in region]
+
+
+def regions(state, fields):
+    # the regions this rank is the first holder of, of each parameter
+    # ("params") and of each int8 moment field in `fields`:
+    # key -> (spans, tensor on the host)
+    o, out = state.opt_state, {}
+    for n, p in state.model.named_parameters():
+        pm = p.device_mesh
+        if "params" in fields and holds_first(p):
+            out[n] = (spans(local_slices(p.shape, pm, p.placements)),
+                      p.to_local().detach().cpu())
+        moments = [f for f in fields if f != "params"]
+        if moments and first_holder(pm, o.layout[n].spec, coordinates(pm)):
+            out.update((f"{f}:{n}", (spans(o.layout[n].field(f)[2]),
+                                     o.tensors()[f][n].cpu()))
+                       for f in moments)
+    return out
+
+
+def sums(state):
+    # each region this rank holds, of every parameter and int8 moment
+    # field: key -> (spans, checksum)
+    o, out = state.opt_state, {}
+    for n, p in state.model.named_parameters():
+        out[n] = (spans(local_slices(p.shape, p.device_mesh, p.placements)),
+                  checksum([p.to_local()]))
+        for f, ts in o.tensors().items():
+            out[f"{f}:{n}"] = (spans(o.layout[n].field(f)[2]),
+                               checksum([ts[n]]))
+    return out
+
+
+def held(state, ref, flipped, int8):
+    # the regions this rank is the first holder of against the
+    # reference's after (b)'s steps (the parent sums the counts): int8,
+    # the codes (more than one off, off); the parameters, off by more
+    # than 1e-5 outside `flipped` (the elements under a code that came
+    # out other than the reference's at some step, held only to 2 lr a
+    # step)
+    t_check = time.perf_counter()
+    res, o = {}, state.opt_state
+    if int8:
+        far = diff_codes = codes = 0
+        for f in ("mu_codes", "nu_codes"):
+            for n, t in o.tensors()[f].items():
+                lay = o.layout[n]
+                pm = state.model.get_parameter(n).device_mesh
+                if not first_holder(pm, lay.spec, coordinates(pm)):
+                    continue
+                want = ref[f"{f}:{n}@{a['steps']}"][lay.region]
+                d = (t.to("cuda").int() - want.to("cuda").int()).abs()
+                far += int((d > 1).sum())
+                diff_codes += int((d > 0).sum())
+                codes += d.numel()
+        res.update(codes_far=far, codes_off=diff_codes, codes_total=codes)
+    diff, off, total, under = 0.0, 0, 0, 0
+    for n, p in state.model.named_parameters():
+        if not holds_first(p):
+            continue
+        region = local_slices(p.shape, p.device_mesh, p.placements)
+        d = (p.to_local() - ref[n][region].to("cuda")).abs()
+        diff = max(diff, float(d.max()))
+        total += d.numel()
+        if n in flipped:
+            under += int(flipped[n].sum())
+            d = d[~flipped[n]]
+        off += int((d > 1e-5).sum())
+    res.update(max_param_diff=diff, params_off=off, params_total=total,
+               under_flips=under, check_s=time.perf_counter() - t_check)
+    return res
+
+
+def codes_now(state):
+    # a copy of this rank's codes, field -> name -> tensor on the card
+    return {f: {n: t.to("cuda", copy=True) for n, t in
+                state.opt_state.tensors()[f].items()}
+            for f in ("mu_codes", "nu_codes")}
+
+
+def mark_flips(state, codes, ref, step_no, flipped):
+    # the elements of this rank's parameter regions under a code in
+    # `codes` (codes_now after step `step_no`) other than the reference's
+    # after that step (a rank whose blocks are not its columns' gathers
+    # the rows' codes first: every rank calls the same gathers in the
+    # same order)
+    from paddle_operator_tpu_torch.train.opt8bit import _from_blocks
+
+    o = state.opt_state
+    for n, p in state.model.named_parameters():
+        lay, local = o.layout[n], p.to_local()
+        lead = lay.region[:-2]
+
+        def on_params(blocks):
+            if lay.case == "aligned":
+                return _from_blocks(blocks.float(), local.shape,
+                                    torch.float32) > 0
+            return _from_blocks(blocks.float(),
+                                (*local.shape[:-1], p.shape[-1]),
+                                torch.float32)[..., lay.columns] > 0
+
+        for f in ("mu_codes", "nu_codes"):
+            t = codes[f][n]
+            if lay.case == "unaligned":
+                t = C.gather_along(t, -2, lay.groups)
+            reg = lay.region if lay.case == "aligned" else lead
+            want = ref[f"{f}:{n}@{step_no}"][reg].to("cuda")
+            hit = on_params(t != want)
+            flipped[n] = flipped.get(n, hit) | hit
 
 
 flash = (FA.flash_forward, FA.flash_backward_dkv, FA.flash_backward_dq)
 for spec in a["meshes"]:
     axes, over, opts, run = (spec["axes"], spec["model"], spec["step"],
                              spec["run"])
-    ref = reference(run.get("ref", "ref"))
     t_setup = time.perf_counter()
     mesh = make_mesh(MeshSpec(**axes), device="cuda")
     model, cfg = make_model(run.get("preset", a["preset"]), device="cuda",
                             seed=0, n_layers=run.get("layers", a["layers"]),
                             dtype=torch.float32, **over)
-    opt = T.make_optimizer(a["lr"], warmup_steps=1, decay_steps=1000)
-    state = T.create_state(model, opt, mesh=mesh)
+    opt = T.make_optimizer(a["lr"], warmup_steps=1, decay_steps=1000,
+                           moments=run.get("moments", "f32"))
+    state = T.create_state(model, opt, mesh=mesh,
+                           offload_opt_state=run.get("offload", False))
     step = T.make_step_for_mesh(opt, mesh, **opts)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t_setup
     stage(f"{spec['tag']}: state")
-    for fn in flash:
+    for fn in flash + (A8.adam8bit_update,):
         fn.launches = 0
+    plain_calls[0] = 0
     for k in C.EXCHANGE:
         C.EXCHANGE[k] = 0
-    metrics, step_ms, dropped = [], [], []
+    int8, twin = run.get("moments") == "int8", run.get("same_as")
+    steps = run.get("steps", a["steps"])
+    out = {"tag": spec["tag"], "rank": rank, "setup_s": setup_s}
+    metrics, step_ms, dropped, host, bits, codes, flipped, cont = \
+        [], [], [], [], [], [], {}, {}
     for b in itertools.islice(deterministic_lm_batches(
-            a["batch"], a["seq"] + 1, cfg.vocab_size, seed=1), a["steps"]):
+            a["batch"], a["seq"] + 1, cfg.vocab_size, seed=1), steps):
         batch = shard_batch(b, mesh, "cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -10216,43 +10436,70 @@ for spec in a["meshes"]:
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         metrics.append({k: float(v) for k, v in m.items()})
+        done = len(metrics)
         # the MoE layers' assignments past the capacity this step
         dropped.append(sum(int(l.moe.dropped) for l in state.model.layers
                            if hasattr(l, "moe")))
-        stage(f"{spec['tag']}: step {len(metrics)}")
-    sizes, coords = mesh_axis_sizes(mesh), coordinates(mesh)
-    out = {"tag": spec["tag"], "rank": rank, "metrics": metrics,
-           "step_ms": step_ms, "dropped": dropped,
-           "launches": [fn.launches for fn in flash],
-           "exchange_bytes_per_step": {k: v / a["steps"]
-                                       for k, v in C.EXCHANGE.items()},
-           "local_heads": cfg.n_heads // sizes["tp"],
-           "layers_here": len(state.model.stage_layers().layers),
-           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-    if run.get("save"):
-        # the elastic source: this mesh's last step, saved for the
-        # parent's resume on one card
-        ckpt = CheckpointManager(a["elastic_ckpt"])
-        ckpt.save(state.step, state, force=True)
-        ckpt.wait()
-        out["saved"] = ckpt.all_steps()
-    # each element is held to the reference once: a rank compares the
-    # region it holds of each parameter that no rank before it on the
-    # parameter's replicated axes holds (the parent sums the counts)
-    t_check = time.perf_counter()
-    diff, off, total = 0.0, 0, 0
-    for n, p in state.model.named_parameters():
-        pm = p.device_mesh
-        if any(c and pl.is_replicate() for c, pl in
-               zip(coordinates(pm).values(), p.placements)):
-            continue
-        region = local_slices(p.shape, pm, p.placements)
-        d = (p.to_local() - ref[n][region].to("cuda")).abs()
-        diff = max(diff, float(d.max()))
-        off += int((d > 1e-5).sum())
-        total += d.numel()
-    out.update(max_param_diff=diff, params_off=off, params_total=total,
-               setup_s=setup_s, check_s=time.perf_counter() - t_check)
+        if run.get("offload"):
+            host.append(in_slab(state))
+        if int8:
+            o = state.opt_state
+            bits.append(checksum(
+                [p.to_local() for p in state.model.parameters()]
+                + [t for ts in o.tensors().values() for t in ts.values()]))
+            if twin is None and done <= a["steps"]:
+                codes.append(codes_now(state))
+        if done == a["steps"] and twin is None:
+            # held to the reference after (b)'s steps, read only now (a
+            # mesh trains while the parent still computes it; a twin is
+            # held to its run bit for bit by the parent)
+            ref = reference(run.get("ref", "ref"))
+            for i, c in enumerate(codes):
+                mark_flips(state, c, ref, i + 1, flipped)
+            codes = []
+            out.update(held(state, ref, flipped, int8))
+        if done == a["steps"] and run.get("save"):
+            # saved for the parent's resume on one card (dp2: the elastic
+            # resume; tp2_int8: the int8 restore, with this rank's
+            # flipped elements so far and a checksum of each region it
+            # holds, to hold the restore to bit for bit)
+            ckpt = CheckpointManager(a[run["save"]])
+            ckpt.save(state.step, state, force=True)
+            ckpt.wait()
+            if int8:
+                torch.save({"flips": {
+                    n: (spans(local_slices(p.shape, p.device_mesh,
+                                           p.placements)), flipped[n].cpu())
+                    for n, p in state.model.named_parameters()},
+                    "sums": sums(state)},
+                    os.path.join(a[run["save"]], f"record-{rank}.pt"))
+            out["saved"] = ckpt.all_steps()
+        if done > a["steps"]:
+            # the steps after the save, which the parent's restore
+            # resumes: the codes after each, the parameters after the last
+            cont[f"codes@{done}"] = regions(state, ("mu_codes", "nu_codes"))
+            if done == steps:
+                cont[f"params@{done}"] = regions(state, ("params",))
+        stage(f"{spec['tag']}: step {done}")
+    if cont:
+        cont["metrics"] = metrics
+        path = os.path.join(a[run["save"]], f"cont-{rank}.pt")
+        torch.save(cont, path + ".tmp")
+        os.replace(path + ".tmp", path)
+    sizes = mesh_axis_sizes(mesh)
+    out.update(metrics=metrics, step_ms=step_ms, dropped=dropped,
+               launches=[fn.launches for fn in flash],
+               exchange_bytes_per_step={k: v / steps
+                                        for k, v in C.EXCHANGE.items()},
+               local_heads=cfg.n_heads // sizes["tp"],
+               layers_here=len(state.model.stage_layers().layers),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if int8:
+        out.update(adam8bit_launches=A8.adam8bit_update.launches,
+                   plain_updates=plain_calls[0], in_slab=host,
+                   cases=sorted({l.case for l in
+                                 state.opt_state.layout.values()}),
+                   checksums=bits)
     print(json.dumps(out), flush=True)
     del state, model, step, opt
     torch.cuda.empty_cache()
@@ -10265,6 +10512,11 @@ dist.destroy_process_group()
 # (every step drops assignments), MESH_PAIR's batch; each ep rank runs 4
 # experts on all 4 x 512 tokens
 MESH_PAIR_MOE = dict(preset="7b-moe", layers=1, capacity_factor=0.5)
+# the resumes on one card: the pair's dp2 step 3 through ft/elastic.py
+# elastic_resume, then `steps` more steps held to the reference run's
+# steps 4 and 5; tp2_int8's step 3 the same way, held to tp2_int8's own
+# `steps` more
+MESH_PAIR_ELASTIC = dict(steps=2)
 # 3s (b)'s meshes, in turn on the one pair of processes: (tag, mesh axes,
 # model overrides, step options, run options: another preset or depth,
 # the reference it is held to, a save); the flash launches a rank makes
@@ -10274,26 +10526,35 @@ MESH_PAIR_MOE = dict(preset="7b-moe", layers=1, capacity_factor=0.5)
 # 1F1B stage 0 also forwards each microbatch once without a graph before
 # its backward slot recomputes it (the last stage keeps the graph of its
 # round).  dp2 saves its last step for the parent's elastic resume on one
-# card (``MESH_PAIR_ELASTIC``); ep2_moe is ``MESH_PAIR_MOE`` over ep=2
+# card (``MESH_PAIR_ELASTIC``); ep2_moe is ``MESH_PAIR_MOE`` over ep=2;
+# fsdp2 and tp2 take int8 moments (``MESH_PAIR_INT8``), held to the int8
+# run without a mesh (their f32 moments, sharded over fsdp and tp, are
+# held on the CPU: tests/test_torch_sharded_train.py; dp2, cp2 and pp2
+# keep the f32 update on a mesh here); fsdp2 once more with the moments
+# offloaded for 2 steps (its twin, held to it bit for bit after each);
+# tp2_int8 saves its step 3, which the parent restores on one card, and
+# goes on to step 5, which the restore's 2 steps are held to
 MESH_PAIR_MESHES = (
-    ("fsdp2", {"fsdp": 2}, {}, {}, {}),
-    ("tp2", {"tp": 2}, {}, {}, {}),
+    ("fsdp2_int8", {"fsdp": 2}, {}, {},
+     {"moments": "int8", "ref": "ref_int8"}),
+    ("fsdp2_int8_offload", {"fsdp": 2}, {}, {},
+     {"moments": "int8", "ref": "ref_int8", "offload": True,
+      "same_as": "fsdp2_int8", "steps": 2}),
+    ("tp2_int8", {"tp": 2}, {}, {},
+     {"moments": "int8", "ref": "ref_int8", "save": "int8_ckpt",
+      "steps": MESH_PAIR["steps"] + MESH_PAIR_ELASTIC["steps"]}),
     ("cp2_ring", {"cp": 2}, {"cp_impl": "ring"}, {}, {}),
     ("cp2_ulysses", {"cp": 2}, {"cp_impl": "ulysses"}, {}, {}),
     ("pp2_gpipe", {"pp": 2}, {}, {"schedule": "gpipe",
                                   "num_microbatches": 4}, {}),
     ("pp2_1f1b", {"pp": 2}, {}, {"schedule": "1f1b",
                                  "num_microbatches": 4}, {}),
-    ("dp2", {"dp": 2}, {}, {}, {"save": True}),
+    ("dp2", {"dp": 2}, {}, {}, {"save": "elastic_ckpt"}),
     ("ep2_moe", {"ep": 2},
      {"moe_capacity_factor": MESH_PAIR_MOE["capacity_factor"]}, {},
      {"preset": MESH_PAIR_MOE["preset"], "layers": MESH_PAIR_MOE["layers"],
       "ref": "ref_moe"}),
 )
-# the elastic resume: the pair's dp2 step 3 restored on one card through
-# ft/elastic.py elastic_resume, then `steps` more steps held to the
-# reference run's steps 4 and 5
-MESH_PAIR_ELASTIC = dict(steps=2)
 
 
 def mesh_pair_launches(tag: str, rank: int, layers: int, steps: int,
@@ -10311,9 +10572,9 @@ def mesh_pair_launches(tag: str, rank: int, layers: int, steps: int,
 
 def _mesh_pair_start() -> dict:
     """Phase 3s (b)'s two processes, started before (a) so that their
-    start (imports, CUDA, gloo, the probe) overlaps it: each waits for
-    the reference that :func:`_mesh_pair_runs` writes before it trains
-    a mesh."""
+    start (imports, CUDA, gloo, the probe) overlaps it: they train once
+    :func:`_mesh_pair_runs` writes ``go`` and read each reference it
+    writes when they check a mesh."""
     import tempfile
 
     root = tempfile.mkdtemp(prefix="chip_smoke_pair_")
@@ -10321,9 +10582,12 @@ def _mesh_pair_start() -> dict:
                "run": run}
               for t, ax, over, opts, run in MESH_PAIR_MESHES]
     args = dict(MESH_PAIR, meshes=meshes, port=_free_port(),
+                go=os.path.join(root, "go"),
                 ref=os.path.join(root, "ref.pt"),
                 ref_moe=os.path.join(root, "ref_moe.pt"),
+                ref_int8=os.path.join(root, "ref_int8.pt"),
                 elastic_ckpt=os.path.join(root, "elastic"),
+                int8_ckpt=os.path.join(root, "int8"),
                 t_launch=time.time())
     script = os.path.join(root, "pair.py")
     Path(script).write_text(MESH_PAIR_CHILD)
@@ -10351,12 +10615,14 @@ def _mesh_pair_stop(pair: dict) -> None:
 
 
 def _pair_reference(preset: str, layers: int, steps: int, keep: int,
-                    **over) -> tuple:
+                    moments: str = "f32", **over) -> tuple:
     """The run without a mesh that (b)'s meshes are held to: ``preset`` at
-    ``layers`` layers, f32, on ``MESH_PAIR``'s batches from seed 0, this
-    process.  Returns (each step's metrics, the parameters after ``keep``
-    steps and after ``steps`` steps on the host, the parameter count,
-    the seconds)."""
+    ``layers`` layers, f32, with ``moments``, on ``MESH_PAIR``'s batches
+    from seed 0, this process.  Returns (each step's metrics, the
+    parameters after ``keep`` steps and after ``steps`` steps on the
+    host — int8: with each moment's codes as ``"<field>:<name>"`` —, the
+    parameter count, the seconds, and int8: the codes after every
+    step)."""
     import itertools
 
     import torch
@@ -10369,22 +10635,34 @@ def _pair_reference(preset: str, layers: int, steps: int, keep: int,
     t0 = time.perf_counter()
     model, cfg = make_model(preset, device="cuda", seed=0, n_layers=layers,
                             dtype=torch.float32, **over)
-    opt = T.make_optimizer(a["lr"], warmup_steps=1, decay_steps=1000)
+    opt = T.make_optimizer(a["lr"], warmup_steps=1, decay_steps=1000,
+                           moments=moments)
     state, step = T.create_state(model, opt), T.make_train_step(opt)
-    want = []
+
+    def host(state):
+        out = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+        if moments == "int8":
+            for f in ("mu_codes", "nu_codes"):
+                out.update((f"{f}:{n}", t.cpu())
+                           for n, t in state.opt_state.tensors()[f].items())
+        return out
+
+    want, trail = [], []
     for b in itertools.islice(deterministic_lm_batches(
             a["batch"], a["seq"] + 1, cfg.vocab_size, seed=1), steps):
         state, m = step(state, {"tokens": torch.as_tensor(b["tokens"],
                                                           device="cuda")})
         want.append({k: float(v) for k, v in m.items()})
         if len(want) == keep:
-            kept = {n: p.detach().cpu()
-                    for n, p in state.model.named_parameters()}
-    final = kept if keep == steps else {
-        n: p.detach().cpu() for n, p in state.model.named_parameters()}
+            kept = host(state)
+        if moments == "int8":
+            trail.append({k: v for k, v in host(state).items()
+                          if ":" in k})
+    final = kept if keep == steps else host(state)
     del state, model
     torch.cuda.empty_cache()
-    return want, kept, final, cfg.num_params(), time.perf_counter() - t0
+    return (want, kept, final, cfg.num_params(), time.perf_counter() - t0,
+            trail)
 
 
 def _publish(params: dict, path: str) -> None:
@@ -10395,36 +10673,63 @@ def _publish(params: dict, path: str) -> None:
     os.replace(path + ".tmp", path)
 
 
+def _pair_metrics_close(metrics: list, want: list,
+                        grad_rtol: float = 1e-4) -> bool:
+    """A run's steps' losses and aux losses within rtol 1e-5 of
+    ``want``'s, its grad norms within ``grad_rtol``."""
+    import numpy as np
+
+    return (len(metrics) == len(want)
+            and all(np.isclose(m[k], w[k], rtol=1e-5, atol=0)
+                    for m, w in zip(metrics, want)
+                    for k in ("loss", "aux_loss") if k in w)
+            and all(np.isclose(m["grad_norm"], w["grad_norm"],
+                               rtol=grad_rtol, atol=0)
+                    for m, w in zip(metrics, want)))
+
+
 def _pair_gate(metrics: list, want: list, diff: float, off: int,
-               total: int, n_params: int, steps: int) -> bool:
+               total: int, n_params: int, steps: int,
+               grad_rtol: float = 1e-4) -> bool:
     """(b)'s gate for a run's steps against the run without a mesh's, the
     parameters after ``steps`` steps from the same init: losses and aux
-    losses rtol 1e-5, grad norms rtol 1e-4, every
+    losses rtol 1e-5, grad norms rtol ``grad_rtol``, every
     parameter compared once, at most one in 10,000 off by more than 1e-5
     and none by more than 2 lr a step.  Adam moves an element by about lr
     a step whatever its gradient's size: an element whose gradient is at
     the f32 noise of the two summation orders can step either way, so a
     few elements may differ by up to 2 lr a step; a wrong shard would
     move whole blocks."""
-    import numpy as np
-
-    return (len(metrics) == len(want) and off <= 1e-4 * total
-            and total == n_params
+    return (off <= 1e-4 * total and total == n_params
             and diff <= 2 * MESH_PAIR["lr"] * steps
-            and all(np.isclose(m[k], w[k], rtol=1e-5, atol=0)
-                    for m, w in zip(metrics, want)
-                    for k in ("loss", "aux_loss") if k in w)
-            and all(np.isclose(m["grad_norm"], w["grad_norm"], rtol=1e-4,
-                               atol=0) for m, w in zip(metrics, want)))
+            and _pair_metrics_close(metrics, want, grad_rtol))
 
 
-def _pair_elastic_resume(ckpt_dir: str, want: list, final: dict,
-                         n_params: int) -> dict:
-    """The parent's side of (b)'s elastic run: the pair's dp2 step,
-    restored on one card through ``ft/elastic.py`` ``elastic_resume`` (a
-    state built without a mesh, its moments reassembled from the dp2
-    shard file), then ``MESH_PAIR_ELASTIC["steps"]`` steps from the plan's
-    data offset, held by (b)'s gate to the reference run's next steps."""
+def _checksum(tensors) -> int:
+    """Every element's bit pattern times its position's weight, summed
+    (mod 2**64) on the card, as 3s (b)'s ranks sum the regions they
+    save: equal tensors, equal sums; a block moved or swapped changes
+    them."""
+    import torch
+
+    total = 0
+    for t in tensors:
+        t = t.detach().to("cuda").contiguous().view(-1)
+        bits = t.view(torch.int32 if t.element_size() == 4
+                      else torch.int8).to(torch.int64)
+        weight = torch.arange(bits.numel(), device="cuda") % 65521 + 1
+        total += int((bits * weight).sum())
+    return total
+
+
+def _pair_resume(ckpt_dir: str, moments: str = "f32", seen=None) -> tuple:
+    """The pair's saved step 3 restored on one card through
+    ``ft/elastic.py`` ``elastic_resume`` (a state built without a mesh,
+    its moments reassembled from the shard files), then
+    ``MESH_PAIR_ELASTIC["steps"]`` steps from the plan's data offset;
+    ``seen(state, i)`` reads the state after the restore (``i`` 0) and
+    after each step.  Returns (resumed, plan, the restore's seconds,
+    each step's metrics, step ms, the flash launches)."""
     import itertools
 
     import torch
@@ -10438,7 +10743,8 @@ def _pair_elastic_resume(ckpt_dir: str, want: list, final: dict,
     from paddle_operator_tpu_torch.train.data import deterministic_lm_batches
 
     a, n = MESH_PAIR, MESH_PAIR_ELASTIC["steps"]
-    opt = T.make_optimizer(a["lr"], warmup_steps=1, decay_steps=1000)
+    opt = T.make_optimizer(a["lr"], warmup_steps=1, decay_steps=1000,
+                           moments=moments)
 
     def init_fn():
         model, _ = make_model(a["preset"], device="cuda", seed=0,
@@ -10449,6 +10755,8 @@ def _pair_elastic_resume(ckpt_dir: str, want: list, final: dict,
     state, resumed, plan = elastic_resume(
         CheckpointManager(ckpt_dir), init_fn, saved_global_batch=a["batch"],
         global_batch=a["batch"], goodput=tracker)
+    if seen:
+        seen(state, 0)
     step = T.make_train_step(opt)
     flash = (FA.flash_forward, FA.flash_backward_dkv, FA.flash_backward_dq)
     for fn in flash:
@@ -10464,22 +10772,45 @@ def _pair_elastic_resume(ckpt_dir: str, want: list, final: dict,
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         got.append({k: float(v) for k, v in m.items()})
-    diff, off, total = 0.0, 0, 0
-    for name, p in state.model.named_parameters():
-        d = (p.detach() - final[name].to("cuda")).abs()
-        diff, off = max(diff, float(d.max())), off + int((d > 1e-5).sum())
-        total += d.numel()
+        if seen:
+            seen(state, len(got))
     launches = [fn.launches for fn in flash]
+    del state
+    torch.cuda.empty_cache()
+    return (resumed, plan, tracker.badput()["restore"], got, step_ms,
+            launches)
+
+
+def _pair_elastic_resume(ckpt_dir: str, want: list, final: dict,
+                         n_params: int) -> dict:
+    """The parent's side of (b)'s elastic run: the pair's dp2 step
+    resumed on one card (:func:`_pair_resume`), held by (b)'s gate to
+    the reference run's next steps."""
+    import torch
+
+    a, n = MESH_PAIR, MESH_PAIR_ELASTIC["steps"]
+    held = {}
+
+    def seen(state, i):
+        if i == n:
+            for name, p in state.model.named_parameters():
+                d = (p.detach() - final[name].to("cuda")).abs()
+                held["diff"] = max(held.get("diff", 0.0), float(d.max()))
+                held["off"] = held.get("off", 0) + int((d > 1e-5).sum())
+                held["total"] = held.get("total", 0) + d.numel()
+
+    resumed, plan, restore_s, got, step_ms, launches = _pair_resume(
+        ckpt_dir, seen=seen)
+    diff, off, total = held["diff"], held["off"], held["total"]
     want_launches = [2 * a["layers"] * n, a["layers"] * n, a["layers"] * n]
-    run = {"resumed": resumed, "plan": plan,
-           "restore_s": tracker.badput()["restore"],
+    run = {"resumed": resumed, "plan": plan, "restore_s": restore_s,
            "losses": [m["loss"] for m in got],
            "want_losses": [w["loss"] for w in want[-n:]],
            "grad_norms": [m["grad_norm"] for m in got],
            "max_param_diff": diff, "params_off": off, "params_total": total,
            "launches": launches, "step_ms": step_ms}
     log(f"mesh train pod (b) elastic: dp2's step {plan['step']} restored on "
-        f"one card in {run['restore_s']:.2f}s (resumed {resumed}, plan "
+        f"one card in {restore_s:.2f}s (resumed {resumed}, plan "
         f"{plan}); {n} steps, losses {run['losses']} (want "
         f"{run['want_losses']}), largest |param difference| {diff:.3e}, "
         f"{off} of {total} off by more than 1e-5; flash launches "
@@ -10492,8 +10823,205 @@ def _pair_elastic_resume(ckpt_dir: str, want: list, final: dict,
         raise AssertionError("3s (b) elastic: the resumed run differs from "
                              "the run without a mesh")
     run["steps_lost"] = steps_lost
-    del state
     torch.cuda.empty_cache()
+    return run
+
+
+def _pair_int8_restore(ckpt_dir: str, want: list, final: dict, trail: list,
+                       n_params: int) -> dict:
+    """(b)'s int8 restore: tp2_int8's step 3, its codes and scales
+    reassembled as whole blocks on one card, then 2 steps on
+    (:func:`_pair_resume`).  Held:
+
+    - the restored state to the mesh's at the save, bit for bit: each
+      rank's checksum of every region it held of each parameter and
+      each moment field (``record-<rank>.pt`` beside the checkpoint);
+    - the 2 steps to the mesh's own steps 4 and 5, the run the restore
+      resumes (each rank's regions, ``cont-<rank>.pt``), by (b)'s rule:
+      at most one in 10,000 parameters off by more than 1e-5 outside
+      the elements under a code that came out other than the mesh's
+      after step 4 or 5 (tests/test_torch_opt8bit.py's rule), none by
+      more than 2 lr a step;
+    - losses and grad norms to the reference's steps 4-5 (rtol 1e-5),
+      codes more than one off the reference's after step 5 under
+      ``MESH_PAIR_INT8["codes_far"]``, kernel #8 once a tensor a step.
+
+    Read beside it, not gated: the restore's and the mesh's step 5
+    against the reference's (``final``, ``trail``: its codes after each
+    step) by the same rule, a flip counted against the reference's codes
+    after every step (the mesh's before the save from the records), and
+    how many of the elements off there had a second moment the
+    reference stored as 0 before step 4 or 5."""
+    import torch
+
+    from paddle_operator_tpu_torch.ops import adam8bit as A8
+    from paddle_operator_tpu_torch.train.opt8bit import _from_blocks
+
+    a, n = MESH_PAIR, MESH_PAIR_ELASTIC["steps"]
+    k = a["steps"]
+    codes_f = ("mu_codes", "nu_codes")
+    records = [torch.load(path, weights_only=True) for path in
+               sorted(Path(ckpt_dir).glob("record-*.pt"))]
+    conts = [torch.load(path, weights_only=True, mmap=True) for path in
+             sorted(Path(ckpt_dir).glob("cont-*.pt"))]
+    if len(records) != 2 or len(conts) != 2:
+        raise AssertionError(f"3s (b) int8 restore: {len(records)} records "
+                             f"and {len(conts)} continuations, not 2 each")
+    mesh_metrics = conts[0]["metrics"]
+
+    def cut(region):
+        return tuple(slice(*r) for r in region)
+
+    def assemble(key, like):
+        # the mesh's whole tensors from the ranks' regions (each element
+        # held by exactly one rank)
+        out, covered = {}, {}
+        for c in conts:
+            for name, (region, t) in c[key].items():
+                w = out.setdefault(name, torch.empty(
+                    like(name).shape, dtype=t.dtype, device="cuda"))
+                w[cut(region)] = t.to("cuda")
+                covered[name] = covered.get(name, 0) + t.numel()
+        if any(covered[x] != out[x].numel() for x in out):
+            raise AssertionError(f"3s (b) int8 restore: the ranks' {key} "
+                                 "regions do not cover their tensors")
+        return out
+
+    def on_params(blocks, p):
+        return _from_blocks(blocks.float(), p.shape, torch.float32) > 0
+
+    def mark(into, name, p, now, other):
+        # elements of `name` under a code in `now` other than in `other`
+        for f in codes_f:
+            hit = on_params(now[f"{f}:{name}"].to("cuda")
+                            != other[f"{f}:{name}"].to("cuda"), p)
+            into[name] = into.get(name, hit) | hit
+
+    def flips_of_records():
+        out = {}
+        for r in records:
+            for name, (region, hit) in r["flips"].items():
+                w = out.setdefault(name, torch.zeros(
+                    final[name].shape, dtype=torch.bool, device="cuda"))
+                w[cut(region)] |= hit.to("cuda")
+        return out
+
+    def zero_nu(name, p):
+        # a second moment the reference stored as 0 (code -127: sqrt(nu)
+        # under half its block's step) before step 4 or 5
+        return on_params(
+            (trail[k - 1][f"nu_codes:{name}"].to("cuda") == -127)
+            | (trail[k][f"nu_codes:{name}"].to("cuda") == -127), p)
+
+    def count(named, ours, theirs, flipped):
+        diff = off = under = nu0 = 0
+        for name, p in named.items():
+            d = (ours(name) - theirs(name)).abs()
+            diff = max(diff, float(d.max()))
+            under += int(flipped[name].sum())
+            bad = (d > 1e-5) & ~flipped[name]
+            off += int(bad.sum())
+            nu0 += int((bad & zero_nu(name, p)).sum())
+        return {"max_param_diff": diff, "params_off": off,
+                "under_flips": under, "off_nu_zero": nu0}
+
+    # flips against the reference (the restore's and the mesh's), and
+    # between the restore and the mesh after steps 4 and 5
+    vs_ref, mesh_vs_ref, vs_mesh = flips_of_records(), flips_of_records(), {}
+    mesh_codes = {s: assemble(f"codes@{s}", lambda x: final[x])
+                  for s in range(k + 1, k + n + 1)}
+    checked = {"regions": 0, "differ": []}
+    held = {}
+
+    def seen(state, i):
+        o = state.opt_state
+        named = dict(state.model.named_parameters())
+        if i == 0:
+            for r in records:
+                for key, (region, s) in r["sums"].items():
+                    f, _, name = key.rpartition(":")
+                    t = o.tensors()[f][name] if f else named[name].detach()
+                    checked["regions"] += 1
+                    if _checksum([t[cut(region)]]) != s:
+                        checked["differ"].append(key)
+            return
+        now = {f"{f}:{name}": t for f in codes_f
+               for name, t in o.tensors()[f].items()}
+        for name, p in named.items():
+            mark(vs_ref, name, p, now, trail[k + i - 1])
+            mark(vs_mesh, name, p, now, mesh_codes[k + i])
+            mark(mesh_vs_ref, name, p, mesh_codes[k + i], trail[k + i - 1])
+        if i < n:
+            return
+        mesh = assemble(f"params@{k + n}", lambda x: final[x])
+        ours = lambda x: named[x].detach()           # noqa: E731
+        ref = lambda x: final[x].to("cuda")          # noqa: E731
+        held["mesh"] = count(named, ours, mesh.__getitem__, vs_mesh)
+        held["ref"] = count(named, ours, ref, vs_ref)
+        held["mesh_vs_ref"] = count(named, mesh.__getitem__, ref,
+                                    mesh_vs_ref)
+        far = total = 0
+        for key, t in now.items():
+            d = (t.int() - final[key].to("cuda").int()).abs()
+            far, total = far + int((d > 1).sum()), total + d.numel()
+        held.update(codes_far=far, codes_total=total)
+
+    A8.adam8bit_update.launches = 0
+    resumed, plan, restore_s, got, step_ms, launches = _pair_resume(
+        ckpt_dir, "int8", seen)
+    k8 = A8.adam8bit_update.launches
+    want_launches = [2 * a["layers"] * n, a["layers"] * n, a["layers"] * n]
+    vs_mesh_run, vs_ref_run = held["mesh"], held["ref"]
+    witness = held["mesh_vs_ref"]
+    run = {"resumed": resumed, "plan": plan, "restore_s": restore_s,
+           "regions_checked": checked["regions"],
+           "regions_differ": checked["differ"],
+           "losses": [m["loss"] for m in got],
+           "want_losses": [w["loss"] for w in want[-n:]],
+           "mesh_losses": [m["loss"] for m in mesh_metrics[-n:]],
+           "grad_norms": [m["grad_norm"] for m in got],
+           "vs_mesh": vs_mesh_run, "vs_ref": vs_ref_run,
+           "mesh_vs_ref": witness, "params_total": n_params,
+           "codes_far": held["codes_far"], "codes_total": held["codes_total"],
+           "launches": launches, "adam8bit_launches": k8,
+           "step_ms": step_ms}
+    log(f"mesh train pod (b) int8 restore: tp2_int8's step {plan['step']} "
+        f"restored on one card in {restore_s:.2f}s (resumed {resumed}, "
+        f"plan {plan}); {checked['regions']} regions of the ranks' "
+        f"parameters, codes and scales checked, differing bit for bit "
+        f"{checked['differ'][:8]}; {n} steps, losses {run['losses']} (the "
+        f"reference's {run['want_losses']}, the mesh's "
+        f"{run['mesh_losses']}); against the mesh's step {k + n}: "
+        f"largest |param difference| {vs_mesh_run['max_param_diff']:.3e}, "
+        f"{vs_mesh_run['params_off']} of {n_params} off by more than 1e-5 "
+        f"outside the {vs_mesh_run['under_flips']} elements under a code "
+        f"other than the mesh's after step {k + 1} or {k + n}; read beside "
+        f"it, against the reference's step {k + n} (flips against its codes "
+        f"after every step): the restore {vs_ref_run['params_off']} off "
+        f"outside {vs_ref_run['under_flips']} (largest "
+        f"{vs_ref_run['max_param_diff']:.3e}, of the off "
+        f"{vs_ref_run['off_nu_zero']} with a second moment stored as 0 "
+        f"before step {k + 1} or {k + n}), the mesh without a restore "
+        f"{witness['params_off']} off outside {witness['under_flips']} "
+        f"(largest {witness['max_param_diff']:.3e}, "
+        f"{witness['off_nu_zero']} with it); flash launches {launches} "
+        f"(want {want_launches}); kernel #8 launches {k8} (want "
+        f"{MESH_PAIR_INT8['tensors'] * n}); codes more than one off the "
+        f"reference's {held['codes_far']} of {held['codes_total']}; step "
+        f"ms {step_ms}")
+    steps_lost = a["steps"] - plan["data_start_step"]
+    if not (resumed and plan["step"] == k and steps_lost == 0
+            and checked["regions"] > 0 and not checked["differ"]
+            and launches == want_launches
+            and k8 == MESH_PAIR_INT8["tensors"] * n
+            and held["codes_far"] < MESH_PAIR_INT8["codes_far"]
+            * held["codes_total"]
+            and vs_mesh_run["params_off"] <= 1e-4 * n_params
+            and vs_mesh_run["max_param_diff"] <= 2 * a["lr"] * n
+            and _pair_metrics_close(got, want[-n:], 1e-5)):
+        raise AssertionError("3s (b) int8 restore: the restored run is not "
+                             "the mesh's")
+    run["steps_lost"] = steps_lost
     return run
 
 
@@ -10503,31 +11031,64 @@ def _mesh_pair_runs(pair: dict) -> tuple:
     over gloo (``MESH_PAIR`` width and depth, f32; ep2_moe at
     ``MESH_PAIR_MOE``), each held to the same model's run without a mesh
     in this process on the same batches, then the elastic resume of dp2's
-    step on one card (:func:`_pair_elastic_resume`).  Returns (gloo's
-    answer to each collective and exchange on CUDA tensors, the runs); a
-    refused one fails the phase."""
-    import numpy as np
+    step and the int8 restore of tp2_int8's on one card
+    (:func:`_pair_elastic_resume`, :func:`_pair_int8_restore`).  Returns
+    (gloo's answer to each collective and exchange on CUDA tensors, the
+    runs); a refused one fails the phase."""
     import torch
 
     a = dict(MESH_PAIR)
     args = pair["args"]
     n_el = MESH_PAIR_ELASTIC["steps"]
-    # both references first, the card this process's alone, then the
-    # ranks go (they wait for ref.pt)
+    # the ranks' meshes go now, and read each reference only to check a
+    # mesh: the int8 one first (their first three meshes' own), written
+    # while they train
+    Path(args["go"]).touch()
+    t_refs = time.perf_counter()
+    want8, kept8, final8, _, ref8_s, trail8 = _pair_reference(
+        a["preset"], a["layers"], a["steps"] + n_el, a["steps"],
+        moments="int8")
+    # the parameters after (b)'s steps and the codes after each of them,
+    # for the ranks' record of which elements sat under a code other
+    # than these
+    kept8 = {k: v for k, v in kept8.items() if ":" not in k}
+    kept8.update((f"{k}@{i + 1}", v) for i, codes in
+                 enumerate(trail8[:a["steps"]]) for k, v in codes.items())
+    t_pub = time.perf_counter()
+    _publish(kept8, args["ref_int8"])
+    del kept8
+    pub8_s = time.perf_counter() - t_pub
+    want, kept, final, n_params, ref_s, _ = _pair_reference(
+        a["preset"], a["layers"], a["steps"] + n_el, a["steps"])
+    _publish(kept, args["ref"])
+    del kept
     moe = MESH_PAIR_MOE
-    want_moe, kept_moe, _, n_moe, moe_s = _pair_reference(
+    want_moe, kept_moe, _, n_moe, moe_s, _ = _pair_reference(
         moe["preset"], moe["layers"], a["steps"], a["steps"],
         moe_capacity_factor=moe["capacity_factor"])
     _publish(kept_moe, args["ref_moe"])
     del kept_moe
-    want, kept, final, n_params, ref_s = _pair_reference(
-        a["preset"], a["layers"], a["steps"] + n_el, a["steps"])
-    _publish(kept, args["ref"])
-    del kept
-    t0 = time.perf_counter()
+    refs_s = time.perf_counter() - t_refs
     procs = pair["procs"]
     outs = []
     try:
+        # the int8 restore as soon as tp2_int8 has written its steps
+        # after the save, beside the ranks' later meshes (which keep
+        # gloo's host copies, not the card, busy)
+        conts = [os.path.join(args["int8_ckpt"], f"cont-{r}.pt")
+                 for r in range(2)]
+        deadline = time.time() + 600
+        while not all(os.path.exists(c) for c in conts):
+            failed = [p.returncode for p in procs if p.poll()]
+            if failed or time.time() > deadline:
+                raise AssertionError(
+                    f"3s (b): no tp2_int8 continuation from both ranks "
+                    f"(exit codes {[p.poll() for p in procs]})")
+            time.sleep(0.1)
+        t_el = time.perf_counter()
+        int8_restore = _pair_int8_restore(
+            args["int8_ckpt"], want8, final8, trail8, n_params)
+        int8_restore_s = time.perf_counter() - t_el
         for p in procs:
             out, err = p.communicate(timeout=600)
             if p.returncode != 0:
@@ -10535,7 +11096,7 @@ def _mesh_pair_runs(pair: dict) -> tuple:
                                      f"{p.returncode}: {err[-3000:]}")
             outs.append([json.loads(ln) for ln in out.splitlines()
                          if ln.startswith("{")])
-        wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t_refs
         t_el = time.perf_counter()
         elastic = _pair_elastic_resume(args["elastic_ckpt"], want, final,
                                        n_params)
@@ -10557,34 +11118,44 @@ def _mesh_pair_runs(pair: dict) -> tuple:
     for mesh_out in zip(*(o[1:] for o in outs)):
         first = mesh_out[0]
         tag = first["tag"]
-        is_moe = runs_of[tag].get("ref") == "ref_moe"
+        run_opts = runs_of[tag]
+        is_moe = run_opts.get("ref") == "ref_moe"
+        is_int8 = run_opts.get("moments") == "int8"
+        twin = run_opts.get("same_as")
+        steps = run_opts.get("steps", a["steps"])
         layers = moe["layers"] if is_moe else a["layers"]
-        want_tag = (want_moe if is_moe else want)[:a["steps"]]
+        want_tag = (want_moe if is_moe else want8 if is_int8
+                    else want)[:steps]
         metrics = first["metrics"]
         same = all(o["metrics"] == metrics for o in mesh_out)
-        diff = max(o["max_param_diff"] for o in mesh_out)
-        off = sum(o["params_off"] for o in mesh_out)
-        total = sum(o["params_total"] for o in mesh_out)
         launches = [o["launches"] for o in mesh_out]
-        want_launches = [mesh_pair_launches(tag, o["rank"], layers,
-                                            a["steps"]) for o in mesh_out]
+        want_launches = [mesh_pair_launches(tag, o["rank"], layers, steps)
+                         for o in mesh_out]
         step_ms = [o["step_ms"] for o in mesh_out]
         xbytes = [o["exchange_bytes_per_step"] for o in mesh_out]
         dropped = [o["dropped"] for o in mesh_out]
-        secs = [(round(o["setup_s"], 2), round(o["check_s"], 2))
+        secs = [(round(o["setup_s"], 2), round(o.get("check_s", 0.0), 2))
                 for o in mesh_out]
         keys = ("loss", "aux_loss") if is_moe else ("loss",)
         pairs = [tuple(x for k in keys + ("grad_norm",)
                        for x in (m[k], w[k]))
                  for m, w in zip(metrics, want_tag)]
+        if twin is None:
+            # held to the reference after (b)'s steps
+            diff = max(o["max_param_diff"] for o in mesh_out)
+            off = sum(o["params_off"] for o in mesh_out)
+            total = sum(o["params_total"] for o in mesh_out)
+            held = (f"largest |param difference| {diff:.3e}, {off} of "
+                    f"{total} parameters off by more than 1e-5 after step "
+                    f"{a['steps']}")
+        else:
+            held = f"held to {twin} bit for bit"
         log(f"mesh train pod (b) {tag}: two ranks on the one card over "
             f"gloo, {first['local_heads']} heads a rank, "
             f"layers a rank {[o['layers_here'] for o in mesh_out]}, "
             f"({', '.join(f'{k}, want' for k in keys)}, grad_norm, want) "
-            f"{pairs}; the ranks' metrics equal: {same}; largest |param "
-            f"difference| {diff:.3e}, {off} of {total} parameters off by "
-            f"more than 1e-5; flash launches a rank {launches} (want "
-            f"{want_launches}"
+            f"{pairs}; the ranks' metrics equal: {same}; {held}; flash "
+            f"launches a rank {launches} (want {want_launches}"
             + ("; ring attention runs plain ops, no flash kernel"
                if tag == "cp2_ring" else "")
             + f"); step ms a rank {step_ms}; exchange bytes a step a rank "
@@ -10594,12 +11165,60 @@ def _mesh_pair_runs(pair: dict) -> tuple:
                if is_moe else "")
             + (f"; saved steps {first['saved']}" if "saved" in first
                else ""))
+        int8_ok = True
+        if is_int8:
+            # kernel #8 once a tensor a step on every rank, never the
+            # plain update; the codes; an offloaded run bit for bit the
+            # resident one after each of its steps, its moments in the
+            # pinned slab
+            k8 = [o["adam8bit_launches"] for o in mesh_out]
+            want_k8 = MESH_PAIR_INT8["tensors"] * steps
+            sums = [o["checksums"] for o in mesh_out]
+            slab = [o["in_slab"] for o in mesh_out]
+            bits = twin is None or (
+                [s[:steps] for s in runs[twin]["checksums"]] == sums
+                and runs[twin]["losses"][:steps]
+                == [m["loss"] for m in metrics]
+                and runs[twin]["grad_norms"][:steps]
+                == [m["grad_norm"] for m in metrics])
+            codes = ""
+            if twin is None:
+                far = sum(o["codes_far"] for o in mesh_out)
+                codes_off = sum(o["codes_off"] for o in mesh_out)
+                n_codes = sum(o["codes_total"] for o in mesh_out)
+                codes = (f"parameters held to 2 lr a step only (under a "
+                         f"code that came out other than the reference's "
+                         f"at some step) "
+                         f"{sum(o['under_flips'] for o in mesh_out)}; codes "
+                         f"more than one off the reference's {far}, off by "
+                         f"one {codes_off}, of {n_codes}; ")
+            log(f"mesh train pod (b) {tag}: int8 moments, cases "
+                f"{[o['cases'] for o in mesh_out]}; {codes}kernel #8 "
+                f"launches a rank {k8} (want {want_k8}), plain updates "
+                f"{[o['plain_updates'] for o in mesh_out]}; int8 gather "
+                f"bytes a step a rank "
+                f"{[{k: v for k, v in x.items() if k.startswith('q8')} for x in xbytes]}"
+                + (f"; bit-equal to {twin} after each of its {steps} "
+                   f"steps: {bits}; moments in the pinned slab after each "
+                   f"step {slab}" if twin else ""))
+            int8_ok = (all(k == want_k8 for k in k8)
+                       and all(o["plain_updates"] == 0 for o in mesh_out)
+                       and bits
+                       and (twin is not None or far < MESH_PAIR_INT8[
+                           "codes_far"] * n_codes)
+                       and (not run_opts.get("offload")
+                            or all(all(x) and len(x) == steps
+                                   for x in slab)))
         ok = (same and launches == want_launches
-              and len(metrics) == a["steps"]
-              and _pair_gate(metrics, want_tag, diff, off, total,
-                             n_moe if is_moe else n_params, a["steps"])
+              and len(metrics) == steps
+              and (_pair_metrics_close(metrics, want_tag, 1e-5)
+                   if twin else _pair_gate(
+                       metrics, want_tag, diff, off, total,
+                       n_moe if is_moe else n_params, a["steps"],
+                       1e-5 if is_int8 else 1e-4))
+              and int8_ok
               and (not is_moe or all(d > 0 for r in dropped for d in r))
-              and (not runs_of[tag].get("save")
+              and (not run_opts.get("save")
                    or first["saved"] == [a["steps"]]))
         if not ok:
             raise AssertionError(f"3s (b) {tag}: the two-rank mesh run "
@@ -10607,24 +11226,92 @@ def _mesh_pair_runs(pair: dict) -> tuple:
         runs[tag] = {"losses": [m["loss"] for m in metrics],
                      "grad_norms": [m["grad_norm"] for m in metrics],
                      "want_losses": [w["loss"] for w in want_tag],
-                     "max_param_diff": diff, "params_off": off,
-                     "params_total": total, "launches": launches,
-                     "step_ms": step_ms, "exchange_bytes": xbytes,
+                     "launches": launches, "step_ms": step_ms,
+                     "exchange_bytes": xbytes,
                      "peak_gb": [o["peak_gb"] for o in mesh_out]}
+        if twin is None:
+            runs[tag].update(max_param_diff=diff, params_off=off,
+                             params_total=total)
         if is_moe:
             runs[tag].update(aux_losses=[m["aux_loss"] for m in metrics],
                              dropped=dropped)
+        if is_int8:
+            runs[tag].update(adam8bit_launches=k8, checksums=sums,
+                             in_slab=slab)
+            if twin is None:
+                runs[tag].update(codes_far=far, codes_off=codes_off,
+                                 codes_total=n_codes)
     if set(runs) != {m[0] for m in MESH_PAIR_MESHES}:
         raise AssertionError(f"3s (b): ran {sorted(runs)}, not every mesh "
                              "of MESH_PAIR_MESHES")
     runs["elastic"] = elastic
+    runs["int8_restore"] = int8_restore
     runs["wall_s"] = wall
     log(f"mesh train pod (b): {len(MESH_PAIR_MESHES)} meshes in "
-        f"{wall:.1f}s after the runs without a mesh ({ref_s:.1f}s, "
-        f"{moe_s:.1f}s {moe['preset']}) and their saves; the elastic "
-        f"resume {elastic_s:.1f}s; the ranks, started before (a), probed "
-        f"after {[round(o[0]['ready_s'], 1) for o in outs]}s")
+        f"{wall:.1f}s; beside them the runs without a mesh (int8 "
+        f"{ref8_s:.1f}s, its codes and parameters published in "
+        f"{pub8_s:.1f}s; f32 {ref_s:.1f}s; {moe['preset']} {moe_s:.1f}s; "
+        f"all published after {refs_s:.1f}s) and the int8 restore "
+        f"({int8_restore_s:.1f}s); then the elastic resume "
+        f"{elastic_s:.1f}s; the ranks, started before (a), probed after "
+        f"{[round(o[0]['ready_s'], 1) for o in outs]}s")
     return probe, runs
+
+
+def _two_card_pod_start() -> dict:
+    """The launcher shim of a pod of 2 cards (``CARDS2_POD_ENV``) on this
+    one-card machine, each child calling ``launcher.initialize()``: one
+    child a card, each must refuse to share the card by name before it
+    joins a group.  Started before (b)'s references;
+    :func:`_two_card_pod_check` reads it."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TPU_", "TPUJOB_", "MEGASCALE_"))}
+    env.update(CARDS2_POD_ENV,
+               PYTHONPATH=str(ROOT) + os.pathsep + env.get("PYTHONPATH", ""))
+    code = ("from paddle_operator_tpu_torch.launch import launcher; "
+            "launcher.initialize(); print('joined', flush=True)")
+    pod = {"t0": time.perf_counter(), "proc": subprocess.Popen(
+        [sys.executable, "-m", "paddle_operator_tpu_torch.launch.launcher",
+         "--", sys.executable, "-c", code],
+        env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)}
+
+    def reap():
+        # its output and the seconds to its exit, read while (b) runs
+        try:
+            pod["out"], pod["err"] = pod["proc"].communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            pod["out"], pod["err"] = "", "no exit within 120 s"
+        pod["exit_s"] = time.perf_counter() - pod["t0"]
+
+    pod["reaper"] = threading.Thread(target=reap, daemon=True)
+    pod["reaper"].start()
+    return pod
+
+
+def _two_card_pod_check(pod: dict) -> dict:
+    """Phase 3s's check of pods of several cards on a one-card machine:
+    the 2-card pod exits non-zero, its children having named the card
+    count before any joined a group (no ``joined`` line), within 60 s of
+    its start."""
+    proc = pod["proc"]
+    pod["reaper"].join(timeout=130)
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    out, err, secs = pod["out"], pod["err"], pod["exit_s"]
+    named = "runs 2 cards (one process a card) but sees 1 CUDA card"
+    run = {"exit": proc.returncode, "seconds": secs,
+           "named": err.count(named), "joined": "joined" in out}
+    log(f"two-card pod: the shim of a pod of 2 cards (CARDS2_POD_ENV) on "
+        f"this one-card machine exited {proc.returncode} in {secs:.1f}s; "
+        f"{run['named']} child(ren) refused by name ({named!r}), joined a "
+        f"group: {run['joined']}")
+    if proc.returncode == 0 or run["named"] < 1 or run["joined"] \
+            or secs > 60:
+        raise AssertionError(f"3s: the 2-card pod was not refused by name: "
+                             f"exit {proc.returncode}, {err[-2000:]}")
+    return run
 
 
 def phase_mesh_train_pod(reports: dict) -> None:
@@ -10649,6 +11336,7 @@ def phase_mesh_train_pod(reports: dict) -> None:
     env.update(MESH_POD_ENV,
                PYTHONPATH=str(ROOT) + os.pathsep + env.get("PYTHONPATH", ""))
     pair = _mesh_pair_start()
+    two_cards = None
     try:
         t0 = time.perf_counter()
         proc = subprocess.run(
@@ -10714,7 +11402,11 @@ def phase_mesh_train_pod(reports: dict) -> None:
         if not np.isfinite(timed_losses).all():
             raise AssertionError(f"3s: a timed loss is not finite: "
                                  f"{timed_losses}")
+        # beside (b)'s references, which keep the card and not the host
+        # busy (beside (a) it slowed (a)'s pod start by seconds)
+        two_cards = _two_card_pod_start()
         probe, pair_runs = _mesh_pair_runs(pair)
+        refused = _two_card_pod_check(two_cards)
         run = {"layers": layers, "batch": b, "seq": s, "steps": steps,
                "params": done["params"], "bit_equal": done["bit_equal"],
                "max_param_diff": done["max_param_diff"],
@@ -10725,7 +11417,8 @@ def phase_mesh_train_pod(reports: dict) -> None:
                "tokens_per_s": tok_s, "mfu": mfu,
                "peak_gb": done["peak_gb"], "launches": done["launches"],
                "timed_launches": done["timed_launches"],
-               "launch_s": launch_s, "gloo_cuda": probe, "pair": pair_runs}
+               "launch_s": launch_s, "gloo_cuda": probe, "pair": pair_runs,
+               "two_card_pod": refused}
         log("mesh train pod: " + json.dumps(run))
         log(f"mesh train pod (one run, not a benchmark): step "
             f"{step_ms:.1f} ms (median of {len(times)} intervals), "
@@ -10737,6 +11430,9 @@ def phase_mesh_train_pod(reports: dict) -> None:
             reports[kern]["mesh_train_launches"] = done["launches"][i]
     finally:
         _mesh_pair_stop(pair)
+        if two_cards is not None and two_cards["proc"].poll() is None:
+            two_cards["proc"].kill()
+            two_cards["proc"].wait()
         shutil.rmtree(root, ignore_errors=True)
 
 

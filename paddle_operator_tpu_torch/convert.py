@@ -29,7 +29,7 @@ that form.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -93,7 +93,7 @@ def _q8_field(tree: Any, field: str) -> Any:
     return getattr(tree, field)
 
 
-def opt_state_from_jax(opt_state: Any):
+def opt_state_from_jax(opt_state: Any, cut: Optional[Callable] = None):
     """The optax state of the JAX package's ``make_optimizer`` (numpy
     leaves: ``jax.device_get`` of ``TrainState.opt_state``) -> the
     port's optimizer state under the port's parameter names: an
@@ -103,7 +103,12 @@ def opt_state_from_jax(opt_state: Any):
     ``ScaleByAdam8bitState`` (each ``[L, ...]`` codes and scales leaf
     unstacked into the layers' names, as the parameters are).  The
     schedule's count must equal the Adam count (both advance once per
-    update)."""
+    update).
+
+    ``cut(field, name)``: the slices of a rank's region of that field's
+    global tensor (``mu``/``nu``, or ``mu_codes`` ... ``nu_scales``;
+    for int8 ``parallel/sharding.py`` ``Q8Layout.field(field)[2]``), or
+    None to keep it whole: the state a rank of a mesh holds."""
     from paddle_operator_tpu_torch.train import opt8bit
     from paddle_operator_tpu_torch.train.trainer import AdamWState
 
@@ -120,13 +125,26 @@ def opt_state_from_jax(opt_state: Any):
         raise ValueError(f"schedule count {int(np.asarray(sched[0].count))}"
                          f" != Adam count {count}")
     mu, nu = adam[0].mu, adam[0].nu
-    if type(adam[0]).__name__ != "ScaleByAdam8bitState":
-        return AdamWState(count=count, mu=params_from_jax(mu),
-                          nu=params_from_jax(nu))
 
-    def q8(tree):
-        codes = params_from_jax(_q8_field(tree, "q8_codes"))
-        scales = params_from_jax(_q8_field(tree, "q8_scale"))
+    def region(field: str, tensors: Dict[str, torch.Tensor]):
+        if cut is None:
+            return tensors
+        out = {}
+        for k, t in tensors.items():
+            sl = cut(field, k)
+            out[k] = t if sl is None else t[tuple(sl)].contiguous()
+        return out
+
+    if type(adam[0]).__name__ != "ScaleByAdam8bitState":
+        return AdamWState(count=count, mu=region("mu", params_from_jax(mu)),
+                          nu=region("nu", params_from_jax(nu)))
+
+    def q8(tree, moment):
+        codes = region(moment + "_codes",
+                       params_from_jax(_q8_field(tree, "q8_codes")))
+        scales = region(moment + "_scales",
+                        params_from_jax(_q8_field(tree, "q8_scale")))
         return {k: opt8bit.Q8(codes[k], scales[k]) for k in codes}
 
-    return opt8bit.AdamW8bitState(count=count, mu=q8(mu), nu=q8(nu))
+    return opt8bit.AdamW8bitState(count=count, mu=q8(mu, "mu"),
+                                  nu=q8(nu, "nu"))

@@ -6,7 +6,10 @@ shard files that carry their global shapes and mesh axes;
 mesh: the production case is the operator's elastic slice drop, after
 which the ConfigMap's ``TPUJOB_MESH`` has a smaller ``dp``
 (``controller/builders.py`` of the JAX package) and the gang builds
-that mesh (``launch/launcher.py`` ``job_mesh``).  :func:`elastic_resume`
+that mesh (``launch/launcher.py`` ``job_mesh``; a multi-card job keeps
+its cards a pod, so the smaller gang has fewer pods of as many cards).
+int8 moments resume the same way: their shard files hold global blocks,
+which a restore onto another mesh reassembles and recuts.  :func:`elastic_resume`
 restores into a template built against the CURRENT mesh (``init_fn``:
 ``create_state(..., mesh=mesh)``), which cuts each rank's region out of
 the saved tensors (an fsdp, tp or ep reshape reassembles and recuts the

@@ -10,7 +10,10 @@ contract, :class:`PreemptionWatcher`, :func:`inject_preemption` and
 
 The training loop (train/trainer.py ``fit``) drains by finishing the
 in-flight step and forcing a durable checkpoint of it
-(:func:`drain_checkpoint`).  Serving pods drain by "stop admissions
+(:func:`drain_checkpoint`); on a mesh every rank agrees to stop after
+the same step.  A pod of several cards gets the signal on every card's
+process (``launch/launcher.py`` ``run_pod`` forwards it), they drain
+together, and the pod exits ``EXIT_PREEMPTED``.  Serving pods drain by "stop admissions
 (503 + Retry-After), finish in-flight work within the budget"
 (infer/resilience.py ServingDrain); the exit code, and the reconciler's
 preempted-not-failed accounting, are the trainer's.

@@ -28,6 +28,10 @@ out for a ``dp × fsdp × tp`` mesh (``parallel/mesh.py``).
   logit are all-reduced over ``tp`` (a few floats a position); the full
   ``[B, S, V]`` logits are never gathered.  Its backward is
   ``g * (onehot - softmax)`` on the local vocab slice.
+- :func:`gather_along` — a tensor's shards along one dim gathered
+  over the mesh axes that cut it, outside autograd (the int8 update's
+  whole rows, ``train/trainer.py`` ``AdamW8bit``; Ulysses'
+  ``segment_ids``).
 - :func:`all_reduce_data` — a sum over the data axes (dp, then fsdp).
 - :func:`full_tensor` — a DTensor gathered whole on every rank through
   the same c10d all-gathers (a checkpoint's parameters).  DTensor's own
@@ -52,8 +56,6 @@ device pointer as a host one.
   sent to rank i, the received pieces concatenated along another dim in
   rank order (JAX's tiled ``all_to_all``); its backward is the inverse
   exchange (Ulysses).
-- :func:`all_gather_no_grad` — an all-gather along a dim outside
-  autograd (Ulysses' ``segment_ids``).
 - :func:`pipeline_hop` — the acyclic exchange of a pipeline round,
   outside autograd: an activation to the next stage, a cotangent to the
   previous one.
@@ -210,6 +212,18 @@ def all_gather_blocks(x: torch.Tensor, groups: Sequence) -> torch.Tensor:
     return out
 
 
+@torch.no_grad()
+def gather_along(x: torch.Tensor, dim: int, groups: Sequence
+                 ) -> torch.Tensor:
+    """``x``'s shards along ``dim`` over ``groups`` (the axes that cut
+    the dim, outer first) concatenated in rank order, contiguous and
+    without a gradient: the inner axis first, so nested blocks land in
+    order.  No groups: ``x``."""
+    for group in reversed(tuple(groups)):
+        x = _all_gather_dim(x, dim % x.dim(), group)
+    return x
+
+
 def vocab_parallel_embed(weight: torch.Tensor, tokens: torch.Tensor,
                          tp) -> torch.Tensor:
     """``weight`` [V/tp, D] holds rows ``rank * V/tp ...`` of the
@@ -310,10 +324,13 @@ def cp_group(p: torch.Tensor):
 
 
 # bytes each kind of exchange sent from this process ("shift", "a2a",
-# "hop"), and the bytes of the tensors the copy/sum pair all-reduced
-# ("reduce", once a group: tp's and ep's); a caller zeroes and reads them
-# around the work it measures
-EXCHANGE: Dict[str, int] = {"shift": 0, "a2a": 0, "hop": 0, "reduce": 0}
+# "hop"), the bytes of the tensors the copy/sum pair all-reduced
+# ("reduce", once a group: tp's and ep's), and the bytes the int8
+# update's gathers brought to this process, by case ("q8_replicated",
+# "q8_unaligned": train/trainer.py AdamW8bit); a caller zeroes and reads
+# them around the work it measures
+EXCHANGE: Dict[str, int] = {"shift": 0, "a2a": 0, "hop": 0, "reduce": 0,
+                            "q8_replicated": 0, "q8_unaligned": 0}
 
 
 def exchange(sends: Dict[int, torch.Tensor],
@@ -425,13 +442,6 @@ def all_to_all(*xs: torch.Tensor, split_dim: int, concat_dim: int,
     ``all_to_all``), all in one exchange.  Its backward is the inverse
     exchange."""
     return _AllToAll.apply(split_dim, concat_dim, cp[0], *xs)
-
-
-@torch.no_grad()
-def all_gather_no_grad(x: torch.Tensor, dim: int, cp) -> torch.Tensor:
-    """``x`` gathered along ``dim`` over the ``cp`` axis, in rank order,
-    without a gradient."""
-    return _all_gather_dim(x, dim, cp[0])
 
 
 @torch.no_grad()

@@ -23,7 +23,11 @@ What differs from the JAX module:
   (a gloo group carries CUDA tensors too: phase 3s (b) of chip_smoke.py
   puts two ranks on one card through it, which nccl refuses);
   rank *r* of the process group sits at flat position *r* of the mesh
-  (the JAX package's reshape of the device list).  The axis product
+  (the JAX package's reshape of the device list).  A pod of several
+  cards runs one rank a card, numbered pod-major (``launch/launcher.py``
+  ``initialize``: pod × cards + ``LOCAL_RANK``), so the layout is JAX's
+  mesh over its devices ordered by (process, local id), and a pod's
+  cards take the innermost coordinates (tp first).  The axis product
   must equal the world size (the same ``ValueError``).  With no process
   group initialized, a mesh of size 1 builds a world-1 group over an
   in-process store (``torch.distributed.HashStore``): a one-worker job
@@ -103,6 +107,13 @@ def init_world_of_one(device="cuda") -> None:
                             rank=0)
 
 
+def rank_grid(spec: Optional[MeshSpec] = None) -> torch.Tensor:
+    """The ranks of ``spec``'s mesh laid over its axes: rank *r* at flat
+    position *r* (needs no process group)."""
+    shape = mesh_shape(spec or MeshSpec())
+    return torch.arange(int(torch.tensor(shape).prod())).reshape(shape)
+
+
 def make_mesh(spec: Optional[MeshSpec] = None, *,
               device="cuda") -> DeviceMesh:
     """The job's DeviceMesh for ``spec`` over every rank of the process
@@ -133,7 +144,7 @@ def make_mesh(spec: Optional[MeshSpec] = None, *,
         # one card a process: the current card (set before the groups'
         # communicators are made)
         torch.cuda.set_device(torch.cuda.current_device())
-    mesh = DeviceMesh(kind, torch.arange(world).reshape(shape),
+    mesh = DeviceMesh(kind, rank_grid(spec),
                       mesh_dim_names=tuple(AXIS_ORDER))
     # a host-side group over the same ranks (created by every rank here,
     # right after the mesh's own groups)

@@ -29,9 +29,18 @@ What differs from the JAX module:
   placements (one ``Shard(dim)`` or ``Replicate()`` a mesh dimension,
   in :data:`parallel.mesh.AXIS_ORDER`), not to a ``NamedSharding``.  A
   dimension its mesh factor does not divide raises (JAX's partitioner
-  refuses it too); the int8-moment leaves that JAX replicates when
-  their blocked shape is indivisible do not occur (int8 moments are
-  refused on a mesh with an axis above 1, ROADMAP.md).
+  refuses it too), except in the int8 moments' blocked shape, which
+  JAX replicates there and so does :func:`q8_spec`.
+- The int8 moments (``train/opt8bit.py``: codes ``[..., ceil(n/256),
+  256]``, scales ``[..., ceil(n/256), 1]``) take JAX's q8 leaf rule
+  (:func:`q8_spec`): the parameter's spec over the leading axes, its
+  last-axis entry on the block-count dim, any axis the blocked shape
+  cannot divide replicated.  Every block is a GLOBAL block, so a
+  rank's blocks need not cover its parameter columns; :func:`q8_layout`
+  says which of the three cases a parameter is in (:data:`ALIGNED`,
+  :data:`REPLICATED`, :data:`UNALIGNED`) and which blocks and columns
+  the rank holds, and the update (``train/trainer.py`` ``AdamW8bit``)
+  gathers what its case needs.
 - :func:`batch_sharding` gives the batch's placements; :func:`shard_batch`
   wraps this rank's rows of a global batch as DTensors with them (the
   port of placing a host batch onto the mesh).  A rank holds whole
@@ -50,6 +59,7 @@ What differs from the JAX module:
 
 from __future__ import annotations
 
+import dataclasses
 import re
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
@@ -61,6 +71,7 @@ from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
 from paddle_operator_tpu_torch.parallel.mesh import (STAGE_AXES,
                                                      coordinates,
                                                      mesh_axis_sizes)
+from paddle_operator_tpu_torch.train.opt8bit import blocked_shape
 
 LogicalSpec = Tuple[Optional[str], ...]
 MeshSpecTuple = Tuple[Any, ...]
@@ -252,6 +263,107 @@ def region(shape: Sequence[int], spec: MeshSpecTuple,
     return tuple(out)
 
 
+def _factor(entry, sizes: Mapping[str, int]) -> int:
+    return int(np.prod([sizes[a] for a in _axes(entry)]))
+
+
+def q8_spec(shape: Sequence[int], spec: MeshSpecTuple,
+            sizes: Mapping[str, int]) -> MeshSpecTuple:
+    """The per-dim mesh axes of the int8 codes of a parameter of
+    ``shape`` laid out by ``spec`` (the scales take the same: their last
+    dim is 1 and never sharded) — JAX ``tree_shardings``' rule for its
+    ``q8_codes``/``q8_scale`` leaves: the parameter's spec cut or padded
+    to the codes' rank (a last-axis entry lands on the block-count dim),
+    and any dim that the blocked shape cannot divide by its mesh factor
+    replicated."""
+    codes = blocked_shape(shape)
+    parts = list(spec)[:len(codes)]
+    parts += [None] * (len(codes) - len(parts))
+    return tuple(None if codes[d] % _factor(e, sizes) else e
+                 for d, e in enumerate(parts))
+
+
+# the three ways a parameter's int8 blocks lie against its columns
+ALIGNED = "aligned"          # a rank's blocks are its columns' blocks
+REPLICATED = "replicated"    # every rank of the axis holds every block
+UNALIGNED = "unaligned"      # blocks sharded, not on the columns' cut
+
+
+@dataclasses.dataclass(frozen=True)
+class Q8Layout:
+    """Where one parameter's int8 moments lie on the mesh.
+
+    ``shape``/``spec``: the global codes' shape and per-dim mesh axes
+    (:func:`q8_spec`; the scales' shape ends in 1 instead of 256);
+    ``region``: this rank's region of the global codes; ``groups``: the
+    process groups of the mesh axes that cut the parameter's LAST axis,
+    outer first; ``columns`` / ``blocks``: the
+    global parameter columns / blocks of the last axis (the block-count
+    dim) that this rank holds; ``case``: :data:`ALIGNED` (no axis cuts
+    the last axis, or every shard is whole blocks), :data:`REPLICATED`
+    (the blocks do not divide by the axes: each rank holds every block
+    of its rows) or :data:`UNALIGNED` (the blocks are cut, but not
+    where the columns are)."""
+
+    case: str
+    shape: Tuple[int, ...]
+    spec: MeshSpecTuple
+    region: Tuple[slice, ...]
+    columns: slice
+    blocks: slice
+    groups: tuple = dataclasses.field(default=(), compare=False,
+                                      repr=False)
+
+    def field(self, name: str) -> Tuple[Tuple[int, ...], MeshSpecTuple,
+                                         Tuple[slice, ...]]:
+        """(global shape, spec, this rank's region) of the moment field
+        ``name`` (``mu_codes``, ``mu_scales``, ...)."""
+        if name.endswith("codes"):
+            return self.shape, self.spec, self.region
+        return ((*self.shape[:-1], 1), self.spec,
+                (*self.region[:-1], slice(0, 1)))
+
+    @property
+    def local_shape(self) -> Tuple[int, ...]:
+        """This rank's codes' shape."""
+        return tuple(s.stop - s.start for s in self.region)
+
+
+def q8_layout(shape: Sequence[int], spec: MeshSpecTuple,
+              sizes: Mapping[str, int], coords: Mapping[str, int],
+              groups: tuple = ()) -> Q8Layout:
+    """The :class:`Q8Layout` of a parameter of ``shape`` laid out by
+    ``spec`` at the rank of ``coords`` (``sizes``: every axis's size;
+    ``groups``: the process groups of the last axis's mesh axes, for
+    the update's gathers)."""
+    shape = tuple(shape) or (1,)
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    qspec = q8_spec(shape, spec, sizes)
+    codes = blocked_shape(shape)
+    reg = region(codes, qspec, sizes, coords)
+    k = _factor(spec[-1], sizes)
+    n = shape[-1]
+    cols = region((n,), (spec[-1],), sizes, coords)[0]
+    if k == 1 or n % (k * codes[-1]) == 0:
+        case = ALIGNED
+    elif qspec[-2] is None:
+        case = REPLICATED
+    else:
+        case = UNALIGNED
+    return Q8Layout(case=case, shape=codes, spec=qspec, region=reg,
+                    columns=cols, blocks=reg[-2], groups=tuple(groups))
+
+
+def param_q8_layout(p: torch.Tensor) -> Q8Layout:
+    """:func:`q8_layout` of DTensor parameter ``p`` over its own mesh
+    (a pp stage's layer over the stage's sub-mesh) at this rank."""
+    mesh = p.device_mesh
+    spec = param_spec(p)
+    axes = _axes(spec[-1]) if spec else ()
+    return q8_layout(p.shape, spec, mesh_axis_sizes(mesh), coordinates(mesh),
+                     tuple(mesh.get_group(a) for a in axes))
+
+
 def local_slices(shape: Sequence[int], mesh: DeviceMesh,
                  pl: Sequence[Placement],
                  coords: Optional[Mapping[str, int]] = None
@@ -278,7 +390,13 @@ def data_block(mesh: DeviceMesh) -> Tuple[int, int]:
     """(index, count) of this rank's row block of a global batch: the
     batch is sharded over (dp, fsdp) and replicated over every other
     axis, so ranks that differ only off the data axes share a block."""
-    sizes, coords = mesh_axis_sizes(mesh), coordinates(mesh)
+    return data_block_at(mesh_axis_sizes(mesh), coordinates(mesh))
+
+
+def data_block_at(sizes: Mapping[str, int], coords: Mapping[str, int]
+                  ) -> Tuple[int, int]:
+    """:func:`data_block` of the rank at ``coords`` of a mesh of axis
+    sizes ``sizes`` (needs no mesh)."""
     index, count = 0, 1
     for a in ("dp", "fsdp"):
         index = index * sizes[a] + coords[a]

@@ -36,7 +36,7 @@ import torch
 
 from paddle_operator_tpu_torch.ops.attention import attention
 from paddle_operator_tpu_torch.parallel.collectives import (
-    all_gather_no_grad, all_to_all, group_of)
+    all_to_all, gather_along, group_of)
 
 
 def kv_repeat(h_local: int, hkv_local: int, n: int) -> int:
@@ -74,7 +74,7 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # seq-sharded -> head-sharded: split heads (dim 2), gather seq (dim 1)
     qh, kh, vh = all_to_all(q, k, v, split_dim=2, concat_dim=1, cp=cp)
     seg_full = (None if segment_ids is None
-                else all_gather_no_grad(segment_ids, 1, cp))
+                else gather_along(segment_ids, 1, (cp[0],)))
     out = attention(qh, kh, vh, causal=causal, segment_ids=seg_full)
     # head-sharded -> seq-sharded: split seq, gather heads
     (out,) = all_to_all(out, split_dim=1, concat_dim=2, cp=cp)

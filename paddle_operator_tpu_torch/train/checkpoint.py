@@ -40,11 +40,15 @@ any step:
 - the moments are written per rank, unreplicated: each rank at dp
   coordinate 0 writes ``opt-<rank>.pt`` (its coordinates, the mesh's
   axis sizes, and per field and name the local shard with the global
-  shape and the per-dim mesh axes that cut it; a rank at ep coordinate
-  above 0 only its expert shards, the tensors sharded over ``ep``: a
-  moment replicated over ``ep`` is written once), and rank 0 writes
-  ``opt.pt`` with ``step``, ``count``, ``moments`` and ``"sharded"``
-  (the axis sizes and the shard files) instead of the tensors;
+  shape and the per-dim mesh axes that cut it), holding each tensor
+  that no other rank holds at a lower coordinate: a moment replicated
+  over an axis is written once, by the rank at coordinate 0 of that
+  axis (an f32 moment's shape and axes are its parameter's; int8 codes
+  and scales are the rank's region of the GLOBAL blocks, with the
+  blocked shape and JAX's q8 axes, ``parallel/sharding.py``
+  ``Q8Layout``), and rank 0 writes ``opt.pt`` with ``step``,
+  ``count``, ``moments`` and ``"sharded"`` (the axis sizes and the
+  shard files) instead of the tensors;
 - the ranks agree on the temporary directory, each writes its files
   there, and the step is committed in ``wait``: once every rank's
   writer is done, the ranks agree over the mesh's gloo group that none
@@ -52,11 +56,12 @@ any step:
   step), rank 0 writes the marker and renames, and a barrier follows.
 
 A restore into a sharded state cuts each rank's region out of
-``params.pt``, and reads its moments from the shard file of its
-coordinates (dp 0) when the mesh has the saved axis sizes, else
-reassembles them whole and cuts them (another ``ep`` size, or none:
-the experts are reassembled and recut); a restore into a one-card state
-reassembles the moments from the shard files.  A pp rank reads only its
+``params.pt``, and reads each moment from the shard file that holds its
+region when the mesh has the saved axis sizes, else reassembles them
+whole and cuts them (another mesh, or none: int8 codes and scales are
+reassembled and recut as whole blocks, a concatenation, never a
+requantization); a restore into a one-card state reassembles the
+moments from the shard files.  A pp rank reads only its
 stage's layers and the replicated parameters.  So a step restores on
 its mesh bit for bit, on one card, on another mesh, and in the server.
 
@@ -136,15 +141,12 @@ def _check_like(saved: Dict[str, torch.Tensor], like: Dict[str, Any],
 
 class _Shard:
     """A moment shard read from its file: compares as its global shape
-    (``_check_like``), copies as its local tensor."""
+    (``_check_like``); ``local`` is the tensor."""
 
     def __init__(self, entry: dict) -> None:
         self.shape = torch.Size(entry["shape"])
         self.local = entry["local"]
         self.dtype = self.local.dtype
-
-    def to(self, *args, **kwargs) -> torch.Tensor:
-        return self.local.to(*args, **kwargs)
 
 
 def _cut(p, mesh) -> tuple:
@@ -156,10 +158,31 @@ def _cut(p, mesh) -> tuple:
     return local_slices(p.shape, p.device_mesh, p.placements)
 
 
-def _axes_of(p) -> set:
-    """The mesh axes that shard parameter ``p`` (a DTensor)."""
-    return {a for entry in param_spec(p) if entry is not None
+def _spec_axes(spec) -> set:
+    return {a for entry in spec if entry is not None
             for a in ((entry,) if isinstance(entry, str) else entry)}
+
+
+def _moment_layout(opt, field: str, name: str, p, mesh) -> tuple:
+    """(global shape, per-dim mesh axes, this rank's region) of moment
+    ``field`` of parameter ``name`` (``p``, a DTensor) in a state on
+    ``mesh``: an f32 moment's are its parameter's, int8 codes' and
+    scales' their ``Q8Layout``'s."""
+    layout = getattr(opt, "layout", None)
+    if layout:
+        return layout[name].field(field)
+    return tuple(p.shape), param_spec(p), _cut(p, mesh)
+
+
+def _holder(p, spec, coords) -> tuple:
+    """The coordinates of the rank that writes this rank's region of a
+    tensor cut by ``spec`` over the mesh that parameter ``p`` lies on:
+    this rank's, with 0 on every axis of that mesh that does not cut the
+    tensor (a pp stage's layer keeps its pp coordinate: its mesh has no
+    pp)."""
+    cut, own = _spec_axes(spec), set(p.device_mesh.mesh_dim_names)
+    return {a: c if a in cut or a not in own else 0
+            for a, c in coords.items()}
 
 
 def _stage_view(saved: Dict[str, Any], model: nn.Module) -> Dict[str, Any]:
@@ -361,15 +384,17 @@ class CheckpointManager:
                                       for r in writers]}}
         if rank in writers:
             named = dict(state.model.named_parameters())
-            mine = {k for k, p in named.items()
-                    if coords["ep"] == 0 or "ep" in _axes_of(p)}
-            files[SHARD_FILE.format(rank=rank)] = {
-                "coords": coords, "mesh": sizes,
-                **{field: {k: {"local": t.detach().to("cpu", copy=True),
-                               "shape": tuple(named[k].shape),
-                               "spec": param_spec(named[k])}
-                           for k, t in tensors.items() if k in mine}
-                   for field, tensors in opt.tensors().items()}}
+            shard: Dict[str, Any] = {"coords": coords, "mesh": sizes}
+            for field, tensors in opt.tensors().items():
+                shard[field] = {}
+                for k, t in tensors.items():
+                    shape, spec, _ = _moment_layout(opt, field, k,
+                                                    named[k], mesh)
+                    if _holder(named[k], spec, coords) == coords:
+                        shard[field][k] = {
+                            "local": t.detach().to("cpu", copy=True),
+                            "shape": tuple(shape), "spec": spec}
+            files[SHARD_FILE.format(rank=rank)] = shard
         self.last_save = {"step": step,
                           "snapshot_s": time.perf_counter() - t0}
         self._pending = step
@@ -499,11 +524,17 @@ class CheckpointManager:
         named = dict(model.named_parameters())
         mine = opt.tensors()
         mesh = getattr(state_like, "mesh", None)
-        moments, cut = self._moments(d, rest, opt.FIELDS, mesh)
+        layouts = {} if M.is_trivial(mesh) else {
+            f: {k: _moment_layout(opt, f, k, p, mesh)
+                for k, p in named.items()} for f in opt.FIELDS}
+        moments, cut = self._moments(d, rest, opt.FIELDS, mesh, named,
+                                     layouts)
         moments = {f: _stage_view(v, model) for f, v in moments.items()}
         for field in opt.FIELDS:
-            # a sharded state's moments have its parameters' global shapes
-            like = mine[field] if M.is_trivial(mesh) else named
+            # a sharded state's moments have their global shapes
+            like = mine[field] if M.is_trivial(mesh) else {
+                k: torch.empty(shape, device="meta")
+                for k, (shape, _, _) in layouts[field].items()}
             _check_like(moments[field], like, f"moments {field!r}", d)
             if opt.offload is not None:
                 bad = sorted(k for k, v in moments[field].items()
@@ -521,7 +552,9 @@ class CheckpointManager:
         for field in opt.FIELDS:
             for k, v in moments[field].items():
                 if cut:
-                    v = v[_cut(named[k], mesh)]
+                    v = v[layouts[field][k][2]]
+                if isinstance(v, _Shard):
+                    v = v.local
                 if opt.offload is not None:
                     # into the pinned host tensors the offload streams
                     mine[field][k].copy_(v)
@@ -533,12 +566,15 @@ class CheckpointManager:
         state_like.step = int(rest["step"])
         return state_like
 
-    def _moments(self, d: str, rest: dict, fields, mesh) -> tuple:
+    def _moments(self, d: str, rest: dict, fields, mesh, named,
+                 layouts) -> tuple:
         """(field -> name -> tensor, whether each tensor is whole and must
         be cut to this rank's region).  A sharded step restored on a mesh
-        of its axis sizes reads this rank's shard file as it is (its
-        shapes checked as the global ones); otherwise the moments are
-        whole: ``opt.pt``'s, or reassembled from the shard files."""
+        of its axis sizes reads each region from the shard file of the
+        rank that wrote it (:func:`_holder`; the files are
+        memory-mapped, so the rest of a file is never read; shapes are
+        checked as the global ones); otherwise the moments are whole:
+        ``opt.pt``'s, or reassembled from the shard files."""
         sharded = rest.get("sharded")
         if sharded is None:
             return {f: rest[f] for f in fields}, not M.is_trivial(mesh)
@@ -546,20 +582,18 @@ class CheckpointManager:
                 and sharded["mesh"] == M.mesh_axis_sizes(mesh):
             coords = M.coordinates(mesh)
             out: Dict[str, Dict[str, Any]] = {f: {} for f in fields}
-            # this rank's expert shards from its writer's file, then only
-            # the names still missing (those replicated over ep) from the
-            # file of the writer at ep 0 (the same file when this rank is
-            # at ep 0).  The files are memory-mapped: ep 0's expert
-            # moments in that file are never read
-            writers = dict.fromkeys(int(mesh.mesh[tuple(
-                0 if a in ("dp", zero) else coords[a]
-                for a in mesh.mesh_dim_names)]) for zero in ("dp", "ep"))
-            for writer in writers:
-                shard = _load(os.path.join(d, SHARD_FILE.format(
-                    rank=writer)))
-                for f in fields:
-                    out[f].update((k, _Shard(e)) for k, e in shard[f].items()
-                                  if k not in out[f])
+            files: Dict[int, Any] = {}
+            for f in fields:
+                for k, (_, spec, _) in layouts[f].items():
+                    at = _holder(named[k], spec, coords)
+                    writer = int(mesh.mesh[tuple(
+                        at[a] for a in mesh.mesh_dim_names)])
+                    if writer not in files:
+                        files[writer] = _load(os.path.join(
+                            d, SHARD_FILE.format(rank=writer)))
+                    entry = files[writer][f].get(k)
+                    if entry is not None:
+                        out[f][k] = _Shard(entry)
             return out, False
         whole: Dict[str, Dict[str, torch.Tensor]] = {f: {} for f in fields}
         for name in sharded["files"]:

@@ -15,7 +15,10 @@ the consumer, and with a ``mesh`` hands them out as this rank's rows of
 the global batch (DTensors sharded over (dp, fsdp)).  On a mesh the row
 block comes from the rank's mesh coordinates (``process_slice(...,
 mesh=...)``): ranks that differ only off the data axes (tp, cp, pp,
-ep) read the same rows.  After an elastic resize the gang's blocks are
+ep) read the same rows.  A pod of several cards runs one rank a card,
+numbered pod-major (``launch/launcher.py``), so the rows its cards read
+together are JAX's ``process_slice`` for that pod.  After an elastic
+resize the gang's blocks are
 those of its new mesh: ``deterministic_lm_batches(..., start_step=
 plan["data_start_step"])`` (``ft/elastic.py``) cut by ``process_slice``
 hands each new rank its rows of the batch where the old gang stopped.

@@ -21,6 +21,12 @@ The encoding is the JAX package's, value for value:
   the port holds one tensor a layer, and with last-axis blocking layer
   *l*'s codes are JAX's ``codes[l]`` (``convert.opt_state_from_jax``).
 
+On a mesh the codes and scales are the JAX package's GLOBAL blocks:
+each rank holds its region of them (``parallel/sharding.py``
+``q8_layout``), never a blocking of its own shard (that would pad every
+shard and make blocks JAX does not have); :func:`init_state` takes the
+regions' shapes.
+
 The JAX module's migration of r4 flat-layout orbax checkpoints
 (``legacy_flat_template``, ``reblock_restored``) is not here: it reads
 orbax trees that no torch-format checkpoint of the port holds.
@@ -118,11 +124,10 @@ def dequantize_q8u(qt: Q8, shape, dtype=torch.float32) -> torch.Tensor:
                         dtype)
 
 
-def _zeros_q8(shape, new: Callable, fill: int) -> Q8:
+def _zeros_q8(codes, new: Callable, fill: int) -> Q8:
     """The encoding of zeros (``quantize_q8(0)`` with ``fill`` 0,
-    ``quantize_q8u(0)`` with -127: every scale 1.0), made by
-    ``new(shape, dtype, fill)``."""
-    codes = blocked_shape(shape)
+    ``quantize_q8u(0)`` with -127: every scale 1.0) in codes of shape
+    ``codes``, made by ``new(shape, dtype, fill)``."""
     return Q8(new(codes, torch.int8, fill),
               new((*codes[:-1], 1), torch.float32, 1.0))
 
@@ -132,12 +137,16 @@ class AdamW8bitState:
     """``scale_by_adam8bit``'s state: ``count`` updates applied, ``mu``
     and ``nu`` (sqrt domain) as :class:`Q8` keyed by parameter name;
     ``offload`` streams them from host memory (train/trainer.py
-    ``MomentOffload``) when they live there."""
+    ``MomentOffload``) when they live there; ``layout`` (on a mesh of
+    more than one rank) maps each name to its
+    ``parallel.sharding.Q8Layout``: the tensors are this rank's region
+    of the global codes and scales."""
 
     count: int
     mu: Dict[str, Q8]
     nu: Dict[str, Q8]
     offload: Optional[object] = None
+    layout: Optional[Dict[str, object]] = None
 
     kind = "int8"
     FIELDS = ("mu_codes", "mu_scales", "nu_codes", "nu_scales")
@@ -160,16 +169,27 @@ class AdamW8bitState:
 
 
 def init_state(params: Dict[str, torch.Tensor],
-               new: Optional[Callable] = None) -> AdamW8bitState:
+               new: Optional[Callable] = None,
+               layout: Optional[Dict[str, object]] = None
+               ) -> AdamW8bitState:
     """Zero moments for ``params`` (``scale_by_adam8bit``'s ``init_fn``).
     ``new(shape, dtype, fill)`` makes each tensor (default: on its
-    parameter's device)."""
+    parameter's device).  ``layout``: name -> ``Q8Layout`` of a state
+    on a mesh; each tensor is then the rank's region of the global
+    encoding of zeros (the same values everywhere, so nothing is
+    communicated)."""
 
     def on(p):
         return new or (lambda shape, dtype, fill: torch.full(
             shape, fill, dtype=dtype, device=p.device))
 
+    def codes(n, p):
+        return (blocked_shape(p.shape) if layout is None
+                else layout[n].local_shape)
+
     return AdamW8bitState(
         count=0,
-        mu={n: _zeros_q8(p.shape, on(p), 0) for n, p in params.items()},
-        nu={n: _zeros_q8(p.shape, on(p), -127) for n, p in params.items()})
+        mu={n: _zeros_q8(codes(n, p), on(p), 0) for n, p in params.items()},
+        nu={n: _zeros_q8(codes(n, p), on(p), -127)
+            for n, p in params.items()},
+        layout=layout)

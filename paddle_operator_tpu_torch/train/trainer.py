@@ -15,8 +15,9 @@ What differs from the JAX trainer, and why:
   DeviceMesh) is explicit SPMD, not a partitioner:
   ``create_state(mesh=...)`` replaces each parameter by a DTensor
   holding this rank's shard under the JAX layout
-  (:func:`state_shardings`); the moments are local tensors of the same
-  shape, laid out as their parameter.  The step takes this rank's rows
+  (:func:`state_shardings`); f32 moments are local tensors of the same
+  shape, laid out as their parameter, and int8 moments are the rank's
+  region of the JAX package's global blocks (:class:`AdamW8bit`).  The step takes this rank's rows
   (the batch sharded over (dp, fsdp), replicated over the other axes);
   the model gathers each weight over fsdp where its layer runs and runs
   Megatron's column/row pairs over tp (``parallel/collectives.py``);
@@ -45,10 +46,11 @@ What differs from the JAX trainer, and why:
   The MoE aux loss joins each rank's share whole: its gradient reaches
   only the rank's own router probabilities, and the sum over the data
   axes makes it the global one.
-- Refused by name: MoE models with ``cp`` above 1 (ROADMAP.md Queue A
-  item 8.6), int8 moments and moment offload on a mesh with an axis
-  above 1 (item 8.3); the ERNIE/Wide&Deep/ResNet steps wait for item 9
-  and are not defined.
+- int8 moments and moment offload run on every mesh (ROADMAP.md Queue
+  A item 8.3): each rank updates, and offloads, its region of the
+  moments.  Refused by name: MoE models with ``cp`` above 1 (item 8.6);
+  the ERNIE/Wide&Deep/ResNet steps wait for item 9 and are not
+  defined.
 - ``make_train_step`` and ``make_eval_step`` take no model definition:
   the step runs ``state.model``, the eval function the module it is
   given; neither takes the JAX ``state_sharding`` (the placements ride
@@ -59,7 +61,8 @@ What differs from the JAX trainer, and why:
   pinned host memory, and the update streams each parameter's moments
   through a ring of device staging slots on two copy streams, ordered by
   events, with no host sync inside a step.  On the CPU the same staging
-  code runs with CPU-to-CPU copies and no pinning.
+  code runs with CPU-to-CPU copies and no pinning.  On a mesh each rank
+  pins its own regions of the moments in its own slab.
 
 The optimizer is optax's ``chain(clip_by_global_norm(grad_clip),
 adamw(warmup_cosine_decay_schedule(...), b1=0.9, b2=0.95, eps=1e-8,
@@ -95,9 +98,12 @@ from paddle_operator_tpu_torch.parallel.pipeline import (microbatch,
                                                          pipeline_1f1b_grads,
                                                          pipeline_apply)
 from paddle_operator_tpu_torch.parallel.sharding import (data_block,
+                                                         param_q8_layout,
                                                          placement_by_axis,
-                                                         to_local,
-                                                         tree_shardings)
+                                                         placements,
+                                                         q8_spec, to_local,
+                                                         tree_shardings,
+                                                         tree_specs)
 from paddle_operator_tpu_torch.train import opt8bit
 
 
@@ -158,7 +164,9 @@ class MomentOffload:
     its H2D, the D2H for the update), so parameter *i+1*'s H2D overlaps
     parameter *i*'s update and parameter *i-1*'s D2H, and the host never
     waits.  Each slot holds one staging tensor per moment field, sized
-    by the largest parameter at the first step and kept.  :meth:`wait`
+    by the largest of that field's host tensors at the first step and
+    kept (on a mesh: this rank's regions; an int8 update that needs
+    whole rows gathers them from the staged region, ``AdamW8bit``).  :meth:`wait`
     blocks the host until the last D2H has landed: a reader of the host
     tensors (the checkpoint snapshot, a restore) calls it first.
 
@@ -435,15 +443,16 @@ class AdamW:
                 for n, p in params.items()},
             offload=offload)
 
-    def _tensor_update(self, norm: torch.Tensor, lr: float, count: int
-                       ) -> Callable:
-        """``fn(p, g, [mu, nu])``: one parameter's update, in place."""
+    def _tensor_update(self, norm: torch.Tensor, lr: float, count: int,
+                       state) -> Callable:
+        """``fn(name, p, g, [mu, nu])``: one parameter's update, in
+        place."""
         keep = norm < self.grad_clip
         f = np.float32
         bc1 = float(f(1) - f(self.b1) ** f(count))
         bc2 = float(f(1) - f(self.b2) ** f(count))
 
-        def fn(p, g, leaves):
+        def fn(name, p, g, leaves):
             mu_old, nu_old = leaves
             g = torch.where(keep, g, (g / norm.to(g.dtype)) * self.grad_clip)
             mu = (1 - self.b1) * g + self.b1 * mu_old
@@ -466,46 +475,95 @@ class AdamW:
         if norm is None:
             norm = global_norm(grads.values())
         count = state.count + 1
-        fn = self._tensor_update(norm, self.schedule(state.count), count)
+        fn = self._tensor_update(norm, self.schedule(state.count), count,
+                                 state)
         if state.offload is None:
             for name, p in params.items():
-                fn(p, grads[name], state.leaves(name))
+                fn(name, p, grads[name], state.leaves(name))
         else:
             state.offload.run(
                 list(params), state.leaves,
-                lambda name, staged: fn(params[name], grads[name], staged))
+                lambda name, staged: fn(name, params[name], grads[name],
+                                        staged))
         state.count = count
         return norm
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 class AdamW8bit(AdamW):
     """:class:`AdamW` with block-quantized int8 moments
     (train/opt8bit.py): the same interface and schedule, the update of
     each tensor one call of ``ops/adam8bit.py`` ``adam8bit_update`` (the
-    kernel on the card, the plain version on the CPU)."""
+    kernel on the card, the plain version on the CPU).
+
+    On a mesh each rank holds its region of the GLOBAL blocks
+    (``parallel/sharding.py`` ``Q8Layout``), and a parameter's update
+    follows its case:
+
+    - ``ALIGNED``: the rank's blocks are its columns' blocks; one call
+      on the local shard, as on one card;
+    - ``REPLICATED``: every rank of the last axis's mesh axes holds
+      every block of its rows; ``g`` and ``p`` are gathered over those
+      axes, the call runs on the whole rows (every rank computes the
+      same moments, which are not reduced afterwards), and the rank
+      keeps its own parameter columns;
+    - ``UNALIGNED``: ``g``, ``p`` and the codes and scales are gathered,
+      the call runs on the whole rows, and the rank keeps its own
+      blocks and its own columns.
+
+    The kernel's arithmetic is elementwise with a max over each block,
+    so the whole-row call gives every element the bits the one-card
+    update gives it."""
 
     def init(self, params: Dict[str, torch.Tensor],
-             offload: Optional[MomentOffload] = None
+             offload: Optional[MomentOffload] = None,
+             layout: Optional[Dict[str, Any]] = None
              ) -> opt8bit.AdamW8bitState:
-        state = opt8bit.init_state(params,
-                                   None if offload is None else offload.new)
+        """Zero moments for ``params`` (``layout``: name -> ``Q8Layout``
+        of a state on a mesh; the tensors are the rank's regions)."""
+        state = opt8bit.init_state(
+            params, None if offload is None else offload.new, layout)
         state.offload = offload
         return state
 
-    def _tensor_update(self, norm: torch.Tensor, lr: float, count: int
-                       ) -> Callable:
+    def _tensor_update(self, norm: torch.Tensor, lr: float, count: int,
+                       state) -> Callable:
         from paddle_operator_tpu_torch.ops.adam8bit import (Adam8bitConsts,
                                                             adam8bit_update)
+        from paddle_operator_tpu_torch.parallel.sharding import (ALIGNED,
+                                                                 UNALIGNED)
 
         consts = Adam8bitConsts.make(
             b1=self.b1, b2=self.b2, eps=self.eps,
             weight_decay=self.weight_decay, lr=lr, clip=self.grad_clip,
             count=count)
+        layout = state.layout or {}
 
-        def fn(p, g, leaves):
-            mc, ms, nc, ns = leaves
-            adam8bit_update(p, g, opt8bit.Q8(mc, ms), opt8bit.Q8(nc, ns),
+        def fn(name, p, g, leaves):
+            lay = layout.get(name)
+            if lay is None or lay.case == ALIGNED:
+                mc, ms, nc, ns = leaves
+                adam8bit_update(p, g.contiguous(), opt8bit.Q8(mc, ms),
+                                opt8bit.Q8(nc, ns), norm, consts)
+                return
+            # the rows along the last axis (p, g; unaligned: the codes
+            # and scales too, along their block-count dim)
+            cut = [(p, -1), (g, -1)]
+            if lay.case == UNALIGNED:
+                cut += [(t, -2) for t in leaves]
+            whole = [C.gather_along(t, d, lay.groups) for t, d in cut]
+            C.EXCHANGE["q8_" + lay.case] += \
+                _nbytes(whole) - _nbytes(t for t, _ in cut)
+            pw, gw, *moments = whole
+            mc, ms, nc, ns = moments or leaves
+            adam8bit_update(pw, gw, opt8bit.Q8(mc, ms), opt8bit.Q8(nc, ns),
                             norm, consts)
+            p.copy_(pw[..., lay.columns])
+            for t, w in zip(leaves, moments):
+                t.copy_(w[..., lay.blocks, :])
 
         return fn
 
@@ -535,9 +593,11 @@ class StateShardings:
     each parameter name to its DTensor placements (one a mesh axis, in
     ``parallel.mesh.AXIS_ORDER``; under pp a layer's are over the
     stage's axes, ``parallel.mesh.STAGE_AXES``), ``opt_state`` each
-    moment field (``opt_state.tensors()``'s keys) to the same map — a
-    moment takes its parameter's placements.  ``stages`` maps each
-    layer's names to the pp stage that holds it (empty without pp)."""
+    moment field (``opt_state.tensors()``'s keys) to such a map: an f32
+    moment takes its parameter's placements, int8 codes and scales
+    JAX's q8 leaf placements (``parallel/sharding.py`` ``q8_spec``).
+    ``stages`` maps each layer's names to the pp stage that holds it
+    (empty without pp)."""
 
     params: Dict[str, tuple]
     opt_state: Dict[str, Dict[str, tuple]]
@@ -565,9 +625,10 @@ def state_shardings(model: nn.Module, optimizer: AdamW, mesh, *,
     rest of its spec over the stage's sub-mesh.  Refused by name: an MoE
     model with ``cp`` above 1 (ROADMAP.md Queue A item 8.6), a tp that
     splits a GQA group, ``n_layers`` indivisible by pp, an unknown
-    ``cp_impl`` and Ulysses that cannot split a rank's heads, and — on a
-    mesh with an axis above 1 — int8 moments (their 256-wide blocks
-    would not be the global ones) and moment offload (item 8.3)."""
+    ``cp_impl`` and Ulysses that cannot split a rank's heads.  int8
+    moments and ``offload_opt_state`` are accepted on every mesh (item
+    8.3; where the moments live does not change their placements, as
+    JAX's memory kind does not change its shardings' specs)."""
     from paddle_operator_tpu_torch.models import llama
 
     M.require_mesh(mesh)
@@ -577,18 +638,6 @@ def state_shardings(model: nn.Module, optimizer: AdamW, mesh, *,
     llama.check_tp(cfg, sizes["tp"])
     llama.check_cp(cfg, sizes["cp"], sizes["tp"])
     llama.check_moe(cfg, sizes["cp"])
-    if not M.is_trivial(mesh):
-        if isinstance(optimizer, AdamW8bit):
-            raise NotImplementedError(
-                "int8 moments on a mesh with an axis above 1 are not "
-                "ported to the torch package (ROADMAP.md Queue A item "
-                "8.3: the 256-wide blocks of a shard are not the global "
-                "ones)")
-        if offload_opt_state:
-            raise NotImplementedError(
-                "moment offload on a mesh with an axis above 1 is not "
-                "ported to the torch package (ROADMAP.md Queue A item "
-                "8.3)")
     named = dict(model.named_parameters())
     stages = {}
     if sizes["pp"] > 1:
@@ -597,13 +646,19 @@ def state_shardings(model: nn.Module, optimizer: AdamW, mesh, *,
         stages = {n: llama.layer_stage(cfg, i, sizes["pp"])
                   for n, i in idx.items() if i is not None}
     params = tree_shardings(named, mesh, patterns, stage_names=stages)
-    if isinstance(optimizer, AdamW8bit):
-        fields = ("mu_codes", "mu_scales", "nu_codes", "nu_scales")
-    else:
-        fields = AdamWState.FIELDS
-    return StateShardings(params=params,
-                          opt_state={f: dict(params) for f in fields},
-                          stages=stages)
+    if not isinstance(optimizer, AdamW8bit):
+        return StateShardings(
+            params=params,
+            opt_state={f: dict(params) for f in AdamWState.FIELDS},
+            stages=stages)
+    specs = tree_specs(named, mesh, patterns)
+    q8 = {n: placements(q8_spec(p.shape, specs[n], sizes),
+                        M.STAGE_AXES if n in stages else mesh)
+          for n, p in named.items()}
+    return StateShardings(
+        params=params,
+        opt_state={f: dict(q8) for f in opt8bit.AdamW8bitState.FIELDS},
+        stages=stages)
 
 
 def _shard_parameters(model: nn.Module, mesh,
@@ -646,19 +701,25 @@ def create_state(model: nn.Module, optimizer: AdamW, *,
     ``mesh``: the parameters are sharded over it by
     :func:`state_shardings` (the same values as the single-device init,
     then cut: every rank built the whole model from the same seed), and
-    the moments are made for the local shards."""
+    the moments are made for the local shards (int8: the rank's regions
+    of the global blocks, each parameter's ``Q8Layout`` kept in the
+    state)."""
     M.require_mesh(mesh)
+    kw = {}
     if mesh is not None:
         shardings = state_shardings(model, optimizer, mesh,
                                     offload_opt_state=offload_opt_state)
         _shard_parameters(model, mesh, shardings)
+        if isinstance(optimizer, AdamW8bit) and not M.is_trivial(mesh):
+            kw["layout"] = {n: param_q8_layout(p)
+                            for n, p in model.named_parameters()}
     with torch.no_grad():
         params = {n: to_local(p) for n, p in model.named_parameters()}
     if not offload_opt_state:
         return TrainState(step=0, model=model,
-                          opt_state=optimizer.init(params), mesh=mesh)
+                          opt_state=optimizer.init(params, **kw), mesh=mesh)
     offload = MomentOffload(next(iter(params.values())).device)
-    opt_state = optimizer.init(params, offload)
+    opt_state = optimizer.init(params, offload, **kw)
     offload.adopt(opt_state)
     return TrainState(step=0, model=model, opt_state=opt_state, mesh=mesh)
 

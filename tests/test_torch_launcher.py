@@ -186,9 +186,11 @@ class TestMeshSpec:
         """``job_mesh`` is ported: it plans the JAX ``job_mesh``'s axes and
         shape for the contract's 8 workers (the built mesh of 8 gloo
         ranks is held to JAX's in tests/test_torch_sharded_train.py), and
-        what it still refuses it refuses by name: a mesh larger than the
-        worker count (several cards a pod) and, before ``initialize``, a
-        multi-worker job."""
+        what it refuses it refuses by name: before ``initialize``, a job
+        of more than one rank, whether its ranks are workers or the
+        cards of fewer workers (2 cards a pod of 4 here: a pod of more
+        than one card is one process a card, tests/test_torch_multicard.py),
+        and a mesh that is not a multiple of the worker count."""
         import torch.distributed as dist
 
         from paddle_operator_tpu_torch.parallel import mesh as TM
@@ -200,9 +202,13 @@ class TestMeshSpec:
         with pytest.raises(RuntimeError, match="initialize"):
             TLA.job_mesh(env, device="cpu")
         cards = TLA.JobEnv.from_env(dict(CONTRACT, TPUJOB_NUM_WORKERS="4"))
-        with pytest.raises(NotImplementedError,
-                           match=r"chips_per_worker > 1.*Queue A item 8"):
+        assert TLA.pod_cards(cards) == 2
+        with pytest.raises(RuntimeError, match=r"4 worker\(s\) × 2 card"):
             TLA.job_mesh(cards, device="cpu")
+        odd = TLA.JobEnv.from_env(dict(CONTRACT, TPUJOB_NUM_WORKERS="3"))
+        with pytest.raises(ValueError, match="not a multiple of the 3 "
+                                             "worker pods"):
+            TLA.job_mesh(odd, device="cpu")
         assert not dist.is_initialized()
 
 
@@ -343,9 +349,11 @@ class TestMain:
         assert r.returncode == 0, r.stderr
         got = json.loads(r.stdout.strip())
         env = JLA.JobEnv.from_env(environ)
+        # JAX's line, and the pod's card count (one: 8 devices, 8 pods)
         assert got == {"rank": env.rank, "num_workers": env.num_workers,
                        "coordinator": env.coordinator_address,
-                       "mesh": env.mesh.to_dict(), "topology": env.topology}
+                       "mesh": env.mesh.to_dict(), "topology": env.topology,
+                       "cards": 1}
 
     @pytest.mark.parametrize("res_type", ["ps", "heter"])
     def test_ps_and_heter_without_command_refused_by_name(self, res_type):

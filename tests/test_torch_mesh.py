@@ -11,7 +11,9 @@ against the JAX package's, in this process:
   the port's layers being separate modules);
 - ``make_mesh``'s size error, the card default (no fallback to gloo),
   the refusals that need no live mesh (MoE with cp above 1, a tp that
-  splits a GQA group, ``chips_per_worker`` > 1), the MoE rows of
+  splits a GQA group, a mesh that is not a multiple of the worker
+  count; ``chips_per_worker`` > 1 runs one process a card since item
+  8.4, tests/test_torch_multicard.py), the MoE rows of
   ``partition_patterns`` (JAX's ``moe_partition_patterns``, the tiny-moe
   specs on four ep meshes) and the mesh knob's type;
 - on a world of one rank (a gloo group over an in-process store, torn
@@ -226,11 +228,23 @@ class TestRefusals:
                 TL.check_tp(cfg, tp)
 
     def test_chips_per_worker_above_one_is_refused_by_name(self):
+        """Pods of several cards are ported (Queue A item 8.4): a mesh of
+        8 over 2 workers is 4 cards a pod, whose world of 8 ranks needs
+        ``initialize`` first; what stays refused by name is a mesh that
+        is not a multiple of the worker count, and a process of a
+        4-card pod that the shim did not start."""
         env = TLA.JobEnv.from_env({"TPUJOB_NUM_WORKERS": "2",
                                    "TPUJOB_MESH": '{"fsdp": 2, "tp": 4}'})
-        with pytest.raises(NotImplementedError,
-                           match=r"chips_per_worker > 1.*Queue A item 8"):
+        assert TLA.pod_cards(env) == 4
+        with pytest.raises(RuntimeError,
+                           match=r"2 worker\(s\) × 4 card.*initialize"):
             TLA.job_mesh(env, device="cpu")
+        with pytest.raises(RuntimeError, match="one process a card"):
+            TLA.initialize(env, device="cpu")
+        odd = TLA.JobEnv.from_env({"TPUJOB_NUM_WORKERS": "3",
+                                   "TPUJOB_MESH": '{"fsdp": 2, "tp": 4}'})
+        with pytest.raises(ValueError, match="not a multiple"):
+            TLA.job_mesh(odd, device="cpu")
         assert not dist.is_initialized()
 
     def test_multi_worker_job_needs_initialize(self):

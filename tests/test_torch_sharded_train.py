@@ -31,8 +31,9 @@ shim (``python -m paddle_operator_tpu_torch.launch.launcher -- python
   the same step and commits it; a writer failing on one rank leaves no
   step.  Only rank 0 logs and ticks the timer.  The refusals that need
   a live mesh: MoE with cp above 1, n_layers indivisible by pp, an
-  unknown pipeline schedule or cp_impl, int8 moments and moment offload
-  on the mesh (an ep mesh and MoE on a pp mesh are accepted).
+  unknown pipeline schedule or cp_impl (an ep mesh, MoE on a pp mesh,
+  int8 moments and moment offload on the mesh are accepted; the int8
+  and offload worlds are tests/test_torch_int8_mesh.py's).
 - fsdp2 (2 ranks, one slice): the same trajectory against JAX on that
   mesh, and the rendezvous test's per-rank data through
   ``DevicePrefetcher(mesh=...)`` against the JAX single-process
@@ -253,13 +254,42 @@ if "trajectory" in a:
                 TL.make_model("tiny", device="cpu")[0],
                 TT.make_optimizer(), mesh=mesh, offload_opt_state=True),
         }
+        made = {}
         for what, fn in cases.items():
             try:
-                fn()
+                made[what] = fn()
                 refused[what] = None
             except (NotImplementedError, ValueError) as err:
                 refused[what] = f"{type(err).__name__}: {err}"
         out["refused"] = refused
+
+        def local_shape(o, field, name, p):
+            """The shape of this rank's region of a moment."""
+            if getattr(o, "layout", None) is None:
+                return tuple(PS.to_local(p).shape)
+            return tuple(s.stop - s.start
+                         for s in o.layout[name].field(field)[2])
+
+        # the accepted int8 and offloaded states: each moment tensor the
+        # rank's region of its global tensor, an offloaded one in host
+        # memory
+        for what in ("int8", "offload"):
+            st = made.get(what)
+            if st is None:
+                continue
+            o = st.opt_state
+            named = dict(st.model.named_parameters())
+            tensors = [(f, k, t) for f, ts in o.tensors().items()
+                       for k, t in ts.items()]
+            out[what] = {
+                "kind": o.kind,
+                "cases": sorted({l.case for l in
+                                 (getattr(o, "layout", None) or {}).values()}),
+                "local_shapes_ok": all(
+                    tuple(t.shape) == local_shape(o, f, k, named[k])
+                    for f, k, t in tensors),
+                "on_host": all(t.device.type == "cpu" for _, _, t in tensors),
+                "offloaded": o.offload is not None}
 
 if "pod" in a:
     p = a["pod"]
@@ -613,27 +643,35 @@ class TestDpFsdpTp:
         assert all(not r["logs"] and r["timer_ticks"] == 0 for r in res[1:])
 
     def test_refusals_that_need_a_live_mesh(self, world_a):
-        """What stays refused once cp, pp and ep run: MoE with cp > 1
-        (Queue A item 8.6), n_layers indivisible by pp, an unknown
-        pipeline schedule or cp_impl, and int8 moments and moment
-        offload on a mesh with an axis above 1 (item 8.3).  An ep mesh
-        and MoE on a pp mesh are accepted."""
-        refused = world_a["res"][0]["refused"]
+        """What stays refused once cp, pp, ep, int8 moments and offload
+        run: MoE with cp > 1 (Queue A item 8.6), n_layers indivisible by
+        pp, an unknown pipeline schedule or cp_impl.  An ep mesh, MoE on
+        a pp mesh, and int8 moments and moment offload on the mesh
+        (item 8.3) are accepted: the int8 state holds each rank's region
+        of the global blocks (at tiny's widths every cut last axis fits
+        one block, which every rank of its axes then holds), the
+        offloaded one its moments in host memory."""
+        res0 = world_a["res"][0]
+        refused = res0["refused"]
         assert refused["ep"] is None and refused["moe_pp"] is None
+        assert refused["int8"] is None and refused["offload"] is None
+        assert res0["int8"]["kind"] == "int8"
+        assert res0["int8"]["cases"] == ["replicated"]
+        assert res0["int8"]["local_shapes_ok"]
+        assert not res0["int8"]["offloaded"]
+        assert res0["offload"]["kind"] == "f32"
+        assert res0["offload"]["offloaded"] and res0["offload"]["on_host"]
+        assert res0["offload"]["local_shapes_ok"]
         for what, want in (
                 ("moe_cp", "NotImplementedError: MoE models with cp=2"),
                 ("layers_pp", "ValueError: n_layers=2 not divisible by "
                               "pp=4"),
                 ("schedule", "ValueError: unknown pipeline schedule "
                              "'interleaved'"),
-                ("cp_impl", "ValueError: unknown cp_impl 'spiral'"),
-                ("int8", "NotImplementedError: int8 moments"),
-                ("offload", "NotImplementedError: moment offload")):
+                ("cp_impl", "ValueError: unknown cp_impl 'spiral'")):
             assert refused[what] is not None \
                 and refused[what].startswith(want), (what, refused[what])
         assert "Queue A item 8.6" in refused["moe_cp"]
-        for what in ("int8", "offload"):
-            assert "Queue A item 8.3" in refused[what]
 
 
 @pytest.fixture(scope="module")
