@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases 2,2b,2c,2d,2e,2f,3,3b,3c,3d,3e,3f,3g,3h,
                            3i,3j,3k,3l,3m,3n,3o,3p,4,4b,4c,4d,4e,4f,4g,4h,
-                           4i,4j,4k,4l,4m,4n,3q,3r,4o,3s]
+                           4i,4j,4k,4l,4m,4n,3q,3r,4o,3s,3t]
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line; with no arguments every phase runs):
@@ -364,7 +364,8 @@ result line; with no arguments every phase runs):
    projections have the shapes phases 2 and 2e held kernels #1 and #7
    to (``SPEC_DRAFT_ATTN``, ``QMM_DRAFT_SHAPES``); (e) ``serve.main()``
    in a process of its own, with ``SERVE_CONTINUOUS=1 SERVE_PAGED=1
-   SERVE_SPEC_K=4`` and again with ``SERVE_DRAFT_QUANT=int8``, boots,
+   SERVE_SPEC_K=4`` and, at the same time in another, with
+   ``SERVE_DRAFT_QUANT=int8`` too, boots,
    answers a request, reads ``specK`` 4, the response's acceptance
    and the draft's mode on ``/statusz`` (``paramBytes`` as in (a) or
    (c)) and exits 83 on SIGTERM.  Printed: those gaps, the
@@ -753,6 +754,38 @@ result line; with no arguments every phase runs):
    ms, peak memory, the bytes its cp/pp exchanges sent a step, its ep
    (and tp) all-reduces moved and its int8 gathers brought by case, the
    dropped assignments, the restores' seconds.
+3t. tensor-parallel serving (``SERVE_TP``) on two processes that share
+   the card over gloo (``TP_SERVE_CHILD``: ``make_serving_mesh(2)``, rank
+   0 a ``ContinuousBatcher(mesh=...)``, rank 1 ``follow_ring``; NCCL
+   cannot put two ranks on one device, so every dispatch runs eagerly
+   and every collective crosses the host).  (a) 7b at full width cut to
+   ``SERVE_TP_RUNS["a_layers"]`` layers, float32, each rank's cut of
+   the same seeded init (``init_serving_shard``): the contiguous ring,
+   the paged ring, the int8 pool, int8 weights and one adapter, each
+   token-identical to the same ring at tp 1 in this process (the paged
+   and contiguous rings also to ``generate``); the paged ring and the
+   int8 pool take a second wave on the longest prompt's cached blocks
+   (a whole-block hit that decodes on a copy-on-write copy, on the int8
+   pool through a staging tail seeded from it, and a shared head with a
+   suffix of its own), their prefix hits and copies nonzero; each
+   rank's launches of kernels #1, #2, #3, A and B the formulas' and
+   equal; kernels #1, #2,
+   #3 and A on a rank's shapes (16 of 32 heads, 2,048 of wq's and of
+   w1's columns, wo's rows) held to their plain versions (1e-4).  (b)
+   7b at ``SERVE_TP_RUNS["b_layers"]`` layers, bf16: 3b's burst at tp 2,
+   kernel #2's launches the formula's; each cold prompt's first-token
+   logits (the tp prefill on the first n layers) within 0.15 of
+   tp 1's at 2 layers (``SERVE_TP_RUNS["depths"]``' first), and at
+   the full depth, where one card's own bf16 path is farther than 0.15
+   from the same weights computed in f32, no more than 0.15 farther
+   from that f32 value than tp 1 (each depth's three differences
+   read); the share of tokens equal to 3b's read, beside the witness:
+   the shares on which 3b's bf16 ring and tp 2 agree with 3b's ring run
+   on the same weights computed in f32 on one card
+   (``_tp_f32_burst``).  (c) ``SERVE_TP=2`` on this one-card pod
+   refused by name.  Read: each rank's launches,
+   all-reduce and all-gather calls and bytes a dispatch, a dispatch's
+   wall and event ms.
 5. report — a ``kernels`` JSON line, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -835,7 +868,19 @@ SPEC_DRAFT_ATTN = dict(b=8, hq=16, hkv=16, d=128, s=2048, layers=8)
 PHASES = ("2", "2b", "2c", "2d", "2e", "2f", "3", "3b", "3c", "3d", "3e",
           "3f", "3g", "3h", "3i", "3j", "3k", "3l", "3m", "3n", "4", "4b",
           "4c", "4d", "4e", "4f", "4g", "4h", "4i", "4j", "4k", "4l", "3o",
-          "4m", "3p", "4n", "3q", "3r", "4o", "3s")
+          "4m", "3p", "4n", "3q", "3r", "4o", "3s", "3t")
+# phase 3t: (a) 7b width cut to `a_layers`, f32, seed `a_seed`, the
+# rings' arguments and requests (prompt lengths, new tokens; the second
+# wave's `shared_prefix`: the whole blocks of the longest prompt one
+# request is, then the blocks another shares and its own tokens); (b)
+# 7b at `b_layers`, bf16, seed 0 (make_7b's init) on 3b's burst, the
+# first-token logits read at `depths`
+# bf16 logits, the repo's bound (tests/test_kvquant.py TOL)
+BF16_TOL = 0.15
+SERVE_TP_RUNS = dict(a_layers=2, a_seed=7, b_layers=32, lens=(7, 40, 100),
+                     new=16, ring=dict(slots=4, chunk_tokens=8, max_len=512),
+                     block_size=16, timeout=600, depths=(2, 8, 32),
+                     shared_prefix=(5, 3, 20))
 # phase 3q: 7b-moe at full width cut to 1 layer (each layer adds 0.79B
 # params, ~3.9 GB of f32 params and int8 moments to a save; with f32
 # moments a save was 12.6 GB, 24 s of the phase); B x (S + 1)
@@ -4065,7 +4110,9 @@ def _plain_route():
     """Every quantized projection through the formula (the JAX package's
     ``x @ q.to(dtype) * s``), neither int8-weight kernel launched: the
     phases' own comparison route, patched in for a block, not a switch of
-    the package."""
+    the package, wherever a projection looks ``quant_mm`` up (the
+    projections' ``quant_matmul.dense_mm``, ``decode``'s experts,
+    ``llama.Dense``)."""
     from unittest import mock
 
     from paddle_operator_tpu_torch.infer import decode as D
@@ -4074,6 +4121,7 @@ def _plain_route():
 
     plain = QM.quant_matmul_reference
     with mock.patch.object(D, "quant_mm", plain), \
+            mock.patch.object(QM, "quant_mm", plain), \
             mock.patch.object(llama, "quant_mm", plain):
         yield
 
@@ -4095,6 +4143,7 @@ def _formula_above(rows: int):
         return QM.quant_matmul_reference(x, q, s)
 
     with mock.patch.object(D, "quant_mm", route), \
+            mock.patch.object(QM, "quant_mm", route), \
             mock.patch.object(llama, "quant_mm", route):
         yield
 
@@ -8130,12 +8179,30 @@ def phase_spec_ring(contiguous: dict, qmm: dict, params, cfg,
     del d["ex"], auto
     clean()
     # (e) serve.main() boots the speculative paged ring from the env, as
-    # a pod does, with and without SERVE_DRAFT_QUANT=int8
-    boots = {}
-    for key, extra, run in (("e", {}, "a"),
-                            ("e_int8", {"SERVE_DRAFT_QUANT": "int8"}, "c")):
-        boot = _main_boot(cfg, dict(base, **extra), "3l")
-        boots[key] = boot
+    # a pod does, with and without SERVE_DRAFT_QUANT=int8: the two pods
+    # at once (two 7b replicas and this process fit the card)
+    legs = (("e", {}, "a"), ("e_int8", {"SERVE_DRAFT_QUANT": "int8"}, "c"))
+    boots, boot_errors = {}, []
+
+    def boot_leg(key, extra):
+        try:
+            boots[key] = _main_boot(cfg, dict(base, **extra), "3l")
+        except Exception as e:
+            boot_errors.append(e)
+
+    t_boot = time.perf_counter()
+    threads = [threading.Thread(target=boot_leg, args=leg[:2])
+               for leg in legs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if boot_errors:
+        raise boot_errors[0]
+    log(f"3l (e): both pods booted, served and drained in "
+        f"{time.perf_counter() - t_boot:.1f}s")
+    for key, extra, run in legs:
+        boot = boots[key]
         log(f"3l ({key}) serve.main(): {json.dumps(boot)}")
         st, dq = boot["statusz"], runs[run]["draft_quant"]
         bad = []
@@ -11436,6 +11503,624 @@ def phase_mesh_train_pod(reports: dict) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 3t: one rank of the tensor-parallel serving pair on the one card
+# over gloo (rank 0 the ring's leader, rank 1 its follower); writes
+# rank<r>.pt into the out dir
+TP_SERVE_CHILD = r"""
+import dataclasses, json, sys, threading, time
+import torch
+import torch.distributed as dist
+
+a = json.loads(open(sys.argv[1]).read())
+rank = int(sys.argv[2])
+torch.cuda.set_device(0)
+torch.backends.cuda.matmul.allow_tf32 = False
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{a['port']}",
+                        world_size=2, rank=rank)
+from paddle_operator_tpu_torch.infer import decode as D
+from paddle_operator_tpu_torch.infer import quant as Q
+from paddle_operator_tpu_torch.infer.qos import AdapterRegistry
+from paddle_operator_tpu_torch.infer.scheduler import (ContinuousBatcher,
+                                                       follow_ring)
+from paddle_operator_tpu_torch.models.llama import CONFIGS
+from paddle_operator_tpu_torch.ops import decode_attention as DA
+from paddle_operator_tpu_torch.ops import quant_matmul as QM
+from paddle_operator_tpu_torch.parallel import collectives as C
+from paddle_operator_tpu_torch.parallel.mesh import make_serving_mesh
+from paddle_operator_tpu_torch.utils.radixkey import prefix_chain_key
+
+mesh = make_serving_mesh(2, device="cuda")
+out = {"rank": rank, "backend": dist.get_backend()}
+
+
+def zero():
+    DA.decode_attention.launches = 0
+    DA.paged_decode_attention.launches = 0
+    DA.paged_decode_attention.quant_launches = 0
+    QM.quant_matmul.launches = 0
+    QM.quant_gemm.launches = 0
+    for k in C.SERVING:
+        C.SERVING[k] = 0
+
+
+def counts():
+    return {"k1": DA.decode_attention.launches,
+            "k2": DA.paged_decode_attention.launches,
+            "k3": DA.paged_decode_attention.quant_launches,
+            "A": QM.quant_matmul.launches, "B": QM.quant_gemm.launches,
+            **C.SERVING}
+
+
+def timed(b):
+    # each dispatch's wall and CUDA-event ms on the leader (eager: the
+    # events also span the card's waits on gloo's host copies)
+    real = b.executor.replay
+    rec = {"wall_s": 0.0, "events": []}
+
+    def replay(plan):
+        s, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        t = time.perf_counter()
+        s.record()
+        res = real(plan)
+        e.record()
+        e.synchronize()
+        rec["wall_s"] += time.perf_counter() - t
+        rec["events"].append((s, e))
+        return res
+
+    b.executor.replay = replay
+    return rec
+
+
+def summary(rec, chunks):
+    ev = [s.elapsed_time(e) for s, e in rec["events"]]
+    n = max(1, len(ev))
+    return {"dispatches": len(ev), "chunks": chunks,
+            "wall_ms": rec["wall_s"] * 1e3 / n, "event_ms": sum(ev) / n}
+
+
+def ring(name, model, cfg, kw, body):
+    zero()
+    if rank:
+        follow_ring(model, cfg, mesh=mesh, **kw)
+        out[name] = {"counts": counts()}
+        return
+    b = ContinuousBatcher(model, cfg, mesh=mesh, **kw)
+    rec = timed(b)
+    try:
+        got = body(b)
+        chunks = b.stats["chunks"]
+        tp = b.serving_tp()
+    finally:
+        b.close()
+    out[name] = dict(got, counts=counts(), tp=tp, **summary(rec, chunks))
+
+
+# (a) 7b width cut to a_layers, f32: each rank's cut of one seeded init
+cfg_a = dataclasses.replace(CONFIGS["7b"], n_layers=a["a_layers"],
+                            dtype=torch.float32, param_dtype=torch.float32)
+t0 = time.perf_counter()
+base = D.init_serving_shard(cfg_a, mesh, seed=a["a_seed"], device="cuda")
+qshard = D.init_serving_shard(
+    cfg_a, mesh, seed=a["a_seed"], device="cuda",
+    passes=Q.quant_passes({"SERVE_WEIGHT_QUANT": "int8"}))
+out["a_init_s"] = time.perf_counter() - t0
+for name, kw, reqs in a["a_runs"]:
+    kw = dict(kw)
+    if name == "adapter":
+        reg = AdapterRegistry(cfg_a, capacity=1, rank=8, device="cuda")
+        reg.load("acme", seed=5)
+        kw["adapters"] = reg
+
+    def body(b, reqs=reqs):
+        got = []
+        for wave in sorted({r[3] for r in reqs}):
+            hs = [b.submit(p, max_new_tokens=n, adapter=ad)
+                  for p, n, ad, w in reqs if w == wave]
+            got += [h.result(timeout=300) for h in hs]
+        pool = b.pool.stats if b.pool is not None else {}
+        return {"tokens": got, "hit_tokens": pool.get("prefix_hit_tokens", 0),
+                "cow": pool.get("cow_copies", 0)}
+
+    ring(name, qshard if name == "int8_weights" else base, cfg_a, kw, body)
+del base, qshard
+torch.cuda.empty_cache()
+
+# (b) 7b at b_layers, bf16, seed 0 (make_7b's draws): 3b's burst
+cfg_b = dataclasses.replace(CONFIGS["7b"], n_layers=a["b_layers"],
+                            param_dtype=CONFIGS["7b"].dtype)
+t0 = time.perf_counter()
+shard = D.init_serving_shard(cfg_b, mesh, seed=0, device="cuda")
+torch.cuda.synchronize()
+out["b_init_s"] = time.perf_counter() - t0
+burst = a["burst"]
+
+
+def burst_body(b):
+    res, errors = {}, []
+
+    def send(kind, i, p, n):
+        try:
+            res[f"{kind}:{i}"] = b.submit(p, max_new_tokens=n).result(
+                timeout=600)
+        except Exception as e:
+            errors.append(f"{kind} {i}: {e!r}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=send, args=j) for j in burst["jobs"]]
+    for t in threads:
+        t.start()
+    key = prefix_chain_key(burst["prefix"], a["b_block"], max_blocks=2)[0]
+    while key not in b.pool.entries:
+        if errors or time.perf_counter() - t0 > 600:
+            raise AssertionError(f"the prefix was never cached: {errors}")
+        time.sleep(0.005)
+    more = [threading.Thread(target=send, args=j) for j in burst["late"]]
+    for t in more:
+        t.start()
+    for t in threads + more:
+        t.join()
+    if errors:
+        raise AssertionError(f"3t (b): {errors}")
+    return {"tokens": res, "burst_s": time.perf_counter() - t0}
+
+
+ring("burst", shard, cfg_b, a["b_ring"], burst_body)
+# each cold prompt's first-token logits through the tp prefill (every
+# rank runs it: its collectives pair), on the first n layers of the cut
+# for each depth of a["depths"] (the whole cut last)
+import copy
+with torch.inference_mode():
+    out["first_logits"] = {}
+    for n in a["depths"]:
+        cut = copy.copy(shard)
+        cut._modules = dict(shard._modules)
+        cut._modules["layers"] = torch.nn.ModuleList(shard.layers[:n])
+        cfg_n = dataclasses.replace(cfg_b, n_layers=n)
+        out["first_logits"][n] = torch.stack([D.prefill(
+            cut, cfg_n, torch.tensor([p], device="cuda"), max_len=2048,
+            mesh=mesh)[0][0].float().cpu() for p in burst["cold"]])
+out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+torch.save(out, f"{a['out']}/rank{rank}.pt")
+dist.destroy_process_group()
+"""
+
+
+def _tp_local_kernels() -> dict:
+    """3t's kernels on a rank's shapes at 7b over tp 2 (16 of 32 heads,
+    D 128; wq's and w1's column halves and wo's row half under int8
+    weights), f32, each held to its plain version."""
+    import torch
+
+    from paddle_operator_tpu_torch.infer.quant import quantize_leaf
+    from paddle_operator_tpu_torch.ops import decode_attention as DA
+    from paddle_operator_tpu_torch.ops import quant_matmul as QM
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(31)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    b, h, d, s, bs = 8, 16, 128, 512, 16
+    lengths = torch.tensor([1, 17, 128, 255, 256, 300, 511, 512],
+                           dtype=torch.int32, device="cuda")
+    q, k, v = rnd(b, h, d), rnd(b, h, s, d), rnd(b, h, s, d)
+    errs = {"decode_attention": (DA.decode_attention(q, k, v, lengths)
+                                 - DA.decode_attention_reference(
+                                     q, k, v, lengths)).abs().max().item()}
+    m = s // bs
+    n = b * m + 1
+    table = (1 + torch.randperm(n - 1, generator=g, device="cuda")
+             ).reshape(b, m).int()
+    kp, vp = rnd(n, h, bs, d), rnd(n, h, bs, d)
+    errs["paged_decode_attention"] = (
+        DA.paged_decode_attention(q, kp, vp, table, lengths)
+        - DA.paged_decode_attention_reference(q, kp, vp, table, lengths)
+    ).abs().max().item()
+    codes = [torch.randint(-127, 128, (n, h, bs, d), generator=g,
+                           device="cuda", dtype=torch.int8)
+             for _ in range(2)]
+    scales = [torch.rand((n, h), generator=g, device="cuda") * 0.02
+              for _ in range(2)]
+    tails = [rnd(b + 1, h, bs, d) for _ in range(2)]
+    qargs = (codes[0], codes[1], table, lengths, scales[0], scales[1],
+             tails[0], tails[1])
+    errs["paged_decode_attention_quant"] = (
+        DA.paged_decode_attention(q, *qargs[:4], k_scale=scales[0],
+                                  v_scale=scales[1], k_tail=tails[0],
+                                  v_tail=tails[1])
+        - DA.paged_decode_attention_quant_reference(q, *qargs)
+    ).abs().max().item()
+    err_a = 0.0
+    for rows, k_in, n_out in ((8, 4096, 2048), (8, 4096, 5504),
+                              (8, 2048, 4096)):
+        leaf = quantize_leaf(rnd(k_in, n_out) * 0.02)
+        x = rnd(rows, k_in)
+        got = QM.quant_matmul(x, leaf["q"], leaf["s"])
+        want = QM.quant_matmul_reference(x, leaf["q"], leaf["s"])
+        err_a = max(err_a, ((got - want).abs().max()
+                            / want.abs().max().clamp(min=1)).item())
+    errs["quant_matmul"] = err_a
+    return errs
+
+
+def _tp_a_runs(cfg) -> list:
+    """3t (a)'s rings: (name, ring arguments, requests as (prompt, new
+    tokens, adapter, wave)); a ring sends a wave once the one before it
+    has finished.  The exact pool and the int8 pool take a second wave
+    that shares the longest prompt's cached blocks (``shared_prefix``:
+    its first whole blocks, so the lane decodes on a copy-on-write copy
+    of the last one and, on the int8 pool, a staging tail seeded from
+    it; and its first blocks and a suffix of its own)."""
+    import numpy as np
+
+    r = SERVE_TP_RUNS
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in r["lens"]]
+    reqs = [(p, r["new"], None, 0) for p in prompts]
+    whole, head, own = r["shared_prefix"]
+    bs = r["block_size"]
+    hits = reqs + [(prompts[-1][:whole * bs], r["new"], None, 1),
+                   (prompts[-1][:head * bs]
+                    + rng.integers(0, cfg.vocab_size, own).tolist(),
+                    r["new"], None, 1)]
+    paged = dict(r["ring"], paged=True, block_size=bs)
+    return [("contiguous", dict(r["ring"]), reqs),
+            ("paged", paged, hits),
+            ("int8_pool", dict(paged, kv_quant="int8"), hits),
+            ("int8_weights", paged, reqs),
+            ("adapter", paged, [(prompts[0], r["new"], "acme", 0),
+                                (prompts[1], r["new"], None, 0),
+                                (prompts[2], r["new"], "acme", 0)])]
+
+
+def _tp_a_refs(runs, cfg_a) -> dict:
+    """3t (a) at tp 1 in this process: each ring's tokens (and
+    ``generate``'s) on the whole model of the same seed."""
+    import torch
+
+    from paddle_operator_tpu_torch.infer import decode as D
+    from paddle_operator_tpu_torch.infer import quant as Q
+    from paddle_operator_tpu_torch.infer.qos import AdapterRegistry
+    from paddle_operator_tpu_torch.infer.scheduler import ContinuousBatcher
+    from paddle_operator_tpu_torch.models.llama import make_model
+
+    over = dict(n_layers=cfg_a.n_layers, dtype=torch.float32,
+                param_dtype=torch.float32)
+    model, _ = make_model("7b", device="cuda", seed=SERVE_TP_RUNS["a_seed"],
+                          **over)
+    qmodel, _ = make_model("7b", device="cuda",
+                           seed=SERVE_TP_RUNS["a_seed"], **over)
+    Q.quantize_params(qmodel, cfg_a, mode="int8", skip=Q.SERVING_SKIP)
+    refs = {}
+    for name, kw, reqs in runs:
+        kw = dict(kw)
+        if name == "adapter":
+            reg = AdapterRegistry(cfg_a, capacity=1, rank=8, device="cuda")
+            reg.load("acme", seed=5)
+            kw["adapters"] = reg
+        b = ContinuousBatcher(qmodel if name == "int8_weights" else model,
+                              cfg_a, **kw)
+        try:
+            refs[name] = []
+            for wave in sorted({q[3] for q in reqs}):
+                hs = [b.submit(p, max_new_tokens=n, adapter=ad)
+                      for p, n, ad, w in reqs if w == wave]
+                refs[name] += [h.result(timeout=300) for h in hs]
+        finally:
+            b.close()
+    with torch.inference_mode():
+        for key, m, reqs in (("generate", model, runs[1][2]),
+                             ("generate_int8", qmodel, runs[3][2])):
+            refs[key] = [D.generate(
+                m, cfg_a, torch.tensor([p], device="cuda"),
+                max_new_tokens=n, max_len=SERVE_TP_RUNS["ring"]["max_len"]
+            )[0].tolist() for p, n, _, _ in reqs]
+    return refs
+
+
+def _tp_f32_burst(params, cfg, jobs, late, prefix) -> dict:
+    """3t (b)'s witness: 3b's burst on one card through 3b's ring with
+    the same bf16 weights computed in f32 (``cfg.dtype``: each product
+    casts its weight, the pool holds f32).  Returns each request's
+    tokens by (kind, index)."""
+    import torch
+
+    from paddle_operator_tpu_torch.infer.scheduler import ContinuousBatcher
+    from paddle_operator_tpu_torch.utils.radixkey import prefix_chain_key
+
+    kw = {k: v for k, v in RING.items() if k != "continuous"}
+    b = ContinuousBatcher(params, dataclasses.replace(cfg,
+                                                      dtype=torch.float32),
+                          **kw)
+    try:
+        hs = {(kind, i): b.submit(p, max_new_tokens=n)
+              for kind, i, p, n in jobs}
+        key = prefix_chain_key(prefix, RING["block_size"], max_blocks=2)[0]
+        t0 = time.perf_counter()
+        while key not in b.pool.entries:
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError("3t (b) f32: the prefix was never "
+                                     "cached")
+            time.sleep(0.005)
+        hs.update({(kind, i): b.submit(p, max_new_tokens=n)
+                   for kind, i, p, n in late})
+        return {k: h.result(timeout=600) for k, h in hs.items()}
+    finally:
+        b.close()
+
+
+def _tp_refusal_start():
+    """3t (c): ``SERVE_TP=2`` through the serving entry point on this
+    one-card pod (read by :func:`phase_serving_tp`)."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("SERVE_", "TPUJOB_", "MODEL_"))}
+    env.update(SERVE_TP="2", SERVE_CONTINUOUS="1", MODEL_PRESET="7b",
+               PYTHONPATH=str(ROOT) + os.pathsep + env.get("PYTHONPATH", ""))
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "paddle_operator_tpu_torch.infer.serve"],
+        env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def phase_serving_tp(reports: tuple, params, cfg, ring_tokens) -> None:
+    """Phase 3t: tensor-parallel serving on two ranks sharing the card;
+    see the module docstring."""
+    import shutil
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paddle_operator_tpu_torch.infer import decode as D
+    from paddle_operator_tpu_torch.models.llama import CONFIGS
+
+    contiguous, paged, quant, qmm, qmm_b = reports
+    card = card_line()
+    r = SERVE_TP_RUNS
+    t_c, refusal = _tp_refusal_start()
+    root = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    cold, prefix, jobs, late, _ = burst_requests(cfg)
+    cfg_a = dataclasses.replace(CONFIGS["7b"], n_layers=r["a_layers"],
+                                dtype=torch.float32,
+                                param_dtype=torch.float32)
+    runs = _tp_a_runs(cfg_a)
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    b_ring = {k: v for k, v in RING.items() if k != "continuous"}
+    args = {"port": port, "out": root, "a_layers": r["a_layers"],
+            "a_seed": r["a_seed"], "a_runs": runs, "b_layers": r["b_layers"],
+            "depths": r["depths"],
+            "b_ring": b_ring, "b_block": RING["block_size"],
+            "burst": {"jobs": jobs, "late": late, "prefix": prefix,
+                      "cold": cold}}
+    Path(root, "args.json").write_text(json.dumps(args))
+    Path(root, "child.py").write_text(TP_SERVE_CHILD)
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    logs = [open(Path(root, f"rank{i}.log"), "w") for i in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(root, "child.py")),
+         str(Path(root, "args.json")), str(i)], env=env, cwd=str(ROOT),
+        stdout=logs[i], stderr=subprocess.STDOUT) for i in range(2)]
+    try:
+        errs = _tp_local_kernels()
+        refs = _tp_a_refs(runs, cfg_a)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # tp 1's first-token logits at each depth of the same weights, in
+        # bf16 and computed in f32 (the bf16 paths' common reference)
+        want_logits, f32_logits = {}, {}
+        with torch.inference_mode():
+            for n in r["depths"]:
+                cut, cfg_n = _depth_cut(params, cfg, n)
+                for dst, c in ((want_logits, cfg_n), (f32_logits,
+                               dataclasses.replace(cfg_n,
+                                                   dtype=torch.float32))):
+                    dst[n] = torch.stack([D.prefill(
+                        cut, c, torch.tensor([p], device="cuda"),
+                        max_len=2048)[0][0].float().cpu() for p in cold])
+        t_w = time.perf_counter()
+        f32_burst = _tp_f32_burst(params, cfg, jobs, late, prefix)
+        witness_s = time.perf_counter() - t_w
+        gc.collect()
+        torch.cuda.empty_cache()
+        deadline = time.monotonic() + r["timeout"]
+        for i, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+            if p.wait() != 0:
+                raise AssertionError(
+                    f"3t: rank {i} exited {p.returncode}: "
+                    + Path(root, f"rank{i}.log").read_text()[-4000:])
+        wall = time.perf_counter() - t0
+        outs = [torch.load(Path(root, f"rank{i}.pt"), weights_only=False)
+                for i in range(2)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+        if refusal.poll() is None:
+            try:
+                refusal.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                refusal.kill()
+                refusal.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    lead = outs[0]
+    ok = True
+    # (a): every ring equals its tp-1 ring (the exact pools also
+    # generate), launches the formulas', the ranks' launches equal
+    layers = r["a_layers"]
+    ticks_of = {name: lead[name]["chunks"] * r["ring"]["chunk_tokens"]
+                for name, _, _ in runs}
+    short = sum(1 for n in r["lens"] if n <= 64)
+    for name, _, reqs in runs:
+        got = lead[name]["tokens"]
+        same_tp1 = got == refs[name]
+        same_gen = ({"contiguous": got == refs["generate"][:len(got)],
+                     "paged": got == refs["generate"],
+                     "int8_weights": got == refs["generate_int8"]}
+                    .get(name))
+        # the second wave's prefix hits (and their copy-on-write) ran
+        hit_ok = (name not in ("paged", "int8_pool")
+                  or (lead[name]["hit_tokens"] > 0 and lead[name]["cow"] > 0))
+        c = [o[name]["counts"] for o in outs]
+        t = layers * ticks_of[name]
+        want = {"k1": t if name == "contiguous" else 0,
+                "k2": t if name in ("paged", "int8_weights", "adapter")
+                else 0,
+                "k3": t if name == "int8_pool" else 0,
+                "A": (7 * t + 7 * layers * short
+                      if name == "int8_weights" else 0),
+                "B": (7 * layers * (len(reqs) - short)
+                      if name == "int8_weights" else 0)}
+        launches_ok = all({k: x[k] for k in want} == want for x in c)
+        run_ok = (same_tp1 and same_gen is not False and launches_ok
+                  and hit_ok and lead[name]["tp"] == 2)
+        ok = ok and run_ok
+        n = max(1, lead[name]["dispatches"])
+        log(f"serving tp (a) {name}: tp 2 == tp 1 {same_tp1}"
+            + ("" if same_gen is None else f", == generate {same_gen}")
+            + f"; prefix-hit tokens {lead[name]['hit_tokens']}, "
+            f"copy-on-write blocks {lead[name]['cow']}"
+            + f"; launches a rank {[{k: x[k] for k in want} for x in c]} "
+            f"(want {want}); all-reduces a rank a dispatch "
+            f"{[round(x['reduce_calls'] / n, 1) for x in c]} "
+            f"({[round(x['reduce_bytes'] / n) for x in c]} B), all-gathers "
+            f"{[round(x['gather_calls'] / n, 1) for x in c]} "
+            f"({[round(x['gather_bytes'] / n) for x in c]} B); "
+            f"{lead[name]['dispatches']} dispatches, "
+            f"{lead[name]['wall_ms']:.2f} ms wall, "
+            f"{lead[name]['event_ms']:.2f} ms event a dispatch")
+    kern_ok = all(e <= 1e-4 for e in errs.values())
+    ok = ok and kern_ok
+    log(f"serving tp (a): kernels on a rank's shapes (16 of 32 heads, "
+        f"D 128; int8 wq/w1 column halves and wo's row half), f32, max "
+        f"|kernel - plain| {errs} (limit 1e-4; A relative to the output's "
+        f"largest); init of a rank's two cuts {lead['a_init_s']:.1f}s")
+    # (b): first-token logits within 0.15 of tp 1's; the share of tokens
+    # equal to 3b's
+    burst = lead["burst"]
+    depth_read = {}
+    for n in r["depths"]:
+        got, ref, exact = (lead["first_logits"][n], want_logits[n],
+                           f32_logits[n])
+        depth_read[n] = {
+            "tp2_tp1": (got - ref).abs().max().item(),
+            "tp1_f32": (ref - exact).abs().max().item(),
+            "tp2_f32": (got - exact).abs().max().item(),
+            "logit_max": exact.abs().max().item()}
+    # the gates: at the shallowest depth tp 2 within TOL of tp 1 (one
+    # card's own bf16 path is closer than TOL to the f32 value there);
+    # at full depth, where one card's bf16 path is itself farther than
+    # TOL from the f32 value, tp 2 at most TOL farther from it than tp 1
+    shallow = depth_read[min(r["depths"])]
+    full = depth_read[r["b_layers"]]
+    diff = full["tp2_tp1"]
+    logits_ok = (shallow["tp2_tp1"] <= BF16_TOL
+                 and full["tp2_f32"] <= full["tp1_f32"] + BF16_TOL)
+    # the share of burst tokens equal, position by position: tp 2 and
+    # 3b's (tp 1, bf16), and the witness beside it — one card's bf16
+    # ring and tp 2 against the same ring computed in f32
+    same = total = same_f32 = same_tp2_f32 = 0
+    for kind, i, p, n in jobs + late:
+        got = burst["tokens"][f"{kind}:{i}"][len(p):]
+        ref = (ring_tokens or {}).get((kind, i))
+        exact = f32_burst[(kind, i)][len(p):]
+        if len(got) != n or len(exact) != n or (
+                ref is not None and ref[:len(p)] != p):
+            raise AssertionError(f"3t (b): {kind} {i} gave {len(got)} "
+                                 f"new tokens ({len(exact)} in f32), "
+                                 f"want {n}")
+        same_tp2_f32 += sum(int(x == y) for x, y in zip(got, exact))
+        if ref is not None:
+            same += sum(int(x == y) for x, y in zip(got, ref[len(p):]))
+            same_f32 += sum(int(x == y) for x, y in zip(ref[len(p):],
+                                                         exact))
+            total += n
+    n_burst = sum(n for _, _, _, n in jobs + late)
+    c = [o["burst"]["counts"] for o in outs]
+    t = r["b_layers"] * burst["chunks"] * RING["chunk_tokens"]
+    b_ok = logits_ok and all(x["k2"] == t for x in c) and burst["tp"] == 2
+    ok = ok and b_ok
+    n = max(1, burst["dispatches"])
+    log(f"serving tp (b): 7b at {r['b_layers']} layers, bf16, 3b's burst "
+        f"at tp 2 in {burst['burst_s']:.1f}s ({burst['chunks']} chunks); "
+        f"first-token logits max |tp 2 - tp 1| {diff:.4f} (at "
+        f"{min(r['depths'])} layers {shallow['tp2_tp1']:.4f}, limit "
+        f"{BF16_TOL}; at {r['b_layers']} |tp 2 - f32| "
+        f"{full['tp2_f32']:.4f} against |tp 1 - f32| "
+        f"{full['tp1_f32']:.4f} + {BF16_TOL}: {logits_ok}); "
+        f"tokens equal to 3b's (tp 1) {same} of {total} "
+        f"({same / max(1, total):.3f}), beside the witness: 3b's equal to "
+        f"the same ring in f32 {same_f32} of {total} "
+        f"({same_f32 / max(1, total):.3f}), tp 2's {same_tp2_f32} of "
+        f"{n_burst} ({same_tp2_f32 / max(1, n_burst):.3f}; the f32 ring "
+        f"{witness_s:.1f}s); kernel #2 launches a rank "
+        f"{[x['k2'] for x in c]} (want {t}); all-reduces a rank a "
+        f"dispatch {[round(x['reduce_calls'] / n, 1) for x in c]} "
+        f"({[round(x['reduce_bytes'] / n) for x in c]} B); "
+        f"{burst['wall_ms']:.1f} ms wall, {burst['event_ms']:.1f} ms event "
+        f"a dispatch; a rank's init {lead['b_init_s']:.1f}s, peak "
+        f"{[round(o['peak_gb'], 2) for o in outs]} GB")
+    log("serving tp (b): first-token logits by depth, max |difference| "
+        "over the 8 cold prompts (f32: the same bf16 weights computed in "
+        "f32): " + json.dumps({n: {k: round(v, 4) for k, v in d.items()}
+                               for n, d in depth_read.items()}))
+    # (c): SERVE_TP=2 on this one-card pod, refused by name
+    named = "SERVE_TP=2 runs one process a card; this pod sees 1 CUDA card"
+    err_c = refusal.stderr.read() if refusal.stderr else ""
+    c_s = time.perf_counter() - t_c
+    c_ok = refusal.returncode not in (0, None) and named in err_c
+    ok = ok and c_ok
+    log(f"serving tp (c): SERVE_TP=2 on this one-card pod exited "
+        f"{refusal.returncode}, refused by name: {named in err_c}; "
+        f"3t wall {wall:.1f}s; {card}")
+    run = {"a": {name: {k: lead[name][k] for k in
+                        ("dispatches", "wall_ms", "event_ms", "chunks")}
+                 for name, _, _ in runs},
+           "a_kernels_max_abs_err": errs,
+           "b": {"layers": r["b_layers"], "logit_diff": diff,
+                 "by_depth": depth_read,
+                 "tokens_equal": same, "tokens": total,
+                 "tokens_equal_tp1_f32": same_f32,
+                 "tokens_equal_tp2_f32": same_tp2_f32,
+                 "witness_s": witness_s,
+                 "wall_ms": burst["wall_ms"],
+                 "event_ms": burst["event_ms"]},
+           "launches": {name: [o[name]["counts"] for o in outs]
+                        for name in [x[0] for x in runs] + ["burst"]},
+           "refused": c_ok}
+    for rep, name, key, kern in (
+            (contiguous, "contiguous", "k1", "decode_attention"),
+            (paged, "paged", "k2", "paged_decode_attention"),
+            (quant, "int8_pool", "k3", "paged_decode_attention_quant"),
+            (qmm, "int8_weights", "A", "quant_matmul")):
+        rep["serving_tp"] = {
+            "launches_a_rank": [o[name]["counts"][key] for o in outs],
+            "max_abs_err_rank_shapes": errs[kern]}
+    paged["serving_tp"]["burst_launches_a_rank"] = [x["k2"] for x in c]
+    qmm_b["serving_tp"] = {"launches_a_rank": [
+        o["int8_weights"]["counts"]["B"] for o in outs]}
+    log("serving tp: " + json.dumps(run))
+    if not ok:
+        raise AssertionError("3t: tensor-parallel serving failed a gate "
+                             "(see the lines above)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -11444,8 +12129,8 @@ def main() -> int:
     phases = set(ap.parse_args().phases.split(","))
     if phases - set(PHASES):
         ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
-    if phases & {"3e", "3n", "3o"}:
-        phases.add("3b")        # 3e, 3n and 3o are held to 3b's tokens
+    if phases & {"3e", "3n", "3o", "3t"}:
+        phases.add("3b")    # 3e, 3n, 3o and 3t are held to 3b's tokens
     if not (ROOT / "paddle_operator_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: the paddle_operator_tpu_torch package is not "
               "beside this script", file=sys.stderr)
@@ -11519,7 +12204,7 @@ def main() -> int:
     run("2f", phase_adam8bit_vs_plain, adam8)
     run("2c", phase_flash_vs_plain, flash)
     if phases & {"3", "3b", "3d", "3e", "3g", "3h", "3i", "3j", "3l",
-                  "3m", "3n", "3o", "3p"}:
+                  "3m", "3n", "3o", "3p", "3t"}:
         params, cfg = make_7b()
         run("3", phase_main_path, contiguous, params, cfg)
         ring_tokens = run("3b", phase_ring_main_path, paged, params, cfg)
@@ -11565,6 +12250,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         run("3p", phase_fleet_kv, (paged, quant),
             *_depth_cut(params, cfg, CUT_LAYERS))
+        gc.collect()
+        torch.cuda.empty_cache()
+        run("3t", phase_serving_tp, (contiguous, paged, quant, qmm, qmm_b),
+            params, cfg, ring_tokens)
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -11599,6 +12288,7 @@ def main() -> int:
              "ring_megastep", "spec", "draft_quant", "preempt", "host_tier",
              "interleave", "disagg", "fleet_kv", "moe", "moe_train",
              "moe_train_launches", "mesh_train", "mesh_train_launches",
+             "serving_tp",
              "prefill", "probes_ms",
              "limit_check", "train",
              "checkpoint", "depth",

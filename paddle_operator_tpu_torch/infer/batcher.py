@@ -1,7 +1,9 @@
 """Continuous-batching decode ring — re-exporting facade, as
 ``paddle_operator_tpu/infer/batcher.py``: the host scheduler lives in
 ``infer/scheduler.py`` and the device half in ``infer/executor.py``;
-this module keeps one import surface for both."""
+this module keeps one import surface for both.  A tensor-parallel
+ring passes ``mesh`` through: ``ContinuousBatcher(..., mesh=mesh)`` on
+rank 0, :func:`follow_ring` with the same arguments on the others."""
 
 from paddle_operator_tpu_torch.infer.executor import (  # noqa: F401
     DispatchResult,
@@ -22,4 +24,5 @@ from paddle_operator_tpu_torch.infer.scheduler import (  # noqa: F401
     PREFILL_MODES,
     ContinuousBatcher,
     QueueFull,
+    follow_ring,
 )

@@ -24,30 +24,320 @@ projections of infer/quant.py.  ``lora=(stacks, aid)`` (infer/qos.py
 low-rank delta to q, k and v before RoPE (``qos.lora_qkv``), so adapter
 KV enters the cache as a merged-weight forward would write it.  An MoE
 config's FFN is :func:`_moe_ffn` (exact, no capacity drop) on every
-path.  Not ported yet, and refused when asked for: tensor-parallel
-meshes.
+path.
+
+Tensor-parallel serving (``mesh``: a ``parallel/mesh.py``
+``make_serving_mesh`` mesh, one process a card): each rank holds its
+cut of the model (:func:`shard_params_for_serving`, or
+:func:`init_serving_shard` at boot) — wq/wk/wv and w1/w3 by columns,
+wo and w2 by rows, the embedding and ``lm_head`` by vocab, every cut a
+contiguous copy — marked with its :class:`ServingShard`, and runs the
+forward with the rank's heads (``models/llama.py``
+``serving_shard_config``) over a KV cache of its kv heads
+(:func:`alloc_kv_buffer`).  Where the JAX package's GSPMD inserts its
+collectives the port calls them (``parallel/collectives.py``): the
+embedding's all-reduce, an all-reduce of wo's and of w2's partial
+outputs before each residual add (the decode kernels' wo through
+``ops/decode_attention.py`` ``sharded_decode_attention``), and the
+all-gather of the vocab-sharded logits, so every rank samples the same
+whole row.  A config whose kv heads do not split keeps its attention
+whole on every rank, through the plain einsum attention (JAX's
+fallback), with the FFN and the vocab still cut.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import dataclasses
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import torch
+from torch import nn
 
 from paddle_operator_tpu_torch.infer.qos import layer_lora, lora_qkv
-from paddle_operator_tpu_torch.models.llama import Dense, Llama, LlamaConfig
+from paddle_operator_tpu_torch.models.llama import (Dense, Llama,
+                                                    LlamaConfig,
+                                                    partition_patterns,
+                                                    rope_frequencies,
+                                                    serving_shard_config)
 from paddle_operator_tpu_torch.ops.decode_attention import (
     DEFAULT_BLOCK_K,
-    decode_attention,
+    sharded_decode_attention,
 )
+from paddle_operator_tpu_torch.ops.quant_matmul import dense_mm as _mm
 from paddle_operator_tpu_torch.ops.quant_matmul import quant_mm
+from paddle_operator_tpu_torch.parallel import collectives as C
+from paddle_operator_tpu_torch.parallel.mesh import (axis_group,
+                                                     coordinates, mesh_tp)
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
+# ---------------------------------------------------------------------------
+# Mesh-sharded serving (tensor parallel over heads/ffn/vocab)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ServingShard:
+    """What one rank of a tensor-parallel serving mesh holds of the
+    model, kept on the model and on each of its layers as
+    ``serving_tp``: the ``tp`` group its partial sums run over and its
+    size, whether the attention heads (``attn``) and the FFN columns
+    (``mlp``) are cut, its vocab rows ``[lo, hi)`` (None: the whole
+    vocab), and its columns of wq, wk and wv (``lora_cols``, the LoRA
+    delta's)."""
+
+    group: Any
+    tp: int
+    attn: bool
+    mlp: bool
+    vocab: Optional[Tuple[int, int]]
+    lora_cols: Optional[Dict[str, slice]]
+
+
+def _shard_of(mod) -> Optional[ServingShard]:
+    return getattr(mod, "serving_tp", None)
+
+
+def _attn_group(shard: Optional[ServingShard]):
+    """The group a decode kernel's wo partials are summed over (JAX
+    ``_use_sharded_kernel``), shared by :func:`_forward` and the rings:
+    a rank of a serving mesh whose heads split into whole GQA groups
+    (``shard.attn``) runs the kernel on its heads and its rows of wo,
+    then one all-reduce over ``shard.group``; one card sums nothing
+    (None).  A config whose kv heads do not split never reaches the
+    kernel: its ranks' config selects the plain einsum on whole heads
+    (``models/llama.py`` ``serving_shard_config``, JAX's fallback)."""
+    if shard is not None and shard.tp > 1 and shard.attn:
+        return shard.group
+    return None
+
+
+def _local(cfg: LlamaConfig, params) -> LlamaConfig:
+    """``cfg`` (the whole model's, or already a rank's) as the rank
+    holding ``params`` runs it."""
+    shard = _shard_of(params)
+    return serving_shard_config(cfg, shard.tp) if shard else cfg
+
+
+def alloc_kv_buffer(cfg: LlamaConfig, shape, mesh, *,
+                    device="cuda", dtype=None) -> torch.Tensor:
+    """One zeroed KV buffer of the whole model's ``shape`` (the decode
+    cache ``[L, B, Hkv, S, D]`` or any buffer with the kv-head axis at
+    dim 2): on a serving mesh whose tp divides the kv heads, this
+    rank's kv heads only (``parallel/sharding.py``
+    ``kv_cache_sharding``), so every cache shard lives with the wk/wv
+    columns that fill it; indivisible kv heads leave it whole."""
+    from paddle_operator_tpu_torch.parallel.sharding import (
+        kv_cache_sharding,
+    )
+
+    shape = list(shape)
+    if mesh is not None and mesh_tp(mesh) > 1:
+        lo, hi = kv_cache_sharding(cfg.n_kv_heads, mesh)
+        shape[2] = hi - lo
+    return torch.zeros(shape, dtype=dtype or cfg.dtype, device=device)
+
+
+def _require_shard(params, mesh) -> None:
+    """A mesh of tp > 1 needs the rank's cut of the model (and no mesh
+    a whole model)."""
+    tp = mesh_tp(mesh)
+    shard = _shard_of(params)
+    if tp > 1 and (shard is None or shard.tp != tp):
+        raise ValueError(
+            f"a tp={tp} serving mesh needs this rank's cut of the model "
+            "(shard_params_for_serving / init_serving_shard)")
+    if tp <= 1 and shard is not None and shard.tp > 1:
+        raise ValueError(f"the model is a rank's cut for tp={shard.tp}; "
+                         "pass its serving mesh")
+
+
+def _assign(model: nn.Module, name: str, t: torch.Tensor) -> None:
+    """Put ``t`` at state-dict name ``name`` of ``model`` (a parameter
+    without a gradient, or a buffer)."""
+    mod_name, attr = name.rsplit(".", 1)
+    mod = model.get_submodule(mod_name)
+    if attr in mod._buffers:
+        mod._buffers[attr] = t
+    else:
+        mod._parameters[attr] = nn.Parameter(t, requires_grad=False)
+
+
+def _cut_model(cfg: LlamaConfig, mesh, items: Iterable[Tuple[str, Any]],
+               device, passes=()) -> Llama:
+    """Build this rank's cut of a model from ``items``: ``(state-dict
+    name, whole tensor)`` pairs, any device, one at a time — or, for an
+    already quantized projection, ``(name of its kernel, (q, s,
+    mode))``.  A float kernel that ``passes`` (``infer/quant.py``
+    ``quant_passes``) targets is quantized whole first (a row-parallel
+    projection's scales need every row), then cut.  Every cut is a
+    contiguous copy on ``device``; no whole tensor is kept."""
+    from paddle_operator_tpu_torch.infer import quant as Q
+    from paddle_operator_tpu_torch.parallel.sharding import (
+        serving_region,
+        serving_specs,
+    )
+
+    split = cfg.decode_tp_compatible(mesh_tp(mesh))
+    pats = partition_patterns(cfg)
+    device = torch.device(device)
+    model = Llama(cfg, "meta")
+
+    def region(name, t):
+        spec = serving_specs({name: t.shape}, mesh, pats, split)[name]
+        return serving_region(t.shape, spec, mesh)
+
+    def copy(t):
+        # one contiguous copy on the device, whatever t's strides
+        return torch.empty(t.shape, dtype=t.dtype, device=device).copy_(t)
+
+    for name, t in items:
+        base, mode = name[:-len(".kernel")], None
+        if name.endswith(".kernel"):
+            if isinstance(t, tuple):
+                q, s, mode = t
+            else:
+                mode = Q.leaf_quant_mode(base.replace(".", "/") + "/kernel",
+                                         passes)
+                if mode is not None:
+                    leaf = Q.quantize_leaf(t.to(device), mode)
+                    q, s = leaf["q"], leaf["s"]
+        if mode is None:
+            _assign(model, name, copy(t[region(name, t)]))
+        else:
+            ql, sl = Q.cut_quantized(q, s, *region(name, q))
+            model.get_submodule(base).set_quantized(copy(ql), copy(sl), mode)
+    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len,
+                                cfg.rope_theta, device)
+    model.rope_cos, model.rope_sin = cos, sin
+    left = [n for n, p in model.named_parameters() if p.is_meta]
+    if left:
+        raise ValueError(f"no tensor given for {left[:4]}")
+    _mark(model, cfg, mesh)
+    return model
+
+
+def _mark(model: Llama, cfg: LlamaConfig, mesh) -> None:
+    """Attach the rank's :class:`ServingShard` to the model and its
+    layers."""
+    tp = mesh_tp(mesh)
+    rank = coordinates(mesh)["tp"]
+    attn = cfg.decode_tp_compatible(tp)
+    vocab = None
+    if cfg.vocab_size % tp == 0:
+        per = cfg.vocab_size // tp
+        vocab = (rank * per, (rank + 1) * per)
+    cols = None
+    if attn:
+        hd = cfg.head_dim
+        q_per = cfg.n_heads // tp * hd
+        kv_per = cfg.n_kv_heads // tp * hd
+        cols = {"wq": slice(rank * q_per, (rank + 1) * q_per),
+                "wk": slice(rank * kv_per, (rank + 1) * kv_per),
+                "wv": slice(rank * kv_per, (rank + 1) * kv_per)}
+    shard = ServingShard(axis_group(mesh, "tp"), tp, attn,
+                         cfg.ffn_dim % tp == 0, vocab, cols)
+    model.serving_tp = shard
+    for lp in model.layers:
+        lp.serving_tp = shard
+
+
+def _check_servable(cfg: LlamaConfig, tp: int) -> None:
+    if tp > 1 and cfg.n_experts > 0:
         raise NotImplementedError(
-            "tensor-parallel serving is not ported to the torch package "
-            "yet (ROADMAP.md Queue A, 'Parallelism')")
+            f"MoE presets under SERVE_TP={tp}: expert-sharded serving is "
+            "not ported to the torch package (ROADMAP.md Queue A item "
+            "8.5b)")
+
+
+@torch.no_grad()
+def shard_params_for_serving(params: Llama, cfg: LlamaConfig, mesh, *,
+                             device=None, passes=()) -> Llama:
+    """This rank's cut of a whole serving model (JAX
+    ``shard_params_for_serving``): the training partition table
+    (``models/llama.py`` ``partition_patterns``; heads, kv heads, mlp
+    and vocab over ``tp``) with indivisible axes replicated, on a raw
+    or an ``infer/quant.py``-quantized model alike (a quantized
+    projection's codes cut with its kernel, its scales by columns only).
+    Returns a new model on ``device`` (default: ``params``'s) whose
+    every tensor is a contiguous copy; ``params`` is left as it is.
+    ``passes`` (``infer/quant.py`` ``quant_passes``) quantizes each
+    whole float projection they target before it is cut.  A mesh of tp
+    1 returns ``params``."""
+    tp = mesh_tp(mesh)
+    if tp <= 1:
+        return params
+    _check_servable(cfg, tp)
+    device = device or params.tok_embed.embedding.device
+
+    def items():
+        for name, mod in params.named_modules():
+            if isinstance(mod, Dense):
+                if mod.mode == "none":
+                    yield name + ".kernel", mod.kernel.detach()
+                else:
+                    yield name + ".kernel", (mod.q, mod.s, mod.mode)
+            else:
+                for pname, p in mod.named_parameters(recurse=False):
+                    yield f"{name}.{pname}", p.detach()
+
+    return _cut_model(cfg, mesh, items(), device, passes)
+
+
+@torch.no_grad()
+def init_serving_shard(cfg: LlamaConfig, mesh, *, seed: int = 0,
+                       device="cuda", passes=()) -> Llama:
+    """This rank's cut of the fresh init :func:`~paddle_operator_tpu_
+    torch.models.llama.make_model` draws from ``seed`` (the
+    ``torch.Generator`` draws of ``Llama.init_weights``, tensor by
+    tensor in its order, each whole tensor made on ``device`` in
+    ``cfg.param_dtype``, quantized under ``passes`` and cut before the
+    next is drawn): the same numbers as the whole model's, without ever
+    holding it.  A mesh of tp 1 returns the whole model."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    if mesh_tp(mesh) <= 1:
+        from paddle_operator_tpu_torch.infer import quant as Q
+
+        model = Llama(cfg, device).init_weights(gen)
+        for mode, skip in passes:
+            Q.quantize_params(model, cfg, mode=mode, skip=skip)
+        return model
+    _check_servable(cfg, mesh_tp(mesh))
+
+    def items():
+        for name, p in Llama(cfg, "meta").named_parameters():
+            t = torch.empty(p.shape, dtype=cfg.param_dtype, device=device)
+            if name.endswith("scale"):
+                t.fill_(1.0)
+            else:
+                t.normal_(0.0, 0.02, generator=gen)
+            yield name, t
+
+    return _cut_model(cfg, mesh, items(), device, passes)
+
+
+def _embed(cfg: LlamaConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+    """The token embedding in the compute dtype: a rank of a serving
+    mesh looks up its vocab rows and all-reduces
+    (``collectives.serving_embed``)."""
+    w = params.tok_embed.embedding.to(cfg.dtype)
+    shard = _shard_of(params)
+    if shard is None or shard.vocab is None:
+        return w[tokens.long()]
+    return C.serving_embed(w, tokens, shard.vocab[0], shard.group)
+
+
+def _logits(cfg: LlamaConfig, params, x: torch.Tensor) -> torch.Tensor:
+    """The final norm and the LM head: [..., dim] -> [..., vocab] f32.
+    On a rank of a serving mesh the vocab-sharded head's logits are
+    all-gathered along the vocab in the compute dtype (every rank then
+    samples the same whole row)."""
+    x = _rms(x, params.final_norm.scale, cfg.norm_eps, cfg.dtype)
+    out = _mm(x, params.lm_head, cfg.dtype)
+    shard = _shard_of(params)
+    if shard is not None and shard.vocab is not None:
+        out = C.gather_logits(out, shard.group)
+    return out.float()
 
 
 def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float,
@@ -56,26 +346,6 @@ def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float,
     xf = x.float()
     norm = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
     return (norm * scale.float()).to(dtype)
-
-
-def _mm(x: torch.Tensor, w: Dense, dtype) -> torch.Tensor:
-    """x @ W for the projection ``w`` (a ``Dense``), in ``dtype``.
-
-    A raw ``[in, out]`` kernel: ``x @ kernel.to(dtype)``.  A weight-only
-    int8/int4 one (infer/quant.py: codes ``q`` [in, out], f32 scales
-    ``s`` [1, out]) goes through ops/quant_matmul.py ``quant_mm``, routed
-    by the number of rows: up to ``KERNEL_MAX_ROWS`` rows — the ring's
-    lanes, a batch step, a prefix hit's suffix, the speculative verify,
-    a 64-row prefill slice — take kernel A on the card, which streams
-    one byte a weight where dequantize-then-matmul would move five; more
-    rows — a prompt's prefill, bound by its operations — take kernel B,
-    the same function tiled for the tensor cores.  The JAX package's
-    formula, ``(x @ q.to(dtype)) * s.to(dtype)``, is the plain version:
-    it runs on CPU tensors only.  A route by shape: nothing falls back on
-    a failure."""
-    if w.mode == "none":
-        return x @ w.kernel.to(dtype)
-    return quant_mm(x.to(dtype), w.q, w.s)
 
 
 def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
@@ -106,8 +376,8 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: Optional[int] = None,
     dtype on ``device``, plus the fill position (host int).  Positions
     past the LOGICAL ``max_len`` are never written or attended, so the
     RoPE bound checks the requested capacity, not the padded
-    allocation."""
-    _refuse_mesh(mesh)
+    allocation.  ``cfg`` is the whole model's; on a serving ``mesh``
+    the buffers hold this rank's kv heads (:func:`alloc_kv_buffer`)."""
     max_len = max_len or cfg.max_seq_len
     if max_len > cfg.max_seq_len:
         raise ValueError(f"cache max_len {max_len} exceeds the RoPE table "
@@ -115,8 +385,8 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: Optional[int] = None,
     alloc = cache_alloc_len(max_len)
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, alloc, cfg.head_dim)
     return {
-        "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-        "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        "k": alloc_kv_buffer(cfg, shape, mesh, device=device),
+        "v": alloc_kv_buffer(cfg, shape, mesh, device=device),
         "pos": 0,
     }
 
@@ -131,7 +401,9 @@ def _proj(cfg: LlamaConfig, lp, h: torch.Tensor, lora=None
     k = _mm(h, lp.attn.wk, cfg.dtype)
     v = _mm(h, lp.attn.wv, cfg.dtype)
     if lora is not None:
-        q, k, v = lora_qkv(h, lora[0], lora[1], q, k, v, cfg.dtype)
+        shard = _shard_of(lp)
+        q, k, v = lora_qkv(h, lora[0], lora[1], q, k, v, cfg.dtype,
+                           cols=shard.lora_cols if shard else None)
     return q, k, v
 
 
@@ -197,16 +469,24 @@ def _ffn_residual(cfg: LlamaConfig, lp, x: torch.Tensor) -> torch.Tensor:
         return x + _moe_ffn(cfg, lp.moe, n)
     gate = _mm(n, lp.mlp.w1, cfg.dtype)
     up = _mm(n, lp.mlp.w3, cfg.dtype)
-    return x + _mm(torch.nn.functional.silu(gate) * up, lp.mlp.w2,
-                   cfg.dtype)
+    y = _mm(torch.nn.functional.silu(gate) * up, lp.mlp.w2, cfg.dtype)
+    shard = _shard_of(lp)
+    if shard is not None and shard.mlp:
+        y = C.reduce_partials(y, shard.group)   # w2's rows: the sum
+    return x + y
 
 
 def _finish_layer(cfg: LlamaConfig, lp, x: torch.Tensor,
                   out: torch.Tensor) -> torch.Tensor:
     """Post-attention half: output projection + residual, then the
-    (dense SwiGLU or MoE) FFN + residual."""
-    x = x + _mm(out, lp.attn.wo, cfg.dtype)
-    return _ffn_residual(cfg, lp, x)
+    (dense SwiGLU or MoE) FFN + residual.  On a rank of a serving mesh
+    whose heads are cut, wo's partial outputs (the rank's rows) are
+    summed over tp before the residual add."""
+    y = _mm(out, lp.attn.wo, cfg.dtype)
+    shard = _shard_of(lp)
+    if shard is not None and shard.attn:
+        y = C.reduce_partials(y, shard.group)
+    return _ffn_residual(cfg, lp, x + y)
 
 
 def _write_kv(k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -261,42 +541,54 @@ def _forward(cfg: LlamaConfig, params: Llama, tokens: torch.Tensor,
     returned dict carries the advanced position.
 
     T == 1 with the kernel selected (``cfg.resolved_decode_attn``) runs
-    each layer's attention through ops/decode_attention.py on that
-    layer's cache view ``k_cache[li]``; everything else (prefill, or
-    the plain selection) runs :func:`_layer`'s einsums.
+    each layer's attention and wo through ops/decode_attention.py
+    ``sharded_decode_attention`` on the stacked cache (kernel #1 at
+    ``layer=li``, then wo; on a rank whose heads are cut, its heads and
+    wo's rows, then one all-reduce in the compute dtype); everything
+    else (prefill, or the plain selection) runs :func:`_layer`'s
+    einsums.
 
     ``last_only``: apply the norm + lm head to the final position only
     (logits [B, 1, vocab]) — prefill needs just the next-token logits.
 
     ``lora``: ``(stacks, aid)`` — the registry's stacked [L, ...]
     adapter tensors and per-row adapter slots [B] (infer/qos.py); each
-    layer reads its own slice of the stacks."""
-    _refuse_mesh(mesh)
+    layer reads its own slice of the stacks.
+
+    ``mesh``: a serving mesh (``parallel/mesh.py`` ``make_serving_mesh``)
+    makes the forward tensor-parallel: ``params`` is this rank's cut,
+    ``cache`` holds its kv heads (``init_cache(mesh=...)``), ``cfg`` is
+    the whole model's.  A config whose kv heads do not split keeps
+    whole heads and wo on every rank (JAX's fallback, :func:`_attn_group`).
+    """
+    if mesh is not None:
+        _require_shard(params, mesh)
     pos = cache["pos"]
     k_cache, v_cache = cache["k"], cache["v"]
-    x = params.tok_embed.embedding.to(cfg.dtype)[tokens]
+    x = _embed(cfg, params, tokens)
     cos, sin = params.rope_cos, params.rope_sin
     b, t = tokens.shape
+    cfg = _local(cfg, params)
+    shard = _shard_of(params)
 
     if t == 1 and cfg.resolved_decode_attn(x.device) == "kernel":
-        hq, d = cfg.n_heads, cfg.head_dim
+        group = _attn_group(shard)
         lengths = torch.full((b,), pos + 1, dtype=torch.int32,
                              device=x.device)
         for li, lp in enumerate(params.layers):
             q, k, v = _qkv(cfg, lp, x, cos, sin, pos, layer_lora(lora, li))
             _write_kv(k_cache[li], v_cache[li], k, v, pos)
-            out = decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
-                                   lengths, layer=li)
-            out = out.reshape(b, 1, hq * d).to(cfg.dtype)
-            x = _finish_layer(cfg, lp, x, out)
+            proj = sharded_decode_attention(
+                q[:, 0].contiguous(), k_cache, v_cache, lengths,
+                lp.attn.wo, group=group, layer=li, compute_dtype=cfg.dtype)
+            x = _ffn_residual(cfg, lp, x + proj[:, None].to(cfg.dtype))
     else:
         for li, lp in enumerate(params.layers):
             x = _layer(cfg, lp, x, cos, sin, k_cache[li], v_cache[li], pos,
                        layer_lora(lora, li))
     if last_only:
         x = x[:, -1:]
-    x = _rms(x, params.final_norm.scale, cfg.norm_eps, cfg.dtype)
-    logits = _mm(x, params.lm_head, cfg.dtype).float()
+    logits = _logits(cfg, params, x)
     return logits, {"k": k_cache, "v": v_cache, "pos": pos + t}
 
 
@@ -313,7 +605,7 @@ def prefill(params: Llama, cfg: LlamaConfig, tokens: torch.Tensor,
     cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device,
                        mesh=mesh)
     logits, cache = _forward(cfg, params, tokens, cache, last_only=True,
-                             lora=lora)
+                             mesh=mesh, lora=lora)
     return logits[:, 0], cache
 
 
@@ -436,8 +728,12 @@ def generate(params: Llama, cfg: LlamaConfig, prompt: torch.Tensor, *,
     max_new_tokens - 1 decode steps (n_layers kernel launches each).
 
     ``lora``: ``(stacks, aid [B])`` — every row's prefill and decode
-    steps add its adapter's delta (the ring's rule, infer/qos.py)."""
-    _refuse_mesh(mesh)
+    steps add its adapter's delta (the ring's rule, infer/qos.py).
+
+    ``mesh``: a serving mesh; ``params`` is then this rank's cut
+    (:func:`shard_params_for_serving`) and every rank of the mesh calls
+    this with the same arguments (a sampling ``generator`` seeded alike:
+    each rank samples the same gathered logits)."""
     if temperature > 0 and generator is None:
         generator = torch.Generator(device=prompt.device)
         generator.manual_seed(0)
@@ -448,7 +744,8 @@ def generate(params: Llama, cfg: LlamaConfig, prompt: torch.Tensor, *,
                          f"({max_new_tokens}) = {need} exceeds the cache "
                          f"({cache_len} positions)")
 
-    logits, cache = prefill(params, cfg, prompt, max_len, lora=lora)
+    logits, cache = prefill(params, cfg, prompt, max_len, mesh=mesh,
+                            lora=lora)
     done = torch.zeros(prompt.shape[0], dtype=torch.bool,
                        device=prompt.device)
 
@@ -468,7 +765,8 @@ def generate(params: Llama, cfg: LlamaConfig, prompt: torch.Tensor, *,
             done = done | (tok == eos_token)
         toks.append(tok)
         if i + 1 < max_new_tokens:
-            logits, cache = decode_step(params, cfg, tok, cache, lora=lora)
+            logits, cache = decode_step(params, cfg, tok, cache, mesh=mesh,
+                                        lora=lora)
     if not toks:
         return prompt
     return torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)

@@ -86,6 +86,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from paddle_operator_tpu_torch.infer import decode as D
 from paddle_operator_tpu_torch.infer import quant as Q
@@ -94,6 +95,7 @@ from paddle_operator_tpu_torch.models.llama import LlamaConfig
 from paddle_operator_tpu_torch.ops.decode_attention import (
     decode_attention,
     paged_decode_attention,
+    sharded_decode_attention,
 )
 from paddle_operator_tpu_torch.ops.quant_matmul import quant_gemm, quant_matmul
 
@@ -450,33 +452,36 @@ def _ring_forward(cfg: LlamaConfig, params, tok: torch.Tensor,
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """tok [B] at per-lane cache['pos'] -> (logits [B, V] f32, cache
     written in place with ``pos + 1``).  With the kernel selected (a
-    CUDA tensor) each layer's attention is ``decode_attention`` over
-    that layer's cache view with lengths ``pos + 1`` — kernel #1 serves
-    the contiguous ring as it serves batch decoding.  ``lora``:
-    ``(stacks, aid [B])``, each lane's adapter (infer/qos.py)."""
+    CUDA tensor) each layer's attention and wo are
+    ``sharded_decode_attention`` over the stacked cache with lengths
+    ``pos + 1`` — kernel #1 serves the contiguous ring as it serves
+    batch decoding.  ``lora``: ``(stacks, aid [B])``, each lane's
+    adapter (infer/qos.py)."""
     pos = cache["pos"]
-    x = params.tok_embed.embedding.to(cfg.dtype)[tok[:, None].long()]
+    x = D._embed(cfg, params, tok[:, None])
     cos, sin = params.rope_cos, params.rope_sin
-    b = x.shape[0]
-    hq, d = cfg.n_heads, cfg.head_dim
+    cfg = D._local(cfg, params)
     k_cache, v_cache = cache["k"], cache["v"]
     if cfg.resolved_decode_attn(x.device) == "kernel":
+        # kernel #1 on the rank's heads (all of them on one card), wo's
+        # rows and, on a serving mesh, the all-reduce: JAX's shard_map
+        # region
+        group = D._attn_group(D._shard_of(params))
         lengths = pos + 1
         for li, lp in enumerate(params.layers):
             q, k, v = _qkv_ring(cfg, lp, x, cos, sin, pos,
                                 layer_lora(lora, li))
             _write_lane(k_cache[li], k[:, 0], pos)
             _write_lane(v_cache[li], v[:, 0], pos)
-            out = decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
-                                   lengths, layer=li)
-            x = D._finish_layer(cfg, lp, x,
-                                out.reshape(b, 1, hq * d).to(cfg.dtype))
+            proj = sharded_decode_attention(
+                q[:, 0].contiguous(), k_cache, v_cache, lengths, lp.attn.wo,
+                group=group, layer=li, compute_dtype=cfg.dtype)
+            x = D._ffn_residual(cfg, lp, x + proj[:, None].to(cfg.dtype))
     else:
         for li, lp in enumerate(params.layers):
             x = _layer_step(cfg, lp, x, cos, sin, k_cache[li], v_cache[li],
                             pos, layer_lora(lora, li))
-    x = D._rms(x, params.final_norm.scale, cfg.norm_eps, cfg.dtype)
-    logits = D._mm(x, params.lm_head, cfg.dtype).float()
+    logits = D._logits(cfg, params, x)
     return logits[:, 0], {"k": k_cache, "v": v_cache, "pos": pos + 1}
 
 
@@ -1814,9 +1819,30 @@ class RingExecutor:
                  prefill_client: Any = None,
                  prefill_lanes: int = 1,
                  prefill_stream: bool = False,
-                 prefill_prefix_blocks: int = 0) -> None:
+                 prefill_prefix_blocks: int = 0,
+                 mesh=None) -> None:
         self.check_finite = bool(check_finite)
         self.prefill_mode = prefill_mode
+        # tensor-parallel serving: this rank's cut of the model, its
+        # heads' config and KV, the dispatch mode its group allows
+        tp = D.mesh_tp(mesh)
+        self.eager = False
+        if tp > 1:
+            # what such a ring refuses, the scheduler refuses by name
+            # (scheduler._refuse_on_tp)
+            D._require_shard(params, mesh)
+            cfg = D._local(cfg, params)
+            group = D._shard_of(params).group
+            backend = dist.get_backend(group)
+            on_card = params.tok_embed.embedding.device.type == "cuda"
+            # a gloo group's collectives cannot be captured in a CUDA
+            # graph: every dispatch then runs the program eagerly
+            self.eager = on_card and backend == "gloo"
+            how = ("as captured CUDA graphs" if on_card and not self.eager
+                   else "eagerly")
+            print(f"tensor-parallel ring: rank {dist.get_rank(group)} of "
+                  f"tp={tp} over {backend}; dispatches run {how}",
+                  flush=True)
         # many-adapter serving: a draft proposing base-only against an
         # adapted target would collapse acceptance, so the JAX ring
         # refuses the pair
@@ -2244,7 +2270,7 @@ class RingExecutor:
         it; the tokens come back as device tensors whose host copies are
         already queued."""
         n = plan.n_steps
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self.eager:
             self._upload(plan)
             toks, counts, raw, ok = self._program(n)
             return DispatchResult(toks, counts, n, raw, ok)
@@ -2265,7 +2291,8 @@ class RingExecutor:
         """On the card, before the first dispatch and after every
         :meth:`reset_state`: the graphs must be captured (while no lane
         is resident)."""
-        return self.device.type == "cuda" and self._graphs is None
+        return (self.device.type == "cuda" and not self.eager
+                and self._graphs is None)
 
     @torch.inference_mode()
     def capture_graphs(self) -> None:
@@ -2469,7 +2496,7 @@ class RingExecutor:
             self._slab.close()
 
     @torch.inference_mode()
-    def spill_lane(self, slot: int) -> Dict[str, Any]:
+    def spill_lane(self, slot: int, ids=None) -> Dict[str, Any]:
         """Capture a LIVE paged lane to host memory: its mapped blocks'
         exact pool bytes (codes and scales under int8, plus the lane's
         staging-tail row), its fill position and its carry token,
@@ -2486,11 +2513,17 @@ class RingExecutor:
         adapter slot ``aid``), with ``seed`` (the lane's int64
         sampler seed) where JAX keeps ``key``.  The tensors are CPU
         tensors — pinned on the card, where the device copies are queued
-        together and waited for once."""
-        pm = self.pool
-        m = int(pm.mapped_count[slot])
-        ids = to_device(np.asarray(pm.table[slot][:m], np.int32),
-                        self.device).long()
+        together and waited for once.
+
+        ``ids``: the lane's pool blocks, given by the leader of a
+        tensor-parallel ring (infer/tp.py) to a follower, whose own
+        allocator is not the ring's: each rank spills its own kv-head
+        slice of the same blocks."""
+        if ids is None:
+            pm = self.pool
+            ids = pm.table[slot][:int(pm.mapped_count[slot])]
+        m = len(ids)
+        ids = to_device(np.asarray(ids, np.int32), self.device).long()
         c = self.cache
         parts = {"k": c["k"].index_select(1, ids),
                  "v": c["v"].index_select(1, ids)}
@@ -2532,7 +2565,8 @@ class RingExecutor:
         return spill
 
     @torch.inference_mode()
-    def restore_lane(self, slot: int, spill: Dict[str, Any]) -> None:
+    def restore_lane(self, slot: int, spill: Dict[str, Any],
+                     ids=None) -> None:
         """Re-admit a spilled lane into the empty ``slot``: map fresh pool
         blocks, upload the spilled blocks through the promote scatter,
         write the staging-tail row (int8), the draft lane (speculative)
@@ -2542,17 +2576,20 @@ class RingExecutor:
         uninterrupted one.  No forward runs.
         Raises :class:`~paddle_operator_tpu_torch.infer.paged.
         NoFreeBlocks` when the pool cannot map the lane (the caller
-        retires ``slot`` to roll the partial mapping back)."""
-        pm = self.pool
-        if pm.mapped_count[slot]:
-            raise AssertionError(f"slot {slot} still holds blocks")
-        before = self._state_ptrs()
+        retires ``slot`` to roll the partial mapping back).  ``ids``
+        (a follower of a tensor-parallel ring): the blocks the leader's
+        allocator mapped, uploaded without touching this rank's."""
         m = int(spill["n_blocks"])
-        pm.ensure(slot, m * self.block_size)
+        if ids is None:
+            pm = self.pool
+            if pm.mapped_count[slot]:
+                raise AssertionError(f"slot {slot} still holds blocks")
+            pm.ensure(slot, m * self.block_size)
+            ids = pm.table[slot][:m]
+        before = self._state_ptrs()
         keys = ("k", "v", "ks", "vs") if self.quant else ("k", "v")
         if m:
-            self._promote_blocks(pm.table[slot][:m],
-                                 {key: spill[key] for key in keys})
+            self._promote_blocks(ids, {key: spill[key] for key in keys})
         c = self.cache
         if self.quant:
             c["kt"][:, slot].copy_(to_device(spill["kt"], self.device))
@@ -2596,6 +2633,14 @@ class RingExecutor:
         if self.quant:
             c["kt"][:, slot].zero_()
             c["vt"][:, slot].zero_()
+
+    def drop_spill(self, spill: Dict[str, Any]) -> None:
+        """A parked lane's spill is dropped without a restore (nothing
+        to do here; a tensor-parallel ring's leader tells its
+        followers)."""
+
+    def stop_followers(self) -> None:
+        """The ring is closing (nothing to do without followers)."""
 
     # -- live weight swap: the device half ----------------------------------
 

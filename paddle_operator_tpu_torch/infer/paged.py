@@ -71,7 +71,7 @@ from paddle_operator_tpu_torch.models.llama import LlamaConfig
 from paddle_operator_tpu_torch.ops.decode_attention import (
     gather_lane_view,
     gather_lane_view_quant,
-    paged_decode_attention,
+    sharded_paged_decode_attention,
 )
 from paddle_operator_tpu_torch.utils.radixkey import (
     chain_key as _radix_chain_key,
@@ -1169,8 +1169,9 @@ def paged_ring_forward(cfg: LlamaConfig, params, tok: torch.Tensor,
     per-lane ``cache['pos']`` -> (logits [B, V] f32, cache with the
     pools written in place and ``pos + 1``).  With the kernel selected
     (``cfg.resolved_decode_attn``: a CUDA tensor) each layer's
-    attention is ``paged_decode_attention`` over the pool layer and the
-    table, lengths ``pos + 1`` after the write — an inactive lane
+    attention and wo are ``sharded_paged_decode_attention`` over the
+    stacked pool at the layer and the table, lengths ``pos + 1`` after
+    the write — an inactive lane
     (``pos`` zeroed) reads one trash row; otherwise the plain path
     gathers the lane view.
 
@@ -1188,11 +1189,12 @@ def paged_ring_forward(cfg: LlamaConfig, params, tok: torch.Tensor,
 
     pos = cache["pos"]
     block_size = cache["k"].shape[3]
-    x = params.tok_embed.embedding.to(cfg.dtype)[tok[:, None].long()]
+    x = D._embed(cfg, params, tok[:, None])
     cos, sin = params.rope_cos, params.rope_sin
     b = x.shape[0]
-    hq, d = cfg.n_heads, cfg.head_dim
+    cfg = D._local(cfg, params)
     kernel = cfg.resolved_decode_attn(x.device) == "kernel"
+    group = D._attn_group(D._shard_of(params))
     lengths = pos + 1
     if quant:
         lanes = torch.arange(b, device=x.device)
@@ -1213,15 +1215,20 @@ def paged_ring_forward(cfg: LlamaConfig, params, tok: torch.Tensor,
                                block_size)
             _write_token_paged(cache["v"][li], v[:, 0], table, pos,
                                block_size)
+        qkw = ({"k_scale": cache["ks"], "v_scale": cache["vs"],
+                "k_tail": cache["kt"], "v_tail": cache["vt"]}
+               if quant else {})
         if kernel:
-            qkw = ({"k_scale": cache["ks"], "v_scale": cache["vs"],
-                    "k_tail": cache["kt"], "v_tail": cache["vt"]}
-                   if quant else {})
-            out = paged_decode_attention(q[:, 0].contiguous(), cache["k"],
-                                         cache["v"], table, lengths,
-                                         layer=li, **qkw)
-            out = out.reshape(b, 1, hq * d).to(cfg.dtype)
-        elif quant:
+            # kernel #2 (#3 on the int8 pool) on the rank's kv-head slice
+            # of the pool (all of it on one card), wo's rows and, on a
+            # serving mesh, the all-reduce
+            proj = sharded_paged_decode_attention(
+                q[:, 0].contiguous(), cache["k"], cache["v"], table,
+                lengths, lp.attn.wo, group=group, layer=li,
+                compute_dtype=cfg.dtype, **qkw)
+            x = D._ffn_residual(cfg, lp, x + proj[:, None].to(cfg.dtype))
+            continue
+        if quant:
             out = _attend_plain(cfg, q,
                                 _gather_view_quant(cache, "k", table, li, wb),
                                 _gather_view_quant(cache, "v", table, li, wb),
@@ -1238,8 +1245,7 @@ def paged_ring_forward(cfg: LlamaConfig, params, tok: torch.Tensor,
             commit = commit & active
         with torch.profiler.record_function("kv_quant_commit"):
             _commit_tails(cache, table, pos, commit, block_size)
-    x = D._rms(x, params.final_norm.scale, cfg.norm_eps, cfg.dtype)
-    logits = D._mm(x, params.lm_head, cfg.dtype).float()
+    logits = D._logits(cfg, params, x)
     return logits[:, 0], dict(cache, pos=pos + 1)
 
 

@@ -919,9 +919,10 @@ def main(argv=None) -> int:
                            "none (pass --device cpu to run on the CPU)")
     env = JobEnv.from_env()
     if int(os.environ.get("SERVE_TP", "1") or 1) > 1:
-        raise ValueError(f"SERVE_TP={os.environ['SERVE_TP']} (tensor "
-                         "parallelism) is not ported to the torch package "
-                         "yet (ROADMAP.md Queue A)")
+        raise ValueError(f"SERVE_TP={os.environ['SERVE_TP']} on a prefill "
+                         "pod (tensor parallelism of the prefill engine) is "
+                         "not ported to the torch package (ROADMAP.md Queue "
+                         "A item 8.5b)")
     preset = os.environ.get("MODEL_PRESET", "7b")
     params, cfg, resumed = load_serving_params(
         env.checkpoint_path, CONFIGS[preset], args.device)

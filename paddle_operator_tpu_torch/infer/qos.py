@@ -547,7 +547,7 @@ class AdapterRegistry:
 
 
 def lora_qkv(h: torch.Tensor, adp_l, aid: torch.Tensor, q: torch.Tensor,
-             k: torch.Tensor, v: torch.Tensor, dtype):
+             k: torch.Tensor, v: torch.Tensor, dtype, cols=None):
     """THE adapter-delta rule, applied at every q/k/v projection site
     (decode._qkv, executor._qkv_ring, speculative._proj_qkv, and through
     them every admission insert, prefill slice and resident tick), so
@@ -561,7 +561,12 @@ def lora_qkv(h: torch.Tensor, adp_l, aid: torch.Tensor, q: torch.Tensor,
     ``aid`` [B] int32 each lane's adapter slot: each lane's (A, B) is
     gathered, ``(h·A)·B`` computed in f32 and cast to ``dtype`` at the
     add.  Slot 0 is all zero, so an aid-0 lane adds an exact zero and
-    its stream is the adapterless ring's, bit for bit."""
+    its stream is the adapterless ring's, bit for bit.
+
+    ``cols`` (a rank of a tensor-parallel serving mesh: ``{proj:
+    slice}``, the rank's columns of wq, wk and wv): the stacks stay whole
+    on every rank, and each rank's delta fills its own columns — the
+    whole delta's, so they equal one card's bit for bit."""
     hf = h.float()
     idx = aid.long()
     out = []
@@ -569,6 +574,8 @@ def lora_qkv(h: torch.Tensor, adp_l, aid: torch.Tensor, q: torch.Tensor,
         a = adp_l[proj]["a"].index_select(0, idx)       # [B, dim, r]
         b = adp_l[proj]["b"].index_select(0, idx)       # [B, r, out]
         delta = torch.bmm(torch.bmm(hf, a), b)
+        if cols is not None:
+            delta = delta[..., cols[proj]]
         out.append(base + delta.to(dtype))
     return tuple(out)
 

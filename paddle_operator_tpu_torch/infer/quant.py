@@ -41,7 +41,7 @@ set, ``lm_head`` included.
 from __future__ import annotations
 
 import re
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -173,6 +173,50 @@ def quantize_params(model: nn.Module, cfg=None, *, mode: str = "int8",
         target.set_quantized(leaf["q"], leaf["s"], mode)
         del leaf
     return model
+
+
+def quant_passes(environ) -> List[Tuple[str, Optional[Tuple[str, ...]]]]:
+    """The ``(mode, skip)`` passes the serving env asks for, in the
+    order ``serve.quantize_from_env`` runs them: ``QUANTIZE=int8`` (the
+    legacy set, ``lm_head`` included), then ``SERVE_WEIGHT_QUANT=
+    int8|int4`` with :data:`SERVING_SKIP`.  A mode other than those
+    raises ``ValueError`` naming it."""
+    passes: List[Tuple[str, Optional[Tuple[str, ...]]]] = []
+    if environ.get("QUANTIZE", "") == "int8":
+        passes.append(("int8", None))
+    wq = environ.get("SERVE_WEIGHT_QUANT", "none") or "none"
+    if wq != "none":
+        if wq not in _MODES:
+            raise ValueError(f"unknown weight quant mode {wq!r} (want one "
+                             f"of {sorted(_MODES)})")
+        passes.append((wq, SERVING_SKIP))
+    return passes
+
+
+def leaf_quant_mode(path: str, passes) -> Optional[str]:
+    """The mode the first of ``passes`` (:func:`quant_passes`) that
+    targets the '/'-joined leaf ``path`` quantizes it in, or None: what
+    :func:`quantize_params` run pass by pass leaves that leaf as (a
+    quantized leaf is left as it is by later passes)."""
+    if not _TARGETS.search(path):
+        return None
+    for mode, skip in passes:
+        if not any(re.search(pat, path) for pat in (skip or ())):
+            return mode
+    return None
+
+
+def cut_quantized(q: torch.Tensor, s: torch.Tensor, rows: slice,
+                  cols: slice) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One rank's piece of a quantized projection ``{"q": [in, out],
+    "s": [1, out]}`` for a tensor-parallel serving mesh: the codes'
+    ``rows`` x ``cols`` block and the scales' ``cols``.  A
+    column-parallel projection (wq, wk, wv, w1, w3, lm_head) cuts both
+    by its columns; a row-parallel one (wo, w2) cuts the codes by rows
+    and keeps every scale (``cols`` whole): the scale is per output
+    column, constant along the contraction, so it commutes with the sum
+    of the ranks' partial products (views: the caller copies them)."""
+    return q[rows, cols], s[:, cols]
 
 
 def weight_quant_mode(model: nn.Module) -> str:

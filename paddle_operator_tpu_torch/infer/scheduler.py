@@ -101,13 +101,22 @@ waited that long.  :meth:`ContinuousBatcher.adopt` takes a peer's lane
 the device) and the loop restores it through the preemption restore.
 With ``peer_fetch`` set, the submit thread asks the fleet for a cold
 prompt's demoted blocks (peer, then the durable store) and the loop
-imports them into the host tier before the admission.  Not ported yet,
-and refused when asked for (ROADMAP.md Queue A): tensor-parallel
-serving.
+imports them into the host tier before the admission.
+
+``mesh`` (a ``parallel/mesh.py`` ``make_serving_mesh`` mesh of tp > 1,
+one process a card): the batcher is rank 0's, the leader of
+``infer/tp.py`` — its executor (a ``LeaderExecutor``) sends every call
+it is given to the other ranks, which run :func:`follow_ring` on the
+same arguments and replay them; ``params`` is each rank's cut of the
+model.  Refused on such a ring, by name (ROADMAP.md Queue A item 8.5b):
+the live swap and its tp resize, speculative decoding, the host tier
+and the durable store, fleet-level KV, disaggregated prefill and MoE
+presets.
 """
 
 from __future__ import annotations
 
+import inspect
 import os
 import queue
 import threading
@@ -131,6 +140,7 @@ from paddle_operator_tpu_torch.infer.resilience import (
     ShuttingDown,
 )
 from paddle_operator_tpu_torch.models.llama import LlamaConfig
+from paddle_operator_tpu_torch.parallel.mesh import mesh_tp
 from paddle_operator_tpu_torch.utils import tracing as TR
 
 PREFILL_MODES = ("inline", "chunked", "disagg")
@@ -145,6 +155,76 @@ def _fold_seed(seed: int) -> int:
     x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
     x ^= x >> 31
     return x & 0x7FFFFFFF
+
+
+# the batcher arguments a tensor-parallel ring refuses, each with the
+# knob that asks for it (ROADMAP.md Queue A item 8.5b)
+_TP_REFUSED = (
+    ("spec_k", "SERVE_SPEC_K (speculative decoding)"),
+    ("host_cache_blocks", "SERVE_HOST_CACHE_MB / SERVE_HOST_CACHE_BLOCKS "
+                          "(the host tier)"),
+)
+
+
+def _refuse_on_tp(tp: int, args: Dict[str, Any]) -> None:
+    """Refuse, by the knob that asks for it, what a tensor-parallel ring
+    does not serve."""
+    for name, knob in _TP_REFUSED:
+        if args.get(name):
+            raise _unported(f"{knob} on a tensor-parallel ring "
+                            f"(SERVE_TP={tp}; item 8.5b)")
+    if args.get("prefill_mode") == "disagg":
+        raise _unported(f"SERVE_PREFILL=disagg on a tensor-parallel ring "
+                        f"(SERVE_TP={tp}; item 8.5b)")
+    if args["cfg"].n_experts > 0:
+        raise _unported(f"an MoE preset on a tensor-parallel ring "
+                        f"(SERVE_TP={tp}; item 8.5b)")
+
+
+def _ring_executor(params, cfg: LlamaConfig,
+                   a: Dict[str, Any]) -> "X.RingExecutor":
+    """The ring's executor from the batcher's arguments ``a`` (every
+    parameter of :class:`ContinuousBatcher`, defaults included): what
+    the leader of a tensor-parallel ring builds and what each follower
+    (:func:`follow_ring`) builds from the same arguments."""
+    res = a["resilience"]
+    return X.RingExecutor(
+        params, cfg, slots=a["slots"],
+        max_len=a["max_len"] or cfg.max_seq_len,
+        chunk_tokens=a["chunk_tokens"],
+        prefill_buckets=a["prefill_buckets"], top_k=a["top_k"],
+        top_p=a["top_p"],
+        paged=a["paged"] or a["prefill_mode"] == "disagg",
+        block_size=a["block_size"], num_blocks=a["num_blocks"],
+        prefix_cache=a["prefix_cache"], kv_quant=a["kv_quant"],
+        megastep=int(a["megastep"]),
+        host_cache_blocks=a["host_cache_blocks"],
+        prefill_chunk=a["prefill_chunk"], draft_params=a["draft_params"],
+        draft_cfg=a["draft_cfg"], spec_k=a["spec_k"],
+        adapters=a["adapters"],
+        check_finite=bool(res and res.nan_check),
+        prefill_mode=a["prefill_mode"], prefill_client=a["prefill_client"],
+        prefill_lanes=a["prefill_lanes"],
+        prefill_stream=a["prefill_stream"],
+        prefill_prefix_blocks=a["prefill_prefix_blocks"], mesh=a["mesh"])
+
+
+def follow_ring(params: Any, cfg: LlamaConfig, **kw) -> int:
+    """A follower rank (rank > 0) of a tensor-parallel ring: build the
+    executor the leader's ``ContinuousBatcher(params, cfg, **kw)`` builds
+    (``kw`` the same arguments, ``mesh`` included; ``params`` this
+    rank's cut; ``adapters`` this rank's registry) and replay the
+    leader's calls on it (``infer/tp.py`` ``follow``) until the leader
+    closes the ring; returns 0."""
+    from paddle_operator_tpu_torch.infer import tp as TPR
+
+    bound = inspect.signature(ContinuousBatcher.__init__).bind(
+        None, params, cfg, **kw)
+    bound.apply_defaults()
+    a = dict(bound.arguments)
+    _refuse_on_tp(mesh_tp(a["mesh"]), a)
+    ex = _ring_executor(params, cfg, a)
+    return TPR.follow(ex, TPR.channel_for(a["mesh"]), a["adapters"])
 
 
 def _unported(what: str) -> NotImplementedError:
@@ -365,11 +445,13 @@ class ContinuousBatcher:
                  prefill_prefix_blocks: int = 0,
                  trace: Optional[bool] = None,
                  generation: int = 0) -> None:
+        args = dict(locals())
         if prefill_mode not in PREFILL_MODES:
             raise ValueError(f"prefill_mode {prefill_mode!r} not in "
                              f"{PREFILL_MODES}")
-        if mesh is not None:
-            raise _unported("tensor-parallel serving (mesh)")
+        self.tp = mesh_tp(mesh)
+        if self.tp > 1:
+            _refuse_on_tp(self.tp, args)
         if prefill_mode == "disagg":
             # the disaggregated handoff is block-granular by design: the
             # paged pool IS the transfer unit
@@ -428,19 +510,16 @@ class ContinuousBatcher:
         self.hist = TR.ServeHistograms()
         self.flightrec = TR.FlightRecorder(pod=pod)
 
-        self.executor = X.RingExecutor(
-            params, cfg, slots=slots, max_len=self.max_len,
-            chunk_tokens=chunk_tokens, prefill_buckets=prefill_buckets,
-            top_k=top_k, top_p=top_p, paged=paged, block_size=block_size,
-            num_blocks=num_blocks, prefix_cache=prefix_cache,
-            kv_quant=kv_quant, megastep=self.megastep,
-            host_cache_blocks=host_cache_blocks,
-            prefill_chunk=prefill_chunk, draft_params=draft_params,
-            draft_cfg=draft_cfg, spec_k=spec_k, adapters=adapters,
-            check_finite=self._check_finite, prefill_mode=prefill_mode,
-            prefill_client=prefill_client, prefill_lanes=prefill_lanes,
-            prefill_stream=prefill_stream,
-            prefill_prefix_blocks=prefill_prefix_blocks)
+        self.executor = _ring_executor(params, cfg, args)
+        if self.tp > 1:
+            # the leader of a tensor-parallel ring: every executor call
+            # and adapter load/evict reaches the followers first
+            from paddle_operator_tpu_torch.infer import tp as TPR
+
+            channel = TPR.channel_for(mesh)
+            self.executor = TPR.LeaderExecutor(self.executor, channel)
+            if adapters is not None:
+                self.adapters = TPR.LeaderAdapters(adapters, channel)
         self.device = self.executor.device
         self.spec_k = self.executor.spec_k
         self.draft_cfg = self.executor.draft_cfg
@@ -913,9 +992,9 @@ class ContinuousBatcher:
     # -- live weight swap --------------------------------------------------
 
     def serving_tp(self) -> int:
-        """The tensor-parallel degree served: 1 (tensor-parallel serving
-        is not ported; ROADMAP.md Queue A)."""
-        return 1
+        """The tensor-parallel degree served: the mesh's tp (1 without a
+        mesh)."""
+        return self.tp
 
     def swap_weights(self, params: Any, *, draft_params: Any = None,
                      mesh: Any = None, tp: int = 1,
@@ -938,9 +1017,15 @@ class ContinuousBatcher:
         the old models back and raises here, and the generation does not
         move.  ``generation=None`` bumps it by one; a value sets it.
         ``mesh`` / ``tp`` other than None / 1 (a tensor-parallel resize)
-        are refused.  Returns the post-swap summary."""
-        if mesh is not None or int(tp) != 1:
-            raise _unported("a tensor-parallel resize (mesh / tp > 1)")
+        are refused, and so is any swap on a tensor-parallel ring.
+        Returns the post-swap summary."""
+        if mesh is not None or int(tp) != self.tp:
+            raise _unported(f"a tensor-parallel resize to tp={tp} (mesh) "
+                            "(ROADMAP.md Queue A item 8.5b)")
+        if self.tp > 1:
+            raise _unported(f"a live weight swap on a tensor-parallel "
+                            f"ring (SERVE_TP={self.tp}; ROADMAP.md Queue "
+                            "A item 8.5b)")
         if self.pool is None:
             raise ValueError(
                 "live weight swap requires the paged ring "
@@ -1130,8 +1215,10 @@ class ContinuousBatcher:
         if self.executor.prefill_exec is not None:
             self.executor.prefill_exec.close()
         if not self._thread.is_alive():
-            # the ring thread is gone: its host tier's memory goes back
+            # the ring thread is gone: its host tier's memory goes back,
+            # and a tensor-parallel ring's followers stop replaying
             self.executor.close_host_tier()
+            self.executor.stop_followers()
         # late blocked submitters can land requests after the loop's own
         # drain pass — sweep again so none hangs at result()
         self._shed_queue(ShuttingDown("batcher closed"))
@@ -1194,6 +1281,7 @@ class ContinuousBatcher:
         for pk in self._parked:
             if not pk.req.done.is_set():
                 self._finish(pk.req, wrapped)
+        spills = [pk.spill for pk in self._parked]
         self._parked.clear()
         self.lane = [None] * self.slots
         self._lane_out = [[] for _ in range(self.slots)]
@@ -1217,6 +1305,10 @@ class ContinuousBatcher:
         if not healing:
             return False
         backoff = self._budget.spend()
+        # the ring goes on: a tensor-parallel ring's followers drop their
+        # halves of the spills too (at close they end with their loops)
+        for spill in spills:
+            self.executor.drop_spill(spill)
         self.executor.reset_state()
         # the rebuilt pool is fresh (no store): re-attach the durable
         # store — surviving a rebuild is its point, and the rebuilt
@@ -1811,6 +1903,7 @@ class ContinuousBatcher:
         """Drop a parked lane; an unresolved request resolves with the
         tokens it had at the spill boundary."""
         self._parked.remove(pk)
+        self.executor.drop_spill(pk.spill)
         if not pk.req.done.is_set():
             pk.req.out = pk.req.prompt + pk.out
             self._finish(pk.req)
@@ -1956,7 +2049,8 @@ class ContinuousBatcher:
         """Wire the durable prefix store (infer/kvstore.KVBlockStore)
         into both halves: the POOL's spill path (tier overflow persists,
         its radix nodes surviving store-resident) and the SUBMIT probe.
-        Requires the paged pool with the host tier."""
+        Requires the paged pool with the host tier (so never on a
+        tensor-parallel ring)."""
         if self.pool is None or self.pool.host is None:
             raise ValueError(
                 "KV store requires paged attention with the host cache "

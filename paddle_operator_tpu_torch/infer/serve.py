@@ -111,11 +111,29 @@ class Generator:
     batch at a time on the params' device, under inference mode."""
 
     def __init__(self, params: Llama, cfg: LlamaConfig, mesh=None) -> None:
-        D._refuse_mesh(mesh)
+        from paddle_operator_tpu_torch.infer import tp as TPR
+
         self.params = params
         self.cfg = cfg
+        self.mesh = mesh
         self.device = params.tok_embed.embedding.device
         self._lock = threading.Lock()
+        # a tensor-parallel batch server (mesh, rank 0): every request
+        # reaches the other ranks (infer/tp.py follow_batch) before it
+        # runs here, under the one lock
+        self._channel = (TPR.channel_for(mesh)
+                         if D.mesh_tp(mesh) > 1 else None)
+
+    def close(self) -> None:
+        """Stop a tensor-parallel batch server's other ranks (best
+        effort: a request stuck in its collectives keeps the lock)."""
+        if self._channel is not None and self._lock.acquire(timeout=5):
+            try:
+                if self._channel is not None:
+                    self._channel.send((("stop", None), None, None))
+                    self._channel = None
+            finally:
+                self._lock.release()
 
     def __call__(self, tokens: np.ndarray, *, max_new_tokens: int,
                  temperature: float = 0.0, top_k: Optional[int] = None,
@@ -130,16 +148,18 @@ class Generator:
             raise ValueError(f"token ids must lie in [0, "
                              f"{self.cfg.vocab_size})")
         with self._lock, torch.inference_mode():
+            kw = dict(max_new_tokens=max_new_tokens, temperature=temperature,
+                      top_k=top_k, top_p=top_p, eos_token=eos_token)
+            if self._channel is not None:
+                self._channel.send((("generate", None),
+                                    dict(kw, tokens=tokens, seed=seed), None))
             prompt = torch.as_tensor(tokens, device=self.device)
             gen = None
             if temperature > 0:
                 gen = torch.Generator(device=self.device)
                 gen.manual_seed(seed)
-            out = D.generate(self.params, self.cfg, prompt,
-                             max_new_tokens=max_new_tokens,
-                             temperature=temperature, top_k=top_k,
-                             top_p=top_p, eos_token=eos_token,
-                             generator=gen)
+            out = D.generate(self.params, self.cfg, prompt, generator=gen,
+                             mesh=self.mesh, **kw)
             return out.cpu().numpy()
 
 
@@ -502,8 +522,14 @@ class _Handler(BaseHTTPRequestHandler):
             tp = req.get("tp")
             if tp is not None and int(tp) != b.serving_tp():
                 raise NotImplementedError(
-                    f"a swap to tp={tp}: tensor-parallel serving is not "
-                    "ported to the torch package yet (ROADMAP.md Queue A)")
+                    f"a swap to tp={tp}: a tensor-parallel resize is not "
+                    "ported to the torch package (ROADMAP.md Queue A item "
+                    "8.5b)")
+            if b.serving_tp() > 1:
+                raise NotImplementedError(
+                    f"a live swap on a tensor-parallel ring (SERVE_TP="
+                    f"{b.serving_tp()}) is not ported to the torch package "
+                    "(ROADMAP.md Queue A item 8.5b)")
             wq = req.get("weight_quant")
             if wq is None:
                 wq = (base or {}).get("weight_quant", "none")
@@ -747,15 +773,16 @@ def make_server(host: str, port: int, params: Llama, cfg: LlamaConfig,
     chunk_tokens, max_len, paged, block_size, num_blocks, prefix_cache,
     max_queue, qos, resilience, prewarm, ...).  The returned server
     carries ``.generator`` (call its ``close()`` to stop a ring) and
-    ``.state`` (the drain flags)."""
-    D._refuse_mesh(mesh)
+    ``.state`` (the drain flags).  ``mesh``: a serving mesh of tp > 1
+    (one process a card): this is rank 0's server, ``params`` its cut,
+    and the other ranks replay its work (``infer/tp.py``)."""
     if continuous:
-        gen = ContinuousGenerator(params, cfg, **ring_kw)
+        gen = ContinuousGenerator(params, cfg, mesh=mesh, **ring_kw)
     else:
         if ring_kw:
             raise TypeError(f"batch mode takes no ring options "
                             f"({sorted(ring_kw)})")
-        gen = Generator(params, cfg)
+        gen = Generator(params, cfg, mesh=mesh)
     state = ServerState()
     handler = type("Handler", (_Handler,),
                    {"generator": gen, "state": state,
@@ -766,18 +793,62 @@ def make_server(host: str, port: int, params: Llama, cfg: LlamaConfig,
     return srv
 
 
+def serve_tp(environ) -> int:
+    """``SERVE_TP`` (unset or 0: 1)."""
+    return int(environ.get("SERVE_TP", "1") or 1)
+
+
 def refuse_unported(environ) -> None:
     """Raise on every knob this port cannot honour yet — it never
     silently serves something else than what was asked for.  Each
-    refused knob is named in the message.  The one left is
-    ``SERVE_TP`` > 1 (tensor-parallel serving)."""
+    refused knob is named in the message.  Under ``SERVE_TP`` > 1 (one
+    process a card, rank 0 serving HTTP) these are refused, in
+    ROADMAP.md Queue A item 8.5b's order: ``SERVE_SPEC_K`` > 0, the
+    host tier (``SERVE_HOST_CACHE_MB`` / ``_BLOCKS``), ``SERVE_KV_STORE``,
+    ``SERVE_KV_MIGRATE`` and ``SERVE_KV_PEER_FETCH`` (whole-lane host
+    bytes gathered from the ranks), ``SERVE_PREFILL=disagg`` and an MoE
+    ``MODEL_PRESET``; the live swap and its tp resize are refused when
+    asked for (``POST /v1/swap``)."""
+    from paddle_operator_tpu_torch.models.llama import CONFIGS
+
+    tp = serve_tp(environ)
+    if tp <= 1:
+        return
     refused = []
-    if int(environ.get("SERVE_TP", "1") or 1) > 1:
-        refused.append(f"SERVE_TP={environ['SERVE_TP']} (tensor "
-                       "parallelism)")
+    if int(environ.get("SERVE_SPEC_K", "0") or 0) > 0:
+        refused.append(f"SERVE_SPEC_K={environ['SERVE_SPEC_K']} "
+                       "(speculative decoding)")
+    for knob in ("SERVE_HOST_CACHE_MB", "SERVE_HOST_CACHE_BLOCKS"):
+        if float(environ.get(knob, "0") or 0) > 0:
+            refused.append(f"{knob}={environ[knob]} (the host tier)")
+    if environ.get("SERVE_KV_STORE", "").strip():
+        refused.append(f"SERVE_KV_STORE={environ['SERVE_KV_STORE']} (the "
+                       "durable prefix store)")
+    for knob in ("SERVE_KV_MIGRATE", "SERVE_KV_PEER_FETCH"):
+        if environ.get(knob, "0") not in ("", "0"):
+            refused.append(f"{knob}={environ[knob]} (fleet-level KV)")
+    if environ.get("SERVE_PREFILL", "inline") == "disagg":
+        refused.append("SERVE_PREFILL=disagg (disaggregated prefill)")
+    preset = environ.get("MODEL_PRESET", "7b")
+    if preset in CONFIGS and CONFIGS[preset].n_experts > 0:
+        refused.append(f"MODEL_PRESET={preset} (an MoE preset)")
     if refused:
-        raise ValueError("not ported to the torch package yet "
-                         "(ROADMAP.md Queue A): " + "; ".join(refused))
+        raise ValueError(f"not ported to the torch package under SERVE_TP="
+                         f"{tp} (ROADMAP.md Queue A item 8.5b): "
+                         + "; ".join(refused))
+
+
+def check_start(environ, cards: int) -> int:
+    """The start checks of a serving pod that sees ``cards`` CUDA cards:
+    :func:`refuse_unported`, and ``SERVE_TP`` cards or more (one process
+    a card; a pod never shares one), refused by name.  Returns the
+    tp."""
+    refuse_unported(environ)
+    tp = serve_tp(environ)
+    if tp > 1 and cards < tp:
+        raise ValueError(f"SERVE_TP={tp} runs one process a card; this pod "
+                         f"sees {cards} CUDA card(s)")
+    return tp
 
 
 def ring_kw_from_env(environ, cfg: Optional[LlamaConfig] = None) -> dict:
@@ -1191,7 +1262,75 @@ def quantize_from_env(model: Llama, cfg: LlamaConfig, environ) -> str:
     return Q.weight_quant_mode(model)
 
 
-def main() -> int:
+def load_serving_shard(path: str, cfg: LlamaConfig, mesh, device="cuda",
+                       passes=(), seed: int = 0
+                       ) -> Tuple[Llama, LlamaConfig, bool]:
+    """:func:`load_serving_params` for one rank of a tensor-parallel
+    serving ``mesh``: the same weights — the newest committed step under
+    ``path`` read into host memory, else the fresh init from ``seed`` —
+    quantized under ``passes`` (``infer/quant.py`` ``quant_passes``) and
+    cut tensor by tensor into this rank's shard on ``device``
+    (``decode.shard_params_for_serving`` / ``init_serving_shard``): the
+    card never holds the whole model.  Returns ``(shard, its config,
+    resumed)``."""
+    from paddle_operator_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+        resume_or_init,
+    )
+
+    cfg = dataclasses.replace(cfg, param_dtype=cfg.dtype)
+    mgr = CheckpointManager(path)
+    if mgr.enabled and mgr.latest_step() is not None:
+        host, resumed = resume_or_init(mgr, None,
+                                       state_like=Llama(cfg, "cpu"))
+        return (D.shard_params_for_serving(host, cfg, mesh, device=device,
+                                           passes=passes), cfg, resumed)
+    return (D.init_serving_shard(cfg, mesh, seed=seed, device=device,
+                                 passes=passes), cfg, False)
+
+
+def serve_tp_pod(tp: int, device: str, argv) -> int:
+    """The replica of ``SERVE_TP=tp``: one process a card — ``python -m
+    paddle_operator_tpu_torch.infer.serve`` again with ``LOCAL_RANK``
+    set, started and supervised as ``launch/launcher.py`` ``run_pod``
+    starts a pod's cards (SIGTERM forwarded to every rank; a rank that
+    fails ends the others within ``SIBLING_GRACE_S`` and the replica
+    with its code).  The ranks meet at ``SERVE_TP_ADDR`` (a free local
+    port); rank 0 serves HTTP.  Returns the replica's exit code."""
+    import socket
+    import sys
+
+    from paddle_operator_tpu_torch.launch.launcher import run_pod
+
+    if device == "cuda":
+        check_start(os.environ, torch.cuda.device_count())
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    os.environ["SERVE_TP_ADDR"] = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
+    sock.close()
+    return run_pod([sys.executable, "-m", "paddle_operator_tpu_torch.infer."
+                    "serve", *argv], tp)
+
+
+def join_tp_group(tp: int, device: str):
+    """This rank's serving mesh (a rank started by :func:`serve_tp_pod`:
+    ``LOCAL_RANK``, ``SERVE_TP_ADDR``): the process group over the tp
+    ranks — nccl on the card (card ``LOCAL_RANK``), gloo on the CPU —
+    and ``parallel/mesh.py`` ``make_serving_mesh`` over it."""
+    import torch.distributed as dist
+
+    from paddle_operator_tpu_torch.parallel.mesh import make_serving_mesh
+
+    rank = int(os.environ["LOCAL_RANK"])
+    if device == "cuda":
+        torch.cuda.set_device(rank)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=os.environ["SERVE_TP_ADDR"],
+                            world_size=tp, rank=rank)
+    return make_serving_mesh(tp, device=device)
+
+
+def main(argv=None) -> int:
     """Serving entrypoint: restore MODEL_PRESET (default 7b) from
     TPUJOB_CHECKPOINT_PATH — fresh init from seed 0 when it holds no
     step — on the card in the serving dtype (``load_serving_params``)
@@ -1210,8 +1349,19 @@ def main() -> int:
     rebuilds from it (0: a swap must name a checkpoint).
     ``TPUJOB_CHAOS`` installs the fault injector (infer/chaos.py) on the
     ring, and the ``SERVE_KV_*`` knobs wire fleet-level KV
-    (``wire_fleet_kv_from_env``).  Only ``SERVE_TP`` > 1 is refused
-    (``refuse_unported``)."""
+    (``wire_fleet_kv_from_env``).
+
+    ``SERVE_TP=N`` > 1 runs one process a card (:func:`serve_tp_pod`):
+    each rank restores or inits the same weights and keeps its cut
+    (:func:`load_serving_shard`); rank 0 serves HTTP with the mesh
+    (``make_server(mesh=...)``), every other rank replays rank 0's ring
+    (``scheduler.follow_ring``) or batch calls (``infer/tp.py``
+    ``follow_batch``).  SIGTERM drains rank 0, which then stops the
+    others; the replica exits 83.  A pod that sees fewer cards than N,
+    and the knobs a tensor-parallel ring does not serve
+    (``refuse_unported``), are refused by name.  ``argv``: ``--device
+    cpu`` serves from the CPU (gloo between the ranks)."""
+    import argparse
     from paddle_operator_tpu_torch.ft.preemption import PreemptionWatcher
     from paddle_operator_tpu_torch.infer.chaos import maybe_install_from_env
     from paddle_operator_tpu_torch.infer.quant import weight_quant_mode
@@ -1219,18 +1369,47 @@ def main() -> int:
     from paddle_operator_tpu_torch.launch.launcher import JobEnv
     from paddle_operator_tpu_torch.models.llama import CONFIGS
 
+    from paddle_operator_tpu_torch.infer import quant as Q
+
+    ap = argparse.ArgumentParser(prog="serve")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="cuda (default) or cpu")
+    argv = list(argv or [])
+    opts = ap.parse_args(argv)
+    device = opts.device
     env = JobEnv.from_env()
     refuse_unported(os.environ)
-    if not torch.cuda.is_available():
+    if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("the torch server runs on a CUDA card and "
                            "found none")
+    tp = serve_tp(os.environ)
+    if tp > 1 and "LOCAL_RANK" not in os.environ:
+        return serve_tp_pod(tp, device, argv)
+    follower = tp > 1 and int(os.environ["LOCAL_RANK"]) > 0
+    if follower:
+        # rank 0 drains on SIGTERM and then stops this rank
+        import signal
+
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        signal.signal(signal.SIGINT, signal.SIG_IGN)
     continuous = os.environ.get("SERVE_CONTINUOUS", "0") == "1"
     preset = os.environ.get("MODEL_PRESET", "7b")
-    ring_kw = (ring_kw_from_env(os.environ, CONFIGS[preset]) if continuous
+    base = CONFIGS[preset]
+    ring_kw = (ring_kw_from_env(os.environ, base) if continuous
                else {})
-    params, cfg, resumed = load_serving_params(
-        env.checkpoint_path, CONFIGS[preset], "cuda")
-    retain = (continuous
+    mesh = None
+    if tp > 1:
+        mesh = join_tp_group(tp, device)
+        params, cfg, resumed = load_serving_shard(
+            env.checkpoint_path, base, mesh, device,
+            Q.quant_passes(os.environ))
+        if follower:
+            return _follow_rank(params, cfg, mesh, continuous, ring_kw,
+                                device)
+    else:
+        params, cfg, resumed = load_serving_params(
+            env.checkpoint_path, base, device)
+    retain = (continuous and tp == 1
               and os.environ.get("SERVE_SWAP_RETAIN", "1") == "1")
     swap_base = None
     if retain:
@@ -1238,17 +1417,18 @@ def main() -> int:
                      "weight_quant": (os.environ.get("SERVE_WEIGHT_QUANT",
                                                      "none") or "none"),
                      "legacy_quant": os.environ.get("QUANTIZE", "") == "int8"}
-    wquant = quantize_from_env(params, cfg, os.environ)
+    wquant = (quantize_from_env(params, cfg, os.environ) if tp == 1
+              else Q.weight_quant_mode(params))
     mode = "batch"
     if continuous:
-        spec_kw = spec_kw_from_env(os.environ, cfg, "cuda", retain=retain)
+        spec_kw = spec_kw_from_env(os.environ, cfg, device, retain=retain)
         if retain and "draft_base" in spec_kw:
             swap_base["draft_params"] = spec_kw.pop("draft_base")
             swap_base["draft_quant"] = spec_kw.pop("draft_quant")
         ring_kw.update(spec_kw)
         ring_kw.update(adapter_kw_from_env(os.environ, cfg,
                                            ring_kw.get("spec_k", 0),
-                                           "cuda"))
+                                           device))
         if ring_kw.get("prefill_mode") == "disagg":
             # SERVE_PREFILL_REMOTE=1: cold prefills go to the prefill pool
             from paddle_operator_tpu_torch.infer.prefill_serve import (
@@ -1270,12 +1450,13 @@ def main() -> int:
                 f"adapters={len(ring_kw.get('adapters') or ())}, "
                 f"slots={ring_kw['slots']}, "
                 f"chunk={ring_kw['chunk_tokens']}")
+    card = torch.cuda.get_device_name(0) if device == "cuda" else "cpu"
     print(f"serving {preset} (resumed={resumed}, weight_quant={wquant}, "
-          f"mode={mode}, "
-          f"device={torch.cuda.get_device_name(0)}) on :{env.port}",
+          f"mode={mode}, tp={tp}, "
+          f"device={card}) on :{env.port}",
           flush=True)
     srv = make_server("0.0.0.0", env.port, params, cfg,
-                      continuous=continuous,
+                      continuous=continuous, mesh=mesh,
                       job=os.environ.get("TPUJOB_NAME", "local"),
                       replica=os.environ.get("TPUJOB_REPLICA_ID", ""),
                       **ring_kw)
@@ -1288,11 +1469,41 @@ def main() -> int:
         wire_fleet_kv_from_env(batcher, env.port)
         wire_kv_store_from_env(batcher)
     watcher = PreemptionWatcher.install()
+    exit_fn = None
+    if tp > 1:
+        def exit_fn(code: int) -> None:
+            # the other ranks stop with rank 0 (the ring's close already
+            # stopped them after a drain; a batch server's stop here) —
+            # best effort: a rank that is gone already cannot be told
+            stop = (batcher.executor.stop_followers if batcher is not None
+                    else srv.generator.close)
+            try:
+                stop()
+            except Exception as err:
+                print(f"serve: the other ranks were not stopped: {err}",
+                      flush=True)
+            os._exit(code)
     drain = ServingDrain(srv, srv.state, batcher=batcher,
                          budget_s=float(os.environ.get(
-                             "SERVE_DRAIN_BUDGET_S", "30")))
+                             "SERVE_DRAIN_BUDGET_S", "30")),
+                         exit_fn=exit_fn)
     drain.install(watcher)
     return serve_until_drained(srv, drain)
+
+
+def _follow_rank(params, cfg, mesh, continuous: bool, ring_kw: dict,
+                 device: str) -> int:
+    """A rank > 0 of ``SERVE_TP``: the ring's arguments as rank 0 builds
+    them (its adapter registry from the same env), then replay rank 0's
+    calls until it stops the ring."""
+    from paddle_operator_tpu_torch.infer import tp as TPR
+    from paddle_operator_tpu_torch.infer.scheduler import follow_ring
+
+    if not continuous:
+        return TPR.follow_batch(params, cfg, mesh, TPR.channel_for(mesh))
+    ring_kw = dict(ring_kw)
+    ring_kw.update(adapter_kw_from_env(os.environ, cfg, 0, device))
+    return follow_ring(params, cfg, mesh=mesh, **ring_kw)
 
 
 def serve_until_drained(srv, drain) -> int:
@@ -1310,4 +1521,6 @@ def serve_until_drained(srv, drain) -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    import sys
+
+    raise SystemExit(main(sys.argv[1:]))

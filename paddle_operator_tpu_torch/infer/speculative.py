@@ -138,8 +138,7 @@ def _attend_rows(cfg: LlamaConfig, q: torch.Tensor, k_view: torch.Tensor,
 
 def _head(cfg: LlamaConfig, params, x: torch.Tensor) -> torch.Tensor:
     """Final norm and lm head: [B, T, dim] -> [B, T, vocab] f32."""
-    x = D._rms(x, params.final_norm.scale, cfg.norm_eps, cfg.dtype)
-    return D._mm(x, params.lm_head, cfg.dtype).float()
+    return D._logits(cfg, params, x)
 
 
 def _multi_forward(cfg: LlamaConfig, params, toks: torch.Tensor,
@@ -154,10 +153,12 @@ def _multi_forward(cfg: LlamaConfig, params, toks: torch.Tensor,
     intermediate chunked-prefill slice (executor.make_prefill_chunk)
     only appends KV.  ``lora``: ``(stacks, aid [B])``, each row's
     adapter (the chunked prefill's slices; the speculative round stays
-    base-only, adapters being refused on speculative rings).  The JAX
-    function's TP variant is not ported yet."""
+    base-only, adapters being refused on speculative rings).  On a rank
+    of a serving mesh ``params`` is its cut and ``cfg`` its config
+    (infer/decode.py: the embedding, wo, w2 and the head take their
+    collectives)."""
     pos = cache["pos"]
-    x = params.tok_embed.embedding.to(cfg.dtype)[toks.long()]
+    x = D._embed(cfg, params, toks)
     cos, sin = params.rope_cos, params.rope_sin
     for li, lp in enumerate(params.layers):
         x = _layer_multi(cfg, lp, x, cos, sin, cache["k"][li],
@@ -299,9 +300,10 @@ def _multi_forward_paged(cfg: LlamaConfig, params, toks: torch.Tensor,
     ``aligned=True`` (bf16; block-aligned ``pos``, a block-multiple
     ``T``: the N-lane prefill engine's slices): whole-block writes, the
     pad rows of the straddling block included, as the JAX function
-    writes them.  The JAX function's TP variant is not ported yet."""
+    writes them.  On a rank of a serving mesh, as
+    :func:`_multi_forward`."""
     pos = cache["pos"]
-    x = params.tok_embed.embedding.to(cfg.dtype)[toks.long()]
+    x = D._embed(cfg, params, toks)
     cos, sin = params.rope_cos, params.rope_sin
     for li, lp in enumerate(params.layers):
         x = _layer_multi_paged(cfg, lp, x, cos, sin, cache, li, table, pos,

@@ -175,6 +175,17 @@ class LlamaConfig:
     def head_dim(self) -> int:
         return self.dim // self.n_heads
 
+    def decode_tp_compatible(self, tp: int) -> bool:
+        """Whether the decode kernels can run tensor-parallel over ``tp``
+        shards (JAX ``LlamaConfig.decode_tp_compatible``): the kv-head
+        axis must split evenly, so each shard contracts WHOLE GQA groups
+        (the query heads then split with it).  A config that fails this
+        serves sharded with its attention whole on every rank, through
+        the plain einsum attention (the JAX package's GSPMD einsum
+        fallback)."""
+        return tp <= 1 or (self.n_kv_heads % tp == 0
+                           and self.n_heads % tp == 0)
+
     def flops_per_token(self) -> float:
         """Approximate training FLOPs/token (fwd+bwd ~ 6 N_active +
         attention), for MFU."""
@@ -206,6 +217,41 @@ class LlamaConfig:
             + 2 * d                                    # norms
         )
         return v * d + self.n_layers * per_layer + d + d * v
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingShardConfig(LlamaConfig):
+    """The config one rank of a tensor-parallel serving mesh runs the
+    decode path with (:func:`serving_shard_config`): ``n_heads`` and
+    ``n_kv_heads`` are the rank's own (the model's divided by ``tp``) at
+    the model's ``head_dim`` (``full_heads`` keeps the model's query-head
+    count); every other field is the model's.  The KV caches, the
+    projections' reshapes and the decode kernels then work on the rank's
+    heads as they work on a whole model's."""
+
+    full_heads: int = 0
+    tp: int = 1
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.full_heads
+
+
+def serving_shard_config(cfg: LlamaConfig, tp: int) -> LlamaConfig:
+    """``cfg`` as one rank of a ``tp``-way serving mesh runs it: ``cfg``
+    itself at tp 1; the rank's heads (:class:`ServingShardConfig`) when
+    the kv heads split (``decode_tp_compatible``); else ``cfg`` with the
+    plain einsum attention over the whole heads, which every rank then
+    holds (the JAX package's fallback for indivisible kv heads)."""
+    if tp <= 1 or isinstance(cfg, ServingShardConfig):
+        return cfg
+    if not cfg.decode_tp_compatible(tp):
+        return dataclasses.replace(cfg, decode_attn="plain")
+    fields = {f.name: getattr(cfg, f.name)
+              for f in dataclasses.fields(LlamaConfig)}
+    fields.update(n_heads=cfg.n_heads // tp,
+                  n_kv_heads=cfg.n_kv_heads // tp)
+    return ServingShardConfig(**fields, full_heads=cfg.n_heads, tp=tp)
 
 
 # Presets: the JAX package's, same names and shapes.

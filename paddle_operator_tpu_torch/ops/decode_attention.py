@@ -34,6 +34,15 @@ scratch for all three (:func:`chunk_scratch`).  The TPU kernels'
 block-size knob is gone with their grid: the contiguous kernel takes
 any cache length ``S``, the paged ones any pool block size.
 
+The tensor-parallel serving path enters them through
+:func:`sharded_decode_attention` and :func:`sharded_paged_decode_attention`
+(the JAX package's ``shard_map`` bodies as plain functions: one process a
+card holds its shard already): the kernel on the rank's heads, the local
+head slab times the rank's rows of ``wo``, and one all-reduce over the
+``tp`` group completes the row-parallel projection.  Each has its plain
+version beside it (``..._reference``: the plain attention, the same
+projection and the same all-reduce).
+
 Also here: :func:`scatter_prefill_blocks` and
 :func:`scatter_prefill_blocks_quant`, the block-granular prefill writes
 into the pool (plain tensor writes — they were XLA loops, not Pallas
@@ -43,9 +52,12 @@ kernels, in the JAX package).
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 from typing import Dict, List, Optional, Tuple
 
 import torch
+
+from paddle_operator_tpu_torch.ops.quant_matmul import dense_mm
 
 NEG_INF = -1e30
 # the JAX package's pallas key block; kept as the KV-cache allocation
@@ -463,6 +475,155 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 paged_decode_attention.launches = 0
 paged_decode_attention.quant_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel serving: the kernels on a rank's heads, then wo's rows
+# and one all-reduce
+# ---------------------------------------------------------------------------
+
+
+def _tp_size(group) -> int:
+    if group is None:
+        return 1
+    import torch.distributed as dist
+
+    return dist.get_world_size(group)
+
+
+def _check_split(q: torch.Tensor, hkv_local: int, tp: int, heads,
+                 fn: str) -> None:
+    """Refuse, before any collective, a head count the ``tp`` ranks do
+    not split into whole GQA groups (the JAX wrappers' ``ValueError``),
+    and local shapes that are not this rank's share of ``heads``."""
+    hq_l = q.shape[1]
+    hq, hkv = heads if heads is not None else (hq_l * tp, hkv_local * tp)
+    if hq % tp or hkv % tp:
+        raise ValueError(
+            f"{fn}: Hq={hq}/Hkv={hkv} not divisible by tp={tp} — route "
+            "this config to the einsum path")
+    if hq_l != hq // tp or hkv_local != hkv // tp:
+        raise ValueError(
+            f"{fn}: local heads {hq_l}/{hkv_local} are not this rank's "
+            f"share of Hq={hq}/Hkv={hkv} over tp={tp}")
+
+
+def _wo_partial(o: torch.Tensor, wo, dtype) -> torch.Tensor:
+    """``o`` [B, Hq/tp * D] times this rank's rows of ``wo`` in ``dtype``
+    (``quant_matmul.dense_mm``, every projection's route): a
+    ``models.llama.Dense``, or the JAX package's leaf — a raw
+    ``[rows, E]`` kernel or a ``{"q", "s"}`` int8 leaf (codes cut by
+    rows, every scale: they commute with the sum)."""
+    if isinstance(wo, torch.Tensor):
+        wo = SimpleNamespace(mode="none", kernel=wo)
+    elif isinstance(wo, dict):
+        wo = SimpleNamespace(mode="int8", q=wo["q"], s=wo["s"])
+    return dense_mm(o.to(dtype), wo, dtype)
+
+
+def _reduce(x: torch.Tensor, group) -> torch.Tensor:
+    if group is None or _tp_size(group) == 1:
+        return x
+    from paddle_operator_tpu_torch.parallel.collectives import (
+        reduce_partials,
+    )
+
+    return reduce_partials(x, group)
+
+
+def sharded_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, lengths: torch.Tensor,
+                             wo, *, group=None,
+                             layer: Optional[int] = None,
+                             compute_dtype=None, heads=None,
+                             reference: bool = False) -> torch.Tensor:
+    """Tensor-parallel decode attention plus the output projection (JAX
+    ``sharded_decode_attention``, the Megatron decomposition), on one
+    rank of the ``tp`` group ``group``: ``q`` [B, Hq/tp, D] is the rank's
+    query heads, the caches its kv heads ([B, Hkv/tp, S, D], or stacked
+    [L, B, Hkv/tp, S, D] with ``layer``), ``wo`` its rows of the output
+    projection (:func:`_wo_partial`).  The kernel (#1, :func:`decode_
+    attention`) runs on the rank's whole GQA groups, the local head slab
+    is contracted against the rank's rows of wo in ``compute_dtype``
+    (default q's), and one all-reduce over ``group`` in that dtype
+    completes the projection.  Returns [B, E], the same on every rank.
+
+    ``heads``: ``(Hq, Hkv)`` of the whole model; a tp that does not
+    divide both raises ``ValueError`` ("not divisible"), before any
+    collective.  ``reference=True`` runs the plain attention
+    (:func:`sharded_decode_attention_reference`)."""
+    _check_split(q, (k_cache if layer is None else k_cache[layer]).shape[1],
+                 _tp_size(group), heads, "sharded_decode_attention")
+    dtype = compute_dtype if compute_dtype is not None else q.dtype
+    if reference:
+        kc, vc = ((k_cache, v_cache) if layer is None
+                  else (k_cache[layer], v_cache[layer]))
+        out = decode_attention_reference(q, kc, vc, lengths)
+    else:
+        out = decode_attention(q, k_cache, v_cache, lengths, layer=layer)
+    return _reduce(_wo_partial(out.reshape(q.shape[0], -1), wo, dtype),
+                   group)
+
+
+def sharded_decode_attention_reference(q, k_cache, v_cache, lengths, wo,
+                                       **kw) -> torch.Tensor:
+    """The plain version of :func:`sharded_decode_attention`: the plain
+    attention on the rank's heads, the same projection, the same
+    all-reduce."""
+    return sharded_decode_attention(q, k_cache, v_cache, lengths, wo,
+                                    reference=True, **kw)
+
+
+def sharded_paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                                   v_pool: torch.Tensor,
+                                   block_table: torch.Tensor,
+                                   lengths: torch.Tensor, wo, *,
+                                   group=None, layer: Optional[int] = None,
+                                   compute_dtype=None, heads=None,
+                                   k_scale: Optional[torch.Tensor] = None,
+                                   v_scale: Optional[torch.Tensor] = None,
+                                   k_tail: Optional[torch.Tensor] = None,
+                                   v_tail: Optional[torch.Tensor] = None,
+                                   reference: bool = False) -> torch.Tensor:
+    """:func:`sharded_decode_attention` over the paged pool (JAX
+    ``sharded_paged_decode_attention``): the pool is cut on its kv-head
+    axis like the ring cache (block ids are positions, the same on every
+    rank), so the rank runs kernel #2 — or, given the int8 pool's
+    ``k_scale``/``v_scale``/``k_tail``/``v_tail``, cut on the same axis,
+    kernel #3 — on its own whole GQA groups, then wo's rows and the
+    all-reduce.  The block table and lengths are the whole ring's."""
+    pool = k_pool if layer is None else k_pool[layer]
+    _check_split(q, pool.shape[1], _tp_size(group), heads,
+                 "sharded_paged_decode_attention")
+    dtype = compute_dtype if compute_dtype is not None else q.dtype
+    qkw = {}
+    if k_scale is not None:
+        qkw = {"k_scale": k_scale, "v_scale": v_scale,
+               "k_tail": k_tail, "v_tail": v_tail}
+    if reference:
+        if layer is not None:
+            k_pool, v_pool = k_pool[layer], v_pool[layer]
+            qkw = {key: t[layer] for key, t in qkw.items()}
+        if qkw:
+            out = paged_decode_attention_quant_reference(
+                q, k_pool, v_pool, block_table, lengths, qkw["k_scale"],
+                qkw["v_scale"], qkw["k_tail"], qkw["v_tail"])
+        else:
+            out = paged_decode_attention_reference(q, k_pool, v_pool,
+                                                   block_table, lengths)
+    else:
+        out = paged_decode_attention(q, k_pool, v_pool, block_table,
+                                     lengths, layer=layer, **qkw)
+    return _reduce(_wo_partial(out.reshape(q.shape[0], -1), wo, dtype),
+                   group)
+
+
+def sharded_paged_decode_attention_reference(q, k_pool, v_pool,
+                                             block_table, lengths, wo,
+                                             **kw) -> torch.Tensor:
+    """The plain version of :func:`sharded_paged_decode_attention`."""
+    return sharded_paged_decode_attention(q, k_pool, v_pool, block_table,
+                                          lengths, wo, reference=True, **kw)
 
 
 def gather_lane_view(pool: torch.Tensor,

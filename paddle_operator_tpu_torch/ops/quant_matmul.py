@@ -99,6 +99,27 @@ def quant_mm(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor
     return quant_gemm(x, q, s)
 
 
+def dense_mm(x: torch.Tensor, w, dtype) -> torch.Tensor:
+    """x @ W for the projection ``w`` (a ``models.llama.Dense``, or any
+    object with its ``mode``, ``kernel`` or ``q``/``s``), in ``dtype``.
+
+    A raw ``[in, out]`` kernel: ``x @ kernel.to(dtype)``.  A weight-only
+    int8/int4 one (infer/quant.py: codes ``q`` [in, out], f32 scales
+    ``s`` [1, out]) goes through :func:`quant_mm`, routed
+    by the number of rows: up to ``KERNEL_MAX_ROWS`` rows — the ring's
+    lanes, a batch step, a prefix hit's suffix, the speculative verify,
+    a 64-row prefill slice — take kernel A on the card, which streams
+    one byte a weight where dequantize-then-matmul would move five; more
+    rows — a prompt's prefill, bound by its operations — take kernel B,
+    the same function tiled for the tensor cores.  The JAX package's
+    formula, ``(x @ q.to(dtype)) * s.to(dtype)``, is the plain version:
+    it runs on CPU tensors only.  A route by shape: nothing falls back on
+    a failure."""
+    if w.mode == "none":
+        return x @ w.kernel.to(dtype)
+    return quant_mm(x.to(dtype), w.q, w.s)
+
+
 def quant_matmul_reference(x: torch.Tensor, q: torch.Tensor,
                            s: torch.Tensor) -> torch.Tensor:
     """The plain version, the JAX package's ``_mm`` on a ``{"q", "s"}``

@@ -62,6 +62,18 @@ device pointer as a host one.
 
 Every exchange counts the bytes it sends in :data:`EXCHANGE`.
 
+The serving path's collectives (tensor-parallel decoding over a
+``make_serving_mesh`` mesh, ``infer/decode.py``) run forward only, with
+no autograd, and count their calls and bytes in :data:`SERVING`:
+
+- :func:`reduce_partials` — the all-reduce of a row-parallel
+  projection's partial outputs (wo, w2), in the compute dtype, as the
+  JAX package's psum sums them;
+- :func:`serving_embed` — the vocab-parallel embedding lookup: this
+  rank's rows, zeros for the tokens outside them, then the all-reduce;
+- :func:`gather_logits` — the vocab-sharded logits all-gathered along
+  the vocab, so every rank samples the same whole row.
+
 An axis of size 1 gets no collective: on a mesh whose axes are all 1 the
 step runs the single-device operations and nothing else.
 """
@@ -470,3 +482,49 @@ def pipeline_hop(pp, *, fwd: Optional[torch.Tensor] = None,
         recvs[stage + 1] = recv_bwd
     got = exchange(sends, recvs, group, like=like)
     return got.get(stage - 1), got.get(stage + 1)
+
+
+# ---------------------------------------------------------------------------
+# Serving tensor parallelism: forward-only collectives
+# ---------------------------------------------------------------------------
+
+#: calls and bytes of the serving collectives on this rank (bytes: the
+#: rank's own input, per call)
+SERVING: Dict[str, int] = {"reduce_calls": 0, "reduce_bytes": 0,
+                           "gather_calls": 0, "gather_bytes": 0}
+
+
+@torch.no_grad()
+def reduce_partials(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of each rank's partial ``x`` (a
+    row-parallel projection's output on its rows), in ``x``'s dtype: a
+    new contiguous tensor, every rank with the same bits."""
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=group)
+    SERVING["reduce_calls"] += 1
+    SERVING["reduce_bytes"] += out.numel() * out.element_size()
+    return out
+
+
+@torch.no_grad()
+def serving_embed(weight: torch.Tensor, tokens: torch.Tensor, start: int,
+                  group) -> torch.Tensor:
+    """The embedding rows of ``tokens`` from a vocab shard: ``weight``
+    [V/tp, D] holds rows ``start ...`` of the table; a token outside
+    them gives zeros, and the sum over ``group`` leaves each token its
+    one row."""
+    rows = weight.shape[0]
+    local = tokens.long() - start
+    miss = (local < 0) | (local >= rows)
+    out = weight[local.clamp(0, rows - 1)].masked_fill(miss[..., None], 0)
+    return reduce_partials(out, group)
+
+
+@torch.no_grad()
+def gather_logits(x: torch.Tensor, group) -> torch.Tensor:
+    """Vocab-sharded logits ``[..., V/tp]`` gathered along the last dim
+    over ``group`` in rank order: ``[..., V]`` on every rank."""
+    out = _all_gather_dim(x, x.dim() - 1, group)
+    SERVING["gather_calls"] += 1
+    SERVING["gather_bytes"] += x.numel() * x.element_size()
+    return out

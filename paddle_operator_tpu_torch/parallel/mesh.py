@@ -32,9 +32,15 @@ What differs from the JAX module:
   group initialized, a mesh of size 1 builds a world-1 group over an
   in-process store (``torch.distributed.HashStore``): a one-worker job
   needs no coordinator and no ``MASTER_ADDR``.
-- ``make_serving_mesh`` waits for serving tensor parallelism;
-  ``resolve_shard_map_mesh``, ``supports_partial_manual`` and
-  ``compat_shard_map`` are JAX-version shims with no counterpart.
+- :func:`make_serving_mesh` is a one-axis ``("tp",)`` DeviceMesh over a
+  world of exactly ``tp`` ranks, one process a card (the JAX mesh's
+  ``tp`` devices driven by one process), over the backend the caller's
+  process group runs: nccl on cards, gloo on the CPU or on ranks that
+  share a card.  Its control group (:func:`control_group`) carries the
+  serving ring's host messages (``infer/tp.py``) and never times out
+  while a follower waits for the leader.  ``resolve_shard_map_mesh``,
+  ``supports_partial_manual`` and ``compat_shard_map`` are JAX-version
+  shims with no counterpart.
 - Every axis runs: ``cp`` (ring and Ulysses attention), ``pp`` (the
   GPipe and 1F1B pipeline step) and ``ep`` (the MoE layer's local
   experts, ``models/moe.py``); the ``ep`` group of a rank is
@@ -49,6 +55,7 @@ What differs from the JAX module:
 
 from __future__ import annotations
 
+import datetime
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -150,6 +157,55 @@ def make_mesh(spec: Optional[MeshSpec] = None, *,
     # right after the mesh's own groups)
     _CONTROL[mesh] = dist.new_group(backend="gloo") if world > 1 else None
     return mesh
+
+
+# a serving follower waits on the control group for as long as its
+# leader idles between requests
+_SERVING_CONTROL_TIMEOUT = datetime.timedelta(days=365)
+
+
+def make_serving_mesh(tp: int, *, device="cuda") -> DeviceMesh:
+    """The serving path's one-axis ``("tp",)`` mesh (JAX
+    ``make_serving_mesh``): tensor parallelism over heads, ffn and vocab,
+    the Megatron recipe, over every rank of the process group — which
+    must hold exactly ``tp`` ranks, rank *r* at tp coordinate *r*.
+
+    ``device`` is the card type of the tensors ("cuda" or "cpu"); the
+    process group's backend is the caller's (nccl on cards; gloo on the
+    CPU, or on CUDA tensors of ranks that share a card, which nccl
+    refuses).  A ``tp`` of 1 with no group builds a world-1 group over
+    an in-process store.  Every rank calls this once, in the same order
+    as its other group creations."""
+    if tp < 1:
+        raise ValueError(f"tp={tp} must be >= 1")
+    kind, backend = _backend(device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != tp:
+        raise ValueError(f"make_serving_mesh: tp={tp} needs a process "
+                         f"group of {tp} ranks, have {world}")
+    init_world_of_one(device)
+    have = dist.get_backend()
+    if have not in (backend, "gloo"):
+        raise ValueError(f"make_serving_mesh: a {kind} mesh needs the "
+                         f"{backend} or gloo backend; the process group "
+                         f"is {have}")
+    if kind == "cuda":
+        torch.cuda.set_device(torch.cuda.current_device())
+    mesh = DeviceMesh(kind, torch.arange(tp), mesh_dim_names=("tp",))
+    _CONTROL[mesh] = (dist.new_group(backend="gloo",
+                                     timeout=_SERVING_CONTROL_TIMEOUT)
+                      if tp > 1 else None)
+    return mesh
+
+
+def mesh_tp(mesh: Optional[DeviceMesh]) -> int:
+    """Size of the mesh's ``tp`` axis, 1 for no mesh (JAX
+    ``infer/decode.py`` ``mesh_tp``): the one axis serving shards
+    over.  Anything but a DeviceMesh raises ``TypeError``."""
+    if mesh is None:
+        return 1
+    require_mesh(mesh)
+    return mesh_axis_sizes(mesh).get("tp", 1)
 
 
 def single_device_mesh(device="cuda") -> DeviceMesh:

@@ -54,7 +54,18 @@ What differs from the JAX module:
   (``parallel/mesh.py`` ``stage_mesh``) with the placements of the rest
   of its spec.  :func:`placement_by_axis` reads any parameter's
   placements by axis name, whichever mesh it lies on.
-- ``kv_cache_sharding`` waits for serving tensor parallelism.
+- Serving tensor parallelism (a ``parallel/mesh.py``
+  ``make_serving_mesh`` mesh, one ``tp`` axis, one process a card):
+  :func:`kv_cache_sharding` gives the kv heads this rank's KV cache
+  holds (JAX's ``kv_cache_sharding`` of the stacked cache), and
+  :func:`serving_specs` / :func:`serving_region` the cut of a serving
+  tree by ``models/llama.py`` ``partition_patterns`` under
+  :data:`SERVING_RULES` (``vocab``, ``heads``, ``kv_heads``, ``mlp`` to
+  ``tp``; every other axis replicated), an axis the tp does not divide
+  replicated, as JAX's ``replicate_indivisible=True``.  The attention
+  projections stay whole when the kv heads do not split (the kernel
+  must contract whole GQA groups: ``LlamaConfig.decode_tp_compatible``),
+  where the JAX package shards their columns under GSPMD.
 """
 
 from __future__ import annotations
@@ -88,6 +99,19 @@ DEFAULT_RULES: Dict[str, Any] = {
     "expert": "ep",
     "layers": "pp",
 }
+
+
+# the serving mesh's rules: one tp axis over heads, ffn and vocab
+SERVING_RULES: Dict[str, Any] = {
+    "heads": "tp",
+    "kv_heads": "tp",
+    "mlp": "tp",
+    "vocab": "tp",
+}
+
+# the attention projections (whole on every rank when the kv heads do
+# not split over tp)
+_ATTN = re.compile(r"attn\.w[qkvo]\.")
 
 
 def _sizes(mesh) -> Optional[Dict[str, int]]:
@@ -441,3 +465,69 @@ def shard_batch(batch: Mapping[str, Any], mesh: DeviceMesh,
 def to_local(t):
     """The local tensor of a DTensor; any other tensor as it is."""
     return t.to_local() if isinstance(t, DTensor) else t
+
+
+# ---------------------------------------------------------------------------
+# Serving tensor parallelism
+# ---------------------------------------------------------------------------
+
+
+def kv_cache_sharding(n_kv_heads: int, mesh) -> Tuple[int, int]:
+    """The kv heads ``[lo, hi)`` this rank's serving KV cache holds (the
+    contiguous ring, the paged pool, its int8 scales and staging tails:
+    their kv-head axis, JAX's ``kv_cache_sharding``): its block of the
+    ``tp`` axis, so every cache shard lives with the wk/wv columns that
+    fill it; all of them when ``tp`` does not divide ``n_kv_heads`` (the
+    cache is whole on every rank, as JAX's ``alloc_kv_buffer`` leaves
+    it replicated)."""
+    sizes = _sizes(mesh) or {}
+    tp = sizes.get("tp", 1)
+    if tp <= 1 or n_kv_heads % tp:
+        return 0, n_kv_heads
+    r = coordinates(mesh)["tp"]
+    per = n_kv_heads // tp
+    return r * per, (r + 1) * per
+
+
+def serving_specs(shapes: Mapping[str, Any], mesh,
+                  path_patterns: Sequence[Tuple[str, LogicalSpec]],
+                  attn_split: bool = True
+                  ) -> Dict[str, MeshSpecTuple]:
+    """Every name of ``shapes`` (a state dict, or name -> shape) to its
+    per-dim mesh axes on the serving mesh ``mesh`` (or its axis
+    sizes): :func:`tree_specs` under :data:`SERVING_RULES` with every
+    dim its mesh factor does not divide replicated (JAX's
+    ``replicate_indivisible=True``).  A quantized projection's codes
+    ``<name>.q`` take its kernel's spec, and its scales ``<name>.s``
+    ``[1, out]`` the kernel's output-dim entry only: a column-parallel
+    projection's scales are cut with its columns, a row-parallel one's
+    stay whole (the scale is per output column, so it commutes with the
+    sum over the rows' ranks).  ``attn_split=False`` keeps the
+    attention projections whole."""
+    sizes = _sizes(mesh)
+    out = {}
+    for name, t in shapes.items():
+        shape = tuple(getattr(t, "shape", t))
+        look = name
+        if name.endswith((".q", ".s")):
+            look = name[:-2] + ".kernel"
+        logical = spec_for_path(path_patterns, look)
+        if not attn_split and _ATTN.search(name):
+            logical = ()
+        pspec = list(logical_to_mesh(logical, SERVING_RULES, sizes))
+        if name.endswith(".s"):
+            pspec = [None] + pspec[1:2]
+        pspec = pspec[:len(shape)]
+        spec = tuple(pspec + [None] * (len(shape) - len(pspec)))
+        out[name] = tuple(
+            None if entry is not None and shape[d] % _factor(entry, sizes)
+            else entry for d, entry in enumerate(spec))
+    return out
+
+
+def serving_region(shape: Sequence[int], spec: MeshSpecTuple,
+                   mesh) -> Tuple[slice, ...]:
+    """The region of a tensor of ``shape`` that this rank of the serving
+    mesh holds under ``spec`` (:func:`serving_specs`): its
+    :func:`local_slices`."""
+    return local_slices(shape, mesh, placements(spec, mesh))

@@ -159,11 +159,13 @@ class TestCache:
 
     def test_unported_options_refused(self, setup):
         _, _, _, model, cfg = setup
-        with pytest.raises(NotImplementedError):
+        # a mesh is a parallel/mesh.py DeviceMesh (tensor-parallel
+        # serving: tests/test_torch_serving_tp*.py); anything else raises
+        with pytest.raises(TypeError):
             D.init_cache(cfg, 1, 16, device="cpu", mesh=object())
         cache = D.init_cache(cfg, 1, 16, device="cpu")
         tok = torch.zeros((1, 1), dtype=torch.int32)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError):
             D._forward(cfg, model, tok, cache, mesh=object())
         # the lora leg is served (tests/test_torch_adapters.py): the base
         # slot adds an exact zero

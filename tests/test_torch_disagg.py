@@ -1189,7 +1189,8 @@ class TestEnv:
     @pytest.mark.parametrize("knob", [
         # fleet-level KV is served (tests/test_torch_fleetkv.py): beside
         # remote disaggregated prefill each knob passes and reaches the
-        # ring; SERVE_TP > 1 is still refused, by its name
+        # ring; SERVE_TP > 1 with disaggregated prefill is refused, by
+        # both names (ROADMAP.md item 8.5b)
         pytest.param({"SERVE_KV_MIGRATE": "1"}, id="knob0"),
         pytest.param({"SERVE_KV_PEER_FETCH": "1",
                       "SERVE_HOST_CACHE_BLOCKS": "8"}, id="knob1"),
@@ -1204,7 +1205,7 @@ class TestEnv:
         if name == "SERVE_TP":
             with pytest.raises(ValueError, match=name) as e:
                 S.refuse_unported(env)
-            assert "SERVE_PREFILL" not in str(e.value)
+            assert "SERVE_PREFILL=disagg" in str(e.value)
             return
         S.refuse_unported(env)
         kw = S.ring_kw_from_env(dict(env, SERVE_BLOCK_SIZE=str(BS),

@@ -577,14 +577,17 @@ def _kv_client(b):
     pytest.param({"SERVE_KV_BROKER": "127.0.0.1:9100",
                   "SERVE_KV_MIGRATE": "1"}, id="knob3")])
 def test_megastep_with_unported_knob_refused_by_its_name(setup, knob):
-    """Only SERVE_TP > 1 is still refused beside SERVE_MEGASTEP, by its
-    name; the fleet-KV knobs boot a megastep ring and reach it."""
+    """No knob is refused beside SERVE_MEGASTEP: SERVE_TP > 1 passes the
+    start checks on a pod of as many cards (the tp ring at megastep 4:
+    tests/test_torch_serving_tp_rings.py), and the fleet-KV knobs boot a
+    megastep ring and reach it."""
     env = {"SERVE_CONTINUOUS": "1", "SERVE_PAGED": "1",
            "SERVE_MEGASTEP": "4", **knob}
     name = next(iter(knob))
     if name == "SERVE_TP":
+        assert S.check_start(env, cards=2) == 2
         with pytest.raises(ValueError, match=name) as e:
-            S.refuse_unported(env)
+            S.check_start(env, cards=1)
         assert "SERVE_MEGASTEP" not in str(e.value)
         return
     S.refuse_unported(env)

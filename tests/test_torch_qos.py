@@ -642,7 +642,9 @@ class TestPriorityScheduling:
     def test_heal_fails_a_parked_lane_retriable(self, setup):
         """A raising dispatch while a lane is parked: the rebuild fails
         the resident AND the parked request with the retriable error,
-        and the rebuilt ring serves the victim's tokens afresh."""
+        drops the parked lane's spill through the executor (a
+        tensor-parallel ring's followers free their halves), and the
+        rebuilt ring serves the victim's tokens afresh."""
         model, cfg, ref, _, _ = setup
         b = _batcher(model, cfg, resilience=RingResilience(
             watchdog=False, backoff_base_s=0.01))
@@ -651,9 +653,12 @@ class TestPriorityScheduling:
             h_long, h0 = _preempt_once(b, p, 40, p0_new=24, delay=0.05)
             _wait(lambda: b.stats["preempted_lanes"], "no preemption")
             real = b.executor.replay
+            parked, dropped = [], []
+            b.executor.drop_spill = dropped.append
 
             def faulty(plan):
                 b.executor.replay = real
+                parked.extend(pk.spill for pk in b._parked)
                 raise RuntimeError("injected dispatch fault")
 
             b.executor.replay = faulty
@@ -661,6 +666,7 @@ class TestPriorityScheduling:
                 with pytest.raises(RetriableError):
                     h.result(timeout=300)
             assert b.stats["watchdog_restarts"] == 1
+            assert len(parked) == 1 and dropped == parked
             _wait(lambda: b.accepting, "the ring was not rebuilt")
             assert b.serving_status()["parkedLanes"] == 0
             assert b.submit(p, max_new_tokens=12).result(timeout=300) == \

@@ -352,8 +352,11 @@ class TestSubmit:
         # adapters are ported (tests/test_torch_adapters.py), and so is
         # span tracing (tests/test_torch_tracing.py): beside an unported
         # option it is that option that is refused
+        # tensor-parallel serving is ported too
+        # (tests/test_torch_serving_tp_rings.py): a mesh that is not a
+        # serving DeviceMesh is refused
         exc, match = ((ValueError, "kv_quant") if "kv_quant" in kw
-                      else (NotImplementedError, "not ported"))
+                      else (TypeError, "DeviceMesh"))
         with pytest.raises(exc, match=match) as e:
             ContinuousBatcher(model, cfg, slots=1, max_len=MAX_LEN,
                               **{"paged": True, "block_size": BS, **kw})

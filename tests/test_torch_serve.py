@@ -226,11 +226,14 @@ FLEET_KV_KNOBS = ("SERVE_KV_MIGRATE", "SERVE_KV_PEER_FETCH",
 class TestEntryPoint:
     @pytest.mark.parametrize("env", [
         # SERVE_ADAPTERS is served (tests/test_torch_adapters.py), and so
-        # is fleet-level KV (tests/test_torch_fleetkv.py): beside the one
-        # knob still refused, main() refuses that knob and names no other
+        # is fleet-level KV (tests/test_torch_fleetkv.py) — but not under
+        # SERVE_TP > 1, where main() refuses the fleet-KV knobs that ask
+        # for it by name (ROADMAP.md item 8.5b) and names no other
         {"SERVE_CONTINUOUS": "1", "SERVE_ADAPTERS": "acme",
          "SERVE_KV_MIGRATE": "1", "SERVE_KV_PEER_FETCH": "1",
          "SERVE_MIGRATE_PARKED_S": "5", "SERVE_TP": "2"},
+        # SERVE_TP > 1 alone is served (tests/test_torch_serving_tp*.py),
+        # on the card: without one main() refuses to start
         {"SERVE_TP": "2"},
     ])
     def test_unported_knobs_refused(self, monkeypatch, env):
@@ -238,10 +241,19 @@ class TestEntryPoint:
             monkeypatch.delenv(k, raising=False)
         for k, v in env.items():
             monkeypatch.setenv(k, v)
+        if len(env) == 1:
+            S.refuse_unported(env)
+            with pytest.raises(RuntimeError, match="CUDA"):
+                S.main()
+            return
         with pytest.raises(ValueError, match="not ported") as e:
             S.main()
         assert "SERVE_TP=2" in str(e.value)
-        assert not any(k in str(e.value) for k in FLEET_KV_KNOBS)
+        refused = ("SERVE_KV_MIGRATE", "SERVE_KV_PEER_FETCH")
+        assert all(k in str(e.value) for k in refused)
+        assert not any(k in str(e.value) for k in FLEET_KV_KNOBS
+                       if k not in refused)
+        assert "SERVE_ADAPTERS" not in str(e.value)
 
     @pytest.mark.parametrize("env,mode", [
         ({"QUANTIZE": "int8"}, "int8"),
@@ -314,13 +326,13 @@ class TestEntryPoint:
 
     def test_continuous_server_refused(self):
         # the continuous server serves (TestContinuousServer), adapters,
-        # span tracing and disaggregated prefill included
-        # (tests/test_torch_adapters.py, tests/test_torch_tracing.py,
-        # tests/test_torch_disagg.py); what it does not carry yet —
-        # tensor-parallel serving — is refused at construction
+        # span tracing, disaggregated prefill and tensor-parallel serving
+        # included (tests/test_torch_adapters.py, tests/test_torch_
+        # tracing.py, tests/test_torch_disagg.py, tests/test_torch_
+        # serving_tp*.py); a mesh that is not a serving DeviceMesh is
+        # refused at construction
         model, cfg = make_model("tiny", device="cpu")
-        with pytest.raises(NotImplementedError,
-                           match="tensor-parallel"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             S.make_server("127.0.0.1", 0, model, cfg, continuous=True,
                           trace=True, paged=True, prefill_mode="disagg",
                           mesh="tp2")
@@ -672,7 +684,7 @@ REFUSED_KNOBS = [
     # adapters are served (tests/test_torch_adapters.py); beside a knob
     # still refused, that knob is named and SERVE_ADAPTERS is not
     pytest.param({"SERVE_ADAPTERS": "acme", "SERVE_TRACE": "1",
-                  "SERVE_TP": "2"},
+                  "SERVE_TP": "2", "MODEL_PRESET": "tiny-moe"},
                  id="SERVE_ADAPTERS=acme"),
     # the ring operations are served: each beside a knob still refused
     pytest.param({"SERVE_TRACE": "1", "SERVE_KV_MIGRATE": "1",
@@ -682,7 +694,8 @@ REFUSED_KNOBS = [
                   "SERVE_KV_BROKER": "127.0.0.1:9100", "SERVE_TP": "2"},
                  id="SERVE_NAN_CHECK=1"),
     pytest.param({"TPUJOB_CHAOS": "dispatch_hang@3:0.25",
-                  "SERVE_KV_BROKER": "127.0.0.1:9100", "SERVE_TP": "2"},
+                  "SERVE_KV_BROKER": "127.0.0.1:9100", "SERVE_TP": "2",
+                  "SERVE_KV_STORE": "dir:/tmp/kvs"},
                  id="TPUJOB_CHAOS=dispatch_hang@3:0.25"),
     # fleet-level KV is served (tests/test_torch_fleetkv.py): each of its
     # knobs beside the one still refused, which alone is named
@@ -692,9 +705,13 @@ REFUSED_KNOBS = [
                   "127.0.0.1:9101", "SERVE_TP": "2"},
                  id="SERVE_KV_PEER_FETCH=1"),
     pytest.param({"SERVE_KV_BROKER": "127.0.0.1:9100",
-                  "SERVE_MIGRATE_PARKED_S": "5", "SERVE_TP": "2"},
+                  "SERVE_MIGRATE_PARKED_S": "5", "SERVE_TP": "2",
+                  "SERVE_HOST_CACHE_MB": "8"},
                  id="SERVE_KV_BROKER=127.0.0.1:9100"),
-    {"SERVE_TP": "2"},
+    # SERVE_TP > 1 is served (tests/test_torch_serving_tp*.py): beside
+    # it an MoE preset is refused, by its name
+    pytest.param({"SERVE_TP": "2", "MODEL_PRESET": "tiny-moe"},
+                 id="SERVE_TP=2"),
     # the weight-quant knobs are served (tests/test_torch_weight_quant.py);
     # beside a knob still refused, that knob is named and they are not
     pytest.param({"QUANTIZE": "int8", "SERVE_KV_PEER_FETCH": "1",
@@ -710,6 +727,11 @@ SERVED_KNOBS = ("SERVE_MEGASTEP", "QUANTIZE", "SERVE_WEIGHT_QUANT",
                 "SERVE_PREFILL_LANES") + FLEET_KV_KNOBS
 # knobs served at the values listed (every SERVE_PREFILL mode is served)
 SERVED_SETTINGS = {"SERVE_PREFILL": ("chunked", "disagg")}
+# beside SERVE_TP > 1 these knobs and settings are refused too, each by
+# its name (ROADMAP.md Queue A item 8.5b)
+TP_REFUSED_KNOBS = ("SERVE_SPEC_K", "SERVE_KV_MIGRATE",
+                    "SERVE_KV_PEER_FETCH")
+TP_REFUSED_SETTINGS = {"SERVE_PREFILL": ("disagg",)}
 
 
 @pytest.mark.parametrize("env", REFUSED_KNOBS,
@@ -723,11 +745,18 @@ def test_refuse_unported_names_the_knob(env):
     said = str(pytest.raises(ValueError, S.refuse_unported,
                              environ).value)
     assert value in said
-    served = [k for k, v in env.items() if v in SERVED_SETTINGS.get(k, ())]
-    assert all(k in said for k in env
-               if k not in SERVED_KNOBS and k not in served)
-    assert not any(k in said for k in SERVED_KNOBS)
-    assert not any(k in said for k in served)
+    tp = int(environ.get("SERVE_TP", "1")) > 1
+
+    def refused(k, v):
+        if tp and (k in TP_REFUSED_KNOBS
+                   or v in TP_REFUSED_SETTINGS.get(k, ())):
+            return True
+        return k not in SERVED_KNOBS and v not in SERVED_SETTINGS.get(k, ())
+
+    assert all(k in said for k, v in env.items() if refused(k, v))
+    assert not any(k in said for k, v in env.items() if not refused(k, v))
+    assert not any(k in said for k in SERVED_KNOBS
+                   if not (tp and k in TP_REFUSED_KNOBS))
 
 
 # the host tier and the durable store are served
